@@ -1,0 +1,89 @@
+"""CLI: ``python -m fast_tffm_tpu_torch.cli serve <cfg>`` — the PyTorch
+port's entry point, taking the same INI files as ``run_tffm.py``.
+
+This slice of the port serves; ``train`` and ``predict`` raise
+NotImplementedError naming their ROADMAP.md items.  Runs on the GPU
+unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+__all__ = ["build_argparser", "main"]
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m fast_tffm_tpu_torch.cli",
+        description="factorization machine scoring on an NVIDIA GPU "
+                    "(PyTorch/CUDA)",
+    )
+    p.add_argument("mode", choices=["train", "predict", "serve"])
+    p.add_argument("cfg", help="INI config file (same format as run_tffm.py)")
+    p.add_argument(
+        "--device", default=None, choices=["cuda", "cpu"],
+        help="device to run on (default cuda; a host without a GPU "
+             "needs --device cpu)",
+    )
+    p.add_argument(
+        "--serve_port", type=int, default=None,
+        help="HTTP scoring endpoint port (0 = OS-assigned, printed at "
+             "startup)",
+    )
+    p.add_argument(
+        "--serve_batch_sizes", default=None, metavar="N,N,...",
+        help="fixed microbatch shape ladder (example counts) requests "
+             "pad/coalesce into",
+    )
+    p.add_argument(
+        "--max_batch_wait_ms", type=float, default=None,
+        help="request-coalescing deadline: dispatch a microbatch when "
+             "the largest rung fills or this many ms pass",
+    )
+    p.add_argument(
+        "--serve_poll_secs", type=float, default=None,
+        help="checkpoint hot-swap poll period; the port serves the "
+             "startup checkpoint only, so this must be 0",
+    )
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    from fast_tffm_tpu_torch.config import load_config
+
+    overrides = {
+        key: getattr(args, key)
+        for key in ("serve_port", "serve_batch_sizes", "max_batch_wait_ms",
+                    "serve_poll_secs")
+        if getattr(args, key) is not None
+    }
+    cfg = load_config(args.cfg, overrides or None)
+    handlers = [logging.StreamHandler(sys.stderr)]
+    if cfg.log_file:
+        handlers.append(logging.FileHandler(cfg.log_file))
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+        handlers=handlers, force=True,
+    )
+    if args.mode == "train":
+        raise NotImplementedError(
+            "training is not in the PyTorch port yet (ROADMAP.md, port "
+            "queue item 1)"
+        )
+    if args.mode == "predict":
+        raise NotImplementedError(
+            "offline predict is not in the PyTorch port yet (ROADMAP.md, "
+            "port queue item 1)"
+        )
+    from fast_tffm_tpu_torch.serve.server import serve_forever
+
+    return serve_forever(cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,98 @@
+"""FM model core — the counterpart of ``fast_tffm_tpu/models/fm.py``.
+
+Numeric spec (reference ``FmScorer``):
+
+    score_e = w0 + sum_i w[i]*x_i
+                 + 0.5 * sum_f [ (sum_i V[i,f]*x_i)^2 - sum_i V[i,f]^2*x_i^2 ]
+
+The parameters are one table ``[vocab, D]`` whose column 0 is the linear
+weight and columns 1: the factor vector, plus the global bias ``w0`` —
+held by :class:`FmModel`.  Padded feature slots carry ``val == 0`` and
+contribute nothing.  Plain FM only (``field_num == 0``); field-aware FM
+is a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from fast_tffm_tpu_torch.config import FmConfig
+from fast_tffm_tpu_torch.ops import interaction
+from fast_tffm_tpu_torch.platform import resolve_device
+
+__all__ = [
+    "FmModel", "fm_scores", "init_params", "interaction_terms",
+    "scores_from_rows", "scores_from_terms",
+]
+
+
+class FmModel(nn.Module):
+    """``w0 []`` global bias and ``table [vocab, D]`` rows, float32."""
+
+    def __init__(self, w0: torch.Tensor, table: torch.Tensor):
+        super().__init__()
+        if w0.dim() != 0 or table.dim() != 2:
+            raise ValueError(
+                f"FmModel wants w0 [] and table [vocab, D], got "
+                f"{tuple(w0.shape)} and {tuple(table.shape)}"
+            )
+        self.w0 = nn.Parameter(w0.to(torch.float32))
+        self.table = nn.Parameter(table.to(torch.float32))
+
+    def forward(self, ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+        return fm_scores(self, ids, vals)
+
+
+def init_params(
+    cfg: FmConfig,
+    generator: torch.Generator,
+    device: Optional[Union[str, torch.device]] = None,
+) -> FmModel:
+    """Uniform table init in ±``init_value_range``, ``w0 = 0`` (the
+    reference's init; the numbers differ from JAX's threefry draw).
+    ``generator`` must live on the resolved device."""
+    dev = resolve_device(device)
+    r = cfg.init_value_range
+    table = torch.empty(
+        (cfg.vocabulary_size, cfg.embedding_dim), dtype=torch.float32,
+        device=dev,
+    )
+    table.uniform_(-r, r, generator=generator)
+    return FmModel(torch.zeros((), dtype=torch.float32, device=dev), table)
+
+
+def interaction_terms(rows: torch.Tensor, vals: torch.Tensor):
+    """Per-example ``(linear [B], s1 [B, k], s2 [B, k])`` partial sums,
+    f32 — linear in per-feature contributions, so they can be summed
+    over row shards before :func:`scores_from_terms` squares them."""
+    rows = rows.float()
+    vals = vals.float()
+    xv = rows[..., 1:] * vals[..., None]
+    linear = (rows[..., 0] * vals).sum(dim=-1)
+    return linear, xv.sum(dim=1), (xv * xv).sum(dim=1)
+
+
+def scores_from_terms(w0, linear, s1, s2) -> torch.Tensor:
+    return w0 + linear + 0.5 * (s1 * s1 - s2).sum(dim=-1)
+
+
+def scores_from_rows(w0: torch.Tensor, rows: torch.Tensor,
+                     vals: torch.Tensor) -> torch.Tensor:
+    """Scores ``[B]`` f32 from gathered rows ``[B, F, D]``: the FM
+    interaction (the CUDA kernel on the GPU) plus ``w0``."""
+    scores, _ = interaction.forward(rows.float().contiguous(),
+                                    vals.float().contiguous())
+    return w0.float() + scores
+
+
+def fm_scores(model: FmModel, ids: torch.Tensor,
+              vals: torch.Tensor) -> torch.Tensor:
+    """Gather + score: ``ids [B, F]`` int, ``vals [B, F]`` -> ``[B]``.
+    Ids must lie in ``[0, vocab)`` (on the GPU an id outside it is a
+    device-side assert, not a clamp)."""
+    d = model.table.shape[1]
+    rows = model.table.index_select(0, ids.reshape(-1))
+    return scores_from_rows(model.w0, rows.view(*ids.shape, d), vals)

@@ -1,0 +1,73 @@
+"""Guards of the port's boundaries: it never imports jax or the JAX
+package, it runs on the GPU unless asked for the CPU, and its kernel
+wrapper raises instead of falling back."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from fast_tffm_tpu_torch.ops import fm_kernels
+from fast_tffm_tpu_torch.platform import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import fast_tffm_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "orbax", "ml_dtypes")
+             or m == "fast_tffm_tpu" or m.startswith("fast_tffm_tpu."))
+print(len(names))
+print(",".join(bad))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    # A fresh interpreter: this test process already imported jax
+    # through conftest.py, which would hide the check.
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+        text=True, timeout=120, check=True,
+    ).stdout.splitlines()
+    assert int(out[0]) >= 15, out  # every module of the package imported
+    assert out[1] == "", f"the port imported {out[1]}"
+
+
+def test_resolve_device_defaults_to_the_gpu():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+@pytest.mark.parametrize("rows, vals, err", [
+    (torch.zeros((4, 3, 5), dtype=torch.float64), torch.zeros((4, 3)),
+     TypeError),
+    (torch.zeros((4, 3, 5)), torch.zeros((4, 3), dtype=torch.float16),
+     TypeError),
+    (torch.zeros((4, 15)), torch.zeros((4, 3)), ValueError),
+    (torch.zeros((4, 3, 5)), torch.zeros((4, 2)), ValueError),
+    (torch.zeros((4, 3, 5)), torch.zeros((4, 3)).t().contiguous().t(),
+     ValueError),
+    (torch.zeros((4, 3, 5)), torch.zeros((4, 3), device="meta"),
+     ValueError),
+])
+def test_kernel_wrapper_raises_instead_of_falling_back(rows, vals, err):
+    """The wrapper checks CPU tensors as it checks CUDA ones: what the
+    kernel would refuse raises here too, and never counts a launch."""
+    before = fm_kernels.fm_scores_cuda.launches
+    with pytest.raises(err):
+        fm_kernels.fm_scores_cuda(rows, vals)
+    assert fm_kernels.fm_scores_cuda.launches == before
