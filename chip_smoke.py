@@ -8,30 +8,49 @@ Phases, in order; any failed check ends the run with a non-zero exit:
 
 1. Print the card's name and power limit (``nvidia-smi``).
 2. Build every CUDA kernel from ``fast_tffm_tpu_torch/ops/csrc`` with
-   ``nvcc`` for ``sm_90a`` and time the build.
-3. Kernel phase: hold ``fm_scores_cuda`` against ``fm_scores_plain`` on
-   the card at B in {1, 64, 1000, 1024}, F=39, D=9, and time both at the
-   largest serving rung.
-4. Serve phase (the main path): write random Criteo-Kaggle-width weights
-   (``examples/criteo_kaggle.cfg``: V=2^22, F=39, D=9, logistic loss,
-   ladder 64/256/1024) to ``params.npz``, start ``serve()`` on port 0,
-   send ``/score`` (libsvm text) and ``/score_bin`` (binary frame)
-   requests covering every rung plus one larger than the largest rung,
-   and check that the two transports agree bitwise, that the scores
-   match the plain PyTorch path computed on the card, that out-of-range
-   ids are reduced like the text path reduces them, and that the kernel
-   ran.  Time request latency and per-rung dispatch.
+   ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel) and
+   time the build.
+3. Data: write seeded synthetic labelled Criteo-shaped lines (13
+   ``I<j>_<bucket>`` and 26 ``C<j>_<hex>`` tokens, hashed by the parser;
+   labels planted from a fixed rule on the integer buckets) for
+   training (16 batches of 4096), validation and predict.
+4. Kernel phase: every kernel against its plain PyTorch version on the
+   card — ``fm_scores`` at the serving rungs and at a parsed training
+   batch (B = 4096: train step, validation, predict), ``fm_grad`` at B in
+   {1, 1000, 4096}, K1 and K2 (adagrad, ftrl, sgd) at the training
+   shapes of a parsed batch and with one id of >= 5000 occurrences —
+   then kernel, plain and library call timed in CUDA graphs at the
+   main paths' shapes.
+5. Train phase (main path 1): ``Trainer(cfg).train()`` on
+   ``examples/criteo_kaggle.cfg`` at full width (V = 2^22, F = 39,
+   D = 9, B = 4096, Adagrad, batch L2, host sort meta), 16 steps, then
+   validation on one file and ``predict``.  Checks: at least one launch
+   per step of ``fm_grad``, ``k1_dedup`` and ``k2_apply``; the logloss
+   of the last steps below the first step's; one finite probability per
+   predict line.
+6. Parity phase: 3 steps through the kernels vs 3 through the plain
+   path from the same initial weights: each step's scores
+   (``rtol=1e-5, atol=1e-5``), the tables (``rtol=1e-4, atol=1e-6``
+   table, ``atol=1e-4`` accumulator) and what the steps changed in each
+   (``delta_check``); and host sort meta vs device sort meta (bitwise).  Then the step's p50 (host clock, synchronised), its
+   device idle share from ``torch.profiler`` and the peak memory.
+7. Serve phase (main path 2): serve the checkpoint the train phase
+   wrote over ``/score`` and ``/score_bin``, every rung plus one request
+   larger than the largest; the two transports agree bitwise, scores
+   match the plain path on the card, out-of-range ids reduce like the
+   text path, the kernel ran.  Request latency and dispatch per rung.
 
-Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
-non-zero, printing no result, without a CUDA GPU or without the package
-beside this script.
+Output: progress lines and JSON records, then a ``{"kernels": [...]}``
+JSON line, the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+{...}}``.  Exits non-zero, printing no result, without a CUDA GPU or
+without the package beside this script.
 """
 
 from __future__ import annotations
 
 import http.client
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -49,9 +68,24 @@ PEAK_F32_FLOPS = 67e12
 # order and FMA contraction; at these inputs (|rows| ~ 0.3, 39 features)
 # that is a few f32 ulps of |s1^2| and |s2| (~3), i.e. below 1e-5.
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+# K1 is held to its plain version run in float64 within the error its
+# order of summation allows (sparse_apply.k1_error_bound); the float32
+# plain version sums with atomics in an order that changes from run to
+# run.  Sparse apply and training steps, kernels vs plain: the
+# reference's tile-vs-scatter bounds (tests/test_sparse_apply.py).
+TABLE_TOL = dict(rtol=1e-4, atol=1e-6)
+OPT_TOL = dict(rtol=1e-4, atol=1e-4)
+# A step changes a weight by ~1e-6 and an accumulator by ~1e-8, far
+# inside those bounds, so the parity steps also hold the changes
+# themselves to each other (delta_check).
+DELTA_RTOL = 1e-3
 # Served scores vs the plain path on the card: the repo's FmScorer
 # tolerance (tests/test_pallas_ops.py); the sigmoid only shrinks errors.
 SERVE_TOL = dict(rtol=1e-5, atol=1e-6)
+# Train phase: 16 steps of 4096 lines in two files, one validation and
+# one predict file of 4096 lines each.
+TRAIN_FILES, BATCHES_PER_FILE, LINES = 2, 8, 4096
+INT_BUCKETS = 50
 
 
 def check(cond: bool, msg: str) -> None:
@@ -100,6 +134,7 @@ def graph_ms(torch, fn, calls: int = 100, reps: int = 7) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    del graph
     return p50(times)
 
 
@@ -122,7 +157,9 @@ def time_per_call_ms(torch, fn, iters: int = 200, warm: int = 20) -> float:
 
 def device_times_ms(torch, fn, iters: int = 50):
     """Per-call device time by op from torch.profiler over ``iters``
-    calls, plus the host wall per call: ``({name: ms}, wall_ms)``."""
+    calls, the host wall per call, and the host (CPU) self time per call
+    of the ten costliest host ops: ``({name: ms}, wall_ms, {name: ms})``."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -134,11 +171,15 @@ def device_times_ms(torch, fn, iters: int = 50):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out = {}
+    out, host = {}, {}
     for ev in prof.key_averages():
-        # Device-side activities only (kernels, copies): the aten::
-        # host ops report their kernels' time again as their own.
-        if ev.key.startswith("aten::") or "Activity Buffer" in ev.key:
+        cpu_us = getattr(ev, "self_cpu_time_total", 0.0)
+        if cpu_us > 0:
+            host[ev.key[:60]] = cpu_us / 1e3 / iters
+        # Device-side activities only (kernels, copies): a host range
+        # (an aten:: op, an autograd Function) reports the kernels it
+        # launched again as its own device time.
+        if ev.device_type == DeviceType.CPU or "Activity Buffer" in ev.key:
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -147,19 +188,73 @@ def device_times_ms(torch, fn, iters: int = 50):
             name = ev.key.replace("(anonymous namespace)::", "")
             name = name.split("(")[0].split("<")[0].strip()[:60]
             out[name] = out.get(name, 0.0) + dev_us / 1e3 / iters
-    return out, wall * 1e3 / iters
+    top = dict(sorted(host.items(), key=lambda kv: -kv[1])[:10])
+    return out, wall * 1e3 / iters, top
 
 
-def fm_bound_ms(b: int, f: int, d: int):
-    """Least time for the FmScorer forward on these shapes: every input
-    byte read once and every output byte written once over HBM
-    bandwidth, vs its f32 operations over the f32 rate."""
-    k = d - 1
-    nbytes = 4 * (b * f * d + b * f + b + b * k)
-    ops = b * (f * (2 + 4 * k) + 3 * k + 2)
+def bound(nbytes: float, ops: float):
+    """``(ms, "bytes" | "operations")``: the larger of the bytes over
+    HBM bandwidth and the f32 operations over the f32 rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fm_bound_ms(b: int, f: int, d: int):
+    """FmScorer forward: rows and vals read, scores and s1 written."""
+    k = d - 1
+    return bound(4 * (b * f * d + b * f + b + b * k),
+                 b * (f * (2 + 4 * k) + 3 * k + 2))
+
+
+def fm_grad_bound_ms(b: int, f: int, d: int):
+    """FmGrad: rows, vals, s1, dscores read; drows written.  Per (b, f):
+    g*x, then per factor v*x, a subtraction and a product."""
+    k = d - 1
+    return bound(4 * (2 * b * f * d + b * f + b * k + b),
+                 b * f * (1 + 3 * k))
+
+
+def k1_bound_ms(n: int, u: int, d: int):
+    """K1: g_rows, ids, perm and seg_start read; urows and sums written.
+    Per occurrence and column: g, g*g, two adds."""
+    return bound(4 * (n * d + 2 * n + (u + 1) + u + 2 * d * u), 3 * n * d)
+
+
+def delta_check(torch, name: str, kern, plain, start) -> dict:
+    """Holds what the parity steps changed in one table, kernel path vs
+    plain path, both from ``start``.  Per element the two changes agree
+    within ``DELTA_RTOL`` of the plain change plus two roundings of the
+    stored float32 value (``2^-23`` of it each: the paths may round
+    nearly equal sums to neighbouring floats); over the table the norm
+    of the difference is within ``DELTA_RTOL`` of the plain change's
+    norm, which a table the kernel never wrote fails (error 1)."""
+    dk = kern.detach().double() - start.double()
+    dp = plain.detach().double() - start.double()
+    diff = (dk - dp).abs()
+    ulp = 2.0**-23 * torch.maximum(kern.detach().abs(),
+                                   plain.detach().abs()).double()
+    check(bool(torch.all(diff <= DELTA_RTOL * dp.abs() + 2 * ulp)),
+          f"{name}: kernel and plain steps changed it differently, max "
+          f"|diff| {float(diff.max()):.3e}")
+    norm = float(torch.linalg.vector_norm(dp))
+    check(norm > 0, f"{name}: the plain steps left it unchanged")
+    rel = float(torch.linalg.vector_norm(dk - dp)) / norm
+    check(rel <= DELTA_RTOL, f"{name}: change differs by {rel:.3e} of its "
+          f"norm")
+    return {"changed": int((dp != 0).sum()), "max_abs_change":
+            float(dp.abs().max()), "change_max_abs_err": float(diff.max()),
+            "change_rel_err": rel}
+
+
+def k2_bound_ms(u: int, d: int):
+    """K2 Adagrad: the entry stream (urows, sums) read; table and
+    accumulator read and written at the U touched rows.  Per element:
+    two adds, a reciprocal square root, two products, a subtraction."""
+    return bound(4 * (u + 2 * d * u + 4 * d * u), 6 * u * d)
+
+
+# -- synthetic data ----------------------------------------------------
 
 
 def criteo_body(rng, n: int) -> str:
@@ -168,13 +263,31 @@ def criteo_body(rng, n: int) -> str:
     categorical ``C<j>_<hex>:1`` tokens (39 features per line)."""
     lines = []
     for _ in range(n):
-        ints = rng.integers(0, 50, 13)
+        ints = rng.integers(0, INT_BUCKETS, 13)
         ivals = rng.uniform(0.0, 3.0, 13)
         cats = rng.integers(0, 1 << 32, 26)
         toks = [f"I{j + 1}_{ints[j]}:{ivals[j]:.4f}" for j in range(13)]
         toks += [f"C{j + 1}_{cats[j]:08x}:1" for j in range(26)]
         lines.append(" ".join(toks))
     return "\n".join(lines) + "\n"
+
+
+def write_labelled(np, path: str, rng, n: int, w_true) -> None:
+    """``n`` labelled Criteo-shaped lines.  The label is planted:
+    ``P(y = 1) = sigmoid(sum_j w_true[j, bucket_j])`` over the 13
+    integer features, so a model that learns the bucket weights lowers
+    the logloss; the 26 categorical tokens are noise."""
+    ints = rng.integers(0, INT_BUCKETS, (n, 13))
+    ivals = rng.uniform(0.5, 1.5, (n, 13))
+    cats = rng.integers(0, 1 << 32, (n, 26))
+    score = w_true[np.arange(13), ints].sum(axis=1)
+    labels = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-score))).astype(int)
+    with open(path, "w") as f:
+        for i in range(n):
+            toks = [f"I{j + 1}_{ints[i, j]}:{ivals[i, j]:.4f}"
+                    for j in range(13)]
+            toks += [f"C{j + 1}_{cats[i, j]:08x}:1" for j in range(26)]
+            f.write(f"{labels[i]} {' '.join(toks)}\n")
 
 
 def post(conn, path: str, body: bytes) -> bytes:
@@ -196,22 +309,33 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data.libsvm import (
+        host_sort_meta, make_batch, parse_lines,
+    )
     from fast_tffm_tpu_torch.models import fm
-    from fast_tffm_tpu_torch.ops import _build
+    from fast_tffm_tpu_torch.ops import _build, sparse_apply
     from fast_tffm_tpu_torch.ops.fm_kernels import (
-        fm_scores_cuda, fm_scores_plain,
+        fm_grad_cuda, fm_grad_plain, fm_scores_cuda, fm_scores_plain,
+    )
+    from fast_tffm_tpu_torch.ops.sparse_apply import (
+        k1_dedup_cuda, k1_dedup_plain, k1_error_bound, k2_apply_cuda,
+        k2_apply_plain,
     )
     from fast_tffm_tpu_torch.serve import wire
     from fast_tffm_tpu_torch.serve.server import serve
     from fast_tffm_tpu_torch.serve.textparse import parse_request
-    from fast_tffm_tpu_torch.train import checkpoint
+    from fast_tffm_tpu_torch.train import checkpoint, sparse
+    from fast_tffm_tpu_torch.train.loop import Trainer, predict
 
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(asctime)s %(name)s %(message)s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+    t_start = time.perf_counter()
 
     # -- build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -223,184 +347,466 @@ def main() -> int:
             print(f"ptxas: {line.strip()}")
     print(f"build: {build_s:.3f} s ({card})", flush=True)
 
-    # -- kernel phase --------------------------------------------------
     cfg = load_config(CFG_PATH, {"serve_poll_secs": 0.0, "serve_port": 0})
-    F, D = cfg.max_features, cfg.embedding_dim
-    check((cfg.vocabulary_size, F, D) == (1 << 22, 39, 9),
-          f"unexpected Criteo-Kaggle shape {cfg.vocabulary_size, F, D}")
+    F, D, B = cfg.max_features, cfg.embedding_dim, cfg.batch_size
+    V = cfg.vocabulary_size
+    check((V, F, D, B) == (1 << 22, 39, 9, 4096),
+          f"unexpected Criteo-Kaggle shape {V, F, D, B}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    max_err = 0.0
-    # The ladder's rungs (the shapes the main path gives the kernel),
-    # one example, and a size that is no multiple of the block's four.
-    checked = (1, 64, 256, 1000, 1024)
-    for b in checked:
+    rng = np.random.default_rng(SEED)
+    tmp_ctx = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = tmp_ctx.name
+    err = {}  # kernel -> max |kernel - plain| over its checks
+
+    # -- data ----------------------------------------------------------
+    t0 = time.perf_counter()
+    w_true = rng.normal(0.0, 0.6, (13, INT_BUCKETS))
+    train_files = []
+    for i in range(TRAIN_FILES):
+        path = os.path.join(tmp, f"train_{i}.libsvm")
+        write_labelled(np, path, rng, BATCHES_PER_FILE * LINES, w_true)
+        train_files.append(path)
+    valid_file = os.path.join(tmp, "valid.libsvm")
+    predict_file = os.path.join(tmp, "predict.libsvm")
+    write_labelled(np, valid_file, rng, LINES, w_true)
+    write_labelled(np, predict_file, rng, LINES, w_true)
+    with open(train_files[0]) as f:
+        head = [next(f) for _ in range(3 * LINES)]
+    batches = [
+        make_batch(parse_lines(head[i * LINES:(i + 1) * LINES], V,
+                               cfg.hash_feature_id), B, F)
+        for i in range(3)
+    ]
+    batches = [b._replace(sort_meta=host_sort_meta(b.ids)) for b in batches]
+    print(f"data: {TRAIN_FILES * BATCHES_PER_FILE * LINES} train + "
+          f"{2 * LINES} validation/predict lines written, 3 batches parsed "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- kernel phase: fm_scores (serving rungs, training batch) -------
+    for b in (1, 64, 256, 1000, 1024, B):
         rows = torch.randn((b, F, D), generator=gen, device=dev) * 0.3
-        vals = torch.rand((b, F), generator=gen, device=dev)
-        # Padded tails of random length, like real requests.
-        lens = torch.randint(1, F + 1, (b, 1), generator=gen, device=dev)
-        vals = vals * (torch.arange(F, device=dev)[None, :] < lens)
+        if b == B:  # train step, validation and predict: a parsed batch
+            vals = torch.from_numpy(batches[0].vals).to(dev)
+        else:
+            vals = torch.rand((b, F), generator=gen, device=dev)
+            lens = torch.randint(1, F + 1, (b, 1), generator=gen,
+                                 device=dev)
+            vals = vals * (torch.arange(F, device=dev)[None, :] < lens)
         s_k, s1_k = fm_scores_cuda(rows, vals)
         s_p, s1_p = fm_scores_plain(rows, vals)
         torch.cuda.synchronize()
         torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
         torch.testing.assert_close(s1_k, s1_p, **KERNEL_TOL)
-        max_err = max(max_err, float((s_k - s_p).abs().max()),
-                      float((s1_k - s1_p).abs().max()))
-    print(f"kernel check: fm_scores_cuda == fm_scores_plain at B in "
-          f"{checked}, max_abs_err={max_err:.3e}", flush=True)
+        err["fm_scores"] = max(err.get("fm_scores", 0.0),
+                               float((s_k - s_p).abs().max()),
+                               float((s1_k - s1_p).abs().max()))
+    # -- fm_grad at B in {1, 1000, 4096} -------------------------------
+    for b in (1, 1000, B):
+        rows = torch.randn((b, F, D), generator=gen, device=dev) * 0.3
+        vals = torch.rand((b, F), generator=gen, device=dev)
+        _, s1 = fm_scores_plain(rows, vals)
+        g = torch.randn((b,), generator=gen, device=dev)
+        got = fm_grad_cuda(rows, vals, s1, g)
+        want = fm_grad_plain(rows, vals, s1, g)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **KERNEL_TOL)
+        err["fm_grad"] = max(err.get("fm_grad", 0.0),
+                             float((got - want).abs().max()))
+    # -- K1 and K2 at the training shapes ------------------------------
+    ids0 = torch.from_numpy(batches[0].ids).to(dev).reshape(-1)
+    n = ids0.numel()
+    hot = ids0.clone()
+    hot[:5000] = 12345  # one id with 5000 occurrences
+    hot_meta = sparse_apply.sort_meta(hot)
+    g_rows = torch.randn((n, D), generator=gen, device=dev) * 0.1
+    meta0 = sparse_apply.sort_meta(ids0)
+    k2_shapes = {}
+    for name, ids, meta in (("batch", ids0, meta0), ("hot", hot, hot_meta)):
+        args = (g_rows, ids.to(torch.int32), meta.perm, meta.seg_start)
+        urows, sums = k1_dedup_cuda(*args)
+        urows_p, sums_p = k1_dedup_plain(g_rows.double(), *args[1:])
+        _, mass = k1_dedup_plain(g_rows.abs().double(), *args[1:])
+        torch.cuda.synchronize()
+        check(torch.equal(urows, urows_p), f"K1 row ids ({name})")
+        diff = (sums.double() - sums_p).abs()
+        check(bool(torch.all(diff <= k1_error_bound(meta.seg_start, mass))),
+              f"K1 sums vs plain ({name}): max err {float(diff.max()):.3e}")
+        err["k1_dedup"] = max(err.get("k1_dedup", 0.0), float(diff.max()))
+        k2_shapes[name] = (urows, sums)
+    hyper = sparse.hyper(cfg)._replace(l1=0.01, l2=0.1)
+    table0 = torch.empty((V, D), device=dev).uniform_(-0.01, 0.01,
+                                                      generator=gen)
+    for optimizer, extra in (("adagrad", 1), ("ftrl", 2), ("sgd", 0)):
+        for name, (urows, sums) in k2_shapes.items():
+            state = [torch.empty((V, D), device=dev).uniform_(
+                0.1, 1.0, generator=gen) for _ in range(extra)]
+            kern = tuple([table0.clone()] + state)
+            plain = tuple(t.clone() for t in kern)
+            k2_apply_cuda(optimizer, urows, sums, kern, hyper)
+            k2_apply_plain(optimizer, urows, sums, plain, hyper)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+            for a, b_ in zip(kern[1:], plain[1:]):
+                torch.testing.assert_close(a, b_, **OPT_TOL)
+            err["k2_apply"] = max(err.get("k2_apply", 0.0), *(
+                float((a - b_).abs().max()) for a, b_ in zip(kern, plain)
+            ))
+            del kern, plain, state
+    print("kernel check: fm_scores, fm_grad, k1_dedup, k2_apply (adagrad, "
+          "ftrl, sgd) == their plain versions; max_abs_err "
+          + json.dumps(err), flush=True)
 
-    # Timing at the largest rung, in turns (plain, kernel, kernel, plain).
-    b_main = max(cfg.serve_ladder)
-    rows = torch.randn((b_main, F, D), generator=gen, device=dev) * 0.3
-    vals = torch.rand((b_main, F), generator=gen, device=dev)
-    kern = lambda: fm_scores_cuda(rows, vals)  # noqa: E731
-    plain = lambda: fm_scores_plain(rows, vals)  # noqa: E731
-    plain_a, kern_a, kern_b, plain_b = (graph_ms(torch, fn) for fn in
-                                        (plain, kern, kern, plain))
-    kern_ms, plain_ms = min(kern_a, kern_b), min(plain_a, plain_b)
-    kern_dev, _ = device_times_ms(torch, kern)
-    kern_dev_ms = sum(v for k, v in kern_dev.items() if "fm_scores" in k)
-    bound_ms, bound_by = fm_bound_ms(b_main, F, D)
-    per_rung = {}
-    for b in cfg.serve_ladder:
-        r_b, v_b = rows[:b].contiguous(), vals[:b].contiguous()
-        per_rung[b] = {
-            "graph_ms": graph_ms(torch, lambda: fm_scores_cuda(r_b, v_b)),
-            "eager_call_ms": time_per_call_ms(
-                torch, lambda: fm_scores_cuda(r_b, v_b)
-            ),
-            "bound_ms": fm_bound_ms(b, F, D)[0],
+    # -- kernel timing at the main paths' shapes -----------------------
+    timing = {}
+    b_serve = max(cfg.serve_ladder)
+    rows = torch.randn((b_serve, F, D), generator=gen, device=dev) * 0.3
+    vals = torch.rand((b_serve, F), generator=gen, device=dev)
+    rows_t = torch.randn((B, F, D), generator=gen, device=dev) * 0.01
+    vals_t = torch.from_numpy(batches[0].vals).to(dev)
+    _, s1_t = fm_scores_plain(rows_t, vals_t)
+    dsc = torch.randn((B,), generator=gen, device=dev) * 0.1
+    urows, sums = k2_shapes["batch"]
+    u = urows.numel()
+    acc0 = torch.full((V, D), 0.1, device=dev)
+    table_k, acc_k = table0.clone(), acc0.clone()
+    ids32 = ids0.to(torch.int32)
+    # K1's library yardstick: one index_add_ of the [g | g^2] payload
+    # over each occurrence's segment (unsorted order).
+    seg_sorted = torch.repeat_interleave(
+        torch.arange(u, device=dev),
+        (meta0.seg_start[1:] - meta0.seg_start[:-1]).long(), output_size=n,
+    )
+    seg_of_occ = torch.empty_like(seg_sorted)
+    seg_of_occ[meta0.perm.long()] = seg_sorted
+    payload = torch.cat([g_rows, g_rows * g_rows], dim=1)
+    lib_out = torch.zeros((u, 2 * D), device=dev)
+    cases = {
+        "fm_scores": (lambda: fm_scores_cuda(rows, vals),
+                      lambda: fm_scores_plain(rows, vals), None,
+                      fm_bound_ms(b_serve, F, D)),
+        "fm_grad": (lambda: fm_grad_cuda(rows_t, vals_t, s1_t, dsc),
+                    lambda: fm_grad_plain(rows_t, vals_t, s1_t, dsc), None,
+                    fm_grad_bound_ms(B, F, D)),
+        "k1_dedup": (
+            lambda: k1_dedup_cuda(g_rows, ids32, meta0.perm, meta0.seg_start),
+            lambda: k1_dedup_plain(g_rows, ids32, meta0.perm,
+                                   meta0.seg_start),
+            lambda: lib_out.index_add_(0, seg_of_occ, payload),
+            k1_bound_ms(n, u, D),
+        ),
+        "k2_apply": (
+            lambda: k2_apply_cuda("adagrad", urows, sums, (table_k, acc_k),
+                                  hyper),
+            lambda: k2_apply_plain("adagrad", urows, sums, (table_k, acc_k),
+                                   hyper),
+            None, k2_bound_ms(u, D),
+        ),
+    }
+    for name, (kern, plain, lib, (b_ms, b_by)) in cases.items():
+        # In turns: plain, kernel, kernel, plain.
+        pa, ka, kb, pb = (graph_ms(torch, fn) for fn in
+                          (plain, kern, kern, plain))
+        timing[name] = {
+            "ms": min(ka, kb), "plain_ms": min(pa, pb),
+            "graph_ms": [ka, kb], "plain_graph_ms": [pa, pb],
+            "library_ms": None if lib is None else graph_ms(torch, lib),
+            "bound_ms": b_ms, "bound_by": b_by,
         }
+    kern_dev, _, _ = device_times_ms(torch, cases["fm_scores"][0])
+    timing["fm_scores"]["profiler_device_ms"] = sum(
+        v for k, v in kern_dev.items() if "fm_scores" in k
+    )
+    timing["fm_scores"]["eager_call_ms"] = time_per_call_ms(
+        torch, cases["fm_scores"][0]
+    )
+    timing["fm_scores"]["per_rung"] = {
+        b: {"graph_ms": graph_ms(
+                torch, lambda b=b: fm_scores_cuda(rows[:b], vals[:b])),
+            "bound_ms": fm_bound_ms(b, F, D)[0]}
+        for b in cfg.serve_ladder
+    }
+    del table_k, acc_k, lib_out, payload
     print(json.dumps({"kernel_timing": {
-        "card": card, "B": b_main, "graph_ms": [kern_a, kern_b],
-        "plain_graph_ms": [plain_a, plain_b],
-        "profiler_device_ms": kern_dev_ms, "bound_ms": bound_ms,
-        "eager_call_ms": time_per_call_ms(torch, kern),
-        "plain_eager_call_ms": time_per_call_ms(torch, plain),
-        "per_rung": per_rung,
+        "card": card, "serve_B": b_serve, "train_B": B, "occurrences": n,
+        "unique_rows": u, **timing,
     }}), flush=True)
 
-    # -- serve phase (main path) ---------------------------------------
-    rng = np.random.default_rng(SEED)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        cfg = load_config(CFG_PATH, {
-            "serve_poll_secs": 0.0, "serve_port": 0, "model_file": tmp,
-        })
-        model = fm.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev
-        )
-        checkpoint.save_params(tmp, model, step=1)
-        del model
-        _, ref = checkpoint.restore_params(tmp, device=dev)
+    # -- train phase (main path 1) -------------------------------------
+    model_dir = os.path.join(tmp, "model")
+    tcfg = load_config(CFG_PATH, {
+        "train_files": train_files, "validation_files": [valid_file],
+        "predict_files": [predict_file], "model_file": model_dir,
+        "score_path": os.path.join(tmp, "scores.txt"), "log_steps": 4,
+        "seed": SEED, "serve_poll_secs": 0.0, "serve_port": 0,
+    })
+    check(tcfg.host_sort and tcfg.optimizer == "adagrad"
+          and tcfg.l2_mode == "batch" and tcfg.sparse_update,
+          "the main path's config is not the default sparse Adagrad")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (fm_scores_cuda, fm_grad_cuda, k1_dedup_cuda, k2_apply_cuda):
+        fn.launches = 0
+    class LossTrainer(Trainer):
+        """Keeps each step's loss, a device scalar, for the falling-loss
+        check."""
 
-        fm_scores_cuda.launches = 0  # count the main path only
-        handle = serve(cfg, port=0)
-        try:
-            conn = http.client.HTTPConnection("127.0.0.1", handle.port,
-                                              timeout=120)
-            # Request sizes: one per rung (64, 256, 1024) and one larger
-            # than the largest rung, which the scorer splits.
-            sizes = (1, 37, 200, 1000, 1500)
-            served = []
-            for n in sizes:
-                body = criteo_body(rng, n)
-                text = post(conn, "/score", body.encode()).decode()
-                ids, vals_np, _, got_n, trunc = parse_request(body, cfg)
-                check(got_n == n and trunc == 0, f"parse of {n} lines")
-                frame = wire.encode_bin_request(ids, vals_np)
-                bin_scores = wire.decode_bin_response(
-                    post(conn, "/score_bin", frame)
-                )
-                check(bin_scores.shape == (n,), f"{n} binary scores")
-                check(text == "".join(f"{s:.6f}\n" for s in bin_scores),
-                      f"/score and /score_bin disagree at n={n}")
-                served.append((ids, vals_np, bin_scores))
-            # Unreduced ids (>= V and negative) reduce modulo V exactly
-            # like the text path; on the card an unreduced id would be
-            # a device-side assert.
-            ids, vals_np, want = served[2]
-            wild = ids.astype(np.int64)
-            wild[::2] += 3 * cfg.vocabulary_size
-            wild[1::2] -= cfg.vocabulary_size
-            got = wire.decode_bin_response(post(
-                conn, "/score_bin",
-                wire.encode_bin_request(wild.astype(np.int32), vals_np),
-            ))
-            check(np.array_equal(got, want),
-                  "out-of-range ids did not reduce modulo the vocabulary")
+        def __init__(self, cfg):
+            self.step_losses = []
+            super().__init__(cfg)
 
-            # Request latency on the card, keep-alive, one client.
-            latency = {}
-            for n in (1, 1024):
-                body = criteo_body(rng, n).encode()
-                ids, vals_np, _, _, _ = parse_request(body.decode(), cfg)
-                frame = wire.encode_bin_request(ids, vals_np)
-                for path, payload in (("/score", body),
-                                      ("/score_bin", frame)):
-                    times = []
-                    for _ in range(20):
-                        t0 = time.perf_counter()
-                        post(conn, path, payload)
-                        times.append(time.perf_counter() - t0)
-                    latency[f"{path}_n{n}_p50_ms"] = p50(times) * 1e3
-            conn.close()
-            # The main path ends here; the launches below only time it.
-            launches = fm_scores_cuda.launches
+        def train_step(self, batch):
+            loss = super().train_step(batch)
+            self.step_losses.append(loss)
+            return loss
 
-            # Dispatch time per rung, straight through the scorer.
-            scorer = handle.scorer
-            ids_all, vals_all, _ = served[-1]
-            dispatch = {}
-            for b in scorer.ladder:
-                times = []
-                for _ in range(50):
-                    t0 = time.perf_counter()
-                    scorer.score_rung(ids_all[:b], vals_all[:b], None, b)
-                    times.append(time.perf_counter() - t0)
-                dispatch[b] = p50(times) * 1e3
-            ids_b, vals_b = ids_all[:b_main], vals_all[:b_main]
-            breakdown, wall_ms = device_times_ms(
-                torch,
-                lambda: scorer.score_rung(ids_b, vals_b, None, b_main),
+    t0 = time.perf_counter()
+    trainer = LossTrainer(tcfg)
+    result = trainer.train()
+    train_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_pred = predict(tcfg)
+    predict_wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    train_launches = {
+        "fm_scores": fm_scores_cuda.launches,
+        "fm_grad": fm_grad_cuda.launches,
+        "k1_dedup": k1_dedup_cuda.launches,
+        "k2_apply": k2_apply_cuda.launches,
+    }
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    tr = result["train"]
+    steps = tr["steps"]
+    check(steps == TRAIN_FILES * BATCHES_PER_FILE,
+          f"trained {steps} steps")
+    for name in ("fm_grad", "k1_dedup", "k2_apply"):
+        check(train_launches[name] >= steps,
+              f"{name} launched {train_launches[name]} times in "
+              f"{steps} steps")
+    losses = [float(x) for x in trainer.step_losses]
+    last = float(np.mean(losses[-4:]))
+    check(all(np.isfinite(losses)), "non-finite step loss")
+    check(last < losses[0], f"logloss did not fall: first {losses[0]:.4f}, "
+          f"last 4 {last:.4f}")
+    val = result["validation"]
+    check(np.isfinite(val["logloss"]) and 0 < val["auc"] <= 1,
+          f"validation {val}")
+    with open(tcfg.score_path) as f:
+        scores_txt = [float(s) for s in f.read().split()]
+    check(n_pred == LINES and len(scores_txt) == LINES,
+          f"predict wrote {n_pred} scores for {LINES} lines")
+    check(all(0.0 < s < 1.0 for s in scores_txt), "predict scores not in (0,1)")
+    print(json.dumps({"train": {
+        "card": card, "steps": steps, "batch_size": B,
+        "launches": train_launches, "step_logloss": losses,
+        "first_step_logloss": losses[0], "last4_mean_logloss": last,
+        "train_logloss": tr["logloss"], "train_auc": tr["auc"],
+        "validation_logloss": val["logloss"], "validation_auc": val["auc"],
+        "train_wall_s": train_wall, "predict_wall_s": predict_wall,
+        "predict_scores": n_pred,
+        "examples_per_sec_end_to_end": tr["examples_per_sec"],
+        "ingest_wait_frac": tr["ingest_wait_frac"],
+        "peak_device_mb": peak_mb,
+    }}), flush=True)
+    del trainer
+
+    # -- parity phase --------------------------------------------------
+    def put(batch, with_meta=True):
+        b = sparse.to_device(batch, dev)
+        return b if with_meta else b._replace(sort_meta=None)
+
+    dev_batches = [put(b) for b in batches]
+    init = fm.init_params(tcfg, torch.Generator(device=dev).manual_seed(7),
+                          device=dev)
+
+    def fresh():
+        m = fm.FmModel(init.w0.detach().clone(), init.table.detach().clone())
+        return m, sparse.init_sparse_opt_state(tcfg, m)
+
+    (mk, ok), (mp, op) = fresh(), fresh()
+    score_err = 0.0
+    for b in dev_batches:
+        s_k = sparse.sparse_step(tcfg, mk, ok, b)
+        s_p = sparse.sparse_step(tcfg, mp, op, b, plain=True)
+        torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
+        score_err = max(score_err, float((s_k - s_p).abs().max()))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(mk.table, mp.table, **TABLE_TOL)
+    torch.testing.assert_close(ok.acc_table, op.acc_table, **OPT_TOL)
+    torch.testing.assert_close(mk.w0, mp.w0, rtol=1e-5, atol=1e-7)
+    step_err = float((mk.table - mp.table).detach().abs().max())
+    acc_err = float((ok.acc_table - op.acc_table).abs().max())
+    changes = {
+        "table": delta_check(torch, "table", mk.table, mp.table,
+                             init.table.detach()),
+        "acc_table": delta_check(
+            torch, "acc_table", ok.acc_table, op.acc_table,
+            torch.full_like(ok.acc_table, tcfg.adagrad_initial_accumulator),
+        ),
+    }
+    del mp, op
+    mh, oh = fresh()  # host meta (the pipeline's) vs device prep
+    for b in dev_batches:
+        sparse.sparse_step(tcfg, mh, oh, b._replace(sort_meta=None))
+    torch.cuda.synchronize()
+    check(torch.equal(mh.table, mk.table)
+          and torch.equal(oh.acc_table, ok.acc_table)
+          and torch.equal(mh.w0, mk.w0),
+          "host sort meta and device sort meta trained different tables")
+    del mh, oh, mk, ok
+    print(json.dumps({"parity": {
+        "steps": len(dev_batches), "table_max_abs_err": step_err,
+        "acc_max_abs_err": acc_err, "scores_max_abs_err": score_err,
+        "changes": changes, "host_vs_device_meta": "bitwise equal",
+    }}), flush=True)
+
+    # -- one train step: host clock, profiler --------------------------
+    stepper = Trainer(load_config(CFG_PATH, {
+        "model_file": os.path.join(tmp, "fresh"), "seed": SEED,
+    }))
+    times = []
+    for i in range(24):
+        t0 = time.perf_counter()
+        stepper.train_step(batches[i % 3])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = p50(times[4:]) * 1e3
+    prof = iter(range(1 << 30))
+    step_dev, step_wall, step_host = device_times_ms(
+        torch, lambda: stepper.train_step(batches[next(prof) % 3]), iters=12
+    )
+    busy = sum(step_dev.values())
+    print(json.dumps({"train_step": {
+        "card": card, "B": B, "p50_ms": step_ms,
+        "examples_per_sec_step_alone": B / (step_ms / 1e3),
+        "profiler_wall_ms": step_wall, "device_busy_ms": busy,
+        "device_idle_frac": max(0.0, 1.0 - busy / step_wall),
+        "device_ms_by_op": step_dev, "host_self_ms_top10": step_host,
+        "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
+    }}), flush=True)
+    del stepper
+
+    # -- serve phase (main path 2): the trained checkpoint -------------
+    scfg = load_config(CFG_PATH, {
+        "serve_poll_secs": 0.0, "serve_port": 0, "model_file": model_dir,
+    })
+    _, ref = checkpoint.restore_params(model_dir, device=dev)
+    fm_scores_cuda.launches = 0  # count the serve path only
+    handle = serve(scfg, port=0)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", handle.port,
+                                          timeout=120)
+        # Request sizes: one per rung (64, 256, 1024) and one larger
+        # than the largest rung, which the scorer splits.
+        sizes = (1, 37, 200, 1000, 1500)
+        served = []
+        for n_req in sizes:
+            body = criteo_body(rng, n_req)
+            text = post(conn, "/score", body.encode()).decode()
+            ids, vals_np, _, got_n, trunc = parse_request(body, scfg)
+            check(got_n == n_req and trunc == 0, f"parse of {n_req} lines")
+            frame = wire.encode_bin_request(ids, vals_np)
+            bin_scores = wire.decode_bin_response(
+                post(conn, "/score_bin", frame)
             )
-        finally:
-            handle.close()
+            check(bin_scores.shape == (n_req,), f"{n_req} binary scores")
+            check(text == "".join(f"{s:.6f}\n" for s in bin_scores),
+                  f"/score and /score_bin disagree at n={n_req}")
+            served.append((ids, vals_np, bin_scores))
+        # Unreduced ids (>= V and negative) reduce modulo V exactly like
+        # the text path; on the card an unreduced id would be a
+        # device-side assert.
+        ids, vals_np, want = served[2]
+        wild = ids.astype(np.int64)
+        wild[::2] += 3 * V
+        wild[1::2] -= V
+        got = wire.decode_bin_response(post(
+            conn, "/score_bin",
+            wire.encode_bin_request(wild.astype(np.int32), vals_np),
+        ))
+        check(np.array_equal(got, want),
+              "out-of-range ids did not reduce modulo the vocabulary")
 
-        check(launches > 0, "the serve path never launched the kernel")
-        # Served scores vs the plain path on the card, same weights.
-        with torch.inference_mode():
-            for ids, vals_np, got in served:
-                ids_t = torch.from_numpy(ids).to(dev).long()
-                rows_t = ref.table[ids_t]
-                s, _ = fm_scores_plain(rows_t, torch.from_numpy(vals_np)
-                                       .to(dev))
-                want_t = torch.sigmoid(ref.w0 + s).cpu()
-                torch.testing.assert_close(torch.from_numpy(got), want_t,
-                                           **SERVE_TOL)
-                check(bool(np.isfinite(got).all()), "non-finite score")
+        # Request latency on the card, keep-alive, one client.
+        latency = {}
+        for n_req in (1, 1024):
+            body = criteo_body(rng, n_req).encode()
+            ids, vals_np, _, _, _ = parse_request(body.decode(), scfg)
+            frame = wire.encode_bin_request(ids, vals_np)
+            for path, payload_b in (("/score", body), ("/score_bin", frame)):
+                times = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    post(conn, path, payload_b)
+                    times.append(time.perf_counter() - t0)
+                latency[f"{path}_n{n_req}_p50_ms"] = p50(times) * 1e3
+        conn.close()
+        # The main path ends here; the launches below only time it.
+        serve_launches = fm_scores_cuda.launches
+
+        # Dispatch time per rung, straight through the scorer.
+        scorer = handle.scorer
+        ids_all, vals_all, _ = served[-1]
+        dispatch = {}
+        for b in scorer.ladder:
+            times = []
+            for _ in range(50):
+                t0 = time.perf_counter()
+                scorer.score_rung(ids_all[:b], vals_all[:b], None, b)
+                times.append(time.perf_counter() - t0)
+            dispatch[b] = p50(times) * 1e3
+        ids_b, vals_b = ids_all[:b_serve], vals_all[:b_serve]
+        breakdown, wall_ms, _ = device_times_ms(
+            torch, lambda: scorer.score_rung(ids_b, vals_b, None, b_serve),
+        )
+    finally:
+        handle.close()
+
+    check(serve_launches > 0, "the serve path never launched the kernel")
+    # Served scores vs the plain path on the card, same weights.
+    with torch.inference_mode():
+        for ids, vals_np, got in served:
+            ids_t = torch.from_numpy(ids).to(dev).long()
+            rows_t = ref.table[ids_t]
+            s, _ = fm_scores_plain(rows_t, torch.from_numpy(vals_np).to(dev))
+            want_t = torch.sigmoid(ref.w0 + s).cpu()
+            torch.testing.assert_close(torch.from_numpy(got), want_t,
+                                       **SERVE_TOL)
+            check(bool(np.isfinite(got).all()), "non-finite score")
     busy = sum(breakdown.values())
     print(json.dumps({"serve": {
-        "card": card, "requests": sizes, "kernel_launches": launches,
+        "card": card, "requests": sizes, "kernel_launches": serve_launches,
         "dispatch_p50_ms": dispatch, "latency_p50_ms": latency,
         "rung_1024_device_ms": breakdown, "rung_1024_wall_ms": wall_ms,
         "rung_1024_device_idle_frac": max(0.0, 1.0 - busy / wall_ms),
     }}), flush=True)
-    print("serve check: transports agree bitwise, scores match the plain "
-          "path on the card, out-of-range ids reduce", flush=True)
+    print("serve check: the trained checkpoint serves; transports agree "
+          "bitwise, scores match the plain path on the card, out-of-range "
+          "ids reduce", flush=True)
+    tmp_ctx.cleanup()
 
+    launches = dict(train_launches, fm_scores=serve_launches)
+    sources = {
+        "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
+        "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),
+        "k1_dedup": ("sparse_apply.cu",
+                     "fast_tffm_tpu/ops/sparse_apply.py:136"),
+        "k2_apply": ("sparse_apply.cu",
+                     "fast_tffm_tpu/ops/sparse_apply.py:322"),
+    }
+    print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{
-        "name": "fm_scores",
+        "name": name,
         "route": "cuda",
-        "source": "fast_tffm_tpu_torch/ops/csrc/fm_scorer.cu",
-        "replaces": "fast_tffm_tpu/ops/fm_pallas.py:110",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}), flush=True)
+        "source": f"fast_tffm_tpu_torch/ops/csrc/{src}",
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": err[name],
+        "ms": timing[name]["ms"],
+        "plain_ms": timing[name]["plain_ms"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": timing[name]["library_ms"],
+    } for name, (src, replaces) in sources.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,12 @@
 A second package beside the JAX one, for NVIDIA Hopper GPUs.  It imports
 torch and numpy only, never jax or the JAX package.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on the GPU the FM
-interaction runs a hand-written CUDA kernel (``ops/csrc``), on the CPU
-its plain PyTorch version.
+interaction, its backward and the sparse optimizer apply run
+hand-written CUDA kernels (``ops/csrc``), on the CPU their plain
+PyTorch versions.
 
-This slice serves: ``python -m fast_tffm_tpu_torch.cli serve <cfg>``
-(see ``serve/server.py``).  Training and offline predict come later
-(ROADMAP.md, port queue).
+``python -m fast_tffm_tpu_torch.cli train|predict|serve <cfg>``: sparse
+single-device training (``train/loop.py``), offline predict and a
+single-replica scoring server (``serve/server.py``).  What is not
+ported yet is in ROADMAP.md's port queue.
 """

@@ -1,9 +1,11 @@
-"""CLI: ``python -m fast_tffm_tpu_torch.cli serve <cfg>`` — the PyTorch
-port's entry point, taking the same INI files as ``run_tffm.py``.
+"""CLI: ``python -m fast_tffm_tpu_torch.cli train|predict|serve <cfg>`` —
+the PyTorch port's entry point, taking the same INI files as
+``run_tffm.py``.
 
-This slice of the port serves; ``train`` and ``predict`` raise
-NotImplementedError naming their ROADMAP.md items.  Runs on the GPU
-unless ``--device cpu`` is given.
+``train`` runs the single-device sparse trainer (``train/loop.py``) and
+prints its train and validation metrics; ``predict`` writes one score per
+line of ``predict_files`` to ``score_path``; ``serve`` starts the
+scoring endpoint.  Runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ __all__ = ["build_argparser", "main"]
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m fast_tffm_tpu_torch.cli",
-        description="factorization machine scoring on an NVIDIA GPU "
-                    "(PyTorch/CUDA)",
+        description="factorization machine training and scoring on an "
+                    "NVIDIA GPU (PyTorch/CUDA)",
     )
     p.add_argument("mode", choices=["train", "predict", "serve"])
     p.add_argument("cfg", help="INI config file (same format as run_tffm.py)")
@@ -71,15 +73,24 @@ def main(argv=None) -> int:
         handlers=handlers, force=True,
     )
     if args.mode == "train":
-        raise NotImplementedError(
-            "training is not in the PyTorch port yet (ROADMAP.md, port "
-            "queue item 1)"
-        )
+        from fast_tffm_tpu_torch.train.loop import Trainer
+
+        result = Trainer(cfg, device=args.device).train()
+        loss_name = "mse" if cfg.loss_type == "mse" else "logloss"
+        m = result["train"]
+        print(f"train {loss_name}={m['loss']:.6f} auc={m['auc']:.4f} "
+              f"ex/s={m['examples_per_sec']:.0f}")
+        if "validation" in result:
+            m = result["validation"]
+            print(f"validation {loss_name}={m['loss']:.6f} "
+                  f"auc={m['auc']:.4f}")
+        return 0
     if args.mode == "predict":
-        raise NotImplementedError(
-            "offline predict is not in the PyTorch port yet (ROADMAP.md, "
-            "port queue item 1)"
-        )
+        from fast_tffm_tpu_torch.train.loop import predict
+
+        n = predict(cfg, device=args.device)
+        print(f"wrote {n} scores to {cfg.score_path}")
+        return 0
     from fast_tffm_tpu_torch.serve.server import serve_forever
 
     return serve_forever(cfg, device=args.device)

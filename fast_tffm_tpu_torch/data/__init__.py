@@ -1,1 +1,1 @@
-"""Input parsing shared by the serving text path."""
+"""Input: libsvm parsing, fixed-shape batches and the batch pipeline."""

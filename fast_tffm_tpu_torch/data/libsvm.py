@@ -1,9 +1,16 @@
-"""libsvm/ffm text parsing: the per-line parser the serving text path uses.
+"""libsvm/ffm text parsing and fixed-shape batches.
 
 The PyTorch port's own copy of ``fast_tffm_tpu/data/libsvm.py``'s line
-grammar and feature hashing (``parse_line``, ``hash_bucket``), so a request
-line maps to the same bucket ids in both packages.  Padded feature slots
-carry ``val == 0`` and contribute nothing to the FM score.
+grammar and feature hashing (``parse_line``, ``hash_bucket``), so a line
+maps to the same bucket ids in both packages, and of its ``Batch``,
+``parse_lines`` and ``make_batch``.  Padded feature slots carry
+``val == 0`` and contribute nothing to the FM score or its gradient.
+
+``SortMeta`` / :func:`host_sort_meta` are the port's own host prep for
+the sparse apply (``ops/sparse_apply.py``): a stable sort of a batch's
+flat ids, computed with numpy on a pipeline thread.  The reference's
+CHUNK/TILE-shaped meta (``data/native.py::sort_meta``) exists for its
+TPU kernels and is not carried over.
 
 Supported line formats:
   - libsvm:  ``label id:val id:val ...``
@@ -14,7 +21,9 @@ Supported line formats:
 from __future__ import annotations
 
 import re
-from typing import NamedTuple, Optional
+from typing import Iterable, NamedTuple, Optional, Sequence
+
+import numpy as np
 
 # Strict numeric token grammar, shared spec with the C++ parser: plain
 # Python float()/int() accept forms C parsing rejects (underscore
@@ -121,3 +130,85 @@ def parse_line(
         vals.append(_strict_float(val_s))
         fields.append(field)
     return Example(label, ids, vals, fields)
+
+
+def parse_lines(
+    lines: Iterable[str],
+    vocabulary_size: int,
+    hash_feature_id: bool = False,
+    field_num: int = 0,
+) -> list[Example]:
+    """Parse ``lines`` with :func:`parse_line`, skipping blank ones."""
+    out = []
+    for line in lines:
+        ex = parse_line(line, vocabulary_size, hash_feature_id, field_num)
+        if ex is not None:
+            out.append(ex)
+    return out
+
+
+class SortMeta(NamedTuple):
+    """Sparse-apply prep for one batch's flat ids ``[n]`` (numpy on the
+    host, or tensors once moved to the device)."""
+
+    perm: np.ndarray  # [n] i32: occurrence index of each sorted position
+    seg_start: np.ndarray  # [U + 1] i32: first sorted position of each
+    #                        unique id, then n
+
+
+def host_sort_meta(ids: np.ndarray) -> SortMeta:
+    """:class:`SortMeta` of ``ids`` (any shape, flattened) by a stable
+    numpy sort: the same arrays as ``ops.sparse_apply.sort_meta`` gives
+    on the device."""
+    flat = np.asarray(ids).reshape(-1)
+    n = flat.shape[0]
+    perm = np.argsort(flat, kind="stable")
+    s = flat[perm]
+    cuts = np.flatnonzero(s[1:] != s[:-1]) + 1
+    seg_start = np.concatenate([[0], cuts, [n] if n else []])
+    return SortMeta(perm.astype(np.int32), seg_start.astype(np.int32))
+
+
+class Batch(NamedTuple):
+    """A fixed-shape parsed batch (numpy on the host, or tensors once
+    moved to the device).
+
+    Padded feature slots have ``vals == 0`` (and ``ids == 0``), which makes
+    them mathematically inert in the FM score and gradient.
+    """
+
+    labels: np.ndarray  # [B] float32, in {0, 1} for logistic loss
+    ids: np.ndarray  # [B, F] int32 bucket ids
+    vals: np.ndarray  # [B, F] float32 feature values (0 = padding)
+    fields: np.ndarray  # [B, F] int32 field ids (all 0 for plain FM)
+    weights: np.ndarray  # [B] float32 per-example weights
+    sort_meta: Optional[SortMeta] = None  # host prep for the sparse apply
+
+
+def make_batch(
+    examples: Sequence[Example],
+    batch_size: int,
+    max_features: int,
+    weights: Optional[Sequence[float]] = None,
+) -> Batch:
+    """Pad/truncate examples into a static-shape Batch.
+
+    Short batches (end of epoch) are padded with weight-0 examples so the
+    shapes never change; features beyond ``max_features`` are dropped.
+    """
+    n = len(examples)
+    if n > batch_size:
+        raise ValueError(f"{n} examples > batch_size {batch_size}")
+    labels = np.zeros((batch_size,), np.float32)
+    ids = np.zeros((batch_size, max_features), np.int32)
+    vals = np.zeros((batch_size, max_features), np.float32)
+    fields = np.zeros((batch_size, max_features), np.int32)
+    w = np.zeros((batch_size,), np.float32)
+    for i, ex in enumerate(examples):
+        labels[i] = ex.label
+        k = min(len(ex.ids), max_features)
+        ids[i, :k] = ex.ids[:k]
+        vals[i, :k] = ex.vals[:k]
+        fields[i, :k] = ex.fields[:k]
+        w[i] = 1.0 if weights is None else weights[i]
+    return Batch(labels, ids, vals, fields, w)

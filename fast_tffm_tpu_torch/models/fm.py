@@ -24,8 +24,9 @@ from fast_tffm_tpu_torch.ops import interaction
 from fast_tffm_tpu_torch.platform import resolve_device
 
 __all__ = [
-    "FmModel", "fm_scores", "init_params", "interaction_terms",
-    "scores_from_rows", "scores_from_terms",
+    "FmModel", "example_losses", "fm_scores", "init_params",
+    "interaction_terms", "l2_penalty_batch", "scores_from_rows",
+    "scores_from_terms",
 ]
 
 
@@ -96,3 +97,28 @@ def fm_scores(model: FmModel, ids: torch.Tensor,
     d = model.table.shape[1]
     rows = model.table.index_select(0, ids.reshape(-1))
     return scores_from_rows(model.w0, rows.view(*ids.shape, d), vals)
+
+
+def example_losses(scores: torch.Tensor, labels: torch.Tensor,
+                   loss_type: str) -> torch.Tensor:
+    """Per-example loss: logistic (stable BCE with logits, labels in
+    {0, 1}: ``softplus(s) - y*s``) or squared error."""
+    if loss_type == "logistic":
+        return torch.logaddexp(scores, torch.zeros_like(scores)) \
+            - labels * scores
+    if loss_type == "mse":
+        d = scores - labels
+        return d * d
+    raise ValueError(f"unknown loss_type {loss_type!r}")
+
+
+def l2_penalty_batch(w0: torch.Tensor, rows: torch.Tensor,
+                     vals: torch.Tensor, factor_lambda: float,
+                     bias_lambda: float) -> torch.Tensor:
+    """Sparse-friendly L2 (``l2_mode = batch``): only the rows the batch
+    touched (``vals != 0``), per occurrence, normalised by batch size."""
+    mask = (vals != 0).to(rows.dtype)[..., None]  # [B, F, 1]
+    b = vals.shape[0]
+    w_sq = torch.sum((rows[..., :1] * mask) ** 2)
+    v_sq = torch.sum((rows[..., 1:] * mask) ** 2)
+    return (factor_lambda * v_sq + bias_lambda * (w_sq + w0 ** 2)) / b

@@ -130,6 +130,16 @@ def load() -> ctypes.CDLL:
             lib.fm_scores_fwd.argtypes = [ptr, ptr, ptr, ptr,
                                           i32, i32, i32, ptr]
             lib.fm_scores_fwd.restype = i32
+            lib.fm_grad_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr,
+                                        i32, i32, i32, ptr]
+            lib.fm_grad_bwd.restype = i32
+            lib.k1_dedup.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                     i32, i32, ptr]
+            lib.k1_dedup.restype = i32
+            f32 = ctypes.c_float
+            lib.k2_apply.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                     f32, f32, f32, f32, ptr]
+            lib.k2_apply.restype = i32
             lib.fm_kernels_error_string.argtypes = [i32]
             lib.fm_kernels_error_string.restype = ctypes.c_char_p
             _loaded["lib"] = lib

@@ -88,7 +88,7 @@ class FixedShapeScorer:
 
     def __init__(self, cfg: FmConfig, model: FmModel,
                  device: Optional[Union[str, torch.device]] = None,
-                 telemetry=None, step: int = 0):
+                 telemetry=None, step: int = 0, extra_rungs=()):
         if cfg.field_num:
             raise NotImplementedError(
                 "field-aware FM serving (field_num > 0) is not in the "
@@ -102,7 +102,8 @@ class FixedShapeScorer:
             )
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.ladder = tuple(cfg.serve_ladder)
+        self.ladder = tuple(sorted(set(cfg.serve_ladder)
+                                   | {int(b) for b in extra_rungs}))
         self.max_rung = self.ladder[-1]
         self._feat = cfg.max_features
         self._logistic = cfg.loss_type == "logistic"
@@ -268,9 +269,11 @@ def load_model(cfg: FmConfig,
 
 def make_scorer(cfg: FmConfig,
                 device: Optional[Union[str, torch.device]] = None,
-                telemetry=None) -> FixedShapeScorer:
-    """Build the scorer for whatever ``cfg.model_file`` holds."""
+                telemetry=None, extra_rungs=()) -> FixedShapeScorer:
+    """Build the scorer for whatever ``cfg.model_file`` holds.
+    ``extra_rungs`` adds example counts to the ladder (offline predict
+    adds its ``batch_size``)."""
     dev = resolve_device(device)
     step, model = load_model(cfg, device=dev)
     return FixedShapeScorer(cfg, model, device=dev, telemetry=telemetry,
-                            step=step)
+                            step=step, extra_rungs=extra_rungs)

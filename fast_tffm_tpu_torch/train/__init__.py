@@ -1,1 +1,1 @@
-"""Checkpoint I/O (training itself is a later slice of the port)."""
+"""Training: the sparse step, metrics, the trainer and its checkpoint."""

@@ -1,0 +1,306 @@
+"""Training loop and offline predict — the counterpart of
+``fast_tffm_tpu/train/loop.py`` for the single-device sparse path.
+
+:class:`Trainer` initialises the model (or warm-starts it, optimizer
+state included, from ``<model_file>/params.npz``), streams batches from
+a :class:`~fast_tffm_tpu_torch.data.pipeline.BatchPipeline` (host sort
+meta attached when ``host_sort``) and runs :func:`train.sparse.
+sparse_step` per batch: on the GPU the FmScorer forward, FmGrad
+backward, K1 dedup and K2 apply kernels.  ``steps_per_dispatch = K``
+runs K plain steps per group, the semantics of the reference's fused
+``lax.scan``; the logging, validation and save cadences are checked
+after each group.  Streaming logloss/AUC accumulate on the device and
+are read back only at those cadences.
+
+:func:`predict` scores ``predict_files`` through the serving path's
+:class:`~fast_tffm_tpu_torch.serve.scorer.FixedShapeScorer`, with
+``batch_size`` added as a rung, and writes one score per line in input
+order.
+
+Settings that would change the result and need a later slice raise
+NotImplementedError naming the ROADMAP.md port-queue item; observability
+planes that never change a parameter are accepted and logged as inert.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import time
+from typing import NamedTuple, Optional, Union
+
+import torch
+
+from fast_tffm_tpu_torch.config import FmConfig
+from fast_tffm_tpu_torch.data.libsvm import Batch
+from fast_tffm_tpu_torch.data.pipeline import BatchPipeline
+from fast_tffm_tpu_torch.models import fm
+from fast_tffm_tpu_torch.platform import resolve_device
+from fast_tffm_tpu_torch.train import checkpoint, metrics as metrics_lib
+from fast_tffm_tpu_torch.train.sparse import (
+    init_sparse_opt_state, sparse_step, supports_sparse, to_device,
+)
+
+log = logging.getLogger(__name__)
+
+__all__ = ["MetricState", "Trainer", "predict"]
+
+# (setting, description) pairs of observability planes the port's
+# trainer accepts but does not run yet (ROADMAP.md port queue item 4);
+# none of them changes a parameter.
+_INERT_PLANES = (
+    ("nan_policy", "health monitors and nan_policy"),
+    ("quality", "quality plane"),
+    ("trace_file", "trace"),
+    ("heartbeat_secs", "heartbeat"),
+    ("blackbox", "blackbox"),
+    ("metrics_file", "metrics stream"),
+    ("status_port", "status endpoint"),
+    ("alert_rules", "alerts"),
+    ("profile_dir", "profiler"),
+)
+
+
+def _check_supported(cfg: FmConfig) -> None:
+    unported = []
+    if not cfg.sparse_update or not supports_sparse(cfg):
+        unported.append((
+            f"the dense optax path (sparse_update={cfg.sparse_update}, "
+            f"optimizer={cfg.optimizer}, l2_mode={cfg.l2_mode})", 7,
+        ))
+    if cfg.field_num > 0:
+        unported.append(("field_num > 0 (field-aware FM)", 2))
+    if cfg.compute_dtype != "float32":
+        unported.append((f"compute_dtype={cfg.compute_dtype}", 7))
+    if cfg.table_tiering != "off":
+        unported.append(("table_tiering (the tiered table)", 2))
+    if cfg.mesh_data * cfg.mesh_model > 1:
+        unported.append(("more than one device (mesh_data/mesh_model)", 3))
+    if cfg.cache_epochs:
+        unported.append(("cache_epochs (the epoch cache)", 7))
+    if unported:
+        what = "; ".join(
+            f"{name} is ROADMAP.md port queue item {item}"
+            for name, item in unported
+        )
+        raise NotImplementedError(f"not in the PyTorch port yet: {what}")
+    # Health, quality and blackbox are on by default in the reference;
+    # the rest count when set.
+    inert = [desc for key, desc in _INERT_PLANES if getattr(cfg, key)]
+    if inert:
+        log.info(
+            "the PyTorch port's trainer does not run these planes yet "
+            "(ROADMAP.md port queue item 4; parameters are unaffected): %s",
+            ", ".join(inert),
+        )
+
+
+class MetricState(NamedTuple):
+    """Streaming training/eval metrics, device tensors."""
+
+    loss_sum: torch.Tensor  # weighted sum of per-example data losses
+    weight_sum: torch.Tensor
+    count: torch.Tensor  # UNWEIGHTED number of real (weight > 0) examples
+    auc: metrics_lib.AucState
+
+    @staticmethod
+    def zeros(device) -> "MetricState":
+        def z():
+            return torch.zeros((), dtype=torch.float32, device=device)
+
+        return MetricState(z(), z(), z(), metrics_lib.auc_init(device=device))
+
+    def update(self, scores, batch: Batch, loss_type: str):
+        """``(new state, this batch's weighted loss sum, weight sum)``."""
+        lsum, wsum = metrics_lib.weighted_loss(
+            scores, batch.labels, batch.weights, loss_type
+        )
+        return MetricState(
+            self.loss_sum + lsum, self.weight_sum + wsum,
+            self.count + torch.sum((batch.weights > 0).float()),
+            metrics_lib.auc_update(self.auc, scores, batch.labels,
+                                   batch.weights),
+        ), lsum, wsum
+
+    def finalize(self, loss_type: str = "logistic") -> dict:
+        """Streaming means (reads the device).  The loss key is
+        ``logloss`` for logistic training and ``mse`` for mse (plus the
+        ``loss`` alias)."""
+        wsum = max(float(self.weight_sum), 1e-12)
+        loss = float(self.loss_sum) / wsum
+        out = {
+            "loss": loss,
+            "auc": float(metrics_lib.auc_finalize(self.auc)),
+            "examples": float(self.count),
+            "weight_sum": float(self.weight_sum),
+        }
+        out["mse" if loss_type == "mse" else "logloss"] = loss
+        return out
+
+
+class Trainer:
+    """Drives single-device sparse training per an :class:`FmConfig`,
+    on ``device`` (the GPU unless asked otherwise)."""
+
+    def __init__(self, cfg: FmConfig,
+                 device: Optional[Union[str, torch.device]] = None):
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model, self.opt_state, self._restored_step = (
+            self._init_or_restore()
+        )
+        self.metrics = MetricState.zeros(self.device)
+
+    def _init_or_restore(self):
+        cfg = self.cfg
+        if checkpoint.exists(cfg.model_file):
+            log.info("warm-starting from %s", cfg.model_file)
+            step, model = checkpoint.restore_params(cfg.model_file,
+                                                    device=self.device)
+            want = (cfg.vocabulary_size, cfg.embedding_dim)
+            if tuple(model.table.shape) != want:
+                raise ValueError(
+                    f"checkpoint table is {tuple(model.table.shape)} but "
+                    f"the config wants {want}"
+                )
+            opt = checkpoint.restore_opt_state(
+                cfg.model_file, cfg.optimizer, device=self.device
+            )
+            if opt is None:
+                log.info("checkpoint holds no %s state; initialising it",
+                         cfg.optimizer)
+                opt = init_sparse_opt_state(cfg, model)
+            return model, opt, step
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        model = fm.init_params(cfg, gen, device=self.device)
+        return model, init_sparse_opt_state(cfg, model), 0
+
+    def _put(self, batch: Batch) -> Batch:
+        vocab = self.cfg.vocabulary_size
+        if batch.ids.size and (batch.ids.min() < 0
+                               or batch.ids.max() >= vocab):
+            # The parser reduces ids modulo the vocabulary; an id outside
+            # it would be a device-side assert on the GPU.
+            raise ValueError(f"feature ids must lie in [0, {vocab})")
+        return to_device(batch, self.device)
+
+    def train_step(self, batch: Batch) -> torch.Tensor:
+        """One step on a host :class:`Batch`; returns the batch's mean
+        weighted data loss as a device scalar (no host sync)."""
+        dev_batch = self._put(batch)
+        scores = sparse_step(self.cfg, self.model, self.opt_state, dev_batch)
+        self.metrics, lsum, wsum = self.metrics.update(
+            scores, dev_batch, self.cfg.loss_type
+        )
+        return lsum / torch.clamp(wsum, min=1e-12)
+
+    def train(self) -> dict:
+        cfg = self.cfg
+        if not cfg.train_files:
+            raise ValueError("no train_files configured")
+        k = cfg.steps_per_dispatch
+        t0 = time.time()
+        last_log_t, last_log_ex = t0, float(self.metrics.count)
+        stepno = last_log_step = last_val_step = last_save_step = 0
+        wait_s = dispatch_s = 0.0
+        with BatchPipeline(
+            cfg.train_files, cfg, epochs=cfg.epoch_num, shuffle=True,
+            host_meta=cfg.host_sort, weight_files=cfg.weight_files,
+        ) as pipeline:
+            batches = iter(pipeline)
+            while True:
+                t_wait = time.perf_counter()
+                group = list(itertools.islice(batches, k))
+                t_run = time.perf_counter()
+                wait_s += t_run - t_wait
+                if not group:
+                    break
+                for batch in group:
+                    self.train_step(batch)
+                dispatch_s += time.perf_counter() - t_run
+                stepno += len(group)
+                if cfg.log_steps and stepno - last_log_step >= cfg.log_steps:
+                    last_log_step = stepno
+                    m = self.metrics.finalize(cfg.loss_type)
+                    now = time.time()
+                    rate = (m["examples"] - last_log_ex) / max(
+                        now - last_log_t, 1e-9
+                    )
+                    last_log_t, last_log_ex = now, m["examples"]
+                    log.info(
+                        "step %d examples %d loss %.6f auc %.4f ex/s %.0f",
+                        stepno, int(m["examples"]), m["loss"], m["auc"],
+                        rate,
+                    )
+                if (cfg.validation_steps and cfg.validation_files
+                        and stepno - last_val_step >= cfg.validation_steps):
+                    last_val_step = stepno
+                    vm = self.evaluate(cfg.validation_files)
+                    log.info("step %d validation loss %.6f auc %.4f",
+                             stepno, vm["loss"], vm["auc"])
+                if cfg.save_steps and stepno - last_save_step >= cfg.save_steps:
+                    last_save_step = stepno
+                    self.save(stepno)
+            truncated = pipeline.truncated_features
+        wall = max(time.time() - t0, 1e-9)
+        train_metrics = self.metrics.finalize(cfg.loss_type)
+        train_metrics["examples_per_sec"] = train_metrics["examples"] / wall
+        train_metrics["steps"] = stepno
+        train_metrics["ingest_cache"] = "off"
+        train_metrics["truncated_features"] = int(truncated)
+        train_metrics["out_of_range_batches"] = 0
+        train_metrics["ingest_wait_frac"] = wait_s / wall
+        train_metrics["wait_input_s"] = wait_s
+        train_metrics["dispatch_s"] = dispatch_s
+        self.save(stepno)
+        result = {"train": train_metrics}
+        if cfg.validation_files:
+            result["validation"] = self.evaluate(cfg.validation_files)
+            log.info("validation loss %.6f auc %.4f",
+                     result["validation"]["loss"],
+                     result["validation"]["auc"])
+        return result
+
+    def evaluate(self, files) -> dict:
+        """Streaming metrics of the current model over ``files``."""
+        ms = MetricState.zeros(self.device)
+        with BatchPipeline(files, self.cfg, epochs=1, shuffle=False) as p:
+            for batch in p:
+                dev_batch = self._put(batch)
+                with torch.no_grad():
+                    scores = fm.fm_scores(self.model, dev_batch.ids,
+                                          dev_batch.vals)
+                ms, _, _ = ms.update(scores, dev_batch, self.cfg.loss_type)
+        return ms.finalize(self.cfg.loss_type)
+
+    def save(self, stepno: int) -> str:
+        return checkpoint.save_params(
+            self.cfg.model_file, self.model,
+            step=self._restored_step + stepno, opt_state=self.opt_state,
+        )
+
+
+def predict(cfg: FmConfig,
+            device: Optional[Union[str, torch.device]] = None) -> int:
+    """Score ``predict_files`` into ``score_path``, one score per line in
+    input order: sigmoid probabilities for logistic loss, raw scores for
+    mse.  Returns the number of scores written."""
+    if not cfg.predict_files:
+        raise ValueError("no predict_files configured")
+    from fast_tffm_tpu_torch.serve import scorer as serve_scorer
+
+    scorer = serve_scorer.make_scorer(cfg, device=device,
+                                      extra_rungs=(cfg.batch_size,))
+    n = 0
+    with BatchPipeline(cfg.predict_files, cfg, epochs=1,
+                       shuffle=False) as pipeline, \
+            open(cfg.score_path, "w") as out:
+        for batch in pipeline:
+            scores = scorer.score(batch.ids, batch.vals)
+            for s in scores[batch.weights > 0]:
+                out.write(f"{s:.6f}\n")
+                n += 1
+    log.info("wrote %d scores to %s (checkpoint step %d)", n,
+             cfg.score_path, scorer.step)
+    return n

@@ -2,8 +2,10 @@
 
 ``from_jax`` takes what ``np.asarray`` gives for a JAX ``FmParams``'
 ``w0`` and ``table`` and builds an :class:`FmModel`; ``to_numpy`` is
-the reverse.  Neither package imports the other: the arrays are the
-whole interface.
+the reverse.  ``opt_state_from_jax`` carries the JAX sparse optimizer
+state (``SparseAdagradState`` / ``SparseFtrlState``, or their leaves
+as numpy arrays) into the port's.  Neither package imports the other:
+the arrays are the whole interface.
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ import torch
 
 from fast_tffm_tpu_torch.models.fm import FmModel
 from fast_tffm_tpu_torch.platform import resolve_device
+from fast_tffm_tpu_torch.train.sparse import SparseAdagradState, SparseFtrlState
 
-__all__ = ["from_jax", "to_numpy"]
+__all__ = ["from_jax", "opt_state_from_jax", "to_numpy"]
 
 
 def from_jax(w0, table,
@@ -41,3 +44,25 @@ def to_numpy(model: FmModel):
             model.table.detach().cpu().numpy(), np.float32
         )
     return w0, table
+
+
+def opt_state_from_jax(optimizer: str, state,
+                       device: Optional[Union[str, torch.device]] = None):
+    """The port's sparse optimizer state from the JAX package's: any
+    object with the attribute layout of its ``SparseAdagradState``
+    (``.acc.w0``, ``.acc.table``) or ``SparseFtrlState`` (``.z.*``,
+    ``.n.*``) whose leaves ``np.asarray`` turns into float32 arrays;
+    ``()`` for SGD."""
+    dev = resolve_device(device)
+
+    def put(a):
+        return torch.from_numpy(np.array(a, np.float32, copy=True)).to(dev)
+
+    if optimizer == "adagrad":
+        return SparseAdagradState(put(state.acc.w0), put(state.acc.table))
+    if optimizer == "ftrl":
+        return SparseFtrlState(put(state.z.w0), put(state.z.table),
+                               put(state.n.w0), put(state.n.table))
+    if optimizer == "sgd":
+        return ()
+    raise ValueError(f"no sparse optimizer state for {optimizer!r}")

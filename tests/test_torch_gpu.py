@@ -1,5 +1,6 @@
-"""The port on the GPU: the CUDA FmScorer kernel against its plain
-PyTorch version, and the scorer's GPU path against its CPU path.
+"""The port on the GPU: the CUDA kernels (FmScorer forward, FmGrad
+backward, K1 dedup, K2 apply) against their plain PyTorch versions, and
+the scorer's and the sparse step's GPU paths against their CPU paths.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``gpu``) and
 skips without one.  The file imports neither jax nor the JAX package,
@@ -9,7 +10,15 @@ so it also runs where only PyTorch is installed:
 
 Kernel vs plain: both accumulate in f32 and differ only in summation
 order and FMA contraction, hence ``rtol=1e-5, atol=1e-5`` at inputs of
-magnitude ~0.3 over 39 features.
+magnitude ~0.3 over 39 features.  K1's segment sums are held to the
+plain version run in float64, within the error its own order of
+summation allows (``sparse_apply.k1_error_bound``): the float32 plain
+version sums
+with atomics in an order that changes from run to run, and on a hot id
+of thousands of occurrences its own error is the larger one.  The
+apply is held to the reference's
+tile-vs-scatter bounds (``rtol=1e-4, atol=1e-6`` table, ``atol=1e-4``
+optimizer tables).
 """
 
 import numpy as np
@@ -18,10 +27,14 @@ import torch
 
 from fast_tffm_tpu_torch import weights
 from fast_tffm_tpu_torch.config import FmConfig
-from fast_tffm_tpu_torch.ops import fm_kernels
+from fast_tffm_tpu_torch.data.libsvm import Batch, host_sort_meta
+from fast_tffm_tpu_torch.ops import fm_kernels, sparse_apply
 from fast_tffm_tpu_torch.serve.scorer import FixedShapeScorer
+from fast_tffm_tpu_torch.train import sparse
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+TABLE_TOL = dict(rtol=1e-4, atol=1e-6)
+OPT_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture
@@ -42,7 +55,7 @@ def _problem(b, f=39, k=8, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b, f, k", [
-    (1, 39, 8), (64, 39, 8), (1000, 39, 8), (1024, 39, 8),
+    (1, 39, 8), (64, 39, 8), (1000, 39, 8), (1024, 39, 8), (4096, 39, 8),
     (5, 3, 40), (7, 1, 256), (2, 2, 1),
 ])
 def test_cuda_kernel_matches_plain(gpu, b, f, k):
@@ -92,3 +105,162 @@ def test_gpu_scorer_matches_cpu_scorer(gpu):
     assert fm_kernels.fm_scores_cuda.launches == before + 5
     np.testing.assert_allclose(got, on_cpu.score(ids, vals),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, f, d", [
+    (1, 39, 9), (1000, 39, 9), (4096, 39, 9), (5, 3, 41), (7, 4, 2),
+    (3, 2, 1),
+])
+def test_fm_grad_kernel_matches_plain(gpu, b, f, d):
+    rows, vals = _problem(b, f, d - 1)
+    rng = np.random.default_rng(b)
+    rows_d = torch.from_numpy(rows).to(gpu)
+    vals_d = torch.from_numpy(vals).to(gpu)
+    _, s1 = fm_kernels.fm_scores_plain(rows_d, vals_d)
+    g = torch.from_numpy(rng.normal(size=(b,)).astype(np.float32)).to(gpu)
+    before = fm_kernels.fm_grad_cuda.launches
+    got = fm_kernels.fm_grad_cuda(rows_d, vals_d, s1, g)
+    want = fm_kernels.fm_grad_plain(rows_d, vals_d, s1, g)
+    torch.cuda.synchronize()
+    assert fm_kernels.fm_grad_cuda.launches == before + 1
+    assert got.shape == (b, f, d)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def _sparse_problem(gpu, n, d, hot, seed=0, vocab=4096):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, n).astype(np.int32)
+    if hot:
+        ids[rng.permutation(n)[:hot]] = 77
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    meta = host_sort_meta(ids)
+    put = lambda a: torch.from_numpy(a).to(gpu)  # noqa: E731
+    return put(ids), put(g), put(meta.perm), put(meta.seg_start), rng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, d, hot", [
+    (159744, 9, 0), (159744, 9, 6000), (2000, 41, 700), (3000, 2, 1300),
+    (1, 9, 0),
+])
+def test_k1_kernel_matches_plain_and_is_deterministic(gpu, n, d, hot):
+    ids, g, perm, seg, _ = _sparse_problem(gpu, n, d, hot)
+    before = sparse_apply.k1_dedup_cuda.launches
+    urows, sums = sparse_apply.k1_dedup_cuda(g, ids, perm, seg)
+    urows2, sums2 = sparse_apply.k1_dedup_cuda(g, ids, perm, seg)
+    torch.cuda.synchronize()
+    assert sparse_apply.k1_dedup_cuda.launches == before + 2
+    # The plain version in float64 is the reference: its own rounding is
+    # some 1e-9 of the kernel's bound.
+    want_rows, want64 = sparse_apply.k1_dedup_plain(g.double(), ids, perm,
+                                                    seg)
+    assert torch.equal(urows, want_rows)
+    _, mass = sparse_apply.k1_dedup_plain(g.abs().double(), ids, perm, seg)
+    err = (sums.double() - want64).abs()
+    assert bool(torch.all(err <= sparse_apply.k1_error_bound(seg, mass))), \
+        err.max()
+    assert torch.equal(sums, sums2) and torch.equal(urows, urows2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adagrad", "ftrl", "sgd"])
+@pytest.mark.parametrize("d, hot", [(9, 5000), (41, 0), (2, 300)])
+def test_k2_kernel_matches_plain(gpu, optimizer, d, hot):
+    vocab = 4096
+    ids, g, perm, seg, rng = _sparse_problem(gpu, 20000, d, hot,
+                                             vocab=vocab)
+    urows, sums = sparse_apply.k1_dedup_plain(g, ids, perm, seg)
+    hyper = sparse_apply.Hyper(lr=0.05, eps=1e-7, l1=0.01, l2=0.1, beta=1.0)
+    n_tables = {"sgd": 1, "adagrad": 2, "ftrl": 3}[optimizer]
+    base = [rng.uniform(-0.1, 0.1, (vocab, d)).astype(np.float32)]
+    base += [rng.uniform(0.1, 1.0, (vocab, d)).astype(np.float32)
+             for _ in range(n_tables - 1)]
+    kern = tuple(torch.from_numpy(t).to(gpu) for t in base)
+    plain = tuple(t.clone() for t in kern)
+    before = sparse_apply.k2_apply_cuda.launches
+    sparse_apply.k2_apply_cuda(optimizer, urows, sums, kern, hyper)
+    sparse_apply.k2_apply_plain(optimizer, urows, sums, plain, hyper)
+    torch.cuda.synchronize()
+    assert sparse_apply.k2_apply_cuda.launches == before + 1
+    torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+    for a, b in zip(kern[1:], plain[1:]):
+        torch.testing.assert_close(a, b, **OPT_TOL)
+    # Untouched rows are untouched.
+    untouched = torch.ones(vocab, dtype=torch.bool, device=gpu)
+    untouched[urows.long()] = False
+    for t, orig in zip(kern, base):
+        assert torch.equal(t[untouched].cpu(),
+                           torch.from_numpy(orig)[untouched.cpu()])
+
+
+@pytest.mark.gpu
+def test_sparse_wrappers_refuse_what_the_kernels_do_not_take(gpu):
+    rows = torch.zeros((4, 3, 5), device=gpu)
+    vals = torch.zeros((4, 3), device=gpu)
+    s1 = torch.zeros((4, 4), device=gpu)
+    g = torch.zeros((4,), device=gpu)
+    with pytest.raises(TypeError):
+        fm_kernels.fm_grad_cuda(rows, vals, s1.double(), g)
+    with pytest.raises(ValueError):
+        fm_kernels.fm_grad_cuda(rows, vals, s1[:, :3], g)
+    with pytest.raises(ValueError):
+        fm_kernels.fm_grad_cuda(rows, vals, s1, g.cpu())
+    ids, gr, perm, seg, _ = _sparse_problem(gpu, 64, 5, 0)
+    with pytest.raises(TypeError):
+        sparse_apply.k1_dedup_cuda(gr, ids.long(), perm, seg)
+    with pytest.raises(ValueError):
+        sparse_apply.k1_dedup_cuda(gr[:10], ids, perm, seg)
+    with pytest.raises(ValueError):
+        sparse_apply.k1_dedup_cuda(gr, ids, perm.cpu(), seg)
+    urows, sums = sparse_apply.k1_dedup_cuda(gr, ids, perm, seg)
+    table = torch.zeros((4096, 5), device=gpu)
+    hyper = sparse_apply.Hyper(lr=0.1)
+    with pytest.raises(TypeError):
+        sparse_apply.k2_apply_cuda("sgd", urows, sums, (table.double(),),
+                                   hyper)
+    with pytest.raises(ValueError):
+        sparse_apply.k2_apply_cuda("adagrad", urows, sums, (table,), hyper)
+    with pytest.raises(ValueError):
+        sparse_apply.k2_apply_cuda("sgd", urows, sums, (table.cpu(),), hyper)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adagrad", "ftrl"])
+def test_sparse_step_on_the_gpu_matches_the_cpu(gpu, optimizer):
+    vocab, b, f = 4096, 256, 39
+    cfg = FmConfig(vocabulary_size=vocab, factor_num=8, max_features=f,
+                   batch_size=b, optimizer=optimizer, learning_rate=0.05,
+                   factor_lambda=1e-3, bias_lambda=1e-3)
+    rng = np.random.default_rng(11)
+    table = rng.uniform(-0.05, 0.05, (vocab, 9)).astype(np.float32)
+    models = {dev: weights.from_jax(0.0, table, device=dev)
+              for dev in ("cpu", gpu)}
+    opts = {dev: sparse.init_sparse_opt_state(cfg, m)
+            for dev, m in models.items()}
+    before = (fm_kernels.fm_grad_cuda.launches,
+              sparse_apply.k1_dedup_cuda.launches,
+              sparse_apply.k2_apply_cuda.launches)
+    for step in range(2):
+        ids = rng.integers(0, vocab, (b, f)).astype(np.int32)
+        ids[:, :3] = rng.integers(0, 5, (b, 3))  # hot ids
+        batch = Batch(rng.integers(0, 2, b).astype(np.float32), ids,
+                      rng.uniform(0, 1, (b, f)).astype(np.float32),
+                      np.zeros((b, f), np.int32), np.ones(b, np.float32),
+                      host_sort_meta(ids) if step else None)
+        for dev in models:
+            sparse.sparse_step(cfg, models[dev], opts[dev],
+                               sparse.to_device(batch, dev))
+    torch.cuda.synchronize()
+    after = (fm_kernels.fm_grad_cuda.launches,
+             sparse_apply.k1_dedup_cuda.launches,
+             sparse_apply.k2_apply_cuda.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    cpu_m, gpu_m = models["cpu"], models[gpu]
+    torch.testing.assert_close(gpu_m.table.detach().cpu(),
+                               cpu_m.table.detach(), **TABLE_TOL)
+    torch.testing.assert_close(gpu_m.w0.detach().cpu(), cpu_m.w0.detach(),
+                               rtol=1e-5, atol=1e-7)
+    for a, b in zip(sparse.opt_tables(opts[gpu]),
+                    sparse.opt_tables(opts["cpu"])):
+        torch.testing.assert_close(a.cpu(), b, **OPT_TOL)

@@ -1,6 +1,7 @@
 """Guards of the port's boundaries: it never imports jax or the JAX
-package, it runs on the GPU unless asked for the CPU, and its kernel
-wrapper raises instead of falling back."""
+package (the training slice's modules included), it runs on the GPU
+unless asked for the CPU, and its kernel wrappers raise instead of
+falling back."""
 
 import os
 import subprocess
@@ -25,7 +26,15 @@ bad = sorted(m for m in sys.modules
              or m == "fast_tffm_tpu" or m.startswith("fast_tffm_tpu."))
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 """
+
+# The training slice's modules, each of which must be among those loaded.
+_TRAIN_SLICE = (
+    "fast_tffm_tpu_torch.train.loop", "fast_tffm_tpu_torch.train.sparse",
+    "fast_tffm_tpu_torch.train.metrics", "fast_tffm_tpu_torch.ops.sparse_apply",
+    "fast_tffm_tpu_torch.data.pipeline",
+)
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -35,8 +44,10 @@ def test_port_imports_no_jax_and_no_jax_package():
         [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
         text=True, timeout=120, check=True,
     ).stdout.splitlines()
-    assert int(out[0]) >= 15, out  # every module of the package imported
+    assert int(out[0]) >= 20, out  # every module of the package imported
     assert out[1] == "", f"the port imported {out[1]}"
+    loaded = set(out[2].split(","))
+    assert set(_TRAIN_SLICE) <= loaded, sorted(set(_TRAIN_SLICE) - loaded)
 
 
 def test_resolve_device_defaults_to_the_gpu():
@@ -71,3 +82,21 @@ def test_kernel_wrapper_raises_instead_of_falling_back(rows, vals, err):
     with pytest.raises(err):
         fm_kernels.fm_scores_cuda(rows, vals)
     assert fm_kernels.fm_scores_cuda.launches == before
+
+
+@pytest.mark.parametrize("which, bad, err", [
+    (2, torch.zeros((4, 4), dtype=torch.float64), TypeError),
+    (3, torch.zeros((4,), dtype=torch.float16), TypeError),
+    (2, torch.zeros((4, 5)), ValueError),
+    (3, torch.zeros((3,)), ValueError),
+    (3, torch.zeros((8,))[::2], ValueError),  # not contiguous
+    (2, torch.zeros((4, 4), device="meta"), ValueError),
+])
+def test_fm_grad_wrapper_raises_instead_of_falling_back(which, bad, err):
+    args = [torch.zeros((4, 3, 5)), torch.zeros((4, 3)),
+            torch.zeros((4, 4)), torch.zeros((4,))]
+    args[which] = bad
+    before = fm_kernels.fm_grad_cuda.launches
+    with pytest.raises(err):
+        fm_kernels.fm_grad_cuda(*args)
+    assert fm_kernels.fm_grad_cuda.launches == before

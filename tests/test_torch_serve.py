@@ -231,7 +231,20 @@ def test_serve_refuses_checkpoint_without_params_npz(tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["train", "predict"])
-def test_cli_refuses_later_slices(mode):
-    path = os.path.join(REPO, "examples", "sample.cfg")
+def test_cli_refuses_later_slices(tmp_path, mode):
+    # Train and predict run in the port; field-aware FM is a later slice
+    # for both.
+    model_file = str(tmp_path / "model")
+    w0, table = _params()
+    checkpoint.save_params(model_file,
+                           weights.from_jax(w0, table, device="cpu"))
+    path = tmp_path / "ffm.cfg"
+    path.write_text(
+        f"[General]\nvocabulary_size = {V}\nfactor_num = {K}\n"
+        f"field_num = 2\nmodel_file = {model_file}\n"
+        f"[Train]\ntrain_files = {tmp_path}/none.libsvm\n"
+        f"[Predict]\npredict_files = {tmp_path}/none.libsvm\n"
+        f"score_path = {tmp_path}/scores.txt\n"
+    )
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main([mode, path, "--device", "cpu"])
+        cli.main([mode, str(path), "--device", "cpu"])
