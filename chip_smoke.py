@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``fast_tffm_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # one GPU: every phase below
+    python3 chip_smoke.py --nccl    # >= 4 GPUs: phases 1-3 and 8 only,
+                                    # one rank per GPU over NCCL
 
 Phases, in order; any failed check ends the run with a non-zero exit:
 
@@ -18,9 +20,12 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    card — ``fm_scores`` at the serving rungs and at a parsed training
    batch (B = 4096: train step, validation, predict), ``fm_grad`` at B in
    {1, 1000, 4096}, K1 and K2 (adagrad, ftrl, sgd) at the training
-   shapes of a parsed batch and with one id of >= 5000 occurrences —
-   then kernel, plain and library call timed in CUDA graphs at the
-   main paths' shapes.
+   shapes of a parsed batch and with one id of >= 5000 occurrences,
+   K-place at the sharded path's shapes (``vocab_local = 2^21``,
+   ``row_lo = 2^21``, a parsed local batch of 2048 lines with sentinel
+   ids) and K1's merge mode on two data blocks' entry streams (both
+   exact: ``max_abs_err`` 0) — then kernel, plain and library call timed
+   in CUDA graphs at the main paths' shapes.
 5. Train phase (main path 1): ``Trainer(cfg).train()`` on
    ``examples/criteo_kaggle.cfg`` at full width (V = 2^22, F = 39,
    D = 9, B = 4096, Adagrad, batch L2, host sort meta), 16 steps, then
@@ -39,6 +44,18 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    larger than the largest; the two transports agree bitwise, scores
    match the plain path on the card, out-of-range ids reduce like the
    text path, the kernel ran.  Request latency and dispatch per rung.
+8. Sharded phase (main path 3): four ranks of a 2 x 2 (data x model)
+   mesh, ``lookup = shardmap``, each a process of this script
+   (``--sharded-rank``) sharing the card over gloo (or one GPU each over
+   NCCL with ``--nccl``), train 8 global batches through
+   ``Trainer.train()`` twice: ``sparse_exchange = dense`` (K-place
+   every step on every rank) and ``auto`` (must resolve to ``entries``:
+   K1's merge mode every step, no K-place).  Checks: every rank reports
+   the same global metrics; the table rank 0 saves matches a
+   single-device run over the same global batches (table, accumulator,
+   w0, ``delta_check``).  Each rank's step p50 and the share of it
+   spent in the step's collectives (host clock, synchronised around
+   each collective, staging copies included).
 
 Output: progress lines and JSON records, then a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -86,6 +103,11 @@ SERVE_TOL = dict(rtol=1e-5, atol=1e-6)
 # one predict file of 4096 lines each.
 TRAIN_FILES, BATCHES_PER_FILE, LINES = 2, 8, 4096
 INT_BUCKETS = 50
+# Sharded phase: the mesh, its ranks' deadline, and the K-place check's
+# shard (the upper half of the Criteo-Kaggle table).
+SHARDED_MESH = (2, 2)
+RANK_TIMEOUT_S = 300
+KPLACE_ROW_LO = KPLACE_VOCAB_LOCAL = 1 << 21
 
 
 def check(cond: bool, msg: str) -> None:
@@ -216,9 +238,10 @@ def fm_grad_bound_ms(b: int, f: int, d: int):
 
 
 def k1_bound_ms(n: int, u: int, d: int):
-    """K1: g_rows, ids, perm and seg_start read; urows and sums written.
+    """K1: g_rows and perm read, ids once per unique id (at its
+    segment's first occurrence), seg_start read; urows and sums written.
     Per occurrence and column: g, g*g, two adds."""
-    return bound(4 * (n * d + 2 * n + (u + 1) + u + 2 * d * u), 3 * n * d)
+    return bound(4 * (n * d + n + u + (u + 1) + u + 2 * d * u), 3 * n * d)
 
 
 def delta_check(torch, name: str, kern, plain, start) -> dict:
@@ -245,6 +268,21 @@ def delta_check(torch, name: str, kern, plain, start) -> dict:
     return {"changed": int((dp != 0).sum()), "max_abs_change":
             float(dp.abs().max()), "change_max_abs_err": float(diff.max()),
             "change_rel_err": rel}
+
+
+def k1_merge_bound_ms(n: int, u: int, p: int):
+    """K1 merge mode over the ``n`` real entries (the sentinel's padding
+    is never read): their payload and perm read, ids once per unique
+    row, seg_start read; urows and sums written.  One add per entry and
+    column."""
+    return bound(4 * (n * p + n + u + (u + 1) + u + p * u), n * p)
+
+
+def kplace_bound_ms(u: int, w: int, vocab_local: int):
+    """K-place: the ``u`` entries inside the shard read once (the
+    others are never read: a block finds its own by binary search), the
+    dense delta written once; no arithmetic."""
+    return bound(4 * (u * (w + 1) + vocab_local * w), 0)
 
 
 def k2_bound_ms(u: int, d: int):
@@ -299,6 +337,328 @@ def post(conn, path: str, body: bytes) -> bytes:
     return data
 
 
+# -- sharded phase (main path 3) -----------------------------------------
+
+
+def rank_main(argv) -> int:
+    """One rank of the sharded phase:
+    ``chip_smoke.py --sharded-rank RANK WORLD INIT_URL SPEC OUT``.
+    Joins the rank group, trains through ``Trainer.train()`` with the
+    spec's config overrides and writes its record to OUT."""
+    rank, world, url, spec_path, out_path = (int(argv[0]), int(argv[1]),
+                                             argv[2], argv[3], argv[4])
+    import torch
+
+    sys.path.insert(0, REPO)
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.ops import fm_kernels, sparse_apply
+    from fast_tffm_tpu_torch.train import dist, shardmap_step
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format=f"%(asctime)s rank{rank} %(name)s %(message)s")
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = dist.initialize(url, world, rank)
+    try:
+        cfg = load_config(CFG_PATH, spec["overrides"])
+
+        coll_s = [0.0]
+
+        def timed(collective):
+            """``collective`` timed on the host clock, synchronised on
+            both sides (the smoke's measurement only)."""
+            def call(t, axis, mesh):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = collective(t, axis, mesh)
+                torch.cuda.synchronize()
+                coll_s[0] += time.perf_counter() - t0
+                return out
+            return call
+
+        # Every collective of a train step is the sharded step's.
+        shardmap_step.psum = timed(shardmap_step.psum)
+        shardmap_step.all_gather = timed(shardmap_step.all_gather)
+
+        class TimedTrainer(Trainer):
+            """Times each step (synchronised) and its collectives."""
+
+            def __init__(self, *args, **kwargs):
+                self.step_s, self.coll_s = [], []
+                super().__init__(*args, **kwargs)
+
+            def train_step(self, batch):
+                c0 = coll_s[0]
+                t0 = time.perf_counter()
+                loss = super().train_step(batch)
+                torch.cuda.synchronize()
+                self.step_s.append(time.perf_counter() - t0)
+                self.coll_s.append(coll_s[0] - c0)
+                return loss
+
+        trainer = TimedTrainer(cfg, device=dev)
+        kernels = kernel_fns(fm_kernels, sparse_apply)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        mesh = trainer.mesh
+        steps = trainer.step_s[1:]  # the first step warms up
+        record = {
+            "rank": rank, "coords": list(mesh.coords), "device": str(dev),
+            "backend": mesh.backend,
+            "exchange": shardmap_step.exchange_mode(
+                cfg, mesh, cfg.batch_size // mesh.data * cfg.max_features),
+            "launches": launches, "train": result["train"],
+            "validation": result["validation"],
+            "step_p50_ms": p50(steps) * 1e3,
+            "collective_share": sum(trainer.coll_s[1:]) / sum(steps),
+            "step_ms": [x * 1e3 for x in trainer.step_s],
+            "train_wall_s": wall,
+            "peak_device_mb": torch.cuda.max_memory_allocated() / 2**20,
+        }
+        with open(out_path, "w") as f:
+            json.dump(record, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def kernel_fns(fm_kernels, sparse_apply) -> dict:
+    """Every kernel wrapper of the port by name (each keeps a count of
+    its launches)."""
+    return {
+        "fm_scores": fm_kernels.fm_scores_cuda,
+        "fm_grad": fm_kernels.fm_grad_cuda,
+        "k1_dedup": sparse_apply.k1_dedup_cuda,
+        "k1_merge": sparse_apply.k1_merge_cuda,
+        "k2_apply": sparse_apply.k2_apply_cuda,
+        "kplace": sparse_apply.kplace_cuda,
+    }
+
+
+def spawn_ranks(tmp: str, tag: str, overrides: dict, world: int,
+                one_card: bool) -> list:
+    """Run ``world`` ranks of this script with the config ``overrides``
+    and return their records.  ``one_card`` shows every rank only the
+    first visible GPU (so they share it).  A rank that fails, or the
+    deadline, ends the smoke; every rank is stopped either way."""
+    spec = os.path.join(tmp, f"{tag}.json")
+    with open(spec, "w") as f:
+        json.dump({"overrides": overrides}, f)
+    env = dict(os.environ)
+    if one_card:
+        visible = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        env["CUDA_VISIBLE_DEVICES"] = visible or "0"
+    url = f"file://{tmp}/{tag}.rendezvous"
+    outs = [os.path.join(tmp, f"{tag}.rank{r}.json") for r in range(world)]
+    logs = [open(os.path.join(tmp, f"{tag}.rank{r}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+         str(r), str(world), url, spec, outs[r]],
+        cwd=REPO, env=env, stdout=logs[r], stderr=subprocess.STDOUT,
+    ) for r in range(world)]
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    failed = None
+    try:
+        while failed is None and any(p.poll() is None for p in procs):
+            time.sleep(0.1)
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad:
+                failed = bad[0]
+            elif time.monotonic() > deadline:
+                failed = "deadline"
+        bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+        if failed is None and bad:
+            failed = bad[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        tails = []
+        for r, log in enumerate(logs):
+            log.seek(0)
+            tails.append(log.read()[-4000:])
+            log.close()
+    if failed is not None:
+        which = (f"rank {failed} exited {procs[failed].returncode}"
+                 if failed != "deadline"
+                 else f"ranks still running after {RANK_TIMEOUT_S} s")
+        r = failed if failed != "deadline" else 0
+        print(f"chip_smoke: sharded {tag}: {which}; its log:\n{tails[r]}",
+              file=sys.stderr)
+        check(False, f"sharded run {tag}: {which}")
+    records = []
+    for path in outs:
+        with open(path) as f:
+            records.append(json.load(f))
+    return records
+
+
+def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
+                  valid_file: str, one_card: bool):
+    """Main path 3: the 2 x 2 mesh's dense and auto (entries) runs
+    against a single-device run over the same global batches.  Returns
+    the phase's record and the launches of each kernel summed over the
+    ranks of both runs."""
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.models import fm
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    dev = torch.device("cuda")
+    base = {"train_files": [train_file], "validation_files": [valid_file],
+            "seed": SEED, "log_steps": 4, "serve_poll_secs": 0.0,
+            "serve_port": 0}
+    ref_dir = os.path.join(tmp, "sharded_ref")
+    t0 = time.perf_counter()
+    ref = Trainer(load_config(CFG_PATH, dict(base, model_file=ref_dir))
+                  ).train()
+    ref_s = time.perf_counter() - t0
+    steps = ref["train"]["steps"]
+    rcfg = load_config(CFG_PATH, base)
+    init = fm.init_params(rcfg, torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev).table.detach()
+
+    def load(path):
+        with np.load(os.path.join(path, "params.npz")) as z:
+            return {k: torch.from_numpy(z[k]).to(dev) for k in z.files}
+
+    want = load(ref_dir)
+    world = SHARDED_MESH[0] * SHARDED_MESH[1]
+    runs, launches = {}, {}
+    for exchange in ("dense", "auto"):
+        model_dir = os.path.join(tmp, f"sharded_{exchange}")
+        t0 = time.perf_counter()
+        recs = spawn_ranks(tmp, f"sharded_{exchange}", dict(
+            base, model_file=model_dir, mesh_data=SHARDED_MESH[0],
+            mesh_model=SHARDED_MESH[1], lookup="shardmap",
+            sparse_exchange=exchange,
+        ), world, one_card)
+        wall = time.perf_counter() - t0
+        r0 = recs[0]
+        for rec in recs:
+            check(rec["train"]["steps"] == steps,
+                  f"{exchange}: rank {rec['rank']} ran "
+                  f"{rec['train']['steps']} steps, the single device {steps}")
+            for part in ("train", "validation"):
+                for m in ("loss", "auc", "examples"):
+                    a, b = rec[part][m], r0[part][m]
+                    check(abs(a - b) <= 1e-6 * abs(b),
+                          f"{exchange}: rank {rec['rank']} {part} {m} {a} "
+                          f"!= rank 0's {b}")
+            got = rec["launches"]
+            if exchange == "dense":
+                check(rec["exchange"] == "dense" and got["kplace"] >= steps,
+                      f"dense: rank {rec['rank']} launched K-place "
+                      f"{got['kplace']} times in {steps} steps")
+            else:
+                check(rec["exchange"] == "entries",
+                      f"auto resolved to {rec['exchange']}, not entries")
+                check(got["k1_merge"] >= steps and got["kplace"] == 0,
+                      f"entries: rank {rec['rank']} launched K1 merge "
+                      f"{got['k1_merge']} and K-place {got['kplace']} times")
+            check(got["fm_grad"] >= steps and got["k1_dedup"] >= steps
+                  and (exchange == "dense" or got["k2_apply"] >= steps),
+                  f"{exchange}: rank {rec['rank']} launches {got}")
+            for name, n in got.items():
+                launches[name] = launches.get(name, 0) + n
+        have = load(model_dir)
+        check(set(have) == set(want), f"{exchange}: checkpoint keys")
+        torch.testing.assert_close(have["params/table"], want["params/table"],
+                                   **TABLE_TOL)
+        torch.testing.assert_close(have["opt/acc_table"],
+                                   want["opt/acc_table"], **OPT_TOL)
+        torch.testing.assert_close(have["scalar/w0"], want["scalar/w0"],
+                                   rtol=1e-5, atol=1e-7)
+        changes = {
+            "table": delta_check(torch, f"{exchange} table",
+                                 have["params/table"], want["params/table"],
+                                 init),
+            "acc_table": delta_check(
+                torch, f"{exchange} acc_table", have["opt/acc_table"],
+                want["opt/acc_table"],
+                torch.full_like(init, rcfg.adagrad_initial_accumulator)),
+        }
+        runs[exchange] = {
+            "wall_s": wall, "resolved": r0["exchange"],
+            "backend": r0["backend"],
+            "table_max_abs_err": float(
+                (have["params/table"] - want["params/table"]).abs().max()),
+            "acc_max_abs_err": float(
+                (have["opt/acc_table"] - want["opt/acc_table"]).abs().max()),
+            "changes": changes,
+            "train_logloss": r0["train"]["logloss"],
+            "validation_logloss": r0["validation"]["logloss"],
+            "validation_auc": r0["validation"]["auc"],
+            "ranks": [{k: rec[k] for k in (
+                "rank", "coords", "device", "launches", "step_p50_ms",
+                "collective_share", "train_wall_s", "peak_device_mb")}
+                for rec in recs],
+        }
+        del have
+    transport = (
+        f"gloo through pinned host memory, {world} ranks sharing one card "
+        f"(not NCCL)" if one_card else f"one rank per GPU, {r0['backend']}"
+    )
+    record = {"sharded": {
+        "card": card, "mesh": list(SHARDED_MESH), "steps": steps,
+        "global_batch": rcfg.batch_size, "transport": transport,
+        "single_device": {"wall_s": ref_s,
+                          "train_logloss": ref["train"]["logloss"],
+                          "validation_logloss": ref["validation"]["logloss"],
+                          "validation_auc": ref["validation"]["auc"]},
+        **runs,
+    }}
+    return record, launches
+
+
+def nccl_main() -> int:
+    """``--nccl``: the sharded phase alone, one rank per GPU (needs at
+    least four), so the backend rule picks NCCL."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU visible to PyTorch", file=sys.stderr)
+        return 2
+    world = SHARDED_MESH[0] * SHARDED_MESH[1]
+    check(torch.cuda.device_count() >= world,
+          f"--nccl needs {world} GPUs, have {torch.cuda.device_count()}")
+    sys.path.insert(0, REPO)
+    from fast_tffm_tpu_torch.ops import _build
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(asctime)s %(name)s %(message)s")
+    card = card_line()
+    t_start = time.perf_counter()
+    _build.build(force=True)
+    rng = np.random.default_rng(SEED)
+    w_true = rng.normal(0.0, 0.6, (13, INT_BUCKETS))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        train_file = os.path.join(tmp, "train_0.libsvm")
+        valid_file = os.path.join(tmp, "valid.libsvm")
+        write_labelled(np, train_file, rng, BATCHES_PER_FILE * LINES, w_true)
+        write_labelled(np, valid_file, rng, LINES, w_true)
+        record, _ = sharded_phase(np, torch, tmp, card, train_file,
+                                  valid_file, one_card=False)
+    print(json.dumps(record), flush=True)
+    print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}))
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -313,13 +673,14 @@ def main() -> int:
         host_sort_meta, make_batch, parse_lines,
     )
     from fast_tffm_tpu_torch.models import fm
-    from fast_tffm_tpu_torch.ops import _build, sparse_apply
+    from fast_tffm_tpu_torch.ops import _build, fm_kernels, sparse_apply
     from fast_tffm_tpu_torch.ops.fm_kernels import (
         fm_grad_cuda, fm_grad_plain, fm_scores_cuda, fm_scores_plain,
     )
     from fast_tffm_tpu_torch.ops.sparse_apply import (
-        k1_dedup_cuda, k1_dedup_plain, k1_error_bound, k2_apply_cuda,
-        k2_apply_plain,
+        k1_dedup_cuda, k1_dedup_plain, k1_error_bound, k1_merge_cuda,
+        k1_merge_plain, k2_apply_cuda, k2_apply_plain, kplace_cuda,
+        kplace_plain,
     )
     from fast_tffm_tpu_torch.serve import wire
     from fast_tffm_tpu_torch.serve.server import serve
@@ -336,6 +697,14 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     t_start = time.perf_counter()
+    phase_wall = {}
+    phase_t0 = [t_start]
+
+    def phase_end(name: str) -> None:
+        now = time.perf_counter()
+        phase_wall[name] = now - phase_t0[0]
+        phase_t0[0] = now
+        print(f"phase {name}: {phase_wall[name]:.1f} s", flush=True)
 
     # -- build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -357,6 +726,8 @@ def main() -> int:
     tmp_ctx = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     tmp = tmp_ctx.name
     err = {}  # kernel -> max |kernel - plain| over its checks
+
+    phase_end("build")
 
     # -- data ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -381,6 +752,8 @@ def main() -> int:
     print(f"data: {TRAIN_FILES * BATCHES_PER_FILE * LINES} train + "
           f"{2 * LINES} validation/predict lines written, 3 batches parsed "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase_end("data")
 
     # -- kernel phase: fm_scores (serving rungs, training batch) -------
     for b in (1, 64, 256, 1000, 1024, B):
@@ -452,9 +825,64 @@ def main() -> int:
                 float((a - b_).abs().max()) for a, b_ in zip(kern, plain)
             ))
             del kern, plain, state
+    # -- K-place and K1's merge mode at the sharded path's shapes -----
+    # A data block of the 2 x 2 mesh: 2048 parsed lines; the model
+    # shard: rows [2^21, 2^22).  Global ids, a tenth of them the
+    # sentinel V (off-shard occurrences), and every id below the shard
+    # is dropped too.
+    b_loc = B // SHARDED_MESH[0]
+    ids_loc = torch.from_numpy(batches[0].ids[:b_loc]).to(dev).reshape(-1)
+    n_loc = ids_loc.numel()
+    ids_kp = ids_loc.clone()
+    ids_kp[torch.randperm(n_loc, generator=gen, device=dev)[:n_loc // 10]] = V
+    g_kp = torch.randn((n_loc, D), generator=gen, device=dev) * 0.1
+    meta_kp = sparse_apply.sort_meta(ids_kp)
+    urows_kp, sums_kp = k1_dedup_cuda(g_kp, ids_kp, meta_kp.perm,
+                                      meta_kp.seg_start)
+    check(int(urows_kp[-1]) == V, "no sentinel among the K-place entries")
+    delta_k = kplace_cuda(urows_kp, sums_kp, KPLACE_ROW_LO,
+                          KPLACE_VOCAB_LOCAL)
+    delta_p = kplace_plain(urows_kp, sums_kp, KPLACE_ROW_LO,
+                           KPLACE_VOCAB_LOCAL)
+    torch.cuda.synchronize()
+    err["kplace"] = float((delta_k - delta_p).abs().max())
+    check(err["kplace"] == 0.0 and torch.equal(delta_k, delta_p),
+          f"K-place vs plain: max err {err['kplace']:.3e} (a placement "
+          f"must be exact)")
+    # The entries inside the shard: all K-place must read.
+    placed = int(((urows_kp >= KPLACE_ROW_LO) & (
+        urows_kp < KPLACE_ROW_LO + KPLACE_VOCAB_LOCAL)).sum())
+    del delta_k, delta_p
+    # Both data blocks' padded entry streams for that model shard, as
+    # the entries exchange gathers them, merged as merge_entries does
+    # (the sentinel's padding left out): at most two entries per row.
+    cap = sparse_apply.entries_cap(n_loc, KPLACE_VOCAB_LOCAL)
+    streams = []
+    for blk in range(SHARDED_MESH[0]):
+        ids_b = torch.from_numpy(
+            batches[0].ids[blk * b_loc:(blk + 1) * b_loc]).to(dev).reshape(-1)
+        own = (ids_b >= KPLACE_ROW_LO) & (
+            ids_b < KPLACE_ROW_LO + KPLACE_VOCAB_LOCAL)
+        lids = torch.where(own, ids_b - KPLACE_ROW_LO, KPLACE_VOCAB_LOCAL)
+        g_b = torch.randn((n_loc, D), generator=gen, device=dev) * 0.1
+        streams.append(sparse_apply.unique_entries(
+            lids, g_b * own[:, None], vocab=KPLACE_VOCAB_LOCAL, cap=cap))
+    rows_m = torch.cat([r for r, _, _ in streams])
+    pay_m = torch.cat([p for _, p, _ in streams])
+    meta_m = sparse_apply.sort_meta(rows_m, drop_from=KPLACE_VOCAB_LOCAL)
+    merge_args = (pay_m, rows_m, meta_m.perm, meta_m.seg_start)
+    urows_m, sums_m = k1_merge_cuda(*merge_args)
+    urows_mp, sums_mp = k1_merge_plain(*merge_args)
+    torch.cuda.synchronize()
+    check(torch.equal(urows_m, urows_mp), "K1 merge row ids")
+    err["k1_merge"] = float((sums_m - sums_mp).abs().max())
+    check(err["k1_merge"] == 0.0, f"K1 merge vs plain: max err "
+          f"{err['k1_merge']:.3e} (at most two terms per row)")
     print("kernel check: fm_scores, fm_grad, k1_dedup, k2_apply (adagrad, "
-          "ftrl, sgd) == their plain versions; max_abs_err "
-          + json.dumps(err), flush=True)
+          "ftrl, sgd), kplace, k1_merge == their plain versions; "
+          "max_abs_err " + json.dumps(err), flush=True)
+
+    phase_end("kernel_check")
 
     # -- kernel timing at the main paths' shapes -----------------------
     timing = {}
@@ -480,6 +908,17 @@ def main() -> int:
     seg_of_occ[meta0.perm.long()] = seg_sorted
     payload = torch.cat([g_rows, g_rows * g_rows], dim=1)
     lib_out = torch.zeros((u, 2 * D), device=dev)
+    # K1 merge's library yardstick, as K1's: one index_add_ of the real
+    # entries' payload (the sentinel's padding left out, as the kernel
+    # leaves it) over each entry's segment.
+    n_real = int(meta_m.seg_start[-1])
+    merge_seg = torch.repeat_interleave(
+        torch.arange(urows_m.numel(), device=dev),
+        (meta_m.seg_start[1:] - meta_m.seg_start[:-1]).long(),
+        output_size=n_real,
+    )
+    pay_real = pay_m.index_select(0, meta_m.perm[:n_real].long())
+    lib_merge = torch.zeros((urows_m.numel(), 2 * D), device=dev)
     cases = {
         "fm_scores": (lambda: fm_scores_cuda(rows, vals),
                       lambda: fm_scores_plain(rows, vals), None,
@@ -501,10 +940,26 @@ def main() -> int:
                                    hyper),
             None, k2_bound_ms(u, D),
         ),
+        "kplace": (
+            lambda: kplace_cuda(urows_kp, sums_kp, KPLACE_ROW_LO,
+                                KPLACE_VOCAB_LOCAL),
+            lambda: kplace_plain(urows_kp, sums_kp, KPLACE_ROW_LO,
+                                 KPLACE_VOCAB_LOCAL),
+            None,
+            kplace_bound_ms(placed, 2 * D, KPLACE_VOCAB_LOCAL),
+        ),
+        "k1_merge": (
+            lambda: k1_merge_cuda(*merge_args),
+            lambda: k1_merge_plain(*merge_args),
+            lambda: lib_merge.index_add_(0, merge_seg, pay_real),
+            k1_merge_bound_ms(n_real, urows_m.numel(), 2 * D),
+        ),
     }
     for name, (kern, plain, lib, (b_ms, b_by)) in cases.items():
-        # In turns: plain, kernel, kernel, plain.
-        pa, ka, kb, pb = (graph_ms(torch, fn) for fn in
+        # In turns: plain, kernel, kernel, plain.  K-place writes a
+        # 151 MB delta per call: fewer calls per graph.
+        calls = 20 if name == "kplace" else 100
+        pa, ka, kb, pb = (graph_ms(torch, fn, calls=calls) for fn in
                           (plain, kern, kern, plain))
         timing[name] = {
             "ms": min(ka, kb), "plain_ms": min(pa, pb),
@@ -525,11 +980,16 @@ def main() -> int:
             "bound_ms": fm_bound_ms(b, F, D)[0]}
         for b in cfg.serve_ladder
     }
-    del table_k, acc_k, lib_out, payload
+    del table_k, acc_k, lib_out, payload, lib_merge
     print(json.dumps({"kernel_timing": {
         "card": card, "serve_B": b_serve, "train_B": B, "occurrences": n,
-        "unique_rows": u, **timing,
+        "unique_rows": u, "kplace_entries": urows_kp.numel(),
+        "kplace_rows_placed": placed, "merge_entries": rows_m.numel(),
+        "merge_real_entries": n_real, "merge_unique_rows": urows_m.numel(),
+        **timing,
     }}), flush=True)
+
+    phase_end("kernel_timing")
 
     # -- train phase (main path 1) -------------------------------------
     model_dir = os.path.join(tmp, "model")
@@ -544,8 +1004,10 @@ def main() -> int:
           "the main path's config is not the default sparse Adagrad")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in (fm_scores_cuda, fm_grad_cuda, k1_dedup_cuda, k2_apply_cuda):
+    kernels = kernel_fns(fm_kernels, sparse_apply)
+    for fn in kernels.values():
         fn.launches = 0
+
     class LossTrainer(Trainer):
         """Keeps each step's loss, a device scalar, for the falling-loss
         check."""
@@ -567,12 +1029,7 @@ def main() -> int:
     n_pred = predict(tcfg)
     predict_wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    train_launches = {
-        "fm_scores": fm_scores_cuda.launches,
-        "fm_grad": fm_grad_cuda.launches,
-        "k1_dedup": k1_dedup_cuda.launches,
-        "k2_apply": k2_apply_cuda.launches,
-    }
+    train_launches = {name: fn.launches for name, fn in kernels.items()}
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     tr = result["train"]
     steps = tr["steps"]
@@ -608,6 +1065,8 @@ def main() -> int:
         "peak_device_mb": peak_mb,
     }}), flush=True)
     del trainer
+
+    phase_end("train")
 
     # -- parity phase --------------------------------------------------
     def put(batch, with_meta=True):
@@ -659,6 +1118,8 @@ def main() -> int:
         "changes": changes, "host_vs_device_meta": "bitwise equal",
     }}), flush=True)
 
+    phase_end("parity")
+
     # -- one train step: host clock, profiler --------------------------
     stepper = Trainer(load_config(CFG_PATH, {
         "model_file": os.path.join(tmp, "fresh"), "seed": SEED,
@@ -684,6 +1145,8 @@ def main() -> int:
         "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
     }}), flush=True)
     del stepper
+
+    phase_end("train_step")
 
     # -- serve phase (main path 2): the trained checkpoint -------------
     scfg = load_config(CFG_PATH, {
@@ -782,17 +1245,38 @@ def main() -> int:
     print("serve check: the trained checkpoint serves; transports agree "
           "bitwise, scores match the plain path on the card, out-of-range "
           "ids reduce", flush=True)
+    phase_end("serve")
+
+    # -- sharded phase (main path 3) -----------------------------------
+    del ref, scorer, handle
+    torch.cuda.empty_cache()
+    sharded, sharded_launches = sharded_phase(
+        np, torch, tmp, card, train_files[0], valid_file, one_card=True)
+    print(json.dumps(sharded), flush=True)
+    print("sharded check: dense and entries runs of a 2 x 2 mesh match the "
+          "single-device run; every rank reports the same metrics",
+          flush=True)
+    phase_end("sharded")
     tmp_ctx.cleanup()
 
-    launches = dict(train_launches, fm_scores=serve_launches)
+    # Launches on the main paths: train (path 1), serve (path 2, the
+    # only fm_scores count), the sharded runs' ranks (path 3).
+    launches = {name: train_launches[name] + sharded_launches[name]
+                for name in kernels}
+    launches["fm_scores"] = serve_launches
     sources = {
         "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
         "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),
         "k1_dedup": ("sparse_apply.cu",
                      "fast_tffm_tpu/ops/sparse_apply.py:136"),
+        "k1_merge": ("sparse_apply.cu",
+                     "fast_tffm_tpu/ops/sparse_apply.py:136"),
         "k2_apply": ("sparse_apply.cu",
                      "fast_tffm_tpu/ops/sparse_apply.py:322"),
+        "kplace": ("sparse_apply.cu",
+                   "fast_tffm_tpu/ops/sparse_apply.py:469"),
     }
+    print(json.dumps({"phase_wall_s": phase_wall}), flush=True)
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{
         "name": name,
@@ -816,4 +1300,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:] == ["--nccl"]:
+        sys.exit(nccl_main())
+    if sys.argv[1:]:
+        sys.exit(f"usage: {sys.argv[0]} [--nccl]")
     sys.exit(main())

@@ -2,10 +2,17 @@
 the PyTorch port's entry point, taking the same INI files as
 ``run_tffm.py``.
 
-``train`` runs the single-device sparse trainer (``train/loop.py``) and
-prints its train and validation metrics; ``predict`` writes one score per
-line of ``predict_files`` to ``score_path``; ``serve`` starts the
-scoring endpoint.  Runs on the GPU unless ``--device cpu`` is given.
+``train`` runs the sparse trainer (``train/loop.py``) and prints its
+train and validation metrics; ``predict`` writes one score per line of
+``predict_files`` to ``score_path``; ``serve`` starts the scoring
+endpoint.  Runs on the GPU unless ``--device cpu`` is given.
+
+Multi-rank training: every rank runs the same ``train`` command with
+``--coordinator host:port --num_processes N --process_id R`` (or the
+reference's legacy ``--worker_hosts/--task_index``; ``--job_name=ps``
+exits with a notice), which joins the rank group (``train/dist.py``)
+before the trainer starts on the config's ``mesh_data x mesh_model``
+mesh.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ import logging
 import sys
 
 __all__ = ["build_argparser", "main"]
+
+log = logging.getLogger(__name__)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -50,7 +59,50 @@ def build_argparser() -> argparse.ArgumentParser:
         help="checkpoint hot-swap poll period; the port serves the "
              "startup checkpoint only, so this must be 0",
     )
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rendezvous address of a multi-rank run (rank 0's "
+                        "host); every rank passes the same one")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="number of ranks of a multi-rank run")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank in [0, num_processes)")
+    # Legacy reference flags, mapped as the JAX package's CLI maps them.
+    p.add_argument("--ps_hosts", default=None, help="legacy; ps tasks exit")
+    p.add_argument("--worker_hosts", default=None,
+                   help="legacy; maps to --num_processes")
+    p.add_argument("--job_name", default=None, choices=[None, "ps", "worker"])
+    p.add_argument("--task_index", type=int, default=None,
+                   help="legacy; maps to --process_id")
     return p
+
+
+def _resolve_dist(args):
+    """``(coordinator, num_processes, process_id)`` from the new or the
+    legacy flags, None for a single-process run; a ps task exits 0."""
+    if args.job_name == "ps":
+        log.warning(
+            "parameter-server tasks are obsolete: the table is row-sharded "
+            "across the ranks. This ps task exits; remove ps entries from "
+            "your launch scripts."
+        )
+        sys.exit(0)
+    if args.coordinator is not None:
+        if args.num_processes is None or args.process_id is None:
+            raise SystemExit(
+                "--coordinator requires --num_processes and --process_id"
+            )
+        return args.coordinator, args.num_processes, args.process_id
+    if args.worker_hosts is not None:
+        workers = [h for h in args.worker_hosts.split(",") if h]
+        task = args.task_index or 0
+        coordinator = workers[0]
+        log.warning(
+            "legacy --worker_hosts mapped to a multi-rank run: "
+            "coordinator=%s num_processes=%d process_id=%d",
+            coordinator, len(workers), task,
+        )
+        return coordinator, len(workers), task
+    return None
 
 
 def main(argv=None) -> int:
@@ -72,10 +124,34 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
         handlers=handlers, force=True,
     )
+    dist = _resolve_dist(args)
+    if dist is not None and args.mode == "predict":
+        # As the JAX package's predict refuses a multi-process run.
+        raise NotImplementedError(
+            "predict runs single-process; run it without the multi-rank "
+            "flags: a multi-rank checkpoint is one params.npz"
+        )
+    if dist is not None and args.mode == "serve":
+        raise NotImplementedError(
+            "serving across ranks (a scorer over several devices) is "
+            "ROADMAP.md port queue item 3; serve the multi-rank "
+            "checkpoint (one params.npz) from a single process"
+        )
     if args.mode == "train":
         from fast_tffm_tpu_torch.train.loop import Trainer
 
-        result = Trainer(cfg, device=args.device).train()
+        device = args.device
+        if dist is not None:
+            import torch.distributed
+
+            from fast_tffm_tpu_torch.train import dist as dist_lib
+
+            device = dist_lib.initialize(*dist, device=args.device)
+        try:
+            result = Trainer(cfg, device=device).train()
+        finally:
+            if dist is not None:
+                torch.distributed.destroy_process_group()
         loss_name = "mse" if cfg.loss_type == "mse" else "logloss"
         m = result["train"]
         print(f"train {loss_name}={m['loss']:.6f} auc={m['auc']:.4f} "

@@ -12,6 +12,12 @@ queue (``queue_size`` batches) keeps the parser at most that far ahead.
 With one parse thread the batches always come in input order, so the
 reference's ``ordered`` flag has nothing to select.
 
+``shard=(index, count)`` is the multi-rank input split (the reference's
+``_strided_rounds``): the stream of batch-sized line groups, the same on
+every rank, is dealt out round-robin, and this pipeline parses only
+every ``count``-th group from ``index`` on, and only from complete
+rounds, so every data block yields the same number of batches.
+
 The reference's process pool, C++ parser, epoch cache, shared-memory
 ring and ``DevicePrefetcher`` are later items (ROADMAP.md, port queue).
 """
@@ -54,6 +60,28 @@ def expand_files(patterns: Sequence[str]) -> list:
     return out
 
 
+def _strided_rounds(it, shard_id: int, num_shards: int):
+    """Yield every ``num_shards``-th item from ``shard_id`` on, but only
+    from complete rounds (``fast_tffm_tpu/data/pipeline.py::
+    _strided_rounds``): a rank that ran one extra step would deadlock the
+    others in the step's collectives, so an item is held back until an
+    item of the next round arrives, and a partial tail round is
+    dropped."""
+    pending = None  # (round, item) candidate from this shard's slot
+    last_idx = -1
+    for idx, item in enumerate(it):
+        last_idx = idx
+        r = idx // num_shards
+        if pending is not None and r > pending[0]:
+            yield pending[1]
+            pending = None
+        if idx % num_shards == shard_id:
+            pending = (r, item)
+    if (pending is not None
+            and last_idx >= pending[0] * num_shards + num_shards - 1):
+        yield pending[1]
+
+
 class BatchPipeline:
     """Iterate over the parsed batches of ``files`` for ``epochs``
     epochs.  Use as a context manager (or call :meth:`close`) so the
@@ -61,7 +89,8 @@ class BatchPipeline:
 
     def __init__(self, files: Sequence[str], cfg: FmConfig, epochs: int = 1,
                  shuffle: bool = True, host_meta: bool = False,
-                 weight_files: Optional[Sequence[str]] = None):
+                 weight_files: Optional[Sequence[str]] = None,
+                 shard: tuple = (0, 1)):
         self.files = expand_files(files)
         if not self.files:
             raise ValueError("no input files")
@@ -71,6 +100,9 @@ class BatchPipeline:
                 f"weight_files must parallel the input files "
                 f"({len(self.weight_files)} vs {len(self.files)})"
             )
+        if not 0 <= shard[0] < shard[1]:
+            raise ValueError(f"bad shard {shard}")
+        self.shard = tuple(shard)
         self.cfg = cfg
         self.epochs = epochs
         self.shuffle = shuffle
@@ -131,32 +163,47 @@ class BatchPipeline:
                 continue
         return False
 
+    def _groups(self, epoch_rng):
+        """The epoch's lines in groups of ``batch_size`` (the last one
+        shorter), blank and comment lines (which parse to nothing) left
+        out: one group per batch."""
+        group = []
+        for rec in self._lines(epoch_rng):
+            text = rec[2].strip()
+            if not text or text.startswith("#"):
+                continue
+            group.append(rec)
+            if len(group) == self.cfg.batch_size:
+                yield group
+                group = []
+        if group:
+            yield group
+
     def _produce(self) -> None:
         cfg = self.cfg
         try:
             for epoch in range(self.epochs):
                 rng = np.random.default_rng(cfg.seed + epoch)
-                examples, weights = [], []
-                for path, no, line, w in self._lines(rng):
-                    try:
-                        ex = parse_line(line, cfg.vocabulary_size,
-                                        cfg.hash_feature_id, cfg.field_num)
-                    except ValueError as e:
-                        raise ValueError(f"{path}:{no}: {e}") from None
-                    if ex is None:
-                        continue
-                    if len(ex.ids) > cfg.max_features:
-                        self.truncated_features += (
-                            len(ex.ids) - cfg.max_features
-                        )
-                    examples.append(ex)
-                    weights.append(w)
-                    if len(examples) == cfg.batch_size:
-                        if not self._emit(examples, weights):
-                            return
-                        examples, weights = [], []
-                if examples and not self._emit(examples, weights):
-                    return
+                groups = self._groups(rng)
+                if self.shard[1] > 1:
+                    groups = _strided_rounds(groups, *self.shard)
+                for group in groups:
+                    examples, weights = [], []
+                    for path, no, line, w in group:
+                        try:
+                            ex = parse_line(line, cfg.vocabulary_size,
+                                            cfg.hash_feature_id,
+                                            cfg.field_num)
+                        except ValueError as e:
+                            raise ValueError(f"{path}:{no}: {e}") from None
+                        if len(ex.ids) > cfg.max_features:
+                            self.truncated_features += (
+                                len(ex.ids) - cfg.max_features
+                            )
+                        examples.append(ex)
+                        weights.append(w)
+                    if not self._emit(examples, weights):
+                        return
             self._put(_END)
         except Exception as e:  # handed to the consumer, re-raised there
             self._put(_Failure(e))

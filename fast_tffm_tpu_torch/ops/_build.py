@@ -136,6 +136,11 @@ def load() -> ctypes.CDLL:
             lib.k1_dedup.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                      i32, i32, ptr]
             lib.k1_dedup.restype = i32
+            lib.k1_merge.argtypes = lib.k1_dedup.argtypes
+            lib.k1_merge.restype = i32
+            i64 = ctypes.c_longlong
+            lib.kplace.argtypes = [ptr, ptr, i32, i64, i64, i32, ptr, ptr]
+            lib.kplace.restype = i32
             f32 = ctypes.c_float
             lib.k2_apply.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32,
                                      f32, f32, f32, f32, ptr]

@@ -1,5 +1,6 @@
 """Training loop and offline predict — the counterpart of
-``fast_tffm_tpu/train/loop.py`` for the single-device sparse path.
+``fast_tffm_tpu/train/loop.py`` for the sparse path, on one device or
+on a rank mesh.
 
 :class:`Trainer` initialises the model (or warm-starts it, optimizer
 state included, from ``<model_file>/params.npz``), streams batches from
@@ -11,6 +12,15 @@ runs K plain steps per group, the semantics of the reference's fused
 ``lax.scan``; the logging, validation and save cadences are checked
 after each group.  Streaming logloss/AUC accumulate on the device and
 are read back only at those cadences.
+
+On a rank mesh (``mesh_data x mesh_model > 1``, after
+``train.dist.initialize``) every rank builds the same seeded full table
+and keeps its model shard, parses its data block's strided share of
+the input at the local batch size ``batch_size / mesh_data``, steps
+through ``train.shardmap_step.sparse_step_shardmap`` (both ``lookup``
+values: PyTorch has no GSPMD) and evaluates through the same sharded
+forward; metrics are summed over the ``data`` axis, so every rank
+reports the global ones, and rank 0 writes the one ``params.npz``.
 
 :func:`predict` scores ``predict_files`` through the serving path's
 :class:`~fast_tffm_tpu_torch.serve.scorer.FixedShapeScorer`, with
@@ -24,6 +34,7 @@ planes that never change a parameter are accepted and logged as inert.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import logging
 import time
@@ -35,8 +46,15 @@ from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.libsvm import Batch
 from fast_tffm_tpu_torch.data.pipeline import BatchPipeline
 from fast_tffm_tpu_torch.models import fm
+from fast_tffm_tpu_torch.ops import sparse_apply
+from fast_tffm_tpu_torch.parallel.mesh import (
+    DATA_AXIS, Mesh, data_partition, make_mesh, psum,
+)
 from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.train import checkpoint, metrics as metrics_lib
+from fast_tffm_tpu_torch.train.shardmap_step import (
+    exchange_mode, local_scores, sparse_step_shardmap, supports_shardmap,
+)
 from fast_tffm_tpu_torch.train.sparse import (
     init_sparse_opt_state, sparse_step, supports_sparse, to_device,
 )
@@ -74,8 +92,11 @@ def _check_supported(cfg: FmConfig) -> None:
         unported.append((f"compute_dtype={cfg.compute_dtype}", 7))
     if cfg.table_tiering != "off":
         unported.append(("table_tiering (the tiered table)", 2))
-    if cfg.mesh_data * cfg.mesh_model > 1:
-        unported.append(("more than one device (mesh_data/mesh_model)", 3))
+    if cfg.sparse_exchange_overlap == "on" and cfg.lookup != "shardmap":
+        unported.append((
+            "sparse_exchange_overlap=on (the entries exchange's id-plane "
+            "prefetch, make_entries_prefetch)", 3,
+        ))
     if cfg.cache_epochs:
         unported.append(("cache_epochs (the epoch cache)", 7))
     if unported:
@@ -92,6 +113,44 @@ def _check_supported(cfg: FmConfig) -> None:
             "the PyTorch port's trainer does not run these planes yet "
             "(ROADMAP.md port queue item 4; parameters are unaffected): %s",
             ", ".join(inert),
+        )
+
+
+def _check_mesh(cfg: FmConfig, mesh: Mesh) -> None:
+    """Refusals and notices of the rank mesh, as the reference's."""
+    if cfg.sparse_exchange_overlap == "on":  # lookup=shardmap here
+        raise ValueError(
+            "sparse_exchange_overlap=on requires the sparse gather/apply "
+            "step (lookup != shardmap); this run resolved to "
+            "lookup=shardmap"
+        )
+    if mesh.size == 1:
+        return
+    if not supports_shardmap(cfg, mesh):
+        raise ValueError(
+            "lookup=shardmap needs optimizer in adagrad/ftrl/sgd, "
+            "batch-mode L2, and a vocabulary divisible by "
+            f"model_shards*{sparse_apply.TILE}"
+        )
+    if cfg.batch_size % mesh.data:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} not divisible by {mesh.data} "
+            f"data blocks"
+        )
+    b_local = cfg.batch_size // mesh.data
+    exchange = exchange_mode(cfg, mesh, b_local * cfg.max_features)
+    log.info(
+        "rank %d of a %dx%d (data x model) mesh, backend %s: lookup=%s "
+        "runs the hand-sharded step (PyTorch has no GSPMD), "
+        "sparse_exchange=%s resolved to %s", mesh.rank, mesh.data,
+        mesh.model, mesh.backend, cfg.lookup, cfg.sparse_exchange, exchange,
+    )
+    if (cfg.sparse_exchange_overlap == "auto" and cfg.lookup != "shardmap"
+            and exchange == "entries" and mesh.data > 1):
+        log.info(
+            "sparse_exchange_overlap=auto: the reference would overlap the "
+            "entries exchange's id plane here; the port runs without it "
+            "(bitwise the same result; ROADMAP.md port queue item 3)"
         )
 
 
@@ -122,6 +181,20 @@ class MetricState(NamedTuple):
                                    batch.weights),
         ), lsum, wsum
 
+    def psum_data(self, mesh: Mesh) -> "MetricState":
+        """This state summed over the mesh's ``data`` axis (every rank
+        then holds the global metrics; the AUC bins add up)."""
+        if mesh.data == 1:
+            return self
+        flat = torch.cat([
+            self.loss_sum.reshape(1), self.weight_sum.reshape(1),
+            self.count.reshape(1), self.auc.pos, self.auc.neg,
+        ])
+        flat = psum(flat, DATA_AXIS, mesh)
+        bins = self.auc.pos.numel()
+        return MetricState(flat[0], flat[1], flat[2], metrics_lib.AucState(
+            flat[3:3 + bins], flat[3 + bins:]))
+
     def finalize(self, loss_type: str = "logistic") -> dict:
         """Streaming means (reads the device).  The loss key is
         ``logloss`` for logistic training and ``mse`` for mse (plus the
@@ -139,33 +212,39 @@ class MetricState(NamedTuple):
 
 
 class Trainer:
-    """Drives single-device sparse training per an :class:`FmConfig`,
-    on ``device`` (the GPU unless asked otherwise)."""
+    """Drives sparse training per an :class:`FmConfig`, on ``device``
+    (the GPU unless asked otherwise): on one device, or as this rank of
+    the config's mesh once ``train.dist.initialize`` has run."""
 
     def __init__(self, cfg: FmConfig,
                  device: Optional[Union[str, torch.device]] = None):
         _check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = make_mesh(cfg)
+        _check_mesh(cfg, self.mesh)
+        self.sharded = self.mesh.size > 1
         self.model, self.opt_state, self._restored_step = (
             self._init_or_restore()
         )
         self.metrics = MetricState.zeros(self.device)
 
     def _init_or_restore(self):
+        """The model and optimizer state (this rank's model shard on a
+        mesh), from the checkpoint or freshly initialised: the full
+        table from the seeded generator, then cut, so every mesh starts
+        from the single-device run's weights."""
         cfg = self.cfg
+        row_lo, vocab_local = self.mesh.row_range(cfg.vocabulary_size)
+        rows = slice(row_lo, row_lo + vocab_local) if self.sharded else None
         if checkpoint.exists(cfg.model_file):
             log.info("warm-starting from %s", cfg.model_file)
-            step, model = checkpoint.restore_params(cfg.model_file,
-                                                    device=self.device)
-            want = (cfg.vocabulary_size, cfg.embedding_dim)
-            if tuple(model.table.shape) != want:
-                raise ValueError(
-                    f"checkpoint table is {tuple(model.table.shape)} but "
-                    f"the config wants {want}"
-                )
+            step, model = checkpoint.restore_params(
+                cfg.model_file, device=self.device, rows=rows,
+                shape=(cfg.vocabulary_size, cfg.embedding_dim),
+            )
             opt = checkpoint.restore_opt_state(
-                cfg.model_file, cfg.optimizer, device=self.device
+                cfg.model_file, cfg.optimizer, device=self.device, rows=rows
             )
             if opt is None:
                 log.info("checkpoint holds no %s state; initialising it",
@@ -174,7 +253,25 @@ class Trainer:
             return model, opt, step
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         model = fm.init_params(cfg, gen, device=self.device)
+        if rows is not None:
+            model = fm.FmModel(model.w0.detach(),
+                               model.table.detach()[rows].clone())
         return model, init_sparse_opt_state(cfg, model), 0
+
+    def _input_plan(self):
+        """``(pipeline config, shard)``: each data block parses its
+        strided share of the input at the local batch size."""
+        if not self.sharded:
+            return self.cfg, (0, 1)
+        block, blocks = data_partition(self.mesh)
+        return dataclasses.replace(
+            self.cfg, batch_size=self.cfg.batch_size // blocks
+        ), (block, blocks)
+
+    def global_metrics(self, ms: "MetricState") -> dict:
+        """``ms`` summed over the mesh's data axis and finalised: the
+        same numbers on every rank (a collective on a mesh)."""
+        return ms.psum_data(self.mesh).finalize(self.cfg.loss_type)
 
     def _put(self, batch: Batch) -> Batch:
         vocab = self.cfg.vocabulary_size
@@ -186,10 +283,17 @@ class Trainer:
         return to_device(batch, self.device)
 
     def train_step(self, batch: Batch) -> torch.Tensor:
-        """One step on a host :class:`Batch`; returns the batch's mean
-        weighted data loss as a device scalar (no host sync)."""
+        """One step on a host :class:`Batch` (this rank's data block on a
+        mesh); returns the batch's mean weighted data loss as a device
+        scalar."""
         dev_batch = self._put(batch)
-        scores = sparse_step(self.cfg, self.model, self.opt_state, dev_batch)
+        if self.sharded:
+            scores = sparse_step_shardmap(self.cfg, self.model,
+                                          self.opt_state, dev_batch,
+                                          self.mesh)
+        else:
+            scores = sparse_step(self.cfg, self.model, self.opt_state,
+                                 dev_batch)
         self.metrics, lsum, wsum = self.metrics.update(
             scores, dev_batch, self.cfg.loss_type
         )
@@ -201,12 +305,16 @@ class Trainer:
             raise ValueError("no train_files configured")
         k = cfg.steps_per_dispatch
         t0 = time.time()
-        last_log_t, last_log_ex = t0, float(self.metrics.count)
+        last_log_t = t0
+        last_log_ex = self.global_metrics(self.metrics)["examples"]
         stepno = last_log_step = last_val_step = last_save_step = 0
         wait_s = dispatch_s = 0.0
+        pipe_cfg, shard = self._input_plan()
+        # The sharded step sorts its local ids on the device.
         with BatchPipeline(
-            cfg.train_files, cfg, epochs=cfg.epoch_num, shuffle=True,
-            host_meta=cfg.host_sort, weight_files=cfg.weight_files,
+            cfg.train_files, pipe_cfg, epochs=cfg.epoch_num, shuffle=True,
+            host_meta=cfg.host_sort and not self.sharded,
+            weight_files=cfg.weight_files, shard=shard,
         ) as pipeline:
             batches = iter(pipeline)
             while True:
@@ -222,7 +330,7 @@ class Trainer:
                 stepno += len(group)
                 if cfg.log_steps and stepno - last_log_step >= cfg.log_steps:
                     last_log_step = stepno
-                    m = self.metrics.finalize(cfg.loss_type)
+                    m = self.global_metrics(self.metrics)
                     now = time.time()
                     rate = (m["examples"] - last_log_ex) / max(
                         now - last_log_t, 1e-9
@@ -244,7 +352,7 @@ class Trainer:
                     self.save(stepno)
             truncated = pipeline.truncated_features
         wall = max(time.time() - t0, 1e-9)
-        train_metrics = self.metrics.finalize(cfg.loss_type)
+        train_metrics = self.global_metrics(self.metrics)
         train_metrics["examples_per_sec"] = train_metrics["examples"] / wall
         train_metrics["steps"] = stepno
         train_metrics["ingest_cache"] = "off"
@@ -263,21 +371,30 @@ class Trainer:
         return result
 
     def evaluate(self, files) -> dict:
-        """Streaming metrics of the current model over ``files``."""
+        """Streaming metrics of the current model over ``files`` (on a
+        mesh, over each data block's strided share, globally summed)."""
         ms = MetricState.zeros(self.device)
-        with BatchPipeline(files, self.cfg, epochs=1, shuffle=False) as p:
+        pipe_cfg, shard = self._input_plan()
+        with BatchPipeline(files, pipe_cfg, epochs=1, shuffle=False,
+                           shard=shard) as p:
             for batch in p:
                 dev_batch = self._put(batch)
                 with torch.no_grad():
-                    scores = fm.fm_scores(self.model, dev_batch.ids,
-                                          dev_batch.vals)
+                    if self.sharded:
+                        scores = local_scores(self.cfg, self.model,
+                                              dev_batch, self.mesh)
+                    else:
+                        scores = fm.fm_scores(self.model, dev_batch.ids,
+                                              dev_batch.vals)
                 ms, _, _ = ms.update(scores, dev_batch, self.cfg.loss_type)
-        return ms.finalize(self.cfg.loss_type)
+        return self.global_metrics(ms)
 
     def save(self, stepno: int) -> str:
-        return checkpoint.save_params(
-            self.cfg.model_file, self.model,
-            step=self._restored_step + stepno, opt_state=self.opt_state,
+        """Write ``params.npz`` (on a mesh every rank calls this; rank 0
+        writes).  Returns its path."""
+        return checkpoint.save_sharded(
+            self.cfg.model_file, self.model, self.mesh,
+            step=self._restored_step + stepno, opt_state_l=self.opt_state,
         )
 
 

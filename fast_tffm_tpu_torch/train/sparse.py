@@ -37,9 +37,9 @@ from fast_tffm_tpu_torch.models.fm import FmModel
 from fast_tffm_tpu_torch.ops import interaction, sparse_apply
 
 __all__ = [
-    "ADAGRAD_EPS", "SparseAdagradState", "SparseFtrlState", "hyper",
-    "init_sparse_opt_state", "opt_tables", "rows_loss", "sparse_step",
-    "supports_sparse", "to_device",
+    "ADAGRAD_EPS", "SparseAdagradState", "SparseFtrlState", "apply_w0",
+    "hyper", "init_sparse_opt_state", "opt_tables", "rows_loss",
+    "sparse_step", "supports_sparse", "to_device",
 ]
 
 ADAGRAD_EPS = 1e-7  # matches optax.adagrad's default eps
@@ -138,8 +138,8 @@ def rows_loss(cfg: FmConfig, w0: torch.Tensor, rows: torch.Tensor,
     return loss, scores
 
 
-def _apply_w0(cfg: FmConfig, model: FmModel, opt_state,
-              dw0: torch.Tensor) -> None:
+def apply_w0(cfg: FmConfig, model: FmModel, opt_state,
+             dw0: torch.Tensor) -> None:
     """Dense scalar update of ``w0`` (and its optimizer scalars)."""
     lr = cfg.learning_rate
     w0 = model.w0
@@ -183,5 +183,5 @@ def sparse_step(cfg: FmConfig, model: FmModel, opt_state, batch: Batch,
             drows.reshape(b * f, d), hyper(cfg), meta=batch.sort_meta,
             plain=plain,
         )
-        _apply_w0(cfg, model, opt_state, dw0)
+        apply_w0(cfg, model, opt_state, dw0)
     return scores.detach()

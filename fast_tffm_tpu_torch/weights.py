@@ -4,8 +4,10 @@
 ``w0`` and ``table`` and builds an :class:`FmModel`; ``to_numpy`` is
 the reverse.  ``opt_state_from_jax`` carries the JAX sparse optimizer
 state (``SparseAdagradState`` / ``SparseFtrlState``, or their leaves
-as numpy arrays) into the port's.  Neither package imports the other:
-the arrays are the whole interface.
+as numpy arrays) into the port's.  ``shard_rows`` cuts a table (numpy
+or torch) to one rank's model shard and ``unshard_rows`` joins the
+shards again.  Neither package imports the other: the arrays are the
+whole interface.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from fast_tffm_tpu_torch.models.fm import FmModel
 from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.train.sparse import SparseAdagradState, SparseFtrlState
 
-__all__ = ["from_jax", "opt_state_from_jax", "to_numpy"]
+__all__ = ["from_jax", "opt_state_from_jax", "shard_rows", "to_numpy",
+           "unshard_rows"]
 
 
 def from_jax(w0, table,
@@ -66,3 +69,21 @@ def opt_state_from_jax(optimizer: str, state,
     if optimizer == "sgd":
         return ()
     raise ValueError(f"no sparse optimizer state for {optimizer!r}")
+
+
+def shard_rows(table, mesh, rank: int):
+    """The rows of ``table [vocab, ...]`` that ``rank`` holds on
+    ``mesh`` (a :class:`~fast_tffm_tpu_torch.parallel.mesh.Mesh`):
+    model shard ``rank % mesh.model``, ``vocab // mesh.model`` rows."""
+    local = table.shape[0] // mesh.model
+    lo = (rank % mesh.model) * local
+    return table[lo:lo + local]
+
+
+def unshard_rows(shards):
+    """The full table from its model shards, in model-axis order (numpy
+    arrays or tensors)."""
+    shards = list(shards)
+    if isinstance(shards[0], torch.Tensor):
+        return torch.cat(shards, dim=0)
+    return np.concatenate(shards, axis=0)

@@ -1,6 +1,7 @@
 """The port on the GPU: the CUDA kernels (FmScorer forward, FmGrad
-backward, K1 dedup, K2 apply) against their plain PyTorch versions, and
-the scorer's and the sparse step's GPU paths against their CPU paths.
+backward, K1 dedup and its merge mode, K2 apply, K-place) against their
+plain PyTorch versions, the scorer's and the sparse step's GPU paths
+against their CPU paths, and two ranks' collectives on one GPU.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``gpu``) and
 skips without one.  The file imports neither jax nor the JAX package,
@@ -264,3 +265,92 @@ def test_sparse_step_on_the_gpu_matches_the_cpu(gpu, optimizer):
     for a, b in zip(sparse.opt_tables(opts[gpu]),
                     sparse.opt_tables(opts["cpu"])):
         torch.testing.assert_close(a.cpu(), b, **OPT_TOL)
+
+
+def _kplace_problem(gpu, vocab, n, d, hot):
+    """K1's stream of ``n`` occurrences over ``[0, vocab]`` (``vocab``
+    is the sentinel) with a hot id, on the card."""
+    rng = np.random.default_rng(n + d)
+    ids = rng.integers(0, vocab, n).astype(np.int32)
+    ids[:hot] = 11
+    ids[rng.permutation(n)[:n // 10]] = vocab  # sentinels
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    meta = host_sort_meta(ids)
+    put = lambda a: torch.from_numpy(a).to(gpu)  # noqa: E731
+    return sparse_apply.k1_dedup_plain(put(g), put(ids), put(meta.perm),
+                                       put(meta.seg_start))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab, vocab_local, row_lo, n, d", [
+    (1 << 16, 1 << 15, 1 << 15, 20000, 9),  # upper shard, sentinels
+    (1 << 16, 1 << 15, 0, 20000, 9),  # lower shard
+    (4096, 4096, 0, 3000, 41),  # whole table, wide rows
+    (1000, 999, 1, 50, 2),  # ragged last tile
+    (1 << 12, 1 << 12, 0, 0, 4),  # no entries: all zeros
+])
+def test_kplace_kernel_matches_plain(gpu, vocab, vocab_local, row_lo, n, d):
+    """K-place is a placement: it equals its plain version bit for bit."""
+    urows, sums = _kplace_problem(gpu, vocab, n, d, hot=min(n, 500))
+    before = sparse_apply.kplace_cuda.launches
+    got = sparse_apply.kplace_cuda(urows, sums, row_lo, vocab_local)
+    want = sparse_apply.kplace_plain(urows, sums, row_lo, vocab_local)
+    torch.cuda.synchronize()
+    assert sparse_apply.kplace_cuda.launches == before + 1
+    assert got.shape == (vocab_local, 2 * d)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, p, hot", [(79872, 18, 0), (40000, 18, 4000),
+                                       (3000, 82, 100), (1, 4, 0)])
+def test_k1_merge_kernel_matches_plain(gpu, n, p, hot):
+    """Merge mode sums the payload as it is: held to the plain version
+    in float64 within the kernel's order-of-summation bound."""
+    ids, pay, perm, seg, _ = _sparse_problem(gpu, n, p, hot)
+    before = sparse_apply.k1_merge_cuda.launches
+    urows, sums = sparse_apply.k1_merge_cuda(pay, ids, perm, seg)
+    torch.cuda.synchronize()
+    assert sparse_apply.k1_merge_cuda.launches == before + 1
+    want_rows, want64 = sparse_apply.k1_merge_plain(pay.double(), ids, perm,
+                                                    seg)
+    _, mass = sparse_apply.k1_merge_plain(pay.abs().double(), ids, perm, seg)
+    assert torch.equal(urows, want_rows) and sums.shape == want64.shape
+    # k1_error_bound counts a square's rounding too: a bound for this.
+    bound = sparse_apply.k1_error_bound(seg, mass)
+    assert bool(torch.all((sums.double() - want64).abs() <= bound))
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_one_gpu_over_gloo(gpu, tmp_path):
+    """Two ranks share cuda:0, so the backend rule picks gloo and the
+    collectives stage through pinned host memory: psum, all_gather and
+    gather over each mesh axis equal the sums and concatenations made
+    locally."""
+    from _torch_sharded_worker import run_ranks
+
+    run_ranks("collectives", 2, tmp_path)
+    assert all((tmp_path / f"collectives_{r}.ok").exists() for r in (0, 1))
+
+
+@pytest.mark.gpu
+def test_k1_kernel_leaves_the_sentinel_segment_out(gpu):
+    """The sharded step's prep drops the sentinel's segment (every
+    off-shard occurrence): K1 then sums the real rows only, as its
+    plain version does."""
+    vocab = 4096
+    ids, g, _, _, rng = _sparse_problem(gpu, 60000, 9, 0, vocab=vocab)
+    ids[torch.from_numpy(rng.permutation(60000)[:30000]).to(gpu)] = vocab
+    meta = sparse_apply.sort_meta(ids, drop_from=vocab)
+    urows, sums = sparse_apply.k1_dedup_cuda(g, ids, meta.perm,
+                                             meta.seg_start)
+    want_rows, want64 = sparse_apply.k1_dedup_plain(g.double(), ids,
+                                                    meta.perm, meta.seg_start)
+    _, mass = sparse_apply.k1_dedup_plain(g.abs().double(), ids, meta.perm,
+                                          meta.seg_start)
+    torch.cuda.synchronize()
+    assert torch.equal(urows, want_rows) and int(urows.max()) < vocab
+    assert urows.numel() == torch.unique(ids[ids < vocab]).numel()
+    err = (sums.double() - want64).abs()
+    assert bool(torch.all(err <= sparse_apply.k1_error_bound(meta.seg_start,
+                                                             mass)))

@@ -1,7 +1,7 @@
 """Guards of the port's boundaries: it never imports jax or the JAX
-package (the training slice's modules included), it runs on the GPU
-unless asked for the CPU, and its kernel wrappers raise instead of
-falling back."""
+package (the training and multi-rank slices' modules included), it runs
+on the GPU unless asked for the CPU, and its kernel wrappers raise
+instead of falling back."""
 
 import os
 import subprocess
@@ -29,11 +29,12 @@ print(",".join(bad))
 print(",".join(names))
 """
 
-# The training slice's modules, each of which must be among those loaded.
+# The training slices' modules, each of which must be among those loaded.
 _TRAIN_SLICE = (
     "fast_tffm_tpu_torch.train.loop", "fast_tffm_tpu_torch.train.sparse",
     "fast_tffm_tpu_torch.train.metrics", "fast_tffm_tpu_torch.ops.sparse_apply",
-    "fast_tffm_tpu_torch.data.pipeline",
+    "fast_tffm_tpu_torch.data.pipeline", "fast_tffm_tpu_torch.parallel.mesh",
+    "fast_tffm_tpu_torch.train.dist", "fast_tffm_tpu_torch.train.shardmap_step",
 )
 
 

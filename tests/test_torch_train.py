@@ -209,7 +209,7 @@ def test_checkpoint_keeps_optimizer_state(tmp_path):
     (dict(field_num=2), "item 2"),
     (dict(compute_dtype="bfloat16"), "item 7"),
     (dict(table_tiering="on"), "item 2"),
-    (dict(mesh_data=2), "item 3"),
+    (dict(mesh_data=2, sparse_exchange_overlap="on"), "item 3"),
 ])
 def test_trainer_refuses_unported_settings(kw, item):
     with pytest.raises(NotImplementedError, match=item):
