@@ -56,6 +56,15 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    w0, ``delta_check``).  Each rank's step p50 and the share of it
    spent in the step's collectives (host clock, synchronised around
    each collective, staging copies included).
+9. Probe phase (path 4, the table-layout probe): K2T (transposed
+   ``[9, V]`` table) and K2P (packed ``[V/8, 128]``) against their plain
+   versions on the card (``TABLE_TOL``, ``OPT_TOL``, ``delta_check``),
+   bitwise against K2's elements on the same stream, untouched rows and
+   pad slots as they were, at a training batch's K1 stream and at the
+   probe's (638,976 uniform ids), each with one id of 5000 occurrences;
+   K2, K2T and K2P timed in CUDA graphs at both; then
+   ``fast_tffm_tpu_torch.tools.micro_probe.main`` at full size (its own
+   parity checks raise), whose run gives K2T's and K2P's launches.
 
 Output: progress lines and JSON records, then a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -108,6 +117,10 @@ INT_BUCKETS = 50
 SHARDED_MESH = (2, 2)
 RANK_TIMEOUT_S = 300
 KPLACE_ROW_LO = KPLACE_VOCAB_LOCAL = 1 << 21
+# Probe phase: the micro-probe's id count (16384 x 39 uniform ids), and
+# the occurrences of the one hot id added to each K2T/K2P check's ids.
+PROBE_N = 16384 * 39
+HOT_OCCURRENCES = 5000
 
 
 def check(cond: bool, msg: str) -> None:
@@ -352,6 +365,7 @@ def rank_main(argv) -> int:
     sys.path.insert(0, REPO)
     from fast_tffm_tpu_torch.config import load_config
     from fast_tffm_tpu_torch.ops import fm_kernels, sparse_apply
+    from fast_tffm_tpu_torch.tools import micro_probe
     from fast_tffm_tpu_torch.train import dist, shardmap_step
     from fast_tffm_tpu_torch.train.loop import Trainer
 
@@ -398,7 +412,7 @@ def rank_main(argv) -> int:
                 return loss
 
         trainer = TimedTrainer(cfg, device=dev)
-        kernels = kernel_fns(fm_kernels, sparse_apply)
+        kernels = kernel_fns(fm_kernels, sparse_apply, micro_probe)
         torch.cuda.reset_peak_memory_stats()
         for fn in kernels.values():
             fn.launches = 0
@@ -429,7 +443,7 @@ def rank_main(argv) -> int:
     return 0
 
 
-def kernel_fns(fm_kernels, sparse_apply) -> dict:
+def kernel_fns(fm_kernels, sparse_apply, micro_probe) -> dict:
     """Every kernel wrapper of the port by name (each keeps a count of
     its launches)."""
     return {
@@ -439,6 +453,8 @@ def kernel_fns(fm_kernels, sparse_apply) -> dict:
         "k1_merge": sparse_apply.k1_merge_cuda,
         "k2_apply": sparse_apply.k2_apply_cuda,
         "kplace": sparse_apply.kplace_cuda,
+        "k2t_apply": micro_probe.k2t_apply,
+        "k2p_apply": micro_probe.k2p_apply,
     }
 
 
@@ -620,6 +636,128 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
     return record, launches
 
 
+def probe_phase(torch, card: str, gen, table0, hot_ids, hyper, err: dict,
+                kernels: dict):
+    """Path 4, the table-layout probe.  K2T and K2P against their plain
+    versions and against K2's elements, at a training batch's K1 stream
+    (``hot_ids``) and at the probe's, each with one hot id; K2, K2T and
+    K2P timed in CUDA graphs at both; then ``micro_probe.main`` at full
+    size with every launch count set to 0 just before.  Returns the
+    phase's record, K2T's and K2P's kernel timing at the probe's stream
+    and the launches of every kernel in ``main``."""
+    from fast_tffm_tpu_torch.ops.sparse_apply import (
+        k1_dedup_cuda, k2_apply_cuda, sort_meta,
+    )
+    from fast_tffm_tpu_torch.tools import micro_probe
+
+    dev = table0.device
+    v, d = table0.shape
+    lr, eps = hyper.lr, hyper.eps
+    acc0 = torch.empty_like(table0).uniform_(0.1, 1.0, generator=gen)
+    probe_ids = torch.randint(0, v, (PROBE_N,), generator=gen, device=dev,
+                              dtype=torch.int32)
+    probe_ids[:HOT_OCCURRENCES] = 54321
+    layouts = {  # layout -> (tables in it, their [V, D] view)
+        "k2t": (lambda t: t.t().contiguous(), torch.t),
+        "k2p": (lambda t: micro_probe.pack_table(t, d),
+                lambda t: micro_probe.unpack_table(t, d)),
+    }
+    streams, checks = {}, {}
+    for shape, ids in (("batch", hot_ids), ("probe", probe_ids)):
+        ids = ids.to(torch.int32).contiguous()
+        g = torch.randn((ids.numel(), d), generator=gen, device=dev) * 0.1
+        meta = sort_meta(ids)
+        urows, sums = k1_dedup_cuda(g, ids, meta.perm, meta.seg_start)
+        streams[shape] = (urows, sums)
+        row_major = (table0.clone(), acc0.clone())
+        k2_apply_cuda("adagrad", urows, sums, row_major, hyper)
+        untouched = torch.ones(v, dtype=torch.bool, device=dev)
+        untouched[urows.long()] = False
+        for layout, (to_layout, rows) in layouts.items():
+            entries = getattr(micro_probe, f"{layout}_entries")
+            start = (to_layout(table0), to_layout(acc0))
+            kern = tuple(t.clone() for t in start)
+            plain = tuple(t.clone() for t in start)
+            entries(urows, sums, *kern, lr=lr, eps=eps)
+            entries(urows, sums, *plain, lr=lr, eps=eps, plain=True)
+            torch.cuda.synchronize()
+            what = f"{layout} ({shape})"
+            torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+            torch.testing.assert_close(kern[1], plain[1], **OPT_TOL)
+            changes = {
+                tab: delta_check(torch, f"{what} {tab}", rows(k), rows(p),
+                                 rows(s0))
+                for tab, k, p, s0 in zip(("table", "acc"), kern, plain, start)
+            }
+            for k, s0, want in zip(kern, start, row_major):
+                check(torch.equal(rows(k)[untouched], rows(s0)[untouched]),
+                      f"{what} changed an untouched row")
+                check(torch.equal(rows(k), want),
+                      f"{what} differs from K2's elements on the same stream")
+                if layout == "k2p":
+                    check(torch.equal(k.view(-1, 16)[:, d:],
+                                      s0.view(-1, 16)[:, d:]),
+                          f"{what} wrote a pad slot")
+            diff = max(float((a - b).abs().max()) for a, b in zip(kern, plain))
+            err[f"{layout}_apply"] = max(err.get(f"{layout}_apply", 0.0), diff)
+            checks[f"{layout}_{shape}"] = {
+                "unique_rows": urows.numel(), "max_abs_err": diff,
+                "changes": changes,
+            }
+            del start, kern, plain
+        del row_major
+
+    # K2, K2T and K2P on each stream in CUDA graphs; in turns (K2 first
+    # and last, each layout plain, kernel, kernel, plain).
+    graphs = {}
+    for shape, (urows, sums) in streams.items():
+        k2_tabs = (table0.clone(), acc0.clone())
+
+        def k2():
+            k2_apply_cuda("adagrad", urows, sums, k2_tabs, hyper)
+
+        entry = {"unique_rows": urows.numel(),
+                 "k2_graph_ms": [graph_ms(torch, k2)]}
+        for layout, (to_layout, _) in layouts.items():
+            tabs = (to_layout(table0), to_layout(acc0))
+            fn = getattr(micro_probe, f"{layout}_entries")
+            pa, ka, kb, pb = (
+                graph_ms(torch, lambda p=p: fn(urows, sums, *tabs, lr=lr,
+                                               eps=eps, plain=p))
+                for p in (True, False, False, True)
+            )
+            entry[layout] = {"graph_ms": [ka, kb], "plain_graph_ms": [pa, pb]}
+            del tabs
+        entry["k2_graph_ms"].append(graph_ms(torch, k2))
+        entry["bound_ms"], entry["bound_by"] = k2_bound_ms(urows.numel(), d)
+        graphs[shape] = entry
+        del k2_tabs
+    probe = graphs["probe"]
+    timing = {f"{layout}_apply": {
+        "ms": min(probe[layout]["graph_ms"]),
+        "plain_ms": min(probe[layout]["plain_graph_ms"]),
+        "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
+        "library_ms": None,
+    } for layout in layouts}
+    del streams, acc0, probe_ids
+    torch.cuda.empty_cache()
+
+    # The path: the probe at full size, its counts from 0.
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc = micro_probe.main([])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    check(rc == 0, f"micro_probe.main returned {rc}")
+    for name in ("k2t_apply", "k2p_apply", "k1_dedup", "k2_apply"):
+        check(launches[name] >= 1, f"the probe never launched {name}")
+    record = {"probe": {"card": card, "checks": checks, "graphs": graphs,
+                        "main_wall_s": main_s, "main_launches": launches}}
+    return record, timing, launches
+
+
 def nccl_main() -> int:
     """``--nccl``: the sharded phase alone, one rank per GPU (needs at
     least four), so the backend rule picks NCCL."""
@@ -685,6 +823,7 @@ def main() -> int:
     from fast_tffm_tpu_torch.serve import wire
     from fast_tffm_tpu_torch.serve.server import serve
     from fast_tffm_tpu_torch.serve.textparse import parse_request
+    from fast_tffm_tpu_torch.tools import micro_probe
     from fast_tffm_tpu_torch.train import checkpoint, sparse
     from fast_tffm_tpu_torch.train.loop import Trainer, predict
 
@@ -1004,7 +1143,7 @@ def main() -> int:
           "the main path's config is not the default sparse Adagrad")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels = kernel_fns(fm_kernels, sparse_apply)
+    kernels = kernel_fns(fm_kernels, sparse_apply, micro_probe)
     for fn in kernels.values():
         fn.launches = 0
 
@@ -1259,11 +1398,24 @@ def main() -> int:
     phase_end("sharded")
     tmp_ctx.cleanup()
 
+    # -- probe phase (main path 4): the table-layout probe -------------
+    probe, probe_timing, probe_launches = probe_phase(
+        torch, card, gen, table0, hot, hyper, err, kernels)
+    timing.update(probe_timing)
+    print(json.dumps(probe), flush=True)
+    print("probe check: K2T and K2P == their plain versions and K2's "
+          "elements at both streams; micro_probe.main ran at full size",
+          flush=True)
+    phase_end("probe")
+
     # Launches on the main paths: train (path 1), serve (path 2, the
-    # only fm_scores count), the sharded runs' ranks (path 3).
+    # only fm_scores count), the sharded runs' ranks (path 3), the
+    # probe (path 4, the only K2T and K2P counts).
     launches = {name: train_launches[name] + sharded_launches[name]
                 for name in kernels}
     launches["fm_scores"] = serve_launches
+    for name in ("k2t_apply", "k2p_apply"):
+        launches[name] = probe_launches[name]
     sources = {
         "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
         "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),
@@ -1275,6 +1427,8 @@ def main() -> int:
                      "fast_tffm_tpu/ops/sparse_apply.py:322"),
         "kplace": ("sparse_apply.cu",
                    "fast_tffm_tpu/ops/sparse_apply.py:469"),
+        "k2t_apply": ("layout_probe.cu", "tools/micro_probe.py:46"),
+        "k2p_apply": ("layout_probe.cu", "tools/micro_probe.py:102"),
     }
     print(json.dumps({"phase_wall_s": phase_wall}), flush=True)
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}))

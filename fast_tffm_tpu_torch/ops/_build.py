@@ -4,9 +4,10 @@ Every ``csrc/*.cu`` source compiles with ``nvcc`` for Hopper
 (``sm_90a``) into one shared library with a plain C interface,
 ``_build/libfm_kernels.so``, loaded with :mod:`ctypes`.  The sources
 compile in parallel (one ``nvcc`` per source, all started together) and
-link once.  The build runs at first use and again whenever a source is
-newer than the library, so a fresh checkout builds on its first kernel
-call; nothing is built when the module is imported.
+link once.  The build runs at first use and again whenever a source (or
+a ``csrc/*.cuh`` header) is newer than the library, so a fresh checkout
+builds on its first kernel call; nothing is built when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -51,10 +52,13 @@ def _sources() -> list:
 
 
 def _stale(srcs: list) -> bool:
+    """True when the library is missing or older than a source or one of
+    the headers the sources include (``csrc/*.cuh``)."""
     if not os.path.isfile(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in srcs)
+    headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return any(os.path.getmtime(s) > built for s in srcs + headers)
 
 
 def _run_all(cmds: list) -> str:
@@ -145,6 +149,12 @@ def load() -> ctypes.CDLL:
             lib.k2_apply.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32,
                                      f32, f32, f32, f32, ptr]
             lib.k2_apply.restype = i32
+            lib.k2t_apply.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64,
+                                      f32, f32, ptr]
+            lib.k2t_apply.restype = i32
+            lib.k2p_apply.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, f32,
+                                      ptr]
+            lib.k2p_apply.restype = i32
             lib.fm_kernels_error_string.argtypes = [i32]
             lib.fm_kernels_error_string.restype = ctypes.c_char_p
             _loaded["lib"] = lib

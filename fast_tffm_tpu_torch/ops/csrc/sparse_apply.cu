@@ -32,7 +32,8 @@
 // belongs to one warp and nothing carries between blocks.
 //
 // K2 (k2_apply): one thread per (unique row, column) updates the table
-// and its optimizer tables in place at that row only.  Rows are unique,
+// and its optimizer tables in place at that row only (Adagrad through
+// adagrad.cuh, which the layout probe's kernels share).  Rows are unique,
 // so no two threads write one address.  The TPU kernel's full-table tile
 // sweep and its compact group remap have no counterpart: they exist
 // because TPU scatters serialize.
@@ -60,6 +61,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "adagrad.cuh"
 
 namespace {
 
@@ -164,10 +167,7 @@ __global__ void k2_apply_kernel(const int* __restrict__ urows,
     table[pos] = __fsub_rn(w, __fmul_rn(lr, g1));
   } else if (kOpt == kAdagrad) {
     // p1 = eps.  acc += sum g^2; w -= lr * sum g * rsqrt(acc + eps).
-    const float acc = __fadd_rn(state1[pos], g2);
-    state1[pos] = acc;
-    table[pos] =
-        __fsub_rn(w, __fmul_rn(__fmul_rn(lr, g1), rsqrtf(__fadd_rn(acc, p1))));
+    adagrad_at(table, state1, pos, g1, g2, lr, p1);
   } else {
     // FTRL-proximal, p1 = l1, p2 = l2, p3 = beta; state1 = z, state2 = n.
     const float n_old = state2[pos];

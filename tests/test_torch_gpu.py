@@ -1,7 +1,8 @@
 """The port on the GPU: the CUDA kernels (FmScorer forward, FmGrad
-backward, K1 dedup and its merge mode, K2 apply, K-place) against their
-plain PyTorch versions, the scorer's and the sparse step's GPU paths
-against their CPU paths, and two ranks' collectives on one GPU.
+backward, K1 dedup and its merge mode, K2 apply, K-place, and the
+table-layout probe's K2T and K2P) against their plain PyTorch versions,
+the scorer's and the sparse step's GPU paths against their CPU paths,
+and two ranks' collectives on one GPU.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``gpu``) and
 skips without one.  The file imports neither jax nor the JAX package,
@@ -31,6 +32,7 @@ from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.libsvm import Batch, host_sort_meta
 from fast_tffm_tpu_torch.ops import fm_kernels, sparse_apply
 from fast_tffm_tpu_torch.serve.scorer import FixedShapeScorer
+from fast_tffm_tpu_torch.tools import micro_probe
 from fast_tffm_tpu_torch.train import sparse
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -354,3 +356,86 @@ def test_k1_kernel_leaves_the_sentinel_segment_out(gpu):
     err = (sums.double() - want64).abs()
     assert bool(torch.all(err <= sparse_apply.k1_error_bound(meta.seg_start,
                                                              mass)))
+
+
+def _layout(layout, table, acc, d):
+    """The two ``[V, d]`` tables in the probe's transposed or packed
+    layout, and the function giving a layout's ``[V, d]`` view back."""
+    if layout == "k2t":
+        return (table.t().contiguous(), acc.t().contiguous()), torch.t
+    return ((micro_probe.pack_table(table, d),
+             micro_probe.pack_table(acc, d)),
+            lambda t: micro_probe.unpack_table(t, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout, vocab, n, d, hot", [
+    ("k2t", 1 << 16, 20000, 9, 5000), ("k2t", 4096, 3000, 41, 300),
+    ("k2t", 4096, 1, 1, 0),
+    ("k2p", 1 << 16, 20000, 9, 5000), ("k2p", 4096, 3000, 16, 300),
+    ("k2p", 4096, 1, 1, 0),
+])
+def test_layout_probe_kernels_match_plain_and_k2(gpu, layout, vocab, n, d,
+                                                 hot):
+    """K2T and K2P against their plain versions at the reference's K2
+    bounds, and bitwise against the row-major K2 kernel on the same
+    stream (one Adagrad rounding for the three layouts); untouched
+    elements and the packed pad slots stay as they were."""
+    ids, g, perm, seg, rng = _sparse_problem(gpu, n, d, hot, vocab=vocab)
+    urows, sums = sparse_apply.k1_dedup_plain(g, ids, perm, seg)
+    table, acc = (torch.from_numpy(rng.uniform(lo, hi, (vocab, d))
+                                   .astype(np.float32)).to(gpu)
+                  for lo, hi in ((-0.1, 0.1), (0.1, 1.0)))
+    # A layout may alias its [V, d] source (at d = 1 the transpose is
+    # contiguous already): every updated table is a clone.
+    start, rows = _layout(layout, table, acc, d)
+    kern = tuple(t.clone() for t in start)
+    plain = tuple(t.clone() for t in start)
+    row_major = (table.clone(), acc.clone())
+    entries = getattr(micro_probe, f"{layout}_entries")
+    wrapper = getattr(micro_probe, f"{layout}_apply")
+    before = wrapper.launches
+    entries(urows, sums, *kern, lr=0.05, eps=1e-7)
+    entries(urows, sums, *plain, lr=0.05, eps=1e-7, plain=True)
+    sparse_apply.k2_apply_cuda("adagrad", urows, sums, row_major,
+                               sparse_apply.Hyper(lr=0.05, eps=1e-7))
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+    torch.testing.assert_close(kern[1], plain[1], **OPT_TOL)
+    for got, want in zip(kern, row_major):
+        assert torch.equal(rows(got), want)
+    if layout == "k2p":
+        for got, was in zip(kern, start):
+            assert torch.equal(got.view(-1, 16)[:, d:],
+                               was.view(-1, 16)[:, d:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["k2t", "k2p"])
+def test_layout_probe_wrappers_on_the_gpu(gpu, layout):
+    """The reference's entry points (K1, then K2T or K2P) on the card
+    against their plain versions; what the kernels do not take raises
+    and launches nothing."""
+    vocab, d = 1 << 14, 9
+    ids, g, _, _, rng = _sparse_problem(gpu, 30000, d, 2000, vocab=vocab)
+    table = torch.from_numpy(
+        rng.uniform(-0.1, 0.1, (vocab, d)).astype(np.float32)).to(gpu)
+    kern, _ = _layout(layout, table, torch.full_like(table, 0.1), d)
+    plain = tuple(t.clone() for t in kern)
+    wrapper = getattr(micro_probe, f"{layout}_apply")
+    before = wrapper.launches
+    out = wrapper(*kern, ids, g, lr=0.05, eps=1e-7)
+    getattr(micro_probe, f"{layout}_apply_plain")(*plain, ids, g, lr=0.05,
+                                                  eps=1e-7)
+    torch.cuda.synchronize()
+    assert out[0] is kern[0] and out[1] is kern[1]
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+    torch.testing.assert_close(kern[1], plain[1], **OPT_TOL)
+    for bad in ((kern[0], kern[1].cpu(), ids, g),
+                (kern[0], kern[1], ids.clone().fill_(vocab), g),
+                (kern[0], kern[1], ids, g.double())):
+        with pytest.raises((TypeError, ValueError)):
+            wrapper(*bad, lr=0.05, eps=1e-7)
+    assert wrapper.launches == before + 1

@@ -1,7 +1,7 @@
 """Guards of the port's boundaries: it never imports jax or the JAX
-package (the training and multi-rank slices' modules included), it runs
-on the GPU unless asked for the CPU, and its kernel wrappers raise
-instead of falling back."""
+package (the training, multi-rank and probe slices' modules included),
+it runs on the GPU unless asked for the CPU, and its kernel wrappers
+raise instead of falling back."""
 
 import os
 import subprocess
@@ -36,6 +36,10 @@ _TRAIN_SLICE = (
     "fast_tffm_tpu_torch.data.pipeline", "fast_tffm_tpu_torch.parallel.mesh",
     "fast_tffm_tpu_torch.train.dist", "fast_tffm_tpu_torch.train.shardmap_step",
 )
+# The table-layout probe's modules.
+_PROBE_SLICE = (
+    "fast_tffm_tpu_torch.tools.timing", "fast_tffm_tpu_torch.tools.micro_probe",
+)
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -48,7 +52,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert int(out[0]) >= 20, out  # every module of the package imported
     assert out[1] == "", f"the port imported {out[1]}"
     loaded = set(out[2].split(","))
-    assert set(_TRAIN_SLICE) <= loaded, sorted(set(_TRAIN_SLICE) - loaded)
+    want = set(_TRAIN_SLICE + _PROBE_SLICE)
+    assert want <= loaded, sorted(want - loaded)
 
 
 def test_resolve_device_defaults_to_the_gpu():
