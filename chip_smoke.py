@@ -20,12 +20,13 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    card — ``fm_scores`` at the serving rungs and at a parsed training
    batch (B = 4096: train step, validation, predict), ``fm_grad`` at B in
    {1, 1000, 4096}, K1 and K2 (adagrad, ftrl, sgd) at the training
-   shapes of a parsed batch and with one id of >= 5000 occurrences,
-   K-place at the sharded path's shapes (``vocab_local = 2^21``,
-   ``row_lo = 2^21``, a parsed local batch of 2048 lines with sentinel
-   ids) and K1's merge mode on two data blocks' entry streams (both
-   exact: ``max_abs_err`` 0) — then kernel, plain and library call timed
-   in CUDA graphs at the main paths' shapes.
+   shapes of a parsed batch and with one id of >= 5000 occurrences (K1
+   also at the probe's stream), K-place at the sharded path's shapes
+   (``vocab_local = 2^21``, ``row_lo = 2^21``, a parsed local batch of
+   2048 lines with sentinel ids) and K1's merge mode on two data blocks'
+   entry streams (both exact: ``max_abs_err`` 0) — then kernel, plain
+   and library call timed in CUDA graphs at the main paths' shapes, and
+   K1 at its hot and probe streams too.
 5. Train phase (main path 1): ``Trainer(cfg).train()`` on
    ``examples/criteo_kaggle.cfg`` at full width (V = 2^22, F = 39,
    D = 9, B = 4096, Adagrad, batch L2, host sort meta), 16 steps, then
@@ -851,7 +852,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     _build.load()
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "error")):
             print(f"ptxas: {line.strip()}")
     print(f"build: {build_s:.3f} s ({card})", flush=True)
 
@@ -928,23 +930,35 @@ def main() -> int:
     ids0 = torch.from_numpy(batches[0].ids).to(dev).reshape(-1)
     n = ids0.numel()
     hot = ids0.clone()
-    hot[:5000] = 12345  # one id with 5000 occurrences
-    hot_meta = sparse_apply.sort_meta(hot)
+    hot[:HOT_OCCURRENCES] = 12345
     g_rows = torch.randn((n, D), generator=gen, device=dev) * 0.1
     meta0 = sparse_apply.sort_meta(ids0)
+    # K1's three streams: a parsed batch, the same with one hot id, and
+    # the probe's (uniform ids over the table, one hot id).
+    probe_ids = torch.randint(0, V, (PROBE_N,), generator=gen, device=dev,
+                              dtype=torch.int32)
+    probe_ids[:HOT_OCCURRENCES] = 54321
+    k1_streams = {
+        "batch": (g_rows, ids0.to(torch.int32), meta0),
+        "hot": (g_rows, hot.to(torch.int32), sparse_apply.sort_meta(hot)),
+        "probe": (torch.randn((PROBE_N, D), generator=gen, device=dev) * 0.1,
+                  probe_ids, sparse_apply.sort_meta(probe_ids)),
+    }
     k2_shapes = {}
-    for name, ids, meta in (("batch", ids0, meta0), ("hot", hot, hot_meta)):
-        args = (g_rows, ids.to(torch.int32), meta.perm, meta.seg_start)
+    for name, (g, ids, meta) in k1_streams.items():
+        args = (g, ids, meta.perm, meta.seg_start)
         urows, sums = k1_dedup_cuda(*args)
-        urows_p, sums_p = k1_dedup_plain(g_rows.double(), *args[1:])
-        _, mass = k1_dedup_plain(g_rows.abs().double(), *args[1:])
+        urows_p, sums_p = k1_dedup_plain(g.double(), *args[1:])
+        _, mass = k1_dedup_plain(g.abs().double(), *args[1:])
         torch.cuda.synchronize()
         check(torch.equal(urows, urows_p), f"K1 row ids ({name})")
         diff = (sums.double() - sums_p).abs()
         check(bool(torch.all(diff <= k1_error_bound(meta.seg_start, mass))),
               f"K1 sums vs plain ({name}): max err {float(diff.max()):.3e}")
         err["k1_dedup"] = max(err.get("k1_dedup", 0.0), float(diff.max()))
-        k2_shapes[name] = (urows, sums)
+        if name != "probe":
+            k2_shapes[name] = (urows, sums)
+        del urows_p, sums_p, mass, diff
     hyper = sparse.hyper(cfg)._replace(l1=0.01, l2=0.1)
     table0 = torch.empty((V, D), device=dev).uniform_(-0.01, 0.01,
                                                       generator=gen)
@@ -1037,16 +1051,22 @@ def main() -> int:
     acc0 = torch.full((V, D), 0.1, device=dev)
     table_k, acc_k = table0.clone(), acc0.clone()
     ids32 = ids0.to(torch.int32)
-    # K1's library yardstick: one index_add_ of the [g | g^2] payload
-    # over each occurrence's segment (unsorted order).
-    seg_sorted = torch.repeat_interleave(
-        torch.arange(u, device=dev),
-        (meta0.seg_start[1:] - meta0.seg_start[:-1]).long(), output_size=n,
-    )
-    seg_of_occ = torch.empty_like(seg_sorted)
-    seg_of_occ[meta0.perm.long()] = seg_sorted
-    payload = torch.cat([g_rows, g_rows * g_rows], dim=1)
-    lib_out = torch.zeros((u, 2 * D), device=dev)
+
+    def k1_library(g, meta):
+        """K1's library yardstick: one ``index_add_`` of the ``[g | g^2]``
+        payload over each occurrence's segment (unsorted order)."""
+        u_s = meta.seg_start.numel() - 1
+        seg_sorted = torch.repeat_interleave(
+            torch.arange(u_s, device=dev),
+            (meta.seg_start[1:] - meta.seg_start[:-1]).long(),
+            output_size=g.shape[0],
+        )
+        seg_of_occ = torch.empty_like(seg_sorted)
+        seg_of_occ[meta.perm.long()] = seg_sorted
+        payload = torch.cat([g, g * g], dim=1)
+        out = torch.zeros((u_s, 2 * D), device=dev)
+        return lambda: out.index_add_(0, seg_of_occ, payload)
+
     # K1 merge's library yardstick, as K1's: one index_add_ of the real
     # entries' payload (the sentinel's padding left out, as the kernel
     # leaves it) over each entry's segment.
@@ -1069,7 +1089,7 @@ def main() -> int:
             lambda: k1_dedup_cuda(g_rows, ids32, meta0.perm, meta0.seg_start),
             lambda: k1_dedup_plain(g_rows, ids32, meta0.perm,
                                    meta0.seg_start),
-            lambda: lib_out.index_add_(0, seg_of_occ, payload),
+            k1_library(g_rows, meta0),
             k1_bound_ms(n, u, D),
         ),
         "k2_apply": (
@@ -1106,6 +1126,22 @@ def main() -> int:
             "library_ms": None if lib is None else graph_ms(torch, lib),
             "bound_ms": b_ms, "bound_by": b_by,
         }
+    # K1 at its other two streams (the kernels line keeps the batch's).
+    timing["k1_dedup"]["streams"] = {}
+    for name in ("hot", "probe"):
+        g, ids, meta = k1_streams[name]
+        args = (g, ids, meta.perm, meta.seg_start)
+        pa, ka, kb, pb = (graph_ms(torch, lambda f=f: f(*args)) for f in (
+            k1_dedup_plain, k1_dedup_cuda, k1_dedup_cuda, k1_dedup_plain))
+        u_s = meta.seg_start.numel() - 1
+        b_ms, b_by = k1_bound_ms(g.shape[0], u_s, D)
+        timing["k1_dedup"]["streams"][name] = {
+            "occurrences": g.shape[0], "unique_rows": u_s,
+            "graph_ms": [ka, kb], "plain_graph_ms": [pa, pb],
+            "library_ms": graph_ms(torch, k1_library(g, meta)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    del k1_streams, probe_ids
     kern_dev, _, _ = device_times_ms(torch, cases["fm_scores"][0])
     timing["fm_scores"]["profiler_device_ms"] = sum(
         v for k, v in kern_dev.items() if "fm_scores" in k
@@ -1119,7 +1155,7 @@ def main() -> int:
             "bound_ms": fm_bound_ms(b, F, D)[0]}
         for b in cfg.serve_ladder
     }
-    del table_k, acc_k, lib_out, payload, lib_merge
+    del table_k, acc_k, lib_merge
     print(json.dumps({"kernel_timing": {
         "card": card, "serve_B": b_serve, "train_B": B, "occurrences": n,
         "unique_rows": u, "kplace_entries": urows_kp.numel(),

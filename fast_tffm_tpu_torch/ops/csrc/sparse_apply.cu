@@ -21,15 +21,31 @@
 // Merge mode (k1_merge) sums a [n, P] payload as it is, sums[u] [U, P]:
 // the sharded entries exchange feeds it streams that already hold
 // [sum g | sum g^2] per row (the reference's merge_entries).
-// One warp per segment.  A segment of one occurrence (most of them on
-// hashed data) is copied by lane 0; a longer one is split across the 32
-// lanes by stride and reduced with shuffles, so a hot id of thousands of
-// occurrences costs one warp a loop of (count / 32) steps.  No float
-// atomics: the order of every sum is fixed by (perm, seg_start), so two
-// runs give bitwise-equal sums.  The TPU kernel's [C, C] one-hot matmul
-// and its VMEM carry across chunk boundaries exist because a TPU grid
-// runs in order and scatters serialize; here a segment of any length
-// belongs to one warp and nothing carries between blocks.
+// One thread per segment, a whole warp only for a long one.  A block
+// owns 128 consecutive segments, one per thread, so the loads of
+// seg_start are coalesced.  A segment of at most kShort = 16
+// occurrences (on hashed data nearly all have one or two) is summed by
+// its own thread in sorted order, so a warp walks 32 such segments at
+// once and their perm and row loads are independent; a thread issues
+// four occurrences' loads before their adds.  The warp finds its longer
+// segments by ballot and sums each in turn, lanes by stride and then a
+// shuffle tree, so a hot id of thousands of occurrences costs one warp
+// (count / 32) steps and only its block waits on it.  The block stages
+// its [128, W] sums in shared memory and writes them as one contiguous,
+// coalesced range of sums (directly when 128 * W floats do not fit
+// 48 KB).  What bounds it is not the bytes (~15 MB at a training
+// batch, 4.6 us at full HBM bandwidth, against some 14.6 us on an H100):
+// at D = 9 a warp's 4-byte load of its 32 lanes' rows touches 32 rows'
+// sectors, 9 L1 wavefronts per occurrence.  A warp gathering rows into
+// shared memory to cut that, and fewer registers for more resident
+// blocks, both measured slower (PERF.md).  No float
+// atomics: the order of every sum is fixed by (perm, seg_start) and
+// kShort, so two runs give bitwise-equal sums (sparse_apply.
+// k1_error_bound follows that order).  The TPU kernel's [C, C] one-hot
+// matmul and its VMEM carry across chunk boundaries exist because a TPU
+// grid runs in order and scatters serialize; here a segment of any
+// length belongs to one thread or one warp and nothing carries between
+// blocks.
 //
 // K2 (k2_apply): one thread per (unique row, column) updates the table
 // and its optimizer tables in place at that row only (Adagrad through
@@ -67,9 +83,15 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 4;
-constexpr int kCols = 16;  // columns summed per pass over a segment
 constexpr int kThreads = 256;
+// K1: segments per block (one per thread), the longest segment a thread
+// sums alone (sparse_apply.K1_SHORT must agree), the occurrences whose
+// loads a thread issues together, and the floats of sums a block may
+// stage in shared memory without an opt-in.
+constexpr int kSegs = 128;
+constexpr int kShort = 16;
+constexpr int kUnroll = 4;
+constexpr int kStageFloats = 48 * 1024 / 4;
 
 constexpr int kSgd = 0;
 constexpr int kAdagrad = 1;
@@ -82,67 +104,131 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// kSquare: [sum g | sum g^2] of a [n, D] payload (sums [U, 2D]);
-// otherwise the sum of a [n, D] payload as it is (sums [U, D]).
-template <bool kSquare>
-__global__ void k1_dedup_kernel(const float* __restrict__ g_rows,
-                                const int* __restrict__ ids,
-                                const int* __restrict__ perm,
-                                const int* __restrict__ seg_start,
-                                int* __restrict__ urows,
-                                float* __restrict__ sums, int U, int D) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t u =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  // u is the same for every lane of a warp, so a warp leaves whole and
-  // the full-mask shuffles below never wait on an exited lane.
-  if (u >= U) return;
-  const int s0 = seg_start[u];
-  const int s1 = seg_start[u + 1];
-  constexpr int kWidth = kSquare ? 2 : 1;
-  float* out = sums + u * kWidth * D;
-  if (s1 - s0 == 1) {
-    // One occurrence: copy its row (and, in dedup mode, square it).
-    if (lane == 0) urows[u] = ids[perm[s0]];
-    const float* g = g_rows + static_cast<int64_t>(perm[s0]) * D;
-    for (int c = lane; c < D; c += kWarp) {
-      const float v = g[c];
-      out[c] = v;
-      if (kSquare) out[D + c] = __fmul_rn(v, v);
-    }
-    return;
-  }
-  if (lane == 0) urows[u] = ids[perm[s0]];
-  for (int c0 = 0; c0 < D; c0 += kCols) {
-    float a1[kCols];
-    float a2[kCols];
+// Adds row g[0 .. kCols) (columns c0 + c < D only) of one occurrence
+// to the accumulators, and its squares in dedup mode.
+template <bool kSquare, int kCols>
+__device__ __forceinline__ void add_row(const float* __restrict__ g, int c0,
+                                        int D, float (&a1)[kCols],
+                                        float (&a2)[kCols]) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      a1[c] = 0.0f;
-      a2[c] = 0.0f;
+  for (int c = 0; c < kCols; ++c) {
+    if (c0 + c < D) {
+      const float v = g[c];
+      a1[c] = __fadd_rn(a1[c], v);
+      if (kSquare) a2[c] = __fadd_rn(a2[c], __fmul_rn(v, v));
     }
-    for (int i = s0 + lane; i < s1; i += kWarp) {
-      const float* g = g_rows + static_cast<int64_t>(perm[i]) * D + c0;
+  }
+}
+
+// Adds the rows of sorted positions i, i + step, ... below `end`, in
+// that order, columns [c0, c0 + kCols).  The perm and row loads of
+// kUnroll positions are issued before their adds.
+template <bool kSquare, int kCols>
+__device__ __forceinline__ void add_rows(const float* __restrict__ g_rows,
+                                         const int* __restrict__ perm, int i,
+                                         int end, int step, int c0, int D,
+                                         float (&a1)[kCols],
+                                         float (&a2)[kCols]) {
+  for (; i < end; i += kUnroll * step) {
+    int p[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      p[k] = k * step < end - i ? perm[i + k * step] : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (p[k] >= 0) {
+        add_row<kSquare>(g_rows + static_cast<int64_t>(p[k]) * D + c0, c0, D,
+                         a1, a2);
+      }
+    }
+  }
+}
+
+// kSquare: [sum g | sum g^2] of a [n, D] payload (sums [U, 2D]);
+// otherwise the sum of a [n, D] payload as it is (sums [U, D]).  kCols
+// columns per pass over a segment: 16 in dedup mode (D <= 16 in one
+// pass), 32 in merge mode (P = 2D <= 32), 32 accumulators either way.
+// `stage`: the block's sums go through shared memory ([kSegs, W]).
+template <bool kSquare, int kCols>
+__global__ void __launch_bounds__(kSegs)
+    k1_kernel(const float* __restrict__ g_rows, const int* __restrict__ ids,
+              const int* __restrict__ perm,
+              const int* __restrict__ seg_start, int* __restrict__ urows,
+              float* __restrict__ sums, int U, int D, bool stage) {
+  extern __shared__ float staged[];
+  constexpr int kWidth = kSquare ? 2 : 1;
+  const int W = kWidth * D;
+  const int t = threadIdx.x;
+  const int lane = t % kWarp;
+  const int64_t u0 = static_cast<int64_t>(blockIdx.x) * kSegs;
+  const int64_t u = u0 + t;
+  // Every thread stays to the end: the warp's ballot and shuffles and
+  // the block's barrier take them all.  A thread past U has an empty
+  // segment and writes nothing.
+  int s0 = 0;
+  int s1 = 0;
+  if (u < U) {
+    s0 = seg_start[u];
+    s1 = seg_start[u + 1];
+    urows[u] = ids[perm[s0]];
+  }
+  float* const out = stage ? staged + t * W : sums + u * W;
+  if (s1 - s0 <= kShort) {
+    for (int c0 = 0; c0 < D && s1 > s0; c0 += kCols) {
+      float a1[kCols];
+      float a2[kCols];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        a1[c] = 0.0f;
+        a2[c] = 0.0f;
+      }
+      add_rows<kSquare>(g_rows, perm, s0, s1, 1, c0, D, a1, a2);
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         if (c0 + c < D) {
-          const float v = g[c];
-          a1[c] = __fadd_rn(a1[c], v);
-          if (kSquare) a2[c] = __fadd_rn(a2[c], __fmul_rn(v, v));
+          out[c0 + c] = a1[c];
+          if (kSquare) out[D + c0 + c] = a2[c];
         }
       }
     }
+  }
+  // The warp's long segments, one after another.
+  unsigned todo = __ballot_sync(0xffffffffu, s1 - s0 > kShort);
+  while (todo) {
+    const int owner = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int b = __shfl_sync(0xffffffffu, s0, owner);
+    const int e = __shfl_sync(0xffffffffu, s1, owner);
+    float* const dst = out + (owner - lane) * W;
+    for (int c0 = 0; c0 < D; c0 += kCols) {
+      float a1[kCols];
+      float a2[kCols];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      if (c0 + c < D) {  // warp-uniform: every lane takes the same branch
-        const float t1 = warp_sum(a1[c]);
-        const float t2 = kSquare ? warp_sum(a2[c]) : 0.0f;
-        if (lane == 0) {
-          out[c0 + c] = t1;
-          if (kSquare) out[D + c0 + c] = t2;
+      for (int c = 0; c < kCols; ++c) {
+        a1[c] = 0.0f;
+        a2[c] = 0.0f;
+      }
+      add_rows<kSquare>(g_rows, perm, b + lane, e, kWarp, c0, D, a1, a2);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        if (c0 + c < D) {  // warp-uniform: every lane takes the same branch
+          const float t1 = warp_sum(a1[c]);
+          const float t2 = kSquare ? warp_sum(a2[c]) : 0.0f;
+          if (lane == 0) {
+            dst[c0 + c] = t1;
+            if (kSquare) dst[D + c0 + c] = t2;
+          }
         }
       }
     }
+  }
+  if (stage) {
+    __syncthreads();
+    const int64_t left = U - u0;
+    const int m = (left < kSegs ? static_cast<int>(left) : kSegs) * W;
+    float* const block_sums = sums + u0 * W;
+    for (int i = t; i < m; i += kSegs) block_sums[i] = staged[i];
   }
 }
 
@@ -236,6 +322,26 @@ __global__ void kplace_kernel(const int* __restrict__ urows,
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = tile[i];
 }
 
+// Launches K1 in either mode: one block per kSegs segments, the
+// block's sums staged in shared memory when they fit.
+template <bool kSquare>
+int k1_launch(const void* payload, const void* ids, const void* perm,
+              const void* seg_start, void* urows, void* sums, int U, int D,
+              void* stream) {
+  if (U <= 0 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kCols = kSquare ? 16 : 32;
+  const int64_t w = (kSquare ? 2 : 1) * static_cast<int64_t>(D);
+  const bool stage = w * kSegs <= kStageFloats;
+  const int64_t blocks = (static_cast<int64_t>(U) + kSegs - 1) / kSegs;
+  k1_kernel<kSquare, kCols><<<static_cast<unsigned>(blocks), kSegs,
+                              stage ? w * kSegs * sizeof(float) : 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(payload), static_cast<const int*>(ids),
+      static_cast<const int*>(perm), static_cast<const int*>(seg_start),
+      static_cast<int*>(urows), static_cast<float*>(sums), U, D, stage);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K1.  Launches on `stream` and returns cudaGetLastError() (0 =
@@ -244,32 +350,16 @@ __global__ void kplace_kernel(const int* __restrict__ urows,
 extern "C" int k1_dedup(const void* g_rows, const void* ids,
                         const void* perm, const void* seg_start, void* urows,
                         void* sums, int U, int D, void* stream) {
-  if (U <= 0 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (static_cast<int64_t>(U) + kWarpsPerBlock - 1) /
-                         kWarpsPerBlock;
-  k1_dedup_kernel<true><<<static_cast<unsigned>(blocks),
-                          kWarp * kWarpsPerBlock, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g_rows), static_cast<const int*>(ids),
-      static_cast<const int*>(perm), static_cast<const int*>(seg_start),
-      static_cast<int*>(urows), static_cast<float*>(sums), U, D);
-  return static_cast<int>(cudaGetLastError());
+  return k1_launch<true>(g_rows, ids, perm, seg_start, urows, sums, U, D,
+                         stream);
 }
 
 // K1 merge mode: sums [U, P] of a [n, P] payload taken as it is.
 extern "C" int k1_merge(const void* payload, const void* ids,
                         const void* perm, const void* seg_start, void* urows,
                         void* sums, int U, int P, void* stream) {
-  if (U <= 0 || P < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (static_cast<int64_t>(U) + kWarpsPerBlock - 1) /
-                         kWarpsPerBlock;
-  k1_dedup_kernel<false><<<static_cast<unsigned>(blocks),
-                           kWarp * kWarpsPerBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(payload), static_cast<const int*>(ids),
-      static_cast<const int*>(perm), static_cast<const int*>(seg_start),
-      static_cast<int*>(urows), static_cast<float*>(sums), U, P);
-  return static_cast<int>(cudaGetLastError());
+  return k1_launch<false>(payload, ids, perm, seg_start, urows, sums, U, P,
+                          stream);
 }
 
 // K2.  `opt`: 0 = SGD (table only), 1 = Adagrad (state1 = accumulator,

@@ -53,8 +53,8 @@ from fast_tffm_tpu_torch.data.libsvm import SortMeta
 from fast_tffm_tpu_torch.ops import _build
 
 __all__ = [
-    "CHUNK", "OPTIMIZERS", "TILE", "Hyper", "adagrad_update", "apply",
-    "dedup_entries", "dense_delta", "entries_cap", "ftrl_solve",
+    "CHUNK", "K1_SHORT", "OPTIMIZERS", "TILE", "Hyper", "adagrad_update",
+    "apply", "dedup_entries", "dense_delta", "entries_cap", "ftrl_solve",
     "ftrl_update", "k1_dedup_cuda", "k1_dedup_plain", "k1_error_bound",
     "k1_merge_cuda", "k1_merge_plain", "k2_apply_cuda", "k2_apply_plain",
     "kplace_cuda", "kplace_plain", "merge_entries", "resolve_exchange",
@@ -71,6 +71,9 @@ _INT32_MAX = 2**31 - 1
 # "auto" picks) and the sharded step's vocabulary divisibility.
 CHUNK = 512
 TILE = 256
+# The longest segment K1 sums with one thread; a longer one takes a
+# warp (csrc/sparse_apply.cu::kShort, which must agree).
+K1_SHORT = 16
 # Widest row K-place takes: a tile of rows lives in 48 KB of shared
 # memory (csrc/sparse_apply.cu::kplace).
 _KPLACE_MAX_WIDTH = (48 * 1024 - 64) // 4
@@ -202,13 +205,18 @@ def k1_merge_plain(payload, ids, perm, seg_start):
 
 def k1_error_bound(seg_start, mass):
     """Largest ``|K1 - exact|`` the kernel's order of summation allows
-    for each segment: a lane adds its ``ceil(count / 32)`` terms in turn,
-    five shuffle levels join the lanes and ``g*g`` is rounded once, each
-    rounding off by at most ``2^-24`` of the segment's mass (the sum of
-    the absolute terms, ``[U, 2D]``, e.g. :func:`k1_dedup_plain` of
-    ``|g|`` in float64); 1.01 covers the second-order terms."""
+    for each segment, each rounding off by at most ``2^-24`` of the
+    segment's mass (the sum of the absolute terms, ``[U, 2D]``, e.g.
+    :func:`k1_dedup_plain` of ``|g|`` in float64); 1.01 covers the
+    second-order terms.  A segment of at most :data:`K1_SHORT`
+    occurrences is summed by one thread in sorted order: ``count - 1``
+    roundings of the sum and one of ``g*g``.  A longer one is summed by
+    a warp: a lane adds its ``ceil(count / 32)`` terms in turn, five
+    shuffle levels join the lanes and ``g*g`` is rounded once."""
     counts = (seg_start[1:] - seg_start[:-1]).double()[:, None]
-    return (torch.ceil(counts / 32) + 6) * 2.0**-24 * 1.01 * mass
+    roundings = torch.where(counts <= K1_SHORT, counts,
+                            torch.ceil(counts / 32) + 6)
+    return roundings * 2.0**-24 * 1.01 * mass
 
 
 def _k1_launch(entry: str, width: int, payload, ids, perm, seg_start):
@@ -229,9 +237,10 @@ def _k1_launch(entry: str, width: int, payload, ids, perm, seg_start):
 
 
 def k1_dedup_cuda(g_rows, ids, perm, seg_start):
-    """K1 through the CUDA kernel (one warp per unique id, no float
-    atomics), on the current stream; CPU tensors take
-    :func:`k1_dedup_plain`.  Returns ``(urows [U] i32, sums [U, 2D])``."""
+    """K1 through the CUDA kernel (a thread per short segment, a warp
+    per long one, no float atomics), on the current stream; CPU tensors
+    take :func:`k1_dedup_plain`.  Returns ``(urows [U] i32, sums [U,
+    2D])``."""
     _check_k1(g_rows, ids, perm, seg_start)
     if g_rows.device.type == "cpu":
         return k1_dedup_plain(g_rows, ids, perm, seg_start)

@@ -29,7 +29,7 @@ import torch
 
 from fast_tffm_tpu_torch import weights
 from fast_tffm_tpu_torch.config import FmConfig
-from fast_tffm_tpu_torch.data.libsvm import Batch, host_sort_meta
+from fast_tffm_tpu_torch.data.libsvm import Batch, SortMeta, host_sort_meta
 from fast_tffm_tpu_torch.ops import fm_kernels, sparse_apply
 from fast_tffm_tpu_torch.serve.scorer import FixedShapeScorer
 from fast_tffm_tpu_torch.tools import micro_probe
@@ -142,6 +142,22 @@ def _sparse_problem(gpu, n, d, hot, seed=0, vocab=4096):
     return put(ids), put(g), put(meta.perm), put(meta.seg_start), rng
 
 
+def _k1_run(mode, pay, ids, meta):
+    """Two kernel calls and the float64 plain version with its mass:
+    ``(urows, sums, urows2, sums2, want_rows, want64, bound)``."""
+    kern = getattr(sparse_apply, f"k1_{mode}_cuda")
+    plain = getattr(sparse_apply, f"k1_{mode}_plain")
+    before = kern.launches
+    urows, sums = kern(pay, ids, meta.perm, meta.seg_start)
+    urows2, sums2 = kern(pay, ids, meta.perm, meta.seg_start)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    want_rows, want64 = plain(pay.double(), ids, meta.perm, meta.seg_start)
+    _, mass = plain(pay.abs().double(), ids, meta.perm, meta.seg_start)
+    bound = sparse_apply.k1_error_bound(meta.seg_start, mass)
+    return urows, sums, urows2, sums2, want_rows, want64, bound
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n, d, hot", [
     (159744, 9, 0), (159744, 9, 6000), (2000, 41, 700), (3000, 2, 1300),
@@ -149,20 +165,13 @@ def _sparse_problem(gpu, n, d, hot, seed=0, vocab=4096):
 ])
 def test_k1_kernel_matches_plain_and_is_deterministic(gpu, n, d, hot):
     ids, g, perm, seg, _ = _sparse_problem(gpu, n, d, hot)
-    before = sparse_apply.k1_dedup_cuda.launches
-    urows, sums = sparse_apply.k1_dedup_cuda(g, ids, perm, seg)
-    urows2, sums2 = sparse_apply.k1_dedup_cuda(g, ids, perm, seg)
-    torch.cuda.synchronize()
-    assert sparse_apply.k1_dedup_cuda.launches == before + 2
     # The plain version in float64 is the reference: its own rounding is
     # some 1e-9 of the kernel's bound.
-    want_rows, want64 = sparse_apply.k1_dedup_plain(g.double(), ids, perm,
-                                                    seg)
+    urows, sums, urows2, sums2, want_rows, want64, bound = _k1_run(
+        "dedup", g, ids, SortMeta(perm, seg))
     assert torch.equal(urows, want_rows)
-    _, mass = sparse_apply.k1_dedup_plain(g.abs().double(), ids, perm, seg)
     err = (sums.double() - want64).abs()
-    assert bool(torch.all(err <= sparse_apply.k1_error_bound(seg, mass))), \
-        err.max()
+    assert bool(torch.all(err <= bound)), err.max()
     assert torch.equal(sums, sums2) and torch.equal(urows, urows2)
 
 
@@ -336,26 +345,24 @@ def test_two_ranks_on_one_gpu_over_gloo(gpu, tmp_path):
 
 
 @pytest.mark.gpu
-def test_k1_kernel_leaves_the_sentinel_segment_out(gpu):
+@pytest.mark.parametrize("mode", ["dedup", "merge"])
+def test_k1_kernel_leaves_the_sentinel_segment_out(gpu, mode):
     """The sharded step's prep drops the sentinel's segment (every
     off-shard occurrence): K1 then sums the real rows only, as its
-    plain version does."""
+    plain version does.  The sentinel's occurrences carry NaN payloads,
+    so a read past seg_start[U] would show in the sums."""
     vocab = 4096
-    ids, g, _, _, rng = _sparse_problem(gpu, 60000, 9, 0, vocab=vocab)
-    ids[torch.from_numpy(rng.permutation(60000)[:30000]).to(gpu)] = vocab
+    ids, g, _, _, rng = _sparse_problem(gpu, 60000, 9, 3000, vocab=vocab)
+    off = torch.from_numpy(rng.permutation(60000)[:30000]).to(gpu)
+    ids[off] = vocab
+    g[off] = float("nan")
     meta = sparse_apply.sort_meta(ids, drop_from=vocab)
-    urows, sums = sparse_apply.k1_dedup_cuda(g, ids, meta.perm,
-                                             meta.seg_start)
-    want_rows, want64 = sparse_apply.k1_dedup_plain(g.double(), ids,
-                                                    meta.perm, meta.seg_start)
-    _, mass = sparse_apply.k1_dedup_plain(g.abs().double(), ids, meta.perm,
-                                          meta.seg_start)
-    torch.cuda.synchronize()
+    urows, sums, _, sums2, want_rows, want64, bound = _k1_run(mode, g, ids,
+                                                              meta)
     assert torch.equal(urows, want_rows) and int(urows.max()) < vocab
     assert urows.numel() == torch.unique(ids[ids < vocab]).numel()
-    err = (sums.double() - want64).abs()
-    assert bool(torch.all(err <= sparse_apply.k1_error_bound(meta.seg_start,
-                                                             mass)))
+    assert bool(torch.isfinite(sums).all()) and torch.equal(sums, sums2)
+    assert bool(torch.all((sums.double() - want64).abs() <= bound))
 
 
 def _layout(layout, table, acc, d):
@@ -439,3 +446,75 @@ def test_layout_probe_wrappers_on_the_gpu(gpu, layout):
         with pytest.raises((TypeError, ValueError)):
             wrapper(*bad, lr=0.05, eps=1e-7)
     assert wrapper.launches == before + 1
+
+
+def _segments(counts, seed=0):
+    """Ids whose sorted segments have ``counts`` occurrences, in id
+    order (segment ``u`` is id ``3u + 1``), shuffled: ``(ids, rng)``."""
+    rng = np.random.default_rng(seed)
+    ids = np.repeat(np.arange(len(counts), dtype=np.int32) * 3 + 1, counts)
+    return ids[rng.permutation(ids.size)], rng
+
+
+def _split_counts():
+    """300 segments (not a multiple of a block's 128): counts cycling
+    around the thread / warp split K1_SHORT, and long segments as the
+    last of a warp (u = 31), of a block (u = 127) and of all (u = 299)."""
+    t = sparse_apply.K1_SHORT
+    counts = np.resize([t - 1, t, t + 1, 1, 2, 1, 40, 1, 3], 300)
+    counts[[31, 127, 299]] = (100, 70, 2 * t + 5)
+    return counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode, width", [
+    ("dedup", 1), ("dedup", 9), ("dedup", 16), ("dedup", 17),
+    ("dedup", 50),  # [128, 100] sums do not fit 48 KB: written directly
+    ("merge", 7), ("merge", 18), ("merge", 33), ("merge", 97),
+])
+def test_k1_thread_and_warp_segments(gpu, mode, width):
+    """Segments on both sides of the thread / warp split, long ones at a
+    warp's and a block's last lane, a ragged last block, every width
+    the wrappers take (one or two column passes, staged or not): within
+    the bound of the kernel's order, bitwise equal over two calls."""
+    ids, rng = _segments(_split_counts(), seed=width)
+    pay = rng.normal(size=(ids.size, width)).astype(np.float32)
+    put = lambda a: torch.from_numpy(a).to(gpu)  # noqa: E731
+    meta = sparse_apply.sort_meta(put(ids))
+    urows, sums, urows2, sums2, want_rows, want64, bound = _k1_run(
+        mode, put(pay), put(ids), meta)
+    assert torch.equal(urows, want_rows) and urows.numel() == 300
+    assert bool(torch.all((sums.double() - want64).abs() <= bound))
+    assert torch.equal(urows, urows2) and torch.equal(sums, sums2)
+
+
+@pytest.mark.gpu
+def test_k1_merge_of_a_four_block_mesh(gpu):
+    """K1's merge mode on the entries exchange of a 4 x 1 mesh: four
+    data blocks' deduped streams, up to four entries per row, merged as
+    merge_entries does, against the dense sums of all the occurrences
+    (the plain version in float64) within the kernel's bound."""
+    vocab, d, n_blk = 1 << 12, 9, 8000
+    cap = sparse_apply.entries_cap(n_blk, vocab)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, vocab, 4 * n_blk).astype(np.int32)
+    g = rng.normal(size=(4 * n_blk, d)).astype(np.float32)
+    put = lambda a: torch.from_numpy(a).to(gpu)  # noqa: E731
+    streams = [sparse_apply.unique_entries(put(ids[b::4]), put(g[b::4]),
+                                           vocab=vocab, cap=cap)
+               for b in range(4)]
+    rows = torch.cat([r for r, _, _ in streams])
+    pay = torch.cat([p for _, p, _ in streams])
+    meta = sparse_apply.sort_meta(rows, drop_from=vocab)
+    counts = meta.seg_start[1:] - meta.seg_start[:-1]
+    assert int(counts.max()) == 4
+    urows, sums, urows2, sums2, want_rows, want64, bound = _k1_run(
+        "merge", pay, rows, meta)
+    assert torch.equal(urows, want_rows)
+    assert torch.equal(urows, urows2) and torch.equal(sums, sums2)
+    assert bool(torch.all((sums.double() - want64).abs() <= bound))
+    # The merged stream is the dense one: K1 over every occurrence.
+    dense_rows, dense = sparse_apply.k1_dedup_plain(
+        put(g).double(), put(ids), *sparse_apply.sort_meta(put(ids)))
+    assert torch.equal(urows, dense_rows)
+    torch.testing.assert_close(sums.double(), dense, rtol=1e-5, atol=1e-5)

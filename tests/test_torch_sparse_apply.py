@@ -226,3 +226,65 @@ def test_k2_wrapper_refuses_what_the_kernel_does_not_take(optimizer,
         sparse_apply.k2_apply_cuda(optimizer, urows, sums, tables,
                                    sparse_apply.Hyper(lr=0.1))
     assert sparse_apply.k2_apply_cuda.launches == before
+
+
+def _k1_order_f32(x, short):
+    """float32 sum of one segment's payload ``x [count, W]`` in the K1
+    kernel's order: one thread adds the rows in turn when ``count <=
+    short``; otherwise lane ``l`` of a warp adds rows ``l, l + 32, ...``
+    in turn and an xor-shuffle tree (offsets 16, 8, 4, 2, 1) joins the
+    32 lanes."""
+    x = x.astype(np.float32)
+    if len(x) <= short:
+        acc = np.zeros(x.shape[1], np.float32)
+        for row in x:
+            acc = acc + row
+        return acc
+    lanes = np.zeros((32, x.shape[1]), np.float32)
+    for k in range(0, len(x), 32):
+        step = x[k:k + 32]
+        lanes[:len(step)] = lanes[:len(step)] + step
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[np.arange(32) ^ off]
+    return lanes[0]
+
+
+@pytest.mark.parametrize("count", [
+    sparse_apply.K1_SHORT - 1, sparse_apply.K1_SHORT,
+    sparse_apply.K1_SHORT + 1, 82, 5000,
+])
+def test_k1_error_bound_covers_the_kernels_order_of_summation(count):
+    """The kernel's order of summation, emulated in float32, stays
+    within k1_error_bound of the exact sums, on payloads built to cancel
+    (each term's negative appears too, perturbed, at magnitudes spread
+    over 2^+-12): the bound's derivation, held where there is no card."""
+    rng = np.random.default_rng(count)
+    half = (count + 1) // 2
+    big = rng.normal(size=(half, D)) * 2.0 ** rng.uniform(-12, 12, (half, 1))
+    g = np.concatenate([big, -big * (1 + 1e-3 * rng.normal(size=big.shape))])
+    g = g[rng.permutation(2 * half)[:count]].astype(np.float32)
+    payload = np.concatenate([g, g * g], axis=1)  # g*g rounded once
+    got = _k1_order_f32(payload, sparse_apply.K1_SHORT)
+    exact = np.concatenate([g.astype(np.float64),
+                            g.astype(np.float64) ** 2], axis=1).sum(0)
+    mass = np.abs(np.concatenate([g, g * g], axis=1).astype(np.float64)).sum(0)
+    bound = sparse_apply.k1_error_bound(
+        torch.tensor([0, count], dtype=torch.int32),
+        torch.from_numpy(mass[None, :]),
+    )[0].numpy()
+    err = np.abs(got.astype(np.float64) - exact)
+    assert err.max() > 0  # the float32 order did round
+    assert np.all(err <= bound), (err / bound).max()
+
+
+def test_k1_thread_segment_limit_is_the_kernels():
+    """The error bound's split between a thread's segment and a warp's
+    is the kernel's own (csrc/sparse_apply.cu::kShort)."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(sparse_apply.__file__), "csrc",
+                       "sparse_apply.cu")
+    with open(src) as f:
+        found = re.findall(r"constexpr int kShort = (\d+);", f.read())
+    assert found == [str(sparse_apply.K1_SHORT)]
