@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py           # one GPU: every phase below
-    python3 chip_smoke.py --nccl    # >= 4 GPUs: phases 1-3 and 8 only,
+    python3 chip_smoke.py --nccl    # >= 4 GPUs: phases 1-3 and 9 only,
                                     # one rank per GPU over NCCL
 
 Phases, in order; any failed check ends the run with a non-zero exit:
@@ -19,14 +19,16 @@ Phases, in order; any failed check ends the run with a non-zero exit:
 4. Kernel phase: every kernel against its plain PyTorch version on the
    card — ``fm_scores`` at the serving rungs and at a parsed training
    batch (B = 4096: train step, validation, predict), ``fm_grad`` at B in
-   {1, 1000, 4096}, K1 and K2 (adagrad, ftrl, sgd) at the training
-   shapes of a parsed batch and with one id of >= 5000 occurrences (K1
+   {1, 1000, 4096}, both again in their bf16-input mode (FmScorer at the
+   rungs 64/256/1024 and the parsed batch, FmGrad bitwise), K1 and K2
+   (adagrad, ftrl, sgd) at the training shapes of a parsed batch and with one id of >= 5000 occurrences (K1
    also at the probe's stream), K-place at the sharded path's shapes
    (``vocab_local = 2^21``, ``row_lo = 2^21``, a parsed local batch of
    2048 lines with sentinel ids) and K1's merge mode on two data blocks'
    entry streams (both exact: ``max_abs_err`` 0) — then kernel, plain
-   and library call timed in CUDA graphs at the main paths' shapes, and
-   K1 at its hot and probe streams too.
+   and library call timed in CUDA graphs at the main paths' shapes (the
+   bf16 modes at the training batch, with the bf16 step's three casts),
+   and K1 at its hot and probe streams too.
 5. Train phase (main path 1): ``Trainer(cfg).train()`` on
    ``examples/criteo_kaggle.cfg`` at full width (V = 2^22, F = 39,
    D = 9, B = 4096, Adagrad, batch L2, host sort meta), 16 steps, then
@@ -34,21 +36,33 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    per step of ``fm_grad``, ``k1_dedup`` and ``k2_apply``; the logloss
    of the last steps below the first step's; one finite probability per
    predict line.
-6. Parity phase: 3 steps through the kernels vs 3 through the plain
-   path from the same initial weights: each step's scores
-   (``rtol=1e-5, atol=1e-5``), the tables (``rtol=1e-4, atol=1e-6``
-   table, ``atol=1e-4`` accumulator) and what the steps changed in each
-   (``delta_check``); and host sort meta vs device sort meta (bitwise).  Then the step's p50 (host clock, synchronised), its
-   device idle share from ``torch.profiler`` and the peak memory.
-7. Serve phase (main path 2): serve the checkpoint the train phase
+6. bf16 train phase (main path 1 with ``compute_dtype = bfloat16``):
+   the same config on one train file, 8 steps in f32 and then 8 in
+   bf16 from the same initial table on the same batches, the bf16 run
+   validated (in f32).  Checks: every step launched the bf16 FmScorer
+   and FmGrad, K1 and K2, and no f32 FmGrad; the last step's logloss
+   within 1e-2 of the f32 run's (the reference's
+   ``tests/test_bf16.py::TestTrainingParity`` check); an f32
+   ``params.npz``.
+7. Parity phase, f32 and bf16 compute: 3 steps through the kernels vs
+   3 through the plain path from the same initial weights: each step's
+   scores (``rtol=1e-5, atol=1e-5``), the tables (``rtol=1e-4,
+   atol=1e-6`` table, ``atol=1e-4`` accumulator) and what the steps
+   changed in each (``delta_check``); and host sort meta vs device sort
+   meta (bitwise, f32).  Then an f32 and a bf16 step, timed in turns:
+   each one's p50 (host clock, synchronised), device time by op and
+   idle share from ``torch.profiler``, and the peak memory.
+8. Serve phase (main path 2): serve the checkpoint the train phase
    wrote over ``/score`` and ``/score_bin``, every rung plus one request
    larger than the largest; the two transports agree bitwise, scores
    match the plain path on the card, out-of-range ids reduce like the
    text path, the kernel ran.  Request latency and dispatch per rung.
-8. Sharded phase (main path 3): four ranks of a 2 x 2 (data x model)
+9. Sharded phase (main path 3): four ranks of a 2 x 2 (data x model)
    mesh, ``lookup = shardmap``, each a process of this script
    (``--sharded-rank``) sharing the card over gloo (or one GPU each over
-   NCCL with ``--nccl``), train 8 global batches through
+   NCCL with ``--nccl``), train 8 global batches of the line stream
+   (``fast_ingest = false``, whose order does not depend on the local
+   batch size) through
    ``Trainer.train()`` twice: ``sparse_exchange = dense`` (K-place
    every step on every rank) and ``auto`` (must resolve to ``entries``:
    K1's merge mode every step, no K-place).  Checks: every rank reports
@@ -57,7 +71,7 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    w0, ``delta_check``).  Each rank's step p50 and the share of it
    spent in the step's collectives (host clock, synchronised around
    each collective, staging copies included).
-9. Probe phase (path 4, the table-layout probe): K2T (transposed
+10. Probe phase (path 4, the table-layout probe): K2T (transposed
    ``[9, V]`` table) and K2P (packed ``[V/8, 128]``) against their plain
    versions on the card (``TABLE_TOL``, ``OPT_TOL``, ``delta_check``),
    bitwise against K2's elements on the same stream, untouched rows and
@@ -75,6 +89,7 @@ without the package beside this script.
 
 from __future__ import annotations
 
+import dataclasses
 import http.client
 import json
 import logging
@@ -236,19 +251,26 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fm_bound_ms(b: int, f: int, d: int):
-    """FmScorer forward: rows and vals read, scores and s1 written."""
+def fm_bound_ms(b: int, f: int, d: int, elt: int = 4):
+    """FmScorer forward: rows and vals read (``elt`` bytes an element:
+    4 in f32, 2 in bf16), f32 scores and s1 written."""
     k = d - 1
-    return bound(4 * (b * f * d + b * f + b + b * k),
+    return bound(elt * (b * f * d + b * f) + 4 * (b + b * k),
                  b * (f * (2 + 4 * k) + 3 * k + 2))
 
 
-def fm_grad_bound_ms(b: int, f: int, d: int):
-    """FmGrad: rows, vals, s1, dscores read; drows written.  Per (b, f):
-    g*x, then per factor v*x, a subtraction and a product."""
+def fm_grad_bound_ms(b: int, f: int, d: int, elt: int = 4):
+    """FmGrad: rows, vals (``elt`` bytes an element), f32 s1 and dscores
+    read; drows written in the rows' type.  Per (b, f): g*x, then per
+    factor v*x, a subtraction and a product."""
     k = d - 1
-    return bound(4 * (2 * b * f * d + b * f + b * k + b),
+    return bound(elt * (2 * b * f * d + b * f) + 4 * (b * k + b),
                  b * f * (1 + 3 * k))
+
+
+def cast_bound_ms(n: int, elt_in: int, elt_out: int):
+    """An elementwise cast of ``n`` elements: read once, written once."""
+    return bound(n * (elt_in + elt_out), 0)
 
 
 def k1_bound_ms(n: int, u: int, d: int):
@@ -415,13 +437,12 @@ def rank_main(argv) -> int:
         trainer = TimedTrainer(cfg, device=dev)
         kernels = kernel_fns(fm_kernels, sparse_apply, micro_probe)
         torch.cuda.reset_peak_memory_stats()
-        for fn in kernels.values():
-            fn.launches = 0
+        zero_launches(kernels)
         t0 = time.perf_counter()
         result = trainer.train()
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in kernels.items()}
+        launches = read_launches(kernels)
         mesh = trainer.mesh
         steps = trainer.step_s[1:]  # the first step warms up
         record = {
@@ -445,18 +466,30 @@ def rank_main(argv) -> int:
 
 
 def kernel_fns(fm_kernels, sparse_apply, micro_probe) -> dict:
-    """Every kernel wrapper of the port by name (each keeps a count of
-    its launches)."""
+    """Every kernel of the port by name: its wrapper and the wrapper's
+    attribute that counts its launches (FmScorer's and FmGrad's wrappers
+    count their f32 and bf16 modes apart)."""
     return {
-        "fm_scores": fm_kernels.fm_scores_cuda,
-        "fm_grad": fm_kernels.fm_grad_cuda,
-        "k1_dedup": sparse_apply.k1_dedup_cuda,
-        "k1_merge": sparse_apply.k1_merge_cuda,
-        "k2_apply": sparse_apply.k2_apply_cuda,
-        "kplace": sparse_apply.kplace_cuda,
-        "k2t_apply": micro_probe.k2t_apply,
-        "k2p_apply": micro_probe.k2p_apply,
+        "fm_scores": (fm_kernels.fm_scores_cuda, "launches"),
+        "fm_grad": (fm_kernels.fm_grad_cuda, "launches"),
+        "fm_scores_bf16": (fm_kernels.fm_scores_cuda, "launches_bf16"),
+        "fm_grad_bf16": (fm_kernels.fm_grad_cuda, "launches_bf16"),
+        "k1_dedup": (sparse_apply.k1_dedup_cuda, "launches"),
+        "k1_merge": (sparse_apply.k1_merge_cuda, "launches"),
+        "k2_apply": (sparse_apply.k2_apply_cuda, "launches"),
+        "kplace": (sparse_apply.kplace_cuda, "launches"),
+        "k2t_apply": (micro_probe.k2t_apply, "launches"),
+        "k2p_apply": (micro_probe.k2p_apply, "launches"),
     }
+
+
+def zero_launches(kernels: dict) -> None:
+    for fn, attr in kernels.values():
+        setattr(fn, attr, 0)
+
+
+def read_launches(kernels: dict) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernels.items()}
 
 
 def spawn_ranks(tmp: str, tag: str, overrides: dict, world: int,
@@ -531,9 +564,13 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
     from fast_tffm_tpu_torch.train.loop import Trainer
 
     dev = torch.device("cuda")
+    # The line stream (fast_ingest off): its order does not depend on
+    # the batch size, so the data blocks' local batches make up the
+    # single device's global ones.  The raw-window stream cuts its
+    # windows at whole local batches, as the reference's does.
     base = {"train_files": [train_file], "validation_files": [valid_file],
             "seed": SEED, "log_steps": 4, "serve_poll_secs": 0.0,
-            "serve_port": 0}
+            "serve_port": 0, "fast_ingest": False}
     ref_dir = os.path.join(tmp, "sharded_ref")
     t0 = time.perf_counter()
     ref = Trainer(load_config(CFG_PATH, dict(base, model_file=ref_dir))
@@ -744,13 +781,12 @@ def probe_phase(torch, card: str, gen, table0, hot_ids, hyper, err: dict,
     torch.cuda.empty_cache()
 
     # The path: the probe at full size, its counts from 0.
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     rc = micro_probe.main([])
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = read_launches(kernels)
     check(rc == 0, f"micro_probe.main returned {rc}")
     for name in ("k2t_apply", "k2p_apply", "k1_dedup", "k2_apply"):
         check(launches[name] >= 1, f"the probe never launched {name}")
@@ -926,6 +962,42 @@ def main() -> int:
         torch.testing.assert_close(got, want, **KERNEL_TOL)
         err["fm_grad"] = max(err.get("fm_grad", 0.0),
                              float((got - want).abs().max()))
+    # -- bf16-input mode: fm_scores at the rungs and a parsed training
+    # batch, fm_grad bitwise at B in {1, 1000, 4096} -------------------
+    bf16 = torch.bfloat16
+    for b in (64, 256, 1024, B):
+        rows = (torch.randn((b, F, D), generator=gen, device=dev) * 0.3
+                ).to(bf16)
+        if b == B:  # the bf16 train step's: a parsed batch, rounded
+            vals = torch.from_numpy(batches[0].vals).to(dev).to(bf16)
+        else:
+            lens = torch.randint(1, F + 1, (b, 1), generator=gen,
+                                 device=dev)
+            vals = (torch.rand((b, F), generator=gen, device=dev)
+                    * (torch.arange(F, device=dev)[None, :] < lens)
+                    ).to(bf16)
+        s_k, s1_k = fm_scores_cuda(rows, vals)
+        s_p, s1_p = fm_scores_plain(rows, vals)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
+        torch.testing.assert_close(s1_k, s1_p, **KERNEL_TOL)
+        err["fm_scores_bf16"] = max(err.get("fm_scores_bf16", 0.0),
+                                    float((s_k - s_p).abs().max()),
+                                    float((s1_k - s1_p).abs().max()))
+    for b in (1, 1000, B):
+        rows = (torch.randn((b, F, D), generator=gen, device=dev) * 0.3
+                ).to(bf16)
+        vals = torch.rand((b, F), generator=gen, device=dev).to(bf16)
+        _, s1 = fm_scores_plain(rows, vals)
+        g = torch.randn((b,), generator=gen, device=dev)
+        got = fm_grad_cuda(rows, vals, s1, g)
+        want = fm_grad_plain(rows, vals, s1, g)
+        torch.cuda.synchronize()
+        check(got.dtype == bf16 and torch.equal(got.view(torch.int16),
+                                                want.view(torch.int16)),
+              f"bf16 FmGrad differs from its plain version at B = {b}")
+        err["fm_grad_bf16"] = max(err.get("fm_grad_bf16", 0.0), float(
+            (got.float() - want.float()).abs().max()))
     # -- K1 and K2 at the training shapes ------------------------------
     ids0 = torch.from_numpy(batches[0].ids).to(dev).reshape(-1)
     n = ids0.numel()
@@ -1031,8 +1103,9 @@ def main() -> int:
     err["k1_merge"] = float((sums_m - sums_mp).abs().max())
     check(err["k1_merge"] == 0.0, f"K1 merge vs plain: max err "
           f"{err['k1_merge']:.3e} (at most two terms per row)")
-    print("kernel check: fm_scores, fm_grad, k1_dedup, k2_apply (adagrad, "
-          "ftrl, sgd), kplace, k1_merge == their plain versions; "
+    print("kernel check: fm_scores, fm_grad (f32 and bf16, bf16 FmGrad "
+          "bitwise), k1_dedup, k2_apply (adagrad, ftrl, sgd), kplace, "
+          "k1_merge == their plain versions; "
           "max_abs_err " + json.dumps(err), flush=True)
 
     phase_end("kernel_check")
@@ -1046,6 +1119,10 @@ def main() -> int:
     vals_t = torch.from_numpy(batches[0].vals).to(dev)
     _, s1_t = fm_scores_plain(rows_t, vals_t)
     dsc = torch.randn((B,), generator=gen, device=dev) * 0.1
+    # The bf16 step's inputs: the f32 training rows and values rounded.
+    rows_t16, vals_t16 = rows_t.to(bf16), vals_t.to(bf16)
+    _, s1_t16 = fm_scores_plain(rows_t16, vals_t16)
+    drows_t16 = fm_grad_plain(rows_t16, vals_t16, s1_t16, dsc)
     urows, sums = k2_shapes["batch"]
     u = urows.numel()
     acc0 = torch.full((V, D), 0.1, device=dev)
@@ -1085,6 +1162,13 @@ def main() -> int:
         "fm_grad": (lambda: fm_grad_cuda(rows_t, vals_t, s1_t, dsc),
                     lambda: fm_grad_plain(rows_t, vals_t, s1_t, dsc), None,
                     fm_grad_bound_ms(B, F, D)),
+        "fm_scores_bf16": (lambda: fm_scores_cuda(rows_t16, vals_t16),
+                           lambda: fm_scores_plain(rows_t16, vals_t16), None,
+                           fm_bound_ms(B, F, D, elt=2)),
+        "fm_grad_bf16": (
+            lambda: fm_grad_cuda(rows_t16, vals_t16, s1_t16, dsc),
+            lambda: fm_grad_plain(rows_t16, vals_t16, s1_t16, dsc), None,
+            fm_grad_bound_ms(B, F, D, elt=2)),
         "k1_dedup": (
             lambda: k1_dedup_cuda(g_rows, ids32, meta0.perm, meta0.seg_start),
             lambda: k1_dedup_plain(g_rows, ids32, meta0.perm,
@@ -1149,6 +1233,24 @@ def main() -> int:
     timing["fm_scores"]["eager_call_ms"] = time_per_call_ms(
         torch, cases["fm_scores"][0]
     )
+    timing["fm_scores"]["train_batch"] = {
+        "graph_ms": graph_ms(torch, lambda: fm_scores_cuda(rows_t, vals_t)),
+        "bound_ms": fm_bound_ms(B, F, D)[0],
+    }
+    # The bf16 step's casts around the two kernels: the gathered rows
+    # and the values to bf16 before FmScorer, FmGrad's bf16 drows back
+    # to f32 before K1.
+    casts = {
+        "rows_to_bf16": (lambda: rows_t.to(bf16), rows_t.numel(), 4, 2),
+        "vals_to_bf16": (lambda: vals_t.to(bf16), vals_t.numel(), 4, 2),
+        "drows_to_f32": (lambda: drows_t16.float(), drows_t16.numel(), 2,
+                         4),
+    }
+    timing["bf16_casts"] = {
+        name: {"graph_ms": graph_ms(torch, fn),
+               "bound_ms": cast_bound_ms(n, a, b_)[0]}
+        for name, (fn, n, a, b_) in casts.items()
+    }
     timing["fm_scores"]["per_rung"] = {
         b: {"graph_ms": graph_ms(
                 torch, lambda b=b: fm_scores_cuda(rows[:b], vals[:b])),
@@ -1180,8 +1282,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = kernel_fns(fm_kernels, sparse_apply, micro_probe)
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_launches(kernels)
 
     class LossTrainer(Trainer):
         """Keeps each step's loss, a device scalar, for the falling-loss
@@ -1204,7 +1305,7 @@ def main() -> int:
     n_pred = predict(tcfg)
     predict_wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    train_launches = {name: fn.launches for name, fn in kernels.items()}
+    train_launches = read_launches(kernels)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     tr = result["train"]
     steps = tr["steps"]
@@ -1243,6 +1344,70 @@ def main() -> int:
 
     phase_end("train")
 
+    # -- bf16 train phase (main path 1 with compute_dtype = bfloat16) --
+    # One file (8 steps), the f32 run first on the same batches (same
+    # seed, same initial table) for the loss check, then the bf16 run
+    # with every count from 0, then its validation.
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        dcfg = load_config(CFG_PATH, {
+            "train_files": train_files[:1],
+            "validation_files": [valid_file] if dtype == "bfloat16" else [],
+            "model_file": os.path.join(tmp, f"model_{dtype}"),
+            "log_steps": 4, "seed": SEED, "compute_dtype": dtype,
+            "serve_poll_secs": 0.0, "serve_port": 0,
+        })
+        torch.cuda.synchronize()
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        trainer = LossTrainer(dcfg)
+        result = trainer.train()
+        torch.cuda.synchronize()
+        runs[dtype] = {
+            "launches": read_launches(kernels), "result": result,
+            "wall_s": time.perf_counter() - t0,
+            "step_logloss": [float(x) for x in trainer.step_losses],
+        }
+        del trainer
+    bf, f32 = runs["bfloat16"], runs["float32"]
+    bf16_launches = bf["launches"]
+    steps = bf["result"]["train"]["steps"]
+    check(steps == BATCHES_PER_FILE == f32["result"]["train"]["steps"],
+          f"bf16 phase trained {steps} steps")
+    for name in ("fm_scores_bf16", "fm_grad_bf16", "k1_dedup", "k2_apply"):
+        check(bf16_launches[name] >= steps,
+              f"bf16 run: {name} launched {bf16_launches[name]} times in "
+              f"{steps} steps")
+    check(bf16_launches["fm_grad"] == 0 and f32["launches"]["fm_grad_bf16"]
+          == 0, f"a run took the other mode's FmGrad: {bf16_launches}")
+    check(all(np.isfinite(bf["step_logloss"])), "non-finite bf16 loss")
+    loss_diff = abs(bf["step_logloss"][-1] - f32["step_logloss"][-1])
+    check(loss_diff < 1e-2, f"bf16 last logloss {bf['step_logloss'][-1]} vs "
+          f"f32 {f32['step_logloss'][-1]}")
+    bval = bf["result"]["validation"]
+    check(np.isfinite(bval["logloss"]) and 0 < bval["auc"] <= 1,
+          f"bf16 validation {bval}")
+    with np.load(os.path.join(tmp, "model_bfloat16", "params.npz")) as z:
+        dtypes = {k: str(z[k].dtype) for k in z.files if k != "scalar/step"}
+    check(set(dtypes.values()) == {"float32"},
+          f"the bf16 run saved {dtypes}")
+    print(json.dumps({"bf16_train": {
+        "card": card, "steps": steps, "batch_size": B,
+        "launches": bf16_launches, "step_logloss": bf["step_logloss"],
+        "f32_step_logloss": f32["step_logloss"],
+        "last_logloss_abs_diff": loss_diff,
+        "train_logloss": bf["result"]["train"]["logloss"],
+        "f32_train_logloss": f32["result"]["train"]["logloss"],
+        "validation_logloss": bval["logloss"], "validation_auc": bval["auc"],
+        "train_wall_s": bf["wall_s"], "f32_train_wall_s": f32["wall_s"],
+        "examples_per_sec_end_to_end":
+            bf["result"]["train"]["examples_per_sec"],
+        "checkpoint_dtypes": sorted(set(dtypes.values())),
+    }}), flush=True)
+    del runs, bf, f32
+
+    phase_end("bf16_train")
+
     # -- parity phase --------------------------------------------------
     def put(batch, with_meta=True):
         b = sparse.to_device(batch, dev)
@@ -1256,70 +1421,87 @@ def main() -> int:
         m = fm.FmModel(init.w0.detach().clone(), init.table.detach().clone())
         return m, sparse.init_sparse_opt_state(tcfg, m)
 
-    (mk, ok), (mp, op) = fresh(), fresh()
-    score_err = 0.0
-    for b in dev_batches:
-        s_k = sparse.sparse_step(tcfg, mk, ok, b)
-        s_p = sparse.sparse_step(tcfg, mp, op, b, plain=True)
-        torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
-        score_err = max(score_err, float((s_k - s_p).abs().max()))
-    torch.cuda.synchronize()
-    torch.testing.assert_close(mk.table, mp.table, **TABLE_TOL)
-    torch.testing.assert_close(ok.acc_table, op.acc_table, **OPT_TOL)
-    torch.testing.assert_close(mk.w0, mp.w0, rtol=1e-5, atol=1e-7)
-    step_err = float((mk.table - mp.table).detach().abs().max())
-    acc_err = float((ok.acc_table - op.acc_table).abs().max())
-    changes = {
-        "table": delta_check(torch, "table", mk.table, mp.table,
-                             init.table.detach()),
-        "acc_table": delta_check(
-            torch, "acc_table", ok.acc_table, op.acc_table,
-            torch.full_like(ok.acc_table, tcfg.adagrad_initial_accumulator),
-        ),
-    }
-    del mp, op
-    mh, oh = fresh()  # host meta (the pipeline's) vs device prep
-    for b in dev_batches:
-        sparse.sparse_step(tcfg, mh, oh, b._replace(sort_meta=None))
-    torch.cuda.synchronize()
-    check(torch.equal(mh.table, mk.table)
-          and torch.equal(oh.acc_table, ok.acc_table)
-          and torch.equal(mh.w0, mk.w0),
-          "host sort meta and device sort meta trained different tables")
-    del mh, oh, mk, ok
-    print(json.dumps({"parity": {
-        "steps": len(dev_batches), "table_max_abs_err": step_err,
-        "acc_max_abs_err": acc_err, "scores_max_abs_err": score_err,
-        "changes": changes, "host_vs_device_meta": "bitwise equal",
-    }}), flush=True)
+    parity = {}
+    for dtype in ("float32", "bfloat16"):
+        pcfg = dataclasses.replace(tcfg, compute_dtype=dtype)
+        (mk, ok), (mp, op) = fresh(), fresh()
+        score_err = 0.0
+        for b in dev_batches:
+            s_k = sparse.sparse_step(pcfg, mk, ok, b)
+            s_p = sparse.sparse_step(pcfg, mp, op, b, plain=True)
+            torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
+            score_err = max(score_err, float((s_k - s_p).abs().max()))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(mk.table, mp.table, **TABLE_TOL)
+        torch.testing.assert_close(ok.acc_table, op.acc_table, **OPT_TOL)
+        torch.testing.assert_close(mk.w0, mp.w0, rtol=1e-5, atol=1e-7)
+        parity[dtype] = {
+            "steps": len(dev_batches),
+            "table_max_abs_err": float(
+                (mk.table - mp.table).detach().abs().max()),
+            "acc_max_abs_err": float(
+                (ok.acc_table - op.acc_table).abs().max()),
+            "scores_max_abs_err": score_err,
+            "changes": {
+                "table": delta_check(torch, f"{dtype} table", mk.table,
+                                     mp.table, init.table.detach()),
+                "acc_table": delta_check(
+                    torch, f"{dtype} acc_table", ok.acc_table, op.acc_table,
+                    torch.full_like(ok.acc_table,
+                                    tcfg.adagrad_initial_accumulator),
+                ),
+            },
+        }
+        del mp, op
+        if dtype == "float32":
+            mh, oh = fresh()  # host meta (the pipeline's) vs device prep
+            for b in dev_batches:
+                sparse.sparse_step(tcfg, mh, oh, b._replace(sort_meta=None))
+            torch.cuda.synchronize()
+            check(torch.equal(mh.table, mk.table)
+                  and torch.equal(oh.acc_table, ok.acc_table)
+                  and torch.equal(mh.w0, mk.w0),
+                  "host sort meta and device sort meta trained different "
+                  "tables")
+            parity[dtype]["host_vs_device_meta"] = "bitwise equal"
+            del mh, oh
+        del mk, ok
+    print(json.dumps({"parity": parity}), flush=True)
 
     phase_end("parity")
 
     # -- one train step: host clock, profiler --------------------------
-    stepper = Trainer(load_config(CFG_PATH, {
-        "model_file": os.path.join(tmp, "fresh"), "seed": SEED,
-    }))
-    times = []
+    # f32 and bf16 compute, each from a fresh model, timed in turns.
+    steppers = {dtype: Trainer(load_config(CFG_PATH, {
+        "model_file": os.path.join(tmp, f"fresh_{dtype}"), "seed": SEED,
+        "compute_dtype": dtype,
+    })) for dtype in ("float32", "bfloat16")}
+    times = {dtype: [] for dtype in steppers}
     for i in range(24):
-        t0 = time.perf_counter()
-        stepper.train_step(batches[i % 3])
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    step_ms = p50(times[4:]) * 1e3
-    prof = iter(range(1 << 30))
-    step_dev, step_wall, step_host = device_times_ms(
-        torch, lambda: stepper.train_step(batches[next(prof) % 3]), iters=12
-    )
-    busy = sum(step_dev.values())
-    print(json.dumps({"train_step": {
-        "card": card, "B": B, "p50_ms": step_ms,
-        "examples_per_sec_step_alone": B / (step_ms / 1e3),
-        "profiler_wall_ms": step_wall, "device_busy_ms": busy,
-        "device_idle_frac": max(0.0, 1.0 - busy / step_wall),
-        "device_ms_by_op": step_dev, "host_self_ms_top10": step_host,
-        "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
-    }}), flush=True)
-    del stepper
+        for dtype, stepper in steppers.items():
+            t0 = time.perf_counter()
+            stepper.train_step(batches[i % 3])
+            torch.cuda.synchronize()
+            times[dtype].append(time.perf_counter() - t0)
+    for dtype, stepper in steppers.items():
+        step_ms = p50(times[dtype][4:]) * 1e3
+        prof = iter(range(1 << 30))
+        step_dev, step_wall, step_host = device_times_ms(
+            torch, lambda: stepper.train_step(batches[next(prof) % 3]),
+            iters=12,
+        )
+        busy = sum(step_dev.values())
+        key = "train_step" if dtype == "float32" else "train_step_bf16"
+        print(json.dumps({key: {
+            "card": card, "B": B, "compute_dtype": dtype, "p50_ms": step_ms,
+            "examples_per_sec_step_alone": B / (step_ms / 1e3),
+            "profiler_wall_ms": step_wall, "device_busy_ms": busy,
+            "device_idle_frac": max(0.0, 1.0 - busy / step_wall),
+            "device_ms_by_op": step_dev, "host_self_ms_top10": step_host,
+            "max_memory_allocated_mb":
+                torch.cuda.max_memory_allocated() / 2**20,
+        }}), flush=True)
+    del steppers, stepper
 
     phase_end("train_step")
 
@@ -1446,15 +1628,22 @@ def main() -> int:
 
     # Launches on the main paths: train (path 1), serve (path 2, the
     # only fm_scores count), the sharded runs' ranks (path 3), the
-    # probe (path 4, the only K2T and K2P counts).
+    # probe (path 4, the only K2T and K2P counts), and the bf16 train
+    # run (path 1 with compute_dtype = bfloat16, the only count of the
+    # bf16 modes).
     launches = {name: train_launches[name] + sharded_launches[name]
                 for name in kernels}
     launches["fm_scores"] = serve_launches
+    for name in ("fm_scores_bf16", "fm_grad_bf16"):
+        launches[name] = bf16_launches[name]  # path 1 in bf16
     for name in ("k2t_apply", "k2p_apply"):
         launches[name] = probe_launches[name]
     sources = {
         "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
         "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),
+        "fm_scores_bf16": ("fm_scorer.cu",
+                           "fast_tffm_tpu/ops/fm_pallas.py:110"),
+        "fm_grad_bf16": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),
         "k1_dedup": ("sparse_apply.cu",
                      "fast_tffm_tpu/ops/sparse_apply.py:136"),
         "k1_merge": ("sparse_apply.cu",

@@ -186,7 +186,7 @@ class Batch(NamedTuple):
 
 
 def make_batch(
-    examples: Sequence[Example],
+    examples: Sequence[Optional[Example]],
     batch_size: int,
     max_features: int,
     weights: Optional[Sequence[float]] = None,
@@ -195,6 +195,9 @@ def make_batch(
 
     Short batches (end of epoch) are padded with weight-0 examples so the
     shapes never change; features beyond ``max_features`` are dropped.
+    A ``None`` example (a blank or comment line of the raw-window
+    stream) keeps its row, all zeros, with weight 0, as the reference's
+    C++ ``fm_parser_parse_raw`` writes it.
     """
     n = len(examples)
     if n > batch_size:
@@ -205,6 +208,8 @@ def make_batch(
     fields = np.zeros((batch_size, max_features), np.int32)
     w = np.zeros((batch_size,), np.float32)
     for i, ex in enumerate(examples):
+        if ex is None:
+            continue
         labels[i] = ex.label
         k = min(len(ex.ids), max_features)
         ids[i, :k] = ex.ids[:k]

@@ -1,5 +1,5 @@
 """FmScorer forward and FmGrad backward on the GPU — the counterpart of
-``ops/fm_pallas.py``.
+``ops/fm_pallas.py``, in both of its modes.
 
 - :func:`fm_scores_cuda` is the wrapper of the hand-written CUDA kernel
   in ``csrc/fm_scorer.cu`` (which replaces the Pallas kernel
@@ -7,7 +7,8 @@
   inputs the same way on every device and raises on anything the kernel
   does not take.  A CUDA tensor always launches the kernel; only a
   tensor that lies on the CPU takes the plain version.
-  ``fm_scores_cuda.launches`` counts kernel launches.
+  ``fm_scores_cuda.launches`` counts the f32 mode's kernel launches,
+  ``fm_scores_cuda.launches_bf16`` the bf16 mode's.
 - :func:`fm_scores_plain` is the same function in plain PyTorch,
   written from ``fast_tffm_tpu/ops/interaction.py::_scores_jnp``: the
   CPU path, and the reference the kernel is held to on the card.
@@ -17,7 +18,11 @@
 The forward takes gathered rows ``[B, F, D]`` (column 0 the linear
 weight) and values ``[B, F]`` and returns ``(scores [B], s1 [B, D-1])``;
 the backward takes those plus ``dscores [B]`` and returns
-``drows [B, F, D]``; all float32.
+``drows [B, F, D]``.  Rows and values are both float32 or both bfloat16
+(the reference's bf16-input mode, ``compute_dtype = bfloat16``): the
+kernels widen bf16 to f32 as they load it and compute in f32, scores,
+``s1`` and ``dscores`` are f32 in both modes, and ``drows`` comes back in
+the rows' type.
 """
 
 from __future__ import annotations
@@ -30,10 +35,12 @@ __all__ = ["fm_grad_cuda", "fm_grad_plain", "fm_scores_cuda",
            "fm_scores_plain"]
 
 _INT32_MAX = 2**31 - 1
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def fm_scores_plain(rows: torch.Tensor, vals: torch.Tensor):
-    """Plain PyTorch FmScorer forward (any device, f32 accumulation)."""
+    """Plain PyTorch FmScorer forward (any device, f32 accumulation; bf16
+    inputs are widened first)."""
     rows = rows.float()
     vals = vals.float()
     w = rows[..., 0]
@@ -47,10 +54,10 @@ def fm_scores_plain(rows: torch.Tensor, vals: torch.Tensor):
 
 def _check(rows: torch.Tensor, vals: torch.Tensor,
            name: str = "fm_scores_cuda") -> None:
-    if rows.dtype != torch.float32 or vals.dtype != torch.float32:
+    if rows.dtype not in _DTYPES or vals.dtype != rows.dtype:
         raise TypeError(
-            f"{name} takes float32 rows and vals, got "
-            f"{rows.dtype} and {vals.dtype}"
+            f"{name} takes rows and vals both float32 or both bfloat16, "
+            f"got {rows.dtype} and {vals.dtype}"
         )
     if rows.dim() != 3 or vals.dim() != 2 or rows.shape[:2] != vals.shape:
         raise ValueError(
@@ -71,9 +78,16 @@ def _check(rows: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"{name} takes contiguous rows and vals")
 
 
+def _raise_on(err: int, lib, entry: str) -> None:
+    if err:
+        raise RuntimeError(f"{entry} launch failed: "
+                           + lib.fm_kernels_error_string(err).decode())
+
+
 def fm_scores_cuda(rows: torch.Tensor, vals: torch.Tensor):
-    """FmScorer forward through the CUDA kernel, on the current stream
-    (does not synchronise); CPU tensors take :func:`fm_scores_plain`."""
+    """FmScorer forward through the CUDA kernel of the inputs' type, on
+    the current stream (does not synchronise); CPU tensors take
+    :func:`fm_scores_plain`."""
     _check(rows, vals)
     if rows.device.type == "cpu":
         return fm_scores_plain(rows, vals)
@@ -82,35 +96,39 @@ def fm_scores_cuda(rows: torch.Tensor, vals: torch.Tensor):
     s1 = torch.empty((b, d - 1), dtype=torch.float32, device=rows.device)
     if b == 0:
         return scores, s1
+    bf16 = rows.dtype == torch.bfloat16
+    entry = "fm_scores_fwd_bf16" if bf16 else "fm_scores_fwd"
     lib = _build.load()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.fm_scores_fwd(
+        err = getattr(lib, entry)(
             rows.data_ptr(), vals.data_ptr(), scores.data_ptr(),
             s1.data_ptr(), b, f, d, stream,
         )
-    if err:
-        raise RuntimeError(
-            "fm_scores_fwd launch failed: "
-            + lib.fm_kernels_error_string(err).decode()
-        )
-    fm_scores_cuda.launches += 1
+    _raise_on(err, lib, entry)
+    if bf16:
+        fm_scores_cuda.launches_bf16 += 1
+    else:
+        fm_scores_cuda.launches += 1
     return scores, s1
 
 
 fm_scores_cuda.launches = 0
+fm_scores_cuda.launches_bf16 = 0
 
 
 def fm_grad_plain(rows: torch.Tensor, vals: torch.Tensor, s1: torch.Tensor,
                   dscores: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch FmGrad backward (any device), written from
     ``fast_tffm_tpu/ops/interaction.py::_grads_jnp``: ``drows [B, F, D]``
-    with ``dw = g·x`` and ``dv_k = g·x·(s1_k − v_k·x)``."""
+    with ``dw = g·x`` and ``dv_k = g·x·(s1_k − v_k·x)``, computed in f32
+    and returned in the rows' type."""
+    in_dtype = rows.dtype
     rows = rows.float()
     vals = vals.float()
     gx = (dscores[:, None] * vals)[..., None]  # [B, F, 1]
     dv = gx * (s1[:, None, :] - rows[..., 1:] * vals[..., None])
-    return torch.cat([gx, dv], dim=-1)
+    return torch.cat([gx, dv], dim=-1).to(in_dtype)
 
 
 def _check_grad(rows, vals, s1, dscores) -> None:
@@ -138,10 +156,11 @@ def _check_grad(rows, vals, s1, dscores) -> None:
 
 def fm_grad_cuda(rows: torch.Tensor, vals: torch.Tensor, s1: torch.Tensor,
                  dscores: torch.Tensor) -> torch.Tensor:
-    """FmGrad backward through the CUDA kernel in ``csrc/fm_grad.cu``
-    (replaces ``fast_tffm_tpu/ops/fm_pallas.py::_bwd_kernel``), on the
-    current stream; CPU tensors take :func:`fm_grad_plain`.
-    ``fm_grad_cuda.launches`` counts kernel launches."""
+    """FmGrad backward through the CUDA kernel of the inputs' type in
+    ``csrc/fm_grad.cu`` (replaces ``fast_tffm_tpu/ops/fm_pallas.py::
+    _bwd_kernel``), on the current stream; CPU tensors take
+    :func:`fm_grad_plain`.  ``fm_grad_cuda.launches`` and
+    ``fm_grad_cuda.launches_bf16`` count each mode's kernel launches."""
     _check_grad(rows, vals, s1, dscores)
     if rows.device.type == "cpu":
         return fm_grad_plain(rows, vals, s1, dscores)
@@ -149,20 +168,22 @@ def fm_grad_cuda(rows: torch.Tensor, vals: torch.Tensor, s1: torch.Tensor,
     drows = torch.empty_like(rows)
     if drows.numel() == 0:
         return drows
+    bf16 = rows.dtype == torch.bfloat16
+    entry = "fm_grad_bwd_bf16" if bf16 else "fm_grad_bwd"
     lib = _build.load()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.fm_grad_bwd(
+        err = getattr(lib, entry)(
             rows.data_ptr(), vals.data_ptr(), s1.data_ptr(),
             dscores.data_ptr(), drows.data_ptr(), b, f, d, stream,
         )
-    if err:
-        raise RuntimeError(
-            "fm_grad_bwd launch failed: "
-            + lib.fm_kernels_error_string(err).decode()
-        )
-    fm_grad_cuda.launches += 1
+    _raise_on(err, lib, entry)
+    if bf16:
+        fm_grad_cuda.launches_bf16 += 1
+    else:
+        fm_grad_cuda.launches += 1
     return drows
 
 
 fm_grad_cuda.launches = 0
+fm_grad_cuda.launches_bf16 = 0

@@ -28,7 +28,9 @@ def forward(rows: torch.Tensor, vals: torch.Tensor):
 class FmInteraction(torch.autograd.Function):
     """Scores ``[B]`` (without w0), differentiable with respect to
     ``rows`` only: feature values are data.  The forward saves
-    ``(rows, vals, s1)``; the backward is the closed-form FmGrad."""
+    ``(rows, vals, s1)``; the backward is the closed-form FmGrad, whose
+    ``drows`` has the rows' type (bf16 in the bf16-input mode, as the
+    reference's cotangent matches its primal)."""
 
     @staticmethod
     def forward(ctx, rows, vals, plain=False):
@@ -49,7 +51,10 @@ class FmInteraction(torch.autograd.Function):
 
 def fm_interaction(rows: torch.Tensor, vals: torch.Tensor,
                    plain: bool = False) -> torch.Tensor:
-    """Per-example FM scores (without w0) from gathered rows
-    ``[B, F, D]`` and values ``[B, F]``, through :class:`FmInteraction`."""
-    return FmInteraction.apply(rows.contiguous(), vals.float().contiguous(),
-                               plain)
+    """Per-example f32 FM scores (without w0) from gathered rows
+    ``[B, F, D]`` and values ``[B, F]``, through :class:`FmInteraction`.
+    The values take the rows' type: float32 rows run the kernels' f32
+    mode, bfloat16 rows (``compute_dtype = bfloat16``) their bf16-input
+    mode."""
+    return FmInteraction.apply(rows.contiguous(),
+                               vals.to(rows.dtype).contiguous(), plain)

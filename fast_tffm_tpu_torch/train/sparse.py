@@ -9,7 +9,9 @@ Per step the optimizer touches only the rows the batch gathered:
    table gradient every step, which is what this path exists to avoid;
 2. the FM interaction's backward is the closed-form FmGrad
    (``ops.interaction.FmInteraction``), giving per-occurrence row
-   gradients ``[B, F, D]``;
+   gradients ``[B, F, D]``; with ``compute_dtype = bfloat16`` the
+   interaction runs the kernels' bf16-input mode on rows and values
+   rounded to bf16, and its bf16 gradient is widened back to f32;
 3. ``ops.sparse_apply.apply`` sorts (or takes the pipeline's host sort
    meta), K1 sums the occurrences per unique row, and K2 applies Adagrad,
    FTRL or SGD in place at those rows.  ``w0`` is updated as a dense
@@ -125,9 +127,15 @@ def to_device(batch: Batch, device) -> Batch:
 
 def rows_loss(cfg: FmConfig, w0: torch.Tensor, rows: torch.Tensor,
               batch: Batch, plain: bool = False):
-    """``(loss, scores)`` over gathered rows: the weighted data loss plus
-    the batch L2 (``fast_tffm_tpu/train/sparse.py::_rows_loss_fn``)."""
-    scores = w0 + interaction.fm_interaction(rows, batch.vals, plain)
+    """``(loss, scores)`` over gathered f32 rows: the weighted data loss
+    plus the batch L2 (``fast_tffm_tpu/train/sparse.py::_rows_loss_fn``).
+    With ``compute_dtype = bfloat16`` the interaction sees the rows and
+    values rounded to bf16; the casts are inside autograd, so the bf16
+    row gradient comes back f32 through the cast's backward, and the
+    batch L2 sees the f32 rows.  Scores and loss are f32 either way."""
+    cd = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    # fm_interaction gives the values the rows' type.
+    scores = w0 + interaction.fm_interaction(rows.to(cd), batch.vals, plain)
     per_ex = fm.example_losses(scores, batch.labels, cfg.loss_type)
     wsum = torch.clamp(torch.sum(batch.weights), min=1e-12)
     loss = torch.sum(per_ex * batch.weights) / wsum

@@ -11,6 +11,7 @@ version (tests/test_torch_gpu.py).
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -82,3 +83,119 @@ def test_cpu_dispatch_takes_plain_version_without_counting():
     np.testing.assert_array_equal(got_s.numpy(), want_s)
     np.testing.assert_array_equal(got_s1.numpy(), want_s1)
     assert fm_kernels.fm_scores_cuda.launches == before
+
+
+# -- bf16-input mode ------------------------------------------------------
+#
+# The reference's bf16 tolerances (tests/test_bf16.py:71, :85): scores
+# rtol=2e-3, atol=1e-4 (f32 accumulation of bf16 operands in two
+# summation orders); drows rtol=0.05, atol=0.02 (bf16 outputs, whose
+# f32 inputs s1 and dscores differ in their last bits).
+BF16_SCORE_TOL = dict(rtol=2e-3, atol=1e-4)
+BF16_GRAD_TOL = dict(rtol=0.05, atol=0.02)
+
+
+def _bf16_exact(a):
+    """``a`` rounded to bf16 (nearest even), as float32: the same values
+    reach both packages exactly."""
+    return np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _bf16_ulps(a, b):
+    """Distance in bf16 steps between float32 arrays of bf16 values."""
+    def ordered(x):
+        bits = (x.view(np.int32) >> 16).astype(np.int64)
+        return np.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return np.abs(ordered(a) - ordered(b))
+
+
+def _bf16_problem(b, f=13, k=8, seed=3):
+    rows, vals = _problem(b, f, k, seed)
+    g = np.random.default_rng(seed).normal(size=b).astype(np.float32)
+    return _bf16_exact(rows * 0.3), _bf16_exact(vals), g
+
+
+def _port_fwd_bwd(rows, vals, g):
+    """The port's plain bf16 forward and backward: scores and drows as
+    float32 numpy (drows' values are bf16)."""
+    r = torch.from_numpy(rows).to(torch.bfloat16).requires_grad_()
+    v = torch.from_numpy(vals).to(torch.bfloat16)
+    scores = interaction.fm_interaction(r, v, plain=True)
+    (drows,) = torch.autograd.grad(scores, r, torch.from_numpy(g))
+    assert scores.dtype == torch.float32 and drows.dtype == torch.bfloat16
+    return scores.detach().numpy(), drows.float().numpy()
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("b", [37, 128])
+def test_bf16_fwd_bwd_match_the_reference(b, use_pallas):
+    """The port's plain bf16 interaction against the reference's
+    ``fm_interaction`` on the same bf16 inputs, the Pallas kernels in
+    interpret mode (``use_pallas=True``) and the jnp oracle."""
+    rows, vals, g = _bf16_problem(b)
+    r = jnp.asarray(rows).astype(jnp.bfloat16)
+    v = jnp.asarray(vals).astype(jnp.bfloat16)
+    want_s, vjp = jax.vjp(
+        lambda x: jax_interaction.fm_interaction(x, v, use_pallas), r)
+    (want_d,) = vjp(jnp.asarray(g))
+    assert want_s.dtype == jnp.float32 and want_d.dtype == jnp.bfloat16
+    want_d = np.asarray(want_d.astype(jnp.float32))
+    got_s, got_d = _port_fwd_bwd(rows, vals, g)
+    np.testing.assert_allclose(got_s, np.asarray(want_s), **BF16_SCORE_TOL)
+    np.testing.assert_allclose(got_d, want_d, **BF16_GRAD_TOL)
+    # How far the two drows are apart in bf16 steps: the closed form is
+    # the same, so only a product or difference that s1's last f32 bits
+    # carry across a bf16 rounding boundary differs, by one step.
+    ulps = _bf16_ulps(got_d, want_d)
+    assert ulps.max() <= 1, (int((ulps > 0).sum()), int(ulps.max()))
+    assert (ulps > 0).mean() < 0.01, int((ulps > 0).sum())
+
+
+def test_bf16_plain_versions_compute_in_f32_and_round_once():
+    """bf16 inputs: the forward equals the f32 forward of the widened
+    inputs, and the backward is the f32 backward rounded once to bf16
+    (nearest even), the contract the bf16 kernels are held to bitwise."""
+    rows, vals, g = _bf16_problem(16)
+    r32, v32 = torch.from_numpy(rows), torch.from_numpy(vals)
+    r16, v16 = r32.to(torch.bfloat16), v32.to(torch.bfloat16)
+    for got, want in zip(fm_kernels.fm_scores_plain(r16, v16),
+                         fm_kernels.fm_scores_plain(r32, v32)):
+        assert got.dtype == torch.float32
+        assert torch.equal(got, want)
+    _, s1 = fm_kernels.fm_scores_plain(r32, v32)
+    gt = torch.from_numpy(g)
+    got = fm_kernels.fm_grad_plain(r16, v16, s1, gt)
+    assert got.dtype == torch.bfloat16
+    want = fm_kernels.fm_grad_plain(r32, v32, s1, gt).to(torch.bfloat16)
+    assert torch.equal(got, want)
+
+
+def test_bf16_cpu_dispatch_takes_plain_version_without_counting():
+    rows, vals, g = _bf16_problem(8)
+    r = torch.from_numpy(rows).to(torch.bfloat16)
+    v = torch.from_numpy(vals).to(torch.bfloat16)
+    counts = (fm_kernels.fm_scores_cuda.launches_bf16,
+              fm_kernels.fm_grad_cuda.launches_bf16)
+    scores, s1 = fm_kernels.fm_scores_cuda(r, v)
+    want_s, want_s1 = fm_kernels.fm_scores_plain(r, v)
+    assert torch.equal(scores, want_s) and torch.equal(s1, want_s1)
+    drows = fm_kernels.fm_grad_cuda(r, v, s1, torch.from_numpy(g))
+    assert drows.dtype == torch.bfloat16
+    assert (fm_kernels.fm_scores_cuda.launches_bf16,
+            fm_kernels.fm_grad_cuda.launches_bf16) == counts
+
+
+@pytest.mark.parametrize("rows_dtype, vals_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float16, torch.float16), (torch.float64, torch.float64),
+])
+def test_wrappers_refuse_mixed_or_other_types(rows_dtype, vals_dtype):
+    rows, vals = _problem(4)
+    r = torch.from_numpy(rows).to(rows_dtype)
+    v = torch.from_numpy(vals).to(vals_dtype)
+    with pytest.raises(TypeError, match="both float32 or both bfloat16"):
+        fm_kernels.fm_scores_cuda(r, v)
+    s1 = torch.zeros((4, rows.shape[2] - 1))
+    with pytest.raises(TypeError, match="both float32 or both bfloat16"):
+        fm_kernels.fm_grad_cuda(r, v, s1, torch.zeros(4))

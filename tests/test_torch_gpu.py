@@ -1,5 +1,5 @@
-"""The port on the GPU: the CUDA kernels (FmScorer forward, FmGrad
-backward, K1 dedup and its merge mode, K2 apply, K-place, and the
+"""The port on the GPU: the CUDA kernels (FmScorer forward and FmGrad
+backward in their f32 and bf16-input modes, K1 dedup and its merge mode, K2 apply, K-place, and the
 table-layout probe's K2T and K2P) against their plain PyTorch versions,
 the scorer's and the sparse step's GPU paths against their CPU paths,
 and two ranks' collectives on one GPU.
@@ -20,7 +20,8 @@ with atomics in an order that changes from run to run, and on a hot id
 of thousands of occurrences its own error is the larger one.  The
 apply is held to the reference's
 tile-vs-scatter bounds (``rtol=1e-4, atol=1e-6`` table, ``atol=1e-4``
-optimizer tables).
+optimizer tables).  The bf16 FmGrad computes in f32 with the plain
+version's roundings and rounds once: it is held to it bitwise.
 """
 
 import numpy as np
@@ -129,6 +130,110 @@ def test_fm_grad_kernel_matches_plain(gpu, b, f, d):
     assert fm_kernels.fm_grad_cuda.launches == before + 1
     assert got.shape == (b, f, d)
     torch.testing.assert_close(got, want, **TOL)
+
+
+def _bf16_inputs(gpu, b, f, d):
+    rows, vals = _problem(b, f, d - 1)
+    return (torch.from_numpy(rows).to(gpu).to(torch.bfloat16),
+            torch.from_numpy(vals).to(gpu).to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, f, d", [
+    (1, 39, 9), (64, 39, 9), (1023, 39, 9), (4096, 39, 9), (5, 3, 41),
+    (7, 1, 257), (2, 2, 2), (6, 5, 1),
+])
+def test_bf16_fm_scores_kernel_matches_plain(gpu, b, f, d):
+    """The bf16-input FmScorer (B not a multiple of the block's four
+    warps, D = 1 with no factors) against its plain version: both widen
+    the same bf16 values and accumulate in f32."""
+    rows, vals = _bf16_inputs(gpu, b, f, d)
+    before = (fm_kernels.fm_scores_cuda.launches,
+              fm_kernels.fm_scores_cuda.launches_bf16)
+    got_s, got_s1 = fm_kernels.fm_scores_cuda(rows, vals)
+    want_s, want_s1 = fm_kernels.fm_scores_plain(rows, vals)
+    torch.cuda.synchronize()
+    assert (fm_kernels.fm_scores_cuda.launches,
+            fm_kernels.fm_scores_cuda.launches_bf16) == (before[0],
+                                                         before[1] + 1)
+    assert got_s.dtype == got_s1.dtype == torch.float32
+    assert got_s.shape == (b,) and got_s1.shape == (b, d - 1)
+    torch.testing.assert_close(got_s, want_s, **TOL)
+    torch.testing.assert_close(got_s1, want_s1, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, f, d", [
+    (1, 39, 9), (1000, 39, 9), (4096, 39, 9), (5, 3, 41), (3, 2, 1),
+])
+def test_bf16_fm_grad_kernel_matches_plain_bitwise(gpu, b, f, d):
+    """The bf16 FmGrad computes in f32 with the plain version's
+    roundings and rounds once to bf16: equal bit for bit."""
+    rows, vals = _bf16_inputs(gpu, b, f, d)
+    _, s1 = fm_kernels.fm_scores_plain(rows, vals)
+    g = torch.randn((b,), generator=torch.Generator(device=gpu)
+                    .manual_seed(b), device=gpu)
+    before = (fm_kernels.fm_grad_cuda.launches,
+              fm_kernels.fm_grad_cuda.launches_bf16)
+    got = fm_kernels.fm_grad_cuda(rows, vals, s1, g)
+    want = fm_kernels.fm_grad_plain(rows, vals, s1, g)
+    torch.cuda.synchronize()
+    assert (fm_kernels.fm_grad_cuda.launches,
+            fm_kernels.fm_grad_cuda.launches_bf16) == (before[0],
+                                                       before[1] + 1)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_refuse_mixed_types(gpu):
+    rows, vals = _bf16_inputs(gpu, 4, 3, 5)
+    s1 = torch.zeros((4, 4), device=gpu)
+    g = torch.zeros((4,), device=gpu)
+    for r, v in ((rows, vals.float()), (rows.float(), vals)):
+        with pytest.raises(TypeError, match="both float32 or both"):
+            fm_kernels.fm_scores_cuda(r, v)
+        with pytest.raises(TypeError, match="both float32 or both"):
+            fm_kernels.fm_grad_cuda(r, v, s1, g)
+    with pytest.raises(TypeError, match="float32 s1"):
+        fm_kernels.fm_grad_cuda(rows, vals, s1.bfloat16(), g)
+
+
+@pytest.mark.gpu
+def test_bf16_sparse_step_matches_the_plain_step(gpu):
+    """One ``compute_dtype = bfloat16`` step through the kernels (bf16
+    FmScorer and FmGrad, K1, K2) against the same step through their
+    plain versions on the card."""
+    vocab, b, f = 4096, 256, 39
+    cfg = FmConfig(vocabulary_size=vocab, factor_num=8, max_features=f,
+                   batch_size=b, learning_rate=0.05, factor_lambda=1e-3,
+                   bias_lambda=1e-3, compute_dtype="bfloat16")
+    rng = np.random.default_rng(12)
+    table = rng.uniform(-0.05, 0.05, (vocab, 9)).astype(np.float32)
+    ids = rng.integers(0, vocab, (b, f)).astype(np.int32)
+    batch = sparse.to_device(Batch(
+        rng.integers(0, 2, b).astype(np.float32), ids,
+        rng.uniform(0, 1, (b, f)).astype(np.float32),
+        np.zeros((b, f), np.int32), np.ones(b, np.float32),
+        host_sort_meta(ids)), gpu)
+    out = {}
+    before = (fm_kernels.fm_scores_cuda.launches_bf16,
+              fm_kernels.fm_grad_cuda.launches_bf16)
+    for plain in (False, True):
+        model = weights.from_jax(0.0, table, device=gpu)
+        opt = sparse.init_sparse_opt_state(cfg, model)
+        scores = sparse.sparse_step(cfg, model, opt, batch, plain=plain)
+        out[plain] = (scores, model, opt)
+    torch.cuda.synchronize()
+    assert (fm_kernels.fm_scores_cuda.launches_bf16,
+            fm_kernels.fm_grad_cuda.launches_bf16) == (before[0] + 1,
+                                                       before[1] + 1)
+    (s_k, m_k, o_k), (s_p, m_p, o_p) = out[False], out[True]
+    torch.testing.assert_close(s_k, s_p, **TOL)
+    assert m_k.table.dtype == torch.float32
+    torch.testing.assert_close(m_k.table, m_p.table, **TABLE_TOL)
+    torch.testing.assert_close(m_k.w0, m_p.w0, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(o_k.acc_table, o_p.acc_table, **OPT_TOL)
 
 
 def _sparse_problem(gpu, n, d, hot, seed=0, vocab=4096):

@@ -468,11 +468,18 @@ def test_strided_rounds_matches_the_reference(n_items, shards):
 
 
 def test_sharded_pipelines_deal_out_the_global_batches(tmp_path):
+    """On the line stream (``fast_ingest = false``), whose order does not
+    depend on the batch size, the data blocks' local batches glue into
+    the single pipeline's global ones.  The raw-window stream cuts its
+    windows at whole local batches, as the reference's does, so there a
+    mesh's global batches are not a single device's
+    (tests/test_torch_pipeline.py holds each block's batches to the
+    reference's)."""
     files = _write_files(tmp_path, n_lines=200)
     cfg = FmConfig(vocabulary_size=256, batch_size=32, max_features=8,
-                   shuffle_buffer=64, seed=3)
+                   shuffle_buffer=64, seed=3, fast_ingest=False)
     local = FmConfig(vocabulary_size=256, batch_size=16, max_features=8,
-                     shuffle_buffer=64, seed=3)
+                     shuffle_buffer=64, seed=3, fast_ingest=False)
     with BatchPipeline(files, cfg, epochs=2) as p:
         whole = list(p)
     parts = []

@@ -29,6 +29,7 @@ from fast_tffm_tpu_torch import cli, weights
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data import libsvm
 from fast_tffm_tpu_torch.data.pipeline import BatchPipeline
+from fast_tffm_tpu_torch.models import fm
 from fast_tffm_tpu_torch.serve.scorer import make_scorer
 from fast_tffm_tpu_torch.train import checkpoint, metrics, sparse
 from fast_tffm_tpu_torch.train.loop import Trainer
@@ -76,8 +77,21 @@ def _opt_arrays(optimizer, opt):
     ("sgd", "scatter"),
 ])
 def test_three_sparse_steps_match_jax(optimizer, mode):
-    jcfg = JaxFmConfig(optimizer=optimizer, sparse_apply=mode, **BASE)
-    cfg = FmConfig(optimizer=optimizer, **BASE)
+    _three_steps_match_jax(optimizer, mode, "float32")
+
+
+@pytest.mark.parametrize("optimizer", ["adagrad", "ftrl"])
+def test_three_bf16_sparse_steps_match_jax(optimizer):
+    """``compute_dtype = bfloat16``: the port's step (its plain bf16
+    interaction on the CPU) against the reference's, whose Pallas
+    kernels run in interpret mode, within the tile-vs-scatter bounds."""
+    _three_steps_match_jax(optimizer, "scatter", "bfloat16")
+
+
+def _three_steps_match_jax(optimizer, mode, dtype):
+    jcfg = JaxFmConfig(optimizer=optimizer, sparse_apply=mode,
+                       compute_dtype=dtype, **BASE)
+    cfg = FmConfig(optimizer=optimizer, compute_dtype=dtype, **BASE)
     params = jax_fm.init_params(jax.random.PRNGKey(0), jcfg)
     opt = jax_sparse.init_sparse_opt_state(jcfg, params)
     model = weights.from_jax(np.asarray(params.w0), np.asarray(params.table),
@@ -207,13 +221,45 @@ def test_checkpoint_keeps_optimizer_state(tmp_path):
     (dict(sparse_update=False), "item 7"),
     (dict(optimizer="adam"), "item 7"),
     (dict(field_num=2), "item 2"),
-    (dict(compute_dtype="bfloat16"), "item 7"),
+    (dict(mesh_data=2, compute_dtype="bfloat16"), "item 3"),
     (dict(table_tiering="on"), "item 2"),
     (dict(mesh_data=2, sparse_exchange_overlap="on"), "item 3"),
 ])
 def test_trainer_refuses_unported_settings(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Trainer(FmConfig(vocabulary_size=V, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("optimizer", ["adagrad", "ftrl"])
+def test_bf16_loss_tracks_f32(optimizer):
+    """20 steps of bf16-compute training end within 1e-2 logloss of the
+    same steps in f32 (the reference's ``tests/test_bf16.py::
+    TestTrainingParity``), from one initial table."""
+    shape = dict(vocabulary_size=2048, factor_num=8, max_features=16,
+                 batch_size=256, learning_rate=0.05)
+    init = fm.init_params(FmConfig(**shape),
+                          torch.Generator().manual_seed(0), device="cpu")
+    last = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = FmConfig(optimizer=optimizer, compute_dtype=dtype, **shape)
+        model = fm.FmModel(init.w0.detach().clone(),
+                           init.table.detach().clone())
+        opt = sparse.init_sparse_opt_state(cfg, model)
+        rng = np.random.default_rng(7)
+        for _ in range(20):
+            b, f, v = 256, 16, 2048
+            batch = libsvm.Batch(
+                labels=(rng.random(b) < 0.4).astype(np.float32),
+                ids=rng.integers(0, v, size=(b, f)).astype(np.int32),
+                vals=rng.uniform(0.1, 1.0, size=(b, f)).astype(np.float32),
+                fields=np.zeros((b, f), np.int32),
+                weights=np.ones((b,), np.float32),
+            )
+            scores = sparse.sparse_step(cfg, model, opt,
+                                        sparse.to_device(batch, "cpu"))
+            last[dtype] = float(fm.example_losses(
+                scores, torch.from_numpy(batch.labels), "logistic").mean())
+    assert abs(last["bfloat16"] - last["float32"]) < 1e-2
 
 
 def _gen(path, n, rng, w, v, n_feat=10):
@@ -304,3 +350,41 @@ def test_cli_train_needs_a_gpu_unless_asked_for_the_cpu(tmp_path):
                         f"[Train]\ntrain_files = {tmp_path}/none\n")
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["train", str(cfg_path)])
+
+
+def test_cli_trains_in_bf16_validates_and_saves_f32(tmp_path, capsys):
+    """``compute_dtype = bfloat16`` through the CLI: training runs the
+    bf16 interaction, validation scores in f32, and ``params.npz`` keeps
+    f32 weights and optimizer state."""
+    rng = np.random.default_rng(3)
+    vocab = 200
+    w = rng.normal(0, 0.5, vocab)
+    v = rng.normal(0, 0.3, (vocab, 4))
+    _gen(tmp_path / "train.libsvm", 1200, rng, w, v)
+    _gen(tmp_path / "valid.libsvm", 300, rng, w, v)
+    cfg_path = tmp_path / "run.cfg"
+    cfg_path.write_text(f"""
+[General]
+vocabulary_size = {vocab}
+factor_num = 4
+model_file = {tmp_path}/model
+[Train]
+train_files = {tmp_path}/train.libsvm
+validation_files = {tmp_path}/valid.libsvm
+epoch_num = 3
+batch_size = 100
+learning_rate = 0.5
+adagrad.initial_accumulator = 0.01
+compute_dtype = bfloat16
+[Tpu]
+max_features = 12
+""")
+    assert cli.main(["train", str(cfg_path), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    val = [ln for ln in out.splitlines() if ln.startswith("validation")]
+    assert val, out
+    assert float(val[0].split("logloss=")[1].split()[0]) < 0.693, out
+    with np.load(checkpoint.params_path(str(tmp_path / "model"))) as z:
+        assert int(z["scalar/step"]) == 36
+        for key in ("params/table", "scalar/w0", "opt/acc_table"):
+            assert z[key].dtype == np.float32, key
