@@ -28,7 +28,8 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    entry streams (both exact: ``max_abs_err`` 0) — then kernel, plain
    and library call timed in CUDA graphs at the main paths' shapes (the
    bf16 modes at the training batch, with the bf16 step's three casts),
-   and K1 at its hot and probe streams too.
+   and K1 at its hot and probe streams too; beside them the launch floor,
+   a one-element in-place PyTorch op timed the same way.
 5. Train phase (main path 1): ``Trainer(cfg).train()`` on
    ``examples/criteo_kaggle.cfg`` at full width (V = 2^22, F = 39,
    D = 9, B = 4096, Adagrad, batch L2, host sort meta), 16 steps, then
@@ -326,6 +327,20 @@ def k2_bound_ms(u: int, d: int):
     accumulator read and written at the U touched rows.  Per element:
     two adds, a reciprocal square root, two products, a subtraction."""
     return bound(4 * (u + 2 * d * u + 4 * d * u), 6 * u * d)
+
+
+def k2_sector_ms(u: int, d: int, size: int = 32) -> float:
+    """K2 Adagrad counted in ``size``-byte units of device memory, at HBM
+    bandwidth: each row of the table and of the accumulator read and
+    written whole units at a time, the entry stream (urows, sums) as it
+    is.  A row of ``d`` floats starts at one of the ``size / 4`` 4-byte
+    offsets of a unit (in turn, for odd ``d``) and spans ``ceil((offset +
+    4d) / size)`` units: at d = 9 two 32-byte sectors at every offset
+    (64 bytes for 36), and 1.5 64-byte units on average."""
+    units = sum(-(-(o + 4 * d) // size) for o in range(0, size, 4)) / (
+        size // 4)
+    nbytes = 4 * size * units * u + 4 * (u + 2 * d * u)
+    return nbytes / PEAK_BYTES_PER_S * 1e3
 
 
 # -- synthetic data ----------------------------------------------------
@@ -768,6 +783,8 @@ def probe_phase(torch, card: str, gen, table0, hot_ids, hyper, err: dict,
             del tabs
         entry["k2_graph_ms"].append(graph_ms(torch, k2))
         entry["bound_ms"], entry["bound_by"] = k2_bound_ms(urows.numel(), d)
+        entry["sector_ms"] = k2_sector_ms(urows.numel(), d)
+        entry["granule64_ms"] = k2_sector_ms(urows.numel(), d, 64)
         graphs[shape] = entry
         del k2_tabs
     probe = graphs["probe"]
@@ -1257,6 +1274,18 @@ def main() -> int:
             "bound_ms": fm_bound_ms(b, F, D)[0]}
         for b in cfg.serve_ladder
     }
+    # The launch floor: a one-element in-place op, timed as the kernels.
+    one = torch.zeros(1, device=dev)
+    floor_ms = graph_ms(torch, lambda: one.add_(1.0))
+    timing["launch_floor_ms"] = floor_ms
+    print("kernel ms vs launch floor (" + card + "): " + json.dumps({
+        "launch_floor_ms": floor_ms,
+        **{name: timing[name]["ms"] for name in cases},
+        "fm_scores_per_rung": {b: r["graph_ms"] for b, r in
+                               timing["fm_scores"]["per_rung"].items()},
+        "fm_scores_train_batch": timing["fm_scores"]["train_batch"][
+            "graph_ms"],
+    }), flush=True)
     del table_k, acc_k, lib_merge
     print(json.dumps({"kernel_timing": {
         "card": card, "serve_B": b_serve, "train_B": B, "occurrences": n,

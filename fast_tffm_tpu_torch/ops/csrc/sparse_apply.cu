@@ -47,12 +47,31 @@
 // length belongs to one thread or one warp and nothing carries between
 // blocks.
 //
-// K2 (k2_apply): one thread per (unique row, column) updates the table
-// and its optimizer tables in place at that row only (Adagrad through
-// adagrad.cuh, which the layout probe's kernels share).  Rows are unique,
-// so no two threads write one address.  The TPU kernel's full-table tile
-// sweep and its compact group remap have no counterpart: they exist
-// because TPU scatters serialize.
+// K2 (k2_apply): a group of kK2Lanes = 16 lanes per unique row updates
+// the table and its optimizer tables in place at that row only (Adagrad
+// through adagrad.cuh, which the layout probe's kernels share).  Rows are
+// unique, so no two lanes write one address.  What bounds it is not the
+// byte count (23.3 MB at a training batch, U = 105,739, D = 9: 6.9 us at
+// full HBM bandwidth) but the granules its rows fall in.  A 36-byte row
+// at a 4-byte offset spans two 32-byte sectors (27 MB with the sums at
+// that batch, 10.5 us at 3.35 TB/s), and half of the rows straddle a
+// 64-byte boundary of device memory, which moves 64 bytes at a time:
+// 1.5 of those a row in each table each way.  The probe's packed layout
+// (K2P, rows at a 64-byte stride, csrc/layout_probe.cu) takes 1.5x less
+// time on the same stream with the same arithmetic: the [V, D] layout,
+// not the thread mapping, sets K2's time (PERF.md).  The design removes
+// what the mapping did cost: a group's lane 0 loads the row's id once
+// and shuffles it to the group; the group's lanes take neighbouring
+// columns, so each load and store touches only the row's own sectors;
+// a lane issues every load of its element (its sums, the table, the
+// optimizer state) before the element's arithmetic, and up to D = 16 a
+// lane holds one element, so a row's loads are in flight together; the
+// thread-to-row mapping multiplies and shifts only, with no division,
+// 64-bit or otherwise.
+// A thread per row (its sums staged through shared memory), 8 lanes a
+// row and two rows a group of 16 lanes measured no faster (PERF.md).
+// The TPU kernel's full-table tile sweep and its compact group remap
+// have no counterpart: they exist because TPU scatters serialize.
 //
 // K-place (kplace): the deduped entry stream (urows [U] ascending, as K1
 // emits them; sums [U, W]) expanded into a dense per-shard delta
@@ -92,6 +111,9 @@ constexpr int kSegs = 128;
 constexpr int kShort = 16;
 constexpr int kUnroll = 4;
 constexpr int kStageFloats = 48 * 1024 / 4;
+// K2: threads per block, and lanes per row (columns of a row per pass).
+constexpr int kK2Threads = 128;
+constexpr int kK2Lanes = 16;
 
 constexpr int kSgd = 0;
 constexpr int kAdagrad = 1;
@@ -232,42 +254,64 @@ __global__ void __launch_bounds__(kSegs)
   }
 }
 
+// The optimizer's formula at one element, on values in registers: the
+// table's w, the optimizer state a (Adagrad's accumulator, FTRL's z) and
+// b (FTRL's n), from the row's sums g1 = sum g and g2 = sum g^2.
+// p1 = eps (Adagrad); p1 = l1, p2 = l2, p3 = beta (FTRL).
 template <int kOpt>
-__global__ void k2_apply_kernel(const int* __restrict__ urows,
-                                const float* __restrict__ sums,
-                                float* __restrict__ table,
-                                float* __restrict__ state1,
-                                float* __restrict__ state2, int64_t total,
-                                int D, float lr, float p1, float p2,
-                                float p3) {
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int64_t u = idx / D;
-  const int c = static_cast<int>(idx - u * D);
-  const float g1 = sums[u * 2 * D + c];
-  const float g2 = sums[u * 2 * D + D + c];
-  const int64_t pos = static_cast<int64_t>(urows[u]) * D + c;
-  const float w = table[pos];
+__device__ __forceinline__ void k2_update(float g1, float g2, float lr,
+                                          float p1, float p2, float p3,
+                                          float& w, float& a, float& b) {
   if (kOpt == kSgd) {
-    table[pos] = __fsub_rn(w, __fmul_rn(lr, g1));
+    w = __fsub_rn(w, __fmul_rn(lr, g1));
   } else if (kOpt == kAdagrad) {
-    // p1 = eps.  acc += sum g^2; w -= lr * sum g * rsqrt(acc + eps).
-    adagrad_at(table, state1, pos, g1, g2, lr, p1);
+    adagrad_step(w, a, g1, g2, lr, p1);
   } else {
-    // FTRL-proximal, p1 = l1, p2 = l2, p3 = beta; state1 = z, state2 = n.
-    const float n_old = state2[pos];
-    const float n_new = __fadd_rn(n_old, g2);
-    const float sigma = __fdiv_rn(__fsub_rn(sqrtf(n_new), sqrtf(n_old)), lr);
-    const float z =
-        __fsub_rn(__fadd_rn(state1[pos], g1), __fmul_rn(sigma, w));
-    state1[pos] = z;
-    state2[pos] = n_new;
-    const float denom = __fadd_rn(__fdiv_rn(__fadd_rn(p3, sqrtf(n_new)), lr), p2);
+    // FTRL-proximal: n += sum g^2; z += sum g - sigma * w; w from (z, n).
+    const float n_new = __fadd_rn(b, g2);
+    const float sigma = __fdiv_rn(__fsub_rn(sqrtf(n_new), sqrtf(b)), lr);
+    const float z = __fsub_rn(__fadd_rn(a, g1), __fmul_rn(sigma, w));
+    a = z;
+    b = n_new;
+    const float denom =
+        __fadd_rn(__fdiv_rn(__fadd_rn(p3, sqrtf(n_new)), lr), p2);
     const float sign = z > 0.0f ? 1.0f : (z < 0.0f ? -1.0f : 0.0f);
-    table[pos] = fabsf(z) <= p1
-                     ? 0.0f
-                     : __fdiv_rn(-__fsub_rn(z, __fmul_rn(sign, p1)), denom);
+    w = fabsf(z) <= p1 ? 0.0f
+                       : __fdiv_rn(-__fsub_rn(z, __fmul_rn(sign, p1)), denom);
+  }
+}
+
+// K2: kK2Lanes lanes per unique row.  Row u of the stream goes to group
+// u of the grid, so neighbouring groups take neighbouring rows (coalesced
+// id and sums loads).  Lane l takes columns l, l + kK2Lanes, ...
+template <int kOpt>
+__global__ void __launch_bounds__(kK2Threads)
+    k2_kernel(const int* __restrict__ urows, const float* __restrict__ sums,
+              float* __restrict__ table, float* __restrict__ state1,
+              float* __restrict__ state2, int U, int D, float lr, float p1,
+              float p2, float p3) {
+  constexpr int kGroups = kK2Threads / kK2Lanes;
+  const int lane = threadIdx.x % kK2Lanes;
+  const int64_t u =
+      static_cast<int64_t>(blockIdx.x) * kGroups + threadIdx.x / kK2Lanes;
+  // The row's id, loaded once by the group's lane 0.  Every lane of the
+  // warp reaches the shuffle.
+  int id = (lane == 0 && u < U) ? urows[u] : 0;
+  id = __shfl_sync(0xffffffffu, id, 0, kK2Lanes);
+  if (u >= U) return;
+  const int64_t pos0 = static_cast<int64_t>(id) * D;
+  const float* s = sums + u * 2 * D;
+  for (int c = lane; c < D; c += kK2Lanes) {
+    // Every load of the element first, then its arithmetic and stores.
+    const float g1 = s[c];
+    const float g2 = s[D + c];
+    float w = table[pos0 + c];
+    float a = kOpt != kSgd ? state1[pos0 + c] : 0.0f;
+    float b = kOpt == kFtrl ? state2[pos0 + c] : 0.0f;
+    k2_update<kOpt>(g1, g2, lr, p1, p2, p3, w, a, b);
+    table[pos0 + c] = w;
+    if (kOpt != kSgd) state1[pos0 + c] = a;
+    if (kOpt == kFtrl) state2[pos0 + c] = b;
   }
 }
 
@@ -370,10 +414,9 @@ extern "C" int k2_apply(int opt, const void* urows, const void* sums,
                         float lr, float p1, float p2, float p3,
                         void* stream) {
   if (U <= 0 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = static_cast<int64_t>(U) * D;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const auto grid = static_cast<unsigned>(blocks);
+  constexpr int kRowsPerBlock = kK2Threads / kK2Lanes;
+  const auto grid = static_cast<unsigned>(
+      (static_cast<int64_t>(U) + kRowsPerBlock - 1) / kRowsPerBlock);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* r = static_cast<const int*>(urows);
   const auto* s = static_cast<const float*>(sums);
@@ -381,14 +424,14 @@ extern "C" int k2_apply(int opt, const void* urows, const void* sums,
   auto* a = static_cast<float*>(state1);
   auto* b = static_cast<float*>(state2);
   if (opt == kSgd) {
-    k2_apply_kernel<kSgd><<<grid, kThreads, 0, st>>>(r, s, t, a, b, total, D,
-                                                      lr, p1, p2, p3);
+    k2_kernel<kSgd><<<grid, kK2Threads, 0, st>>>(r, s, t, a, b, U, D, lr, p1,
+                                                 p2, p3);
   } else if (opt == kAdagrad) {
-    k2_apply_kernel<kAdagrad><<<grid, kThreads, 0, st>>>(
-        r, s, t, a, b, total, D, lr, p1, p2, p3);
+    k2_kernel<kAdagrad><<<grid, kK2Threads, 0, st>>>(r, s, t, a, b, U, D, lr,
+                                                     p1, p2, p3);
   } else if (opt == kFtrl) {
-    k2_apply_kernel<kFtrl><<<grid, kThreads, 0, st>>>(r, s, t, a, b, total, D,
-                                                       lr, p1, p2, p3);
+    k2_kernel<kFtrl><<<grid, kK2Threads, 0, st>>>(r, s, t, a, b, U, D, lr,
+                                                  p1, p2, p3);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

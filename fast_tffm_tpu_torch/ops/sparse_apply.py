@@ -339,8 +339,8 @@ def k2_apply_plain(optimizer: str, urows, sums, tables, hyper: Hyper) -> None:
 
 
 def k2_apply_cuda(optimizer: str, urows, sums, tables, hyper: Hyper) -> None:
-    """K2 through the CUDA kernel (one thread per touched row and
-    column, in place), on the current stream; CPU tensors take
+    """K2 through the CUDA kernel (a group of lanes per touched row, in
+    place), on the current stream; CPU tensors take
     :func:`k2_apply_plain`."""
     tables = tuple(tables)
     _check_k2(optimizer, urows, sums, tables)

@@ -63,6 +63,29 @@ def test_plain_matches_jnp_oracle(b):
     np.testing.assert_allclose(got_s1, np.asarray(want_s1), **TOL)
 
 
+@pytest.mark.parametrize("f", [1, 100])
+@pytest.mark.parametrize("d", [1, 2, 17, 33])
+def test_plain_matches_the_reference_at_the_kernels_widths(d, f):
+    """The plain version, which the card holds the CUDA kernel to, against
+    the reference at the widths where the kernel's lane mapping branches
+    (D = 1: no factor and 32 features a pass; D = 2; D = 17: one feature
+    a pass; D = 33: two column passes) and at F = 1 and 100:
+    ``fm_scores_pallas`` in interpret mode, and at D = 1, where the
+    Pallas call's zero-width ``s1`` block does not run in interpret mode,
+    the jnp path the reference takes without Pallas."""
+    rows, vals = _problem(5, f=f, k=d - 1)
+    if d == 1:
+        want_s, want_s1 = jax_interaction._scores_jnp(
+            jnp.asarray(rows), jnp.asarray(vals))
+    else:
+        want_s, want_s1 = fm_pallas.fm_scores_pallas(
+            jnp.asarray(rows), jnp.asarray(vals), interpret=True)
+    got_s, got_s1 = _plain(rows, vals)
+    assert got_s1.shape == (5, d - 1)
+    np.testing.assert_allclose(got_s, np.asarray(want_s), **TOL)
+    np.testing.assert_allclose(got_s1, np.asarray(want_s1), **TOL)
+
+
 def test_padded_slots_are_inert():
     """Slots with ``vals == 0`` contribute nothing, whatever their rows
     hold — the property the scorer's rung padding relies on."""
@@ -199,3 +222,24 @@ def test_wrappers_refuse_mixed_or_other_types(rows_dtype, vals_dtype):
     s1 = torch.zeros((4, rows.shape[2] - 1))
     with pytest.raises(TypeError, match="both float32 or both bfloat16"):
         fm_kernels.fm_grad_cuda(r, v, s1, torch.zeros(4))
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_fm_widths_inputs_and_cpu_refusal(mode):
+    """``tools/fm_widths`` times seeded inputs of the mode's type with each
+    example's tail of features padded (value 0), and refuses to run
+    without a CUDA device."""
+    from fast_tffm_tpu_torch.tools import fm_widths
+
+    dtype = fm_widths.MODES[mode]
+    rows, vals = fm_widths.inputs(64, 33, dtype, torch.device("cpu"))
+    again, _ = fm_widths.inputs(64, 33, dtype, torch.device("cpu"))
+    assert rows.shape == (64, fm_widths.F, 33) and vals.shape == (64, 39)
+    assert rows.dtype == vals.dtype == dtype
+    assert torch.equal(rows, again)
+    live = vals != 0
+    # Padding is a tail: no live feature after a padded one.
+    assert torch.equal(live, live.cummin(dim=1).values)
+    assert bool(live[:, 0].all())
+    if not torch.cuda.is_available():
+        assert fm_widths.main() == 1

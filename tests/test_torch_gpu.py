@@ -57,11 +57,19 @@ def _problem(b, f=39, k=8, seed=0):
     return rows, vals
 
 
+# The FmScorer's shapes: B = 1 and 3 (a warp's examples partly past the
+# batch), 64, 1024 and 4096; F = 1, 39 (two 32-feature batches) and 100;
+# D = 1 and 2 (eight lanes an example, most idle), 9 (four examples a
+# warp), 17 (two) and 33 (one, every lane a factor).
+FM_WIDTHS = [(b, f, d) for b in (1, 3, 64, 1024, 4096) for f in (1, 39, 100)
+             for d in (1, 2, 9, 17, 33)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b, f, k", [
     (1, 39, 8), (64, 39, 8), (1000, 39, 8), (1024, 39, 8), (4096, 39, 8),
     (5, 3, 40), (7, 1, 256), (2, 2, 1),
-])
+] + [(b, f, d - 1) for b, f, d in FM_WIDTHS if (f, d) != (39, 9)])
 def test_cuda_kernel_matches_plain(gpu, b, f, k):
     rows, vals = _problem(b, f, k)
     rows_d = torch.from_numpy(rows).to(gpu)
@@ -142,11 +150,13 @@ def _bf16_inputs(gpu, b, f, d):
 @pytest.mark.parametrize("b, f, d", [
     (1, 39, 9), (64, 39, 9), (1023, 39, 9), (4096, 39, 9), (5, 3, 41),
     (7, 1, 257), (2, 2, 2), (6, 5, 1),
-])
+] + [w for w in FM_WIDTHS if w not in ((1, 39, 9), (64, 39, 9),
+                                       (4096, 39, 9))])
 def test_bf16_fm_scores_kernel_matches_plain(gpu, b, f, d):
-    """The bf16-input FmScorer (B not a multiple of the block's four
-    warps, D = 1 with no factors) against its plain version: both widen
-    the same bf16 values and accumulate in f32."""
+    """The bf16-input FmScorer (B not a multiple of a warp's examples,
+    D = 1 with no factors, every width of ``FM_WIDTHS``) against its
+    plain version: both widen the same bf16 values and accumulate in
+    f32."""
     rows, vals = _bf16_inputs(gpu, b, f, d)
     before = (fm_kernels.fm_scores_cuda.launches,
               fm_kernels.fm_scores_cuda.launches_bf16)
@@ -160,6 +170,23 @@ def test_bf16_fm_scores_kernel_matches_plain(gpu, b, f, d):
     assert got_s.shape == (b,) and got_s1.shape == (b, d - 1)
     torch.testing.assert_close(got_s, want_s, **TOL)
     torch.testing.assert_close(got_s1, want_s1, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, f, d", [(64, 39, 9), (4096, 39, 9),
+                                     (3, 100, 33), (1024, 1, 1)])
+def test_fm_scores_kernel_is_deterministic(gpu, dtype, b, f, d):
+    """Two runs on the same inputs give bitwise-equal scores and ``s1``:
+    the order of summation is fixed."""
+    rows, vals = _problem(b, f, d - 1)
+    rows_d = torch.from_numpy(rows).to(gpu).to(dtype)
+    vals_d = torch.from_numpy(vals).to(gpu).to(dtype)
+    first = fm_kernels.fm_scores_cuda(rows_d, vals_d)
+    second = fm_kernels.fm_scores_cuda(rows_d, vals_d)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.gpu
@@ -280,21 +307,49 @@ def test_k1_kernel_matches_plain_and_is_deterministic(gpu, n, d, hot):
     assert torch.equal(sums, sums2) and torch.equal(urows, urows2)
 
 
+def _k2_stream(gpu, d, hot, vocab, n=20000, unique=3001, seed=0):
+    """K1's stream of ``n`` ids over ``unique`` distinct rows (odd, so not
+    a multiple of any block's rows), the table's last row among them, one
+    id of ``hot`` occurrences: ``(urows, sums, rng)`` on the card."""
+    rng = np.random.default_rng(seed + d)
+    rows = np.append(rng.choice(vocab - 1, unique - 1, replace=False),
+                     vocab - 1)
+    ids = np.concatenate([rows, rng.choice(rows, n - unique)])
+    ids[unique:unique + hot] = rows[7]
+    ids = rng.permutation(ids).astype(np.int32)
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    meta = host_sort_meta(ids)
+    put = lambda a: torch.from_numpy(a).to(gpu)  # noqa: E731
+    urows, sums = sparse_apply.k1_dedup_plain(put(g), put(ids),
+                                              put(meta.perm),
+                                              put(meta.seg_start))
+    assert urows.numel() == unique and int(urows[-1]) == vocab - 1
+    return urows, sums, rng
+
+
+K2_HYPER = sparse_apply.Hyper(lr=0.05, eps=1e-7, l1=0.01, l2=0.1, beta=1.0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("optimizer", ["adagrad", "ftrl", "sgd"])
-@pytest.mark.parametrize("d, hot", [(9, 5000), (41, 0), (2, 300)])
+@pytest.mark.parametrize("d, hot", [(9, 5000), (41, 0), (2, 300), (1, 20),
+                                    (16, 700), (17, 0)])
 def test_k2_kernel_matches_plain(gpu, optimizer, d, hot):
+    """K2 against its plain version at the reference's bounds, at D = 1
+    to 41 (one and several column passes), U not a multiple of a block's
+    rows, the table's last row and a hot id in the stream; untouched rows
+    stay as they were.  For Adagrad the layout probe's K2T and, at
+    D <= 16, K2P give K2's tables bitwise."""
     vocab = 4096
-    ids, g, perm, seg, rng = _sparse_problem(gpu, 20000, d, hot,
-                                             vocab=vocab)
-    urows, sums = sparse_apply.k1_dedup_plain(g, ids, perm, seg)
-    hyper = sparse_apply.Hyper(lr=0.05, eps=1e-7, l1=0.01, l2=0.1, beta=1.0)
+    urows, sums, rng = _k2_stream(gpu, d, hot, vocab)
+    hyper = K2_HYPER
     n_tables = {"sgd": 1, "adagrad": 2, "ftrl": 3}[optimizer]
     base = [rng.uniform(-0.1, 0.1, (vocab, d)).astype(np.float32)]
     base += [rng.uniform(0.1, 1.0, (vocab, d)).astype(np.float32)
              for _ in range(n_tables - 1)]
     kern = tuple(torch.from_numpy(t).to(gpu) for t in base)
     plain = tuple(t.clone() for t in kern)
+    start = tuple(t.clone() for t in kern)
     before = sparse_apply.k2_apply_cuda.launches
     sparse_apply.k2_apply_cuda(optimizer, urows, sums, kern, hyper)
     sparse_apply.k2_apply_plain(optimizer, urows, sums, plain, hyper)
@@ -309,6 +364,39 @@ def test_k2_kernel_matches_plain(gpu, optimizer, d, hot):
     for t, orig in zip(kern, base):
         assert torch.equal(t[untouched].cpu(),
                            torch.from_numpy(orig)[untouched.cpu()])
+    if optimizer != "adagrad":
+        return
+    layouts = ["k2t"] + (["k2p"] if d <= micro_probe.PACK_SLOTS else [])
+    for layout in layouts:
+        tabs, rows = _layout(layout, start[0], start[1], d)
+        tabs = tuple(t.clone() for t in tabs)
+        getattr(micro_probe, f"{layout}_entries")(urows, sums, *tabs,
+                                                  lr=hyper.lr, eps=hyper.eps)
+        torch.cuda.synchronize()
+        for got, want in zip(tabs, kern):
+            assert torch.equal(rows(got), want), layout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adagrad", "ftrl", "sgd"])
+def test_k2_kernel_is_deterministic(gpu, optimizer):
+    """Two K2 runs from equal tables on the same stream give bitwise-equal
+    tables."""
+    vocab, d = 1 << 16, 9
+    urows, sums, rng = _k2_stream(gpu, d, 5000, vocab, n=60000,
+                                  unique=30001)
+    n_tables = {"sgd": 1, "adagrad": 2, "ftrl": 3}[optimizer]
+    start = [torch.from_numpy(rng.uniform(0.1, 1.0, (vocab, d))
+                              .astype(np.float32)).to(gpu)
+             for _ in range(n_tables)]
+    runs = []
+    for _ in range(2):
+        tabs = tuple(t.clone() for t in start)
+        sparse_apply.k2_apply_cuda(optimizer, urows, sums, tabs, K2_HYPER)
+        runs.append(tabs)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

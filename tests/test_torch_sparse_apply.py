@@ -156,6 +156,52 @@ def test_sgd_matches_tile_kernel_and_scatter():
     np.testing.assert_allclose(got, np.asarray(want_ref), **TABLE_TOL)
 
 
+@pytest.mark.parametrize("optimizer", ["adagrad", "ftrl", "sgd"])
+@pytest.mark.parametrize("d", [1, 16, 17])
+def test_k2_plain_matches_tile_apply_at_the_kernels_widths(d, optimizer):
+    """K1's and K2's plain versions, which the card holds the kernels to,
+    against the reference's tile apply at the widths where K2's lane
+    mapping branches: D = 1, D = 16 (one column pass) and D = 17 (two);
+    one id of 300 occurrences and the table's last row among the ids."""
+    rng = np.random.default_rng(100 + d)
+    ids = rng.integers(0, V, 1024).astype(np.int32)
+    ids[:300] = 77
+    ids[300] = V - 1
+    g = rng.uniform(-1, 1, (1024, d)).astype(np.float32)
+    table = rng.uniform(-0.1, 0.1, (V, d)).astype(np.float32)
+    state = np.full((V, d), 0.1, np.float32)
+    j = lambda a: jnp.asarray(a)  # noqa: E731
+    if optimizer == "adagrad":
+        tables = (table, state)
+        want = jax_sa.adagrad_apply(j(table), j(state), j(ids), j(g), lr=LR,
+                                    eps=EPS)
+        hyper = sparse_apply.Hyper(lr=LR, eps=EPS)
+    elif optimizer == "ftrl":
+        z = rng.uniform(-1.0, 1.0, (V, d)).astype(np.float32)
+        table = np.asarray(jax_sa.ftrl_solve(
+            j(z), j(state), FTRL["lr"], FTRL["l1"], FTRL["l2"],
+            FTRL["beta"]))
+        tables = (table, z, state)
+        want = jax_sa.ftrl_apply(j(table), j(z), j(state), j(ids), j(g),
+                                 **FTRL)
+        hyper = sparse_apply.Hyper(**FTRL)
+    else:
+        tables = (table,)
+        want = (jax_sa.sgd_apply(j(table), j(ids), j(g), lr=0.1),)
+        hyper = sparse_apply.Hyper(lr=0.1)
+    meta = host_sort_meta(ids)
+    urows, sums = sparse_apply.k1_dedup_plain(
+        torch.from_numpy(g), torch.from_numpy(ids),
+        torch.from_numpy(meta.perm), torch.from_numpy(meta.seg_start))
+    got = tuple(torch.from_numpy(t.copy()) for t in tables)
+    sparse_apply.k2_apply_plain(optimizer, urows, sums, got, hyper)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               **TABLE_TOL)
+    for got_s, want_s in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                                   **ACC_TOL)
+
+
 @pytest.mark.parametrize("hot", [0, 700])
 def test_host_meta_equals_device_meta_bitwise(hot):
     ids, g = _ids_grads(6, 1200, hot)
