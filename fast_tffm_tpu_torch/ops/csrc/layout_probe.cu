@@ -13,12 +13,39 @@
 // neither read nor written, so it stays bitwise as it was (the TPU kernels
 // rewrite it with a zero update, which leaves it the same).
 //
-// K2T: table_t and acc_t [D, V]; element (c, r) at c * V + r.  One thread
-// per (c, u) with u the fastest index, so the threads of a warp take
-// neighbouring entries of one column c: they read neighbouring ascending
-// urows and touch one row of the transposed table, in ascending order.
-// Indexing (u, c) with c fastest, as K2 does, would put neighbouring
-// threads V floats apart.
+// K2T: table_t and acc_t [D, V]; element (c, r) at c * V + r.  A block
+// takes a tile of consecutive entries, one entry a thread (128, or fewer
+// where a wide row's stage would pass 48 KB, down to 32).  The stage of a
+// 32-entry tile, 32 * (2D + 1) * 4 bytes, fits the SM's 227 KB up to
+// D = 907 (kK2tMaxD); a wider D is refused (cudaErrorInvalidValue, and
+// micro_probe raises before it launches).
+//
+// - The tile's sums [tile, 2D] are contiguous: the block stages them in
+//   shared memory in one coalesced pass of 4-byte cp.async copies (lanes
+//   on neighbouring floats), rows padded to 2D + 1 floats so that the
+//   threads' reads of one column fall in distinct banks (at 2D = 18 an
+//   unpadded stride is a two-way conflict).  A 16-byte copy cannot land
+//   in padded rows; the padding costs the copy 4x the instructions and
+//   saves every read of the stage a conflict.  The stream is read once.
+// - Thread t loads its own id urows[tile0 + t] (coalesced: it needs no
+//   stage) and walks the D columns one at a time; its first column's
+//   table and accumulator loads go out before it waits for the stage, so
+//   the copy and that round trip overlap.  A warp's lanes take
+//   neighbouring ascending ids of one column per load, so they share
+//   sectors where the ids are that close.
+// - No division but one 32-bit one per thread for its place in the copy;
+//   64-bit arithmetic only for c * V + r.
+//
+// One column at a time keeps a thread at 26 registers, so a full SM of
+// threads has loads in flight.  Issuing 8 or 16 columns' loads at once
+// (more registers, fewer threads), the next column's loads before the
+// current update, loads past L1, and 256-entry tiles all measured slower
+// or level (PERF.md).  The layout sets what is left: U uniform ids
+// of V touch a share 1 - (1 - U/V)^8 of each column's 32-byte sectors
+// (about 70 % at the probe's stream, 18 % at a batch's), each read and
+// written in two tables; chip_smoke.py's k2t_sector_ms counts them from
+// the stream.  At a batch's stream those are isolated sectors in a
+// 151 MB table, read and written at about a third of the card's rate.
 //
 // K2P: table_p and acc_p [V/8, 128] f32, which is bytewise [V, 16]: row r's
 // column c at float 16 * r + c.  Columns c < D (D <= 16) are updated; the
@@ -48,19 +75,78 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPackedSlots = 16;  // floats per row of the packed layout
+constexpr int kK2tTile = 128;     // entries (and threads) of a K2T block
+constexpr int kStaticSmem = 48 * 1024;
+constexpr int kMaxSmem = 227 * 1024;  // an sm_90 block's opt-in limit
+constexpr int kK2tMaxD = 907;         // 32 * (2 * 907 + 1) * 4 <= kMaxSmem
 
-__global__ void k2t_kernel(const int* __restrict__ urows,
-                           const float* __restrict__ sums,
-                           float* __restrict__ table_t,
-                           float* __restrict__ acc_t, int64_t U, int D,
-                           int64_t V, float lr, float eps) {
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= U * D) return;
-  const int64_t c = idx / U;
-  const int64_t u = idx - c * U;
-  const float* s = sums + u * 2 * D;
-  adagrad_at(table_t, acc_t, c * V + urows[u], s[c], s[D + c], lr, eps);
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_async_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Shared memory of a K2T tile of `tile` entries: rows of 2D + 1 floats.
+int64_t k2t_stage_bytes(int tile, int D) {
+  return static_cast<int64_t>(tile) * (2 * D + 1) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(kK2tTile)
+    k2t_kernel(const int* __restrict__ urows, const float* __restrict__ sums,
+               float* __restrict__ table_t, float* __restrict__ acc_t, int U,
+               int D, int64_t V, float lr, float eps) {
+  extern __shared__ float stage[];  // [tile][2D + 1]
+  const int tile = blockDim.x;
+  const int t = threadIdx.x;
+  const int tile0 = blockIdx.x * tile;
+  const int n = min(tile, U - tile0);
+  const int width = 2 * D;
+  const int pitch = width + 1;
+
+  // Stage the tile's n * 2D floats: thread t copies floats t, t + tile,
+  // ...; their (row, column) step by tile = q * 2D + r.
+  {
+    const float* src = sums + static_cast<int64_t>(tile0) * width;
+    const int q = tile / width;
+    const int r = tile - q * width;
+    int row = t / width;
+    int col = t - row * width;
+    for (int i = t; i < n * width; i += tile) {
+      copy_async4(stage + row * pitch + col, src + i);
+      row += q;
+      col += r;
+      if (col >= width) {
+        col -= width;
+        ++row;
+      }
+    }
+  }
+
+  const bool live = t < n;
+  const int64_t id = live ? urows[tile0 + t] : 0;
+  const float* mine = stage + t * pitch;
+  for (int c = 0; c < D; ++c) {
+    const int64_t pos = c * V + id;
+    float w = 0.0f, a = 0.0f;
+    if (live) {
+      w = table_t[pos];
+      a = acc_t[pos];
+    }
+    if (c == 0) {  // the stage, once its copies have landed
+      wait_async_copies();
+      __syncthreads();
+    }
+    if (live) {
+      adagrad_step(w, a, mine[c], mine[D + c], lr, eps);
+      acc_t[pos] = a;
+      table_t[pos] = w;
+    }
+  }
 }
 
 __global__ void k2p_kernel(const int* __restrict__ urows,
@@ -94,12 +180,24 @@ int blocks_for(int64_t total, unsigned* grid) {
 extern "C" int k2t_apply(const void* urows, const void* sums, void* table_t,
                          void* acc_t, int U, int D, long long V, float lr,
                          float eps, void* stream) {
-  if (U <= 0 || D < 1 || V < 1) return static_cast<int>(cudaErrorInvalidValue);
-  unsigned grid = 0;
-  if (const int err = blocks_for(static_cast<int64_t>(U) * D, &grid)) {
-    return err;
+  if (U <= 0 || D < 1 || D > kK2tMaxD || V < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  k2t_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  // The widest tile whose stage fits the static 48 KB, down to a warp;
+  // past that the stage asks for more (up to kMaxSmem).
+  int tile = kK2tTile;
+  while (tile > 32 && k2t_stage_bytes(tile, D) > kStaticSmem) tile /= 2;
+  const int64_t smem = k2t_stage_bytes(tile, D);
+  if (smem > kStaticSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k2t_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned grid =
+      static_cast<unsigned>((static_cast<int64_t>(U) + tile - 1) / tile);
+  k2t_kernel<<<grid, tile, static_cast<size_t>(smem),
+               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(urows), static_cast<const float*>(sums),
       static_cast<float*>(table_t), static_cast<float*>(acc_t), U, D, V, lr,
       eps);

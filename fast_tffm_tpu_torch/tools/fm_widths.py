@@ -1,14 +1,19 @@
-"""The FmScorer kernel's time across embedding widths, in both modes.
+"""The FmScorer and FmGrad kernels' times across embedding widths, in
+both modes.
 
     python -m fast_tffm_tpu_torch.tools.fm_widths
 
 Needs a CUDA device.  At F = 39 features, for each mode (f32, bf16),
 width D in {2, 9, 17, 33} and batch B in {64, 1024, 4096}, the same
-seeded inputs go through ``ops.fm_kernels.fm_scores_cuda``.  It prints
-the card's name and power limit, then one JSON line: per shape the
-kernel's time per call in a CUDA graph (the median of 7 replays of a
-graph of 100 calls; every shape timed once, then again in the reverse
-order) and a SHA-256 of its outputs (scores, then ``s1``).
+seeded inputs go through ``ops.fm_kernels.fm_scores_cuda`` (rows and
+values) and ``ops.fm_kernels.fm_grad_cuda`` (rows, values and seeded
+f32 ``s1`` and ``dscores``).  It prints the card's name and power limit,
+then one JSON line: per kernel and shape the kernel's time per call in a
+CUDA graph (the median of 7 replays of a graph of 100 calls; every shape
+of both kernels timed once, then again in the reverse order) and a
+SHA-256 of its outputs (the FmScorer's scores, then ``s1``; FmGrad's
+``drows`` in the rows' type), and for FmGrad whether ``drows`` equals
+its plain version's bit for bit.
 
 To compare two trees of this package on one card, run the script file
 of either tree with the other tree first on the path, in turns
@@ -62,20 +67,37 @@ def graph_ms(fn, calls: int = 100, reps: int = 7) -> float:
 
 def inputs(b: int, d: int, dtype, dev):
     """Rows ``[b, F, d]`` and vals ``[b, F]`` (each example's tail of
-    features padded with value 0), made from a seed, in ``dtype``."""
+    features padded with value 0) in ``dtype``, and FmGrad's f32 ``s1
+    [b, d-1]`` and ``dscores [b]``, made from a seed."""
     rng = np.random.default_rng(1000 * d + b)
     rows = (rng.normal(size=(b, F, d)) * 0.3).astype(np.float32)
     vals = rng.uniform(0.0, 1.0, size=(b, F)).astype(np.float32)
     vals[np.arange(F)[None, :] >= rng.integers(1, F + 1, size=(b, 1))] = 0.0
+    s1 = rng.normal(size=(b, d - 1)).astype(np.float32)
+    dscores = (rng.normal(size=(b,)) * 0.1).astype(np.float32)
     return (torch.from_numpy(rows).to(dev, dtype),
-            torch.from_numpy(vals).to(dev, dtype))
+            torch.from_numpy(vals).to(dev, dtype),
+            torch.from_numpy(s1).to(dev), torch.from_numpy(dscores).to(dev))
+
+
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in turn (bf16 as its 16-bit
+    patterns)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("fm_widths: needs a CUDA device", file=sys.stderr)
         return 1
-    from fast_tffm_tpu_torch.ops.fm_kernels import fm_scores_cuda
+    from fast_tffm_tpu_torch.ops.fm_kernels import (
+        fm_grad_cuda, fm_grad_plain, fm_scores_cuda,
+    )
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -86,17 +108,25 @@ def main() -> int:
     shapes = {f"{mode}_d{d}_b{b}": inputs(b, d, dtype, dev)
               for mode, dtype in MODES.items() for d in WIDTHS
               for b in BATCHES}
-    out = {}
-    for name, (rows, vals) in shapes.items():
-        scores, s1 = fm_scores_cuda(rows, vals)
-        digest = hashlib.sha256(scores.cpu().numpy().tobytes()
-                                + s1.cpu().numpy().tobytes()).hexdigest()
-        out[name] = {"graph_ms": [], "sha256": digest}
-    for order in (list(shapes), list(reversed(shapes))):
-        for name in order:
-            rows, vals = shapes[name]
-            out[name]["graph_ms"].append(
-                graph_ms(lambda: fm_scores_cuda(rows, vals)))
+    calls = {}  # (kernel, shape) -> the call
+    out = {"fm_scores": {}, "fm_grad": {}}
+    for name, (rows, vals, s1, dscores) in shapes.items():
+        calls["fm_scores", name] = (
+            lambda r=rows, v=vals: fm_scores_cuda(r, v))
+        calls["fm_grad", name] = (
+            lambda r=rows, v=vals, s=s1, g=dscores: fm_grad_cuda(r, v, s, g))
+        out["fm_scores"][name] = {"graph_ms": [], "sha256": digest(
+            *fm_scores_cuda(rows, vals))}
+        drows = fm_grad_cuda(rows, vals, s1, dscores)
+        out["fm_grad"][name] = {
+            "graph_ms": [], "sha256": digest(drows),
+            "equals_plain": digest(drows) == digest(
+                fm_grad_plain(rows, vals, s1, dscores)),
+        }
+    for order in (list(calls), list(reversed(calls))):
+        for kernel, name in order:
+            out[kernel][name]["graph_ms"].append(
+                graph_ms(calls[kernel, name]))
     print(json.dumps({"fm_widths": out, "F": F, "card": card}), flush=True)
     return 0
 

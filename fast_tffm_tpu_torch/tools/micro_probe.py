@@ -61,6 +61,9 @@ _INT32_MAX = 2**31 - 1
 # The packed layout: 8 rows of 16 slots per 128-float line.
 PACK_ROWS, PACK_SLOTS = 8, 16
 PACK_LANES = PACK_ROWS * PACK_SLOTS
+# The widest row K2T takes: a 32-entry tile's stage of 2D + 1 floats an
+# entry must fit a block's 227 KB of shared memory.
+K2T_MAX_D = 907
 # The reference's K2 sections: Adagrad constants and its tile-vs-scatter
 # bounds (tests/test_sparse_apply.py), which the layouts are held to.
 LR, EPS = 0.05, 1e-7
@@ -208,6 +211,11 @@ def _entries(layout: str, urows, sums, table, acc, lr: float, eps: float,
     u = urows.numel()
     if u == 0:
         return
+    if layout == "k2t" and d > K2T_MAX_D:
+        raise ValueError(
+            f"{name}'s kernel takes D <= {K2T_MAX_D} (its shared-memory "
+            f"stage of the stream), got D = {d}"
+        )
     lib = _build.load()
     extra = (table.shape[1],) if layout == "k2t" else ()  # K2T's V
     with torch.cuda.device(table.device):
@@ -224,8 +232,9 @@ def k2t_entries(urows, sums, table_t, acc_t, *, lr: float, eps: float,
     """K2T alone: Adagrad of K1's stream (``urows [U]`` i32, ascending,
     unique and in ``[0, V)``; ``sums [U, 2D]``) on a transposed table
     and accumulator ``[D, V]``, in place, on the current stream.  A CUDA
-    tensor launches the kernel (counted in ``k2t_apply.launches``); a
-    CPU tensor, or ``plain=True``, takes the plain version."""
+    tensor launches the kernel (counted in ``k2t_apply.launches``), for
+    ``D <= K2T_MAX_D`` (907; a wider D raises); a CPU tensor, or
+    ``plain=True``, takes the plain version at any D."""
     _entries("k2t", urows, sums, table_t, acc_t, lr, eps, plain)
 
 
@@ -250,8 +259,9 @@ def _apply(layout: str, table, acc, ids, g_rows, lr: float, eps: float,
 def k2t_apply(table_t, acc_t, ids, g_rows, *, lr: float, eps: float):
     """Sparse Adagrad on a transposed table ``table_t`` and accumulator
     ``acc_t`` ``[D, V]`` f32 from ids ``[N]`` i32 and their gradients
-    ``[N, D]`` f32: K1, then K2T.  Updates both in place and returns
-    them (the reference returns new arrays)."""
+    ``[N, D]`` f32: K1, then K2T, whose kernel takes ``D <= K2T_MAX_D``
+    (907).  Updates both in place and returns them (the reference returns
+    new arrays)."""
     return _apply("k2t", table_t, acc_t, ids, g_rows, lr, eps, plain=False)
 
 

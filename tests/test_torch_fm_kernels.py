@@ -227,16 +227,33 @@ def test_wrappers_refuse_mixed_or_other_types(rows_dtype, vals_dtype):
 @pytest.mark.parametrize("mode", ["f32", "bf16"])
 def test_fm_widths_inputs_and_cpu_refusal(mode):
     """``tools/fm_widths`` times seeded inputs of the mode's type with each
-    example's tail of features padded (value 0), and refuses to run
-    without a CUDA device."""
+    example's tail of features padded (value 0), FmGrad's ``s1`` and
+    ``dscores`` in f32 beside them, digests bf16 outputs by their bits,
+    and refuses to run without a CUDA device."""
     from fast_tffm_tpu_torch.tools import fm_widths
 
     dtype = fm_widths.MODES[mode]
-    rows, vals = fm_widths.inputs(64, 33, dtype, torch.device("cpu"))
-    again, _ = fm_widths.inputs(64, 33, dtype, torch.device("cpu"))
+    cpu = torch.device("cpu")
+    rows, vals, s1, dscores = fm_widths.inputs(64, 33, dtype, cpu)
+    again = fm_widths.inputs(64, 33, dtype, cpu)
     assert rows.shape == (64, fm_widths.F, 33) and vals.shape == (64, 39)
     assert rows.dtype == vals.dtype == dtype
-    assert torch.equal(rows, again)
+    assert s1.shape == (64, 32) and dscores.shape == (64,)
+    assert s1.dtype == dscores.dtype == torch.float32
+    for got, want in zip((rows, vals, s1, dscores), again):
+        assert torch.equal(got, want)
+    # Adding FmGrad's inputs left the FmScorer's (drawn first) as they were.
+    rng = np.random.default_rng(1000 * 33 + 64)
+    want_rows = (rng.normal(size=(64, fm_widths.F, 33)) * 0.3).astype(
+        np.float32)
+    assert torch.equal(rows, torch.from_numpy(want_rows).to(dtype))
+    drows = fm_kernels.fm_grad_plain(rows, vals, s1, dscores)
+    assert drows.dtype == dtype and bool(torch.isfinite(drows.float()).all())
+    assert fm_widths.digest(drows) == fm_widths.digest(drows.clone())
+    if mode == "bf16":
+        flipped = drows.clone()
+        flipped.view(torch.int16)[0, 0, 0] ^= 1
+        assert fm_widths.digest(flipped) != fm_widths.digest(drows)
     live = vals != 0
     # Padding is a tail: no live feature after a padded one.
     assert torch.equal(live, live.cummin(dim=1).values)

@@ -20,8 +20,9 @@ with atomics in an order that changes from run to run, and on a hot id
 of thousands of occurrences its own error is the larger one.  The
 apply is held to the reference's
 tile-vs-scatter bounds (``rtol=1e-4, atol=1e-6`` table, ``atol=1e-4``
-optimizer tables).  The bf16 FmGrad computes in f32 with the plain
-version's roundings and rounds once: it is held to it bitwise.
+optimizer tables).  FmGrad computes in f32 with the plain version's
+roundings (and in bf16 rounds once): it is held to it bitwise in both
+modes.
 """
 
 import numpy as np
@@ -119,16 +120,36 @@ def test_gpu_scorer_matches_cpu_scorer(gpu):
                                rtol=1e-5, atol=1e-6)
 
 
+# FmGrad's edges: B*F*D not a multiple of a 16-byte chunk (4 f32, 8 bf16
+# elements) and shorter than one; D = 1 (no s1), 2 and 33; B = 1.
+FM_GRAD_EDGES = [(3, 5, 7), (5, 3, 1), (2, 1, 1), (1, 1, 3), (7, 39, 2),
+                 (1, 39, 33), (65, 39, 33), (1023, 39, 9)]
+
+
+def _on_gpu(a, gpu, dtype=torch.float32, offset=0):
+    """``a`` as a contiguous ``dtype`` tensor on the card that starts
+    ``offset`` elements into its storage (not 16-byte aligned for 1)."""
+    buf = torch.zeros(a.size + offset, dtype=dtype, device=gpu)
+    view = buf[offset:].view(a.shape)
+    view.copy_(torch.from_numpy(a))
+    assert view.is_contiguous()
+    assert (view.data_ptr() % 16 == 0) == (offset == 0)
+    return view
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("b, f, d", [
     (1, 39, 9), (1000, 39, 9), (4096, 39, 9), (5, 3, 41), (7, 4, 2),
     (3, 2, 1),
-])
-def test_fm_grad_kernel_matches_plain(gpu, b, f, d):
+] + FM_GRAD_EDGES)
+def test_fm_grad_kernel_matches_plain(gpu, b, f, d, offset):
+    """The f32 FmGrad, also at ragged sizes and on rows and vals that start
+    ``offset`` elements into their storage: bitwise its plain version."""
     rows, vals = _problem(b, f, d - 1)
     rng = np.random.default_rng(b)
-    rows_d = torch.from_numpy(rows).to(gpu)
-    vals_d = torch.from_numpy(vals).to(gpu)
+    rows_d = _on_gpu(rows, gpu, offset=offset)
+    vals_d = _on_gpu(vals, gpu, offset=offset)
     _, s1 = fm_kernels.fm_scores_plain(rows_d, vals_d)
     g = torch.from_numpy(rng.normal(size=(b,)).astype(np.float32)).to(gpu)
     before = fm_kernels.fm_grad_cuda.launches
@@ -137,13 +158,13 @@ def test_fm_grad_kernel_matches_plain(gpu, b, f, d):
     torch.cuda.synchronize()
     assert fm_kernels.fm_grad_cuda.launches == before + 1
     assert got.shape == (b, f, d)
-    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, want)
 
 
-def _bf16_inputs(gpu, b, f, d):
+def _bf16_inputs(gpu, b, f, d, offset=0):
     rows, vals = _problem(b, f, d - 1)
-    return (torch.from_numpy(rows).to(gpu).to(torch.bfloat16),
-            torch.from_numpy(vals).to(gpu).to(torch.bfloat16))
+    return (_on_gpu(rows, gpu, torch.bfloat16, offset),
+            _on_gpu(vals, gpu, torch.bfloat16, offset))
 
 
 @pytest.mark.gpu
@@ -190,13 +211,16 @@ def test_fm_scores_kernel_is_deterministic(gpu, dtype, b, f, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("b, f, d", [
     (1, 39, 9), (1000, 39, 9), (4096, 39, 9), (5, 3, 41), (3, 2, 1),
-])
-def test_bf16_fm_grad_kernel_matches_plain_bitwise(gpu, b, f, d):
+] + FM_GRAD_EDGES)
+def test_bf16_fm_grad_kernel_matches_plain_bitwise(gpu, b, f, d, offset):
     """The bf16 FmGrad computes in f32 with the plain version's
-    roundings and rounds once to bf16: equal bit for bit."""
-    rows, vals = _bf16_inputs(gpu, b, f, d)
+    roundings and rounds once to bf16: equal bit for bit, also at ragged
+    sizes and on rows and vals that start ``offset`` elements into their
+    storage."""
+    rows, vals = _bf16_inputs(gpu, b, f, d, offset)
     _, s1 = fm_kernels.fm_scores_plain(rows, vals)
     g = torch.randn((b,), generator=torch.Generator(device=gpu)
                     .manual_seed(b), device=gpu)
@@ -609,6 +633,67 @@ def test_layout_probe_kernels_match_plain_and_k2(gpu, layout, vocab, n, d,
         for got, was in zip(kern, start):
             assert torch.equal(got.view(-1, 16)[:, d:],
                                was.view(-1, 16)[:, d:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u, d", [
+    (1, 9), (257, 9), (256, 9), (513, 1), (300, 41), (40, 200), (5000, 16),
+    (33, micro_probe.K2T_MAX_D),
+])
+def test_k2t_kernel_edges_are_bitwise_k2(gpu, u, d):
+    """K2T on streams of U unique ids (one entry, one past a 256-entry
+    tile, D = 1, a 128-entry tile at D = 41, a 32-entry tile whose stage
+    passes 48 KB at D = 200, the widest D), always with the id V - 1:
+    bitwise K2's
+    elements, within the reference's bounds of the plain version, and
+    every untouched element as it was."""
+    vocab = 8192
+    rng = np.random.default_rng(u + d)
+    ids = np.sort(rng.choice(vocab - 1, size=u - 1, replace=False))
+    urows = torch.from_numpy(
+        np.append(ids, vocab - 1).astype(np.int32)).to(gpu)
+    g1 = rng.normal(size=(u, d)) * 0.1
+    g2 = g1 * g1 + rng.uniform(0.0, 0.01, size=(u, d))
+    sums = torch.from_numpy(
+        np.concatenate([g1, g2], axis=1).astype(np.float32)).to(gpu)
+    table, acc = (torch.from_numpy(rng.uniform(lo, hi, (vocab, d))
+                                   .astype(np.float32)).to(gpu)
+                  for lo, hi in ((-0.1, 0.1), (0.1, 1.0)))
+    start = (table.t().contiguous(), acc.t().contiguous())
+    kern = tuple(t.clone() for t in start)
+    plain = tuple(t.clone() for t in start)
+    row_major = (table.clone(), acc.clone())
+    before = micro_probe.k2t_apply.launches
+    micro_probe.k2t_entries(urows, sums, *kern, lr=0.05, eps=1e-7)
+    micro_probe.k2t_entries(urows, sums, *plain, lr=0.05, eps=1e-7,
+                            plain=True)
+    sparse_apply.k2_apply_cuda("adagrad", urows, sums, row_major,
+                               sparse_apply.Hyper(lr=0.05, eps=1e-7))
+    torch.cuda.synchronize()
+    assert micro_probe.k2t_apply.launches == before + 1
+    torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+    torch.testing.assert_close(kern[1], plain[1], **OPT_TOL)
+    untouched = torch.ones(vocab, dtype=torch.bool, device=gpu)
+    untouched[urows.long()] = False
+    for got, was, want in zip(kern, start, row_major):
+        assert torch.equal(got.t(), want)
+        assert torch.equal(got[:, untouched], was[:, untouched])
+        assert not torch.equal(got[:, -1], was[:, -1])
+
+
+@pytest.mark.gpu
+def test_k2t_kernel_refuses_a_row_past_its_stage(gpu):
+    """Past ``K2T_MAX_D`` a 32-entry tile's stage passes the SM's shared
+    memory: the wrapper raises before it launches."""
+    d = micro_probe.K2T_MAX_D + 1
+    urows = torch.zeros(1, dtype=torch.int32, device=gpu)
+    sums = torch.zeros((1, 2 * d), device=gpu)
+    table = torch.zeros((d, 8), device=gpu)
+    before = micro_probe.k2t_apply.launches
+    with pytest.raises(ValueError, match=f"D <= {d - 1}"):
+        micro_probe.k2t_entries(urows, sums, table, table.clone(), lr=0.05,
+                                eps=1e-7)
+    assert micro_probe.k2t_apply.launches == before
 
 
 @pytest.mark.gpu
