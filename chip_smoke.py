@@ -349,6 +349,15 @@ def k2t_sector_ms(torch, urows, d: int, v: int) -> float:
     return nbytes / PEAK_BYTES_PER_S * 1e3
 
 
+def k2p_sector_ms(u: int, d: int) -> float:
+    """K2P counted in 32-byte sectors of device memory, at HBM bandwidth:
+    a packed row starts on a 64-byte boundary, so its ``d`` columns span
+    ``ceil(d / 8)`` sectors, each read and written in the table and in
+    the accumulator; the entry stream (urows, sums) as it is."""
+    nbytes = 4 * 32 * -(-d // 8) * u + 4 * (u + 2 * d * u)
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
 def k2_sector_ms(u: int, d: int, size: int = 32) -> float:
     """K2 Adagrad counted in ``size``-byte units of device memory, at HBM
     bandwidth: each row of the table and of the accumulator read and
@@ -806,6 +815,7 @@ def probe_phase(torch, card: str, gen, table0, hot_ids, hyper, err: dict,
         entry["sector_ms"] = k2_sector_ms(urows.numel(), d)
         entry["granule64_ms"] = k2_sector_ms(urows.numel(), d, 64)
         entry["k2t_sector_ms"] = k2t_sector_ms(torch, urows, d, v)
+        entry["k2p_sector_ms"] = k2p_sector_ms(urows.numel(), d)
         graphs[shape] = entry
         del k2_tabs
     probe = graphs["probe"]

@@ -9,9 +9,10 @@
 // its Adagrad accumulator in place at the touched elements only,
 //   acc += sum g^2;  table -= lr * sum g * rsqrt(acc + eps),
 // through adagrad.cuh, which K2 uses too: the three layouts round alike and
-// give bitwise-equal elements for equal sums.  An untouched element is
-// neither read nor written, so it stays bitwise as it was (the TPU kernels
-// rewrite it with a zero update, which leaves it the same).
+// give bitwise-equal elements for equal sums.  An untouched row is neither
+// read nor written, so it stays bitwise as it was (the TPU kernels rewrite
+// it with a zero update, which leaves it the same); K2P's pad slots of a
+// touched row are written back with the bits it loaded from them.
 //
 // K2T: table_t and acc_t [D, V]; element (c, r) at c * V + r.  A block
 // takes a tile of consecutive entries, one entry a thread (128, or fewer
@@ -48,13 +49,42 @@
 // 151 MB table, read and written at about a third of the card's rate.
 //
 // K2P: table_p and acc_p [V/8, 128] f32, which is bytewise [V, 16]: row r's
-// column c at float 16 * r + c.  Columns c < D (D <= 16) are updated; the
-// slots D..15 are never written.  One thread per (u, c), c fastest, as K2.
+// column c at float 16 * r + c, a row one aligned 64-byte line of four
+// 16-byte chunks (columns 4q..4q+3 are chunk q).  Columns c < D (D <= 16)
+// are updated.  The table, the accumulator and the stream must start on
+// 16-byte boundaries (else cudaErrorInvalidValue; micro_probe raises
+// before it launches).
+//
+// - kLanes lanes a row, the row's ceil(D / 4) live chunks rounded up to a
+//   power of two (1 up to D = 4, 2 up to 8, else 4): lane l loads chunk
+//   l of the table and of the accumulator as one float4 each, both before
+//   any arithmetic.  A chunk with 4q >= D is neither loaded for itself
+//   nor stored; a chunk that straddles D is stored whole, its pad columns
+//   with the values loaded from them, one writer a row (urows is unique).
+//   Storing only its live columns one by one, a thread a row with
+//   ceil(D / 4) float4 loads, two rows a lane group in flight, two lanes a
+//   row at D = 9 and a lane for each live chunk packed densely all
+//   measured slower at the probe's stream (PERF.md).
+// - A block of 256 threads takes a tile of 256 / kLanes consecutive
+//   entries and stages their sums [tile, 2D] in shared memory once, in
+//   coalesced 16-byte cp.async copies (the tile starts 16-byte aligned; an
+//   odd number of float pairs ends in one 8-byte copy); its row ids load
+//   once, coalesced, and its table loads go out before it waits for the
+//   stage.  Reading the sums from device memory instead measured 4-6 %
+//   slower.  No division; 64-bit arithmetic only for addresses (id * 16
+//   and the tile's offset in the stream).
+// - The grid holds kK2pRowsPerSm = 256 rows an SM in flight, blocks
+//   walking the tiles in turn.  What bounds K2P at the probe's stream
+//   (about 590,000 random 64-byte rows of 268 MB tables) is the rows, not
+//   the bytes: a kernel with one thread an element takes about as long at
+//   D = 2 as at D = 16, and every mapping here got slower with more rows
+//   in flight on an SM (PERF.md).  A batch's stream, whose rows stay in
+//   L2 across calls, gains from the fewer instructions.
 //
 // The TPU kernels sweep the whole table tile by tile and place the entries
 // with bf16 hi/lo one-hot matmuls (a [D, R] transposed placement for K2T,
 // lane-spread and line matmuls for K2P), because TPU scatters serialize.
-// Here each thread updates its own element.
+// Here each thread or lane updates its own elements.
 //
 // Bound: memory, as K2's: the stream (U * (2D + 1) * 4 bytes) read, and
 // U * D * 4 bytes of the table and of the accumulator each read and written
@@ -67,13 +97,15 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "adagrad.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kK2pThreads = 256;
+constexpr int kK2pRowsPerSm = 256;  // K2P rows in flight on an SM
 constexpr int kPackedSlots = 16;  // floats per row of the packed layout
 constexpr int kK2tTile = 128;     // entries (and threads) of a K2T block
 constexpr int kStaticSmem = 48 * 1024;
@@ -87,8 +119,37 @@ __device__ __forceinline__ void copy_async4(float* dst, const float* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void copy_async8(float* dst, const float* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(to),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void wait_async_copies() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Four floats of shared memory at p, read kAlign floats at a time (p is
+// 4 * kAlign-byte aligned).
+template <int kAlign>
+__device__ __forceinline__ float4 load_chunk(const float* p) {
+  if constexpr (kAlign == 4) {
+    return *reinterpret_cast<const float4*>(p);
+  } else if constexpr (kAlign == 2) {
+    const float2 lo = reinterpret_cast<const float2*>(p)[0];
+    const float2 hi = reinterpret_cast<const float2*>(p)[1];
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  } else {
+    return make_float4(p[0], p[1], p[2], p[3]);
+  }
 }
 
 // Shared memory of a K2T tile of `tile` entries: rows of 2D + 1 floats.
@@ -149,27 +210,125 @@ __global__ void __launch_bounds__(kK2tTile)
   }
 }
 
-__global__ void k2p_kernel(const int* __restrict__ urows,
-                           const float* __restrict__ sums,
-                           float* __restrict__ table_p,
-                           float* __restrict__ acc_p, int64_t total, int D,
-                           float lr, float eps) {
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int64_t u = idx / D;
-  const int c = static_cast<int>(idx - u * D);
-  const float* s = sums + u * 2 * D;
-  adagrad_at(table_p, acc_p,
-             static_cast<int64_t>(urows[u]) * kPackedSlots + c, s[c],
-             s[D + c], lr, eps);
+// K2P: kLanes lanes a row (a power of two), lane l taking the row's
+// 16-byte chunks l, l + kLanes, ... below kChunks = ceil(D / 4).  A tile
+// is the kTile consecutive entries of kK2pThreads threads; block b takes
+// tiles b, b + gridDim.x, ...
+template <int D, int kLanes>
+__global__ void __launch_bounds__(kK2pThreads)
+    k2p_kernel(const int* __restrict__ urows, const float* __restrict__ sums,
+               float4* __restrict__ table_p, float4* __restrict__ acc_p,
+               int U, float lr, float eps) {
+  constexpr int kChunks = (D + 3) / 4;
+  constexpr int kPerLane = (kChunks + kLanes - 1) / kLanes;
+  constexpr int kTile = kK2pThreads / kLanes;
+  constexpr int kWidth = 2 * D;
+  // The tile's sums, and 4 floats past them: a chunk's vector read may
+  // take the floats after the row's last column (never used).
+  __shared__ __align__(16) float stage[kTile * kWidth + 4];
+  const int t = threadIdx.x;
+  const int lane = t % kLanes;
+  const int group = t / kLanes;
+  const int tiles =
+      static_cast<int>((static_cast<int64_t>(U) + kTile - 1) / kTile);
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int tile0 = tile * kTile;
+    const int n = min(kTile, U - tile0);
+    // Stage the tile's n * 2D floats in 16-byte copies (and one 8-byte
+    // copy for an odd number of pairs): they start 16-byte aligned, as
+    // tile0 * 2D * 4 bytes is a multiple of 16 for an even kTile.
+    {
+      const float* src = sums + static_cast<int64_t>(tile0) * kWidth;
+      const int m = n * kWidth;
+      for (int k = 4 * t; k + 4 <= m; k += 4 * kK2pThreads) {
+        copy_async16(stage + k, src + k);
+      }
+      if (t == 0 && (m & 2)) copy_async8(stage + m - 2, src + m - 2);
+    }
+
+    // The row's id, loaded by its lanes from one address: a warp's load
+    // reads its rows' neighbouring ids once.  A lane group past the stream
+    // takes the tile's last id and stores nothing.
+    const int64_t base =  // the row's first chunk: id * 16 floats
+        static_cast<int64_t>(urows[tile0 + min(group, n - 1)]) *
+        (kPackedSlots / 4);
+    // Every chunk of the table and of the accumulator first: a lane past
+    // the row's chunks loads its last one again (same sector) and stores
+    // nothing, so every load goes out unconditionally.
+    float4 w[kPerLane], a[kPerLane];
+#pragma unroll
+    for (int p = 0; p < kPerLane; ++p) {
+      const int q = min(lane + p * kLanes, kChunks - 1);
+      w[p] = table_p[base + q];
+      a[p] = acc_p[base + q];
+    }
+    wait_async_copies();
+    __syncthreads();
+
+    if (group < n) {
+      const float* s = stage + group * kWidth;
+#pragma unroll
+      for (int p = 0; p < kPerLane; ++p) {
+        const int q = lane + p * kLanes;
+        if (q >= kChunks) continue;
+        // The row's sums start at float group * 2D of the stage: g1's
+        // chunk is 8-byte aligned (16 at even D), g2's 16 at D % 4 == 0
+        // and 8 at even D.
+        const float4 g1 = load_chunk<D % 2 == 0 ? 4 : 2>(s + 4 * q);
+        const float4 g2 =
+            load_chunk<D % 4 == 0 ? 4 : (D % 2 == 0 ? 2 : 1)>(s + D + 4 * q);
+        float* wv = &w[p].x;
+        float* av = &a[p].x;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (4 * q + j < D) {
+            adagrad_step(wv[j], av[j], (&g1.x)[j], (&g2.x)[j], lr, eps);
+          }
+        }
+        // A chunk that straddles D stores its pad columns with the values
+        // loaded from them: the row has one writer (urows is unique), so
+        // the pad slots keep their bits.
+        acc_p[base + q] = a[p];
+        table_p[base + q] = w[p];
+      }
+    }
+    __syncthreads();  // the stage is read: the next tile may overwrite it
+  }
 }
 
-int blocks_for(int64_t total, unsigned* grid) {
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  *grid = static_cast<unsigned>(blocks);
-  return 0;
+// Launches K2P at the compile-time width D == d: the row's chunks rounded
+// up to a power of two lanes a row, and a grid that holds kK2pRowsPerSm
+// rows an SM (or a block a tile, for a short stream).
+template <int D>
+int k2p_launch(int d, const int* urows, const float* sums, float4* table_p,
+               float4* acc_p, int U, float lr, float eps,
+               cudaStream_t stream) {
+  if constexpr (D > kPackedSlots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (d != D) {
+      return k2p_launch<D + 1>(d, urows, sums, table_p, acc_p, U, lr, eps,
+                               stream);
+    }
+    constexpr int kLanes = D <= 4 ? 1 : (D <= 8 ? 2 : 4);
+    constexpr int kTile = kK2pThreads / kLanes;
+    int device = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t tiles = (static_cast<int64_t>(U) + kTile - 1) / kTile;
+    const int64_t grid =
+        std::min<int64_t>(tiles, static_cast<int64_t>(sms) * kK2pRowsPerSm /
+                                     kTile);
+    k2p_kernel<D, kLanes><<<static_cast<unsigned>(grid), kK2pThreads, 0,
+                            stream>>>(urows, sums, table_p, acc_p, U, lr,
+                                      eps);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace
@@ -205,19 +364,21 @@ extern "C" int k2t_apply(const void* urows, const void* sums, void* table_t,
 }
 
 // K2P: urows [U] in [0, V), sums [U, 2D] with 1 <= D <= 16, table_p and
-// acc_p [V/8, 128].
+// acc_p [V/8, 128]; sums, table_p and acc_p start on 16-byte boundaries,
+// else cudaErrorInvalidValue and no launch.
 extern "C" int k2p_apply(const void* urows, const void* sums, void* table_p,
                          void* acc_p, int U, int D, float lr, float eps,
                          void* stream) {
-  if (U <= 0 || D < 1 || D > kPackedSlots) {
+  const auto misaligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+  };
+  if (U <= 0 || D < 1 || D > kPackedSlots || misaligned(sums) ||
+      misaligned(table_p) || misaligned(acc_p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t total = static_cast<int64_t>(U) * D;
-  unsigned grid = 0;
-  if (const int err = blocks_for(total, &grid)) return err;
-  k2p_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(urows), static_cast<const float*>(sums),
-      static_cast<float*>(table_p), static_cast<float*>(acc_p), total, D, lr,
-      eps);
-  return static_cast<int>(cudaGetLastError());
+  return k2p_launch<1>(D, static_cast<const int*>(urows),
+                       static_cast<const float*>(sums),
+                       static_cast<float4*>(table_p),
+                       static_cast<float4*>(acc_p), U, lr, eps,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -24,7 +24,8 @@ gradients ``[N, D]`` f32):
 - :func:`k2t_apply` (replacing ``tools/micro_probe.py::_k2t_kernel``):
   sparse Adagrad on a transposed ``[D, V]`` table and accumulator;
 - :func:`k2p_apply` (replacing ``_k2p_kernel``): the same on packed
-  ``[V/8, 128]`` ones (:func:`pack_table`), ``D <= 16``.
+  ``[V/8, 128]`` ones (:func:`pack_table`), ``D <= 16``, each starting
+  on a 16-byte boundary.
 
 Each runs K1 (``ops/sparse_apply``: ``sort_meta``, ``k1_dedup_cuda``)
 and then its kernel on K1's stream (:func:`k2t_entries` /
@@ -137,7 +138,21 @@ def _check_tables(name: str, table, acc, d: int) -> int:
         )
     if vocab > _INT32_MAX + 1:
         raise ValueError(f"{name}: V = {vocab} exceeds int32 row ids")
+    if name == "k2p_apply":
+        _check_aligned(name, table=table, acc=acc)
     return vocab
+
+
+def _check_aligned(name: str, **tensors) -> None:
+    """K2P moves 16-byte chunks of its tables and its stream: each must
+    start on a 16-byte boundary (a fresh tensor does; a view at an odd
+    offset may not).  Checked on every device, before any launch."""
+    for what, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: its {what} must start on a 16-byte boundary, got "
+                f"address {t.data_ptr():#x}"
+            )
 
 
 def _check_same_device(name: str, tensors) -> None:
@@ -167,6 +182,8 @@ def _check_entries(name: str, urows, sums, table, acc) -> int:
         )
     d = sums.shape[1] // 2
     _check_tables(name, table, acc, d)
+    if name == "k2p_apply":
+        _check_aligned(name, sums=sums)
     _check_same_device(name, (urows, sums, table, acc))
     return d
 
@@ -241,8 +258,10 @@ def k2t_entries(urows, sums, table_t, acc_t, *, lr: float, eps: float,
 def k2p_entries(urows, sums, table_p, acc_p, *, lr: float, eps: float,
                 plain: bool = False) -> None:
     """K2P alone: as :func:`k2t_entries` on packed ``[V/8, 128]``
-    tables (``D <= 16``; the pad slots are never written), counted in
-    ``k2p_apply.launches``."""
+    tables (``D <= 16``; the pad slots keep their bits), counted in
+    ``k2p_apply.launches``.  The kernel moves 16-byte chunks: the
+    tables and ``sums`` must start on 16-byte boundaries, on any device
+    (a misaligned one raises before any launch)."""
     _entries("k2p", urows, sums, table_p, acc_p, lr, eps, plain)
 
 

@@ -681,6 +681,90 @@ def test_k2t_kernel_edges_are_bitwise_k2(gpu, u, d):
         assert not torch.equal(got[:, -1], was[:, -1])
 
 
+def _k2p_tile(d):
+    """Rows of a K2P block at width ``d``: 256 threads, one lane a
+    16-byte chunk of the row, the lanes rounded up to a power of two."""
+    chunks = -(-d // 4)
+    return 256 // (1 << (chunks - 1).bit_length())
+
+
+K2P_EDGES = [(u, d) for d in (1, 4, 5, 8, 9, 12, 13, 16)
+             for u in sorted({1, _k2p_tile(d) - 1, _k2p_tile(d),
+                              _k2p_tile(d) + 1, 5000, 5001, 100001})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u, d", K2P_EDGES)
+def test_k2p_kernel_edges_are_bitwise_k2(gpu, u, d):
+    """K2P on streams of U unique ids (one entry, one under a block's
+    tile, a tile, one past it, an odd U, whose last tile's sums end off
+    a 16-byte boundary at odd D, and a stream long enough that a block
+    walks several tiles), always with the id V - 1, on tables whose pad
+    slots hold values: bitwise K2's elements, within the reference's
+    bounds of the plain version, every untouched row and every pad slot
+    as it was."""
+    vocab = 1 << 18 if u > 8192 else 8192
+    rng = np.random.default_rng(u + 100 * d)
+    ids = np.sort(rng.choice(vocab - 1, size=u - 1, replace=False))
+    urows = torch.from_numpy(
+        np.append(ids, vocab - 1).astype(np.int32)).to(gpu)
+    g1 = rng.normal(size=(u, d)) * 0.1
+    g2 = g1 * g1 + rng.uniform(0.0, 0.01, size=(u, d))
+    sums = torch.from_numpy(
+        np.concatenate([g1, g2], axis=1).astype(np.float32)).to(gpu)
+    start = tuple(torch.from_numpy(
+        rng.uniform(lo, hi, (vocab // 8, 128)).astype(np.float32)).to(gpu)
+        for lo, hi in ((-0.1, 0.1), (0.1, 1.0)))
+    rows = lambda t: micro_probe.unpack_table(t, d)  # noqa: E731
+    kern = tuple(t.clone() for t in start)
+    plain = tuple(t.clone() for t in start)
+    # At D = 16 the [V, d] view is the packed table itself: K2 takes a copy.
+    row_major = tuple(rows(t).clone(memory_format=torch.contiguous_format)
+                      for t in start)
+    before = micro_probe.k2p_apply.launches
+    micro_probe.k2p_entries(urows, sums, *kern, lr=0.05, eps=1e-7)
+    micro_probe.k2p_entries(urows, sums, *plain, lr=0.05, eps=1e-7,
+                            plain=True)
+    sparse_apply.k2_apply_cuda("adagrad", urows, sums, row_major,
+                               sparse_apply.Hyper(lr=0.05, eps=1e-7))
+    torch.cuda.synchronize()
+    assert micro_probe.k2p_apply.launches == before + 1
+    torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+    torch.testing.assert_close(kern[1], plain[1], **OPT_TOL)
+    untouched = torch.ones(vocab, dtype=torch.bool, device=gpu)
+    untouched[urows.long()] = False
+    for got, was, want in zip(kern, start, row_major):
+        assert torch.equal(rows(got), want)
+        got16, was16 = got.view(-1, 16), was.view(-1, 16)
+        assert torch.equal(got16[untouched], was16[untouched])
+        assert torch.equal(got16[:, d:], was16[:, d:])
+        assert not torch.equal(got16[-1, :d], was16[-1, :d])
+
+
+@pytest.mark.gpu
+def test_k2p_refuses_a_misaligned_table_on_the_gpu(gpu):
+    """A packed table 4 bytes off a 16-byte boundary: the wrapper raises
+    before it launches, and the C entry refuses the pointer
+    (cudaErrorInvalidValue) without touching the table."""
+    from fast_tffm_tpu_torch.ops import _build
+
+    table = torch.zeros(4 * 128 + 1, device=gpu)[1:].view(4, 128)
+    acc = torch.ones((4, 128), device=gpu)
+    urows = torch.tensor([0, 3], dtype=torch.int32, device=gpu)
+    sums = torch.ones((2, 18), device=gpu)
+    before = micro_probe.k2p_apply.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        micro_probe.k2p_entries(urows, sums, table, acc, lr=0.05, eps=1e-7)
+    assert micro_probe.k2p_apply.launches == before
+    stream = torch.cuda.current_stream(gpu).cuda_stream
+    rc = _build.load().k2p_apply(urows.data_ptr(), sums.data_ptr(),
+                                 table.data_ptr(), acc.data_ptr(), 2, 9,
+                                 0.05, 1e-7, stream)
+    torch.cuda.synchronize()
+    assert rc != 0
+    assert not bool(table.any()) and bool((acc == 1).all())
+
+
 @pytest.mark.gpu
 def test_k2t_kernel_refuses_a_row_past_its_stage(gpu):
     """Past ``K2T_MAX_D`` a 32-entry tile's stage passes the SM's shared

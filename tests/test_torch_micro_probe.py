@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import torch
 
 from fast_tffm_tpu.ops import interaction as jax_interaction
+from fast_tffm_tpu_torch.ops import sparse_apply
 from fast_tffm_tpu_torch.tools import micro_probe, timing
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
@@ -202,6 +203,39 @@ def test_k2p_refuses_what_the_packed_layout_cannot_hold(tables, d):
         micro_probe.pack_table(torch.zeros((12, 9)), 9)
     with pytest.raises(ValueError):
         micro_probe.pack_table(torch.zeros((16, 17)), 17)
+
+
+def _misaligned(t):
+    """``t``'s values in a view that starts 4 bytes past a 16-byte
+    boundary: contiguous, of the same shape, off K2P's chunk grid."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)  # 64-byte aligned
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("which", ["table", "acc", "sums"])
+def test_k2p_refuses_a_view_off_its_16_byte_grid(which):
+    """K2P moves 16-byte chunks: a packed table, accumulator or stream
+    that does not start on a 16-byte boundary raises from
+    ``k2p_entries`` (and, for the tables, ``k2p_apply``) on every
+    device, before any launch."""
+    tp, ap, ids, g = _args("k2p")
+    urows, sums = sparse_apply.k1_dedup_plain(g, ids,
+                                              *sparse_apply.sort_meta(ids))
+    tabs = {"table": tp, "acc": ap, "sums": sums}
+    tabs[which] = _misaligned(tabs[which])
+    before = micro_probe.k2p_apply.launches
+    with pytest.raises(ValueError, match=f"its {which} must start on a "
+                                         f"16-byte boundary"):
+        micro_probe.k2p_entries(urows, tabs["sums"], tabs["table"],
+                                tabs["acc"], lr=LR, eps=EPS)
+    if which != "sums":
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            micro_probe.k2p_apply(tabs["table"], tabs["acc"], ids, g, lr=LR,
+                                  eps=EPS)
+    assert micro_probe.k2p_apply.launches == before
 
 
 def test_k2t_entries_refuses_a_mismatched_stream():
