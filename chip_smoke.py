@@ -11,7 +11,8 @@ Phases, in order; any failed check ends the run with a non-zero exit:
 1. Print the card's name and power limit (``nvidia-smi``).
 2. Build every CUDA kernel from ``fast_tffm_tpu_torch/ops/csrc`` with
    ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, in parallel) and
-   time the build.
+   the native parser from ``fast_tffm_tpu_torch/data/_src`` with
+   ``g++``, and time both builds.
 3. Data: write seeded synthetic labelled Criteo-shaped lines (13
    ``I<j>_<bucket>`` and 26 ``C<j>_<hex>`` tokens, hashed by the parser;
    labels planted from a fixed rule on the integer buckets) for
@@ -34,11 +35,26 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    PyTorch op timed the same way.
 5. Train phase (main path 1): ``Trainer(cfg).train()`` on
    ``examples/criteo_kaggle.cfg`` at full width (V = 2^22, F = 39,
-   D = 9, B = 4096, Adagrad, batch L2, host sort meta), 16 steps, then
-   validation on one file and ``predict``.  Checks: at least one launch
-   per step of ``fm_grad``, ``k1_dedup`` and ``k2_apply``; the logloss
-   of the last steps below the first step's; one finite probability per
-   predict line.
+   D = 9, B = 4096, Adagrad, batch L2, host sort meta, ``thread_num =
+   8`` parse threads on the native parser, one pinned copy a
+   super-batch), 16 steps, then validation on one file and
+   ``predict``.  Checks: at least one launch per step of ``fm_scores``,
+   ``fm_grad``, ``k1_dedup`` and ``k2_apply``; every batch parsed by
+   the native parser and every dispatch shipped by the transfer stage
+   (their counters); the logloss of the last steps below the first
+   step's; one finite probability per predict line.
+5b. Ingest phase (main path 1 again): ``BatchPipeline`` drained alone
+   over the train files (lines/s) with the Python parser on one thread
+   and the native parser on 1 and 8 threads, the three streams checked
+   bitwise equal; then ``Trainer.train()`` for 4 epochs of the same
+   files (64 steps), three times from fresh models: as it runs (end to
+   end examples/s, with and without the first dispatch, and
+   ``ingest_wait_frac``), under ``torch.profiler`` with no checkpoint
+   write (the device's idle share, host-to-device copies per
+   super-batch, ``cudaMemcpyAsync`` host time per step) and with each
+   step synchronised (its p50 during the run), through
+   ``fast_tffm_tpu_torch/tools/ingest_bench.py``.  Each run is checked
+   as phase 5's, the counts exact.
 6. bf16 train phase (main path 1 with ``compute_dtype = bfloat16``):
    the same config on one train file, 8 steps in f32 and then 8 in
    bf16 from the same initial table on the same batches, the bf16 run
@@ -53,8 +69,10 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    atol=1e-6`` table, ``atol=1e-4`` accumulator) and what the steps
    changed in each (``delta_check``); and host sort meta vs device sort
    meta (bitwise, f32).  Then an f32 and a bf16 step, timed in turns:
-   each one's p50 (host clock, synchronised), device time by op and
-   idle share from ``torch.profiler``, and the peak memory.
+   each one's p50 (host clock, synchronised; from a host batch through
+   ``train_step``, and the f32 step's on a batch already on the device),
+   device time by op and idle share from ``torch.profiler``, and the
+   peak memory.
 8. Serve phase (main path 2): serve the checkpoint the train phase
    wrote over ``/score`` and ``/score_bin``, every rung plus one request
    larger than the largest; the two transports agree bitwise, scores
@@ -469,10 +487,10 @@ def rank_main(argv) -> int:
                 self.step_s, self.coll_s = [], []
                 super().__init__(*args, **kwargs)
 
-            def train_step(self, batch):
+            def device_step(self, batch):
                 c0 = coll_s[0]
                 t0 = time.perf_counter()
-                loss = super().train_step(batch)
+                loss = super().device_step(batch)
                 torch.cuda.synchronize()
                 self.step_s.append(time.perf_counter() - t0)
                 self.coll_s.append(coll_s[0] - c0)
@@ -534,6 +552,75 @@ def zero_launches(kernels: dict) -> None:
 
 def read_launches(kernels: dict) -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in kernels.items()}
+
+
+def zero_ingest(native, prefetcher_cls) -> None:
+    """Zero the ingest path's counters: batches the native parser parsed
+    and super-batches the transfer stage shipped."""
+    native.NativeParser.batches = 0
+    prefetcher_cls.ships = 0
+
+
+def read_ingest(native, prefetcher_cls) -> dict:
+    return {"native_batches": native.NativeParser.batches,
+            "fused_ships": prefetcher_cls.ships}
+
+
+def check_train_path(tr: dict, launches: dict, ingest: dict,
+                     extra_batches: int = 0) -> None:
+    """A training run went the native ingest path and the kernels: every
+    batch parsed by the native parser (``extra_batches`` more for the
+    validation files), every dispatch one fused ship, and
+    every kernel of the step launched at least once a step."""
+    steps = tr["steps"]
+    for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
+        check(launches[name] >= steps,
+              f"{name} launched {launches[name]} times in {steps} steps")
+    check(ingest["native_batches"] == steps + extra_batches,
+          f"the native parser parsed {ingest['native_batches']} batches "
+          f"for {steps} steps (+{extra_batches})")
+    check(ingest["fused_ships"] == tr["dispatches"] > 0,
+          f"{ingest['fused_ships']} fused ships for {tr['dispatches']} "
+          f"dispatches")
+
+
+def ingest_phase(torch, tcfg, card: str, train_files, native,
+                 prefetcher_cls, kernels: dict) -> dict:
+    """Phase 5b through ``tools/ingest_bench.py``: the parsers drained
+    alone, then ``Trainer.train()`` for 4 epochs three times (each run
+    checked as phase 5's).  Returns the ``ingest`` record."""
+    from fast_tffm_tpu_torch.tools import ingest_bench
+
+    epochs = 4
+    drains = [ingest_bench.drain(train_files, tcfg, threads, use_native,
+                                 n_ep)
+              for threads, use_native, n_ep in ((1, False, 1),
+                                                (1, True, epochs),
+                                                (8, True, epochs))]
+    check(len({d["digest"] for d in drains}) == 1,
+          f"the parsers' streams differ: {drains}")
+    print(f"ingest drain lines/s ({card}, {os.cpu_count()} cores): "
+          + json.dumps([d["lines_per_s"] for d in drains]), flush=True)
+
+    def on_start():
+        zero_launches(kernels)
+        zero_ingest(native, prefetcher_cls)
+
+    def on_end(run, result):
+        tr = result["train"]
+        check(tr["steps"] == epochs * TRAIN_FILES * BATCHES_PER_FILE,
+              f"ingest run {run}: {tr['steps']} steps")
+        check_train_path(tr, read_launches(kernels),
+                         read_ingest(native, prefetcher_cls))
+
+    icfg = dataclasses.replace(tcfg, epoch_num=epochs)
+    record = ingest_bench.train_runs(icfg, torch.device("cuda"),
+                                     on_start=on_start, on_end=on_end)
+    return {"card": card, "cpu_count": os.cpu_count(),
+            "lines": TRAIN_FILES * BATCHES_PER_FILE * LINES,
+            "drain": [{k: v for k, v in d.items() if k != "digest"}
+                      for d in drains],
+            "streams_bitwise_equal": True, "epochs": epochs, **record}
 
 
 def spawn_ranks(tmp: str, tag: str, overrides: dict, world: int,
@@ -892,9 +979,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data import native
     from fast_tffm_tpu_torch.data.libsvm import (
         host_sort_meta, make_batch, parse_lines,
     )
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
     from fast_tffm_tpu_torch.models import fm
     from fast_tffm_tpu_torch.ops import _build, fm_kernels, sparse_apply
     from fast_tffm_tpu_torch.ops.fm_kernels import (
@@ -940,6 +1029,12 @@ def main() -> int:
                                    "error")):
             print(f"ptxas: {line.strip()}")
     print(f"build: {build_s:.3f} s ({card})", flush=True)
+    # The native parser, from its source in the checkout.
+    if os.path.exists(native.LIB_PATH):
+        os.remove(native.LIB_PATH)
+    t0 = time.perf_counter()
+    native.load()
+    print(f"parser build: {time.perf_counter() - t0:.3f} s", flush=True)
 
     cfg = load_config(CFG_PATH, {"serve_poll_secs": 0.0, "serve_port": 0})
     F, D, B = cfg.max_features, cfg.embedding_dim, cfg.batch_size
@@ -1368,6 +1463,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     kernels = kernel_fns(fm_kernels, sparse_apply, micro_probe)
     zero_launches(kernels)
+    zero_ingest(native, DevicePrefetcher)
 
     class LossTrainer(Trainer):
         """Keeps each step's loss, a device scalar, for the falling-loss
@@ -1377,8 +1473,8 @@ def main() -> int:
             self.step_losses = []
             super().__init__(cfg)
 
-        def train_step(self, batch):
-            loss = super().train_step(batch)
+        def device_step(self, batch):
+            loss = super().device_step(batch)
             self.step_losses.append(loss)
             return loss
 
@@ -1386,6 +1482,7 @@ def main() -> int:
     trainer = LossTrainer(tcfg)
     result = trainer.train()
     train_wall = time.perf_counter() - t0
+    train_ingest = read_ingest(native, DevicePrefetcher)
     t0 = time.perf_counter()
     n_pred = predict(tcfg)
     predict_wall = time.perf_counter() - t0
@@ -1396,10 +1493,8 @@ def main() -> int:
     steps = tr["steps"]
     check(steps == TRAIN_FILES * BATCHES_PER_FILE,
           f"trained {steps} steps")
-    for name in ("fm_grad", "k1_dedup", "k2_apply"):
-        check(train_launches[name] >= steps,
-              f"{name} launched {train_launches[name]} times in "
-              f"{steps} steps")
+    check_train_path(tr, train_launches, train_ingest,
+                     extra_batches=1)  # the validation file parses too
     losses = [float(x) for x in trainer.step_losses]
     last = float(np.mean(losses[-4:]))
     check(all(np.isfinite(losses)), "non-finite step loss")
@@ -1423,11 +1518,20 @@ def main() -> int:
         "predict_scores": n_pred,
         "examples_per_sec_end_to_end": tr["examples_per_sec"],
         "ingest_wait_frac": tr["ingest_wait_frac"],
+        "native_batches": train_ingest["native_batches"],
+        "fused_ships": train_ingest["fused_ships"],
+        "dispatches": tr["dispatches"],
         "peak_device_mb": peak_mb,
     }}), flush=True)
     del trainer
 
     phase_end("train")
+
+    # -- ingest phase (main path 1 again): the native ingest path -------
+    print(json.dumps({"ingest": ingest_phase(
+        torch, tcfg, card, train_files, native, DevicePrefetcher,
+        kernels)}), flush=True)
+    phase_end("ingest")
 
     # -- bf16 train phase (main path 1 with compute_dtype = bfloat16) --
     # One file (8 steps), the f32 run first on the same batches (same
@@ -1562,12 +1666,17 @@ def main() -> int:
         "compute_dtype": dtype,
     })) for dtype in ("float32", "bfloat16")}
     times = {dtype: [] for dtype in steppers}
+    times_dev = []  # the f32 step on a batch already on the device
     for i in range(24):
         for dtype, stepper in steppers.items():
             t0 = time.perf_counter()
             stepper.train_step(batches[i % 3])
             torch.cuda.synchronize()
             times[dtype].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        steppers["float32"].device_step(dev_batches[i % 3])
+        torch.cuda.synchronize()
+        times_dev.append(time.perf_counter() - t0)
     for dtype, stepper in steppers.items():
         step_ms = p50(times[dtype][4:]) * 1e3
         prof = iter(range(1 << 30))
@@ -1580,6 +1689,8 @@ def main() -> int:
         print(json.dumps({key: {
             "card": card, "B": B, "compute_dtype": dtype, "p50_ms": step_ms,
             "examples_per_sec_step_alone": B / (step_ms / 1e3),
+            **({"p50_ms_device_batch": p50(times_dev[4:]) * 1e3}
+               if dtype == "float32" else {}),
             "profiler_wall_ms": step_wall, "device_busy_ms": busy,
             "device_idle_frac": max(0.0, 1.0 - busy / step_wall),
             "device_ms_by_op": step_dev, "host_self_ms_top10": step_host,

@@ -8,9 +8,10 @@ maps to the same bucket ids in both packages, and of its ``Batch``,
 
 ``SortMeta`` / :func:`host_sort_meta` are the port's own host prep for
 the sparse apply (``ops/sparse_apply.py``): a stable sort of a batch's
-flat ids, computed with numpy on a pipeline thread.  The reference's
-CHUNK/TILE-shaped meta (``data/native.py::sort_meta``) exists for its
-TPU kernels and is not carried over.
+flat ids, by numpy here (the plain version); the parse workers compute
+the same arrays with the C++ sort (``data/native.py::sort_meta``).  The
+reference's CHUNK/TILE-shaped meta exists for its TPU kernels and is not
+carried over.
 
 Supported line formats:
   - libsvm:  ``label id:val id:val ...``

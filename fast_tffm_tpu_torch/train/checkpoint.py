@@ -15,6 +15,11 @@ resumes exactly (serving reads only the keys above):
     opt/z_w0, opt/z_table, opt/n_w0, opt/n_table   FTRL
     (none)                                    SGD
 
+Beside it a trainer writes ``data_state.json``, the input position of
+the saved step (the reference's keys: ``epoch``, ``batches_done`` and
+the stream's ``fingerprint``), so a warm start continues the stream
+where the saved run stopped (:func:`restore_data_state`).
+
 A multi-rank trainer writes the same file (:func:`save_sharded`: rank
 0 gathers the model shards over the ``model`` axis) and each rank reads
 its own rows of it (``rows=``), so a checkpoint moves freely between
@@ -26,6 +31,7 @@ The reference's Orbax dense checkpoints, ``quant.npz`` and
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Optional, Union
 
@@ -40,8 +46,9 @@ from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.train.sparse import SparseAdagradState, SparseFtrlState
 from fast_tffm_tpu_torch.weights import from_jax, to_numpy
 
-__all__ = ["exists", "params_path", "restore_opt_state", "restore_params",
-           "save_params", "save_sharded"]
+__all__ = ["data_state_path", "exists", "params_path", "restore_data_state",
+           "restore_opt_state", "restore_params", "save_params",
+           "save_sharded"]
 
 # optimizer -> (state type, its checkpoint keys in field order)
 _OPT_KEYS = {
@@ -55,14 +62,28 @@ def params_path(model_file: str) -> str:
     return os.path.join(os.path.abspath(model_file), "params.npz")
 
 
+def data_state_path(model_file: str) -> str:
+    return os.path.join(os.path.abspath(model_file), "data_state.json")
+
+
+def restore_data_state(model_file: str) -> Optional[dict]:
+    """The saved input position, or None when there is none."""
+    try:
+        with open(data_state_path(model_file)) as f:
+            return json.load(f)
+    except (FileNotFoundError, json.JSONDecodeError):
+        return None
+
+
 def exists(model_file: str) -> bool:
     return os.path.isfile(params_path(model_file))
 
 
 def save_params(model_file: str, model: FmModel, step: int = 0,
-                opt_state=None) -> str:
+                opt_state=None, data_state: Optional[dict] = None) -> str:
     """Write ``params.npz`` atomically (temp file + rename), with the
-    sparse optimizer state when given; returns its path."""
+    sparse optimizer state when given, then ``data_state.json`` when
+    given; returns the params' path."""
     path = params_path(model_file)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     w0, table = to_numpy(model)
@@ -80,11 +101,17 @@ def save_params(model_file: str, model: FmModel, step: int = 0,
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
     os.replace(tmp, path)
+    if data_state is not None:
+        tmp = data_state_path(model_file) + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(data_state, f)
+        os.replace(tmp, data_state_path(model_file))
     return path
 
 
 def save_sharded(model_file: str, model_l: FmModel, mesh: Mesh,
-                 step: int = 0, opt_state_l=None) -> str:
+                 step: int = 0, opt_state_l=None,
+                 data_state: Optional[dict] = None) -> str:
     """Every rank calls this: the ranks of data row 0 send their model
     shards (table and optimizer tables) over the ``model`` axis to rank
     0, which alone assembles the full tables and writes ``params.npz``
@@ -101,7 +128,7 @@ def save_sharded(model_file: str, model_l: FmModel, mesh: Mesh,
                if opt_state_l else opt_state_l)
         if mesh.rank == 0:
             save_params(model_file, FmModel(model_l.w0.detach(), table),
-                        step=step, opt_state=opt)
+                        step=step, opt_state=opt, data_state=data_state)
     barrier(mesh)
     return params_path(model_file)
 

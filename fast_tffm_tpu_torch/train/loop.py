@@ -3,17 +3,30 @@
 on a rank mesh.
 
 :class:`Trainer` initialises the model (or warm-starts it, optimizer
-state included, from ``<model_file>/params.npz``), streams batches from
-a :class:`~fast_tffm_tpu_torch.data.pipeline.BatchPipeline` (host sort
-meta attached when ``host_sort``) and runs :func:`train.sparse.
-sparse_step` per batch: on the GPU the FmScorer forward, FmGrad
-backward, K1 dedup and K2 apply kernels (FmScorer and FmGrad in their
-bf16-input mode with ``compute_dtype = bfloat16``, on one device;
-validation scores in f32, as the reference's ``make_eval_step``).
-``steps_per_dispatch = K`` runs K plain steps per group, the semantics
-of the reference's fused ``lax.scan``; the logging, validation and save
-cadences are checked after each group.  Streaming logloss/AUC accumulate on the device and
-are read back only at those cadences.
+state included, from ``<model_file>/params.npz``).  :meth:`Trainer.train`
+reads one :class:`~fast_tffm_tpu_torch.data.pipeline.BatchPipeline` over
+the run's epochs (``thread_num`` parse threads on the C++ parser, host
+sort meta attached when ``host_sort``), ships it through a
+:class:`~fast_tffm_tpu_torch.data.prefetch.DevicePrefetcher` (super-batches
+of ``steps_per_dispatch = K`` batches, one pinned copy each, up to
+``prefetch_super_batches`` ahead) and runs :func:`train.sparse.
+sparse_step` on each of a super-batch's K views: on the GPU the
+FmScorer forward, FmGrad backward, K1 dedup and K2 apply kernels
+(FmScorer and FmGrad in their bf16-input mode with ``compute_dtype =
+bfloat16``, on one device; validation scores in f32, as the reference's
+``make_eval_step``).  K steps on a super-batch are the semantics of the
+reference's fused ``lax.scan``; the logging, validation and save
+cadences are checked after each super-batch, and an epoch's tail ships
+as a short one.  Streaming logloss/AUC accumulate on the device and are
+read back only at those cadences.
+
+Every save writes ``data_state.json`` beside ``params.npz``: the epoch
+and the batches of it that trained (always a super-batch boundary), and
+the input stream's fingerprint.  A warm start from a checkpoint of a
+trained step (step > 0) continues the stream from there (the
+reference's rules: a position saved under another fingerprint is
+ignored with a warning; a completed run's position means ``epoch_num``
+fresh epochs).
 
 On a rank mesh (``mesh_data x mesh_model > 1``, after
 ``train.dist.initialize``) every rank builds the same seeded full table
@@ -24,20 +37,21 @@ values: PyTorch has no GSPMD) and evaluates through the same sharded
 forward; metrics are summed over the ``data`` axis, so every rank
 reports the global ones, and rank 0 writes the one ``params.npz``.
 
-:func:`predict` scores ``predict_files`` through the serving path's
-:class:`~fast_tffm_tpu_torch.serve.scorer.FixedShapeScorer`, with
-``batch_size`` added as a rung, and writes one score per line in input
-order.
+:meth:`Trainer.train_step` (one host batch, copied with
+``train.sparse.to_device``) and :meth:`Trainer.evaluate` keep the plain
+route to the device.  :func:`predict` scores ``predict_files`` through
+the serving path's :class:`~fast_tffm_tpu_torch.serve.scorer.
+FixedShapeScorer`, with ``batch_size`` added as a rung, and writes one
+score per line in input order.
 
 Settings that would change the result and need a later slice raise
-NotImplementedError naming the ROADMAP.md port-queue item; observability
-planes that never change a parameter are accepted and logged as inert.
+NotImplementedError naming the ROADMAP.md port-queue item; settings that
+never change a parameter are accepted and logged as inert.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import itertools
 import logging
 import time
 from typing import NamedTuple, Optional, Union
@@ -46,7 +60,8 @@ import torch
 
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.libsvm import Batch
-from fast_tffm_tpu_torch.data.pipeline import BatchPipeline
+from fast_tffm_tpu_torch.data.pipeline import BatchPipeline, EpochEnd
+from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
 from fast_tffm_tpu_torch.models import fm
 from fast_tffm_tpu_torch.ops import sparse_apply
 from fast_tffm_tpu_torch.parallel.mesh import (
@@ -130,6 +145,16 @@ def _check_supported(cfg: FmConfig) -> None:
             "the PyTorch port's trainer does not run these planes yet "
             "(ROADMAP.md port queue item 4; parameters are unaffected): %s",
             ", ".join(inert),
+        )
+    if cfg.parse_processes > 0:
+        # The reference holds its process pool element-wise equal to its
+        # threads, so the threads give the same batches.
+        log.info(
+            "parse_processes=%d and ring_slots=%d are inert: the process "
+            "pool and its shared-memory ring are ROADMAP.md port queue "
+            "item 7a; parsing runs on thread_num=%d threads (the same "
+            "batches)", cfg.parse_processes, cfg.ring_slots,
+            max(1, cfg.thread_num),
         )
 
 
@@ -245,6 +270,9 @@ class Trainer:
             self._init_or_restore()
         )
         self.metrics = MetricState.zeros(self.device)
+        # The input position a save records: the epoch, and the batches
+        # of it that trained.
+        self._epoch = self._batches_done = 0
 
     def _init_or_restore(self):
         """The model and optimizer state (this rank's model shard on a
@@ -291,6 +319,8 @@ class Trainer:
         return ms.psum_data(self.mesh).finalize(self.cfg.loss_type)
 
     def _put(self, batch: Batch) -> Batch:
+        """The plain route to the device: a host batch, range-checked and
+        copied leaf by leaf (``train_step``, ``evaluate``)."""
         vocab = self.cfg.vocabulary_size
         if batch.ids.size and (batch.ids.min() < 0
                                or batch.ids.max() >= vocab):
@@ -299,11 +329,10 @@ class Trainer:
             raise ValueError(f"feature ids must lie in [0, {vocab})")
         return to_device(batch, self.device)
 
-    def train_step(self, batch: Batch) -> torch.Tensor:
-        """One step on a host :class:`Batch` (this rank's data block on a
-        mesh); returns the batch's mean weighted data loss as a device
+    def device_step(self, dev_batch: Batch) -> torch.Tensor:
+        """One step on a device :class:`Batch` (this rank's data block on
+        a mesh); returns the batch's mean weighted data loss as a device
         scalar."""
-        dev_batch = self._put(batch)
         if self.sharded:
             scores = sparse_step_shardmap(self.cfg, self.model,
                                           self.opt_state, dev_batch,
@@ -316,35 +345,97 @@ class Trainer:
         )
         return lsum / torch.clamp(wsum, min=1e-12)
 
+    def train_step(self, batch: Batch) -> torch.Tensor:
+        """One step on a host :class:`Batch`, copied to the device by the
+        plain route (:meth:`device_step` on it)."""
+        return self.device_step(self._put(batch))
+
+    def _data_fingerprint(self) -> dict:
+        """What defines the training stream; a saved position holds only
+        for the same (``fast_tffm_tpu/train/loop.py::
+        Trainer._data_fingerprint``; ``cache_prestacked`` needs the epoch
+        cache, which the port refuses)."""
+        cfg = self.cfg
+        return {
+            "seed": cfg.seed, "batch_size": cfg.batch_size,
+            "train_files": list(cfg.train_files),
+            "shuffle_buffer": cfg.shuffle_buffer,
+            "fast_ingest": cfg.fast_ingest, "cache_epochs": cfg.cache_epochs,
+        }
+
+    def _resume_position(self) -> tuple:
+        """``(epoch, batches to skip)`` from the checkpoint's
+        ``data_state.json``, by the reference's rules
+        (``fast_tffm_tpu/train/loop.py``, ``Trainer.train``)."""
+        cfg = self.cfg
+        # Only a checkpoint of a trained step carries a position: a stale
+        # data_state.json beside parameters saved at step 0 (imported
+        # weights) must not make their first run skip data.
+        ds = (checkpoint.restore_data_state(cfg.model_file)
+              if self._restored_step else None)
+        if ds is None:
+            return 0, 0
+        fp = ds.get("fingerprint")
+        if fp is not None and fp != self._data_fingerprint():
+            log.warning(
+                "checkpoint data position was saved under a different "
+                "input config (seed/batch_size/files changed); ignoring it "
+                "and reading the epoch from the start"
+            )
+            return 0, 0
+        if not 0 <= ds.get("epoch", -1) < cfg.epoch_num:
+            return 0, 0  # a completed run: epoch_num fresh epochs
+        epoch, skip = int(ds["epoch"]), int(ds.get("batches_done", 0))
+        if epoch or skip:
+            log.info("resuming data stream at epoch %d, skipping %d batches",
+                     epoch, skip)
+        return epoch, skip
+
     def train(self) -> dict:
         cfg = self.cfg
         if not cfg.train_files:
             raise ValueError("no train_files configured")
-        k = cfg.steps_per_dispatch
+        self._epoch, self._batches_done = self._resume_position()
         t0 = time.time()
         last_log_t = t0
         last_log_ex = self.global_metrics(self.metrics)["examples"]
         stepno = last_log_step = last_val_step = last_save_step = 0
-        wait_s = dispatch_s = 0.0
+        dispatches = 0
+        wait_s = dispatch_s = first_s = 0.0
         pipe_cfg, shard = self._input_plan()
         # The sharded step sorts its local ids on the device.
-        with BatchPipeline(
+        pipeline = BatchPipeline(
             cfg.train_files, pipe_cfg, epochs=cfg.epoch_num, shuffle=True,
             host_meta=cfg.host_sort and not self.sharded,
             weight_files=cfg.weight_files, shard=shard,
-        ) as pipeline:
-            batches = iter(pipeline)
+            start_epoch=self._epoch, skip_batches=self._batches_done,
+            epoch_marks=True,
+        )
+        prefetcher = DevicePrefetcher(
+            pipeline, cfg.steps_per_dispatch, self.device,
+            cfg.vocabulary_size, depth=cfg.prefetch_super_batches,
+            with_fields=cfg.field_num > 0,
+        )
+        try:
+            source = iter(prefetcher)
             while True:
                 t_wait = time.perf_counter()
-                group = list(itertools.islice(batches, k))
+                item = next(source, None)
                 t_run = time.perf_counter()
                 wait_s += t_run - t_wait
-                if not group:
+                if item is None:
                     break
-                for batch in group:
-                    self.train_step(batch)
+                if isinstance(item, EpochEnd):
+                    self._epoch, self._batches_done = item.epoch + 1, 0
+                    continue
+                for i in range(item.n):
+                    self.device_step(item.step(i))
                 dispatch_s += time.perf_counter() - t_run
-                stepno += len(group)
+                if not dispatches:
+                    first_s = time.time() - t0
+                dispatches += 1
+                stepno += item.n
+                self._batches_done += item.n
                 if cfg.log_steps and stepno - last_log_step >= cfg.log_steps:
                     last_log_step = stepno
                     m = self.global_metrics(self.metrics)
@@ -367,11 +458,17 @@ class Trainer:
                 if cfg.save_steps and stepno - last_save_step >= cfg.save_steps:
                     last_save_step = stepno
                     self.save(stepno)
-            truncated = pipeline.truncated_features
+        finally:
+            prefetcher.close()
+        truncated = pipeline.truncated_features
+        self._epoch, self._batches_done = cfg.epoch_num, 0
         wall = max(time.time() - t0, 1e-9)
         train_metrics = self.global_metrics(self.metrics)
         train_metrics["examples_per_sec"] = train_metrics["examples"] / wall
         train_metrics["steps"] = stepno
+        train_metrics["dispatches"] = dispatches
+        train_metrics["first_dispatch_s"] = first_s
+        train_metrics["wall_s"] = wall
         train_metrics["ingest_cache"] = "off"
         train_metrics["truncated_features"] = int(truncated)
         train_metrics["out_of_range_batches"] = 0
@@ -407,11 +504,14 @@ class Trainer:
         return self.global_metrics(ms)
 
     def save(self, stepno: int) -> str:
-        """Write ``params.npz`` (on a mesh every rank calls this; rank 0
-        writes).  Returns its path."""
+        """Write ``params.npz`` and ``data_state.json`` (on a mesh every
+        rank calls this; rank 0 writes).  Returns the params' path."""
         return checkpoint.save_sharded(
             self.cfg.model_file, self.model, self.mesh,
             step=self._restored_step + stepno, opt_state_l=self.opt_state,
+            data_state={"epoch": self._epoch,
+                        "batches_done": self._batches_done,
+                        "fingerprint": self._data_fingerprint()},
         )
 
 

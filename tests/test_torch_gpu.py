@@ -880,3 +880,82 @@ def test_k1_merge_of_a_four_block_mesh(gpu):
         put(g).double(), put(ids), *sparse_apply.sort_meta(put(ids)))
     assert torch.equal(urows, dense_rows)
     torch.testing.assert_close(sums.double(), dense, rtol=1e-5, atol=1e-5)
+
+
+def _host_batches(n, b=512, f=39, vocab=1 << 16, seed=9):
+    """``n`` host batches with their native sort meta."""
+    from fast_tffm_tpu_torch.data import native
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, vocab, (b, f)).astype(np.int32)
+        ids[:64, 0] = 7  # a hot id
+        out.append(Batch(
+            (rng.random(b) < 0.4).astype(np.float32), ids,
+            rng.uniform(0.1, 1.0, (b, f)).astype(np.float32),
+            np.zeros((b, f), np.int32), np.ones((b,), np.float32),
+            native.sort_meta(ids, vocab)))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k, depth", [(1, 1), (3, 2)])
+def test_prefetcher_views_match_stack_batches_on_the_gpu(gpu, k, depth):
+    """The transfer stage on the card: one pinned copy a super-batch
+    (an epoch tail of K' = 1 included), its device views equal to
+    ``stack_batches`` of the same group, the staging buffers pinned and
+    recycled only behind their copies."""
+    from fast_tffm_tpu_torch.data.prefetch import (
+        DevicePrefetcher, stack_batches,
+    )
+
+    host = _host_batches(7)
+    pre = DevicePrefetcher(host, k, gpu, 1 << 16, depth=depth)
+    got = list(pre)
+    assert [sb.n for sb in got] == [len(host[i:i + k])
+                                    for i in range(0, 7, k)]
+    for j, sb in enumerate(got):
+        plain = stack_batches(host[j * k:j * k + sb.n], with_fields=False)
+        for i in range(sb.n):
+            step, want = sb.step(i), plain.step(i)
+            assert step.ids.device.type == "cuda" and step.fields is None
+            for a, b in zip(step[:5], want[:5]):
+                if b is not None:
+                    assert np.array_equal(a.cpu().numpy(), b)
+            for a, b in zip(step.sort_meta, want.sort_meta):
+                assert np.array_equal(a.cpu().numpy(), b)
+    for bufs in pre._free.values():
+        assert all(b.is_pinned() for b in bufs)
+
+
+@pytest.mark.gpu
+def test_steps_on_shipped_views_equal_steps_on_copied_batches(gpu):
+    """Three sparse steps on the transfer stage's views train the same
+    table, bitwise, as on ``to_device`` copies of the same batches."""
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.models import fm
+
+    vocab = 1 << 16
+    cfg = FmConfig(vocabulary_size=vocab, factor_num=8, max_features=39,
+                   batch_size=512)
+    host = _host_batches(3, vocab=vocab)
+    init = fm.init_params(cfg, torch.Generator(device=gpu).manual_seed(1),
+                          device=gpu)
+    models = []
+    for shipped in (True, False):
+        model = fm.FmModel(init.w0.detach().clone(),
+                           init.table.detach().clone())
+        opt = sparse.init_sparse_opt_state(cfg, model)
+        if shipped:
+            batches = [sb.step(i) for sb in
+                       DevicePrefetcher(host, 3, gpu, vocab)
+                       for i in range(sb.n)]
+        else:
+            batches = [sparse.to_device(b, gpu) for b in host]
+        for b in batches:
+            sparse.sparse_step(cfg, model, opt, b)
+        models.append((model, opt))
+    (m1, o1), (m2, o2) = models
+    assert torch.equal(m1.table, m2.table) and torch.equal(m1.w0, m2.w0)
+    assert torch.equal(o1.acc_table, o2.acc_table)

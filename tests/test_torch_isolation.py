@@ -35,6 +35,8 @@ _TRAIN_SLICE = (
     "fast_tffm_tpu_torch.train.metrics", "fast_tffm_tpu_torch.ops.sparse_apply",
     "fast_tffm_tpu_torch.data.pipeline", "fast_tffm_tpu_torch.parallel.mesh",
     "fast_tffm_tpu_torch.train.dist", "fast_tffm_tpu_torch.train.shardmap_step",
+    "fast_tffm_tpu_torch.data.native", "fast_tffm_tpu_torch.data.prefetch",
+    "fast_tffm_tpu_torch.data.queues", "fast_tffm_tpu_torch.tools.ingest_bench",
 )
 # The table-layout probe's modules.
 _PROBE_SLICE = (

@@ -23,11 +23,12 @@ import jax
 
 from fast_tffm_tpu.config import FmConfig as JaxFmConfig
 from fast_tffm_tpu.data.pipeline import BatchPipeline as JaxBatchPipeline
+from fast_tffm_tpu.data.pipeline import EpochEnd as JaxEpochEnd
 from fast_tffm_tpu.train.loop import Trainer as JaxTrainer
 from fast_tffm_tpu_torch import weights
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data import libsvm
-from fast_tffm_tpu_torch.data.pipeline import BatchPipeline
+from fast_tffm_tpu_torch.data.pipeline import BatchPipeline, EpochEnd
 from fast_tffm_tpu_torch.train import checkpoint
 from fast_tffm_tpu_torch.train.loop import Trainer
 
@@ -126,13 +127,66 @@ def test_batches_match_the_reference_bitwise(tmp_path, fast_ingest,
         assert int((weights_seen > 0).sum()) == epochs * (260 - 6)
 
 
+@pytest.mark.parametrize(
+    "fast_ingest, shuffle, shard, threads, start_epoch, skip", [
+        (True, True, (0, 1), 1, 0, 0),
+        (True, True, (0, 1), 4, 0, 0),
+        (True, False, (1, 2), 4, 0, 3),
+        (True, True, (0, 1), 4, 1, 5),
+        (False, True, (0, 1), 1, 0, 7),
+        (False, True, (1, 2), 4, 1, 2),
+        (False, False, (0, 1), 4, 0, 0),
+    ])
+def test_threaded_stream_matches_the_reference_bitwise(
+        tmp_path, fast_ingest, shuffle, shard, threads, start_epoch, skip):
+    """``thread_num`` parse workers, reordered to reader order: two
+    epochs with their :class:`EpochEnd` markers, from a resume position,
+    bitwise the reference's ``BatchPipeline(ordered=True)``; the Python
+    parser (asked for by name) gives the same batches."""
+    files, _ = _write_files(tmp_path)
+    common = dict(epochs=2, shuffle=shuffle, shard=shard,
+                  start_epoch=start_epoch, skip_batches=skip,
+                  epoch_marks=True)
+    kw = dict(fast_ingest=fast_ingest, thread_num=threads, **STREAM)
+    got, got_trunc, _ = _port_batches(files, FmConfig(**kw), host_meta=True,
+                                      **common)
+    plain, plain_trunc, _ = _port_batches(files, FmConfig(**kw),
+                                          host_meta=True, native=False,
+                                          **common)
+    want, want_trunc, _ = _jax_batches(files, JaxFmConfig(**kw), **common)
+    marks = [i for i, b in enumerate(want) if isinstance(b, JaxEpochEnd)]
+    assert len(marks) == 2 - start_epoch and len(want) > 8
+    assert got_trunc == plain_trunc == want_trunc > 0
+    assert len(got) == len(plain) == len(want)
+    for g, p, w in zip(got, plain, want):
+        if isinstance(w, JaxEpochEnd):
+            assert g == p == EpochEnd(w.epoch)
+            continue
+        for name in ("labels", "ids", "vals", "fields", "weights"):
+            np.testing.assert_array_equal(getattr(g, name), getattr(w, name),
+                                          err_msg=name)
+            np.testing.assert_array_equal(getattr(p, name), getattr(w, name),
+                                          err_msg=name)
+        meta = libsvm.host_sort_meta(w.ids)
+        for a, b, c in zip(g.sort_meta, p.sort_meta, meta):
+            np.testing.assert_array_equal(a, c)
+            np.testing.assert_array_equal(b, c)
+
+
 def test_raw_window_spans_the_file_boundary(tmp_path):
     """The shapes the bitwise cases rely on: a window that holds file 1's
     last lines and file 2's first, and more than one batch."""
+    from fast_tffm_tpu_torch.data.native import find_line_offsets
     from fast_tffm_tpu_torch.data.pipeline import _iter_raw_windows
 
     files, _ = _write_files(tmp_path)
     wins = list(_iter_raw_windows(files, 4, 10))
+    # The C++ line scan (the native path's) cuts the same windows.
+    for a, b in zip(wins, _iter_raw_windows(files, 4, 10,
+                                            line_starts=find_line_offsets)):
+        assert a.buf == b.buf and a.marks == b.marks
+        np.testing.assert_array_equal(a.starts, b.starts)
+        np.testing.assert_array_equal(a.ends, b.ends)
     assert sum(len(w.starts) for w in wins) == 260
     spanning = [w for w in wins if {m[1] for m in w.marks} == set(files)]
     assert spanning and all(len(w.starts) >= 8 for w in spanning)
@@ -165,11 +219,16 @@ def _gen_sample(tmp_path):
     return path, vocab, factor
 
 
-@pytest.mark.parametrize("fast_ingest", [True, False])
-def test_trainer_params_match_the_reference_trainer(tmp_path, fast_ingest):
+@pytest.mark.parametrize("fast_ingest, k", [
+    (True, 1), (False, 1), (True, 3), (False, 3),
+])
+def test_trainer_params_match_the_reference_trainer(tmp_path, fast_ingest,
+                                                    k):
     """Shuffled sparse Adagrad through ``Trainer.train`` in both
-    packages, from the reference's initial table: the same batches in
-    the same order give the same parameters (K = 1)."""
+    packages, from the reference's initial table, four parse threads:
+    the same batches in the same order give the same parameters, with K
+    = 1 and with super-batches of K = 3 (the epochs' 12 batches in four
+    dispatches)."""
     path, vocab, factor = _gen_sample(tmp_path)
     common = dict(
         vocabulary_size=vocab, factor_num=factor, max_features=16,
@@ -177,10 +236,10 @@ def test_trainer_params_match_the_reference_trainer(tmp_path, fast_ingest):
         adagrad_initial_accumulator=0.01, optimizer="adagrad",
         factor_lambda=1e-4, bias_lambda=1e-4, init_value_range=0.05,
         shuffle_buffer=400, seed=7, train_files=[path], log_steps=0,
-        steps_per_dispatch=1, fast_ingest=fast_ingest,
+        steps_per_dispatch=k, fast_ingest=fast_ingest, thread_num=4,
     )
     jcfg = JaxFmConfig(model_file=str(tmp_path / "jax_model"),
-                       sparse_apply="scatter", thread_num=1, **common)
+                       sparse_apply="scatter", **common)
     jt = JaxTrainer(jcfg)
     init = jax.tree.map(np.asarray, jt.state.params)
     jres = jt.train()
@@ -190,6 +249,7 @@ def test_trainer_params_match_the_reference_trainer(tmp_path, fast_ingest):
     pt = Trainer(FmConfig(model_file=port_dir, **common), device="cpu")
     pres = pt.train()
     assert pres["train"]["steps"] == 2 * -(-1500 // 128)
+    assert pres["train"]["dispatches"] == 2 * -(-12 // k)
     assert pres["train"]["examples"] == jres["train"]["examples"]
     params = jt.state.params
     np.testing.assert_allclose(pt.model.table.detach().numpy(),

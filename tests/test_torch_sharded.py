@@ -364,7 +364,9 @@ def test_multi_rank_trainer_matches_single_process(tmp_path):
     """Four ranks (2 x 2) train from libsvm files with strided input
     sharding and equal the single-process trainer over the same global
     batches; the one params.npz they write warm-starts a single process,
-    and a single process's checkpoint warm-starts the ranks."""
+    and a single process's checkpoint warm-starts the ranks, which
+    continue its stream from its saved position (``data_state.json``:
+    epoch 1 of 2) as a single process does."""
     files = _write_files(tmp_path)
     base = dict(vocabulary_size=512, factor_num=4, max_features=8,
                 batch_size=64, train_files=files, validation_files=files[1:],
@@ -384,6 +386,8 @@ def test_multi_rank_trainer_matches_single_process(tmp_path):
             device="cpu").train()
     warm0 = np.load(checkpoint.params_path(str(tmp_path / "m_warm")))
     warm0 = {k: warm0[k] for k in warm0.files}
+    warm_ds = checkpoint.restore_data_state(str(tmp_path / "m_warm"))
+    assert (warm_ds["epoch"], warm_ds["batches_done"]) == (1, 0)
     (tmp_path / "train.json").write_text(json.dumps(runs))
     run_ranks("train", 4, tmp_path)
     for i, run in enumerate(runs):
@@ -394,14 +398,17 @@ def test_multi_rank_trainer_matches_single_process(tmp_path):
             assert res["validation"] == results[0]["validation"]
             assert ({m: res["train"][m] for m in metric + ("steps",)}
                     == {m: results[0]["train"][m] for m in metric + ("steps",)})
-        # 2 files x 512 lines x 2 epochs (1 for the warm run's first
-        # part) in global batches of 64.
-        assert results[0]["train"]["steps"] == 32
-        assert results[0]["train"]["examples"] == 2048.0
+        # 2 files x 512 lines x 2 epochs in global batches of 64; the
+        # warm run resumes at epoch 1 and trains its last epoch only.
+        epochs = 1 if i == 2 else 2
+        assert results[0]["train"]["steps"] == 16 * epochs
+        assert results[0]["train"]["examples"] == 1024.0 * epochs
         single_dir = tmp_path / f"single{i}"
         if i == 2:
             os.makedirs(single_dir)
             np.savez(checkpoint.params_path(str(single_dir)), **warm0)
+            with open(checkpoint.data_state_path(str(single_dir)), "w") as f:
+                json.dump(warm_ds, f)
         single = Trainer(FmConfig(**dict(
             run, mesh_data=1, mesh_model=1, model_file=str(single_dir))),
             device="cpu")

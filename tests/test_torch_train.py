@@ -388,3 +388,157 @@ max_features = 12
         assert int(z["scalar/step"]) == 36
         for key in ("params/table", "scalar/w0", "opt/acc_table"):
             assert z[key].dtype == np.float32, key
+
+
+def _snapshotting(trainer_cls, monkeypatch, which: int, snap: str):
+    """Patch ``trainer_cls.save`` to copy the model directory, as a run
+    interrupted right after its ``which``-th save would leave it."""
+    import shutil
+
+    orig = trainer_cls.save
+    calls = [0]
+
+    def save(self, stepno):
+        out = orig(self, stepno)
+        calls[0] += 1
+        if calls[0] == which:
+            shutil.copytree(self.cfg.model_file, snap)
+        return out
+
+    monkeypatch.setattr(trainer_cls, "save", save)
+
+
+@pytest.mark.parametrize("k, which, position", [
+    (1, 1, (0, 5)),   # saved mid-epoch 0 (step 5)
+    (1, 3, (1, 3)),   # saved mid-epoch 1 (step 15)
+    (3, 1, (0, 6)),   # K = 3: a super-batch boundary (step 6)
+])
+def test_resume_mid_epoch_matches_the_reference(tmp_path, monkeypatch, k,
+                                                which, position):
+    """A run saved every 5 steps, restarted from a mid-epoch checkpoint:
+    the port continues the stream from the saved position
+    (``data_state.json``) as the reference does from its own, and ends
+    where the reference's restarted run ends; the port's restarted run
+    ends where its uninterrupted run ended."""
+    import dataclasses
+    import json
+
+    from fast_tffm_tpu.train.loop import Trainer as JaxTrainer
+
+    rng = np.random.default_rng(42)
+    vocab = 300
+    w = rng.normal(0, 0.5, vocab)
+    v = rng.normal(0, 0.3, (vocab, 4))
+    path = str(tmp_path / "train.libsvm")
+    _gen(path, 1500, rng, w, v)  # 12 batches of 128 an epoch
+    common = dict(
+        vocabulary_size=vocab, factor_num=4, max_features=12,
+        batch_size=128, epoch_num=2, learning_rate=0.5,
+        adagrad_initial_accumulator=0.01, optimizer="adagrad",
+        factor_lambda=1e-4, bias_lambda=1e-4, init_value_range=0.05,
+        shuffle_buffer=400, seed=7, train_files=[path], log_steps=0,
+        save_steps=5, steps_per_dispatch=k, thread_num=2,
+    )
+    saved_step = 12 * position[0] + position[1]
+    # The reference: the full run, its checkpoint after save `which`,
+    # and a run restarted from that checkpoint.
+    jcfg = JaxFmConfig(model_file=str(tmp_path / "jax_model"),
+                       sparse_apply="scatter", **common)
+    jt = JaxTrainer(jcfg)
+    init = jax.tree.map(np.asarray, jt.state.params)
+    _snapshotting(JaxTrainer, monkeypatch, which, str(tmp_path / "jax_snap"))
+    jt.train()
+    monkeypatch.undo()
+    jr = JaxTrainer(dataclasses.replace(jcfg,
+                                        model_file=str(tmp_path / "jax_snap")))
+    jres = jr.train()
+    # The port, from the reference's initial table.
+    port_dir = str(tmp_path / "port_model")
+    checkpoint.save_params(port_dir, weights.from_jax(init.w0, init.table,
+                                                      device="cpu"))
+    cfg = FmConfig(model_file=port_dir, **common)
+    _snapshotting(Trainer, monkeypatch, which, str(tmp_path / "port_snap"))
+    full = Trainer(cfg, device="cpu")
+    full.train()
+    monkeypatch.undo()
+    snap = str(tmp_path / "port_snap")
+    ds_path = os.path.join(snap, "data_state.json")
+    saved = (json.loads(open(ds_path).read()) if os.path.exists(ds_path)
+             else None)
+    resumed = Trainer(dataclasses.replace(cfg, model_file=snap), device="cpu")
+    assert resumed._restored_step == saved_step
+    pres = resumed.train()
+    assert pres["train"]["steps"] == jres["train"]["steps"] == 24 - saved_step
+    assert pres["train"]["examples"] == jres["train"]["examples"]
+    assert (saved["epoch"], saved["batches_done"]) == position
+    assert saved["fingerprint"]["seed"] == 7
+    ds = checkpoint.restore_data_state(snap)
+    assert (ds["epoch"], ds["batches_done"]) == (2, 0)
+    params = jr.state.params
+    np.testing.assert_allclose(resumed.model.table.detach().numpy(),
+                               np.asarray(params.table), **TABLE_TOL)
+    np.testing.assert_allclose(float(resumed.model.w0.detach()),
+                               float(params.w0), **W0_TOL)
+    np.testing.assert_allclose(resumed.opt_state.acc_table.numpy(),
+                               np.asarray(jr.state.opt_state.acc.table),
+                               **OPT_TOL)
+    # The interrupted run ends where the uninterrupted one did.
+    np.testing.assert_array_equal(resumed.model.table.detach().numpy(),
+                                  full.model.table.detach().numpy())
+    np.testing.assert_array_equal(resumed.opt_state.acc_table.numpy(),
+                                  full.opt_state.acc_table.numpy())
+
+
+def test_resume_rules(tmp_path, caplog):
+    """The reference's rules: a completed run's position trains
+    ``epoch_num`` fresh epochs; a position saved under another stream
+    (here another seed) is ignored with a warning; a position beside
+    parameters that were not restored, or were saved at step 0
+    (imported weights), is not used."""
+    import dataclasses
+    import json
+    import logging
+
+    rng = np.random.default_rng(1)
+    _gen(tmp_path / "t.libsvm", 640, rng, rng.normal(0, 0.5, 100),
+         rng.normal(0, 0.3, (100, 4)))
+    cfg = FmConfig(vocabulary_size=100, factor_num=4, max_features=12,
+                   batch_size=128, epoch_num=1, log_steps=0, seed=3,
+                   train_files=[str(tmp_path / "t.libsvm")],
+                   model_file=str(tmp_path / "m"))
+    assert Trainer(cfg, device="cpu").train()["train"]["steps"] == 5
+    assert Trainer(cfg, device="cpu").train()["train"]["steps"] == 5
+    path = checkpoint.data_state_path(cfg.model_file)
+    with open(path) as f:
+        ds = json.load(f)
+    ds.update(epoch=0, batches_done=3)
+    with open(path, "w") as f:
+        json.dump(ds, f)
+    assert Trainer(cfg, device="cpu").train()["train"]["steps"] == 2
+    with open(path, "w") as f:
+        json.dump(ds, f)
+    with caplog.at_level(logging.WARNING):
+        steps = Trainer(dataclasses.replace(cfg, seed=4),
+                        device="cpu").train()["train"]["steps"]
+    assert steps == 5 and "different input config" in caplog.text
+    # Weights saved at step 0 with no position leave the stale one in
+    # place; it is not read (the reference gates on the restored step).
+    _, model = checkpoint.restore_params(cfg.model_file, device="cpu")
+    checkpoint.save_params(cfg.model_file, model, step=0)
+    with open(path, "w") as f:
+        json.dump(ds, f)
+    assert Trainer(cfg, device="cpu").train()["train"]["steps"] == 5
+    os.remove(checkpoint.params_path(cfg.model_file))
+    with open(path, "w") as f:
+        json.dump(ds, f)
+    assert Trainer(cfg, device="cpu").train()["train"]["steps"] == 5
+
+
+def test_process_pool_settings_are_logged_inert(caplog):
+    import logging
+
+    with caplog.at_level(logging.INFO):
+        Trainer(FmConfig(vocabulary_size=64, parse_processes=2,
+                         ring_slots=3), device="cpu")
+    assert "parse_processes=2 and ring_slots=3 are inert" in caplog.text
+    assert "item 7a" in caplog.text
