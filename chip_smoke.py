@@ -23,7 +23,9 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    at B in {1, 1000, 4096}, both again in their bf16-input mode (FmScorer
    at the rungs 64/256/1024 and the parsed batch, FmGrad bitwise), K1 and K2
    (adagrad, ftrl, sgd) at the training shapes of a parsed batch and with one id of >= 5000 occurrences (K1
-   also at the probe's stream), K-place at the sharded path's shapes
+   also at the probe's stream), K1 and K2 again on the whole ``[n + 1]``
+   ``seg_start`` slot at the first two (bitwise the cut slot's kernels on
+   the first U rows, row -1 after), K-place at the sharded path's shapes
    (``vocab_local = 2^21``, ``row_lo = 2^21``, a parsed local batch of
    2048 lines with sentinel ids) and K1's merge mode on two data blocks'
    entry streams (both exact: ``max_abs_err`` 0) — then kernel, plain
@@ -37,9 +39,12 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    ``examples/criteo_kaggle.cfg`` at full width (V = 2^22, F = 39,
    D = 9, B = 4096, Adagrad, batch L2, host sort meta, ``thread_num =
    8`` parse threads on the native parser, one pinned copy a
-   super-batch), 16 steps, then validation on one file and
+   super-batch, every dispatch after the first one replay of the CUDA
+   graph of its steps), 16 steps, then validation on one file and
    ``predict``.  Checks: at least one launch per step of ``fm_scores``,
-   ``fm_grad``, ``k1_dedup`` and ``k2_apply``; every batch parsed by
+   ``fm_grad``, ``k1_dedup`` and ``k2_apply`` (a replay adds the
+   launches its graph holds); one eager dispatch and the rest
+   graphed; every batch parsed by
    the native parser and every dispatch shipped by the transfer stage
    (their counters); the logloss of the last steps below the first
    step's; one finite probability per predict line.
@@ -63,6 +68,16 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    within 1e-2 of the f32 run's (the reference's
    ``tests/test_bf16.py::TestTrainingParity`` check); an f32
    ``params.npz``.
+6b. Graph phase (main path 1's dispatch): ``Trainer.train()`` over the
+   train files and the validation file (17 steps, so K = 4 ends on an
+   eager tail) for f32 and bf16 compute x Adagrad, FTRL, SGD x K = 1, 4,
+   each graphed and eager (the trainer's ``graph`` set to None) from the
+   same seeded table: tables, optimizer state, w0 and the metrics
+   bitwise equal, replays in the graphed run only.  Then at f32 Adagrad, K = 1 and 4, a super-batch
+   already on the card dispatched again and again, eager and graphed: the
+   step's p50 (a synchronised dispatch over K), the device's idle share
+   and the host time in ``cudaLaunchKernel`` and ``cudaGraphLaunch`` from
+   ``torch.profiler``, the capture's time and the graph pool's bytes.
 7. Parity phase, f32 and bf16 compute: 3 steps through the kernels vs
    3 through the plain path from the same initial weights: each step's
    scores (``rtol=1e-5, atol=1e-5``), the tables (``rtol=1e-4,
@@ -232,31 +247,43 @@ def time_per_call_ms(torch, fn, iters: int = 200, warm: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_times_ms(torch, fn, iters: int = 50):
+def device_times_ms(torch, fn, iters: int = 50, top: int = 10,
+                    counts: dict = None):
     """Per-call device time by op from torch.profiler over ``iters``
     calls, the host wall per call, and the host (CPU) self time per call
-    of the ten costliest host ops: ``({name: ms}, wall_ms, {name: ms})``."""
+    of the ``top`` costliest host ops (every op when ``top`` is 0):
+    ``({name: ms}, wall_ms, {name: ms})``.  ``counts``, if given, gets
+    each device op's number of runs over the ``iters`` calls.  One more
+    call is traced first and dropped (the schedule's warm-up): the first
+    kernels after tracing starts may go unrecorded."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        prof.step()
     out, host = {}, {}
     for ev in prof.key_averages():
         cpu_us = getattr(ev, "self_cpu_time_total", 0.0)
-        if cpu_us > 0:
+        if cpu_us > 0 and not ev.key.startswith("ProfilerStep"):
             host[ev.key[:60]] = cpu_us / 1e3 / iters
         # Device-side activities only (kernels, copies): a host range
         # (an aten:: op, an autograd Function) reports the kernels it
-        # launched again as its own device time.
-        if ev.device_type == DeviceType.CPU or "Activity Buffer" in ev.key:
+        # launched again as its own device time, and so does the
+        # schedule's step range on the device timeline.
+        if (ev.device_type == DeviceType.CPU or "Activity Buffer" in ev.key
+                or ev.key.startswith("ProfilerStep")):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -265,8 +292,10 @@ def device_times_ms(torch, fn, iters: int = 50):
             name = ev.key.replace("(anonymous namespace)::", "")
             name = name.split("(")[0].split("<")[0].strip()[:60]
             out[name] = out.get(name, 0.0) + dev_us / 1e3 / iters
-    top = dict(sorted(host.items(), key=lambda kv: -kv[1])[:10])
-    return out, wall * 1e3 / iters, top
+            if counts is not None:
+                counts[name] = counts.get(name, 0) + ev.count
+    ranked = sorted(host.items(), key=lambda kv: -kv[1])
+    return out, wall * 1e3 / iters, dict(ranked[:top] if top else ranked)
 
 
 def bound(nbytes: float, ops: float):
@@ -299,11 +328,26 @@ def cast_bound_ms(n: int, elt_in: int, elt_out: int):
     return bound(n * (elt_in + elt_out), 0)
 
 
-def k1_bound_ms(n: int, u: int, d: int):
+def k1_bound_ms(n: int, u: int, d: int, slot: int = 0):
     """K1: g_rows and perm read, ids once per unique id (at its
-    segment's first occurrence), seg_start read; urows and sums written.
+    segment's first occurrence), ``seg_start`` read and a row id written
+    for each of the ``slot`` segments it covers (``u`` on the cut slot,
+    the default; ``n`` on the whole slot); the ``u`` rows of sums
+    written (nothing reads sums past U, and the kernel writes none).
     Per occurrence and column: g, g*g, two adds."""
-    return bound(4 * (n * d + n + u + (u + 1) + u + 2 * d * u), 3 * n * d)
+    slot = slot or u
+    return bound(4 * (n * d + n + u + (slot + 1) + slot + 2 * d * u),
+                 3 * n * d)
+
+
+def full_slot(torch, seg_start, n: int):
+    """``seg_start [U + 1]`` padded with ``n`` to the whole ``[n + 1]``
+    slot the transfer stage ships (the graphed step's K1 reads it
+    whole)."""
+    slot = torch.full((n + 1,), n, dtype=torch.int32,
+                      device=seg_start.device)
+    slot[:seg_start.numel()] = seg_start
+    return slot
 
 
 def delta_check(torch, name: str, kern, plain, start) -> dict:
@@ -347,11 +391,13 @@ def kplace_bound_ms(u: int, w: int, vocab_local: int):
     return bound(4 * (u * (w + 1) + vocab_local * w), 0)
 
 
-def k2_bound_ms(u: int, d: int):
-    """K2 Adagrad: the entry stream (urows, sums) read; table and
-    accumulator read and written at the U touched rows.  Per element:
-    two adds, a reciprocal square root, two products, a subtraction."""
-    return bound(4 * (u + 2 * d * u + 4 * d * u), 6 * u * d)
+def k2_bound_ms(u: int, d: int, rows: int = 0):
+    """K2 Adagrad: the ``rows`` row ids read (``u`` by default; ``n`` on
+    the whole slot, whose rows -1 are skipped) and the U rows' sums;
+    table and accumulator read and written at the U touched rows.  Per
+    element: two adds, a reciprocal square root, two products, a
+    subtraction."""
+    return bound(4 * ((rows or u) + 2 * d * u + 4 * d * u), 6 * u * d)
 
 
 def k2t_sector_ms(torch, urows, d: int, v: int) -> float:
@@ -481,20 +527,21 @@ def rank_main(argv) -> int:
         shardmap_step.all_gather = timed(shardmap_step.all_gather)
 
         class TimedTrainer(Trainer):
-            """Times each step (synchronised) and its collectives."""
+            """Times each dispatch (synchronised) and its collectives,
+            over its steps."""
 
             def __init__(self, *args, **kwargs):
                 self.step_s, self.coll_s = [], []
                 super().__init__(*args, **kwargs)
 
-            def device_step(self, batch):
+            def dispatch(self, sb, pause=None):
                 c0 = coll_s[0]
                 t0 = time.perf_counter()
-                loss = super().device_step(batch)
+                losses = super().dispatch(sb, pause)
                 torch.cuda.synchronize()
-                self.step_s.append(time.perf_counter() - t0)
-                self.coll_s.append(coll_s[0] - c0)
-                return loss
+                self.step_s.append((time.perf_counter() - t0) / sb.n)
+                self.coll_s.append((coll_s[0] - c0) / sb.n)
+                return losses
 
         trainer = TimedTrainer(cfg, device=dev)
         kernels = kernel_fns(fm_kernels, sparse_apply, micro_probe)
@@ -568,20 +615,166 @@ def read_ingest(native, prefetcher_cls) -> dict:
 
 def check_train_path(tr: dict, launches: dict, ingest: dict,
                      extra_batches: int = 0) -> None:
-    """A training run went the native ingest path and the kernels: every
-    batch parsed by the native parser (``extra_batches`` more for the
-    validation files), every dispatch one fused ship, and
-    every kernel of the step launched at least once a step."""
+    """A training run (with no epoch tail) went the native ingest path,
+    the CUDA graph and the kernels: every batch parsed by the native
+    parser (``extra_batches`` more for the validation files), every
+    dispatch one fused ship, every dispatch but the first a graph
+    replay, and every kernel of the step launched at least once a step,
+    replays included."""
     steps = tr["steps"]
     for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
         check(launches[name] >= steps,
               f"{name} launched {launches[name]} times in {steps} steps")
+    check(tr["eager_dispatches"] == 1
+          and tr["graph_dispatches"] == tr["dispatches"] - 1 > 0,
+          f"{tr['graph_dispatches']} graph and {tr['eager_dispatches']} "
+          f"eager dispatches of {tr['dispatches']}")
     check(ingest["native_batches"] == steps + extra_batches,
           f"the native parser parsed {ingest['native_batches']} batches "
           f"for {steps} steps (+{extra_batches})")
     check(ingest["fused_ships"] == tr["dispatches"] > 0,
           f"{ingest['fused_ships']} fused ships for {tr['dispatches']} "
           f"dispatches")
+
+
+def graph_phase(torch, tcfg, card: str, files, steps: int,
+                host_batches) -> dict:
+    """The CUDA graph of the K steps (``train/dispatch.py``) against the
+    same steps run eagerly.  (1) For f32 and bf16 compute, Adagrad, FTRL
+    and SGD, and K = 1 and 4: ``Trainer.train()`` over ``files``
+    (``steps`` batches: 17, so at K = 4 the epoch ends on a tail of one)
+    from the same seeded table, once eager (the trainer's ``graph`` set
+    to None) and once graphed; the tables, optimizer state, w0 and
+    metrics must be bitwise equal, with graph dispatches in the graphed
+    run and none in the eager one.  (2)
+    At f32 Adagrad and K = 1 and 4, one super-batch already on the card
+    (the first K of ``host_batches``, shipped by the transfer stage)
+    dispatched again and again, eager and graphed: each step's p50 (a
+    synchronised dispatch over K), and under ``torch.profiler`` the
+    device's idle share, the host time in ``cudaLaunchKernel`` and
+    ``cudaGraphLaunch`` a step, and the runs of each of the step's four
+    kernels, which must be K a dispatch (a replay's launches measured,
+    not only counted); the capture's time and the graph pool's bytes.
+    Returns the ``graph`` record."""
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.train import sparse
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    class NoSaveTrainer(Trainer):
+        def save(self, stepno):
+            return None
+
+    def trainer_for(cfg, graphs: bool):
+        trainer = NoSaveTrainer(cfg)
+        if not graphs:
+            trainer.graph = None  # every dispatch eager
+        return trainer
+
+    step_kernels = ("void fm_scores_fwd_kernel", "void fm_grad_bwd_kernel",
+                    "void k1_kernel", "void k2_kernel")
+
+    def state(trainer):
+        m = trainer.metrics
+        return ([trainer.model.table, trainer.model.w0,
+                 *sparse.opt_tables(trainer.opt_state)]
+                + [t for t in trainer.opt_state if t.dim() == 0]
+                + [m.loss_sum, m.weight_sum, m.count, m.auc.pos, m.auc.neg])
+
+    parity = {}
+    for dtype in ("float32", "bfloat16"):
+        for optimizer in ("adagrad", "ftrl", "sgd"):
+            for k in (1, 4):
+                cfg = dataclasses.replace(
+                    tcfg, train_files=list(files), validation_files=[],
+                    compute_dtype=dtype, optimizer=optimizer,
+                    steps_per_dispatch=k, log_steps=0, save_steps=0)
+                runs = {}
+                for graphs in (False, True):
+                    trainer = trainer_for(cfg, graphs)
+                    tr = trainer.train()["train"]
+                    torch.cuda.synchronize()
+                    runs[graphs] = (trainer, tr)
+                (eager, e_tr), (graphed, g_tr) = runs[False], runs[True]
+                what = f"{dtype} {optimizer} K = {k}"
+                tails = int(steps % k > 0)
+                check(g_tr["steps"] == e_tr["steps"] == steps,
+                      f"{what}: {g_tr['steps']} / {e_tr['steps']} steps")
+                check(e_tr["graph_dispatches"] == 0
+                      and g_tr["eager_dispatches"] == 1 + tails
+                      and g_tr["graph_dispatches"] == g_tr["dispatches"]
+                      - 1 - tails > 0,
+                      f"{what}: dispatches eager {e_tr} graphed {g_tr}")
+                check(all(torch.equal(a, b) for a, b in
+                          zip(state(graphed), state(eager))),
+                      f"{what}: the graphed run is not bitwise the eager one")
+                parity[what] = {
+                    "steps": steps, "dispatches": g_tr["dispatches"],
+                    "graph_dispatches": g_tr["graph_dispatches"],
+                    "first_dispatch_s": {"eager": e_tr["first_dispatch_s"],
+                                         "graphed": g_tr["first_dispatch_s"]},
+                    "capture_s": graphed.graph.capture_s,
+                    "wall_s": {"eager": e_tr["wall_s"],
+                               "graphed": g_tr["wall_s"]},
+                    "train_logloss": g_tr["logloss"],
+                }
+                del runs, eager, graphed
+    print(f"graph check: {len(parity)} graphed runs bitwise their eager "
+          f"twins (tables, optimizer state, w0, loss and weight sums, AUC "
+          f"histogram)", flush=True)
+
+    step = {}
+    for k in (1, 4):
+        cfg = dataclasses.replace(tcfg, steps_per_dispatch=k, log_steps=0,
+                                  save_steps=0)
+        sb = next(iter(DevicePrefetcher(host_batches[:k], k, "cuda",
+                                        cfg.vocabulary_size)))
+        for graphs in (False, True):
+            trainer = trainer_for(cfg, graphs)
+            t0 = time.perf_counter()
+            trainer.dispatch(sb)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            times = []
+            for _ in range(40):
+                t0 = time.perf_counter()
+                trainer.dispatch(sb)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) / k)
+            kernel_runs = {}
+            dev_ms, wall_ms, host_ms = device_times_ms(
+                torch, lambda: trainer.dispatch(sb), iters=20, top=0,
+                counts=kernel_runs)
+            busy = sum(dev_ms.values())
+            key = f"k{k}_{'graphed' if graphs else 'eager'}"
+            check(all(kernel_runs.get(name) == 20 * k
+                      for name in step_kernels),
+                  f"{key}: the step's kernels ran "
+                  f"{ {n: kernel_runs.get(n) for n in step_kernels} } times "
+                  f"in 20 dispatches of {k} steps")
+            step[key] = {
+                "step_p50_ms": p50(times[2:]) * 1e3,
+                "first_dispatch_s": first_s,
+                "device_busy_ms_per_step": busy / k,
+                "device_idle_frac": max(0.0, 1.0 - busy / wall_ms),
+                "launch_kernel_host_ms_per_step":
+                    host_ms.get("cudaLaunchKernel", 0.0) / k,
+                "graph_launch_host_ms_per_step":
+                    host_ms.get("cudaGraphLaunch", 0.0) / k,
+                "device_ms_by_op_per_step": {
+                    name: ms / k for name, ms in sorted(
+                        dev_ms.items(), key=lambda kv: -kv[1])[:12]},
+                "kernel_runs_per_dispatch": {
+                    name: kernel_runs[name] / 20 for name in step_kernels},
+            }
+            if graphs:
+                step[key]["capture_s"] = trainer.graph.capture_s
+                step[key]["graph_pool_bytes"] = trainer.graph.pool_bytes()
+                check(trainer.graph_dispatches == 40 + 22,
+                      f"K = {k}: {trainer.graph_dispatches} replays")
+            del trainer
+        del sb
+    return {"card": card, "batch_size": tcfg.batch_size, "parity": parity,
+            "device_batch_step": step}
 
 
 def ingest_phase(torch, tcfg, card: str, train_files, native,
@@ -1194,6 +1387,57 @@ def main() -> int:
                 float((a - b_).abs().max()) for a, b_ in zip(kern, plain)
             ))
             del kern, plain, state
+    # -- K1 and K2 on the whole slot (the graphed step's) --------------
+    # The whole [n + 1] seg_start slot, its tail padded with n as the
+    # transfer stage ships it: bitwise the cut slot's kernels above on
+    # the first U rows (row -1 after, no other table row written), and
+    # held to the plain versions as they are.
+    whole_shapes = {}
+    for name in ("batch", "hot"):
+        g, ids, meta = k1_streams[name]
+        slot = full_slot(torch, meta.seg_start, n)
+        args = (g, ids, meta.perm, slot)
+        w_rows, w_sums = k1_dedup_cuda(*args)
+        p_rows, p_sums = k1_dedup_plain(g.double(), *args[1:])
+        _, mass = k1_dedup_plain(g.abs().double(), *args[1:])
+        urows, sums = k2_shapes[name]
+        u_s = urows.numel()
+        torch.cuda.synchronize()
+        check(torch.equal(w_rows[:u_s], urows)
+              and torch.equal(w_sums[:u_s], sums),
+              f"K1 on the whole slot ({name}) is not bitwise the cut "
+              f"slot's on the first U rows")
+        check(bool((w_rows[u_s:] == -1).all()),
+              f"K1 on the whole slot ({name}): a row past U is not -1")
+        check(torch.equal(w_rows, p_rows), f"K1 whole-slot row ids ({name})")
+        diff = (w_sums[:u_s].double() - p_sums[:u_s]).abs()
+        check(bool(torch.all(diff <= k1_error_bound(meta.seg_start,
+                                                    mass[:u_s]))),
+              f"K1 whole-slot sums vs plain ({name}): max err "
+              f"{float(diff.max()):.3e}")
+        err["k1_dedup"] = max(err["k1_dedup"], float(diff.max()))
+        whole_shapes[name] = (w_rows, w_sums)
+        del p_rows, p_sums, mass, diff
+    for optimizer, extra in (("adagrad", 1), ("ftrl", 2), ("sgd", 0)):
+        for name, (w_rows, w_sums) in whole_shapes.items():
+            urows, sums = k2_shapes[name]
+            state = [torch.empty((V, D), device=dev).uniform_(
+                0.1, 1.0, generator=gen) for _ in range(extra)]
+            start = tuple([table0] + state)
+            kern, cut, plain = ([t.clone() for t in start] for _ in range(3))
+            k2_apply_cuda(optimizer, w_rows, w_sums, kern, hyper)
+            k2_apply_cuda(optimizer, urows, sums, cut, hyper)
+            k2_apply_plain(optimizer, w_rows, w_sums, plain, hyper)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(kern, cut)),
+                  f"K2 on the whole slot ({optimizer}, {name}) is not "
+                  f"bitwise the cut slot's")
+            torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+            for a, b_ in zip(kern[1:], plain[1:]):
+                torch.testing.assert_close(a, b_, **OPT_TOL)
+            err["k2_apply"] = max(err["k2_apply"], *(
+                float((a - b_).abs().max()) for a, b_ in zip(kern, plain)))
+            del kern, cut, plain, state, start
     # -- K-place and K1's merge mode at the sharded path's shapes -----
     # A data block of the 2 x 2 mesh: 2048 parsed lines; the model
     # shard: rows [2^21, 2^22).  Global ids, a tenth of them the
@@ -1248,7 +1492,8 @@ def main() -> int:
     check(err["k1_merge"] == 0.0, f"K1 merge vs plain: max err "
           f"{err['k1_merge']:.3e} (at most two terms per row)")
     print("kernel check: fm_scores, fm_grad (f32 and bf16, bf16 FmGrad "
-          "bitwise), k1_dedup, k2_apply (adagrad, ftrl, sgd), kplace, "
+          "bitwise), k1_dedup, k2_apply (adagrad, ftrl, sgd; on the whole "
+          "slot bitwise the cut slot's on the first U rows), kplace, "
           "k1_merge == their plain versions; "
           "max_abs_err " + json.dumps(err), flush=True)
 
@@ -1269,6 +1514,8 @@ def main() -> int:
     drows_t16 = fm_grad_plain(rows_t16, vals_t16, s1_t16, dsc)
     urows, sums = k2_shapes["batch"]
     u = urows.numel()
+    w_rows, w_sums = whole_shapes["batch"]
+    slot0 = full_slot(torch, meta0.seg_start, n)
     acc0 = torch.full((V, D), 0.1, device=dev)
     table_k, acc_k = table0.clone(), acc0.clone()
     ids32 = ids0.to(torch.int32)
@@ -1313,19 +1560,20 @@ def main() -> int:
             lambda: fm_grad_cuda(rows_t16, vals_t16, s1_t16, dsc),
             lambda: fm_grad_plain(rows_t16, vals_t16, s1_t16, dsc), None,
             fm_grad_bound_ms(B, F, D, elt=2)),
+        # K1 and K2 on the whole slot, as the graphed train step runs
+        # them; on the cut slot (the device sort's) after the loop.
         "k1_dedup": (
-            lambda: k1_dedup_cuda(g_rows, ids32, meta0.perm, meta0.seg_start),
-            lambda: k1_dedup_plain(g_rows, ids32, meta0.perm,
-                                   meta0.seg_start),
+            lambda: k1_dedup_cuda(g_rows, ids32, meta0.perm, slot0),
+            lambda: k1_dedup_plain(g_rows, ids32, meta0.perm, slot0),
             k1_library(g_rows, meta0),
-            k1_bound_ms(n, u, D),
+            k1_bound_ms(n, u, D, slot=n),
         ),
         "k2_apply": (
-            lambda: k2_apply_cuda("adagrad", urows, sums, (table_k, acc_k),
-                                  hyper),
-            lambda: k2_apply_plain("adagrad", urows, sums, (table_k, acc_k),
-                                   hyper),
-            None, k2_bound_ms(u, D),
+            lambda: k2_apply_cuda("adagrad", w_rows, w_sums,
+                                  (table_k, acc_k), hyper),
+            lambda: k2_apply_plain("adagrad", w_rows, w_sums,
+                                   (table_k, acc_k), hyper),
+            None, k2_bound_ms(u, D, rows=n),
         ),
         "kplace": (
             lambda: kplace_cuda(urows_kp, sums_kp, KPLACE_ROW_LO,
@@ -1378,7 +1626,27 @@ def main() -> int:
         t.update(ms=min(ka, kb), plain_ms=min(pa, pb), graph_ms=[ka, kb],
                  plain_graph_ms=[pa, pb], input_copies=FM_GRAD_COPIES)
         del copies
-    # K1 at its other two streams (the kernels line keeps the batch's).
+    # K1 and K2 on the batch's cut slot [U + 1] (the device sort's).
+    for name, kern, plain, (b_ms, b_by) in (
+            ("k1_dedup",
+             lambda: k1_dedup_cuda(g_rows, ids32, meta0.perm,
+                                   meta0.seg_start),
+             lambda: k1_dedup_plain(g_rows, ids32, meta0.perm,
+                                    meta0.seg_start),
+             k1_bound_ms(n, u, D)),
+            ("k2_apply",
+             lambda: k2_apply_cuda("adagrad", urows, sums, (table_k, acc_k),
+                                   hyper),
+             lambda: k2_apply_plain("adagrad", urows, sums,
+                                    (table_k, acc_k), hyper),
+             k2_bound_ms(u, D))):
+        pa, ka, kb, pb = (graph_ms(torch, fn) for fn in
+                          (plain, kern, kern, plain))
+        timing[name]["cut_slot"] = {
+            "graph_ms": [ka, kb], "plain_graph_ms": [pa, pb],
+            "bound_ms": b_ms, "bound_by": b_by}
+    # K1 at its other two streams, on their cut slots (the kernels line
+    # keeps the batch's).
     timing["k1_dedup"]["streams"] = {}
     for name in ("hot", "probe"):
         g, ids, meta = k1_streams[name]
@@ -1466,17 +1734,17 @@ def main() -> int:
     zero_ingest(native, DevicePrefetcher)
 
     class LossTrainer(Trainer):
-        """Keeps each step's loss, a device scalar, for the falling-loss
-        check."""
+        """Keeps each dispatch's step losses (device tensors: a replay's
+        are the graph's own, so a copy) for the falling-loss check."""
 
         def __init__(self, cfg):
             self.step_losses = []
             super().__init__(cfg)
 
-        def device_step(self, batch):
-            loss = super().device_step(batch)
-            self.step_losses.append(loss)
-            return loss
+        def dispatch(self, sb, pause=None):
+            losses = super().dispatch(sb, pause)
+            self.step_losses.append(losses.clone())
+            return losses
 
     t0 = time.perf_counter()
     trainer = LossTrainer(tcfg)
@@ -1495,7 +1763,7 @@ def main() -> int:
           f"trained {steps} steps")
     check_train_path(tr, train_launches, train_ingest,
                      extra_batches=1)  # the validation file parses too
-    losses = [float(x) for x in trainer.step_losses]
+    losses = torch.cat(trainer.step_losses).tolist()
     last = float(np.mean(losses[-4:]))
     check(all(np.isfinite(losses)), "non-finite step loss")
     check(last < losses[0], f"logloss did not fall: first {losses[0]:.4f}, "
@@ -1521,6 +1789,9 @@ def main() -> int:
         "native_batches": train_ingest["native_batches"],
         "fused_ships": train_ingest["fused_ships"],
         "dispatches": tr["dispatches"],
+        "graph_dispatches": tr["graph_dispatches"],
+        "eager_dispatches": tr["eager_dispatches"],
+        "first_dispatch_s": tr["first_dispatch_s"],
         "peak_device_mb": peak_mb,
     }}), flush=True)
     del trainer
@@ -1555,7 +1826,7 @@ def main() -> int:
         runs[dtype] = {
             "launches": read_launches(kernels), "result": result,
             "wall_s": time.perf_counter() - t0,
-            "step_logloss": [float(x) for x in trainer.step_losses],
+            "step_logloss": torch.cat(trainer.step_losses).tolist(),
         }
         del trainer
     bf, f32 = runs["bfloat16"], runs["float32"]
@@ -1570,6 +1841,8 @@ def main() -> int:
     check(bf16_launches["fm_grad"] == 0 and f32["launches"]["fm_grad_bf16"]
           == 0, f"a run took the other mode's FmGrad: {bf16_launches}")
     check(all(np.isfinite(bf["step_logloss"])), "non-finite bf16 loss")
+    check(bf["result"]["train"]["graph_dispatches"] > 0,
+          "the bf16 run replayed no graph")
     loss_diff = abs(bf["step_logloss"][-1] - f32["step_logloss"][-1])
     check(loss_diff < 1e-2, f"bf16 last logloss {bf['step_logloss'][-1]} vs "
           f"f32 {f32['step_logloss'][-1]}")
@@ -1596,6 +1869,14 @@ def main() -> int:
     del runs, bf, f32
 
     phase_end("bf16_train")
+
+    # -- graph phase: the K-step CUDA graph against the eager steps ----
+    # The train files and the validation file: 17 batches.
+    print(json.dumps({"graph": graph_phase(
+        torch, tcfg, card, train_files + [valid_file],
+        TRAIN_FILES * BATCHES_PER_FILE + 1, batches + batches[:1])}),
+        flush=True)
+    phase_end("graph")
 
     # -- parity phase --------------------------------------------------
     def put(batch, with_meta=True):

@@ -20,7 +20,11 @@ and groups ``steps_per_dispatch = K`` of them; each group becomes one
 3. **device side**: the leaves are views of the device buffer
    (``view(dtype)``, then ``view(shape)``): no kernel, no arithmetic.
    :meth:`SuperBatch.step` gives step ``i``'s :class:`Batch` of views,
-   its ``seg_start`` cut to ``U + 1`` with the ``U`` the host knows.
+   with the whole ``seg_start`` slot, which K1's and K2's static modes
+   take (the shapes depend on ``n`` alone, not on the batch's unique
+   count: a CUDA graph can hold them).  :func:`rebase` gives a
+   super-batch's views of another buffer of its layout (a CUDA graph's
+   fixed input).
 
 The consumer's stream waits on a super-batch's event before its first
 step reads it, and the device buffer is recorded on that stream, so the
@@ -39,7 +43,9 @@ epochs.  The range check of the ids (``feature ids must lie in [0,
 vocabulary_size)``: an id outside would be a device-side assert) runs
 here, off the training thread.  Exceptions from the source or the stage
 re-raise in the consumer; :meth:`DevicePrefetcher.close` stops the
-source and joins the thread.
+source and joins the thread.  :meth:`DevicePrefetcher.paused` holds the
+stage between its CUDA calls (its parsing and filling go on) for as long
+as the caller needs no other thread's CUDA call to run.
 
 :func:`stack_batches` is the plain version: the same super-batch stacked
 with numpy, which the views are held against in the tests.
@@ -63,7 +69,8 @@ from fast_tffm_tpu_torch.data.queues import (
 )
 from fast_tffm_tpu_torch.platform import resolve_device
 
-__all__ = ["DevicePrefetcher", "SuperBatch", "layout", "stack_batches"]
+__all__ = ["DevicePrefetcher", "SuperBatch", "layout", "rebase",
+           "stack_batches"]
 
 _ALIGN = 128  # byte alignment of each leaf in the staging buffer
 
@@ -71,20 +78,23 @@ _ALIGN = 128  # byte alignment of each leaf in the staging buffer
 class SuperBatch(NamedTuple):
     """K batches stacked on a leading axis (numpy on the host, views of
     one device buffer once shipped).  ``sort_meta`` holds ``perm [K, n]``
-    and ``seg_start [K, n + 1]`` (each row's first ``uniques[i] + 1``
-    entries meaningful); ``fields`` is None when not shipped."""
+    and ``seg_start [K, n + 1]`` (each row's first ``U + 1`` entries the
+    batch's, the rest ``n``); ``fields`` is None when not shipped;
+    ``buffer`` is the one ``uint8`` buffer the shipped leaves view (None
+    for :func:`stack_batches`)."""
 
     batch: Batch
     n: int  # K, or an epoch tail's K' < K
-    uniques: Optional[tuple]  # U of each batch's sort meta
+    buffer: Optional[torch.Tensor] = None
 
     def step(self, i: int) -> Batch:
-        """Step ``i``'s batch: views of the stacked leaves."""
+        """Step ``i``'s batch: views of the stacked leaves, with the
+        whole ``seg_start`` slot ``[n + 1]`` (its tail past U padded with
+        ``n``), so no shape depends on the batch's U."""
         b = self.batch
         meta = None
         if b.sort_meta is not None:
-            meta = SortMeta(b.sort_meta.perm[i],
-                            b.sort_meta.seg_start[i, :self.uniques[i] + 1])
+            meta = SortMeta(b.sort_meta.perm[i], b.sort_meta.seg_start[i])
         return Batch(b.labels[i], b.ids[i], b.vals[i],
                      None if b.fields is None else b.fields[i],
                      b.weights[i], meta)
@@ -127,19 +137,33 @@ def _fill(dst: np.ndarray, name: str, cols: list) -> None:
         dst[i, c.shape[0]:] = dst.shape[1] - 1  # n
 
 
-def _uniques(group: Sequence[Batch], with_meta: bool) -> Optional[tuple]:
-    if not with_meta:
-        return None
-    return tuple(b.sort_meta.seg_start.shape[0] - 1 for b in group)
-
-
-def _assemble(leaves: dict, k: int, uniques) -> SuperBatch:
+def _assemble(leaves: dict, k: int, buffer=None) -> SuperBatch:
     meta = None
     if "perm" in leaves:
         meta = SortMeta(leaves["perm"], leaves["seg_start"])
     return SuperBatch(Batch(leaves["labels"], leaves["ids"], leaves["vals"],
                             leaves.get("fields"), leaves["weights"], meta),
-                      k, uniques)
+                      k, buffer)
+
+
+def _views(buffer: torch.Tensor, spec) -> dict:
+    """Every leaf of ``spec`` as a view of the ``uint8`` ``buffer``."""
+    return {name: buffer[off:off + nbytes].view(_TORCH[dtype]).view(shape)
+            for name, dtype, shape, off, nbytes in spec}
+
+
+def rebase(sb: SuperBatch, buffer: torch.Tensor) -> SuperBatch:
+    """``sb``'s leaves as views of ``buffer``, another ``uint8`` buffer of
+    the same layout (what a CUDA graph reads: its input at a fixed
+    address, refilled by one copy of ``sb.buffer``)."""
+    b = sb.batch
+    spec, total = layout(sb.n, *b.ids.shape[1:], b.fields is not None,
+                         b.sort_meta is not None)
+    if buffer.dtype != torch.uint8 or tuple(buffer.shape) != (total,):
+        raise ValueError(
+            f"rebase takes a uint8 buffer of {total} bytes, got "
+            f"{buffer.dtype} {tuple(buffer.shape)}")
+    return _assemble(_views(buffer, spec), sb.n, buffer)
 
 
 def stack_batches(group: Sequence[Batch],
@@ -157,7 +181,7 @@ def stack_batches(group: Sequence[Batch],
     for name, dtype, shape, _, _ in spec:
         leaves[name] = np.empty(shape, dtype)
         _fill(leaves[name], name, _cols(group, name))
-    return _assemble(leaves, len(group), _uniques(group, with_meta))
+    return _assemble(leaves, len(group))
 
 
 class DevicePrefetcher:
@@ -180,6 +204,9 @@ class DevicePrefetcher:
         self._with_fields = with_fields
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self._cuda else None)
+        # Held around each of the stage's CUDA calls (pinned and device
+        # allocation, copy, event record and wait), and by paused().
+        self._cuda_calls = threading.Lock()
         self._free: dict = {}  # total bytes -> [pinned staging buffer]
         self._inflight: deque = deque()  # (event, total, staging)
         self._source = source
@@ -250,31 +277,34 @@ class DevicePrefetcher:
         k = len(group)
         spec, total = layout(k, *group[0].ids.shape, self._with_fields,
                              with_meta)
-        staging = self._staging(total)
+        with self._cuda_calls:
+            staging = self._staging(total)
         host = staging.numpy()
         for name, dtype, shape, off, nbytes in spec:
             _fill(host[off:off + nbytes].view(dtype).reshape(shape), name,
                   _cols(group, name))
         event = None
         if self._cuda:
-            with torch.cuda.stream(self._stream):
+            with self._cuda_calls, torch.cuda.stream(self._stream):
                 dev = torch.empty((total,), dtype=torch.uint8,
                                   device=self.device)
                 dev.copy_(staging, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record(self._stream)
-            self._retire(event, total, staging)
+                self._retire(event, total, staging)
         else:
             dev = staging  # an alias: never recycled
-        leaves = {
-            name: dev[off:off + nbytes].view(_TORCH[dtype]).view(shape)
-            for name, dtype, shape, off, nbytes in spec
-        }
-        sb = _assemble(leaves, k, _uniques(group, with_meta))
+        sb = _assemble(_views(dev, spec), k, dev)
         DevicePrefetcher.ships += 1
         return self._out.put((sb, event, dev))
 
     # -- the consumer --------------------------------------------------
+
+    def paused(self):
+        """A context manager that holds the stage between its CUDA calls
+        for the body of the ``with``: no allocation, copy, event record or
+        wait of the stage's runs meanwhile."""
+        return self._cuda_calls
 
     def __iter__(self):
         try:

@@ -73,6 +73,18 @@
 // The TPU kernel's full-table tile sweep and its compact group remap
 // have no counterpart: they exist because TPU scatters serialize.
 //
+// The whole slot: K1 and K2 also take the whole seg_start slot of n + 1
+// entries that the transfer stage ships, its tail past the batch's U
+// unique ids padded with n.  K1 then covers n segments, every one past U
+// empty (row -1, its sums not written), and K2 n rows, returning at once
+// at a row -1.  Shapes and grids then depend on n alone and no host value
+// of U is read, which a CUDA graph of the train step needs (the
+// reference's static _k1_dedup(..., n_out) does the same for its jitted
+// scan).  The first U rows are bitwise those of the cut slot [U + 1]:
+// empty segments only ever follow the last real one.  The cost is the
+// n - U empty slots: a seg_start load and a row id store each in K1, an
+// id load in K2.
+//
 // K-place (kplace): the deduped entry stream (urows [U] ascending, as K1
 // emits them; sums [U, W]) expanded into a dense per-shard delta
 // [vocab_local, W]: row urows[u] - row_lo gets sums[u], every other row
@@ -187,13 +199,15 @@ __global__ void __launch_bounds__(kSegs)
   const int64_t u = u0 + t;
   // Every thread stays to the end: the warp's ballot and shuffles and
   // the block's barrier take them all.  A thread past U has an empty
-  // segment and writes nothing.
+  // segment and writes nothing.  An empty segment below U (the whole
+  // slot's past the batch's unique ids) gets row -1, which K2 skips, and
+  // no sums.
   int s0 = 0;
   int s1 = 0;
   if (u < U) {
     s0 = seg_start[u];
     s1 = seg_start[u + 1];
-    urows[u] = ids[perm[s0]];
+    urows[u] = s1 > s0 ? ids[perm[s0]] : -1;
   }
   float* const out = stage ? staged + t * W : sums + u * W;
   if (s1 - s0 <= kShort) {
@@ -246,9 +260,9 @@ __global__ void __launch_bounds__(kSegs)
     }
   }
   if (stage) {
-    __syncthreads();
-    const int64_t left = U - u0;
-    const int m = (left < kSegs ? static_cast<int>(left) : kSegs) * W;
+    // The block's non-empty segments are its first ones: a barrier that
+    // counts them.
+    const int m = __syncthreads_count(s1 > s0) * W;
     float* const block_sums = sums + u0 * W;
     for (int i = t; i < m; i += kSegs) block_sums[i] = staged[i];
   }
@@ -295,10 +309,11 @@ __global__ void __launch_bounds__(kK2Threads)
   const int64_t u =
       static_cast<int64_t>(blockIdx.x) * kGroups + threadIdx.x / kK2Lanes;
   // The row's id, loaded once by the group's lane 0.  Every lane of the
-  // warp reaches the shuffle.
-  int id = (lane == 0 && u < U) ? urows[u] : 0;
+  // warp reaches the shuffle.  A group past U, or at row -1 (the whole
+  // slot's past the batch's unique ids), writes nothing.
+  int id = (lane == 0 && u < U) ? urows[u] : -1;
   id = __shfl_sync(0xffffffffu, id, 0, kK2Lanes);
-  if (u >= U) return;
+  if (id < 0) return;
   const int64_t pos0 = static_cast<int64_t>(id) * D;
   const float* s = sums + u * 2 * D;
   for (int c = lane; c < D; c += kK2Lanes) {

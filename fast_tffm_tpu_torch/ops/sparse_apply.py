@@ -17,6 +17,16 @@ Three steps per train step on one device:
    ``_k2_group_kernel_compact``): the optimizer formula applied in place
    to the table and its optimizer tables at those rows only.
 
+K1 and K2 take ``seg_start`` cut to ``[U + 1]`` (the device sort's) or
+the whole slot of ``n + 1`` entries the transfer stage ships, its tail
+past the batch's U unique ids padded with ``n`` — the counterpart of the
+reference's static ``_k1_dedup(..., n_out)``.  On the whole slot K1
+writes ``n`` rows: the first U as on the cut slot, then row id ``-1``
+(their sums left unwritten by the kernel, zero in the plain version),
+and K2 skips a row ``-1``.  Every shape and grid then depends on ``n``
+alone and no host value of U is read, which a CUDA graph of the train
+step needs (``train/dispatch.py``).
+
 The sharded step (``train/shardmap_step.py``) exchanges those sums over
 the data axis one of two ways (:func:`resolve_exchange`):
 
@@ -39,8 +49,9 @@ CUDA tensor (or raises) and takes its plain version on a CPU tensor;
 ``.launches`` counts kernel launches.  The plain versions
 (:func:`k1_dedup_plain` / :func:`k1_merge_plain`: ``index_add_`` over
 the segment index; :func:`k2_apply_plain`: gather, update,
-``index_copy_``; :func:`kplace_plain`: zeros and ``index_copy_``) run on
-any device; on the card only the tests and ``chip_smoke.py`` call them.
+``index_copy_``; :func:`kplace_plain`: zeros and ``index_copy_``) run
+on any device, with no host sync; on the card only the tests and
+``chip_smoke.py`` call them.
 """
 
 from __future__ import annotations
@@ -168,8 +179,9 @@ def _segment_sums(payload_sorted, ids, perm, seg_start):
     """``(urows [U] i32, sums [U, P])``: ``index_add_`` of a sorted
     payload ``[n, P]`` over each sorted occurrence's segment index.  The
     occurrences past ``seg_start[U]`` (a left-out sentinel segment) sum
-    into a spare row, dropped after: no host sync, so a CUDA graph can
-    hold it."""
+    into a spare row, dropped after; an empty segment (on the whole
+    slot, each one past the batch's unique ids) gets row -1 and zero
+    sums.  No host sync, so a CUDA graph can hold it."""
     n, p = payload_sorted.shape
     u = seg_start.numel() - 1
     bounds = torch.cat([seg_start.long(), seg_start.new_full((1,), n).long()])
@@ -180,8 +192,10 @@ def _segment_sums(payload_sorted, ids, perm, seg_start):
     sums = torch.zeros((u + 1, p), dtype=payload_sorted.dtype,
                        device=payload_sorted.device)
     sums.index_add_(0, seg, payload_sorted)
-    urows = ids.index_select(0, perm.long().index_select(
-        0, seg_start[:-1].long()))
+    first = bounds[:-2].clamp(max=max(n - 1, 0))
+    urows = torch.where(bounds[1:-1] > bounds[:-2],
+                        ids.index_select(0, perm.long().index_select(0, first)),
+                        -1)
     return urows.to(torch.int32), sums[:u]
 
 
@@ -189,7 +203,8 @@ def k1_dedup_plain(g_rows, ids, perm, seg_start):
     """Plain K1 (any device): ``(urows [U] i32, sums [U, 2D])`` by
     ``index_add_`` of the sorted ``[g | g²]`` payload over each sorted
     occurrence's segment index; ``sums`` in ``g_rows``' dtype (the
-    kernel's checks run it in float64 as their reference)."""
+    kernel's checks run it in float64 as their reference).  On the whole
+    ``[n + 1]`` slot: ``[n]`` rows, row -1 and zero sums past U."""
     g_sorted = g_rows.index_select(0, perm.long())
     return _segment_sums(torch.cat([g_sorted, g_sorted * g_sorted], dim=1),
                          ids, perm, seg_start)
@@ -220,7 +235,7 @@ def k1_error_bound(seg_start, mass):
 
 
 def _k1_launch(entry: str, width: int, payload, ids, perm, seg_start):
-    u = seg_start.numel() - 1
+    u = seg_start.numel() - 1  # n on the whole slot
     p = payload.shape[1]
     urows = torch.empty((u,), dtype=torch.int32, device=payload.device)
     sums = torch.empty((u, width * p), dtype=torch.float32,
@@ -240,7 +255,8 @@ def k1_dedup_cuda(g_rows, ids, perm, seg_start):
     """K1 through the CUDA kernel (a thread per short segment, a warp
     per long one, no float atomics), on the current stream; CPU tensors
     take :func:`k1_dedup_plain`.  Returns ``(urows [U] i32, sums [U,
-    2D])``."""
+    2D])``, U being ``seg_start.numel() - 1`` (``n`` on the whole slot:
+    rows past the batch's unique ids are -1, their sums unwritten)."""
     _check_k1(g_rows, ids, perm, seg_start)
     if g_rows.device.type == "cpu":
         return k1_dedup_plain(g_rows, ids, perm, seg_start)
@@ -315,8 +331,14 @@ def _check_k2(optimizer, urows, sums, tables) -> None:
 def k2_apply_plain(optimizer: str, urows, sums, tables, hyper: Hyper) -> None:
     """Plain K2 (any device): gather the touched rows, apply the
     optimizer formula, ``index_copy_`` them back into ``tables`` (the
-    table first, then Adagrad's accumulator or FTRL's ``z`` and ``n``)."""
-    idx = urows.long()
+    table first, then Adagrad's accumulator or FTRL's ``z`` and ``n``).
+    A row ``-1`` (the whole slot's, past the unique ids) stands in for a
+    copy of the stream's first entry, so ``index_copy_`` writes that
+    row's one new value again and no other row, with no host sync."""
+    src = torch.where(urows >= 0,
+                      torch.arange(urows.numel(), device=urows.device), 0)
+    idx = urows.long().index_select(0, src)
+    sums = sums.index_select(0, src)
     d = tables[0].shape[1]
     g1, g2 = sums[:, :d], sums[:, d:]
     w = tables[0].index_select(0, idx)
@@ -340,8 +362,8 @@ def k2_apply_plain(optimizer: str, urows, sums, tables, hyper: Hyper) -> None:
 
 def k2_apply_cuda(optimizer: str, urows, sums, tables, hyper: Hyper) -> None:
     """K2 through the CUDA kernel (a group of lanes per touched row, in
-    place), on the current stream; CPU tensors take
-    :func:`k2_apply_plain`."""
+    place; a row ``-1`` skipped), on the current stream; CPU tensors
+    take :func:`k2_apply_plain`."""
     tables = tuple(tables)
     _check_k2(optimizer, urows, sums, tables)
     if tables[0].device.type == "cpu":
@@ -556,8 +578,9 @@ def apply(optimizer: str, tables, ids: torch.Tensor, g_rows: torch.Tensor,
     """Sparse update of ``tables`` (see :func:`k2_apply_plain` for their
     order) from per-occurrence row gradients ``g_rows [n, D]`` of the
     flat ids ``ids [n]``, in place.  ``meta`` is the host prep for these
-    ids (moved to their device); None sorts on the device.
-    ``plain=True`` runs the plain versions on any device."""
+    ids (moved to their device), its ``seg_start`` cut or the whole
+    slot; None sorts on the device.  ``plain=True`` runs the plain
+    versions on any device."""
     ids = ids.reshape(-1).to(torch.int32).contiguous()
     if meta is None:
         meta = sort_meta(ids)

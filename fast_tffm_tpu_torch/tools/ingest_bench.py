@@ -16,12 +16,14 @@ directory, then prints one JSON line per configuration (the grid
   latency, and whether the streams are bitwise equal;
 - ``train``: for each ``--threads`` x ``--k``, ``Trainer.train()`` for
   ``--epochs`` from a fresh seeded model, three times: as it runs
-  (examples/s end to end, with and without the first dispatch,
-  ``ingest_wait_frac``), under
+  (examples/s end to end, with and without the first dispatch, which
+  captures the CUDA graph of the K steps, ``ingest_wait_frac``, the
+  graphed and eager dispatches), under
   ``torch.profiler`` with no checkpoint write (the device's idle share,
   host-to-device copies per super-batch, host time per step by op, the
-  allocator's ``cudaMalloc`` count), and with every step synchronised
-  (the step's p50 during the run).
+  allocator's ``cudaMalloc`` count), and with every dispatch
+  synchronised (its time over its K steps: the step's p50 during the
+  run).
 
 ``chip_smoke.py`` runs :func:`drain` and :func:`train_runs` on its own
 files for its ``ingest`` record.  The profiler and the synchronised
@@ -168,18 +170,19 @@ def train_runs(cfg: FmConfig, device, trainer_cls=Trainer, on_start=None,
             return None
 
     class SyncTrainer(trainer_cls):
-        """Each step synchronised and timed on the host clock."""
+        """Each dispatch synchronised and timed on the host clock; its
+        time over its steps is each step's (a graph replays K at once)."""
 
         def __init__(self, *args, **kwargs):
             self.step_s = []
             super().__init__(*args, **kwargs)
 
-        def device_step(self, batch):
+        def dispatch(self, sb, pause=None):
             t0 = time.perf_counter()
-            loss = super().device_step(batch)
+            losses = super().dispatch(sb, pause)
             torch.cuda.synchronize()
-            self.step_s.append(time.perf_counter() - t0)
-            return loss
+            self.step_s.append((time.perf_counter() - t0) / sb.n)
+            return losses
 
     runs = [("plain", trainer_cls)]
     if cuda:
@@ -222,6 +225,8 @@ def train_runs(cfg: FmConfig, device, trainer_cls=Trainer, on_start=None,
                         / (tr["wall_s"] - tr["first_dispatch_s"])
                         if steps > k else None,
                     "first_dispatch_s": tr["first_dispatch_s"],
+                    "graph_dispatches": tr["graph_dispatches"],
+                    "eager_dispatches": tr["eager_dispatches"],
                     "wall_s": tr["wall_s"],
                     "ingest_wait_frac": tr["ingest_wait_frac"],
                 })
@@ -239,6 +244,10 @@ def train_runs(cfg: FmConfig, device, trainer_cls=Trainer, on_start=None,
                         sum(prof["h2d_copies"].values()) / tr["dispatches"],
                     "memcpy_async_host_ms_per_step":
                         prof["host_ms"].get("cudaMemcpyAsync", 0.0) / steps,
+                    "launch_kernel_host_ms_per_step":
+                        prof["host_ms"].get("cudaLaunchKernel", 0.0) / steps,
+                    "graph_launch_host_ms_per_step":
+                        prof["host_ms"].get("cudaGraphLaunch", 0.0) / steps,
                     "device_allocs": allocs,
                     "device_ms_by_op_per_step":
                         _top(prof["device_ms"], steps, 12),
@@ -246,7 +255,10 @@ def train_runs(cfg: FmConfig, device, trainer_cls=Trainer, on_start=None,
                         _top(prof["host_ms"], steps, 10),
                 }
             else:
-                step_s = sorted(trainer.step_s[4:])
+                # The first two dispatches left out: the first runs
+                # eagerly and captures the graph, the second replays it
+                # for the first time.
+                step_s = sorted(trainer.step_s[2:])
                 out["step_p50_ms_in_train"] = (
                     step_s[(len(step_s) - 1) // 2] * 1e3)
                 out["synced_examples_per_sec"] = tr["examples_per_sec"]

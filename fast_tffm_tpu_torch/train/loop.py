@@ -14,11 +14,16 @@ sparse_step` on each of a super-batch's K views: on the GPU the
 FmScorer forward, FmGrad backward, K1 dedup and K2 apply kernels
 (FmScorer and FmGrad in their bf16-input mode with ``compute_dtype =
 bfloat16``, on one device; validation scores in f32, as the reference's
-``make_eval_step``).  K steps on a super-batch are the semantics of the
-reference's fused ``lax.scan``; the logging, validation and save
-cadences are checked after each super-batch, and an epoch's tail ships
-as a short one.  Streaming logloss/AUC accumulate on the device and are
-read back only at those cadences.
+``make_eval_step``).  :meth:`Trainer.dispatch` trains one super-batch:
+on one GPU with the host sort meta, every full super-batch after the
+first is one replay of a CUDA graph of the K steps
+(``train/dispatch.py``, the port's ``make_scan_train_step``); the first,
+an epoch's tail, the sharded step, the device sort and the CPU run the
+same steps eagerly, and ``train()`` reports the split
+(``graph_dispatches``, ``eager_dispatches``).  The logging, validation
+and save cadences are checked after each super-batch, and an epoch's
+tail ships as a short one.  Streaming logloss/AUC accumulate on the
+device, in place, and are read back only at those cadences.
 
 Every save writes ``data_state.json`` beside ``params.npz``: the epoch
 and the batches of it that trained (always a super-batch boundary), and
@@ -61,7 +66,7 @@ import torch
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.libsvm import Batch
 from fast_tffm_tpu_torch.data.pipeline import BatchPipeline, EpochEnd
-from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher, SuperBatch
 from fast_tffm_tpu_torch.models import fm
 from fast_tffm_tpu_torch.ops import sparse_apply
 from fast_tffm_tpu_torch.parallel.mesh import (
@@ -69,6 +74,7 @@ from fast_tffm_tpu_torch.parallel.mesh import (
 )
 from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.train import checkpoint, metrics as metrics_lib
+from fast_tffm_tpu_torch.train.dispatch import GraphedSteps
 from fast_tffm_tpu_torch.train.shardmap_step import (
     exchange_mode, local_scores, sparse_step_shardmap, supports_shardmap,
 )
@@ -211,17 +217,18 @@ class MetricState(NamedTuple):
 
         return MetricState(z(), z(), z(), metrics_lib.auc_init(device=device))
 
-    def update(self, scores, batch: Batch, loss_type: str):
-        """``(new state, this batch's weighted loss sum, weight sum)``."""
+    def add_(self, scores, batch: Batch, loss_type: str):
+        """Fold a batch into this state in place (a CUDA graph of the
+        train step holds the same tensors); returns the batch's
+        ``(weighted loss sum, weight sum)``."""
         lsum, wsum = metrics_lib.weighted_loss(
             scores, batch.labels, batch.weights, loss_type
         )
-        return MetricState(
-            self.loss_sum + lsum, self.weight_sum + wsum,
-            self.count + torch.sum((batch.weights > 0).float()),
-            metrics_lib.auc_update(self.auc, scores, batch.labels,
-                                   batch.weights),
-        ), lsum, wsum
+        self.loss_sum.add_(lsum)
+        self.weight_sum.add_(wsum)
+        self.count.add_(torch.sum((batch.weights > 0).float()))
+        metrics_lib.auc_add_(self.auc, scores, batch.labels, batch.weights)
+        return lsum, wsum
 
     def psum_data(self, mesh: Mesh) -> "MetricState":
         """This state summed over the mesh's ``data`` axis (every rank
@@ -269,10 +276,29 @@ class Trainer:
         self.model, self.opt_state, self._restored_step = (
             self._init_or_restore()
         )
+        # Updated in place, as the model and optimizer tensors are: a
+        # captured graph holds all of them.
         self.metrics = MetricState.zeros(self.device)
         # The input position a save records: the epoch, and the batches
         # of it that trained.
         self._epoch = self._batches_done = 0
+        self.eager_reason = self._eager_reason()
+        self.graph = (None if self.eager_reason else GraphedSteps(
+            max(1, cfg.steps_per_dispatch)))
+        self.graph_dispatches = self.eager_dispatches = 0
+
+    def _eager_reason(self) -> Optional[str]:
+        """Why this trainer's dispatches run eagerly (None: graphed)."""
+        if self.device.type != "cuda":
+            return f"the {self.device.type} device has no CUDA graphs"
+        if self.sharded:
+            return ("the sharded step's collectives and device sort are "
+                    "not captured (ROADMAP.md port queue item 3)")
+        if not self.cfg.host_sort:
+            return ("host_sort = false sorts on the device, which reads "
+                    "the unique count on the host (ROADMAP.md port queue "
+                    "item 7a)")
+        return None
 
     def _init_or_restore(self):
         """The model and optimizer state (this rank's model shard on a
@@ -340,10 +366,32 @@ class Trainer:
         else:
             scores = sparse_step(self.cfg, self.model, self.opt_state,
                                  dev_batch)
-        self.metrics, lsum, wsum = self.metrics.update(
-            scores, dev_batch, self.cfg.loss_type
-        )
+        lsum, wsum = self.metrics.add_(scores, dev_batch, self.cfg.loss_type)
         return lsum / torch.clamp(wsum, min=1e-12)
+
+    def _run_steps(self, sb: SuperBatch) -> torch.Tensor:
+        """The ``sb.n`` steps of a super-batch on its views (the whole
+        ``seg_start`` slot, so no shape depends on a batch's unique
+        count), what the graph captures; returns their losses ``[n]``."""
+        return torch.stack([self.device_step(sb.step(i))
+                            for i in range(sb.n)])
+
+    def dispatch(self, sb: SuperBatch, pause=None) -> torch.Tensor:
+        """Train one shipped super-batch: one replay of the CUDA graph of
+        its K steps when it is full and the graph is captured, else the
+        same steps eagerly (the first full one is then captured, inside
+        ``pause``: the transfer stage's ``paused()``).  Returns the steps'
+        losses ``[n]`` (a device tensor; a replay's is the graph's own,
+        overwritten by the next one).  The loop's hook per dispatch."""
+        graph = self.graph
+        if graph is not None and graph.captured and sb.n == graph.k:
+            self.graph_dispatches += 1
+            return graph.replay(sb)
+        losses = self._run_steps(sb)
+        self.eager_dispatches += 1
+        if graph is not None and not graph.captured and sb.n == graph.k:
+            graph.capture(sb, self._run_steps, pause)
+        return losses
 
     def train_step(self, batch: Batch) -> torch.Tensor:
         """One step on a host :class:`Batch`, copied to the device by the
@@ -401,6 +449,9 @@ class Trainer:
         last_log_ex = self.global_metrics(self.metrics)["examples"]
         stepno = last_log_step = last_val_step = last_save_step = 0
         dispatches = 0
+        self.graph_dispatches = self.eager_dispatches = 0
+        if self.eager_reason:
+            log.info("every dispatch runs eagerly: %s", self.eager_reason)
         wait_s = dispatch_s = first_s = 0.0
         pipe_cfg, shard = self._input_plan()
         # The sharded step sorts its local ids on the device.
@@ -428,8 +479,7 @@ class Trainer:
                 if isinstance(item, EpochEnd):
                     self._epoch, self._batches_done = item.epoch + 1, 0
                     continue
-                for i in range(item.n):
-                    self.device_step(item.step(i))
+                self.dispatch(item, prefetcher.paused())
                 dispatch_s += time.perf_counter() - t_run
                 if not dispatches:
                     first_s = time.time() - t0
@@ -467,6 +517,8 @@ class Trainer:
         train_metrics["examples_per_sec"] = train_metrics["examples"] / wall
         train_metrics["steps"] = stepno
         train_metrics["dispatches"] = dispatches
+        train_metrics["graph_dispatches"] = self.graph_dispatches
+        train_metrics["eager_dispatches"] = self.eager_dispatches
         train_metrics["first_dispatch_s"] = first_s
         train_metrics["wall_s"] = wall
         train_metrics["ingest_cache"] = "off"
@@ -500,7 +552,7 @@ class Trainer:
                     else:
                         scores = fm.fm_scores(self.model, dev_batch.ids,
                                               dev_batch.vals)
-                ms, _, _ = ms.update(scores, dev_batch, self.cfg.loss_type)
+                ms.add_(scores, dev_batch, self.cfg.loss_type)
         return self.global_metrics(ms)
 
     def save(self, stepno: int) -> str:

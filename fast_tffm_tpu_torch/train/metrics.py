@@ -3,7 +3,9 @@
 
 AUC uses a fixed-bin histogram over sigmoid scores (``DEFAULT_AUC_BINS``
 bins, ``clip(int(sigmoid * bins))``), accumulated on the device across
-batches without a host round trip and finalised by the trapezoid rule.
+batches without a host round trip (:func:`auc_add_`, in place, so that a
+CUDA graph of the train step can hold it) and finalised by the
+trapezoid rule.
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ import torch
 from fast_tffm_tpu_torch.models.fm import example_losses
 
 __all__ = [
-    "DEFAULT_AUC_BINS", "AucState", "auc_finalize", "auc_init",
-    "auc_update", "weighted_loss",
+    "DEFAULT_AUC_BINS", "AucState", "auc_add_", "auc_finalize", "auc_init",
+    "weighted_loss",
 ]
 
 DEFAULT_AUC_BINS = 1024
@@ -33,16 +35,19 @@ def auc_init(bins: int = DEFAULT_AUC_BINS,
                     torch.zeros((bins,), dtype=torch.float32, device=device))
 
 
-def auc_update(state: AucState, scores: torch.Tensor, labels: torch.Tensor,
-               weights: torch.Tensor) -> AucState:
+def auc_add_(state: AucState, scores: torch.Tensor, labels: torch.Tensor,
+             weights: torch.Tensor) -> None:
     """Fold raw (pre-sigmoid) ``scores [B]`` with labels in {0, 1} and
-    weights (0 = padded example) into the histogram."""
+    weights (0 = padded example) into the histogram, in place.  On the
+    card ``index_add_`` sums with float atomics: exact for 0/1 weights,
+    in any order; other weights may differ in the last bits between
+    runs."""
     bins = state.pos.shape[0]
     p = torch.sigmoid(scores.float())
     idx = torch.clamp((p * bins).to(torch.int32), 0, bins - 1).long()
     wl = weights * labels
-    return AucState(state.pos.index_add(0, idx, wl),
-                    state.neg.index_add(0, idx, weights - wl))
+    state.pos.index_add_(0, idx, wl)
+    state.neg.index_add_(0, idx, weights - wl)
 
 
 def auc_finalize(state: AucState) -> torch.Tensor:

@@ -25,6 +25,8 @@ roundings (and in bf16 rounds once): it is held to it bitwise in both
 modes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -959,3 +961,156 @@ def test_steps_on_shipped_views_equal_steps_on_copied_batches(gpu):
     (m1, o1), (m2, o2) = models
     assert torch.equal(m1.table, m2.table) and torch.equal(m1.w0, m2.w0)
     assert torch.equal(o1.acc_table, o2.acc_table)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adagrad", "ftrl", "sgd"])
+@pytest.mark.parametrize("n, unique, hot", [(20000, 3001, 5000),
+                                            (4096, 4096, 0), (3, 2, 0)])
+def test_static_k1_k2_kernels_match_plain_and_the_dynamic_kernels(
+        gpu, optimizer, n, unique, hot):
+    """K1 and K2 on the whole ``[n + 1]`` slot: bitwise the same kernels
+    on the cut slot ``[U + 1]`` on the first U rows (row -1 after, no
+    other table row written), and the plain versions on the whole slot
+    within the kernels' bounds."""
+    rng = np.random.default_rng(n)
+    d, vocab = 9, 1 << 16
+    if unique == n:
+        ids = rng.choice(vocab, n, replace=False).astype(np.int32)
+    else:
+        pool = rng.choice(vocab, unique, replace=False)
+        ids = pool[rng.integers(0, unique, n)].astype(np.int32)
+    ids[:hot] = 77
+    meta = host_sort_meta(ids)
+    u = meta.seg_start.shape[0] - 1
+    full = np.full((n + 1,), n, np.int32)
+    full[:u + 1] = meta.seg_start
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(gpu)
+    g = put(rng.normal(0.0, 0.1, (n, d)).astype(np.float32))
+    ids_d, perm, seg, slot = put(ids), put(meta.perm), put(meta.seg_start), \
+        put(full)
+    before = sparse_apply.k1_dedup_cuda.launches
+    s_rows, s_sums = sparse_apply.k1_dedup_cuda(g, ids_d, perm, slot)
+    assert sparse_apply.k1_dedup_cuda.launches == before + 1
+    urows, sums = sparse_apply.k1_dedup_cuda(g, ids_d, perm, seg)
+    p_rows, p_sums = sparse_apply.k1_dedup_plain(g, ids_d, perm, slot)
+    torch.cuda.synchronize()
+    assert s_rows.shape == (n,) and s_sums.shape == (n, 2 * d)
+    assert torch.equal(s_rows[:u], urows) and torch.equal(s_sums[:u], sums)
+    assert bool((s_rows[u:] == -1).all())
+    assert torch.equal(s_rows, p_rows)
+    torch.testing.assert_close(s_sums[:u], p_sums[:u], rtol=1e-5, atol=1e-5)
+    count = {"sgd": 1, "adagrad": 2, "ftrl": 3}[optimizer]
+    start = [put(rng.uniform(0.1, 1.0, (vocab, d)).astype(np.float32))
+             for _ in range(count)]
+    dyn, stat, plain = ([t.clone() for t in start] for _ in range(3))
+    hyper = sparse_apply.Hyper(lr=0.05, l1=0.01, l2=0.1)
+    sparse_apply.k2_apply_cuda(optimizer, urows, sums, dyn, hyper)
+    before = sparse_apply.k2_apply_cuda.launches
+    sparse_apply.k2_apply_cuda(optimizer, s_rows, s_sums, stat, hyper)
+    assert sparse_apply.k2_apply_cuda.launches == before + 1
+    sparse_apply.k2_apply_plain(optimizer, s_rows, s_sums, plain, hyper)
+    torch.cuda.synchronize()
+    untouched = torch.ones(vocab, dtype=torch.bool, device=gpu)
+    untouched[urows.long()] = False
+    for i, (a, b, c, t0) in enumerate(zip(dyn, stat, plain, start)):
+        assert torch.equal(a, b)
+        assert torch.equal(b[untouched], t0[untouched])
+        torch.testing.assert_close(b, c, **(OPT_TOL if i else TABLE_TOL))
+
+
+def _dispatch_cfg(tmp_path, optimizer, dtype, k):
+    return FmConfig(vocabulary_size=1 << 16, factor_num=8, max_features=39,
+                    batch_size=512, optimizer=optimizer, compute_dtype=dtype,
+                    learning_rate=0.05, ftrl_l1=0.01, ftrl_l2=0.1,
+                    factor_lambda=1e-3, bias_lambda=1e-3, seed=5,
+                    model_file=str(tmp_path / "none"),
+                    steps_per_dispatch=k)
+
+
+def _trainer(cfg, gpu, graphs: bool):
+    """A trainer on ``gpu``; ``graphs=False``: every dispatch eager (its
+    ``graph`` set to None)."""
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, device=gpu)
+    if not graphs:
+        trainer.graph = None
+    return trainer
+
+
+def _trained_state(trainer):
+    m = trainer.metrics
+    return ([trainer.model.table, trainer.model.w0,
+             *sparse.opt_tables(trainer.opt_state)]
+            + [t for t in trainer.opt_state if t.dim() == 0]
+            + [m.loss_sum, m.weight_sum, m.count, m.auc.pos, m.auc.neg])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("optimizer", ["adagrad", "ftrl", "sgd"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_graphed_dispatch_is_bitwise_the_eager_one(gpu, tmp_path, k,
+                                                   optimizer, dtype):
+    """Nine batches through ``Trainer.dispatch``: the first full
+    super-batch eager and captured, every later full one a replay of the
+    CUDA graph, the tail (K = 4: one batch) eager; tables, optimizer
+    state, w0, step losses and metrics bitwise those of the same
+    dispatches run eagerly, and the kernels' launch counts the same."""
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.train.dispatch import COUNTERS
+
+    cfg = _dispatch_cfg(tmp_path, optimizer, dtype, k)
+    host = _host_batches(9, vocab=cfg.vocabulary_size)
+    runs = []
+    for graphs in (True, False):
+        trainer = _trainer(cfg, gpu, graphs)
+        counts = [getattr(fn, attr) for fn, attr in COUNTERS]
+        losses = [trainer.dispatch(sb).clone() for sb in DevicePrefetcher(
+            host, k, gpu, cfg.vocabulary_size)]
+        torch.cuda.synchronize()
+        launched = [getattr(fn, attr) - c
+                    for (fn, attr), c in zip(COUNTERS, counts)]
+        runs.append((trainer, torch.cat(losses), launched))
+    (graphed, g_loss, g_launched), (eager, e_loss, e_launched) = runs
+    full = 9 // k
+    assert graphed.graph_dispatches == full - 1 > 0
+    assert graphed.eager_dispatches == 1 + (9 % k > 0)
+    assert eager.graph is None and eager.graph_dispatches == 0
+    assert g_launched == e_launched and sum(g_launched) >= 4 * 9
+    assert torch.equal(g_loss, e_loss)
+    for a, b in zip(_trained_state(graphed), _trained_state(eager)):
+        assert torch.equal(a, b)
+    assert graphed.graph.pool_bytes() > 0
+
+
+@pytest.mark.gpu
+def test_capture_while_the_transfer_thread_ships(gpu, tmp_path):
+    """``Trainer.train()`` captures its graph while the transfer thread
+    keeps shipping (two parse threads, two super-batches in flight), over
+    two epochs of eleven batches at K = 2 (a tail of one an epoch): the
+    run trains, bitwise, what the same run trains eagerly."""
+    rng = np.random.default_rng(4)
+    path = tmp_path / "train.libsvm"
+    with open(path, "w") as f:
+        for _ in range(512 * 11):
+            ids = rng.integers(0, 1 << 20, 30)
+            f.write(f"{int(rng.random() < 0.3)} "
+                    + " ".join(f"{i}:{rng.uniform(0.1, 1):.3f}" for i in ids)
+                    + "\n")
+    cfg = dataclasses.replace(
+        _dispatch_cfg(tmp_path, "adagrad", "float32", 2),
+        train_files=[str(path)], epoch_num=2, thread_num=2,
+        prefetch_super_batches=2, log_steps=0, save_steps=0)
+    results = []
+    for graphs in (True, False):
+        trainer = _trainer(dataclasses.replace(
+            cfg, model_file=str(tmp_path / f"m{graphs}")), gpu, graphs)
+        results.append((trainer, trainer.train()["train"]))
+    (graphed, g_tr), (eager, e_tr) = results
+    assert g_tr["steps"] == e_tr["steps"] == 22
+    assert g_tr["graph_dispatches"] == 9 and g_tr["eager_dispatches"] == 3
+    assert e_tr["eager_dispatches"] == e_tr["dispatches"] == 12
+    for a, b in zip(_trained_state(graphed), _trained_state(eager)):
+        assert torch.equal(a, b)

@@ -312,7 +312,8 @@ def _drain(source, k, with_fields=False, depth=2):
 def test_shipped_views_equal_stack_batches(k, meta, with_fields):
     """Two epochs of 7 and 2 batches: super-batches of K and the epochs'
     tails at K' = leftover, each step's views equal to ``stack_batches``
-    of the same group, ``seg_start`` cut to U + 1."""
+    of the same group, ``seg_start`` the whole slot: the batch's U + 1
+    entries, then ``n``."""
     rng = np.random.default_rng(k)
     epochs = [[_batch(rng, meta=meta) for _ in range(7)],
               [_batch(rng, meta=meta) for _ in range(2)]]
@@ -338,8 +339,13 @@ def test_shipped_views_equal_stack_batches(k, meta, with_fields):
                 np.testing.assert_array_equal(a.numpy(), want)
                 np.testing.assert_array_equal(want, getattr(host, name))
             if meta:
-                for a, b in zip(step.sort_meta, host.sort_meta):
-                    np.testing.assert_array_equal(a.numpy(), b)
+                perm, seg = (a.numpy() for a in step.sort_meta)
+                np.testing.assert_array_equal(perm, host.sort_meta.perm)
+                u1 = host.sort_meta.seg_start.shape[0]
+                np.testing.assert_array_equal(seg[:u1],
+                                              host.sort_meta.seg_start)
+                assert seg.shape == (perm.shape[0] + 1,)
+                assert (seg[u1:] == perm.shape[0]).all()
             else:
                 assert step.sort_meta is None and ref.sort_meta is None
 

@@ -245,6 +245,8 @@ def _k1_args():
     (0, torch.zeros((2, 4)), ValueError),
     (2, torch.zeros((4,), dtype=torch.int32), ValueError),
     (0, torch.zeros((4, 3)).t(), ValueError),  # not contiguous
+    (3, torch.tensor([0, 1, 3, 3, 3], dtype=torch.int32),
+     ValueError),  # a seg_start past the whole slot [n + 1]
 ])
 def test_k1_wrapper_refuses_what_the_kernel_does_not_take(which, bad, err):
     args = _k1_args()

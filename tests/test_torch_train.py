@@ -136,7 +136,7 @@ def test_auc_and_weighted_loss_match_jax():
         state_j = jax_metrics.auc_update(state_j, jnp.asarray(scores),
                                          jnp.asarray(labels), jnp.asarray(w))
         args = [torch.from_numpy(a) for a in (scores, labels, w)]
-        state_t = metrics.auc_update(state_t, *args)
+        metrics.auc_add_(state_t, *args)
         for loss_type in ("logistic", "mse"):
             got = metrics.weighted_loss(*args, loss_type)
             want = jax_metrics.weighted_loss(
@@ -542,3 +542,58 @@ def test_process_pool_settings_are_logged_inert(caplog):
                          ring_slots=3), device="cpu")
     assert "parse_processes=2 and ring_slots=3 are inert" in caplog.text
     assert "item 7a" in caplog.text
+
+
+def test_validation_and_predict_match_the_reference(tmp_path):
+    """From the reference's initial table, the port and the reference
+    (scatter path, host sort meta) train two epochs of planted-structure
+    lines, then validate and predict: the validation metrics agree
+    within the tile-vs-scatter bounds' effect on the scores, the counts
+    and ``truncated_features`` exactly, and the score files to their
+    printed six decimals (one unit of the last digit: scores ~1e-7
+    apart may round either way)."""
+    from fast_tffm_tpu.train.loop import Trainer as JaxTrainer
+    from fast_tffm_tpu.train.loop import predict as jax_predict
+    from fast_tffm_tpu_torch.train.loop import predict
+
+    rng = np.random.default_rng(8)
+    vocab = 300
+    w = rng.normal(0, 0.5, vocab)
+    v = rng.normal(0, 0.3, (vocab, 4))
+    _gen(tmp_path / "train.libsvm", 1100, rng, w, v, n_feat=14)
+    _gen(tmp_path / "valid.libsvm", 450, rng, w, v)
+    common = dict(
+        vocabulary_size=vocab, factor_num=4, max_features=12,
+        batch_size=128, epoch_num=2, learning_rate=0.5,
+        adagrad_initial_accumulator=0.01, optimizer="adagrad",
+        factor_lambda=1e-4, bias_lambda=1e-4, init_value_range=0.05,
+        shuffle_buffer=400, seed=9, log_steps=0, save_steps=0,
+        train_files=[str(tmp_path / "train.libsvm")],
+        validation_files=[str(tmp_path / "valid.libsvm")],
+        predict_files=[str(tmp_path / "valid.libsvm")], host_sort=True,
+    )
+    jcfg = JaxFmConfig(model_file=str(tmp_path / "jax_model"),
+                       score_path=str(tmp_path / "jax_scores.txt"),
+                       sparse_apply="scatter", **common)
+    jt = JaxTrainer(jcfg)
+    init = jax.tree.map(np.asarray, jt.state.params)
+    jres = jt.train()
+    port_dir = str(tmp_path / "port_model")
+    checkpoint.save_params(port_dir, weights.from_jax(init.w0, init.table,
+                                                      device="cpu"))
+    cfg = FmConfig(model_file=port_dir,
+                   score_path=str(tmp_path / "port_scores.txt"), **common)
+    pres = Trainer(cfg, device="cpu").train()
+    for key in ("steps", "examples", "truncated_features"):
+        assert pres["train"][key] == jres["train"][key], key
+    assert pres["train"]["truncated_features"] > 0  # 14 features over 12
+    got, want = pres["validation"], jres["validation"]
+    assert got["examples"] == want["examples"] == 450
+    assert got["weight_sum"] == want["weight_sum"]
+    np.testing.assert_allclose(got["logloss"], want["logloss"], rtol=1e-5)
+    np.testing.assert_allclose(got["auc"], want["auc"], atol=1e-4)
+    assert jax_predict(jcfg) == 450
+    assert predict(cfg, device="cpu") == 450
+    port_scores = np.loadtxt(cfg.score_path)
+    jax_scores = np.loadtxt(jcfg.score_path)
+    np.testing.assert_allclose(port_scores, jax_scores, rtol=0, atol=1.01e-6)
