@@ -49,17 +49,27 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    (their counters); the logloss of the last steps below the first
    step's; one finite probability per predict line.
 5b. Ingest phase (main path 1 again): ``BatchPipeline`` drained alone
-   over the train files (lines/s) with the Python parser on one thread
-   and the native parser on 1 and 8 threads, the three streams checked
-   bitwise equal; then ``Trainer.train()`` for 4 epochs of the same
-   files (64 steps), three times from fresh models: as it runs (end to
-   end examples/s, with and without the first dispatch, and
-   ``ingest_wait_frac``), under ``torch.profiler`` with no checkpoint
-   write (the device's idle share, host-to-device copies per
-   super-batch, ``cudaMemcpyAsync`` host time per step) and with each
-   step synchronised (its p50 during the run), through
-   ``fast_tffm_tpu_torch/tools/ingest_bench.py``.  Each run is checked
-   as phase 5's, the counts exact.
+   over the train files (lines/s) with the Python parser on one thread,
+   the native parser on 1 and 8 threads and on 2, 4 and 8 spawned
+   worker processes (the shared-memory ring on), the streams checked
+   bitwise equal; the free bytes of ``/dev/shm`` beside the ring's
+   size; then ``Trainer.train()`` for 4 epochs of the same files (64
+   steps) in six modes: 8 threads with the epoch cache off, on
+   (``cache_epochs``) and prestacked (``cache_prestacked``), and 2, 4
+   and 8 workers with the cache off; each from fresh models as it runs
+   (end to end examples/s, with and without the first dispatch, and
+   ``ingest_wait_frac``) and with each step synchronised (its p50
+   during the run), and the first mode also under ``torch.profiler``
+   with no checkpoint write (the device's idle share, host-to-device
+   copies per super-batch, ``cudaMemcpyAsync`` host time per step), all
+   through ``fast_tffm_tpu_torch/tools/ingest_bench.py``.  Each run is
+   checked as phase 5's, with the counts exact for its mode: a cached run
+   parses epoch 0 alone (16 batches) and replays 48, reports
+   ``ingest_cache`` ``cached``, and prestacked packs epoch 0's groups
+   once and ships every dispatch with no fill; a pooled run's workers
+   parse every batch and the trainer's own parser none, and its table,
+   accumulator and w0 are bitwise the threads run's; no segment of the
+   run's pipelines is left in ``/dev/shm``.
 6. bf16 train phase (main path 1 with ``compute_dtype = bfloat16``):
    the same config on one train file, 8 steps in f32 and then 8 in
    bf16 from the same initial table on the same batches, the bf16 run
@@ -165,6 +175,8 @@ SERVE_TOL = dict(rtol=1e-5, atol=1e-6)
 # Train phase: 16 steps of 4096 lines in two files, one validation and
 # one predict file of 4096 lines each.
 TRAIN_FILES, BATCHES_PER_FILE, LINES = 2, 8, 4096
+# Ingest phase: the process pool's sizes (each beside eight threads).
+INGEST_PROCS = (2, 4, 8)
 INT_BUCKETS = 50
 # Sharded phase: the mesh, its ranks' deadline, and the K-place check's
 # shard (the upper half of the Criteo-Kaggle table).
@@ -601,40 +613,62 @@ def read_launches(kernels: dict) -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in kernels.items()}
 
 
-def zero_ingest(native, prefetcher_cls) -> None:
-    """Zero the ingest path's counters: batches the native parser parsed
-    and super-batches the transfer stage shipped."""
-    native.NativeParser.batches = 0
-    prefetcher_cls.ships = 0
-
-
-def read_ingest(native, prefetcher_cls) -> dict:
-    return {"native_batches": native.NativeParser.batches,
-            "fused_ships": prefetcher_cls.ships}
+def ingest_counters(native, prefetcher_cls, pipeline_cls) -> dict:
+    """The ingest path's counters, as ``kernel_fns`` gives the kernels'
+    (zeroed and read by ``zero_launches`` and ``read_launches``): batches
+    the native parser parsed in this process, super-batches the transfer
+    stage shipped, of them those it filled itself and the packed groups
+    it shipped with no fill, batches replayed from an epoch cache, and
+    batches the process workers' parsers parsed."""
+    return {"native_batches": (native.NativeParser, "batches"),
+            "fused_ships": (prefetcher_cls, "ships"),
+            "fills": (prefetcher_cls, "fills"),
+            "prestack_hits": (prefetcher_cls, "prestack_hits"),
+            "replays": (pipeline_cls, "replays"),
+            "worker_batches": (pipeline_cls, "worker_batches")}
 
 
 def check_train_path(tr: dict, launches: dict, ingest: dict,
-                     extra_batches: int = 0) -> None:
-    """A training run (with no epoch tail) went the native ingest path,
-    the CUDA graph and the kernels: every batch parsed by the native
-    parser (``extra_batches`` more for the validation files), every
-    dispatch one fused ship, every dispatch but the first a graph
-    replay, and every kernel of the step launched at least once a step,
-    replays included."""
-    steps = tr["steps"]
+                     extra_batches: int = 0, epochs: int = 1,
+                     cache: str = "off", procs: int = 0) -> None:
+    """A training run (with no epoch tail) went its ingest path, the CUDA
+    graph and the kernels: every dispatch but the first a graph replay,
+    every kernel of the step launched at least once a step, replays
+    included, and every dispatch one shipped super-batch.  The parse
+    counts are exact for the mode: with the epoch cache (``cache`` ``on``
+    or ``prestacked``) only epoch 0 parses and the rest are replays; on
+    ``procs`` workers the workers' parsers parse it all and the
+    process's own parser only the ``extra_batches`` of the validation
+    files.  The stage fills every group it ships itself, except with the
+    prestacked cache: there every dispatch ships a packed group (epoch
+    0's, packed once as it parses, then their replays) with no fill."""
+    steps, dispatches = tr["steps"], tr["dispatches"]
     for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
         check(launches[name] >= steps,
               f"{name} launched {launches[name]} times in {steps} steps")
     check(tr["eager_dispatches"] == 1
-          and tr["graph_dispatches"] == tr["dispatches"] - 1 > 0,
+          and tr["graph_dispatches"] == dispatches - 1 > 0,
           f"{tr['graph_dispatches']} graph and {tr['eager_dispatches']} "
-          f"eager dispatches of {tr['dispatches']}")
-    check(ingest["native_batches"] == steps + extra_batches,
-          f"the native parser parsed {ingest['native_batches']} batches "
-          f"for {steps} steps (+{extra_batches})")
-    check(ingest["fused_ships"] == tr["dispatches"] > 0,
-          f"{ingest['fused_ships']} fused ships for {tr['dispatches']} "
+          f"eager dispatches of {dispatches}")
+    parsed = steps // epochs if cache != "off" else steps
+    here = extra_batches if procs else parsed + extra_batches
+    check(ingest["native_batches"] == here
+          and ingest["worker_batches"] == (parsed if procs else 0),
+          f"{cache} cache, {procs} workers: the parser here parsed "
+          f"{ingest['native_batches']} batches (want {here}), the workers "
+          f"{ingest['worker_batches']}, for {steps} steps")
+    check(ingest["fused_ships"] == dispatches > 0,
+          f"{ingest['fused_ships']} fused ships for {dispatches} "
           f"dispatches")
+    check(tr["ingest_cache"] == ("off" if cache == "off" else "cached"),
+          f"ingest_cache {tr['ingest_cache']} with the cache {cache}")
+    check(ingest["replays"] == steps - parsed,
+          f"{ingest['replays']} batches replayed of {steps}")
+    hits = dispatches if cache == "prestacked" else 0
+    fills = dispatches - hits
+    check(ingest["fills"] == fills and ingest["prestack_hits"] == hits,
+          f"{ingest['fills']} fills and {ingest['prestack_hits']} prestack "
+          f"hits of {dispatches} dispatches ({cache} cache)")
 
 
 def graph_phase(torch, tcfg, card: str, files, steps: int,
@@ -777,43 +811,97 @@ def graph_phase(torch, tcfg, card: str, files, steps: int,
             "device_batch_step": step}
 
 
-def ingest_phase(torch, tcfg, card: str, train_files, native,
-                 prefetcher_cls, kernels: dict) -> dict:
+def shm_segments() -> list:
+    """This process's pipelines' segments left in ``/dev/shm``."""
+    mine = f"tffm{os.getpid()}p"
+    return sorted(n for n in os.listdir("/dev/shm") if n.startswith(mine))
+
+
+def ingest_phase(torch, tcfg, card: str, train_files, kernels: dict,
+                 counters: dict) -> dict:
     """Phase 5b through ``tools/ingest_bench.py``: the parsers drained
-    alone, then ``Trainer.train()`` for 4 epochs three times (each run
-    checked as phase 5's).  Returns the ``ingest`` record."""
+    alone, then ``Trainer.train()`` for 4 epochs three times in each mode
+    (each run checked as phase 5's, the counts exact for the mode).
+    Returns the ``ingest`` record."""
+    from fast_tffm_tpu_torch.data.pipeline import ring_slot_bytes
     from fast_tffm_tpu_torch.tools import ingest_bench
 
     epochs = 4
     drains = [ingest_bench.drain(train_files, tcfg, threads, use_native,
-                                 n_ep)
-              for threads, use_native, n_ep in ((1, False, 1),
-                                                (1, True, epochs),
-                                                (8, True, epochs))]
+                                 n_ep, procs)
+              for threads, use_native, n_ep, procs in (
+                  (1, False, 1, 0), (1, True, epochs, 0),
+                  (8, True, epochs, 0)) + tuple(
+                  (8, True, epochs, p) for p in INGEST_PROCS)]
     check(len({d["digest"] for d in drains}) == 1,
           f"the parsers' streams differ: {drains}")
-    print(f"ingest drain lines/s ({card}, {os.cpu_count()} cores): "
+    check(not shm_segments(), f"segments left: {shm_segments()}")
+    print(f"ingest drain lines/s ({card}, {os.cpu_count()} cores; threads "
+          f"1 python, 1, 8, then {INGEST_PROCS} workers): "
           + json.dumps([d["lines_per_s"] for d in drains]), flush=True)
+    shm = os.statvfs("/dev/shm")
+    ring_bytes = tcfg.ring_slots * ring_slot_bytes(tcfg, True)
+    print(f"/dev/shm: {shm.f_bavail * shm.f_frsize} bytes free; the ring "
+          f"{ring_bytes} bytes ({tcfg.ring_slots} slots)", flush=True)
 
-    def on_start():
-        zero_launches(kernels)
-        zero_ingest(native, prefetcher_cls)
+    steps_want = epochs * TRAIN_FILES * BATCHES_PER_FILE
+    modes = [("off", 0), ("on", 0), ("prestacked", 0)] + [
+        ("off", p) for p in INGEST_PROCS]
+    baseline = {}
+    runs = []
+    for cache, procs in modes:
+        def on_start():
+            zero_launches(kernels)
+            zero_launches(counters)
 
-    def on_end(run, result):
-        tr = result["train"]
-        check(tr["steps"] == epochs * TRAIN_FILES * BATCHES_PER_FILE,
-              f"ingest run {run}: {tr['steps']} steps")
-        check_train_path(tr, read_launches(kernels),
-                         read_ingest(native, prefetcher_cls))
+        def on_end(run, result, trainer, cache=cache, procs=procs):
+            tr = result["train"]
+            check(tr["steps"] == steps_want,
+                  f"ingest run {run} ({cache}, {procs}): {tr['steps']} "
+                  f"steps")
+            check_train_path(tr, read_launches(kernels),
+                             read_launches(counters), epochs=epochs,
+                             cache=cache, procs=procs)
+            check(not shm_segments(), f"segments left: {shm_segments()}")
+            if run != "plain" or cache != "off":
+                return
+            state = (trainer.model.table.detach().clone(),
+                     trainer.opt_state.acc_table.clone(),
+                     trainer.model.w0.detach().clone())
+            if not procs:
+                baseline["state"] = state
+                return
+            # The workers' batches are the threads': the same training.
+            for name, a, b in zip(("table", "acc", "w0"), state,
+                                  baseline["state"]):
+                check(torch.equal(a, b), f"{procs} workers: {name} differs "
+                      f"from the threads run's")
 
-    icfg = dataclasses.replace(tcfg, epoch_num=epochs)
-    record = ingest_bench.train_runs(icfg, torch.device("cuda"),
-                                     on_start=on_start, on_end=on_end)
+        icfg = ingest_bench.with_mode(
+            dataclasses.replace(tcfg, epoch_num=epochs), cache,
+            tcfg.thread_num, procs, tcfg.steps_per_dispatch)
+        # The profiler traces the threads run alone (as before the cache
+        # and the pool): each mode's idle share is the bench's to take.
+        record = ingest_bench.train_runs(
+            icfg, torch.device("cuda"), on_start=on_start, on_end=on_end,
+            profiled=(cache, procs) == ("off", 0))
+        runs.append(record)
+        print(f"ingest {cache} cache, {procs or tcfg.thread_num} "
+              f"{'workers' if procs else 'threads'} ({card}, "
+              f"{os.cpu_count()} cores): " + json.dumps({
+                  key: record.get(key) for key in (
+                      "examples_per_sec_after_first_dispatch",
+                      "examples_per_sec_end_to_end", "first_dispatch_s",
+                      "ingest_wait_frac", "step_p50_ms_in_train")}),
+              flush=True)
+    baseline.clear()
     return {"card": card, "cpu_count": os.cpu_count(),
             "lines": TRAIN_FILES * BATCHES_PER_FILE * LINES,
             "drain": [{k: v for k, v in d.items() if k != "digest"}
                       for d in drains],
-            "streams_bitwise_equal": True, "epochs": epochs, **record}
+            "streams_bitwise_equal": True, "epochs": epochs,
+            "shm_free_bytes": shm.f_bavail * shm.f_frsize,
+            "ring_bytes": ring_bytes, "runs": runs}
 
 
 def spawn_ranks(tmp: str, tag: str, overrides: dict, world: int,
@@ -1176,6 +1264,7 @@ def main() -> int:
     from fast_tffm_tpu_torch.data.libsvm import (
         host_sort_meta, make_batch, parse_lines,
     )
+    from fast_tffm_tpu_torch.data.pipeline import BatchPipeline
     from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
     from fast_tffm_tpu_torch.models import fm
     from fast_tffm_tpu_torch.ops import _build, fm_kernels, sparse_apply
@@ -1730,8 +1819,9 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = kernel_fns(fm_kernels, sparse_apply, micro_probe)
+    counters = ingest_counters(native, DevicePrefetcher, BatchPipeline)
     zero_launches(kernels)
-    zero_ingest(native, DevicePrefetcher)
+    zero_launches(counters)
 
     class LossTrainer(Trainer):
         """Keeps each dispatch's step losses (device tensors: a replay's
@@ -1750,7 +1840,7 @@ def main() -> int:
     trainer = LossTrainer(tcfg)
     result = trainer.train()
     train_wall = time.perf_counter() - t0
-    train_ingest = read_ingest(native, DevicePrefetcher)
+    train_ingest = read_launches(counters)
     t0 = time.perf_counter()
     n_pred = predict(tcfg)
     predict_wall = time.perf_counter() - t0
@@ -1800,8 +1890,7 @@ def main() -> int:
 
     # -- ingest phase (main path 1 again): the native ingest path -------
     print(json.dumps({"ingest": ingest_phase(
-        torch, tcfg, card, train_files, native, DevicePrefetcher,
-        kernels)}), flush=True)
+        torch, tcfg, card, train_files, kernels, counters)}), flush=True)
     phase_end("ingest")
 
     # -- bf16 train phase (main path 1 with compute_dtype = bfloat16) --

@@ -245,12 +245,14 @@ class NativeParser:
                                             *out, w_ptr)
         return self._done(dropped, out, lambda i: lines[i])
 
-    def parse_raw(self, buf: bytes, starts: np.ndarray, ends: np.ndarray,
+    def parse_raw(self, buf, starts: np.ndarray, ends: np.ndarray,
                   batch_size: int) -> Batch:
         """The batch of lines ``buf[starts[i]:ends[i]]``, in any order and
         not necessarily contiguous (a permuted window), straight out of
         ``buf`` with no string per line; blank and ``#`` lines become
-        weight-0 rows."""
+        weight-0 rows.  ``buf`` is ``bytes`` or any other buffer (a
+        ``uint8`` view of a shared-memory ring slot: the parse workers
+        read it in place, passed by address)."""
         n = len(starts)
         if n > batch_size:
             raise ValueError(f"{n} lines > batch_size {batch_size}")
@@ -258,8 +260,14 @@ class NativeParser:
             raise ValueError(f"starts/ends length mismatch: {n}/{len(ends)}")
         starts = np.ascontiguousarray(starts, np.int64)
         ends = np.ascontiguousarray(ends, np.int64)
+        view = buf if isinstance(buf, bytes) else np.frombuffer(buf, np.uint8)
+        if n and (starts.min() < 0 or ends.max() > len(view)
+                  or (starts > ends).any()):
+            raise ValueError(
+                f"line extents outside the {len(view)}-byte buffer")
+        arg = buf if isinstance(buf, bytes) else view.ctypes.data
         out = self._outputs(batch_size)
-        dropped = self._lib.fm_parser_parse_raw(self._handle, buf, starts,
+        dropped = self._lib.fm_parser_parse_raw(self._handle, arg, starts,
                                                 ends, n, *out, None)
         return self._done(dropped, out,
                           lambda i: bytes(buf[starts[i]:ends[i]]))

@@ -7,13 +7,13 @@ takes batches from the source (a :class:`~.pipeline.BatchPipeline`)
 and groups ``steps_per_dispatch = K`` of them; each group becomes one
 :class:`SuperBatch`:
 
-1. **staging**: every leaf of the K batches is written straight into
-   ONE ``uint8`` host buffer, pinned when the device is ``cuda``, at
-   128-byte-aligned offsets (:func:`layout`): labels, ids, vals, fields
-   (only when ``with_fields``: plain FM never reads them), weights, and
-   with the host sort meta ``perm [K, n]`` and ``seg_start`` in a slot
-   of ``n + 1`` per batch (its first ``U + 1`` entries the batch's, the
-   rest ``n``);
+1. **staging** (:class:`Packer`): every leaf of the K batches is
+   written straight into ONE ``uint8`` host buffer, pinned when the
+   device is ``cuda``, at 128-byte-aligned offsets (:func:`layout`):
+   labels, ids, vals, fields (only when ``with_fields``: plain FM never
+   reads them), weights, and with the host sort meta ``perm [K, n]``
+   and ``seg_start`` in a slot of ``n + 1`` per batch (its first ``U +
+   1`` entries the batch's, the rest ``n``);
 2. **copy**: ONE ``copy_(..., non_blocking=True)`` of that buffer into a
    device ``uint8`` buffer on a copy stream of the stage's own, and an
    event recorded after it;
@@ -35,6 +35,15 @@ waited for.  On the CPU the "copy" is the staging buffer itself (an
 alias), so no staging buffer is ever recycled there.  A failure to pin
 memory on ``cuda`` raises.
 
+**The prestacked ship.**  With the prestacked epoch cache
+(``cache_prestacked``) the source delivers :class:`PackedGroup` s: groups
+the pipeline packed once, through the same :class:`Packer`, at epoch
+0's group boundaries, and replays in later epochs.  The stage ships
+such a group with no fill and no range check (both ran at its packing):
+one copy of its buffer, which it holds until the copy's event and never
+recycles or refills, since the cache owns it.  A pending group of plain
+batches (a resume's tail) ships first, as a short super-batch.
+
 At most ``depth`` (``prefetch_super_batches``) shipped super-batches
 wait for the consumer.  An :class:`~.pipeline.EpochEnd` marker from the
 source flushes the pending group, which ships as a short super-batch
@@ -50,7 +59,8 @@ as the caller needs no other thread's CUDA call to run.
 :func:`stack_batches` is the plain version: the same super-batch stacked
 with numpy, which the views are held against in the tests.
 ``DevicePrefetcher.ships`` counts the super-batches every stage of the
-process shipped, as the kernels' wrappers count launches.
+process shipped, as the kernels' wrappers count launches: ``fills``
+those it filled itself and ``prestack_hits`` the packed groups.
 """
 
 from __future__ import annotations
@@ -69,8 +79,8 @@ from fast_tffm_tpu_torch.data.queues import (
 )
 from fast_tffm_tpu_torch.platform import resolve_device
 
-__all__ = ["DevicePrefetcher", "SuperBatch", "layout", "rebase",
-           "stack_batches"]
+__all__ = ["DevicePrefetcher", "PackedGroup", "Packer", "SuperBatch",
+           "layout", "rebase", "stack_batches"]
 
 _ALIGN = 128  # byte alignment of each leaf in the staging buffer
 
@@ -137,6 +147,13 @@ def _fill(dst: np.ndarray, name: str, cols: list) -> None:
         dst[i, c.shape[0]:] = dst.shape[1] - 1  # n
 
 
+def _host_views(buffer: torch.Tensor, spec) -> dict:
+    """Every leaf of ``spec`` as a numpy view of the host ``buffer``."""
+    host = buffer.numpy()
+    return {name: host[off:off + nbytes].view(dtype).reshape(shape)
+            for name, dtype, shape, off, nbytes in spec}
+
+
 def _assemble(leaves: dict, k: int, buffer=None) -> SuperBatch:
     meta = None
     if "perm" in leaves:
@@ -184,31 +201,108 @@ def stack_batches(group: Sequence[Batch],
     return _assemble(leaves, len(group))
 
 
+class PackedGroup(NamedTuple):
+    """``n`` parsed batches packed once into one ``uint8`` host buffer
+    (pinned on ``cuda``) in :func:`layout` form: the prestacked epoch
+    cache's unit, which the transfer stage ships with no fill and never
+    recycles."""
+
+    buffer: torch.Tensor
+    spec: list  # layout(...)[0]
+    n: int
+
+    @property
+    def nbytes(self) -> int:
+        return self.buffer.numel()
+
+    def batches(self, start: int = 0) -> list:
+        """Steps ``start .. n - 1`` as host :class:`Batch` views of the
+        buffer (each with the whole ``seg_start`` slot): the tail a resume
+        inside the group delivers."""
+        sb = _assemble(_host_views(self.buffer, self.spec), self.n)
+        return [sb.step(i) for i in range(start, self.n)]
+
+
+class Packer:
+    """Packs a group of parsed batches into one staging buffer in
+    :func:`layout` form, pinned when the device is ``cuda`` (a failure to
+    pin raises), after the range check of its ids (``feature ids must lie
+    in [0, vocabulary_size)``: an id outside would be a device-side
+    assert).  The transfer stage fills its recycled staging buffers
+    through it, and the prestacked epoch cache packs each group once
+    with :meth:`pack` (``BatchPipeline(prestack=(k, packer.pack))``), so
+    the check runs once on every freshly parsed group and never on a
+    replay.  ``lock`` is held around each CUDA call of the packer and of
+    the stage that uses it."""
+
+    def __init__(self, device, vocabulary_size: int,
+                 with_fields: bool = False):
+        self.pin = resolve_device(device).type == "cuda"
+        self.vocabulary_size = vocabulary_size
+        self.with_fields = with_fields
+        self.lock = threading.Lock()
+
+    def layout_of(self, group: Sequence[Batch]):
+        """:func:`layout` of ``group``: ``(spec, total bytes)``."""
+        with_meta = all(b.sort_meta is not None for b in group)
+        return layout(len(group), *group[0].ids.shape, self.with_fields,
+                      with_meta)
+
+    def alloc(self, total: int) -> torch.Tensor:
+        with self.lock:
+            return torch.empty((total,), dtype=torch.uint8,
+                               pin_memory=self.pin)
+
+    def fill(self, group: Sequence[Batch], buffer: torch.Tensor,
+             spec) -> None:
+        """Write ``group`` into ``buffer`` (of ``spec``'s layout)."""
+        vocab = self.vocabulary_size
+        for b in group:
+            if b.ids.size and (b.ids.min() < 0 or b.ids.max() >= vocab):
+                # The parser reduces ids modulo the vocabulary; an id
+                # outside it would be a device-side assert on the GPU.
+                raise ValueError(f"feature ids must lie in [0, {vocab})")
+        for name, leaf in _host_views(buffer, spec).items():
+            _fill(leaf, name, _cols(group, name))
+
+    def pack(self, group: Sequence[Batch]) -> PackedGroup:
+        """``group`` in a buffer of its own (never recycled)."""
+        spec, total = self.layout_of(group)
+        buffer = self.alloc(total)
+        self.fill(group, buffer, spec)
+        return PackedGroup(buffer, spec, len(group))
+
+
 class DevicePrefetcher:
     """Ships ``source``'s batches to ``device`` as super-batches of
     ``steps_per_dispatch``; iterate for :class:`SuperBatch` es of device
     views (and the source's :class:`~.pipeline.EpochEnd` markers)."""
 
     ships = 0  # super-batches shipped by every stage of the process
+    fills = 0  # of them, groups the stage filled itself
+    prestack_hits = 0  # and packed groups it shipped with no fill
 
     def __init__(self, source, steps_per_dispatch: int, device,
                  vocabulary_size: int, depth: int = 2,
-                 with_fields: bool = False):
+                 with_fields: bool = False,
+                 packer: Optional[Packer] = None):
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         if self._cuda and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._k = max(1, steps_per_dispatch)
-        self._vocab = vocabulary_size
         self._depth = max(1, depth)
-        self._with_fields = with_fields
+        self._packer = packer if packer is not None else Packer(
+            self.device, vocabulary_size, with_fields)
+        if self._packer.pin != self._cuda:
+            raise ValueError("the packer pins for another device")
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self._cuda else None)
         # Held around each of the stage's CUDA calls (pinned and device
         # allocation, copy, event record and wait), and by paused().
-        self._cuda_calls = threading.Lock()
+        self._cuda_calls = self._packer.lock
         self._free: dict = {}  # total bytes -> [pinned staging buffer]
-        self._inflight: deque = deque()  # (event, total, staging)
+        self._inflight: deque = deque()  # (event, host buffer, recycle)
         self._source = source
         self._out = ClosableQueue(self._depth)
         self._thread = threading.Thread(
@@ -224,11 +318,15 @@ class DevicePrefetcher:
                 torch.cuda.set_device(self.device)
             group: list = []
             for item in it:
-                if isinstance(item, EpochEnd):
+                if isinstance(item, (EpochEnd, PackedGroup)):
+                    # A pending group (a resume's tail) ships first.
                     if group and not self._ship(group):
                         return
                     group = []
-                    if not self._out.put(item):
+                    if isinstance(item, PackedGroup):
+                        if not self._ship_packed(item):
+                            return
+                    elif not self._out.put(item):
                         return
                     continue
                 group.append(item)
@@ -242,56 +340,57 @@ class DevicePrefetcher:
             self._out.put(WorkerError(e))
         finally:
             self._out.put(SENTINEL)
-            close = getattr(it, "close", None)
+            # The source's own close (a pipeline's is safe from any
+            # thread), else the iterator's.
+            close = (getattr(self._source, "close", None)
+                     or getattr(it, "close", None))
             if close is not None:
                 close()
-
-    def _check_ids(self, group) -> None:
-        for b in group:
-            if b.ids.size and (b.ids.min() < 0 or b.ids.max() >= self._vocab):
-                # The parser reduces ids modulo the vocabulary; an id
-                # outside it would be a device-side assert on the GPU.
-                raise ValueError(
-                    f"feature ids must lie in [0, {self._vocab})")
 
     def _staging(self, total: int) -> torch.Tensor:
         free = self._free.get(total)
         if free:
             return free.pop()
-        # Pinned on cuda (a failure to pin raises); the CPU needs none.
-        return torch.empty((total,), dtype=torch.uint8,
-                           pin_memory=self._cuda)
+        return self._packer.alloc(total)
 
-    def _retire(self, event, total: int, staging: torch.Tensor) -> None:
-        """Queue a staging buffer behind its copy; recycle the oldest
-        once more than ``depth`` copies are in flight."""
-        self._inflight.append((event, total, staging))
+    def _retire(self, event, staging: torch.Tensor, recycle: bool) -> None:
+        """Hold a host buffer behind its copy; once more than ``depth``
+        copies are in flight, wait for the oldest and recycle its buffer
+        if it is the stage's own (a packed group's is only let go)."""
+        self._inflight.append((event, staging, recycle))
         while len(self._inflight) > self._depth:
-            ev, t, buf = self._inflight.popleft()
+            ev, buf, mine = self._inflight.popleft()
             ev.synchronize()
-            self._free.setdefault(t, []).append(buf)
+            if mine:
+                self._free.setdefault(buf.numel(), []).append(buf)
 
     def _ship(self, group) -> bool:
-        self._check_ids(group)
-        with_meta = all(b.sort_meta is not None for b in group)
-        k = len(group)
-        spec, total = layout(k, *group[0].ids.shape, self._with_fields,
-                             with_meta)
-        with self._cuda_calls:
-            staging = self._staging(total)
-        host = staging.numpy()
-        for name, dtype, shape, off, nbytes in spec:
-            _fill(host[off:off + nbytes].view(dtype).reshape(shape), name,
-                  _cols(group, name))
+        """Fill a recycled staging buffer with ``group`` and ship it."""
+        spec, total = self._packer.layout_of(group)
+        staging = self._staging(total)
+        self._packer.fill(group, staging, spec)
+        DevicePrefetcher.fills += 1
+        return self._copy(staging, spec, len(group), recycle=True)
+
+    def _ship_packed(self, packed: PackedGroup) -> bool:
+        """Ship a group the prestacked cache packed: no fill, no range
+        check (done at its packing), and its buffer never recycled."""
+        DevicePrefetcher.prestack_hits += 1
+        return self._copy(packed.buffer, packed.spec, packed.n,
+                          recycle=False)
+
+    def _copy(self, staging: torch.Tensor, spec, k: int,
+              recycle: bool) -> bool:
         event = None
         if self._cuda:
+            total = staging.numel()
             with self._cuda_calls, torch.cuda.stream(self._stream):
                 dev = torch.empty((total,), dtype=torch.uint8,
                                   device=self.device)
                 dev.copy_(staging, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record(self._stream)
-                self._retire(event, total, staging)
+                self._retire(event, staging, recycle)
         else:
             dev = staging  # an alias: never recycled
         sb = _assemble(_views(dev, spec), k, dev)

@@ -2,7 +2,8 @@
 
     python -m fast_tffm_tpu_torch.tools.ingest_bench \\
         [--cfg examples/criteo_kaggle.cfg] [--files 2] [--lines 32768] \\
-        [--epochs 4] [--threads 8 ...] [--k 1 ...] [--repeat 1] \\
+        [--epochs 4] [--threads 8 ...] [--procs 0 N ...] \\
+        [--cache off|on|prestacked ...] [--k 1 ...] [--repeat 1] \\
         [--device cuda|cpu]
 
 Writes seeded synthetic Criteo-shaped labelled lines (13 ``I<j>_<bucket>``
@@ -11,11 +12,17 @@ directory, then prints one JSON line per configuration (the grid
 ``--repeat`` times, in turns, after a warm-up run of one epoch):
 
 - ``drain``: ``BatchPipeline`` drained alone (host sort meta on) with
-  the Python parser on one thread over one epoch and the native parser
-  on each ``--threads`` over ``--epochs``: lines/s, the first batch's
-  latency, and whether the streams are bitwise equal;
-- ``train``: for each ``--threads`` x ``--k``, ``Trainer.train()`` for
-  ``--epochs`` from a fresh seeded model, three times: as it runs
+  the Python parser on one thread over one epoch, the native parser on
+  each ``--threads`` and each ``--procs`` N > 0 spawned workers (the
+  shared-memory ring on) over ``--epochs``: lines/s, with and without
+  the first batch, the first batch's latency, the workers' seconds
+  waiting, parsing and shipping, and whether the streams are bitwise
+  equal;
+- ``train``: for each ``--cache`` mode (``off``, ``on``: the epoch
+  cache, ``prestacked``: its packed groups) x each parser (each
+  ``--threads`` for ``--procs 0``, else N workers) x ``--k``,
+  ``Trainer.train()`` for ``--epochs`` from a fresh seeded model, three
+  times: as it runs
   (examples/s end to end, with and without the first dispatch, which
   captures the CUDA graph of the K steps, ``ingest_wait_frac``, the
   graphed and eager dispatches), under
@@ -26,8 +33,9 @@ directory, then prints one JSON line per configuration (the grid
   run).
 
 ``chip_smoke.py`` runs :func:`drain` and :func:`train_runs` on its own
-files for its ``ingest`` record.  The profiler and the synchronised
-run need the GPU; on the CPU only the plain run and the drains run.
+files for its ``ingest`` record, in each of its modes.  The profiler and
+the synchronised run need the GPU; on the CPU only the plain run and the
+drains run.
 """
 
 from __future__ import annotations
@@ -49,7 +57,8 @@ from fast_tffm_tpu_torch.data import native
 from fast_tffm_tpu_torch.data.pipeline import BatchPipeline
 from fast_tffm_tpu_torch.train.loop import Trainer
 
-__all__ = ["drain", "profile_run", "train_runs", "write_files"]
+__all__ = ["CACHE_MODES", "cache_mode", "drain", "profile_run",
+           "train_runs", "with_mode", "write_files"]
 
 INT_BUCKETS = 50
 
@@ -88,10 +97,12 @@ def _lines(files) -> int:
 
 
 def drain(files, cfg: FmConfig, threads: int, use_native: bool,
-          epochs: int) -> dict:
-    """``BatchPipeline`` drained alone: lines/s, the first batch's
-    latency, and a digest of the first epoch's batches."""
-    cfg = dataclasses.replace(cfg, thread_num=threads)
+          epochs: int, procs: int = 0) -> dict:
+    """``BatchPipeline`` drained alone (on ``procs`` spawned workers when
+    > 0): lines/s, the first batch's latency, and a digest of the first
+    epoch's batches."""
+    cfg = dataclasses.replace(cfg, thread_num=threads,
+                              parse_processes=procs)
     h = hashlib.sha256()
     per_epoch = None
     t0 = time.perf_counter()
@@ -111,9 +122,15 @@ def drain(files, cfg: FmConfig, threads: int, use_native: bool,
                 for a in item[:5] + tuple(item.sort_meta):
                     h.update(np.ascontiguousarray(a).tobytes())
     wall = time.perf_counter() - t0
-    return {"threads": threads, "native": use_native, "epochs": epochs,
-            "batches": n, "lines_per_s": epochs * _lines(files) / wall,
-            "first_batch_s": first, "digest": h.hexdigest()}
+    lines = epochs * _lines(files)
+    return {"threads": threads, "procs": procs, "native": use_native,
+            "epochs": epochs, "batches": n, "lines_per_s": lines / wall,
+            "first_batch_s": first,
+            # The rest of the drain's rate (a pool's start left out).
+            "lines_per_s_after_first_batch":
+                lines * (n - 1) / n / (wall - first) if n > 1 else None,
+            "worker_seconds": pipe.worker_seconds,
+            "digest": h.hexdigest()}
 
 
 def profile_run(fn) -> dict:
@@ -155,11 +172,12 @@ def _top(d: dict, steps: int, n: int) -> dict:
 
 
 def train_runs(cfg: FmConfig, device, trainer_cls=Trainer, on_start=None,
-               on_end=None) -> dict:
+               on_end=None, profiled: bool = True) -> dict:
     """``Trainer.train()`` on ``cfg`` three times from fresh models (see
-    the module docstring); ``on_start()`` runs just before each
-    ``train()``, ``on_end(run, train_result)`` just after.  Returns the
-    ``train`` record."""
+    the module docstring; the profiled run only with ``profiled``);
+    ``on_start()`` runs just before each ``train()``, ``on_end(run,
+    train_result, trainer)`` just after.  Returns the ``train``
+    record."""
     cuda = torch.device(device).type == "cuda"
 
     class NoSaveTrainer(trainer_cls):
@@ -185,8 +203,10 @@ def train_runs(cfg: FmConfig, device, trainer_cls=Trainer, on_start=None,
             return losses
 
     runs = [("plain", trainer_cls)]
+    if cuda and profiled:
+        runs.append(("profiled", NoSaveTrainer))
     if cuda:
-        runs += [("profiled", NoSaveTrainer), ("synced", SyncTrainer)]
+        runs.append(("synced", SyncTrainer))
     out = {}
     tmp = tempfile.mkdtemp(prefix="ingest_bench_")
     try:
@@ -211,7 +231,7 @@ def train_runs(cfg: FmConfig, device, trainer_cls=Trainer, on_start=None,
             if cuda:
                 torch.cuda.synchronize()
             if on_end is not None:
-                on_end(run, result)
+                on_end(run, result, trainer)
             tr = result["train"]
             if run == "plain":
                 k, steps = cfg.steps_per_dispatch, tr["steps"]
@@ -229,6 +249,7 @@ def train_runs(cfg: FmConfig, device, trainer_cls=Trainer, on_start=None,
                     "eager_dispatches": tr["eager_dispatches"],
                     "wall_s": tr["wall_s"],
                     "ingest_wait_frac": tr["ingest_wait_frac"],
+                    "ingest_cache": tr["ingest_cache"],
                 })
             elif run == "profiled":
                 steps = tr["steps"]
@@ -274,8 +295,30 @@ def train_runs(cfg: FmConfig, device, trainer_cls=Trainer, on_start=None,
                 os.rmdir(os.path.join(tmp, run))
         os.rmdir(tmp)
     out.update({"thread_num": cfg.thread_num,
+                "parse_processes": cfg.parse_processes,
+                "ring_slots": cfg.ring_slots,
+                "cache": cache_mode(cfg),
                 "steps_per_dispatch": cfg.steps_per_dispatch})
     return out
+
+
+CACHE_MODES = {"off": dict(cache_epochs=False, cache_prestacked=False),
+               "on": dict(cache_epochs=True, cache_prestacked=False),
+               "prestacked": dict(cache_epochs=True, cache_prestacked=True)}
+
+
+def cache_mode(cfg: FmConfig) -> str:
+    """``off``, ``on`` or ``prestacked``: ``cfg``'s epoch cache."""
+    if not cfg.cache_epochs:
+        return "off"
+    return "prestacked" if cfg.cache_prestacked else "on"
+
+
+def with_mode(cfg: FmConfig, cache: str, threads: int, procs: int,
+              k: int) -> FmConfig:
+    """``cfg`` with one cell of the grid's settings."""
+    return dataclasses.replace(cfg, thread_num=threads, parse_processes=procs,
+                               steps_per_dispatch=k, **CACHE_MODES[cache])
 
 
 def main(argv=None) -> int:
@@ -287,6 +330,10 @@ def main(argv=None) -> int:
     ap.add_argument("--lines", type=int, default=32768)
     ap.add_argument("--epochs", type=int, default=4)
     ap.add_argument("--threads", type=int, nargs="+", default=[8])
+    ap.add_argument("--procs", type=int, nargs="+", default=[0],
+                    help="0: the --threads; N > 0: N spawned workers")
+    ap.add_argument("--cache", nargs="+", default=["off"],
+                    choices=sorted(CACHE_MODES))
     ap.add_argument("--k", type=int, nargs="+", default=[1])
     ap.add_argument("--repeat", type=int, default=1,
                     help="passes over the grid, in turns")
@@ -312,6 +359,8 @@ def main(argv=None) -> int:
         drains = [drain(files, cfg, 1, False, 1)]
         drains += [drain(files, cfg, t, True, args.epochs)
                    for t in args.threads]
+        drains += [drain(files, cfg, cfg.thread_num, True, args.epochs, p)
+                   for p in args.procs if p > 0]
         print(json.dumps({"drain": drains, "device": card,
                           "cpu_count": os.cpu_count(),
                           "streams_bitwise_equal": len(
@@ -322,13 +371,16 @@ def main(argv=None) -> int:
         Trainer(dataclasses.replace(
             cfg, epoch_num=1, validation_files=[], save_steps=0,
             model_file=os.path.join(tmp, "warmup")), device=device).train()
+        parsers = [(t, 0) for t in args.threads if 0 in args.procs]
+        parsers += [(cfg.thread_num, p) for p in args.procs if p > 0]
         for rep in range(args.repeat):
-            for t in args.threads:
-                for k in args.k:
-                    rec = train_runs(dataclasses.replace(
-                        cfg, thread_num=t, steps_per_dispatch=k), device)
-                    print(json.dumps({"train": rec, "pass": rep,
-                                      "device": card}), flush=True)
+            for cache in args.cache:
+                for t, p in parsers:
+                    for k in args.k:
+                        rec = train_runs(with_mode(cfg, cache, t, p, k),
+                                         device)
+                        print(json.dumps({"train": rec, "pass": rep,
+                                          "device": card}), flush=True)
     return 0
 
 

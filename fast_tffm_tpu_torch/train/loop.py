@@ -5,8 +5,11 @@ on a rank mesh.
 :class:`Trainer` initialises the model (or warm-starts it, optimizer
 state included, from ``<model_file>/params.npz``).  :meth:`Trainer.train`
 reads one :class:`~fast_tffm_tpu_torch.data.pipeline.BatchPipeline` over
-the run's epochs (``thread_num`` parse threads on the C++ parser, host
-sort meta attached when ``host_sort``), ships it through a
+the run's epochs (``thread_num`` parse threads on the C++ parser, or
+``parse_processes`` spawned workers with ``ring_slots``; host sort meta
+attached when ``host_sort``; with ``cache_epochs`` epoch 0's batches
+replayed in later epochs, and with ``cache_prestacked`` its packed
+groups of K, reported as ``ingest_cache``), ships it through a
 :class:`~fast_tffm_tpu_torch.data.prefetch.DevicePrefetcher` (super-batches
 of ``steps_per_dispatch = K`` batches, one pinned copy each, up to
 ``prefetch_super_batches`` ahead) and runs :func:`train.sparse.
@@ -66,7 +69,9 @@ import torch
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.libsvm import Batch
 from fast_tffm_tpu_torch.data.pipeline import BatchPipeline, EpochEnd
-from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher, SuperBatch
+from fast_tffm_tpu_torch.data.prefetch import (
+    DevicePrefetcher, Packer, SuperBatch,
+)
 from fast_tffm_tpu_torch.models import fm
 from fast_tffm_tpu_torch.ops import sparse_apply
 from fast_tffm_tpu_torch.parallel.mesh import (
@@ -135,8 +140,6 @@ def _check_supported(cfg: FmConfig) -> None:
             "sparse_exchange_overlap=on (the entries exchange's id-plane "
             "prefetch, make_entries_prefetch)", 3,
         ))
-    if cfg.cache_epochs:
-        unported.append(("cache_epochs (the epoch cache)", 7))
     if unported:
         what = "; ".join(
             f"{name} is ROADMAP.md port queue item {item}"
@@ -151,16 +154,6 @@ def _check_supported(cfg: FmConfig) -> None:
             "the PyTorch port's trainer does not run these planes yet "
             "(ROADMAP.md port queue item 4; parameters are unaffected): %s",
             ", ".join(inert),
-        )
-    if cfg.parse_processes > 0:
-        # The reference holds its process pool element-wise equal to its
-        # threads, so the threads give the same batches.
-        log.info(
-            "parse_processes=%d and ring_slots=%d are inert: the process "
-            "pool and its shared-memory ring are ROADMAP.md port queue "
-            "item 7a; parsing runs on thread_num=%d threads (the same "
-            "batches)", cfg.parse_processes, cfg.ring_slots,
-            max(1, cfg.thread_num),
         )
 
 
@@ -401,15 +394,22 @@ class Trainer:
     def _data_fingerprint(self) -> dict:
         """What defines the training stream; a saved position holds only
         for the same (``fast_tffm_tpu/train/loop.py::
-        Trainer._data_fingerprint``; ``cache_prestacked`` needs the epoch
-        cache, which the port refuses)."""
+        Trainer._data_fingerprint``).  The cache replays batches where
+        streaming reshuffles lines, and the prestacked cache permutes
+        whole groups of ``steps_per_dispatch``: each redefines every
+        epoch after the first.  ``cache_prestacked`` is stamped only when
+        on, as the reference does."""
         cfg = self.cfg
-        return {
+        fp = {
             "seed": cfg.seed, "batch_size": cfg.batch_size,
             "train_files": list(cfg.train_files),
             "shuffle_buffer": cfg.shuffle_buffer,
             "fast_ingest": cfg.fast_ingest, "cache_epochs": cfg.cache_epochs,
         }
+        if cfg.cache_prestacked:
+            fp["cache_prestacked"] = True
+            fp["steps_per_dispatch"] = cfg.steps_per_dispatch
+        return fp
 
     def _resume_position(self) -> tuple:
         """``(epoch, batches to skip)`` from the checkpoint's
@@ -454,19 +454,26 @@ class Trainer:
             log.info("every dispatch runs eagerly: %s", self.eager_reason)
         wait_s = dispatch_s = first_s = 0.0
         pipe_cfg, shard = self._input_plan()
+        k = max(1, cfg.steps_per_dispatch)
+        # One packer for the transfer stage and the prestacked cache,
+        # which packs epoch 0's groups of K once.
+        packer = Packer(self.device, cfg.vocabulary_size,
+                        with_fields=cfg.field_num > 0)
         # The sharded step sorts its local ids on the device.
         pipeline = BatchPipeline(
             cfg.train_files, pipe_cfg, epochs=cfg.epoch_num, shuffle=True,
             host_meta=cfg.host_sort and not self.sharded,
             weight_files=cfg.weight_files, shard=shard,
             start_epoch=self._epoch, skip_batches=self._batches_done,
-            epoch_marks=True,
+            epoch_marks=True, cache_epochs=cfg.cache_epochs,
+            cache_max_bytes=cfg.cache_max_bytes,
+            prestack=(k, packer.pack) if cfg.cache_prestacked else None,
         )
         prefetcher = DevicePrefetcher(
-            pipeline, cfg.steps_per_dispatch, self.device,
-            cfg.vocabulary_size, depth=cfg.prefetch_super_batches,
-            with_fields=cfg.field_num > 0,
+            pipeline, k, self.device, cfg.vocabulary_size,
+            depth=cfg.prefetch_super_batches, packer=packer,
         )
+        cache_logged = not cfg.cache_epochs
         try:
             source = iter(prefetcher)
             while True:
@@ -478,6 +485,11 @@ class Trainer:
                     break
                 if isinstance(item, EpochEnd):
                     self._epoch, self._batches_done = item.epoch + 1, 0
+                    if not cache_logged:
+                        # Known once epoch 0 has parsed; logged once.
+                        cache_logged = True
+                        log.info("ingest cache after epoch %d: %s",
+                                 item.epoch, pipeline.cache_result)
                     continue
                 self.dispatch(item, prefetcher.paused())
                 dispatch_s += time.perf_counter() - t_run
@@ -521,7 +533,7 @@ class Trainer:
         train_metrics["eager_dispatches"] = self.eager_dispatches
         train_metrics["first_dispatch_s"] = first_s
         train_metrics["wall_s"] = wall
-        train_metrics["ingest_cache"] = "off"
+        train_metrics["ingest_cache"] = pipeline.cache_result
         train_metrics["truncated_features"] = int(truncated)
         train_metrics["out_of_range_batches"] = 0
         train_metrics["ingest_wait_frac"] = wait_s / wall

@@ -1114,3 +1114,72 @@ def test_capture_while_the_transfer_thread_ships(gpu, tmp_path):
     assert e_tr["eager_dispatches"] == e_tr["dispatches"] == 12
     for a, b in zip(_trained_state(graphed), _trained_state(eager)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_packed_groups_are_pinned_and_shipped_with_no_fill(gpu):
+    """The prestacked cache's packer on the card: each group packed once
+    into a pinned buffer, shipped as it is (views equal to
+    ``stack_batches``), a prestack hit with no fill, and the buffer
+    never taken into the stage's free pool nor written again while plain
+    groups cycle through it."""
+    from fast_tffm_tpu_torch.data.prefetch import (
+        DevicePrefetcher, Packer, stack_batches,
+    )
+
+    host = _host_batches(6)
+    packer = Packer(gpu, 1 << 16)
+    packed = packer.pack(host[:2])
+    assert packed.buffer.is_pinned()
+    snapshot = packed.buffer.clone()
+    hits, fills = DevicePrefetcher.prestack_hits, DevicePrefetcher.fills
+    src = [packed, host[2], host[3], packed, host[4], host[5], packed]
+    pre = DevicePrefetcher(src, 2, gpu, 1 << 16, depth=1, packer=packer)
+    got = list(pre)
+    assert [sb.n for sb in got] == [2] * 5
+    assert DevicePrefetcher.prestack_hits - hits == 3
+    assert DevicePrefetcher.fills - fills == 2
+    plain = stack_batches(host[:2], with_fields=False)
+    for sb in got[::2]:
+        for i in range(2):
+            for a, b in zip(sb.step(i).sort_meta, plain.step(i).sort_meta):
+                assert np.array_equal(a.cpu().numpy(), b)
+            assert np.array_equal(sb.step(i).ids.cpu().numpy(),
+                                  plain.step(i).ids)
+    assert torch.equal(packed.buffer, snapshot)
+    for bufs in pre._free.values():
+        assert all(b is not packed.buffer and b.is_pinned() for b in bufs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache, procs", [("prestacked", 0), ("on", 2)])
+def test_cached_and_pooled_runs_are_graphed_as_any_other(gpu, tmp_path,
+                                                         cache, procs):
+    """Three cached epochs of five batches at K = 2 (a tail of one an
+    epoch), prestacked on threads and plain on two workers: every full
+    super-batch after the first replays the graph, the tails run eagerly,
+    and the run trains, bitwise, what the same run trains eagerly."""
+    rng = np.random.default_rng(6)
+    path = tmp_path / "train.libsvm"
+    with open(path, "w") as f:
+        for _ in range(512 * 5):
+            ids = rng.integers(0, 1 << 20, 30)
+            f.write(f"{int(rng.random() < 0.3)} "
+                    + " ".join(f"{i}:{rng.uniform(0.1, 1):.3f}" for i in ids)
+                    + "\n")
+    cfg = dataclasses.replace(
+        _dispatch_cfg(tmp_path, "adagrad", "float32", 2),
+        train_files=[str(path)], epoch_num=3, thread_num=2, log_steps=0,
+        save_steps=0, cache_epochs=True,
+        cache_prestacked=cache == "prestacked", parse_processes=procs)
+    results = []
+    for graphs in (True, False):
+        trainer = _trainer(dataclasses.replace(
+            cfg, model_file=str(tmp_path / f"m{graphs}")), gpu, graphs)
+        results.append((trainer, trainer.train()["train"]))
+    (graphed, g_tr), (eager, e_tr) = results
+    assert g_tr["steps"] == e_tr["steps"] == 15
+    assert g_tr["ingest_cache"] == e_tr["ingest_cache"] == "cached"
+    assert g_tr["graph_dispatches"] == 5 and g_tr["eager_dispatches"] == 4
+    for a, b in zip(_trained_state(graphed), _trained_state(eager)):
+        assert torch.equal(a, b)

@@ -1,7 +1,8 @@
 """Guards of the port's boundaries: it never imports jax or the JAX
 package (the training, multi-rank and probe slices' modules included),
-it runs on the GPU unless asked for the CPU, and its kernel wrappers
-raise instead of falling back."""
+its parse workers' import chain imports no torch, it runs on the GPU
+unless asked for the CPU, and its kernel wrappers raise instead of
+falling back."""
 
 import os
 import subprocess
@@ -37,6 +38,7 @@ _TRAIN_SLICE = (
     "fast_tffm_tpu_torch.train.dist", "fast_tffm_tpu_torch.train.shardmap_step",
     "fast_tffm_tpu_torch.data.native", "fast_tffm_tpu_torch.data.prefetch",
     "fast_tffm_tpu_torch.data.queues", "fast_tffm_tpu_torch.tools.ingest_bench",
+    "fast_tffm_tpu_torch.data.procpool",
 )
 # The table-layout probe's modules.
 _PROBE_SLICE = (
@@ -56,6 +58,18 @@ def test_port_imports_no_jax_and_no_jax_package():
     loaded = set(out[2].split(","))
     want = set(_TRAIN_SLICE + _PROBE_SLICE)
     assert want <= loaded, sorted(want - loaded)
+
+
+def test_the_parse_workers_import_chain_is_torch_free():
+    """What a spawned parse worker imports (``data/procpool.py`` and, in
+    the worker, ``data/pipeline.py``) pulls in neither torch nor jax."""
+    code = ("import sys; import fast_tffm_tpu_torch.data.procpool; "
+            "import fast_tffm_tpu_torch.data.pipeline; print(sorted({"
+            "m.split('.')[0] for m in sys.modules} & {'torch', 'jax'}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.strip()
+    assert out == "[]", out
 
 
 def test_resolve_device_defaults_to_the_gpu():

@@ -534,16 +534,6 @@ def test_resume_rules(tmp_path, caplog):
     assert Trainer(cfg, device="cpu").train()["train"]["steps"] == 5
 
 
-def test_process_pool_settings_are_logged_inert(caplog):
-    import logging
-
-    with caplog.at_level(logging.INFO):
-        Trainer(FmConfig(vocabulary_size=64, parse_processes=2,
-                         ring_slots=3), device="cpu")
-    assert "parse_processes=2 and ring_slots=3 are inert" in caplog.text
-    assert "item 7a" in caplog.text
-
-
 def test_validation_and_predict_match_the_reference(tmp_path):
     """From the reference's initial table, the port and the reference
     (scatter path, host sort meta) train two epochs of planted-structure
