@@ -127,6 +127,30 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    sector figure (``k2t_sector_ms``, counted from each stream's ids); then
    ``fast_tffm_tpu_torch.tools.micro_probe.main`` at full size (its own
    parity checks raise), whose run gives K2T's and K2P's launches.
+11. FFM phase (path 5, field-aware FM): FFM-Criteo,
+   ``examples/criteo_kaggle.cfg`` with ``field_num = 4`` (V = 2^22,
+   F = 39, k = 8, P = 4, D = 1 + P*k = 33, B = 4096), on synthetic
+   ``field:token:val`` lines (column j on field j mod 4).  K1 and K2
+   (Adagrad, FTRL, SGD) at D = 33 against their plain versions on a
+   parsed batch and with one hot id, cut and whole slot (the same bounds
+   and ``delta_check``), then timed in CUDA graphs beside their bounds,
+   plain versions and K1's ``index_add_``; the FFM op's forward and
+   closed-form backward against autograd through
+   ``ffm_scores_from_rows`` (f32 ``rtol=1e-5, atol=1e-6``; bf16 against
+   f32 ``rtol=2e-2, atol=2e-2``, and its backward bitwise the f32 one on
+   pre-rounded operands); 16 steps through ``Trainer.train()`` (eight
+   threads, host sort, graphed, every count from 0: the path's launches),
+   validation and predict; the same run eager, and graphed and eager at
+   K = 4, bitwise equal; 3 steps through the kernels against 3 through
+   the plain path; 8 bf16 steps within 1e-2 logloss of 8 f32 steps; the
+   checkpoint served over ``/score`` and ``/score_bin`` at every rung and
+   past the largest (transports bitwise, scores against the plain path);
+   the step on a device batch graphed and eager (p50, device time by op,
+   idle share) and its four einsums alone; then ``python -m
+   fast_tffm_tpu_torch.cli train|predict|serve`` on
+   ``examples/ffm_sample.cfg`` as subprocesses on the data of
+   ``examples/gen_sample_data.py --ffm`` (validation logloss below
+   0.693; the server's ``/score`` equal to the predict file).
 
 Output: progress lines and JSON records, then a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -190,6 +214,19 @@ FM_GRAD_COPIES = 32
 # the occurrences of the one hot id added to each K2T/K2P check's ids.
 PROBE_N = 16384 * 39
 HOT_OCCURRENCES = 5000
+# FFM phase: FFM-Criteo's fields (examples/criteo_kaggle.cfg with
+# field_num = 4, the reference's tools/tpu_validate.py FFM shape); the
+# FFM op against autograd through the scores at tests/test_ffm_op.py's
+# bound, and its bf16 mode against f32 at that file's bf16 bound.
+FFM_FIELDS = 4
+FFM_OP_TOL = dict(rtol=1e-5, atol=1e-6)
+FFM_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# Profiler windows: the host's pause after tracing starts and before it
+# stops.  The trace drops a kernel whose traced time falls outside the
+# window, and the window can open ms after `prof.step()` returns, losing
+# the first calls' kernels; fast_tffm_tpu_torch/tools/profiler_window.py
+# counts the windows that lose kernels with and without the pause.
+PROFILE_MARGIN_S = 0.1
 
 
 def check(cond: bool, msg: str) -> None:
@@ -266,8 +303,9 @@ def device_times_ms(torch, fn, iters: int = 50, top: int = 10,
     of the ``top`` costliest host ops (every op when ``top`` is 0):
     ``({name: ms}, wall_ms, {name: ms})``.  ``counts``, if given, gets
     each device op's number of runs over the ``iters`` calls.  One more
-    call is traced first and dropped (the schedule's warm-up): the first
-    kernels after tracing starts may go unrecorded."""
+    call is traced first and dropped (the schedule's warm-up), and the
+    host pauses ``PROFILE_MARGIN_S`` after the window opens and before it
+    closes, so that no kernel of the ``iters`` calls falls outside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -279,11 +317,13 @@ def device_times_ms(torch, fn, iters: int = 50, top: int = 10,
         fn()
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(PROFILE_MARGIN_S)
         prof.step()
     out, host = {}, {}
     for ev in prof.key_averages():
@@ -360,6 +400,22 @@ def full_slot(torch, seg_start, n: int):
                       device=seg_start.device)
     slot[:seg_start.numel()] = seg_start
     return slot
+
+
+def k1_library(torch, g, meta):
+    """K1's library yardstick: one ``index_add_`` of the ``[g | g^2]``
+    payload over each occurrence's segment (unsorted order)."""
+    u_s = meta.seg_start.numel() - 1
+    seg_sorted = torch.repeat_interleave(
+        torch.arange(u_s, device=g.device),
+        (meta.seg_start[1:] - meta.seg_start[:-1]).long(),
+        output_size=g.shape[0],
+    )
+    seg_of_occ = torch.empty_like(seg_sorted)
+    seg_of_occ[meta.perm.long()] = seg_sorted
+    payload = torch.cat([g, g * g], dim=1)
+    out = torch.zeros((u_s, 2 * g.shape[1]), device=g.device)
+    return lambda: out.index_add_(0, seg_of_occ, payload)
 
 
 def delta_check(torch, name: str, kern, plain, start) -> dict:
@@ -451,26 +507,39 @@ def k2_sector_ms(u: int, d: int, size: int = 32) -> float:
 # -- synthetic data ----------------------------------------------------
 
 
-def criteo_body(rng, n: int) -> str:
+def field_tags(field_num: int) -> list:
+    """Each of the 39 columns' token prefix: ``"<j mod P>:"`` for
+    field-aware FM with ``field_num = P`` (column j on field j mod P),
+    else none."""
+    return [f"{j % field_num}:" if field_num else "" for j in range(39)]
+
+
+def criteo_body(rng, n: int, field_num: int = 0) -> str:
     """``n`` label-less libsvm lines shaped like hashed Criteo-Kaggle
     rows: 13 integer features ``I<j>_<bucket>:<value>`` and 26
-    categorical ``C<j>_<hex>:1`` tokens (39 features per line)."""
+    categorical ``C<j>_<hex>:1`` tokens (39 features per line), each
+    ``field:token:val`` with ``field_num``."""
+    tag = field_tags(field_num)
     lines = []
     for _ in range(n):
         ints = rng.integers(0, INT_BUCKETS, 13)
         ivals = rng.uniform(0.0, 3.0, 13)
         cats = rng.integers(0, 1 << 32, 26)
-        toks = [f"I{j + 1}_{ints[j]}:{ivals[j]:.4f}" for j in range(13)]
-        toks += [f"C{j + 1}_{cats[j]:08x}:1" for j in range(26)]
+        toks = [f"{tag[j]}I{j + 1}_{ints[j]}:{ivals[j]:.4f}"
+                for j in range(13)]
+        toks += [f"{tag[13 + j]}C{j + 1}_{cats[j]:08x}:1" for j in range(26)]
         lines.append(" ".join(toks))
     return "\n".join(lines) + "\n"
 
 
-def write_labelled(np, path: str, rng, n: int, w_true) -> None:
-    """``n`` labelled Criteo-shaped lines.  The label is planted:
-    ``P(y = 1) = sigmoid(sum_j w_true[j, bucket_j])`` over the 13
-    integer features, so a model that learns the bucket weights lowers
-    the logloss; the 26 categorical tokens are noise."""
+def write_labelled(np, path: str, rng, n: int, w_true,
+                   field_num: int = 0) -> None:
+    """``n`` labelled Criteo-shaped lines (``field:token:val`` with
+    ``field_num``).  The label is planted: ``P(y = 1) = sigmoid(sum_j
+    w_true[j, bucket_j])`` over the 13 integer features, so a model that
+    learns the bucket weights lowers the logloss; the 26 categorical
+    tokens are noise."""
+    tag = field_tags(field_num)
     ints = rng.integers(0, INT_BUCKETS, (n, 13))
     ivals = rng.uniform(0.5, 1.5, (n, 13))
     cats = rng.integers(0, 1 << 32, (n, 26))
@@ -478,9 +547,10 @@ def write_labelled(np, path: str, rng, n: int, w_true) -> None:
     labels = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-score))).astype(int)
     with open(path, "w") as f:
         for i in range(n):
-            toks = [f"I{j + 1}_{ints[i, j]}:{ivals[i, j]:.4f}"
+            toks = [f"{tag[j]}I{j + 1}_{ints[i, j]}:{ivals[i, j]:.4f}"
                     for j in range(13)]
-            toks += [f"C{j + 1}_{cats[i, j]:08x}:1" for j in range(26)]
+            toks += [f"{tag[13 + j]}C{j + 1}_{cats[i, j]:08x}:1"
+                     for j in range(26)]
             f.write(f"{labels[i]} {' '.join(toks)}\n")
 
 
@@ -671,6 +741,16 @@ def check_train_path(tr: dict, launches: dict, ingest: dict,
           f"hits of {dispatches} dispatches ({cache} cache)")
 
 
+def trained_state(sparse, trainer) -> list:
+    """What a training run leaves: tables, optimizer state, w0 and the
+    streaming metrics (compared bitwise between twin runs)."""
+    m = trainer.metrics
+    return ([trainer.model.table, trainer.model.w0,
+             *sparse.opt_tables(trainer.opt_state)]
+            + [t for t in trainer.opt_state if t.dim() == 0]
+            + [m.loss_sum, m.weight_sum, m.count, m.auc.pos, m.auc.neg])
+
+
 def graph_phase(torch, tcfg, card: str, files, steps: int,
                 host_batches) -> dict:
     """The CUDA graph of the K steps (``train/dispatch.py``) against the
@@ -707,13 +787,6 @@ def graph_phase(torch, tcfg, card: str, files, steps: int,
     step_kernels = ("void fm_scores_fwd_kernel", "void fm_grad_bwd_kernel",
                     "void k1_kernel", "void k2_kernel")
 
-    def state(trainer):
-        m = trainer.metrics
-        return ([trainer.model.table, trainer.model.w0,
-                 *sparse.opt_tables(trainer.opt_state)]
-                + [t for t in trainer.opt_state if t.dim() == 0]
-                + [m.loss_sum, m.weight_sum, m.count, m.auc.pos, m.auc.neg])
-
     parity = {}
     for dtype in ("float32", "bfloat16"):
         for optimizer in ("adagrad", "ftrl", "sgd"):
@@ -739,7 +812,8 @@ def graph_phase(torch, tcfg, card: str, files, steps: int,
                       - 1 - tails > 0,
                       f"{what}: dispatches eager {e_tr} graphed {g_tr}")
                 check(all(torch.equal(a, b) for a, b in
-                          zip(state(graphed), state(eager))),
+                          zip(trained_state(sparse, graphed),
+                              trained_state(sparse, eager))),
                       f"{what}: the graphed run is not bitwise the eager one")
                 parity[what] = {
                     "steps": steps, "dispatches": g_tr["dispatches"],
@@ -902,6 +976,634 @@ def ingest_phase(torch, tcfg, card: str, train_files, kernels: dict,
             "streams_bitwise_equal": True, "epochs": epochs,
             "shm_free_bytes": shm.f_bavail * shm.f_frsize,
             "ring_bytes": ring_bytes, "runs": runs}
+
+
+def ffm_kernels(np, torch, gen, batch, cfg, err: dict) -> dict:
+    """Phase 11 (1): K1 and K2 (Adagrad, FTRL, SGD) at the FFM row width
+    D = 33 on a parsed FFM-Criteo batch and on the same ids with one id
+    of ``HOT_OCCURRENCES``, cut slot and whole slot, against their plain
+    versions (K1 within ``k1_error_bound``, K2 to the tile-vs-scatter
+    bounds and ``delta_check``; the whole slot bitwise the cut slot on
+    the first U rows); then both timed in CUDA graphs on the whole slot
+    (the graphed step's) beside their bounds, plain versions and K1's
+    ``index_add_``.  Returns the timing record (``err`` gains the
+    ``k1_dedup_d33`` and ``k2_apply_d33`` errors)."""
+    from fast_tffm_tpu_torch.ops import sparse_apply
+    from fast_tffm_tpu_torch.ops.sparse_apply import (
+        k1_dedup_cuda, k1_dedup_plain, k1_error_bound, k2_apply_cuda,
+        k2_apply_plain,
+    )
+    from fast_tffm_tpu_torch.train import sparse
+
+    dev = torch.device("cuda")
+    V, D = cfg.vocabulary_size, cfg.embedding_dim
+    ids0 = torch.from_numpy(batch.ids).to(dev).reshape(-1)
+    n = ids0.numel()
+    hot = ids0.clone()
+    hot[:HOT_OCCURRENCES] = 12345
+    g_rows = torch.randn((n, D), generator=gen, device=dev) * 0.1
+    outs = {}
+    for name, ids in (("batch", ids0), ("hot", hot)):
+        meta = sparse_apply.sort_meta(ids)
+        u = meta.seg_start.numel() - 1
+        for slot_name, slot in (("cut", meta.seg_start),
+                                ("whole", full_slot(torch, meta.seg_start,
+                                                    n))):
+            args = (g_rows, ids, meta.perm, slot)
+            urows, sums = k1_dedup_cuda(*args)
+            urows_p, sums_p = k1_dedup_plain(g_rows.double(), *args[1:])
+            _, mass = k1_dedup_plain(g_rows.abs().double(), *args[1:])
+            torch.cuda.synchronize()
+            what = f"K1 at D = {D} ({name}, {slot_name} slot)"
+            check(torch.equal(urows, urows_p), f"{what}: row ids")
+            diff = (sums[:u].double() - sums_p[:u]).abs()
+            check(bool(torch.all(diff <= k1_error_bound(meta.seg_start,
+                                                        mass[:u]))),
+                  f"{what}: max err {float(diff.max()):.3e}")
+            err["k1_dedup_d33"] = max(err.get("k1_dedup_d33", 0.0),
+                                      float(diff.max()))
+            outs[name, slot_name] = (urows, sums, meta)
+            del urows_p, sums_p, mass, diff
+        (c_rows, c_sums, _), (w_rows, w_sums, _) = (
+            outs[name, "cut"], outs[name, "whole"])
+        check(torch.equal(w_rows[:u], c_rows) and torch.equal(w_sums[:u],
+                                                              c_sums)
+              and bool((w_rows[u:] == -1).all()),
+              f"K1 at D = {D} ({name}): the whole slot is not the cut "
+              f"slot's on the first U rows and -1 after")
+    hyper = sparse.hyper(cfg)._replace(l1=0.01, l2=0.1)
+    table0 = torch.empty((V, D), device=dev).uniform_(-0.01, 0.01,
+                                                      generator=gen)
+    changes = {}
+    for optimizer, extra in (("adagrad", 1), ("ftrl", 2), ("sgd", 0)):
+        for name in ("batch", "hot"):
+            c_rows, c_sums, _ = outs[name, "cut"]
+            w_rows, w_sums, _ = outs[name, "whole"]
+            start = [table0] + [torch.empty((V, D), device=dev).uniform_(
+                0.1, 1.0, generator=gen) for _ in range(extra)]
+            kern, cut, plain = ([t.clone() for t in start] for _ in range(3))
+            k2_apply_cuda(optimizer, w_rows, w_sums, kern, hyper)
+            k2_apply_cuda(optimizer, c_rows, c_sums, cut, hyper)
+            k2_apply_plain(optimizer, w_rows, w_sums, plain, hyper)
+            torch.cuda.synchronize()
+            what = f"K2 at D = {D} ({optimizer}, {name})"
+            check(all(torch.equal(a, b) for a, b in zip(kern, cut)),
+                  f"{what}: the whole slot is not bitwise the cut slot's")
+            torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+            for a, b in zip(kern[1:], plain[1:]):
+                torch.testing.assert_close(a, b, **OPT_TOL)
+            err["k2_apply_d33"] = max(err.get("k2_apply_d33", 0.0), *(
+                float((a - b).abs().max()) for a, b in zip(kern, plain)))
+            changes[f"{optimizer} {name}"] = [
+                delta_check(torch, f"{what} table {i}", a, b, s0)
+                for i, (a, b, s0) in enumerate(zip(kern, plain, start))]
+            del kern, cut, plain, start
+    print(f"ffm kernel check: K1 and K2 (adagrad, ftrl, sgd) at D = {D} == "
+          f"their plain versions, whole slot bitwise the cut slot; "
+          f"max_abs_err {err['k1_dedup_d33']:.3e} / "
+          f"{err['k2_apply_d33']:.3e}", flush=True)
+
+    # Timing: the whole slot, as the graphed FFM step runs them.
+    c_rows, c_sums, meta0 = outs["batch", "cut"]
+    w_rows, w_sums, _ = outs["batch", "whole"]
+    u = c_rows.numel()
+    slot0 = full_slot(torch, meta0.seg_start, n)
+    table_k = table0.clone()
+    acc_k = torch.full((V, D), 0.1, device=dev)
+    cases = {
+        "k1_dedup_d33": (
+            lambda: k1_dedup_cuda(g_rows, ids0, meta0.perm, slot0),
+            lambda: k1_dedup_plain(g_rows, ids0, meta0.perm, slot0),
+            k1_library(torch, g_rows, meta0), k1_bound_ms(n, u, D, slot=n),
+            (lambda: k1_dedup_cuda(g_rows, ids0, meta0.perm,
+                                   meta0.seg_start),
+             k1_bound_ms(n, u, D))),
+        "k2_apply_d33": (
+            lambda: k2_apply_cuda("adagrad", w_rows, w_sums,
+                                  (table_k, acc_k), hyper),
+            lambda: k2_apply_plain("adagrad", w_rows, w_sums,
+                                   (table_k, acc_k), hyper),
+            None, k2_bound_ms(u, D, rows=n),
+            (lambda: k2_apply_cuda("adagrad", c_rows, c_sums,
+                                   (table_k, acc_k), hyper),
+             k2_bound_ms(u, D))),
+    }
+    timing = {}
+    for name, (kern, plain, lib, (b_ms, b_by), (cut, (c_ms, _))) in (
+            cases.items()):
+        pa, ka, kb, pb = (graph_ms(torch, fn) for fn in
+                          (plain, kern, kern, plain))
+        timing[name] = {
+            "ms": min(ka, kb), "plain_ms": min(pa, pb),
+            "graph_ms": [ka, kb], "plain_graph_ms": [pa, pb],
+            "library_ms": None if lib is None else graph_ms(torch, lib),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "cut_slot": {"graph_ms": graph_ms(torch, cut), "bound_ms": c_ms},
+            "occurrences": n, "unique_rows": u, "width": D,
+        }
+    del table_k, acc_k, table0, outs
+    return {"timing": timing, "changes": changes}
+
+
+def ffm_phase(np, torch, card: str, gen, rng, kernels: dict, counters: dict,
+              err: dict) -> dict:
+    """Phase 11, path 5: field-aware FM at FFM-Criteo
+    (``examples/criteo_kaggle.cfg`` with ``field_num = 4``: V = 2^22,
+    F = 39, k = 8, P = 4, D = 33, B = 4096) on ``field:token:val`` lines,
+    column j on field j mod 4.  (1) ``ffm_kernels``.  (2) The FFM op's
+    forward and closed-form backward against autograd through
+    ``ffm_scores_from_rows`` on the card.  (3) Training: the main run (16
+    graphed steps at K = 1 with the counts from 0, validation, predict);
+    its eager twin and a graphed and an eager run at K = 4, all bitwise
+    the main run's; 3 steps through the kernels against 3 through the
+    plain path; 8 bf16 steps beside 8 f32 steps.  (4) Serving the
+    checkpoint over both transports.  (5) The step on a device batch,
+    graphed and eager, its device time by op.  (6) ``python -m
+    fast_tffm_tpu_torch.cli train|predict|serve`` on
+    ``examples/ffm_sample.cfg``.  Returns ``(record, launches of the
+    main run, timing)``."""
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data.libsvm import (
+        host_sort_meta, make_batch, parse_lines,
+    )
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.models import fm
+    from fast_tffm_tpu_torch.ops import interaction
+    from fast_tffm_tpu_torch.serve import wire
+    from fast_tffm_tpu_torch.serve.server import serve
+    from fast_tffm_tpu_torch.serve.textparse import parse_request
+    from fast_tffm_tpu_torch.train import checkpoint, sparse
+    from fast_tffm_tpu_torch.train.loop import Trainer, predict
+
+    dev = torch.device("cuda")
+    tmp_ctx = tempfile.TemporaryDirectory(prefix="chip_smoke_ffm_")
+    tmp = tmp_ctx.name
+    record = {"card": card}
+    # -- data: FFM-Criteo lines -----------------------------------------
+    w_true = rng.normal(0.0, 0.6, (13, INT_BUCKETS))
+    files = []
+    for i in range(TRAIN_FILES):
+        path = os.path.join(tmp, f"train_{i}.libsvm")
+        write_labelled(np, path, rng, BATCHES_PER_FILE * LINES, w_true,
+                       FFM_FIELDS)
+        files.append(path)
+    valid_file = os.path.join(tmp, "valid.libsvm")
+    predict_file = os.path.join(tmp, "predict.libsvm")
+    write_labelled(np, valid_file, rng, LINES, w_true, FFM_FIELDS)
+    write_labelled(np, predict_file, rng, LINES, w_true, FFM_FIELDS)
+    model_dir = os.path.join(tmp, "model")
+    cfg = load_config(CFG_PATH, {
+        "field_num": FFM_FIELDS, "train_files": files,
+        "validation_files": [valid_file], "predict_files": [predict_file],
+        "model_file": model_dir, "score_path": os.path.join(tmp, "scores"),
+        "log_steps": 4, "seed": SEED, "serve_poll_secs": 0.0,
+        "serve_port": 0,
+    })
+    V, F, B, D = (cfg.vocabulary_size, cfg.max_features, cfg.batch_size,
+                  cfg.embedding_dim)
+    P, k = cfg.field_num, cfg.factor_num
+    check((V, F, B, D, P, k) == (1 << 22, 39, 4096, 33, 4, 8)
+          and cfg.host_sort and cfg.thread_num == 8,
+          f"unexpected FFM-Criteo shape {(V, F, B, D, P, k)}")
+    with open(files[0]) as f:
+        head = [next(f) for _ in range(4 * LINES)]
+    batches = [make_batch(parse_lines(head[i * LINES:(i + 1) * LINES], V,
+                                      cfg.hash_feature_id, P), B, F)
+               for i in range(4)]
+    batches = [b._replace(sort_meta=host_sort_meta(b.ids)) for b in batches]
+    check(all(np.array_equal(b.fields[:, :F], np.tile(np.arange(F) % P,
+                                                      (B, 1)))
+              for b in batches), "the parsed fields are not column mod 4")
+
+    # -- (1) K1 and K2 at D = 33 ----------------------------------------
+    kern = ffm_kernels(np, torch, gen, batches[0], cfg, err)
+    record["kernel_changes"] = kern["changes"]
+    record["kernel_timing"] = kern["timing"]
+
+    # -- (2) the FFM op against autograd through the scores --------------
+    # Rows ~ N(0, 0.1^2): FFM-Criteo scores up to ~4 in magnitude, where
+    # bf16's rounding of the operands stays inside the bf16 bound.
+    rows = torch.randn((B, F, D), generator=gen, device=dev) * 0.1
+    vals = torch.from_numpy(batches[0].vals).to(dev)
+    fields = torch.from_numpy(batches[0].fields).to(dev)
+    g = torch.randn((B,), generator=gen, device=dev)
+
+    def fwd_bwd(fn, r0, v, compute):
+        r = r0.clone().requires_grad_()
+        s = fn(r, v, fields, k, P, compute)
+        d, = torch.autograd.grad((s * g).sum(), r)
+        return s.detach(), d
+
+    def oracle(r, v, f_, kk, pp, compute):
+        return fm.ffm_scores_from_rows(torch.zeros((), device=dev), r, v,
+                                       f_, kk, pp, compute)
+
+    op = interaction.ffm_interaction
+    s_op, d_op = fwd_bwd(op, rows, vals, torch.float32)
+    s_or, d_or = fwd_bwd(oracle, rows, vals, torch.float32)
+    torch.testing.assert_close(s_op, s_or, **FFM_OP_TOL)
+    torch.testing.assert_close(d_op, d_or, **FFM_OP_TOL)
+    s16, d16 = fwd_bwd(op, rows, vals, torch.bfloat16)
+    torch.testing.assert_close(s16, s_or, **FFM_BF16_TOL)
+    torch.testing.assert_close(d16, d_or, **FFM_BF16_TOL)
+    # The bf16 backward rounds its operands alone: bitwise the f32 op's
+    # on the rows and values rounded beforehand.
+    _, d_pre = fwd_bwd(op, rows.bfloat16().float(), vals.bfloat16().float(),
+                       torch.float32)
+    check(torch.equal(d16, d_pre), "the bf16 FFM backward is not the f32 "
+          "backward on pre-rounded operands")
+    record["op"] = {
+        "f32_scores_max_abs_err": float((s_op - s_or).abs().max()),
+        "f32_drows_max_abs_err": float((d_op - d_or).abs().max()),
+        "bf16_scores_max_abs_err": float((s16 - s_or).abs().max()),
+        "bf16_drows_max_abs_err": float((d16 - d_or).abs().max()),
+        "max_abs_score": float(s_or.abs().max()),
+    }
+    del rows, g, s_op, d_op, s_or, d_or, s16, d16, d_pre
+    print("ffm op check: FfmInteraction == autograd through "
+          "ffm_scores_from_rows (f32), bf16 within its bound; "
+          + json.dumps(record["op"]), flush=True)
+
+    # -- (3) training --------------------------------------------------
+    class FfmTrainer(Trainer):
+        """Keeps each dispatch's step losses; saves only when asked."""
+
+        def __init__(self, cfg, graphs=True, saves=False):
+            self.step_losses, self._saves = [], saves
+            super().__init__(cfg)
+            if not graphs:
+                self.graph = None
+
+        def dispatch(self, sb, pause=None):
+            losses = super().dispatch(sb, pause)
+            self.step_losses.append(losses.clone())
+            return losses
+
+        def save(self, stepno):
+            return super().save(stepno) if self._saves else None
+
+    steps = TRAIN_FILES * BATCHES_PER_FILE
+    torch.cuda.synchronize()
+    before_mb = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    zero_launches(counters)
+    t0 = time.perf_counter()
+    main_run = FfmTrainer(cfg, saves=True)
+    result = main_run.train()
+    train_wall = time.perf_counter() - t0
+    ingest = read_launches(counters)
+    t0 = time.perf_counter()
+    n_pred = predict(cfg)
+    predict_wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    tr = result["train"]
+    check(tr["steps"] == steps, f"FFM trained {tr['steps']} steps")
+    for name in ("k1_dedup", "k2_apply"):
+        check(launches[name] >= steps,
+              f"FFM: {name} launched {launches[name]} times in {steps} steps")
+    check(all(launches[name] == 0 for name in kernels
+              if name.startswith("fm_")),
+          f"the FFM run launched an FM kernel: {launches}")
+    check(tr["eager_dispatches"] == 1
+          and tr["graph_dispatches"] == tr["dispatches"] - 1 > 0,
+          f"FFM: {tr['graph_dispatches']} graph and "
+          f"{tr['eager_dispatches']} eager dispatches")
+    check(ingest["native_batches"] == steps + 1
+          and ingest["fused_ships"] == tr["dispatches"],
+          f"FFM ingest counts {ingest}")
+    losses = torch.cat(main_run.step_losses).tolist()
+    last = float(np.mean(losses[-4:]))
+    check(all(np.isfinite(losses)) and last < losses[0],
+          f"FFM logloss did not fall: first {losses[0]:.4f}, last 4 "
+          f"{last:.4f}")
+    val = result["validation"]
+    check(np.isfinite(val["logloss"]) and 0 < val["auc"] <= 1,
+          f"FFM validation {val}")
+    with open(cfg.score_path) as f:
+        scores_txt = [float(x) for x in f.read().split("\n") if x]
+    check(n_pred == LINES == len(scores_txt)
+          and all(0.0 < x < 1.0 for x in scores_txt),
+          f"FFM predict wrote {n_pred} scores for {LINES} lines")
+    record["train"] = {
+        "steps": steps, "launches": {n: launches[n] for n in
+                                     ("k1_dedup", "k2_apply")},
+        "step_logloss": losses, "first_step_logloss": losses[0],
+        "last4_mean_logloss": last, "train_logloss": tr["logloss"],
+        "validation_logloss": val["logloss"], "validation_auc": val["auc"],
+        "train_wall_s": train_wall, "predict_wall_s": predict_wall,
+        "examples_per_sec_end_to_end": tr["examples_per_sec"],
+        "ingest_wait_frac": tr["ingest_wait_frac"],
+        "dispatches": tr["dispatches"],
+        "graph_dispatches": tr["graph_dispatches"],
+        "first_dispatch_s": tr["first_dispatch_s"],
+        "peak_device_mb": peak_mb,
+        # Held by the earlier phases when the run started (in the peak).
+        "allocated_before_mb": before_mb,
+    }
+    print("ffm train: " + json.dumps(record["train"]), flush=True)
+
+    # Graphed against eager, K = 1 and 4, from the same seeded table.
+    twins = {}
+    # The twins start from the seed, as the main run did: no checkpoint.
+    quiet = dataclasses.replace(cfg, validation_files=[], log_steps=0,
+                                model_file=os.path.join(tmp, "none"))
+    for kk in (1, 4):
+        kcfg = dataclasses.replace(quiet, steps_per_dispatch=kk)
+        pair = {}
+        for graphs in (True, False):
+            if kk == 1 and graphs:
+                pair[graphs] = (main_run, tr)
+                continue
+            trainer = FfmTrainer(kcfg, graphs=graphs)
+            pair[graphs] = (trainer, trainer.train()["train"])
+        torch.cuda.synchronize()
+        (graphed, g_tr), (eager, e_tr) = pair[True], pair[False]
+        check(e_tr["graph_dispatches"] == 0 and g_tr["eager_dispatches"] == 1
+              and g_tr["graph_dispatches"] == steps // kk - 1,
+              f"FFM K = {kk}: dispatches graphed {g_tr} eager {e_tr}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            trained_state(sparse, graphed), trained_state(sparse, eager))),
+            f"FFM K = {kk}: the graphed run is not bitwise the eager one")
+        check(torch.equal(torch.cat(graphed.step_losses),
+                          torch.cat(eager.step_losses)),
+              f"FFM K = {kk}: step losses differ")
+        twins[f"k{kk}"] = {"graph_dispatches": g_tr["graph_dispatches"],
+                           "capture_s": graphed.graph.capture_s,
+                           "wall_s": {"graphed": g_tr["wall_s"],
+                                      "eager": e_tr["wall_s"]}}
+        del pair, graphed, eager
+    record["graph_parity"] = twins
+    del main_run
+    print("ffm graph check: graphed runs at K = 1 and 4 bitwise their "
+          "eager twins", flush=True)
+
+    # Kernels against the plain path: 3 steps from one initial table.
+    init = fm.init_params(cfg, torch.Generator(device=dev).manual_seed(7),
+                          device=dev)
+    dev_batches = [sparse.to_device(b, dev) for b in batches[:3]]
+    paths = []
+    for plain in (False, True):
+        m = fm.FmModel(init.w0.detach().clone(), init.table.detach().clone())
+        paths.append((m, sparse.init_sparse_opt_state(cfg, m), plain))
+    score_err = 0.0
+    for b in dev_batches:
+        s_k, s_p = (sparse.sparse_step(cfg, m, o, b, plain=pl)
+                    for m, o, pl in paths)
+        torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
+        score_err = max(score_err, float((s_k - s_p).abs().max()))
+    torch.cuda.synchronize()
+    (mk, ok, _), (mp, op, _) = paths
+    torch.testing.assert_close(mk.table, mp.table, **TABLE_TOL)
+    torch.testing.assert_close(ok.acc_table, op.acc_table, **OPT_TOL)
+    torch.testing.assert_close(mk.w0, mp.w0, rtol=1e-5, atol=1e-7)
+    record["parity"] = {
+        "steps": 3, "scores_max_abs_err": score_err,
+        "table_max_abs_err": float((mk.table - mp.table).detach().abs()
+                                   .max()),
+        "acc_max_abs_err": float((ok.acc_table - op.acc_table).abs().max()),
+        "changes": {
+            "table": delta_check(torch, "FFM table", mk.table, mp.table,
+                                 init.table.detach()),
+            "acc_table": delta_check(
+                torch, "FFM acc_table", ok.acc_table, op.acc_table,
+                torch.full_like(ok.acc_table,
+                                cfg.adagrad_initial_accumulator)),
+        },
+    }
+    del paths, mk, ok, mp, op, init
+
+    # bf16 beside f32: 8 steps of one file each, the same batches.
+    bf16 = {}
+    for dtype in ("float32", "bfloat16"):
+        trainer = FfmTrainer(dataclasses.replace(
+            quiet, train_files=files[:1], compute_dtype=dtype))
+        bf16[dtype] = (trainer.train()["train"],
+                       torch.cat(trainer.step_losses).tolist())
+        del trainer
+    diff = abs(bf16["bfloat16"][1][-1] - bf16["float32"][1][-1])
+    check(bf16["bfloat16"][0]["steps"] == BATCHES_PER_FILE
+          and all(np.isfinite(bf16["bfloat16"][1])) and diff < 1e-2,
+          f"FFM bf16 last logloss {bf16['bfloat16'][1][-1]} vs f32 "
+          f"{bf16['float32'][1][-1]}")
+    record["bf16"] = {"step_logloss": bf16["bfloat16"][1],
+                      "f32_step_logloss": bf16["float32"][1],
+                      "last_logloss_abs_diff": diff}
+    print("ffm parity: " + json.dumps({"parity": record["parity"],
+                                        "bf16": record["bf16"]}), flush=True)
+
+    # -- (4) serving the checkpoint ---------------------------------------
+    scfg = dataclasses.replace(cfg, model_file=model_dir)
+    _, ref = checkpoint.restore_params(model_dir, device=dev)
+    handle = serve(scfg, port=0)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", handle.port,
+                                          timeout=120)
+        served = []
+        for n_req in (1, 37, 64, 200, 256, 1000, 1024, 1500):
+            body = criteo_body(rng, n_req, P)
+            text = post(conn, "/score", body.encode()).decode()
+            ids, vals_np, fields_np, got_n, trunc = parse_request(body, scfg)
+            check(got_n == n_req and trunc == 0
+                  and np.array_equal(fields_np, np.tile(np.arange(F) % P,
+                                                        (n_req, 1))),
+                  f"FFM parse of {n_req} lines")
+            bin_scores = wire.decode_bin_response(post(
+                conn, "/score_bin",
+                wire.encode_bin_request(ids, vals_np, fields_np)))
+            check(bin_scores.shape == (n_req,)
+                  and text == "".join(f"{s:.6f}\n" for s in bin_scores),
+                  f"FFM /score and /score_bin disagree at n={n_req}")
+            served.append((ids, vals_np, fields_np, bin_scores))
+        latency = {}
+        for b in handle.scorer.ladder:
+            body = criteo_body(rng, b, P).encode()
+            ids, vals_np, fields_np, _, _ = parse_request(body.decode(),
+                                                          scfg)
+            frame = wire.encode_bin_request(ids, vals_np, fields_np)
+            for path, payload in (("/score", body), ("/score_bin", frame)):
+                times = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    post(conn, path, payload)
+                    times.append(time.perf_counter() - t0)
+                latency[f"{path}_n{b}_p50_ms"] = p50(times) * 1e3
+        conn.close()
+        scorer = handle.scorer
+        ids_all, vals_all, fields_all, _ = served[-1]
+        dispatch = {}
+        for b in scorer.ladder:
+            times = []
+            for _ in range(50):
+                t0 = time.perf_counter()
+                scorer.score_rung(ids_all[:b], vals_all[:b], fields_all[:b],
+                                  b)
+                times.append(time.perf_counter() - t0)
+            dispatch[b] = p50(times) * 1e3
+    finally:
+        handle.close()
+    with torch.inference_mode():
+        for ids, vals_np, fields_np, got in served:
+            rows_t = ref.table[torch.from_numpy(ids).to(dev).long()]
+            want = torch.sigmoid(fm.ffm_scores_from_rows(
+                ref.w0, rows_t, torch.from_numpy(vals_np).to(dev),
+                torch.from_numpy(fields_np).to(dev), k, P)).cpu()
+            torch.testing.assert_close(torch.from_numpy(got), want,
+                                       **SERVE_TOL)
+            check(bool(np.isfinite(got).all()), "non-finite FFM score")
+    record["serve"] = {"latency_p50_ms": latency, "dispatch_p50_ms": dispatch}
+    print("ffm serve: transports agree bitwise, scores match the plain "
+          "path; " + json.dumps(record["serve"]), flush=True)
+    del ref, handle, scorer
+
+    # -- (5) the step on a device batch, graphed and eager ---------------
+    step = {}
+    for kk in (1, 4):
+        kcfg = dataclasses.replace(quiet, steps_per_dispatch=kk)
+        sb = next(iter(DevicePrefetcher(batches[:kk], kk, "cuda", V,
+                                        with_fields=True)))
+        for graphs in (False, True):
+            trainer = FfmTrainer(kcfg, graphs=graphs)
+            trainer.dispatch(sb)
+            trainer.dispatch(sb)  # graphed: the capture's eager first
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(30):
+                t0 = time.perf_counter()
+                trainer.dispatch(sb)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) / kk)
+            runs = {}
+            dev_ms, wall_ms, host_ms = device_times_ms(
+                torch, lambda: trainer.dispatch(sb), iters=20, top=0,
+                counts=runs)
+            busy = sum(dev_ms.values())
+            key = f"k{kk}_{'graphed' if graphs else 'eager'}"
+            for name in ("void k1_kernel", "void k2_kernel"):
+                check(runs.get(name) == 20 * kk,
+                      f"FFM {key}: {name} ran {runs.get(name)} times in 20 "
+                      f"dispatches of {kk} steps")
+            step[key] = {
+                "step_p50_ms": p50(times) * 1e3,
+                "examples_per_sec_step_alone": B / p50(times),
+                "device_busy_ms_per_step": busy / kk,
+                "device_idle_frac": max(0.0, 1.0 - busy / wall_ms),
+                "device_ms_by_op_per_step": {
+                    name: ms / kk for name, ms in sorted(
+                        dev_ms.items(), key=lambda kv: -kv[1])[:16]},
+                "k1_k2_runs_per_dispatch": {
+                    name: runs.get(name, 0) / 20
+                    for name in ("void k1_kernel", "void k2_kernel")},
+            }
+            if graphs:
+                step[key]["graph_pool_bytes"] = trainer.graph.pool_bytes()
+            del trainer
+        del sb
+    record["device_batch_step"] = step
+    # The step's four einsums alone at these shapes (what the profile's
+    # GEMM and GEMV kernels are), each beside its bytes over HBM
+    # bandwidth: S, v_i^{f_i} (forward and again in the backward), the
+    # cross term, and the backward's T.
+    x = torch.from_numpy(batches[0].vals).to(dev)
+    oh = (torch.from_numpy(batches[0].fields).to(dev)[..., None]
+          == torch.arange(P, dtype=torch.int32, device=dev)).float()
+    v = torch.randn((B, F, P, k), generator=gen, device=dev) * 0.1
+    ohx = oh * x[..., None]
+    s_ = torch.einsum("bfp,bfqk->bpqk", ohx, v)
+    n_bfp, n_v, n_s = B * F * P, B * F * P * k, B * P * P * k
+    einsums = {
+        "s": (lambda: torch.einsum("bfp,bfqk->bpqk", ohx, v),
+              n_bfp + n_v + n_s),
+        "v_own": (lambda: torch.einsum("bfq,bfqk->bfk", oh, v),
+                  n_bfp + n_v + B * F * k),
+        "cross": (lambda: torch.einsum("bpqk,bqpk->b", s_, s_), n_s + B),
+        "t": (lambda: torch.einsum("bqpk,bfp->bfqk", s_, oh),
+              n_s + n_bfp + n_v),
+    }
+    record["einsum_ms"] = {
+        name: {"graph_ms": graph_ms(torch, fn),
+               "bound_ms": bound(4 * elems, 0)[0]}
+        for name, (fn, elems) in einsums.items()}
+    del x, oh, v, ohx, s_
+    print("ffm step: " + json.dumps(step) + " einsums: "
+          + json.dumps(record["einsum_ms"]), flush=True)
+
+    # -- (6) the CLI round trip on examples/ffm_sample.cfg ----------------
+    record["cli"] = ffm_cli(np, os.path.join(tmp, "cli"))
+    tmp_ctx.cleanup()
+    return record, launches, kern["timing"]
+
+
+def ffm_cli(np, tmp: str) -> dict:
+    """``python -m fast_tffm_tpu_torch.cli train|predict|serve`` on
+    ``examples/ffm_sample.cfg`` (its widths and schedule; paths into
+    ``tmp``), on the data of ``examples/gen_sample_data.py --ffm``, each
+    a subprocess on the card.  Checks: validation logloss below 0.693,
+    one probability a predict line, and ``/score`` of validation lines
+    answering what predict wrote for them."""
+    data = os.path.join(tmp, "data")
+    subprocess.run([sys.executable, os.path.join(REPO, "examples",
+                                                 "gen_sample_data.py"),
+                    "--ffm", "--out", data], check=True, timeout=300,
+                   capture_output=True)
+    with open(os.path.join(REPO, "examples", "ffm_sample.cfg")) as f:
+        text = f.read()
+    scores = os.path.join(tmp, "scores.txt")
+    text = (text.replace("examples/data", data)
+            .replace("/tmp/fast_tffm_tpu_ffm_model",
+                     os.path.join(tmp, "model"))
+            .replace("/tmp/fast_tffm_tpu_ffm_scores.txt", scores))
+    cfg_path = os.path.join(tmp, "ffm_sample.cfg")
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    cli = [sys.executable, "-m", "fast_tffm_tpu_torch.cli"]
+    out = {}
+    for mode in ("train", "predict"):
+        t0 = time.perf_counter()
+        r = subprocess.run(cli + [mode, cfg_path], cwd=REPO, timeout=600,
+                           capture_output=True, text=True)
+        out[f"{mode}_wall_s"] = time.perf_counter() - t0
+        check(r.returncode == 0, f"cli {mode} exited {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+        out[f"{mode}_stdout"] = r.stdout.strip().splitlines()
+    val = [ln for ln in out["train_stdout"] if ln.startswith("validation")]
+    check(bool(val), f"cli train printed no validation: {out}")
+    out["validation_logloss"] = float(val[0].split("logloss=")[1].split()[0])
+    check(out["validation_logloss"] < 0.693,
+          f"cli validation logloss {out['validation_logloss']}")
+    with open(scores) as f:
+        predicted = f.read().split("\n")[:-1]
+    with open(os.path.join(data, "valid_ffm.libsvm")) as f:
+        lines = f.read().split("\n")[:-1]
+    check(len(predicted) == len(lines) > 0
+          and all(0.0 < float(x) < 1.0 for x in predicted),
+          f"cli predict wrote {len(predicted)} scores for {len(lines)} lines")
+    proc = subprocess.Popen(cli + ["serve", cfg_path, "--serve_port", "0",
+                                   "--serve_poll_secs", "0"], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                            text=True)
+    try:
+        line = proc.stdout.readline()  # "serving on host:port"
+        check(line.startswith("serving on"), f"cli serve printed {line!r}")
+        port = int(line.rsplit(":", 1)[1])
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        body = "\n".join(lines[:300]) + "\n"
+        served = post(conn, "/score", body.encode()).decode().split()
+        conn.close()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    err = max(abs(float(a) - float(b)) for a, b in zip(served, predicted))
+    check(len(served) == 300 and err <= 2e-6,
+          f"cli serve scores differ from predict's by {err}")
+    out["serve_vs_predict_max_abs_diff"] = err
+    out["serve_exit"] = proc.returncode
+    print("ffm cli: " + json.dumps({k: v for k, v in out.items()
+                                     if not k.endswith("stdout")}),
+          flush=True)
+    return out
 
 
 def spawn_ranks(tmp: str, tag: str, overrides: dict, world: int,
@@ -1609,21 +2311,6 @@ def main() -> int:
     table_k, acc_k = table0.clone(), acc0.clone()
     ids32 = ids0.to(torch.int32)
 
-    def k1_library(g, meta):
-        """K1's library yardstick: one ``index_add_`` of the ``[g | g^2]``
-        payload over each occurrence's segment (unsorted order)."""
-        u_s = meta.seg_start.numel() - 1
-        seg_sorted = torch.repeat_interleave(
-            torch.arange(u_s, device=dev),
-            (meta.seg_start[1:] - meta.seg_start[:-1]).long(),
-            output_size=g.shape[0],
-        )
-        seg_of_occ = torch.empty_like(seg_sorted)
-        seg_of_occ[meta.perm.long()] = seg_sorted
-        payload = torch.cat([g, g * g], dim=1)
-        out = torch.zeros((u_s, 2 * D), device=dev)
-        return lambda: out.index_add_(0, seg_of_occ, payload)
-
     # K1 merge's library yardstick, as K1's: one index_add_ of the real
     # entries' payload (the sentinel's padding left out, as the kernel
     # leaves it) over each entry's segment.
@@ -1654,7 +2341,7 @@ def main() -> int:
         "k1_dedup": (
             lambda: k1_dedup_cuda(g_rows, ids32, meta0.perm, slot0),
             lambda: k1_dedup_plain(g_rows, ids32, meta0.perm, slot0),
-            k1_library(g_rows, meta0),
+            k1_library(torch, g_rows, meta0),
             k1_bound_ms(n, u, D, slot=n),
         ),
         "k2_apply": (
@@ -1747,7 +2434,7 @@ def main() -> int:
         timing["k1_dedup"]["streams"][name] = {
             "occurrences": g.shape[0], "unique_rows": u_s,
             "graph_ms": [ka, kb], "plain_graph_ms": [pa, pb],
-            "library_ms": graph_ms(torch, k1_library(g, meta)),
+            "library_ms": graph_ms(torch, k1_library(torch, g, meta)),
             "bound_ms": b_ms, "bound_by": b_by,
         }
     del k1_streams, probe_ids
@@ -2192,6 +2879,17 @@ def main() -> int:
           flush=True)
     phase_end("probe")
 
+    # -- FFM phase (path 5): field-aware FM at FFM-Criteo -----------------
+    ffm, ffm_launches, ffm_timing = ffm_phase(np, torch, card, gen, rng,
+                                              kernels, counters, err)
+    timing.update(ffm_timing)
+    print(json.dumps({"ffm": ffm}), flush=True)
+    print("ffm check: K1 and K2 at D = 33 == their plain versions; the op "
+          "== autograd; graphed runs bitwise eager; kernel steps == plain "
+          "steps; bf16 near f32; transports bitwise; the CLI round trip",
+          flush=True)
+    phase_end("ffm")
+
     # Launches on the main paths: train (path 1), serve (path 2, the
     # only fm_scores count), the sharded runs' ranks (path 3), the
     # probe (path 4, the only K2T and K2P counts), and the bf16 train
@@ -2204,6 +2902,8 @@ def main() -> int:
         launches[name] = bf16_launches[name]  # path 1 in bf16
     for name in ("k2t_apply", "k2p_apply"):
         launches[name] = probe_launches[name]
+    for name in ("k1_dedup", "k2_apply"):  # path 5, at D = 33
+        launches[f"{name}_d33"] = ffm_launches[name]
     sources = {
         "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
         "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),
@@ -2220,6 +2920,10 @@ def main() -> int:
                    "fast_tffm_tpu/ops/sparse_apply.py:469"),
         "k2t_apply": ("layout_probe.cu", "tools/micro_probe.py:46"),
         "k2p_apply": ("layout_probe.cu", "tools/micro_probe.py:102"),
+        "k1_dedup_d33": ("sparse_apply.cu",
+                         "fast_tffm_tpu/ops/sparse_apply.py:136"),
+        "k2_apply_d33": ("sparse_apply.cu",
+                         "fast_tffm_tpu/ops/sparse_apply.py:322"),
     }
     print(json.dumps({"phase_wall_s": phase_wall}), flush=True)
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}))

@@ -7,9 +7,11 @@ Numeric spec (reference ``FmScorer``):
 
 The parameters are one table ``[vocab, D]`` whose column 0 is the linear
 weight and columns 1: the factor vector, plus the global bias ``w0`` —
-held by :class:`FmModel`.  Padded feature slots carry ``val == 0`` and
-contribute nothing.  Plain FM only (``field_num == 0``); field-aware FM
-is a later slice.
+held by :class:`FmModel`.  For field-aware FM (``field_num = P > 0``)
+a row is ``1 + P*k`` wide, the factor vector of each field in turn, and
+the interaction uses per-field factors ``<v_{i,f_j}, v_{j,f_i}> x_i x_j``
+(:func:`ffm_scores_from_rows`).  Padded feature slots carry ``val == 0``
+and contribute nothing.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from fast_tffm_tpu_torch.ops import interaction
 from fast_tffm_tpu_torch.platform import resolve_device
 
 __all__ = [
-    "FmModel", "example_losses", "fm_scores", "init_params",
+    "FmModel", "example_losses", "ffm_scores_from_rows", "fm_scores",
+    "init_params",
     "interaction_terms", "l2_penalty_batch", "scores_from_rows",
     "scores_from_terms",
 ]
@@ -43,8 +46,11 @@ class FmModel(nn.Module):
         self.w0 = nn.Parameter(w0.to(torch.float32))
         self.table = nn.Parameter(table.to(torch.float32))
 
-    def forward(self, ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-        return fm_scores(self, ids, vals)
+    def forward(self, ids: torch.Tensor, vals: torch.Tensor,
+                fields: Optional[torch.Tensor] = None, *,
+                factor_num: int = 0, field_num: int = 0) -> torch.Tensor:
+        return fm_scores(self, ids, vals, fields, factor_num=factor_num,
+                         field_num=field_num)
 
 
 def init_params(
@@ -80,23 +86,49 @@ def scores_from_terms(w0, linear, s1, s2) -> torch.Tensor:
     return w0 + linear + 0.5 * (s1 * s1 - s2).sum(dim=-1)
 
 
+def ffm_scores_from_rows(w0: torch.Tensor, rows: torch.Tensor,
+                         vals: torch.Tensor, fields: torch.Tensor,
+                         factor_num: int, field_num: int,
+                         compute_dtype=torch.float32) -> torch.Tensor:
+    """Field-aware FM scores ``[B]`` f32 from gathered rows
+    ``[B, F, 1 + P*k]``: ``w0 + sum_i w_i x_i + sum_{i<j} <v_i^{f_j},
+    v_j^{f_i}> x_i x_j`` in the field-grouped form (two einsums over
+    ``[B, P, P, k]``, ``ops.interaction.ffm_forward``), differentiable
+    by autograd (the closed form is ``ops.interaction.FfmInteraction``)."""
+    return w0.float() + interaction.ffm_forward(
+        rows, vals, fields, factor_num, field_num, compute_dtype)
+
+
 def scores_from_rows(w0: torch.Tensor, rows: torch.Tensor,
-                     vals: torch.Tensor) -> torch.Tensor:
+                     vals: torch.Tensor,
+                     fields: Optional[torch.Tensor] = None, *,
+                     factor_num: int = 0,
+                     field_num: int = 0) -> torch.Tensor:
     """Scores ``[B]`` f32 from gathered rows ``[B, F, D]``: the FM
-    interaction (the CUDA kernel on the GPU) plus ``w0``."""
+    interaction (the CUDA kernel on the GPU) plus ``w0``, or with
+    ``field_num > 0`` :func:`ffm_scores_from_rows` on ``fields``."""
+    if field_num:
+        if fields is None:
+            raise ValueError("field-aware FM scores need fields")
+        return ffm_scores_from_rows(w0, rows.float(), vals.float(), fields,
+                                    factor_num, field_num)
     scores, _ = interaction.forward(rows.float().contiguous(),
                                     vals.float().contiguous())
     return w0.float() + scores
 
 
-def fm_scores(model: FmModel, ids: torch.Tensor,
-              vals: torch.Tensor) -> torch.Tensor:
-    """Gather + score: ``ids [B, F]`` int, ``vals [B, F]`` -> ``[B]``.
-    Ids must lie in ``[0, vocab)`` (on the GPU an id outside it is a
-    device-side assert, not a clamp)."""
+def fm_scores(model: FmModel, ids: torch.Tensor, vals: torch.Tensor,
+              fields: Optional[torch.Tensor] = None, *,
+              factor_num: int = 0, field_num: int = 0) -> torch.Tensor:
+    """Gather + score: ``ids [B, F]`` int, ``vals [B, F]`` (and
+    ``fields [B, F]`` with ``field_num > 0``) -> ``[B]``.  Ids must lie
+    in ``[0, vocab)`` (on the GPU an id outside it is a device-side
+    assert, not a clamp)."""
     d = model.table.shape[1]
     rows = model.table.index_select(0, ids.reshape(-1))
-    return scores_from_rows(model.w0, rows.view(*ids.shape, d), vals)
+    return scores_from_rows(model.w0, rows.view(*ids.shape, d), vals,
+                            fields, factor_num=factor_num,
+                            field_num=field_num)
 
 
 def example_losses(scores: torch.Tensor, labels: torch.Tensor,

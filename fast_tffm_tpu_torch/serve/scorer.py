@@ -9,13 +9,16 @@ dispatch runs at one of a few fixed shapes:
 
 - the table lives on the device, as float32;
 - each rung keeps its own staging buffers: pinned host ``ids``/``vals``
-  the caller's arrays are copied into, their device twins, and a pinned
-  host output.  A dispatch is: non-blocking host-to-device copy, gather
-  ``table.index_select`` (a plain gather, left outside the kernel as in
-  the JAX package), the FmScorer kernel (``ops.interaction.forward``),
-  ``+ w0``, ``sigmoid`` for logistic loss, a non-blocking device-to-host
-  copy, then a wait on that copy — the score goes back to a client, so
-  the copy back is part of the dispatch;
+  (and ``fields`` for field-aware FM) the caller's arrays are copied
+  into, their device twins, and a pinned host output.  A dispatch is:
+  non-blocking host-to-device copy, gather ``table.index_select`` (a
+  plain gather, left outside the kernel as in the JAX package), the
+  FmScorer kernel (``ops.interaction.forward``) or, with ``field_num >
+  0``, the FFM einsums (``models.fm.ffm_scores_from_rows``, the
+  reference's FFM ``score_fn``), ``+ w0``, ``sigmoid`` for logistic
+  loss, a non-blocking device-to-host copy, then a wait on that copy —
+  the score goes back to a client, so the copy back is part of the
+  dispatch;
 - the parameters are a REFERENCE swapped under a lock (:meth:`swap`):
   a dispatch reads it once, so it scores against exactly one table (old
   or new, never torn).
@@ -24,7 +27,8 @@ dispatch runs at one of a few fixed shapes:
 library's load, the first launch, allocator growth) land at startup.
 
 The reference's ``OverlayScorer``, its tiered and quantized checkpoint
-loading and its autotune hook are not in the port yet (ROADMAP.md, port
+loading (``serve_table_dtype`` other than ``fp32``, for FM and FFM
+alike) and its autotune hook are not in the port yet (ROADMAP.md, port
 queue item 2).
 """
 
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.config import FmConfig
-from fast_tffm_tpu_torch.models.fm import FmModel
+from fast_tffm_tpu_torch.models.fm import FmModel, ffm_scores_from_rows
 from fast_tffm_tpu_torch.obs.telemetry import NULL
 from fast_tffm_tpu_torch.ops import interaction
 from fast_tffm_tpu_torch.platform import resolve_device
@@ -51,31 +55,55 @@ __all__ = ["FixedShapeScorer", "load_model", "make_scorer"]
 
 
 class _Rung:
-    """One rung's staging buffers (``b`` examples x ``F`` features)."""
+    """One rung's staging buffers (``b`` examples x ``F`` features);
+    ``fields`` only ``with_fields`` (field-aware FM), else None."""
 
-    def __init__(self, b: int, feat: int, device: torch.device):
+    def __init__(self, b: int, feat: int, device: torch.device,
+                 with_fields: bool = False):
         pin = device.type == "cuda"
         self.b = b
-        self.ids_host = torch.zeros((b, feat), dtype=torch.int32,
-                                    pin_memory=pin)
-        self.vals_host = torch.zeros((b, feat), dtype=torch.float32,
-                                     pin_memory=pin)
-        self.out_host = torch.zeros((b,), dtype=torch.float32,
-                                    pin_memory=pin)
+
+        def host(dtype, shape):
+            return torch.zeros(shape, dtype=dtype, pin_memory=pin)
+
+        self.ids_host = host(torch.int32, (b, feat))
+        self.vals_host = host(torch.float32, (b, feat))
+        self.fields_host = (host(torch.int32, (b, feat)) if with_fields
+                            else None)
+        self.out_host = host(torch.float32, (b,))
         # numpy views of the pinned buffers: filling them IS the staging.
         self.ids = self.ids_host.numpy()
         self.vals = self.vals_host.numpy()
+        self.fields = None if self.fields_host is None else (
+            self.fields_host.numpy())
         self.out = self.out_host.numpy()
         if pin:
-            self.ids_dev = torch.zeros((b, feat), dtype=torch.int32,
-                                       device=device)
-            self.vals_dev = torch.zeros((b, feat), dtype=torch.float32,
-                                        device=device)
+            def twin(t):
+                return None if t is None else torch.zeros_like(
+                    t, device=device)
+
+            self.ids_dev = twin(self.ids_host)
+            self.vals_dev = twin(self.vals_host)
+            self.fields_dev = twin(self.fields_host)
             self.done = torch.cuda.Event()
         else:
-            self.ids_dev, self.vals_dev, self.done = (
-                self.ids_host, self.vals_host, None
+            self.ids_dev, self.vals_dev, self.fields_dev, self.done = (
+                self.ids_host, self.vals_host, self.fields_host, None
             )
+
+    def stage(self, c: int, ids, vals, fields) -> None:
+        """Copy ``c`` examples into the rung's first rows and zero the
+        rest (``vals == 0`` rows are inert; their outputs are dropped).
+        Without ``fields`` a field-aware rung stages field 0, as the
+        reference's scorer does."""
+        if c:
+            self.ids[:c] = ids[:c]
+            self.vals[:c] = vals[:c]
+        self.ids[c:] = 0
+        self.vals[c:] = 0.0
+        if self.fields is not None:
+            self.fields[:c] = 0 if fields is None else fields[:c]
+            self.fields[c:] = 0
 
 
 class FixedShapeScorer:
@@ -89,11 +117,6 @@ class FixedShapeScorer:
     def __init__(self, cfg: FmConfig, model: FmModel,
                  device: Optional[Union[str, torch.device]] = None,
                  telemetry=None, step: int = 0, extra_rungs=()):
-        if cfg.field_num:
-            raise NotImplementedError(
-                "field-aware FM serving (field_num > 0) is not in the "
-                "PyTorch port yet (ROADMAP.md, port queue item 2)"
-            )
         if cfg.serve_table_dtype != "fp32":
             raise NotImplementedError(
                 f"serve_table_dtype={cfg.serve_table_dtype} is not in the "
@@ -106,6 +129,8 @@ class FixedShapeScorer:
                                    | {int(b) for b in extra_rungs}))
         self.max_rung = self.ladder[-1]
         self._feat = cfg.max_features
+        self._field_num = cfg.field_num
+        self._factor_num = cfg.factor_num
         self._logistic = cfg.loss_type == "logistic"
         tel = telemetry if telemetry is not None else NULL
         self._t_dispatch = tel.timer("serve.dispatch")
@@ -142,7 +167,8 @@ class FixedShapeScorer:
     def _rung(self, b: int) -> _Rung:
         rung = self._rungs.get(b)
         if rung is None:
-            rung = _Rung(b, self._feat, self.device)
+            rung = _Rung(b, self._feat, self.device,
+                         with_fields=self._field_num > 0)
             self._rungs[b] = rung
         return rung
 
@@ -185,8 +211,7 @@ class FixedShapeScorer:
         with self._lock:
             for b in self.ladder:
                 rung = self._rung(b)
-                rung.ids.fill(0)
-                rung.vals.fill(0.0)
+                rung.stage(0, None, None, None)
                 self._dispatch(rung)
         self.warmup_wall_s = time.perf_counter() - t0
         return len(self.ladder)
@@ -196,8 +221,9 @@ class FixedShapeScorer:
         """Scores for ``n`` examples (``[n, max_features]`` arrays), any
         ``n``: chunks at the max rung, pads the tail chunk up to its
         rung with zero rows (``vals == 0`` rows are mathematically inert
-        and their outputs are discarded).  ``fields`` is accepted for
-        the batcher's interface and unused (plain FM)."""
+        and their outputs are discarded).  ``fields`` (``[n,
+        max_features]``) is read only for field-aware FM; None there
+        means field 0 everywhere."""
         n = len(ids)
         out = np.empty((n,), np.float32)
         pos = 0
@@ -205,11 +231,8 @@ class FixedShapeScorer:
             while pos < n:
                 c = min(n - pos, self.max_rung)
                 rung = self._rung(self.rung_for(c))
-                rung.ids[:c] = ids[pos:pos + c]
-                rung.vals[:c] = vals[pos:pos + c]
-                if c < rung.b:
-                    rung.ids[c:] = 0
-                    rung.vals[c:] = 0.0
+                rung.stage(c, ids[pos:pos + c], vals[pos:pos + c],
+                           None if fields is None else fields[pos:pos + c])
                 out[pos:pos + c] = self._dispatch(rung)[:c]
                 pos += c
         return out
@@ -221,8 +244,7 @@ class FixedShapeScorer:
         rung's pinned staging)."""
         with self._lock:
             rung = self._rung(b)
-            rung.ids[...] = ids
-            rung.vals[...] = vals
+            rung.stage(b, ids, vals, fields)
             return self._dispatch(rung)
 
     def _dispatch(self, rung: _Rung) -> np.ndarray:
@@ -239,11 +261,18 @@ class FixedShapeScorer:
                 if rung.done is not None:
                     rung.ids_dev.copy_(rung.ids_host, non_blocking=True)
                     rung.vals_dev.copy_(rung.vals_host, non_blocking=True)
-                rows = table.index_select(0, rung.ids_dev.view(-1))
-                scores, _ = interaction.forward(
-                    rows.view(rung.b, self._feat, -1), rung.vals_dev
-                )
-                scores = w0 + scores
+                    if rung.fields_dev is not None:
+                        rung.fields_dev.copy_(rung.fields_host,
+                                              non_blocking=True)
+                rows = table.index_select(0, rung.ids_dev.view(-1)).view(
+                    rung.b, self._feat, -1)
+                if self._field_num:
+                    scores = ffm_scores_from_rows(
+                        w0, rows, rung.vals_dev, rung.fields_dev,
+                        self._factor_num, self._field_num)
+                else:
+                    scores, _ = interaction.forward(rows, rung.vals_dev)
+                    scores = w0 + scores
                 if self._logistic:
                     scores = torch.sigmoid(scores)
                 rung.out_host.copy_(scores, non_blocking=True)

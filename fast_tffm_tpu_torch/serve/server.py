@@ -68,8 +68,6 @@ def _check_supported(cfg: FmConfig) -> None:
     """Refuse settings that would change the result or need a later
     slice of the port, naming the ROADMAP.md port-queue item."""
     unported = []
-    if cfg.field_num > 0:
-        unported.append(("field_num > 0 (field-aware FM)", 2))
     if cfg.serve_table_dtype != "fp32":
         unported.append(
             (f"serve_table_dtype={cfg.serve_table_dtype}", 2)
@@ -159,14 +157,14 @@ class ServeServer:
                 try:
                     if path == "/score":
                         with parse_t.time():
-                            ids, vals, _, n, truncated = parse_request(
+                            ids, vals, fields, n, truncated = parse_request(
                                 body.decode(), cfg, pool=parse_pool
                             )
                         on_done = lambda i=ids: parse_pool.release(i)  # noqa: E731
                         encode = encode_text
                     else:
                         with parse_bin_t.time():
-                            (ids, vals, _, n, truncated,
+                            (ids, vals, fields, n, truncated,
                              frame_rid) = wire.decode_bin_request(body, cfg)
                         if frame_rid is not None and \
                                 wire.valid_request_id(frame_rid):
@@ -189,8 +187,8 @@ class ServeServer:
                     return
                 try:
                     scores = batcher.score(
-                        ids, vals, None, timeout=timeout_s,
-                        on_done=on_done,
+                        ids, vals, fields if cfg.field_num else None,
+                        timeout=timeout_s, on_done=on_done,
                     )
                 except Exception as e:  # noqa: BLE001 - report, don't die
                     self._send(

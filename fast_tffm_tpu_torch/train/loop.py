@@ -17,7 +17,10 @@ sparse_step` on each of a super-batch's K views: on the GPU the
 FmScorer forward, FmGrad backward, K1 dedup and K2 apply kernels
 (FmScorer and FmGrad in their bf16-input mode with ``compute_dtype =
 bfloat16``, on one device; validation scores in f32, as the reference's
-``make_eval_step``).  :meth:`Trainer.dispatch` trains one super-batch:
+``make_eval_step``).  Field-aware FM (``field_num > 0``, one device)
+ships each batch's fields too and replaces FmScorer and FmGrad with the
+FFM op's einsums and closed-form backward; K1 and K2 run as for FM, at
+the FFM row width.  :meth:`Trainer.dispatch` trains one super-batch:
 on one GPU with the host sort meta, every full super-batch after the
 first is one replay of a CUDA graph of the K steps
 (``train/dispatch.py``, the port's ``make_scan_train_step``); the first,
@@ -124,8 +127,13 @@ def _check_supported(cfg: FmConfig) -> None:
             f"the dense optax path (sparse_update={cfg.sparse_update}, "
             f"optimizer={cfg.optimizer}, l2_mode={cfg.l2_mode})", 7,
         ))
-    if cfg.field_num > 0:
-        unported.append(("field_num > 0 (field-aware FM)", 2))
+    if cfg.field_num > 0 and _multi_rank(cfg):
+        # The reference's sharded step has its own FFM closed form
+        # (train/shardmap_step.py::_ffm_fwd_bwd).
+        unported.append((
+            "field_num > 0 on a rank mesh (the sharded step's field-aware "
+            "FM)", 3,
+        ))
     if cfg.compute_dtype != "float32" and _multi_rank(cfg):
         # The reference's sharded step rounds its xv products to bf16 in
         # its own closed form, with no Pallas kernel: another path.
@@ -562,8 +570,10 @@ class Trainer:
                         scores = local_scores(self.cfg, self.model,
                                               dev_batch, self.mesh)
                     else:
-                        scores = fm.fm_scores(self.model, dev_batch.ids,
-                                              dev_batch.vals)
+                        scores = fm.fm_scores(
+                            self.model, dev_batch.ids, dev_batch.vals,
+                            dev_batch.fields, factor_num=self.cfg.factor_num,
+                            field_num=self.cfg.field_num)
                 ms.add_(scores, dev_batch, self.cfg.loss_type)
         return self.global_metrics(ms)
 
@@ -595,7 +605,7 @@ def predict(cfg: FmConfig,
                        shuffle=False) as pipeline, \
             open(cfg.score_path, "w") as out:
         for batch in pipeline:
-            scores = scorer.score(batch.ids, batch.vals)
+            scores = scorer.score(batch.ids, batch.vals, batch.fields)
             for s in scores[batch.weights > 0]:
                 out.write(f"{s:.6f}\n")
                 n += 1

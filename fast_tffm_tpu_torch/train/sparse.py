@@ -11,7 +11,10 @@ Per step the optimizer touches only the rows the batch gathered:
    (``ops.interaction.FmInteraction``), giving per-occurrence row
    gradients ``[B, F, D]``; with ``compute_dtype = bfloat16`` the
    interaction runs the kernels' bf16-input mode on rows and values
-   rounded to bf16, and its bf16 gradient is widened back to f32;
+   rounded to bf16, and its bf16 gradient is widened back to f32.
+   Field-aware FM (``field_num > 0``, ``D = 1 + P*k``) takes the
+   closed-form FFM op (``ops.interaction.FfmInteraction``) instead, on
+   the f32 rows;
 3. ``ops.sparse_apply.apply`` sorts (or takes the pipeline's host sort
    meta), K1 sums the occurrences per unique row, and K2 applies Adagrad,
    FTRL or SGD in place at those rows.  ``w0`` is updated as a dense
@@ -132,10 +135,21 @@ def rows_loss(cfg: FmConfig, w0: torch.Tensor, rows: torch.Tensor,
     With ``compute_dtype = bfloat16`` the interaction sees the rows and
     values rounded to bf16; the casts are inside autograd, so the bf16
     row gradient comes back f32 through the cast's backward, and the
-    batch L2 sees the f32 rows.  Scores and loss are f32 either way."""
+    batch L2 sees the f32 rows.  With ``field_num > 0`` the interaction
+    is field-aware FM (``ops.interaction.ffm_interaction``, einsums and
+    a closed-form backward; ``plain`` does not apply to it).  Scores and
+    loss are f32 either way."""
     cd = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    # fm_interaction gives the values the rows' type.
-    scores = w0 + interaction.fm_interaction(rows.to(cd), batch.vals, plain)
+    if cfg.field_num:
+        # The rows enter uncast: the FFM op rounds its operands inside,
+        # so its row gradient is f32 (the reference's FFM branch).
+        scores = w0 + interaction.ffm_interaction(
+            rows, batch.vals, batch.fields, cfg.factor_num, cfg.field_num,
+            cd)
+    else:
+        # fm_interaction gives the values the rows' type.
+        scores = w0 + interaction.fm_interaction(rows.to(cd), batch.vals,
+                                                 plain)
     per_ex = fm.example_losses(scores, batch.labels, cfg.loss_type)
     wsum = torch.clamp(torch.sum(batch.weights), min=1e-12)
     loss = torch.sum(per_ex * batch.weights) / wsum

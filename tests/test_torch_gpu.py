@@ -2,7 +2,8 @@
 backward in their f32 and bf16-input modes, K1 dedup and its merge mode, K2 apply, K-place, and the
 table-layout probe's K2T and K2P) against their plain PyTorch versions,
 the scorer's and the sparse step's GPU paths against their CPU paths,
-and two ranks' collectives on one GPU.
+two ranks' collectives on one GPU, and field-aware FM's op, graphed
+dispatch and kernel step at the FFM row width.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``gpu``) and
 skips without one.  The file imports neither jax nor the JAX package,
@@ -1183,3 +1184,89 @@ def test_cached_and_pooled_runs_are_graphed_as_any_other(gpu, tmp_path,
     assert g_tr["graph_dispatches"] == 5 and g_tr["eager_dispatches"] == 4
     for a, b in zip(_trained_state(graphed), _trained_state(eager)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_ffm_graphed_dispatch_matches_eager_and_plain(gpu, tmp_path, k,
+                                                      dtype):
+    """Field-aware FM (P = 4, k = 8: D = 33, the FFM-Criteo width) on the
+    card.  The op's forward and closed-form backward against autograd
+    through ``ffm_scores_from_rows`` (f32 ``rtol=1e-5, atol=1e-6``; bf16
+    against f32 ``rtol=2e-2, atol=2e-2``).  Nine batches with fields
+    through ``Trainer.dispatch``, graphed and eager: bitwise equal, K1
+    and K2 launched every step, no FmScorer or FmGrad.  Then three steps
+    through the kernels against three through the plain path."""
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.models import fm
+    from fast_tffm_tpu_torch.ops import interaction
+    from fast_tffm_tpu_torch.train.dispatch import COUNTERS
+
+    p, kf = 4, 8
+    cd = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    rng = np.random.default_rng(11)
+    rows = torch.from_numpy(rng.uniform(-0.3, 0.3, (512, 39, 1 + p * kf))
+                            .astype(np.float32)).to(gpu)
+    vals = torch.from_numpy(rng.uniform(0.1, 1.0, (512, 39))
+                            .astype(np.float32)).to(gpu)
+    fields = torch.from_numpy((np.arange(39) % p).astype(np.int32)).to(
+        gpu).expand(512, 39).contiguous()
+    g = torch.from_numpy(rng.uniform(-1, 1, 512).astype(np.float32)).to(gpu)
+
+    def fwd_bwd(fn, compute):
+        r = rows.clone().requires_grad_()
+        s = fn(r, vals, fields, kf, p, compute)
+        d, = torch.autograd.grad((s * g).sum(), r)
+        return s.detach(), d
+
+    def oracle(r, v, f, kk, pp, compute):
+        return fm.ffm_scores_from_rows(torch.zeros((), device=gpu), r, v, f,
+                                       kk, pp, compute)
+
+    s_op, d_op = fwd_bwd(interaction.ffm_interaction, cd)
+    s_or, d_or = fwd_bwd(oracle, torch.float32)
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    torch.testing.assert_close(s_op, s_or, **tol)
+    torch.testing.assert_close(d_op, d_or, **tol)
+
+    cfg = dataclasses.replace(_dispatch_cfg(tmp_path, "adagrad", dtype, k),
+                              field_num=p)
+    host = [b._replace(fields=np.tile((np.arange(39) + i) % p, (512, 1))
+                       .astype(np.int32))
+            for i, b in enumerate(_host_batches(9, vocab=cfg.vocabulary_size))]
+    runs = []
+    for graphs in (True, False):
+        trainer = _trainer(cfg, gpu, graphs)
+        counts = [getattr(fn, attr) for fn, attr in COUNTERS]
+        losses = [trainer.dispatch(sb).clone() for sb in DevicePrefetcher(
+            host, k, gpu, cfg.vocabulary_size, with_fields=True)]
+        torch.cuda.synchronize()
+        launched = {f"{fn.__name__}.{attr}": getattr(fn, attr) - c
+                    for (fn, attr), c in zip(COUNTERS, counts)}
+        runs.append((trainer, torch.cat(losses), launched))
+    (graphed, g_loss, g_launched), (eager, e_loss, e_launched) = runs
+    assert graphed.graph_dispatches == 9 // k - 1 > 0
+    assert g_launched == e_launched
+    assert g_launched["k1_dedup_cuda.launches"] == 9
+    assert g_launched["k2_apply_cuda.launches"] == 9
+    assert sum(n for name, n in g_launched.items()
+               if name.startswith("fm_")) == 0
+    assert torch.equal(g_loss, e_loss)
+    for a, b in zip(_trained_state(graphed), _trained_state(eager)):
+        assert torch.equal(a, b)
+
+    init = fm.init_params(cfg, torch.Generator(device=gpu).manual_seed(3),
+                          device=gpu)
+    models = [fm.FmModel(init.w0.detach().clone(), init.table.detach().clone())
+              for _ in range(2)]
+    opts = [sparse.init_sparse_opt_state(cfg, m) for m in models]
+    for b in host[:3]:
+        dev_b = sparse.to_device(b, gpu)
+        s_k = sparse.sparse_step(cfg, models[0], opts[0], dev_b)
+        s_p = sparse.sparse_step(cfg, models[1], opts[1], dev_b, plain=True)
+        torch.testing.assert_close(s_k, s_p, **TOL)
+    torch.testing.assert_close(models[0].table, models[1].table, **TABLE_TOL)
+    torch.testing.assert_close(opts[0].acc_table, opts[1].acc_table,
+                               **OPT_TOL)

@@ -206,7 +206,7 @@ def test_serve_observability_routes(served):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"field_num": 2},
+    {"serve_table_dtype": "int8"},
     {"serve_table_dtype": "bf16"},
     {"serve_replicas": 2},
     {"serve_poll_secs": 2.0},
@@ -232,19 +232,36 @@ def test_serve_refuses_checkpoint_without_params_npz(tmp_path):
 
 @pytest.mark.parametrize("mode", ["train", "predict"])
 def test_cli_refuses_later_slices(tmp_path, mode):
-    # Train and predict run in the port; field-aware FM is a later slice
-    # for both.
+    # Field-aware FM trains and predicts on one device through the CLI;
+    # the later slices refuse it: a rank mesh (train, item 3) and a
+    # quantized serving table (predict's scorer, item 2).
     model_file = str(tmp_path / "model")
-    w0, table = _params()
+    rng = np.random.default_rng(3)
+    table = rng.uniform(-0.1, 0.1, (V, 1 + 2 * K)).astype(np.float32)
     checkpoint.save_params(model_file,
-                           weights.from_jax(w0, table, device="cpu"))
+                           weights.from_jax(0.0, table, device="cpu"))
+    lines = [f"{i % 2} " + " ".join(
+        f"{j % 2}:{rng.integers(0, V)}:{rng.uniform(0.1, 1):.3f}"
+        for j in range(4)) + "\n" for i in range(40)]
+    (tmp_path / "ffm.libsvm").write_text("".join(lines))
+    general = (f"[General]\nvocabulary_size = {V}\nfactor_num = {K}\n"
+               f"field_num = 2\nmodel_file = {model_file}\n")
+    rest = (f"[Train]\ntrain_files = {tmp_path}/ffm.libsvm\n"
+            f"batch_size = 16\n"
+            f"[Predict]\npredict_files = {tmp_path}/ffm.libsvm\n"
+            f"score_path = {tmp_path}/scores.txt\n")
     path = tmp_path / "ffm.cfg"
-    path.write_text(
-        f"[General]\nvocabulary_size = {V}\nfactor_num = {K}\n"
-        f"field_num = 2\nmodel_file = {model_file}\n"
-        f"[Train]\ntrain_files = {tmp_path}/none.libsvm\n"
-        f"[Predict]\npredict_files = {tmp_path}/none.libsvm\n"
-        f"score_path = {tmp_path}/scores.txt\n"
-    )
+    path.write_text(general + rest)
+    assert cli.main([mode, str(path), "--device", "cpu"]) == 0
+    if mode == "predict":
+        scores = np.loadtxt(tmp_path / "scores.txt")
+        assert scores.shape == (40,) and np.all((scores > 0) & (scores < 1))
+        later = "serve_table_dtype = int8\n"
+    else:
+        with np.load(checkpoint.params_path(model_file)) as z:
+            assert int(z["scalar/step"]) == 3
+        later = "[Tpu]\nmesh_data = 2\n"
+    path.write_text(general + later + rest if mode == "predict"
+                    else general + rest + later)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main([mode, str(path), "--device", "cpu"])

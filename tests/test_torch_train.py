@@ -220,7 +220,7 @@ def test_checkpoint_keeps_optimizer_state(tmp_path):
 @pytest.mark.parametrize("kw, item", [
     (dict(sparse_update=False), "item 7"),
     (dict(optimizer="adam"), "item 7"),
-    (dict(field_num=2), "item 2"),
+    (dict(field_num=2, mesh_data=2), "item 3"),
     (dict(mesh_data=2, compute_dtype="bfloat16"), "item 3"),
     (dict(table_tiering="on"), "item 2"),
     (dict(mesh_data=2, sparse_exchange_overlap="on"), "item 3"),
