@@ -103,6 +103,20 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    larger than the largest; the two transports agree bitwise, scores
    match the plain path on the card, out-of-range ids reduce like the
    text path, the kernel ran.  Request latency and dispatch per rung.
+8b. Quant phase (path 6): the same checkpoint served again through
+   ``serve()``: in fp32, as the bf16 and the int8 (chunk 64)
+   ``quant.npz`` that ``fast_tffm_tpu_torch/tools/convert_checkpoint.py``
+   writes (its seconds timed), and as the fp32 ``params.npz`` at
+   ``serve_table_dtype = int8`` (quantized at placement), each on the
+   same requests.  Checks: the transports bitwise; the scores within
+   the reference's bounds of the fp32 server's (bf16 5e-3, int8 2e-2,
+   ``tests/test_quant.py:43-44``) and within ``KERNEL_TOL`` of the plain
+   path on the dequantized rows; ``serve.table_bytes`` the codes plus
+   scales (37,748,736 + 262,144 B int8, 75,497,472 B bf16, 150,994,944 B
+   fp32) and the device memory the placement added the same;
+   ``/status``'s ``quant_error_max`` -1 for a ``quant.npz``, in (0,
+   bound] at placement, 0 for fp32; FmScorer launches counted.  Dispatch
+   p50 per rung and the placement seconds of each table.
 9. Sharded phase (main path 3): four ranks of a 2 x 2 (data x model)
    mesh, ``lookup = shardmap``, each a process of this script
    (``--sharded-rank``) sharing the card over gloo (or one GPU each over
@@ -150,7 +164,21 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    fast_tffm_tpu_torch.cli train|predict|serve`` on
    ``examples/ffm_sample.cfg`` as subprocesses on the data of
    ``examples/gen_sample_data.py --ffm`` (validation logloss below
-   0.693; the server's ``/score`` equal to the predict file).
+   0.693; the server's ``/score`` equal to the predict file).  Between
+   serving and the step, the checkpoint is served in fp32 and at
+   ``serve_table_dtype = int8`` with path 6's checks (138,412,032 +
+   262,144 B against 553,648,128).
+12. Overlay phase (path 7): a ``tiered.npz`` at
+   ``examples/criteo_1tb_dist.cfg``'s V = 2^26, D = 9 (its mesh, lookup
+   and batch size overridden for one device; the record lists the
+   overrides), written by ``save_tiered`` from a virtual ``ColdStore`` of
+   2^20 seeded rows, in cold dtype fp32 and int8, served through
+   ``serve()`` (the ``OverlayScorer``).  Checks: the transports bitwise;
+   the scores within ``KERNEL_TOL`` of the plain path on the store's
+   rows, written and never written; no table gauge on ``/status``; the
+   peak device memory the stack added within its staging and one bucket
+   of the largest rung (no ``[V, D]`` allocation); FmScorer launches
+   counted.  Dispatch p50 and the host gather a dispatch, per rung.
 
 Output: progress lines and JSON records, then a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -161,6 +189,7 @@ without the package beside this script.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import http.client
 import itertools
 import json
@@ -221,6 +250,17 @@ HOT_OCCURRENCES = 5000
 FFM_FIELDS = 4
 FFM_OP_TOL = dict(rtol=1e-5, atol=1e-6)
 FFM_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# Quantized serving (path 6): the int8 scale chunk, and the reference's
+# pinned bounds of served quantized scores against fp32 ones
+# (tests/test_quant.py:43-44); the request sizes every served table
+# answers (one per rung of 64/256/1024 and one past the largest).
+QUANT_CHUNK = 64
+SERVE_BOUND = {"bf16": 5e-3, "int8": 2e-2}
+SERVE_SIZES = (1, 37, 200, 1000, 1500)
+# Overlay serving (path 7): Criteo-1TB's table (V = 2^26, D = 9) as a
+# tiered overlay of this many written rows.
+DIST_CFG_PATH = os.path.join(REPO, "examples", "criteo_1tb_dist.cfg")
+OVERLAY_ROWS = 1 << 20
 # Profiler windows: the host's pause after tracing starts and before it
 # stops.  The trace drops a kernel whose traced time falls outside the
 # window, and the window can open ms after `prof.step()` returns, losing
@@ -561,6 +601,373 @@ def post(conn, path: str, body: bytes) -> bytes:
     data = resp.read()
     check(resp.status == 200, f"{path} answered {resp.status}: {data[:200]!r}")
     return data
+
+
+def get_json(conn, path: str) -> dict:
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    data = resp.read()
+    check(resp.status == 200, f"{path} answered {resp.status}")
+    return json.loads(data)
+
+
+# -- quantized and overlay serving (paths 6 and 7) ------------------------
+
+
+def requested_bytes(torch, which: str = "current") -> int:
+    """The device bytes PyTorch's allocator was asked for (``current``
+    or ``peak``), before its rounding: a block reused from its cache can
+    count up to 1 MiB more in ``memory_allocated``."""
+    return int(torch.cuda.memory_stats()[f"requested_bytes.all.{which}"])
+
+
+def plain_served(torch, w0: float, rows, vals, fields=None,
+                 factor_num: int = 0, field_num: int = 0):
+    """The plain PyTorch score on the card of gathered f32 ``rows``
+    (numpy ``[n, F, D]``): sigmoid(w0 + FM), or FFM's einsums."""
+    from fast_tffm_tpu_torch.models import fm
+    from fast_tffm_tpu_torch.ops.fm_kernels import fm_scores_plain
+
+    dev = torch.device("cuda")
+    rows_t = torch.from_numpy(rows).to(dev)
+    vals_t = torch.from_numpy(vals).to(dev)
+    w0_t = torch.tensor(float(w0), device=dev)
+    with torch.inference_mode():
+        if field_num:
+            s = fm.ffm_scores_from_rows(
+                w0_t, rows_t, vals_t, torch.from_numpy(fields).to(dev),
+                factor_num, field_num)
+        else:
+            s = w0_t + fm_scores_plain(rows_t, vals_t)[0]
+        return torch.sigmoid(s).cpu().numpy()
+
+
+def serve_table(np, torch, cfg, requests, plain_rows, label: str) -> dict:
+    """Serve ``cfg`` through ``serve()`` and post each request (``(text
+    body, ids, vals, fields)``) over ``/score`` and ``/score_bin``: the
+    transports must agree bitwise and the scores lie within KERNEL_TOL of
+    :func:`plain_served` on ``plain_rows(ids)``.  Then each rung's
+    dispatch p50 (50 dispatches straight through the scorer; the
+    overlay's mean host gather a dispatch beside it).  Returns the
+    record: the served scores, the FmScorer f32 launches of the
+    requests alone, ``/status``'s serve block, the device memory the
+    stack added (placement and warmup) and its peak during the requests
+    (:func:`requested_bytes`), the scorer's staging bytes and placement
+    seconds."""
+    from fast_tffm_tpu_torch.ops.fm_kernels import fm_scores_cuda
+    from fast_tffm_tpu_torch.serve import wire
+    from fast_tffm_tpu_torch.serve.scorer import OverlayScorer
+    from fast_tffm_tpu_torch.serve.server import serve
+
+    k, pn = cfg.factor_num, cfg.field_num
+    # The plain path once on this thread first: FFM's einsums allocate
+    # the thread's cuBLAS workspace (32 MiB) at first use, which the
+    # scorer's warmup would otherwise do inside the count.
+    _, ids, vals, fields = requests[0]
+    plain_served(torch, 0.0, plain_rows(ids[:1]), vals[:1],
+                 None if fields is None else fields[:1], k, pn)
+    # A closed stack's scorer can wait in a reference cycle for the
+    # collector: collect first, so it is not freed inside the count.
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = requested_bytes(torch)
+    t0 = time.perf_counter()
+    handle = serve(cfg, port=0)
+    up_s = time.perf_counter() - t0
+    added = requested_bytes(torch) - base
+    try:
+        scorer = handle.scorer
+        fm_scores_cuda.launches = 0
+        conn = http.client.HTTPConnection("127.0.0.1", handle.port,
+                                          timeout=120)
+        served = []
+        for body, ids, vals, fields in requests:
+            frame = wire.encode_bin_request(ids, vals, fields)
+            bin_scores = wire.decode_bin_response(
+                post(conn, "/score_bin", frame))
+            check(bin_scores.shape == (len(ids),), f"{label}: scores shape")
+            if body is not None:
+                text = post(conn, "/score", body.encode()).decode()
+                check(text == "".join(f"{x:.6f}\n" for x in bin_scores),
+                      f"{label}: /score and /score_bin disagree at "
+                      f"n={len(ids)}")
+            check(bool(np.isfinite(bin_scores).all()),
+                  f"{label}: non-finite score")
+            served.append(bin_scores)
+        launches = fm_scores_cuda.launches
+        status = get_json(conn, "/status")["serve"]
+        conn.close()
+        peak = requested_bytes(torch, "peak") - base
+        dispatch, gather = {}, {}
+        # The overlay's host gather a dispatch, from its own timer.
+        gather_t = (handle.telemetry.timer("serve.overlay_gather")
+                    if isinstance(scorer, OverlayScorer) else None)
+        ids_all, vals_all, fields_all = requests[-1][1:]
+        for b in scorer.ladder:
+            times = []
+            if gather_t is not None:
+                n0, s0 = gather_t.count, gather_t.total_s
+            for _ in range(50):
+                t0 = time.perf_counter()
+                scorer.score_rung(ids_all[:b], vals_all[:b],
+                                  None if fields_all is None
+                                  else fields_all[:b], b)
+                times.append(time.perf_counter() - t0)
+            dispatch[b] = p50(times) * 1e3
+            if gather_t is not None:
+                gather[b] = ((gather_t.total_s - s0)
+                             / (gather_t.count - n0) * 1e3)
+        record = {
+            "launches": launches, "status": status,
+            "dispatch_p50_ms": dispatch, "gather_ms": gather,
+            "serve_up_s": up_s,
+            "device_bytes_added": added, "peak_bytes_added": peak,
+            "staging_bytes": scorer.staging_bytes(),
+            "place_s": getattr(scorer, "place_wall_s", None),
+            "warmup_s": scorer.warmup_wall_s, "scores": served,
+            "telemetry": handle.telemetry,
+        }
+    finally:
+        handle.close()
+    worst = 0.0
+    for (_, ids, vals, fields), got in zip(requests, served):
+        want = plain_served(torch, plain_rows.w0, plain_rows(ids), vals,
+                            fields, k, pn)
+        np.testing.assert_allclose(got, want, **KERNEL_TOL)
+        worst = max(worst, float(np.abs(got - want).max()))
+    record["max_abs_err_vs_plain"] = worst
+    del handle, scorer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+class Rows:
+    """``rows(ids)``: the f32 rows ``[n, F, D]`` of ``ids [n, F]`` as
+    ``gather`` (flat int64 ids -> ``[m, D]``) gives them on the host;
+    ``w0`` the model's bias."""
+
+    def __init__(self, w0: float, gather):
+        self.w0, self._gather = w0, gather
+
+    def __call__(self, ids):
+        return self._gather(ids.reshape(-1).astype("int64")).reshape(
+            *ids.shape, -1)
+
+
+def check_table_record(np, name: str, rec: dict, fp32_scores, bound: float,
+                       table_bytes: int, err_range) -> dict:
+    """The checks a dense table's serve record must pass: scores within
+    ``bound`` of the fp32 server's, ``serve.table_bytes`` and the device
+    memory the placement added equal to ``table_bytes`` (beside the
+    rungs' staging and w0) and ``/status``'s probe error in
+    ``err_range`` (``(x, x)``: equal to x)."""
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(rec["scores"], fp32_scores))
+    check(diff <= bound, f"{name}: {diff} from the fp32 server's scores, "
+                         f"bound {bound}")
+    gauges = rec["telemetry"].snapshot()["gauges"]
+    check(gauges["serve.table_bytes"] == table_bytes,
+          f"{name}: serve.table_bytes {gauges['serve.table_bytes']} != "
+          f"{table_bytes}")
+    extra = rec["device_bytes_added"] - table_bytes - rec["staging_bytes"]
+    check(0 <= extra <= 64 << 10,
+          f"{name}: placement added {rec['device_bytes_added']} B for a "
+          f"{table_bytes} B table and {rec['staging_bytes']} B of staging")
+    err = rec["status"]["quant_error_max"]
+    lo, hi = err_range
+    check((err == lo) if lo == hi else (lo < err <= hi),
+          f"{name}: quant_error_max {err} outside {err_range}")
+    return {
+        "max_abs_diff_vs_fp32": diff, "bound": bound,
+        "table_bytes": gauges["serve.table_bytes"],
+        "table_mb_status": rec["status"]["table_mb"],
+        "quant_error_max": err,
+        "device_bytes_added": rec["device_bytes_added"],
+        "staging_bytes": rec["staging_bytes"],
+        "place_s": rec["place_s"], "warmup_s": rec["warmup_s"],
+        "serve_up_s": rec["serve_up_s"],
+        "dispatch_p50_ms": rec["dispatch_p50_ms"],
+        "fm_scores_launches": rec["launches"],
+        "max_abs_err_vs_plain": rec["max_abs_err_vs_plain"],
+    }
+
+
+def serve_requests(np, rng, cfg, field_num: int = 0) -> list:
+    """One text request of each of SERVE_SIZES: ``(body, ids, vals,
+    fields)`` as the server parses it."""
+    from fast_tffm_tpu_torch.serve.textparse import parse_request
+
+    out = []
+    for n_req in SERVE_SIZES:
+        body = criteo_body(rng, n_req, field_num)
+        ids, vals, fields, got_n, trunc = parse_request(body, cfg)
+        check(got_n == n_req and trunc == 0, f"parse of {n_req} lines")
+        out.append((body, ids, vals, fields if field_num else None))
+    return out
+
+
+def dense_tables(np, torch, cfg32, model_dir: str, tmp: str, requests,
+                 label: str, dtypes) -> tuple:
+    """Serve the fp32 ``params.npz`` under ``model_dir``, then each of
+    ``dtypes``: ``("bf16" | "int8", "quant.npz" | "placed")``, a
+    ``quant.npz`` the port's convert tool writes (timed) or the fp32
+    checkpoint quantized at placement, on the same requests.  Returns
+    ``(record, FmScorer f32 launches of the requests)``."""
+    from fast_tffm_tpu_torch.ops import quant
+    from fast_tffm_tpu_torch.tools import convert_checkpoint
+    from fast_tffm_tpu_torch.train import checkpoint
+
+    V, D = cfg32.vocabulary_size, cfg32.embedding_dim
+    _, model = checkpoint.restore_params(model_dir, device="cpu")
+    w0 = float(model.w0.detach())
+    table = model.table.detach().numpy()
+    del model
+    rec = serve_table(np, torch, cfg32, requests,
+                      Rows(w0, lambda ids: table[ids]), f"{label} fp32")
+    fp32_scores = rec["scores"]
+    record = {"fp32": check_table_record(np, f"{label} fp32", rec,
+                                         fp32_scores, 0.0, V * D * 4,
+                                         (0.0, 0.0))}
+    launches = rec["launches"]
+    convert_s = {}
+    for dtype, source in dtypes:
+        name = f"{dtype}_{source.split('.')[0]}"
+        cfg = dataclasses.replace(cfg32, serve_table_dtype=dtype,
+                                  quant_chunk=QUANT_CHUNK)
+        if source == "quant.npz":
+            out = os.path.join(tmp, f"{label}_{dtype}")
+            t0 = time.perf_counter()
+            check(convert_checkpoint.main([
+                model_dir, "--to", dtype, "--out", out,
+                "--chunk", str(QUANT_CHUNK)]) == 0, f"convert to {dtype}")
+            convert_s[dtype] = time.perf_counter() - t0
+            cfg = dataclasses.replace(cfg, model_file=out)
+            _, qw0, qt = checkpoint.restore_quant(out)
+            err_range = (-1.0, -1.0)
+        else:
+            qw0, qt = w0, quant.quantize_table(table, dtype, QUANT_CHUNK)
+            err_range = (0.0, SERVE_BOUND[dtype])
+        rec = serve_table(
+            np, torch, cfg, requests,
+            Rows(qw0, lambda ids, qt=qt: quant.dequantize_rows(qt, ids)),
+            f"{label} {name}")
+        record[name] = check_table_record(
+            np, f"{label} {name}", rec, fp32_scores, SERVE_BOUND[dtype],
+            qt.nbytes, err_range)
+        launches += rec["launches"]
+    record["convert_s"] = convert_s
+    del table
+    return record, launches
+
+
+def quant_phase(np, torch, card: str, rng, model_dir: str,
+                tmp: str) -> tuple:
+    """Phase 8b, path 6: the main run's checkpoint (Criteo-Kaggle, V =
+    2^22, D = 9) served in fp32, as the bf16 and the int8 (chunk 64)
+    ``quant.npz`` the port's convert tool writes, and quantized to int8
+    at placement.  Returns ``(record, FmScorer f32 launches)``."""
+    from fast_tffm_tpu_torch.config import load_config
+
+    cfg32 = load_config(CFG_PATH, {"serve_poll_secs": 0.0, "serve_port": 0,
+                                   "model_file": model_dir})
+    requests = serve_requests(np, rng, cfg32)
+    record, launches = dense_tables(
+        np, torch, cfg32, model_dir, tmp, requests, "quant",
+        (("bf16", "quant.npz"), ("int8", "quant.npz"), ("int8", "placed")))
+    for name in ("fp32", "bf16_quant", "int8_quant", "int8_placed"):
+        check(record[name]["fm_scores_launches"] > 0,
+              f"quant {name}: the FmScorer never launched")
+    record["card"] = card
+    record["fm_scores_launches"] = launches
+    return record, launches
+
+
+def overlay_phase(np, torch, card: str, rng) -> tuple:
+    """Phase 12, path 7: a ``tiered.npz`` at ``examples/
+    criteo_1tb_dist.cfg``'s V = 2^26, D = 9 (its mesh, lookup and batch
+    overridden for one device), written by ``save_tiered`` from a
+    virtual ``ColdStore`` holding OVERLAY_ROWS seeded rows, in cold
+    dtype fp32 and int8, served through ``serve()``.  Returns
+    ``(record, FmScorer f32 launches)``."""
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.train import checkpoint, tiered
+
+    tmp_ctx = tempfile.TemporaryDirectory(prefix="chip_smoke_overlay_")
+    overrides = {"mesh_data": 1, "mesh_model": 1, "lookup": "auto",
+                 "batch_size": 4096, "serve_poll_secs": 0.0,
+                 "serve_port": 0, "table_tiering": "on"}
+    record = {"card": card, "config": "examples/criteo_1tb_dist.cfg",
+              "overrides": dict(overrides), "written_rows": OVERLAY_ROWS}
+    launches = 0
+    for cold in ("fp32", "int8"):
+        cfg = load_config(DIST_CFG_PATH, {
+            **overrides, "cold_dtype": cold,
+            "model_file": os.path.join(tmp_ctx.name, f"tiered_{cold}")})
+        V, F, D = cfg.vocabulary_size, cfg.max_features, cfg.embedding_dim
+        check((V, F, D) == (1 << 26, 39, 9),
+              f"unexpected Criteo-1TB shape {V, F, D}")
+        gen = np.random.default_rng(SEED)  # the same rows in each dtype
+        written = gen.choice(V, OVERLAY_ROWS, replace=False)
+        rows = gen.uniform(-0.05, 0.05, (OVERLAY_ROWS, D)).astype(
+            np.float32)
+        w0 = -0.05
+        store = tiered._virtual_store(cfg, "table")
+        t0 = time.perf_counter()
+        store.scatter(written, rows)
+        scatter_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path = checkpoint.save_tiered(
+            cfg.model_file, 1, {"w0": np.float32(w0)},
+            {"table": {**store.export(), "descriptor": store.descriptor}})
+        save_s = time.perf_counter() - t0
+        del rows
+        # Text requests (hashed tokens: almost all never written) and
+        # binary ones half of written ids, the last at the largest size.
+        requests = serve_requests(np, rng, cfg)
+        for n_req in (64, 256, 1024, 1500):
+            hit = rng.random((n_req, F)) < 0.5
+            ids = np.where(hit, written[rng.integers(0, OVERLAY_ROWS,
+                                                     (n_req, F))],
+                           rng.integers(0, V, (n_req, F))).astype(np.int32)
+            vals = rng.uniform(0.1, 1.5, (n_req, F)).astype(np.float32)
+            requests.append((None, ids, vals, None))
+        rec = serve_table(np, torch, cfg, requests, Rows(w0, store.gather),
+                          f"overlay {cold}")
+        check(rec["launches"] > 0,
+              f"overlay {cold}: the FmScorer never launched")
+        check("table_mb" not in rec["status"]
+              and "quant_error_max" not in rec["status"],
+              f"overlay {cold}: a table gauge on /status")
+        largest = tiered._bucket(max(cfg.serve_ladder) * F) * D * 4
+        check(rec["peak_bytes_added"] <= rec["staging_bytes"] + largest,
+              f"overlay {cold}: peak {rec['peak_bytes_added']} B past the "
+              f"staging {rec['staging_bytes']} B and a bucket of "
+              f"{largest} B")
+        check(rec["peak_bytes_added"] < V * D * 4 // 64,
+              f"overlay {cold}: a table-sized allocation")
+        record[cold] = {
+            "scatter_s": scatter_s, "save_s": save_s,
+            "file_bytes": os.path.getsize(path),
+            "host_store_bytes": store.nbytes,
+            "dispatch_p50_ms": rec["dispatch_p50_ms"],
+            "gather_ms_per_dispatch": rec["gather_ms"],
+            "overlay_gather_p50_ms": rec["status"].get(
+                "overlay_gather_p50_ms"),
+            "peak_bytes_added": rec["peak_bytes_added"],
+            "staging_bytes": rec["staging_bytes"],
+            "largest_bucket_bytes": largest,
+            "serve_up_s": rec["serve_up_s"], "warmup_s": rec["warmup_s"],
+            "fm_scores_launches": rec["launches"],
+            "max_abs_err_vs_plain": rec["max_abs_err_vs_plain"],
+        }
+        launches += rec["launches"]
+        del store, written, requests
+    tmp_ctx.cleanup()
+    record["fm_scores_launches"] = launches
+    return record, launches
 
 
 # -- sharded phase (main path 3) -----------------------------------------
@@ -1117,7 +1524,8 @@ def ffm_phase(np, torch, card: str, gen, rng, kernels: dict, counters: dict,
     its eager twin and a graphed and an eager run at K = 4, all bitwise
     the main run's; 3 steps through the kernels against 3 through the
     plain path; 8 bf16 steps beside 8 f32 steps.  (4) Serving the
-    checkpoint over both transports.  (5) The step on a device batch,
+    checkpoint over both transports; (4b) in fp32 and at int8 (path 6's
+    ``dense_tables``).  (5) The step on a device batch,
     graphed and eager, its device time by op.  (6) ``python -m
     fast_tffm_tpu_torch.cli train|predict|serve`` on
     ``examples/ffm_sample.cfg``.  Returns ``(record, launches of the
@@ -1457,6 +1865,13 @@ def ffm_phase(np, torch, card: str, gen, rng, kernels: dict, counters: dict,
     print("ffm serve: transports agree bitwise, scores match the plain "
           "path; " + json.dumps(record["serve"]), flush=True)
     del ref, handle, scorer
+
+    # -- (4b) the checkpoint at serve_table_dtype = int8 (path 6) --------
+    torch.cuda.empty_cache()
+    record["serve_int8"], _ = dense_tables(
+        np, torch, scfg, model_dir, tmp, serve_requests(np, rng, scfg, P),
+        "ffm", (("int8", "placed"),))
+    print("ffm int8: " + json.dumps(record["serve_int8"]), flush=True)
 
     # -- (5) the step on a device batch, graphed and eager ---------------
     step = {}
@@ -2857,9 +3272,19 @@ def main() -> int:
           "ids reduce", flush=True)
     phase_end("serve")
 
-    # -- sharded phase (main path 3) -----------------------------------
+    # -- quant phase (path 6): the checkpoint's quantized tables -------
     del ref, scorer, handle
     torch.cuda.empty_cache()
+    quant_rec, quant_launches = quant_phase(np, torch, card, rng, model_dir,
+                                            tmp)
+    print(json.dumps({"quant": quant_rec}), flush=True)
+    print("quant check: bf16 and int8 quant.npz and int8 placement serve "
+          "within their bounds of fp32; transports bitwise; scores match "
+          "the plain path on the dequantized rows; table bytes, placed "
+          "bytes and quant_error_max as expected", flush=True)
+    phase_end("quant")
+
+    # -- sharded phase (main path 3) -----------------------------------
     sharded, sharded_launches = sharded_phase(
         np, torch, tmp, card, train_files[0], valid_file, one_card=True)
     print(json.dumps(sharded), flush=True)
@@ -2890,14 +3315,24 @@ def main() -> int:
           flush=True)
     phase_end("ffm")
 
-    # Launches on the main paths: train (path 1), serve (path 2, the
-    # only fm_scores count), the sharded runs' ranks (path 3), the
+    # -- overlay phase (path 7): a tiered.npz at Criteo-1TB's V ---------
+    overlay, overlay_launches = overlay_phase(np, torch, card, rng)
+    print(json.dumps({"overlay": overlay}), flush=True)
+    print("overlay check: fp32 and int8 overlays serve; transports bitwise; "
+          "scores match the plain path on the store's rows; no [V, D] "
+          "allocation", flush=True)
+    phase_end("overlay")
+
+    # Launches on the main paths: train (path 1), serve (paths 2, 6 and
+    # 7, the only fm_scores count), the sharded runs' ranks (path 3), the
     # probe (path 4, the only K2T and K2P counts), and the bf16 train
     # run (path 1 with compute_dtype = bfloat16, the only count of the
     # bf16 modes).
     launches = {name: train_launches[name] + sharded_launches[name]
                 for name in kernels}
-    launches["fm_scores"] = serve_launches
+    # FmScorer f32: the serve path, the quantized tables (path 6) and
+    # the overlay (path 7).
+    launches["fm_scores"] = serve_launches + quant_launches + overlay_launches
     for name in ("fm_scores_bf16", "fm_grad_bf16"):
         launches[name] = bf16_launches[name]  # path 1 in bf16
     for name in ("k2t_apply", "k2p_apply"):

@@ -5,7 +5,11 @@ the PyTorch port's entry point, taking the same INI files as
 ``train`` runs the sparse trainer (``train/loop.py``) and prints its
 train and validation metrics; ``predict`` writes one score per line of
 ``predict_files`` to ``score_path``; ``serve`` starts the scoring
-endpoint.  Runs on the GPU unless ``--device cpu`` is given.
+endpoint.  ``predict`` and ``serve`` read ``params.npz``, ``quant.npz``
+(``--serve_table_dtype bf16|int8``) or a ``tiered.npz`` overlay; the
+checkpoints convert with ``python -m
+fast_tffm_tpu_torch.tools.convert_checkpoint``.  Runs on the GPU unless
+``--device cpu`` is given.
 
 Multi-rank training: every rank runs the same ``train`` command with
 ``--coordinator host:port --num_processes N --process_id R`` (or the
@@ -58,6 +62,33 @@ def build_argparser() -> argparse.ArgumentParser:
         "--serve_poll_secs", type=float, default=None,
         help="checkpoint hot-swap poll period; the port serves the "
              "startup checkpoint only, so this must be 0",
+    )
+    # Table formats (override the cfg file; see ops/quant.py).
+    p.add_argument(
+        "--serve_table_dtype", choices=["fp32", "bf16", "int8"],
+        default=None,
+        help="device-resident serving-table dtype (serve and predict): "
+             "bf16 halves and int8 (with per-chunk fp32 scales) quarters "
+             "the table's bytes; an fp32 checkpoint is quantized at "
+             "placement, a quant.npz must already be in this dtype",
+    )
+    p.add_argument(
+        "--quant_chunk", type=int, default=None,
+        help="int8 scale granularity for dense quantized tables: this "
+             "many consecutive rows share one fp32 scale (0 = one "
+             "scale per row)",
+    )
+    p.add_argument(
+        "--table_tiering", choices=["off", "on"], default=None,
+        help="the two-tier table: serve and predict read its tiered.npz "
+             "overlay whatever this says; on is needed only for "
+             "--cold_dtype, and the trainer refuses it (not ported yet)",
+    )
+    p.add_argument(
+        "--cold_dtype", choices=["fp32", "bf16", "int8"], default=None,
+        help="storage dtype of the tiered cold store's rows (requires "
+             "--table_tiering on): must be the dtype the tiered.npz "
+             "overlay was written in",
     )
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="rendezvous address of a multi-rank run (rank 0's "
@@ -112,7 +143,8 @@ def main(argv=None) -> int:
     overrides = {
         key: getattr(args, key)
         for key in ("serve_port", "serve_batch_sizes", "max_batch_wait_ms",
-                    "serve_poll_secs")
+                    "serve_poll_secs", "serve_table_dtype", "quant_chunk",
+                    "table_tiering", "cold_dtype")
         if getattr(args, key) is not None
     }
     cfg = load_config(args.cfg, overrides or None)

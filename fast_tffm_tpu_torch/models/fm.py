@@ -22,12 +22,12 @@ import torch
 from torch import nn
 
 from fast_tffm_tpu_torch.config import FmConfig
-from fast_tffm_tpu_torch.ops import interaction
+from fast_tffm_tpu_torch.ops import interaction, quant
 from fast_tffm_tpu_torch.platform import resolve_device
 
 __all__ = [
     "FmModel", "example_losses", "ffm_scores_from_rows", "fm_scores",
-    "init_params",
+    "fm_scores_dequant", "init_params",
     "interaction_terms", "l2_penalty_batch", "scores_from_rows",
     "scores_from_terms",
 ]
@@ -128,6 +128,28 @@ def fm_scores(model: FmModel, ids: torch.Tensor, vals: torch.Tensor,
     rows = model.table.index_select(0, ids.reshape(-1))
     return scores_from_rows(model.w0, rows.view(*ids.shape, d), vals,
                             fields, factor_num=factor_num,
+                            field_num=field_num)
+
+
+def fm_scores_dequant(w0: torch.Tensor, codes: torch.Tensor,
+                      scales: torch.Tensor, chunk: int, ids: torch.Tensor,
+                      vals: torch.Tensor,
+                      fields: Optional[torch.Tensor] = None, *,
+                      factor_num: int = 0,
+                      field_num: int = 0) -> torch.Tensor:
+    """Scores over an int8-quantized table (``codes`` int8 ``[V, D]``,
+    ``scales`` f32 ``[ceil(V / chunk)]``): gather the codes and each
+    row's scale (``scales[ids // chunk]``, or ``scales[ids]`` for
+    ``chunk <= 1``), widen them (``quant.dequant_gathered``), then
+    :func:`scores_from_rows` (the FmScorer kernel on the GPU, or FFM's
+    einsums).  The same math as :func:`fm_scores` on the dequantized
+    table."""
+    flat = ids.reshape(-1)
+    code_rows = codes.index_select(0, flat)
+    scale_rows = scales.index_select(0, flat // chunk if chunk > 1 else flat)
+    rows = quant.dequant_gathered(code_rows, scale_rows)
+    return scores_from_rows(w0, rows.view(*ids.shape, codes.shape[1]),
+                            vals, fields, factor_num=factor_num,
                             field_num=field_num)
 
 

@@ -68,10 +68,6 @@ def _check_supported(cfg: FmConfig) -> None:
     """Refuse settings that would change the result or need a later
     slice of the port, naming the ROADMAP.md port-queue item."""
     unported = []
-    if cfg.serve_table_dtype != "fp32":
-        unported.append(
-            (f"serve_table_dtype={cfg.serve_table_dtype}", 2)
-        )
     if cfg.serve_replicas >= 2:
         unported.append(("serve_replicas >= 2 (router and fleet)", 4))
     if cfg.serve_poll_secs > 0:
@@ -277,14 +273,22 @@ def _serve_block(snap: dict, scorer, batcher, wall: float) -> dict:
         "warmup_wall_s": round(scorer.warmup_wall_s, 4),
         "kernel_launches": int(fm_kernels.fm_scores_cuda.launches),
     }
+    # Emitted only when the scorer owns the gauges (FixedShapeScorer):
+    # the placed table's bytes and the probe's max |score_fp32 -
+    # score_quant| (0: fp32, -1: unknown).  The OverlayScorer registers
+    # neither.
     if "serve.table_bytes" in gauges:
         out["table_mb"] = round(gauges["serve.table_bytes"] / (1 << 20), 3)
+    if "serve.quant_error_max" in gauges:
+        out["quant_error_max"] = round(
+            float(gauges["serve.quant_error_max"]), 6)
     for key in ("mean_ms", "p50_ms", "p95_ms", "p99_ms", "max_ms"):
         if key in lat:
             out[key] = lat[key]
     for name, key in (("serve.parse", "parse_p50_ms"),
                       ("serve.parse_bin", "parse_bin_p50_ms"),
-                      ("serve.dispatch", "dispatch_p50_ms")):
+                      ("serve.dispatch", "dispatch_p50_ms"),
+                      ("serve.overlay_gather", "overlay_gather_p50_ms")):
         snap_t = timers.get(name) or {}
         if "p50_ms" in snap_t:
             out[key] = snap_t["p50_ms"]

@@ -1,7 +1,8 @@
-"""Plain-numpy dense checkpoint: ``<model_file>/params.npz``.
+"""Plain-numpy checkpoints under ``<model_file>``: ``params.npz``,
+``quant.npz`` and ``tiered.npz``.
 
-The one checkpoint format the port reads and writes.  Its keys follow
-the conventions of the reference's ``quant.npz``
+``params.npz`` is the port's dense checkpoint.  Its keys follow the
+conventions of the reference's ``quant.npz``
 (``fast_tffm_tpu/train/checkpoint.py::save_quant``):
 
     scalar/step   int64   training step the parameters belong to
@@ -25,20 +26,43 @@ A multi-rank trainer writes the same file (:func:`save_sharded`: rank
 its own rows of it (``rows=``), so a checkpoint moves freely between
 one rank and many, and ``predict`` and ``serve`` read it unchanged.
 
-The reference's Orbax dense checkpoints, ``quant.npz`` and
-``tiered.npz`` are not read here yet (ROADMAP.md, port queue item 2).
+The two numpy formats of the reference, read and written with the
+reference's keys, so either package reads what the other wrote:
+
+- ``quant.npz``, the quantized dense serving table (bf16, or int8 with
+  per-chunk scales; ``ops/quant.py``): ``scalar/step``, ``scalar/w0``,
+  ``quant/codes`` (int8, or the bf16 bits as uint16), ``quant/scales``
+  (int8 only) and ``quant/descriptor`` (sorted-key JSON: dtype, vocab,
+  dim, chunk);
+- ``tiered.npz`` (or a complete ``tiered.shard{s}of{S}.npz`` set), the
+  sparse overlay of a tiered table too large for the dense format
+  (``train/tiered.py``): ``scalar/step``, ``scalar/<name>``,
+  ``meta/stores`` and per store ``<store>/ids``, ``<store>/rows`` (packed
+  by the cold dtype) and ``<store>/descriptor`` (JSON).
+
+The three formats are mutually exclusive: each save removes the other
+two, so a stale file never shadows a newer one (the readers check
+``tiered.npz``, then ``quant.npz``, then ``params.npz``).  The
+reference's saves also publish a hot-swap manifest; that belongs to the
+checkpoint watcher (ROADMAP.md, port queue item 4) and is not written
+here.  Still missing (port queue item 2): the reader of the
+reference's Orbax dense checkpoint, and the tiered trainer, whose saves
+(with their ``data_state.json``) go through :func:`save_tiered`.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
+import re
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.models.fm import FmModel
+from fast_tffm_tpu_torch.ops import quant
 from fast_tffm_tpu_torch.parallel.mesh import (
     MODEL_AXIS, Mesh, barrier, gather,
 )
@@ -46,9 +70,11 @@ from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.train.sparse import SparseAdagradState, SparseFtrlState
 from fast_tffm_tpu_torch.weights import from_jax, to_numpy
 
-__all__ = ["data_state_path", "exists", "params_path", "restore_data_state",
-           "restore_opt_state", "restore_params", "save_params",
-           "save_sharded"]
+__all__ = ["clear_quant", "clear_tiered", "data_state_path", "exists",
+           "exists_quant", "exists_tiered", "params_path", "quant_path",
+           "restore_data_state", "restore_opt_state", "restore_params",
+           "restore_quant", "restore_tiered", "save_params", "save_quant",
+           "save_sharded", "save_tiered", "tiered_path"]
 
 # optimizer -> (state type, its checkpoint keys in field order)
 _OPT_KEYS = {
@@ -82,8 +108,9 @@ def exists(model_file: str) -> bool:
 def save_params(model_file: str, model: FmModel, step: int = 0,
                 opt_state=None, data_state: Optional[dict] = None) -> str:
     """Write ``params.npz`` atomically (temp file + rename), with the
-    sparse optimizer state when given, then ``data_state.json`` when
-    given; returns the params' path."""
+    sparse optimizer state when given, removes a stale ``quant.npz`` and
+    ``tiered.npz``, then writes ``data_state.json`` when given; returns
+    the params' path."""
     path = params_path(model_file)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     w0, table = to_numpy(model)
@@ -97,16 +124,32 @@ def save_params(model_file: str, model: FmModel, step: int = 0,
             for key, t in zip(keys, opt_state):
                 arrays[key] = np.asarray(t.detach().cpu().numpy(),
                                          np.float32)
-    tmp = path + ".tmp.npz"
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-    os.replace(tmp, path)
+    _write_npz(path, arrays)
+    # params.npz is the checkpoint now: a stale overlay or quantized
+    # table must not shadow it (the readers check those first).
+    clear_tiered(model_file)
+    clear_quant(model_file)
     if data_state is not None:
         tmp = data_state_path(model_file) + ".tmp"
         with open(tmp, "w") as f:
             json.dump(data_state, f)
         os.replace(tmp, data_state_path(model_file))
     return path
+
+
+def _write_npz(path: str, arrays: dict) -> None:
+    """``np.savez`` to a temp file, then rename over ``path``."""
+    tmp = path + ".tmp.npz"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def _clear_params(model_file: str) -> None:
+    try:
+        os.remove(params_path(model_file))
+    except FileNotFoundError:
+        pass
 
 
 def save_sharded(model_file: str, model_l: FmModel, mesh: Mesh,
@@ -179,3 +222,209 @@ def restore_opt_state(
         arrays = [a[rows] if a.ndim == 2 else a for a in arrays]
     return kind(*(torch.from_numpy(np.array(a, np.float32)).to(dev)
                   for a in arrays))
+
+
+# ----------------------------------------------------------------------
+# Dense QUANTIZED checkpoint (quant.npz): bf16 / int8-with-scales table
+# ----------------------------------------------------------------------
+
+
+def quant_path(model_file: str) -> str:
+    return os.path.join(os.path.abspath(model_file), "quant.npz")
+
+
+def exists_quant(model_file: str) -> bool:
+    return os.path.isfile(quant_path(model_file))
+
+
+def save_quant(model_file: str, step: int, w0,
+               qt: "quant.QuantTable") -> str:
+    """Write ``quant.npz`` (the compact serving format the convert tool
+    writes and the serving ladder places as its device table) and remove
+    ``params.npz`` and any tiered overlay.  Returns its path."""
+    path = quant_path(model_file)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    payload = {
+        "scalar/step": np.int64(step),
+        "scalar/w0": np.asarray(w0, np.float32),
+        "quant/descriptor": np.array(
+            json.dumps(qt.descriptor(), sort_keys=True)
+        ),
+    }
+    for name, arr in quant.table_to_arrays(qt).items():
+        payload[f"quant/{name}"] = arr
+    _write_npz(path, payload)
+    _clear_params(model_file)
+    clear_tiered(model_file)
+    return path
+
+
+def restore_quant(model_file: str) -> Optional[tuple]:
+    """``(step, w0, QuantTable)`` from ``quant.npz``, or None."""
+    path = quant_path(model_file)
+    if not os.path.isfile(path):
+        return None
+    with np.load(path, allow_pickle=False) as z:
+        step = int(z["scalar/step"])
+        w0 = float(z["scalar/w0"])
+        descriptor = json.loads(str(z["quant/descriptor"]))
+        arrays = {
+            k.split("/", 1)[1]: z[k]
+            for k in z.files
+            if k.startswith("quant/") and k != "quant/descriptor"
+        }
+    return step, w0, quant.table_from_arrays(descriptor, arrays)
+
+
+def clear_quant(model_file: str) -> None:
+    """Remove a stale ``quant.npz`` after a dense or tiered save."""
+    try:
+        os.remove(quant_path(model_file))
+    except FileNotFoundError:
+        pass
+
+
+# ----------------------------------------------------------------------
+# Sparse-overlay checkpoint (tiered.npz, or a rank-sharded set)
+# ----------------------------------------------------------------------
+
+
+def tiered_path(model_file: str) -> str:
+    return os.path.join(os.path.abspath(model_file), "tiered.npz")
+
+
+def _tiered_shard_files(model_file: str) -> list:
+    """[(index, count, path)] of every per-shard overlay file present."""
+    out = []
+    pat = re.compile(r"tiered\.shard(\d+)of(\d+)\.npz$")
+    for p in sorted(glob.glob(
+        os.path.join(os.path.abspath(model_file), "tiered.shard*.npz")
+    )):
+        m = pat.search(p)
+        if m:
+            out.append((int(m.group(1)), int(m.group(2)), p))
+    return out
+
+
+def exists_tiered(model_file: str) -> bool:
+    return os.path.isfile(tiered_path(model_file)) or bool(
+        _tiered_shard_files(model_file)
+    )
+
+
+def save_tiered(model_file: str, step: int, scalars: dict,
+                stores: dict) -> str:
+    """Write ``tiered.npz``: ``scalars`` (``w0`` and the optimizer's w0
+    slots) as ``scalar/<name>``, and for each store of ``stores`` (name
+    -> ``{"ids", "rows", "descriptor"}``, a ``ColdStore.export()`` plus
+    its descriptor) the ids and packed rows of every written row and
+    the init descriptor that regenerates the rest.  Removes
+    ``params.npz`` and ``quant.npz``.  Returns the file's path."""
+    path = tiered_path(model_file)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    payload: dict = {
+        "scalar/step": np.int64(step),
+        "meta/stores": np.array(json.dumps(sorted(stores))),
+    }
+    for name, val in scalars.items():
+        payload[f"scalar/{name}"] = np.asarray(val)
+    for name, store in stores.items():
+        payload[f"{name}/ids"] = store["ids"]
+        payload[f"{name}/rows"] = store["rows"]
+        payload[f"{name}/descriptor"] = np.array(
+            json.dumps(store.get("descriptor", {}), sort_keys=True)
+        )
+    _write_npz(path, payload)
+    _clear_params(model_file)
+    clear_quant(model_file)
+    return path
+
+
+def _read_tiered_file(path: str) -> tuple:
+    with np.load(path, allow_pickle=False) as z:
+        names = json.loads(str(z["meta/stores"]))
+        step = int(z["scalar/step"])
+        scalars = {
+            k.split("/", 1)[1]: z[k]
+            for k in z.files
+            if k.startswith("scalar/") and k != "scalar/step"
+        }
+        stores = {}
+        for name in names:
+            stores[name] = {
+                "ids": z[f"{name}/ids"],
+                "rows": z[f"{name}/rows"],
+                "descriptor": json.loads(str(z[f"{name}/descriptor"])),
+            }
+    return step, scalars, stores
+
+
+def restore_tiered(model_file: str) -> Optional[tuple]:
+    """``(step, scalars, stores)`` from ``tiered.npz`` or a complete
+    shard set (its per-store payloads concatenated into one global-id
+    overlay), or None.  A shard set that mixes shard counts, misses a
+    shard, or disagrees on the step or a descriptor raises ValueError."""
+    path = tiered_path(model_file)
+    if os.path.isfile(path):
+        return _read_tiered_file(path)
+    shard_files = _tiered_shard_files(model_file)
+    if not shard_files:
+        return None
+    counts = {c for _, c, _ in shard_files}
+    if len(counts) != 1:
+        raise ValueError(
+            f"tiered shard checkpoint in {model_file} mixes shard counts "
+            f"{sorted(counts)}; remove the stale set"
+        )
+    count = counts.pop()
+    have = {s for s, _, _ in shard_files}
+    missing = sorted(set(range(count)) - have)
+    if missing:
+        raise ValueError(
+            f"tiered shard checkpoint in {model_file} is missing shards "
+            f"{missing} of {count}; refusing a partial-table restore"
+        )
+    step = scalars = None
+    merged: dict = {}
+    for s, _, p in sorted(shard_files):
+        f_step, f_scalars, f_stores = _read_tiered_file(p)
+        if step is None:
+            step, scalars = f_step, f_scalars
+        elif f_step != step:
+            raise ValueError(
+                f"tiered shard files in {model_file} disagree on step "
+                f"({f_step} != {step}); the save was torn"
+            )
+        for name, payload in f_stores.items():
+            acc = merged.setdefault(
+                name, {"ids": [], "rows": [],
+                       "descriptor": payload["descriptor"]}
+            )
+            if payload["descriptor"] != acc["descriptor"]:
+                raise ValueError(
+                    f"tiered shard files disagree on store {name!r} "
+                    "descriptor; the save mixed configs"
+                )
+            acc["ids"].append(payload["ids"])
+            acc["rows"].append(payload["rows"])
+    stores = {
+        name: {
+            "ids": np.concatenate(acc["ids"]),
+            "rows": np.concatenate(acc["rows"]),
+            "descriptor": acc["descriptor"],
+        }
+        for name, acc in merged.items()
+    }
+    return step, scalars, stores
+
+
+def clear_tiered(model_file: str) -> None:
+    """Remove a stale overlay (single file and shard set) after a dense
+    or quantized save."""
+    paths = [tiered_path(model_file)] + [
+        p for _, _, p in _tiered_shard_files(model_file)]
+    for p in paths:
+        try:
+            os.remove(p)
+        except FileNotFoundError:
+            pass

@@ -51,9 +51,11 @@ reports the global ones, and rank 0 writes the one ``params.npz``.
 :meth:`Trainer.train_step` (one host batch, copied with
 ``train.sparse.to_device``) and :meth:`Trainer.evaluate` keep the plain
 route to the device.  :func:`predict` scores ``predict_files`` through
-the serving path's :class:`~fast_tffm_tpu_torch.serve.scorer.
-FixedShapeScorer`, with ``batch_size`` added as a rung, and writes one
-score per line in input order.
+the serving path's scorer for whatever the checkpoint holds
+(``serve.scorer.make_scorer``: ``params.npz`` or ``quant.npz`` at
+``serve_table_dtype``, or a ``tiered.npz`` overlay), with ``batch_size``
+added as a rung, and writes one score per line in input order.  A
+trainer refuses to warm-start over a ``quant.npz`` or ``tiered.npz``.
 
 Settings that would change the result and need a later slice raise
 NotImplementedError naming the ROADMAP.md port-queue item; settings that
@@ -309,6 +311,27 @@ class Trainer:
         cfg = self.cfg
         row_lo, vocab_local = self.mesh.row_range(cfg.vocabulary_size)
         rows = slice(row_lo, row_lo + vocab_local) if self.sharded else None
+        if checkpoint.exists_tiered(cfg.model_file):
+            # Refuse rather than cold-start over (or prefer a stale dense
+            # file beside) an overlay holding a table too large for the
+            # dense format.
+            raise ValueError(
+                f"{cfg.model_file} holds a tiered overlay checkpoint "
+                "(written by table_tiering=on at a vocabulary too large "
+                "for the dense format); resume it with table_tiering=on "
+                "(ROADMAP.md port queue item 2), or point model_file "
+                "somewhere fresh to train dense"
+            )
+        if checkpoint.exists_quant(cfg.model_file):
+            # Training wants full-precision params, and the quantized
+            # table carries no optimizer state.
+            raise ValueError(
+                f"{cfg.model_file} holds a quantized serving checkpoint "
+                "(quant.npz); training cannot warm-start from it — "
+                "convert it back to the dense format first "
+                "(python -m fast_tffm_tpu_torch.tools.convert_checkpoint "
+                "<dir> --to fp32), or point model_file somewhere fresh"
+            )
         if checkpoint.exists(cfg.model_file):
             log.info("warm-starting from %s", cfg.model_file)
             step, model = checkpoint.restore_params(
@@ -593,7 +616,10 @@ def predict(cfg: FmConfig,
             device: Optional[Union[str, torch.device]] = None) -> int:
     """Score ``predict_files`` into ``score_path``, one score per line in
     input order: sigmoid probabilities for logistic loss, raw scores for
-    mse.  Returns the number of scores written."""
+    mse.  Scores through ``serve.scorer.make_scorer``, so every format
+    the server takes is predicted the same way: ``params.npz`` (at any
+    ``serve_table_dtype``), ``quant.npz`` and ``tiered.npz``.  Returns
+    the number of scores written."""
     if not cfg.predict_files:
         raise ValueError("no predict_files configured")
     from fast_tffm_tpu_torch.serve import scorer as serve_scorer

@@ -4,7 +4,8 @@
 ``w0`` and ``table`` and builds an :class:`FmModel`; ``to_numpy`` is
 the reverse.  ``opt_state_from_jax`` carries the JAX sparse optimizer
 state (``SparseAdagradState`` / ``SparseFtrlState``, or their leaves
-as numpy arrays) into the port's.  ``shard_rows`` cuts a table (numpy
+as numpy arrays) into the port's.  ``quant_from_jax`` carries a JAX
+``QuantTable`` over through its npz arrays.  ``shard_rows`` cuts a table (numpy
 or torch) to one rank's model shard and ``unshard_rows`` joins the
 shards again.  Neither package imports the other: the arrays are the
 whole interface.
@@ -18,11 +19,12 @@ import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.models.fm import FmModel
+from fast_tffm_tpu_torch.ops import quant
 from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.train.sparse import SparseAdagradState, SparseFtrlState
 
-__all__ = ["from_jax", "opt_state_from_jax", "shard_rows", "to_numpy",
-           "unshard_rows"]
+__all__ = ["from_jax", "opt_state_from_jax", "quant_from_jax", "shard_rows",
+           "to_numpy", "unshard_rows"]
 
 
 def from_jax(w0, table,
@@ -69,6 +71,19 @@ def opt_state_from_jax(optimizer: str, state,
     if optimizer == "sgd":
         return ()
     raise ValueError(f"no sparse optimizer state for {optimizer!r}")
+
+
+def quant_from_jax(qt) -> quant.QuantTable:
+    """The port's :class:`~fast_tffm_tpu_torch.ops.quant.QuantTable` from
+    the JAX package's (``dtype``, ``chunk``, ``codes``, ``scales`` and
+    ``descriptor()``), through the arrays its ``table_to_arrays`` writes
+    to ``quant.npz``: bf16 codes travel as their uint16 bits."""
+    codes = np.asarray(qt.codes)
+    arrays = {"codes": codes.view(np.uint16) if qt.dtype == "bf16"
+              else codes}
+    if qt.scales is not None:
+        arrays["scales"] = np.asarray(qt.scales, np.float32)
+    return quant.table_from_arrays(qt.descriptor(), arrays)
 
 
 def shard_rows(table, mesh, rank: int):

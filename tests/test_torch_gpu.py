@@ -1,9 +1,10 @@
 """The port on the GPU: the CUDA kernels (FmScorer forward and FmGrad
-backward in their f32 and bf16-input modes, K1 dedup and its merge mode, K2 apply, K-place, and the
-table-layout probe's K2T and K2P) against their plain PyTorch versions,
-the scorer's and the sparse step's GPU paths against their CPU paths,
-two ranks' collectives on one GPU, and field-aware FM's op, graphed
-dispatch and kernel step at the FFM row width.
+backward in their f32 and bf16-input modes, K1 dedup and its merge mode,
+K2 apply, K-place, and the table-layout probe's K2T and K2P) against
+their plain PyTorch versions, the scorers' (fp32, bf16 and int8 tables,
+and the tiered overlay) and the sparse step's GPU paths against their
+CPU paths, two ranks' collectives on one GPU, and field-aware FM's op,
+graphed dispatch and kernel step at the FFM row width.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``gpu``) and
 skips without one.  The file imports neither jax nor the JAX package,
@@ -1270,3 +1271,74 @@ def test_ffm_graphed_dispatch_matches_eager_and_plain(gpu, tmp_path, k,
     torch.testing.assert_close(models[0].table, models[1].table, **TABLE_TOL)
     torch.testing.assert_close(opts[0].acc_table, opts[1].acc_table,
                                **OPT_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field_num", [0, 3])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_quantized_gpu_scorer_matches_cpu_scorer(gpu, dtype, field_num):
+    """A bf16 or int8 table placed on the card scores as on the CPU (the
+    FmScorer kernel against its plain version; FFM's einsums alike), and
+    the placed tensors hold exactly the gauge's bytes."""
+    from fast_tffm_tpu_torch.obs.telemetry import Telemetry
+
+    k = 4
+    dim = 1 + (field_num or 1) * k
+    cfg = FmConfig(vocabulary_size=301, factor_num=k, max_features=39,
+                   field_num=field_num, serve_batch_sizes="8,32",
+                   serve_table_dtype=dtype, quant_chunk=16)
+    rng = np.random.default_rng(5)
+    table = rng.uniform(-0.3, 0.3, (301, dim)).astype(np.float32)
+    ids = rng.integers(0, 301, (70, 39)).astype(np.int32)
+    vals = rng.uniform(0.0, 1.0, (70, 39)).astype(np.float32)
+    fields = (rng.integers(0, field_num, (70, 39)).astype(np.int32)
+              if field_num else None)
+    tel = Telemetry()
+    on_gpu = FixedShapeScorer(cfg, weights.from_jax(0.1, table, device=gpu),
+                              device=gpu, telemetry=tel)
+    on_cpu = FixedShapeScorer(cfg, weights.from_jax(0.1, table,
+                                                    device="cpu"),
+                              device="cpu")
+    before = fm_kernels.fm_scores_cuda.launches
+    on_gpu.warmup()
+    got = on_gpu.score(ids, vals, fields)
+    if not field_num:
+        assert fm_kernels.fm_scores_cuda.launches == before + 5
+    np.testing.assert_allclose(got, on_cpu.score(ids, vals, fields),
+                               rtol=1e-5, atol=1e-6)
+    placed = on_gpu._model
+    held = sum(t.numel() * t.element_size() for t in placed[1:])
+    assert held == tel.snapshot()["gauges"]["serve.table_bytes"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cold_dtype", ["fp32", "int8"])
+def test_overlay_gpu_scorer_matches_cpu_scorer(gpu, cold_dtype):
+    """The overlay scorer's compact table copied to the card scores as
+    on the CPU, through the FmScorer kernel."""
+    from fast_tffm_tpu_torch.serve.scorer import OverlayScorer
+    from fast_tffm_tpu_torch.train import tiered
+
+    cfg = FmConfig(vocabulary_size=1 << 26, factor_num=8, max_features=39,
+                   serve_batch_sizes="8,32", table_tiering="on",
+                   cold_dtype=cold_dtype)
+    rng = np.random.default_rng(6)
+    store = tiered._virtual_store(cfg, "table")
+    written = rng.choice(1 << 26, 5000, replace=False)
+    store.scatter(written, rng.normal(0, 0.2, (5000, 9)).astype(np.float32))
+    ids = np.where(rng.random((70, 39)) < 0.5,
+                   written[rng.integers(0, 5000, (70, 39))],
+                   rng.integers(0, 1 << 26, (70, 39))).astype(np.int32)
+    vals = rng.uniform(0.0, 1.0, (70, 39)).astype(np.float32)
+    held = torch.cuda.memory_allocated(gpu)
+    on_gpu = OverlayScorer(cfg, 0.1, store, device=gpu)
+    on_cpu = OverlayScorer(cfg, 0.1, store, device="cpu")
+    before = fm_kernels.fm_scores_cuda.launches
+    on_gpu.warmup()
+    got = on_gpu.score(ids, vals)
+    assert fm_kernels.fm_scores_cuda.launches == before + 5
+    np.testing.assert_allclose(got, on_cpu.score(ids, vals),
+                               rtol=1e-5, atol=1e-6)
+    # No [V, D] table: the card holds the staging and the rungs only.
+    added = torch.cuda.memory_allocated(gpu) - held
+    assert 0 < on_gpu.staging_bytes() <= added < (1 << 20)

@@ -1,8 +1,8 @@
-"""Guards of the port's boundaries: it never imports jax or the JAX
-package (the training, multi-rank and probe slices' modules included),
-its parse workers' import chain imports no torch, it runs on the GPU
-unless asked for the CPU, and its kernel wrappers raise instead of
-falling back."""
+"""Guards of the port's boundaries: it never imports jax, ml_dtypes or
+the JAX package (the training, multi-rank, probe and table-format
+slices' modules included), its parse workers' import chain imports no
+torch, it runs on the GPU unless asked for the CPU, and its kernel
+wrappers raise instead of falling back."""
 
 import os
 import subprocess
@@ -44,6 +44,13 @@ _TRAIN_SLICE = (
 _PROBE_SLICE = (
     "fast_tffm_tpu_torch.tools.timing", "fast_tffm_tpu_torch.tools.micro_probe",
 )
+# The quantized and tiered-overlay serving slice's modules.
+_TABLE_FORMATS_SLICE = (
+    "fast_tffm_tpu_torch.ops.quant", "fast_tffm_tpu_torch.train.tiered",
+    "fast_tffm_tpu_torch.train.checkpoint", "fast_tffm_tpu_torch.serve.scorer",
+    "fast_tffm_tpu_torch.tools.convert_checkpoint",
+    "fast_tffm_tpu_torch.weights",
+)
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -56,7 +63,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert int(out[0]) >= 20, out  # every module of the package imported
     assert out[1] == "", f"the port imported {out[1]}"
     loaded = set(out[2].split(","))
-    want = set(_TRAIN_SLICE + _PROBE_SLICE)
+    want = set(_TRAIN_SLICE + _PROBE_SLICE + _TABLE_FORMATS_SLICE)
     assert want <= loaded, sorted(want - loaded)
 
 

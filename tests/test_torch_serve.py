@@ -206,8 +206,8 @@ def test_serve_observability_routes(served):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"serve_table_dtype": "int8"},
-    {"serve_table_dtype": "bf16"},
+    {"serve_replicas": 3},
+    {"serve_replicas": 2, "serve_poll_secs": 0.5},
     {"serve_replicas": 2},
     {"serve_poll_secs": 2.0},
     {"serve_replicas": 2, "serve_canary": True, "serve_poll_secs": 1.0},
@@ -233,8 +233,8 @@ def test_serve_refuses_checkpoint_without_params_npz(tmp_path):
 @pytest.mark.parametrize("mode", ["train", "predict"])
 def test_cli_refuses_later_slices(tmp_path, mode):
     # Field-aware FM trains and predicts on one device through the CLI;
-    # the later slices refuse it: a rank mesh (train, item 3) and a
-    # quantized serving table (predict's scorer, item 2).
+    # the later slices refuse it: a rank mesh (train, item 3) and the
+    # reference's Orbax dense checkpoint (predict's reader, item 2).
     model_file = str(tmp_path / "model")
     rng = np.random.default_rng(3)
     table = rng.uniform(-0.1, 0.1, (V, 1 + 2 * K)).astype(np.float32)
@@ -256,7 +256,10 @@ def test_cli_refuses_later_slices(tmp_path, mode):
     if mode == "predict":
         scores = np.loadtxt(tmp_path / "scores.txt")
         assert scores.shape == (40,) and np.all((scores > 0) & (scores < 1))
-        later = "serve_table_dtype = int8\n"
+        # Only the Orbax dirs of a reference save remain.
+        os.remove(checkpoint.params_path(model_file))
+        os.makedirs(os.path.join(model_file, "params"))
+        later = ""
     else:
         with np.load(checkpoint.params_path(model_file)) as z:
             assert int(z["scalar/step"]) == 3
