@@ -179,6 +179,26 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    peak device memory the stack added within its staging and one bucket
    of the largest rung (no ``[V, D]`` allocation); FmScorer launches
    counted.  Dispatch p50 and the host gather a dispatch, per rung.
+13. Tiered phase (path 8, the tiered trainer, ``table_tiering = on``):
+   (a) phase 5's config and files with ``hot_rows = 2^18`` (a step's
+   159,744 occurrences fit, 16 steps evict), through ``Trainer.train()``
+   from the same seed: the merged logical table, accumulator, w0 and its
+   slot against phase 5's dense run (bitwise expected and reported;
+   ``TABLE_TOL`` / ``OPT_TOL`` required), evictions and ``0 <
+   hot_hit_frac < 1``, FmScorer, FmGrad, K1 and K2 each exactly once a
+   step with K1 and K2 on the cut ``[U + 1]`` slot (every dispatch
+   eager), validation within 1e-6 of phase 5's, and ``python -m
+   fast_tffm_tpu_torch.cli predict`` of the saved ``params.npz`` within
+   one printed digit of phase 5's predict file; (b) the reference
+   bench's tiered section (``bench.py::_bench_tiered``: V = 2^28,
+   ``hot_rows`` = 2^20, D = 9, F = 39, B = 4096, K = 8, 12 batches of
+   Zipf(1.1) lines an epoch, the prestacked cache, a virtual cold
+   store): 8 epochs in fp32 cold rows, saved as ``tiered.npz`` and
+   served through ``serve()`` (scores against the plain path on the cold
+   store's rows), and 2 epochs each in bf16 and int8 cold rows; the
+   peak device memory under a 16th of one dense table.  Each run's
+   examples/s, ``ingest_wait_frac``, tier counters, host plan ms a
+   super-batch and migration device ms a dispatch.
 
 Output: progress lines and JSON records, then a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -195,6 +215,7 @@ import itertools
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -261,6 +282,14 @@ SERVE_SIZES = (1, 37, 200, 1000, 1500)
 # tiered overlay of this many written rows.
 DIST_CFG_PATH = os.path.join(REPO, "examples", "criteo_1tb_dist.cfg")
 OVERLAY_ROWS = 1 << 20
+# Tiered training (path 8): (a) the main config's hot table (one step's
+# 159,744 occurrences fit, 16 steps evict); (b) the reference bench's
+# tiered section (bench.py::_bench_tiered): 12 batches of 4096 Zipf
+# lines an epoch, 8 epochs in fp32 cold rows and fewer in bf16 and int8.
+TIERED_HOT = 1 << 18
+TIERED_BATCHES = 12
+TIERED_EPOCHS = 8
+TIERED_SHORT_EPOCHS = 2
 # Profiler windows: the host's pause after tracing starts and before it
 # stops.  The trace drops a kernel whose traced time falls outside the
 # window, and the window can open ms after `prof.step()` returns, losing
@@ -968,6 +997,314 @@ def overlay_phase(np, torch, card: str, rng) -> tuple:
     tmp_ctx.cleanup()
     record["fm_scores_launches"] = launches
     return record, launches
+
+
+# -- tiered phase (path 8) ----------------------------------------------
+
+
+def timed_trainer(torch, trainer_cls):
+    """``trainer_cls`` keeping the host seconds of each tiered plan (on
+    the transfer thread) and a CUDA event pair around each migration (on
+    the dispatch stream)."""
+
+    class Timed(trainer_cls):
+        def __init__(self, cfg):
+            self.plan_s, self.migration_events = [], []
+            super().__init__(cfg)
+
+        def _plan_group(self, group):
+            t0 = time.perf_counter()
+            out = super()._plan_group(group)
+            self.plan_s.append(time.perf_counter() - t0)
+            return out
+
+        def _apply_migration(self, shipment):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = super()._apply_migration(shipment)
+            b.record()
+            self.migration_events.append((a, b))
+            return out
+
+        def timings(self) -> dict:
+            torch.cuda.synchronize()
+            mig = [a.elapsed_time(b) for a, b in self.migration_events]
+            return {"plans": len(self.plan_s),
+                    "plan_ms_mean": 1e3 * sum(self.plan_s) / max(
+                        len(self.plan_s), 1),
+                    "plan_ms_max": 1e3 * max(self.plan_s, default=0.0),
+                    "migration_device_ms_mean": sum(mig) / max(len(mig), 1),
+                    "migration_device_ms_max": max(mig, default=0.0)}
+
+    return Timed
+
+
+def slot_spies(sparse_apply, n: int):
+    """Wrap K1's and K2's wrappers (the module attributes the step calls)
+    to note whether each call took the cut ``[U + 1]`` slot (``U < n``)
+    or the whole ``[n + 1]`` one.  A wrapper counts its launches on the
+    module attribute, the spy meanwhile: ``restore`` adds them back to
+    the wrapped function's count.  Returns ``(notes, restore)``."""
+    notes = {"k1_cut": 0, "k1_whole": 0, "k2_cut": 0, "k2_whole": 0}
+    k1, k2 = sparse_apply.k1_dedup_cuda, sparse_apply.k2_apply_cuda
+
+    def k1_spy(g_rows, ids, perm, seg_start):
+        notes["k1_cut" if seg_start.numel() <= n else "k1_whole"] += 1
+        return k1(g_rows, ids, perm, seg_start)
+
+    def k2_spy(optimizer, urows, sums, tables, hyper):
+        notes["k2_cut" if urows.numel() < n else "k2_whole"] += 1
+        return k2(optimizer, urows, sums, tables, hyper)
+
+    k1_spy.launches = k2_spy.launches = 0
+    sparse_apply.k1_dedup_cuda, sparse_apply.k2_apply_cuda = k1_spy, k2_spy
+
+    def restore():
+        sparse_apply.k1_dedup_cuda, sparse_apply.k2_apply_cuda = k1, k2
+        k1.launches += k1_spy.launches
+        k2.launches += k2_spy.launches
+
+    return notes, restore
+
+
+def write_zipf_lines(np, paths, rng, lines: int, vocab: int) -> np.ndarray:
+    """The reference bench's tiered data (``bench.py::_zipf_ids``,
+    ``_gen_libsvm_files``): ``lines`` labelled lines split over
+    ``paths``, 39 Zipf(1.1) ids hash-spread over ``vocab`` each, values
+    ``0.<4 digits>``.  Returns the ids ``[lines, 39]``."""
+    z = rng.zipf(1.1, size=(lines, 39)).astype(np.uint64)
+    ids = ((z * np.uint64(0x9E3779B97F4A7C15)) % np.uint64(vocab)).astype(
+        np.int64)
+    val4 = rng.integers(1000, 10000, size=(lines, 39))
+    labels = rng.integers(0, 2, size=lines)
+    per = lines // len(paths)
+    for k, path in enumerate(paths):
+        with open(path, "w") as f:
+            for i in range(k * per, (k + 1) * per):
+                f.write(f"{labels[i]} " + " ".join(
+                    f"{a}:0.{b}" for a, b in zip(ids[i].tolist(),
+                                                 val4[i].tolist())) + "\n")
+    return ids
+
+
+def tiered_parity(np, torch, card: str, tcfg, main: dict, tmp: str,
+                  kernels: dict, valid_file: str) -> tuple:
+    """Path 8 (a): ``examples/criteo_kaggle.cfg`` with ``table_tiering =
+    on`` and ``hot_rows = TIERED_HOT`` over the main run's 16 steps,
+    held against the main run's dense trainer from the same seed (the
+    merged table, accumulator, w0 and its slot: bitwise expected, the
+    tile-vs-scatter bounds required), then validated against the main
+    run's validation and predicted through the CLI against its predict
+    file.  Returns ``(record, launches)``."""
+    from fast_tffm_tpu_torch import cli
+    from fast_tffm_tpu_torch.ops import sparse_apply
+    from fast_tffm_tpu_torch.train import checkpoint
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    model_dir = os.path.join(tmp, "tiered_model")
+    acfg = dataclasses.replace(
+        tcfg, table_tiering="on", hot_rows=TIERED_HOT, model_file=model_dir,
+        validation_files=[], predict_files=[])
+    n = acfg.batch_size * acfg.max_features
+    zero_launches(kernels)
+    notes, restore = slot_spies(sparse_apply, n)
+    try:
+        t0 = time.perf_counter()
+        trainer = timed_trainer(torch, Trainer)(acfg)
+        res = trainer.train()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = read_launches(kernels)
+    tr, snap = res["train"], res["train"]["tiered"]
+    steps = tr["steps"]
+    check(steps == main["steps"], f"tiered trained {steps} steps")
+    for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
+        check(launches[name] == steps,
+              f"tiered: {name} launched {launches[name]} times in {steps} "
+              f"steps")
+    check(notes["k1_cut"] == notes["k2_cut"] == steps
+          and notes["k1_whole"] == notes["k2_whole"] == 0,
+          f"tiered: K1/K2 not on the cut slot every step: {notes}")
+    check(tr["graph_dispatches"] == 0 and tr["eager_dispatches"] == steps,
+          f"tiered dispatches: {tr['graph_dispatches']} graphed")
+    check(snap["rows_evicted"] > 0 and 0.0 < snap["hot_hit_frac"] < 1.0,
+          f"tiered: no eviction churn: {snap}")
+    merged = trainer.tiered.merged_dense(trainer._hot_host_tables())
+    got = {"table": merged[0], "acc": merged[1],
+           "w0": trainer.model.w0.detach().cpu().numpy(),
+           "acc_w0": trainer.opt_state.acc_w0.cpu().numpy()}
+    cmp = {}
+    for name, tol in (("table", TABLE_TOL), ("acc", OPT_TOL),
+                      ("w0", TABLE_TOL), ("acc_w0", OPT_TOL)):
+        a, b = np.asarray(got[name]), np.asarray(main[name])
+        check(a.shape == b.shape, f"tiered {name} shape {a.shape}")
+        np.testing.assert_allclose(a, b, **tol)
+        cmp[name] = {"bitwise": bool(np.array_equal(
+            a.view(np.uint32), b.view(np.uint32))),
+            "max_abs_diff": float(np.abs(a - b).max())}
+    t0 = time.perf_counter()
+    val = trainer.evaluate([valid_file])
+    val_s = time.perf_counter() - t0
+    for key in ("logloss", "auc"):
+        check(abs(val[key] - main["validation"][key]) <= 1e-6,
+              f"tiered validation {key} {val[key]} against the dense "
+              f"{main['validation'][key]}")
+    check(checkpoint.exists(model_dir)
+          and not checkpoint.exists_tiered(model_dir),
+          "tiered (a) did not save the merged params.npz")
+    with open(CFG_PATH) as f:
+        text = f.read()
+    scores = os.path.join(tmp, "tiered_scores.txt")
+    for key, value in (("model_file", model_dir),
+                       ("predict_files", main["predict_file"]),
+                       ("score_path", scores)):
+        text = re.sub(rf"(?m)^{key} = .*$", f"{key} = {value}", text)
+    cfg_path = os.path.join(tmp, "tiered_predict.cfg")
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    t0 = time.perf_counter()
+    check(cli.main(["predict", cfg_path]) == 0, "tiered cli predict failed")
+    predict_s = time.perf_counter() - t0
+    with open(scores) as f:
+        predicted = f.read()
+    diff = max(abs(float(a) - float(b)) for a, b in zip(
+        predicted.split(), main["scores_text"].split()))
+    check(len(predicted.split()) == len(main["scores_text"].split())
+          and diff <= 1.01e-6,
+          f"tiered cli predict differs from the dense run's by {diff}")
+    record = {
+        "card": card, "config": "examples/criteo_kaggle.cfg",
+        "hot_rows": TIERED_HOT, "steps": steps, "train_wall_s": wall,
+        "examples_per_sec_end_to_end": tr["examples_per_sec"],
+        "ingest_wait_frac": tr["ingest_wait_frac"],
+        "launches": launches, "slots": notes, "tiered": snap,
+        "vs_dense": cmp, "validation": {"logloss": val["logloss"],
+                                        "auc": val["auc"]},
+        "validation_equal": all(val[k] == main["validation"][k]
+                                for k in ("logloss", "auc")),
+        "validation_s": val_s, "cli_predict_s": predict_s,
+        "predict_max_abs_diff": diff,
+        "predict_file_equal": predicted == main["scores_text"],
+        **trainer.timings(),
+    }
+    del trainer, merged, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def tiered_bench(np, torch, card: str, tmp: str, kernels: dict) -> tuple:
+    """Path 8 (b): the reference bench's tiered shape (``bench.py::
+    _bench_tiered``): V = 2^28, ``hot_rows`` = 2^20, D = 9, F = 39,
+    B = 4096, K = 8, ``learning_rate`` 0.05, the prestacked epoch cache
+    over 12 batches of Zipf(1.1) lines, a virtual cold store; fp32 over
+    TIERED_EPOCHS epochs (saved as ``tiered.npz`` and served through
+    ``serve()``'s ``OverlayScorer`` against a host scoring of the cold
+    store's rows), bf16 and int8 cold rows over TIERED_SHORT_EPOCHS.
+    Returns ``(record, launches)``."""
+    from fast_tffm_tpu_torch.config import FmConfig
+    from fast_tffm_tpu_torch.train import checkpoint
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    vocab, hot, batch, k = 1 << 28, 1 << 20, 4096, 8
+    rng = np.random.default_rng(SEED + 11)
+    files = [os.path.join(tmp, f"zipf_{i}.libsvm") for i in range(2)]
+    t0 = time.perf_counter()
+    ids = write_zipf_lines(np, files, rng, TIERED_BATCHES * batch, vocab)
+    data_s = time.perf_counter() - t0
+    record = {"card": card, "source": "bench.py::_bench_tiered",
+              "vocab": vocab, "hot_rows": hot, "batch_size": batch,
+              "steps_per_dispatch": k, "data_s": data_s,
+              "batches_per_epoch": TIERED_BATCHES,
+              "dense_table_bytes": vocab * 9 * 4,
+              "reduced": {"epochs_bf16_int8": TIERED_SHORT_EPOCHS}}
+    totals = dict.fromkeys(kernels, 0)
+    Timed = timed_trainer(torch, Trainer)
+    for dtype, epochs in (("fp32", TIERED_EPOCHS),
+                          ("bf16", TIERED_SHORT_EPOCHS),
+                          ("int8", TIERED_SHORT_EPOCHS)):
+        cfg = FmConfig(
+            vocabulary_size=vocab, factor_num=8, max_features=39,
+            batch_size=batch, learning_rate=0.05,
+            model_file=os.path.join(tmp, f"tiered_{dtype}"), log_steps=0,
+            thread_num=8, epoch_num=epochs, steps_per_dispatch=k,
+            cache_epochs=True, cache_prestacked=True,
+            cache_max_bytes=4 << 30, train_files=files, save_steps=0,
+            table_tiering="on", hot_rows=hot, cold_dtype=dtype, seed=SEED,
+            serve_poll_secs=0.0, serve_port=0)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        trainer = Timed(cfg)
+        res = trainer.train()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = read_launches(kernels)
+        tr, snap = res["train"], res["train"]["tiered"]
+        steps = tr["steps"]
+        check(steps == epochs * TIERED_BATCHES,
+              f"tiered {dtype}: {steps} steps")
+        for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
+            check(launches[name] == steps,
+                  f"tiered {dtype}: {name} launched {launches[name]} times "
+                  f"in {steps} steps")
+            totals[name] += launches[name]
+        check(peak < vocab * 9 * 4 // 16,
+              f"tiered {dtype}: peak device memory {peak} B")
+        check(checkpoint.exists_tiered(cfg.model_file)
+              and not checkpoint.exists(cfg.model_file),
+              f"tiered {dtype}: no tiered.npz saved")
+        check(snap["cold_dtype"] == dtype and snap["hot_hit_frac"] > 0,
+              f"tiered {dtype}: {snap}")
+        rec = {"epochs": epochs, "steps": steps, "wall_s": wall,
+               "examples_per_sec_end_to_end": tr["examples_per_sec"],
+               "ingest_wait_frac": tr["ingest_wait_frac"],
+               "dispatches": tr["dispatches"],
+               "first_dispatch_s": tr["first_dispatch_s"],
+               "peak_device_bytes": peak, "tiered": snap,
+               "file_bytes": os.path.getsize(
+                   checkpoint.tiered_path(cfg.model_file)),
+               # The result's counters are taken before the final save;
+               # after it every row the run touched is in the store.
+               "cold_store_bytes_after_save":
+                   trainer.tiered.snapshot()["cold_store_bytes"],
+               **trainer.timings()}
+        if dtype == "fp32":
+            store = trainer.tiered.stores[0]
+            w0 = float(trainer.model.w0.detach())
+            seen = ids[rng.integers(0, len(ids), 1500)]
+            requests = []
+            for n_req in (64, 1500):
+                hit = rng.random((n_req, 39)) < 0.5
+                rids = np.where(hit, seen[:n_req],
+                                rng.integers(0, vocab, (n_req, 39)))
+                vals = rng.uniform(0.1, 1.0, (n_req, 39)).astype(np.float32)
+                requests.append((None, rids.astype(np.int32), vals, None))
+            served = serve_table(np, torch, cfg, requests, Rows(w0, store.gather),
+                                 "tiered fp32")
+            check(served["launches"] > 0, "tiered serve: FmScorer never ran")
+            check(served["peak_bytes_added"] < vocab * 9 * 4 // 16,
+                  "tiered serve: a table-sized allocation")
+            rec["serve"] = {
+                "fm_scores_launches": served["launches"],
+                "max_abs_err_vs_plain": served["max_abs_err_vs_plain"],
+                "dispatch_p50_ms": served["dispatch_p50_ms"],
+                "gather_ms_per_dispatch": served["gather_ms"],
+                "peak_bytes_added": served["peak_bytes_added"],
+                "serve_up_s": served["serve_up_s"]}
+            totals["fm_scores"] += served["launches"]
+            del store
+        record[dtype] = rec
+        del trainer
+    return record, totals
 
 
 # -- sharded phase (main path 3) -----------------------------------------
@@ -2964,7 +3301,8 @@ def main() -> int:
     check(np.isfinite(val["logloss"]) and 0 < val["auc"] <= 1,
           f"validation {val}")
     with open(tcfg.score_path) as f:
-        scores_txt = [float(s) for s in f.read().split()]
+        main_scores_text = f.read()
+    scores_txt = [float(s) for s in main_scores_text.split()]
     check(n_pred == LINES and len(scores_txt) == LINES,
           f"predict wrote {n_pred} scores for {LINES} lines")
     check(all(0.0 < s < 1.0 for s in scores_txt), "predict scores not in (0,1)")
@@ -2986,6 +3324,15 @@ def main() -> int:
         "first_dispatch_s": tr["first_dispatch_s"],
         "peak_device_mb": peak_mb,
     }}), flush=True)
+    # The dense run path 8's tiered run is held against (host copies).
+    main_state = {
+        "steps": steps, "validation": val, "predict_file": predict_file,
+        "scores_text": main_scores_text,
+        "table": trainer.model.table.detach().cpu().numpy(),
+        "acc": trainer.opt_state.acc_table.cpu().numpy(),
+        "w0": trainer.model.w0.detach().cpu().numpy(),
+        "acc_w0": trainer.opt_state.acc_w0.cpu().numpy(),
+    }
     del trainer
 
     phase_end("train")
@@ -3292,7 +3639,6 @@ def main() -> int:
           "single-device run; every rank reports the same metrics",
           flush=True)
     phase_end("sharded")
-    tmp_ctx.cleanup()
 
     # -- probe phase (main path 4): the table-layout probe -------------
     probe, probe_timing, probe_launches = probe_phase(
@@ -3323,16 +3669,38 @@ def main() -> int:
           "allocation", flush=True)
     phase_end("overlay")
 
+    # -- tiered phase (path 8): the tiered trainer ----------------------
+    tiered_a, tiered_launches = tiered_parity(
+        np, torch, card, tcfg, main_state, tmp, kernels, valid_file)
+    del main_state
+    print(json.dumps({"tiered": tiered_a}), flush=True)
+    tiered_b, tiered_b_launches = tiered_bench(np, torch, card, tmp, kernels)
+    print(json.dumps({"tiered_bench": tiered_b}), flush=True)
+    for name in tiered_launches:
+        tiered_launches[name] += tiered_b_launches[name]
+    print("tiered check: merged tables against the dense run "
+          f"(bitwise: {tiered_a['vs_dense']['table']['bitwise']}), "
+          "evictions, K1/K2 on the cut slot once a step, validation and "
+          "CLI predict; V = 2^28 trained, saved as tiered.npz and served "
+          "with no [V, D] allocation, in fp32, bf16 and int8 cold rows",
+          flush=True)
+    phase_end("tiered")
+    tmp_ctx.cleanup()  # the main run's files, which path 8 reads again
+
     # Launches on the main paths: train (path 1), serve (paths 2, 6 and
-    # 7, the only fm_scores count), the sharded runs' ranks (path 3), the
-    # probe (path 4, the only K2T and K2P counts), and the bf16 train
-    # run (path 1 with compute_dtype = bfloat16, the only count of the
-    # bf16 modes).
+    # 7, with path 8 the only fm_scores count), the sharded runs' ranks
+    # (path 3), the probe (path 4, the only K2T and K2P counts), the
+    # bf16 train run (path 1 with compute_dtype = bfloat16, the only
+    # count of the bf16 modes) and the tiered runs (path 8: training,
+    # and the fp32 bench run's serving).
     launches = {name: train_launches[name] + sharded_launches[name]
                 for name in kernels}
+    for name in ("fm_grad", "k1_dedup", "k2_apply"):  # path 8
+        launches[name] += tiered_launches[name]
     # FmScorer f32: the serve path, the quantized tables (path 6) and
     # the overlay (path 7).
-    launches["fm_scores"] = serve_launches + quant_launches + overlay_launches
+    launches["fm_scores"] = (serve_launches + quant_launches
+                             + overlay_launches + tiered_launches["fm_scores"])
     for name in ("fm_scores_bf16", "fm_grad_bf16"):
         launches[name] = bf16_launches[name]  # path 1 in bf16
     for name in ("k2t_apply", "k2p_apply"):

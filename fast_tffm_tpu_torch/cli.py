@@ -80,14 +80,29 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--table_tiering", choices=["off", "on"], default=None,
-        help="the two-tier table: serve and predict read its tiered.npz "
-             "overlay whatever this says; on is needed only for "
-             "--cold_dtype, and the trainer refuses it (not ported yet)",
+        help="two-tier embedding table: train keeps --hot_rows rows on "
+             "the device over a host cold store of the full vocabulary "
+             "(sparse optimizers only); serve and predict read a "
+             "tiered.npz overlay whatever this says",
+    )
+    p.add_argument(
+        "--hot_rows", type=int, default=None,
+        help="device-resident rows when --table_tiering on (must cover "
+             "one super-batch's unique ids)",
+    )
+    p.add_argument(
+        "--tiered_partition", choices=["auto", "global", "shards"],
+        default=None,
+        help="tier-manager ownership: global (one host-global manager, "
+             "what a single process runs) or shards (per model column; "
+             "not in the port yet); auto = global on one process",
     )
     p.add_argument(
         "--cold_dtype", choices=["fp32", "bf16", "int8"], default=None,
         help="storage dtype of the tiered cold store's rows (requires "
-             "--table_tiering on): must be the dtype the tiered.npz "
+             "--table_tiering on): bf16 halves and int8 (per-row scale) "
+             "quarters the host bytes; the trainer stores its cold rows "
+             "in it, and serve/predict need the dtype the tiered.npz "
              "overlay was written in",
     )
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
@@ -144,7 +159,8 @@ def main(argv=None) -> int:
         key: getattr(args, key)
         for key in ("serve_port", "serve_batch_sizes", "max_batch_wait_ms",
                     "serve_poll_secs", "serve_table_dtype", "quant_chunk",
-                    "table_tiering", "cold_dtype")
+                    "table_tiering", "hot_rows", "tiered_partition",
+                    "cold_dtype")
         if getattr(args, key) is not None
     }
     cfg = load_config(args.cfg, overrides or None)

@@ -61,6 +61,20 @@ with numpy, which the views are held against in the tests.
 ``DevicePrefetcher.ships`` counts the super-batches every stage of the
 process shipped, as the kernels' wrappers count launches: ``fills``
 those it filled itself and ``prestack_hits`` the packed groups.
+
+**The tiered plan** (``table_tiering = on``).  A ``plan_hook`` is called
+on each group after the range check of its LOGICAL ids (at the
+logical vocabulary) and before the fill: ``hook(group) -> (group',
+plan)`` gives the group with its ids remapped to hot slots and a
+``train.tiered.Plan``, whose arrays (``plan.leaves()``: the padded load
+slots, each store's loaded rows, the evict slots) are packed into the
+same staging buffer after the batch's leaves and ride the same single
+copy, so one event covers all of it.  The stage then puts
+``plan.ship(super-batch, views)``, a ``train.tiered.Shipment``, in
+place of the super-batch.  A packed group of the prestacked cache
+holds logical ids and its buffer belongs to the cache, so under a hook
+its batches take the ordinary fill (``fills`` counts it,
+``prestack_hits`` does not); the stream's order stays the cache's.
 """
 
 from __future__ import annotations
@@ -110,9 +124,11 @@ class SuperBatch(NamedTuple):
                      b.weights[i], meta)
 
 
-def layout(k: int, bsz: int, f: int, with_fields: bool, with_meta: bool):
+def layout(k: int, bsz: int, f: int, with_fields: bool, with_meta: bool,
+           extra: Sequence = ()):
     """``([(name, dtype, shape, offset, nbytes), ...], total bytes)`` of a
-    K-batch staging buffer."""
+    K-batch staging buffer; ``extra`` (``[(name, array), ...]``: a tiered
+    plan's arrays) follows the batch's leaves."""
     n = bsz * f
     spec = [("labels", np.float32, (k, bsz)), ("ids", np.int32, (k, bsz, f)),
             ("vals", np.float32, (k, bsz, f))]
@@ -122,6 +138,7 @@ def layout(k: int, bsz: int, f: int, with_fields: bool, with_meta: bool):
     if with_meta:
         spec += [("perm", np.int32, (k, n)),
                  ("seg_start", np.int32, (k, n + 1))]
+    spec += [(name, a.dtype, a.shape) for name, a in extra]
     out, off = [], 0
     for name, dtype, shape in spec:
         nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
@@ -242,28 +259,39 @@ class Packer:
         self.with_fields = with_fields
         self.lock = threading.Lock()
 
-    def layout_of(self, group: Sequence[Batch]):
-        """:func:`layout` of ``group``: ``(spec, total bytes)``."""
+    def layout_of(self, group: Sequence[Batch], extra: Sequence = ()):
+        """:func:`layout` of ``group`` (and ``extra``): ``(spec, total
+        bytes)``."""
         with_meta = all(b.sort_meta is not None for b in group)
         return layout(len(group), *group[0].ids.shape, self.with_fields,
-                      with_meta)
+                      with_meta, extra)
 
     def alloc(self, total: int) -> torch.Tensor:
         with self.lock:
             return torch.empty((total,), dtype=torch.uint8,
                                pin_memory=self.pin)
 
-    def fill(self, group: Sequence[Batch], buffer: torch.Tensor,
-             spec) -> None:
-        """Write ``group`` into ``buffer`` (of ``spec``'s layout)."""
+    def check(self, group: Sequence[Batch]) -> None:
+        """The range check of ``group``'s ids."""
         vocab = self.vocabulary_size
         for b in group:
             if b.ids.size and (b.ids.min() < 0 or b.ids.max() >= vocab):
                 # The parser reduces ids modulo the vocabulary; an id
                 # outside it would be a device-side assert on the GPU.
                 raise ValueError(f"feature ids must lie in [0, {vocab})")
+
+    def fill(self, group: Sequence[Batch], buffer: torch.Tensor, spec,
+             extra: Sequence = (), checked: bool = False) -> None:
+        """Write ``group`` (range-checked here unless ``checked``) and
+        ``extra``'s arrays into ``buffer`` (of ``spec``'s layout)."""
+        if not checked:
+            self.check(group)
+        arrays = dict(extra)
         for name, leaf in _host_views(buffer, spec).items():
-            _fill(leaf, name, _cols(group, name))
+            if name in arrays:
+                leaf[...] = arrays[name]
+            else:
+                _fill(leaf, name, _cols(group, name))
 
     def pack(self, group: Sequence[Batch]) -> PackedGroup:
         """``group`` in a buffer of its own (never recycled)."""
@@ -285,8 +313,10 @@ class DevicePrefetcher:
     def __init__(self, source, steps_per_dispatch: int, device,
                  vocabulary_size: int, depth: int = 2,
                  with_fields: bool = False,
-                 packer: Optional[Packer] = None):
+                 packer: Optional[Packer] = None,
+                 plan_hook=None):
         self.device = resolve_device(device)
+        self._plan_hook = plan_hook
         self._cuda = self.device.type == "cuda"
         if self._cuda and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -365,22 +395,35 @@ class DevicePrefetcher:
                 self._free.setdefault(buf.numel(), []).append(buf)
 
     def _ship(self, group) -> bool:
-        """Fill a recycled staging buffer with ``group`` and ship it."""
-        spec, total = self._packer.layout_of(group)
+        """Fill a recycled staging buffer with ``group`` and ship it.
+        With a ``plan_hook`` the ids are range-checked as they came, then
+        the hook remaps them and its plan's arrays ride the same buffer
+        and copy."""
+        plan, extra = None, ()
+        if self._plan_hook is not None:
+            self._packer.check(group)
+            group, plan = self._plan_hook(group)
+            extra = plan.leaves()
+        spec, total = self._packer.layout_of(group, extra)
         staging = self._staging(total)
-        self._packer.fill(group, staging, spec)
+        self._packer.fill(group, staging, spec, extra,
+                          checked=plan is not None)
         DevicePrefetcher.fills += 1
-        return self._copy(staging, spec, len(group), recycle=True)
+        return self._copy(staging, spec, len(group), recycle=True, plan=plan)
 
     def _ship_packed(self, packed: PackedGroup) -> bool:
         """Ship a group the prestacked cache packed: no fill, no range
-        check (done at its packing), and its buffer never recycled."""
+        check (done at its packing), and its buffer never recycled.  With
+        a ``plan_hook`` its ids must be remapped, and the cache's buffer
+        must not be written: its batches go through :meth:`_ship`."""
+        if self._plan_hook is not None:
+            return self._ship(packed.batches())
         DevicePrefetcher.prestack_hits += 1
         return self._copy(packed.buffer, packed.spec, packed.n,
                           recycle=False)
 
     def _copy(self, staging: torch.Tensor, spec, k: int,
-              recycle: bool) -> bool:
+              recycle: bool, plan=None) -> bool:
         event = None
         if self._cuda:
             total = staging.numel()
@@ -393,9 +436,11 @@ class DevicePrefetcher:
                 self._retire(event, staging, recycle)
         else:
             dev = staging  # an alias: never recycled
-        sb = _assemble(_views(dev, spec), k, dev)
+        views = _views(dev, spec)
+        sb = _assemble(views, k, dev)
+        item = sb if plan is None else plan.ship(sb, views)
         DevicePrefetcher.ships += 1
-        return self._out.put((sb, event, dev))
+        return self._out.put((item, event, dev))
 
     # -- the consumer --------------------------------------------------
 
@@ -416,12 +461,12 @@ class DevicePrefetcher:
                 if isinstance(got, EpochEnd):
                     yield got
                     continue
-                sb, event, dev = got
+                item, event, dev = got
                 if event is not None:
                     stream = torch.cuda.current_stream(self.device)
                     stream.wait_event(event)
                     dev.record_stream(stream)
-                yield sb
+                yield item
         finally:
             self.close()
 

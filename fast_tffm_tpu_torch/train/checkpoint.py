@@ -45,9 +45,12 @@ two, so a stale file never shadows a newer one (the readers check
 ``tiered.npz``, then ``quant.npz``, then ``params.npz``).  The
 reference's saves also publish a hot-swap manifest; that belongs to the
 checkpoint watcher (ROADMAP.md, port queue item 4) and is not written
-here.  Still missing (port queue item 2): the reader of the
-reference's Orbax dense checkpoint, and the tiered trainer, whose saves
-(with their ``data_state.json``) go through :func:`save_tiered`.
+here.  The tiered trainer saves through :func:`save_params` (a logical
+table small enough for the dense format) or :func:`save_tiered`, both
+with ``data_state.json``, and warm-starts from a dense checkpoint
+through :func:`restore_host` (host numpy, never at ``[V, D]`` on the
+card).  Still missing (port queue item 2): the reader of the
+reference's Orbax dense checkpoint.
 """
 
 from __future__ import annotations
@@ -72,7 +75,8 @@ from fast_tffm_tpu_torch.weights import from_jax, to_numpy
 
 __all__ = ["clear_quant", "clear_tiered", "data_state_path", "exists",
            "exists_quant", "exists_tiered", "params_path", "quant_path",
-           "restore_data_state", "restore_opt_state", "restore_params",
+           "restore_data_state", "restore_host", "restore_opt_state",
+           "restore_params",
            "restore_quant", "restore_tiered", "save_params", "save_quant",
            "save_sharded", "save_tiered", "tiered_path"]
 
@@ -129,12 +133,17 @@ def save_params(model_file: str, model: FmModel, step: int = 0,
     # table must not shadow it (the readers check those first).
     clear_tiered(model_file)
     clear_quant(model_file)
+    _write_data_state(model_file, data_state)
+    return path
+
+
+def _write_data_state(model_file: str, data_state: Optional[dict]) -> None:
+    """``data_state.json`` written atomically, when given."""
     if data_state is not None:
         tmp = data_state_path(model_file) + ".tmp"
         with open(tmp, "w") as f:
             json.dump(data_state, f)
         os.replace(tmp, data_state_path(model_file))
-    return path
 
 
 def _write_npz(path: str, arrays: dict) -> None:
@@ -199,6 +208,25 @@ def restore_params(
     if rows is not None:
         table = table[rows]
     return step, from_jax(w0, table, device=device)
+
+
+def restore_host(model_file: str, optimizer: str) -> tuple:
+    """``(step, w0, table, opt)`` from ``params.npz`` as host numpy, never
+    on a device (the tiered trainer's warm start): ``opt`` is the
+    ``optimizer``'s sparse state over numpy arrays, ``()`` for SGD, or
+    None when the file holds none for it."""
+    with np.load(params_path(model_file), allow_pickle=False) as z:
+        step = int(z["scalar/step"])
+        w0 = np.float32(z["scalar/w0"])
+        table = np.array(z["params/table"], np.float32)
+        opt = None
+        if optimizer == "sgd":
+            opt = ()
+        else:
+            kind, keys = _OPT_KEYS[optimizer]
+            if all(k in z.files for k in keys):
+                opt = kind(*(np.array(z[k], np.float32) for k in keys))
+    return step, w0, table, opt
 
 
 def restore_opt_state(
@@ -313,13 +341,14 @@ def exists_tiered(model_file: str) -> bool:
 
 
 def save_tiered(model_file: str, step: int, scalars: dict,
-                stores: dict) -> str:
+                stores: dict, data_state: Optional[dict] = None) -> str:
     """Write ``tiered.npz``: ``scalars`` (``w0`` and the optimizer's w0
     slots) as ``scalar/<name>``, and for each store of ``stores`` (name
     -> ``{"ids", "rows", "descriptor"}``, a ``ColdStore.export()`` plus
     its descriptor) the ids and packed rows of every written row and
     the init descriptor that regenerates the rest.  Removes
-    ``params.npz`` and ``quant.npz``.  Returns the file's path."""
+    ``params.npz`` and ``quant.npz``, then writes ``data_state.json``
+    when given.  Returns the file's path."""
     path = tiered_path(model_file)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     payload: dict = {
@@ -337,6 +366,7 @@ def save_tiered(model_file: str, step: int, scalars: dict,
     _write_npz(path, payload)
     _clear_params(model_file)
     clear_quant(model_file)
+    _write_data_state(model_file, data_state)
     return path
 
 

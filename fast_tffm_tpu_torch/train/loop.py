@@ -55,7 +55,19 @@ the serving path's scorer for whatever the checkpoint holds
 (``serve.scorer.make_scorer``: ``params.npz`` or ``quant.npz`` at
 ``serve_table_dtype``, or a ``tiered.npz`` overlay), with ``batch_size``
 added as a rung, and writes one score per line in input order.  A
-trainer refuses to warm-start over a ``quant.npz`` or ``tiered.npz``.
+trainer refuses to warm-start over a ``quant.npz``, and a dense one over
+a ``tiered.npz``.
+
+With ``table_tiering = on`` (one device) the device tables are a hot
+table of ``min(hot_rows, vocabulary_size)`` rows (``self.dcfg``) over
+a host :class:`~fast_tffm_tpu_torch.train.tiered.TieredTable`: the
+transfer stage's ``plan_hook`` (:meth:`Trainer._plan_group`) remaps
+each super-batch's ids to hot slots and ships the migration plan in the
+batch's copy, :meth:`Trainer.dispatch` applies it
+(:meth:`Trainer._apply_migration`) before the steps, which sort the
+remapped ids on the device and run eagerly; evaluation scores the
+merged logical table, and a save writes the logical table
+(``params.npz`` when it fits the dense format, else ``tiered.npz``).
 
 Settings that would change the result and need a later slice raise
 NotImplementedError naming the ROADMAP.md port-queue item; settings that
@@ -69,6 +81,7 @@ import logging
 import time
 from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.config import FmConfig
@@ -84,6 +97,7 @@ from fast_tffm_tpu_torch.parallel.mesh import (
 )
 from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.train import checkpoint, metrics as metrics_lib
+from fast_tffm_tpu_torch.train import tiered as tiered_lib
 from fast_tffm_tpu_torch.train.dispatch import GraphedSteps
 from fast_tffm_tpu_torch.train.shardmap_step import (
     exchange_mode, local_scores, sparse_step_shardmap, supports_shardmap,
@@ -143,8 +157,12 @@ def _check_supported(cfg: FmConfig) -> None:
             f"compute_dtype={cfg.compute_dtype} on a rank mesh (the "
             f"sharded step's bf16 closed form)", 3,
         ))
-    if cfg.table_tiering != "off":
-        unported.append(("table_tiering (the tiered table)", 2))
+    if cfg.table_tiering == "on" and (cfg.tiered_partition == "shards"
+                                      or _multi_rank(cfg)):
+        unported.append((
+            "table_tiering=on with tiered_partition=shards or on a rank "
+            "mesh (the rank-sharded tiered table, tiered_fleet)", 3,
+        ))
     if cfg.sparse_exchange_overlap == "on" and cfg.lookup != "shardmap":
         unported.append((
             "sparse_exchange_overlap=on (the entries exchange's id-plane "
@@ -165,6 +183,39 @@ def _check_supported(cfg: FmConfig) -> None:
             "(ROADMAP.md port queue item 4; parameters are unaffected): %s",
             ", ".join(inert),
         )
+
+
+def _tiered_device_config(cfg: FmConfig) -> FmConfig:
+    """The configuration the device side of a ``table_tiering = on`` run
+    is built from: ``vocabulary_size`` the hot table's rows (ingest keeps
+    the logical vocabulary), after the reference's refusals
+    (``fast_tffm_tpu/train/loop.py``, ``Trainer.__init__``)."""
+    if not cfg.sparse_update or not supports_sparse(cfg):
+        raise ValueError(
+            "table_tiering=on requires the sparse update path "
+            "(optimizer in adagrad/ftrl/sgd with batch-mode L2): "
+            "a dense optimizer rewrites every row every step, so "
+            "there is no cold set to keep off-device"
+        )
+    if cfg.tiered_partition == "global" and _multi_rank(cfg):
+        raise ValueError(
+            "tiered_partition=global is single-process (the "
+            "hot-slot map is host-global); multi-process tiered "
+            "training needs tiered_partition=shards (or auto)"
+        )
+    if cfg.lookup == "shardmap":
+        raise ValueError(
+            "table_tiering=on does not compose with "
+            "lookup=shardmap yet; use lookup=auto"
+        )
+    if cfg.hot_rows >= cfg.vocabulary_size:
+        log.info(
+            "table_tiering=on with hot_rows >= vocabulary_size: "
+            "every row fits the hot table (tiering is a no-op "
+            "beyond the remap)"
+        )
+    return dataclasses.replace(
+        cfg, vocabulary_size=min(cfg.hot_rows, cfg.vocabulary_size))
 
 
 def _check_mesh(cfg: FmConfig, mesh: Mesh) -> None:
@@ -270,6 +321,11 @@ class Trainer:
 
     def __init__(self, cfg: FmConfig,
                  device: Optional[Union[str, torch.device]] = None):
+        # With tiering on, the device tables are the hot table's
+        # (``dcfg``); the logical vocabulary stays the input's.
+        self.tiered: Optional[tiered_lib.TieredTable] = None
+        self.dcfg = (_tiered_device_config(cfg)
+                     if cfg.table_tiering == "on" else cfg)
         _check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -277,7 +333,8 @@ class Trainer:
         _check_mesh(cfg, self.mesh)
         self.sharded = self.mesh.size > 1
         self.model, self.opt_state, self._restored_step = (
-            self._init_or_restore()
+            self._init_or_restore_tiered() if cfg.table_tiering == "on"
+            else self._init_or_restore()
         )
         # Updated in place, as the model and optimizer tensors are: a
         # captured graph holds all of them.
@@ -297,6 +354,11 @@ class Trainer:
         if self.sharded:
             return ("the sharded step's collectives and device sort are "
                     "not captured (ROADMAP.md port queue item 3)")
+        if self.tiered is not None:
+            return ("table_tiering=on migrates rows between dispatches and "
+                    "sorts the remapped ids on the device, which reads the "
+                    "unique count on the host (ROADMAP.md port queue item "
+                    "7a)")
         if not self.cfg.host_sort:
             return ("host_sort = false sorts on the device, which reads "
                     "the unique count on the host (ROADMAP.md port queue "
@@ -318,9 +380,8 @@ class Trainer:
             raise ValueError(
                 f"{cfg.model_file} holds a tiered overlay checkpoint "
                 "(written by table_tiering=on at a vocabulary too large "
-                "for the dense format); resume it with table_tiering=on "
-                "(ROADMAP.md port queue item 2), or point model_file "
-                "somewhere fresh to train dense"
+                "for the dense format); resume it with table_tiering=on, "
+                "or point model_file somewhere fresh to train dense"
             )
         if checkpoint.exists_quant(cfg.model_file):
             # Training wants full-precision params, and the quantized
@@ -352,6 +413,161 @@ class Trainer:
             model = fm.FmModel(model.w0.detach(),
                                model.table.detach()[rows].clone())
         return model, init_sparse_opt_state(cfg, model), 0
+
+    def _init_or_restore_tiered(self):
+        """The HOT device state and the host :class:`tiered_lib.
+        TieredTable` (``fast_tffm_tpu/train/loop.py::
+        _init_or_restore_tiered``).  The hot tables' initial values are
+        placeholders (a slot counts only once a migration load has
+        written its cold row), drawn from the seeded generator at
+        ``hot_rows`` rows.  The checkpoint of record is the LOGICAL
+        table: a ``tiered.npz`` overlay when present, else a dense
+        ``params.npz`` read to host numpy (never at ``[V, D]`` on the
+        card) to seed the cold stores, so a tiered run resumes from a
+        dense run's checkpoint, and the other way round, at any
+        ``hot_rows``."""
+        cfg, dcfg, dev = self.cfg, self.dcfg, self.device
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        model = fm.init_params(dcfg, gen, device=dev)
+
+        def put(x):
+            return torch.tensor(float(np.float32(x)), dtype=torch.float32,
+                                device=dev)
+
+        def with_w0(w0):
+            return fm.FmModel(put(w0), model.table.detach())
+
+        if checkpoint.exists_quant(cfg.model_file):
+            raise ValueError(
+                f"{cfg.model_file} holds a quantized serving checkpoint "
+                "(quant.npz); a tiered trainer cannot warm-start from "
+                "it — convert it back to the dense format first "
+                "(python -m fast_tffm_tpu_torch.tools.convert_checkpoint "
+                "<dir> --to fp32)"
+            )
+        overlay = checkpoint.restore_tiered(cfg.model_file)
+        if overlay is not None:
+            step, scalars, stores = overlay
+            log.info("warm-starting tiered table from overlay checkpoint "
+                     "%s (step %d)", cfg.model_file, step)
+            self.tiered = tiered_lib.TieredTable(cfg, overlay=stores,
+                                                 device=dev)
+            model = with_w0(scalars["w0"])
+            opt = tiered_lib.set_opt_scalars(
+                cfg.optimizer, init_sparse_opt_state(dcfg, model), scalars,
+                put)
+            return model, opt, step
+        if checkpoint.exists(cfg.model_file):
+            log.info("warm-starting tiered table from dense checkpoint %s",
+                     cfg.model_file)
+            step, w0, table, opt_np = checkpoint.restore_host(
+                cfg.model_file, cfg.optimizer)
+            shape = (cfg.vocabulary_size, cfg.embedding_dim)
+            if table.shape != shape:
+                raise ValueError(
+                    f"checkpoint table is {table.shape} but the config "
+                    f"wants {shape}"
+                )
+            if opt_np is not None and cfg.optimizer == "ftrl":
+                w0, table = self._ftrl_normalize_np(w0, table, opt_np)
+            dense_tables = {"table": table}
+            # The w0 optimizer slots: restored when present, else from
+            # the restored w0, as the dense trainer's init on restored
+            # parameters gives them.
+            model = with_w0(w0)
+            opt = init_sparse_opt_state(dcfg, model)
+            if opt_np is not None:
+                dense_tables.update(zip(
+                    tiered_lib.opt_table_names(cfg.optimizer),
+                    tiered_lib.get_opt_tables(cfg.optimizer, opt_np)))
+                opt = tiered_lib.set_opt_scalars(
+                    cfg.optimizer, opt,
+                    tiered_lib.get_opt_scalars(cfg.optimizer, opt_np), put)
+            self.tiered = tiered_lib.TieredTable(
+                cfg, dense_tables=dense_tables, device=dev)
+            return model, opt, step
+        self.tiered = tiered_lib.TieredTable(cfg, device=dev)
+        return model, init_sparse_opt_state(dcfg, model), 0
+
+    def _ftrl_normalize_np(self, w0, table, opt_np) -> tuple:
+        """The sparse FTRL applies rely on ``w == ftrl_solve(z, n)``: a
+        restored ``(w0, table)`` off it (edited outside training) is
+        replaced, with a warning, by the closed form before it seeds the
+        cold store (``fast_tffm_tpu/train/loop.py::_ftrl_normalize_np``)."""
+        cfg = self.cfg
+
+        def solve(z, n):
+            return sparse_apply.ftrl_solve(
+                torch.from_numpy(np.asarray(z, np.float32)),
+                torch.from_numpy(np.asarray(n, np.float32)),
+                cfg.learning_rate, cfg.ftrl_l1, cfg.ftrl_l2, cfg.ftrl_beta,
+            ).numpy()
+
+        want_w0 = solve(opt_np.z_w0, opt_np.n_w0)
+        want_table = solve(opt_np.z_table, opt_np.n_table)
+        dev = max(float(np.max(np.abs(want_w0 - w0))),
+                  float(np.max(np.abs(want_table - table))))
+        if dev <= 1e-6:
+            return w0, table
+        log.warning(
+            "warm-started FTRL params violate w == ftrl_solve(z, n) "
+            "(max |dev| %.3g) — the table was edited outside "
+            "train.sparse.  Normalizing before seeding the tiered cold "
+            "store, matching the dense restore path.", dev,
+        )
+        return np.float32(want_w0), want_table
+
+    def _plan_group(self, group: list) -> tuple:
+        """The transfer stage's ``plan_hook`` under tiering: the group's
+        logical ids remapped to hot slots through one plan of the
+        super-batch (``fast_tffm_tpu/train/loop.py::_put_super``)."""
+        new_ids, plan = self.tiered.plan(np.stack([b.ids for b in group]))
+        return [b._replace(ids=new_ids[i], sort_meta=None)
+                for i, b in enumerate(group)], plan
+
+    def _hot_tables(self) -> tuple:
+        """The device hot tables, params first, in the stores' order."""
+        return (self.model.table,) + tiered_lib.get_opt_tables(
+            self.cfg.optimizer, self.opt_state)
+
+    def _hot_host_tables(self) -> list:
+        """Host copies of the device hot tables (waits for the device)."""
+        return [t.detach().cpu().numpy() for t in self._hot_tables()]
+
+    def _apply_migration(self, shipment: tiered_lib.Shipment) -> SuperBatch:
+        """Apply a super-batch's migration plan to the hot tables between
+        dispatches (``fast_tffm_tpu/train/loop.py::_apply_migration``);
+        the plan's device halves arrived with the batch, after the
+        stream's wait on their copy.  The evicted slots are gathered
+        first, stream order putting the gather after the previous
+        dispatch and before the loads: one non-blocking copy into a
+        pinned host buffer and an event after it go to the write-back
+        ledger, which reads the buffer only once the event has
+        completed.  Then the loaded rows overwrite their slots.  Only
+        the first ``n_load`` / ``n_evict`` entries are used: the padding
+        is never written.  Returns the super-batch to dispatch."""
+        man, sh = self.tiered, shipment
+        tables = [t.detach() for t in self._hot_tables()]
+        with torch.no_grad():
+            if sh.n_evict:
+                slots = sh.evict_slots[:sh.n_evict]
+                rows = torch.stack([t.index_select(0, slots)
+                                    for t in tables])
+                event = None
+                if rows.is_cuda:
+                    host = torch.empty(rows.shape, dtype=rows.dtype,
+                                       pin_memory=True)
+                    host.copy_(rows, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                    rows = host
+                man.push_writeback(sh.plan_id, tuple(rows.unbind(0)), event)
+            if sh.n_load:
+                slots = sh.load_slots[:sh.n_load].long()
+                for t, r in zip(tables, sh.load_rows):
+                    t.index_copy_(0, slots, r[:sh.n_load])
+                man.note_applied(sh)
+        return sh.batch
 
     def _input_plan(self):
         """``(pipeline config, shard)``: each data block parses its
@@ -400,13 +616,17 @@ class Trainer:
         return torch.stack([self.device_step(sb.step(i))
                             for i in range(sb.n)])
 
-    def dispatch(self, sb: SuperBatch, pause=None) -> torch.Tensor:
+    def dispatch(self, sb, pause=None) -> torch.Tensor:
         """Train one shipped super-batch: one replay of the CUDA graph of
         its K steps when it is full and the graph is captured, else the
         same steps eagerly (the first full one is then captured, inside
-        ``pause``: the transfer stage's ``paused()``).  Returns the steps'
-        losses ``[n]`` (a device tensor; a replay's is the graph's own,
-        overwritten by the next one).  The loop's hook per dispatch."""
+        ``pause``: the transfer stage's ``paused()``).  Under tiering
+        ``sb`` is a :class:`tiered_lib.Shipment`, whose migration is
+        applied first (always eager).  Returns the steps' losses ``[n]``
+        (a device tensor; a replay's is the graph's own, overwritten by
+        the next one).  The loop's hook per dispatch."""
+        if isinstance(sb, tiered_lib.Shipment):
+            sb = self._apply_migration(sb)
         graph = self.graph
         if graph is not None and graph.captured and sb.n == graph.k:
             self.graph_dispatches += 1
@@ -419,7 +639,15 @@ class Trainer:
 
     def train_step(self, batch: Batch) -> torch.Tensor:
         """One step on a host :class:`Batch`, copied to the device by the
-        plain route (:meth:`device_step` on it)."""
+        plain route (:meth:`device_step` on it).  A tiered trainer's
+        batches take the transfer stage's plan: it trains through
+        :meth:`train`."""
+        if self.tiered is not None:
+            raise ValueError(
+                "train_step takes logical ids onto a dense table; with "
+                "table_tiering=on the batches are planned and migrated by "
+                "train()"
+            )
         return self.device_step(self._put(batch))
 
     def _data_fingerprint(self) -> dict:
@@ -475,6 +703,8 @@ class Trainer:
         if not cfg.train_files:
             raise ValueError("no train_files configured")
         self._epoch, self._batches_done = self._resume_position()
+        if self.tiered is not None:
+            self.tiered.reopen()  # re-arm after a cancelled earlier run
         t0 = time.time()
         last_log_t = t0
         last_log_ex = self.global_metrics(self.metrics)["examples"]
@@ -490,10 +720,12 @@ class Trainer:
         # which packs epoch 0's groups of K once.
         packer = Packer(self.device, cfg.vocabulary_size,
                         with_fields=cfg.field_num > 0)
-        # The sharded step sorts its local ids on the device.
+        # The sharded step sorts its local ids on the device, and so does
+        # the tiered one: the host meta would key on ids before the remap.
         pipeline = BatchPipeline(
             cfg.train_files, pipe_cfg, epochs=cfg.epoch_num, shuffle=True,
-            host_meta=cfg.host_sort and not self.sharded,
+            host_meta=(cfg.host_sort and not self.sharded
+                       and self.tiered is None),
             weight_files=cfg.weight_files, shard=shard,
             start_epoch=self._epoch, skip_batches=self._batches_done,
             epoch_marks=True, cache_epochs=cfg.cache_epochs,
@@ -503,6 +735,7 @@ class Trainer:
         prefetcher = DevicePrefetcher(
             pipeline, k, self.device, cfg.vocabulary_size,
             depth=cfg.prefetch_super_batches, packer=packer,
+            plan_hook=self._plan_group if self.tiered is not None else None,
         )
         cache_logged = not cfg.cache_epochs
         try:
@@ -552,6 +785,10 @@ class Trainer:
                     last_save_step = stepno
                     self.save(stepno)
         finally:
+            if self.tiered is not None:
+                # Wake a transfer thread blocked on a write-back fill
+                # that will never come, or close() would join it forever.
+                self.tiered.cancel_waits()
             prefetcher.close()
         truncated = pipeline.truncated_features
         self._epoch, self._batches_done = cfg.epoch_num, 0
@@ -570,6 +807,8 @@ class Trainer:
         train_metrics["ingest_wait_frac"] = wait_s / wall
         train_metrics["wait_input_s"] = wait_s
         train_metrics["dispatch_s"] = dispatch_s
+        if self.tiered is not None:
+            train_metrics["tiered"] = self.tiered.snapshot()
         self.save(stepno)
         result = {"train": train_metrics}
         if cfg.validation_files:
@@ -581,35 +820,93 @@ class Trainer:
 
     def evaluate(self, files) -> dict:
         """Streaming metrics of the current model over ``files`` (on a
-        mesh, over each data block's strided share, globally summed)."""
+        mesh, over each data block's strided share, globally summed).  A
+        tiered trainer scores the MERGED logical table, cold rows
+        included: moved to the device once when it fits the dense format,
+        else each batch against a compact table of its unique rows
+        (``fast_tffm_tpu/train/loop.py::_evaluate_tiered_virtual``)."""
         ms = MetricState.zeros(self.device)
         pipe_cfg, shard = self._input_plan()
+        model, compact = self.model, False
+        if self.tiered is not None:
+            if self.tiered.dense_save_ok:
+                merged = self.tiered.merged_dense(self._hot_host_tables())
+                model = fm.FmModel(self.model.w0.detach(),
+                                   torch.from_numpy(merged[0]).to(
+                                       self.device))
+                del merged
+            else:
+                self.tiered.sync_from_device(self._hot_host_tables())
+                compact = True
         with BatchPipeline(files, pipe_cfg, epochs=1, shuffle=False,
                            shard=shard) as p:
             for batch in p:
+                if compact:
+                    model, batch = self._compact_batch(batch)
                 dev_batch = self._put(batch)
                 with torch.no_grad():
                     if self.sharded:
-                        scores = local_scores(self.cfg, self.model,
-                                              dev_batch, self.mesh)
+                        scores = local_scores(self.cfg, model, dev_batch,
+                                              self.mesh)
                     else:
                         scores = fm.fm_scores(
-                            self.model, dev_batch.ids, dev_batch.vals,
+                            model, dev_batch.ids, dev_batch.vals,
                             dev_batch.fields, factor_num=self.cfg.factor_num,
                             field_num=self.cfg.field_num)
                 ms.add_(scores, dev_batch, self.cfg.loss_type)
         return self.global_metrics(ms)
 
+    def _compact_batch(self, batch: Batch) -> tuple:
+        """``(model, batch)``: ``batch``'s unique logical rows gathered
+        from the (synced) cold store into a ``_bucket``-padded table on
+        the device, and the batch with its ids remapped to their indices
+        in it.  The same rows as a full-table gather, with no ``[V, D]``
+        table anywhere."""
+        vocab = self.cfg.vocabulary_size
+        flat = batch.ids.reshape(-1)
+        safe = np.where((flat >= 0) & (flat < vocab), flat, 0)
+        u, inv = np.unique(safe, return_inverse=True)
+        mini = np.zeros((tiered_lib._bucket(len(u)), self.cfg.embedding_dim),
+                        np.float32)
+        mini[:len(u)] = self.tiered.gather_logical(u)
+        model = fm.FmModel(self.model.w0.detach(),
+                           torch.from_numpy(mini).to(self.device))
+        return model, batch._replace(
+            ids=inv.astype(np.int32).reshape(batch.ids.shape))
+
     def save(self, stepno: int) -> str:
         """Write ``params.npz`` and ``data_state.json`` (on a mesh every
-        rank calls this; rank 0 writes).  Returns the params' path."""
-        return checkpoint.save_sharded(
-            self.cfg.model_file, self.model, self.mesh,
-            step=self._restored_step + stepno, opt_state_l=self.opt_state,
-            data_state={"epoch": self._epoch,
-                        "batches_done": self._batches_done,
-                        "fingerprint": self._data_fingerprint()},
-        )
+        rank calls this; rank 0 writes).  A tiered trainer writes its
+        LOGICAL table: merged into ``params.npz`` (with its optimizer
+        tables) when it fits the dense format, which any dense or tiered
+        run resumes at any ``hot_rows``, else the sparse overlay
+        ``tiered.npz``.  Returns the written file's path."""
+        data_state = {"epoch": self._epoch,
+                      "batches_done": self._batches_done,
+                      "fingerprint": self._data_fingerprint()}
+        step = self._restored_step + stepno
+        if self.tiered is None:
+            return checkpoint.save_sharded(
+                self.cfg.model_file, self.model, self.mesh, step=step,
+                opt_state_l=self.opt_state, data_state=data_state,
+            )
+        cfg, man = self.cfg, self.tiered
+        host_tables = self._hot_host_tables()
+        w0 = self.model.w0.detach().cpu()
+        if man.dense_save_ok:
+            merged = [torch.from_numpy(m)
+                      for m in man.merged_dense(host_tables)]
+            opt = tiered_lib.set_opt_tables(cfg.optimizer, self.opt_state,
+                                            tuple(merged[1:]))
+            return checkpoint.save_params(
+                cfg.model_file, fm.FmModel(w0, merged[0]), step=step,
+                opt_state=opt, data_state=data_state)
+        scalars = {"w0": w0.numpy(),
+                   **tiered_lib.get_opt_scalars(cfg.optimizer,
+                                                self.opt_state)}
+        return checkpoint.save_tiered(
+            cfg.model_file, step, scalars, man.export_overlay(host_tables),
+            data_state=data_state)
 
 
 def predict(cfg: FmConfig,

@@ -1342,3 +1342,84 @@ def test_overlay_gpu_scorer_matches_cpu_scorer(gpu, cold_dtype):
     # No [V, D] table: the card holds the staging and the rungs only.
     added = torch.cuda.memory_allocated(gpu) - held
     assert 0 < on_gpu.staging_bytes() <= added < (1 << 20)
+
+
+@pytest.mark.gpu
+def test_tiered_writeback_reads_the_rows_at_gather_time(gpu):
+    """The migration's write-back: the evicted slots are gathered, copied
+    into a pinned host buffer without blocking, and read by the cold
+    store only after the copy's event.  With a long kernel queued first
+    (so the copy is still pending when the plan is made) and the slots
+    overwritten again right after, the re-fetched rows are the ones the
+    table held when the gather ran."""
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    cfg = FmConfig(vocabulary_size=64, factor_num=2, max_features=2,
+                   batch_size=1, table_tiering="on", hot_rows=8, seed=1)
+    t = Trainer(cfg, device=gpu)
+    man = t.tiered
+
+    def ship(ids):
+        _, plan = man.plan(np.asarray(ids, np.int32).reshape(1, -1))
+        views = {name: torch.from_numpy(a).to(gpu)
+                 for name, a in plan.leaves()}
+        return plan.ship(None, views)
+
+    t._apply_migration(ship(range(6)))
+    with torch.no_grad():  # what six rows' training left there
+        t.model.table.copy_(torch.arange(
+            t.model.table.numel(), dtype=torch.float32,
+            device=gpu).view_as(t.model.table))
+    held = t.model.table.detach().cpu().numpy().copy()
+    big = torch.randn((4096, 4096), device=gpu)
+    for _ in range(20):  # keep the stream busy past the plan below
+        big = big @ big * 1e-3
+    sh = ship(range(6, 10))
+    assert sh.n_evict == 2
+    evicted = man.id_of_slot_applied[sh.evict_slots[:2].cpu().numpy()]
+    t._apply_migration(sh)
+    with torch.no_grad():
+        t.model.table.index_fill_(0, sh.evict_slots[:2].long(), -1.0)
+    _, p3 = man.plan(np.array([[int(evicted[0]), 6]], np.int32))
+    assert p3.n_load == 1
+    want = held[int(sh.evict_slots[0])]
+    np.testing.assert_array_equal(p3.load_rows[0][0], want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adagrad", "ftrl"])
+def test_tiered_run_matches_the_dense_run_on_the_gpu(gpu, tmp_path,
+                                                     optimizer):
+    """On the card, the tiered trainer (eager, device sort, K1 and K2 on
+    the cut slot, migrations at hot_rows = 160) ends bitwise where the
+    graphed dense trainer (host sort meta) ends from the same seed."""
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(0)
+    path = tmp_path / "train.libsvm"
+    with open(path, "w") as f:
+        for i in range(256):
+            f.write(f"{i % 2} {rng.integers(0, 256)}:1 "
+                    f"{rng.integers(0, 256)}:0.5 {rng.integers(0, 256)}:0.25\n")
+    common = dict(vocabulary_size=256, factor_num=4, max_features=4,
+                  batch_size=32, train_files=[str(path)], epoch_num=2,
+                  log_steps=0, thread_num=1, seed=3, steps_per_dispatch=2,
+                  optimizer=optimizer)
+    d = Trainer(FmConfig(model_file=str(tmp_path / "d"), **common),
+                device=gpu)
+    rd = d.train()
+    t = Trainer(FmConfig(model_file=str(tmp_path / "t"), table_tiering="on",
+                         hot_rows=160, **common), device=gpu)
+    before = sparse_apply.k2_apply_cuda.launches
+    rt = t.train()
+    assert sparse_apply.k2_apply_cuda.launches - before == 16
+    assert rd["train"]["graph_dispatches"] > 0
+    assert rt["train"]["graph_dispatches"] == 0
+    assert rt["train"]["tiered"]["rows_evicted"] > 0
+    assert rt["train"]["loss"] == rd["train"]["loss"]
+    merged = t.tiered.merged_dense(t._hot_host_tables())
+    dense = [d.model.table, *sparse.opt_tables(d.opt_state)]
+    for a, b in zip(merged, dense):
+        np.testing.assert_array_equal(a, b.detach().cpu().numpy())
+    assert float(t.model.w0.detach()) == float(d.model.w0.detach())

@@ -222,7 +222,7 @@ def test_checkpoint_keeps_optimizer_state(tmp_path):
     (dict(optimizer="adam"), "item 7"),
     (dict(field_num=2, mesh_data=2), "item 3"),
     (dict(mesh_data=2, compute_dtype="bfloat16"), "item 3"),
-    (dict(table_tiering="on"), "item 2"),
+    (dict(table_tiering="on", tiered_partition="shards"), "item 3"),
     (dict(mesh_data=2, sparse_exchange_overlap="on"), "item 3"),
 ])
 def test_trainer_refuses_unported_settings(kw, item):
