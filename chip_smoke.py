@@ -199,6 +199,27 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    peak device memory under a 16th of one dense table.  Each run's
    examples/s, ``ingest_wait_frac``, tier counters, host plan ms a
    super-batch and migration device ms a dispatch.
+14. Dense phase (path 9, the dense optax path: ``sparse_update =
+   false``, ``l2_mode = full``, both lambdas 1e-4): phase 5's config,
+   files and 16 steps with Adam and with Adagrad through
+   ``Trainer.train()``, graphed (every count from 0: FmScorer, FmGrad,
+   K1's merge mode and K-place once a step, no K1 dedup or K2) and each
+   bitwise its eager twin (table, w0, moments or accumulator, Adam's
+   count, metrics); the Adam run validated, its ``params.npz``
+   predicted through ``python -m fast_tffm_tpu_torch.cli predict`` and
+   served over ``/score`` (equal to the predict file), then
+   warm-started (its saved count 16, moments bitwise) for 4 steps; 4
+   bf16 Adam steps within 1e-2 logloss of 4 f32 ones; 4 Adam steps of
+   FFM-Criteo (D = 33: K1's merge mode and K-place only); 3 steps of
+   ``train.dense.dense_step`` through the kernels against 3 through the
+   plain versions (Adam and Adagrad, ``KERNEL_TOL`` scores,
+   ``TABLE_TOL`` table, ``OPT_TOL`` state); the Adam step on a device
+   batch eager and graphed (p50, device time by op, idle share), the
+   whole-table update alone (``train.optimizers.apply_dense``, Adam and
+   Adagrad) in CUDA graphs and by op against its byte bound, and the
+   gradient's K1 merge, K-place and full-L2 term at the step's shapes;
+   each run's peak device memory (and over what the process held
+   before it) and graph/eager dispatches.
 
 Output: progress lines and JSON records, then a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -290,6 +311,21 @@ TIERED_HOT = 1 << 18
 TIERED_BATCHES = 12
 TIERED_EPOCHS = 8
 TIERED_SHORT_EPOCHS = 2
+# The dense optax path (path 9): both L2 lambdas of the full-table L2,
+# the short runs' steps (bf16, FFM-Criteo, the warm start), the lines of
+# the predict file served, and the timed dispatches of one step.
+DENSE_LAMBDA = 1e-4
+# Adam's learning rate (the config's 0.1 is Adagrad's: Adam moves every
+# touched weight by about the learning rate a step, and 16 steps at 0.1
+# saturate the scores), and the relative gradient difference up to which
+# Adam's table is held to the plain step's: its update mu / sqrt(nu) is
+# scale-free, so a gradient that nearly cancels passes its whole
+# relative rounding on into the step.
+DENSE_ADAM_LR = 1e-3
+DENSE_GRAD_RTOL = 1e-4
+DENSE_SHORT_STEPS = 4
+DENSE_SERVE_LINES = 300
+DENSE_TIMED_STEPS = 40
 # Profiler windows: the host's pause after tracing starts and before it
 # stops.  The trace drops a kernel whose traced time falls outside the
 # window, and the window can open ms after `prof.step()` returns, losing
@@ -1308,6 +1344,477 @@ def tiered_bench(np, torch, card: str, tmp: str, kernels: dict) -> tuple:
 
 
 # -- sharded phase (main path 3) -----------------------------------------
+
+
+# -- dense phase (path 9) -----------------------------------------------
+
+
+def dense_update_bound_ms(optimizer: str, v: int, d: int):
+    """The whole-table update of ``apply_dense``: each ``[V, D]`` f32
+    table it reads counted once, each it writes once (Adam reads the table, the gradient and both moments and writes the
+    table and both moments; Adagrad reads the table, the gradient and
+    its accumulator and writes two).  Operations an element: Adam's two
+    moments (five), the bias corrections and the quotient (five), the
+    step (two); Adagrad's accumulator (two), ``rsqrt`` and its select
+    (three), the step (three)."""
+    reads, writes, ops = {"adam": (4, 3, 12), "adagrad": (3, 2, 8)}[optimizer]
+    return bound(4 * v * d * (reads + writes), ops * v * d)
+
+
+def dense_parity(torch, fm, optimizers, dense, cfg, dev_batches,
+                 applied: list) -> dict:
+    """Path 9's 3 steps of ``dense_step`` through the kernels against 3
+    through their plain versions from one seeded table: each step's
+    scores at ``KERNEL_TOL`` and the gradient it applies (``applied``
+    gets each step's ``(dw0, dtable)``) at ``TABLE_TOL``.  Adagrad runs
+    free, its table at ``TABLE_TOL`` and its state at ``OPT_TOL`` after
+    the three steps.  Adam's plain run restarts each step from the
+    kernel run's state, so a step's difference is its own: the moments
+    at ``OPT_TOL``, the count equal, the table at ``TABLE_TOL`` wherever
+    the step's gradients agree to ``DENSE_GRAD_RTOL`` (at most a
+    hundredth of the table may not; those elements are counted and
+    their largest difference kept)."""
+    dev = torch.device("cuda")
+    adam = cfg.optimizer == "adam"
+    init = fm.init_params(cfg, torch.Generator(device=dev).manual_seed(7),
+                          device=dev)
+    models = [fm.FmModel(init.w0.detach().clone(),
+                         init.table.detach().clone()) for _ in range(2)]
+    opts = [optimizers.init_dense_opt_state(cfg, m) for m in models]
+
+    def leaves(i):
+        return [models[i].table, models[i].w0, *opts[i]]
+
+    rec = {"steps": len(dev_batches), "scores_max_abs_err": 0.0,
+           "grad_max_abs_err": 0.0, "table_max_abs_err": 0.0,
+           "state_max_abs_err": 0.0}
+    if adam:
+        rec.update(ill_conditioned=0, ill_conditioned_max_abs_err=0.0)
+    for b in dev_batches:
+        if adam:
+            with torch.no_grad():
+                for a, b_ in zip(leaves(0), leaves(1)):
+                    b_.copy_(a)
+        s_k = dense.dense_step(cfg, models[0], opts[0], b)
+        s_p = dense.dense_step(cfg, models[1], opts[1], b, plain=True)
+        (gw_k, g_k), (gw_p, g_p) = applied[-2:]
+        torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
+        torch.testing.assert_close(g_k, g_p, **TABLE_TOL)
+        torch.testing.assert_close(gw_k, gw_p, **TABLE_TOL)
+        rec["scores_max_abs_err"] = max(rec["scores_max_abs_err"],
+                                        float((s_k - s_p).abs().max()))
+        rec["grad_max_abs_err"] = max(rec["grad_max_abs_err"],
+                                      float((g_k - g_p).abs().max()))
+        if adam:
+            t_k, t_p = models[0].table.detach(), models[1].table.detach()
+            ok = (g_k - g_p).abs() <= DENSE_GRAD_RTOL * g_p.abs()
+            check(int((~ok).sum()) <= ok.numel() // 100,
+                  f"Adam: {int((~ok).sum())} gradient elements differ by "
+                  f"more than {DENSE_GRAD_RTOL} of themselves")
+            torch.testing.assert_close(t_k[ok], t_p[ok], **TABLE_TOL)
+            rec["table_max_abs_err"] = max(rec["table_max_abs_err"], float(
+                (t_k[ok] - t_p[ok]).abs().max()))
+            rec["ill_conditioned"] += int((~ok).sum())
+            if not bool(ok.all()):
+                rec["ill_conditioned_max_abs_err"] = max(
+                    rec["ill_conditioned_max_abs_err"],
+                    float((t_k[~ok] - t_p[~ok]).abs().max()))
+            check_state(torch, rec, opts)
+        del applied[:]
+    torch.cuda.synchronize()
+    if not adam:
+        torch.testing.assert_close(models[0].table, models[1].table,
+                                   **TABLE_TOL)
+        torch.testing.assert_close(models[0].w0, models[1].w0, **TABLE_TOL)
+        rec["table_max_abs_err"] = float(
+            (models[0].table - models[1].table).detach().abs().max())
+        check_state(torch, rec, opts)
+    rec["elements"] = models[0].table.numel()
+    return rec
+
+
+def check_state(torch, rec: dict, opts) -> None:
+    """Two optimizer states alike: floating leaves at ``OPT_TOL`` (the
+    largest difference kept in ``rec``), integer ones equal."""
+    for a, b in zip(*opts):
+        if a.is_floating_point():
+            torch.testing.assert_close(a, b, **OPT_TOL)
+            rec["state_max_abs_err"] = max(rec["state_max_abs_err"],
+                                           float((a - b).abs().max()))
+        else:
+            check(torch.equal(a, b), f"optimizer counts {a} and {b}")
+
+
+def dense_phase(np, torch, card: str, rng, files, valid_file: str,
+                predict_file: str, batches, tmp: str, kernels: dict) -> tuple:
+    """Phase 14, path 9: the dense optax path (``sparse_update = false``,
+    ``l2_mode = full`` with both lambdas 1e-4) on
+    ``examples/criteo_kaggle.cfg`` at full width, over phase 5's 16 steps
+    of synthetic lines.  (1) Adam and Adagrad in f32 through
+    ``Trainer.train()``, every count from 0 (the path's launches): each
+    step FmScorer, FmGrad, K1's merge mode and K-place, no K1 dedup or
+    K2; one eager dispatch and 15 graph replays; each run's eager twin
+    (the trainer's ``graph`` set to None) bitwise equal (table, w0,
+    every optimizer leaf, Adam's count, metrics); the Adam run validated.
+    (2) ``python -m fast_tffm_tpu_torch.cli predict`` of the Adam run's
+    ``params.npz`` (one probability a line), and its ``/score`` through
+    ``serve()`` equal to the predict file.  (3) A warm start from that
+    file continues at the saved count (16, bitwise moments) for 4 more
+    steps.  (4) 4 bf16 Adam steps beside 4 f32 ones on the same batches
+    (the bf16 kernels every step, the last logloss within 1e-2).  (5) 4
+    Adam steps of FFM-Criteo (``field_num = 4``, D = 33): K1's merge mode
+    and K-place every step, no FmScorer or FmGrad.  (6) 3 steps of
+    ``train.dense.dense_step`` through the kernels against 3 through the
+    plain versions, Adam and Adagrad (``dense_parity``).  (7) The Adam step on a device
+    batch, eager and graphed (p50, device time by op, idle share); the
+    whole-table update alone (``optimizers.apply_dense``, Adam and
+    Adagrad) timed in CUDA graphs and by op against its byte bound, and
+    the gradient's K1 merge and K-place at the step's shapes.  Returns
+    ``(record, launches)``: the launches of (1), (4) and (5)."""
+    from fast_tffm_tpu_torch import cli
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.models import fm
+    from fast_tffm_tpu_torch.ops import sparse_apply
+    from fast_tffm_tpu_torch.serve.server import serve
+    from fast_tffm_tpu_torch.train import dense, optimizers, sparse
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    dev = torch.device("cuda")
+    record = {"card": card, "config": "examples/criteo_kaggle.cfg",
+              "overrides": {"sparse_update": False, "l2_mode": "full",
+                            "factor_lambda": DENSE_LAMBDA,
+                            "bias_lambda": DENSE_LAMBDA},
+              "adam_learning_rate": DENSE_ADAM_LR}
+    launches = dict.fromkeys(kernels, 0)
+
+    def config(**kw):
+        if kw.get("optimizer") == "adam":
+            kw.setdefault("learning_rate", DENSE_ADAM_LR)
+        return load_config(CFG_PATH, {
+            **record["overrides"], "train_files": list(files),
+            "validation_files": [], "predict_files": [],
+            "model_file": os.path.join(tmp, "dense_model"),
+            "log_steps": 0, "save_steps": 0, "seed": SEED,
+            "serve_poll_secs": 0.0, "serve_port": 0, **kw})
+
+    class LossTrainer(Trainer):
+        def __init__(self, cfg):
+            self.step_losses = []
+            super().__init__(cfg)
+
+        def dispatch(self, sb, pause=None):
+            losses = super().dispatch(sb, pause)
+            self.step_losses.append(losses.clone())
+            return losses
+
+    def run(cfg, graphs: bool = True, count: bool = False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # What the process holds already (earlier phases' tensors): the
+        # run's own peak is the peak over it.
+        held = torch.cuda.memory_allocated()
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        trainer = LossTrainer(cfg)
+        check(not trainer.sparse, "the dense config trained sparse")
+        if not graphs:
+            trainer.graph = None
+        res = trainer.train()
+        torch.cuda.synchronize()
+        got = read_launches(kernels)
+        if count:
+            for name in launches:
+                launches[name] += got[name]
+        tr = res["train"]
+        losses = torch.cat(trainer.step_losses).tolist()
+        check(all(np.isfinite(losses)), f"non-finite dense loss {losses}")
+        return trainer, res, {
+            "steps": tr["steps"], "launches": got,
+            "dispatches": tr["dispatches"],
+            "graph_dispatches": tr["graph_dispatches"],
+            "eager_dispatches": tr["eager_dispatches"],
+            "step_logloss": losses, "train_logloss": tr["logloss"],
+            "wall_s": time.perf_counter() - t0,
+            "examples_per_sec_end_to_end": tr["examples_per_sec"],
+            "peak_device_mb": torch.cuda.max_memory_allocated() / 2**20,
+            "peak_added_device_mb":
+                (torch.cuda.max_memory_allocated() - held) / 2**20,
+        }
+
+    def state(trainer):
+        m = trainer.metrics
+        return [trainer.model.table, trainer.model.w0, *trainer.opt_state,
+                m.loss_sum, m.weight_sum, m.count, m.auc.pos, m.auc.neg]
+
+    def check_path(what, rec, steps, mode="", fm_kernels=True):
+        got, n = rec["launches"], rec["steps"]
+        check(n == steps, f"{what}: trained {n} steps")
+        want = {f"fm_scores{mode}": n if fm_kernels else 0,
+                f"fm_grad{mode}": n if fm_kernels else 0,
+                "k1_merge": n, "kplace": n, "k1_dedup": 0, "k2_apply": 0}
+        check(all(got[k] == v for k, v in want.items()),
+              f"{what}: launches {got}, want {want}")
+        check(rec["eager_dispatches"] == 1
+              and rec["graph_dispatches"] == rec["dispatches"] - 1 > 0,
+              f"{what}: {rec['graph_dispatches']} graph and "
+              f"{rec['eager_dispatches']} eager dispatches")
+
+    # -- (1) Adam and Adagrad, graphed and eager ------------------------
+    steps = TRAIN_FILES * BATCHES_PER_FILE
+    adam_dir = os.path.join(tmp, "dense_adam")
+    runs = {}
+    for optimizer in ("adam", "adagrad"):
+        model_dir = os.path.join(tmp, f"dense_{optimizer}")
+        cfg = config(optimizer=optimizer, model_file=model_dir)
+        check(cfg.steps_per_dispatch == 1 and cfg.host_sort,
+              "the dense phase's config is not K = 1 with the host sort")
+        graphed, _, g_rec = run(cfg, count=True)
+        # Validation is the graphed run's own (its fm_scores launches
+        # are counted after the check of the step's).
+        check_path(f"dense {optimizer}", g_rec, steps)
+        eager, _, e_rec = run(dataclasses.replace(
+            cfg, model_file=model_dir + "_eager"), graphs=False)
+        check(e_rec["eager_dispatches"] == e_rec["dispatches"] == steps,
+              f"dense {optimizer} eager twin: {e_rec}")
+        check(all(torch.equal(a, b) for a, b in
+                  zip(state(graphed), state(eager))),
+              f"dense {optimizer}: the graphed run is not bitwise the "
+              f"eager one")
+        if optimizer == "adam":
+            check(int(graphed.opt_state.count) == steps,
+                  f"Adam's count {int(graphed.opt_state.count)}")
+            zero_launches(kernels)
+            val = graphed.evaluate([valid_file])
+            for name, n in read_launches(kernels).items():
+                launches[name] += n
+            check(np.isfinite(val["logloss"]) and 0 < val["auc"] <= 1,
+                  f"dense validation {val}")
+            g_rec["validation"] = {"logloss": val["logloss"],
+                                   "auc": val["auc"]}
+        g_rec["graph_pool_bytes"] = graphed.graph.pool_bytes()
+        g_rec["capture_s"] = graphed.graph.capture_s
+        g_rec["eager_twin"] = {
+            "bitwise": True, "wall_s": e_rec["wall_s"],
+            "peak_added_device_mb": e_rec["peak_added_device_mb"]}
+        runs[optimizer] = g_rec
+        del graphed, eager
+        gc.collect()
+        torch.cuda.empty_cache()
+    record["runs"] = runs
+
+    # -- (2) CLI predict and a /score round trip ------------------------
+    with open(CFG_PATH) as f:
+        text = f.read()
+    scores_path = os.path.join(tmp, "dense_scores.txt")
+    for key, value in (("model_file", adam_dir),
+                       ("predict_files", predict_file),
+                       ("score_path", scores_path)):
+        text = re.sub(rf"(?m)^{key} = .*$", f"{key} = {value}", text)
+    cfg_path = os.path.join(tmp, "dense_predict.cfg")
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    check(cli.main(["predict", cfg_path]) == 0, "dense cli predict failed")
+    predict_s = time.perf_counter() - t0
+    with open(scores_path) as f:
+        predicted = f.read().split()
+    check(len(predicted) == LINES
+          and all(0.0 < float(s) < 1.0 for s in predicted),
+          f"dense cli predict wrote {len(predicted)} scores")
+    with open(predict_file) as f:
+        lines = [next(f) for _ in range(DENSE_SERVE_LINES)]
+    handle = serve(config(model_file=adam_dir), port=0)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", handle.port,
+                                          timeout=120)
+        served = post(conn, "/score", "".join(lines).encode()).decode()
+        conn.close()
+    finally:
+        handle.close()
+    serve_diff = max(abs(float(a) - float(b)) for a, b in
+                     zip(served.split(), predicted))
+    check(len(served.split()) == DENSE_SERVE_LINES and serve_diff <= 2e-6,
+          f"dense /score differs from the predict file by {serve_diff}")
+    launches["fm_scores"] += read_launches(kernels)["fm_scores"]
+    record["predict"] = {"cli_predict_s": predict_s, "scores": LINES,
+                         "served_lines": DENSE_SERVE_LINES,
+                         "serve_vs_predict_max_abs_diff": serve_diff}
+
+    # -- (3) a warm start continues at the saved count ------------------
+    short = os.path.join(tmp, "dense_short.libsvm")
+    with open(files[0]) as src, open(short, "w") as dst:
+        for _ in range(DENSE_SHORT_STEPS * LINES):
+            dst.write(next(src))
+    with np.load(os.path.join(adam_dir, "params.npz")) as z:
+        saved_count = int(z["opt/count"])
+        saved_mu = torch.from_numpy(z["opt/mu_table"]).to(dev)
+    wcfg = config(optimizer="adam", model_file=adam_dir,
+                  train_files=[short])
+    warm = Trainer(wcfg)
+    check(saved_count == steps and int(warm.opt_state.count) == steps
+          and torch.equal(warm.opt_state.mu_table, saved_mu),
+          f"the warm start restored count {int(warm.opt_state.count)} "
+          f"(saved {saved_count})")
+    warm_res = warm.train()["train"]
+    check(int(warm.opt_state.count) == steps + warm_res["steps"]
+          and warm_res["steps"] == DENSE_SHORT_STEPS,
+          f"the warm start ended at count {int(warm.opt_state.count)}")
+    record["warm_start"] = {"restored_count": saved_count,
+                            "count_after": int(warm.opt_state.count),
+                            "steps": warm_res["steps"]}
+    del warm, saved_mu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (4) bf16 beside f32, 4 steps -----------------------------------
+    short_runs = {}
+    for dtype in ("float32", "bfloat16"):
+        _, _, rec = run(config(
+            optimizer="adam", train_files=[short], compute_dtype=dtype,
+            model_file=os.path.join(tmp, f"dense_{dtype}")),
+            count=dtype == "bfloat16")
+        short_runs[dtype] = rec
+    bf, f32 = short_runs["bfloat16"], short_runs["float32"]
+    check_path("dense bf16", bf, DENSE_SHORT_STEPS, mode="_bf16")
+    check(bf["launches"]["fm_grad"] == 0,
+          f"the bf16 run took the f32 FmGrad: {bf['launches']}")
+    bf16_diff = abs(bf["step_logloss"][-1] - f32["step_logloss"][-1])
+    check(bf16_diff < 1e-2, f"dense bf16 last logloss "
+          f"{bf['step_logloss'][-1]} vs f32 {f32['step_logloss'][-1]}")
+    bf["f32_step_logloss"] = f32["step_logloss"]
+    bf["last_logloss_abs_diff"] = bf16_diff
+    record["bf16"] = bf
+
+    # -- (5) FFM-Criteo, 4 steps ----------------------------------------
+    w_true = rng.normal(0.0, 0.6, (13, INT_BUCKETS))
+    ffm_file = os.path.join(tmp, "dense_ffm.libsvm")
+    write_labelled(np, ffm_file, rng, DENSE_SHORT_STEPS * LINES, w_true,
+                   FFM_FIELDS)
+    fcfg = config(optimizer="adam", train_files=[ffm_file],
+                  field_num=FFM_FIELDS,
+                  model_file=os.path.join(tmp, "dense_ffm"))
+    check(fcfg.embedding_dim == 33, f"FFM-Criteo D = {fcfg.embedding_dim}")
+    ffm_trainer, _, ffm_rec = run(fcfg, count=True)
+    check_path("dense ffm", ffm_rec, DENSE_SHORT_STEPS, fm_kernels=False)
+    check(int(ffm_trainer.opt_state.count) == DENSE_SHORT_STEPS,
+          "dense ffm: Adam's count")
+    record["ffm"] = ffm_rec
+    del ffm_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (6) kernels against their plain versions, 3 steps ---------------
+    # The gradient each step applies, kernel and plain: the optimizer's
+    # input, taken from the module attribute the step calls.
+    applied = []
+    apply_dense = dense.apply_dense
+
+    def spy(cfg, model, opt_state, dw0, dtable):
+        applied.append((dw0.clone(), dtable.clone()))
+        apply_dense(cfg, model, opt_state, dw0, dtable)
+
+    dev_batches = [sparse.to_device(b, dev) for b in batches]
+    parity = {}
+    dense.apply_dense = spy
+    try:
+        for optimizer in ("adam", "adagrad"):
+            parity[optimizer] = dense_parity(
+                torch, fm, optimizers, dense, config(optimizer=optimizer),
+                dev_batches, applied)
+    finally:
+        dense.apply_dense = apply_dense
+    del applied
+    record["kernel_vs_plain"] = parity
+
+    # -- (7) the step and the whole-table update, timed -----------------
+    cfg = config(optimizer="adam")
+    V, D = cfg.vocabulary_size, cfg.embedding_dim
+    sb = next(iter(DevicePrefetcher(batches[:1], 1, "cuda", V)))
+    timing = {}
+    for graphs in (False, True):
+        trainer = Trainer(dataclasses.replace(
+            cfg, model_file=os.path.join(tmp, "dense_timed")))
+        if not graphs:
+            trainer.graph = None
+        times = []
+        for _ in range(DENSE_TIMED_STEPS):
+            t0 = time.perf_counter()
+            trainer.dispatch(sb)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        dev_ms, wall_ms, host_ms = device_times_ms(
+            torch, lambda: trainer.dispatch(sb), iters=20)
+        busy = sum(dev_ms.values())
+        key = "graphed" if graphs else "eager"
+        timing[key] = {
+            "step_p50_ms": p50(times[2:]) * 1e3,
+            "device_busy_ms": busy,
+            "device_idle_frac": max(0.0, 1.0 - busy / wall_ms),
+            "device_ms_by_op": dict(sorted(
+                dev_ms.items(), key=lambda kv: -kv[1])[:12]),
+            "host_self_ms_top10": host_ms,
+        }
+        if graphs:
+            check(trainer.graph_dispatches > 0, "the timed step never "
+                  "replayed its graph")
+            timing[key]["graph_pool_bytes"] = trainer.graph.pool_bytes()
+        del trainer
+        gc.collect()
+    update = {}
+    model = fm.init_params(cfg, torch.Generator(device=dev).manual_seed(8),
+                           device=dev)
+    dtable = torch.randn((V, D), device=dev) * 1e-3
+    dw0 = torch.tensor(1e-3, device=dev)
+    for optimizer in ("adam", "adagrad"):
+        ocfg = config(optimizer=optimizer)
+        opt = optimizers.init_dense_opt_state(ocfg, model)
+
+        def step(ocfg=ocfg, opt=opt):
+            optimizers.apply_dense(ocfg, model, opt, dw0, dtable)
+
+        by_op, _, _ = device_times_ms(torch, step, iters=20)
+        b_ms, b_by = dense_update_bound_ms(optimizer, V, D)
+        ms = graph_ms(torch, step, calls=20)
+        update[optimizer] = {"graph_ms": ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "of_bound": b_ms / ms,
+                             "device_ms_by_op": by_op}
+        del opt
+    # The dense gradient's kernels at the step's shapes: K1's merge mode
+    # on the whole slot of a parsed batch's row gradients, K-place into
+    # the [V, D] table gradient.
+    b0 = dev_batches[0]
+    n = b0.ids.numel()
+    g_rows = torch.randn((n, D), device=dev) * 1e-3
+    g_table = torch.zeros_like(dtable)
+    lam = torch.full((D,), 2 * DENSE_LAMBDA, device=dev)
+    ids32 = b0.ids.reshape(-1)
+    meta = b0.sort_meta
+    u = int((meta.seg_start[1:] > meta.seg_start[:-1]).sum())
+    m_rows, m_sums = sparse_apply.k1_merge_cuda(g_rows, ids32, meta.perm,
+                                                meta.seg_start)
+    grad_kernels = {
+        "k1_merge": (lambda: sparse_apply.k1_merge_cuda(
+            g_rows, ids32, meta.perm, meta.seg_start),
+            k1_merge_bound_ms(n, u, D)),
+        "kplace": (lambda: sparse_apply.kplace_cuda(m_rows, m_sums, 0, V),
+                   kplace_bound_ms(u, D, V)),
+        # The full L2's closed-form term: read the gradient and the
+        # table, write the gradient; a product and a sum an element.
+        "l2_full_grad": (lambda: g_table.addcmul_(model.table.detach(), lam),
+                         bound(4 * V * D * 3, 2 * V * D)),
+    }
+    for name, (fn, (b_ms, b_by)) in grad_kernels.items():
+        ms = graph_ms(torch, fn, calls=20)
+        update[name] = {"graph_ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+    del model, dtable, g_rows, g_table, m_rows, m_sums, dev_batches, sb
+    gc.collect()
+    torch.cuda.empty_cache()
+    timing["unique_rows"] = u
+    timing["update"] = update
+    record["step"] = timing
+    return record, launches
 
 
 def rank_main(argv) -> int:
@@ -3685,14 +4192,41 @@ def main() -> int:
           "with no [V, D] allocation, in fp32, bf16 and int8 cold rows",
           flush=True)
     phase_end("tiered")
-    tmp_ctx.cleanup()  # the main run's files, which path 8 reads again
+
+    # -- dense phase (path 9): the dense optax path ---------------------
+    dense_rec, dense_launches = dense_phase(
+        np, torch, card, rng, train_files, valid_file, predict_file,
+        batches, tmp, kernels)
+    print(json.dumps({"dense": dense_rec}), flush=True)
+    step_rec = dense_rec["step"]
+    print("dense (" + card + "): " + json.dumps({
+        "step_p50_ms": {k: step_rec[k]["step_p50_ms"]
+                        for k in ("graphed", "eager")},
+        "update_ms": {k: step_rec["update"][k]["graph_ms"]
+                      for k in ("adam", "adagrad")},
+        "update_bound_ms": {k: step_rec["update"][k]["bound_ms"]
+                            for k in ("adam", "adagrad")},
+        "peak_device_mb": {k: [r["peak_device_mb"], r["peak_added_device_mb"]]
+                           for k, r in dense_rec["runs"].items()},
+        "dispatches": {k: [r["graph_dispatches"], r["eager_dispatches"]]
+                       for k, r in dense_rec["runs"].items()},
+    }), flush=True)
+    print("dense check: Adam and Adagrad graphed bitwise their eager "
+          "twins (table, moments, count); FmScorer, FmGrad, K1 merge and "
+          "K-place once a step, no K1 dedup or K2; kernels within the "
+          "bounds of their plain versions over 3 steps; validation, CLI "
+          "predict and /score of params.npz; the warm start continues at "
+          "the saved count; bf16 near f32; FFM-Criteo at D = 33",
+          flush=True)
+    phase_end("dense")
+    tmp_ctx.cleanup()  # the main run's files, which paths 8 and 9 read
 
     # Launches on the main paths: train (path 1), serve (paths 2, 6 and
     # 7, with path 8 the only fm_scores count), the sharded runs' ranks
     # (path 3), the probe (path 4, the only K2T and K2P counts), the
-    # bf16 train run (path 1 with compute_dtype = bfloat16, the only
-    # count of the bf16 modes) and the tiered runs (path 8: training,
-    # and the fp32 bench run's serving).
+    # bf16 train run (path 1 with compute_dtype = bfloat16), the tiered
+    # runs (path 8: training, and the fp32 bench run's serving) and the
+    # dense runs (path 9).
     launches = {name: train_launches[name] + sharded_launches[name]
                 for name in kernels}
     for name in ("fm_grad", "k1_dedup", "k2_apply"):  # path 8
@@ -3707,6 +4241,12 @@ def main() -> int:
         launches[name] = probe_launches[name]
     for name in ("k1_dedup", "k2_apply"):  # path 5, at D = 33
         launches[f"{name}_d33"] = ffm_launches[name]
+    # Path 9, the dense optax path: FmScorer (steps, validation, predict,
+    # serve) and FmGrad in both modes, K1's merge mode and K-place (the
+    # FFM-Criteo run's at D = 33 among them).
+    for name in ("fm_scores", "fm_grad", "fm_scores_bf16", "fm_grad_bf16",
+                 "k1_merge", "kplace"):
+        launches[name] += dense_launches[name]
     sources = {
         "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
         "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),

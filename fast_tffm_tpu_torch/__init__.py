@@ -7,8 +7,9 @@ interaction, its backward and the sparse optimizer apply run
 hand-written CUDA kernels (``ops/csrc``), on the CPU their plain
 PyTorch versions.
 
-``python -m fast_tffm_tpu_torch.cli train|predict|serve <cfg>``: sparse
-single-device training (``train/loop.py``), offline predict and a
+``python -m fast_tffm_tpu_torch.cli train|predict|serve <cfg>``:
+training (``train/loop.py``: the sparse step on one device or a rank
+mesh, the dense optax path on one device), offline predict and a
 single-replica scoring server (``serve/server.py``).  What is not
 ported yet is in ROADMAP.md's port queue.
 """

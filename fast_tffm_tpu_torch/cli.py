@@ -2,10 +2,11 @@
 the PyTorch port's entry point, taking the same INI files as
 ``run_tffm.py``.
 
-``train`` runs the sparse trainer (``train/loop.py``) and prints its
-train and validation metrics; ``predict`` writes one score per line of
-``predict_files`` to ``score_path``; ``serve`` starts the scoring
-endpoint.  ``predict`` and ``serve`` read ``params.npz``, ``quant.npz``
+``train`` runs the trainer (``train/loop.py``: the sparse step, or the
+dense optax path for ``sparse_update = false``, Adam or ``l2_mode =
+full``) and prints its train and validation metrics; ``predict`` writes
+one score per line of ``predict_files`` to ``score_path``; ``serve``
+starts the scoring endpoint.  ``predict`` and ``serve`` read ``params.npz``, ``quant.npz``
 (``--serve_table_dtype bf16|int8``) or a ``tiered.npz`` overlay; the
 checkpoints convert with ``python -m
 fast_tffm_tpu_torch.tools.convert_checkpoint``.  Runs on the GPU unless

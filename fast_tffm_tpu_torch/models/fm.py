@@ -28,7 +28,8 @@ from fast_tffm_tpu_torch.platform import resolve_device
 __all__ = [
     "FmModel", "example_losses", "ffm_scores_from_rows", "fm_scores",
     "fm_scores_dequant", "init_params",
-    "interaction_terms", "l2_penalty_batch", "scores_from_rows",
+    "interaction_terms", "l2_penalty_batch", "l2_penalty_full",
+    "scores_from_rows",
     "scores_from_terms",
 ]
 
@@ -176,3 +177,15 @@ def l2_penalty_batch(w0: torch.Tensor, rows: torch.Tensor,
     w_sq = torch.sum((rows[..., :1] * mask) ** 2)
     v_sq = torch.sum((rows[..., 1:] * mask) ** 2)
     return (factor_lambda * v_sq + bias_lambda * (w_sq + w0 ** 2)) / b
+
+
+def l2_penalty_full(w0: torch.Tensor, table: torch.Tensor,
+                    factor_lambda: float, bias_lambda: float) -> torch.Tensor:
+    """The exact dense L2 (``l2_mode = full``, the upstream fast_tffm's
+    ``tf.nn.l2_loss`` over the whole table): ``factor_lambda * sum v^2 +
+    bias_lambda * (sum w^2 + w0^2)`` over every row, not divided by the
+    batch size.  The dense step adds its gradient in closed form
+    (``train/dense.py``)."""
+    w_sq = torch.sum(table[:, 0] ** 2)
+    v_sq = torch.sum(table[:, 1:] ** 2)
+    return factor_lambda * v_sq + bias_lambda * (w_sq + w0 ** 2)

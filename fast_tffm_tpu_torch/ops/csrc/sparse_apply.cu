@@ -86,7 +86,8 @@
 // id load in K2.
 //
 // K-place (kplace): the deduped entry stream (urows [U] ascending, as K1
-// emits them; sums [U, W]) expanded into a dense per-shard delta
+// emits them, a trailing run of -1 absent; sums [U, W]) expanded into a
+// dense per-shard delta (or the dense step's table gradient)
 // [vocab_local, W]: row urows[u] - row_lo gets sums[u], every other row
 // 0, entries outside [row_lo, row_lo + vocab_local) dropped (the
 // sentinel id of off-shard occurrences among them).  One block per tile
@@ -330,14 +331,18 @@ __global__ void __launch_bounds__(kK2Threads)
   }
 }
 
-// First index of sorted a[0..n) whose value is >= key (n when none is).
+// First index of sorted a[0..n) whose value is >= key (n when none is),
+// for a key >= 0.  A negative entry counts as past every key: K1's rows
+// on the whole slot end in a run of -1, which thereby sorts last and
+// falls in no tile.
 __device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
                                            int64_t key) {
   int lo = 0;
   int hi = n;
   while (lo < hi) {
     const int mid = lo + (hi - lo) / 2;
-    if (static_cast<int64_t>(a[mid]) < key) {
+    const int v = a[mid];
+    if (v >= 0 && static_cast<int64_t>(v) < key) {
       lo = mid + 1;
     } else {
       hi = mid;

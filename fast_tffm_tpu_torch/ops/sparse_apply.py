@@ -27,6 +27,11 @@ and K2 skips a row ``-1``.  Every shape and grid then depends on ``n``
 alone and no host value of U is read, which a CUDA graph of the train
 step needs (``train/dispatch.py``).
 
+The dense step (``train/dense.py``) builds its ``[V, D]`` table gradient
+with :func:`dense_grad`: K1's merge mode over the batch's sort meta (the
+whole slot too: K-place takes its trailing rows -1 as absent), then
+K-place.
+
 The sharded step (``train/shardmap_step.py``) exchanges those sums over
 the data axis one of two ways (:func:`resolve_exchange`):
 
@@ -65,7 +70,8 @@ from fast_tffm_tpu_torch.ops import _build
 
 __all__ = [
     "CHUNK", "K1_SHORT", "OPTIMIZERS", "TILE", "Hyper", "adagrad_update",
-    "apply", "dedup_entries", "dense_delta", "entries_cap", "ftrl_solve",
+    "apply", "dedup_entries", "dense_delta", "dense_grad", "entries_cap",
+    "ftrl_solve",
     "ftrl_update", "k1_dedup_cuda", "k1_dedup_plain", "k1_error_bound",
     "k1_merge_cuda", "k1_merge_plain", "k2_apply_cuda", "k2_apply_plain",
     "kplace_cuda", "kplace_plain", "merge_entries", "resolve_exchange",
@@ -426,7 +432,7 @@ def _check_kplace(urows, sums, row_lo, vocab_local) -> None:
 def kplace_plain(urows, sums, row_lo: int, vocab_local: int):
     """Plain K-place (any device): ``delta [vocab_local, W]``, zeros
     with ``sums[u]`` copied to row ``urows[u] - row_lo`` for every entry
-    in ``[row_lo, row_lo + vocab_local)``."""
+    in ``[row_lo, row_lo + vocab_local)`` (a row -1 never is)."""
     # Entries outside the shard go to a spare last row, dropped after:
     # no boolean indexing, so no host sync (a CUDA graph can hold it).
     idx = urows.long() - row_lo
@@ -442,7 +448,9 @@ def kplace_cuda(urows, sums, row_lo: int, vocab_local: int):
     entries found by binary search in the ascending ``urows``, each
     output byte written once), on the current stream; CPU tensors take
     :func:`kplace_plain`.  ``urows`` must be ascending and unique, as K1
-    emits them.  Returns ``delta [vocab_local, W]`` f32."""
+    emits them, but for a trailing run of rows -1 (K1's on the whole
+    slot, past the batch's unique ids), which are absent: their sums are
+    never read.  Returns ``delta [vocab_local, W]`` f32."""
     _check_kplace(urows, sums, row_lo, vocab_local)
     if sums.device.type == "cpu":
         return kplace_plain(urows, sums, row_lo, vocab_local)
@@ -567,6 +575,25 @@ def dense_delta(ids, g_rows, *, vocab_local: int, row_lo: int):
     urows, sums = k1_dedup_cuda(g_rows.contiguous(), ids, meta.perm,
                                 meta.seg_start)
     return kplace_cuda(urows, sums, row_lo, vocab_local)
+
+
+def dense_grad(ids, g_rows, vocab: int, meta: Optional[SortMeta] = None,
+               plain: bool = False):
+    """The dense gradient ``[vocab, D]`` of per-occurrence row gradients
+    ``g_rows [n, D]`` at the flat ids ``ids [n]`` (the transpose of the
+    gather): K1's merge mode sums each id's occurrences in sorted order,
+    then K-place writes the sums into rows of zeros.  ``meta`` is the
+    host prep for these ids (its ``seg_start`` cut or the whole slot);
+    None sorts on the device.  No float atomics, so the result is
+    deterministic.  ``plain=True`` runs the plain versions on any
+    device."""
+    ids = ids.reshape(-1).to(torch.int32).contiguous()
+    if meta is None:
+        meta = sort_meta(ids)
+    k1 = k1_merge_plain if plain else k1_merge_cuda
+    place = kplace_plain if plain else kplace_cuda
+    urows, sums = k1(g_rows.contiguous(), ids, meta.perm, meta.seg_start)
+    return place(urows, sums, 0, vocab)
 
 
 # ------------------------------------------------------------ orchestration

@@ -1,1 +1,2 @@
-"""Training: the sparse step, metrics, the trainer and its checkpoint."""
+"""Training: the sparse and dense steps, the dense optimizers, metrics,
+the trainer and its checkpoint."""

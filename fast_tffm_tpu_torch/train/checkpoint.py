@@ -9,12 +9,17 @@ conventions of the reference's ``quant.npz``
     scalar/w0     float32 global bias (0-d)
     params/table  float32 [vocab, D] table
 
-A trainer's save adds its sparse optimizer state, so a warm start
-resumes exactly (serving reads only the keys above):
+A trainer's save adds its optimizer state, so a warm start resumes
+exactly (serving reads only the keys above).  The sparse and the dense
+step (``train/optimizers.py``) keep Adagrad's and FTRL's state with one
+meaning, so either warm-starts from the other's file:
 
-    opt/acc_w0, opt/acc_table                 Adagrad
+    opt/acc_w0, opt/acc_table                 Adagrad (optax's
+                                              sum_of_squares when dense)
     opt/z_w0, opt/z_table, opt/n_w0, opt/n_table   FTRL
     (none)                                    SGD
+    opt/mu_w0, opt/mu_table, opt/nu_w0, opt/nu_table   Adam (dense only)
+    opt/count                        int32    Adam's step count
 
 Beside it a trainer writes ``data_state.json``, the input position of
 the saved step (the reference's keys: ``epoch``, ``batches_done`` and
@@ -70,6 +75,7 @@ from fast_tffm_tpu_torch.parallel.mesh import (
     MODEL_AXIS, Mesh, barrier, gather,
 )
 from fast_tffm_tpu_torch.platform import resolve_device
+from fast_tffm_tpu_torch.train.optimizers import AdamState
 from fast_tffm_tpu_torch.train.sparse import SparseAdagradState, SparseFtrlState
 from fast_tffm_tpu_torch.weights import from_jax, to_numpy
 
@@ -85,7 +91,15 @@ _OPT_KEYS = {
     "adagrad": (SparseAdagradState, ("opt/acc_w0", "opt/acc_table")),
     "ftrl": (SparseFtrlState,
              ("opt/z_w0", "opt/z_table", "opt/n_w0", "opt/n_table")),
+    "adam": (AdamState, ("opt/mu_w0", "opt/mu_table", "opt/nu_w0",
+                         "opt/nu_table", "opt/count")),
 }
+
+
+def _host(a) -> np.ndarray:
+    """An optimizer leaf as saved: float32, or int32 for Adam's count."""
+    a = np.asarray(a)
+    return np.array(a, np.int32 if a.dtype.kind in "iu" else np.float32)
 
 
 def params_path(model_file: str) -> str:
@@ -112,7 +126,7 @@ def exists(model_file: str) -> bool:
 def save_params(model_file: str, model: FmModel, step: int = 0,
                 opt_state=None, data_state: Optional[dict] = None) -> str:
     """Write ``params.npz`` atomically (temp file + rename), with the
-    sparse optimizer state when given, removes a stale ``quant.npz`` and
+    optimizer state when given, removes a stale ``quant.npz`` and
     ``tiered.npz``, then writes ``data_state.json`` when given; returns
     the params' path."""
     path = params_path(model_file)
@@ -126,8 +140,7 @@ def save_params(model_file: str, model: FmModel, step: int = 0,
     for kind, keys in _OPT_KEYS.values():
         if isinstance(opt_state, kind):
             for key, t in zip(keys, opt_state):
-                arrays[key] = np.asarray(t.detach().cpu().numpy(),
-                                         np.float32)
+                arrays[key] = _host(t.detach().cpu().numpy())
     _write_npz(path, arrays)
     # params.npz is the checkpoint now: a stale overlay or quantized
     # table must not shadow it (the readers check those first).
@@ -213,8 +226,8 @@ def restore_params(
 def restore_host(model_file: str, optimizer: str) -> tuple:
     """``(step, w0, table, opt)`` from ``params.npz`` as host numpy, never
     on a device (the tiered trainer's warm start): ``opt`` is the
-    ``optimizer``'s sparse state over numpy arrays, ``()`` for SGD, or
-    None when the file holds none for it."""
+    ``optimizer``'s state over numpy arrays, ``()`` for SGD, or None
+    when the file holds none for it."""
     with np.load(params_path(model_file), allow_pickle=False) as z:
         step = int(z["scalar/step"])
         w0 = np.float32(z["scalar/w0"])
@@ -225,7 +238,7 @@ def restore_host(model_file: str, optimizer: str) -> tuple:
         else:
             kind, keys = _OPT_KEYS[optimizer]
             if all(k in z.files for k in keys):
-                opt = kind(*(np.array(z[k], np.float32) for k in keys))
+                opt = kind(*(_host(z[k]) for k in keys))
     return step, w0, table, opt
 
 
@@ -234,10 +247,10 @@ def restore_opt_state(
     device: Optional[Union[str, torch.device]] = None,
     rows: Optional[slice] = None,
 ):
-    """The ``optimizer``'s sparse state from ``params.npz`` on
-    ``device``, its tables cut to ``rows`` when given, ``()`` for SGD,
-    or None when the file holds none for this optimizer (a serving-only
-    checkpoint, or another optimizer's)."""
+    """The ``optimizer``'s state from ``params.npz`` on ``device``, its
+    tables cut to ``rows`` when given, ``()`` for SGD, or None when the
+    file holds none for this optimizer (a serving-only checkpoint, or
+    another optimizer's)."""
     if optimizer == "sgd":
         return ()
     kind, keys = _OPT_KEYS[optimizer]
@@ -248,8 +261,7 @@ def restore_opt_state(
         arrays = [z[k] for k in keys]
     if rows is not None:
         arrays = [a[rows] if a.ndim == 2 else a for a in arrays]
-    return kind(*(torch.from_numpy(np.array(a, np.float32)).to(dev)
-                  for a in arrays))
+    return kind(*(torch.from_numpy(_host(a)).to(dev) for a in arrays))
 
 
 # ----------------------------------------------------------------------

@@ -3,13 +3,13 @@ the reference's ``make_scan_train_step`` (``fast_tffm_tpu/train/loop.py``),
 which compiles the K steps of a super-batch into one device program under
 ``lax.scan``, with no host round trip between them.
 
-:class:`GraphedSteps` holds that program for the single-device sparse step
-with the host sort meta (``host_sort = true``, the default):
+:class:`GraphedSteps` holds that program for the single-device sparse or
+dense step with the host sort meta (``host_sort = true``, the default):
 
 - **The step it captures** is the trainer's own: ``steps(sb)`` runs the K
   steps of a super-batch on its views (``SuperBatch.step``: the whole
-  ``seg_start`` slot, so no shape of K1's or K2's depends on a batch's
-  unique count), with the metrics updated
+  ``seg_start`` slot, so no shape of K1's, K2's or K-place's depends on
+  a batch's unique count), with the metrics updated
   in place.  Nothing in it reads the device from the host.  The eager
   dispatches run the same function, so a replay is bitwise the K eager
   steps it stands for (the AUC histogram's float atomics are exact for
@@ -70,6 +70,8 @@ COUNTERS = (
     (fm_kernels.fm_grad_cuda, "launches_bf16"),
     (sparse_apply.k1_dedup_cuda, "launches"),
     (sparse_apply.k2_apply_cuda, "launches"),
+    (sparse_apply.k1_merge_cuda, "launches"),
+    (sparse_apply.kplace_cuda, "launches"),
 )
 
 

@@ -1,6 +1,6 @@
 """Training loop and offline predict — the counterpart of
-``fast_tffm_tpu/train/loop.py`` for the sparse path, on one device or
-on a rank mesh.
+``fast_tffm_tpu/train/loop.py``: the sparse path on one device or on a
+rank mesh, and the dense path on one device.
 
 :class:`Trainer` initialises the model (or warm-starts it, optimizer
 state included, from ``<model_file>/params.npz``).  :meth:`Trainer.train`
@@ -30,6 +30,16 @@ same steps eagerly, and ``train()`` reports the split
 and save cadences are checked after each super-batch, and an epoch's
 tail ships as a short one.  Streaming logloss/AUC accumulate on the
 device, in place, and are read back only at those cadences.
+
+The sparse/dense choice is the reference's (``Trainer.sparse``):
+``sparse_update = true`` with a row-local optimizer and L2 runs the
+sparse step; ``sparse_update = false``, ``optimizer = adam`` or
+``l2_mode = full`` with a lambda runs :func:`train.dense.dense_step`
+(the whole table's gradient and optimizer update every step, optax's
+equations in ``train/optimizers.py``), after a log line when
+``sparse_update = true`` asked otherwise.  It is dispatched, graphed,
+saved (with its optimizer state) and restored like the sparse step, on
+one device.
 
 Every save writes ``data_state.json`` beside ``params.npz``: the epoch
 and the batches of it that trained (always a super-batch boundary), and
@@ -98,7 +108,9 @@ from fast_tffm_tpu_torch.parallel.mesh import (
 from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.train import checkpoint, metrics as metrics_lib
 from fast_tffm_tpu_torch.train import tiered as tiered_lib
+from fast_tffm_tpu_torch.train.dense import dense_step
 from fast_tffm_tpu_torch.train.dispatch import GraphedSteps
+from fast_tffm_tpu_torch.train.optimizers import init_dense_opt_state
 from fast_tffm_tpu_torch.train.shardmap_step import (
     exchange_mode, local_scores, sparse_step_shardmap, supports_shardmap,
 )
@@ -124,6 +136,10 @@ _INERT_PLANES = (
     ("alert_rules", "alerts"),
     ("profile_dir", "profiler"),
 )
+# Interaction choices of the reference (its autotune, ROADMAP.md port
+# queue item 4): the port always runs its kernels, so none changes a
+# parameter.
+_INERT_INTERACTION = ("interaction", "interaction_impl", "use_pallas")
 
 
 def _multi_rank(cfg: FmConfig) -> bool:
@@ -136,12 +152,20 @@ def _multi_rank(cfg: FmConfig) -> bool:
     )
 
 
+def _sparse(cfg: FmConfig) -> bool:
+    """The reference's choice: the sparse step when asked for and the
+    optimizer and L2 are row-local, else the dense optax path."""
+    return bool(cfg.sparse_update) and supports_sparse(cfg)
+
+
 def _check_supported(cfg: FmConfig) -> None:
     unported = []
-    if not cfg.sparse_update or not supports_sparse(cfg):
+    if not _sparse(cfg) and _multi_rank(cfg):
+        # The reference's dense step on a mesh is GSPMD's partitioning.
         unported.append((
-            f"the dense optax path (sparse_update={cfg.sparse_update}, "
-            f"optimizer={cfg.optimizer}, l2_mode={cfg.l2_mode})", 7,
+            f"the dense optax path on a rank mesh (sparse_update="
+            f"{cfg.sparse_update}, optimizer={cfg.optimizer}, l2_mode="
+            f"{cfg.l2_mode}; the reference's GSPMD step)", 3,
         ))
     if cfg.field_num > 0 and _multi_rank(cfg):
         # The reference's sharded step has its own FFM closed form
@@ -183,6 +207,15 @@ def _check_supported(cfg: FmConfig) -> None:
             "(ROADMAP.md port queue item 4; parameters are unaffected): %s",
             ", ".join(inert),
         )
+    defaults = FmConfig()
+    knobs = [k for k in _INERT_INTERACTION
+             if getattr(cfg, k) != getattr(defaults, k)]
+    if knobs:
+        log.info(
+            "the PyTorch port's trainer always runs its kernels and does "
+            "not act on %s (ROADMAP.md port queue item 4; parameters are "
+            "unaffected)", ", ".join(knobs),
+        )
 
 
 def _tiered_device_config(cfg: FmConfig) -> FmConfig:
@@ -190,7 +223,7 @@ def _tiered_device_config(cfg: FmConfig) -> FmConfig:
     is built from: ``vocabulary_size`` the hot table's rows (ingest keeps
     the logical vocabulary), after the reference's refusals
     (``fast_tffm_tpu/train/loop.py``, ``Trainer.__init__``)."""
-    if not cfg.sparse_update or not supports_sparse(cfg):
+    if not _sparse(cfg):
         raise ValueError(
             "table_tiering=on requires the sparse update path "
             "(optimizer in adagrad/ftrl/sgd with batch-mode L2): "
@@ -315,9 +348,10 @@ class MetricState(NamedTuple):
 
 
 class Trainer:
-    """Drives sparse training per an :class:`FmConfig`, on ``device``
-    (the GPU unless asked otherwise): on one device, or as this rank of
-    the config's mesh once ``train.dist.initialize`` has run."""
+    """Drives sparse or dense training per an :class:`FmConfig`, on
+    ``device`` (the GPU unless asked otherwise): on one device, or (the
+    sparse step) as this rank of the config's mesh once
+    ``train.dist.initialize`` has run."""
 
     def __init__(self, cfg: FmConfig,
                  device: Optional[Union[str, torch.device]] = None):
@@ -328,6 +362,12 @@ class Trainer:
                      if cfg.table_tiering == "on" else cfg)
         _check_supported(cfg)
         self.cfg = cfg
+        self.sparse = _sparse(cfg)
+        if cfg.sparse_update and not self.sparse:
+            log.info(
+                "sparse_update unsupported for optimizer=%s l2_mode=%s; "
+                "using dense optax path", cfg.optimizer, cfg.l2_mode,
+            )
         self.device = resolve_device(device)
         self.mesh = make_mesh(cfg)
         _check_mesh(cfg, self.mesh)
@@ -393,6 +433,8 @@ class Trainer:
                 "(python -m fast_tffm_tpu_torch.tools.convert_checkpoint "
                 "<dir> --to fp32), or point model_file somewhere fresh"
             )
+        init_opt = (init_sparse_opt_state if self.sparse
+                    else init_dense_opt_state)
         if checkpoint.exists(cfg.model_file):
             log.info("warm-starting from %s", cfg.model_file)
             step, model = checkpoint.restore_params(
@@ -405,14 +447,14 @@ class Trainer:
             if opt is None:
                 log.info("checkpoint holds no %s state; initialising it",
                          cfg.optimizer)
-                opt = init_sparse_opt_state(cfg, model)
+                opt = init_opt(cfg, model)
             return model, opt, step
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         model = fm.init_params(cfg, gen, device=self.device)
         if rows is not None:
             model = fm.FmModel(model.w0.detach(),
                                model.table.detach()[rows].clone())
-        return model, init_sparse_opt_state(cfg, model), 0
+        return model, init_opt(cfg, model), 0
 
     def _init_or_restore_tiered(self):
         """The HOT device state and the host :class:`tiered_lib.
@@ -604,8 +646,8 @@ class Trainer:
                                           self.opt_state, dev_batch,
                                           self.mesh)
         else:
-            scores = sparse_step(self.cfg, self.model, self.opt_state,
-                                 dev_batch)
+            step = sparse_step if self.sparse else dense_step
+            scores = step(self.cfg, self.model, self.opt_state, dev_batch)
         lsum, wsum = self.metrics.add_(scores, dev_batch, self.cfg.loss_type)
         return lsum / torch.clamp(wsum, min=1e-12)
 

@@ -130,7 +130,7 @@ def sparse_step_shardmap(cfg: FmConfig, model_l: FmModel, opt_state_l,
     if cfg.field_num:
         raise NotImplementedError(
             "field_num > 0 on the sharded step is ROADMAP.md port queue "
-            "item 2"
+            "item 3"
         )
     table_l = model_l.table
     d = table_l.shape[1]

@@ -43,8 +43,8 @@ from fast_tffm_tpu_torch.ops import interaction, sparse_apply
 
 __all__ = [
     "ADAGRAD_EPS", "SparseAdagradState", "SparseFtrlState", "apply_w0",
-    "hyper", "init_sparse_opt_state", "opt_tables", "rows_loss",
-    "sparse_step", "supports_sparse", "to_device",
+    "hyper", "init_sparse_opt_state", "opt_tables", "row_grads",
+    "rows_loss", "sparse_step", "supports_sparse", "to_device",
 ]
 
 ADAGRAD_EPS = 1e-7  # matches optax.adagrad's default eps
@@ -131,7 +131,8 @@ def to_device(batch: Batch, device) -> Batch:
 def rows_loss(cfg: FmConfig, w0: torch.Tensor, rows: torch.Tensor,
               batch: Batch, plain: bool = False):
     """``(loss, scores)`` over gathered f32 rows: the weighted data loss
-    plus the batch L2 (``fast_tffm_tpu/train/sparse.py::_rows_loss_fn``).
+    plus the batch L2 (``fast_tffm_tpu/train/sparse.py::_rows_loss_fn``;
+    ``l2_mode = full`` is the dense step's, ``train/dense.py``).
     With ``compute_dtype = bfloat16`` the interaction sees the rows and
     values rounded to bf16; the casts are inside autograd, so the bf16
     row gradient comes back f32 through the cast's backward, and the
@@ -153,7 +154,7 @@ def rows_loss(cfg: FmConfig, w0: torch.Tensor, rows: torch.Tensor,
     per_ex = fm.example_losses(scores, batch.labels, cfg.loss_type)
     wsum = torch.clamp(torch.sum(batch.weights), min=1e-12)
     loss = torch.sum(per_ex * batch.weights) / wsum
-    if cfg.factor_lambda or cfg.bias_lambda:
+    if cfg.l2_mode == "batch" and (cfg.factor_lambda or cfg.bias_lambda):
         loss = loss + fm.l2_penalty_batch(
             w0, rows, batch.vals, cfg.factor_lambda, cfg.bias_lambda
         )
@@ -182,13 +183,11 @@ def apply_w0(cfg: FmConfig, model: FmModel, opt_state,
         w0.copy_(w0 - lr * dw0)
 
 
-def sparse_step(cfg: FmConfig, model: FmModel, opt_state, batch: Batch,
-                plain: bool = False) -> torch.Tensor:
-    """One sparse train step on a device :class:`Batch` (see
-    :func:`to_device`): updates ``model`` and ``opt_state`` in place and
-    returns the step's raw scores ``[B]``.  The batch's ``sort_meta`` is
-    used when present, else the ids are sorted on the device.
-    ``plain=True`` runs the kernels' plain versions on any device."""
+def row_grads(cfg: FmConfig, model: FmModel, batch: Batch,
+              plain: bool = False) -> tuple:
+    """``(scores [B], dw0 [], drows [B*F, D])``: the batch's rows gathered
+    once as a detached leaf and :func:`rows_loss` differentiated with
+    respect to ``w0`` and them (never the table), per occurrence."""
     table = model.table
     b, f = batch.ids.shape
     d = table.shape[1]
@@ -199,11 +198,21 @@ def sparse_step(cfg: FmConfig, model: FmModel, opt_state, batch: Batch,
     with torch.enable_grad():
         loss, scores = rows_loss(cfg, w0, rows, batch, plain)
         dw0, drows = torch.autograd.grad(loss, (w0, rows))
+    return scores.detach(), dw0, drows.reshape(b * f, d)
+
+
+def sparse_step(cfg: FmConfig, model: FmModel, opt_state, batch: Batch,
+                plain: bool = False) -> torch.Tensor:
+    """One sparse train step on a device :class:`Batch` (see
+    :func:`to_device`): updates ``model`` and ``opt_state`` in place and
+    returns the step's raw scores ``[B]``.  The batch's ``sort_meta`` is
+    used when present, else the ids are sorted on the device.
+    ``plain=True`` runs the kernels' plain versions on any device."""
+    scores, dw0, drows = row_grads(cfg, model, batch, plain)
     with torch.no_grad():
         sparse_apply.apply(
-            cfg.optimizer, (table,) + opt_tables(opt_state), batch.ids,
-            drows.reshape(b * f, d), hyper(cfg), meta=batch.sort_meta,
-            plain=plain,
+            cfg.optimizer, (model.table,) + opt_tables(opt_state), batch.ids,
+            drows, hyper(cfg), meta=batch.sort_meta, plain=plain,
         )
         apply_w0(cfg, model, opt_state, dw0)
-    return scores.detach()
+    return scores

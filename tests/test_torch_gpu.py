@@ -1423,3 +1423,163 @@ def test_tiered_run_matches_the_dense_run_on_the_gpu(gpu, tmp_path,
     for a, b in zip(merged, dense):
         np.testing.assert_array_equal(a, b.detach().cpu().numpy())
     assert float(t.model.w0.detach()) == float(d.model.w0.detach())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, unique, hot", [(20000, 3001, 5000),
+                                            (4096, 4096, 0), (3, 2, 0)])
+def test_kplace_takes_a_whole_slot_k1_stream(gpu, n, unique, hot):
+    """K1's merge mode on the whole ``[n + 1]`` slot ends its rows in a
+    run of -1 (their sums unwritten); K-place takes those rows as absent:
+    its delta is bitwise the cut slot's and the plain version's, on the
+    whole table and on a shard that starts past row 0."""
+    rng = np.random.default_rng(n + 1)
+    d, vocab = 9, 1 << 14
+    pool = rng.choice(vocab, unique, replace=False)
+    ids = pool[rng.integers(0, unique, n)].astype(np.int32)
+    ids[:hot] = 77
+    meta = host_sort_meta(ids)
+    u = meta.seg_start.shape[0] - 1
+    full = np.full((n + 1,), n, np.int32)
+    full[:u + 1] = meta.seg_start
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(gpu)  # noqa: E731
+    g = put(rng.normal(0.0, 0.1, (n, d)).astype(np.float32))
+    ids_d, perm = put(ids), put(meta.perm)
+    w_rows, w_sums = sparse_apply.k1_merge_cuda(g, ids_d, perm, put(full))
+    c_rows, c_sums = sparse_apply.k1_merge_cuda(g, ids_d, perm,
+                                                put(meta.seg_start))
+    torch.cuda.synchronize()
+    assert w_rows.shape == (n,) and bool((w_rows[u:] == -1).all())
+    assert torch.equal(w_rows[:u], c_rows)
+    for row_lo, local in ((0, vocab), (40, vocab - 40)):
+        whole = sparse_apply.kplace_cuda(w_rows, w_sums, row_lo, local)
+        cut = sparse_apply.kplace_cuda(c_rows, c_sums, row_lo, local)
+        plain = sparse_apply.kplace_plain(w_rows, w_sums, row_lo, local)
+        torch.cuda.synchronize()
+        assert torch.equal(whole, cut) and torch.equal(whole, plain)
+
+
+def _dense_cfg(tmp_path, optimizer, dtype, k, l2_mode="full"):
+    return dataclasses.replace(
+        _dispatch_cfg(tmp_path, optimizer, dtype, k), sparse_update=False,
+        l2_mode=l2_mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer, dtype", [
+    ("adam", "float32"), ("adam", "bfloat16"), ("adagrad", "float32"),
+    ("ftrl", "float32"), ("sgd", "float32")])
+def test_dense_graphed_dispatch_is_bitwise_the_eager_one(gpu, tmp_path,
+                                                         optimizer, dtype):
+    """The dense step (full L2) over nine batches at K = 4: two full
+    super-batches (the first eager and captured, the second a replay)
+    and a tail; tables, every optimizer leaf (Adam's count and bias
+    corrections on the device, so each replay uses its own count), w0,
+    losses and metrics bitwise the all-eager run's.  Each step launches
+    FmScorer, FmGrad, K1's merge mode and K-place once, K1 dedup and K2
+    never."""
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.train.dispatch import COUNTERS
+
+    cfg = _dense_cfg(tmp_path, optimizer, dtype, 4)
+    host = _host_batches(9, vocab=cfg.vocabulary_size)
+    runs = []
+    for graphs in (True, False):
+        trainer = _trainer(cfg, gpu, graphs)
+        assert not trainer.sparse
+        counts = [getattr(fn, attr) for fn, attr in COUNTERS]
+        losses = [trainer.dispatch(sb).clone() for sb in DevicePrefetcher(
+            host, 4, gpu, cfg.vocabulary_size)]
+        torch.cuda.synchronize()
+        launched = {f"{fn.__name__}.{attr}": getattr(fn, attr) - c
+                    for (fn, attr), c in zip(COUNTERS, counts)}
+        runs.append((trainer, torch.cat(losses), launched))
+    (graphed, g_loss, g_launched), (eager, e_loss, e_launched) = runs
+    assert graphed.graph_dispatches == 1 and graphed.eager_dispatches == 2
+    assert g_launched == e_launched
+    mode = "launches_bf16" if dtype == "bfloat16" else "launches"
+    for name in (f"fm_scores_cuda.{mode}", f"fm_grad_cuda.{mode}",
+                 "k1_merge_cuda.launches", "kplace_cuda.launches"):
+        assert g_launched[name] == 9, name
+    assert g_launched["k1_dedup_cuda.launches"] == 0
+    assert g_launched["k2_apply_cuda.launches"] == 0
+    assert torch.equal(g_loss, e_loss)
+    m_g, m_e = graphed.metrics, eager.metrics
+    for a, b in zip(
+            [graphed.model.table, graphed.model.w0, *graphed.opt_state,
+             m_g.loss_sum, m_g.weight_sum, m_g.count, m_g.auc.pos],
+            [eager.model.table, eager.model.w0, *eager.opt_state,
+             m_e.loss_sum, m_e.weight_sum, m_e.count, m_e.auc.pos]):
+        assert torch.equal(a, b)
+    if optimizer == "adam":
+        assert int(graphed.opt_state.count) == 9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adam", "adagrad"])
+@pytest.mark.parametrize("l2_mode", ["batch", "full"])
+def test_dense_step_on_the_gpu_matches_the_plain_step(gpu, tmp_path,
+                                                      monkeypatch, optimizer,
+                                                      l2_mode):
+    """Three dense steps through the kernels (FmScorer, FmGrad, K1's
+    merge mode, K-place) against three through their plain versions, on
+    the card, from one table: each step's scores at the kernels' bound
+    and the gradient it applies at the tile-vs-scatter table bound.
+    Adagrad runs free: its table at that bound and its state at
+    ``atol=1e-4`` after the steps.  Adam (at a learning rate of 1e-3)
+    restarts each plain step from the kernel run's state, so a step's
+    difference is its own: its moments at ``atol=1e-4``, its count equal
+    and its table at the table bound wherever the step's two gradients
+    agree to ``rtol=1e-4``.  Adam's update ``mu / sqrt(nu)`` is
+    scale-free, so an element whose gradient nearly cancels passes its
+    whole relative rounding on; those are at most a hundredth of the
+    table."""
+    from fast_tffm_tpu_torch.models import fm
+    from fast_tffm_tpu_torch.train import dense, optimizers
+
+    cfg = _dense_cfg(tmp_path, optimizer, "float32", 1, l2_mode)
+    if optimizer == "adam":
+        cfg = dataclasses.replace(cfg, learning_rate=1e-3)
+    applied = []
+    apply_dense = dense.apply_dense
+
+    def spy(cfg, model, opt_state, dw0, dtable):
+        applied.append((dw0.clone(), dtable.clone()))
+        apply_dense(cfg, model, opt_state, dw0, dtable)
+
+    monkeypatch.setattr(dense, "apply_dense", spy)
+    init = fm.init_params(cfg, torch.Generator(device=gpu).manual_seed(3),
+                          device=gpu)
+    models = [fm.FmModel(init.w0.detach().clone(), init.table.detach().clone())
+              for _ in range(2)]
+    opts = [optimizers.init_dense_opt_state(cfg, m) for m in models]
+    leaves = [[m.table, m.w0, *o] for m, o in zip(models, opts)]
+    before = sparse_apply.kplace_cuda.launches
+    for b in _host_batches(3, vocab=cfg.vocabulary_size):
+        if optimizer == "adam":
+            with torch.no_grad():
+                for a, c in zip(*leaves):
+                    c.copy_(a)
+        dev_b = sparse.to_device(b, gpu)
+        s_k = dense.dense_step(cfg, models[0], opts[0], dev_b)
+        s_p = dense.dense_step(cfg, models[1], opts[1], dev_b, plain=True)
+        (gw_k, g_k), (gw_p, g_p) = applied[-2:]
+        torch.testing.assert_close(s_k, s_p, **TOL)
+        torch.testing.assert_close(g_k, g_p, **TABLE_TOL)
+        torch.testing.assert_close(gw_k, gw_p, **TABLE_TOL)
+        if optimizer == "adam":
+            ok = (g_k - g_p).abs() <= 1e-4 * g_p.abs()
+            assert int((~ok).sum()) <= ok.numel() // 100
+            t_k, t_p = models[0].table.detach(), models[1].table.detach()
+            torch.testing.assert_close(t_k[ok], t_p[ok], **TABLE_TOL)
+            for a, c in zip(opts[0][:4], opts[1][:4]):
+                torch.testing.assert_close(a, c, **OPT_TOL)
+            assert torch.equal(opts[0].count, opts[1].count)
+    torch.cuda.synchronize()
+    assert sparse_apply.kplace_cuda.launches == before + 3
+    if optimizer == "adagrad":
+        torch.testing.assert_close(models[0].table, models[1].table,
+                                   **TABLE_TOL)
+        torch.testing.assert_close(models[0].w0, models[1].w0, **TABLE_TOL)
+        for a, c in zip(opts[0], opts[1]):
+            torch.testing.assert_close(a, c, **OPT_TOL)

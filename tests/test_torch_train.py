@@ -11,6 +11,7 @@ tables, ``rtol=1e-5, atol=1e-7`` on w0.  The port's multi-step loop is
 held against the reference's scatter path and its K = 1 tile path.
 """
 
+import logging
 import os
 
 import numpy as np
@@ -218,8 +219,8 @@ def test_checkpoint_keeps_optimizer_state(tmp_path):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(sparse_update=False), "item 7"),
-    (dict(optimizer="adam"), "item 7"),
+    (dict(sparse_update=False, mesh_data=2), "item 3"),
+    (dict(optimizer="adam", mesh_data=2), "item 3"),
     (dict(field_num=2, mesh_data=2), "item 3"),
     (dict(mesh_data=2, compute_dtype="bfloat16"), "item 3"),
     (dict(table_tiering="on", tiered_partition="shards"), "item 3"),
@@ -228,6 +229,25 @@ def test_checkpoint_keeps_optimizer_state(tmp_path):
 def test_trainer_refuses_unported_settings(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Trainer(FmConfig(vocabulary_size=V, **kw), device="cpu")
+
+
+def test_trainer_logs_the_interaction_knobs_as_inert(caplog):
+    """``interaction`` and ``use_pallas`` choose among the reference's
+    implementations; the port always runs its kernels and says so."""
+    with caplog.at_level(logging.INFO):
+        Trainer(FmConfig(vocabulary_size=V, interaction="jnp",
+                         use_pallas=False), device="cpu")
+    assert "does not act on interaction, use_pallas" in caplog.text
+
+
+def test_sharded_step_refuses_ffm_naming_item_3():
+    """A direct caller of the sharded step gets the queue item the
+    trainer names for field-aware FM on a mesh."""
+    from fast_tffm_tpu_torch.train.shardmap_step import sparse_step_shardmap
+
+    with pytest.raises(NotImplementedError, match="item 3"):
+        sparse_step_shardmap(FmConfig(vocabulary_size=V, field_num=2), None,
+                             None, None, None)
 
 
 @pytest.mark.parametrize("optimizer", ["adagrad", "ftrl"])
