@@ -220,6 +220,28 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    gradient's K1 merge, K-place and full-L2 term at the step's shapes;
    each run's peak device memory (and over what the process held
    before it) and graph/eager dispatches.
+15. Orbax-serve phase (path 10): (a) the JAX package's Orbax
+   checkpoints committed in ``tests/data/orbax`` (FM with the sparse
+   Adagrad state, a table row-sharded over a 2 x 4 mesh, FFM with FTRL,
+   FM with Adam; written by ``tests/make_orbax_fixtures.py``), read
+   without jax and served through ``make_scorer`` in fp32 (the FM one
+   also at int8 placement): scores within ``rtol=1e-5, atol=1e-6`` of
+   the reference scorer's stored ones (int8 within 2e-2) and within
+   ``KERNEL_TOL`` of the plain path; ``cli predict`` from the FM
+   fixture; a warm start from it (table, w0 and accumulators bitwise
+   the fixture's) for 16 graphed steps, then 3 sparse steps from its
+   state through the kernels against 3 through the plain versions.  (b)
+   The hot swap at full width: phase 5's checkpoint served with
+   ``serve_poll_secs = 0.2`` while one keep-alive ``/score_bin`` client
+   posts 256 lines continuously; a trainer warm-started from it (eager:
+   it shares the server's process) trains 16 more steps and saves; the
+   watcher swaps (seconds from the publish, placement wall time), every
+   response is the old or the new table's bitwise, ``/score`` then
+   equals the new predict file; ``/reload?keep_prev=1`` of the old
+   ``params.npz``, ``/rollback``, ``/reload?keep_prev=1``,
+   ``/promote`` and a ``/rollback`` answering 409; the keep_prev
+   window's peak device memory and the dispatch p50 during and after
+   the swap.
 
 Output: progress lines and JSON records, then a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -237,6 +259,7 @@ import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1815,6 +1838,341 @@ def dense_phase(np, torch, card: str, rng, files, valid_file: str,
     timing["update"] = update
     record["step"] = timing
     return record, launches
+
+
+ORBAX_FIXTURES = os.path.join(REPO, "tests", "data", "orbax")
+ORBAX_WARM_B = 256  # the Adagrad fixture's warm start: 16 batches of it
+ORBAX_POLL_S = 0.2  # the full-width hot swap's watcher poll
+ORBAX_REQUEST_LINES = 256
+
+
+def fixture_lines(np, rng, n: int, vocab: int, feats: int = 10) -> list:
+    """Labelled ``id:val`` lines over a small vocabulary."""
+    out = []
+    for _ in range(n):
+        ids = rng.choice(vocab, size=feats, replace=False)
+        vals = rng.uniform(0.1, 1.0, feats)
+        out.append(f"{int(rng.integers(0, 2))} " + " ".join(
+            f"{i}:{v:.4f}" for i, v in zip(ids, vals)) + "\n")
+    return out
+
+
+def post_status(conn, path: str, body: bytes = b"") -> tuple:
+    conn.request("POST", path, body=body,
+                 headers={"Content-Length": str(len(body))})
+    resp = conn.getresponse()
+    return resp.status, resp.read()
+
+
+def orbax_fixtures(np, torch, rng, tmp: str, kernels: dict) -> tuple:
+    """Path 10 (a): the committed Orbax fixtures (``tests/data/orbax``,
+    written by the JAX package; read here without jax) on the card.
+    Each is served through ``make_scorer`` in fp32 (``fm_adagrad`` also
+    at int8 placement): scores within ``SERVE_TOL`` of the reference
+    scorer's stored ones (fp32) or within the int8 bound of them, and
+    within ``KERNEL_TOL`` of the plain path on the fixture's (or the
+    dequantized) rows.  ``python -m fast_tffm_tpu_torch.cli predict``
+    from ``fm_adagrad``.  A warm start from ``fm_adagrad``: the trainer's
+    initial table, w0 and accumulators bitwise the fixture's arrays, 16
+    graphed steps.  Returns the record, the launches of all that, and
+    what the kernel-vs-plain steps need (checked by the caller after the
+    count is read)."""
+    from fast_tffm_tpu_torch import cli
+    from fast_tffm_tpu_torch.config import FmConfig
+    from fast_tffm_tpu_torch.ops import quant
+    from fast_tffm_tpu_torch.serve.scorer import make_scorer
+    from fast_tffm_tpu_torch.train import checkpoint, orbax_read
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    with open(os.path.join(ORBAX_FIXTURES, "fixtures.json")) as f:
+        specs = json.load(f)
+    rec = {"served": {}}
+    zero_launches(kernels)
+    for name, spec in sorted(specs.items()):
+        model_file = os.path.join(ORBAX_FIXTURES, name)
+        req = np.load(os.path.join(ORBAX_FIXTURES, f"{name}.npz"))
+        ids, vals = req["ids"], req["vals"]
+        fields = req["fields"] if spec["cfg"]["field_num"] else None
+        step, w0, table = checkpoint.restore_arrays(model_file)
+        for dtype in ("fp32", "int8") if name == "fm_adagrad" else ("fp32",):
+            cfg = FmConfig(model_file=model_file, serve_table_dtype=dtype,
+                           quant_chunk=QUANT_CHUNK, **spec["cfg"])
+            t0 = time.perf_counter()
+            scorer = make_scorer(cfg)
+            load_s = time.perf_counter() - t0
+            check(scorer.step == spec["step"] == step,
+                  f"{name}: served step {scorer.step}")
+            got = scorer.score(ids, vals, fields)
+            rows = table[ids] if dtype == "fp32" else quant.dequantize_rows(
+                quant.quantize_table(table, "int8", QUANT_CHUNK), ids)
+            plain = plain_served(torch, w0, rows, vals, fields,
+                                 cfg.factor_num, cfg.field_num)
+            np.testing.assert_allclose(got, plain, **KERNEL_TOL)
+            dev = float(np.abs(got - req["scores"]).max())
+            if dtype == "fp32":
+                np.testing.assert_allclose(got, req["scores"], **SERVE_TOL)
+            else:
+                check(dev <= SERVE_BOUND["int8"],
+                      f"{name} int8: {dev} from the reference's fp32")
+            rec["served"][f"{name}_{dtype}"] = {
+                "step": scorer.step, "load_and_place_s": load_s,
+                "max_abs_vs_reference": dev,
+                "max_abs_vs_plain": float(np.abs(got - plain).max())}
+            del scorer
+    # The CLI's predict from the FM fixture.
+    spec = specs["fm_adagrad"]["cfg"]
+    fixture = os.path.join(ORBAX_FIXTURES, "fm_adagrad")
+    req = np.load(fixture + ".npz")
+    pred_file = os.path.join(tmp, "orbax_predict.libsvm")
+    with open(pred_file, "w") as f:
+        for row_ids, row_vals in zip(req["ids"], req["vals"]):
+            f.write("0 " + " ".join(f"{i}:{v!r}" for i, v in zip(
+                row_ids, row_vals.tolist()) if v != 0) + "\n")
+    cfg_path = os.path.join(tmp, "orbax_fixture.cfg")
+    with open(cfg_path, "w") as f:
+        f.write("[General]\n" + "".join(
+            f"{k} = {str(v).lower() if isinstance(v, bool) else v}\n"
+            for k, v in spec.items()) + f"model_file = {fixture}\n"
+            f"[Predict]\npredict_files = {pred_file}\n"
+            f"score_path = {tmp}/orbax_scores.txt\n")
+    check(cli.main(["predict", cfg_path]) == 0, "CLI predict of fm_adagrad")
+    cli_scores = np.loadtxt(os.path.join(tmp, "orbax_scores.txt"))
+    np.testing.assert_allclose(cli_scores, req["scores"], rtol=1e-5,
+                               atol=1e-6)
+    rec["cli_predict_lines"] = len(cli_scores)
+    # A warm start from the Adagrad fixture: 16 graphed steps.
+    warm_dir = os.path.join(tmp, "orbax_warm")
+    shutil.copytree(fixture, warm_dir)
+    data = os.path.join(tmp, "orbax_train.libsvm")
+    with open(data, "w") as f:
+        f.writelines(fixture_lines(np, rng, 16 * ORBAX_WARM_B,
+                                   spec["vocabulary_size"]))
+    wcfg = FmConfig(**{**spec, "model_file": warm_dir, "train_files": [data],
+                       "batch_size": ORBAX_WARM_B, "thread_num": 2,
+                       "log_steps": 0})
+    trainer = Trainer(wcfg)
+    _, want_w0, want_table, _ = orbax_read.read_params(fixture)
+    want_acc = orbax_read.read_opt(fixture, "adagrad")
+    start = {"table": trainer.model.table.detach().cpu().numpy(),
+             "w0": trainer.model.w0.detach().cpu().numpy(),
+             "acc_table": trainer.opt_state.acc_table.cpu().numpy(),
+             "acc_w0": trainer.opt_state.acc_w0.cpu().numpy()}
+    for key, want in (("table", want_table), ("w0", want_w0),
+                      ("acc_table", want_acc["acc_table"]),
+                      ("acc_w0", want_acc["acc_w0"])):
+        check(start[key].tobytes() == np.asarray(want).tobytes(),
+              f"warm start from fm_adagrad: {key} is not the fixture's")
+    check(trainer._restored_step == specs["fm_adagrad"]["step"],
+          "warm start step")
+    res = trainer.train()["train"]
+    check(res["steps"] == 16 and res["graph_dispatches"] == 15
+          and res["eager_dispatches"] == 1,
+          f"warm start: {res['steps']} steps, {res['graph_dispatches']} "
+          f"graphed, {res['eager_dispatches']} eager")
+    torch.cuda.synchronize()
+    rec["warm_start"] = {"steps": res["steps"],
+                         "graph_dispatches": res["graph_dispatches"],
+                         "eager_dispatches": res["eager_dispatches"],
+                         "logloss": res["logloss"],
+                         "initial_state": "bitwise the fixture's"}
+    launches = read_launches(kernels)
+    with open(data) as f:
+        head = [next(f) for _ in range(3 * ORBAX_WARM_B)]
+    return rec, launches, (wcfg, start, head)
+
+
+def orbax_parity(np, torch, fm, sparse, make_batch, parse_lines,
+                 host_sort_meta, wcfg, start, head) -> dict:
+    """Path 10 (a), last: 3 sparse steps from the Adagrad fixture's state
+    through the kernels against 3 through the plain versions (scores
+    ``KERNEL_TOL``, table ``TABLE_TOL``, accumulator ``OPT_TOL``)."""
+    dev = torch.device("cuda")
+
+    def fresh():
+        def put(key):
+            return torch.tensor(start[key], device=dev)  # a copy
+
+        return (fm.FmModel(put("w0"), put("table")),
+                sparse.SparseAdagradState(put("acc_w0"), put("acc_table")))
+
+    b, v, f = wcfg.batch_size, wcfg.vocabulary_size, wcfg.max_features
+    batches = []
+    for i in range(3):
+        batch = make_batch(parse_lines(head[i * b:(i + 1) * b], v,
+                                       wcfg.hash_feature_id), b, f)
+        batches.append(sparse.to_device(
+            batch._replace(sort_meta=host_sort_meta(batch.ids)), dev))
+    (mk, ok), (mp, op) = fresh(), fresh()
+    score_err = 0.0
+    for batch in batches:
+        s_k = sparse.sparse_step(wcfg, mk, ok, batch)
+        s_p = sparse.sparse_step(wcfg, mp, op, batch, plain=True)
+        torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
+        score_err = max(score_err, float((s_k - s_p).abs().max()))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(mk.table, mp.table, **TABLE_TOL)
+    torch.testing.assert_close(ok.acc_table, op.acc_table, **OPT_TOL)
+    return {"steps": 3, "scores_max_abs_err": score_err,
+            "table_max_abs_err": float(
+                (mk.table - mp.table).detach().abs().max()),
+            "acc_max_abs_err": float(
+                (ok.acc_table - op.acc_table).abs().max())}
+
+
+def orbax_hot_swap(np, torch, card: str, tcfg, model_dir: str,
+                   predict_file: str, tmp: str, kernels: dict) -> tuple:
+    """Path 10 (b): the main run's Criteo-Kaggle checkpoint served with
+    ``serve_poll_secs = 0.2`` while one keep-alive ``/score_bin`` client
+    posts the predict file's first 256 lines continuously; a trainer
+    warm-started from that checkpoint trains 16 more steps and saves
+    (publishing the manifest): the watcher's swap lands (seconds from the
+    publish to the swap, the placement's wall time), every response is
+    the old table's scores or the new one's bitwise, and after the swap
+    ``/score`` equals the new checkpoint's predict file.  Then
+    ``/reload?keep_prev=1`` of the old ``params.npz`` (put back without a
+    publish) serves the old scores bitwise and ``/rollback`` the new ones
+    again; ``/reload?keep_prev=1``, ``/promote``, and a ``/rollback``
+    answers 409.  The peak device memory of the keep_prev window and
+    the dispatch p50 during and after the swap."""
+    import threading
+
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.serve import wire
+    from fast_tffm_tpu_torch.serve.server import serve
+    from fast_tffm_tpu_torch.serve.textparse import parse_request
+    from fast_tffm_tpu_torch.train import checkpoint
+    from fast_tffm_tpu_torch.train.loop import Trainer, predict
+    from fast_tffm_tpu_torch.train.manifest import read_manifest
+
+    old_npz = os.path.join(tmp, "old_params.npz")
+    shutil.copy(checkpoint.params_path(model_dir), old_npz)
+    scfg = load_config(CFG_PATH, {"model_file": model_dir, "serve_port": 0,
+                                  "serve_poll_secs": ORBAX_POLL_S})
+    with open(predict_file) as f:
+        text = "".join(next(f) for _ in range(ORBAX_REQUEST_LINES))
+    ids, vals, _, n, _ = parse_request(text, scfg)
+    check(n == ORBAX_REQUEST_LINES, "request parse")
+    frame = wire.encode_bin_request(ids, vals)
+    zero_launches(kernels)
+    handle = serve(scfg)
+    dispatches = []  # (end time, seconds) of every scorer dispatch
+    scorer = handle.scorer
+    orig_dispatch = scorer._dispatch
+
+    def timed_dispatch(rung):
+        t0 = time.perf_counter()
+        out = orig_dispatch(rung)
+        dispatches.append((time.perf_counter(), time.perf_counter() - t0))
+        return out
+
+    scorer._dispatch = timed_dispatch
+    responses, stop = [], threading.Event()
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", handle.port,
+                                          timeout=120)
+        while not stop.is_set():
+            responses.append((time.perf_counter(), post(conn, "/score_bin",
+                                                        frame)))
+        conn.close()
+
+    rec = {"card": card, "poll_s": ORBAX_POLL_S,
+           "request_examples": ORBAX_REQUEST_LINES}
+    thread = threading.Thread(target=client)
+    try:
+        old_step = scorer.step
+        thread.start()
+        t_end = time.perf_counter() + 60
+        while not responses:
+            check(thread.is_alive() and time.perf_counter() < t_end,
+                  "the /score_bin client got no answer")
+            time.sleep(0.01)
+        old = responses[0][1]
+        t_train = time.perf_counter()
+        trainer = Trainer(dataclasses.replace(tcfg, epoch_num=2))
+        check(trainer._restored_step == old_step, "warm start step")
+        # Eager: this trainer shares its process with the server, whose
+        # threads a graph capture would have to exclude.
+        trainer.graph = None
+        res = trainer.train()["train"]
+        del trainer
+        check(res["steps"] == 16, f"the warm start trained {res['steps']}")
+        published = read_manifest(model_dir)
+        t_pub = time.perf_counter() - (time.time() - published["published"])
+        check(published["step"] == old_step + 16, f"manifest {published}")
+        t_end = time.perf_counter() + 60
+        while scorer.step != published["step"]:
+            check(time.perf_counter() < t_end, "the watcher never swapped")
+            time.sleep(0.005)
+        t_swap = time.perf_counter()
+        time.sleep(0.5)
+        stop.set()
+        thread.join()
+        place_s = scorer.place_wall_s
+        new = responses[-1][1]
+        check(new != old, "the swap changed no score")
+        kinds = [0 if r == old else 1 if r == new else -1
+                 for _, r in responses]
+        check(-1 not in kinds, "a response mixed the two tables")
+        check(all(k == 1 for (t, _), k in zip(responses, kinds)
+                  if t > t_swap + 0.05), "an old score after the swap")
+        # After the swap /score equals the new checkpoint's predict file.
+        pcfg = dataclasses.replace(tcfg, score_path=os.path.join(
+            tmp, "swap_scores.txt"))
+        predict(pcfg)
+        with open(pcfg.score_path) as f:
+            want_text = "".join(next(f) for _ in range(ORBAX_REQUEST_LINES))
+        conn = http.client.HTTPConnection("127.0.0.1", handle.port,
+                                          timeout=120)
+        check(post(conn, "/score", text.encode()).decode() == want_text,
+              "/score after the swap differs from the new predict file")
+        # The admin routes: the old params.npz back without a publish.
+        os.replace(old_npz, checkpoint.params_path(model_dir))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        status, body = post_status(conn, "/reload?keep_prev=1")
+        check(status == 200 and json.loads(body)["step"] == old_step,
+              f"/reload?keep_prev=1: {status} {body!r}")
+        window_peak = torch.cuda.max_memory_allocated()
+        window_held = torch.cuda.memory_allocated()
+        check(post(conn, "/score_bin", frame) == old,
+              "/reload?keep_prev=1 did not serve the old scores")
+        status, body = post_status(conn, "/rollback")
+        check(status == 200 and json.loads(body)["step"] == published["step"]
+              and post(conn, "/score_bin", frame) == new,
+              f"/rollback: {status} {body!r}")
+        status, _ = post_status(conn, "/reload?keep_prev=1")
+        status2, body = post_status(conn, "/promote")
+        check(status == status2 == 200 and json.loads(body)["step"]
+              == old_step, "/reload then /promote")
+        status, _ = post_status(conn, "/rollback")
+        check(status == 409, f"a second /rollback answered {status}")
+        conn.close()
+        swaps = handle.telemetry.snapshot()["counters"].get("serve.swaps")
+    finally:
+        stop.set()
+        if thread.is_alive():
+            thread.join()
+        handle.close()
+    launches = read_launches(kernels)
+    during = [d for t, d in dispatches if t_train <= t <= t_swap]
+    after = [d for t, d in dispatches if t_swap < t]
+    rec.update({
+        "swap_landed": True, "old_step": old_step,
+        "new_step": published["step"], "publish_to_swap_s": t_swap - t_pub,
+        "trainer_dispatch": "eager",
+        "placement_wall_s": place_s, "responses": len(responses),
+        "responses_old": kinds.count(0), "responses_new": kinds.count(1),
+        "dispatch_p50_ms_during_swap": p50(during) * 1e3 if during else None,
+        "dispatch_p50_ms_after_swap": p50(after) * 1e3 if after else None,
+        "dispatches_during": len(during), "dispatches_after": len(after),
+        "keep_prev_window_peak_device_mb": window_peak / 2**20,
+        "keep_prev_window_added_mb": (window_held - before) / 2**20,
+        "device_mb_before_window": before / 2**20,
+        "swaps": swaps, "warm_start_steps": res["steps"],
+    })
+    return rec, launches
 
 
 def rank_main(argv) -> int:
@@ -4219,14 +4577,45 @@ def main() -> int:
           "the saved count; bf16 near f32; FFM-Criteo at D = 33",
           flush=True)
     phase_end("dense")
-    tmp_ctx.cleanup()  # the main run's files, which paths 8 and 9 read
+
+    # -- orbax_serve phase (path 10): JAX-written checkpoints, hot swap --
+    orbax_rec, orbax_launches, warm = orbax_fixtures(np, torch, rng, tmp,
+                                                     kernels)
+    orbax_rec["parity"] = orbax_parity(np, torch, fm, sparse, make_batch,
+                                       parse_lines, host_sort_meta, *warm)
+    swap_rec, swap_launches = orbax_hot_swap(np, torch, card, tcfg,
+                                             model_dir, predict_file, tmp,
+                                             kernels)
+    orbax_rec["hot_swap"] = swap_rec
+    for name in orbax_launches:
+        orbax_launches[name] += swap_launches[name]
+    for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
+        check(orbax_launches[name] > 0, f"path 10 never launched {name}")
+    orbax_rec["launches"] = orbax_launches
+    print(json.dumps({"orbax_serve": orbax_rec}), flush=True)
+    print("orbax_serve (" + card + "): " + json.dumps({
+        k: swap_rec[k] for k in (
+            "publish_to_swap_s", "placement_wall_s",
+            "dispatch_p50_ms_during_swap", "dispatch_p50_ms_after_swap",
+            "keep_prev_window_peak_device_mb", "keep_prev_window_added_mb",
+            "responses_old", "responses_new")}), flush=True)
+    print("orbax_serve check: the JAX-written fixtures serve on the card "
+          "within the reference's scores and the plain path (fp32, int8); "
+          "CLI predict; the Adagrad fixture warm-starts bitwise and trains "
+          "16 graphed steps, kernel steps == plain steps; at full width the "
+          "watcher swaps in a warm-started trainer's save under traffic, "
+          "every response old or new bitwise, /score equal to the new "
+          "predict file; /reload?keep_prev=1, /rollback, /promote, 409",
+          flush=True)
+    phase_end("orbax_serve")
+    tmp_ctx.cleanup()  # the main run's files, which paths 8-10 read
 
     # Launches on the main paths: train (path 1), serve (paths 2, 6 and
     # 7, with path 8 the only fm_scores count), the sharded runs' ranks
     # (path 3), the probe (path 4, the only K2T and K2P counts), the
     # bf16 train run (path 1 with compute_dtype = bfloat16), the tiered
-    # runs (path 8: training, and the fp32 bench run's serving) and the
-    # dense runs (path 9).
+    # runs (path 8: training, and the fp32 bench run's serving), the
+    # dense runs (path 9) and the Orbax and hot-swap runs (path 10).
     launches = {name: train_launches[name] + sharded_launches[name]
                 for name in kernels}
     for name in ("fm_grad", "k1_dedup", "k2_apply"):  # path 8
@@ -4247,6 +4636,11 @@ def main() -> int:
     for name in ("fm_scores", "fm_grad", "fm_scores_bf16", "fm_grad_bf16",
                  "k1_merge", "kplace"):
         launches[name] += dense_launches[name]
+    # Path 10: the fixtures served and predicted, the warm start's 16
+    # steps, and the full-width hot swap's warm start, serving and
+    # predict.
+    for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
+        launches[name] += orbax_launches[name]
     sources = {
         "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
         "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),

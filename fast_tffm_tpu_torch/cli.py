@@ -61,8 +61,9 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--serve_poll_secs", type=float, default=None,
-        help="checkpoint hot-swap poll period; the port serves the "
-             "startup checkpoint only, so this must be 0",
+        help="checkpoint hot-swap poll period in seconds (serve: the "
+             "watcher swaps in each save that publishes "
+             "serve_manifest.json; 0 serves the startup checkpoint only)",
     )
     # Table formats (override the cfg file; see ops/quant.py).
     p.add_argument(

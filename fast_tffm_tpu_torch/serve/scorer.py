@@ -32,16 +32,20 @@ Two variants share the plumbing:
   allocated.
 
 The parameters are a REFERENCE swapped under a lock
-(:meth:`FixedShapeScorer.swap`): a dispatch reads it once, so it scores
-against exactly one table (old or new, never torn).
+(:meth:`FixedShapeScorer.swap`, :meth:`OverlayScorer.swap`): the new
+table is placed first, off the lock, and a dispatch reads the reference
+once, so it scores against exactly one table (old or new, never torn).
+A swap with ``keep_prev`` keeps the replaced table (on the card, beside
+the new one) until :meth:`_LadderScorer.promote` drops it or
+:meth:`_LadderScorer.rollback` restores it; a window already open stays
+anchored to the last table that was not on trial, as the reference's.
 :meth:`_LadderScorer.warmup` runs each rung once, so first-request costs
 (the kernel library's load, the first launch, allocator growth) land at
-startup.
+startup.  :func:`load_model` reads every checkpoint format, the JAX
+package's Orbax directories included.
 
-Not in the port yet: the reference's autotune hook, and its rollback,
-``keep_prev`` and overlay swaps, which serve the checkpoint watcher
-(ROADMAP.md, port queue item 4); the Orbax dense checkpoint reader
-(item 2).
+Not in the port yet: the reference's autotune hook (ROADMAP.md, port
+queue item 4).
 """
 
 from __future__ import annotations
@@ -153,6 +157,9 @@ class _LadderScorer:
         self._rungs: dict = {}
         self.step = int(step)
         self.warmup_wall_s = 0.0
+        # (model, step) a keep_prev swap replaced: the rollback window,
+        # open until promote() or rollback().
+        self._prev = None
 
     # -- rung helpers --------------------------------------------------
 
@@ -276,6 +283,43 @@ class _LadderScorer:
 
     def _scores(self, model, rung: _Rung) -> torch.Tensor:
         raise NotImplementedError
+
+    # -- hot swap ------------------------------------------------------
+
+    def _install(self, placed, step: int, keep_prev: bool) -> None:
+        """Swap the model reference between dispatches.  ``keep_prev``
+        keeps the replaced model for :meth:`rollback`, unless a window is
+        already open: then the table kept stays the one that was there
+        before the window opened (a retried trial must not make a later
+        rollback restore the table on trial)."""
+        with self._swap_lock:
+            if not keep_prev:
+                self._prev = None
+            elif self._prev is None:
+                self._prev = (self._model, self.step)
+            self._model = placed
+            self.step = int(step)
+        self._c_swaps.add()
+        log.info("serving params hot-swapped to step %d", step)
+
+    def promote(self) -> None:
+        """Close the rollback window: drop the model a ``keep_prev`` swap
+        kept (and free its memory)."""
+        with self._swap_lock:
+            self._prev = None
+
+    def rollback(self) -> bool:
+        """Restore the model a ``keep_prev`` swap replaced, between
+        dispatches as a swap.  Returns False when no window is open."""
+        with self._swap_lock:
+            if self._prev is None:
+                return False
+            self._model, step = self._prev
+            self._prev = None
+            self.step = int(step)
+        self._c_swaps.add()
+        log.info("serving params rolled back to step %d", step)
+        return True
 
 
 class FixedShapeScorer(_LadderScorer):
@@ -413,17 +457,13 @@ class FixedShapeScorer(_LadderScorer):
         self.place_wall_s = time.perf_counter() - t0
         return placed
 
-    def swap(self, model, step: int = 0) -> None:
+    def swap(self, model, step: int = 0, keep_prev: bool = False) -> None:
         """Warm hot-swap: place the new params (off the dispatch lock —
         traffic keeps scoring the old table; a quantized scorer
         quantizes an incoming fp32 model here), then swap the reference
-        atomically between dispatches."""
-        placed = self._place(model)
-        with self._swap_lock:
-            self._model = placed
-            self.step = int(step)
-        self._c_swaps.add()
-        log.info("serving params hot-swapped to step %d", step)
+        atomically between dispatches.  ``keep_prev`` keeps the replaced
+        table on the device for :meth:`rollback` until :meth:`promote`."""
+        self._install(self._place(model), step, keep_prev)
 
     def _scores(self, model, rung: _Rung) -> torch.Tensor:
         self._copy_inputs(rung)
@@ -462,8 +502,19 @@ class OverlayScorer(_LadderScorer):
         self._dim = cfg.embedding_dim
         self._t_gather = self._tel.timer("serve.overlay_gather")
         self._staging: dict = {}  # (rung, bucket) -> (host, numpy, device)
-        self._model = (torch.tensor(float(w0), dtype=torch.float32,
-                                    device=self.device), store)
+        self._model = self._overlay(w0, store)
+
+    def _overlay(self, w0: float, store) -> tuple:
+        return (torch.tensor(float(w0), dtype=torch.float32,
+                             device=self.device), store)
+
+    def swap(self, w0: float, store, step: int = 0,
+             keep_prev: bool = False) -> None:
+        """Hot-swap to a restored overlay (its w0 and cold store): one
+        reference swap between dispatches, so a dispatch gathers its
+        compact table from exactly one store.  ``keep_prev`` keeps the
+        replaced overlay for :meth:`rollback` until :meth:`promote`."""
+        self._install(self._overlay(w0, store), step, keep_prev)
 
     def staging_bytes(self) -> int:
         """The rungs' input twins and the compact tables' device
@@ -513,13 +564,13 @@ def load_model(cfg: FmConfig):
     """The servable model under ``cfg.model_file``, on the host, as
     ``(fmt, step, model)``: ``("tiered", step, (w0, ColdStore))`` from a
     ``tiered.npz`` overlay, else ``("quant", step, (w0, QuantTable))``
-    from ``quant.npz``, else ``("dense", step, FmModel)`` from
-    ``params.npz`` (the reference's precedence; the saves keep the
-    formats exclusive).  An overlay written under another init or cold
-    dtype, and a quantized table of another shape or dtype than the
-    config's, raise ValueError.  Without any of the three raises
-    NotImplementedError: the reference's Orbax dense checkpoint is not
-    read yet (ROADMAP.md, port queue item 2)."""
+    from ``quant.npz``, else ``("dense", step, FmModel)`` from the dense
+    checkpoint (the reference's precedence; the saves keep the
+    formats exclusive; a dense checkpoint is ``params.npz`` or the JAX
+    package's Orbax ``params/``).  An overlay written under another init
+    or cold dtype, and a quantized table of another shape or dtype than
+    the config's, raise ValueError, and so does a directory with no
+    servable checkpoint, as the reference's."""
     model_file = cfg.model_file
     if checkpoint.exists_tiered(model_file):
         step, scalars, stores = checkpoint.restore_tiered(model_file)
@@ -560,10 +611,9 @@ def load_model(cfg: FmConfig):
     if checkpoint.exists(model_file):
         step, model = checkpoint.restore_params(model_file, device="cpu")
         return "dense", step, model
-    raise NotImplementedError(
-        f"no params.npz, quant.npz or tiered.npz under {model_file}: the "
-        "PyTorch port reads only these numpy checkpoints; the reference's "
-        "Orbax dense checkpoint is ROADMAP.md port queue item 2"
+    raise ValueError(
+        f"no servable checkpoint at {model_file} (neither params.npz nor "
+        "the dense params/opt dirs, quant.npz or a tiered.npz overlay)"
     )
 
 

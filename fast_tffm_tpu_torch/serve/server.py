@@ -1,4 +1,4 @@
-"""The scoring endpoint: HTTP front door and lifecycle.
+"""The scoring endpoint: HTTP front door, hot-swap watcher, lifecycle.
 
 The counterpart of ``fast_tffm_tpu/serve/server.py`` for a single
 replica, with the same request and response formats:
@@ -12,12 +12,25 @@ replica, with the same request and response formats:
   (``serve/wire.py``); scores come back as one binary frame,
   bitwise-identical to ``/score``'s for the same examples.
   ``serve_transport`` gates which of the two are enabled.
+- ``POST /reload`` / ``/promote`` / ``/rollback`` — the admin swap
+  routes: reload the current checkpoint (``/reload?keep_prev=1`` keeps
+  the replaced table for a rollback), close that window, or restore the
+  table it kept.  Each answers ``{"step": ...}``; a rollback with no
+  window open, and a checkpoint the config cannot serve, answer 409.
 - ``GET /metrics`` / ``/status`` / ``/healthz`` (and ``/debug/threadz``)
   — the observability routes; all ``serve.*`` instruments plus a
   ``serve`` record block show up as ``tffm_serve_*`` series.
 
+:class:`CheckpointWatcher` (``serve_poll_secs > 0``, the default 2 s)
+polls the ``serve_manifest.json`` every save of either package
+publishes after its files land, and hot-swaps the scorer when it
+changes (:func:`reload_scorer`: placed off the dispatch lock, then one
+reference swap).  A checkpoint the config cannot serve is taken as the
+new baseline, so it is not reloaded at every poll; any other failure is
+retried at the next one.
+
 :func:`serve` builds the stack from an :class:`FmConfig` (scorer ->
-warmup -> batcher -> HTTP) and returns a :class:`ServeHandle`;
+warmup -> batcher -> watcher -> HTTP) and returns a :class:`ServeHandle`;
 :func:`serve_forever` is the CLI entry.  Settings that would change the
 result or need a later slice of the port raise NotImplementedError
 naming the ROADMAP.md item; observability planes that never touch a
@@ -27,6 +40,7 @@ not wired yet and are logged as inert when set.
 
 from __future__ import annotations
 
+import json
 import logging
 import signal
 import threading
@@ -49,10 +63,12 @@ from fast_tffm_tpu_torch.serve.batcher import ServeBatcher
 from fast_tffm_tpu_torch.serve.textparse import (
     ParseScratchPool, parse_request,
 )
+from fast_tffm_tpu_torch.train.manifest import read_manifest
 
 log = logging.getLogger(__name__)
 
-__all__ = ["ServeHandle", "ServeServer", "serve", "serve_forever"]
+__all__ = ["CheckpointWatcher", "ServeHandle", "ServeServer",
+           "reload_scorer", "serve", "serve_forever"]
 
 # Settings whose non-default value the port's server does not act on yet:
 # none of them changes a score (ROADMAP.md, port queue item 4).
@@ -70,11 +86,6 @@ def _check_supported(cfg: FmConfig) -> None:
     unported = []
     if cfg.serve_replicas >= 2:
         unported.append(("serve_replicas >= 2 (router and fleet)", 4))
-    if cfg.serve_poll_secs > 0:
-        unported.append((
-            "serve_poll_secs > 0 (checkpoint hot-swap watcher; set "
-            "serve_poll_secs = 0)", 4,
-        ))
     if cfg.serve_canary:
         unported.append(("serve_canary (canary promotion)", 4))
     if cfg.serve_capture_file:
@@ -99,14 +110,95 @@ def _check_supported(cfg: FmConfig) -> None:
         )
 
 
+def reload_scorer(cfg: FmConfig, scorer, keep_prev: bool = False) -> int:
+    """Reload ``cfg.model_file``'s checkpoint into the running scorer
+    (placed off the dispatch lock, then one reference swap) and return
+    its step.  Raises ValueError where the config cannot serve it,
+    a change between the dense (or quantized) and the tiered format
+    included: a running scorer cannot cross it.  The watcher and the
+    ``/reload`` route share it."""
+    fmt, step, model = scorer_lib.load_model(cfg)
+    if fmt == "tiered" and isinstance(scorer, scorer_lib.OverlayScorer):
+        scorer.swap(*model, step=step, keep_prev=keep_prev)
+    elif fmt in ("dense", "quant") and isinstance(
+            scorer, scorer_lib.FixedShapeScorer):
+        scorer.swap(model, step=step, keep_prev=keep_prev)
+    else:
+        raise ValueError(
+            f"checkpoint at {cfg.model_file} changed FORMAT ({fmt}) "
+            "mid-serve; a running server cannot cross dense<->tiered "
+            "— restart to pick it up"
+        )
+    return step
+
+
+class CheckpointWatcher:
+    """Poll the save path's manifest; hot-swap the scorer on a new one.
+
+    ``seen`` is the manifest the served table came from: the owner reads
+    it BEFORE loading the checkpoint (:func:`serve` does), so a save that
+    lands during the load and warmup is picked up at the first poll.
+    None reads it at construction.  ``close`` stops and joins the
+    thread.
+    """
+
+    def __init__(self, cfg: FmConfig, scorer, poll_secs: float,
+                 seen=None):
+        self._cfg = cfg
+        self._scorer = scorer
+        self._poll = max(0.05, float(poll_secs))
+        self._seen = (seen if seen is not None
+                      else read_manifest(cfg.model_file))
+        self.reloads = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="tffm-serve-watcher", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._poll):
+            try:
+                self._check_once()
+            except Exception as e:  # noqa: BLE001 - retry next poll
+                log.warning(
+                    "checkpoint watcher: reload failed (%s); will retry "
+                    "next poll", e)
+
+    def _check_once(self) -> None:
+        man = read_manifest(self._cfg.model_file)
+        if man is None or man == self._seen:
+            return
+        try:
+            reload_scorer(self._cfg, self._scorer)
+        except ValueError as e:
+            # A contradiction between the config and the checkpoint
+            # (dtype, chunk, shape, overlay descriptor, format) that
+            # re-reading would not fix: keep serving, wait for the next
+            # publish.
+            log.warning(
+                "checkpoint at %s cannot be served under this config "
+                "(%s); keeping the current params until the next save",
+                self._cfg.model_file, e)
+            self._seen = man
+            return
+        self._seen = man
+        self.reloads += 1
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
 class ServeServer:
     """HTTP front door: ``POST /score`` (libsvm text), ``POST
     /score_bin`` (the binary frame transport, gated by
-    ``serve_transport``) and the observability routes."""
+    ``serve_transport``), the admin swap routes ``/reload``,
+    ``/promote`` and ``/rollback`` on ``scorer``, and the observability
+    routes."""
 
     def __init__(self, port: int, batcher: ServeBatcher, cfg: FmConfig,
                  build, telemetry: Telemetry, host: str = "127.0.0.1",
-                 timeout_s: float = 30.0):
+                 timeout_s: float = 30.0, scorer=None):
         requests_c = telemetry.counter("serve.http_requests")
         truncated_c = telemetry.counter("serve.truncated_features")
         parse_t = telemetry.timer("serve.parse")
@@ -114,6 +206,9 @@ class ServeServer:
         # Recycled per-request parse scratch: the text path's arrays
         # come from here and go back via the batcher's on_done hook.
         parse_pool = ParseScratchPool(cfg.max_features, telemetry=telemetry)
+        # One admin swap at a time: a reload places a whole table, and two
+        # at once would race the rollback window.
+        admin_lock = threading.Lock()
 
         def encode_text(scores):
             return "text/plain", "".join(
@@ -127,7 +222,10 @@ class ServeServer:
         class Handler(QuietHandler):
             def do_POST(self) -> None:  # noqa: N802 - http.server API
                 requests_c.add()
-                path = self.path.partition("?")[0]
+                path, _, query = self.path.partition("?")
+                if path in ("/reload", "/promote", "/rollback"):
+                    self._do_admin(path, query)
+                    return
                 if path not in ("/score", "/score_bin"):
                     self._send(404, b"not found\n", "text/plain")
                     return
@@ -195,6 +293,43 @@ class ServeServer:
                 ctype, out = encode(scores)
                 self._send(200, out, ctype, headers=headers)
 
+            def _do_admin(self, path: str, query: str) -> None:
+                """``/reload`` swaps in the current checkpoint; only
+                ``/reload?keep_prev=1`` keeps the replaced table for
+                ``/rollback`` (a plain reload must not pin a second
+                table on the card).  ``/promote`` closes the window;
+                ``/rollback`` without one is a 409."""
+                if scorer is None:
+                    self._send(503, b"no admin scorer on this endpoint\n",
+                               "text/plain")
+                    return
+                # Read a (normally empty) body so keep-alive holds.
+                if self._read_body(wire.MAX_BODY_BYTES) is None:
+                    return
+                with admin_lock:
+                    try:
+                        if path == "/reload":
+                            reload_scorer(cfg, scorer,
+                                          keep_prev="keep_prev=1" in query)
+                        elif path == "/promote":
+                            scorer.promote()
+                        elif not scorer.rollback():
+                            self._send(
+                                409, b"nothing to roll back to (no "
+                                     b"keep-prev swap is open)\n",
+                                "text/plain")
+                            return
+                    except ValueError as e:
+                        self._send(409, f"{e}\n".encode(), "text/plain")
+                        return
+                    except Exception as e:  # noqa: BLE001 - report
+                        self._send(500, f"{path} failed: {e}\n".encode(),
+                                   "text/plain")
+                        return
+                    body = (json.dumps({"step": scorer.step}) + "\n"
+                            ).encode()
+                self._send(200, body, "application/json")
+
             def do_GET(self) -> None:  # noqa: N802 - http.server API
                 requests_c.add()
                 path = self.path.partition("?")[0]
@@ -230,15 +365,16 @@ class ServeServer:
 
 class ServeHandle:
     """One running serving stack; ``close()`` tears it down in order
-    (HTTP stops accepting, then the batcher drains and fails what is
-    left)."""
+    (HTTP stops accepting, the watcher's thread stops, then the batcher
+    drains and fails what is left)."""
 
     def __init__(self, cfg: FmConfig, scorer, batcher, server,
-                 telemetry: Telemetry):
+                 telemetry: Telemetry, watcher=None):
         self.cfg = cfg
         self.scorer = scorer
         self.batcher = batcher
         self.server = server
+        self.watcher = watcher
         self.telemetry = telemetry
         self.port = server.port
         self._closed = False
@@ -248,6 +384,8 @@ class ServeHandle:
             return
         self._closed = True
         self.server.close()
+        if self.watcher is not None:
+            self.watcher.close()
         self.batcher.close()
 
 
@@ -305,6 +443,10 @@ def serve(cfg: FmConfig,
     _check_supported(cfg)
     dev = resolve_device(device)
     telemetry = Telemetry(enabled=cfg.telemetry)
+    # The watcher's baseline is read BEFORE the load: a checkpoint
+    # published while the scorer loads and warms up must look new to the
+    # first poll.
+    manifest_baseline = read_manifest(cfg.model_file)
     scorer = scorer_lib.make_scorer(cfg, device=dev, telemetry=telemetry)
     n_rungs = scorer.warmup()
     log.info(
@@ -331,20 +473,29 @@ def serve(cfg: FmConfig,
             "stages": snap,
         }
 
+    watcher = None
     try:
+        if cfg.serve_poll_secs > 0:
+            watcher = CheckpointWatcher(cfg, scorer, cfg.serve_poll_secs,
+                                        seen=manifest_baseline)
         server = ServeServer(
             cfg.serve_port if port is None else port, batcher, cfg,
-            build, telemetry, host=cfg.serve_host,
+            build, telemetry, host=cfg.serve_host, scorer=scorer,
         )
     except BaseException:
-        # A taken port must not leak the batcher's dispatcher thread.
+        # A taken port must not leak the watcher's or the batcher's
+        # thread.
+        if watcher is not None:
+            watcher.close()
         batcher.close()
         raise
     log.info(
-        "scoring endpoint listening on %s:%d (POST /score, /score_bin; "
-        "GET /metrics, /status, /healthz)", cfg.serve_host, server.port,
+        "scoring endpoint listening on %s:%d (POST /score, /score_bin, "
+        "/reload, /promote, /rollback; GET /metrics, /status, /healthz)",
+        cfg.serve_host, server.port,
     )
-    return ServeHandle(cfg, scorer, batcher, server, telemetry)
+    return ServeHandle(cfg, scorer, batcher, server, telemetry,
+                       watcher=watcher)
 
 
 def serve_forever(cfg: FmConfig,

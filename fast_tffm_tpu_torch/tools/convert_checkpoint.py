@@ -8,10 +8,12 @@ the port's checkpoints:
     python -m fast_tffm_tpu_torch.tools.convert_checkpoint ./m8 \\
         --to fp32 --out ./m32
 
-Reads ``<dir>/params.npz`` or ``<dir>/quant.npz`` (either package's) and
-writes the requested format through ``train/checkpoint.py``'s saves, so
-the directory holds one format (a ``quant.npz`` save removes
-``params.npz`` and the other way round).  fp32 -> bf16/int8 is lossy;
+Reads ``<dir>/params.npz``, the JAX package's Orbax ``params/`` (read
+without jax) or ``<dir>/quant.npz`` (either package's) and writes the
+requested format through ``train/checkpoint.py``'s saves, so the
+directory holds one format (a ``quant.npz`` save removes the dense
+checkpoint and the other way round) and the serving manifest is
+published.  fp32 -> bf16/int8 is lossy;
 int8 shares one fp32 scale per ``--chunk`` consecutive rows (a server
 must set the same ``quant_chunk``).  The tool prints the max |dequant -
 fp32| element error and the table bytes before and after.  bf16/int8 ->
@@ -35,8 +37,8 @@ import numpy as np
 
 
 def _load_fp32(model_file: str):
-    """(step, w0 f32, table f32 [V, D], source dtype) from params.npz or
-    quant.npz."""
+    """(step, w0 f32, table f32 [V, D], source dtype) from quant.npz or the
+    dense checkpoint (params.npz or Orbax)."""
     from fast_tffm_tpu_torch.ops import quant
     from fast_tffm_tpu_torch.train import checkpoint
 
@@ -54,14 +56,10 @@ def _load_fp32(model_file: str):
     if not checkpoint.exists(model_file):
         raise SystemExit(
             f"no convertible checkpoint at {model_file} (neither "
-            "params.npz nor quant.npz)"
+            "params.npz, the dense params/opt dirs nor quant.npz)"
         )
-    with np.load(checkpoint.params_path(model_file),
-                 allow_pickle=False) as z:
-        step = int(z["scalar/step"])
-        w0 = np.float32(z["scalar/w0"])
-        table = np.ascontiguousarray(z["params/table"], np.float32)
-    return step, w0, table, "fp32"
+    step, w0, table = checkpoint.restore_arrays(model_file)
+    return step, w0, np.ascontiguousarray(table, np.float32), "fp32"
 
 
 def main(argv=None) -> int:

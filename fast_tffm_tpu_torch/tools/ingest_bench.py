@@ -287,7 +287,8 @@ def train_runs(cfg: FmConfig, device, trainer_cls=Trainer, on_start=None,
             del trainer
     finally:
         for run, _ in runs:
-            for name in ("params.npz", "data_state.json"):
+            for name in ("params.npz", "data_state.json",
+                         "serve_manifest.json"):
                 path = os.path.join(tmp, run, name)
                 if os.path.exists(path):
                     os.remove(path)

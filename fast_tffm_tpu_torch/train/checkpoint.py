@@ -1,5 +1,6 @@
-"""Plain-numpy checkpoints under ``<model_file>``: ``params.npz``,
-``quant.npz`` and ``tiered.npz``.
+"""Checkpoints under ``<model_file>``: the numpy files ``params.npz``,
+``quant.npz`` and ``tiered.npz``, and the reference's Orbax ``params/``
+and ``opt/`` (read only).
 
 ``params.npz`` is the port's dense checkpoint.  Its keys follow the
 conventions of the reference's ``quant.npz``
@@ -45,17 +46,27 @@ reference's keys, so either package reads what the other wrote:
   ``meta/stores`` and per store ``<store>/ids``, ``<store>/rows`` (packed
   by the cold dtype) and ``<store>/descriptor`` (JSON).
 
-The three formats are mutually exclusive: each save removes the other
-two, so a stale file never shadows a newer one (the readers check
-``tiered.npz``, then ``quant.npz``, then ``params.npz``).  The
-reference's saves also publish a hot-swap manifest; that belongs to the
-checkpoint watcher (ROADMAP.md, port queue item 4) and is not written
-here.  The tiered trainer saves through :func:`save_params` (a logical
-table small enough for the dense format) or :func:`save_tiered`, both
-with ``data_state.json``, and warm-starts from a dense checkpoint
-through :func:`restore_host` (host numpy, never at ``[V, D]`` on the
-card).  Still missing (port queue item 2): the reader of the
-reference's Orbax dense checkpoint.
+The reference's own dense checkpoint, the Orbax directories
+``params/`` and ``opt/`` (``fast_tffm_tpu/train/checkpoint.py::save``),
+is read too, through ``train/orbax_read.py`` (numpy and the system
+libzstd, no jax): wherever ``params.npz`` is absent, :func:`exists`,
+:func:`restore_params`, :func:`restore_host` and
+:func:`restore_opt_state` read them instead, so a model the JAX package
+trained is served, predicted, converted and warm-started by the port.
+The port never writes them.
+
+The formats are mutually exclusive: each save removes the others
+(Orbax directories a JAX trainer left behind included), so a stale
+file never shadows a newer one (the readers check ``tiered.npz``, then
+``quant.npz``, then the dense checkpoint), and a directory holding
+both ``params.npz`` and an Orbax ``params/`` raises ValueError, as the
+reference refuses two formats at once.  Every save
+publishes ``serve_manifest.json`` last (``train/manifest.py``, the
+reference's keys), the handshake the server's checkpoint watcher polls.
+The tiered trainer saves through :func:`save_params` (a logical table
+small enough for the dense format) or :func:`save_tiered`, both with
+``data_state.json``, and warm-starts from a dense checkpoint through
+:func:`restore_host` (host numpy, never at ``[V, D]`` on the card).
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ import glob
 import json
 import os
 import re
+import shutil
 from typing import Optional, Union
 
 import numpy as np
@@ -75,14 +87,16 @@ from fast_tffm_tpu_torch.parallel.mesh import (
     MODEL_AXIS, Mesh, barrier, gather,
 )
 from fast_tffm_tpu_torch.platform import resolve_device
+from fast_tffm_tpu_torch.train import orbax_read
+from fast_tffm_tpu_torch.train.manifest import publish_manifest
 from fast_tffm_tpu_torch.train.optimizers import AdamState
 from fast_tffm_tpu_torch.train.sparse import SparseAdagradState, SparseFtrlState
 from fast_tffm_tpu_torch.weights import from_jax, to_numpy
 
 __all__ = ["clear_quant", "clear_tiered", "data_state_path", "exists",
            "exists_quant", "exists_tiered", "params_path", "quant_path",
-           "restore_data_state", "restore_host", "restore_opt_state",
-           "restore_params",
+           "restore_arrays", "restore_data_state", "restore_host",
+           "restore_opt_state", "restore_params",
            "restore_quant", "restore_tiered", "save_params", "save_quant",
            "save_sharded", "save_tiered", "tiered_path"]
 
@@ -97,9 +111,10 @@ _OPT_KEYS = {
 
 
 def _host(a) -> np.ndarray:
-    """An optimizer leaf as saved: float32, or int32 for Adam's count."""
+    """An optimizer leaf as saved: float32, or int32 for Adam's count
+    (no copy when it is one already)."""
     a = np.asarray(a)
-    return np.array(a, np.int32 if a.dtype.kind in "iu" else np.float32)
+    return np.asarray(a, np.int32 if a.dtype.kind in "iu" else np.float32)
 
 
 def params_path(model_file: str) -> str:
@@ -119,16 +134,34 @@ def restore_data_state(model_file: str) -> Optional[dict]:
         return None
 
 
+def _dense_format(model_file: str) -> Optional[str]:
+    """``"npz"`` (the port's ``params.npz``), ``"orbax"`` (the
+    reference's ``params/`` directory) or None.  Both at once raises
+    ValueError: no freshness marker tells which is the checkpoint."""
+    npz = os.path.isfile(params_path(model_file))
+    orbax = orbax_read.exists(model_file)
+    if npz and orbax:
+        raise ValueError(
+            f"{model_file} holds both a params.npz and an Orbax params/ "
+            "directory; remove the stale one (a save of either package "
+            "into the other's directory leaves both)"
+        )
+    return "npz" if npz else ("orbax" if orbax else None)
+
+
 def exists(model_file: str) -> bool:
-    return os.path.isfile(params_path(model_file))
+    """A dense checkpoint: ``params.npz`` or the reference's Orbax
+    ``params/``."""
+    return _dense_format(model_file) is not None
 
 
 def save_params(model_file: str, model: FmModel, step: int = 0,
                 opt_state=None, data_state: Optional[dict] = None) -> str:
     """Write ``params.npz`` atomically (temp file + rename), with the
-    optimizer state when given, removes a stale ``quant.npz`` and
-    ``tiered.npz``, then writes ``data_state.json`` when given; returns
-    the params' path."""
+    optimizer state when given, removes a stale ``quant.npz``,
+    ``tiered.npz`` and Orbax ``params/`` and ``opt/``, writes
+    ``data_state.json`` when given, and publishes the serving manifest
+    last; returns the params' path."""
     path = params_path(model_file)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     w0, table = to_numpy(model)
@@ -143,10 +176,13 @@ def save_params(model_file: str, model: FmModel, step: int = 0,
                 arrays[key] = _host(t.detach().cpu().numpy())
     _write_npz(path, arrays)
     # params.npz is the checkpoint now: a stale overlay or quantized
-    # table must not shadow it (the readers check those first).
+    # table must not shadow it (the readers check those first), and a
+    # JAX trainer's Orbax directories beside it would be refused.
+    _clear_orbax(model_file)
     clear_tiered(model_file)
     clear_quant(model_file)
     _write_data_state(model_file, data_state)
+    publish_manifest(model_file, step, "dense")
     return path
 
 
@@ -167,11 +203,20 @@ def _write_npz(path: str, arrays: dict) -> None:
     os.replace(tmp, path)
 
 
+def _clear_orbax(model_file: str) -> None:
+    for stale in (orbax_read.params_dir(model_file),
+                  orbax_read.opt_dir(model_file)):
+        shutil.rmtree(stale, ignore_errors=True)
+
+
 def _clear_params(model_file: str) -> None:
+    """Remove the dense checkpoint: ``params.npz`` and any Orbax
+    ``params/`` and ``opt/``."""
     try:
         os.remove(params_path(model_file))
     except FileNotFoundError:
         pass
+    _clear_orbax(model_file)
 
 
 def save_sharded(model_file: str, model_l: FmModel, mesh: Mesh,
@@ -198,70 +243,101 @@ def save_sharded(model_file: str, model_l: FmModel, mesh: Mesh,
     return params_path(model_file)
 
 
+def restore_arrays(model_file: str, rows: Optional[slice] = None,
+                   shape: Optional[tuple] = None) -> tuple:
+    """``(step, w0, table)`` of the dense checkpoint as host numpy
+    (``params.npz``, else the Orbax ``params/``), the table cut to
+    ``rows`` when given (from Orbax only the chunks that cover them are
+    read).  ``shape`` is the full table's shape the caller expects;
+    another raises ValueError.  Raises FileNotFoundError when there is no
+    dense checkpoint."""
+    fmt = _dense_format(model_file)
+    if fmt is None:
+        raise FileNotFoundError(
+            f"no params.npz or Orbax params/ under {model_file}")
+    if fmt == "orbax":
+        step, w0, table, full = orbax_read.read_params(model_file, rows=rows)
+    else:
+        with np.load(params_path(model_file), allow_pickle=False) as z:
+            step = int(z["scalar/step"])
+            w0 = np.float32(z["scalar/w0"])
+            table = z["params/table"]
+        full = table.shape
+        if rows is not None:
+            table = table[rows]
+    if shape is not None and tuple(full) != tuple(shape):
+        raise ValueError(
+            f"checkpoint table is {tuple(full)} but the config "
+            f"wants {tuple(shape)}"
+        )
+    return step, w0, table
+
+
 def restore_params(
     model_file: str,
     device: Optional[Union[str, torch.device]] = None,
     rows: Optional[slice] = None,
     shape: Optional[tuple] = None,
 ):
-    """``(step, FmModel)`` from ``params.npz`` on ``device`` (the GPU
-    unless asked otherwise), the table cut to ``rows`` when given (a
-    rank's model shard).  ``shape`` is the full table's shape the caller
-    expects; another raises ValueError.  Raises FileNotFoundError when
-    the file is absent."""
-    with np.load(params_path(model_file), allow_pickle=False) as z:
-        step = int(z["scalar/step"])
-        w0 = np.float32(z["scalar/w0"])
-        table = z["params/table"]
-    if shape is not None and tuple(table.shape) != tuple(shape):
-        raise ValueError(
-            f"checkpoint table is {tuple(table.shape)} but the config "
-            f"wants {tuple(shape)}"
-        )
-    if rows is not None:
-        table = table[rows]
+    """``(step, FmModel)`` of the dense checkpoint (:func:`restore_arrays`)
+    on ``device`` (the GPU unless asked otherwise)."""
+    step, w0, table = restore_arrays(model_file, rows=rows, shape=shape)
     return step, from_jax(w0, table, device=device)
 
 
-def restore_host(model_file: str, optimizer: str) -> tuple:
-    """``(step, w0, table, opt)`` from ``params.npz`` as host numpy, never
-    on a device (the tiered trainer's warm start): ``opt`` is the
-    ``optimizer``'s state over numpy arrays, ``()`` for SGD, or None
-    when the file holds none for it."""
-    with np.load(params_path(model_file), allow_pickle=False) as z:
-        step = int(z["scalar/step"])
-        w0 = np.float32(z["scalar/w0"])
-        table = np.array(z["params/table"], np.float32)
-        opt = None
+def _restore_opt_host(model_file: str, optimizer: str, sparse: bool,
+                      rows: Optional[slice] = None):
+    """The ``optimizer``'s state over host arrays, ``()`` for SGD, or None
+    (see :func:`restore_opt_state`)."""
+    if _dense_format(model_file) == "orbax":
+        got = orbax_read.read_opt(model_file, optimizer, sparse=sparse,
+                                  rows=rows)
+        if got is None:
+            return None
         if optimizer == "sgd":
-            opt = ()
-        else:
-            kind, keys = _OPT_KEYS[optimizer]
-            if all(k in z.files for k in keys):
-                opt = kind(*(_host(z[k]) for k in keys))
-    return step, w0, table, opt
-
-
-def restore_opt_state(
-    model_file: str, optimizer: str,
-    device: Optional[Union[str, torch.device]] = None,
-    rows: Optional[slice] = None,
-):
-    """The ``optimizer``'s state from ``params.npz`` on ``device``, its
-    tables cut to ``rows`` when given, ``()`` for SGD, or None when the
-    file holds none for this optimizer (a serving-only checkpoint, or
-    another optimizer's)."""
+            return ()
+        kind = _OPT_KEYS[optimizer][0]
+        return kind(*(got[f] for f in kind._fields))
     if optimizer == "sgd":
         return ()
     kind, keys = _OPT_KEYS[optimizer]
-    dev = resolve_device(device)
     with np.load(params_path(model_file), allow_pickle=False) as z:
         if not all(k in z.files for k in keys):
             return None
         arrays = [z[k] for k in keys]
     if rows is not None:
         arrays = [a[rows] if a.ndim == 2 else a for a in arrays]
-    return kind(*(torch.from_numpy(_host(a)).to(dev) for a in arrays))
+    return kind(*arrays)
+
+
+def restore_host(model_file: str, optimizer: str) -> tuple:
+    """``(step, w0, table, opt)`` of the dense checkpoint as host numpy,
+    never on a device (the tiered trainer's warm start): ``opt`` is the
+    sparse ``optimizer``'s state over numpy arrays, ``()`` for SGD, or
+    None when the checkpoint holds none for it."""
+    step, w0, table = restore_arrays(model_file)
+    opt = _restore_opt_host(model_file, optimizer, sparse=True)
+    return (step, w0, np.asarray(table, np.float32),
+            type(opt)(*map(_host, opt)) if opt else opt)
+
+
+def restore_opt_state(
+    model_file: str, optimizer: str,
+    device: Optional[Union[str, torch.device]] = None,
+    rows: Optional[slice] = None, sparse: bool = True,
+):
+    """The ``optimizer``'s state of the dense checkpoint on ``device``,
+    its tables cut to ``rows`` when given, ``()`` for SGD, or None when
+    the checkpoint holds none for this optimizer (a serving-only
+    checkpoint, or another optimizer's).  ``params.npz`` keeps one
+    meaning for the sparse and the dense step's state; from Orbax,
+    ``sparse`` says which step's tree is wanted, and another tree gives
+    None, as the reference's ``restore_opt`` does."""
+    opt = _restore_opt_host(model_file, optimizer, sparse, rows=rows)
+    if not opt:
+        return opt
+    dev = resolve_device(device)
+    return type(opt)(*(torch.from_numpy(_host(a)).to(dev) for a in opt))
 
 
 # ----------------------------------------------------------------------
@@ -280,8 +356,9 @@ def exists_quant(model_file: str) -> bool:
 def save_quant(model_file: str, step: int, w0,
                qt: "quant.QuantTable") -> str:
     """Write ``quant.npz`` (the compact serving format the convert tool
-    writes and the serving ladder places as its device table) and remove
-    ``params.npz`` and any tiered overlay.  Returns its path."""
+    writes and the serving ladder places as its device table), remove
+    the dense checkpoint and any tiered overlay, and publish the serving
+    manifest.  Returns its path."""
     path = quant_path(model_file)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {
@@ -296,6 +373,7 @@ def save_quant(model_file: str, step: int, w0,
     _write_npz(path, payload)
     _clear_params(model_file)
     clear_tiered(model_file)
+    publish_manifest(model_file, step, "quant")
     return path
 
 
@@ -358,9 +436,9 @@ def save_tiered(model_file: str, step: int, scalars: dict,
     slots) as ``scalar/<name>``, and for each store of ``stores`` (name
     -> ``{"ids", "rows", "descriptor"}``, a ``ColdStore.export()`` plus
     its descriptor) the ids and packed rows of every written row and
-    the init descriptor that regenerates the rest.  Removes
-    ``params.npz`` and ``quant.npz``, then writes ``data_state.json``
-    when given.  Returns the file's path."""
+    the init descriptor that regenerates the rest.  Removes the dense
+    checkpoint and ``quant.npz``, writes ``data_state.json`` when given
+    and publishes the serving manifest.  Returns the file's path."""
     path = tiered_path(model_file)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     payload: dict = {
@@ -379,6 +457,7 @@ def save_tiered(model_file: str, step: int, scalars: dict,
     _clear_params(model_file)
     clear_quant(model_file)
     _write_data_state(model_file, data_state)
+    publish_manifest(model_file, step, "tiered")
     return path
 
 

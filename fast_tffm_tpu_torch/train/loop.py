@@ -3,7 +3,10 @@
 rank mesh, and the dense path on one device.
 
 :class:`Trainer` initialises the model (or warm-starts it, optimizer
-state included, from ``<model_file>/params.npz``).  :meth:`Trainer.train`
+state included, from ``<model_file>/params.npz`` or from the JAX
+package's Orbax ``params/`` and ``opt/``, read without jax; a sparse FTRL
+warm start normalizes a table off ``w == ftrl_solve(z, n)``, as the
+reference's ``_check_ftrl_invariant`` does).  :meth:`Trainer.train`
 reads one :class:`~fast_tffm_tpu_torch.data.pipeline.BatchPipeline` over
 the run's epochs (``thread_num`` parse threads on the C++ parser, or
 ``parse_processes`` spawned workers with ``ring_slots``; host sort meta
@@ -62,11 +65,11 @@ reports the global ones, and rank 0 writes the one ``params.npz``.
 ``train.sparse.to_device``) and :meth:`Trainer.evaluate` keep the plain
 route to the device.  :func:`predict` scores ``predict_files`` through
 the serving path's scorer for whatever the checkpoint holds
-(``serve.scorer.make_scorer``: ``params.npz`` or ``quant.npz`` at
-``serve_table_dtype``, or a ``tiered.npz`` overlay), with ``batch_size``
-added as a rung, and writes one score per line in input order.  A
-trainer refuses to warm-start over a ``quant.npz``, and a dense one over
-a ``tiered.npz``.
+(``serve.scorer.make_scorer``: ``params.npz``, an Orbax directory or
+``quant.npz`` at ``serve_table_dtype``, or a ``tiered.npz`` overlay),
+with ``batch_size`` added as a rung, and writes one score per line in
+input order.  A trainer refuses to warm-start over a ``quant.npz``, and
+a dense one over a ``tiered.npz``.
 
 With ``table_tiering = on`` (one device) the device tables are a hot
 table of ``min(hot_rows, vocabulary_size)`` rows (``self.dcfg``) over
@@ -115,7 +118,8 @@ from fast_tffm_tpu_torch.train.shardmap_step import (
     exchange_mode, local_scores, sparse_step_shardmap, supports_shardmap,
 )
 from fast_tffm_tpu_torch.train.sparse import (
-    init_sparse_opt_state, sparse_step, supports_sparse, to_device,
+    SparseFtrlState, init_sparse_opt_state, sparse_step, supports_sparse,
+    to_device,
 )
 
 log = logging.getLogger(__name__)
@@ -442,12 +446,18 @@ class Trainer:
                 shape=(cfg.vocabulary_size, cfg.embedding_dim),
             )
             opt = checkpoint.restore_opt_state(
-                cfg.model_file, cfg.optimizer, device=self.device, rows=rows
+                cfg.model_file, cfg.optimizer, device=self.device, rows=rows,
+                sparse=self.sparse,
             )
             if opt is None:
                 log.info("checkpoint holds no %s state; initialising it",
                          cfg.optimizer)
                 opt = init_opt(cfg, model)
+            elif self.sparse and cfg.optimizer == "ftrl":
+                with torch.no_grad():
+                    model = fm.FmModel(*self._ftrl_normalize(
+                        model.w0, model.table, opt,
+                        "so the compact-K2 apply stays sweep-independent"))
             return model, opt, step
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         model = fm.init_params(cfg, gen, device=self.device)
@@ -464,10 +474,10 @@ class Trainer:
         written its cold row), drawn from the seeded generator at
         ``hot_rows`` rows.  The checkpoint of record is the LOGICAL
         table: a ``tiered.npz`` overlay when present, else a dense
-        ``params.npz`` read to host numpy (never at ``[V, D]`` on the
-        card) to seed the cold stores, so a tiered run resumes from a
-        dense run's checkpoint, and the other way round, at any
-        ``hot_rows``."""
+        checkpoint (``params.npz`` or Orbax) read to host numpy (never at
+        ``[V, D]`` on the card) to seed the cold stores, so a tiered run
+        resumes from a dense run's checkpoint, and the other way round,
+        at any ``hot_rows``."""
         cfg, dcfg, dev = self.cfg, self.dcfg, self.device
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         model = fm.init_params(dcfg, gen, device=dev)
@@ -531,33 +541,44 @@ class Trainer:
         self.tiered = tiered_lib.TieredTable(cfg, device=dev)
         return model, init_sparse_opt_state(dcfg, model), 0
 
-    def _ftrl_normalize_np(self, w0, table, opt_np) -> tuple:
+    def _ftrl_normalize(self, w0, table, opt, why: str) -> tuple:
         """The sparse FTRL applies rely on ``w == ftrl_solve(z, n)``: a
-        restored ``(w0, table)`` off it (edited outside training) is
-        replaced, with a warning, by the closed form before it seeds the
-        cold store (``fast_tffm_tpu/train/loop.py::_ftrl_normalize_np``)."""
+        restored ``(w0, table)`` off it by more than 1e-6 (edited outside
+        training) is replaced, with a warning, by the closed form
+        (``fast_tffm_tpu/train/loop.py::_check_ftrl_invariant``).  Torch
+        tensors on any device; the restored bits are kept when the
+        invariant holds."""
         cfg = self.cfg
 
         def solve(z, n):
             return sparse_apply.ftrl_solve(
-                torch.from_numpy(np.asarray(z, np.float32)),
-                torch.from_numpy(np.asarray(n, np.float32)),
-                cfg.learning_rate, cfg.ftrl_l1, cfg.ftrl_l2, cfg.ftrl_beta,
-            ).numpy()
+                z, n, cfg.learning_rate, cfg.ftrl_l1, cfg.ftrl_l2,
+                cfg.ftrl_beta)
 
-        want_w0 = solve(opt_np.z_w0, opt_np.n_w0)
-        want_table = solve(opt_np.z_table, opt_np.n_table)
-        dev = max(float(np.max(np.abs(want_w0 - w0))),
-                  float(np.max(np.abs(want_table - table))))
+        want_w0 = solve(opt.z_w0, opt.n_w0)
+        want_table = solve(opt.z_table, opt.n_table)
+        dev = max(float((want_w0 - w0).abs().max()),
+                  float((want_table - table).abs().max()))
         if dev <= 1e-6:
             return w0, table
         log.warning(
             "warm-started FTRL params violate w == ftrl_solve(z, n) "
             "(max |dev| %.3g) — the table was edited outside "
-            "train.sparse.  Normalizing before seeding the tiered cold "
-            "store, matching the dense restore path.", dev,
+            "train.sparse.  Normalizing w = ftrl_solve(z, n) %s.", dev, why,
         )
-        return np.float32(want_w0), want_table
+        return want_w0, want_table
+
+    def _ftrl_normalize_np(self, w0, table, opt_np) -> tuple:
+        """:meth:`_ftrl_normalize` on host numpy, before the restored
+        table seeds the tiered cold store."""
+        def t(a):
+            return torch.from_numpy(np.asarray(a, np.float32))
+
+        w0_t, table_t = self._ftrl_normalize(
+            t(w0), t(table), SparseFtrlState(*(t(a) for a in opt_np)),
+            "before seeding the tiered cold store, matching the dense "
+            "restore path")
+        return np.float32(w0_t.numpy()), table_t.numpy()
 
     def _plan_group(self, group: list) -> tuple:
         """The transfer stage's ``plan_hook`` under tiering: the group's
@@ -956,8 +977,9 @@ def predict(cfg: FmConfig,
     """Score ``predict_files`` into ``score_path``, one score per line in
     input order: sigmoid probabilities for logistic loss, raw scores for
     mse.  Scores through ``serve.scorer.make_scorer``, so every format
-    the server takes is predicted the same way: ``params.npz`` (at any
-    ``serve_table_dtype``), ``quant.npz`` and ``tiered.npz``.  Returns
+    the server takes is predicted the same way: ``params.npz`` or the
+    reference's Orbax directories (at any ``serve_table_dtype``),
+    ``quant.npz`` and ``tiered.npz``.  Returns
     the number of scores written."""
     if not cfg.predict_files:
         raise ValueError("no predict_files configured")

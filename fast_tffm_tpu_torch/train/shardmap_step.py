@@ -23,7 +23,7 @@ of the global batch.  FM's algebra keeps the row exchange away:
 ``g``, ``dw0`` and the scores are the same on every rank of a model
 row, so only the ``data`` axis sums them.  The model and optimizer
 tensors are updated in place.  Field-aware FM (``field_num > 0``) is
-not ported yet (ROADMAP.md, port queue item 2).
+not ported yet (ROADMAP.md, port queue item 3).
 """
 
 from __future__ import annotations

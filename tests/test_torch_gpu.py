@@ -3,8 +3,10 @@ backward in their f32 and bf16-input modes, K1 dedup and its merge mode,
 K2 apply, K-place, and the table-layout probe's K2T and K2P) against
 their plain PyTorch versions, the scorers' (fp32, bf16 and int8 tables,
 and the tiered overlay) and the sparse step's GPU paths against their
-CPU paths, two ranks' collectives on one GPU, and field-aware FM's op,
-graphed dispatch and kernel step at the FFM row width.
+CPU paths, two ranks' collectives on one GPU, field-aware FM's op,
+graphed dispatch and kernel step at the FFM row width, and the JAX
+package's Orbax checkpoints (``tests/data/orbax/``) served on the card,
+with a hot swap under traffic.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``gpu``) and
 skips without one.  The file imports neither jax nor the JAX package,
@@ -28,6 +30,8 @@ modes.
 """
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
@@ -1583,3 +1587,89 @@ def test_dense_step_on_the_gpu_matches_the_plain_step(gpu, tmp_path,
         torch.testing.assert_close(models[0].w0, models[1].w0, **TABLE_TOL)
         for a, c in zip(opts[0], opts[1]):
             torch.testing.assert_close(a, c, **OPT_TOL)
+
+
+ORBAX_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "data", "orbax")
+
+
+def _orbax_fixture(name, **kw):
+    with open(os.path.join(ORBAX_FIXTURES, "fixtures.json")) as f:
+        spec = json.load(f)[name]
+    cfg = FmConfig(model_file=os.path.join(ORBAX_FIXTURES, name),
+                   **{**spec["cfg"], **kw})
+    req = np.load(os.path.join(ORBAX_FIXTURES, f"{name}.npz"))
+    return cfg, spec, req
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, dtype", [
+    ("fm_adagrad", "fp32"), ("fm_adagrad", "int8"), ("fm_sharded", "fp32"),
+    ("ffm_ftrl", "fp32"), ("fm_adam", "fp32"),
+])
+def test_orbax_fixture_served_on_the_gpu(gpu, name, dtype):
+    """A table the JAX package wrote (the committed Orbax fixtures, read
+    without jax) served on the card: FM through the FmScorer kernel, its
+    scores within the reference scorer's stored ones and the CPU
+    scorer's (the plain version)."""
+    from fast_tffm_tpu_torch.serve.scorer import make_scorer
+
+    cfg, spec, req = _orbax_fixture(name, serve_table_dtype=dtype,
+                                    quant_chunk=16)
+    fields = req["fields"] if cfg.field_num else None
+    on_gpu = make_scorer(cfg, device=gpu)
+    on_cpu = make_scorer(cfg, device="cpu")
+    assert on_gpu.step == spec["step"]
+    before = fm_kernels.fm_scores_cuda.launches
+    got = on_gpu.score(req["ids"], req["vals"], fields)
+    if not cfg.field_num and dtype == "fp32":
+        assert fm_kernels.fm_scores_cuda.launches > before
+    np.testing.assert_allclose(got, on_cpu.score(req["ids"], req["vals"],
+                                                 fields),
+                               rtol=1e-5, atol=1e-6)
+    if dtype == "fp32":
+        np.testing.assert_allclose(got, req["scores"], rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_swap_under_traffic_on_the_gpu(gpu):
+    """Dispatches on one thread while another swaps tables on the card
+    (placement off the lock, keep_prev, rollback): every dispatch's
+    scores are one table's, bitwise, and the rollback restores the
+    first."""
+    import threading
+
+    cfg, _, req = _orbax_fixture("fm_adagrad")
+    rng = np.random.default_rng(8)
+    tables = [rng.uniform(-0.3, 0.3, (cfg.vocabulary_size,
+                                      cfg.embedding_dim)).astype(np.float32)
+              for _ in range(2)]
+    models = [weights.from_jax(0.05 * i, t, device="cpu")
+              for i, t in enumerate(tables)]
+    scorer = FixedShapeScorer(cfg, models[0], device=gpu)
+    ids, vals = req["ids"][:16], req["vals"][:16]
+    want = []
+    for m in models:
+        scorer.swap(m, step=len(want))
+        want.append(scorer.score(ids, vals))
+    scorer.swap(models[0], step=0)
+    seen, stop = [], threading.Event()
+
+    def traffic():
+        while not stop.is_set():
+            seen.append(scorer.score(ids, vals))
+
+    t = threading.Thread(target=traffic)
+    t.start()
+    try:
+        for _ in range(10):
+            scorer.swap(models[1], step=1, keep_prev=True)
+            assert scorer.rollback() and scorer.step == 0
+    finally:
+        stop.set()
+        t.join()
+    assert seen
+    for s in seen:
+        assert np.array_equal(s, want[0]) or np.array_equal(s, want[1])
+    np.testing.assert_array_equal(scorer.score(ids, vals), want[0])

@@ -1,6 +1,7 @@
-"""Guards of the port's boundaries: it never imports jax, ml_dtypes or
-the JAX package (the training, multi-rank, probe and table-format
-slices' modules included), its parse workers' import chain imports no
+"""Guards of the port's boundaries: it never imports jax, orbax,
+tensorstore, zstandard, ml_dtypes or the JAX package (the training,
+multi-rank, probe, table-format and Orbax-reader slices' modules
+included), its parse workers' import chain imports no
 torch, it runs on the GPU unless asked for the CPU, and its kernel
 wrappers raise instead of falling back."""
 
@@ -23,7 +24,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "orbax", "ml_dtypes")
+             if m.split(".")[0] in ("jax", "jaxlib", "orbax", "ml_dtypes",
+                                    "tensorstore", "zstandard")
              or m == "fast_tffm_tpu" or m.startswith("fast_tffm_tpu."))
 print(len(names))
 print(",".join(bad))
@@ -50,6 +52,9 @@ _TABLE_FORMATS_SLICE = (
     "fast_tffm_tpu_torch.train.checkpoint", "fast_tffm_tpu_torch.serve.scorer",
     "fast_tffm_tpu_torch.tools.convert_checkpoint",
     "fast_tffm_tpu_torch.weights",
+    # The Orbax reader and the serving manifest.
+    "fast_tffm_tpu_torch.train.orbax_read",
+    "fast_tffm_tpu_torch.train.manifest",
 )
 
 

@@ -302,3 +302,56 @@ def test_predict_and_serve_a_tiered_checkpoint(reference_tiered, tmp_path):
         assert status["overlay_gather_p50_ms"] >= 0
     finally:
         handle.close()
+
+
+def test_overlay_hot_swaps_rolls_back_and_keeps_its_format(tmp_path):
+    """A served ``tiered.npz``: the watcher swaps in the next overlay save
+    (``OverlayScorer.swap``); a keep_prev swap rolls back to the old
+    overlay's scores bitwise; a dense save into the directory cannot be
+    crossed by a running overlay server, which keeps serving."""
+    import time
+
+    from fast_tffm_tpu_torch import weights
+
+    cfg = FmConfig(**_cfg_kw(**_tiering("fp32"), serve_poll_secs=0.05,
+                             model_file=str(tmp_path / "m")))
+    checkpoint.save_tiered(cfg.model_file, 4, {"w0": np.float32(0.1)},
+                           _overlay_payload(cfg, tiered, seed=4))
+    handle = serve(cfg, device="cpu", port=0)
+
+    def scores():
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{handle.port}/score_bin",
+            data=wire.encode_bin_request(ids, vals), method="POST")
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return wire.decode_bin_response(resp.read())
+
+    def wait_for(cond):
+        t_end = time.monotonic() + 30
+        while not cond() and time.monotonic() < t_end:
+            time.sleep(0.02)
+        return cond()
+
+    try:
+        ids, vals, _ = _examples(20)
+        old = scores()
+        checkpoint.save_tiered(cfg.model_file, 6, {"w0": np.float32(-0.2)},
+                               _overlay_payload(cfg, tiered, seed=5))
+        assert wait_for(lambda: handle.scorer.step == 6)
+        new = scores()
+        assert not np.array_equal(new, old)
+        sc = handle.scorer
+        _, _, (w0, store) = scorer_lib.load_model(cfg)
+        sc.swap(0.7, store, step=9, keep_prev=True)
+        assert sc.step == 9 and not np.array_equal(scores(), new)
+        assert sc.rollback() and sc.step == 6
+        np.testing.assert_array_equal(scores(), new)
+        assert not sc.rollback()
+        table = np.zeros((V, cfg.embedding_dim), np.float32)
+        checkpoint.save_params(cfg.model_file, weights.from_jax(
+            0.0, table, device="cpu"), step=7)
+        time.sleep(0.5)  # ten polls: the format change is not crossed
+        assert sc.step == 6 and handle.watcher.reloads == 1
+        np.testing.assert_array_equal(scores(), new)
+    finally:
+        handle.close()

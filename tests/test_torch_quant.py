@@ -423,14 +423,10 @@ def test_trainer_refuses_to_warm_start_over(tmp_path, fmt):
 
 
 def _reference_dense(model_file, table, w0=0.125, step=9):
-    """A dense fp32 checkpoint of ``table`` in both packages' formats:
-    the reference's Orbax dirs and the port's params.npz (the formats
-    live side by side; each package reads its own)."""
+    """A dense fp32 checkpoint of ``table`` in the reference's Orbax
+    dirs, which both packages read."""
     jax_checkpoint.save(model_file, step, jax_fm.FmParams(
         w0=jnp.asarray(np.float32(w0)), table=jnp.asarray(table)))
-    checkpoint.save_params(model_file,
-                           weights.from_jax(w0, table, device="cpu"),
-                           step=step)
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])

@@ -7,7 +7,12 @@ shrinks the error); the port's two transports agree bitwise."""
 
 import dataclasses
 import glob
+import http.client
+import json
 import os
+import sys
+import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -21,7 +26,10 @@ from fast_tffm_tpu.models import fm as jax_fm
 from fast_tffm_tpu.serve import textparse as jax_textparse
 from fast_tffm_tpu.serve import wire as jax_wire
 from fast_tffm_tpu.serve.scorer import FixedShapeScorer as JaxScorer
+from fast_tffm_tpu.train import checkpoint as jax_checkpoint
 from fast_tffm_tpu_torch import cli, config, weights
+from fast_tffm_tpu_torch.ops import quant
+from fast_tffm_tpu_torch.serve import scorer as scorer_lib
 from fast_tffm_tpu_torch.serve import textparse, wire
 from fast_tffm_tpu_torch.serve.scorer import FixedShapeScorer
 from fast_tffm_tpu_torch.serve.server import serve
@@ -209,7 +217,7 @@ def test_serve_observability_routes(served):
     {"serve_replicas": 3},
     {"serve_replicas": 2, "serve_poll_secs": 0.5},
     {"serve_replicas": 2},
-    {"serve_poll_secs": 2.0},
+    {"serve_replicas": 4, "serve_poll_secs": 0.0},
     {"serve_replicas": 2, "serve_canary": True, "serve_poll_secs": 1.0},
     {"serve_capture_file": "cap.tfc", "serve_capture_sample": 0.5},
 ])
@@ -225,16 +233,18 @@ def test_serve_refuses_unported_settings(tmp_path, overrides):
 
 
 def test_serve_refuses_checkpoint_without_params_npz(tmp_path):
+    # The reference's ValueError (fast_tffm_tpu/serve/scorer.py::
+    # load_model) for a directory with no checkpoint of any format.
     cfg = config.FmConfig(model_file=str(tmp_path / "empty"), **CFG)
-    with pytest.raises(NotImplementedError, match="params.npz"):
+    with pytest.raises(ValueError, match="no servable checkpoint"):
         serve(cfg, device="cpu", port=0)
 
 
 @pytest.mark.parametrize("mode", ["train", "predict"])
 def test_cli_refuses_later_slices(tmp_path, mode):
-    # Field-aware FM trains and predicts on one device through the CLI;
-    # the later slices refuse it: a rank mesh (train, item 3) and the
-    # reference's Orbax dense checkpoint (predict's reader, item 2).
+    # Field-aware FM trains and predicts on one device through the CLI,
+    # predict from the reference's Orbax directories too; the later
+    # slices refuse a rank mesh (train, item 3) and a multi-rank predict.
     model_file = str(tmp_path / "model")
     rng = np.random.default_rng(3)
     table = rng.uniform(-0.1, 0.1, (V, 1 + 2 * K)).astype(np.float32)
@@ -256,15 +266,244 @@ def test_cli_refuses_later_slices(tmp_path, mode):
     if mode == "predict":
         scores = np.loadtxt(tmp_path / "scores.txt")
         assert scores.shape == (40,) and np.all((scores > 0) & (scores < 1))
-        # Only the Orbax dirs of a reference save remain.
+        # The same table as the reference's Orbax save: the same scores.
         os.remove(checkpoint.params_path(model_file))
-        os.makedirs(os.path.join(model_file, "params"))
-        later = ""
+        jax_checkpoint.save(model_file, 5, jax_fm.FmParams(
+            w0=jnp.float32(0.0), table=jnp.asarray(table)))
+        os.rename(tmp_path / "scores.txt", tmp_path / "npz_scores.txt")
+        assert cli.main([mode, str(path), "--device", "cpu"]) == 0
+        assert (tmp_path / "scores.txt").read_bytes() == (
+            tmp_path / "npz_scores.txt").read_bytes()
+        flags, match = ["--coordinator", "localhost:1", "--num_processes",
+                        "2", "--process_id", "0"], "single-process"
     else:
         with np.load(checkpoint.params_path(model_file)) as z:
             assert int(z["scalar/step"]) == 3
-        later = "[Tpu]\nmesh_data = 2\n"
-    path.write_text(general + later + rest if mode == "predict"
-                    else general + rest + later)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main([mode, str(path), "--device", "cpu"])
+        path.write_text(general + rest + "[Tpu]\nmesh_data = 2\n")
+        flags, match = [], "ROADMAP.md"
+    with pytest.raises(NotImplementedError, match=match):
+        cli.main([mode, str(path), "--device", "cpu"] + flags)
+
+
+# ----------------------------------------------------------------------
+# the checkpoint watcher, the keep_prev swap and the admin routes
+# ----------------------------------------------------------------------
+
+
+def _wait_for(cond, timeout=30.0) -> bool:
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        if cond():
+            return True
+        time.sleep(0.02)
+    return cond()
+
+
+def _bin_scores(port, ids, vals):
+    return wire.decode_bin_response(
+        _post(port, "/score_bin", wire.encode_bin_request(ids, vals)))
+
+
+def _admin(port, path):
+    """``(status, body)`` of an admin POST with an empty body."""
+    try:
+        return 200, json.loads(_post(port, path, b""))
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _save(model_file, seed, step):
+    w0, table = _params(seed)
+    checkpoint.save_params(
+        model_file, weights.from_jax(w0, table, device="cpu"), step=step)
+    return w0, table
+
+
+def _port_scores(w0, table, ids, vals):
+    """What the server scores from this table: the same scorer on the
+    CPU (bitwise)."""
+    return FixedShapeScorer(config.FmConfig(**CFG),
+                            weights.from_jax(w0, table, device="cpu"),
+                            device="cpu").score(ids, vals)
+
+
+@pytest.fixture
+def watched(tmp_path):
+    """The serving stack with its watcher polling every 50 ms over a
+    params.npz at step 3."""
+    model_file = str(tmp_path / "model")
+    w0, table = _save(model_file, 0, 3)
+    cfg = config.FmConfig(model_file=model_file,
+                          **{**CFG, "serve_poll_secs": 0.05})
+    handle = serve(cfg, device="cpu", port=0)
+    try:
+        yield handle, cfg, w0, table
+    finally:
+        handle.close()
+
+
+def test_watcher_swaps_when_a_port_save_publishes_and_close_joins(watched):
+    handle, cfg, w0, table = watched
+    ids, vals = _examples(20)
+    old = _bin_scores(handle.port, ids, vals)
+    np.testing.assert_array_equal(old, _port_scores(w0, table, ids, vals))
+    w0b, table_b = _save(cfg.model_file, 9, 8)
+    assert _wait_for(lambda: handle.scorer.step == 8)
+    new = _bin_scores(handle.port, ids, vals)
+    np.testing.assert_array_equal(new, _port_scores(w0b, table_b, ids, vals))
+    np.testing.assert_allclose(new, _jax_scores(w0b, table_b, ids, vals),
+                               **TOL)
+    assert handle.watcher.reloads == 1
+    handle.close()
+    assert not handle.watcher._thread.is_alive()
+
+
+def test_watcher_swaps_when_a_reference_trainer_saves(tmp_path):
+    """The served directory holds the reference's Orbax checkpoint; the
+    reference's ``Trainer`` warm-starts from it, trains and saves there,
+    and the port's watcher swaps in what it saved."""
+    from fast_tffm_tpu.train.loop import Trainer as JaxTrainer
+
+    w0, table = _params()
+    model_file = str(tmp_path / "model")
+    jax_checkpoint.save(model_file, 0, jax_fm.FmParams(
+        w0=jnp.asarray(w0), table=jnp.asarray(table)))
+    cfg = config.FmConfig(model_file=model_file,
+                          **{**CFG, "serve_poll_secs": 0.05})
+    rng = np.random.default_rng(5)
+    lines = [f"{i % 2} " + " ".join(
+        f"{rng.integers(0, V)}:{rng.uniform(0.1, 1):.3f}" for _ in range(4))
+        + "\n" for i in range(64)]
+    (tmp_path / "train.libsvm").write_text("".join(lines))
+    handle = serve(cfg, device="cpu", port=0)
+    try:
+        assert handle.scorer.step == 0
+        jt = JaxTrainer(jax_config.FmConfig(
+            **CFG, model_file=model_file, batch_size=32, log_steps=0,
+            train_files=[str(tmp_path / "train.libsvm")]))
+        jt.train()
+        assert _wait_for(lambda: handle.scorer.step == 2)
+        ids, vals = _examples(20)
+        params = jt.state.params
+        np.testing.assert_allclose(
+            _bin_scores(handle.port, ids, vals),
+            _jax_scores(np.asarray(params.w0), np.asarray(params.table),
+                        ids, vals), **TOL)
+    finally:
+        handle.close()
+
+
+def test_concurrent_requests_see_the_old_or_the_new_table(watched):
+    """Four keep-alive clients post while a save lands: every response is
+    the old table's scores or the new one's, bitwise, never a mix."""
+    handle, cfg, w0, table = watched
+    ids, vals = _examples(12)  # two requests fit one dispatch
+    frame = wire.encode_bin_request(ids, vals)
+    old = _port_scores(w0, table, ids, vals)
+    seen, stop = [], threading.Event()
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", handle.port,
+                                          timeout=30)
+        while not stop.is_set():
+            conn.request("POST", "/score_bin", body=frame,
+                         headers={"Content-Length": str(len(frame))})
+            seen.append(wire.decode_bin_response(conn.getresponse().read()))
+        conn.close()
+
+    threads = [threading.Thread(target=client) for _ in range(4)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)  # interleave the threads finely
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(0.2)
+        w0b, table_b = _save(cfg.model_file, 9, 8)
+        assert _wait_for(lambda: handle.scorer.step == 8)
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    new = _port_scores(w0b, table_b, ids, vals)
+    kinds = [0 if np.array_equal(s, old) else 1 if np.array_equal(s, new)
+             else -1 for s in seen]
+    assert -1 not in kinds
+    assert kinds[0] == 0 and kinds[-1] == 1
+
+
+def test_admin_reload_rollback_and_promote(tmp_path):
+    """``/reload?keep_prev=1`` then ``/rollback`` serves the old table's
+    scores bitwise; ``/promote`` closes the window (a ``/rollback`` after
+    it, or with none open, is a 409); an open window stays anchored to
+    the table before it across repeated keep_prev reloads; a plain
+    reload keeps nothing; an unservable checkpoint is a 409."""
+    model_file = str(tmp_path / "model")
+    w0, table = _save(model_file, 0, 3)
+    cfg = config.FmConfig(model_file=model_file, **CFG)  # no watcher
+    handle = serve(cfg, device="cpu", port=0)
+    try:
+        port = handle.port
+        assert handle.watcher is None
+        ids, vals = _examples(20)
+        old = _bin_scores(port, ids, vals)
+        assert _admin(port, "/rollback")[0] == 409
+        w0b, table_b = _save(model_file, 9, 8)
+        new = _port_scores(w0b, table_b, ids, vals)
+        assert _admin(port, "/reload?keep_prev=1") == (200, {"step": 8})
+        np.testing.assert_array_equal(_bin_scores(port, ids, vals), new)
+        assert _admin(port, "/rollback") == (200, {"step": 3})
+        np.testing.assert_array_equal(_bin_scores(port, ids, vals), old)
+        assert _admin(port, "/rollback")[0] == 409
+        assert _admin(port, "/reload?keep_prev=1") == (200, {"step": 8})
+        assert _admin(port, "/promote") == (200, {"step": 8})
+        assert _admin(port, "/rollback")[0] == 409
+        np.testing.assert_array_equal(_bin_scores(port, ids, vals), new)
+        # Anchoring: two keep_prev reloads, one rollback to step 8.
+        _save(model_file, 10, 9)
+        assert _admin(port, "/reload?keep_prev=1") == (200, {"step": 9})
+        _save(model_file, 11, 10)
+        assert _admin(port, "/reload?keep_prev=1") == (200, {"step": 10})
+        assert _admin(port, "/rollback") == (200, {"step": 8})
+        np.testing.assert_array_equal(_bin_scores(port, ids, vals), new)
+        # A plain reload keeps nothing to roll back to.
+        assert _admin(port, "/reload") == (200, {"step": 10})
+        assert _admin(port, "/rollback")[0] == 409
+        # A bf16 quant.npz cannot serve at serve_table_dtype = fp32.
+        checkpoint.save_quant(model_file, 12, w0,
+                              quant.quantize_table(table, "bf16", 64))
+        status, body = _admin(port, "/reload")
+        assert status == 409 and "serve_table_dtype" in body
+        assert handle.scorer.step == 10
+    finally:
+        handle.close()
+
+
+def test_watcher_baselines_an_unservable_checkpoint_and_retries_errors(
+        watched, monkeypatch):
+    """A checkpoint the config cannot serve (ValueError) is loaded once
+    and becomes the baseline, not reloaded at every poll; the next save
+    swaps.  Any other error is retried at the next poll."""
+    handle, cfg, w0, table = watched
+    calls = []
+    orig = scorer_lib.load_model
+
+    def counting(c):
+        calls.append(time.monotonic())
+        if len(calls) == 2:
+            raise OSError("a transient read error")
+        return orig(c)
+
+    monkeypatch.setattr(scorer_lib, "load_model", counting)
+    checkpoint.save_quant(cfg.model_file, 9, w0,
+                          quant.quantize_table(table, "bf16", 64))
+    assert _wait_for(lambda: len(calls) == 1)
+    time.sleep(0.5)  # ten polls
+    assert len(calls) == 1 and handle.scorer.step == 3
+    assert handle.watcher.reloads == 0
+    _save(cfg.model_file, 9, 10)
+    assert _wait_for(lambda: handle.scorer.step == 10)
+    assert len(calls) == 3  # the OSError, then its retry
+    assert handle.watcher.reloads == 1
