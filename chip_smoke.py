@@ -3,8 +3,8 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py           # one GPU: every phase below
-    python3 chip_smoke.py --nccl    # >= 4 GPUs: phases 1-3 and 9 only,
-                                    # one rank per GPU over NCCL
+    python3 chip_smoke.py --nccl    # >= 4 GPUs: phases 1-3, 9 and 16
+                                    # only, one rank per GPU over NCCL
 
 Phases, in order; any failed check ends the run with a non-zero exit:
 
@@ -128,9 +128,13 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    K1's merge mode every step, no K-place).  Checks: every rank reports
    the same global metrics; the table rank 0 saves matches a
    single-device run over the same global batches (table, accumulator,
-   w0, ``delta_check``).  Each rank's step p50 and the share of it
-   spent in the step's collectives (host clock, synchronised around
-   each collective, staging copies included).
+   w0, ``delta_check``).  Then a third run: ``lookup = auto``,
+   ``sparse_exchange = entries``, ``sparse_exchange_overlap = on`` and
+   two steps a dispatch (each step's id plane gathered while the step
+   before it runs): its checkpoint bitwise the ``auto`` run's.  Each
+   rank's step p50 and the share of it spent in the step's collectives
+   (host clock, synchronised around each collective, staging copies
+   included; the overlap's id-plane gather at its start and its wait).
 10. Probe phase (path 4, the table-layout probe): K2T (transposed
    ``[9, V]`` table) and K2P (packed ``[V/8, 128]``) against their plain
    versions on the card (``TABLE_TOL``, ``OPT_TOL``, ``delta_check``),
@@ -242,6 +246,23 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    ``/promote`` and a ``/rollback`` answering 409; the keep_prev
    window's peak device memory and the dispatch p50 during and after
    the swap.
+16. Fleet phase (path 11, the rank-sharded tiered table,
+   ``tiered_partition = shards``): (a) phase 5's config and files with
+   ``table_tiering = on``, ``hot_rows = 2^18`` (2^17 a rank),
+   ``mesh_data = 1``, ``mesh_model = 2``, ``lookup = auto`` and no
+   validation files, two ranks of this script sharing the card over
+   gloo (four, one per GPU over NCCL, with ``--nccl``), against the dense
+   ``1 x 2`` mesh over the same lines and seed: each rank's loss and AUC,
+   w0 and its slot, and the table and accumulator merged from the two
+   ``tiered.shard{s}of2.npz`` against the dense ``params.npz``, all
+   bitwise; evictions; FmGrad, K1 and K2 every step on every rank.  Each
+   rank's plan ms a super-batch, migration device ms a dispatch, tier
+   counters, step p50 and collective share, and peak device memory.
+   (b) The shard set served through ``serve()`` and predicted through
+   ``python -m fast_tffm_tpu_torch.cli predict`` on one device, within
+   ``SERVE_TOL`` of the dense ``params.npz`` served and predicted the
+   same way; then warm-started on one device (2 shards -> 1: every saved
+   row back bitwise through ``gather_logical``) and trained 4 steps.
 
 Output: progress lines and JSON records, then a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -334,6 +355,10 @@ TIERED_HOT = 1 << 18
 TIERED_BATCHES = 12
 TIERED_EPOCHS = 8
 TIERED_SHORT_EPOCHS = 2
+# Rank-sharded tiering (path 11): the fleet's global hot table (2^17
+# rows a rank on two ranks) and the steps of its one-device warm start.
+FLEET_HOT = 1 << 18
+FLEET_WARM_STEPS = 4
 # The dense optax path (path 9): both L2 lambdas of the full-table L2,
 # the short runs' steps (bf16, FFM-Criteo, the warm start), the lines of
 # the predict file served, and the timed dispatches of one step.
@@ -2188,7 +2213,7 @@ def rank_main(argv) -> int:
     from fast_tffm_tpu_torch.config import load_config
     from fast_tffm_tpu_torch.ops import fm_kernels, sparse_apply
     from fast_tffm_tpu_torch.tools import micro_probe
-    from fast_tffm_tpu_torch.train import dist, shardmap_step
+    from fast_tffm_tpu_torch.train import dist, loop, shardmap_step
     from fast_tffm_tpu_torch.train.loop import Trainer
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
@@ -2204,26 +2229,55 @@ def rank_main(argv) -> int:
         def timed(collective):
             """``collective`` timed on the host clock, synchronised on
             both sides (the smoke's measurement only)."""
-            def call(t, axis, mesh):
+            def call(*args):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = collective(t, axis, mesh)
+                out = collective(*args)
                 torch.cuda.synchronize()
                 coll_s[0] += time.perf_counter() - t0
                 return out
             return call
 
-        # Every collective of a train step is the sharded step's.
+        # Every collective of a train step is the sharded step's, and
+        # the overlap's id-plane gather is the trainer's prefetch: its
+        # start (the id plane's sort and, under gloo, the copy to the
+        # host) and its wait are timed the same way.
         shardmap_step.psum = timed(shardmap_step.psum)
         shardmap_step.all_gather = timed(shardmap_step.all_gather)
+        prefetch = loop.entries_prefetch
+
+        def timed_prefetch(*args):
+            pending = timed(prefetch)(*args)
+            pending.wait = timed(pending.wait)
+            return pending
+
+        loop.entries_prefetch = timed_prefetch
 
         class TimedTrainer(Trainer):
             """Times each dispatch (synchronised) and its collectives,
-            over its steps."""
+            over its steps; under fleet tiering also each plan's host
+            seconds (on the transfer thread) and each migration's device
+            time (a CUDA event pair on the dispatch stream)."""
 
             def __init__(self, *args, **kwargs):
                 self.step_s, self.coll_s = [], []
+                self.plan_s, self.migration_events = [], []
                 super().__init__(*args, **kwargs)
+
+            def _plan_group(self, group):
+                t0 = time.perf_counter()
+                out = super()._plan_group(group)
+                self.plan_s.append(time.perf_counter() - t0)
+                return out
+
+            def _apply_migration_fleet(self, shipment):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = super()._apply_migration_fleet(shipment)
+                b.record()
+                self.migration_events.append((a, b))
+                return out
 
             def dispatch(self, sb, pause=None):
                 c0 = coll_s[0]
@@ -2245,19 +2299,31 @@ def rank_main(argv) -> int:
         launches = read_launches(kernels)
         mesh = trainer.mesh
         steps = trainer.step_s[1:]  # the first step warms up
+        mig = [a.elapsed_time(b) for a, b in trainer.migration_events]
         record = {
             "rank": rank, "coords": list(mesh.coords), "device": str(dev),
             "backend": mesh.backend,
             "exchange": shardmap_step.exchange_mode(
-                cfg, mesh, cfg.batch_size // mesh.data * cfg.max_features),
+                trainer.dcfg, mesh,
+                cfg.batch_size // mesh.data * cfg.max_features),
+            "overlap": trainer.overlap,
             "launches": launches, "train": result["train"],
-            "validation": result["validation"],
+            "validation": result.get("validation"),
             "step_p50_ms": p50(steps) * 1e3,
             "collective_share": sum(trainer.coll_s[1:]) / sum(steps),
             "step_ms": [x * 1e3 for x in trainer.step_s],
             "train_wall_s": wall,
             "peak_device_mb": torch.cuda.max_memory_allocated() / 2**20,
         }
+        if trainer.fleet is not None:
+            record["fleet"] = {
+                "plans": len(trainer.plan_s),
+                "plan_ms_mean": 1e3 * sum(trainer.plan_s) / max(
+                    len(trainer.plan_s), 1),
+                "plan_ms_max": 1e3 * max(trainer.plan_s, default=0.0),
+                "migration_device_ms_mean": sum(mig) / max(len(mig), 1),
+                "migration_device_ms_max": max(mig, default=0.0),
+            }
         with open(out_path, "w") as f:
             json.dump(record, f)
     finally:
@@ -3287,9 +3353,13 @@ def spawn_ranks(tmp: str, tag: str, overrides: dict, world: int,
 def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
                   valid_file: str, one_card: bool):
     """Main path 3: the 2 x 2 mesh's dense and auto (entries) runs
-    against a single-device run over the same global batches.  Returns
-    the phase's record and the launches of each kernel summed over the
-    ranks of both runs."""
+    against a single-device run over the same global batches, and the
+    overlapped entries exchange (``lookup = auto``, ``sparse_exchange =
+    entries``, ``sparse_exchange_overlap = on``, two steps a dispatch so
+    that a step's id plane is gathered while the one before it runs),
+    whose checkpoint must be the auto run's bit for bit.  Returns the
+    phase's record and the launches of each kernel summed over the ranks
+    of all three runs."""
     from fast_tffm_tpu_torch.config import load_config
     from fast_tffm_tpu_torch.models import fm
     from fast_tffm_tpu_torch.train.loop import Trainer
@@ -3319,14 +3389,18 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
     want = load(ref_dir)
     world = SHARDED_MESH[0] * SHARDED_MESH[1]
     runs, launches = {}, {}
-    for exchange in ("dense", "auto"):
+    mesh = {"mesh_data": SHARDED_MESH[0], "mesh_model": SHARDED_MESH[1]}
+    for exchange, extra in (
+        ("dense", dict(lookup="shardmap", sparse_exchange="dense")),
+        ("auto", dict(lookup="shardmap", sparse_exchange="auto")),
+        ("overlap", dict(lookup="auto", sparse_exchange="entries",
+                         sparse_exchange_overlap="on",
+                         steps_per_dispatch=2)),
+    ):
         model_dir = os.path.join(tmp, f"sharded_{exchange}")
         t0 = time.perf_counter()
         recs = spawn_ranks(tmp, f"sharded_{exchange}", dict(
-            base, model_file=model_dir, mesh_data=SHARDED_MESH[0],
-            mesh_model=SHARDED_MESH[1], lookup="shardmap",
-            sparse_exchange=exchange,
-        ), world, one_card)
+            base, model_file=model_dir, **mesh, **extra), world, one_card)
         wall = time.perf_counter() - t0
         r0 = recs[0]
         for rec in recs:
@@ -3340,13 +3414,16 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
                           f"{exchange}: rank {rec['rank']} {part} {m} {a} "
                           f"!= rank 0's {b}")
             got = rec["launches"]
+            check(rec["overlap"] == (exchange == "overlap"),
+                  f"{exchange}: rank {rec['rank']} overlap {rec['overlap']}")
             if exchange == "dense":
                 check(rec["exchange"] == "dense" and got["kplace"] >= steps,
                       f"dense: rank {rec['rank']} launched K-place "
                       f"{got['kplace']} times in {steps} steps")
             else:
                 check(rec["exchange"] == "entries",
-                      f"auto resolved to {rec['exchange']}, not entries")
+                      f"{exchange} resolved to {rec['exchange']}, not "
+                      f"entries")
                 check(got["k1_merge"] >= steps and got["kplace"] == 0,
                       f"entries: rank {rec['rank']} launched K1 merge "
                       f"{got['k1_merge']} and K-place {got['kplace']} times")
@@ -3357,6 +3434,12 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
                 launches[name] = launches.get(name, 0) + n
         have = load(model_dir)
         check(set(have) == set(want), f"{exchange}: checkpoint keys")
+        if exchange == "overlap":
+            auto = load(os.path.join(tmp, "sharded_auto"))
+            for key, t in have.items():
+                check(torch.equal(t, auto[key]),
+                      f"overlap: {key} differs from the entries run's")
+            del auto
         torch.testing.assert_close(have["params/table"], want["params/table"],
                                    **TABLE_TOL)
         torch.testing.assert_close(have["opt/acc_table"],
@@ -3374,6 +3457,7 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
         }
         runs[exchange] = {
             "wall_s": wall, "resolved": r0["exchange"],
+            "overlap": r0["overlap"], "overrides": extra,
             "backend": r0["backend"],
             "table_max_abs_err": float(
                 (have["params/table"] - want["params/table"]).abs().max()),
@@ -3402,6 +3486,200 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
                           "validation_auc": ref["validation"]["auc"]},
         **runs,
     }}
+    return record, launches
+
+
+def fleet_phase(np, torch, tmp: str, card: str, rng, train_files,
+                predict_file: str, kernels: dict, world: int,
+                one_card: bool) -> tuple:
+    """Path 11, the rank-sharded tiered table: (a) the main config over
+    the main run's files (16 steps) with ``table_tiering = on``,
+    ``hot_rows = FLEET_HOT``, a ``1 x world`` mesh and ``lookup = auto``
+    (no validation files: the fleet refuses them), each rank a process of
+    this script, against the dense ``1 x world`` run from the same seed:
+    each rank's loss and AUC, w0 and its slot, and the table and
+    accumulator merged from the shard files against the dense
+    ``params.npz``, all bit for bit; (b) the shard set served through
+    ``serve()`` and predicted through the CLI on one device, both within
+    ``SERVE_TOL`` of the dense ``params.npz`` served and predicted the
+    same way, then warm-started on one device (S = world -> 1), every
+    saved row back bit for bit, and trained ``FLEET_WARM_STEPS`` steps.
+    Returns ``(record, launches)``: the fleet ranks' kernels summed, and
+    the FmScorer's serving and predicting the shard set, and the warm
+    start's steps' (the dense baseline's are left out)."""
+    from fast_tffm_tpu_torch import cli
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.serve import scorer as serve_scorer
+    from fast_tffm_tpu_torch.train import checkpoint
+    from fast_tffm_tpu_torch.train import tiered as tiered_lib
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    base = {"train_files": train_files, "validation_files": [],
+            "seed": SEED, "log_steps": 4, "serve_poll_secs": 0.0,
+            "serve_port": 0, "mesh_data": 1, "mesh_model": world}
+    runs = {}
+    for name, extra in (("dense", {}),
+                        ("fleet", {"table_tiering": "on",
+                                   "hot_rows": FLEET_HOT})):
+        model_dir = os.path.join(tmp, f"fleet_{name}_{world}")
+        t0 = time.perf_counter()
+        recs = spawn_ranks(tmp, f"fleet_{name}_{world}",
+                           dict(base, model_file=model_dir, **extra), world,
+                           one_card)
+        runs[name] = {"recs": recs, "wall_s": time.perf_counter() - t0,
+                      "dir": model_dir}
+    dense, fleet = runs["dense"]["recs"], runs["fleet"]["recs"]
+    steps = dense[0]["train"]["steps"]
+    check(steps == TRAIN_FILES * BATCHES_PER_FILE,
+          f"fleet baseline trained {steps} steps")
+    launches = {name: 0 for name in kernels}
+    for d, f in zip(dense, fleet):
+        for m in ("loss", "auc", "examples", "steps"):
+            check(f["train"][m] == d["train"][m],
+                  f"fleet: rank {f['rank']} {m} {f['train'][m]} != the "
+                  f"dense mesh's {d['train'][m]}")
+        snap = f["train"]["tiered"]
+        check(snap["num_shards"] == world and snap["owned_shards"] == 1,
+              f"fleet: rank {f['rank']} shards {snap}")
+        got = f["launches"]
+        check(min(got["fm_grad"], got["k1_dedup"], got["k2_apply"]) >= steps,
+              f"fleet: rank {f['rank']} launches {got}")
+        for name, n in got.items():
+            launches[name] += n
+    evicted = sum(f["train"]["tiered"]["rows_evicted"] for f in fleet)
+    check(evicted > 0, "fleet: no eviction churn")
+    fleet_dir, dense_dir = runs["fleet"]["dir"], runs["dense"]["dir"]
+    names = sorted(os.listdir(fleet_dir))
+    check(names == sorted(["data_state.json", "serve_manifest.json"] + [
+        f"tiered.shard{s}of{world}.npz" for s in range(world)]),
+        f"fleet checkpoint files {names}")
+    step, scalars, stores = checkpoint.restore_tiered(fleet_dir)
+    vs_dense = {}
+    with np.load(os.path.join(dense_dir, "params.npz")) as z:
+        check(step == int(z["scalar/step"]) == steps, f"fleet step {step}")
+        for name, key in (("table", "params/table"), ("acc", "opt/acc_table"),
+                          ("w0", "scalar/w0"), ("acc_w0", "opt/acc_w0")):
+            want = z[key]
+            if name in stores:
+                check(stores[name]["descriptor"]["kind"] == "dense",
+                      f"fleet store {name}: {stores[name]['descriptor']}")
+                have = np.empty_like(want)
+                have[stores[name]["ids"]] = stores[name]["rows"]
+            else:
+                have = np.asarray(scalars[name], np.float32)
+            check(np.array_equal(have.view(np.uint32),
+                                 want.astype(np.float32).view(np.uint32)),
+                  f"fleet {name} is not the dense mesh's bit for bit")
+            vs_dense[name] = "bitwise"
+        table, w0 = z["params/table"], float(z["scalar/w0"])
+    # (b) The shard set served and predicted on one device.
+    scfg = load_config(CFG_PATH, dict(base, mesh_model=1,
+                                      model_file=fleet_dir))
+    requests = serve_requests(np, rng, scfg)
+    served = {}
+    for name, model_dir in (("fleet", fleet_dir), ("dense", dense_dir)):
+        rec = serve_table(np, torch, dataclasses.replace(
+            scfg, model_file=model_dir), requests,
+            Rows(w0, lambda ids: table[ids]), f"fleet {name} served")
+        served[name] = rec
+    launches["fm_scores"] += served["fleet"]["launches"]
+    for a, b in zip(served["fleet"]["scores"], served["dense"]["scores"]):
+        np.testing.assert_allclose(a, b, **SERVE_TOL)
+    with open(CFG_PATH) as f:
+        text = f.read()
+    predicted = {}
+    t0 = time.perf_counter()
+    for name, model_dir in (("fleet", fleet_dir), ("dense", dense_dir)):
+        zero_launches(kernels)
+        scores = os.path.join(tmp, f"fleet_{name}_scores.txt")
+        body = text
+        for key, value in (("model_file", model_dir),
+                           ("predict_files", predict_file),
+                           ("score_path", scores)):
+            body = re.sub(rf"(?m)^{key} = .*$", f"{key} = {value}", body)
+        path = os.path.join(tmp, f"fleet_{name}_predict.cfg")
+        with open(path, "w") as f:
+            f.write(body)
+        check(cli.main(["predict", path]) == 0, f"fleet {name} predict")
+        predicted[name] = np.loadtxt(scores)
+        if name == "fleet":
+            launches["fm_scores"] += read_launches(kernels)["fm_scores"]
+    predict_s = time.perf_counter() - t0
+    check(predicted["fleet"].shape == (LINES,), "fleet predict lines")
+    # The files print 6 digits: one digit more than SERVE_TOL allows.
+    predict_diff = float(np.abs(predicted["fleet"]
+                                - predicted["dense"]).max())
+    check(np.allclose(predicted["fleet"], predicted["dense"], rtol=1e-5,
+                      atol=SERVE_TOL["atol"] + 1.01e-6),
+          f"fleet predict differs from the dense one's by {predict_diff}")
+    # S = world -> 1: the shard set warm-starts one device.
+    warm_dir = os.path.join(tmp, f"fleet_warm_{world}")
+    shutil.copytree(fleet_dir, warm_dir)
+    warm_file = os.path.join(tmp, "fleet_warm.libsvm")
+    with open(train_files[0]) as src, open(warm_file, "w") as dst:
+        for _ in range(FLEET_WARM_STEPS * LINES):
+            dst.write(next(src))
+    wcfg = load_config(CFG_PATH, dict(
+        base, mesh_model=1, model_file=warm_dir, train_files=[warm_file],
+        table_tiering="on", hot_rows=FLEET_HOT))
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    warm = Trainer(wcfg)
+    check(isinstance(warm.tiered, tiered_lib.TieredTable)
+          and warm._restored_step == steps,
+          f"warm start: {type(warm.tiered).__name__} at step "
+          f"{warm._restored_step}")
+    ids = stores["table"]["ids"]
+    back = warm.tiered.gather_logical(ids)
+    check(np.array_equal(back.view(np.uint32),
+                         stores["table"]["rows"].view(np.uint32)),
+          "warm start: the saved rows did not come back bit for bit")
+    wres = warm.train()["train"]
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wl = read_launches(kernels)
+    check(wres["steps"] == FLEET_WARM_STEPS and np.isfinite(wres["loss"]),
+          f"warm start trained {wres['steps']} steps, loss {wres['loss']}")
+    for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
+        check(wl[name] == FLEET_WARM_STEPS,
+              f"warm start: {name} launched {wl[name]} times")
+        launches[name] += wl[name]
+    del warm, back, table, stores
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("rank", "device", "backend", "launches", "step_p50_ms",
+            "collective_share", "train_wall_s", "peak_device_mb")
+    tier_keys = ("hot_hit_frac", "rows_loaded", "rows_evicted",
+                 "writeback_rows", "cold_store_bytes", "resident_rows",
+                 "hot_rows", "vocab")
+    record = {
+        "card": card, "config": "examples/criteo_kaggle.cfg",
+        "mesh": [1, world], "hot_rows": FLEET_HOT, "steps": steps,
+        "transport": (f"gloo through pinned host memory, {world} ranks "
+                      "sharing one card" if one_card
+                      else f"one rank per GPU, {fleet[0]['backend']}"),
+        "train_loss": fleet[0]["train"]["loss"],
+        "train_auc": fleet[0]["train"]["auc"],
+        "vs_dense_mesh": vs_dense,
+        "wall_s": {k: v["wall_s"] for k, v in runs.items()},
+        "ranks": [{**{k: f[k] for k in keys}, **f["fleet"],
+                   **{k: f["train"]["tiered"][k] for k in tier_keys}}
+                  for f in fleet],
+        "dense_ranks": [{k: d[k] for k in keys} for d in dense],
+        "served": {name: {"dispatch_p50_ms": rec["dispatch_p50_ms"],
+                          "fm_scores_launches": rec["launches"],
+                          "peak_bytes_added": rec["peak_bytes_added"],
+                          "max_abs_err_vs_plain":
+                              rec["max_abs_err_vs_plain"]}
+                   for name, rec in served.items()},
+        "served_max_abs_diff": max(
+            float(np.abs(a - b).max()) for a, b in zip(
+                served["fleet"]["scores"], served["dense"]["scores"])),
+        "predict_max_abs_diff": predict_diff, "predict_s": predict_s,
+        "warm_start": {"restored_step": steps, "rows_back": len(ids),
+                       "steps": wres["steps"], "loss": wres["loss"],
+                       "wall_s": warm_s, "launches": wl},
+    }
     return record, launches
 
 
@@ -3531,8 +3809,9 @@ def probe_phase(torch, card: str, gen, table0, hot_ids, hyper, err: dict,
 
 
 def nccl_main() -> int:
-    """``--nccl``: the sharded phase alone, one rank per GPU (needs at
-    least four), so the backend rule picks NCCL."""
+    """``--nccl``: the sharded phase (its three 2 x 2 runs) and path 11 as
+    a ``1 x 4`` fleet against the dense ``1 x 4`` mesh, one rank per GPU
+    (needs at least four), so the backend rule picks NCCL."""
     import numpy as np
     import torch
 
@@ -3543,7 +3822,8 @@ def nccl_main() -> int:
     check(torch.cuda.device_count() >= world,
           f"--nccl needs {world} GPUs, have {torch.cuda.device_count()}")
     sys.path.insert(0, REPO)
-    from fast_tffm_tpu_torch.ops import _build
+    from fast_tffm_tpu_torch.ops import _build, fm_kernels, sparse_apply
+    from fast_tffm_tpu_torch.tools import micro_probe
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
@@ -3553,13 +3833,22 @@ def nccl_main() -> int:
     rng = np.random.default_rng(SEED)
     w_true = rng.normal(0.0, 0.6, (13, INT_BUCKETS))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        train_file = os.path.join(tmp, "train_0.libsvm")
+        train_files = [os.path.join(tmp, f"train_{i}.libsvm")
+                       for i in range(TRAIN_FILES)]
+        for path in train_files:
+            write_labelled(np, path, rng, BATCHES_PER_FILE * LINES, w_true)
         valid_file = os.path.join(tmp, "valid.libsvm")
-        write_labelled(np, train_file, rng, BATCHES_PER_FILE * LINES, w_true)
+        predict_file = os.path.join(tmp, "predict.libsvm")
         write_labelled(np, valid_file, rng, LINES, w_true)
-        record, _ = sharded_phase(np, torch, tmp, card, train_file,
+        write_labelled(np, predict_file, rng, LINES, w_true)
+        record, _ = sharded_phase(np, torch, tmp, card, train_files[0],
                                   valid_file, one_card=False)
-    print(json.dumps(record), flush=True)
+        print(json.dumps(record), flush=True)
+        kernels = kernel_fns(fm_kernels, sparse_apply, micro_probe)
+        fleet, _ = fleet_phase(np, torch, tmp, card, rng, train_files,
+                               predict_file, kernels, world=world,
+                               one_card=False)
+        print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4608,7 +4897,27 @@ def main() -> int:
           "predict file; /reload?keep_prev=1, /rollback, /promote, 409",
           flush=True)
     phase_end("orbax_serve")
-    tmp_ctx.cleanup()  # the main run's files, which paths 8-10 read
+
+    # -- fleet phase (path 11): the rank-sharded tiered table -----------
+    fleet_rec, fleet_launches = fleet_phase(
+        np, torch, tmp, card, rng, train_files, predict_file, kernels,
+        world=2, one_card=True)
+    print(json.dumps({"fleet": fleet_rec}), flush=True)
+    print("fleet (" + card + "): " + json.dumps({
+        "ranks": [{k: r[k] for k in (
+            "rank", "step_p50_ms", "collective_share", "plan_ms_mean",
+            "migration_device_ms_mean", "hot_hit_frac", "rows_evicted",
+            "writeback_rows", "cold_store_bytes", "peak_device_mb")}
+            for r in fleet_rec["ranks"]],
+        "served_max_abs_diff": fleet_rec["served_max_abs_diff"]}),
+        flush=True)
+    print("fleet check: a 1 x 2 fleet of two ranks trains bitwise the "
+          "dense 1 x 2 mesh (loss, AUC, w0, the merged table and "
+          "accumulator); its shard set serves and predicts within "
+          "SERVE_TOL of the dense params.npz, warm-starts one device with "
+          "every saved row bitwise and trains on", flush=True)
+    phase_end("fleet")
+    tmp_ctx.cleanup()  # the main run's files, which paths 8-11 read
 
     # Launches on the main paths: train (path 1), serve (paths 2, 6 and
     # 7, with path 8 the only fm_scores count), the sharded runs' ranks
@@ -4641,6 +4950,11 @@ def main() -> int:
     # predict.
     for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
         launches[name] += orbax_launches[name]
+    # Path 11: the fleet ranks' steps (FmGrad, K1, K2; the sharded step
+    # scores without FmScorer), the shard set served and predicted, and
+    # the one-device warm start's steps.
+    for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
+        launches[name] += fleet_launches[name]
     sources = {
         "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
         "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),

@@ -43,7 +43,10 @@ the data axis one of two ways (:func:`resolve_exchange`):
 - **entries**: :func:`unique_entries` pads each rank's stream to a
   static ``cap`` (:func:`entries_cap`), the streams are gathered, and
   :func:`merge_entries` sums them with K1's **merge mode**
-  (:func:`k1_merge_cuda`) before K2.
+  (:func:`k1_merge_cuda`) before K2.  The stream's rows (its id plane)
+  depend on the ids alone: :func:`entries_rows` gives them from the
+  sort, with no K1 launch, so the overlapped exchange gathers them a
+  step ahead.
 
 Semantics are the reference's (``train/sparse.py``): Adagrad adds every
 occurrence's g² to the accumulator and shares the post-update
@@ -71,7 +74,7 @@ from fast_tffm_tpu_torch.ops import _build
 __all__ = [
     "CHUNK", "K1_SHORT", "OPTIMIZERS", "TILE", "Hyper", "adagrad_update",
     "apply", "dedup_entries", "dense_delta", "dense_grad", "entries_cap",
-    "ftrl_solve",
+    "entries_rows", "ftrl_solve",
     "ftrl_update", "k1_dedup_cuda", "k1_dedup_plain", "k1_error_bound",
     "k1_merge_cuda", "k1_merge_plain", "k2_apply_cuda", "k2_apply_plain",
     "kplace_cuda", "kplace_plain", "merge_entries", "resolve_exchange",
@@ -553,6 +556,26 @@ def unique_entries(ids, g_rows, *, vocab: int, cap: int):
     pay = torch.zeros((cap, 2 * d), dtype=torch.float32, device=ids.device)
     pay[:u] = sums
     return rows, pay, torch.tensor(u, device=ids.device)
+
+
+def entries_rows(ids, *, vocab: int, cap: int):
+    """The id plane of :func:`unique_entries`: its ``rows [cap]`` i32
+    (the unique local ids ascending, the sentinel ``vocab`` left out,
+    padded with ``vocab``), taken from the sort meta with no payload and
+    no K1 launch: each unique id is the id at its segment's first sorted
+    position, the row K1 writes (the reference's
+    ``make_entries_prefetch`` runs ``unique_entries`` on zero payloads
+    for the same rows)."""
+    ids = ids.reshape(-1).to(torch.int32).contiguous()
+    n_pad = -(-ids.numel() // CHUNK) * CHUNK
+    if cap > n_pad:
+        raise ValueError(f"cap={cap} exceeds padded occurrences {n_pad}")
+    meta = sort_meta(ids, drop_from=vocab)
+    u = meta.seg_start.numel() - 1
+    first = meta.perm.long().index_select(0, meta.seg_start[:u].long())
+    rows = torch.full((cap,), vocab, dtype=torch.int32, device=ids.device)
+    rows[:u] = ids.index_select(0, first)
+    return rows
 
 
 def merge_entries(rows, pay, *, vocab: int):

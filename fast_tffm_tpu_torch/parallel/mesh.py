@@ -13,6 +13,9 @@ With the ``gloo`` backend a CUDA tensor is staged explicitly through a
 pinned host buffer (gloo's own CUDA support is partial); ``nccl`` takes
 it as it is; a CPU tensor goes to gloo directly.  :func:`gather` brings
 the tensors to the axis's first rank only (a checkpoint's save).
+:func:`all_gather_async` starts an all-gather and returns at once; its
+``wait()`` gives the result (the overlapped entries exchange's id
+plane).
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "all_gather", "barrier",
-           "data_partition", "gather", "make_mesh", "mesh_shape", "psum"]
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "PendingGather", "all_gather",
+           "all_gather_async", "barrier", "data_partition", "gather",
+           "make_mesh", "mesh_shape", "psum"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -166,6 +170,55 @@ def all_gather(t: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
     else:
         dist.all_gather(list(out.chunk(n)), t, group=group)
     return out
+
+
+class PendingGather:
+    """An all-gather in flight (:func:`all_gather_async`): :meth:`wait`
+    blocks until it has landed and returns the gathered tensor on the
+    input's device.  It holds its buffers until then."""
+
+    def __init__(self, work, out: torch.Tensor, device: torch.device,
+                 keep: Optional[torch.Tensor] = None):
+        self._work, self._out, self._device = work, out, device
+        self._keep = keep  # the input, alive until the gather lands
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = self._keep = None
+        return self._out.to(self._device)
+
+
+def all_gather_async(t: torch.Tensor, axis: str,
+                     mesh: Mesh) -> PendingGather:
+    """:func:`all_gather` started as an asynchronous collective: returns
+    at once, and the result's ``wait()`` gives what :func:`all_gather`
+    would.  Under gloo a CUDA tensor is copied to a fresh host buffer
+    first (that copy waits for the device) and the result back after the
+    wait; under nccl the gather runs on the backend's stream and the
+    wait orders the current stream after it.  Each call owns its
+    buffers, so several may be in flight beside the synchronous
+    collectives."""
+    group = mesh.groups.get(axis)
+    if group is None:
+        return PendingGather(None, t, t.device)
+    t = t.contiguous()
+    n = mesh.shape[axis]
+    out_shape = (n * t.shape[0],) + tuple(t.shape[1:])
+    if mesh._staged(t):
+        src = t.cpu()
+        out = torch.empty(out_shape, dtype=t.dtype)
+        work = dist.all_gather(list(out.chunk(n)), src, group=group,
+                               async_op=True)
+        return PendingGather(work, out, t.device, keep=src)
+    out = torch.empty(out_shape, dtype=t.dtype, device=t.device)
+    if t.device.type == "cuda":
+        work = dist.all_gather_into_tensor(out, t, group=group,
+                                           async_op=True)
+    else:
+        work = dist.all_gather(list(out.chunk(n)), t, group=group,
+                               async_op=True)
+    return PendingGather(work, out, t.device, keep=t)
 
 
 def gather(t: torch.Tensor, axis: str,

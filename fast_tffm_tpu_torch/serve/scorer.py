@@ -24,7 +24,8 @@ Two variants share the plumbing:
   f32 scale per ``quant_chunk`` rows (``models.fm.fm_scores_dequant``:
   gather codes and scales, widen, score).  An fp32 model is quantized
   on the host at placement; a ``quant.npz`` table is placed as it is.
-- :class:`OverlayScorer` scores a ``tiered.npz`` sparse overlay straight
+- :class:`OverlayScorer` scores a ``tiered.npz`` sparse overlay (or a
+  rank-sharded set of ``tiered.shard{s}of{S}.npz``) straight
   from its host cold store: per dispatch the rung's unique ids gather
   their rows on the host (``ColdStore.gather``), a compact table padded
   to a power-of-two bucket is copied to the device in one pinned copy,
@@ -560,6 +561,31 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 # ----------------------------------------------------------------------
 
 
+def _dense_overlay_store(cfg: FmConfig, payload: dict):
+    """A dense-backed ``ColdStore`` of a ``kind = "dense"`` overlay's
+    packed rows, placed by id; ValueError when their format is not the
+    config's cold dtype or the ids are not every row once."""
+    codec = quant.cold_codec(cfg)
+    fmt = {k: v for k, v in payload["descriptor"].items() if k != "kind"}
+    if fmt != codec.descriptor():
+        raise ValueError(
+            f"tiered checkpoint store 'table' was packed as {fmt} but this "
+            f"run's cold_dtype expects {codec.descriptor()}"
+        )
+    ids = np.asarray(payload["ids"], np.int64)
+    vocab, dim = cfg.vocabulary_size, cfg.embedding_dim
+    if len(ids) != vocab or not np.array_equal(np.sort(ids),
+                                               np.arange(vocab)):
+        raise ValueError(
+            f"a dense tiered checkpoint holds every row once; this one "
+            f"holds {len(ids)} ids for vocabulary_size={vocab}"
+        )
+    packed = codec.empty(vocab)
+    packed[ids] = np.asarray(payload["rows"], codec.storage_dtype)
+    return tiered_lib.ColdStore(vocab, dim, payload["descriptor"],
+                                dense=packed, codec=codec)
+
+
 def load_model(cfg: FmConfig):
     """The servable model under ``cfg.model_file``, on the host, as
     ``(fmt, step, model)``: ``("tiered", step, (w0, ColdStore))`` from a
@@ -570,13 +596,20 @@ def load_model(cfg: FmConfig):
     package's Orbax ``params/``).  An overlay written under another init
     or cold dtype, and a quantized table of another shape or dtype than
     the config's, raise ValueError, and so does a directory with no
-    servable checkpoint, as the reference's."""
+    servable checkpoint, as the reference's.  An overlay of
+    ``kind = "dense"`` (every row of an exact cold store: the fleet's
+    shard sets) is served from a dense-backed store of its packed rows,
+    which must cover the whole vocabulary in the config's cold dtype
+    (the reference's reader refuses it as another init)."""
     model_file = cfg.model_file
     if checkpoint.exists_tiered(model_file):
         step, scalars, stores = checkpoint.restore_tiered(model_file)
         payload = stores["table"]
         want = tiered_lib._virtual_descriptor(cfg, "table")
         got = payload.get("descriptor")
+        if got is not None and got.get("kind") == "dense":
+            return "tiered", step, (float(scalars["w0"]),
+                                    _dense_overlay_store(cfg, payload))
         if got is not None and got != want:
             raise ValueError(
                 f"tiered checkpoint store 'table' was written under a "

@@ -66,7 +66,11 @@ reference's keys), the handshake the server's checkpoint watcher polls.
 The tiered trainer saves through :func:`save_params` (a logical table
 small enough for the dense format) or :func:`save_tiered`, both with
 ``data_state.json``, and warm-starts from a dense checkpoint through
-:func:`restore_host` (host numpy, never at ``[V, D]`` on the card).
+:func:`restore_host` (host numpy, never at ``[V, D]`` on the card).  The
+rank-sharded tiered trainer (``train/tiered_fleet.py``) saves one
+``tiered.shard{s}of{S}.npz`` per owned shard through
+:func:`save_tiered_shards`, and :func:`restore_tiered` reads the set as
+one overlay, at any shard count.
 """
 
 from __future__ import annotations
@@ -98,7 +102,8 @@ __all__ = ["clear_quant", "clear_tiered", "data_state_path", "exists",
            "restore_arrays", "restore_data_state", "restore_host",
            "restore_opt_state", "restore_params",
            "restore_quant", "restore_tiered", "save_params", "save_quant",
-           "save_sharded", "save_tiered", "tiered_path"]
+           "save_sharded", "save_tiered", "save_tiered_shards",
+           "tiered_path"]
 
 # optimizer -> (state type, its checkpoint keys in field order)
 _OPT_KEYS = {
@@ -411,6 +416,11 @@ def tiered_path(model_file: str) -> str:
     return os.path.join(os.path.abspath(model_file), "tiered.npz")
 
 
+def _tiered_shard_path(model_file: str, index: int, count: int) -> str:
+    return os.path.join(os.path.abspath(model_file),
+                        f"tiered.shard{index}of{count}.npz")
+
+
 def _tiered_shard_files(model_file: str) -> list:
     """[(index, count, path)] of every per-shard overlay file present."""
     out = []
@@ -430,17 +440,8 @@ def exists_tiered(model_file: str) -> bool:
     )
 
 
-def save_tiered(model_file: str, step: int, scalars: dict,
-                stores: dict, data_state: Optional[dict] = None) -> str:
-    """Write ``tiered.npz``: ``scalars`` (``w0`` and the optimizer's w0
-    slots) as ``scalar/<name>``, and for each store of ``stores`` (name
-    -> ``{"ids", "rows", "descriptor"}``, a ``ColdStore.export()`` plus
-    its descriptor) the ids and packed rows of every written row and
-    the init descriptor that regenerates the rest.  Removes the dense
-    checkpoint and ``quant.npz``, writes ``data_state.json`` when given
-    and publishes the serving manifest.  Returns the file's path."""
-    path = tiered_path(model_file)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
+def _tiered_payload(step: int, scalars: dict, stores: dict) -> dict:
+    """The arrays of one overlay file (``tiered.npz`` or a shard's)."""
     payload: dict = {
         "scalar/step": np.int64(step),
         "meta/stores": np.array(json.dumps(sorted(stores))),
@@ -453,12 +454,69 @@ def save_tiered(model_file: str, step: int, scalars: dict,
         payload[f"{name}/descriptor"] = np.array(
             json.dumps(store.get("descriptor", {}), sort_keys=True)
         )
-    _write_npz(path, payload)
+    return payload
+
+
+def save_tiered(model_file: str, step: int, scalars: dict,
+                stores: dict, data_state: Optional[dict] = None) -> str:
+    """Write ``tiered.npz``: ``scalars`` (``w0`` and the optimizer's w0
+    slots) as ``scalar/<name>``, and for each store of ``stores`` (name
+    -> ``{"ids", "rows", "descriptor"}``, a ``ColdStore.export()`` plus
+    its descriptor) the ids and packed rows of every written row and
+    the init descriptor that regenerates the rest.  Removes the dense
+    checkpoint and ``quant.npz``, writes ``data_state.json`` when given
+    and publishes the serving manifest.  Returns the file's path."""
+    path = tiered_path(model_file)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    _write_npz(path, _tiered_payload(step, scalars, stores))
     _clear_params(model_file)
+    # A shard set beside the new file would be a second checkpoint.
+    for _, _, p in _tiered_shard_files(model_file):
+        os.remove(p)
     clear_quant(model_file)
     _write_data_state(model_file, data_state)
     publish_manifest(model_file, step, "tiered")
     return path
+
+
+def save_tiered_shards(model_file: str, step: int, scalars: dict,
+                       overlays_by_shard: dict, num_shards: int,
+                       data_state: Optional[dict] = None,
+                       primary: bool = True, barrier=None) -> str:
+    """The rank-sharded overlay checkpoint (the reference's
+    ``save_tiered_shards``): one ``tiered.shard{s}of{S}.npz`` for each
+    shard in ``overlays_by_shard`` (this rank's owned shards, ids
+    global), each with the step and ``scalars`` and :func:`save_tiered`'s
+    per-store keys plus ``meta/shard`` ``[s, S]``.  The union of the S
+    files is the checkpoint, at any later shard count.  Every rank writes
+    its files, then ``barrier()`` (when given) holds them all; then the
+    ``primary`` rank alone removes what the new set supersedes (a set of
+    another count, ``tiered.npz``, the dense checkpoint, ``quant.npz``),
+    writes ``data_state.json`` and publishes the serving manifest last,
+    so a published step always names a whole set.  Returns the model
+    directory."""
+    os.makedirs(os.path.abspath(model_file), exist_ok=True)
+    for s, stores in overlays_by_shard.items():
+        payload = _tiered_payload(step, scalars, stores)
+        payload["meta/shard"] = np.array([int(s), int(num_shards)], np.int64)
+        _write_npz(_tiered_shard_path(model_file, s, num_shards), payload)
+    if barrier is not None:
+        barrier()
+    if primary:
+        keep = {_tiered_shard_path(model_file, s, num_shards)
+                for s in range(num_shards)}
+        for _, _, p in _tiered_shard_files(model_file):
+            if p not in keep:
+                os.remove(p)
+        try:
+            os.remove(tiered_path(model_file))
+        except FileNotFoundError:
+            pass
+        _clear_params(model_file)
+        clear_quant(model_file)
+        _write_data_state(model_file, data_state)
+        publish_manifest(model_file, step, "tiered")
+    return os.path.abspath(model_file)
 
 
 def _read_tiered_file(path: str) -> tuple:

@@ -106,16 +106,18 @@ from fast_tffm_tpu_torch.data.prefetch import (
 from fast_tffm_tpu_torch.models import fm
 from fast_tffm_tpu_torch.ops import sparse_apply
 from fast_tffm_tpu_torch.parallel.mesh import (
-    DATA_AXIS, Mesh, data_partition, make_mesh, psum,
+    DATA_AXIS, Mesh, barrier, data_partition, make_mesh, psum,
 )
 from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.train import checkpoint, metrics as metrics_lib
 from fast_tffm_tpu_torch.train import tiered as tiered_lib
+from fast_tffm_tpu_torch.train import tiered_fleet
 from fast_tffm_tpu_torch.train.dense import dense_step
 from fast_tffm_tpu_torch.train.dispatch import GraphedSteps
 from fast_tffm_tpu_torch.train.optimizers import init_dense_opt_state
 from fast_tffm_tpu_torch.train.shardmap_step import (
-    exchange_mode, local_scores, sparse_step_shardmap, supports_shardmap,
+    entries_prefetch, exchange_mode, local_scores, overlap_active,
+    sparse_step_shardmap, supports_shardmap,
 )
 from fast_tffm_tpu_torch.train.sparse import (
     SparseFtrlState, init_sparse_opt_state, sparse_step, supports_sparse,
@@ -185,17 +187,6 @@ def _check_supported(cfg: FmConfig) -> None:
             f"compute_dtype={cfg.compute_dtype} on a rank mesh (the "
             f"sharded step's bf16 closed form)", 3,
         ))
-    if cfg.table_tiering == "on" and (cfg.tiered_partition == "shards"
-                                      or _multi_rank(cfg)):
-        unported.append((
-            "table_tiering=on with tiered_partition=shards or on a rank "
-            "mesh (the rank-sharded tiered table, tiered_fleet)", 3,
-        ))
-    if cfg.sparse_exchange_overlap == "on" and cfg.lookup != "shardmap":
-        unported.append((
-            "sparse_exchange_overlap=on (the entries exchange's id-plane "
-            "prefetch, make_entries_prefetch)", 3,
-        ))
     if unported:
         what = "; ".join(
             f"{name} is ROADMAP.md port queue item {item}"
@@ -222,11 +213,32 @@ def _check_supported(cfg: FmConfig) -> None:
         )
 
 
-def _tiered_device_config(cfg: FmConfig) -> FmConfig:
-    """The configuration the device side of a ``table_tiering = on`` run
-    is built from: ``vocabulary_size`` the hot table's rows (ingest keeps
-    the logical vocabulary), after the reference's refusals
-    (``fast_tffm_tpu/train/loop.py``, ``Trainer.__init__``)."""
+class _Fleet(NamedTuple):
+    """``tiered_partition = shards``: the tier shard count (the mesh's
+    model columns) and the shards this rank owns."""
+
+    num_shards: int
+    owned: tuple
+
+
+def _rank_grid() -> tuple:
+    """``(world, rank)`` of the process group, ``(1, 0)`` without one."""
+    d = torch.distributed
+    if d.is_available() and d.is_initialized():
+        return d.get_world_size(), d.get_rank()
+    return 1, 0
+
+
+def _tiered_device_config(cfg: FmConfig) -> tuple:
+    """``(dcfg, fleet)`` of a ``table_tiering = on`` run: the
+    configuration its device side is built from (``vocabulary_size`` the
+    hot table's rows; ingest keeps the logical vocabulary) and its
+    :class:`_Fleet` under ``tiered_partition = shards`` (None: the
+    host-global table), after the reference's choice and refusals
+    (``fast_tffm_tpu/train/loop.py``, ``Trainer.__init__``).  ``auto``
+    is ``shards`` when there is more than one rank.  The fleet's mesh is
+    the config's grid of ranks, one process each, so only a ``1 x R``
+    mesh has columns of one process (``tiered_fleet.column_owners``)."""
     if not _sparse(cfg):
         raise ValueError(
             "table_tiering=on requires the sparse update path "
@@ -234,7 +246,10 @@ def _tiered_device_config(cfg: FmConfig) -> FmConfig:
             "a dense optimizer rewrites every row every step, so "
             "there is no cold set to keep off-device"
         )
-    if cfg.tiered_partition == "global" and _multi_rank(cfg):
+    part = cfg.tiered_partition
+    if part == "auto":
+        part = "shards" if _multi_rank(cfg) else "global"
+    if part == "global" and _multi_rank(cfg):
         raise ValueError(
             "tiered_partition=global is single-process (the "
             "hot-slot map is host-global); multi-process tiered "
@@ -245,52 +260,101 @@ def _tiered_device_config(cfg: FmConfig) -> FmConfig:
             "table_tiering=on does not compose with "
             "lookup=shardmap yet; use lookup=auto"
         )
+    hot = min(cfg.hot_rows, cfg.vocabulary_size)
+    fleet = None
+    if part == "shards":
+        # Shard == model column: the rank holding a column's device rows
+        # is the one allowed to hold its cold store.  column_owners
+        # refuses a data axis of several ranks, so every rank parses
+        # the whole global batch, as the lockstep mirrors need.
+        world, rank = _rank_grid()
+        d, m = cfg.mesh_data, cfg.mesh_model
+        if d * m == 1 and world > 1:
+            d, m = world, 1  # make_mesh's all-data mesh
+        owners = tiered_fleet.column_owners(Mesh(d, m))
+        if cfg.vocabulary_size % m or hot % m:
+            raise ValueError(
+                f"tiered_partition=shards needs vocabulary_size "
+                f"({cfg.vocabulary_size}) and effective hot_rows "
+                f"({hot}) divisible by the mesh model size ({m})"
+            )
+        fleet = _Fleet(m, tuple(s for s, o in enumerate(owners)
+                                if o == rank))
+        if cfg.validation_files and len(fleet.owned) != m:
+            raise ValueError(
+                "validation_files with fleet-sharded tiering: "
+                "evaluation needs every shard's cold store, but "
+                f"this rank owns {len(fleet.owned)} of "
+                f"{m} shards.  Evaluate from the saved "
+                "checkpoint instead (it merges all shards)."
+            )
     if cfg.hot_rows >= cfg.vocabulary_size:
         log.info(
             "table_tiering=on with hot_rows >= vocabulary_size: "
             "every row fits the hot table (tiering is a no-op "
             "beyond the remap)"
         )
-    return dataclasses.replace(
-        cfg, vocabulary_size=min(cfg.hot_rows, cfg.vocabulary_size))
+    return dataclasses.replace(cfg, vocabulary_size=hot), fleet
 
 
-def _check_mesh(cfg: FmConfig, mesh: Mesh) -> None:
-    """Refusals and notices of the rank mesh, as the reference's."""
-    if cfg.sparse_exchange_overlap == "on":  # lookup=shardmap here
-        raise ValueError(
-            "sparse_exchange_overlap=on requires the sparse gather/apply "
-            "step (lookup != shardmap); this run resolved to "
-            "lookup=shardmap"
-        )
-    if mesh.size == 1:
-        return
-    if not supports_shardmap(cfg, mesh):
-        raise ValueError(
-            "lookup=shardmap needs optimizer in adagrad/ftrl/sgd, "
-            "batch-mode L2, and a vocabulary divisible by "
-            f"model_shards*{sparse_apply.TILE}"
-        )
-    if cfg.batch_size % mesh.data:
-        raise ValueError(
-            f"batch_size {cfg.batch_size} not divisible by {mesh.data} "
-            f"data blocks"
-        )
-    b_local = cfg.batch_size // mesh.data
-    exchange = exchange_mode(cfg, mesh, b_local * cfg.max_features)
-    log.info(
-        "rank %d of a %dx%d (data x model) mesh, backend %s: lookup=%s "
-        "runs the hand-sharded step (PyTorch has no GSPMD), "
-        "sparse_exchange=%s resolved to %s", mesh.rank, mesh.data,
-        mesh.model, mesh.backend, cfg.lookup, cfg.sparse_exchange, exchange,
-    )
-    if (cfg.sparse_exchange_overlap == "auto" and cfg.lookup != "shardmap"
-            and exchange == "entries" and mesh.data > 1):
+def _check_mesh(cfg: FmConfig, dcfg: FmConfig, mesh: Mesh,
+                sparse: bool) -> bool:
+    """Refusals and notices of the rank mesh, as the reference's, for a
+    step built from ``dcfg`` (the hot table's under tiering).  Returns
+    whether the entries exchange's id plane overlaps the previous step
+    (``sparse_exchange_overlap``, resolved as the reference's
+    ``Trainer.__init__``: ``lookup = shardmap`` on a mesh and the dense
+    step block it, ``on`` then raises)."""
+    if mesh.size > 1:
+        if not supports_shardmap(dcfg, mesh):
+            if dcfg is not cfg:
+                # The reference's GSPMD step takes any hot_rows the
+                # shard count divides (ROADMAP.md Queue 3, by design).
+                raise ValueError(
+                    "table_tiering=on on a rank mesh runs the hand-sharded "
+                    f"step over the hot table: hot_rows "
+                    f"({dcfg.vocabulary_size}) / mesh_model ({mesh.model}) "
+                    f"must be a whole number of {sparse_apply.TILE}-row "
+                    f"tiles (hot_rows divisible by mesh_model*"
+                    f"{sparse_apply.TILE})"
+                )
+            raise ValueError(
+                "lookup=shardmap needs optimizer in adagrad/ftrl/sgd, "
+                "batch-mode L2, and a vocabulary divisible by "
+                f"model_shards*{sparse_apply.TILE}"
+            )
+        if cfg.batch_size % mesh.data:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} not divisible by {mesh.data} "
+                f"data blocks"
+            )
+        b_local = cfg.batch_size // mesh.data
+        exchange = exchange_mode(dcfg, mesh, b_local * cfg.max_features)
         log.info(
-            "sparse_exchange_overlap=auto: the reference would overlap the "
-            "entries exchange's id plane here; the port runs without it "
-            "(bitwise the same result; ROADMAP.md port queue item 3)"
+            "rank %d of a %dx%d (data x model) mesh, backend %s: lookup=%s "
+            "runs the hand-sharded step (PyTorch has no GSPMD), "
+            "sparse_exchange=%s resolved to %s", mesh.rank, mesh.data,
+            mesh.model, mesh.backend, cfg.lookup, cfg.sparse_exchange,
+            exchange,
         )
+    if cfg.sparse_exchange_overlap == "off":
+        return False
+    if not sparse or (cfg.lookup == "shardmap" and mesh.size > 1):
+        if cfg.sparse_exchange_overlap == "on":
+            raise ValueError(
+                "sparse_exchange_overlap=on requires the sparse "
+                "gather/apply step (optimizer in adagrad/ftrl/"
+                "sgd, lookup != shardmap); this run resolved to "
+                + ("the dense step" if not sparse else "lookup=shardmap")
+            )
+        return False
+    overlap = overlap_active(dcfg, mesh)
+    if overlap:
+        log.info(
+            "sparse exchange overlap active: entries streams "
+            "prefetch one step ahead of the rank-local apply"
+        )
+    return overlap
 
 
 class MetricState(NamedTuple):
@@ -360,10 +424,13 @@ class Trainer:
     def __init__(self, cfg: FmConfig,
                  device: Optional[Union[str, torch.device]] = None):
         # With tiering on, the device tables are the hot table's
-        # (``dcfg``); the logical vocabulary stays the input's.
-        self.tiered: Optional[tiered_lib.TieredTable] = None
-        self.dcfg = (_tiered_device_config(cfg)
-                     if cfg.table_tiering == "on" else cfg)
+        # (``dcfg``); the logical vocabulary stays the input's.  The tier
+        # manager is host-global, or rank-sharded (``fleet``).
+        self.tiered: Optional[Union[tiered_lib.TieredTable,
+                                    tiered_fleet.ShardedTiering]] = None
+        self.dcfg, self.fleet = (_tiered_device_config(cfg)
+                                 if cfg.table_tiering == "on"
+                                 else (cfg, None))
         _check_supported(cfg)
         self.cfg = cfg
         self.sparse = _sparse(cfg)
@@ -374,7 +441,7 @@ class Trainer:
             )
         self.device = resolve_device(device)
         self.mesh = make_mesh(cfg)
-        _check_mesh(cfg, self.mesh)
+        self.overlap = _check_mesh(cfg, self.dcfg, self.mesh, self.sparse)
         self.sharded = self.mesh.size > 1
         self.model, self.opt_state, self._restored_step = (
             self._init_or_restore_tiered() if cfg.table_tiering == "on"
@@ -481,6 +548,10 @@ class Trainer:
         cfg, dcfg, dev = self.cfg, self.dcfg, self.device
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         model = fm.init_params(dcfg, gen, device=dev)
+        if self.sharded:  # this rank's hot slots
+            lo, n = self.mesh.row_range(dcfg.vocabulary_size)
+            model = fm.FmModel(model.w0.detach(),
+                               model.table.detach()[lo:lo + n].clone())
 
         def put(x):
             return torch.tensor(float(np.float32(x)), dtype=torch.float32,
@@ -502,8 +573,7 @@ class Trainer:
             step, scalars, stores = overlay
             log.info("warm-starting tiered table from overlay checkpoint "
                      "%s (step %d)", cfg.model_file, step)
-            self.tiered = tiered_lib.TieredTable(cfg, overlay=stores,
-                                                 device=dev)
+            self.tiered = self._make_tier_manager(overlay=stores)
             model = with_w0(scalars["w0"])
             opt = tiered_lib.set_opt_scalars(
                 cfg.optimizer, init_sparse_opt_state(dcfg, model), scalars,
@@ -535,11 +605,23 @@ class Trainer:
                 opt = tiered_lib.set_opt_scalars(
                     cfg.optimizer, opt,
                     tiered_lib.get_opt_scalars(cfg.optimizer, opt_np), put)
-            self.tiered = tiered_lib.TieredTable(
-                cfg, dense_tables=dense_tables, device=dev)
+            self.tiered = self._make_tier_manager(dense_tables=dense_tables)
             return model, opt, step
-        self.tiered = tiered_lib.TieredTable(cfg, device=dev)
+        self.tiered = self._make_tier_manager()
         return model, init_sparse_opt_state(dcfg, model), 0
+
+    def _make_tier_manager(self, dense_tables=None, overlay=None):
+        """The host-global :class:`tiered_lib.TieredTable`, or under
+        ``tiered_partition = shards`` the rank-sharded
+        :class:`tiered_fleet.ShardedTiering`; restore payloads are global
+        either way (the fleet cuts them per shard: elastic checkpoints)."""
+        if self.fleet is not None:
+            return tiered_fleet.ShardedTiering(
+                self.cfg, self.fleet.num_shards, self.fleet.owned,
+                dense_tables=dense_tables, overlay=overlay,
+                device=self.device)
+        return tiered_lib.TieredTable(self.cfg, dense_tables=dense_tables,
+                                      overlay=overlay, device=self.device)
 
     def _ftrl_normalize(self, w0, table, opt, why: str) -> tuple:
         """The sparse FTRL applies rely on ``w == ftrl_solve(z, n)``: a
@@ -583,8 +665,11 @@ class Trainer:
     def _plan_group(self, group: list) -> tuple:
         """The transfer stage's ``plan_hook`` under tiering: the group's
         logical ids remapped to hot slots through one plan of the
-        super-batch (``fast_tffm_tpu/train/loop.py::_put_super``)."""
+        super-batch (``fast_tffm_tpu/train/loop.py::_put_super``); the
+        fleet ships only this rank's column blocks of it."""
         new_ids, plan = self.tiered.plan(np.stack([b.ids for b in group]))
+        if self.fleet is not None:
+            plan = self.tiered.local_plan(plan)
         return [b._replace(ids=new_ids[i], sort_meta=None)
                 for i, b in enumerate(group)], plan
 
@@ -596,6 +681,35 @@ class Trainer:
     def _hot_host_tables(self) -> list:
         """Host copies of the device hot tables (waits for the device)."""
         return [t.detach().cpu().numpy() for t in self._hot_tables()]
+
+    def _tier_host_tables(self):
+        """The host tables the tier manager takes: :meth:`_hot_host_tables`,
+        or for the fleet ``{shard: that column's rows of each}`` for the
+        owned shards, in the order the rank's hot table holds them."""
+        host = self._hot_host_tables()
+        if self.fleet is None:
+            return host
+        hs = self.tiered.hs
+        return {s: [t[k * hs:(k + 1) * hs] for t in host]
+                for k, s in enumerate(sorted(self.tiered.owned))}
+
+    @staticmethod
+    def _evicted_rows(tables: list, slots: torch.Tensor) -> tuple:
+        """``(rows, event)``: the tables' rows at ``slots``, for a
+        write-back ledger.  On the card one non-blocking copy into a
+        pinned host buffer and a CUDA event after it (the ledger reads
+        the buffer once the event has completed); on the CPU the rows
+        themselves and no event."""
+        rows = torch.stack([t.index_select(0, slots) for t in tables])
+        event = None
+        if rows.is_cuda:
+            host = torch.empty(rows.shape, dtype=rows.dtype,
+                               pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            rows = host
+        return tuple(rows.unbind(0)), event
 
     def _apply_migration(self, shipment: tiered_lib.Shipment) -> SuperBatch:
         """Apply a super-batch's migration plan to the hot tables between
@@ -613,24 +727,44 @@ class Trainer:
         tables = [t.detach() for t in self._hot_tables()]
         with torch.no_grad():
             if sh.n_evict:
-                slots = sh.evict_slots[:sh.n_evict]
-                rows = torch.stack([t.index_select(0, slots)
-                                    for t in tables])
-                event = None
-                if rows.is_cuda:
-                    host = torch.empty(rows.shape, dtype=rows.dtype,
-                                       pin_memory=True)
-                    host.copy_(rows, non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record()
-                    rows = host
-                man.push_writeback(sh.plan_id, tuple(rows.unbind(0)), event)
+                man.push_writeback(sh.plan_id, *self._evicted_rows(
+                    tables, sh.evict_slots[:sh.n_evict]))
             if sh.n_load:
                 slots = sh.load_slots[:sh.n_load].long()
                 for t, r in zip(tables, sh.load_rows):
                     t.index_copy_(0, slots, r[:sh.n_load])
                 man.note_applied(sh)
         return sh.batch
+
+    def _apply_migration_fleet(self, shipment: tiered_fleet.FleetShipment):
+        """The fleet half of :meth:`_apply_migration`
+        (``fast_tffm_tpu/train/loop.py::_apply_migration_fleet``): each
+        owned column's block of the plan, its slots column-local, is
+        applied to that column's rows of the rank's hot tables.  The
+        evicted rows go to the owned shard's write-back ledger, the loads
+        are ``index_copy_`` of the rank's own rows: no collective, no
+        other rank's rows."""
+        man, plan = self.tiered, shipment.plan
+        tables = [t.detach() for t in self._hot_tables()]
+        owned = list(enumerate(sorted(man.owned)))  # (block, shard)
+        with torch.no_grad():
+            for k, s in owned:
+                n = plan.shard_plans[s].n_evict
+                if n:
+                    lo = k * plan.cap_evict
+                    slots = shipment.evict_slots[lo:lo + n] + k * man.hs
+                    man.push_writeback(s, plan.plan_id,
+                                       *self._evicted_rows(tables, slots))
+            for k, s in owned:
+                n = plan.shard_plans[s].n_load
+                if n:
+                    lo = k * plan.cap_load
+                    slots = (shipment.load_slots[lo:lo + n]
+                             + k * man.hs).long()
+                    for t, r in zip(tables, shipment.load_rows):
+                        t.index_copy_(0, slots, r[lo:lo + n])
+            man.note_applied(plan)
+        return shipment.batch
 
     def _input_plan(self):
         """``(pipeline config, shard)``: each data block parses its
@@ -658,14 +792,16 @@ class Trainer:
             raise ValueError(f"feature ids must lie in [0, {vocab})")
         return to_device(batch, self.device)
 
-    def device_step(self, dev_batch: Batch) -> torch.Tensor:
+    def device_step(self, dev_batch: Batch,
+                    rows_all: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step on a device :class:`Batch` (this rank's data block on
-        a mesh); returns the batch's mean weighted data loss as a device
+        a mesh, and with the overlap its gathered id plane ``rows_all``);
+        returns the batch's mean weighted data loss as a device
         scalar."""
         if self.sharded:
-            scores = sparse_step_shardmap(self.cfg, self.model,
+            scores = sparse_step_shardmap(self.dcfg, self.model,
                                           self.opt_state, dev_batch,
-                                          self.mesh)
+                                          self.mesh, rows_all)
         else:
             step = sparse_step if self.sparse else dense_step
             scores = step(self.cfg, self.model, self.opt_state, dev_batch)
@@ -675,9 +811,22 @@ class Trainer:
     def _run_steps(self, sb: SuperBatch) -> torch.Tensor:
         """The ``sb.n`` steps of a super-batch on its views (the whole
         ``seg_start`` slot, so no shape depends on a batch's unique
-        count), what the graph captures; returns their losses ``[n]``."""
-        return torch.stack([self.device_step(sb.step(i))
-                            for i in range(sb.n)])
+        count), what the graph captures; returns their losses ``[n]``.
+        With the overlap, step ``i + 1``'s id plane is gathered while step
+        ``i`` runs (the reference's ``make_scan_train_step`` prefetch; the
+        first step's is gathered before it)."""
+        if not self.overlap:
+            return torch.stack([self.device_step(sb.step(i))
+                                for i in range(sb.n)])
+        pending = entries_prefetch(self.dcfg, sb.step(0).ids, self.mesh)
+        losses = []
+        for i in range(sb.n):
+            rows_all = pending.wait()
+            if i + 1 < sb.n:
+                pending = entries_prefetch(self.dcfg, sb.step(i + 1).ids,
+                                           self.mesh)
+            losses.append(self.device_step(sb.step(i), rows_all))
+        return torch.stack(losses)
 
     def dispatch(self, sb, pause=None) -> torch.Tensor:
         """Train one shipped super-batch: one replay of the CUDA graph of
@@ -690,6 +839,8 @@ class Trainer:
         the next one).  The loop's hook per dispatch."""
         if isinstance(sb, tiered_lib.Shipment):
             sb = self._apply_migration(sb)
+        elif isinstance(sb, tiered_fleet.FleetShipment):
+            sb = self._apply_migration_fleet(sb)
         graph = self.graph
         if graph is not None and graph.captured and sb.n == graph.k:
             self.graph_dispatches += 1
@@ -892,14 +1043,23 @@ class Trainer:
         pipe_cfg, shard = self._input_plan()
         model, compact = self.model, False
         if self.tiered is not None:
+            if self.fleet is not None and (
+                    len(self.tiered.owned) != self.tiered.num_shards):
+                raise RuntimeError(
+                    "evaluate with fleet-sharded tiering needs every "
+                    "shard's cold store; this rank owns "
+                    f"{sorted(self.tiered.owned)} of "
+                    f"{self.tiered.num_shards}.  Evaluate from the "
+                    "saved checkpoint instead (it merges all shards)."
+                )
             if self.tiered.dense_save_ok:
-                merged = self.tiered.merged_dense(self._hot_host_tables())
+                merged = self.tiered.merged_dense(self._tier_host_tables())
                 model = fm.FmModel(self.model.w0.detach(),
                                    torch.from_numpy(merged[0]).to(
                                        self.device))
                 del merged
             else:
-                self.tiered.sync_from_device(self._hot_host_tables())
+                self.tiered.sync_from_device(self._tier_host_tables())
                 compact = True
         with BatchPipeline(files, pipe_cfg, epochs=1, shuffle=False,
                            shard=shard) as p:
@@ -943,7 +1103,10 @@ class Trainer:
         LOGICAL table: merged into ``params.npz`` (with its optimizer
         tables) when it fits the dense format, which any dense or tiered
         run resumes at any ``hot_rows``, else the sparse overlay
-        ``tiered.npz``.  Returns the written file's path."""
+        ``tiered.npz``; a fleet of several ranks writes one
+        ``tiered.shard{s}of{S}.npz`` for each shard a rank owns
+        (:func:`checkpoint.save_tiered_shards`).  Returns the path of the
+        params file, the overlay or the model directory."""
         data_state = {"epoch": self._epoch,
                       "batches_done": self._batches_done,
                       "fingerprint": self._data_fingerprint()}
@@ -954,7 +1117,7 @@ class Trainer:
                 opt_state_l=self.opt_state, data_state=data_state,
             )
         cfg, man = self.cfg, self.tiered
-        host_tables = self._hot_host_tables()
+        host_tables = self._tier_host_tables()
         w0 = self.model.w0.detach().cpu()
         if man.dense_save_ok:
             merged = [torch.from_numpy(m)
@@ -967,6 +1130,13 @@ class Trainer:
         scalars = {"w0": w0.numpy(),
                    **tiered_lib.get_opt_scalars(cfg.optimizer,
                                                 self.opt_state)}
+        if self.fleet is not None:
+            return checkpoint.save_tiered_shards(
+                cfg.model_file, step, scalars,
+                man.export_shard_overlays(host_tables),
+                num_shards=man.num_shards, data_state=data_state,
+                primary=self.mesh.rank == 0,
+                barrier=lambda: barrier(self.mesh))
         return checkpoint.save_tiered(
             cfg.model_file, step, scalars, man.export_overlay(host_tables),
             data_state=data_state)

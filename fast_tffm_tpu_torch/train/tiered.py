@@ -444,8 +444,9 @@ def _exact_stores(cfg: FmConfig, names: tuple,
 
 class ShardSpec(NamedTuple):
     """Which slice of the logical table a :class:`TieredTable` manages
-    under rank-sharded tiering (``tiered_fleet``, not ported yet: a
-    trainer builds only ``ShardSpec()``).  ``index``/``count`` carve the
+    under rank-sharded tiering (``train/tiered_fleet.py::
+    ShardedTiering`` builds one per shard; the host-global manager is
+    ``ShardSpec()``).  ``index``/``count`` carve the
     id space into ``count`` contiguous ranges, in whose LOCAL
     coordinates the instance then works; with ``rows_enabled=False`` it
     is a metadata mirror that tracks the slot map and LRU but builds no

@@ -9,8 +9,13 @@ torch and the port only), and :func:`run_ranks`, which starts them.
 global batches), run ``sparse_step_shardmap`` on this rank's model shard
 and data block and write ``DIR/out<i>_<rank>.npz`` (its scores, shards
 and w0).  ``train``: run ``Trainer.train()`` for each config in
-``DIR/train.json`` and write its result to ``DIR/train<i>_<rank>.json``.
-``cli``: ``python -m fast_tffm_tpu_torch.cli`` with the arguments in
+``DIR/train.json`` and write its result to ``DIR/train<i>_<rank>.json``
+(a config's ``_exact_bytes_max`` key, when present, sets
+``train.tiered.EXACT_BYTES_MAX`` for its run: 0 makes the cold stores
+virtual; its ``_evaluate`` key, a list of files, is evaluated after the
+run, and a RuntimeError's message kept as ``evaluate_error``).
+``train_cuda``: the same with every rank on ``cuda:0`` (ranks sharing
+the card over gloo).  ``cli``: ``python -m fast_tffm_tpu_torch.cli`` with the arguments in
 ``DIR/cli.json`` plus the multi-rank flags (the CLI joins the group).
 ``collectives``: on ``cuda`` (ranks sharing one GPU over gloo), hold
 ``psum``, ``all_gather`` and ``gather`` over each axis of a 2-rank mesh
@@ -31,7 +36,7 @@ from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.libsvm import Batch
 from fast_tffm_tpu_torch.models.fm import FmModel
 from fast_tffm_tpu_torch.parallel import mesh as mesh_lib
-from fast_tffm_tpu_torch.train import dist, shardmap_step, sparse
+from fast_tffm_tpu_torch.train import dist, shardmap_step, sparse, tiered
 from fast_tffm_tpu_torch.train.loop import Trainer
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -75,11 +80,20 @@ def _steps(workdir, rank):
                  **{k: np.asarray(v) for k, v in out.items()})
 
 
-def _train(workdir, rank):
+def _train(workdir, rank, device="cpu"):
     with open(os.path.join(workdir, "train.json")) as f:
         runs = json.load(f)
+    exact = tiered.EXACT_BYTES_MAX
     for i, kw in enumerate(runs):
-        result = Trainer(FmConfig(**kw), device="cpu").train()
+        tiered.EXACT_BYTES_MAX = kw.pop("_exact_bytes_max", exact)
+        evaluate = kw.pop("_evaluate", None)
+        trainer = Trainer(FmConfig(**kw), device=device)
+        result = trainer.train()
+        if evaluate:
+            try:
+                result["evaluate"] = trainer.evaluate(evaluate)
+            except RuntimeError as e:
+                result["evaluate_error"] = str(e)
         with open(os.path.join(workdir, f"train{i}_{rank}.json"), "w") as f:
             json.dump(result, f)
 
@@ -164,9 +178,11 @@ def main():
             argv = json.load(f)
         sys.exit(cli.main(argv + ["--coordinator", url, "--num_processes",
                                   world, "--process_id", rank]))
-    run = {"step": _steps, "train": _train, "collectives": _collectives}
-    dist.initialize(url, int(world), int(rank),
-                    device="cuda:0" if mode == "collectives" else "cpu")
+    run = {"step": _steps, "train": _train, "collectives": _collectives,
+           "train_cuda": lambda w, r: _train(w, r, dev)}
+    on_card = mode in ("collectives", "train_cuda")
+    dev = dist.initialize(url, int(world), int(rank),
+                          device="cuda:0" if on_card else "cpu")
     try:
         run[mode](workdir, int(rank))
     finally:

@@ -3,7 +3,9 @@ backward in their f32 and bf16-input modes, K1 dedup and its merge mode,
 K2 apply, K-place, and the table-layout probe's K2T and K2P) against
 their plain PyTorch versions, the scorers' (fp32, bf16 and int8 tables,
 and the tiered overlay) and the sparse step's GPU paths against their
-CPU paths, two ranks' collectives on one GPU, field-aware FM's op,
+CPU paths, two ranks' collectives on one GPU, the rank-sharded tiered
+trainer against the dense mesh and the overlapped entries exchange
+against the inline one on ranks sharing the card, field-aware FM's op,
 graphed dispatch and kernel step at the FFM row width, and the JAX
 package's Orbax checkpoints (``tests/data/orbax/``) served on the card,
 with a hot swap under traffic.
@@ -1673,3 +1675,86 @@ def test_swap_under_traffic_on_the_gpu(gpu):
     for s in seen:
         assert np.array_equal(s, want[0]) or np.array_equal(s, want[1])
     np.testing.assert_array_equal(scorer.score(ids, vals), want[0])
+
+
+def _fleet_lines(path, lines=512, vocab=2048, seed=0):
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i in range(lines):
+            f.write(f"{i % 2} {rng.integers(0, vocab)}:1 "
+                    f"{rng.integers(0, vocab)}:0.5 "
+                    f"{rng.integers(0, vocab)}:0.25\n")
+
+
+def _ranks_train(tmp_path, runs, world):
+    from _torch_sharded_worker import run_ranks
+
+    (tmp_path / "train.json").write_text(json.dumps(runs))
+    run_ranks("train_cuda", world, tmp_path)
+    return [[json.loads((tmp_path / f"train{i}_{r}.json").read_text())
+             for r in range(world)] for i in range(len(runs))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adagrad", "ftrl"])
+def test_fleet_on_two_ranks_matches_the_dense_mesh_on_the_gpu(
+        gpu, tmp_path, optimizer):
+    """Two ranks share the card over gloo: the 1 x 2 fleet
+    (``table_tiering = on``, ``hot_rows = 512``, evicting) and the dense
+    1 x 2 mesh end bitwise alike: loss, AUC, and the table, optimizer
+    tables and w0 merged from the two shard files against the dense
+    ``params.npz``."""
+    from fast_tffm_tpu_torch.train import checkpoint
+
+    _fleet_lines(tmp_path / "train.libsvm")
+    common = dict(vocabulary_size=2048, factor_num=4, max_features=4,
+                  batch_size=32, train_files=[str(tmp_path / "train.libsvm")],
+                  epoch_num=2, log_steps=0, thread_num=1, seed=3,
+                  steps_per_dispatch=2, optimizer=optimizer, mesh_model=2)
+    res = _ranks_train(tmp_path, [
+        dict(common, model_file=str(tmp_path / "dense")),
+        dict(common, model_file=str(tmp_path / "fleet"), table_tiering="on",
+             hot_rows=512),
+    ], world=2)
+    for r in range(2):
+        for m in ("loss", "auc", "examples"):
+            assert res[1][r]["train"][m] == res[0][r]["train"][m], (r, m)
+    assert sum(res[1][r]["train"]["tiered"]["rows_evicted"]
+               for r in range(2)) > 0
+    _, scalars, stores = checkpoint.restore_tiered(str(tmp_path / "fleet"))
+    keys = {"table": "params/table", "acc": "opt/acc_table",
+            "z": "opt/z_table", "n": "opt/n_table"}
+    with np.load(checkpoint.params_path(str(tmp_path / "dense"))) as z:
+        for name, payload in stores.items():
+            have = np.empty_like(z[keys[name]])
+            have[payload["ids"]] = payload["rows"]
+            np.testing.assert_array_equal(have, z[keys[name]], err_msg=name)
+        for name, val in scalars.items():
+            np.testing.assert_array_equal(val, z[f"scalar/{name}"]
+                                          if name == "w0"
+                                          else z[f"opt/{name}"])
+
+
+@pytest.mark.gpu
+def test_fleet_overlap_on_and_off_are_equal_on_the_gpu(gpu, tmp_path):
+    """Four ranks of a 2 x 2 mesh share the card: the entries exchange
+    with its id plane gathered a step ahead (``sparse_exchange_overlap =
+    on``) and inline (``off``) give equal parameters."""
+    from fast_tffm_tpu_torch.train import checkpoint
+
+    _fleet_lines(tmp_path / "train.libsvm", lines=480, vocab=1024)
+    common = dict(vocabulary_size=1024, factor_num=4, max_features=4,
+                  batch_size=32, train_files=[str(tmp_path / "train.libsvm")],
+                  epoch_num=2, log_steps=0, thread_num=1, seed=3,
+                  steps_per_dispatch=2, mesh_data=2, mesh_model=2,
+                  sparse_exchange="entries")
+    res = _ranks_train(tmp_path, [
+        dict(common, model_file=str(tmp_path / m),
+             sparse_exchange_overlap=m) for m in ("off", "on")], world=4)
+    for r in range(4):
+        assert res[1][r]["train"]["loss"] == res[0][r]["train"]["loss"]
+    with np.load(checkpoint.params_path(str(tmp_path / "on"))) as a, \
+            np.load(checkpoint.params_path(str(tmp_path / "off"))) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)

@@ -621,7 +621,8 @@ def test_ranks_exchange_placements_through_the_store():
 
 
 @pytest.mark.parametrize("kw, err", [
-    (dict(sparse_exchange_overlap="on"), NotImplementedError),
+    # One data shard: nothing to overlap, the reference's ValueError.
+    (dict(sparse_exchange_overlap="on"), ValueError),
     (dict(sparse_exchange_overlap="on", lookup="shardmap"), ValueError),
     (dict(mesh_data=2, mesh_model=2), ValueError),  # one rank here
 ])
