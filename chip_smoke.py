@@ -3,8 +3,8 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py           # one GPU: every phase below
-    python3 chip_smoke.py --nccl    # >= 4 GPUs: phases 1-3, 9 and 16
-                                    # only, one rank per GPU over NCCL
+    python3 chip_smoke.py --nccl    # >= 4 GPUs: phases 1-3, 9, 16 and
+                                    # 17 only, one rank per GPU over NCCL
 
 Phases, in order; any failed check ends the run with a non-zero exit:
 
@@ -263,6 +263,34 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    ``SERVE_TOL`` of the dense ``params.npz`` served and predicted the
    same way; then warm-started on one device (2 shards -> 1: every saved
    row back bitwise through ``gather_logical``) and trained 4 steps.
+   Each rank's peak device memory counts from before its trainer is
+   built (the exact store's draw inside it).
+17. Mesh-modes phase (path 12, the trainer's rank-mesh settings): four
+   ranks of a 2 x 2 mesh sharing the card over gloo (one GPU each with
+   ``--nccl``), one group of ranks training seven runs in turn on the
+   line stream, each against the one-device run of the same setting
+   over the same global batches from the same seed: (a) FFM-Criteo
+   (``field_num = 4``, D = 33) with ``sparse_exchange = entries`` (4
+   steps), the same with ``sparse_exchange_overlap = on`` (bitwise the
+   entries run) and ``dense`` (2 steps: a 554 MB delta a rank summed
+   through host memory), within the tile-vs-scatter bounds, and the
+   entries run's ``params.npz`` served by one process (no FmScorer);
+   (b) FM in ``compute_dtype = bfloat16`` and in f32 (8 steps each):
+   the bf16 logloss within 1e-2 of the f32 mesh's, its parameters within
+   ``rtol=0.05, atol=0.02`` of the one-device bf16 run and its table's
+   change within 0.05 of that run's change (in norm), the f32 FmGrad,
+   K1 and K2 once a step on every rank and no bf16 FmGrad; (c) path 9's
+   dense optax config, Adam and Adagrad (4 steps): parameters and
+   optimizer state within ``rtol=1e-4, atol=1e-6``, Adam's count exact,
+   K1's merge mode and K-place once a step on every rank and no K1
+   dedup or K2.  Each rank's step p50, collective share, launches and
+   peak device memory (from before its trainer is built).  Then the
+   path's new kernel shapes on a data block of the mesh, against their
+   plain versions and timed in CUDA graphs beside their bounds: K1 at
+   D = 33 on a model shard (the sentinel's segment dropped; its
+   ``index_add_`` over the owned occurrences alone), K-place at W = 66
+   and W = 9 (bitwise), K1's merge mode at W = 66 and 9, K2 at D = 33 on
+   the merged rows.
 
 Output: progress lines and JSON records, then a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -359,6 +387,14 @@ TIERED_SHORT_EPOCHS = 2
 # rows a rank on two ranks) and the steps of its one-device warm start.
 FLEET_HOT = 1 << 18
 FLEET_WARM_STEPS = 4
+# Path 12 (the rank mesh's FFM, bf16 and dense optax runs): steps of
+# each run (depth cut to keep the phase near 90 s on one card), the
+# bf16 bounds of tests/test_bf16.py and the group's deadline (seven
+# runs in one group of ranks).
+MESH_FFM_STEPS, MESH_FFM_DENSE_STEPS = 4, 2
+MESH_BF16_STEPS, MESH_DENSE_STEPS = 8, 4
+BF16_PARAM_TOL = dict(rtol=0.05, atol=0.02)
+MESH_MODES_TIMEOUT_S = 600
 # The dense optax path (path 9): both L2 lambdas of the full-table L2,
 # the short runs' steps (bf16, FFM-Criteo, the warm start), the lines of
 # the predict file served, and the timed dispatches of one step.
@@ -430,6 +466,26 @@ def graph_ms(torch, fn, calls: int = 100, reps: int = 7) -> float:
         times.append(start.elapsed_time(end) / calls)
     del graph
     return p50(times)
+
+
+def time_cases(torch, cases: dict, calls: dict = None) -> dict:
+    """Each case's kernel and plain version timed in CUDA graphs in
+    turns (plain, kernel, kernel, plain), and its library call where it
+    has one, beside its bound.  ``cases``: name -> ``(kernel, plain,
+    library or None, (bound_ms, bound_by))``; ``calls``: the calls a
+    graph holds, by name (100 where absent)."""
+    timing = {}
+    for name, (kern, plain, lib, (b_ms, b_by)) in cases.items():
+        n = (calls or {}).get(name, 100)
+        pa, ka, kb, pb = (graph_ms(torch, fn, calls=n) for fn in
+                          (plain, kern, kern, plain))
+        timing[name] = {
+            "ms": min(ka, kb), "plain_ms": min(pa, pb),
+            "graph_ms": [ka, kb], "plain_graph_ms": [pa, pb],
+            "library_ms": None if lib is None else graph_ms(torch, lib),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    return timing
 
 
 def time_per_call_ms(torch, fn, iters: int = 200, warm: int = 20) -> float:
@@ -2201,10 +2257,11 @@ def orbax_hot_swap(np, torch, card: str, tcfg, model_dir: str,
 
 
 def rank_main(argv) -> int:
-    """One rank of the sharded phase:
+    """One rank of a multi-rank phase:
     ``chip_smoke.py --sharded-rank RANK WORLD INIT_URL SPEC OUT``.
-    Joins the rank group, trains through ``Trainer.train()`` with the
-    spec's config overrides and writes its record to OUT."""
+    Joins the rank group, then for each config override set of the spec
+    (``runs``) trains through ``Trainer.train()`` in turn, and writes
+    their records to OUT (a list)."""
     rank, world, url, spec_path, out_path = (int(argv[0]), int(argv[1]),
                                              argv[2], argv[3], argv[4])
     import torch
@@ -2213,7 +2270,7 @@ def rank_main(argv) -> int:
     from fast_tffm_tpu_torch.config import load_config
     from fast_tffm_tpu_torch.ops import fm_kernels, sparse_apply
     from fast_tffm_tpu_torch.tools import micro_probe
-    from fast_tffm_tpu_torch.train import dist, loop, shardmap_step
+    from fast_tffm_tpu_torch.train import dense, dist, loop, shardmap_step
     from fast_tffm_tpu_torch.train.loop import Trainer
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
@@ -2222,8 +2279,6 @@ def rank_main(argv) -> int:
         spec = json.load(f)
     dev = dist.initialize(url, world, rank)
     try:
-        cfg = load_config(CFG_PATH, spec["overrides"])
-
         coll_s = [0.0]
 
         def timed(collective):
@@ -2238,12 +2293,13 @@ def rank_main(argv) -> int:
                 return out
             return call
 
-        # Every collective of a train step is the sharded step's, and
+        # Every collective of a train step is the sharded steps', and
         # the overlap's id-plane gather is the trainer's prefetch: its
         # start (the id plane's sort and, under gloo, the copy to the
         # host) and its wait are timed the same way.
         shardmap_step.psum = timed(shardmap_step.psum)
         shardmap_step.all_gather = timed(shardmap_step.all_gather)
+        dense.psum = timed(dense.psum)
         prefetch = loop.entries_prefetch
 
         def timed_prefetch(*args):
@@ -2288,44 +2344,54 @@ def rank_main(argv) -> int:
                 self.coll_s.append((coll_s[0] - c0) / sb.n)
                 return losses
 
-        trainer = TimedTrainer(cfg, device=dev)
         kernels = kernel_fns(fm_kernels, sparse_apply, micro_probe)
-        torch.cuda.reset_peak_memory_stats()
-        zero_launches(kernels)
-        t0 = time.perf_counter()
-        result = trainer.train()
-        wall = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        launches = read_launches(kernels)
-        mesh = trainer.mesh
-        steps = trainer.step_s[1:]  # the first step warms up
-        mig = [a.elapsed_time(b) for a, b in trainer.migration_events]
-        record = {
-            "rank": rank, "coords": list(mesh.coords), "device": str(dev),
-            "backend": mesh.backend,
-            "exchange": shardmap_step.exchange_mode(
-                trainer.dcfg, mesh,
-                cfg.batch_size // mesh.data * cfg.max_features),
-            "overlap": trainer.overlap,
-            "launches": launches, "train": result["train"],
-            "validation": result.get("validation"),
-            "step_p50_ms": p50(steps) * 1e3,
-            "collective_share": sum(trainer.coll_s[1:]) / sum(steps),
-            "step_ms": [x * 1e3 for x in trainer.step_s],
-            "train_wall_s": wall,
-            "peak_device_mb": torch.cuda.max_memory_allocated() / 2**20,
-        }
-        if trainer.fleet is not None:
-            record["fleet"] = {
-                "plans": len(trainer.plan_s),
-                "plan_ms_mean": 1e3 * sum(trainer.plan_s) / max(
-                    len(trainer.plan_s), 1),
-                "plan_ms_max": 1e3 * max(trainer.plan_s, default=0.0),
-                "migration_device_ms_mean": sum(mig) / max(len(mig), 1),
-                "migration_device_ms_max": max(mig, default=0.0),
+        records = []
+        for overrides in spec["runs"]:
+            cfg = load_config(CFG_PATH, overrides)
+            gc.collect()
+            torch.cuda.empty_cache()
+            # The peak counts from before the trainer is built: its
+            # table draw (and a fleet's exact store) is inside it.
+            torch.cuda.reset_peak_memory_stats()
+            trainer = TimedTrainer(cfg, device=dev)
+            zero_launches(kernels)
+            t0 = time.perf_counter()
+            result = trainer.train()
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = read_launches(kernels)
+            mesh = trainer.mesh
+            steps = trainer.step_s[1:]  # the first step warms up
+            mig = [a.elapsed_time(b) for a, b in trainer.migration_events]
+            record = {
+                "rank": rank, "coords": list(mesh.coords),
+                "device": str(dev), "backend": mesh.backend,
+                "exchange": (shardmap_step.exchange_mode(
+                    trainer.dcfg, mesh,
+                    cfg.batch_size // mesh.data * cfg.max_features)
+                    if trainer.sparse else "dense_optax"),
+                "overlap": trainer.overlap,
+                "launches": launches, "train": result["train"],
+                "validation": result.get("validation"),
+                "step_p50_ms": p50(steps) * 1e3,
+                "collective_share": sum(trainer.coll_s[1:]) / sum(steps),
+                "step_ms": [x * 1e3 for x in trainer.step_s],
+                "train_wall_s": wall,
+                "peak_device_mb": torch.cuda.max_memory_allocated() / 2**20,
             }
+            if trainer.fleet is not None:
+                record["fleet"] = {
+                    "plans": len(trainer.plan_s),
+                    "plan_ms_mean": 1e3 * sum(trainer.plan_s) / max(
+                        len(trainer.plan_s), 1),
+                    "plan_ms_max": 1e3 * max(trainer.plan_s, default=0.0),
+                    "migration_device_ms_mean": sum(mig) / max(len(mig), 1),
+                    "migration_device_ms_max": max(mig, default=0.0),
+                }
+            records.append(record)
+            del trainer
         with open(out_path, "w") as f:
-            json.dump(record, f)
+            json.dump(records, f)
     finally:
         torch.distributed.destroy_process_group()
     return 0
@@ -2763,19 +2829,11 @@ def ffm_kernels(np, torch, gen, batch, cfg, err: dict) -> dict:
                                    (table_k, acc_k), hyper),
              k2_bound_ms(u, D))),
     }
-    timing = {}
-    for name, (kern, plain, lib, (b_ms, b_by), (cut, (c_ms, _))) in (
-            cases.items()):
-        pa, ka, kb, pb = (graph_ms(torch, fn) for fn in
-                          (plain, kern, kern, plain))
-        timing[name] = {
-            "ms": min(ka, kb), "plain_ms": min(pa, pb),
-            "graph_ms": [ka, kb], "plain_graph_ms": [pa, pb],
-            "library_ms": None if lib is None else graph_ms(torch, lib),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "cut_slot": {"graph_ms": graph_ms(torch, cut), "bound_ms": c_ms},
-            "occurrences": n, "unique_rows": u, "width": D,
-        }
+    timing = time_cases(torch, {k: c[:4] for k, c in cases.items()})
+    for name, (*_, (cut, (c_ms, _))) in cases.items():
+        timing[name].update(
+            cut_slot={"graph_ms": graph_ms(torch, cut), "bound_ms": c_ms},
+            occurrences=n, unique_rows=u, width=D)
     del table_k, acc_k, table0, outs
     return {"timing": timing, "changes": changes}
 
@@ -3289,15 +3347,16 @@ def ffm_cli(np, tmp: str) -> dict:
     return out
 
 
-def spawn_ranks(tmp: str, tag: str, overrides: dict, world: int,
-                one_card: bool) -> list:
-    """Run ``world`` ranks of this script with the config ``overrides``
-    and return their records.  ``one_card`` shows every rank only the
-    first visible GPU (so they share it).  A rank that fails, or the
-    deadline, ends the smoke; every rank is stopped either way."""
+def spawn_runs(tmp: str, tag: str, runs: list, world: int, one_card: bool,
+               timeout_s: float = RANK_TIMEOUT_S) -> list:
+    """Run ``world`` ranks of this script, which train one run for each
+    config override set of ``runs`` in turn, and return each rank's list
+    of records.  ``one_card`` shows every rank only the first visible GPU
+    (so they share it).  A rank that fails, or the deadline, ends the
+    smoke; every rank is stopped either way."""
     spec = os.path.join(tmp, f"{tag}.json")
     with open(spec, "w") as f:
-        json.dump({"overrides": overrides}, f)
+        json.dump({"runs": runs}, f)
     env = dict(os.environ)
     if one_card:
         visible = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -3311,7 +3370,7 @@ def spawn_ranks(tmp: str, tag: str, overrides: dict, world: int,
          str(r), str(world), url, spec, outs[r]],
         cwd=REPO, env=env, stdout=logs[r], stderr=subprocess.STDOUT,
     ) for r in range(world)]
-    deadline = time.monotonic() + RANK_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     failed = None
     try:
         while failed is None and any(p.poll() is None for p in procs):
@@ -3338,7 +3397,7 @@ def spawn_ranks(tmp: str, tag: str, overrides: dict, world: int,
     if failed is not None:
         which = (f"rank {failed} exited {procs[failed].returncode}"
                  if failed != "deadline"
-                 else f"ranks still running after {RANK_TIMEOUT_S} s")
+                 else f"ranks still running after {timeout_s} s")
         r = failed if failed != "deadline" else 0
         print(f"chip_smoke: sharded {tag}: {which}; its log:\n{tails[r]}",
               file=sys.stderr)
@@ -3399,8 +3458,8 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
     ):
         model_dir = os.path.join(tmp, f"sharded_{exchange}")
         t0 = time.perf_counter()
-        recs = spawn_ranks(tmp, f"sharded_{exchange}", dict(
-            base, model_file=model_dir, **mesh, **extra), world, one_card)
+        recs = [r[0] for r in spawn_runs(tmp, f"sharded_{exchange}", [dict(
+            base, model_file=model_dir, **mesh, **extra)], world, one_card)]
         wall = time.perf_counter() - t0
         r0 = recs[0]
         for rec in recs:
@@ -3523,9 +3582,9 @@ def fleet_phase(np, torch, tmp: str, card: str, rng, train_files,
                                    "hot_rows": FLEET_HOT})):
         model_dir = os.path.join(tmp, f"fleet_{name}_{world}")
         t0 = time.perf_counter()
-        recs = spawn_ranks(tmp, f"fleet_{name}_{world}",
-                           dict(base, model_file=model_dir, **extra), world,
-                           one_card)
+        recs = [r[0] for r in spawn_runs(
+            tmp, f"fleet_{name}_{world}",
+            [dict(base, model_file=model_dir, **extra)], world, one_card)]
         runs[name] = {"recs": recs, "wall_s": time.perf_counter() - t0,
                       "dir": model_dir}
     dense, fleet = runs["dense"]["recs"], runs["fleet"]["recs"]
@@ -3683,6 +3742,439 @@ def fleet_phase(np, torch, tmp: str, card: str, rng, train_files,
     return record, launches
 
 
+def mesh_modes_phase(np, torch, card: str, rng, world: int,
+                     one_card: bool) -> tuple:
+    """Path 12, the trainer's rank-mesh modes on a ``2 x 2`` mesh (four
+    ranks of this script in one group, each training its runs in turn),
+    each run from the one-device run's initial table (the same seed) on
+    the same global batches (the line stream), held against the port's
+    one-device run of the same setting:
+
+    (a) FFM-Criteo (``field_num = 4``: D = 33) with ``sparse_exchange =
+        entries`` and again with its id plane overlapped (bitwise the
+        entries run), ``MESH_FFM_STEPS`` steps, then ``dense`` (its
+        554 MB delta summed through host memory under gloo) for
+        ``MESH_FFM_DENSE_STEPS``; within the tile-vs-scatter bounds; the
+        entries run's ``params.npz`` served by one process;
+    (b) FM in ``compute_dtype = bfloat16``, ``MESH_BF16_STEPS`` steps:
+        the logloss within 1e-2 of the mesh's f32 run, the parameters
+        within ``BF16_PARAM_TOL`` of the one-device bf16 run and the
+        table's change within its rtol of that run's (in norm); the f32
+        FmGrad, K1 and K2 every step on every rank, no bf16 FmGrad;
+    (c) the dense optax path (path 9's config: ``l2_mode = full``, Adam
+        at ``DENSE_ADAM_LR`` and Adagrad), ``MESH_DENSE_STEPS`` steps:
+        parameters and optimizer state within ``TABLE_TOL`` (the
+        reference's sparse-vs-dense tolerance), Adam's count exact; K1's
+        merge mode and K-place once a step on every rank, no K1 dedup or
+        K2.
+
+    Returns ``(record, launches summed over the ranks)``."""
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.models import fm
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    dev = torch.device("cuda")
+    tmp_ctx = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    tmp = tmp_ctx.name
+    w_true = rng.normal(0.0, 0.6, (13, INT_BUCKETS))
+    files = {}
+    for name, batches, fields in (("ffm", MESH_FFM_STEPS, FFM_FIELDS),
+                                  ("fm", MESH_BF16_STEPS, 0)):
+        files[name] = os.path.join(tmp, f"{name}.libsvm")
+        write_labelled(np, files[name], rng, batches * LINES, w_true, fields)
+    # The shorter runs read the head of the same lines.
+    for name, src, batches in (("ffm_dense", "ffm", MESH_FFM_DENSE_STEPS),
+                               ("dense", "fm", MESH_DENSE_STEPS)):
+        files[name] = os.path.join(tmp, f"{name}.libsvm")
+        with open(files[src]) as f, open(files[name], "w") as out:
+            out.writelines(itertools.islice(f, batches * LINES))
+    # The line stream (fast_ingest off) deals the single device's global
+    # batches out to the data blocks.
+    base = {"validation_files": [], "seed": SEED, "log_steps": 0,
+            "save_steps": 0, "serve_poll_secs": 0.0, "serve_port": 0,
+            "fast_ingest": False}
+    dense_kw = {"sparse_update": False, "l2_mode": "full",
+                "factor_lambda": DENSE_LAMBDA, "bias_lambda": DENSE_LAMBDA}
+    ffm_kw = {"field_num": FFM_FIELDS}
+    settings = {
+        "ffm_entries": (dict(ffm_kw, train_files=[files["ffm"]],
+                             sparse_exchange="entries",
+                             sparse_exchange_overlap="off"), "ffm"),
+        "ffm_overlap": (dict(ffm_kw, train_files=[files["ffm"]],
+                             sparse_exchange="entries",
+                             sparse_exchange_overlap="on",
+                             steps_per_dispatch=2), "ffm"),
+        "ffm_dense": (dict(ffm_kw, train_files=[files["ffm_dense"]],
+                           lookup="shardmap", sparse_exchange="dense"),
+                      "ffm_dense"),
+        "fm_f32": (dict(train_files=[files["fm"]],
+                        sparse_exchange="entries"), "fm_f32"),
+        "fm_bf16": (dict(train_files=[files["fm"]],
+                         sparse_exchange="entries",
+                         compute_dtype="bfloat16"), "fm_bf16"),
+        "dense_adam": (dict(dense_kw, train_files=[files["dense"]],
+                            optimizer="adam",
+                            learning_rate=DENSE_ADAM_LR), "dense_adam"),
+        "dense_adagrad": (dict(dense_kw, train_files=[files["dense"]],
+                               optimizer="adagrad"), "dense_adagrad"),
+    }
+    # The one-device runs of each setting (the overlap's is the entries
+    # run's).
+    single = {}
+    t0 = time.perf_counter()
+    for name, (kw, ref) in settings.items():
+        if ref != name and ref in single:
+            continue
+        model_dir = os.path.join(tmp, f"single_{ref}")
+        kw = {**base, **kw, "model_file": model_dir,
+              "sparse_exchange_overlap": "off"}
+        res = Trainer(load_config(CFG_PATH, kw)).train()
+        single[ref] = {"dir": model_dir, "train": res["train"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    single_s = time.perf_counter() - t0
+    mesh = {"mesh_data": SHARDED_MESH[0], "mesh_model": SHARDED_MESH[1]}
+    runs = [{**base, **kw, **mesh,
+             "model_file": os.path.join(tmp, f"mesh_{name}")}
+            for name, (kw, _) in settings.items()]
+    t0 = time.perf_counter()
+    per_rank = spawn_runs(tmp, "mesh_modes", runs, world, one_card,
+                          timeout_s=MESH_MODES_TIMEOUT_S)
+    mesh_s = time.perf_counter() - t0
+
+    loaded = {}
+
+    def load(path):
+        """A checkpoint's arrays on the card (read once)."""
+        if path not in loaded:
+            with np.load(os.path.join(path, "params.npz")) as z:
+                loaded[path] = {k: torch.from_numpy(z[k]).to(dev)
+                                for k in z.files}
+        return loaded[path]
+
+    by_run, out = {}, {}
+    for i, name in enumerate(settings):
+        recs = [per_rank[r][i] for r in range(world)]
+        ref = settings[name][1]
+        steps = single[ref]["train"]["steps"]
+        r0 = recs[0]
+        for rec in recs:
+            check(rec["train"]["steps"] == steps,
+                  f"{name}: rank {rec['rank']} ran {rec['train']['steps']} "
+                  f"steps, the single device {steps}")
+            for m in ("loss", "auc", "examples"):
+                a, b = rec["train"][m], r0["train"][m]
+                check(abs(a - b) <= 1e-6 * abs(b),
+                      f"{name}: rank {rec['rank']} train {m} {a} != rank "
+                      f"0's {b}")
+            got = rec["launches"]
+            if name.startswith("ffm"):
+                want_k = {"k1_dedup": steps,
+                          "k2_apply": 0 if name == "ffm_dense" else steps,
+                          "kplace": steps if name == "ffm_dense" else 0,
+                          "fm_grad": 0}
+            elif name.startswith("fm"):
+                want_k = {"fm_grad": steps, "k1_dedup": steps,
+                          "k2_apply": steps, "fm_grad_bf16": 0,
+                          "kplace": 0}
+            else:
+                want_k = {"k1_merge": steps, "kplace": steps, "k1_dedup": 0,
+                          "k2_apply": 0, "fm_grad": steps}
+            for k, n in want_k.items():
+                check(got[k] == n, f"{name}: rank {rec['rank']} launched "
+                      f"{k} {got[k]} times in {steps} steps, want {n}")
+            for k, n in got.items():
+                by_run.setdefault(name, {}).setdefault(k, 0)
+                by_run[name][k] += n
+        have, want = load(runs[i]["model_file"]), load(single[ref]["dir"])
+        check(set(have) == set(want), f"{name}: checkpoint keys "
+              f"{sorted(set(have) ^ set(want))} differ")
+        errs = {}
+        for key in sorted(want):
+            a, b = have[key], want[key]
+            if not a.is_floating_point():
+                check(torch.equal(a, b), f"{name}: {key} {a} != {b}")
+                continue
+            errs[key] = float((a - b).abs().max())
+            if name == "fm_bf16":
+                t = BF16_PARAM_TOL
+            elif name.startswith("dense") or key == "params/table":
+                t = TABLE_TOL  # tests/test_torch_dense.py's TOL
+            elif key == "scalar/w0":
+                t = dict(rtol=1e-5, atol=1e-7)
+            else:
+                t = OPT_TOL
+            check(torch.allclose(a, b, **t),
+                  f"{name}: {key} off the one-device run's by "
+                  f"{errs[key]:.3e} (bound {t})")
+        out[name] = {
+            "steps": steps, "resolved": r0["exchange"],
+            "overlap": r0["overlap"], "backend": r0["backend"],
+            "train_logloss": r0["train"]["logloss"],
+            "single_train_logloss": single[ref]["train"]["logloss"],
+            "max_abs_err_vs_single": errs,
+            "ranks": [{k: rec[k] for k in (
+                "rank", "coords", "launches", "step_p50_ms",
+                "collective_share", "train_wall_s", "peak_device_mb")}
+                for rec in recs],
+        }
+    check(out["ffm_entries"]["resolved"] == "entries"
+          and out["ffm_dense"]["resolved"] == "dense"
+          and out["ffm_overlap"]["overlap"]
+          and not out["ffm_entries"]["overlap"],
+          f"path 12 exchanges: {[(k, v['resolved'], v['overlap']) for k, v in out.items()]}")
+    entries, overlap = (load(runs[i]["model_file"]) for i in (0, 1))
+    for key, t in overlap.items():
+        check(torch.equal(t, entries[key]),
+              f"ffm overlap: {key} differs from the entries run's")
+    gap = abs(out["fm_bf16"]["train_logloss"] - out["fm_f32"]["train_logloss"])
+    check(gap < 1e-2, f"bf16 mesh logloss {gap} from the f32 mesh's")
+    # (b)'s table change against the one-device bf16 run's, both from the
+    # seeded initial table: the norm of their difference within
+    # BF16_PARAM_TOL's rtol of the one-device change's norm, which a
+    # mesh that never wrote the table fails (1).
+    start = fm.init_params(
+        load_config(CFG_PATH, {**base, **settings["fm_bf16"][0]}),
+        torch.Generator(device=dev).manual_seed(SEED),
+        device=dev).table.detach()
+    d_mesh = (load(runs[list(settings).index("fm_bf16")]["model_file"])
+              ["params/table"] - start)
+    d_one = load(single["fm_bf16"]["dir"])["params/table"] - start
+    norm = float(torch.linalg.vector_norm(d_one))
+    change_rel = float(torch.linalg.vector_norm(d_mesh - d_one)) / norm
+    check(norm > 0 and change_rel <= BF16_PARAM_TOL["rtol"],
+          f"bf16 mesh table change {change_rel:.3e} of the one-device "
+          f"run's norm {norm:.3e} from it")
+    out["fm_bf16"]["table_change_rel_err"] = change_rel
+    del start, d_mesh, d_one
+    # The FFM mesh checkpoint served by one process (FFM scores through
+    # its einsums: no FmScorer).
+    scfg = load_config(CFG_PATH, dict(base, **ffm_kw,
+                                      model_file=runs[0]["model_file"]))
+    table = entries["params/table"].cpu().numpy()
+    w0 = float(entries["scalar/w0"])
+    del loaded, entries, overlap
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = serve_table(np, torch, scfg,
+                         serve_requests(np, rng, scfg, FFM_FIELDS),
+                         Rows(w0, lambda ids: table[ids]),
+                         "mesh FFM served")
+    check(served["launches"] == 0, "the FFM server launched FmScorer")
+    del table
+    # The launches by the kernel shape they ran at (the kernels line's
+    # entries): FFM's at D = 33 (its entries payload 66 wide, its dense
+    # exchange's delta too), the dense gradient's at W = 9, FM's as the
+    # main path's.
+    launches = {}
+
+    def add(key, run, kernel):
+        launches[key] = launches.get(key, 0) + by_run[run].get(kernel, 0)
+
+    for run in ("ffm_entries", "ffm_overlap", "ffm_dense"):
+        add("k1_dedup_d33_shard", run, "k1_dedup")
+        add("k2_apply_d33_shard", run, "k2_apply")
+        add("k1_merge_w66", run, "k1_merge")
+        add("kplace_w66", run, "kplace")
+    for run in ("fm_f32", "fm_bf16", "dense_adam", "dense_adagrad"):
+        for kernel in ("fm_grad", "fm_grad_bf16", "k1_dedup", "k2_apply"):
+            add(kernel, run, kernel)
+    for run in ("fm_f32", "fm_bf16"):
+        add("k1_merge", run, "k1_merge")
+    for run in ("dense_adam", "dense_adagrad"):
+        add("k1_merge_w9", run, "k1_merge")
+        add("kplace_w9", run, "kplace")
+    tmp_ctx.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    record = {
+        "card": card, "config": "examples/criteo_kaggle.cfg",
+        "mesh": list(SHARDED_MESH),
+        "transport": (f"gloo through pinned host memory, {world} ranks "
+                      "sharing one card" if one_card
+                      else f"one rank per GPU, {per_rank[0][0]['backend']}"),
+        "runs": out, "bf16_logloss_gap": gap,
+        "single_device_s": single_s, "mesh_s": mesh_s,
+        "served": {"dispatch_p50_ms": served["dispatch_p50_ms"],
+                   "fm_scores_launches": served["launches"],
+                   "max_abs_err_vs_plain": served["max_abs_err_vs_plain"]},
+    }
+    return record, launches
+
+
+def mesh_modes_timing(np, torch, gen, rng, err: dict) -> dict:
+    """Path 12's new kernel shapes against their plain versions and
+    timed in CUDA graphs beside their bounds (plain versions and K1's
+    ``index_add_`` too): a data block of the 2 x 2 mesh (2048 lines) on
+    model shard 1 (rows ``[2^21, 2^22)``), FFM-Criteo's D = 33 with the
+    off-shard occurrences at the sentinel ``vocab_local``:
+    ``k1_dedup_d33_shard`` (the sentinel's segment dropped),
+    ``kplace_w66`` (the FFM dense exchange's ``[2^21, 66]`` delta,
+    bitwise), ``k1_merge_w66`` (two blocks' entry streams),
+    ``k2_apply_d33_shard`` (Adagrad at the merged rows), and at D = 9
+    ``k1_merge_w9`` and ``kplace_w9`` (the dense mesh step's gradient).
+    The ids are a parsed batch of FFM-Criteo lines' (data block 1, and
+    block 0 for the second entry stream).  Sets ``err`` for each;
+    returns the timing records."""
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data.libsvm import make_batch, parse_lines
+    from fast_tffm_tpu_torch.ops import sparse_apply as sa
+
+    dev = torch.device("cuda")
+    cfg = load_config(CFG_PATH, {"field_num": FFM_FIELDS})
+    vloc = cfg.vocabulary_size // SHARDED_MESH[1]
+    b_loc = LINES // SHARDED_MESH[0]
+    n = b_loc * cfg.max_features
+    hyper = sa.Hyper(lr=0.05)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_block_") as tmp:
+        path = os.path.join(tmp, "block.libsvm")
+        write_labelled(np, path, rng, LINES,
+                       rng.normal(0.0, 0.6, (13, INT_BUCKETS)), FFM_FIELDS)
+        with open(path) as f:
+            lines = f.readlines()
+    ids = torch.from_numpy(make_batch(parse_lines(
+        lines, cfg.vocabulary_size, cfg.hash_feature_id, FFM_FIELDS),
+        LINES, cfg.max_features).ids).to(dev)
+    blocks = [ids[b_loc:].reshape(-1), ids[:b_loc].reshape(-1)]
+
+    def local_ids(block: int):
+        """A data block's ids in model shard 1's coordinates, the
+        off-shard ones at the sentinel ``vloc``."""
+        own = blocks[block] >= vloc
+        return (torch.where(own, blocks[block] - vloc, vloc)
+                .to(torch.int32), own)
+
+    timing, cases = {}, {}
+    for d in (33, 9):
+        lids, own = local_ids(0)
+        g = torch.randn((n, d), generator=gen, device=dev) * 0.1 * own[:, None]
+        meta = sa.sort_meta(lids, drop_from=vloc)
+        u = meta.seg_start.numel() - 1
+        args = (g, lids, meta.perm, meta.seg_start)
+        if d == 33:
+            urows, sums = sa.k1_dedup_cuda(*args)
+            urows_p, sums_p = sa.k1_dedup_plain(g.double(), *args[1:])
+            _, mass = sa.k1_dedup_plain(g.abs().double(), *args[1:])
+            check(torch.equal(urows, urows_p), "K1 D=33 shard: row ids")
+            check(int(urows.max()) < vloc, "K1 D=33 shard: the sentinel "
+                  "segment was not dropped")
+            diff = (sums.double() - sums_p).abs()
+            err["k1_dedup_d33_shard"] = float(diff.max())
+            check(bool(torch.all(diff <= sa.k1_error_bound(meta.seg_start,
+                                                           mass))),
+                  f"K1 D=33 shard vs plain: {err['k1_dedup_d33_shard']}")
+            # K1's library yardstick: one index_add_ of the owned
+            # occurrences' [g | g^2] payload, in their own order, over
+            # their segments; the off-shard ones, which the kernel never
+            # reads, are left out.  It computes K1's sums: within one
+            # rounding of the segment's mass per term, in any order.
+            n_own = int(meta.seg_start[-1])
+            counts = (meta.seg_start[1:] - meta.seg_start[:-1]).long()
+            seg = torch.full((n,), -1, dtype=torch.long, device=dev)
+            seg[meta.perm[:n_own].long()] = torch.repeat_interleave(
+                torch.arange(u, device=dev), counts, output_size=n_own)
+            own_pos = torch.nonzero(own).squeeze(1)
+            seg_own = seg.index_select(0, own_pos)
+            check(own_pos.numel() == n_own and bool((seg_own >= 0).all()),
+                  "K1 D=33 shard: the owned occurrences are not the "
+                  "sort's first segments")
+            pay_own = torch.cat([g, g * g], dim=1).index_select(0, own_pos)
+            lib_k1 = torch.zeros((u, 2 * d), device=dev)
+            lib_k1.index_add_(0, seg_own, pay_own)
+            check(bool(torch.all((lib_k1.double() - sums_p).abs() <= 1.01
+                                 * 2.0**-24 * counts[:, None] * mass)),
+                  "K1 D=33 shard: the index_add_ yardstick does not "
+                  "compute K1's sums")
+            del urows_p, sums_p, mass, diff
+            cases["k1_dedup_d33_shard"] = (
+                lambda a=args: sa.k1_dedup_cuda(*a),
+                lambda a=args: sa.k1_dedup_plain(*a),
+                lambda: lib_k1.index_add_(0, seg_own, pay_own),
+                k1_bound_ms(n_own, u, d))
+            kp = (urows, sums, 0, vloc)
+            name = "kplace_w66"
+            # Two blocks' entry streams, merged as the entries exchange
+            # merges them; K2 applies the merge at the touched rows.
+            cap = sa.entries_cap(n, vloc)
+            streams = [sa.unique_entries(lids, g, vocab=vloc, cap=cap)]
+            lids2, own2 = local_ids(1)
+            g2 = torch.randn((n, d), generator=gen, device=dev) * 0.1
+            streams.append(sa.unique_entries(lids2, g2 * own2[:, None],
+                                             vocab=vloc, cap=cap))
+            rows_m = torch.cat([r for r, _, _ in streams])
+            pay_m = torch.cat([p for _, p, _ in streams])
+            w_merge = 2 * d
+        else:
+            rows_m, pay_m = lids, g
+            w_merge = d
+        meta_m = sa.sort_meta(rows_m, drop_from=vloc)
+        margs = (pay_m, rows_m, meta_m.perm, meta_m.seg_start)
+        urows_m, sums_m = sa.k1_merge_cuda(*margs)
+        mname = f"k1_merge_w{w_merge}"
+        # Against the plain version in float64, within the error K1's
+        # order of summation allows; at W = 66 (at most two terms a row)
+        # also bitwise the float32 plain version.
+        urows_mp, sums_mp = sa.k1_merge_plain(pay_m.double(), *margs[1:])
+        _, mass_m = sa.k1_merge_plain(pay_m.abs().double(), *margs[1:])
+        check(torch.equal(urows_m, urows_mp), f"{mname}: row ids")
+        diff = (sums_m.double() - sums_mp).abs()
+        err[mname] = float(diff.max())
+        check(bool(torch.all(diff <= sa.k1_error_bound(meta_m.seg_start,
+                                                       mass_m))),
+              f"{mname} vs plain: max err {err[mname]:.3e}")
+        del urows_mp, sums_mp, mass_m, diff
+        n_real = int(meta_m.seg_start[-1])
+        if d == 33:
+            check(torch.equal(sums_m, sa.k1_merge_plain(*margs)[1]),
+                  f"{mname}: not bitwise its plain version (at most two "
+                  f"terms a row)")
+        else:
+            kp = (urows_m, sums_m, 0, vloc)
+            name = "kplace_w9"
+        merge_seg = torch.repeat_interleave(
+            torch.arange(urows_m.numel(), device=dev),
+            (meta_m.seg_start[1:] - meta_m.seg_start[:-1]).long(),
+            output_size=n_real)
+        pay_real = pay_m.index_select(0, meta_m.perm[:n_real].long())
+        lib_out = torch.zeros((urows_m.numel(), w_merge), device=dev)
+        cases[mname] = (
+            lambda a=margs: sa.k1_merge_cuda(*a),
+            lambda a=margs: sa.k1_merge_plain(*a),
+            lambda s=merge_seg, p=pay_real, o=lib_out: o.index_add_(0, s, p),
+            k1_merge_bound_ms(n_real, urows_m.numel(), w_merge))
+        delta_k, delta_p = sa.kplace_cuda(*kp), sa.kplace_plain(*kp)
+        torch.cuda.synchronize()
+        err[name] = float((delta_k - delta_p).abs().max())
+        check(torch.equal(delta_k, delta_p),
+              f"{name} vs plain: max err {err[name]} (a placement is exact)")
+        del delta_k, delta_p
+        cases[name] = (lambda a=kp: sa.kplace_cuda(*a),
+                       lambda a=kp: sa.kplace_plain(*a), None,
+                       kplace_bound_ms(kp[0].numel(), kp[1].shape[1], vloc))
+        if d == 33:
+            table = torch.randn((vloc, d), generator=gen, device=dev) * 0.01
+            acc = torch.full((vloc, d), 0.1, device=dev)
+            kern = (table.clone(), acc.clone())
+            plain = (table.clone(), acc.clone())
+            sa.k2_apply_cuda("adagrad", urows_m, sums_m, kern, hyper)
+            sa.k2_apply_plain("adagrad", urows_m, sums_m, plain, hyper)
+            torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+            torch.testing.assert_close(kern[1], plain[1], **OPT_TOL)
+            err["k2_apply_d33_shard"] = max(
+                float((a - b).abs().max()) for a, b in zip(kern, plain))
+            cases["k2_apply_d33_shard"] = (
+                lambda t=kern, r=urows_m, s=sums_m: sa.k2_apply_cuda(
+                    "adagrad", r, s, t, hyper),
+                lambda t=plain, r=urows_m, s=sums_m: sa.k2_apply_plain(
+                    "adagrad", r, s, t, hyper),
+                None, k2_bound_ms(urows_m.numel(), d))
+    # K-place writes up to 554 MB a call: fewer calls a graph.
+    timing = time_cases(torch, cases, calls={
+        name: 10 for name in cases if name.startswith("kplace")})
+    torch.cuda.empty_cache()
+    return timing
+
+
 def probe_phase(torch, card: str, gen, table0, hot_ids, hyper, err: dict,
                 kernels: dict):
     """Path 4, the table-layout probe.  K2T and K2P against their plain
@@ -3809,9 +4301,10 @@ def probe_phase(torch, card: str, gen, table0, hot_ids, hyper, err: dict,
 
 
 def nccl_main() -> int:
-    """``--nccl``: the sharded phase (its three 2 x 2 runs) and path 11 as
-    a ``1 x 4`` fleet against the dense ``1 x 4`` mesh, one rank per GPU
-    (needs at least four), so the backend rule picks NCCL."""
+    """``--nccl``: the sharded phase (its three 2 x 2 runs), path 11 as
+    a ``1 x 4`` fleet against the dense ``1 x 4`` mesh and path 12's
+    2 x 2 runs, one rank per GPU (needs at least four), so the backend
+    rule picks NCCL."""
     import numpy as np
     import torch
 
@@ -3849,6 +4342,9 @@ def nccl_main() -> int:
                                predict_file, kernels, world=world,
                                one_card=False)
         print(json.dumps({"fleet": fleet}), flush=True)
+        mesh_rec, _ = mesh_modes_phase(np, torch, card, rng, world=world,
+                                       one_card=False)
+        print(json.dumps({"mesh_modes": mesh_rec}), flush=True)
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4272,18 +4768,8 @@ def main() -> int:
             k1_merge_bound_ms(n_real, urows_m.numel(), 2 * D),
         ),
     }
-    for name, (kern, plain, lib, (b_ms, b_by)) in cases.items():
-        # In turns: plain, kernel, kernel, plain.  K-place writes a
-        # 151 MB delta per call: fewer calls per graph.
-        calls = 20 if name == "kplace" else 100
-        pa, ka, kb, pb = (graph_ms(torch, fn, calls=calls) for fn in
-                          (plain, kern, kern, plain))
-        timing[name] = {
-            "ms": min(ka, kb), "plain_ms": min(pa, pb),
-            "graph_ms": [ka, kb], "plain_graph_ms": [pa, pb],
-            "library_ms": None if lib is None else graph_ms(torch, lib),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
+    # K-place writes a 151 MB delta per call: fewer calls per graph.
+    timing.update(time_cases(torch, cases, calls={"kplace": 20}))
     # FmGrad's inputs and output (12.3 MB, bf16 6.2 MB) stay in the 50 MB
     # L2 across a graph's replays, where it ran below its HBM bound.  Its
     # line's times are taken again, kernel and plain alike, on copies of
@@ -4919,6 +5405,31 @@ def main() -> int:
     phase_end("fleet")
     tmp_ctx.cleanup()  # the main run's files, which paths 8-11 read
 
+    # -- mesh_modes phase (path 12): FFM, bf16, dense optax on a mesh ---
+    mesh_rec, mesh_launches = mesh_modes_phase(np, torch, card, rng,
+                                               world=4, one_card=True)
+    mesh_timing = mesh_modes_timing(np, torch, gen, rng, err)
+    timing.update(mesh_timing)
+    mesh_rec["kernel_timing"] = mesh_timing
+    print(json.dumps({"mesh_modes": mesh_rec}), flush=True)
+    print("mesh_modes (" + card + "): " + json.dumps({
+        name: {"step_p50_ms": [r["step_p50_ms"] for r in run["ranks"]],
+               "collective_share": [r["collective_share"]
+                                    for r in run["ranks"]],
+               "peak_device_mb": [r["peak_device_mb"] for r in run["ranks"]]}
+        for name, run in mesh_rec["runs"].items()}), flush=True)
+    print("mesh_modes (" + card + ") kernels: " + json.dumps({
+        name: {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                 "library_ms")}
+        for name, t in mesh_timing.items()}), flush=True)
+    print("mesh_modes check: on a 2 x 2 mesh FFM-Criteo (entries, overlap "
+          "bitwise entries, dense exchange), bf16 FM and the dense optax "
+          "path (Adam, Adagrad) within their bounds of the one-device "
+          "runs; each kernel once a step on every rank; the FFM mesh "
+          "checkpoint served; K-place at W = 66 and 9 bitwise its plain "
+          "version", flush=True)
+    phase_end("mesh_modes")
+
     # Launches on the main paths: train (path 1), serve (paths 2, 6 and
     # 7, with path 8 the only fm_scores count), the sharded runs' ranks
     # (path 3), the probe (path 4, the only K2T and K2P counts), the
@@ -4955,6 +5466,11 @@ def main() -> int:
     # the one-device warm start's steps.
     for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
         launches[name] += fleet_launches[name]
+    # Path 12: the mesh's FM runs (f32 and bf16 compute, the f32 FmGrad
+    # in both) and the dense runs' FmGrad on the main entries; its new
+    # shapes on their own.
+    for name, n in mesh_launches.items():
+        launches[name] = launches.get(name, 0) + n
     sources = {
         "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
         "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),
@@ -4975,6 +5491,18 @@ def main() -> int:
                          "fast_tffm_tpu/ops/sparse_apply.py:136"),
         "k2_apply_d33": ("sparse_apply.cu",
                          "fast_tffm_tpu/ops/sparse_apply.py:322"),
+        "k1_dedup_d33_shard": ("sparse_apply.cu",
+                               "fast_tffm_tpu/ops/sparse_apply.py:136"),
+        "k2_apply_d33_shard": ("sparse_apply.cu",
+                               "fast_tffm_tpu/ops/sparse_apply.py:322"),
+        "k1_merge_w66": ("sparse_apply.cu",
+                         "fast_tffm_tpu/ops/sparse_apply.py:136"),
+        "k1_merge_w9": ("sparse_apply.cu",
+                        "fast_tffm_tpu/ops/sparse_apply.py:136"),
+        "kplace_w66": ("sparse_apply.cu",
+                       "fast_tffm_tpu/ops/sparse_apply.py:469"),
+        "kplace_w9": ("sparse_apply.cu",
+                      "fast_tffm_tpu/ops/sparse_apply.py:469"),
     }
     print(json.dumps({"phase_wall_s": phase_wall}), flush=True)
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}))

@@ -29,6 +29,33 @@ kernel; the port runs its kernels here as on every path, held to the
 same math.  Nothing in the step reads the device from the host, so with
 the host sort meta a CUDA graph captures it as it does the sparse step
 (``train/dispatch.py``).
+
+On a rank mesh, :func:`dense_step_sharded` is the counterpart of the
+reference's GSPMD partition of the same step (``fast_tffm_tpu/parallel/
+mesh.py::param_sharding``: the table and its optimizer state row-sharded
+over ``model``, replicated over ``data``; the batch split over
+``data``).  Each rank takes the sharded step's row gradients
+(``train/shardmap_step.py::shard_row_grads``: partial terms, one sum
+over ``model``, the closed-form backward at its own rows), places them
+into its shard's ``[vocab_local, D]`` gradient (K1's merge mode and
+K-place over the shard's local ids, the off-shard sentinel left out),
+sums that over ``data``, adds ``l2_mode = full``'s term on its shard
+and applies the optimizer to it.  ``w0``'s gradient is summed over
+``data`` and applied on every rank, and so is Adam's step count: each
+rank advances it once a step, so the bias corrections stay replicated.
+It runs eagerly, as the sharded sparse step does.
+
+With ``compute_dtype = bfloat16`` the mesh's dense step rounds as the
+sharded step does, which is how the reference's dense ``jnp`` forward
+rounds the products (``fast_tffm_tpu/models/fm.py::interaction_terms``),
+with one difference: ``w0`` stays f32, as in the port's one-device
+dense step, where the reference adds ``w0`` rounded to bf16
+(``scores_from_rows``), so each score differs from the reference's by
+that rounding (``|w0|·2^-9`` at most).  The backward is the f32
+closed form on the bf16-rounded rows, where the reference
+differentiates its bf16 forward (its ``dw0`` and row gradients come
+back rounded to bf16): within ``tests/test_bf16.py``'s gradient bound
+(``tests/test_torch_mesh_modes.py`` holds both, step by step).
 """
 
 from __future__ import annotations
@@ -39,10 +66,28 @@ from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.libsvm import Batch
 from fast_tffm_tpu_torch.models.fm import FmModel
 from fast_tffm_tpu_torch.ops import sparse_apply
+from fast_tffm_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, psum
 from fast_tffm_tpu_torch.train.optimizers import apply_dense
+from fast_tffm_tpu_torch.train.shardmap_step import shard_row_grads, w0_grad
 from fast_tffm_tpu_torch.train.sparse import row_grads
 
-__all__ = ["dense_step"]
+__all__ = ["dense_step", "dense_step_sharded"]
+
+
+def _add_full_l2(cfg: FmConfig, w0, table, dw0, dtable):
+    """``l2_mode = full``'s gradient in closed form: ``2 lambda`` times
+    the table added to ``dtable`` in place (column 0 under
+    ``bias_lambda``, the factors under ``factor_lambda``), and ``2
+    bias_lambda w0`` to ``dw0``, which is returned."""
+    if cfg.l2_mode != "full" or not (cfg.factor_lambda or cfg.bias_lambda):
+        return dw0
+    # Filled on the device, not copied from the host: a CUDA graph of
+    # the step holds no host-to-device copy.
+    lam = torch.full((table.shape[1],), 2 * cfg.factor_lambda,
+                     device=table.device)
+    lam[:1].fill_(2 * cfg.bias_lambda)
+    dtable.addcmul_(table, lam)
+    return dw0 + 2 * cfg.bias_lambda * w0
 
 
 def dense_step(cfg: FmConfig, model: FmModel, opt_state, batch: Batch,
@@ -57,13 +102,28 @@ def dense_step(cfg: FmConfig, model: FmModel, opt_state, batch: Batch,
     with torch.no_grad():
         dtable = sparse_apply.dense_grad(batch.ids, drows, table.shape[0],
                                          meta=batch.sort_meta, plain=plain)
-        if cfg.l2_mode == "full" and (cfg.factor_lambda or cfg.bias_lambda):
-            # Filled on the device, not copied from the host: a CUDA
-            # graph of the step holds no host-to-device copy.
-            lam = torch.full((table.shape[1],), 2 * cfg.factor_lambda,
-                             device=table.device)
-            lam[:1].fill_(2 * cfg.bias_lambda)
-            dtable.addcmul_(table, lam)
-            dw0 = dw0 + 2 * cfg.bias_lambda * model.w0
+        dw0 = _add_full_l2(cfg, model.w0, table, dw0, dtable)
         apply_dense(cfg, model, opt_state, dw0, dtable)
     return scores
+
+
+def dense_step_sharded(cfg: FmConfig, model_l: FmModel, opt_state_l,
+                       batch_l: Batch, mesh: Mesh) -> torch.Tensor:
+    """One dense step on this rank of ``mesh``: ``model_l`` and
+    ``opt_state_l`` hold the rank's model shard (``w0``, its optimizer
+    scalars and Adam's count replicated), ``batch_l`` its data block on
+    the rank's device.  Updates both in place and returns the block's
+    raw scores ``[b]``.  Every rank calls it in lockstep."""
+    grads = shard_row_grads(cfg, model_l, batch_l, mesh)
+    table_l = model_l.table
+    with torch.no_grad():
+        w0 = model_l.w0.detach()
+        meta = sparse_apply.sort_meta(grads.lids,
+                                      drop_from=grads.vocab_local)
+        dtable = sparse_apply.dense_grad(grads.lids, grads.drows,
+                                         grads.vocab_local, meta=meta)
+        dtable = psum(dtable, DATA_AXIS, mesh)
+        dw0 = _add_full_l2(cfg, w0, table_l, w0_grad(cfg, w0, grads.g, mesh),
+                           dtable)
+        apply_dense(cfg, model_l, opt_state_l, dw0, dtable)
+    return grads.scores

@@ -1,6 +1,6 @@
 """Training loop and offline predict — the counterpart of
-``fast_tffm_tpu/train/loop.py``: the sparse path on one device or on a
-rank mesh, and the dense path on one device.
+``fast_tffm_tpu/train/loop.py``: the sparse and the dense path, on one
+device or on a rank mesh.
 
 :class:`Trainer` initialises the model (or warm-starts it, optimizer
 state included, from ``<model_file>/params.npz`` or from the JAX
@@ -19,8 +19,8 @@ of ``steps_per_dispatch = K`` batches, one pinned copy each, up to
 sparse_step` on each of a super-batch's K views: on the GPU the
 FmScorer forward, FmGrad backward, K1 dedup and K2 apply kernels
 (FmScorer and FmGrad in their bf16-input mode with ``compute_dtype =
-bfloat16``, on one device; validation scores in f32, as the reference's
-``make_eval_step``).  Field-aware FM (``field_num > 0``, one device)
+bfloat16``; validation scores in f32, as the reference's
+``make_eval_step``).  Field-aware FM (``field_num > 0``)
 ships each batch's fields too and replaces FmScorer and FmGrad with the
 FFM op's einsums and closed-form backward; K1 and K2 run as for FM, at
 the FFM row width.  :meth:`Trainer.dispatch` trains one super-batch:
@@ -41,8 +41,7 @@ sparse step; ``sparse_update = false``, ``optimizer = adam`` or
 (the whole table's gradient and optimizer update every step, optax's
 equations in ``train/optimizers.py``), after a log line when
 ``sparse_update = true`` asked otherwise.  It is dispatched, graphed,
-saved (with its optimizer state) and restored like the sparse step, on
-one device.
+saved (with its optimizer state) and restored like the sparse step.
 
 Every save writes ``data_state.json`` beside ``params.npz``: the epoch
 and the batches of it that trained (always a super-batch boundary), and
@@ -57,9 +56,13 @@ On a rank mesh (``mesh_data x mesh_model > 1``, after
 and keeps its model shard, parses its data block's strided share of
 the input at the local batch size ``batch_size / mesh_data``, steps
 through ``train.shardmap_step.sparse_step_shardmap`` (both ``lookup``
-values: PyTorch has no GSPMD) and evaluates through the same sharded
-forward; metrics are summed over the ``data`` axis, so every rank
-reports the global ones, and rank 0 writes the one ``params.npz``.
+values: PyTorch has no GSPMD) or, on the dense path,
+``train.dense.dense_step_sharded`` (the reference's GSPMD step, which
+reads no ``lookup``: the optimizer state row-sharded beside the table),
+FM or field-aware FM, f32 or bf16 compute, and evaluates through the
+same sharded forward in f32; metrics are summed over the ``data`` axis,
+so every rank reports the global ones, and rank 0 writes the one
+``params.npz`` (the optimizer state gathered with the table).
 
 :meth:`Trainer.train_step` (one host batch, copied with
 ``train.sparse.to_device``) and :meth:`Trainer.evaluate` keep the plain
@@ -82,9 +85,8 @@ remapped ids on the device and run eagerly; evaluation scores the
 merged logical table, and a save writes the logical table
 (``params.npz`` when it fits the dense format, else ``tiered.npz``).
 
-Settings that would change the result and need a later slice raise
-NotImplementedError naming the ROADMAP.md port-queue item; settings that
-never change a parameter are accepted and logged as inert.
+Settings that never change a parameter (the reference's observability
+planes and interaction choices) are accepted and logged as inert.
 """
 
 from __future__ import annotations
@@ -112,12 +114,12 @@ from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.train import checkpoint, metrics as metrics_lib
 from fast_tffm_tpu_torch.train import tiered as tiered_lib
 from fast_tffm_tpu_torch.train import tiered_fleet
-from fast_tffm_tpu_torch.train.dense import dense_step
+from fast_tffm_tpu_torch.train.dense import dense_step, dense_step_sharded
 from fast_tffm_tpu_torch.train.dispatch import GraphedSteps
 from fast_tffm_tpu_torch.train.optimizers import init_dense_opt_state
 from fast_tffm_tpu_torch.train.shardmap_step import (
     entries_prefetch, exchange_mode, local_scores, overlap_active,
-    sparse_step_shardmap, supports_shardmap,
+    sparse_step_shardmap, supports_tiles,
 )
 from fast_tffm_tpu_torch.train.sparse import (
     SparseFtrlState, init_sparse_opt_state, sparse_step, supports_sparse,
@@ -164,35 +166,8 @@ def _sparse(cfg: FmConfig) -> bool:
     return bool(cfg.sparse_update) and supports_sparse(cfg)
 
 
-def _check_supported(cfg: FmConfig) -> None:
-    unported = []
-    if not _sparse(cfg) and _multi_rank(cfg):
-        # The reference's dense step on a mesh is GSPMD's partitioning.
-        unported.append((
-            f"the dense optax path on a rank mesh (sparse_update="
-            f"{cfg.sparse_update}, optimizer={cfg.optimizer}, l2_mode="
-            f"{cfg.l2_mode}; the reference's GSPMD step)", 3,
-        ))
-    if cfg.field_num > 0 and _multi_rank(cfg):
-        # The reference's sharded step has its own FFM closed form
-        # (train/shardmap_step.py::_ffm_fwd_bwd).
-        unported.append((
-            "field_num > 0 on a rank mesh (the sharded step's field-aware "
-            "FM)", 3,
-        ))
-    if cfg.compute_dtype != "float32" and _multi_rank(cfg):
-        # The reference's sharded step rounds its xv products to bf16 in
-        # its own closed form, with no Pallas kernel: another path.
-        unported.append((
-            f"compute_dtype={cfg.compute_dtype} on a rank mesh (the "
-            f"sharded step's bf16 closed form)", 3,
-        ))
-    if unported:
-        what = "; ".join(
-            f"{name} is ROADMAP.md port queue item {item}"
-            for name, item in unported
-        )
-        raise NotImplementedError(f"not in the PyTorch port yet: {what}")
+def _log_inert(cfg: FmConfig) -> None:
+    """Log the settings the port accepts but does not act on."""
     # Health, quality and blackbox are on by default in the reference;
     # the rest count when set.
     inert = [desc for key, desc in _INERT_PLANES if getattr(cfg, key)]
@@ -306,7 +281,7 @@ def _check_mesh(cfg: FmConfig, dcfg: FmConfig, mesh: Mesh,
     ``Trainer.__init__``: ``lookup = shardmap`` on a mesh and the dense
     step block it, ``on`` then raises)."""
     if mesh.size > 1:
-        if not supports_shardmap(dcfg, mesh):
+        if not supports_tiles(dcfg, mesh):
             if dcfg is not cfg:
                 # The reference's GSPMD step takes any hot_rows the
                 # shard count divides (ROADMAP.md Queue 3, by design).
@@ -318,25 +293,41 @@ def _check_mesh(cfg: FmConfig, dcfg: FmConfig, mesh: Mesh,
                     f"tiles (hot_rows divisible by mesh_model*"
                     f"{sparse_apply.TILE})"
                 )
+            # The port's steps on a mesh work in whole tiles of a model
+            # shard (ROADMAP.md Queue 3, by design).
             raise ValueError(
-                "lookup=shardmap needs optimizer in adagrad/ftrl/sgd, "
-                "batch-mode L2, and a vocabulary divisible by "
-                f"model_shards*{sparse_apply.TILE}"
+                f"a rank mesh splits the table into model shards of whole "
+                f"{sparse_apply.TILE}-row tiles: vocabulary_size "
+                f"({cfg.vocabulary_size}) must be divisible by mesh_model "
+                f"({mesh.model}) * {sparse_apply.TILE}"
             )
         if cfg.batch_size % mesh.data:
             raise ValueError(
                 f"batch_size {cfg.batch_size} not divisible by {mesh.data} "
                 f"data blocks"
             )
-        b_local = cfg.batch_size // mesh.data
-        exchange = exchange_mode(dcfg, mesh, b_local * cfg.max_features)
-        log.info(
-            "rank %d of a %dx%d (data x model) mesh, backend %s: lookup=%s "
-            "runs the hand-sharded step (PyTorch has no GSPMD), "
-            "sparse_exchange=%s resolved to %s", mesh.rank, mesh.data,
-            mesh.model, mesh.backend, cfg.lookup, cfg.sparse_exchange,
-            exchange,
-        )
+        if sparse:
+            b_local = cfg.batch_size // mesh.data
+            exchange = exchange_mode(dcfg, mesh, b_local * cfg.max_features)
+            log.info(
+                "rank %d of a %dx%d (data x model) mesh, backend %s: "
+                "lookup=%s runs the hand-sharded step (PyTorch has no "
+                "GSPMD), sparse_exchange=%s resolved to %s", mesh.rank,
+                mesh.data, mesh.model, mesh.backend, cfg.lookup,
+                cfg.sparse_exchange, exchange,
+            )
+        else:
+            # The reference's dense step never reads lookup: GSPMD
+            # partitions it whatever lookup says.
+            log.info(
+                "rank %d of a %dx%d (data x model) mesh, backend %s: the "
+                "dense optax path (optimizer=%s, l2_mode=%s) runs row-"
+                "sharded over model with its optimizer state, the "
+                "gradient summed over data (the reference's GSPMD step, "
+                "which does not read lookup=%s)", mesh.rank, mesh.data,
+                mesh.model, mesh.backend, cfg.optimizer, cfg.l2_mode,
+                cfg.lookup,
+            )
     if cfg.sparse_exchange_overlap == "off":
         return False
     if not sparse or (cfg.lookup == "shardmap" and mesh.size > 1):
@@ -417,9 +408,9 @@ class MetricState(NamedTuple):
 
 class Trainer:
     """Drives sparse or dense training per an :class:`FmConfig`, on
-    ``device`` (the GPU unless asked otherwise): on one device, or (the
-    sparse step) as this rank of the config's mesh once
-    ``train.dist.initialize`` has run."""
+    ``device`` (the GPU unless asked otherwise): on one device, or as
+    this rank of the config's mesh once ``train.dist.initialize`` has
+    run."""
 
     def __init__(self, cfg: FmConfig,
                  device: Optional[Union[str, torch.device]] = None):
@@ -431,7 +422,7 @@ class Trainer:
         self.dcfg, self.fleet = (_tiered_device_config(cfg)
                                  if cfg.table_tiering == "on"
                                  else (cfg, None))
-        _check_supported(cfg)
+        _log_inert(cfg)
         self.cfg = cfg
         self.sparse = _sparse(cfg)
         if cfg.sparse_update and not self.sparse:
@@ -798,10 +789,13 @@ class Trainer:
         a mesh, and with the overlap its gathered id plane ``rows_all``);
         returns the batch's mean weighted data loss as a device
         scalar."""
-        if self.sharded:
+        if self.sharded and self.sparse:
             scores = sparse_step_shardmap(self.dcfg, self.model,
                                           self.opt_state, dev_batch,
                                           self.mesh, rows_all)
+        elif self.sharded:
+            scores = dense_step_sharded(self.cfg, self.model, self.opt_state,
+                                        dev_batch, self.mesh)
         else:
             step = sparse_step if self.sparse else dense_step
             scores = step(self.cfg, self.model, self.opt_state, dev_batch)

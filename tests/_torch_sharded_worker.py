@@ -8,7 +8,18 @@ torch and the port only), and :func:`run_ranks`, which starts them.
 ``DIR/case<i>.npz``: the full initial table and optimizer tables, the
 global batches), run ``sparse_step_shardmap`` on this rank's model shard
 and data block and write ``DIR/out<i>_<rank>.npz`` (its scores, shards
-and w0).  ``train``: run ``Trainer.train()`` for each config in
+and w0); a case of the dense optax path (``sparse_update`` false, or
+an optimizer or L2 the sparse step does not take) runs
+``dense_step_sharded`` from a fresh optimizer state on the shard
+instead, and also writes what each step applied (``dw0``, the shard's
+``dtable``) and the parameters it started from (``w0_before``,
+``table_before``).  ``step_cuda``: the same on ``cuda:0`` (ranks
+sharing the card over gloo).  ``trainer``: for every case in
+``DIR/trainer.json``, a ``Trainer`` of the case's config (warm-started
+from its ``model_file``) takes the case's global batches ``first`` to
+``first + steps`` of ``DIR/<batches>.npz`` through ``train_step`` (its
+data block of each), saves, and writes ``DIR/trainer<i>_<rank>.json``
+(the global metrics).  ``train``: run ``Trainer.train()`` for each config in
 ``DIR/train.json`` and write its result to ``DIR/train<i>_<rank>.json``
 (a config's ``_exact_bytes_max`` key, when present, sets
 ``train.tiered.EXACT_BYTES_MAX`` for its run: 0 makes the cold stores
@@ -36,7 +47,9 @@ from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.libsvm import Batch
 from fast_tffm_tpu_torch.models.fm import FmModel
 from fast_tffm_tpu_torch.parallel import mesh as mesh_lib
-from fast_tffm_tpu_torch.train import dist, shardmap_step, sparse, tiered
+from fast_tffm_tpu_torch.train import (
+    dense, dist, optimizers, shardmap_step, sparse, tiered,
+)
 from fast_tffm_tpu_torch.train.loop import Trainer
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -45,39 +58,84 @@ _OPT_KEYS = {"adagrad": ("acc_w0", "acc_table"),
              "ftrl": ("z_w0", "z_table", "n_w0", "n_table"), "sgd": ()}
 
 
-def _steps(workdir, rank):
+def _block(z, s, mesh, device):
+    """Global batch ``s`` of the npz ``z``: this rank's data block of
+    it, on ``device``."""
+    block, blocks = mesh_lib.data_partition(mesh)
+    glob = [z[f"b{s}_{f}"] for f in Batch._fields[:5]]
+    b_local = glob[0].shape[0] // blocks
+    part = slice(block * b_local, (block + 1) * b_local)
+    return sparse.to_device(Batch(*(a[part] for a in glob)), device)
+
+
+def _steps(workdir, rank, device="cpu"):
     with open(os.path.join(workdir, "cases.json")) as f:
         cases = json.load(f)
     for i, case in enumerate(cases):
         cfg = FmConfig(**case["cfg"])
         mesh = mesh_lib.make_mesh(cfg)
         z = np.load(os.path.join(workdir, f"case{i}.npz"))
-        model = FmModel(torch.tensor(float(z["w0"])), torch.from_numpy(
-            np.array(weights.shard_rows(z["table"], mesh, rank))))
-        keys = _OPT_KEYS[cfg.optimizer]
-        opt = tuple(
-            torch.from_numpy(np.array(
-                weights.shard_rows(z[k], mesh, rank) if k.endswith("table")
-                else z[k], np.float32))
-            for k in keys
-        )
-        opt = (sparse.SparseAdagradState(*opt) if cfg.optimizer == "adagrad"
-               else sparse.SparseFtrlState(*opt) if cfg.optimizer == "ftrl"
-               else ())
-        block, blocks = mesh_lib.data_partition(mesh)
-        scores = []
-        for s in range(case["steps"]):
-            glob = [z[f"b{s}_{f}"] for f in Batch._fields[:5]]
-            b_local = glob[0].shape[0] // blocks
-            part = slice(block * b_local, (block + 1) * b_local)
-            batch = sparse.to_device(Batch(*(a[part] for a in glob)), "cpu")
-            scores.append(shardmap_step.sparse_step_shardmap(
-                cfg, model, opt, batch, mesh).numpy())
+        model = FmModel(torch.tensor(float(z["w0"]), device=device),
+                        torch.from_numpy(np.array(weights.shard_rows(
+                            z["table"], mesh, rank))).to(device))
+        if sparse.supports_sparse(cfg) and cfg.sparse_update:
+            keys = _OPT_KEYS[cfg.optimizer]
+            opt = tuple(
+                torch.from_numpy(np.array(
+                    weights.shard_rows(z[k], mesh, rank)
+                    if k.endswith("table") else z[k], np.float32)).to(device)
+                for k in keys
+            )
+            opt = (sparse.SparseAdagradState(*opt)
+                   if cfg.optimizer == "adagrad"
+                   else sparse.SparseFtrlState(*opt)
+                   if cfg.optimizer == "ftrl" else ())
+            step = shardmap_step.sparse_step_shardmap
+        else:
+            opt = optimizers.init_dense_opt_state(cfg, model)
+            keys = getattr(opt, "_fields", ())
+            step = dense.dense_step_sharded
+        applied = []
+        apply_dense = dense.apply_dense
+
+        def spy(cfg, model, opt_state, dw0, dtable):
+            applied.append((model.w0.detach().clone(),
+                            model.table.detach().clone(), dw0.clone(),
+                            dtable.clone()))
+            apply_dense(cfg, model, opt_state, dw0, dtable)
+
+        dense.apply_dense = spy
+        try:
+            scores = [step(cfg, model, opt, _block(z, s, mesh, device),
+                           mesh).cpu().numpy() for s in range(case["steps"])]
+        finally:
+            dense.apply_dense = apply_dense
         out = {"scores": np.stack(scores), "table": model.table.detach(),
                "w0": model.w0.detach()}
+        if applied:
+            out.update(zip(("w0_before", "table_before", "dw0", "dtable"),
+                           (torch.stack(t) for t in zip(*applied))))
         out.update(zip(keys, opt))
         np.savez(os.path.join(workdir, f"out{i}_{rank}.npz"),
-                 **{k: np.asarray(v) for k, v in out.items()})
+                 **{k: np.asarray(v.cpu()) if torch.is_tensor(v)
+                    else np.asarray(v) for k, v in out.items()})
+
+
+def _trainer_steps(workdir, rank):
+    with open(os.path.join(workdir, "trainer.json")) as f:
+        cases = json.load(f)
+    for i, case in enumerate(cases):
+        trainer = Trainer(FmConfig(**case["cfg"]), device="cpu")
+        z = np.load(os.path.join(workdir, case["batches"] + ".npz"))
+        first, steps = case["first"], case["steps"]
+        for s in range(first, first + steps):
+            trainer.train_step(
+                Batch(*(a.numpy() for a in _block(z, s, trainer.mesh,
+                                                  "cpu")[:5])))
+        trainer.save(steps)
+        with open(os.path.join(workdir, f"trainer{i}_{rank}.json"),
+                  "w") as f:
+            json.dump(trainer.global_metrics(trainer.metrics), f)
 
 
 def _train(workdir, rank, device="cpu"):
@@ -179,8 +237,10 @@ def main():
         sys.exit(cli.main(argv + ["--coordinator", url, "--num_processes",
                                   world, "--process_id", rank]))
     run = {"step": _steps, "train": _train, "collectives": _collectives,
-           "train_cuda": lambda w, r: _train(w, r, dev)}
-    on_card = mode in ("collectives", "train_cuda")
+           "train_cuda": lambda w, r: _train(w, r, dev),
+           "step_cuda": lambda w, r: _steps(w, r, dev),
+           "trainer": _trainer_steps}
+    on_card = mode in ("collectives", "train_cuda", "step_cuda")
     dev = dist.initialize(url, int(world), int(rank),
                           device="cuda:0" if on_card else "cpu")
     try:

@@ -1758,3 +1758,81 @@ def test_fleet_overlap_on_and_off_are_equal_on_the_gpu(gpu, tmp_path):
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _mesh_mode_cases(tmp_path, shape):
+    """Path 12's settings at a small size for two ranks: FFM (both
+    exchanges), bf16 FM (both exchanges) and the dense optax path (Adam
+    and Adagrad with the full L2), their inputs written for the worker's
+    ``step`` modes."""
+    rng = np.random.default_rng(12)
+    v, f, b = 1024, 8, 64
+    cases = []
+    for ex in ("dense", "entries"):
+        cases.append(dict(field_num=2, factor_num=4, sparse_exchange=ex))
+        cases.append(dict(factor_num=8, compute_dtype="bfloat16",
+                          sparse_exchange=ex))
+    cases += [dict(factor_num=8, optimizer=o, sparse_update=False,
+                   l2_mode="full", learning_rate=1e-3 if o == "adam"
+                   else 0.05) for o in ("adam", "adagrad")]
+    out = []
+    for i, kw in enumerate(cases):
+        cfg = dict(dict(vocabulary_size=v, max_features=f, batch_size=b,
+                        optimizer="adagrad", learning_rate=0.05,
+                        factor_lambda=1e-3, bias_lambda=1e-3, lookup=
+                        "shardmap", mesh_data=shape[0],
+                        mesh_model=shape[1]), **kw)
+        d = 1 + kw["factor_num"] * kw.get("field_num", 1)
+        arrays = {"w0": np.float32(0.1),
+                  "table": rng.uniform(-0.1, 0.1, (v, d)).astype(np.float32),
+                  "acc_w0": np.float32(0.1),
+                  "acc_table": np.full((v, d), 0.1, np.float32)}
+        for s in range(2):
+            ids = rng.integers(0, v, (b, f)).astype(np.int32)
+            ids[:8, 0] = 5
+            arrays.update({
+                f"b{s}_labels": rng.integers(0, 2, b).astype(np.float32),
+                f"b{s}_ids": ids,
+                f"b{s}_vals": rng.uniform(0.1, 1.0, (b, f)).astype(
+                    np.float32),
+                f"b{s}_fields": rng.integers(0, max(kw.get("field_num", 0),
+                                                    1), (b, f)).astype(
+                    np.int32),
+                f"b{s}_weights": np.ones(b, np.float32)})
+        for sub in ("cpu", "cuda"):
+            os.makedirs(tmp_path / sub, exist_ok=True)
+            np.savez(tmp_path / sub / f"case{i}.npz", **arrays)
+        out.append({"cfg": cfg, "steps": 2})
+    for sub in ("cpu", "cuda"):
+        (tmp_path / sub / "cases.json").write_text(json.dumps(out))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+def test_mesh_modes_on_two_ranks_match_the_plain_versions(gpu, tmp_path,
+                                                          shape):
+    """Two ranks share the card over gloo and run the sharded FFM step,
+    the bf16 FM sharded step and the dense mesh step (FmGrad, K1, K1's
+    merge mode, K2, K-place) two steps each; the same ranks on the CPU
+    run the kernels' plain versions: scores within the kernels'
+    tolerance, tables and optimizer state within the tile-vs-scatter
+    bounds, model-row peers bitwise alike."""
+    from _torch_sharded_worker import run_ranks
+
+    cases = _mesh_mode_cases(tmp_path, shape)
+    run_ranks("step", 2, tmp_path / "cpu")
+    run_ranks("step_cuda", 2, tmp_path / "cuda")
+    for i, case in enumerate(cases):
+        for r in range(2):
+            got = np.load(tmp_path / "cuda" / f"out{i}_{r}.npz")
+            want = np.load(tmp_path / "cpu" / f"out{i}_{r}.npz")
+            assert set(got.files) == set(want.files)
+            for k in got.files:
+                tol = (TOL if k == "scores" else TABLE_TOL if k == "table"
+                       else OPT_TOL)
+                if got[k].dtype.kind in "iu":
+                    assert got[k] == want[k], (case, k)
+                else:
+                    np.testing.assert_allclose(got[k], want[k], **tol,
+                                               err_msg=f"{case} {k}")

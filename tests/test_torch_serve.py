@@ -244,7 +244,9 @@ def test_serve_refuses_checkpoint_without_params_npz(tmp_path):
 def test_cli_refuses_later_slices(tmp_path, mode):
     # Field-aware FM trains and predicts on one device through the CLI,
     # predict from the reference's Orbax directories too; the later
-    # slices refuse a rank mesh (train, item 3) and a multi-rank predict.
+    # slice refuses a multi-rank predict.  A rank mesh trains FFM
+    # (tests/test_torch_mesh_modes.py): one process cannot form its
+    # 2 x 1 mesh.
     model_file = str(tmp_path / "model")
     rng = np.random.default_rng(3)
     table = rng.uniform(-0.1, 0.1, (V, 1 + 2 * K)).astype(np.float32)
@@ -280,7 +282,9 @@ def test_cli_refuses_later_slices(tmp_path, mode):
         with np.load(checkpoint.params_path(model_file)) as z:
             assert int(z["scalar/step"]) == 3
         path.write_text(general + rest + "[Tpu]\nmesh_data = 2\n")
-        flags, match = [], "ROADMAP.md"
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            cli.main([mode, str(path), "--device", "cpu"])
+        return
     with pytest.raises(NotImplementedError, match=match):
         cli.main([mode, str(path), "--device", "cpu"] + flags)
 

@@ -219,11 +219,14 @@ def test_checkpoint_keeps_optimizer_state(tmp_path):
 
 
 @pytest.mark.parametrize("kw, err, match", [
-    (dict(sparse_update=False, mesh_data=2), NotImplementedError, "item 3"),
-    (dict(optimizer="adam", mesh_data=2), NotImplementedError, "item 3"),
-    (dict(field_num=2, mesh_data=2), NotImplementedError, "item 3"),
-    (dict(mesh_data=2, compute_dtype="bfloat16"), NotImplementedError,
-     "item 3"),
+    # Ported: the dense optax path, FFM and bf16 run on a rank mesh
+    # (tests/test_torch_mesh_modes.py); on this one rank the 2 x 1 mesh
+    # cannot form.
+    (dict(sparse_update=False, mesh_data=2), ValueError, "needs 2 ranks"),
+    (dict(optimizer="adam", mesh_data=2), ValueError, "needs 2 ranks"),
+    (dict(field_num=2, mesh_data=2), ValueError, "needs 2 ranks"),
+    (dict(mesh_data=2, compute_dtype="bfloat16"), ValueError,
+     "needs 2 ranks"),
     # Ported: the shard partition on one device runs, one shard owned.
     (dict(table_tiering="on", tiered_partition="shards"), None, None),
     # Ported: the overlap runs on two ranks (tests/test_torch_tiered_
@@ -251,13 +254,56 @@ def test_trainer_logs_the_interaction_knobs_as_inert(caplog):
 
 
 def test_sharded_step_refuses_ffm_naming_item_3():
-    """A direct caller of the sharded step gets the queue item the
-    trainer names for field-aware FM on a mesh."""
-    from fast_tffm_tpu_torch.train.shardmap_step import sparse_step_shardmap
+    """Field-aware FM on the sharded step (it refused FFM before the
+    port had the sharded closed form; the name is kept): on a 1 x 1 mesh
+    (no process group, every sum over an axis the identity) the sharded
+    step is the one-device sparse step, on a batch with a field outside
+    ``[0, P)`` (a zero row, as the reference's one-hot): the scores and
+    the sharded evaluation bit for bit, the table, w0 and accumulator
+    within the sharded step's bounds (the batch L2 is summed in another
+    order)."""
+    from fast_tffm_tpu_torch.parallel.mesh import Mesh
+    from fast_tffm_tpu_torch.train import shardmap_step
 
-    with pytest.raises(NotImplementedError, match="item 3"):
-        sparse_step_shardmap(FmConfig(vocabulary_size=V, field_num=2), None,
-                             None, None, None)
+    cfg = FmConfig(vocabulary_size=V, factor_num=4, field_num=3,
+                   max_features=8, batch_size=64, learning_rate=0.05,
+                   factor_lambda=0.01, bias_lambda=0.002)
+    init = fm.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, V, (64, 8)).astype(np.int32)
+    ids[:8, 0] = 5
+    vals = rng.uniform(0.1, 1.0, (64, 8)).astype(np.float32)
+    vals[:, -1] = 0.0
+    fields = rng.integers(0, 3, (64, 8)).astype(np.int32)
+    fields[0, :2] = (3, -1)
+    weights_ = np.ones(64, np.float32)
+    weights_[-5:] = 0.0
+    dev = sparse.to_device(libsvm.Batch(
+        rng.integers(0, 2, 64).astype(np.float32), ids, vals, fields,
+        weights_), "cpu")
+    out = []
+    for sharded in (False, True):
+        model = fm.FmModel(init.w0.detach().clone(),
+                           init.table.detach().clone())
+        opt = sparse.init_sparse_opt_state(cfg, model)
+        with torch.no_grad():
+            if sharded:
+                evald = shardmap_step.local_scores(cfg, model, dev,
+                                                   Mesh(1, 1))
+                scores = shardmap_step.sparse_step_shardmap(
+                    cfg, model, opt, dev, Mesh(1, 1))
+            else:
+                evald = fm.fm_scores(model, dev.ids, dev.vals, dev.fields,
+                                     factor_num=4, field_num=3)
+                scores = sparse.sparse_step(cfg, model, opt, dev)
+        out.append((evald, scores, model.table.detach(), model.w0.detach(),
+                    opt.acc_table))
+    (e1, s1, t1, w1, a1), (e2, s2, t2, w2, a2) = out
+    assert torch.equal(e1, e2) and torch.equal(s1, s2)
+    np.testing.assert_allclose(t2.numpy(), t1.numpy(), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(float(w2), float(w1), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(a2.numpy(), a1.numpy(), rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("optimizer", ["adagrad", "ftrl"])
