@@ -103,6 +103,23 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    larger than the largest; the two transports agree bitwise, scores
    match the plain path on the card, out-of-range ids reduce like the
    text path, the kernel ran.  Request latency and dispatch per rung.
+8a. Serve-fleet phase (path 13, ``serve_replicas = 2``): two replica
+   processes on the card behind the router, over a copy of the
+   checkpoint.  Through the CLI (``serve --replicas 2``): every rung
+   and one request past the largest over both transports, bitwise the
+   serve phase's answers, each replica's ``/status`` kernel launches
+   grown; the ``/score_bin`` p50 per rung direct to a replica and
+   through the router; requests a second of 8 client processes against
+   one replica and through the router (twice each, in turns); each
+   replica's device memory (``nvidia-smi --query-compute-apps``); a
+   burst over a second router at a 1 ms shedding budget (429 +
+   ``Retry-After``, every 200 right); a replica SIGKILLed under load
+   (every request answered right, seconds to readmission, the respawned
+   replica bitwise); SIGTERM leaves no replica.  Through
+   ``start_fleet`` with the canary and capture at sample 1: each
+   replica's capture replays with exit 0, a re-save of the same table
+   is promoted to both replicas, one scaled x3 is rolled back with its
+   compare artifacts kept; no replica outlives the fleet.
 8b. Quant phase (path 6): the same checkpoint served again through
    ``serve()``: in fp32, as the bf16 and the int8 (chunk 64)
    ``quant.npz`` that ``fast_tffm_tpu_torch/tools/convert_checkpoint.py``
@@ -309,6 +326,7 @@ import logging
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -416,6 +434,13 @@ DENSE_TIMED_STEPS = 40
 # the first calls' kernels; fast_tffm_tpu_torch/tools/profiler_window.py
 # counts the windows that lose kernels with and without the pause.
 PROFILE_MARGIN_S = 0.1
+# Path 13, the serving fleet: the load clients (one process each) and
+# their seconds, the timed requests per rung, and the shedding burst's
+# admission budget.
+FLEET_CLIENTS = 8
+FLEET_LOAD_S = 3.0
+FLEET_TIMED = 30
+FLEET_SHED_MS = 1.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2253,6 +2278,467 @@ def orbax_hot_swap(np, torch, card: str, tcfg, model_dir: str,
         "device_mb_before_window": before / 2**20,
         "swaps": swaps, "warm_start_steps": res["steps"],
     })
+    return rec, launches
+
+
+# -- serving fleet phase (path 13) --------------------------------------
+
+
+def fleet_client_main(argv) -> int:
+    """One load client: ``chip_smoke.py --fleet-client PORT FRAME WANT
+    START SECONDS``.  POSTs the ``/score_bin`` frame in file FRAME over
+    one kept-alive connection from unix time START for SECONDS and
+    prints a JSON line: requests made, their status codes, the
+    ``Retry-After`` values of the 429s, and how many 200s differed from
+    the bytes in file WANT.  Imports nothing past the standard library,
+    so the processes start in milliseconds."""
+    port, frame_path, want_path, start, seconds = argv
+    with open(frame_path, "rb") as f:
+        frame = f.read()
+    with open(want_path, "rb") as f:
+        want = f.read()
+    time.sleep(max(0.0, float(start) - time.time()))
+    end = float(start) + float(seconds)
+    conn = http.client.HTTPConnection("127.0.0.1", int(port), timeout=120)
+    codes, retry, wrong, n, errors = {}, set(), 0, 0, 0
+    while time.time() < end:
+        try:
+            conn.request("POST", "/score_bin", body=frame, headers={
+                "Content-Type": "application/octet-stream"})
+            resp = conn.getresponse()
+            data = resp.read()
+        except (OSError, http.client.HTTPException):
+            errors += 1
+            conn.close()
+            conn = http.client.HTTPConnection("127.0.0.1", int(port),
+                                              timeout=120)
+            continue
+        n += 1
+        key = str(resp.status)
+        codes[key] = codes.get(key, 0) + 1
+        if resp.status == 200:
+            wrong += data != want
+        elif resp.status == 429:
+            retry.add(resp.getheader("Retry-After") or "")
+        if resp.will_close:
+            conn.close()
+            conn = http.client.HTTPConnection("127.0.0.1", int(port),
+                                              timeout=120)
+    conn.close()
+    print(json.dumps({"n": n, "codes": codes, "retry_after": sorted(retry),
+                      "wrong": wrong, "errors": errors}), flush=True)
+    return 0
+
+
+def load_run(port: int, frame_path: str, want_path: str,
+             clients: int = None, seconds: float = None,
+             during=None) -> dict:
+    """``clients`` load-client processes against ``port`` for
+    ``seconds``, started together; ``during()`` runs in this process
+    while they load.  Returns their merged counts and requests a
+    second."""
+    clients = clients or FLEET_CLIENTS
+    seconds = seconds or FLEET_LOAD_S
+    start = time.time() + 1.5
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fleet-client",
+         str(port), frame_path, want_path, f"{start:.6f}", str(seconds)],
+        stdout=subprocess.PIPE) for _ in range(clients)]
+    extra = None
+    try:
+        if during is not None:
+            time.sleep(max(0.0, start - time.time()))
+            extra = during()
+        outs = []
+        for p in procs:
+            out, _ = p.communicate(timeout=seconds + 300)
+            check(p.returncode == 0, f"a load client exited {p.returncode}")
+            outs.append(json.loads(out.decode().strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = {}
+    for o in outs:
+        for k, v in o["codes"].items():
+            codes[k] = codes.get(k, 0) + v
+    n = sum(o["n"] for o in outs)
+    return {"clients": clients, "seconds": seconds, "requests": n,
+            "rps": n / seconds, "codes": codes,
+            "retry_after": sorted({r for o in outs
+                                   for r in o["retry_after"]}),
+            "wrong": sum(o["wrong"] for o in outs),
+            "errors": sum(o["errors"] for o in outs), "during": extra}
+
+
+def write_fleet_cfg(tmp: str, name: str, model_file: str, **predict) -> str:
+    """``examples/criteo_kaggle.cfg`` with ``model_file`` and the given
+    ``[Predict]`` settings, written to ``tmp/name``."""
+    import configparser
+
+    parser = configparser.ConfigParser()
+    parser.read(CFG_PATH)
+    parser["General"]["model_file"] = model_file
+    for key, val in predict.items():
+        parser["Predict"][key] = str(val)
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        parser.write(f)
+    return path
+
+
+def pid_alive(pid: int) -> bool:
+    """Whether ``pid`` is a live (not zombie) process."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(") ", 1)[1][0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def read_line(proc, timeout: float) -> str:
+    """The first line ``proc`` prints, or "" at EOF or after
+    ``timeout`` seconds."""
+    import threading
+
+    box = []
+    t = threading.Thread(target=lambda: box.append(proc.stdout.readline()),
+                         daemon=True)
+    t.start()
+    t.join(timeout)
+    return box[0].decode() if box else ""
+
+
+def replica_status(port: int) -> dict:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        return get_json(conn, "/status")
+    finally:
+        conn.close()
+
+
+def app_memory_mib() -> dict:
+    """pid -> used device MiB of the card's compute processes, as
+    ``nvidia-smi --query-compute-apps`` lists them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout
+    mem = {}
+    for line in out.strip().splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit() and parts[1].isdigit():
+            mem[int(parts[0])] = int(parts[1])
+    return mem
+
+
+def serve_fleet_phase(np, torch, card: str, tmp: str, model_dir: str,
+                      served, bodies) -> tuple:
+    """Path 13, the serving fleet: two replica processes of the port's
+    serving stack on the card behind the router, over a copy of path 1's
+    checkpoint.  Fleet T runs through the CLI (``serve --replicas 2``,
+    the router in its own process): every rung and one request past the
+    largest over both transports, bitwise path 2's answers (``served``,
+    ``bodies``), each replica's kernel launches grown; the ``/score_bin``
+    p50 direct to a replica and through the router per rung; requests a
+    second of FLEET_CLIENTS client processes against one replica and
+    through the router; each replica's device memory; a burst over a
+    second router at FLEET_SHED_MS (429 + Retry-After, every 200 right);
+    a replica SIGKILLed under load (every request answered right, the
+    seconds to readmission, the respawned replica bitwise); SIGTERM
+    leaves no replica.  Fleet C (``start_fleet``, canary and capture at
+    sample 1): the captures replay bitwise through the port's replay
+    tool, a re-save of the same table is promoted to both replicas, a
+    table scaled x3 is rolled back with its compare artifacts kept.
+    Returns the record and the kernel launches of the main path."""
+    from fast_tffm_tpu_torch import weights
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.obs.telemetry import Telemetry
+    from fast_tffm_tpu_torch.serve import wire
+    from fast_tffm_tpu_torch.serve.router import (
+        Replica, ServeRouter, start_fleet,
+    )
+    from fast_tffm_tpu_torch.train import checkpoint
+
+    rec = {"card": card}
+    fmodel = os.path.join(tmp, "fleet_model")
+    shutil.copytree(model_dir, fmodel)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    frames = [wire.encode_bin_request(ids, vals) for ids, vals, _ in served]
+    wants = [wire.encode_bin_response(want) for _, _, want in served]
+    texts = ["".join(f"{s:.6f}\n" for s in want) for _, _, want in served]
+
+    def used_mib() -> float:
+        """The card's used memory, every process's (cudaMemGetInfo)."""
+        free, total = torch.cuda.mem_get_info()
+        return (total - free) / (1 << 20)
+
+    def drive(port: int, rounds: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        for _ in range(rounds):
+            for body, frame, want, text in zip(bodies, frames, wants, texts):
+                check(post(conn, "/score", body).decode() == text,
+                      f"/score through port {port} differs from path 2")
+                check(post(conn, "/score_bin", frame) == want,
+                      f"/score_bin through port {port} is not bitwise "
+                      "path 2's")
+        conn.close()
+
+    # -- fleet T: the CLI -----------------------------------------------
+    # Shedding off (0): the throughput runs and the kill under load count
+    # answered requests only; the burst below sheds through its own router.
+    # A kept-alive connection holds a handler thread, so each replica's
+    # pool covers the router's FLEET_CLIENTS connections (or the clients
+    # of the direct runs) plus the router's health probe and scrape: at
+    # 8 threads the probes starve under load and evict a live replica.
+    cfg_t = write_fleet_cfg(tmp, "fleet_t.cfg", fmodel, serve_replicas=2,
+                            serve_poll_secs=0, serve_port=0,
+                            serve_shed_deadline_ms=0,
+                            serve_http_threads=2 * FLEET_CLIENTS)
+    log_path = os.path.join(tmp, "fleet_t.log")
+    mem0 = used_mib()
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as log_f:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "fast_tffm_tpu_torch.cli", "serve",
+             cfg_t], stdout=subprocess.PIPE, stderr=log_f, env=env,
+            cwd=REPO)
+    pids = []
+    try:
+        line = read_line(cli, 600)
+        if not line.startswith("routing on"):
+            with open(log_path, "rb") as f:
+                tail = f.read()[-3000:].decode(errors="replace")
+            check(False, f"the fleet CLI printed {line!r} (exit "
+                         f"{cli.poll()}); its log ends:\n{tail}")
+        rec["start_s"] = time.perf_counter() - t0
+        port = int(line.split()[2].rsplit(":", 1)[1])
+        per = replica_status(port)["serve"]["per_replica"]
+        check(len(per) == 2 and all(p["healthy"] for p in per),
+              f"fleet T's replicas: {per}")
+        rep_ports = [p["port"] for p in per]
+        pids = [p["pid"] for p in per]
+        base = [replica_status(p)["serve"]["kernel_launches"]
+                for p in rep_ports]
+        drive(port, 3)  # the main path
+        grown = [replica_status(p)["serve"]["kernel_launches"] - b
+                 for p, b in zip(rep_ports, base)]
+        check(all(g > 0 for g in grown),
+              f"a replica launched no FmScorer on the main path: {grown}")
+        rec["launches"] = {"warmup": base, "main_path": grown}
+        launches = sum(grown)
+
+        # /score_bin p50, direct to replica 0 and through the router.
+        lat = {"direct": {}, "router": {}}
+        for where, p in (("direct", rep_ports[0]), ("router", port)):
+            conn = http.client.HTTPConnection("127.0.0.1", p, timeout=120)
+            for frame, (ids, _, _) in zip(frames[1:4], served[1:4]):
+                times = []
+                for _ in range(FLEET_TIMED):
+                    t1 = time.perf_counter()
+                    post(conn, "/score_bin", frame)
+                    times.append(time.perf_counter() - t1)
+                lat[where][f"n{len(ids)}"] = p50(times) * 1e3
+            conn.close()
+        rec["bin_p50_ms"] = lat
+
+        # Requests a second: the rung-64 request from concurrent clients.
+        frame_path = os.path.join(tmp, "fleet_frame.bin")
+        want_path = os.path.join(tmp, "fleet_want.bin")
+        with open(frame_path, "wb") as f:
+            f.write(frames[1])
+        with open(want_path, "wb") as f:
+            f.write(wants[1])
+        rps = {}
+        for name, p in (("one_replica_direct", rep_ports[0]),
+                        ("two_via_router", port),
+                        ("one_replica_direct_again", rep_ports[0]),
+                        ("two_via_router_again", port)):
+            run = load_run(p, frame_path, want_path)
+            check(run["codes"] == {"200": run["requests"]}
+                  and run["wrong"] == 0 and run["errors"] == 0,
+                  f"load {name}: {run}")
+            rps[name] = run["rps"]
+        rec["rps"] = dict(rps, clients=FLEET_CLIENTS,
+                          request_examples=len(served[1][0]),
+                          seconds=FLEET_LOAD_S)
+        # The card's used memory with the two replicas up, over what it
+        # was before the CLI started (the router holds no CUDA context),
+        # and nvidia-smi's per-process list (whose PIDs may be another PID
+        # namespace's, as in a container).
+        mem_up = used_mib()
+        per_replica = (mem_up - mem0) / 2
+        mem = app_memory_mib()
+        rec["device_mib"] = {
+            "before_fleet": mem0, "fleet_up": mem_up,
+            "per_replica": per_replica,
+            "compute_apps": {
+                "replicas": [mem.get(p) for p in pids],
+                "smoke_process": mem.get(os.getpid()), "listed": mem}}
+        # Each holds at least its 144 MiB table (2^22 x 9 x 4 B).
+        check(per_replica > 144, f"two replicas added {mem_up - mem0} MiB")
+
+        # Shedding: a second router over the same replicas, tiny budget.
+        scfg = load_config(cfg_t, {"serve_shed_deadline_ms": FLEET_SHED_MS})
+        shed_router = ServeRouter(
+            0, [Replica(i, "127.0.0.1", p) for i, p in enumerate(rep_ports)],
+            scfg, telemetry=Telemetry())
+        try:
+            burst = load_run(shed_router.port, frame_path, want_path,
+                             seconds=2.0)
+        finally:
+            shed_router.close()
+        check(set(burst["codes"]) <= {"200", "429"}
+              and burst["codes"].get("429", 0) > 0
+              and burst["codes"].get("200", 0) > 0
+              and burst["retry_after"] == ["1"] and burst["wrong"] == 0
+              and burst["errors"] == 0, f"shedding burst: {burst}")
+        rec["shed"] = {k: burst[k] for k in ("codes", "rps", "retry_after")}
+        rec["shed"].update(deadline_ms=FLEET_SHED_MS,
+                           answered_rps=burst["codes"]["200"] / 2.0)
+
+        # Respawn: SIGKILL replica 0 under load, time its readmission.
+        before = replica_status(port)["serve"]
+
+        def kill_and_wait():
+            time.sleep(1.0)
+            t_kill = time.perf_counter()
+            os.kill(pids[0], signal.SIGKILL)
+            conn = http.client.HTTPConnection("127.0.0.1", port,
+                                              timeout=60)
+            deadline = time.perf_counter() + 300
+            while time.perf_counter() < deadline:
+                r0 = get_json(conn, "/status")["serve"]["per_replica"][0]
+                if r0["healthy"] and r0["pid"] != pids[0]:
+                    conn.close()
+                    return {"readmit_s": time.perf_counter() - t_kill,
+                            "pid": r0["pid"], "port": r0["port"]}
+                time.sleep(0.05)
+            check(False, "the killed replica was never readmitted")
+
+        run = load_run(port, frame_path, want_path, seconds=4.0,
+                       during=kill_and_wait)
+        check(run["codes"] == {"200": run["requests"]} and run["wrong"] == 0
+              and run["errors"] == 0, f"load across the kill: {run}")
+        check(not pid_alive(pids[0]), "the killed replica is still there")
+        new = run["during"]
+        pids.append(new["pid"])
+        drive(new["port"], 1)  # the respawned replica, bitwise
+        st = replica_status(port)["serve"]
+        # The dead replica's context no longer holds the card: the card
+        # uses what it did with two replicas up, not a third's worth.
+        mem_respawned = used_mib()
+        rec["respawn"] = dict(
+            readmit_s=new["readmit_s"], requests_during=run["requests"],
+            used_mib=mem_respawned, **{
+                k: st[k] - before[k] for k in (
+                    "evictions", "respawns", "readmissions", "retries")})
+        check(all(rec["respawn"][k] == 1 for k in (
+                  "evictions", "respawns", "readmissions")),
+              f"respawn counters: {rec['respawn']}")
+        check(mem_respawned - mem_up < per_replica / 2,
+              f"the card holds {mem_respawned} MiB after the respawn, "
+              f"{mem_up} before the kill")
+        cli.send_signal(signal.SIGTERM)
+        check(cli.wait(120) == 0, "the fleet CLI did not exit 0 on SIGTERM")
+        check(not [p for p in pids if pid_alive(p)],
+              f"a replica of fleet T outlived its router: {pids}")
+        t1 = time.perf_counter()
+        while (used_mib() - mem0 > per_replica / 2
+               and time.perf_counter() - t1 < 30):
+            time.sleep(0.1)
+        rec["device_mib"]["after_teardown"] = used_mib()
+        check(rec["device_mib"]["after_teardown"] - mem0 < per_replica / 2,
+              f"the card still holds {rec['device_mib']} after teardown")
+    finally:
+        # After a failed check: SIGTERM lets the router stop its
+        # replicas; a router that must be killed leaves them behind, so
+        # they are killed by pid.
+        if cli.poll() is None:
+            cli.send_signal(signal.SIGTERM)
+            try:
+                cli.wait(60)
+            except subprocess.TimeoutExpired:
+                cli.kill()
+                cli.wait()
+        for pid in pids:
+            if pid_alive(pid):
+                os.kill(pid, signal.SIGKILL)
+        cli.stdout.close()
+
+    # -- fleet C: start_fleet, canary and capture --------------------------
+    cap = os.path.join(tmp, "fleet_capture.tfc")
+    cfg_c = write_fleet_cfg(tmp, "fleet_c.cfg", fmodel, serve_replicas=2,
+                            serve_canary="true", serve_poll_secs=0.25,
+                            serve_capture_sample=1, serve_capture_file=cap)
+    handle = start_fleet(load_config(cfg_c), cfg_c, port=0)
+    pids = [r.pid for r in handle.replicas]
+    try:
+        router = handle.router
+        counters = lambda: handle.telemetry.snapshot()["counters"]  # noqa: E731
+        drive(handle.port, 2)
+        # Replay first: the canary's shadow scores of a rejected table
+        # are captured too.
+        replays = {}
+        for i in range(2):
+            path = f"{cap}.replica{i}"
+            n_rec = sum(1 for _ in wire.read_capture(path))
+            check(n_rec > 0, f"{path} holds no records")
+            proc = subprocess.run(
+                [sys.executable, "-m", "fast_tffm_tpu_torch.tools.replay",
+                 path, "--endpoint", f"http://127.0.0.1:{handle.port}"],
+                capture_output=True, env=env, timeout=300)
+            check(proc.returncode == 0,
+                  f"replay of {path} exited {proc.returncode}: "
+                  f"{proc.stdout.decode()[-500:]}")
+            replays[f"replica{i}"] = n_rec
+        rec["capture_records"] = replays
+        step, w0, table = checkpoint.restore_arrays(fmodel)
+        t1 = time.perf_counter()
+        checkpoint.save_params(fmodel, weights.from_jax(w0, table,
+                                                        device="cpu"),
+                               step=step + 1)
+        deadline = time.perf_counter() + 300
+        while router.step != step + 1 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        check(router.step == step + 1, "the same-table canary was not promoted")
+        promote_s = time.perf_counter() - t1
+        for r in handle.replicas:
+            check(replica_status(r.port)["step"] == step + 1,
+                  f"replica {r.index} is not at the promoted step")
+        drive(handle.port, 1)
+        t1 = time.perf_counter()
+        checkpoint.save_params(fmodel, weights.from_jax(w0, table * 3.0,
+                                                        device="cpu"),
+                               step=step + 2)
+        while (counters().get("serve.canary_rollbacks", 0) < 1
+               and time.perf_counter() < deadline + 300):
+            time.sleep(0.05)
+        check(counters().get("serve.canary_rollbacks", 0) == 1,
+              "the scaled table was not rolled back")
+        rollback_s = time.perf_counter() - t1
+        out_dir = os.path.join(fmodel, "canary_compare", f"step_{step + 2}")
+        stats = {}
+        for name in ("baseline", "canary"):
+            with open(os.path.join(out_dir, f"{name}.json")) as f:
+                stats[name] = json.load(f)
+        check(router.step == step + 1
+              and counters().get("serve.canary_promotions", 0) == 1,
+              "the rollback moved the fleet's step")
+        for r in handle.replicas:
+            check(replica_status(r.port)["step"] == step + 1,
+                  f"replica {r.index} did not roll back")
+        drive(handle.port, 1)  # the vetted table, bitwise
+        rec["canary"] = {
+            "step": step, "promote_s": promote_s, "rollback_s": rollback_s,
+            "compare": {k: {s: v[s] for s in ("score_n", "score_mean",
+                                              "score_std", "score_p50")}
+                        for k, v in stats.items()}}
+    finally:
+        handle.close()
+    check(not [p for p in pids if pid_alive(p)],
+          f"a replica of fleet C outlived its router: {pids}")
     return rec, launches
 
 
@@ -5173,9 +5659,10 @@ def main() -> int:
         # Request sizes: one per rung (64, 256, 1024) and one larger
         # than the largest rung, which the scorer splits.
         sizes = (1, 37, 200, 1000, 1500)
-        served = []
+        served, bodies = [], []
         for n_req in sizes:
             body = criteo_body(rng, n_req)
+            bodies.append(body.encode())
             text = post(conn, "/score", body.encode()).decode()
             ids, vals_np, _, got_n, trunc = parse_request(body, scfg)
             check(got_n == n_req and trunc == 0, f"parse of {n_req} lines")
@@ -5258,10 +5745,26 @@ def main() -> int:
           "bitwise, scores match the plain path on the card, out-of-range "
           "ids reduce", flush=True)
     phase_end("serve")
-
-    # -- quant phase (path 6): the checkpoint's quantized tables -------
     del ref, scorer, handle
     torch.cuda.empty_cache()
+
+    # -- serve_fleet phase (path 13): replicas behind the router ---------
+    sfleet_rec, sfleet_launches = serve_fleet_phase(
+        np, torch, card, tmp, model_dir, served, bodies)
+    print(json.dumps({"serve_fleet": sfleet_rec}), flush=True)
+    print("serve_fleet (" + card + "): " + json.dumps({
+        k: sfleet_rec[k] for k in ("start_s", "bin_p50_ms", "rps",
+                                   "respawn")}), flush=True)
+    print("serve_fleet check: two replicas on the card behind the router "
+          "answer every rung over both transports bitwise path 2's; both "
+          "launched the kernel; a tiny budget sheds with 429 + Retry-After "
+          "and every 200 is right; a SIGKILLed replica cost no request, "
+          "was respawned, readmitted and scores bitwise; the captures "
+          "replay bitwise; the same table is promoted, a scaled one rolled "
+          "back; no replica outlives its router", flush=True)
+    phase_end("serve_fleet")
+
+    # -- quant phase (path 6): the checkpoint's quantized tables -------
     quant_rec, quant_launches = quant_phase(np, torch, card, rng, model_dir,
                                             tmp)
     print(json.dumps({"quant": quant_rec}), flush=True)
@@ -5440,10 +5943,12 @@ def main() -> int:
                 for name in kernels}
     for name in ("fm_grad", "k1_dedup", "k2_apply"):  # path 8
         launches[name] += tiered_launches[name]
-    # FmScorer f32: the serve path, the quantized tables (path 6) and
-    # the overlay (path 7).
+    # FmScorer f32: the serve path, the quantized tables (path 6), the
+    # overlay (path 7) and the fleet's replicas on their main path (path
+    # 13, read from each replica's /status).
     launches["fm_scores"] = (serve_launches + quant_launches
-                             + overlay_launches + tiered_launches["fm_scores"])
+                             + overlay_launches + tiered_launches["fm_scores"]
+                             + sfleet_launches)
     for name in ("fm_scores_bf16", "fm_grad_bf16"):
         launches[name] = bf16_launches[name]  # path 1 in bf16
     for name in ("k2t_apply", "k2p_apply"):
@@ -5530,6 +6035,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
         sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--fleet-client"]:
+        sys.exit(fleet_client_main(sys.argv[2:]))
     if sys.argv[1:] == ["--nccl"]:
         sys.exit(nccl_main())
     if sys.argv[1:]:

@@ -6,7 +6,10 @@ the PyTorch port's entry point, taking the same INI files as
 dense optax path for ``sparse_update = false``, Adam or ``l2_mode =
 full``) and prints its train and validation metrics; ``predict`` writes
 one score per line of ``predict_files`` to ``score_path``; ``serve``
-starts the scoring endpoint.  ``predict`` and ``serve`` read ``params.npz``, ``quant.npz``
+starts the scoring endpoint, and ``serve --replicas N`` (N >= 2) a
+fleet of N replica processes behind the power-of-two-choices router
+(``serve/router.py``; the router process imports no torch).
+``predict`` and ``serve`` read ``params.npz``, ``quant.npz``
 (``--serve_table_dtype bf16|int8``) or a ``tiered.npz`` overlay; the
 checkpoints convert with ``python -m
 fast_tffm_tpu_torch.tools.convert_checkpoint``.  Runs on the GPU unless
@@ -48,6 +51,83 @@ def build_argparser() -> argparse.ArgumentParser:
         "--serve_port", type=int, default=None,
         help="HTTP scoring endpoint port (0 = OS-assigned, printed at "
              "startup)",
+    )
+    p.add_argument(
+        "--serve_host", default=None, metavar="ADDR",
+        help="bind address for --serve_port (default 127.0.0.1; the "
+             "endpoint is unauthenticated, 0.0.0.0 is an explicit "
+             "opt-in)",
+    )
+    p.add_argument(
+        "--replicas", type=int, default=None, dest="serve_replicas",
+        help="serve mode: run N shared-nothing replica serve processes "
+             "behind a power-of-two-choices router on --serve_port "
+             "(0/1 = the single-process server)",
+    )
+    p.add_argument(
+        "--serve_shed_deadline_ms", type=float, default=None,
+        help="router admission budget: shed with a fast 429 when the "
+             "projected queue delay exceeds this many ms (0 = admit "
+             "everything)",
+    )
+    p.add_argument(
+        "--serve_canary", action="store_true", default=None,
+        help="canary checkpoint promotion: the router reloads ONE "
+             "replica on a new manifest, shadow-compares its score "
+             "distribution against a baseline replica (python -m "
+             "fast_tffm_tpu_torch.tools.report --compare), and only then "
+             "promotes the fleet (requires --replicas >= 2)",
+    )
+    p.add_argument(
+        "--no_serve_canary", action="store_true",
+        help="force canary promotion OFF regardless of the cfg file "
+             "(the fleet launcher passes this to every replica so an "
+             "INI-configured canary fleet doesn't trip each child's "
+             "serve_canary-requires-a-fleet validation)",
+    )
+    p.add_argument(
+        "--serve_capture_sample", type=float, default=None,
+        help="serve mode: append this fraction of scored requests "
+             "(request + response as canonical binary frames) to "
+             "--serve_capture_file for replay (python -m "
+             "fast_tffm_tpu_torch.tools.replay; 0 = off)",
+    )
+    p.add_argument(
+        "--serve_capture_file", default=None, metavar="PATH",
+        help="TFC1 capture output path for --serve_capture_sample "
+             "(rotates to PATH.1 at 64 MiB; a fleet gives each replica "
+             "PATH.replicaN)",
+    )
+    p.add_argument(
+        "--serve_slo_p99_ms", type=float, default=None,
+        help="serving SLO latency objective: a completed request "
+             "slower than this many ms counts against the error "
+             "budget (0 = latency not in the SLO)",
+    )
+    p.add_argument(
+        "--serve_slo_availability", type=float, default=None,
+        help="serving SLO availability objective (e.g. 0.999): "
+             "defines the error budget the rolling burn_rate divides "
+             "by (0 = no burn-rate accounting)",
+    )
+    # Observability planes the port does not act on yet (logged as inert
+    # when set); the fleet launcher passes them to its replicas.
+    p.add_argument(
+        "--serve_trace_sample", type=float, default=None,
+        help="fraction of requests traced (not wired in the port yet)",
+    )
+    p.add_argument(
+        "--alert_rules", default=None, metavar="RULES",
+        help="alert watchdog rules (not wired in the port yet)",
+    )
+    p.add_argument(
+        "--metrics_file", default=None, metavar="PATH",
+        help="JSONL metrics stream path (not wired in the port yet)",
+    )
+    p.add_argument(
+        "--trace", nargs="?", const="./tffm_trace.json", default=None,
+        metavar="PATH", dest="trace_file",
+        help="Chrome-trace span file (not wired in the port yet)",
     )
     p.add_argument(
         "--serve_batch_sizes", default=None, metavar="N,N,...",
@@ -159,12 +239,20 @@ def main(argv=None) -> int:
 
     overrides = {
         key: getattr(args, key)
-        for key in ("serve_port", "serve_batch_sizes", "max_batch_wait_ms",
-                    "serve_poll_secs", "serve_table_dtype", "quant_chunk",
+        for key in ("serve_port", "serve_host", "serve_batch_sizes",
+                    "max_batch_wait_ms", "serve_poll_secs",
+                    "serve_replicas", "serve_shed_deadline_ms",
+                    "serve_canary", "serve_capture_sample",
+                    "serve_capture_file", "serve_slo_p99_ms",
+                    "serve_slo_availability", "serve_trace_sample",
+                    "alert_rules", "metrics_file", "trace_file",
+                    "serve_table_dtype", "quant_chunk",
                     "table_tiering", "hot_rows", "tiered_partition",
                     "cold_dtype")
         if getattr(args, key) is not None
     }
+    if args.no_serve_canary:
+        overrides["serve_canary"] = False
     cfg = load_config(args.cfg, overrides or None)
     handlers = [logging.StreamHandler(sys.stderr)]
     if cfg.log_file:
@@ -217,6 +305,10 @@ def main(argv=None) -> int:
         n = predict(cfg, device=args.device)
         print(f"wrote {n} scores to {cfg.score_path}")
         return 0
+    if cfg.serve_replicas >= 2:
+        from fast_tffm_tpu_torch.serve.router import serve_fleet
+
+        return serve_fleet(cfg, args.cfg, overrides, device=args.device)
     from fast_tffm_tpu_torch.serve.server import serve_forever
 
     return serve_forever(cfg, device=args.device)

@@ -24,9 +24,9 @@ delivered), the ``batch_fill`` gauge (cumulative filled/dispatched
 slots), the ``inflight`` gauge and the ``queue_depth`` histogram.
 
 The PyTorch port's own copy of ``fast_tffm_tpu/serve/batcher.py``,
-with the queue helpers it imports from the reference's input pipeline;
-the per-request trace spans, the SLO ledger and the skew sketches are
-not in the port yet.
+with the queue helpers it imports from the reference's input pipeline,
+and the SLO ledger's per-request observations (``slo``); the
+per-request trace spans and the skew sketches are not in the port yet.
 """
 
 from __future__ import annotations
@@ -148,9 +148,12 @@ class ServeBatcher:
     """Coalesce requests into microbatches under a latency deadline."""
 
     def __init__(self, scorer, max_batch_wait_ms: float = 2.0,
-                 queue_size: int = 1024, telemetry=None):
+                 queue_size: int = 1024, telemetry=None, slo=None):
         self._scorer = scorer
         self._wait_s = max(0.0, float(max_batch_wait_ms)) / 1e3
+        # The SLO ledger (serve/slo.py), None = no accounting: every
+        # dispatched request's latency, every failed one as bad.
+        self._slo = slo
         tel = telemetry if telemetry is not None else NULL
         self._c_requests = tel.counter("serve.requests")
         self._c_examples = tel.counter("serve.examples")
@@ -328,6 +331,8 @@ class ServeBatcher:
                 g.scores = np.asarray(scores[pos:pos + g.n], np.float32)
                 pos += g.n
                 self._t_latency.observe(now - g.t0)
+                if self._slo is not None:
+                    self._slo.observe(True, now - g.t0)
                 with self._out_lock:
                     self._outstanding.discard(g)
                     self._g_inflight.set(len(self._outstanding))
@@ -340,6 +345,8 @@ class ServeBatcher:
             log.warning("serve dispatch failed: %s", e)
             for g in group:
                 g.error = e
+                if self._slo is not None:
+                    self._slo.observe(False)
                 with self._out_lock:
                     self._outstanding.discard(g)
                     self._g_inflight.set(len(self._outstanding))

@@ -31,11 +31,17 @@ retried at the next one.
 
 :func:`serve` builds the stack from an :class:`FmConfig` (scorer ->
 warmup -> batcher -> watcher -> HTTP) and returns a :class:`ServeHandle`;
-:func:`serve_forever` is the CLI entry.  Settings that would change the
-result or need a later slice of the port raise NotImplementedError
-naming the ROADMAP.md item; observability planes that never touch a
-score (metrics stream, heartbeat, trace, alerts, skew, blackbox) are
-not wired yet and are logged as inert when set.
+:func:`serve_forever` is the CLI entry.  The SLO ledger
+(``serve_slo_p99_ms`` / ``serve_slo_availability``, ``serve/slo.py``)
+adds its ``slo_*`` and ``burn_rate`` keys to the ``serve`` block, and
+traffic capture (``serve_capture_sample`` / ``serve_capture_file``)
+appends sampled request/response frame pairs to a TFC1 file
+(``serve/wire.py``) that ``python -m fast_tffm_tpu_torch.tools.replay``
+re-drives.  ``serve_replicas`` is the fleet's (``serve/router.py``):
+this module serves one process whatever it says, as the reference's
+does.  Observability planes that never touch a score (metrics stream,
+heartbeat, trace, alerts, skew, blackbox) are not wired yet and are
+logged as inert when set.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.config import FmConfig
+from fast_tffm_tpu_torch.obs.resource import basic_block
 from fast_tffm_tpu_torch.obs.status import (
     ObsHTTPServer, PooledHTTPServer, QuietHandler,
 )
@@ -60,6 +67,7 @@ from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.serve import scorer as scorer_lib
 from fast_tffm_tpu_torch.serve import wire
 from fast_tffm_tpu_torch.serve.batcher import ServeBatcher
+from fast_tffm_tpu_torch.serve.slo import SloTracker
 from fast_tffm_tpu_torch.serve.textparse import (
     ParseScratchPool, parse_request,
 )
@@ -74,30 +82,14 @@ __all__ = ["CheckpointWatcher", "ServeHandle", "ServeServer",
 # none of them changes a score (ROADMAP.md, port queue item 4).
 _INERT_KNOBS = (
     "metrics_file", "heartbeat_secs", "trace_file", "trace_rotate_events",
-    "alert_rules", "serve_trace_sample", "serve_slo_p99_ms",
-    "serve_slo_availability", "incident_dir", "compile_cache_dir",
-    "interaction_impl",
+    "alert_rules", "serve_trace_sample", "incident_dir",
+    "compile_cache_dir", "interaction_impl",
 )
 
 
-def _check_supported(cfg: FmConfig) -> None:
-    """Refuse settings that would change the result or need a later
-    slice of the port, naming the ROADMAP.md port-queue item."""
-    unported = []
-    if cfg.serve_replicas >= 2:
-        unported.append(("serve_replicas >= 2 (router and fleet)", 4))
-    if cfg.serve_canary:
-        unported.append(("serve_canary (canary promotion)", 4))
-    if cfg.serve_capture_file:
-        unported.append(("serve_capture_file (traffic capture)", 4))
-    if unported:
-        what = "; ".join(
-            f"{name} is ROADMAP.md port queue item {item}"
-            for name, item in unported
-        )
-        raise NotImplementedError(
-            f"not in the PyTorch port yet: {what}"
-        )
+def _warn_inert(cfg: FmConfig) -> None:
+    """Log the observability settings the port's server does not act
+    on yet (none of them changes a score)."""
     defaults = FmConfig()
     inert = [
         k for k in _INERT_KNOBS
@@ -194,11 +186,14 @@ class ServeServer:
     /score_bin`` (the binary frame transport, gated by
     ``serve_transport``), the admin swap routes ``/reload``,
     ``/promote`` and ``/rollback`` on ``scorer``, and the observability
-    routes."""
+    routes.  ``slo`` (a :class:`SloTracker`) counts a request the
+    batcher failed to answer; ``capture`` (a ``wire.CaptureWriter``)
+    records sampled scored requests."""
 
     def __init__(self, port: int, batcher: ServeBatcher, cfg: FmConfig,
                  build, telemetry: Telemetry, host: str = "127.0.0.1",
-                 timeout_s: float = 30.0, scorer=None):
+                 timeout_s: float = 30.0, scorer=None, slo=None,
+                 capture=None):
         requests_c = telemetry.counter("serve.http_requests")
         truncated_c = telemetry.counter("serve.truncated_features")
         parse_t = telemetry.timer("serve.parse")
@@ -279,17 +274,42 @@ class ServeServer:
                     ctype, out = encode(np.zeros((0,), np.float32))
                     self._send(200, out, ctype, headers=headers)
                     return
+                # Traffic capture: the request frame is encoded now,
+                # while this handler still owns the arrays (the batcher
+                # releases pooled text-parse scratch as soon as its
+                # dispatcher stops reading them).  The canonical form
+                # (padded, ids reduced) makes a replay's decode
+                # idempotent, so it reproduces the response bitwise.
+                # An unsampled request pays one attribute compare.
+                cap_req = None
+                if capture is not None and capture.sample():
+                    try:
+                        cap_req = wire.encode_bin_request(
+                            ids[:n], vals[:n],
+                            fields[:n]
+                            if (cfg.field_num and fields is not None)
+                            else None,
+                        )
+                    except Exception as e:  # noqa: BLE001 - forensics
+                        log.warning("capture encode failed: %s", e)
                 try:
                     scores = batcher.score(
                         ids, vals, fields if cfg.field_num else None,
                         timeout=timeout_s, on_done=on_done,
                     )
                 except Exception as e:  # noqa: BLE001 - report, don't die
+                    if slo is not None:
+                        # The batcher's ledger sees only what its
+                        # dispatcher finishes; a timeout or a closed
+                        # batcher is a 503 the client saw.
+                        slo.observe(False)
                     self._send(
                         503, f"scoring failed: {e}\n".encode(),
                         "text/plain", headers=headers,
                     )
                     return
+                if cap_req is not None:
+                    capture.write(cap_req, wire.encode_bin_response(scores))
                 ctype, out = encode(scores)
                 self._send(200, out, ctype, headers=headers)
 
@@ -365,16 +385,17 @@ class ServeServer:
 
 class ServeHandle:
     """One running serving stack; ``close()`` tears it down in order
-    (HTTP stops accepting, the watcher's thread stops, then the batcher
-    drains and fails what is left)."""
+    (HTTP stops accepting, the watcher's thread stops, the batcher
+    drains and fails what is left, then the capture file closes)."""
 
     def __init__(self, cfg: FmConfig, scorer, batcher, server,
-                 telemetry: Telemetry, watcher=None):
+                 telemetry: Telemetry, watcher=None, capture=None):
         self.cfg = cfg
         self.scorer = scorer
         self.batcher = batcher
         self.server = server
         self.watcher = watcher
+        self.capture = capture
         self.telemetry = telemetry
         self.port = server.port
         self._closed = False
@@ -387,6 +408,8 @@ class ServeHandle:
         if self.watcher is not None:
             self.watcher.close()
         self.batcher.close()
+        if self.capture is not None:
+            self.capture.close()
 
 
 def _serve_block(snap: dict, scorer, batcher, wall: float) -> dict:
@@ -440,7 +463,7 @@ def serve(cfg: FmConfig,
     (the GPU unless asked otherwise).  ``port`` overrides
     ``cfg.serve_port`` (0 = OS-assigned; the bound port is
     ``handle.port``)."""
-    _check_supported(cfg)
+    _warn_inert(cfg)
     dev = resolve_device(device)
     telemetry = Telemetry(enabled=cfg.telemetry)
     # The watcher's baseline is read BEFORE the load: a checkpoint
@@ -454,24 +477,44 @@ def serve(cfg: FmConfig,
         "warmed in %.3fs", dev, scorer.step, list(scorer.ladder), n_rungs,
         scorer.warmup_wall_s,
     )
+    slo = SloTracker(
+        cfg.serve_slo_p99_ms, cfg.serve_slo_availability,
+        telemetry=telemetry,
+    )
     batcher = ServeBatcher(
         scorer, max_batch_wait_ms=cfg.max_batch_wait_ms,
-        queue_size=cfg.queue_size, telemetry=telemetry,
+        queue_size=cfg.queue_size, telemetry=telemetry, slo=slo,
     )
+    # Live-traffic capture: FmConfig guarantees both knobs are set
+    # together; unset = None = byte-identical serving.
+    capture = None
+    if cfg.serve_capture_file:
+        capture = wire.CaptureWriter(
+            cfg.serve_capture_file, sample=cfg.serve_capture_sample,
+            telemetry=telemetry,
+        )
     t0 = time.time()
 
     def build(kind: str = "status") -> dict:
         now = time.time()
         wall = max(now - t0, 1e-9)
+        # The SLO gauges refresh before the snapshot, so one scrape's
+        # gauges and block keys agree.
+        slo_block = slo.snapshot()
         snap = telemetry.snapshot()
-        return {
+        serve_block = _serve_block(snap, scorer, batcher, wall)
+        serve_block.update(slo_block)
+        rec = {
             "record": kind,
             "time": now,
             "elapsed": round(wall, 3),
             "step": scorer.step,
-            "serve": _serve_block(snap, scorer, batcher, wall),
+            "serve": serve_block,
             "stages": snap,
         }
+        if cfg.resource_metrics:
+            rec["resource"] = basic_block(t0)
+        return rec
 
     watcher = None
     try:
@@ -481,13 +524,16 @@ def serve(cfg: FmConfig,
         server = ServeServer(
             cfg.serve_port if port is None else port, batcher, cfg,
             build, telemetry, host=cfg.serve_host, scorer=scorer,
+            slo=slo, capture=capture,
         )
     except BaseException:
         # A taken port must not leak the watcher's or the batcher's
-        # thread.
+        # thread, or the capture file.
         if watcher is not None:
             watcher.close()
         batcher.close()
+        if capture is not None:
+            capture.close()
         raise
     log.info(
         "scoring endpoint listening on %s:%d (POST /score, /score_bin, "
@@ -495,7 +541,7 @@ def serve(cfg: FmConfig,
         cfg.serve_host, server.port,
     )
     return ServeHandle(cfg, scorer, batcher, server, telemetry,
-                       watcher=watcher)
+                       watcher=watcher, capture=capture)
 
 
 def serve_forever(cfg: FmConfig,

@@ -38,24 +38,36 @@ data-integrity semantics as the text path).  Ids reduce modulo
 ``vocabulary_size`` exactly like ``libsvm.parse_line``, so ``/score``
 and ``/score_bin`` are bitwise-interchangeable for the same examples.
 
-This is the PyTorch port's own copy of ``fast_tffm_tpu/serve/wire.py``'s
-codec (numpy + stdlib only), byte-compatible with it: a frame one package
-encodes, the other decodes to the same arrays.  The traffic-capture
-container and the router's request-id helpers are not in the port yet.
+This is the PyTorch port's own copy of ``fast_tffm_tpu/serve/wire.py``
+(numpy + stdlib only), byte-compatible with it: a frame one package
+encodes, the other decodes to the same arrays, and the TFC1 traffic
+capture one package writes is byte for byte the other's for the same
+frames, clock and sample.
 """
 
 from __future__ import annotations
 
+import collections
+import itertools
+import logging
+import os
+import random
 import struct
+import threading
+import time
 
 import numpy as np
 
 from fast_tffm_tpu_torch.config import FmConfig
 
+log = logging.getLogger(__name__)
+
 __all__ = [
-    "BIN_MAGIC", "MAX_BODY_BYTES", "MAX_REQUEST_ID_BYTES",
+    "BIN_MAGIC", "CAPTURE_MAGIC", "CAPTURE_VERSION", "CaptureWriter",
+    "MAX_BODY_BYTES", "MAX_REQUEST_ID_BYTES", "RequestSampler",
     "decode_bin_request", "decode_bin_response",
-    "encode_bin_request", "encode_bin_response", "valid_request_id",
+    "encode_bin_request", "encode_bin_response", "peek_bin_request_id",
+    "read_capture", "valid_request_id", "with_bin_request_id",
 ]
 
 # POST body cap shared by every scoring endpoint (text and binary, the
@@ -226,6 +238,42 @@ def decode_bin_request(data: bytes, cfg: FmConfig):
     return ids, vals, fields, int(n), truncated, rid
 
 
+def peek_bin_request_id(data: bytes):
+    """The request-id trailer of a frame, WITHOUT decoding the arrays
+    (the router's proxy path reads it in O(header)).  Returns None for
+    frames without flags bit 1 or too short to carry a header; raises
+    ValueError only for a frame that claims a trailer it doesn't
+    carry (the replica's full decode rejects it the same way)."""
+    if len(data) < _BIN_HDR.size:
+        return None
+    magic, n, f, flags = _BIN_HDR.unpack_from(data)
+    if magic != BIN_MAGIC or not flags & _FLAG_RID:
+        return None
+    cells = n * f
+    arrays_end = _BIN_HDR.size + cells * (
+        12 if flags & _FLAG_FIELDS else 8
+    )
+    return _trailer_rid(data, arrays_end)
+
+
+def with_bin_request_id(data: bytes, request_id: str) -> bytes:
+    """A copy of ``data`` carrying ``request_id`` as its flags-bit-1
+    trailer (the router stamps SAMPLED frames with this before
+    proxying).  A frame that already carries a trailer keeps it — the
+    client's id wins, same precedence as the X-Request-Id header."""
+    if len(data) < _BIN_HDR.size:
+        return data  # malformed; the replica's decode will 400 it
+    magic, n, f, flags = _BIN_HDR.unpack_from(data)
+    if magic != BIN_MAGIC or flags & _FLAG_RID:
+        return data
+    raw = _rid_bytes(request_id)
+    return (
+        _BIN_HDR.pack(BIN_MAGIC, n, f, flags | _FLAG_RID)
+        + data[_BIN_HDR.size:]
+        + _RID_LEN.pack(len(raw)) + raw
+    )
+
+
 def _reduce_mod(arr: np.ndarray, modulus: int) -> np.ndarray:
     """``arr % modulus`` with Python's nonnegative-remainder
     semantics, skipping the copy when every value is already in
@@ -252,6 +300,39 @@ def valid_request_id(rid) -> bool:
     return all(0x20 <= ord(ch) <= 0x7E for ch in rid)
 
 
+class RequestSampler:
+    """Request-id mint + the per-request trace-sampling decision.
+
+    One instance per serving process (router or single server).  Ids
+    are ``<tag>-<pid.in.hex>-<boot.ms>-<counter>`` — unique across the
+    fleet's processes (pid + boot time) and under concurrency
+    (``itertools.count``'s atomic ``next``).  ``sample()`` answers the
+    ``serve_trace_sample`` coin flip; with sampling off it is a single
+    attribute compare, and NO id is ever minted for an unsampled
+    request (the no-allocation-on-the-unsampled-path contract the
+    serving tests pin).
+    """
+
+    def __init__(self, sample: float, enabled: bool = True,
+                 tag: str = "r"):
+        self.rate = float(sample) if enabled else 0.0
+        self._prefix = (
+            f"{tag}-{os.getpid():x}-{int(time.time() * 1e3) & 0xFFFFFFFF:x}"
+        )
+        self._counter = itertools.count()
+        # random.Random.random() is one C call — atomic under the GIL,
+        # so concurrent handler threads need no lock around it.
+        self._rng = random.Random(os.getpid() ^ 0x5EED)
+
+    def sample(self) -> bool:
+        if self.rate <= 0.0:
+            return False
+        return self.rate >= 1.0 or self._rng.random() < self.rate
+
+    def mint(self) -> str:
+        return f"{self._prefix}-{next(self._counter)}"
+
+
 def encode_bin_response(scores) -> bytes:
     scores = np.ascontiguousarray(scores, np.float32)
     return _BIN_RESP_HDR.pack(BIN_MAGIC, len(scores)) + scores.tobytes()
@@ -268,3 +349,159 @@ def decode_bin_response(data: bytes) -> np.ndarray:
             f"response frame length {len(data)} != header + {n} scores"
         )
     return np.frombuffer(data, np.float32, n, _BIN_RESP_HDR.size).copy()
+
+
+# ---------------------------------------------------------------------------
+# Traffic capture (the TFC1 container): sampled live request/response
+# pairs as raw TFB1 frames, replayable bit-for-bit by
+# ``python -m fast_tffm_tpu_torch.tools.replay``.
+#
+#     file:    magic   u8[4] = b"TFC1"
+#              version u32   = 1
+#     record:  time     f64   unix seconds at capture
+#              req_len  u32   bytes of the TFB1 REQUEST frame following
+#              resp_len u32   bytes of the TFB1 RESPONSE frame following
+#              req      u8[req_len]
+#              resp     u8[resp_len]
+#
+# Requests are captured in CANONICAL form — the decoded (padded to
+# max_features, id-reduced) arrays re-encoded as a binary frame — so a
+# text /score request and a narrow binary frame both replay through
+# /score_bin, and re-decoding a captured frame is idempotent: replay
+# scores are bitwise-equal to the captured response (pinned by test).
+
+CAPTURE_MAGIC = b"TFC1"
+CAPTURE_VERSION = 1
+_CAP_HDR = struct.Struct("<4sI")
+_CAP_REC = struct.Struct("<dII")
+
+
+class CaptureWriter:
+    """Rotating sampled request/response capture (``serve_capture_*``).
+
+    One instance per serving replica.  ``sample()`` answers the
+    per-request coin flip (same no-work-when-unsampled contract as
+    :class:`RequestSampler`); ``write(req, resp)`` appends one record
+    under a lock and keeps the last ``tail`` records in memory for the
+    blackbox's ``requests.capture`` bundle artifact
+    (:meth:`tail_bytes`).  When the file passes ``rotate_bytes`` it
+    rotates to ``<path>.1`` (one generation kept) so an unattended
+    capture is disk-bounded.  Write failures are counted and logged,
+    never raised — capture is forensics, not the request path.
+    """
+
+    def __init__(self, path: str, sample: float = 1.0,
+                 rotate_bytes: int = 64 << 20, tail: int = 32,
+                 telemetry=None, clock=time.time):
+        self.path = path
+        self.rate = float(sample)
+        self._rotate_bytes = int(rotate_bytes)
+        self._tail = collections.deque(maxlen=max(1, tail))
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._rng = random.Random(os.getpid() ^ 0xCA9)
+        self.count = 0
+        self.errors = 0
+        self._closed = False
+        self._c_captured = (
+            telemetry.counter("serve.capture_requests")
+            if telemetry is not None else None
+        )
+        parent = os.path.dirname(os.path.abspath(path))
+        os.makedirs(parent, exist_ok=True)
+        self._f = open(path, "wb")
+        self._f.write(_CAP_HDR.pack(CAPTURE_MAGIC, CAPTURE_VERSION))
+        self._size = _CAP_HDR.size
+
+    def sample(self) -> bool:
+        if self.rate <= 0.0 or self._closed:
+            return False
+        return self.rate >= 1.0 or self._rng.random() < self.rate
+
+    def write(self, req: bytes, resp: bytes) -> None:
+        t = self._clock()
+        rec = _CAP_REC.pack(t, len(req), len(resp))
+        with self._lock:
+            if self._closed:
+                return
+            try:
+                self._f.write(rec)
+                self._f.write(req)
+                self._f.write(resp)
+                self._f.flush()
+            except OSError as e:
+                self.errors += 1
+                log.warning("capture write failed: %s", e)
+                return
+            self._size += len(rec) + len(req) + len(resp)
+            self.count += 1
+            self._tail.append((t, req, resp))
+            if self._size >= self._rotate_bytes:
+                self._rotate_locked()
+        if self._c_captured is not None:
+            self._c_captured.add()
+
+    def _rotate_locked(self) -> None:
+        try:
+            self._f.close()
+            os.replace(self.path, self.path + ".1")
+            self._f = open(self.path, "wb")
+            self._f.write(_CAP_HDR.pack(CAPTURE_MAGIC, CAPTURE_VERSION))
+            self._size = _CAP_HDR.size
+        except OSError as e:
+            self.errors += 1
+            log.warning("capture rotation failed: %s", e)
+
+    def tail_bytes(self) -> bytes:
+        """The in-memory tail rendered as a standalone TFC1 file — the
+        blackbox bundle's ``requests.capture`` artifact."""
+        with self._lock:
+            records = list(self._tail)
+        parts = [_CAP_HDR.pack(CAPTURE_MAGIC, CAPTURE_VERSION)]
+        for t, req, resp in records:
+            parts.append(_CAP_REC.pack(t, len(req), len(resp)))
+            parts.append(req)
+            parts.append(resp)
+        return b"".join(parts)
+
+    def close(self) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            try:
+                self._f.close()
+            except OSError:
+                pass
+
+
+def read_capture(path: str):
+    """Iterate ``(time, request_frame, response_frame)`` records of a
+    TFC1 capture file.  Raises ValueError on a bad header; a TRUNCATED
+    final record (the writer died mid-append) is dropped silently —
+    everything before it is intact by construction."""
+    with open(path, "rb") as f:
+        hdr = f.read(_CAP_HDR.size)
+        if len(hdr) < _CAP_HDR.size:
+            raise ValueError(f"{path}: too short for a capture header")
+        magic, version = _CAP_HDR.unpack(hdr)
+        if magic != CAPTURE_MAGIC:
+            raise ValueError(
+                f"{path}: bad capture magic {magic!r} "
+                f"(want {CAPTURE_MAGIC!r})"
+            )
+        if version != CAPTURE_VERSION:
+            raise ValueError(
+                f"{path}: capture version {version} unsupported "
+                f"(want {CAPTURE_VERSION})"
+            )
+        while True:
+            rec = f.read(_CAP_REC.size)
+            if len(rec) < _CAP_REC.size:
+                return
+            t, req_len, resp_len = _CAP_REC.unpack(rec)
+            req = f.read(req_len)
+            resp = f.read(resp_len)
+            if len(req) < req_len or len(resp) < resp_len:
+                return
+            yield t, req, resp

@@ -1836,3 +1836,65 @@ def test_mesh_modes_on_two_ranks_match_the_plain_versions(gpu, tmp_path,
                 else:
                     np.testing.assert_allclose(got[k], want[k], **tol,
                                                err_msg=f"{case} {k}")
+
+
+@pytest.mark.gpu
+def test_fleet_serve_on_the_gpu_is_bitwise_the_single_process_server(
+        gpu, tmp_path):
+    """Two replica processes on the card behind the router: scores over
+    both transports bitwise the single-process server's on the card (the
+    same FmScorer kernel), and each replica's kernel launches above 0."""
+    import urllib.request
+
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.serve import wire
+    from fast_tffm_tpu_torch.serve.router import start_fleet
+    from fast_tffm_tpu_torch.serve.server import serve
+    from fast_tffm_tpu_torch.train import checkpoint
+
+    vocab, k, f = 4096, 8, 39
+    rng = np.random.default_rng(13)
+    model = str(tmp_path / "model")
+    checkpoint.save_params(model, weights.from_jax(
+        -0.2, rng.uniform(-0.3, 0.3, (vocab, 1 + k)).astype(np.float32),
+        device="cpu"), step=5)
+    cfg_path = tmp_path / "fleet.cfg"
+    cfg_path.write_text(
+        f"[General]\nvocabulary_size = {vocab}\nfactor_num = {k}\n"
+        f"model_file = {model}\n[Predict]\nserve_batch_sizes = 64,256\n"
+        f"serve_poll_secs = 0\n[Tpu]\nmax_features = {f}\n")
+    cfg = load_config(str(cfg_path), {"serve_replicas": 2})
+    frames = []
+    for n in (1, 37, 200, 300):
+        ids = rng.integers(0, vocab, (n, f)).astype(np.int32)
+        vals = rng.uniform(0, 1, (n, f)).astype(np.float32)
+        frames.append(wire.encode_bin_request(ids, vals))
+
+    def post(port, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/score_bin", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.read()
+
+    single = serve(cfg, port=0)
+    try:
+        want = [post(single.port, fr) for fr in frames]
+    finally:
+        single.close()
+    handle = start_fleet(cfg, str(cfg_path), port=0)
+    pids = [r.pid for r in handle.replicas]
+    try:
+        for _ in range(3):
+            for fr, w in zip(frames, want):
+                assert post(handle.port, fr) == w
+        for rep in handle.replicas:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{rep.port}/status",
+                    timeout=30) as resp:
+                blk = json.loads(resp.read())["serve"]
+            assert blk["kernel_launches"] > 0 and blk["requests"] > 0
+    finally:
+        handle.close()
+    for pid in pids:
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)

@@ -1,7 +1,7 @@
 """Guards of the port's boundaries: it never imports jax, orbax,
 tensorstore, zstandard, ml_dtypes or the JAX package (the training,
-multi-rank, probe, table-format and Orbax-reader slices' modules
-included), its parse workers' import chain imports no
+multi-rank, probe, table-format, Orbax-reader and serving-fleet
+slices' modules included), its parse workers' import chain imports no
 torch, it runs on the GPU unless asked for the CPU, and its kernel
 wrappers raise instead of falling back."""
 
@@ -56,6 +56,12 @@ _TABLE_FORMATS_SLICE = (
     "fast_tffm_tpu_torch.train.orbax_read",
     "fast_tffm_tpu_torch.train.manifest",
 )
+# The serving fleet's modules.
+_FLEET_SLICE = (
+    "fast_tffm_tpu_torch.serve.router", "fast_tffm_tpu_torch.serve.slo",
+    "fast_tffm_tpu_torch.obs.fleet", "fast_tffm_tpu_torch.obs.resource",
+    "fast_tffm_tpu_torch.tools.report", "fast_tffm_tpu_torch.tools.replay",
+)
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -68,7 +74,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert int(out[0]) >= 20, out  # every module of the package imported
     assert out[1] == "", f"the port imported {out[1]}"
     loaded = set(out[2].split(","))
-    want = set(_TRAIN_SLICE + _PROBE_SLICE + _TABLE_FORMATS_SLICE)
+    want = set(_TRAIN_SLICE + _PROBE_SLICE + _TABLE_FORMATS_SLICE
+               + _FLEET_SLICE)
     assert want <= loaded, sorted(want - loaded)
 
 

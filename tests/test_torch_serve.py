@@ -222,14 +222,45 @@ def test_serve_observability_routes(served):
     {"serve_capture_file": "cap.tfc", "serve_capture_sample": 0.5},
 ])
 def test_serve_refuses_unported_settings(tmp_path, overrides):
+    """The settings an earlier slice refused now act as the reference's
+    do: ``serve()`` serves one process whatever ``serve_replicas`` and
+    ``serve_canary`` say (the fleet is ``serve/router.py``'s,
+    tests/test_torch_fleet.py), and a capture file records the sampled
+    requests in a TFC1 file both packages read."""
     w0, table = _params()
     model_file = str(tmp_path / "model")
     checkpoint.save_params(model_file,
                            weights.from_jax(w0, table, device="cpu"))
+    if "serve_capture_file" in overrides:
+        overrides = dict(overrides, serve_capture_file=str(
+            tmp_path / overrides["serve_capture_file"]))
     cfg = config.FmConfig(model_file=model_file,
                           **{**CFG, **overrides})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve(cfg, device="cpu", port=0)
+    handle = serve(cfg, device="cpu", port=0)
+    answered = []
+    try:
+        assert (handle.watcher is None) == (cfg.serve_poll_secs == 0)
+        for seed in range(20):
+            ids, vals = _examples(1 + seed % 7, seed=seed)
+            got = _bin_scores(handle.port, ids, vals)
+            np.testing.assert_allclose(
+                got, _jax_scores(w0, table, ids, vals), **TOL)
+            answered.append((ids, vals, got))
+    finally:
+        handle.close()
+    if not cfg.serve_capture_file:
+        return
+    records = list(wire.read_capture(cfg.serve_capture_file))
+    assert records == list(jax_wire.read_capture(cfg.serve_capture_file))
+    # Sample 0.5 over 20 requests: some, not necessarily all, captured;
+    # each record is a request the server answered, with its answer.
+    assert 0 < len(records) <= 20
+    for _, req, resp in records:
+        ids, vals, _, n, _, _ = wire.decode_bin_request(req, cfg)
+        match = [got for a_ids, a_vals, got in answered
+                 if a_ids.shape[0] == n and np.array_equal(a_ids, ids)
+                 and np.array_equal(a_vals, vals)]
+        assert match and resp == wire.encode_bin_response(match[0])
 
 
 def test_serve_refuses_checkpoint_without_params_npz(tmp_path):
