@@ -88,6 +88,28 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    step's p50 (a synchronised dispatch over K), the device's idle share
    and the host time in ``cudaLaunchKernel`` and ``cudaGraphLaunch`` from
    ``torch.profiler``, the capture's time and the graph pool's bytes.
+   Every run's health carry is compared bitwise too.
+6c. Obs phase (main path 1 with the health carry and the observability
+   planes, K = 4 graphed): (a) the 16 steps with ``metrics_file``,
+   ``heartbeat_secs = 0.05``, a free ``status_port``, ``alert_rules =
+   step > 0 : warn`` and ``nan_policy = halt``: a ``run_header`` first,
+   heartbeats, one alert and one ``final`` record whose wait, dispatch
+   and other seconds sum to ``elapsed`` within 0.02 s; ``/status`` and
+   ``/metrics`` scraped after a dispatch (the Prometheus text parses);
+   ``emb_rows_touched`` and ``emb_touch_events`` equal to the host's
+   count over the same lines, no non-finite step; the kernels and
+   replays of phase 5; tables, accumulator, w0 and the carry bitwise
+   those of the same run with none of those planes.  (b) ``w0`` filled
+   with NaN in place after the capture: ``NonFiniteGradError`` within
+   one dispatch of the poisoned replay, the last checkpoint the clean
+   save before it (``save_steps = K``), the final record naming the
+   exception.  (c) ``step > 0 : halt``: ``AlertHaltError`` and no
+   checkpoint.  (d) Phase 5's checkpoint served with a stream, a
+   heartbeat and a warn rule: its ``run_header`` (``mode: serve``),
+   heartbeats and one alert.  (e) The graphed step's p50 (host clock,
+   synchronised) and its device time (CUDA events) at K = 1 and 4 with
+   the carry and from a graph of the same steps without it, and path
+   9's graphed Adam step the same way.
 7. Parity phase, f32 and bf16 compute: 3 steps through the kernels vs
    3 through the plain path from the same initial weights: each step's
    scores (``rtol=1e-5, atol=1e-5``), the tables (``rtol=1e-4,
@@ -327,6 +349,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -441,6 +464,13 @@ FLEET_CLIENTS = 8
 FLEET_LOAD_S = 3.0
 FLEET_TIMED = 30
 FLEET_SHED_MS = 1.0
+# The obs phase (main path 1 with the observability planes): its
+# dispatch's steps, the hold before each dispatch of its throttled runs
+# (heartbeats at 0.05 s and the scrapes then fall between dispatches),
+# and the timed dispatches of each step with and without the carry.
+OBS_K = 4
+OBS_THROTTLE_S = 0.1
+OBS_TIMED = 40
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2969,13 +2999,15 @@ def check_train_path(tr: dict, launches: dict, ingest: dict,
 
 
 def trained_state(sparse, trainer) -> list:
-    """What a training run leaves: tables, optimizer state, w0 and the
-    streaming metrics (compared bitwise between twin runs)."""
+    """What a training run leaves: tables, optimizer state, w0, the
+    streaming metrics and the health carry (compared bitwise between
+    twin runs)."""
     m = trainer.metrics
     return ([trainer.model.table, trainer.model.w0,
              *sparse.opt_tables(trainer.opt_state)]
             + [t for t in trainer.opt_state if t.dim() == 0]
-            + [m.loss_sum, m.weight_sum, m.count, m.auc.pos, m.auc.neg])
+            + [m.loss_sum, m.weight_sum, m.count, m.auc.pos, m.auc.neg]
+            + list(trainer.health))
 
 
 def graph_phase(torch, tcfg, card: str, files, steps: int,
@@ -3055,7 +3087,7 @@ def graph_phase(torch, tcfg, card: str, files, steps: int,
                 del runs, eager, graphed
     print(f"graph check: {len(parity)} graphed runs bitwise their eager "
           f"twins (tables, optimizer state, w0, loss and weight sums, AUC "
-          f"histogram)", flush=True)
+          f"histogram, health carry)", flush=True)
 
     step = {}
     for k in (1, 4):
@@ -3110,6 +3142,387 @@ def graph_phase(torch, tcfg, card: str, files, steps: int,
         del sb
     return {"card": card, "batch_size": tcfg.batch_size, "parity": parity,
             "device_batch_step": step}
+
+
+# Prometheus text exposition: one sample a line (tools/obs_smoke.py's
+# rule), comments and blank lines aside.
+_PROM_SAMPLE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? "
+    r"[-+]?(\d+\.?\d*([eE][-+]?\d+)?|\.\d+|[Ii]nf|[Nn]a[Nn])$")
+
+
+def prometheus_samples(text: str) -> int:
+    """The sample count of a ``/metrics`` body; fails on a line that is
+    not Prometheus text."""
+    samples = 0
+    for line in text.splitlines():
+        if not line.strip() or line.startswith("#"):
+            continue
+        check(bool(_PROM_SAMPLE.match(line)),
+              f"/metrics line is not Prometheus text: {line!r}")
+        samples += 1
+    return samples
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def health_state(trainer) -> list:
+    """Tables, optimizer state, w0 and the health carry of a trainer."""
+    return ([trainer.model.table, trainer.model.w0, *trainer.opt_state]
+            + list(trainer.health))
+
+
+def step_with_and_without_carry(torch, trainer, sb, k: int) -> dict:
+    """The graphed step's p50 on a device super-batch ``sb``: through
+    ``Trainer.dispatch`` (the carry's update in each captured step), and
+    through a graph of the same steps without it that this function
+    captures (``Trainer.device_step``, which carries no health), in
+    turns (with, without, without, with; a synchronised dispatch over
+    K, host clock), and the device time of one replay of each (CUDA
+    events, median of OBS_TIMED)."""
+    from fast_tffm_tpu_torch.train.dispatch import GraphedSteps
+
+    trainer.dispatch(sb)  # eager, then captured
+    trainer.dispatch(sb)
+    bare = GraphedSteps(k)
+
+    def bare_steps(s):
+        return torch.stack([trainer.device_step(s.step(i))
+                            for i in range(s.n)])
+
+    bare_steps(sb)  # warm, as the trainer's first dispatch
+    torch.cuda.synchronize()
+    bare.capture(sb, bare_steps)
+    runs = {"with": lambda: trainer.dispatch(sb),
+            "without": lambda: bare.replay(sb)}
+    host = {"with": [], "without": []}
+    for mode in ("with", "without", "without", "with"):
+        for _ in range(OBS_TIMED):
+            t0 = time.perf_counter()
+            runs[mode]()
+            torch.cuda.synchronize()
+            host[mode].append((time.perf_counter() - t0) / k)
+    dev = {}
+    for mode, fn in runs.items():
+        ms = []
+        for _ in range(OBS_TIMED):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b) / k)
+        dev[mode] = ms
+    return {
+        "step_p50_ms_with_carry": p50(host["with"]) * 1e3,
+        "step_p50_ms_without_carry": p50(host["without"]) * 1e3,
+        "device_ms_per_step_with_carry": p50(dev["with"]),
+        "device_ms_per_step_without_carry": p50(dev["without"]),
+        "replays": trainer.graph_dispatches,
+    }
+
+
+def obs_phase(np, torch, card: str, tcfg, train_files, model_dir: str,
+              tmp: str, host_batches, kernels: dict, counters: dict) -> tuple:
+    """The health carry and the observability planes on main path 1 at
+    full width (``examples/criteo_kaggle.cfg``, V = 2^22, B = 4096,
+    Adagrad, host sort, K = 4, graphed).  (a) A clean run of the 16
+    steps with ``metrics_file``, ``heartbeat_secs = 0.05``, a free
+    ``status_port``, ``alert_rules = step > 0 : warn`` and ``nan_policy =
+    halt`` (each dispatch held OBS_THROTTLE_S so that beats and scrapes
+    fall mid-run): the stream (a ``run_header`` first, heartbeats, one
+    alert, one ``final`` whose split sums to ``elapsed`` within 0.02 s),
+    ``/status`` and ``/metrics`` scraped mid-run (the Prometheus text
+    parses), the touched rows and occurrences equal to the host's count
+    over the same lines, no non-finite step, the kernels and replays of
+    phase 5, and tables, accumulator, w0 and the carry bitwise those of
+    the same run with none of those planes.  (b) A poisoned run: ``w0``
+    filled with NaN in place after the graph is captured; the halt comes
+    within one dispatch, nothing newer than the last clean save
+    (``save_steps = K``) is on disk, the final record names the
+    exception.  (c) ``step > 0 : halt``: AlertHaltError, no checkpoint.
+    (d) The single-replica server of phase 5's checkpoint with a stream,
+    a heartbeat and a warn rule.  (e) The graphed step with and without
+    the carry at K = 1 and 4, and path 9's graphed Adam step the same
+    way.  Returns the ``obs`` record and (a)'s launches."""
+    import threading
+
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data.pipeline import BatchPipeline
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.obs.alerts import AlertHaltError
+    from fast_tffm_tpu_torch.serve.server import serve
+    from fast_tffm_tpu_torch.train import checkpoint
+    from fast_tffm_tpu_torch.train.loop import NonFiniteGradError, Trainer
+
+    k = OBS_K
+    rec = {"card": card, "steps_per_dispatch": k}
+    base = dataclasses.replace(
+        tcfg, train_files=list(train_files), validation_files=[],
+        steps_per_dispatch=k, log_steps=4, save_steps=0, nan_policy="halt")
+
+    class Held(Trainer):
+        """Each dispatch held ``hold_s`` before it runs, so that beats
+        and scrapes fall between dispatches; ``hook`` sees each call."""
+
+        hold_s = 0.0
+        hook = None
+
+        def dispatch(self, sb, pause=None):
+            if self.hook is not None:
+                self.hook(self)
+            time.sleep(self.hold_s)
+            return super().dispatch(sb, pause)
+
+    # The host's count of what the carry counts: the real occurrences
+    # and the distinct rows of the same lines.
+    touches, seen = 0, []
+    with BatchPipeline(train_files, tcfg, epochs=1, shuffle=False) as p:
+        for b in p:
+            real = b.vals != 0
+            touches += int(real.sum())
+            seen.append(np.unique(b.ids[real]))
+    host_rows = int(np.unique(np.concatenate(seen)).size)
+
+    # -- (a) the clean run, and its twin with no planes -----------------
+    mf = os.path.join(tmp, "obs_clean.jsonl")
+    port = free_port()
+    cfg_a = dataclasses.replace(
+        base, model_file=os.path.join(tmp, "obs_clean"), metrics_file=mf,
+        heartbeat_secs=0.05, status_port=port,
+        alert_rules="step > 0 : warn")
+    scraped: dict = {}
+    stop = threading.Event()
+
+    def get(conn, path: str):
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+
+    def scrape():
+        while not stop.is_set() and "metrics" not in scraped:
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=2)
+                code, body = get(conn, "/status")
+                status = json.loads(body) if code == 200 else {}
+                if status.get("step", 0) > 0:
+                    code, body = get(conn, "/metrics")
+                    if code == 200:
+                        scraped["status"], scraped["metrics"] = status, body
+                conn.close()
+            except (OSError, http.client.HTTPException, ValueError):
+                pass
+            stop.wait(0.01)
+
+    torch.cuda.synchronize()
+    zero_launches(kernels)
+    zero_launches(counters)
+    scraper = threading.Thread(target=scrape, daemon=True)
+    scraper.start()
+    t0 = time.perf_counter()
+    clean = Held(cfg_a)
+    clean.hold_s = OBS_THROTTLE_S
+    res_a = clean.train()
+    torch.cuda.synchronize()
+    rec["clean_wall_s"] = time.perf_counter() - t0
+    stop.set()
+    scraper.join()
+    launches = read_launches(kernels)
+    tr = res_a["train"]
+    check(tr["steps"] == TRAIN_FILES * BATCHES_PER_FILE,
+          f"obs run trained {tr['steps']} steps")
+    check_train_path(tr, launches, read_launches(counters))
+    twin = Trainer(dataclasses.replace(
+        base, model_file=os.path.join(tmp, "obs_twin")))
+    twin.train()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(health_state(clean),
+                                                 health_state(twin))),
+          "the run with a stream, heartbeat, endpoint and rules is not "
+          "bitwise the run without them")
+    del twin
+    records = jsonl(mf)
+    kinds = [r["record"] for r in records]
+    final = records[-1]
+    split = final["wait_input_s"] + final["dispatch_s"] + final["other_s"]
+    check(kinds[0] == "run_header" and kinds[-1] == "final"
+          and kinds.count("final") == 1 and kinds.count("alert") == 1
+          and kinds.count("heartbeat") > 0 and kinds.count("train") == 4,
+          f"obs stream: {kinds}")
+    check(abs(split - final["elapsed"]) <= 0.02,
+          f"wait + dispatch + other = {split} against elapsed "
+          f"{final['elapsed']}")
+    health = tr["health"]
+    check(health == final["health"], "result and final health differ")
+    check(health["nonfinite_steps"] == 0
+          and health["first_nonfinite_step"] == -1,
+          f"non-finite steps in the clean run: {health}")
+    check(health["emb_touch_events"] == touches
+          and health["emb_rows_touched"] == host_rows,
+          f"carry counted {health['emb_touch_events']} occurrences and "
+          f"{health['emb_rows_touched']} rows, the host {touches} and "
+          f"{host_rows}")
+    check("metrics" in scraped, "the status endpoint was never scraped "
+          "after a dispatch")
+    n_samples = prometheus_samples(scraped["metrics"])
+    check("tffm_counter_ingest_examples_total" in scraped["metrics"]
+          and scraped["status"]["record"] == "status"
+          and "health" in scraped["status"],
+          "the scrape lacks the ingest counter or the health block")
+    rec["clean"] = {
+        "records": {kind: kinds.count(kind) for kind in sorted(set(kinds))},
+        "final_split_s": {key: final[key] for key in (
+            "elapsed", "wait_input_s", "dispatch_s", "other_s",
+            "ingest_wait_frac")},
+        "health": health, "host_touch_events": touches,
+        "host_rows_touched": host_rows,
+        "scraped_status_step": scraped["status"]["step"],
+        "metrics_samples": n_samples, "launches": launches,
+        "graph_dispatches": tr["graph_dispatches"],
+        "eager_dispatches": tr["eager_dispatches"],
+        "run_header": {key: records[0][key] for key in (
+            "config_fingerprint", "torch_version", "device", "backend",
+            "nan_policy", "alert_rules", "heartbeat_secs")},
+    }
+    del clean
+
+    # -- (b) a poisoned replay under nan_policy = halt ------------------
+    mf_b = os.path.join(tmp, "obs_poison.jsonl")
+    cfg_b = dataclasses.replace(
+        base, model_file=os.path.join(tmp, "obs_poison"), metrics_file=mf_b,
+        save_steps=k, log_steps=0)
+    calls = []
+
+    def poison(trainer):
+        # After the capture (dispatch 0 eager and captured, 1 a
+        # replay): dispatch 2's replay trains the poison.
+        if len(calls) == 2 and trainer.graph.captured:
+            with torch.no_grad():
+                trainer.model.w0.detach().fill_(float("nan"))
+        calls.append(trainer.graph.captured)
+
+    poisoned = Held(cfg_b)
+    poisoned.hook = poison
+    try:
+        poisoned.train()
+        check(False, "the poisoned run did not halt")
+    except NonFiniteGradError as e:
+        halt_msg = str(e)
+    saved, _ = checkpoint.restore_params(cfg_b.model_file, device="cpu")
+    final_b = jsonl(mf_b)[-1]
+    check(calls == [False, True, True] and poisoned.graph_dispatches == 2,
+          f"the poison was not trained by a replay: {calls}")
+    check(saved == 2 * k, f"the last checkpoint is step {saved}, not the "
+          f"clean save at {2 * k}")
+    check(final_b["record"] == "final"
+          and final_b["exception"] == "NonFiniteGradError"
+          and final_b["health"]["first_nonfinite_step"] == 2 * k,
+          f"the poisoned run's final record: {final_b.get('exception')}, "
+          f"{final_b.get('health')}")
+    rec["poisoned"] = {
+        "dispatches": len(calls), "poisoned_dispatch": 2,
+        "last_saved_step": saved, "halt": halt_msg,
+        "final_health": final_b["health"],
+    }
+    del poisoned
+
+    # -- (c) a halt rule ------------------------------------------------
+    mf_c = os.path.join(tmp, "obs_halt.jsonl")
+    cfg_c = dataclasses.replace(
+        base, model_file=os.path.join(tmp, "obs_halt"), metrics_file=mf_c,
+        heartbeat_secs=0.05, alert_rules="step > 0 : halt", log_steps=0)
+    halted = Held(cfg_c)
+    halted.hold_s = OBS_THROTTLE_S
+    try:
+        halted.train()
+        check(False, "the halt rule did not stop the run")
+    except AlertHaltError as e:
+        halt_rule = str(e)
+    records_c = jsonl(mf_c)
+    check(not checkpoint.exists(cfg_c.model_file),
+          "the halted run wrote a checkpoint")
+    check(records_c[-1]["exception"] == "AlertHaltError"
+          and any(r["record"] == "alert" and r["action"] == "halt"
+                  for r in records_c), "the halt's stream")
+    rec["halt_rule"] = {"message": halt_rule,
+                        "steps": records_c[-1]["step"]}
+    del halted
+
+    # -- (d) the single-replica server ----------------------------------
+    mf_d = os.path.join(tmp, "obs_serve.jsonl")
+    scfg = load_config(CFG_PATH, {
+        "serve_poll_secs": 0.0, "serve_port": 0, "model_file": model_dir,
+        "metrics_file": mf_d, "heartbeat_secs": 0.05,
+        "alert_rules": "elapsed > 0 : warn"})
+    handle = serve(scfg, port=0)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", handle.port,
+                                          timeout=60)
+        rng = np.random.default_rng(SEED)
+        for n_req in (37, 1000):
+            text = post(conn, "/score", criteo_body(rng, n_req).encode())
+            check(len(text.split()) == n_req, f"{n_req} served scores")
+        conn.close()
+        deadline = time.time() + 10
+        while time.time() < deadline:
+            try:
+                if any(r["record"] == "heartbeat" for r in jsonl(mf_d)):
+                    break
+            except ValueError:  # a line being written
+                pass
+            time.sleep(0.02)
+    finally:
+        handle.close()
+    records_d = jsonl(mf_d)
+    kinds_d = [r["record"] for r in records_d]
+    check(kinds_d[0] == "run_header" and records_d[0]["mode"] == "serve"
+          and kinds_d.count("alert") == 1 and "heartbeat" in kinds_d
+          and kinds_d[-1] == "final", f"serve stream: {kinds_d}")
+    rec["serve"] = {kind: kinds_d.count(kind) for kind in sorted(
+        set(kinds_d))}
+    rec["serve"]["requests"] = records_d[-1]["serve"]["requests"]
+
+    # -- (e) the graphed step with and without the carry ---------------
+    timing = {}
+    for kk in (1, 4):
+        cfg_e = dataclasses.replace(
+            base, steps_per_dispatch=kk, log_steps=0,
+            model_file=os.path.join(tmp, "obs_timed"))
+        sb = next(iter(DevicePrefetcher(host_batches[:kk], kk, "cuda",
+                                        cfg_e.vocabulary_size)))
+        trainer = Trainer(cfg_e)
+        timing[f"sparse_k{kk}"] = step_with_and_without_carry(
+            torch, trainer, sb, kk)
+        del trainer, sb
+        gc.collect()
+    dense_cfg = dataclasses.replace(
+        base, steps_per_dispatch=1, log_steps=0, sparse_update=False,
+        optimizer="adam", learning_rate=DENSE_ADAM_LR, l2_mode="full",
+        factor_lambda=DENSE_LAMBDA, bias_lambda=DENSE_LAMBDA,
+        model_file=os.path.join(tmp, "obs_dense"))
+    sb = next(iter(DevicePrefetcher(host_batches[:1], 1, "cuda",
+                                    dense_cfg.vocabulary_size)))
+    trainer = Trainer(dense_cfg)
+    check(not trainer.sparse, "path 9's config trained sparse")
+    timing["dense_adam_k1"] = step_with_and_without_carry(
+        torch, trainer, sb, 1)
+    del trainer, sb
+    gc.collect()
+    rec["step_timing"] = timing
+    return rec, launches
 
 
 def shm_segments() -> list:
@@ -5542,6 +5955,22 @@ def main() -> int:
         flush=True)
     phase_end("graph")
 
+    # -- obs phase (main path 1 with the health carry and the planes) ---
+    obs_rec, obs_launches = obs_phase(
+        np, torch, card, tcfg, train_files, model_dir, tmp,
+        batches + batches[:1], kernels, counters)
+    print(json.dumps({"obs": obs_rec}), flush=True)
+    print("obs (" + card + "): " + json.dumps(obs_rec["step_timing"]),
+          flush=True)
+    print("obs check: a clean K = 4 graphed run with a metrics stream, "
+          "heartbeat, status endpoint and warn rule is bitwise the run "
+          "without them; its stream, scrape, touched rows and occurrences "
+          "hold; a poisoned replay halts within one dispatch with the "
+          "clean save kept; a halt rule stops the run with no checkpoint; "
+          "the server's stream has its header, heartbeats and alert",
+          flush=True)
+    phase_end("obs")
+
     # -- parity phase --------------------------------------------------
     def put(batch, with_meta=True):
         b = sparse.to_device(batch, dev)
@@ -5940,7 +6369,7 @@ def main() -> int:
     # runs (path 8: training, and the fp32 bench run's serving), the
     # dense runs (path 9) and the Orbax and hot-swap runs (path 10).
     launches = {name: train_launches[name] + sharded_launches[name]
-                for name in kernels}
+                + obs_launches[name] for name in kernels}
     for name in ("fm_grad", "k1_dedup", "k2_apply"):  # path 8
         launches[name] += tiered_launches[name]
     # FmScorer f32: the serve path, the quantized tables (path 6), the

@@ -110,24 +110,171 @@ def build_argparser() -> argparse.ArgumentParser:
              "defines the error budget the rolling burn_rate divides "
              "by (0 = no burn-rate accounting)",
     )
-    # Observability planes the port does not act on yet (logged as inert
-    # when set); the fleet launcher passes them to its replicas.
+    # Dispatch, transfer and ingest knobs (override the cfg file; the
+    # INI keys of the same name are the durable spelling).
     p.add_argument(
-        "--serve_trace_sample", type=float, default=None,
-        help="fraction of requests traced (not wired in the port yet)",
+        "--steps_per_dispatch", type=int, default=None,
+        help="train K batches per dispatch: one CUDA graph replay of the "
+             "K steps on the GPU (1 = one batch a dispatch)",
     )
     p.add_argument(
-        "--alert_rules", default=None, metavar="RULES",
-        help="alert watchdog rules (not wired in the port yet)",
+        "--prefetch_super_batches", type=int, default=None,
+        help="shipped super-batches the transfer stage keeps in flight",
     )
     p.add_argument(
-        "--metrics_file", default=None, metavar="PATH",
-        help="JSONL metrics stream path (not wired in the port yet)",
+        "--parse_processes", type=int, default=None,
+        help="parse in this many spawned worker processes (GIL-free) "
+             "instead of thread_num in-process threads (0 = threads)",
+    )
+    p.add_argument(
+        "--cache_epochs", action="store_true", default=None,
+        help="parse epoch 0 once and replay later epochs from a host-"
+             "memory batch cache (multi-epoch runs whose parsed data "
+             "fits in cache_max_bytes)",
+    )
+    p.add_argument(
+        "--cache_max_bytes", type=int, default=None,
+        help="byte budget for the epoch cache; overflowing falls back "
+             "to re-parsing later epochs",
+    )
+    p.add_argument(
+        "--cache_prestacked", action="store_true", default=None,
+        help="store the epoch cache as packed groups of K batches "
+             "(packed once; replay epochs ship them with no fill) — "
+             "requires --cache_epochs",
+    )
+    p.add_argument(
+        "--ring_slots", type=int, default=None,
+        help="inbound shared-memory ring slots for parse_processes "
+             "(raw windows parsed in place; 0 = pickle windows over "
+             "the worker queue)",
+    )
+    # Observability knobs (override the cfg file).
+    p.add_argument(
+        "--heartbeat_secs", type=float, default=None,
+        help="emit a structured telemetry heartbeat (JSONL record into "
+             "metrics_file + one-line log summary with ingest_wait_frac) "
+             "every N seconds (0 = off)",
+    )
+    p.add_argument(
+        "--no_telemetry", action="store_true",
+        help="disable the run-wide telemetry layer entirely (no-op "
+             "instruments; heartbeats report nothing)",
     )
     p.add_argument(
         "--trace", nargs="?", const="./tffm_trace.json", default=None,
         metavar="PATH", dest="trace_file",
-        help="Chrome-trace span file (not wired in the port yet)",
+        help="Chrome-trace span file (accepted; the port does not write "
+             "it yet)",
+    )
+    p.add_argument(
+        "--nan_policy", choices=["warn", "halt"], default=None,
+        help="on a non-finite (NaN/inf) gradient: warn and keep "
+             "counting, or halt without overwriting the checkpoint",
+    )
+    p.add_argument(
+        "--status_port", type=int, default=None,
+        help="serve a live status endpoint on this port while training: "
+             "/metrics (Prometheus text of the telemetry snapshot and the "
+             "health block) and /status (the heartbeat JSON record on "
+             "demand); read-only, off the hot path (0 = off)",
+    )
+    p.add_argument(
+        "--status_host", default=None, metavar="ADDR",
+        help="bind address for --status_port (default 127.0.0.1; the "
+             "endpoint is unauthenticated, so 0.0.0.0 — serving a "
+             "remote Prometheus — is an explicit opt-in)",
+    )
+    p.add_argument(
+        "--alert_rules", default=None, metavar="RULES",
+        help="alert watchdog rules riding the heartbeat, e.g. "
+             "'ingest_wait_frac > 0.5 for 3 : warn; "
+             "grad_norm_drift > 10 : halt' — breaches emit "
+             "`record: alert` JSONL entries; halt stops the run "
+             "without overwriting the checkpoint",
+    )
+    p.add_argument(
+        "--train_fleet_scrape", default=None, metavar="H:P,H:P,...",
+        help="training-fleet scrape targets (accepted; the port does "
+             "not run the fleet plane yet)",
+    )
+    p.add_argument(
+        "--no_quality", action="store_true",
+        help="disable the model-quality & data-drift plane (the port "
+             "does not run it yet)",
+    )
+    p.add_argument(
+        "--quality_window", type=int, default=None,
+        help="examples per quality window (accepted; the port does not "
+             "run the quality plane yet)",
+    )
+    p.add_argument(
+        "--no_resource_metrics", action="store_true",
+        help="disable the resource block (RSS, open files, uptime) of "
+             "the heartbeat, status and final records",
+    )
+    p.add_argument(
+        "--no_blackbox", action="store_true",
+        help="disable the incident flight recorder (the port does not "
+             "run it yet)",
+    )
+    p.add_argument(
+        "--incident_dir", default=None, metavar="DIR",
+        help="where incident bundles land (accepted; the port does not "
+             "run the flight recorder yet)",
+    )
+    p.add_argument(
+        "--trace_rotate_events", type=int, default=None,
+        help="rotate the trace every N events (accepted; the port does "
+             "not write the trace yet)",
+    )
+    p.add_argument(
+        "--metrics_file", default=None, metavar="PATH",
+        help="JSONL metrics stream path (overrides the cfg; a rank > 0 "
+             "writes PATH.rankN, a multi-replica fleet suffixes each "
+             "replica's stream .replicaN)",
+    )
+    p.add_argument(
+        "--interaction_impl", default=None,
+        choices=["auto", "reference", "pallas", "packed"],
+        help="the reference's interaction path choice (accepted; the "
+             "port always runs its CUDA kernels)",
+    )
+    p.add_argument(
+        "--compile_cache_dir", default=None, metavar="DIR",
+        help="persistent compilation cache directory (accepted; the "
+             "port builds its kernels once per checkout)",
+    )
+    # Serving front-end knobs.
+    p.add_argument(
+        "--serve_transport", choices=["text", "bin", "both"],
+        default=None,
+        help="request transports the scoring endpoints accept: libsvm "
+             "text (POST /score), the binary frame (POST /score_bin), "
+             "or both",
+    )
+    p.add_argument(
+        "--serve_trace_sample", type=float, default=None,
+        help="fraction of requests traced (accepted; the port does not "
+             "trace requests yet)",
+    )
+    p.add_argument(
+        "--serve_parse_mode", choices=["vec", "legacy"], default=None,
+        help="POST /score text-parse engine: the vectorized batch "
+             "parser (default) or the per-line legacy loop (both "
+             "bitwise-identical)",
+    )
+    p.add_argument(
+        "--serve_http_threads", type=int, default=None,
+        help="HTTP front-end worker pool size for the scoring "
+             "endpoints (0 = thread-per-connection mode); size >= "
+             "expected concurrent kept-alive connections",
+    )
+    p.add_argument(
+        "--serve_http_acceptors", type=int, default=None,
+        help="accept loops for the pooled front end (>1 uses "
+             "SO_REUSEPORT listeners when the kernel supports it, "
+             "shared-socket fallback otherwise)",
     )
     p.add_argument(
         "--serve_batch_sizes", default=None, metavar="N,N,...",
@@ -176,8 +323,9 @@ def build_argparser() -> argparse.ArgumentParser:
         "--tiered_partition", choices=["auto", "global", "shards"],
         default=None,
         help="tier-manager ownership: global (one host-global manager, "
-             "what a single process runs) or shards (per model column; "
-             "not in the port yet); auto = global on one process",
+             "what a single process runs) or shards (one per model "
+             "column, on a 1 x R rank mesh); auto = shards on more than "
+             "one rank, else global",
     )
     p.add_argument(
         "--cold_dtype", choices=["fp32", "bf16", "int8"], default=None,
@@ -239,20 +387,33 @@ def main(argv=None) -> int:
 
     overrides = {
         key: getattr(args, key)
-        for key in ("serve_port", "serve_host", "serve_batch_sizes",
-                    "max_batch_wait_ms", "serve_poll_secs",
-                    "serve_replicas", "serve_shed_deadline_ms",
-                    "serve_canary", "serve_capture_sample",
-                    "serve_capture_file", "serve_slo_p99_ms",
-                    "serve_slo_availability", "serve_trace_sample",
-                    "alert_rules", "metrics_file", "trace_file",
-                    "serve_table_dtype", "quant_chunk",
-                    "table_tiering", "hot_rows", "tiered_partition",
-                    "cold_dtype")
+        for key in ("steps_per_dispatch", "prefetch_super_batches",
+                    "parse_processes", "cache_epochs", "cache_max_bytes",
+                    "cache_prestacked", "ring_slots", "heartbeat_secs",
+                    "trace_file", "nan_policy", "table_tiering", "hot_rows",
+                    "tiered_partition", "cold_dtype", "serve_table_dtype",
+                    "quant_chunk", "status_port", "status_host",
+                    "alert_rules", "train_fleet_scrape",
+                    "trace_rotate_events", "serve_port", "serve_host",
+                    "serve_batch_sizes", "max_batch_wait_ms",
+                    "serve_poll_secs", "serve_replicas",
+                    "serve_shed_deadline_ms", "serve_canary",
+                    "serve_transport", "serve_trace_sample",
+                    "serve_slo_p99_ms", "serve_slo_availability",
+                    "serve_parse_mode", "serve_http_threads",
+                    "serve_http_acceptors", "interaction_impl",
+                    "compile_cache_dir", "incident_dir",
+                    "serve_capture_sample", "serve_capture_file",
+                    "quality_window", "metrics_file")
         if getattr(args, key) is not None
     }
-    if args.no_serve_canary:
-        overrides["serve_canary"] = False
+    for flag, key in (("no_telemetry", "telemetry"),
+                      ("no_resource_metrics", "resource_metrics"),
+                      ("no_quality", "quality"),
+                      ("no_serve_canary", "serve_canary"),
+                      ("no_blackbox", "blackbox")):
+        if getattr(args, flag):
+            overrides[key] = False
     cfg = load_config(args.cfg, overrides or None)
     handlers = [logging.StreamHandler(sys.stderr)]
     if cfg.log_file:

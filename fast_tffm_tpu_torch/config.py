@@ -2,11 +2,11 @@
 
 The PyTorch port's own copy of ``fast_tffm_tpu/config.py``: the same
 ``FmConfig`` fields, defaults, validation and INI key map, so every
-``.cfg`` file parses to the same values in both packages.  Two things
-differ: ``alert_rules`` is checked for its heartbeat requirement but its
-rule grammar is not parsed (the port has no alert engine yet), and the
-``compute_jnp_dtype`` and ``interaction_resolved`` properties are absent
-(the port has one interaction path: the CUDA kernel on the GPU).
+``.cfg`` file parses to the same values in both packages, and
+``alert_rules`` is parsed at construction with the reference's refusals
+(``obs/alerts.py``, the port's own copy).  The ``compute_jnp_dtype`` and
+``interaction_resolved`` properties are absent (the port has one
+interaction path: the CUDA kernel on the GPU).
 """
 
 from __future__ import annotations
@@ -624,15 +624,81 @@ class FmConfig:
                         "train_fleet_scrape targets must be host:port "
                         f"pairs, got {target!r}"
                     )
-        if self.alert_rules and self.heartbeat_secs <= 0:
-            # The watchdog rides the heartbeat thread: rules without a
-            # heartbeat would NEVER evaluate.  Fail at startup, as the
-            # reference config does.
-            raise ValueError(
-                "alert_rules requires heartbeat_secs > 0 (the "
-                "watchdog evaluates rules on the heartbeat "
-                "thread; without one no rule would ever fire)"
+        if self.alert_rules:
+            # Parse at construction so a typo'd rule fails the run at
+            # startup, not silently at the first heartbeat.  The obs
+            # module is stdlib-only, so this import is cheap and safe
+            # here.
+            from fast_tffm_tpu_torch.obs.alerts import (
+                parse_rules, resolved_signal,
             )
+
+            rules = parse_rules(self.alert_rules)
+            # The watchdog rides the heartbeat thread: rules without a
+            # heartbeat would NEVER evaluate — for a halt rule that is
+            # a safety mechanism silently inert, the one config bug
+            # the alert module must never allow.  Fail at startup.
+            if self.heartbeat_secs <= 0:
+                raise ValueError(
+                    "alert_rules requires heartbeat_secs > 0 (the "
+                    "watchdog evaluates rules on the heartbeat "
+                    "thread; without one no rule would ever fire)"
+                )
+            # Same inertness hazard one plane over: a rule watching the
+            # heartbeat's `resource` block (recompiles_unexpected,
+            # rss_mb, ...) is non-evaluable on every beat when the
+            # resource plane is off.
+            if not self.resource_metrics:
+                inert = [
+                    r.signal for r in rules
+                    if resolved_signal(r.signal).startswith("resource.")
+                ]
+                if inert:
+                    raise ValueError(
+                        f"alert_rules watch resource-plane signals "
+                        f"{inert} but resource_metrics is off — the "
+                        "heartbeat would carry no resource block and "
+                        "these rules could never fire; enable "
+                        "resource_metrics or drop the rules"
+                    )
+            # And again for the model-quality plane: a drift rule
+            # (quality.psi_values, logloss_drift, calib_ratio) — or a
+            # serving skew rule (serve.skew_*), whose keys only exist
+            # when the skew monitor does — is non-evaluable on every
+            # beat when quality=off.
+            if not self.quality:
+                inert = [
+                    r.signal for r in rules
+                    if resolved_signal(r.signal).startswith("quality.")
+                    or resolved_signal(r.signal).startswith(
+                        "serve.skew_"
+                    )
+                ]
+                if inert:
+                    raise ValueError(
+                        f"alert_rules watch quality-plane signals "
+                        f"{inert} but quality is off — the records "
+                        "would carry no quality block / skew keys and "
+                        "these rules could never fire; enable quality "
+                        "or drop the rules"
+                    )
+            # And for the training-fleet plane: straggler_ratio /
+            # rank_step_skew / exchange_frac (and any explicit
+            # fleet.* path) only exist in the `fleet` block rank 0
+            # builds when train_fleet_scrape names the targets.
+            if not self.train_fleet_scrape:
+                inert = [
+                    r.signal for r in rules
+                    if resolved_signal(r.signal).startswith("fleet.")
+                ]
+                if inert:
+                    raise ValueError(
+                        f"alert_rules watch training-fleet signals "
+                        f"{inert} but train_fleet_scrape is unset — "
+                        "no record would carry a fleet block and "
+                        "these rules could never fire; set "
+                        "train_fleet_scrape or drop the rules"
+                    )
         if not 0 <= self.serve_port < 65536:
             raise ValueError(
                 f"serve_port must be in [0, 65535], got {self.serve_port}"

@@ -86,6 +86,18 @@ as plain batches.  This module imports no torch (the spawned workers
 import it): ``pack`` is handed in, and a packed group is used only
 through its ``n``, ``nbytes`` and ``batches(start)``.
 
+**Telemetry.**  A ``telemetry`` registry (``obs/telemetry.py``; the
+shared no-op ``NULL`` when none is given, and then nothing is timed or
+counted) gets the reference's instruments under its names:
+``ingest.batches`` and ``ingest.examples`` at the one delivery exit,
+``ingest.parse``, ``ingest.reader_block`` and ``ingest.out_block``, the
+work and output queues' ``ingest.work_q_depth`` and
+``ingest.out_q_depth``, ``ingest.cache_replay_batches`` and
+``ingest.cache_bytes``, the process pool's ``ingest.ring_*`` and
+``ingest.work_msg_bytes``, and the ``ingest.truncated_features``
+sample.  :meth:`BatchPipeline.stats` is the data-integrity block every
+self-report carries.
+
 ``BatchPipeline.replays`` and ``BatchPipeline.worker_batches`` count,
 over every pipeline of the process, the batches replayed from a cache
 and the batches the process workers parsed.  The transfer of parsed
@@ -108,6 +120,7 @@ from typing import Iterator, NamedTuple, Optional, Sequence
 import numpy as np
 
 from fast_tffm_tpu_torch.config import FmConfig
+from fast_tffm_tpu_torch.obs.telemetry import NULL, Telemetry
 from fast_tffm_tpu_torch.data import native as native_lib
 from fast_tffm_tpu_torch.data import procpool
 from fast_tffm_tpu_torch.data.libsvm import (
@@ -412,7 +425,8 @@ class BatchPipeline:
                  skip_batches: int = 0, native: bool = True,
                  epoch_marks: bool = False, cache_epochs: bool = False,
                  cache_max_bytes: int = 1 << 30,
-                 prestack: Optional[tuple] = None):
+                 prestack: Optional[tuple] = None,
+                 telemetry: Optional[Telemetry] = None):
         self.files = expand_files(files)
         if not self.files:
             raise ValueError("no input files")
@@ -461,6 +475,35 @@ class BatchPipeline:
         self._gen = None
         self._finished = threading.Event()
         self._started = False
+        # The reference's instruments (obs/telemetry.py's NULL when none
+        # is given: every call below is a no-op).
+        self.telemetry = telemetry if telemetry is not None else NULL
+        tel = self.telemetry
+        self._c_batches = tel.counter("ingest.batches")
+        self._c_examples = tel.counter("ingest.examples")
+        self._c_cache_replays = tel.counter("ingest.cache_replay_batches")
+        self._t_parse = tel.timer("ingest.parse")
+        self._t_reader_block = tel.timer("ingest.reader_block")
+        self._t_out_block = tel.timer("ingest.out_block")
+        self._c_ring_windows = tel.counter("ingest.ring_windows")
+        self._c_ring_fallback = tel.counter("ingest.ring_fallback_windows")
+        self._c_ring_bytes = tel.counter("ingest.ring_window_bytes")
+        self._c_q_msg_bytes = tel.counter("ingest.work_msg_bytes")
+        self._g_cache_bytes = tel.gauge("ingest.cache_bytes")
+        self._g_ring_bytes = tel.gauge("ingest.ring_bytes")
+        tel.sample("ingest.truncated_features",
+                   lambda: self.truncated_features)
+
+    def stats(self) -> dict:
+        """Point-in-time data-integrity snapshot that every self-report
+        (heartbeat, final record, ``/status``) carries: callable from any
+        thread at any time, after shutdown too.  The parser reduces ids
+        modulo the vocabulary, so no batch is out of range."""
+        return {
+            "truncated_features": int(self.truncated_features),
+            "out_of_range_batches": 0,
+            "ingest_cache": self.cache_result,
+        }
 
     @property
     def truncated_features(self) -> int:
@@ -604,17 +647,25 @@ class BatchPipeline:
     def _iter_stream_threads(self, n_epochs: int, first_epoch: int,
                              skip: int) -> Iterator:
         cfg = self.cfg
-        work = ClosableQueue(max(2, cfg.queue_size))
-        out = ClosableQueue(max(2, cfg.queue_size))
+        tel = self.telemetry
+        work = ClosableQueue(max(2, cfg.queue_size),
+                             hist=tel.depth_hist("ingest.work_q_depth"))
+        out = ClosableQueue(max(2, cfg.queue_size),
+                            hist=tel.depth_hist("ingest.out_q_depth"))
         n_workers = max(1, cfg.thread_num)
+        timed = tel.enabled
         if self.native:
             native_lib.load()  # a failed build raises here, in the caller
 
         def reader():
             try:
                 for item in self._epoch_items(n_epochs, first_epoch, skip):
+                    t0 = time.perf_counter()
                     if not work.put(item):
                         return
+                    if timed:
+                        self._t_reader_block.observe(
+                            time.perf_counter() - t0)
             except BaseException as e:  # surfaces in the consumer
                 out.put(WorkerError(e))
             finally:
@@ -639,12 +690,17 @@ class BatchPipeline:
                 if isinstance(group, EpochEnd):
                     out.put(got)
                     continue
+                t0 = time.perf_counter()
                 try:
                     item = (seq, self._batch(parser, group))
                 except BaseException as e:
                     item = WorkerError(e)
+                t1 = time.perf_counter()
                 if not out.put(item):
                     return
+                if timed:
+                    self._t_parse.observe(t1 - t0)
+                    self._t_out_block.observe(time.perf_counter() - t1)
 
         threads = [threading.Thread(target=reader, daemon=True,
                                     name="tffm-torch-read")]
@@ -705,10 +761,20 @@ class BatchPipeline:
         reader_err: list = []
         procs: list = []
         rt = None
+        tel = self.telemetry
+        h_work = tel.depth_hist("ingest.work_q_depth")
+        h_out = tel.depth_hist("ingest.out_q_depth")
+        h_ring = tel.depth_hist("ingest.ring_free_slots")
 
         def put_work(msg) -> bool:
-            self.work_msg_bytes += _msg_bytes(msg)
-            return procpool.put_with_stop(work, msg, stop)
+            nbytes = _msg_bytes(msg)
+            self.work_msg_bytes += nbytes
+            self._c_q_msg_bytes.add(nbytes)
+            h_work.observe(work.qsize())
+            t0 = time.perf_counter()
+            ok = procpool.put_with_stop(work, msg, stop)
+            self._t_reader_block.observe(time.perf_counter() - t0)
+            return ok
 
         def flush(pend) -> bool:
             """Send one window's batches: through a ring slot, one
@@ -720,6 +786,7 @@ class BatchPipeline:
             marks = pickle.dumps(win.marks)
             if (ring is not None and procpool.ShmRing.need_bytes(
                     len(win.buf), n_lines, len(marks)) <= ring.slot_bytes):
+                h_ring.observe(free.qsize())
                 slot = procpool.get_with_stop(free, stop)
                 if slot is None:
                     return False
@@ -731,6 +798,8 @@ class BatchPipeline:
                         seq_slot[seq0 + j] = slot
                 self.ring_windows += 1
                 self.ring_window_bytes += len(win.buf)
+                self._c_ring_windows.add(1)
+                self._c_ring_bytes.add(len(win.buf))
                 lo = 0
                 for j, s in enumerate(starts_list):
                     if not put_work(("slot", seq0 + j, slot, len(win.buf),
@@ -739,6 +808,7 @@ class BatchPipeline:
                     lo += len(s)
                 return True
             self.ring_fallback_windows += 1
+            self._c_ring_fallback.add(1)
             return put_work(("raw", seq0, win.buf, starts_list, ends_list,
                              win.marks))
 
@@ -780,6 +850,7 @@ class BatchPipeline:
                     tag, cfg.ring_slots, ring_slot_bytes(cfg, self.shuffle))
                 for i in range(cfg.ring_slots):
                     free.put(i)
+                self._g_ring_bytes.set(cfg.ring_slots * ring.slot_bytes)
             spec = procpool.WorkerSpec(
                 vocabulary_size=cfg.vocabulary_size,
                 max_features=cfg.max_features,
@@ -802,6 +873,7 @@ class BatchPipeline:
                     return
                 if reader_err:
                     raise reader_err.pop()
+                h_out.observe(out.qsize())
                 try:
                     msg = out.get(timeout=0.1)
                 except queue.Empty:
@@ -825,9 +897,11 @@ class BatchPipeline:
                     raise msg[1]
                 if kind == "mark":
                     seq, obj = msg[1], EpochEnd(msg[2])
-                else:  # ("batch", seq, segment, meta_len, truncated)
+                else:  # ("batch", seq, segment, meta_len, truncated,
+                    #      parse_s)
                     seq = msg[1]
                     obj = procpool.attach_batch(spec, msg[2], msg[3])
+                    self._t_parse.observe(msg[5])
                     with self._trunc_lock:
                         self._trunc_extra += msg[4]
                     with slot_lock:
@@ -877,6 +951,7 @@ class BatchPipeline:
         drain()
         if ring is not None:
             ring.destroy()
+            self._g_ring_bytes.set(0)  # the allocation is gone
         for q in (work, out):
             q.close()
             q.cancel_join_thread()
@@ -900,6 +975,7 @@ class BatchPipeline:
         log.info("ingest cache over budget (%d > %d bytes); re-parsing "
                  "later epochs", size, self.cache_max_bytes)
         self.cache_result = "overflow"
+        self._g_cache_bytes.set(0)  # retains nothing
         return True
 
     def _after_overflow(self, deliver: bool, skip: int):
@@ -943,6 +1019,7 @@ class BatchPipeline:
                             break  # a rebuild that overflows stops early
                     else:
                         cache.append(item)
+                        self._g_cache_bytes.set(size)
                 n_seen += 1
                 if deliver and n_seen > skip:
                     yield item
@@ -959,6 +1036,7 @@ class BatchPipeline:
             for i in order[skip if epoch == e0 else 0:]:
                 with BatchPipeline._count_lock:
                     BatchPipeline.replays += 1
+                self._c_cache_replays.add(1)
                 yield cache[i]
             with self._trunc_lock:
                 self._trunc_extra += epoch0_trunc
@@ -995,6 +1073,7 @@ class BatchPipeline:
                     cache = None
                 else:
                     cache.append(packed)
+                    self._g_cache_bytes.set(size)
             if not deliver or n_seen <= skip:
                 return []
             return [packed] if first >= skip else packed.batches(skip - first)
@@ -1030,6 +1109,7 @@ class BatchPipeline:
                     continue
                 with BatchPipeline._count_lock:
                     BatchPipeline.replays += packed.n - rem
+                self._c_cache_replays.add(packed.n - rem)
                 if rem:
                     yield from packed.batches(rem)
                 else:
@@ -1055,11 +1135,35 @@ class BatchPipeline:
         finally:
             self._finished.set()
 
+    def _counted(self) -> Iterator:
+        """:meth:`_deliver` with the delivery accounting at its one exit,
+        so every path (threads, processes, cache replays, packed groups)
+        counts alike.  The O(batch) example count runs only when the
+        registry is live."""
+        counting = self.telemetry.enabled
+        inner = self._deliver()
+        try:
+            for item in inner:
+                if isinstance(item, Batch):
+                    self._c_batches.add(1)
+                    if counting:
+                        self._c_examples.add(
+                            int(np.count_nonzero(item.weights > 0)))
+                elif not isinstance(item, EpochEnd):  # a packed group
+                    self._c_batches.add(item.n)
+                    if counting:
+                        self._c_examples.add(sum(
+                            int((b.weights > 0).sum())
+                            for b in item.batches()))
+                yield item
+        finally:
+            inner.close()
+
     def __iter__(self) -> Iterator:
         if self._started:
             raise RuntimeError("a BatchPipeline is iterated once")
         self._started = True
-        self._gen = self._deliver()
+        self._gen = self._counted()
         return self._gen
 
     def close(self) -> None:

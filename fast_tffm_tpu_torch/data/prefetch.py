@@ -60,7 +60,12 @@ as the caller needs no other thread's CUDA call to run.
 with numpy, which the views are held against in the tests.
 ``DevicePrefetcher.ships`` counts the super-batches every stage of the
 process shipped, as the kernels' wrappers count launches: ``fills``
-those it filled itself and ``prestack_hits`` the packed groups.
+those it filled itself and ``prestack_hits`` the packed groups.  A
+``telemetry`` registry given to the stage gets the reference's
+instruments: ``prefetch.stack`` (a fill), ``prefetch.device_put`` (the
+copy's enqueue), ``prefetch.out_block`` (waiting for the consumer),
+``prefetch.out_q_depth``, ``prefetch.super_batches`` and
+``prefetch.prestack_hits``.
 
 **The tiered plan** (``table_tiering = on``).  A ``plan_hook`` is called
 on each group after the range check of its LOGICAL ids (at the
@@ -80,6 +85,7 @@ its batches take the ordinary fill (``fills`` counts it,
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import NamedTuple, Optional, Sequence
 
@@ -91,6 +97,7 @@ from fast_tffm_tpu_torch.data.pipeline import EpochEnd
 from fast_tffm_tpu_torch.data.queues import (
     CANCELLED, SENTINEL, ClosableQueue, WorkerError,
 )
+from fast_tffm_tpu_torch.obs.telemetry import NULL, Telemetry
 from fast_tffm_tpu_torch.platform import resolve_device
 
 __all__ = ["DevicePrefetcher", "PackedGroup", "Packer", "SuperBatch",
@@ -314,7 +321,7 @@ class DevicePrefetcher:
                  vocabulary_size: int, depth: int = 2,
                  with_fields: bool = False,
                  packer: Optional[Packer] = None,
-                 plan_hook=None):
+                 plan_hook=None, telemetry: Optional[Telemetry] = None):
         self.device = resolve_device(device)
         self._plan_hook = plan_hook
         self._cuda = self.device.type == "cuda"
@@ -334,7 +341,14 @@ class DevicePrefetcher:
         self._free: dict = {}  # total bytes -> [pinned staging buffer]
         self._inflight: deque = deque()  # (event, host buffer, recycle)
         self._source = source
-        self._out = ClosableQueue(self._depth)
+        tel = telemetry if telemetry is not None else NULL
+        self._out = ClosableQueue(
+            self._depth, hist=tel.depth_hist("prefetch.out_q_depth"))
+        self._t_stack = tel.timer("prefetch.stack")
+        self._t_put = tel.timer("prefetch.device_put")
+        self._t_out_block = tel.timer("prefetch.out_block")
+        self._c_super = tel.counter("prefetch.super_batches")
+        self._c_prestack = tel.counter("prefetch.prestack_hits")
         self._thread = threading.Thread(
             target=self._run, args=(iter(source),), daemon=True,
             name="tffm-torch-prefetch")
@@ -404,10 +418,11 @@ class DevicePrefetcher:
             self._packer.check(group)
             group, plan = self._plan_hook(group)
             extra = plan.leaves()
-        spec, total = self._packer.layout_of(group, extra)
-        staging = self._staging(total)
-        self._packer.fill(group, staging, spec, extra,
-                          checked=plan is not None)
+        with self._t_stack.time():
+            spec, total = self._packer.layout_of(group, extra)
+            staging = self._staging(total)
+            self._packer.fill(group, staging, spec, extra,
+                              checked=plan is not None)
         DevicePrefetcher.fills += 1
         return self._copy(staging, spec, len(group), recycle=True, plan=plan)
 
@@ -419,12 +434,14 @@ class DevicePrefetcher:
         if self._plan_hook is not None:
             return self._ship(packed.batches())
         DevicePrefetcher.prestack_hits += 1
+        self._c_prestack.add(1)
         return self._copy(packed.buffer, packed.spec, packed.n,
                           recycle=False)
 
     def _copy(self, staging: torch.Tensor, spec, k: int,
               recycle: bool, plan=None) -> bool:
         event = None
+        t0 = time.perf_counter()
         if self._cuda:
             total = staging.numel()
             with self._cuda_calls, torch.cuda.stream(self._stream):
@@ -439,8 +456,13 @@ class DevicePrefetcher:
         views = _views(dev, spec)
         sb = _assemble(views, k, dev)
         item = sb if plan is None else plan.ship(sb, views)
+        self._t_put.observe(time.perf_counter() - t0)
         DevicePrefetcher.ships += 1
-        return self._out.put((item, event, dev))
+        self._c_super.add(1)
+        t0 = time.perf_counter()
+        ok = self._out.put((item, event, dev))
+        self._t_out_block.observe(time.perf_counter() - t0)
+        return ok
 
     # -- the consumer --------------------------------------------------
 

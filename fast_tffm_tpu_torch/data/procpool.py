@@ -360,7 +360,8 @@ def parse_worker_main(spec: WorkerSpec, work, out, stop) -> None:
       ``("mark", seq, epoch)``: an epoch's end, echoed;
       ``None``: the end.
 
-    Results: ``("batch", seq, segment, meta_len, truncated)``, ``("mark",
+    Results: ``("batch", seq, segment, meta_len, truncated, parse_s)``
+    (``parse_s`` the batch's parse and sort-meta seconds), ``("mark",
     seq, epoch)``, ``("err", exception)`` and at the end ``("done",
     batches this worker's parser parsed, seconds)``: ``seconds`` the
     worker's wall time waiting for work (``idle``), parsing with the sort
@@ -396,7 +397,8 @@ def parse_worker_main(spec: WorkerSpec, work, out, stop) -> None:
         seconds["parse"] += t1 - t0
         seconds["ship"] += time.perf_counter() - t1
         if put_with_stop(out, ("batch", seq, name, meta_len,
-                               parser.truncated_features - before), stop):
+                               parser.truncated_features - before,
+                               t1 - t0), stop):
             return True
         discard_segment(name)  # teardown raced the ship
         return False

@@ -12,6 +12,8 @@ from __future__ import annotations
 import threading
 from collections import deque
 
+from fast_tffm_tpu_torch.obs.telemetry import NULL
+
 __all__ = ["CANCELLED", "SENTINEL", "ClosableQueue", "WorkerError"]
 
 SENTINEL = object()  # a producer's end of stream
@@ -28,13 +30,16 @@ class WorkerError:
 class ClosableQueue:
     """Bounded queue whose :meth:`cancel` wakes every blocked producer
     and consumer at once (the reference's ``_ClosableQueue``).  ``put``
-    returns False once cancelled; ``get`` returns :data:`CANCELLED`."""
+    returns False once cancelled; ``get`` returns :data:`CANCELLED`.
+    ``hist`` (a telemetry ``DepthHist``) records the depth every put and
+    get saw."""
 
-    def __init__(self, maxsize: int):
+    def __init__(self, maxsize: int, hist=None):
         self._items: deque = deque()
         self._max = max(1, maxsize)
         self._cv = threading.Condition()
         self._cancelled = False
+        self._hist = hist if hist is not None else NULL.depth_hist("")
 
     def put(self, item) -> bool:
         with self._cv:
@@ -43,6 +48,7 @@ class ClosableQueue:
             if self._cancelled:
                 return False
             self._items.append(item)
+            self._hist.observe(len(self._items))
             self._cv.notify_all()
             return True
 
@@ -52,6 +58,7 @@ class ClosableQueue:
                 self._cv.wait()
             if not self._items:
                 return CANCELLED
+            self._hist.observe(len(self._items))
             item = self._items.popleft()
             self._cv.notify_all()
             return item

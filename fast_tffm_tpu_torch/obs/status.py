@@ -1,18 +1,21 @@
-"""HTTP plumbing the scoring endpoint mounts: the server classes, the
-shared handler base and the Prometheus renderer.
+"""HTTP plumbing the scoring endpoint and the trainer's status endpoint
+mount: the server classes, the shared handler base, the Prometheus
+renderer and :class:`StatusServer`.
 
-The PyTorch port's own copy of the serving-side parts of
-``fast_tffm_tpu/obs/status.py`` (stdlib only):
+The PyTorch port's own copy of ``fast_tffm_tpu/obs/status.py`` (stdlib
+only):
 
 - :class:`ObsHTTPServer` / :class:`PooledHTTPServer` — the
   thread-per-connection and fixed-worker-pool HTTP servers;
 - :class:`QuietHandler` — silenced access log, the one response helper,
   the bounded body reader and the shared ``/healthz``, ``/metrics``,
   ``/status`` and ``/debug/threadz`` routes;
-- :func:`render_prometheus` — one record as Prometheus text exposition.
-
-The trainer's ``StatusServer`` and the ``/incident`` route are not in the
-port yet.
+- :func:`render_prometheus` — one record as Prometheus text exposition;
+- :class:`StatusServer` — a run's ``/metrics``, ``/status``, ``/healthz``
+  and ``/debug/threadz`` on their own port (the trainer's
+  ``status_port``).  The on-demand profiler (``/profile``) and the
+  flight recorder's ``POST /incident`` are not in the port: both answer
+  404.
 """
 
 from __future__ import annotations
@@ -26,10 +29,10 @@ import sys
 import threading
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Callable, Optional
 
 __all__ = [
-    "ObsHTTPServer", "PooledHTTPServer", "QuietHandler",
+    "ObsHTTPServer", "PooledHTTPServer", "QuietHandler", "StatusServer",
     "probe_reuseport", "render_prometheus", "thread_dump",
 ]
 
@@ -538,3 +541,64 @@ class QuietHandler(BaseHTTPRequestHandler):
                 "text/plain; version=0.0.4; charset=utf-8",
             )
         return True
+
+
+class StatusServer:
+    """Serve ``/metrics`` + ``/status`` + ``/healthz`` (and
+    ``/debug/threadz``) for one run, on a thread of its own.
+
+    ``build`` returns the on-demand status record (the same callable
+    shape the Heartbeat takes; ``None`` degrades to an empty record so
+    the endpoint is up even before the owner has anything to report).
+    ``port=0`` binds an OS-assigned port (tests); the bound port is
+    ``self.port``.  ``host`` defaults to loopback — the endpoint is
+    unauthenticated, so publishing beyond the host (a real Prometheus
+    scrape) is an explicit opt-in (``status_host = 0.0.0.0``).
+    ``telemetry`` (optional) receives a ``status.requests`` counter so
+    scrape load shows up in snapshots.  A port that is taken raises
+    OSError from the constructor.  ``close()`` shuts the server down and
+    joins its thread; idempotent.
+    """
+
+    def __init__(self, port: int, build: Callable[[], Optional[dict]],
+                 telemetry=None, host: str = "127.0.0.1"):
+        self._build = build
+        self._requests = (
+            telemetry.counter("status.requests")
+            if telemetry is not None else None
+        )
+        server = self
+
+        class Handler(QuietHandler):
+            def do_GET(self) -> None:  # noqa: N802 - http.server API
+                if server._requests is not None:
+                    server._requests.add()
+                path = self.path.partition("?")[0]
+                if self._get_observability(path, server._build):
+                    return
+                self._send(404, b"not found\n", "text/plain")
+
+            def do_POST(self) -> None:  # noqa: N802 - http.server API
+                if server._requests is not None:
+                    server._requests.add()
+                if "Content-Length" in self.headers:
+                    if self._read_body(1 << 20) is None:
+                        return
+                self._send(404, b"not found\n", "text/plain")
+
+        self._httpd = ObsHTTPServer((host, port), Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="tffm-status",
+            daemon=True,
+        )
+        self._thread.start()
+        self._closed = False
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._httpd.shutdown()
+        self._thread.join()
+        self._httpd.server_close()

@@ -8,7 +8,8 @@ into.  This module is that registry:
 
 - :class:`Counter` — monotonic totals (batches parsed, examples
   delivered, cache replays, out-of-range batches);
-- :class:`Gauge` — last-value instruments;
+- :class:`Gauge` — last-value instruments, plus snapshot-time *samples*
+  (callables evaluated when a snapshot is taken: queue depths);
 - :class:`Timing` — a lock-guarded ring of recent durations with
   monotonic count/total, reporting p50/p95/p99/max over the window (the
   fixed ring bounds memory for million-step runs; totals stay exact);
@@ -38,7 +39,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Dict
+from typing import Callable, Dict
 
 __all__ = [
     "Counter", "Gauge", "Timing", "DepthHist", "Telemetry", "NULL",
@@ -301,6 +302,7 @@ class Telemetry:
         self._gauges: Dict[str, Gauge] = {}
         self._timers: Dict[str, Timing] = {}
         self._depths: Dict[str, DepthHist] = {}
+        self._samples: Dict[str, Callable[[], float]] = {}
 
     def counter(self, name: str) -> Counter:
         if not self.enabled:
@@ -326,10 +328,34 @@ class Telemetry:
         with self._lock:
             return self._depths.setdefault(name, DepthHist())
 
+    def reset(self) -> None:
+        """Drop every instrument, sample, and accumulated value IN
+        PLACE: references to the registry itself stay live (and future
+        ``counter()``/``sample()`` calls re-create instruments), but
+        previously handed-out instrument handles are orphaned.  The
+        trainer resets at the top of each train() so a second run never
+        reports run-1 + run-2 totals against run 2's wall clock."""
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._timers.clear()
+            self._depths.clear()
+            self._samples.clear()
+
+    def sample(self, name: str, fn: Callable[[], float]) -> None:
+        """Register (or replace) a snapshot-time sample — e.g. a queue's
+        ``qsize``.  Evaluated lazily at :meth:`snapshot`; exceptions
+        degrade to -1 (a sampled object may already be torn down)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._samples[name] = fn
+
     def snapshot(self) -> dict:
-        """One nested dict of everything: counters, gauges, timer and
-        depth histograms.  Safe to call from any
-        thread at any time, including after the run's stages shut down."""
+        """One nested dict of everything: counters, gauges (stored values
+        and live samples), timer and depth histograms.  Safe to call from
+        any thread at any time, including after the run's stages shut
+        down."""
         if not self.enabled:
             return {}
         with self._lock:
@@ -337,12 +363,18 @@ class Telemetry:
             gauges = dict(self._gauges)
             timers = dict(self._timers)
             depths = dict(self._depths)
+            samples = dict(self._samples)
         out: dict = {
             "counters": {k: c.value for k, c in counters.items()},
             "gauges": {k: g.value for k, g in gauges.items()},
             "timers": {k: t.snapshot() for k, t in timers.items()},
             "depths": {k: d.snapshot() for k, d in depths.items()},
         }
+        for name, fn in samples.items():
+            try:
+                out["gauges"][name] = fn()
+            except Exception:  # a torn-down sampled object
+                out["gauges"][name] = -1
         return out
 
 

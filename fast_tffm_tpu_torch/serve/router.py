@@ -42,10 +42,13 @@ aggregates of the replicas' scraped ``/status`` blocks.
 The PyTorch port's copy of ``fast_tffm_tpu/serve/router.py``.  It
 differs in three ways only: the child command is ``-m
 fast_tffm_tpu_torch.cli serve``, ``--device`` reaches every replica
-when the fleet was started with one, and the router's own observability
-planes (metrics stream, heartbeat, alerts, blackbox, trace and its
-request sampling) are not wired yet and are logged as inert when set;
-none of them changes a score.
+when the fleet was started with one, and the router's blackbox, trace
+and request sampling are not wired yet and are logged as inert when set
+(none of them changes a score).  Its metrics stream (a ``run_header`` of
+``mode: serve_router``, ``heartbeat`` records built by
+:meth:`ServeRouter._build`, a ``final`` record at close) and its
+``alert_rules`` watchdog on the heartbeat (a ``halt`` rule stops
+:func:`serve_fleet`) are the reference's.
 """
 
 from __future__ import annotations
@@ -69,7 +72,11 @@ from typing import Optional
 import numpy as np
 
 from fast_tffm_tpu_torch.config import FmConfig
+from fast_tffm_tpu_torch.obs.alerts import (
+    AlertEngine, AlertHaltError, parse_rules, run_until_halt,
+)
 from fast_tffm_tpu_torch.obs.fleet import MergeSpec, labeled_lines, merge_blocks
+from fast_tffm_tpu_torch.obs.heartbeat import Heartbeat, JsonlWriter
 from fast_tffm_tpu_torch.obs.resource import basic_block
 from fast_tffm_tpu_torch.obs.status import (
     ObsHTTPServer, PooledHTTPServer, QuietHandler, render_prometheus,
@@ -108,10 +115,10 @@ _FAIL_EVICT = 2
 _SAMPLE_BODY_MAX = 256 << 10
 
 # Router settings whose non-default value the port does not act on yet
-# (ROADMAP.md, port queue item 4); none of them changes a score.
+# (ROADMAP.md, port queue item 4c); none of them changes a score.
 _INERT_KNOBS = (
-    "metrics_file", "heartbeat_secs", "trace_file", "trace_rotate_events",
-    "alert_rules", "serve_trace_sample", "incident_dir",
+    "trace_file", "trace_rotate_events", "serve_trace_sample",
+    "incident_dir",
 )
 
 
@@ -458,6 +465,7 @@ class ServeRouter:
         self._sample: collections.deque = collections.deque(maxlen=32)
         self._health_secs = max(0.05, float(health_secs))
         self.step = int((manifest_seen or {}).get("step", 0))
+        self.alert_engine = None  # start_fleet's, when rules are set
         self._seen = manifest_seen
         self._t0 = time.time()
         self._stop = threading.Event()
@@ -1255,6 +1263,8 @@ class ServeRouter:
         }
         if self.cfg.resource_metrics:
             rec["resource"] = basic_block(self._t0)
+        if self.alert_engine is not None:
+            rec["alerts"] = self.alert_engine.active_snapshot()
         return rec
 
     def _render_metrics(self) -> str:
@@ -1310,24 +1320,43 @@ class ServeRouter:
 
 class FleetHandle:
     """One running router + replica fleet; ``close()`` tears it down in
-    order (the router stops routing, then the replicas terminate)."""
+    order (the heartbeat stops, the router stops routing, the replicas
+    terminate, then the final record is written, naming
+    :attr:`exception` when one stopped the fleet)."""
 
-    def __init__(self, cfg, manager, router, telemetry):
+    def __init__(self, cfg, manager, router, telemetry, writer=None,
+                 heartbeat=None, alert_engine=None):
         self.cfg = cfg
         self.manager = manager
         self.router = router
         self.replicas = router._replicas
         self.telemetry = telemetry
         self.port = router.port
+        self.alert_engine = alert_engine
+        self.exception: Optional[BaseException] = None
+        self._writer = writer
+        self._heartbeat = heartbeat
         self._closed = False
 
     def close(self) -> None:
         if self._closed:
             return
         self._closed = True
+        if self._heartbeat is not None:
+            self._heartbeat.close()
         self.router.close()
         if self.manager is not None:
             self.manager.close()
+        if self._writer is not None:
+            try:
+                final = self.router._build("final")
+                if self.exception is not None:
+                    final["exception"] = type(self.exception).__name__
+                    final["exception_msg"] = str(self.exception)
+                self._writer.write(final)
+            except Exception as e:  # noqa: BLE001 - teardown best-effort
+                log.warning("router final record write failed: %s", e)
+            self._writer.close()
 
 
 def start_fleet(cfg: FmConfig, cfg_path: str,
@@ -1348,11 +1377,12 @@ def start_fleet(cfg: FmConfig, cfg_path: str,
     if inert:
         log.warning(
             "the PyTorch port's router does not act on %s yet (ROADMAP.md "
-            "port queue item 4); scores are unaffected", ", ".join(inert),
+            "port queue item 4c); scores are unaffected", ", ".join(inert),
         )
+    writer = JsonlWriter(cfg.metrics_file) if cfg.metrics_file else None
     telemetry = Telemetry(enabled=cfg.telemetry)
     manifest_seen = manifest.read_manifest(cfg.model_file)
-    manager = None
+    manager = router = heartbeat = alert_engine = None
     try:
         manager = ReplicaManager(cfg, cfg_path, overrides=overrides,
                                  device=device)
@@ -1362,17 +1392,66 @@ def start_fleet(cfg: FmConfig, cfg_path: str,
             host=cfg.serve_host, manifest_seen=manifest_seen,
             respawner=manager.respawn,
         )
+        if writer is not None:
+            writer.write({
+                "record": "run_header",
+                "mode": "serve_router",
+                "time": time.time(),
+                "model_file": cfg.model_file,
+                "resume_step": router.step,
+                "batch_size": cfg.batch_size,
+                "telemetry": cfg.telemetry,
+                "heartbeat_secs": cfg.heartbeat_secs,
+                "serve_replicas": cfg.serve_replicas,
+                "serve_shed_deadline_ms": cfg.serve_shed_deadline_ms,
+                "serve_canary": cfg.serve_canary,
+                "serve_transport": cfg.serve_transport,
+                "serve_poll_secs": cfg.serve_poll_secs,
+                "serve_trace_sample": cfg.serve_trace_sample,
+                "serve_slo_p99_ms": cfg.serve_slo_p99_ms,
+                "serve_slo_availability": cfg.serve_slo_availability,
+                "serve_parse_mode": cfg.serve_parse_mode,
+                "serve_http_threads": cfg.serve_http_threads,
+                "serve_http_acceptors": cfg.serve_http_acceptors,
+                "serve_request_queue_size":
+                    ObsHTTPServer.request_queue_size,
+                "alert_rules": cfg.alert_rules,
+                "trace_file": cfg.trace_file,
+                "replica_ports": [r.port for r in manager.replicas],
+            })
+        # The watchdog on the ROUTER's heartbeat: the serve-signal rules
+        # (shed_frac, burn_rate, evictions, ...) evaluate against every
+        # fleet heartbeat; a halt rule stops serve_fleet.
+        if cfg.alert_rules:
+            alert_engine = AlertEngine(parse_rules(cfg.alert_rules),
+                                       writer=writer)
+            router.alert_engine = alert_engine
+
+        def heartbeat_build():
+            rec = router._build("heartbeat")
+            if alert_engine is not None:
+                alert_engine.observe(rec)
+            return rec
+
+        if cfg.heartbeat_secs > 0:
+            heartbeat = Heartbeat(cfg.heartbeat_secs, heartbeat_build,
+                                  writer=writer)
     except BaseException:
-        # A failed mount must not leak replica processes.
+        # A failed mount must not leak replica processes or threads.
+        if router is not None:
+            router.close()
         if manager is not None:
             manager.close()
+        if writer is not None:
+            writer.close()
         raise
     log.info(
         "router listening on %s:%d over %d replicas (POST /score, "
         "/score_bin; GET /metrics, /status, /healthz)",
         cfg.serve_host, router.port, len(manager.replicas),
     )
-    return FleetHandle(cfg, manager, router, telemetry)
+    return FleetHandle(cfg, manager, router, telemetry, writer=writer,
+                       heartbeat=heartbeat, alert_engine=alert_engine)
 
 
 def serve_fleet(cfg: FmConfig, cfg_path: str,
@@ -1380,7 +1459,9 @@ def serve_fleet(cfg: FmConfig, cfg_path: str,
                 device: Optional[str] = None) -> int:
     """CLI entry for ``serve <cfg> --replicas N``: route until
     interrupted.  SIGTERM and SIGINT both tear the fleet down — the
-    replica subprocesses must never outlive their router."""
+    replica subprocesses must never outlive their router.  An armed
+    ``action: halt`` alert rule stops the fleet with a final record
+    naming :class:`AlertHaltError` and exit code 1."""
     handle = start_fleet(cfg, cfg_path, overrides=overrides, device=device)
     print(
         f"routing on {cfg.serve_host}:{handle.port} across "
@@ -1391,11 +1472,16 @@ def serve_fleet(cfg: FmConfig, cfg_path: str,
         raise KeyboardInterrupt
 
     prev = signal.signal(signal.SIGTERM, _sigterm)
+    code = 0
     try:
-        threading.Event().wait()
+        run_until_halt(handle.alert_engine)
     except KeyboardInterrupt:
         log.info("interrupted; shutting down the fleet")
+    except AlertHaltError as e:
+        log.error("HALT: %s", e)
+        handle.exception = e
+        code = 1
     finally:
         handle.close()
         signal.signal(signal.SIGTERM, prev)
-    return 0
+    return code

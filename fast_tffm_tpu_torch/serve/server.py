@@ -39,9 +39,14 @@ appends sampled request/response frame pairs to a TFC1 file
 (``serve/wire.py``) that ``python -m fast_tffm_tpu_torch.tools.replay``
 re-drives.  ``serve_replicas`` is the fleet's (``serve/router.py``):
 this module serves one process whatever it says, as the reference's
-does.  Observability planes that never touch a score (metrics stream,
-heartbeat, trace, alerts, skew, blackbox) are not wired yet and are
-logged as inert when set.
+does.  The server reports as the reference's does: a ``metrics_file``
+stream opened by a ``run_header`` record (``mode: serve``), a
+``heartbeat`` record every ``heartbeat_secs`` (the ``build`` that
+``/status`` answers with), an :class:`~fast_tffm_tpu_torch.obs.alerts.
+AlertEngine` of ``alert_rules`` on the heartbeat (a ``halt`` rule stops
+:func:`serve_forever`), and one ``final`` record at close.  The planes
+that never touch a score and are not in the port yet (trace, skew,
+blackbox) are logged as inert when set.
 """
 
 from __future__ import annotations
@@ -57,6 +62,10 @@ import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.config import FmConfig
+from fast_tffm_tpu_torch.obs.alerts import (
+    AlertEngine, AlertHaltError, parse_rules, run_until_halt,
+)
+from fast_tffm_tpu_torch.obs.heartbeat import Heartbeat, JsonlWriter
 from fast_tffm_tpu_torch.obs.resource import basic_block
 from fast_tffm_tpu_torch.obs.status import (
     ObsHTTPServer, PooledHTTPServer, QuietHandler,
@@ -79,11 +88,10 @@ __all__ = ["CheckpointWatcher", "ServeHandle", "ServeServer",
            "reload_scorer", "serve", "serve_forever"]
 
 # Settings whose non-default value the port's server does not act on yet:
-# none of them changes a score (ROADMAP.md, port queue item 4).
+# none of them changes a score (ROADMAP.md, port queue items 4c and 4d).
 _INERT_KNOBS = (
-    "metrics_file", "heartbeat_secs", "trace_file", "trace_rotate_events",
-    "alert_rules", "serve_trace_sample", "incident_dir",
-    "compile_cache_dir", "interaction_impl",
+    "trace_file", "trace_rotate_events", "serve_trace_sample",
+    "incident_dir", "compile_cache_dir", "interaction_impl",
 )
 
 
@@ -98,7 +106,7 @@ def _warn_inert(cfg: FmConfig) -> None:
     if inert:
         log.warning(
             "the PyTorch port's server does not act on %s yet (ROADMAP.md "
-            "port queue item 4); scores are unaffected", ", ".join(inert),
+            "port queue item 4c); scores are unaffected", ", ".join(inert),
         )
 
 
@@ -386,10 +394,16 @@ class ServeServer:
 class ServeHandle:
     """One running serving stack; ``close()`` tears it down in order
     (HTTP stops accepting, the watcher's thread stops, the batcher
-    drains and fails what is left, then the capture file closes)."""
+    drains and fails what is left, the heartbeat stops, the final record
+    is written (naming :attr:`exception` when one stopped the server),
+    then the capture file and the stream close).  ``alert_engine`` is
+    the ``alert_rules`` watchdog (None without rules): an embedder polls
+    its ``halted``."""
 
     def __init__(self, cfg: FmConfig, scorer, batcher, server,
-                 telemetry: Telemetry, watcher=None, capture=None):
+                 telemetry: Telemetry, watcher=None, capture=None,
+                 writer=None, heartbeat=None, build=None,
+                 alert_engine=None):
         self.cfg = cfg
         self.scorer = scorer
         self.batcher = batcher
@@ -398,6 +412,11 @@ class ServeHandle:
         self.capture = capture
         self.telemetry = telemetry
         self.port = server.port
+        self.alert_engine = alert_engine
+        self.exception: Optional[BaseException] = None
+        self._writer = writer
+        self._heartbeat = heartbeat
+        self._build = build
         self._closed = False
 
     def close(self) -> None:
@@ -408,8 +427,21 @@ class ServeHandle:
         if self.watcher is not None:
             self.watcher.close()
         self.batcher.close()
+        if self._heartbeat is not None:
+            self._heartbeat.close()
+        if self._writer is not None:
+            try:
+                final = self._build("final")
+                if self.exception is not None:
+                    final["exception"] = type(self.exception).__name__
+                    final["exception_msg"] = str(self.exception)
+                self._writer.write(final)
+            except Exception as e:  # noqa: BLE001 - teardown best-effort
+                log.warning("serve final record write failed: %s", e)
         if self.capture is not None:
             self.capture.close()
+        if self._writer is not None:
+            self._writer.close()
 
 
 def _serve_block(snap: dict, scorer, batcher, wall: float) -> dict:
@@ -514,8 +546,50 @@ def serve(cfg: FmConfig,
         }
         if cfg.resource_metrics:
             rec["resource"] = basic_block(t0)
+        if alert_engine is not None:
+            rec["alerts"] = alert_engine.active_snapshot()
         return rec
 
+    writer = JsonlWriter(cfg.metrics_file) if cfg.metrics_file else None
+    if writer is not None:
+        writer.write({
+            "record": "run_header",
+            "mode": "serve",
+            "time": t0,
+            "model_file": cfg.model_file,
+            "resume_step": scorer.step,
+            "serve_batch_sizes": list(scorer.ladder),
+            "max_batch_wait_ms": cfg.max_batch_wait_ms,
+            "serve_poll_secs": cfg.serve_poll_secs,
+            "serve_transport": cfg.serve_transport,
+            "serve_parse_mode": cfg.serve_parse_mode,
+            "serve_http_threads": cfg.serve_http_threads,
+            "serve_http_acceptors": cfg.serve_http_acceptors,
+            "serve_request_queue_size": ObsHTTPServer.request_queue_size,
+            "batch_size": cfg.batch_size,
+            "telemetry": cfg.telemetry,
+            "heartbeat_secs": cfg.heartbeat_secs,
+            "alert_rules": cfg.alert_rules,
+            "torch_version": torch.__version__,
+            "device": (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu"),
+            "serve_capture_sample": cfg.serve_capture_sample,
+        })
+    # Alert watchdog on the serve heartbeat (FmConfig guarantees
+    # heartbeat_secs > 0 when rules are set): breaches write `record:
+    # alert`; a halt rule arms alert_engine.halted, which serve_forever
+    # raises.
+    alert_engine = (AlertEngine(parse_rules(cfg.alert_rules), writer=writer)
+                    if cfg.alert_rules else None)
+
+    def heartbeat_build():
+        rec = build("heartbeat")
+        if alert_engine is not None:
+            alert_engine.observe(rec)
+        return rec
+
+    heartbeat = (Heartbeat(cfg.heartbeat_secs, heartbeat_build, writer=writer)
+                 if cfg.heartbeat_secs > 0 else None)
     watcher = None
     try:
         if cfg.serve_poll_secs > 0:
@@ -527,13 +601,17 @@ def serve(cfg: FmConfig,
             slo=slo, capture=capture,
         )
     except BaseException:
-        # A taken port must not leak the watcher's or the batcher's
-        # thread, or the capture file.
+        # A taken port must not leak the watcher's, the batcher's or the
+        # heartbeat's thread, or the capture file and the stream.
         if watcher is not None:
             watcher.close()
         batcher.close()
+        if heartbeat is not None:
+            heartbeat.close()
         if capture is not None:
             capture.close()
+        if writer is not None:
+            writer.close()
         raise
     log.info(
         "scoring endpoint listening on %s:%d (POST /score, /score_bin, "
@@ -541,13 +619,17 @@ def serve(cfg: FmConfig,
         cfg.serve_host, server.port,
     )
     return ServeHandle(cfg, scorer, batcher, server, telemetry,
-                       watcher=watcher, capture=capture)
+                       watcher=watcher, capture=capture, writer=writer,
+                       heartbeat=heartbeat, build=build,
+                       alert_engine=alert_engine)
 
 
 def serve_forever(cfg: FmConfig,
                   device: Optional[Union[str, torch.device]] = None) -> int:
     """CLI entry: serve until interrupted.  SIGTERM and SIGINT both
-    close cleanly."""
+    close cleanly (the final record is written); an armed ``action:
+    halt`` alert rule stops the server with a final record naming
+    :class:`AlertHaltError` and exit code 1."""
     handle = serve(cfg, device=device)
     print(f"serving on {cfg.serve_host}:{handle.port}", flush=True)
 
@@ -555,11 +637,16 @@ def serve_forever(cfg: FmConfig,
         raise KeyboardInterrupt
 
     prev = signal.signal(signal.SIGTERM, _sigterm)
+    code = 0
     try:
-        threading.Event().wait()
+        run_until_halt(handle.alert_engine)
     except KeyboardInterrupt:
         log.info("interrupted; shutting down the scoring endpoint")
+    except AlertHaltError as e:
+        log.error("HALT: %s", e)
+        handle.exception = e
+        code = 1
     finally:
         handle.close()
         signal.signal(signal.SIGTERM, prev)
-    return 0
+    return code

@@ -1,5 +1,16 @@
-"""Ratio-diff two runs: ``python -m fast_tffm_tpu_torch.tools.report
---compare A B [--threshold FLOAT|KEY=FLOAT ...]``.
+"""Summarize a metrics stream, or ratio-diff two runs.
+
+``python -m fast_tffm_tpu_torch.tools.report METRICS.jsonl [...]`` (the
+default mode): the run header, the train and validation progression,
+the alerts, and the final record's breakdown (the wall-clock split,
+the data-integrity counters, the training-health block, the resource,
+serve and tiered blocks, the stage timers, gauges, counters and queue
+depths), or the last heartbeat of a run that died without one.  With
+several streams (a fleet's ``metrics_file`` and its ``.rankN`` files)
+it prints a per-rank table and the slowest rank's breakdown.
+
+``python -m fast_tffm_tpu_torch.tools.report --compare A B [--threshold
+FLOAT|KEY=FLOAT ...]``:
 
 A and B are metrics JSONLs or bench-style JSONs (one object with a
 ``metric`` key, like the canary's shadow-score statistics that
@@ -10,10 +21,12 @@ times and losses when they rise, and the canary's score-distribution
 keys in either direction.  Exit codes: 0 within threshold, 2 when any
 key regressed, 1 when the two files share no numeric key.
 
-The PyTorch port's copy of the ``--compare`` mode of the repo's
-``tools/report.py`` (the canary gate runs it), with the same direction
-vocabulary, output lines and exit codes; the summary, trace, timeline
-and incident modes are not in the port.  Stdlib only.
+The PyTorch port's copy of the summary and ``--compare`` modes of the
+repo's ``tools/report.py`` (the canary gate runs ``--compare``), with
+the same sections, direction vocabulary, output lines and exit codes
+(the header names ``torch_version`` where the repo's names
+``jax_version``); the trace, timeline and incident modes are not in the
+port.  Stdlib only.
 """
 
 from __future__ import annotations
@@ -22,7 +35,8 @@ import argparse
 import json
 import sys
 
-__all__ = ["compare_mode", "main", "parse_thresholds"]
+__all__ = ["compare_mode", "load", "main", "parse_thresholds",
+           "summary_mode"]
 
 
 def _classify(rec: dict) -> str:
@@ -54,6 +68,317 @@ def load(path: str) -> dict:
             groups.setdefault(_classify(rec), []).append(rec)
     return groups
 
+
+
+# ---------------------------------------------------------------------------
+# the summary of a metrics stream (the default mode)
+# ---------------------------------------------------------------------------
+
+
+def _fmt_rate(v: float) -> str:
+    if v >= 1e6:
+        return f"{v / 1e6:.2f}M"
+    if v >= 1e3:
+        return f"{v / 1e3:.1f}k"
+    return f"{v:.0f}"
+
+
+def _print_header(header: dict) -> None:
+    print("run:")
+    for key in (
+        "mode", "model_file", "serve_batch_sizes", "max_batch_wait_ms",
+        "serve_poll_secs",
+        "rank", "config_fingerprint", "steps_per_dispatch", "ingest_mode",
+        "fast_ingest", "cache_epochs", "cache_prestacked", "ring_slots",
+        "batch_size", "epoch_num",
+        "optimizer", "backend", "torch_version", "device", "mesh",
+        "telemetry",
+        "resource_metrics",
+        "heartbeat_secs", "resume_step", "resume_epoch", "resume_skip",
+    ):
+        if key in header:
+            print(f"  {key:20s} {header[key]}")
+
+
+def _print_progress(trains: list, valids: list, limit: int) -> None:
+    if trains:
+        print(f"\ntrain records ({len(trains)}; showing last {limit}):")
+        print(f"  {'step':>8} {'examples':>12} {'loss':>9} {'auc':>7} "
+              f"{'ex/s':>9}")
+        for r in trains[-limit:]:
+            print(
+                f"  {r.get('step', 0):>8} {r.get('examples', 0):>12.0f} "
+                f"{r.get('loss', float('nan')):>9.5f} "
+                f"{r.get('auc', float('nan')):>7.4f} "
+                f"{_fmt_rate(r.get('examples_per_sec', 0.0)):>9}"
+            )
+    if valids:
+        print(f"\nvalidation records ({len(valids)}; showing last {limit}):")
+        for r in valids[-limit:]:
+            loss = r.get("validation_loss", r.get("loss", float("nan")))
+            auc = r.get("validation_auc", r.get("auc", float("nan")))
+            print(f"  step {r.get('step', '?'):>8}  loss {loss:.5f}  "
+                  f"auc {auc:.4f}")
+
+
+def _print_breakdown(rec: dict) -> None:
+    kind = rec.get("record", "final")
+    wall = max(rec.get("elapsed", 0.0), 1e-9)
+    wait = rec.get("wait_input_s", 0.0)
+    disp = rec.get("dispatch_s", 0.0)
+    other = rec.get("other_s", max(0.0, wall - wait - disp))
+    frac = rec.get("ingest_wait_frac", wait / wall)
+    if rec.get("exception"):
+        print(f"\n  !! run DIED with {rec['exception']}: "
+              f"{rec.get('exception_msg', '')}")
+    # Serve streams carry no training attribution (no ingest, no
+    # dispatch loop) — the serve section below is their breakdown.
+    training_rec = "wait_input_s" in rec or "serve" not in rec
+    if training_rec:
+        print(f"\nwall-clock attribution ({kind} record, step "
+              f"{rec.get('step', '?')}, {wall:.1f}s):")
+        print(f"  waiting for input   {wait:>9.2f}s  "
+              f"({100 * wait / wall:5.1f}%)"
+              f"   <- starvation: ingest too slow")
+        print(f"  dispatch            {disp:>9.2f}s  "
+              f"({100 * disp / wall:5.1f}%)"
+              f"   <- enqueue + device backpressure")
+        print(f"  other               {other:>9.2f}s  "
+              f"({100 * other / wall:5.1f}%)   <- logging/validation/save")
+        verdict = (
+            "INGEST-BOUND (grow thread_num/parse_processes, or "
+            "cache_epochs)"
+            if frac > 0.25 else "compute-bound (ingest keeps up)"
+        )
+        print(f"  ingest_wait_frac    {frac:>9.3f}    -> {verdict}")
+    else:
+        print(f"\nserving run ({kind} record, checkpoint step "
+              f"{rec.get('step', '?')}, {wall:.1f}s up)")
+    for key in ("truncated_features", "out_of_range_batches",
+                "ingest_cache", "examples_in"):
+        if key in rec:
+            print(f"  {key:22s} {rec[key]}")
+    health = rec.get("health") or {}
+    if health:
+        print("\ntraining health (scan-carry monitors):")
+        for key in ("grad_norm", "grad_norm_rms", "nonfinite_steps",
+                    "first_nonfinite_step", "emb_rows_touched",
+                    "emb_row_occupancy", "emb_touch_events"):
+            if key in health:
+                print(f"  {key:22s} {health[key]}")
+        if health.get("nonfinite_steps", 0):
+            print("  !! non-finite gradients occurred — the model is "
+                  "numerically unhealthy (see nan_policy)")
+    if rec.get("trace_dropped_events"):
+        print(f"\n  !! trace TRUNCATED: {rec['trace_dropped_events']} "
+              "event(s) dropped at the buffer cap — chains stop mid-run")
+    resource = rec.get("resource")
+    if resource:
+        print("\nmemory & compile (resource block):")
+        for key in ("rss_mb", "peak_rss_mb", "device_bytes_in_use",
+                    "device_peak_bytes", "device_bytes_est"):
+            if key in resource:
+                print(f"  {key:22s} {resource[key]}")
+        comps = [
+            (k, resource[k]) for k in (
+                "ring_bytes", "staging_bytes", "cache_bytes",
+                "cold_store_bytes", "trace_buffer_bytes",
+            ) if resource.get(k)
+        ]
+        if comps:
+            print("  component host-memory ledger:")
+            for name, v in comps:
+                print(f"    {name:20s} {v / (1 << 20):10.1f} MiB")
+        for key in ("compiles", "compile_s", "recompiles_unexpected",
+                    "flops_per_dispatch", "bytes_per_dispatch",
+                    "arithmetic_intensity", "model_flops_per_s"):
+            if key in resource:
+                print(f"  {key:22s} {resource[key]}")
+        if resource.get("recompiles_unexpected"):
+            print("  !! UNEXPECTED recompile(s) mid-run — the input "
+                  "stream changed shape under the trainer (only the "
+                  "epoch-tail K' compile is whitelisted)")
+    else:
+        print("\nmemory & compile: n/a (stream has no resource block — "
+              "pre-resource run or resource_metrics=off)")
+    serve = rec.get("serve")
+    if serve:
+        print("\nserving (latency under load):")
+        for key in ("requests", "examples", "batches", "qps",
+                    "p50_ms", "p95_ms", "p99_ms", "max_ms",
+                    "parse_p50_ms", "batch_fill", "swaps", "compiles",
+                    "steady_compiles", "recompiles_unexpected",
+                    "table_mb", "quant_error_max",
+                    "shed", "shed_frac", "replicas",
+                    "replicas_healthy", "evictions", "respawns",
+                    "replicas_scraped", "fleet_qps", "fleet_p50_ms",
+                    "fleet_p99_ms", "fleet_scrape_age_max_s",
+                    "slo_bad_frac", "burn_rate"):
+            if key in serve:
+                print(f"  {key:22s} {serve[key]}")
+        if serve.get("steady_compiles"):
+            print("  !! compiles happened AFTER warmup — a request "
+                  "shape escaped the serve_batch_sizes ladder (a "
+                  "multi-second latency cliff on the hot path)")
+        if serve.get("burn_rate", 0) > 1:
+            print("  !! SLO error budget is burning faster than it "
+                  "accrues (burn_rate > 1) — the fleet is out of SLO")
+    else:
+        print("\nserving: n/a (stream has no serve block — training "
+              "run or pre-serve stream)")
+    quality = rec.get("quality")
+    if quality:
+        print("\nquality & drift (model-quality block):")
+        for key in ("examples", "window_examples", "logloss", "auc",
+                    "score_mean", "label_rate", "calib_ratio",
+                    "logloss_drift", "psi_values", "psi_lengths",
+                    "psi_ids", "psi_scores", "psi_max",
+                    "sketch_examples"):
+            if key in quality:
+                print(f"  {key:22s} {quality[key]}")
+        if quality.get("psi_max", 0.0) > 0.25:
+            print("  !! adjacent-window PSI above 0.25 — the input "
+                  "distribution SHIFTED mid-run (0.1-0.25 reads as "
+                  "drifting, > 0.25 as shifted)")
+        calib = quality.get("calib_ratio")
+        if calib is not None and not 0.8 <= calib <= 1.25:
+            print("  !! calibration ratio far from 1.0 — mean "
+                  "predicted rate disagrees with the observed label "
+                  "rate")
+    else:
+        print("\nquality & drift: n/a (stream has no quality block — "
+              "pre-quality run or quality=off)")
+    tiered = rec.get("tiered") or {}
+    if tiered:
+        print("\ntiered embedding table (hot/cold migration):")
+        for key in ("hot_rows", "vocab", "resident_rows", "rows_seen",
+                    "hot_hit_frac", "hit_occurrences", "miss_occurrences",
+                    "rows_loaded", "rows_evicted", "writeback_rows",
+                    "oor_occurrences", "cold_store_bytes"):
+            if key in tiered:
+                print(f"  {key:22s} {tiered[key]}")
+        if tiered.get("hot_hit_frac", 1.0) < 0.9:
+            print("  !! hot-set hit fraction is low — the hot table is "
+                  "churning; consider raising hot_rows")
+    stages = rec.get("stages") or {}
+    timers = stages.get("timers") or {}
+    if timers:
+        print("\nstage timers:")
+        print(f"  {'stage':24} {'count':>8} {'total_s':>9} {'p50_ms':>8} "
+              f"{'p95_ms':>8} {'max_ms':>8}")
+        for name in sorted(timers):
+            t = timers[name]
+            print(
+                f"  {name:24} {t.get('count', 0):>8} "
+                f"{t.get('total_s', 0.0):>9.2f} {t.get('p50_ms', 0.0):>8.2f} "
+                f"{t.get('p95_ms', 0.0):>8.2f} {t.get('max_ms', 0.0):>8.2f}"
+            )
+    gauges = stages.get("gauges") or {}
+    if gauges:
+        print("\ngauges (at snapshot time):")
+        for name in sorted(gauges):
+            print(f"  {name:24} {gauges[name]}")
+    counters = stages.get("counters") or {}
+    if counters:
+        print("\ncounters:")
+        for name in sorted(counters):
+            print(f"  {name:24} {counters[name]}")
+    depths = stages.get("depths") or {}
+    depths = {k: d for k, d in depths.items() if d.get("count")}
+    if depths:
+        print("\nqueue depths (per put/get histogram):")
+        print(f"  {'queue':24} {'events':>8} {'mean':>6} {'max':>5}  "
+              f"occupancy")
+        for name in sorted(depths):
+            d = depths[name]
+            buckets = " ".join(
+                f"{k}:{v}" for k, v in (d.get("buckets") or {}).items()
+            )
+            print(
+                f"  {name:24} {d['count']:>8} {d.get('mean', 0):>6} "
+                f"{d.get('max', 0):>5}  {buckets}"
+            )
+
+
+def _print_alerts(alerts: list, limit: int = 8) -> None:
+    """Watchdog summary: per-rule fire counts + the most recent
+    alerts.  A halt rule is the headline — it is why the run stopped."""
+    if not alerts:
+        return
+    per_rule: dict = {}
+    for a in alerts:
+        per_rule.setdefault(a.get("rule", "?"), []).append(a)
+    n_halt = sum(1 for a in alerts if a.get("action") == "halt")
+    print(f"\nalerts ({len(alerts)} fired"
+          + (f", {n_halt} HALT" if n_halt else "") + "):")
+    print(f"  {'rule':36} {'fires':>6} {'action':>6}  last value")
+    for rule in sorted(per_rule):
+        rows = per_rule[rule]
+        last = rows[-1]
+        print(
+            f"  {rule:36} {len(rows):>6} {last.get('action', '?'):>6}  "
+            f"{last.get('signal')}={last.get('value')} at step "
+            f"{last.get('step')}"
+        )
+    for a in alerts[-limit:]:
+        print(
+            f"    step {a.get('step', '?'):>6}  {a.get('rule')}: "
+            f"{a.get('signal')}={a.get('value')} {a.get('op')} "
+            f"{a.get('threshold')} -> {a.get('action')}"
+        )
+
+
+def _stream_rank(groups: dict, fallback: int) -> int:
+    headers = groups.get("run_header", [])
+    if headers and "rank" in headers[-1]:
+        return int(headers[-1]["rank"])
+    return fallback
+
+
+def _merge_ranks(streams: list) -> int:
+    """Fleet view over per-rank metrics files: a rank attribution table
+    + the slowest rank's full breakdown."""
+    rows = []
+    for path, groups in streams:
+        rank = _stream_rank(groups, len(rows))
+        final = (groups.get("final") or groups.get("heartbeat") or [None])
+        rows.append((rank, path, groups, final[-1]))
+    rows.sort(key=lambda r: r[0])
+    print(f"merged {len(rows)} rank streams: "
+          f"{', '.join(str(r[0]) for r in rows)}")
+    headers = rows[0][2].get("run_header", [])
+    if headers:
+        _print_header(headers[-1])
+        fps = {
+            (r[2].get("run_header") or [{}])[-1].get("config_fingerprint")
+            for r in rows
+        }
+        if len(fps) > 1:
+            print("  ! config fingerprints DIFFER across ranks:", fps)
+    print("\nper-rank attribution:")
+    print(f"  {'rank':>4} {'step':>8} {'elapsed':>9} {'wait_frac':>9} "
+          f"{'examples_in':>12} {'alerts':>6}  verdict")
+    slowest = None
+    for rank, path, groups, final in rows:
+        if final is None:
+            print(f"  {rank:>4} {'?':>8} {'?':>9} {'?':>9} {'?':>12} "
+                  f"{'?':>6}  no final/heartbeat record ({path})")
+            continue
+        frac = final.get("ingest_wait_frac", 0.0)
+        verdict = "ingest-bound" if frac > 0.25 else "compute-bound"
+        print(
+            f"  {rank:>4} {final.get('step', 0):>8} "
+            f"{final.get('elapsed', 0.0):>9.1f} {frac:>9.3f} "
+            f"{final.get('examples_in', 0):>12} "
+            f"{len(groups.get('alert', [])):>6}  {verdict}"
+        )
+        if slowest is None or frac > slowest[1].get("ingest_wait_frac", 0):
+            slowest = (rank, final)
+    if slowest is not None:
+        print(f"\nslowest rank: {slowest[0]} (the step waits for every "
+              f"host — this rank sets the fleet's pace)")
+        _print_breakdown(slowest[1])
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -472,13 +797,54 @@ def compare_mode(path_a: str, path_b: str, thresholds: dict) -> int:
     return 0
 
 
+def summary_mode(paths: list, limit: int = 8) -> int:
+    """The default mode: one stream's header, progression, alerts and
+    end-of-run breakdown, or with several paths the per-rank merge."""
+    streams = []
+    for path in paths:
+        groups = load(path)
+        if groups:
+            streams.append((path, groups))
+        else:
+            print(f"{path}: no records")
+    if not streams:
+        return 1
+    if len(streams) > 1:
+        return _merge_ranks(streams)
+    groups = streams[0][1]
+    headers = groups.get("run_header", [])
+    if headers:
+        _print_header(headers[-1])
+    _print_progress(
+        groups.get("train", []), groups.get("validation", []), limit
+    )
+    _print_alerts(groups.get("alert", []), limit)
+    # The final record is the exact end-of-run report; fall back to the
+    # last heartbeat for a run that died mid-flight.
+    final = groups.get("final") or groups.get("heartbeat")
+    if final:
+        _print_breakdown(final[-1])
+        hbs = groups.get("heartbeat", [])
+        if hbs:
+            print(f"\nheartbeats: {len(hbs)} "
+                  f"(last at elapsed {hbs[-1].get('elapsed', 0.0):.1f}s)")
+    else:
+        print("\nno heartbeat/final records (heartbeat_secs=0 and the run "
+              "died before the final record)")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m fast_tffm_tpu_torch.tools.report",
-        description="ratio-diff two runs (metrics JSONLs or bench JSONs)",
+        description="summarize metrics JSONLs, or ratio-diff two runs",
     )
     ap.add_argument("paths", nargs="+",
-                    help="exactly two artifacts with --compare")
+                    help="metrics_file JSONL(s) (one per rank to merge "
+                         "a fleet); exactly two artifacts with --compare")
+    ap.add_argument("--limit", type=int, default=8,
+                    help="train/validation rows and alerts to show "
+                         "(default 8)")
     ap.add_argument("--compare", action="store_true",
                     help="ratio-diff exactly two runs (metrics JSONLs "
                          "or bench JSONs); exit 2 on regression")
@@ -491,8 +857,7 @@ def main(argv=None) -> int:
                          "default=0.05")
     args = ap.parse_args(argv)
     if not args.compare:
-        ap.error("only --compare is in the port; the other modes are "
-                 "the repo's tools/report.py")
+        return summary_mode(args.paths, args.limit)
     if len(args.paths) != 2:
         ap.error("--compare takes exactly two paths")
     return compare_mode(

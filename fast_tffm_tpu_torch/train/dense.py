@@ -66,10 +66,14 @@ from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data.libsvm import Batch
 from fast_tffm_tpu_torch.models.fm import FmModel
 from fast_tffm_tpu_torch.ops import sparse_apply
-from fast_tffm_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, psum
+from fast_tffm_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, Mesh, psum,
+)
 from fast_tffm_tpu_torch.train.optimizers import apply_dense
-from fast_tffm_tpu_torch.train.shardmap_step import shard_row_grads, w0_grad
-from fast_tffm_tpu_torch.train.sparse import row_grads
+from fast_tffm_tpu_torch.train.shardmap_step import (
+    health_pair, health_terms, shard_row_grads, w0_grad,
+)
+from fast_tffm_tpu_torch.train.sparse import grad_health, row_grads
 
 __all__ = ["dense_step", "dense_step_sharded"]
 
@@ -91,11 +95,14 @@ def _add_full_l2(cfg: FmConfig, w0, table, dw0, dtable):
 
 
 def dense_step(cfg: FmConfig, model: FmModel, opt_state, batch: Batch,
-               plain: bool = False) -> torch.Tensor:
+               plain: bool = False, health: bool = False):
     """One dense train step on a device :class:`Batch`: updates ``model``
     and ``opt_state`` in place and returns the step's raw scores
-    ``[B]``.  The batch's ``sort_meta`` is used when present, else the
-    ids are sorted on the device.  ``plain=True`` runs the kernels'
+    ``[B]``, and with ``health`` also the ``train/sparse.py::
+    grad_health`` pair of the whole gradient it applied (the reference's
+    ``_tree_grad_health``: more passes over the ``[V, D]`` gradient).
+    The batch's ``sort_meta`` is used when present, else the ids are
+    sorted on the device.  ``plain=True`` runs the kernels'
     plain versions on any device."""
     table = model.table
     scores, dw0, drows = row_grads(cfg, model, batch, plain)
@@ -103,17 +110,22 @@ def dense_step(cfg: FmConfig, model: FmModel, opt_state, batch: Batch,
         dtable = sparse_apply.dense_grad(batch.ids, drows, table.shape[0],
                                          meta=batch.sort_meta, plain=plain)
         dw0 = _add_full_l2(cfg, model.w0, table, dw0, dtable)
+        pair = grad_health(dtable, dw0) if health else None
         apply_dense(cfg, model, opt_state, dw0, dtable)
-    return scores
+    return (scores, pair) if health else scores
 
 
 def dense_step_sharded(cfg: FmConfig, model_l: FmModel, opt_state_l,
-                       batch_l: Batch, mesh: Mesh) -> torch.Tensor:
+                       batch_l: Batch, mesh: Mesh, health: bool = False):
     """One dense step on this rank of ``mesh``: ``model_l`` and
     ``opt_state_l`` hold the rank's model shard (``w0``, its optimizer
     scalars and Adam's count replicated), ``batch_l`` its data block on
     the rank's device.  Updates both in place and returns the block's
-    raw scores ``[b]``.  Every rank calls it in lockstep."""
+    raw scores ``[b]``, and with ``health`` the global ``grad_health``
+    pair of the whole gradient: the shard's gradient is already summed
+    over ``data``, so its squares and non-finite count are summed over
+    ``model`` (one sum of two numbers), and ``dw0`` is global.
+    Every rank calls it in lockstep."""
     grads = shard_row_grads(cfg, model_l, batch_l, mesh)
     table_l = model_l.table
     with torch.no_grad():
@@ -125,5 +137,7 @@ def dense_step_sharded(cfg: FmConfig, model_l: FmModel, opt_state_l,
         dtable = psum(dtable, DATA_AXIS, mesh)
         dw0 = _add_full_l2(cfg, w0, table_l, w0_grad(cfg, w0, grads.g, mesh),
                            dtable)
+        pair = (health_pair(psum(health_terms(dtable), MODEL_AXIS, mesh),
+                            dw0) if health else None)
         apply_dense(cfg, model_l, opt_state_l, dw0, dtable)
-    return grads.scores
+    return (grads.scores, pair) if health else grads.scores

@@ -9,8 +9,11 @@ dense step with the host sort meta (``host_sort = true``, the default):
 - **The step it captures** is the trainer's own: ``steps(sb)`` runs the K
   steps of a super-batch on its views (``SuperBatch.step``: the whole
   ``seg_start`` slot, so no shape of K1's, K2's or K-place's depends on
-  a batch's unique count), with the metrics updated
-  in place.  Nothing in it reads the device from the host.  The eager
+  a batch's unique count), with the metrics and the health carry
+  (``train/loop.py::HealthState``: each step's gradient-health pair, the
+  touched rows and the device step counter) updated in place, so one
+  replay advances the carry K times.  Nothing in it reads the device
+  from the host.  The eager
   dispatches run the same function, so a replay is bitwise the K eager
   steps it stands for (the AUC histogram's float atomics are exact for
   0/1 weights only; the tables never depend on them).

@@ -85,13 +85,30 @@ remapped ids on the device and run eagerly; evaluation scores the
 merged logical table, and a save writes the logical table
 (``params.npz`` when it fits the dense format, else ``tiered.npz``).
 
-Settings that never change a parameter (the reference's observability
-planes and interaction choices) are accepted and logged as inert.
+Every dispatch of ``train()`` also advances the health carry
+(:class:`HealthState`: the last and summed squared gradient norms, the
+non-finite steps and the first of them, the touched rows and
+occurrences), on the device and inside the CUDA graph; the host reads
+its scalars one dispatch late, through a pinned slot and an event, and
+applies ``nan_policy`` (``warn``, or ``halt`` with
+:class:`NonFiniteGradError` and no checkpoint written).  The run
+reports through the reference's planes: the ``telemetry`` registry
+(``obs/telemetry.py``; the pipeline's and transfer stage's instruments,
+``train.wait_input``, ``train.dispatch``, ``train.migrate``), the
+``metrics_file`` stream (a ``.rankN`` file a rank), ``heartbeat_secs``,
+the ``status_port`` endpoint and ``alert_rules``; the results carry the
+exact ``health`` summary.  ``Trainer.device_step`` and ``train_step``
+carry no health, as the reference's ``_train_step``.  The remaining
+observability planes (quality, trace, blackbox, profiler, the training
+fleet's scrape, the compile cache) and the interaction choices are
+accepted and logged as inert: none changes a parameter.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import logging
 import time
 from typing import NamedTuple, Optional, Union
@@ -106,6 +123,13 @@ from fast_tffm_tpu_torch.data.prefetch import (
     DevicePrefetcher, Packer, SuperBatch,
 )
 from fast_tffm_tpu_torch.models import fm
+from fast_tffm_tpu_torch.obs.alerts import AlertEngine, halt_error, parse_rules
+from fast_tffm_tpu_torch.obs.heartbeat import (
+    Heartbeat, JsonlWriter, rank_suffix_path,
+)
+from fast_tffm_tpu_torch.obs.resource import basic_block
+from fast_tffm_tpu_torch.obs.status import StatusServer
+from fast_tffm_tpu_torch.obs.telemetry import Telemetry
 from fast_tffm_tpu_torch.ops import sparse_apply
 from fast_tffm_tpu_torch.parallel.mesh import (
     DATA_AXIS, Mesh, barrier, data_partition, make_mesh, psum,
@@ -128,24 +152,22 @@ from fast_tffm_tpu_torch.train.sparse import (
 
 log = logging.getLogger(__name__)
 
-__all__ = ["MetricState", "Trainer", "predict"]
+__all__ = ["HealthState", "MetricState", "NonFiniteGradError", "Trainer",
+           "config_fingerprint", "predict"]
 
 # (setting, description) pairs of observability planes the port's
-# trainer accepts but does not run yet (ROADMAP.md port queue item 4);
+# trainer accepts but does not run yet (ROADMAP.md port queue item 4c);
 # none of them changes a parameter.
 _INERT_PLANES = (
-    ("nan_policy", "health monitors and nan_policy"),
     ("quality", "quality plane"),
     ("trace_file", "trace"),
-    ("heartbeat_secs", "heartbeat"),
     ("blackbox", "blackbox"),
-    ("metrics_file", "metrics stream"),
-    ("status_port", "status endpoint"),
-    ("alert_rules", "alerts"),
     ("profile_dir", "profiler"),
+    ("train_fleet_scrape", "training-fleet scrape"),
+    ("compile_cache_dir", "compile cache"),
 )
 # Interaction choices of the reference (its autotune, ROADMAP.md port
-# queue item 4): the port always runs its kernels, so none changes a
+# queue item 4d): the port always runs its kernels, so none changes a
 # parameter.
 _INERT_INTERACTION = ("interaction", "interaction_impl", "use_pallas")
 
@@ -174,7 +196,8 @@ def _log_inert(cfg: FmConfig) -> None:
     if inert:
         log.info(
             "the PyTorch port's trainer does not run these planes yet "
-            "(ROADMAP.md port queue item 4; parameters are unaffected): %s",
+            "(ROADMAP.md port queue item 4c; parameters are unaffected): "
+            "%s",
             ", ".join(inert),
         )
     defaults = FmConfig()
@@ -183,7 +206,7 @@ def _log_inert(cfg: FmConfig) -> None:
     if knobs:
         log.info(
             "the PyTorch port's trainer always runs its kernels and does "
-            "not act on %s (ROADMAP.md port queue item 4; parameters are "
+            "not act on %s (ROADMAP.md port queue item 4d; parameters are "
             "unaffected)", ", ".join(knobs),
         )
 
@@ -406,6 +429,98 @@ class MetricState(NamedTuple):
         return out
 
 
+class NonFiniteGradError(RuntimeError):
+    """Raised by ``nan_policy = halt`` when a dispatch produced a
+    non-finite (NaN/inf) gradient.  Training stops WITHOUT overwriting
+    the checkpoint with poisoned parameters (periodic saves from before
+    the event survive); the metrics stream's final record carries the
+    exception type and the health counters."""
+
+
+class HealthState(NamedTuple):
+    """The training-health carry (``fast_tffm_tpu/train/loop.py::
+    HealthState``), device tensors updated IN PLACE once per step of a
+    ``train()`` dispatch, inside a CUDA graph's replay too: every tensor
+    keeps its address for the trainer's life, and ``step`` (the run's
+    steps so far) is advanced on the device, so a replay stamps
+    ``first_nonfinite_step`` with the step it trained.  The host reads
+    the carry only at dispatch boundaries, one dispatch late."""
+
+    grad_sq_last: torch.Tensor  # f32: the last step's squared grad norm
+    grad_sq_sum: torch.Tensor  # f32: summed over the run (RMS)
+    nonfinite_steps: torch.Tensor  # i32: steps with a non-finite grad
+    first_nonfinite_step: torch.Tensor  # i32: the run's step, -1 never
+    # f32 as the reference's: exact to 2^24 occurrences.
+    touch_events: torch.Tensor  # f32: real (val != 0) occurrences
+    # bool [V + 1]: rows touched this run; the last entry takes the
+    # padded occurrences, which count nowhere.
+    rows_seen: torch.Tensor
+    step: torch.Tensor  # i32: steps of this run so far
+
+    @staticmethod
+    def zeros(vocab: int, device) -> "HealthState":
+        def z(dtype):
+            return torch.zeros((), dtype=dtype, device=device)
+
+        return HealthState(
+            z(torch.float32), z(torch.float32), z(torch.int32),
+            torch.full((), -1, dtype=torch.int32, device=device),
+            z(torch.float32),
+            torch.zeros((vocab + 1,), dtype=torch.bool, device=device),
+            z(torch.int32))
+
+    @property
+    def rows_touched(self) -> torch.Tensor:
+        return self.rows_seen[:-1]
+
+    def reset_(self) -> None:
+        """Back to a fresh run, in place (a captured graph holds these
+        tensors)."""
+        for t in (self.grad_sq_last, self.grad_sq_sum, self.nonfinite_steps,
+                  self.touch_events, self.rows_seen, self.step):
+            t.zero_()
+        self.first_nonfinite_step.fill_(-1)
+
+    def update_(self, grad_sq: torch.Tensor, nonfinite: torch.Tensor,
+                batch: Batch) -> None:
+        """Fold one step's ``(grad_sq, nonfinite)`` pair and its batch's
+        real ids into the carry, on the device (the reference's
+        ``make_health_update``)."""
+        vocab = self.rows_seen.numel() - 1
+        bad = nonfinite > 0
+        real = batch.vals.reshape(-1) != 0
+        ids = torch.where(real, batch.ids.reshape(-1).long(), vocab)
+        self.grad_sq_last.copy_(grad_sq)
+        self.grad_sq_sum.add_(grad_sq)
+        self.nonfinite_steps.add_(bad.to(torch.int32))
+        self.first_nonfinite_step.copy_(torch.where(
+            bad & (self.first_nonfinite_step < 0), self.step,
+            self.first_nonfinite_step))
+        self.touch_events.add_(torch.count_nonzero(batch.vals))
+        self.rows_seen.index_fill_(0, ids, True)
+        self.step.add_(1)
+
+
+def config_fingerprint(cfg: FmConfig) -> str:
+    """Short stable hash of the FULL config, the run header's identity:
+    the reference's ``_config_fingerprint`` over the same ``FmConfig``
+    fields, so both packages give one config the same hash."""
+    blob = json.dumps(dataclasses.asdict(cfg), sort_keys=True, default=str)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+class _RunClock:
+    """The wall-clock split of a run, written by the loop's thread and
+    read by the heartbeat and HTTP threads (plain floats: no device
+    read): time waiting for input, in dispatches, and the steps so
+    far."""
+
+    def __init__(self) -> None:
+        self.t0 = time.time()
+        self.wait_s = self.dispatch_s = 0.0
+        self.steps = 0
+
+
 class Trainer:
     """Drives sparse or dense training per an :class:`FmConfig`, on
     ``device`` (the GPU unless asked otherwise): on one device, or as
@@ -441,6 +556,16 @@ class Trainer:
         # Updated in place, as the model and optimizer tensors are: a
         # captured graph holds all of them.
         self.metrics = MetricState.zeros(self.device)
+        # The health carry train()'s dispatches advance, and the two host
+        # slots its one-dispatch-late readback alternates between (pinned
+        # on the card, so the copy into them is asynchronous).
+        self.health = HealthState.zeros(self.dcfg.vocabulary_size,
+                                        self.device)
+        pin = self.device.type == "cuda"
+        self._health_slots = [torch.zeros(3, pin_memory=pin)
+                              for _ in range(2)]
+        self._health_host: dict = {}
+        self.telemetry = Telemetry(enabled=cfg.telemetry)
         # The input position a save records: the epoch, and the batches
         # of it that trained.
         self._epoch = self._batches_done = 0
@@ -455,7 +580,7 @@ class Trainer:
             return f"the {self.device.type} device has no CUDA graphs"
         if self.sharded:
             return ("the sharded step's collectives and device sort are "
-                    "not captured (ROADMAP.md port queue item 3)")
+                    "not captured (ROADMAP.md port queue item 7a)")
         if self.tiered is not None:
             return ("table_tiering=on migrates rows between dispatches and "
                     "sorts the remapped ids on the device, which reads the "
@@ -784,21 +909,29 @@ class Trainer:
         return to_device(batch, self.device)
 
     def device_step(self, dev_batch: Batch,
-                    rows_all: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    rows_all: Optional[torch.Tensor] = None,
+                    health: bool = False) -> torch.Tensor:
         """One step on a device :class:`Batch` (this rank's data block on
         a mesh, and with the overlap its gathered id plane ``rows_all``);
-        returns the batch's mean weighted data loss as a device
-        scalar."""
+        returns the batch's mean weighted data loss as a device scalar.
+        With ``health`` the step's gradient-health pair is folded into
+        :attr:`health` (what ``train()``'s dispatches run)."""
         if self.sharded and self.sparse:
-            scores = sparse_step_shardmap(self.dcfg, self.model,
-                                          self.opt_state, dev_batch,
-                                          self.mesh, rows_all)
+            out = sparse_step_shardmap(self.dcfg, self.model,
+                                       self.opt_state, dev_batch,
+                                       self.mesh, rows_all, health=health)
         elif self.sharded:
-            scores = dense_step_sharded(self.cfg, self.model, self.opt_state,
-                                        dev_batch, self.mesh)
+            out = dense_step_sharded(self.cfg, self.model, self.opt_state,
+                                     dev_batch, self.mesh, health=health)
         else:
             step = sparse_step if self.sparse else dense_step
-            scores = step(self.cfg, self.model, self.opt_state, dev_batch)
+            out = step(self.cfg, self.model, self.opt_state, dev_batch,
+                       health=health)
+        scores = out
+        if health:
+            scores, pair = out
+            with torch.no_grad():
+                self.health.update_(*pair, dev_batch)
         lsum, wsum = self.metrics.add_(scores, dev_batch, self.cfg.loss_type)
         return lsum / torch.clamp(wsum, min=1e-12)
 
@@ -808,9 +941,10 @@ class Trainer:
         count), what the graph captures; returns their losses ``[n]``.
         With the overlap, step ``i + 1``'s id plane is gathered while step
         ``i`` runs (the reference's ``make_scan_train_step`` prefetch; the
-        first step's is gathered before it)."""
+        first step's is gathered before it).  Each step advances the
+        health carry."""
         if not self.overlap:
-            return torch.stack([self.device_step(sb.step(i))
+            return torch.stack([self.device_step(sb.step(i), health=True)
                                 for i in range(sb.n)])
         pending = entries_prefetch(self.dcfg, sb.step(0).ids, self.mesh)
         losses = []
@@ -819,7 +953,8 @@ class Trainer:
             if i + 1 < sb.n:
                 pending = entries_prefetch(self.dcfg, sb.step(i + 1).ids,
                                            self.mesh)
-            losses.append(self.device_step(sb.step(i), rows_all))
+            losses.append(self.device_step(sb.step(i), rows_all,
+                                           health=True))
         return torch.stack(losses)
 
     def dispatch(self, sb, pause=None) -> torch.Tensor:
@@ -828,13 +963,16 @@ class Trainer:
         same steps eagerly (the first full one is then captured, inside
         ``pause``: the transfer stage's ``paused()``).  Under tiering
         ``sb`` is a :class:`tiered_lib.Shipment`, whose migration is
-        applied first (always eager).  Returns the steps' losses ``[n]``
-        (a device tensor; a replay's is the graph's own, overwritten by
-        the next one).  The loop's hook per dispatch."""
-        if isinstance(sb, tiered_lib.Shipment):
-            sb = self._apply_migration(sb)
-        elif isinstance(sb, tiered_fleet.FleetShipment):
-            sb = self._apply_migration_fleet(sb)
+        applied first (always eager; timed as ``train.migrate``).  Each
+        step advances the health carry (:attr:`health`).  Returns the
+        steps' losses ``[n]`` (a device tensor; a replay's is the graph's
+        own, overwritten by the next one).  The loop's hook per
+        dispatch."""
+        if isinstance(sb, (tiered_lib.Shipment, tiered_fleet.FleetShipment)):
+            with self.telemetry.timer("train.migrate").time():
+                sb = (self._apply_migration(sb)
+                      if isinstance(sb, tiered_lib.Shipment)
+                      else self._apply_migration_fleet(sb))
         graph = self.graph
         if graph is not None and graph.captured and sb.n == graph.k:
             self.graph_dispatches += 1
@@ -906,14 +1044,237 @@ class Trainer:
                      epoch, skip)
         return epoch, skip
 
+    # -- the health carry --------------------------------------------------
+
+    def _reset_health(self) -> None:
+        """A fresh per-run carry (in place: a captured graph holds it)
+        and host cache.  Reporting is per run: the device step counter
+        restarts at 0, so ``first_nonfinite_step`` is the run's step."""
+        with torch.no_grad():
+            self.health.reset_()
+        self._health_host = {}
+
+    def _health_readback(self, stepno: int, slot: int) -> tuple:
+        """Start the asynchronous copy of the carry's three scalars
+        (non-finite steps, last and summed squared norms) into host slot
+        ``slot``, with an event after it on the card; returns the pending
+        readback :meth:`_check_health` consumes."""
+        h = self.health
+        host = self._health_slots[slot]
+        with torch.no_grad():
+            host.copy_(torch.stack([h.nonfinite_steps.float(),
+                                    h.grad_sq_last, h.grad_sq_sum]),
+                       non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return host, event, stepno
+
+    def _check_health(self, pending, warned: list) -> None:
+        """Consume one delayed readback (the reference's ``check_health``):
+        refresh the host-cached grad norm, its RMS and the non-finite
+        count, and apply ``nan_policy``: ``warn`` logs once and trains
+        on, ``halt`` raises :class:`NonFiniteGradError`."""
+        host, event, at_step = pending
+        if event is not None:
+            event.synchronize()
+        nf, gs, ss = host.tolist()
+        nf = int(nf)
+        self._health_host["grad_norm"] = round(
+            float(np.sqrt(gs)) if np.isfinite(gs) else gs, 6)
+        rms = ss / max(1, at_step)
+        self._health_host["grad_norm_rms"] = round(
+            float(np.sqrt(rms)) if np.isfinite(rms) else rms, 6)
+        self._health_host["nonfinite_steps"] = nf
+        if nf <= 0:
+            return
+        if not warned:
+            warned.append(True)
+            log.warning(
+                "non-finite (NaN/inf) gradient detected by step %d (%d bad "
+                "step(s) so far; nan_policy=%s)", at_step, nf,
+                self.cfg.nan_policy)
+        if self.cfg.nan_policy == "halt":
+            raise NonFiniteGradError(
+                f"non-finite gradient within the first {at_step} step(s) "
+                f"({nf} bad step(s)); halting per nan_policy=halt — the "
+                "checkpoint was NOT overwritten with poisoned params")
+
+    def _health_summary(self, exact: bool = False,
+                        collective: bool = True) -> dict:
+        """Host-side view of the carry for records and results.
+        ``exact=False`` (the heartbeat and HTTP threads) serves the cached
+        scalars the loop read back, never the device; ``exact=True`` (the
+        loop's thread: log cadence and the final record) reads the carry
+        and counts the touched rows.  On a mesh the rows and touches of
+        the data blocks are summed over ``data`` (a collective every rank
+        makes at the same step), unless ``collective`` is off (a crash's
+        final record, where the other ranks may not come)."""
+        out = dict(self._health_host)
+        if not exact:
+            return out
+        try:
+            h = self.health
+            steps = max(1, self._run.steps)
+            seen, touches = h.rows_touched, h.touch_events.reshape(1)
+            if self.sharded and self.mesh.data > 1 and collective:
+                seen = psum(seen.to(torch.uint8), DATA_AXIS, self.mesh)
+                touches = psum(touches.clone(), DATA_AXIS, self.mesh)
+            rows = int(torch.count_nonzero(seen))
+            vocab = self.dcfg.vocabulary_size
+            out.update({
+                "grad_norm": round(float(torch.sqrt(h.grad_sq_last)), 6),
+                "grad_norm_rms": round(
+                    float(torch.sqrt(h.grad_sq_sum / steps)), 6),
+                "nonfinite_steps": int(h.nonfinite_steps),
+                "first_nonfinite_step": int(h.first_nonfinite_step),
+                "emb_rows_touched": rows,
+                "emb_row_occupancy": round(rows / vocab, 6),
+                "emb_touch_events": float(touches[0]),
+            })
+            if self.tiered is not None:
+                # The carry counts hot slots under tiering; the manager
+                # sees every logical id and gives the logical occupancy.
+                out.update(self.tiered.health_view())
+            self._health_host = dict(out)
+        except Exception:  # a failed device: serve what was cached
+            pass
+        return out
+
+    # -- the run's self-reports --------------------------------------------
+
+    def _run_header(self, rank: int, resume: tuple) -> dict:
+        """The metrics stream's first record: the run's identity (the
+        reference's ``run_header``, with the PyTorch version and the
+        device in place of JAX's)."""
+        cfg = self.cfg
+        world, _ = _rank_grid()
+        return {
+            "record": "run_header",
+            "time": self._run.t0,
+            "rank": rank,
+            "config_fingerprint": config_fingerprint(cfg),
+            "steps_per_dispatch": max(1, cfg.steps_per_dispatch),
+            "ingest_mode": "procs" if cfg.parse_processes > 0 else "threads",
+            "fast_ingest": cfg.fast_ingest,
+            "cache_epochs": cfg.cache_epochs,
+            "cache_prestacked": cfg.cache_prestacked,
+            "ring_slots": cfg.ring_slots,
+            "table_tiering": cfg.table_tiering,
+            "hot_rows": cfg.hot_rows if cfg.table_tiering == "on" else 0,
+            "tiered_partition": cfg.tiered_partition,
+            "tiered_shards": (self.fleet.num_shards
+                              if self.fleet is not None else 0),
+            "sparse_exchange_overlap": cfg.sparse_exchange_overlap,
+            "exchange_overlap_active": self.overlap,
+            "cold_dtype": cfg.cold_dtype,
+            "batch_size": cfg.batch_size,
+            "epoch_num": cfg.epoch_num,
+            "optimizer": cfg.optimizer,
+            "telemetry": cfg.telemetry,
+            "heartbeat_secs": cfg.heartbeat_secs,
+            "trace_file": cfg.trace_file,
+            "trace_rotate_events": cfg.trace_rotate_events,
+            "nan_policy": cfg.nan_policy,
+            "status_port": cfg.status_port,
+            "alert_rules": cfg.alert_rules,
+            "resource_metrics": cfg.resource_metrics,
+            "quality": cfg.quality,
+            "quality_window": cfg.quality_window,
+            "torch_version": torch.__version__,
+            "device": (torch.cuda.get_device_name(self.device)
+                       if self.device.type == "cuda" else "cpu"),
+            "backend": self.device.type,
+            "mesh": {"data": self.mesh.data, "model": self.mesh.model},
+            "n_processes": world,
+            "resume_step": self._restored_step,
+            "resume_epoch": resume[0],
+            "resume_skip": resume[1],
+            "interaction_impl": cfg.interaction_impl,
+            "compile_cache_dir": cfg.compile_cache_dir,
+        }
+
+    def _record(self, kind: str, rank: int, pipeline, alerts=None,
+                collective: bool = True) -> Optional[dict]:
+        """One self-report (``heartbeat``, ``status`` or ``final``; the
+        reference's ``telemetry_record``), built from host-side values
+        only, except the final record's exact health.  A heartbeat
+        before the first dispatch is skipped (its wait would be start-up,
+        not starvation); ``/status`` then answers ``warming_up`` without
+        the wall-clock split."""
+        run = self._run
+        if kind == "heartbeat" and run.steps == 0:
+            return None
+        now = time.time()
+        wall = max(now - run.t0, 1e-9)
+        wait_s, disp_s = run.wait_s, run.dispatch_s
+        rec = {
+            "record": kind,
+            "time": now,
+            "rank": rank,
+            "step": run.steps,
+            "epoch": self._epoch,
+            "elapsed": round(wall, 3),
+            "examples_in": self.telemetry.counter("ingest.examples").value,
+            "wait_input_s": round(wait_s, 3),
+            "dispatch_s": round(disp_s, 3),
+            "other_s": round(max(0.0, wall - wait_s - disp_s), 3),
+            "ingest_wait_frac": round(wait_s / wall, 4),
+            **pipeline.stats(),
+            "health": self._health_summary(exact=(kind == "final"),
+                                           collective=collective),
+            "stages": self.telemetry.snapshot(),
+        }
+        if self.cfg.resource_metrics:
+            rec["resource"] = basic_block(run.t0)
+        if kind == "status":
+            rec["build_info"] = {
+                "torch_version": torch.__version__,
+                "backend": self.device.type,
+                "mesh": f"data{self.mesh.data}xmodel{self.mesh.model}",
+                "steps_per_dispatch": str(max(1, self.cfg.steps_per_dispatch)),
+                "rank": str(rank),
+                "config_fingerprint": config_fingerprint(self.cfg),
+            }
+            if run.steps == 0:
+                for key in ("wait_input_s", "dispatch_s", "other_s",
+                            "ingest_wait_frac"):
+                    del rec[key]
+                rec["warming_up"] = True
+        if self.tiered is not None:
+            rec["tiered"] = self.tiered.snapshot()
+        if alerts is not None:
+            rec["alerts"] = alerts.active_snapshot()
+        return rec
+
     def train(self) -> dict:
+        """Train ``epoch_num`` epochs of ``train_files``, then save and
+        validate.  The run's observability follows the reference's
+        ``Trainer.train``: the health carry read back one dispatch late
+        (``nan_policy``; the pending readback is consumed before a
+        periodic save and at the stream's end, so poisoned parameters
+        are never saved), a ``metrics_file`` stream per rank (a
+        ``run_header``, ``train`` and ``validation`` records at their
+        cadences, ``heartbeat`` records every ``heartbeat_secs``, alerts,
+        and one ``final`` record written whatever ends the run), the
+        ``status_port`` endpoint, and an :class:`AlertEngine` on the
+        heartbeat whose ``halt`` stops the run at the next dispatch
+        boundary with no checkpoint written."""
         cfg = self.cfg
         if not cfg.train_files:
             raise ValueError("no train_files configured")
         self._epoch, self._batches_done = self._resume_position()
+        resume = (self._epoch, self._batches_done)
         if self.tiered is not None:
             self.tiered.reopen()  # re-arm after a cancelled earlier run
-        t0 = time.time()
+        world, rank = _rank_grid()
+        metrics_out = (JsonlWriter(rank_suffix_path(cfg.metrics_file, rank))
+                       if cfg.metrics_file else None)
+        self._run = run = _RunClock()
+        t0 = run.t0
+        if metrics_out is not None:
+            metrics_out.write(self._run_header(rank, resume))
         last_log_t = t0
         last_log_ex = self.global_metrics(self.metrics)["examples"]
         stepno = last_log_step = last_val_step = last_save_step = 0
@@ -921,7 +1282,13 @@ class Trainer:
         self.graph_dispatches = self.eager_dispatches = 0
         if self.eager_reason:
             log.info("every dispatch runs eagerly: %s", self.eager_reason)
-        wait_s = dispatch_s = first_s = 0.0
+        first_s = 0.0
+        # Per-run accounting, reset in place: a second train() must not
+        # report the first run's totals against its own wall clock.
+        self.telemetry.reset()
+        self._reset_health()
+        t_wait = self.telemetry.timer("train.wait_input")
+        t_disp = self.telemetry.timer("train.dispatch")
         pipe_cfg, shard = self._input_plan()
         k = max(1, cfg.steps_per_dispatch)
         # One packer for the transfer stage and the prestacked cache,
@@ -939,65 +1306,167 @@ class Trainer:
             epoch_marks=True, cache_epochs=cfg.cache_epochs,
             cache_max_bytes=cfg.cache_max_bytes,
             prestack=(k, packer.pack) if cfg.cache_prestacked else None,
+            telemetry=self.telemetry,
         )
         prefetcher = DevicePrefetcher(
             pipeline, k, self.device, cfg.vocabulary_size,
             depth=cfg.prefetch_super_batches, packer=packer,
             plan_hook=self._plan_group if self.tiered is not None else None,
+            telemetry=self.telemetry,
         )
         cache_logged = not cfg.cache_epochs
+        # Alert watchdog: rules evaluated on the heartbeat thread; a halt
+        # arms engine.halted, which the loop raises at the next boundary.
+        alerts = (AlertEngine(parse_rules(cfg.alert_rules),
+                              writer=metrics_out)
+                  if cfg.alert_rules else None)
+
+        def heartbeat_build():
+            rec = self._record("heartbeat", rank, pipeline, alerts)
+            if rec is not None and alerts is not None:
+                alerts.observe(rec)
+            return rec
+
+        heartbeat = (Heartbeat(cfg.heartbeat_secs, heartbeat_build,
+                               writer=metrics_out)
+                     if cfg.heartbeat_secs > 0 else None)
+        status_server = None
+        if cfg.status_port:
+            try:
+                status_server = StatusServer(
+                    cfg.status_port,
+                    lambda: self._record("status", rank, pipeline, alerts),
+                    telemetry=self.telemetry, host=cfg.status_host)
+                log.info("status endpoint listening on %s:%d (/metrics, "
+                         "/status, /healthz, /debug/threadz)",
+                         cfg.status_host, status_server.port)
+            except OSError as e:
+                # An observability convenience never kills the run.
+                log.warning("status endpoint failed to bind port %d: %s",
+                            cfg.status_port, e)
+        pending = None  # the previous dispatch's health readback
+        warned: list = []
+        run_exc: Optional[BaseException] = None
+        final: dict = {}
         try:
-            source = iter(prefetcher)
-            while True:
-                t_wait = time.perf_counter()
-                item = next(source, None)
-                t_run = time.perf_counter()
-                wait_s += t_run - t_wait
-                if item is None:
-                    break
-                if isinstance(item, EpochEnd):
-                    self._epoch, self._batches_done = item.epoch + 1, 0
-                    if not cache_logged:
-                        # Known once epoch 0 has parsed; logged once.
-                        cache_logged = True
-                        log.info("ingest cache after epoch %d: %s",
-                                 item.epoch, pipeline.cache_result)
-                    continue
-                self.dispatch(item, prefetcher.paused())
-                dispatch_s += time.perf_counter() - t_run
-                if not dispatches:
-                    first_s = time.time() - t0
-                dispatches += 1
-                stepno += item.n
-                self._batches_done += item.n
-                if cfg.log_steps and stepno - last_log_step >= cfg.log_steps:
-                    last_log_step = stepno
-                    m = self.global_metrics(self.metrics)
-                    now = time.time()
-                    rate = (m["examples"] - last_log_ex) / max(
-                        now - last_log_t, 1e-9
-                    )
-                    last_log_t, last_log_ex = now, m["examples"]
-                    log.info(
-                        "step %d examples %d loss %.6f auc %.4f ex/s %.0f",
-                        stepno, int(m["examples"]), m["loss"], m["auc"],
-                        rate,
-                    )
-                if (cfg.validation_steps and cfg.validation_files
-                        and stepno - last_val_step >= cfg.validation_steps):
-                    last_val_step = stepno
-                    vm = self.evaluate(cfg.validation_files)
-                    log.info("step %d validation loss %.6f auc %.4f",
-                             stepno, vm["loss"], vm["auc"])
-                if cfg.save_steps and stepno - last_save_step >= cfg.save_steps:
-                    last_save_step = stepno
-                    self.save(stepno)
+            try:
+                source = iter(prefetcher)
+                while True:
+                    t_w = time.perf_counter()
+                    item = next(source, None)
+                    t_run = time.perf_counter()
+                    t_wait.observe(t_run - t_w)
+                    run.wait_s += t_run - t_w
+                    if item is None:
+                        break
+                    if isinstance(item, EpochEnd):
+                        self._epoch, self._batches_done = item.epoch + 1, 0
+                        if not cache_logged:
+                            # Known once epoch 0 has parsed; logged once.
+                            cache_logged = True
+                            log.info("ingest cache after epoch %d: %s",
+                                     item.epoch, pipeline.cache_result)
+                        continue
+                    self.dispatch(item, prefetcher.paused())
+                    dt = time.perf_counter() - t_run
+                    t_disp.observe(dt)
+                    run.dispatch_s += dt
+                    if not dispatches:
+                        first_s = time.time() - t0
+                    stepno += item.n
+                    self._batches_done += item.n
+                    run.steps = stepno
+                    # Health, one dispatch late: start this dispatch's
+                    # copy, then consume the previous one's, long done.
+                    started = self._health_readback(stepno, dispatches % 2)
+                    dispatches += 1
+                    if pending is not None:
+                        self._check_health(pending, warned)
+                    pending = started
+                    if alerts is not None and alerts.halted is not None:
+                        raise halt_error(alerts.halted)
+                    if (cfg.log_steps
+                            and stepno - last_log_step >= cfg.log_steps):
+                        last_log_step = stepno
+                        m = self.global_metrics(self.metrics)
+                        now = time.time()
+                        rate = (m["examples"] - last_log_ex) / max(
+                            now - last_log_t, 1e-9
+                        )
+                        last_log_t, last_log_ex = now, m["examples"]
+                        # The log's read synced the device already: the
+                        # exact health refresh rides it.
+                        self._health_summary(exact=True)
+                        log.info(
+                            "step %d examples %d loss %.6f auc %.4f ex/s "
+                            "%.0f", stepno, int(m["examples"]), m["loss"],
+                            m["auc"], rate,
+                        )
+                        if metrics_out is not None:
+                            metrics_out.write({
+                                "record": "train", "step": stepno,
+                                "examples": m["examples"],
+                                "loss": m["loss"], "auc": m["auc"],
+                                "examples_per_sec": rate,
+                                "elapsed": now - t0,
+                            })
+                    if (cfg.validation_steps and cfg.validation_files
+                            and stepno - last_val_step
+                            >= cfg.validation_steps):
+                        last_val_step = stepno
+                        vm = self.evaluate(cfg.validation_files)
+                        log.info("step %d validation loss %.6f auc %.4f",
+                                 stepno, vm["loss"], vm["auc"])
+                        if metrics_out is not None:
+                            metrics_out.write({
+                                "record": "validation", "step": stepno,
+                                "examples": vm["examples"],
+                                "loss": vm["loss"], "auc": vm["auc"],
+                                "validation_loss": vm["loss"],
+                                "validation_auc": vm["auc"],
+                                "elapsed": time.time() - t0,
+                            })
+                    if (cfg.save_steps
+                            and stepno - last_save_step >= cfg.save_steps):
+                        # This dispatch's health first: a poisoned
+                        # dispatch must not be saved.
+                        self._check_health(pending, warned)
+                        pending = None
+                        last_save_step = stepno
+                        self.save(stepno)
+                # The last dispatch's health, before the end-of-run save.
+                if pending is not None:
+                    self._check_health(pending, warned)
+                    pending = None
+            finally:
+                if heartbeat is not None:
+                    heartbeat.close()
+                if status_server is not None:
+                    status_server.close()
+                if self.tiered is not None:
+                    # Wake a transfer thread blocked on a write-back fill
+                    # that will never come, or close() would join it
+                    # forever.
+                    self.tiered.cancel_waits()
+                prefetcher.close()
+        except BaseException as e:
+            run_exc = e
+            raise
         finally:
-            if self.tiered is not None:
-                # Wake a transfer thread blocked on a write-back fill
-                # that will never come, or close() would join it forever.
-                self.tiered.cancel_waits()
-            prefetcher.close()
+            # Whatever ends the run, the stream closes with one final
+            # record naming the exception (exact health, but no
+            # collective after a crash: the other ranks may not come).
+            final = self._record("final", rank, pipeline, alerts,
+                                 collective=run_exc is None)
+            if run_exc is not None:
+                final["exception"] = type(run_exc).__name__
+                final["exception_msg"] = str(run_exc)[:300]
+            if metrics_out is not None:
+                try:
+                    metrics_out.write(final)
+                except Exception as e:  # a full volume must not mask
+                    log.warning("final record write failed: %s", e)
+                metrics_out.close()
         truncated = pipeline.truncated_features
         self._epoch, self._batches_done = cfg.epoch_num, 0
         wall = max(time.time() - t0, 1e-9)
@@ -1012,9 +1481,10 @@ class Trainer:
         train_metrics["ingest_cache"] = pipeline.cache_result
         train_metrics["truncated_features"] = int(truncated)
         train_metrics["out_of_range_batches"] = 0
-        train_metrics["ingest_wait_frac"] = wait_s / wall
-        train_metrics["wait_input_s"] = wait_s
-        train_metrics["dispatch_s"] = dispatch_s
+        train_metrics["ingest_wait_frac"] = final["ingest_wait_frac"]
+        train_metrics["wait_input_s"] = final["wait_input_s"]
+        train_metrics["dispatch_s"] = final["dispatch_s"]
+        train_metrics["health"] = dict(final["health"])
         if self.tiered is not None:
             train_metrics["tiered"] = self.tiered.snapshot()
         self.save(stepno)

@@ -85,7 +85,8 @@ from fast_tffm_tpu_torch.train.sparse import (
 )
 
 __all__ = ["ShardGrads", "entries_prefetch", "exchange_mode",
-           "local_scores", "overlap_active", "shard_row_grads",
+           "health_pair", "health_terms", "local_scores", "overlap_active",
+           "shard_row_grads",
            "sparse_step_shardmap", "supports_shardmap", "supports_tiles",
            "w0_grad"]
 
@@ -355,27 +356,53 @@ def shard_row_grads(cfg: FmConfig, model_l: FmModel, batch_l: Batch,
 
 
 def w0_grad(cfg: FmConfig, w0: torch.Tensor, g: torch.Tensor,
-            mesh: Mesh) -> torch.Tensor:
+            mesh: Mesh, extra: Optional[torch.Tensor] = None):
     """``dw0``: ``g`` summed over the data axis, plus ``l2_mode =
-    batch``'s ``2·bias_lambda·w0 / B``."""
-    dw0 = psum(torch.sum(g).reshape(1), DATA_AXIS, mesh)[0]
+    batch``'s ``2·bias_lambda·w0 / B``.  ``extra`` (f32 ``[n]``) rides
+    the same sum over ``data``, and then ``(dw0, extra summed)`` is
+    returned."""
+    head = torch.sum(g).reshape(1)
+    if extra is not None:
+        head = torch.cat([head, extra])
+    summed = psum(head, DATA_AXIS, mesh)
+    dw0 = summed[0]
     if cfg.l2_mode == "batch" and cfg.bias_lambda:
         # l2_penalty_batch's bias_lambda*w0^2/B has its w0 gradient.
         dw0 = dw0 + 2.0 * cfg.bias_lambda * w0 / float(g.numel() * mesh.data)
-    return dw0
+    return dw0 if extra is None else (dw0, summed[1:])
+
+
+def health_terms(g: torch.Tensor) -> torch.Tensor:
+    """``[sum of squares, non-finite count]`` of a shard's gradient, f32,
+    to be summed over the ranks that hold its parts (the reductions of
+    ``train/sparse.py::grad_health``)."""
+    g = g.reshape(-1).float()
+    return torch.stack([torch.linalg.vector_norm(g).square(),
+                        torch.count_nonzero(g - g).float()])
+
+
+def health_pair(terms: torch.Tensor, dw0: torch.Tensor) -> tuple:
+    """The global ``(grad_sq, nonfinite)`` pair (f32, i32) from the
+    summed :func:`health_terms` and the global ``dw0``."""
+    d = dw0.float()
+    return (terms[0] + d * d,
+            (terms[1] + torch.count_nonzero(d - d)).to(torch.int32))
 
 
 def sparse_step_shardmap(cfg: FmConfig, model_l: FmModel, opt_state_l,
                          batch_l: Batch, mesh: Mesh,
-                         rows_all: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         rows_all: Optional[torch.Tensor] = None,
+                         health: bool = False):
     """One hand-sharded sparse step on this rank: ``model_l`` holds the
     rank's table shard (``w0`` replicated), ``opt_state_l`` its optimizer
     shard, ``batch_l`` its data block on the rank's device.  Updates both
-    in place and returns the block's raw scores ``[b]``.  Every rank of
-    the mesh calls it with the same shapes, in lockstep.  ``rows_all``:
-    the batch's gathered id plane (:func:`entries_prefetch`), which the
-    entries exchange over several data shards then does not gather."""
+    in place and returns the block's raw scores ``[b]``, and with
+    ``health`` the global ``(grad_sq, nonfinite)`` pair
+    (``train/sparse.py::grad_health``; the reference's
+    ``shardmap_step.py:289-308``).  Every rank of the mesh calls it with
+    the same shapes, in lockstep.  ``rows_all``: the batch's gathered id
+    plane (:func:`entries_prefetch`), which the entries exchange over
+    several data shards then does not gather."""
     table_l = model_l.table
     d = table_l.shape[1]
     b, f = batch_l.ids.shape
@@ -418,5 +445,17 @@ def sparse_step_shardmap(cfg: FmConfig, model_l: FmModel, opt_state_l,
             delta = psum(delta, DATA_AXIS, mesh)
             _apply_delta(cfg, delta[:, :d], delta[:, d:], tables)
         w0 = model_l.w0.detach()
-        apply_w0(cfg, model_l, opt_state_l, w0_grad(cfg, w0, grads.g, mesh))
-    return grads.scores
+        if not health:
+            apply_w0(cfg, model_l, opt_state_l,
+                     w0_grad(cfg, w0, grads.g, mesh))
+            return grads.scores
+        # Each occurrence's gradient lives on exactly one model shard
+        # (the others' are masked to zero), so the local squares summed
+        # over both axes are the global norm, nothing counted twice: the
+        # sum over data rides w0's, then one sum of two numbers over
+        # model.  dw0 is global already.
+        dw0, local = w0_grad(cfg, w0, grads.g, mesh,
+                             extra=health_terms(g_flat))
+        pair = health_pair(psum(local.contiguous(), MODEL_AXIS, mesh), dw0)
+        apply_w0(cfg, model_l, opt_state_l, dw0)
+    return grads.scores, pair

@@ -43,7 +43,8 @@ from fast_tffm_tpu_torch.ops import interaction, sparse_apply
 
 __all__ = [
     "ADAGRAD_EPS", "SparseAdagradState", "SparseFtrlState", "apply_w0",
-    "hyper", "init_sparse_opt_state", "opt_tables", "row_grads",
+    "grad_health", "hyper", "init_sparse_opt_state", "opt_tables",
+    "row_grads",
     "rows_loss", "sparse_step", "supports_sparse", "to_device",
 ]
 
@@ -201,18 +202,40 @@ def row_grads(cfg: FmConfig, model: FmModel, batch: Batch,
     return scores.detach(), dw0, drows.reshape(b * f, d)
 
 
+def grad_health(g_rows: torch.Tensor, dw0: torch.Tensor) -> tuple:
+    """``(grad_sq, nonfinite)`` of a step's gradients, device scalars
+    (f32, i32): the training-health pair the trainer's carry accumulates
+    (``fast_tffm_tpu/train/sparse.py::grad_health``).  ``grad_sq`` is the
+    squared norm at OCCURRENCE granularity (a duplicated id contributes
+    per occurrence, as the per-occurrence optimizers see it); ``nonfinite``
+    counts the non-finite elements.  Reduced in f32, on the device, in
+    one read of the gradient for each: ``x - x`` is 0 for a finite ``x``
+    and NaN otherwise, which ``count_nonzero`` counts.  The dense path
+    passes its whole table gradient (the reference's
+    ``_tree_grad_health``)."""
+    g = g_rows.reshape(-1).float()
+    d = dw0.float()
+    grad_sq = torch.linalg.vector_norm(g).square() + d * d
+    nonfinite = (torch.count_nonzero(g - g)
+                 + torch.count_nonzero(d - d)).to(torch.int32)
+    return grad_sq, nonfinite
+
+
 def sparse_step(cfg: FmConfig, model: FmModel, opt_state, batch: Batch,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, health: bool = False):
     """One sparse train step on a device :class:`Batch` (see
     :func:`to_device`): updates ``model`` and ``opt_state`` in place and
-    returns the step's raw scores ``[B]``.  The batch's ``sort_meta`` is
-    used when present, else the ids are sorted on the device.
-    ``plain=True`` runs the kernels' plain versions on any device."""
+    returns the step's raw scores ``[B]``, and with ``health`` also its
+    :func:`grad_health` pair, from the row gradients the step already
+    holds.  The batch's ``sort_meta`` is used when present, else the ids
+    are sorted on the device.  ``plain=True`` runs the kernels' plain
+    versions on any device."""
     scores, dw0, drows = row_grads(cfg, model, batch, plain)
     with torch.no_grad():
+        pair = grad_health(drows, dw0) if health else None
         sparse_apply.apply(
             cfg.optimizer, (model.table,) + opt_tables(opt_state), batch.ids,
             drows, hyper(cfg), meta=batch.sort_meta, plain=plain,
         )
         apply_w0(cfg, model, opt_state, dw0)
-    return scores
+    return (scores, pair) if health else scores

@@ -6,9 +6,10 @@ and the tiered overlay) and the sparse step's GPU paths against their
 CPU paths, two ranks' collectives on one GPU, the rank-sharded tiered
 trainer against the dense mesh and the overlapped entries exchange
 against the inline one on ranks sharing the card, field-aware FM's op,
-graphed dispatch and kernel step at the FFM row width, and the JAX
+graphed dispatch and kernel step at the FFM row width, the JAX
 package's Orbax checkpoints (``tests/data/orbax/``) served on the card,
-with a hot swap under traffic.
+with a hot swap under traffic, and the training-health carry of a
+graphed dispatch (bitwise the eager one; a poisoned replay halts).
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``gpu``) and
 skips without one.  The file imports neither jax nor the JAX package,
@@ -1048,11 +1049,14 @@ def _trainer(cfg, gpu, graphs: bool):
 
 
 def _trained_state(trainer):
+    """Tables, optimizer state, w0, the streaming metrics and the health
+    carry (its tensors advance inside the graph's replays too)."""
     m = trainer.metrics
     return ([trainer.model.table, trainer.model.w0,
              *sparse.opt_tables(trainer.opt_state)]
             + [t for t in trainer.opt_state if t.dim() == 0]
-            + [m.loss_sum, m.weight_sum, m.count, m.auc.pos, m.auc.neg])
+            + [m.loss_sum, m.weight_sum, m.count, m.auc.pos, m.auc.neg]
+            + list(trainer.health))
 
 
 @pytest.mark.gpu
@@ -1122,6 +1126,82 @@ def test_capture_while_the_transfer_thread_ships(gpu, tmp_path):
     assert e_tr["eager_dispatches"] == e_tr["dispatches"] == 12
     for a, b in zip(_trained_state(graphed), _trained_state(eager)):
         assert torch.equal(a, b)
+
+
+def _health_file(tmp_path, batches: int) -> str:
+    rng = np.random.default_rng(8)
+    path = tmp_path / "health.libsvm"
+    with open(path, "w") as f:
+        for _ in range(512 * batches):
+            ids = rng.integers(0, 1 << 16, 20)
+            f.write(f"{int(rng.random() < 0.3)} "
+                    + " ".join(f"{i}:{rng.uniform(0.1, 1):.3f}" for i in ids)
+                    + "\n")
+    return str(path)
+
+
+@pytest.mark.gpu
+def test_health_carry_of_a_graphed_dispatch_is_bitwise_eager(gpu, tmp_path):
+    """``Trainer.train()`` at K = 4 over 13 batches (a capture, two
+    replays, a tail of one): the health carry (grad norms, non-finite
+    count, the device step counter, touched rows and occurrences) and the
+    exact summary are bitwise those of the same run eager; the summary's
+    occurrence count is the batches' real values."""
+    path = _health_file(tmp_path, 13)
+    cfg = dataclasses.replace(
+        _dispatch_cfg(tmp_path, "adagrad", "float32", 4),
+        train_files=[path], epoch_num=1, log_steps=0, save_steps=0)
+    runs = []
+    for graphs in (True, False):
+        trainer = _trainer(dataclasses.replace(
+            cfg, model_file=str(tmp_path / f"m{graphs}")), gpu, graphs)
+        runs.append((trainer, trainer.train()["train"]))
+    (graphed, g_tr), (eager, e_tr) = runs
+    assert g_tr["graph_dispatches"] == 2 and e_tr["graph_dispatches"] == 0
+    for a, b in zip(graphed.health, eager.health):
+        assert torch.equal(a, b)
+    assert g_tr["health"] == e_tr["health"]
+    assert int(graphed.health.step) == 13
+    assert g_tr["health"]["emb_touch_events"] == 13 * 512 * 20
+    assert g_tr["health"]["nonfinite_steps"] == 0
+
+
+@pytest.mark.gpu
+def test_poisoned_replay_halts_within_one_dispatch(gpu, tmp_path):
+    """``w0`` filled with NaN in place after the graph is captured: the
+    next replay trains the poison, ``nan_policy = halt`` raises within
+    one dispatch of it, and the last checkpoint is the clean save
+    before it (``save_steps = K``)."""
+    from fast_tffm_tpu_torch.train import checkpoint
+    from fast_tffm_tpu_torch.train.loop import NonFiniteGradError
+
+    k = 4
+    cfg = dataclasses.replace(
+        _dispatch_cfg(tmp_path, "adagrad", "float32", k),
+        train_files=[_health_file(tmp_path, 24)], epoch_num=1,
+        log_steps=0, save_steps=k, nan_policy="halt",
+        model_file=str(tmp_path / "m"))
+    trainer = _trainer(cfg, gpu, True)
+    real = trainer.dispatch
+    seen = []
+
+    def poison_after_capture(sb, pause=None):
+        if trainer.graph.captured and len(seen) == 2:
+            with torch.no_grad():
+                trainer.model.w0.detach().fill_(float("nan"))
+        seen.append(trainer.graph.captured)
+        return real(sb, pause)
+
+    trainer.dispatch = poison_after_capture
+    with pytest.raises(NonFiniteGradError):
+        trainer.train()
+    # Dispatch 2 (a replay) trained the poison; the save boundary after
+    # it reads its health first and halts.
+    assert seen == [False, True, True]
+    assert trainer.graph_dispatches == 2
+    assert int(trainer.health.first_nonfinite_step) == 2 * k
+    step, _ = checkpoint.restore_params(cfg.model_file, device="cpu")
+    assert step == 2 * k
 
 
 @pytest.mark.gpu
