@@ -103,13 +103,29 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    with NaN in place after the capture: ``NonFiniteGradError`` within
    one dispatch of the poisoned replay, the last checkpoint the clean
    save before it (``save_steps = K``), the final record naming the
-   exception.  (c) ``step > 0 : halt``: ``AlertHaltError`` and no
+   exception, and one ``crash_NonFiniteGradError`` blackbox bundle.
+   (c) ``step > 0 : halt``: ``AlertHaltError`` and no
    checkpoint.  (d) Phase 5's checkpoint served with a stream, a
-   heartbeat and a warn rule: its ``run_header`` (``mode: serve``),
-   heartbeats and one alert.  (e) The graphed step's p50 (host clock,
-   synchronised) and its device time (CUDA events) at K = 1 and 4 with
-   the carry and from a graph of the same steps without it, and path
-   9's graphed Adam step the same way.
+   heartbeat, a warn rule, ``serve_trace_sample = 1`` and the skew
+   monitor: its ``run_header`` (``mode: serve``), heartbeats and one
+   alert; after 64 ``/score_bin`` requests of the training lines the
+   ``skew_*`` keys present and finite, and every request a complete
+   chain in the port's ``report --serve-trace``.  (e) The graphed
+   step's p50 (host clock, synchronised) and its device time (CUDA
+   events) at K = 1 and 4 with the carry and from a graph of the same
+   steps without it, and path 9's graphed Adam step the same way.
+   (f) One graphed run with every 4c plane on (quality, trace,
+   blackbox, ``profile_dir`` over the second dispatch, a status port
+   answering ``/profile?secs=0.2`` and ``POST /incident`` after that
+   window): tables, accumulator, ``w0`` and the carry bitwise (a)'s
+   twin with every plane off; the manifest's ``quality`` payload
+   counting the lines trained; one complete trace chain a dispatch;
+   a Chrome trace naming FmScorer, FmGrad, K1 and K2; one expected
+   capture in the compile sentinel; a bundle ``report --incident``
+   reads.  (g) The default-on quality plane's cost, printed: examples/s
+   over 4 epochs (``tools/ingest_bench.py``, 8 threads, cache off) with
+   quality on and off in turns, and the graphed step with the scores
+   copy and without at K = 1 and 4.
 7. Parity phase, f32 and bf16 compute: 3 steps through the kernels vs
    3 through the plain path from the same initial weights: each step's
    scores (``rtol=1e-5, atol=1e-5``), the tables (``rtol=1e-4,
@@ -164,7 +180,10 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    batch size) through
    ``Trainer.train()`` twice: ``sparse_exchange = dense`` (K-place
    every step on every rank) and ``auto`` (must resolve to ``entries``:
-   K1's merge mode every step, no K-place).  Checks: every rank reports
+   K1's merge mode every step, no K-place; this run also scrapes the
+   training fleet, ``train_fleet_scrape`` over the four ranks' status
+   ports, and rank 0's ``fleet`` block must count 4 ranks and an
+   ``exchange_frac`` in [0, 1]).  Checks: every rank reports
    the same global metrics; the table rank 0 saves matches a
    single-device run over the same global batches (table, accumulator,
    w0, ``delta_check``).  Then a third run: ``lookup = auto``,
@@ -345,6 +364,7 @@ import http.client
 import itertools
 import json
 import logging
+import math
 import os
 import re
 import shutil
@@ -471,6 +491,13 @@ FLEET_SHED_MS = 1.0
 OBS_K = 4
 OBS_THROTTLE_S = 0.1
 OBS_TIMED = 40
+# The obs phase's server (d): /score_bin requests of the training lines,
+# and each one's rows.
+SERVE_BIN_REQUESTS = 64
+SERVE_BIN_ROWS = 64
+# The profiler trace of (f) must name the main path's four kernels.
+PATH_KERNEL_SYMBOLS = ("fm_scores_fwd_kernel", "fm_grad_bwd_kernel",
+                       "k1_kernel", "k2_kernel")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2863,6 +2890,10 @@ def rank_main(argv) -> int:
         kernels = kernel_fns(fm_kernels, sparse_apply, micro_probe)
         records = []
         for overrides in spec["runs"]:
+            overrides = dict(overrides)
+            ports = overrides.pop("_status_ports", None)  # one a rank
+            if ports:
+                overrides["status_port"] = ports[rank]
             cfg = load_config(CFG_PATH, overrides)
             gc.collect()
             torch.cuda.empty_cache()
@@ -3234,6 +3265,217 @@ def step_with_and_without_carry(torch, trainer, sb, k: int) -> dict:
     }
 
 
+def planes_run(np, torch, base, tmp: str, held_cls, off_state) -> dict:
+    """Phase 6c (f): one graphed K = 4 run of main path 1 with every 4c
+    plane on (``quality`` at its default window, ``trace_file``,
+    ``blackbox``, ``profile_dir`` over the second dispatch, and a
+    ``status_port``), its third dispatch held until ``/profile?secs=0.2``
+    (after ``profile_dir``'s window) and ``POST /incident`` have
+    answered.  Checks: the tables, accumulator, ``w0`` and the carry
+    bitwise ``off_state`` (the run with every plane off); the manifest's
+    ``quality`` payload counting the lines trained; one complete trace
+    chain per dispatch in the port's report; a Chrome trace in
+    ``profile_dir`` naming the path's four kernels; one expected capture
+    in the sentinel; a bundle the port's ``report --incident`` reads."""
+    import contextlib
+    import io
+    import threading
+
+    from fast_tffm_tpu_torch.tools import report
+    from fast_tffm_tpu_torch.train.manifest import read_manifest
+
+    k = OBS_K
+    port = free_port()
+    prof_dir = os.path.join(tmp, "obs_planes_profile")
+    trace_path = os.path.join(tmp, "obs_planes_trace.json")
+    mf = os.path.join(tmp, "obs_planes.jsonl")
+    cfg = dataclasses.replace(
+        base, model_file=os.path.join(tmp, "obs_planes"), metrics_file=mf,
+        quality=True, blackbox=True, trace_file=trace_path,
+        profile_dir=prof_dir, profile_start_step=k, profile_steps=k,
+        status_port=port, heartbeat_secs=0.05, log_steps=0)
+    got: dict = {}
+    answered = threading.Event()
+
+    def side():
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port,
+                                              timeout=120)
+            conn.request("GET", "/profile?secs=0.2")
+            resp = conn.getresponse()
+            got["profile"] = (resp.status, resp.read().decode())
+            conn.request("POST", "/incident?reason=smoke_drill", body=b"")
+            resp = conn.getresponse()
+            got["incident"] = (resp.status, resp.read().decode())
+            conn.close()
+        except (OSError, http.client.HTTPException) as e:
+            got["error"] = repr(e)
+        finally:
+            answered.set()
+
+    calls = []
+
+    def hook(trainer):
+        calls.append(trainer.graph.captured)
+        if len(calls) == 3:  # profile_dir's window closed after dispatch 1
+            threading.Thread(target=side, daemon=True).start()
+            answered.wait(300)
+
+    trainer = held_cls(cfg)
+    trainer.hook = hook
+    t0 = time.perf_counter()
+    res = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(health_state(trainer),
+                                                 off_state)),
+          "the run with every 4c plane on is not bitwise the run with "
+          "every plane off")
+    tr = res["train"]
+    check(tr["graph_dispatches"] == len(calls) - 1 == 3,
+          f"(f) dispatches: {calls}, {tr['graph_dispatches']} replays")
+    check("error" not in got and got["profile"][0] == 200
+          and got["incident"][0] == 200, f"(f) routes: {got}")
+    lines = int(tr["examples"])
+    man = read_manifest(cfg.model_file)
+    check(man.get("quality", {}).get("examples") == lines
+          and tr["quality"]["examples"] == lines,
+          f"(f) quality: manifest {man.get('quality', {}).get('examples')},"
+          f" block {tr.get('quality')}, {lines} lines trained")
+    chains = report.trace_chains(json.load(open(trace_path))["traceEvents"])
+    check(len(chains) == tr["dispatches"]
+          and all(c["complete"] for c in chains),
+          f"(f) trace: {len(chains)} chains for {tr['dispatches']} "
+          f"dispatches, complete {[c['complete'] for c in chains]}")
+    prof_files = sorted(os.listdir(prof_dir))
+    check(prof_files == ["trace_rank0.json"], f"(f) profile: {prof_files}")
+    prof_text = open(os.path.join(prof_dir, prof_files[0])).read()
+    named = {sym: sym in prof_text for sym in PATH_KERNEL_SYMBOLS}
+    check(all(named.values()), f"(f) the profile names {named}")
+    resource = tr["resource"]
+    compiles = [r for r in jsonl(mf) if r["record"] == "compile"]
+    check(resource["compiles"] == 1 and resource["recompiles_unexpected"]
+          == 0 and len(compiles) == 1 and compiles[0]["k"] == k
+          and compiles[0]["expected"],
+          f"(f) sentinel: {resource}, {compiles}")
+    bundle = json.loads(got["incident"][1])["incident_dir"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = report.main(["--incident", bundle])
+    check(rc == 0 and "incident: smoke_drill" in out.getvalue(),
+          f"(f) report --incident: {rc}, {out.getvalue()[:300]}")
+    ondemand = os.listdir(os.path.join(tmp, "tffm_profile_ondemand"))
+    check(len(ondemand) == 1, f"(f) /profile captures: {ondemand}")
+    return {
+        "wall_s": wall, "lines": lines, "quality": tr["quality"],
+        "trace_chains": len(chains), "profile_kernels": named,
+        "profile_bytes": len(prof_text),
+        "sentinel": {key: resource[key] for key in (
+            "compiles", "compile_s", "recompiles_unexpected", "builds",
+            "build_s")},
+        "incident": os.path.basename(bundle),
+        "bitwise_plane_off": True,
+    }
+
+
+def step_with_and_without_scores(torch, cfg, sb, k: int) -> dict:
+    """The quality plane's scores copy: the graphed step on a device
+    super-batch ``sb`` (shipped with its host labels and weights) with
+    the copy (each captured step writes its scores into the trainer's
+    ``[K, B]`` buffer, and each dispatch is followed by the non-blocking
+    copy into a pinned slot and the monitor's feed one dispatch late)
+    and without (a trainer with the plane off), in turns (with, without,
+    without, with; a synchronised dispatch over K, host clock), and the
+    device time of one dispatch of each (CUDA events around the dispatch
+    and its copy, median of OBS_TIMED)."""
+    from fast_tffm_tpu_torch.obs.quality import QualityMonitor
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    with_t, without_t = Trainer(cfg), Trainer(cfg)
+    with_t._quality = QualityMonitor(window=cfg.quality_window)
+    pending = [None]
+    count = [0]
+
+    def run_with():
+        with_t.dispatch(sb)
+        started = with_t._scores_readback(sb, count[0] % 2)
+        count[0] += 1
+        with_t._feed_quality(pending[0])
+        pending[0] = started
+
+    runs = {"with": run_with, "without": lambda: without_t.dispatch(sb)}
+    for fn in runs.values():  # eager and captured, then a replay
+        fn()
+        fn()
+    torch.cuda.synchronize()
+    host = {"with": [], "without": []}
+    for mode in ("with", "without", "without", "with"):
+        for _ in range(OBS_TIMED):
+            t0 = time.perf_counter()
+            runs[mode]()
+            torch.cuda.synchronize()
+            host[mode].append((time.perf_counter() - t0) / k)
+    dev = {}
+    for mode, fn in runs.items():
+        ms = []
+        for _ in range(OBS_TIMED):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b) / k)
+        dev[mode] = ms
+    check(with_t.graph_dispatches > 0 and without_t.graph_dispatches > 0,
+          "the scores-copy timing ran no replay")
+    check(with_t._quality.block(force=True)["examples"] > 0,
+          "the timed scores copy fed the monitor nothing")
+    out = {
+        "step_p50_ms_with_scores": p50(host["with"]) * 1e3,
+        "step_p50_ms_without_scores": p50(host["without"]) * 1e3,
+        "device_ms_per_step_with_scores": p50(dev["with"]),
+        "device_ms_per_step_without_scores": p50(dev["without"]),
+    }
+    del with_t, without_t
+    gc.collect()
+    return out
+
+
+def planes_cost(torch, base, host_batches) -> dict:
+    """Phase 6c (g), printed and not gated: the default-on quality
+    plane's cost.  Examples/s end to end over 4 epochs of
+    ``tools/ingest_bench.py``'s runs (8 parse threads, cache off) with
+    ``quality`` on and off in turns (on, off, off, on), and the graphed
+    step with the scores copy and without at K = 1 and 4."""
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.tools import ingest_bench
+
+    keys = ("examples_per_sec_end_to_end",
+            "examples_per_sec_after_first_dispatch", "step_p50_ms_in_train",
+            "ingest_wait_frac", "synced_examples_per_sec")
+    runs = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        icfg = ingest_bench.with_mode(
+            dataclasses.replace(base, epoch_num=4, quality=mode == "on",
+                                log_steps=0),
+            "off", 8, 0, OBS_K)
+        got = ingest_bench.train_runs(icfg, torch.device("cuda"),
+                                      profiled=False)
+        runs[mode].append({key: got.get(key) for key in keys})
+    out = {"ingest_bench_4_epochs_8_threads": runs}
+    for kk in (1, 4):
+        cfg = dataclasses.replace(base, steps_per_dispatch=kk, log_steps=0)
+        sb = next(iter(DevicePrefetcher(host_batches[:kk], kk, "cuda",
+                                        cfg.vocabulary_size,
+                                        host_targets=True)))
+        out[f"scores_copy_k{kk}"] = step_with_and_without_scores(
+            torch, cfg, sb, kk)
+        del sb
+        gc.collect()
+    return out
+
+
 def obs_phase(np, torch, card: str, tcfg, train_files, model_dir: str,
               tmp: str, host_batches, kernels: dict, counters: dict) -> tuple:
     """The health carry and the observability planes on main path 1 at
@@ -3263,7 +3505,9 @@ def obs_phase(np, torch, card: str, tcfg, train_files, model_dir: str,
     from fast_tffm_tpu_torch.data.pipeline import BatchPipeline
     from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
     from fast_tffm_tpu_torch.obs.alerts import AlertHaltError
+    from fast_tffm_tpu_torch.serve import wire
     from fast_tffm_tpu_torch.serve.server import serve
+    from fast_tffm_tpu_torch.tools import report
     from fast_tffm_tpu_torch.train import checkpoint
     from fast_tffm_tpu_torch.train.loop import NonFiniteGradError, Trainer
 
@@ -3345,21 +3589,27 @@ def obs_phase(np, torch, card: str, tcfg, train_files, model_dir: str,
     check(tr["steps"] == TRAIN_FILES * BATCHES_PER_FILE,
           f"obs run trained {tr['steps']} steps")
     check_train_path(tr, launches, read_launches(counters))
+    # The twin runs with every plane off (the 4c planes included), and
+    # its state is (f)'s reference too.
     twin = Trainer(dataclasses.replace(
-        base, model_file=os.path.join(tmp, "obs_twin")))
+        base, model_file=os.path.join(tmp, "obs_twin"), quality=False,
+        blackbox=False))
     twin.train()
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(health_state(clean),
                                                  health_state(twin))),
           "the run with a stream, heartbeat, endpoint and rules is not "
           "bitwise the run without them")
+    off_state = [t.detach().clone() for t in health_state(twin)]
     del twin
     records = jsonl(mf)
     kinds = [r["record"] for r in records]
     final = records[-1]
     split = final["wait_input_s"] + final["dispatch_s"] + final["other_s"]
+    # The warn alert's blackbox bundle is an `incident` record mid-run.
     check(kinds[0] == "run_header" and kinds[-1] == "final"
           and kinds.count("final") == 1 and kinds.count("alert") == 1
+          and kinds.count("incident") == 1
           and kinds.count("heartbeat") > 0 and kinds.count("train") == 4,
           f"obs stream: {kinds}")
     check(abs(split - final["elapsed"]) <= 0.02,
@@ -3399,6 +3649,11 @@ def obs_phase(np, torch, card: str, tcfg, train_files, model_dir: str,
     }
     del clean
 
+    # -- (f) every 4c plane on, against the twin with them off ---------
+    rec["planes"] = planes_run(np, torch, base, tmp, Held, off_state)
+    del off_state
+    gc.collect()
+
     # -- (b) a poisoned replay under nan_policy = halt ------------------
     mf_b = os.path.join(tmp, "obs_poison.jsonl")
     cfg_b = dataclasses.replace(
@@ -3422,7 +3677,18 @@ def obs_phase(np, torch, card: str, tcfg, train_files, model_dir: str,
     except NonFiniteGradError as e:
         halt_msg = str(e)
     saved, _ = checkpoint.restore_params(cfg_b.model_file, device="cpu")
-    final_b = jsonl(mf_b)[-1]
+    records_b = jsonl(mf_b)
+    # The crash's blackbox bundle: its `incident` record comes just
+    # before the final record, as the reference's trainer writes them.
+    final_b = records_b[-1]
+    bundles_b = sorted(os.listdir(os.path.join(cfg_b.model_file,
+                                               "incidents")))
+    check(len(bundles_b) == 1
+          and bundles_b[0].endswith("_crash_NonFiniteGradError_rank0")
+          and records_b[-2]["record"] == "incident"
+          and records_b[-2]["reason"] == "crash_NonFiniteGradError",
+          f"the poisoned run's bundles: {bundles_b}, records "
+          f"{[r['record'] for r in records_b[-3:]]}")
     check(calls == [False, True, True] and poisoned.graph_dispatches == 2,
           f"the poison was not trained by a replay: {calls}")
     check(saved == 2 * k, f"the last checkpoint is step {saved}, not the "
@@ -3435,7 +3701,7 @@ def obs_phase(np, torch, card: str, tcfg, train_files, model_dir: str,
     rec["poisoned"] = {
         "dispatches": len(calls), "poisoned_dispatch": 2,
         "last_saved_step": saved, "halt": halt_msg,
-        "final_health": final_b["health"],
+        "final_health": final_b["health"], "bundle": bundles_b[0],
     }
     del poisoned
 
@@ -3452,21 +3718,23 @@ def obs_phase(np, torch, card: str, tcfg, train_files, model_dir: str,
     except AlertHaltError as e:
         halt_rule = str(e)
     records_c = jsonl(mf_c)
+    final_c = records_c[-1]
     check(not checkpoint.exists(cfg_c.model_file),
           "the halted run wrote a checkpoint")
-    check(records_c[-1]["exception"] == "AlertHaltError"
+    check(final_c["exception"] == "AlertHaltError"
           and any(r["record"] == "alert" and r["action"] == "halt"
                   for r in records_c), "the halt's stream")
-    rec["halt_rule"] = {"message": halt_rule,
-                        "steps": records_c[-1]["step"]}
+    rec["halt_rule"] = {"message": halt_rule, "steps": final_c["step"]}
     del halted
 
     # -- (d) the single-replica server ----------------------------------
     mf_d = os.path.join(tmp, "obs_serve.jsonl")
+    trace_d = os.path.join(tmp, "obs_serve_trace.json")
     scfg = load_config(CFG_PATH, {
         "serve_poll_secs": 0.0, "serve_port": 0, "model_file": model_dir,
         "metrics_file": mf_d, "heartbeat_secs": 0.05,
-        "alert_rules": "elapsed > 0 : warn"})
+        "alert_rules": "elapsed > 0 : warn", "trace_file": trace_d,
+        "serve_trace_sample": 1.0})
     handle = serve(scfg, port=0)
     try:
         conn = http.client.HTTPConnection("127.0.0.1", handle.port,
@@ -3475,6 +3743,14 @@ def obs_phase(np, torch, card: str, tcfg, train_files, model_dir: str,
         for n_req in (37, 1000):
             text = post(conn, "/score", criteo_body(rng, n_req).encode())
             check(len(text.split()) == n_req, f"{n_req} served scores")
+        # The skew monitor's traffic: the training lines themselves.
+        for i in range(SERVE_BIN_REQUESTS):
+            hb = host_batches[i % len(host_batches)]
+            lo = (i // len(host_batches)) * SERVE_BIN_ROWS
+            body = wire.encode_bin_request(hb.ids[lo:lo + SERVE_BIN_ROWS],
+                                           hb.vals[lo:lo + SERVE_BIN_ROWS])
+            got = wire.decode_bin_response(post(conn, "/score_bin", body))
+            check(len(got) == SERVE_BIN_ROWS, "/score_bin scores")
         conn.close()
         deadline = time.time() + 10
         while time.time() < deadline:
@@ -3494,6 +3770,20 @@ def obs_phase(np, torch, card: str, tcfg, train_files, model_dir: str,
     rec["serve"] = {kind: kinds_d.count(kind) for kind in sorted(
         set(kinds_d))}
     rec["serve"]["requests"] = records_d[-1]["serve"]["requests"]
+    skew = {key: v for key, v in records_d[-1]["serve"].items()
+            if key.startswith("skew_")}
+    check({"skew_examples", "skew_psi_max", "skew_psi_ids",
+           "skew_psi_scores"} <= set(skew)
+          and all(math.isfinite(v) for v in skew.values())
+          and skew["skew_examples"] > 0, f"the server's skew keys: {skew}")
+    chains = report.serve_request_chains(
+        json.load(open(trace_d))["traceEvents"])
+    done = [c for c in chains if c["complete"]]
+    check(len(done) == len(chains) == 2 + SERVE_BIN_REQUESTS,
+          f"serve trace: {len(done)} complete chains of {len(chains)}, "
+          f"{2 + SERVE_BIN_REQUESTS} requests")
+    rec["serve"]["skew"] = skew
+    rec["serve"]["trace_chains"] = len(done)
 
     # -- (e) the graphed step with and without the carry ---------------
     timing = {}
@@ -3522,6 +3812,7 @@ def obs_phase(np, torch, card: str, tcfg, train_files, model_dir: str,
     del trainer, sb
     gc.collect()
     rec["step_timing"] = timing
+    rec["planes_cost"] = planes_cost(torch, base, host_batches)
     return rec, launches
 
 
@@ -4348,9 +4639,16 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
     world = SHARDED_MESH[0] * SHARDED_MESH[1]
     runs, launches = {}, {}
     mesh = {"mesh_data": SHARDED_MESH[0], "mesh_model": SHARDED_MESH[1]}
+    # The entries run also scrapes the training fleet: rank 0 reads the
+    # four ranks' /status, and every rank times the exchange probe.
+    ports = [free_port() for _ in range(world)]
+    scrape = dict(heartbeat_secs=0.05, _status_ports=ports,
+                  train_fleet_scrape=",".join(f"127.0.0.1:{p}"
+                                              for p in ports))
     for exchange, extra in (
         ("dense", dict(lookup="shardmap", sparse_exchange="dense")),
-        ("auto", dict(lookup="shardmap", sparse_exchange="auto")),
+        ("auto", dict(lookup="shardmap", sparse_exchange="auto",
+                      **scrape)),
         ("overlap", dict(lookup="auto", sparse_exchange="entries",
                          sparse_exchange_overlap="on",
                          steps_per_dispatch=2)),
@@ -4390,6 +4688,12 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
                   f"{exchange}: rank {rec['rank']} launches {got}")
             for name, n in got.items():
                 launches[name] = launches.get(name, 0) + n
+        if exchange == "auto":
+            blk = r0["train"].get("fleet", {})
+            check(blk.get("ranks_scraped") == world
+                  and 0.0 <= blk.get("exchange_frac", -1.0) <= 1.0
+                  and all("fleet" not in rec["train"] for rec in recs[1:]),
+                  f"the entries run's fleet block: {blk}")
         have = load(model_dir)
         check(set(have) == set(want), f"{exchange}: checkpoint keys")
         if exchange == "overlap":
@@ -4415,7 +4719,9 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
         }
         runs[exchange] = {
             "wall_s": wall, "resolved": r0["exchange"],
-            "overlap": r0["overlap"], "overrides": extra,
+            "overlap": r0["overlap"],
+            "overrides": {key: v for key, v in extra.items()
+                          if key != "_status_ports"},
             "backend": r0["backend"],
             "table_max_abs_err": float(
                 (have["params/table"] - want["params/table"]).abs().max()),
@@ -4425,6 +4731,7 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
             "train_logloss": r0["train"]["logloss"],
             "validation_logloss": r0["validation"]["logloss"],
             "validation_auc": r0["validation"]["auc"],
+            "fleet_block": r0["train"].get("fleet"),
             "ranks": [{k: rec[k] for k in (
                 "rank", "coords", "device", "launches", "step_p50_ms",
                 "collective_share", "train_wall_s", "peak_device_mb")}

@@ -29,11 +29,13 @@ import logging
 import os
 import subprocess
 import threading
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 
 from fast_tffm_tpu_torch.data.libsvm import Batch, SortMeta
+from fast_tffm_tpu_torch.obs.resource import note_build
 
 __all__ = [
     "BUILD_DIR", "LIB_PATH", "MalformedLineError", "NativeParser",
@@ -76,6 +78,7 @@ def _build() -> str:
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
            SRC_PATH, "-o", tmp]
     log.info("building the native parser: %s", " ".join(cmd))
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
@@ -89,6 +92,7 @@ def _build() -> str:
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, LIB_PATH)
+    note_build("g++", LIB_PATH, time.perf_counter() - t0)
     return LIB_PATH
 
 

@@ -98,6 +98,23 @@ work and output queues' ``ingest.work_q_depth`` and
 sample.  :meth:`BatchPipeline.stats` is the data-integrity block every
 self-report carries.
 
+**Trace and drift sketches.**  A ``tracer`` (``obs/trace.py``) gets the
+reference's spans under its names and ``args``: ``read.item`` (the
+reader producing one work item, ``seq``), ``parse.batch`` (a parse
+thread's or a process worker's batch, ``seq``; a worker records its
+spans in a tracer of its own and ships them back with each batch) and
+the ``ingest.deliver`` point at the one delivery exit (``batch``, the
+delivered index, ``n`` and the ``seq`` it came from; a cache replay
+delivers with ``seq`` None).  A ``quality`` accumulator
+(``obs/quality.py::StreamSketch``) sketches every PARSED batch's ids,
+values and weights: on the parse threads, or in each process worker,
+which ships its sketch delta every ``procpool.SKETCH_SHIP_EVERY``
+batches it parsed (the port ships one descriptor a batch, so the delta
+rides one batch's result message in that many) and its remainder with
+its ``done`` message, for the parent to absorb.  Cache replays are not
+sketched again: a replay's distribution is epoch 0's.  A sketching
+failure disables the plane and never stops the stream.
+
 ``BatchPipeline.replays`` and ``BatchPipeline.worker_batches`` count,
 over every pipeline of the process, the batches replayed from a cache
 and the batches the process workers parsed.  The transfer of parsed
@@ -121,6 +138,7 @@ import numpy as np
 
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.obs.telemetry import NULL, Telemetry
+from fast_tffm_tpu_torch.obs.trace import NULL_TRACER
 from fast_tffm_tpu_torch.data import native as native_lib
 from fast_tffm_tpu_torch.data import procpool
 from fast_tffm_tpu_torch.data.libsvm import (
@@ -426,7 +444,8 @@ class BatchPipeline:
                  epoch_marks: bool = False, cache_epochs: bool = False,
                  cache_max_bytes: int = 1 << 30,
                  prestack: Optional[tuple] = None,
-                 telemetry: Optional[Telemetry] = None):
+                 telemetry: Optional[Telemetry] = None,
+                 tracer=None, quality=None):
         self.files = expand_files(files)
         if not self.files:
             raise ValueError("no input files")
@@ -493,6 +512,51 @@ class BatchPipeline:
         self._g_ring_bytes = tel.gauge("ingest.ring_bytes")
         tel.sample("ingest.truncated_features",
                    lambda: self.truncated_features)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self._quality = quality  # a StreamSketch, or None: off
+        self._sketch_warned = False
+        self._last_seq = None  # the seq of the batch delivered last
+        self._deliver_idx = 0
+
+    def _sketch(self, batch: Batch) -> None:
+        """Fold a parsed batch into the drift sketches; a failure turns
+        the plane off for the rest of the run (an observer never stops
+        the training it observes)."""
+        q = self._quality
+        if q is None:
+            return
+        try:
+            q.update_batch(batch.ids, batch.vals, batch.weights)
+        except Exception as e:  # noqa: BLE001
+            self._quality = None
+            log.warning(
+                "quality sketching disabled: update_batch failed (%s: %s); "
+                "training continues without ingest drift sketches",
+                type(e).__name__, e)
+
+    def _absorb(self, delta) -> None:
+        """A process worker's sketch delta (None: none this message)."""
+        if delta is not None and self._quality is not None:
+            self._quality.absorb(delta)
+
+    def _traced_items(self, it):
+        """The reader's ``(seq, item)`` stream with a ``read.item`` span
+        for producing each work item (a plain pass-through untraced)."""
+        tracer = self.tracer
+        if not tracer.enabled:
+            yield from it
+            return
+        tracer.name_thread("ingest-reader")
+        while True:
+            t0 = time.perf_counter()
+            nxt = next(it, None)
+            if nxt is None:
+                return
+            seq, item = nxt
+            if not isinstance(item, EpochEnd):
+                tracer.emit("read.item", t0, time.perf_counter() - t0,
+                            args={"seq": seq})
+            yield seq, item
 
     def stats(self) -> dict:
         """Point-in-time data-integrity snapshot that every self-report
@@ -653,13 +717,16 @@ class BatchPipeline:
         out = ClosableQueue(max(2, cfg.queue_size),
                             hist=tel.depth_hist("ingest.out_q_depth"))
         n_workers = max(1, cfg.thread_num)
+        tracer = self.tracer
+        tracing = tracer.enabled
         timed = tel.enabled
         if self.native:
             native_lib.load()  # a failed build raises here, in the caller
 
         def reader():
             try:
-                for item in self._epoch_items(n_epochs, first_epoch, skip):
+                for item in self._traced_items(
+                        self._epoch_items(n_epochs, first_epoch, skip)):
                     t0 = time.perf_counter()
                     if not work.put(item):
                         return
@@ -674,6 +741,8 @@ class BatchPipeline:
                         break
 
         def worker():
+            if tracing:
+                tracer.name_thread("parse-worker")
             try:
                 parser = self._new_parser()
             except BaseException as e:  # surfaces in the consumer
@@ -696,11 +765,17 @@ class BatchPipeline:
                 except BaseException as e:
                     item = WorkerError(e)
                 t1 = time.perf_counter()
+                if tracing and not isinstance(item, WorkerError):
+                    tracer.emit("parse.batch", t0, t1 - t0,
+                                args={"seq": seq})
+                if not isinstance(item, WorkerError):
+                    self._sketch(item[1])
+                t2 = time.perf_counter()
                 if not out.put(item):
                     return
                 if timed:
                     self._t_parse.observe(t1 - t0)
-                    self._t_out_block.observe(time.perf_counter() - t1)
+                    self._t_out_block.observe(time.perf_counter() - t2)
 
         threads = [threading.Thread(target=reader, daemon=True,
                                     name="tffm-torch-read")]
@@ -728,6 +803,7 @@ class BatchPipeline:
                 held[seq] = obj
                 while next_seq in held:
                     obj = held.pop(next_seq)
+                    self._last_seq = next_seq
                     next_seq += 1
                     yield obj
         finally:
@@ -815,8 +891,8 @@ class BatchPipeline:
         def reader():
             pend = None  # [window, seq0, [starts...], [ends...]]
             try:
-                for seq, item in self._epoch_items(n_epochs, first_epoch,
-                                                   skip):
+                for seq, item in self._traced_items(self._epoch_items(
+                        n_epochs, first_epoch, skip)):
                     if isinstance(item, EpochEnd):
                         if not flush(pend):
                             return
@@ -859,7 +935,10 @@ class BatchPipeline:
                 host_meta=self.host_meta, shm_tag=tag,
                 ring_name=None if ring is None else ring.name,
                 ring_slots=cfg.ring_slots,
-                ring_slot_bytes=0 if ring is None else ring.slot_bytes)
+                ring_slot_bytes=0 if ring is None else ring.slot_bytes,
+                trace=self.tracer.enabled,
+                sketch_every=(procpool.SKETCH_SHIP_EVERY
+                              if self._quality is not None else 0))
             if self._closed:
                 return
             procs = procpool.start_workers(ctx, n_workers, spec, work, out,
@@ -892,16 +971,22 @@ class BatchPipeline:
                     for key, sec in msg[2].items():
                         self.worker_seconds[key] = (
                             self.worker_seconds.get(key, 0.0) + sec)
+                    # Spans that ended after the worker's last batch, and
+                    # its sketch remainder.
+                    self.tracer.add_raw(msg[3])
+                    self._absorb(msg[4])
                     continue
                 if kind == "err":
                     raise msg[1]
                 if kind == "mark":
                     seq, obj = msg[1], EpochEnd(msg[2])
                 else:  # ("batch", seq, segment, meta_len, truncated,
-                    #      parse_s)
+                    #      parse_s, spans, sketch delta)
                     seq = msg[1]
                     obj = procpool.attach_batch(spec, msg[2], msg[3])
                     self._t_parse.observe(msg[5])
+                    self.tracer.add_raw(msg[6])
+                    self._absorb(msg[7])
                     with self._trunc_lock:
                         self._trunc_extra += msg[4]
                     with slot_lock:
@@ -914,6 +999,7 @@ class BatchPipeline:
                 held[seq] = obj
                 while next_seq in held:
                     obj = held.pop(next_seq)
+                    self._last_seq = next_seq
                     next_seq += 1
                     yield obj
             if reader_err:
@@ -1037,6 +1123,7 @@ class BatchPipeline:
                 with BatchPipeline._count_lock:
                     BatchPipeline.replays += 1
                 self._c_cache_replays.add(1)
+                self._last_seq = None  # a replay: parsed in epoch 0
                 yield cache[i]
             with self._trunc_lock:
                 self._trunc_extra += epoch0_trunc
@@ -1110,6 +1197,7 @@ class BatchPipeline:
                 with BatchPipeline._count_lock:
                     BatchPipeline.replays += packed.n - rem
                 self._c_cache_replays.add(packed.n - rem)
+                self._last_seq = None  # a replay: parsed in epoch 0
                 if rem:
                     yield from packed.batches(rem)
                 else:
@@ -1141,20 +1229,30 @@ class BatchPipeline:
         counts alike.  The O(batch) example count runs only when the
         registry is live."""
         counting = self.telemetry.enabled
+        tracer = self.tracer
         inner = self._deliver()
         try:
             for item in inner:
+                if isinstance(item, EpochEnd):
+                    yield item
+                    continue
                 if isinstance(item, Batch):
-                    self._c_batches.add(1)
+                    n = 1
                     if counting:
                         self._c_examples.add(
                             int(np.count_nonzero(item.weights > 0)))
-                elif not isinstance(item, EpochEnd):  # a packed group
-                    self._c_batches.add(item.n)
+                else:  # a packed group
+                    n = item.n
                     if counting:
                         self._c_examples.add(sum(
                             int((b.weights > 0).sum())
                             for b in item.batches()))
+                self._c_batches.add(n)
+                if tracer.enabled:
+                    tracer.point("ingest.deliver", args={
+                        "batch": self._deliver_idx, "n": n,
+                        "seq": self._last_seq})
+                self._deliver_idx += n
                 yield item
         finally:
             inner.close()

@@ -65,7 +65,17 @@ those it filled itself and ``prestack_hits`` the packed groups.  A
 instruments: ``prefetch.stack`` (a fill), ``prefetch.device_put`` (the
 copy's enqueue), ``prefetch.out_block`` (waiting for the consumer),
 ``prefetch.out_q_depth``, ``prefetch.super_batches`` and
-``prefetch.prestack_hits``.
+``prefetch.prestack_hits``.  A ``tracer`` (``obs/trace.py``) gets the
+reference's spans, joined by super-batch id ``sb`` (ships in order, as
+the consumer dispatches them): ``prefetch.stack`` (the plan and the fill;
+``batch0`` and ``n`` name the delivered batches it holds) and
+``prefetch.h2d`` (the copy's enqueue; a prestacked group's carries the
+batch range itself), linked by ``sb<N>`` flows to the trainer's
+``train.dispatch``, and ``prefetch.staging_wait`` when the stage waits
+for an old copy before recycling its buffer.  With ``host_targets`` each
+super-batch carries host copies of its labels and weights
+(:attr:`SuperBatch.host`), taken from the staging buffer before it can
+be recycled.
 
 **The tiered plan** (``table_tiering = on``).  A ``plan_hook`` is called
 on each group after the range check of its LOGICAL ids (at the
@@ -98,6 +108,7 @@ from fast_tffm_tpu_torch.data.queues import (
     CANCELLED, SENTINEL, ClosableQueue, WorkerError,
 )
 from fast_tffm_tpu_torch.obs.telemetry import NULL, Telemetry
+from fast_tffm_tpu_torch.obs.trace import NULL_TRACER
 from fast_tffm_tpu_torch.platform import resolve_device
 
 __all__ = ["DevicePrefetcher", "PackedGroup", "Packer", "SuperBatch",
@@ -117,6 +128,10 @@ class SuperBatch(NamedTuple):
     batch: Batch
     n: int  # K, or an epoch tail's K' < K
     buffer: Optional[torch.Tensor] = None
+    # ``(labels [n, B], weights [n, B])`` host copies taken from the
+    # staging buffer when the stage ships ``host_targets`` (the quality
+    # plane reads them one dispatch late, never from the device).
+    host: Optional[tuple] = None
 
     def step(self, i: int) -> Batch:
         """Step ``i``'s batch: views of the stacked leaves, with the
@@ -321,8 +336,13 @@ class DevicePrefetcher:
                  vocabulary_size: int, depth: int = 2,
                  with_fields: bool = False,
                  packer: Optional[Packer] = None,
-                 plan_hook=None, telemetry: Optional[Telemetry] = None):
+                 plan_hook=None, telemetry: Optional[Telemetry] = None,
+                 tracer=None, host_targets: bool = False):
         self.device = resolve_device(device)
+        self._tracer = tracer if tracer is not None else NULL_TRACER
+        self._host_targets = host_targets
+        self._sb = 0  # the next super-batch's id
+        self._batch0 = 0  # the delivered index of its first batch
         self._plan_hook = plan_hook
         self._cuda = self.device.type == "cuda"
         if self._cuda and self.device.index is None:
@@ -358,6 +378,7 @@ class DevicePrefetcher:
 
     def _run(self, it) -> None:
         try:
+            self._tracer.name_thread("prefetch")
             if self._cuda:
                 torch.cuda.set_device(self.device)
             group: list = []
@@ -402,11 +423,15 @@ class DevicePrefetcher:
         copies are in flight, wait for the oldest and recycle its buffer
         if it is the stage's own (a packed group's is only let go)."""
         self._inflight.append((event, staging, recycle))
-        while len(self._inflight) > self._depth:
-            ev, buf, mine = self._inflight.popleft()
-            ev.synchronize()
-            if mine:
-                self._free.setdefault(buf.numel(), []).append(buf)
+        if len(self._inflight) <= self._depth:
+            return
+        with self._tracer.span("prefetch.staging_wait",
+                               args={"inflight": len(self._inflight)}):
+            while len(self._inflight) > self._depth:
+                ev, buf, mine = self._inflight.popleft()
+                ev.synchronize()
+                if mine:
+                    self._free.setdefault(buf.numel(), []).append(buf)
 
     def _ship(self, group) -> bool:
         """Fill a recycled staging buffer with ``group`` and ship it.
@@ -414,17 +439,23 @@ class DevicePrefetcher:
         the hook remaps them and its plan's arrays ride the same buffer
         and copy."""
         plan, extra = None, ()
-        if self._plan_hook is not None:
-            self._packer.check(group)
-            group, plan = self._plan_hook(group)
-            extra = plan.leaves()
-        with self._t_stack.time():
-            spec, total = self._packer.layout_of(group, extra)
-            staging = self._staging(total)
-            self._packer.fill(group, staging, spec, extra,
-                              checked=plan is not None)
+        sb = self._sb
+        with self._tracer.span(
+                "prefetch.stack",
+                args={"sb": sb, "batch0": self._batch0, "n": len(group)},
+                flow=("s", f"sb{sb}")):
+            if self._plan_hook is not None:
+                self._packer.check(group)
+                group, plan = self._plan_hook(group)
+                extra = plan.leaves()
+            with self._t_stack.time():
+                spec, total = self._packer.layout_of(group, extra)
+                staging = self._staging(total)
+                self._packer.fill(group, staging, spec, extra,
+                                  checked=plan is not None)
         DevicePrefetcher.fills += 1
-        return self._copy(staging, spec, len(group), recycle=True, plan=plan)
+        return self._copy(staging, spec, len(group), recycle=True, plan=plan,
+                          h2d=({"sb": sb}, "t"))
 
     def _ship_packed(self, packed: PackedGroup) -> bool:
         """Ship a group the prestacked cache packed: no fill, no range
@@ -436,25 +467,38 @@ class DevicePrefetcher:
         DevicePrefetcher.prestack_hits += 1
         self._c_prestack.add(1)
         return self._copy(packed.buffer, packed.spec, packed.n,
-                          recycle=False)
+                          recycle=False,
+                          h2d=({"sb": self._sb, "batch0": self._batch0,
+                                "n": packed.n, "prestacked": True}, "s"))
 
     def _copy(self, staging: torch.Tensor, spec, k: int,
-              recycle: bool, plan=None) -> bool:
+              recycle: bool, plan=None, h2d: tuple = ({}, "t")) -> bool:
+        """Copy ``staging`` to the device (the ``prefetch.h2d`` span with
+        ``h2d``'s args and flow phase) and queue the super-batch."""
         event = None
         t0 = time.perf_counter()
-        if self._cuda:
-            total = staging.numel()
-            with self._cuda_calls, torch.cuda.stream(self._stream):
-                dev = torch.empty((total,), dtype=torch.uint8,
-                                  device=self.device)
-                dev.copy_(staging, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(self._stream)
-                self._retire(event, staging, recycle)
-        else:
-            dev = staging  # an alias: never recycled
+        host = None
+        if self._host_targets:
+            hv = _host_views(staging, spec)
+            host = (hv["labels"][:k].copy(), hv["weights"][:k].copy())
+        sb_id = self._sb
+        self._sb += 1
+        self._batch0 += k
+        with self._tracer.span("prefetch.h2d", args=h2d[0],
+                               flow=(h2d[1], f"sb{sb_id}")):
+            if self._cuda:
+                total = staging.numel()
+                with self._cuda_calls, torch.cuda.stream(self._stream):
+                    dev = torch.empty((total,), dtype=torch.uint8,
+                                      device=self.device)
+                    dev.copy_(staging, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(self._stream)
+                    self._retire(event, staging, recycle)
+            else:
+                dev = staging  # an alias: never recycled
         views = _views(dev, spec)
-        sb = _assemble(views, k, dev)
+        sb = _assemble(views, k, dev)._replace(host=host)
         item = sb if plan is None else plan.ship(sb, views)
         self._t_put.observe(time.perf_counter() - t0)
         DevicePrefetcher.ships += 1

@@ -40,9 +40,15 @@ involved.  The ring's pages are reserved at creation
 size, and never as a ``SIGBUS`` on a later write; a batch segment is
 written with ``os.write``, which fails with ``ENOSPC`` the same way.
 
-The reference's quality sketches (``SKETCH_SHIP_EVERY``) and trace spans
-ride its result messages for observability planes the port does not run
-(ROADMAP.md port queue item 4): they are left out here.
+The quality plane's sketches and the trace's spans ride the result
+messages, as the reference's do: with ``spec.trace`` a worker records
+``parse.batch`` spans in a tracer of its own (``obs/trace.py``, stdlib)
+and ships the new events with each batch; with ``spec.sketch_every > 0``
+it folds each parsed batch into a local ``obs/sketch.py::SketchSet`` and
+ships its serialized delta every ``sketch_every`` batches (None in
+between) and the remainder with its ``done`` message.  The port ships one
+descriptor a batch, so a delta rides one batch's message in
+``SKETCH_SHIP_EVERY``.
 """
 
 from __future__ import annotations
@@ -73,6 +79,9 @@ SHM_DIR = "/dev/shm"
 _pipe_ids = itertools.count()
 _ship_ids = itertools.count()
 _CORE = ("labels", "ids", "vals", "fields", "weights")
+# Batches a worker sketches between two shipped deltas: one pickled
+# sketch per batch would undo the descriptor-only queue discipline.
+SKETCH_SHIP_EVERY = 16
 
 
 def make_shm_tag() -> str:
@@ -96,6 +105,8 @@ class WorkerSpec:
     ring_name: Optional[str] = None  # the inbound ring (None: off)
     ring_slots: int = 0
     ring_slot_bytes: int = 0
+    trace: bool = False  # record parse spans and ship them back
+    sketch_every: int = 0  # ship a sketch delta every this many batches
 
 
 def _layout(spec: WorkerSpec, meta_len: int):
@@ -360,13 +371,15 @@ def parse_worker_main(spec: WorkerSpec, work, out, stop) -> None:
       ``("mark", seq, epoch)``: an epoch's end, echoed;
       ``None``: the end.
 
-    Results: ``("batch", seq, segment, meta_len, truncated, parse_s)``
-    (``parse_s`` the batch's parse and sort-meta seconds), ``("mark",
-    seq, epoch)``, ``("err", exception)`` and at the end ``("done",
-    batches this worker's parser parsed, seconds)``: ``seconds`` the
-    worker's wall time waiting for work (``idle``), parsing with the sort
-    meta (``parse``) and writing batches out (``ship``), the reference's
-    per-batch ``parse_s`` summed.
+    Results: ``("batch", seq, segment, meta_len, truncated, parse_s,
+    spans, sketch_delta)`` (``parse_s`` the batch's parse and sort-meta
+    seconds; ``spans`` the trace events since the last message, empty
+    untraced; ``sketch_delta`` a serialized ``SketchSet`` or None),
+    ``("mark", seq, epoch)``, ``("err", exception)`` and at the end
+    ``("done", batches this worker's parser parsed, seconds, spans,
+    sketch_delta)``: ``seconds`` the worker's wall time waiting for work
+    (``idle``), parsing with the sort meta (``parse``) and writing
+    batches out (``ship``), the reference's per-batch ``parse_s`` summed.
     """
     ring = None
     try:
@@ -384,8 +397,32 @@ def parse_worker_main(spec: WorkerSpec, work, out, stop) -> None:
         return
 
     seconds = dict.fromkeys(("idle", "parse", "ship"), 0.0)
+    from fast_tffm_tpu_torch.obs.trace import Tracer
+
+    tracer = Tracer(enabled=spec.trace,
+                    process_name=f"parse-worker {os.getpid()}")
+    if spec.trace:
+        tracer.name_thread("parse-worker")
+    sketch = None
+    pending = 0  # batches in ``sketch`` not shipped yet
+    if spec.sketch_every > 0:
+        from fast_tffm_tpu_torch.obs.sketch import SketchSet
+
+        sketch = SketchSet()
+
+    def take_delta(force: bool = False):
+        """The sketch delta to ship now (None: not yet, or nothing)."""
+        nonlocal sketch, pending
+        if sketch is None or not pending or (
+                not force and pending < spec.sketch_every):
+            return None
+        delta = sketch.to_dict()
+        sketch = SketchSet()
+        pending = 0
+        return delta
 
     def emit(seq: int, raw: bool, group) -> bool:
+        nonlocal sketch, pending
         before = parser.truncated_features
         t0 = time.perf_counter()
         batch = parse_native(parser, group, raw, spec.batch_size)
@@ -393,12 +430,20 @@ def parse_worker_main(spec: WorkerSpec, work, out, stop) -> None:
             batch = batch._replace(sort_meta=native.sort_meta(
                 batch.ids, spec.vocabulary_size))
         t1 = time.perf_counter()
+        tracer.emit("parse.batch", t0, t1 - t0, args={"seq": seq})
+        if sketch is not None:
+            try:  # observe-only: a failure drops this worker's sketches
+                sketch.update_batch(batch.ids, batch.vals, batch.weights)
+                pending += 1
+            except Exception:  # noqa: BLE001
+                sketch = None
         name, meta_len = ship_batch(spec, batch)
         seconds["parse"] += t1 - t0
         seconds["ship"] += time.perf_counter() - t1
         if put_with_stop(out, ("batch", seq, name, meta_len,
                                parser.truncated_features - before,
-                               t1 - t0), stop):
+                               t1 - t0, tracer.take(), take_delta()),
+                         stop):
             return True
         discard_segment(name)  # teardown raced the ship
         return False
@@ -414,7 +459,8 @@ def parse_worker_main(spec: WorkerSpec, work, out, stop) -> None:
                 seconds["idle"] += time.perf_counter() - t0
             if msg is None:
                 put_with_stop(out, ("done", native.NativeParser.batches,
-                                    seconds), stop)
+                                    seconds, tracer.take(),
+                                    take_delta(force=True)), stop)
                 return
             try:
                 kind = msg[0]

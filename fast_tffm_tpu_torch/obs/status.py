@@ -13,14 +13,15 @@ only):
 - :func:`render_prometheus` — one record as Prometheus text exposition;
 - :class:`StatusServer` — a run's ``/metrics``, ``/status``, ``/healthz``
   and ``/debug/threadz`` on their own port (the trainer's
-  ``status_port``).  The on-demand profiler (``/profile``) and the
-  flight recorder's ``POST /incident`` are not in the port: both answer
-  404.
+  ``status_port``), the on-demand profiler window ``/profile?secs=N``
+  (one capture at a time, 409 on a clash) and the flight recorder's
+  ``POST /incident`` (503 when the run's blackbox is off).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import queue
 import re
 import select
@@ -28,6 +29,7 @@ import socket
 import sys
 import threading
 import traceback
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 
@@ -35,6 +37,8 @@ __all__ = [
     "ObsHTTPServer", "PooledHTTPServer", "QuietHandler", "StatusServer",
     "probe_reuseport", "render_prometheus", "thread_dump",
 ]
+
+log = logging.getLogger(__name__)
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
 
@@ -542,10 +546,39 @@ class QuietHandler(BaseHTTPRequestHandler):
             )
         return True
 
+    def _post_incident(self, query: str, incident) -> None:
+        """Answer ``POST /incident[?reason=...]`` — the manual
+        flight-recorder trigger shared by the trainer status endpoint,
+        the serve replicas, and the router.  ``incident`` is the
+        owner's ``Blackbox.incident``-shaped callable returning the
+        bundle dir; ``None`` -> 503 (blackbox disabled on this run).
+        Any body is consumed (keep-alive correctness) and ignored —
+        the reason rides the query string."""
+        if "Content-Length" in self.headers:
+            if self._read_body(1 << 20) is None:
+                return
+        if incident is None:
+            self._send(
+                503, b"blackbox disabled on this run "
+                     b"(--no_blackbox)\n", "text/plain",
+            )
+            return
+        params = urllib.parse.parse_qs(query)
+        reason = (params.get("reason") or ["manual"])[0] or "manual"
+        try:
+            out = incident(reason)
+        except Exception as e:  # noqa: BLE001 - report, don't die
+            self._send(
+                500, f"incident dump failed: {e}\n".encode(),
+                "text/plain",
+            )
+            return
+        body = (json.dumps({"incident_dir": out}) + "\n").encode()
+        self._send(200 if out else 503, body, "application/json")
+
 
 class StatusServer:
-    """Serve ``/metrics`` + ``/status`` + ``/healthz`` (and
-    ``/debug/threadz``) for one run, on a thread of its own.
+    """Serve ``/metrics`` + ``/status`` + ``/healthz`` for one run.
 
     ``build`` returns the on-demand status record (the same callable
     shape the Heartbeat takes; ``None`` degrades to an empty record so
@@ -555,14 +588,32 @@ class StatusServer:
     unauthenticated, so publishing beyond the host (a real Prometheus
     scrape) is an explicit opt-in (``status_host = 0.0.0.0``).
     ``telemetry`` (optional) receives a ``status.requests`` counter so
-    scrape load shows up in snapshots.  A port that is taken raises
-    OSError from the constructor.  ``close()`` shuts the server down and
-    joins its thread; idempotent.
+    scrape load shows up in snapshots.  ``profile`` (optional) is the
+    on-demand capture callable ``profile(secs) -> output_dir`` behind
+    ``/profile?secs=N`` — the server only guards it (one capture at a
+    time; a concurrent request gets 409) and clamps ``secs`` to
+    [0.1, 120]; without it the route 404s.  ``metrics_extra``
+    (optional) returns extra pre-rendered Prometheus text appended to
+    every ``/metrics`` response — the hook the training-fleet plane
+    uses for its per-rank ``tffm_train_rank_*`` labeled series
+    (obs/fleet.py); its failures degrade to the base exposition, never
+    a dead scrape.  ``incident`` (optional) is the flight recorder's
+    ``Blackbox.incident``-shaped callable behind ``POST /incident``
+    (the manual forensic-bundle trigger); without it the route answers
+    503.  ``close()`` shuts the server down and joins its thread;
+    idempotent.
     """
 
     def __init__(self, port: int, build: Callable[[], Optional[dict]],
-                 telemetry=None, host: str = "127.0.0.1"):
+                 telemetry=None, host: str = "127.0.0.1",
+                 profile: Optional[Callable[[float], str]] = None,
+                 metrics_extra: Optional[Callable[[], str]] = None,
+                 incident=None):
         self._build = build
+        self._profile = profile
+        self._metrics_extra = metrics_extra
+        self._incident = incident
+        self._profile_lock = threading.Lock()
         self._requests = (
             telemetry.counter("status.requests")
             if telemetry is not None else None
@@ -573,18 +624,93 @@ class StatusServer:
             def do_GET(self) -> None:  # noqa: N802 - http.server API
                 if server._requests is not None:
                     server._requests.add()
-                path = self.path.partition("?")[0]
+                path, _, query = self.path.partition("?")
+                if (
+                    path == "/metrics"
+                    and server._metrics_extra is not None
+                ):
+                    self._do_metrics_extra()
+                    return
                 if self._get_observability(path, server._build):
+                    return
+                if path == "/profile":
+                    self._do_profile(query)
                     return
                 self._send(404, b"not found\n", "text/plain")
 
             def do_POST(self) -> None:  # noqa: N802 - http.server API
                 if server._requests is not None:
                     server._requests.add()
-                if "Content-Length" in self.headers:
-                    if self._read_body(1 << 20) is None:
-                        return
+                path, _, query = self.path.partition("?")
+                if path == "/incident":
+                    self._post_incident(query, server._incident)
+                    return
                 self._send(404, b"not found\n", "text/plain")
+
+            def _do_metrics_extra(self) -> None:
+                """/metrics with the owner's extra labeled series
+                appended (fleet per-rank series).  The base record
+                keeps the shared 500-on-builder-failure contract; a
+                failing extra hook degrades to the base exposition —
+                per-rank decoration must never kill the scrape."""
+                try:
+                    record = server._build() or {}
+                    body = render_prometheus(record)
+                except Exception as e:  # noqa: BLE001 - report, don't die
+                    self._send(
+                        500, f"builder failed: {e}\n".encode(),
+                        "text/plain",
+                    )
+                    return
+                try:
+                    body += server._metrics_extra() or ""
+                except Exception as e:  # noqa: BLE001
+                    log.warning("metrics_extra hook failed: %s", e)
+                self._send(
+                    200, body.encode(),
+                    "text/plain; version=0.0.4; charset=utf-8",
+                )
+
+            def _do_profile(self, query: str) -> None:
+                """On-demand profiler window.  Blocks THIS handler
+                thread for the capture (other routes keep answering —
+                ThreadingHTTPServer); the non-blocking lock acquire is
+                the one-at-a-time guard (two overlapping profiler
+                captures would poison each other)."""
+                if server._profile is None:
+                    self._send(
+                        404, b"profiler not available on this run\n",
+                        "text/plain",
+                    )
+                    return
+                params = urllib.parse.parse_qs(query)
+                try:
+                    secs = float(params.get("secs", ["2"])[0])
+                except ValueError:
+                    self._send(400, b"secs must be a number\n",
+                               "text/plain")
+                    return
+                secs = min(max(secs, 0.1), 120.0)
+                if not server._profile_lock.acquire(blocking=False):
+                    self._send(
+                        409, b"a profile capture is already in "
+                             b"progress\n", "text/plain",
+                    )
+                    return
+                try:
+                    out = server._profile(secs)
+                except Exception as e:  # noqa: BLE001 - report, don't die
+                    self._send(
+                        500, f"profile capture failed: {e}\n".encode(),
+                        "text/plain",
+                    )
+                    return
+                finally:
+                    server._profile_lock.release()
+                body = (json.dumps(
+                    {"profile_dir": out, "secs": secs}
+                ) + "\n").encode()
+                self._send(200, body, "application/json")
 
         self._httpd = ObsHTTPServer((host, port), Handler)
         self.port = self._httpd.server_address[1]

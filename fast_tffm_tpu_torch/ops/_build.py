@@ -18,6 +18,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+
+from fast_tffm_tpu_torch.obs.resource import note_build
 
 __all__ = ["BUILD_DIR", "LIB_PATH", "build", "load"]
 
@@ -108,6 +111,7 @@ def build(force: bool = False) -> str:
         for s in srcs
     ]
     tmp = LIB_PATH + tag + ".tmp"
+    t0 = time.perf_counter()
     try:
         log = _run_all([
             [nvcc, _ARCH, *_CFLAGS, "-c", src, "-o", obj]
@@ -119,6 +123,7 @@ def build(force: bool = False) -> str:
         for path in (*objs, tmp):
             if os.path.exists(path):
                 os.remove(path)
+    note_build("nvcc", LIB_PATH, time.perf_counter() - t0)
     return log
 
 

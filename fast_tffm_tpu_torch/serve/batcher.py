@@ -23,10 +23,19 @@ Instruments (all ``serve.*``): ``requests`` / ``examples`` /
 delivered), the ``batch_fill`` gauge (cumulative filled/dispatched
 slots), the ``inflight`` gauge and the ``queue_depth`` histogram.
 
+Distributed tracing: a request carrying a request id (``rid``, from
+the ``X-Request-Id`` header or the binary frame's trailer on a SAMPLED
+request) gets per-request spans, ``serve.queue_wait`` (enqueue ->
+picked by the dispatcher), ``serve.coalesce`` (picked -> the microbatch
+dispatches) and ``serve.dispatch`` (the rung dispatch, with a flow step
+on the rid), emitted from recorded timestamps after the dispatch.  A
+``quality`` monitor (``obs/quality.py::ServeSkewMonitor``) gets every
+dispatched group's request arrays and served scores after the scores are
+delivered, so the responses are the same with it on or off.
+
 The PyTorch port's own copy of ``fast_tffm_tpu/serve/batcher.py``,
 with the queue helpers it imports from the reference's input pipeline,
-and the SLO ledger's per-request observations (``slo``); the
-per-request trace spans and the skew sketches are not in the port yet.
+and the SLO ledger's per-request observations (``slo``).
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from typing import Optional
 import numpy as np
 
 from fast_tffm_tpu_torch.obs.telemetry import NULL
+from fast_tffm_tpu_torch.obs.trace import NULL_TRACER
 
 log = logging.getLogger(__name__)
 
@@ -120,9 +130,9 @@ class ScoreRequest:
     new request while the dispatcher reads it."""
 
     __slots__ = ("ids", "vals", "fields", "n", "event", "scores",
-                 "error", "t0", "on_done")
+                 "error", "t0", "rid", "t_picked", "on_done")
 
-    def __init__(self, ids, vals, fields, on_done=None):
+    def __init__(self, ids, vals, fields, rid=None, on_done=None):
         self.ids = ids
         self.vals = vals
         self.fields = fields
@@ -131,6 +141,8 @@ class ScoreRequest:
         self.scores: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
         self.t0 = time.perf_counter()
+        self.rid = rid
+        self.t_picked: Optional[float] = None
         self.on_done = on_done
 
     def finish(self) -> None:
@@ -148,9 +160,13 @@ class ServeBatcher:
     """Coalesce requests into microbatches under a latency deadline."""
 
     def __init__(self, scorer, max_batch_wait_ms: float = 2.0,
-                 queue_size: int = 1024, telemetry=None, slo=None):
+                 queue_size: int = 1024, telemetry=None, slo=None,
+                 tracer=None, quality=None):
         self._scorer = scorer
         self._wait_s = max(0.0, float(max_batch_wait_ms)) / 1e3
+        self._tracer = tracer if tracer is not None else NULL_TRACER
+        # The skew monitor (None: quality off), fed after delivery.
+        self._quality = quality
         # The SLO ledger (serve/slo.py), None = no accounting: every
         # dispatched request's latency, every failed one as bad.
         self._slo = slo
@@ -187,7 +203,7 @@ class ServeBatcher:
 
     # -- client side ---------------------------------------------------
 
-    def submit(self, ids, vals, fields=None,
+    def submit(self, ids, vals, fields=None, rid=None,
                on_done=None) -> ScoreRequest:
         """Enqueue ``[n, max_features]`` arrays; returns the request
         future.  Raises RuntimeError once the batcher is closed.
@@ -199,7 +215,7 @@ class ServeBatcher:
             np.ascontiguousarray(vals, np.float32),
             (np.ascontiguousarray(fields, np.int32)
              if fields is not None else None),
-            on_done=on_done,
+            rid=rid, on_done=on_done,
         )
         with self._out_lock:
             if self._closed:
@@ -235,10 +251,11 @@ class ServeBatcher:
         return req.scores
 
     def score(self, ids, vals, fields=None, timeout: float = 30.0,
-              on_done=None) -> np.ndarray:
+              rid=None, on_done=None) -> np.ndarray:
         """submit + result in one call (the HTTP handler's path)."""
         return self.result(
-            self.submit(ids, vals, fields, on_done=on_done), timeout,
+            self.submit(ids, vals, fields, rid=rid, on_done=on_done),
+            timeout,
         )
 
     @property
@@ -267,6 +284,8 @@ class ServeBatcher:
             pending = None
             if first is _CANCELLED:
                 break
+            if first.rid is not None and first.t_picked is None:
+                first.t_picked = time.perf_counter()
             group = [first]
             total = first.n
             deadline = time.monotonic() + self._wait_s
@@ -277,6 +296,8 @@ class ServeBatcher:
                 nxt = self._q.get(timeout=remaining)
                 if nxt is _TIMEOUT or nxt is _CANCELLED:
                     break
+                if nxt.rid is not None:
+                    nxt.t_picked = time.perf_counter()
                 if total + nxt.n > max_b:
                     # Doesn't fit this rung: dispatch what we have and
                     # seed the next microbatch (keeps every coalesced
@@ -290,8 +311,49 @@ class ServeBatcher:
         # the cancel discarded AND a pending carry-over).
         self._fail_outstanding(RuntimeError("ServeBatcher closed"))
 
+    def _trace_request(self, g: ScoreRequest, t_d0: float,
+                       t_d1: float, rung: int, total: int) -> None:
+        """Emit one sampled request's replica-side spans from the
+        recorded timestamps (queue wait -> coalesce -> dispatch).  The
+        flow step on the rid links the chain to the router's proxy
+        span and the handler's respond span."""
+        args = {"rid": g.rid}
+        picked = g.t_picked if g.t_picked is not None else t_d0
+        self._tracer.emit(
+            "serve.queue_wait", g.t0, picked - g.t0, args=args,
+        )
+        self._tracer.emit(
+            "serve.coalesce", picked, t_d0 - picked,
+            args={"rid": g.rid, "group_n": total},
+        )
+        self._tracer.emit(
+            "serve.dispatch", t_d0, t_d1 - t_d0,
+            args={"rid": g.rid, "rung": rung, "n": total},
+            flow=("t", g.rid),
+        )
+
+    def _observe_skew(self, group) -> None:
+        """Fold a delivered group's request arrays and served scores
+        into the skew monitor, once per group.  The requests were
+        answered already, so a failure here is only logged."""
+        try:
+            if len(group) == 1:
+                g = group[0]
+                self._quality.observe_batch(g.ids, g.vals)
+                self._quality.observe_scores(g.scores)
+            else:
+                self._quality.observe_batch(
+                    np.concatenate([g.ids for g in group]),
+                    np.concatenate([g.vals for g in group]))
+                self._quality.observe_scores(
+                    np.concatenate([g.scores for g in group]))
+        except Exception as e:  # noqa: BLE001 - observe only
+            log.warning("skew sketching failed: %s", e)
+
     def _dispatch(self, group, total: int) -> None:
         scorer = self._scorer
+        rung = 0
+        t_d0 = time.perf_counter()
         try:
             if len(group) == 1 and total > scorer.max_rung:
                 # One oversized request: the scorer chunks it itself
@@ -299,8 +361,9 @@ class ServeBatcher:
                 req = group[0]
                 scores = scorer.score(req.ids, req.vals, req.fields)
                 self._slots += scorer.slots_for(total)
+                rung = scorer.max_rung
             else:
-                b = scorer.rung_for(total)
+                rung = b = scorer.rung_for(total)
                 bi, bv, bf = self._pool(b)
                 pos = 0
                 any_fields = any(g.fields is not None for g in group)
@@ -336,9 +399,13 @@ class ServeBatcher:
                 with self._out_lock:
                     self._outstanding.discard(g)
                     self._g_inflight.set(len(self._outstanding))
+                if g.rid is not None:
+                    self._trace_request(g, t_d0, now, rung, total)
                 g.event.set()
-            # Last reader done (the microbatch copy read g.ids/g.vals):
-            # release pooled parse scratch.
+            if self._quality is not None:
+                self._observe_skew(group)
+            # Last reader done (the microbatch copy and the skew fold
+            # read g.ids/g.vals): release pooled parse scratch.
             for g in group:
                 g.finish()
         except BaseException as e:  # noqa: BLE001 - fail the CLIENTS

@@ -40,15 +40,18 @@ counters, the SLO ledger over every front-door outcome, and the fleet
 aggregates of the replicas' scraped ``/status`` blocks.
 
 The PyTorch port's copy of ``fast_tffm_tpu/serve/router.py``.  It
-differs in three ways only: the child command is ``-m
-fast_tffm_tpu_torch.cli serve``, ``--device`` reaches every replica
-when the fleet was started with one, and the router's blackbox, trace
-and request sampling are not wired yet and are logged as inert when set
-(none of them changes a score).  Its metrics stream (a ``run_header`` of
-``mode: serve_router``, ``heartbeat`` records built by
-:meth:`ServeRouter._build`, a ``final`` record at close) and its
+differs in two ways only: the child command is ``-m
+fast_tffm_tpu_torch.cli serve``, and ``--device`` reaches every replica
+when the fleet was started with one.  Its metrics stream (a
+``run_header`` of ``mode: serve_router``, ``heartbeat`` records built by
+:meth:`ServeRouter._build`, a ``final`` record at close), its
 ``alert_rules`` watchdog on the heartbeat (a ``halt`` rule stops
-:func:`serve_fleet`) are the reference's.
+:func:`serve_fleet`), its trace (the front door owns the sampling coin
+and the request-id mint: ``serve.admit`` and ``serve.proxy`` spans, the
+flow on the rid that the replica's spans continue; written to
+``trace_file`` at close, the replicas writing ``trace_file.replicaN``)
+and its blackbox (the fleet heartbeats' ring, a bundle on an alert, a
+crash or ``POST /incident``) are the reference's.
 """
 
 from __future__ import annotations
@@ -77,11 +80,13 @@ from fast_tffm_tpu_torch.obs.alerts import (
 )
 from fast_tffm_tpu_torch.obs.fleet import MergeSpec, labeled_lines, merge_blocks
 from fast_tffm_tpu_torch.obs.heartbeat import Heartbeat, JsonlWriter
+from fast_tffm_tpu_torch.obs.blackbox import Blackbox
 from fast_tffm_tpu_torch.obs.resource import basic_block
 from fast_tffm_tpu_torch.obs.status import (
     ObsHTTPServer, PooledHTTPServer, QuietHandler, render_prometheus,
 )
 from fast_tffm_tpu_torch.obs.telemetry import NULL, Telemetry
+from fast_tffm_tpu_torch.obs.trace import NULL_TRACER, Tracer
 from fast_tffm_tpu_torch.serve import wire
 from fast_tffm_tpu_torch.serve.slo import SloTracker
 from fast_tffm_tpu_torch.train import manifest
@@ -114,12 +119,9 @@ _FAIL_EVICT = 2
 # the ring at maxlen * this many bytes).
 _SAMPLE_BODY_MAX = 256 << 10
 
-# Router settings whose non-default value the port does not act on yet
-# (ROADMAP.md, port queue item 4c); none of them changes a score.
-_INERT_KNOBS = (
-    "trace_file", "trace_rotate_events", "serve_trace_sample",
-    "incident_dir",
-)
+# Router settings whose non-default value the port does not act on:
+# the XLA compile cache has no counterpart (none changes a score).
+_INERT_KNOBS = ("compile_cache_dir",)
 
 
 def _child_env() -> dict:
@@ -418,8 +420,15 @@ class ServeRouter:
                  telemetry=None, host: str = "127.0.0.1",
                  health_secs: float = 0.5,
                  manifest_seen: Optional[dict] = None,
-                 proxy_timeout_s: float = 30.0, respawner=None):
+                 proxy_timeout_s: float = 30.0, tracer=None,
+                 sampler=None, respawner=None):
         self.cfg = cfg
+        # The fleet's front door owns the sampling coin and the
+        # request-id mint; no trace_file: the shared no-op tracer.
+        self._tracer = tracer if tracer is not None else NULL_TRACER
+        self._sampler = sampler if sampler is not None else (
+            wire.RequestSampler(cfg.serve_trace_sample,
+                                enabled=self._tracer.enabled, tag="rt"))
         tel = telemetry if telemetry is not None else NULL
         self._tel = tel
         self._c_requests = tel.counter("serve.router_requests")
@@ -465,7 +474,9 @@ class ServeRouter:
         self._sample: collections.deque = collections.deque(maxlen=32)
         self._health_secs = max(0.05, float(health_secs))
         self.step = int((manifest_seen or {}).get("step", 0))
-        self.alert_engine = None  # start_fleet's, when rules are set
+        # start_fleet mounts these after construction, when asked for.
+        self.alert_engine = None
+        self.blackbox = None
         self._seen = manifest_seen
         self._t0 = time.time()
         self._stop = threading.Event()
@@ -475,6 +486,13 @@ class ServeRouter:
             def do_POST(self) -> None:  # noqa: N802 - http.server API
                 router._c_requests.add()
                 path = self.path.partition("?")[0]
+                if path == "/incident":
+                    # The ROUTER's rings: fleet scrapes, shed state.
+                    bb = router.blackbox
+                    self._post_incident(
+                        self.path.partition("?")[2],
+                        bb.incident if bb is not None else None)
+                    return
                 if path not in ("/score", "/score_bin"):
                     self._send(404, b"not found\n", "text/plain")
                     return
@@ -496,11 +514,15 @@ class ServeRouter:
                     else "application/octet-stream",
                 )
                 # Request id: a valid client-supplied X-Request-Id
-                # propagates to the replica and echoes back; an id-less
-                # request does no id work and proxies byte-identical.
+                # propagates to the replica and echoes back; otherwise
+                # the sampling coin decides whether to mint one.  An
+                # unsampled id-less request does no id work and proxies
+                # byte-identical.
                 rid = self.headers.get("X-Request-Id")
                 if rid is not None and not wire.valid_request_id(rid):
                     rid = None
+                if rid is None and router._sampler.sample():
+                    rid = router._sampler.mint()
                 status, data, rctype, headers = router._handle(
                     path, body, ctype, rid=rid
                 )
@@ -632,8 +654,18 @@ class ServeRouter:
     def _handle(self, path: str, body: bytes, ctype: str, rid=None):
         """Route one scoring request; returns (status, body, ctype,
         headers-or-None) for the front handler to send.  ``rid`` (a
-        client-supplied request id) propagates to the replica."""
+        sampled or client-supplied request id) propagates to the
+        replica and opens the request's router-side span chain."""
+        t_admit = time.perf_counter()
         rep, why = self._admit()
+        traced = rid is not None and self._tracer.enabled
+        if traced:
+            # The admit or shed decision: where a shed request's chain
+            # ends.
+            self._tracer.emit(
+                "serve.admit", t_admit, time.perf_counter() - t_admit,
+                args={"rid": rid, "decision": why or "admit",
+                      "replica": rep.index if rep is not None else -1})
         if rep is None:
             self._slo.observe(False)
             if why == "shed":
@@ -649,7 +681,7 @@ class ServeRouter:
         while True:
             try:
                 status, data, rctype = self._forward(
-                    rep, path, body, ctype, rid=rid,
+                    rep, path, body, ctype, rid=rid, traced=traced,
                 )
                 break
             except _ProxyError as e:
@@ -668,6 +700,13 @@ class ServeRouter:
         self._dec(rep)
         now = time.perf_counter()
         self._t_proxy.observe(now - t0)
+        if traced:
+            # The proxy span opens the cross-process flow: the replica's
+            # serve.dispatch steps it, serve.respond ends it.
+            self._tracer.emit(
+                "serve.proxy", t0, now - t0,
+                args={"rid": rid, "replica": rep.index, "status": status},
+                flow=("s", rid))
         # SLO verdict: admitted and answered below 500 is transport-ok
         # (a 4xx is the client's malformed request, not lost
         # availability); the latency objective can still demote it.
@@ -705,15 +744,18 @@ class ServeRouter:
         conn.close()
 
     def _forward(self, rep: Replica, path: str, body: bytes,
-                 ctype: str, rid=None):
+                 ctype: str, rid=None, traced: bool = False):
         """One proxied POST.  A failure on a REUSED connection retries
         once on a fresh one (an idle kept-alive socket the replica
         timed out is stale, not a dead replica); a fresh-connection
         failure raises _ProxyError.
 
         ``rid`` propagates to the replica as the ``X-Request-Id``
-        header; the frame itself is proxied byte-identical to what the
-        client sent (a client's own request-id trailer included)."""
+        header; a TRACED ``/score_bin`` request also carries it as the
+        frame's request-id trailer, and an untraced frame is proxied
+        byte-identical to what the client sent."""
+        if traced and path == "/score_bin":
+            body = wire.with_bin_request_id(body, rid)
         headers = {"Content-Type": ctype}
         if rid is not None:
             headers["X-Request-Id"] = rid
@@ -1265,6 +1307,8 @@ class ServeRouter:
             rec["resource"] = basic_block(self._t0)
         if self.alert_engine is not None:
             rec["alerts"] = self.alert_engine.active_snapshot()
+        if self._tracer.enabled:
+            rec["trace_dropped_events"] = self._tracer.dropped_events
         return rec
 
     def _render_metrics(self) -> str:
@@ -1322,10 +1366,11 @@ class FleetHandle:
     """One running router + replica fleet; ``close()`` tears it down in
     order (the heartbeat stops, the router stops routing, the replicas
     terminate, then the final record is written, naming
-    :attr:`exception` when one stopped the fleet)."""
+    :attr:`exception` when one stopped the fleet, a crash leaves a
+    blackbox bundle, and the router's trace is written)."""
 
     def __init__(self, cfg, manager, router, telemetry, writer=None,
-                 heartbeat=None, alert_engine=None):
+                 heartbeat=None, alert_engine=None, tracer=None):
         self.cfg = cfg
         self.manager = manager
         self.router = router
@@ -1336,6 +1381,7 @@ class FleetHandle:
         self.exception: Optional[BaseException] = None
         self._writer = writer
         self._heartbeat = heartbeat
+        self._tracer = tracer
         self._closed = False
 
     def close(self) -> None:
@@ -1347,16 +1393,34 @@ class FleetHandle:
         self.router.close()
         if self.manager is not None:
             self.manager.close()
-        if self._writer is not None:
+        blackbox = self.router.blackbox
+        if self._writer is not None or blackbox is not None:
             try:
                 final = self.router._build("final")
                 if self.exception is not None:
                     final["exception"] = type(self.exception).__name__
                     final["exception_msg"] = str(self.exception)
-                self._writer.write(final)
+                if self._writer is not None:
+                    self._writer.write(final)
+                if blackbox is not None:
+                    blackbox.observe_record(final)
             except Exception as e:  # noqa: BLE001 - teardown best-effort
                 log.warning("router final record write failed: %s", e)
+        # A crash's bundle, before the stream closes so its manifest
+        # reaches the stream.
+        if (blackbox is not None and self.exception is not None
+                and not isinstance(self.exception, KeyboardInterrupt)):
+            blackbox.incident("crash_" + type(self.exception).__name__)
+        if self._writer is not None:
             self._writer.close()
+        if self._tracer is not None and self._tracer.enabled:
+            try:
+                n = self._tracer.dump(self.cfg.trace_file)
+                self._tracer.close()
+                log.info("router trace written to %s (%d events)",
+                         self.cfg.trace_file, n)
+            except Exception as e:  # noqa: BLE001 - teardown best-effort
+                log.warning("router trace dump failed: %s", e)
 
 
 def start_fleet(cfg: FmConfig, cfg_path: str,
@@ -1376,11 +1440,18 @@ def start_fleet(cfg: FmConfig, cfg_path: str,
              if getattr(cfg, k) != getattr(defaults, k)]
     if inert:
         log.warning(
-            "the PyTorch port's router does not act on %s yet (ROADMAP.md "
-            "port queue item 4c); scores are unaffected", ", ".join(inert),
+            "the PyTorch port's router does not act on %s; scores are "
+            "unaffected", ", ".join(inert),
         )
     writer = JsonlWriter(cfg.metrics_file) if cfg.metrics_file else None
     telemetry = Telemetry(enabled=cfg.telemetry)
+    # The router's half of the distributed trace; the replicas write
+    # their own trace_file.replicaN halves, and report --serve-trace
+    # joins the family.
+    tracer = (Tracer(enabled=True, process_name="router",
+                     rotate_events=cfg.trace_rotate_events,
+                     rotate_path=cfg.trace_file or None)
+              if cfg.trace_file else NULL_TRACER)
     manifest_seen = manifest.read_manifest(cfg.model_file)
     manager = router = heartbeat = alert_engine = None
     try:
@@ -1390,10 +1461,9 @@ def start_fleet(cfg: FmConfig, cfg_path: str,
             cfg.serve_port if port is None else port,
             manager.replicas, cfg, telemetry=telemetry,
             host=cfg.serve_host, manifest_seen=manifest_seen,
-            respawner=manager.respawn,
+            tracer=tracer, respawner=manager.respawn,
         )
-        if writer is not None:
-            writer.write({
+        run_header = {
                 "record": "run_header",
                 "mode": "serve_router",
                 "time": time.time(),
@@ -1418,17 +1488,35 @@ def start_fleet(cfg: FmConfig, cfg_path: str,
                 "alert_rules": cfg.alert_rules,
                 "trace_file": cfg.trace_file,
                 "replica_ports": [r.port for r in manager.replicas],
-            })
+                "blackbox": cfg.blackbox,
+        }
+        if writer is not None:
+            writer.write(run_header)
+        # The router's flight recorder: its rings hold the fleet
+        # heartbeats, per-replica scrape detail included.
+        if cfg.blackbox:
+            router.blackbox = Blackbox(
+                cfg.incident_dir or os.path.join(cfg.model_file,
+                                                 "incidents"),
+                suffix="router", run_header=run_header,
+                metrics_render=router._render_metrics,
+                trace_tail_fn=tracer.tail if tracer.enabled else None,
+                writer=writer, telemetry=telemetry)
         # The watchdog on the ROUTER's heartbeat: the serve-signal rules
         # (shed_frac, burn_rate, evictions, ...) evaluate against every
-        # fleet heartbeat; a halt rule stops serve_fleet.
+        # fleet heartbeat; a halt rule stops serve_fleet, and every
+        # alert reaches the blackbox.
         if cfg.alert_rules:
-            alert_engine = AlertEngine(parse_rules(cfg.alert_rules),
-                                       writer=writer)
+            alert_engine = AlertEngine(
+                parse_rules(cfg.alert_rules), writer=writer,
+                on_alert=(router.blackbox.on_alert
+                          if router.blackbox is not None else None))
             router.alert_engine = alert_engine
 
         def heartbeat_build():
             rec = router._build("heartbeat")
+            if router.blackbox is not None:
+                router.blackbox.observe_record(rec)
             if alert_engine is not None:
                 alert_engine.observe(rec)
             return rec
@@ -1444,6 +1532,7 @@ def start_fleet(cfg: FmConfig, cfg_path: str,
             manager.close()
         if writer is not None:
             writer.close()
+        tracer.close()
         raise
     log.info(
         "router listening on %s:%d over %d replicas (POST /score, "
@@ -1451,7 +1540,8 @@ def start_fleet(cfg: FmConfig, cfg_path: str,
         cfg.serve_host, router.port, len(manager.replicas),
     )
     return FleetHandle(cfg, manager, router, telemetry, writer=writer,
-                       heartbeat=heartbeat, alert_engine=alert_engine)
+                       heartbeat=heartbeat, alert_engine=alert_engine,
+                       tracer=tracer)
 
 
 def serve_fleet(cfg: FmConfig, cfg_path: str,

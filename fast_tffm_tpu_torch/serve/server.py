@@ -44,15 +44,29 @@ stream opened by a ``run_header`` record (``mode: serve``), a
 ``heartbeat`` record every ``heartbeat_secs`` (the ``build`` that
 ``/status`` answers with), an :class:`~fast_tffm_tpu_torch.obs.alerts.
 AlertEngine` of ``alert_rules`` on the heartbeat (a ``halt`` rule stops
-:func:`serve_forever`), and one ``final`` record at close.  The planes
-that never touch a score and are not in the port yet (trace, skew,
-blackbox) are logged as inert when set.
+:func:`serve_forever`), and one ``final`` record at close.  None of the
+planes below changes a score:
+
+- **skew** (``quality``, on by default): a ``ServeSkewMonitor`` holds the
+  trainer-published reference sketches of ``serve_manifest.json`` and a
+  live window of the requests' ids, values and served scores, and adds
+  the ``skew_*`` keys to the ``serve`` block; the watcher's hot swap,
+  ``/reload`` and ``/promote`` re-read the reference, ``/rollback``
+  restores the one before;
+- **trace** (``trace_file``, ``serve_trace_sample``): a sampled request
+  (or one that arrives with an id) gets the handler's ``serve.respond``
+  span and the batcher's queue, coalesce and dispatch spans, joined by
+  its ``rid``; the trace is written at close;
+- **blackbox** (on by default): the record and alert rings, and a bundle
+  (with the capture's tail) on an alert, on ``POST /incident`` and on a
+  crash.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import signal
 import threading
 import time
@@ -65,12 +79,15 @@ from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.obs.alerts import (
     AlertEngine, AlertHaltError, parse_rules, run_until_halt,
 )
+from fast_tffm_tpu_torch.obs.blackbox import Blackbox
 from fast_tffm_tpu_torch.obs.heartbeat import Heartbeat, JsonlWriter
 from fast_tffm_tpu_torch.obs.resource import basic_block
+from fast_tffm_tpu_torch.obs.quality import ServeSkewMonitor
 from fast_tffm_tpu_torch.obs.status import (
-    ObsHTTPServer, PooledHTTPServer, QuietHandler,
+    ObsHTTPServer, PooledHTTPServer, QuietHandler, render_prometheus,
 )
 from fast_tffm_tpu_torch.obs.telemetry import Telemetry
+from fast_tffm_tpu_torch.obs.trace import NULL_TRACER, Tracer
 from fast_tffm_tpu_torch.ops import fm_kernels
 from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.serve import scorer as scorer_lib
@@ -87,17 +104,16 @@ log = logging.getLogger(__name__)
 __all__ = ["CheckpointWatcher", "ServeHandle", "ServeServer",
            "reload_scorer", "serve", "serve_forever"]
 
-# Settings whose non-default value the port's server does not act on yet:
-# none of them changes a score (ROADMAP.md, port queue items 4c and 4d).
-_INERT_KNOBS = (
-    "trace_file", "trace_rotate_events", "serve_trace_sample",
-    "incident_dir", "compile_cache_dir", "interaction_impl",
-)
+# Settings whose non-default value the port's server does not act on:
+# none of them changes a score.  The XLA compile cache has no
+# counterpart, and the interaction choice is the reference's autotune
+# (ROADMAP.md, port queue item 4d).
+_INERT_KNOBS = ("compile_cache_dir", "interaction_impl")
 
 
 def _warn_inert(cfg: FmConfig) -> None:
-    """Log the observability settings the port's server does not act
-    on yet (none of them changes a score)."""
+    """Log the settings the port's server does not act on (none of them
+    changes a score)."""
     defaults = FmConfig()
     inert = [
         k for k in _INERT_KNOBS
@@ -105,8 +121,8 @@ def _warn_inert(cfg: FmConfig) -> None:
     ]
     if inert:
         log.warning(
-            "the PyTorch port's server does not act on %s yet (ROADMAP.md "
-            "port queue item 4c); scores are unaffected", ", ".join(inert),
+            "the PyTorch port's server does not act on %s; scores are "
+            "unaffected", ", ".join(inert),
         )
 
 
@@ -143,9 +159,10 @@ class CheckpointWatcher:
     """
 
     def __init__(self, cfg: FmConfig, scorer, poll_secs: float,
-                 seen=None):
+                 seen=None, on_swap=None):
         self._cfg = cfg
         self._scorer = scorer
+        self._on_swap = on_swap  # called with the new step after a swap
         self._poll = max(0.05, float(poll_secs))
         self._seen = (seen if seen is not None
                       else read_manifest(cfg.model_file))
@@ -169,7 +186,7 @@ class CheckpointWatcher:
         if man is None or man == self._seen:
             return
         try:
-            reload_scorer(self._cfg, self._scorer)
+            step = reload_scorer(self._cfg, self._scorer)
         except ValueError as e:
             # A contradiction between the config and the checkpoint
             # (dtype, chunk, shape, overlay descriptor, format) that
@@ -183,6 +200,8 @@ class CheckpointWatcher:
             return
         self._seen = man
         self.reloads += 1
+        if self._on_swap is not None:
+            self._on_swap(step)
 
     def close(self) -> None:
         self._stop.set()
@@ -196,12 +215,22 @@ class ServeServer:
     ``/promote`` and ``/rollback`` on ``scorer``, and the observability
     routes.  ``slo`` (a :class:`SloTracker`) counts a request the
     batcher failed to answer; ``capture`` (a ``wire.CaptureWriter``)
-    records sampled scored requests."""
+    records sampled scored requests.  ``tracer`` and ``sampler`` trace
+    the sampled requests; ``on_reload`` runs after ``/reload`` and
+    ``/promote``, ``on_rollback`` after ``/rollback``; ``incident`` is
+    the blackbox's bundle call behind ``POST /incident`` (503 without
+    it)."""
 
     def __init__(self, port: int, batcher: ServeBatcher, cfg: FmConfig,
                  build, telemetry: Telemetry, host: str = "127.0.0.1",
                  timeout_s: float = 30.0, scorer=None, slo=None,
-                 capture=None):
+                 capture=None, tracer=None, sampler=None, on_reload=None,
+                 on_rollback=None, incident=None):
+        tracer = tracer if tracer is not None else NULL_TRACER
+        # Request-id mint and the trace sampler's coin for direct
+        # traffic (a router stamps its sampled requests' ids).
+        sampler = sampler if sampler is not None else wire.RequestSampler(
+            cfg.serve_trace_sample, enabled=tracer.enabled, tag="s")
         requests_c = telemetry.counter("serve.http_requests")
         truncated_c = telemetry.counter("serve.truncated_features")
         parse_t = telemetry.timer("serve.parse")
@@ -228,6 +257,9 @@ class ServeServer:
                 path, _, query = self.path.partition("?")
                 if path in ("/reload", "/promote", "/rollback"):
                     self._do_admin(path, query)
+                    return
+                if path == "/incident":
+                    self._post_incident(query, incident)
                     return
                 if path not in ("/score", "/score_bin"):
                     self._send(404, b"not found\n", "text/plain")
@@ -272,6 +304,10 @@ class ServeServer:
                         400, f"bad request: {e}\n".encode(), "text/plain"
                     )
                     return
+                if rid is None and sampler.sample():
+                    # Direct traffic with no upstream id: this server is
+                    # the front door, so it mints (and samples) itself.
+                    rid = sampler.mint()
                 headers = {"X-Request-Id": rid} if rid is not None else None
                 if truncated:
                     # A truncated example scores as a different example.
@@ -303,7 +339,7 @@ class ServeServer:
                 try:
                     scores = batcher.score(
                         ids, vals, fields if cfg.field_num else None,
-                        timeout=timeout_s, on_done=on_done,
+                        timeout=timeout_s, rid=rid, on_done=on_done,
                     )
                 except Exception as e:  # noqa: BLE001 - report, don't die
                     if slo is not None:
@@ -318,8 +354,15 @@ class ServeServer:
                     return
                 if cap_req is not None:
                     capture.write(cap_req, wire.encode_bin_response(scores))
+                t_r0 = time.perf_counter()
                 ctype, out = encode(scores)
                 self._send(200, out, ctype, headers=headers)
+                if rid is not None:
+                    # The chain's tail; the flow end binds the arrow
+                    # from the dispatch step to this span.
+                    tracer.emit("serve.respond", t_r0,
+                                time.perf_counter() - t_r0,
+                                args={"rid": rid, "n": n}, flow=("f", rid))
 
             def _do_admin(self, path: str, query: str) -> None:
                 """``/reload`` swaps in the current checkpoint; only
@@ -339,14 +382,25 @@ class ServeServer:
                         if path == "/reload":
                             reload_scorer(cfg, scorer,
                                           keep_prev="keep_prev=1" in query)
+                            if on_reload is not None:
+                                # The skew reference follows the served
+                                # checkpoint's manifest.
+                                on_reload()
                         elif path == "/promote":
                             scorer.promote()
+                            if on_reload is not None:
+                                on_reload()
                         elif not scorer.rollback():
                             self._send(
                                 409, b"nothing to roll back to (no "
                                      b"keep-prev swap is open)\n",
                                 "text/plain")
                             return
+                        elif on_rollback is not None:
+                            # Back to the pre-canary checkpoint: its
+                            # manifest is gone, so the stashed reference
+                            # comes back.
+                            on_rollback()
                     except ValueError as e:
                         self._send(409, f"{e}\n".encode(), "text/plain")
                         return
@@ -395,15 +449,16 @@ class ServeHandle:
     """One running serving stack; ``close()`` tears it down in order
     (HTTP stops accepting, the watcher's thread stops, the batcher
     drains and fails what is left, the heartbeat stops, the final record
-    is written (naming :attr:`exception` when one stopped the server),
-    then the capture file and the stream close).  ``alert_engine`` is
+    is written (naming :attr:`exception` when one stopped the server)
+    and ringed, a crash leaves a blackbox bundle, then the capture file
+    and the stream close and the trace is written).  ``alert_engine`` is
     the ``alert_rules`` watchdog (None without rules): an embedder polls
     its ``halted``."""
 
     def __init__(self, cfg: FmConfig, scorer, batcher, server,
                  telemetry: Telemetry, watcher=None, capture=None,
                  writer=None, heartbeat=None, build=None,
-                 alert_engine=None):
+                 alert_engine=None, tracer=None, blackbox=None):
         self.cfg = cfg
         self.scorer = scorer
         self.batcher = batcher
@@ -413,10 +468,12 @@ class ServeHandle:
         self.telemetry = telemetry
         self.port = server.port
         self.alert_engine = alert_engine
+        self.blackbox = blackbox
         self.exception: Optional[BaseException] = None
         self._writer = writer
         self._heartbeat = heartbeat
         self._build = build
+        self._tracer = tracer
         self._closed = False
 
     def close(self) -> None:
@@ -429,19 +486,35 @@ class ServeHandle:
         self.batcher.close()
         if self._heartbeat is not None:
             self._heartbeat.close()
-        if self._writer is not None:
+        if self._writer is not None or self.blackbox is not None:
             try:
                 final = self._build("final")
                 if self.exception is not None:
                     final["exception"] = type(self.exception).__name__
                     final["exception_msg"] = str(self.exception)
-                self._writer.write(final)
+                if self._writer is not None:
+                    self._writer.write(final)
+                if self.blackbox is not None:
+                    self.blackbox.observe_record(final)
             except Exception as e:  # noqa: BLE001 - teardown best-effort
                 log.warning("serve final record write failed: %s", e)
+        # A crash's bundle, before the stream closes so its manifest
+        # reaches the stream; a clean close dumps nothing.
+        if (self.blackbox is not None and self.exception is not None
+                and not isinstance(self.exception, KeyboardInterrupt)):
+            self.blackbox.incident("crash_" + type(self.exception).__name__)
         if self.capture is not None:
             self.capture.close()
         if self._writer is not None:
             self._writer.close()
+        if self._tracer is not None and self._tracer.enabled:
+            try:
+                n = self._tracer.dump(self.cfg.trace_file)
+                self._tracer.close()
+                log.info("serve trace written to %s (%d events)",
+                         self.cfg.trace_file, n)
+            except Exception as e:  # noqa: BLE001 - teardown best-effort
+                log.warning("serve trace dump failed: %s", e)
 
 
 def _serve_block(snap: dict, scorer, batcher, wall: float) -> dict:
@@ -498,12 +571,37 @@ def serve(cfg: FmConfig,
     _warn_inert(cfg)
     dev = resolve_device(device)
     telemetry = Telemetry(enabled=cfg.telemetry)
+    # Per-request tracing (serve_trace_sample); trace_file unset: the
+    # shared no-op tracer.
+    tracer = (Tracer(enabled=True, process_name="serve",
+                     rotate_events=cfg.trace_rotate_events,
+                     rotate_path=cfg.trace_file or None)
+              if cfg.trace_file else NULL_TRACER)
+    # Training-to-serving skew: live requests against the reference the
+    # trainer published beside the served checkpoint.
+    skew = None
+    if cfg.quality:
+        def _read_skew_reference(_model=cfg.model_file):
+            man = read_manifest(_model)
+            if not isinstance(man, dict) or "quality" not in man:
+                return None
+            return {"step": man.get("step", -1), **man["quality"]}
+
+        skew = ServeSkewMonitor(window_examples=cfg.quality_window,
+                                telemetry=telemetry,
+                                read_reference=_read_skew_reference)
+        skew.reload_reference()
     # The watcher's baseline is read BEFORE the load: a checkpoint
     # published while the scorer loads and warms up must look new to the
     # first poll.
     manifest_baseline = read_manifest(cfg.model_file)
-    scorer = scorer_lib.make_scorer(cfg, device=dev, telemetry=telemetry)
-    n_rungs = scorer.warmup()
+    try:
+        scorer = scorer_lib.make_scorer(cfg, device=dev,
+                                        telemetry=telemetry)
+        n_rungs = scorer.warmup()
+    except BaseException:
+        tracer.close()
+        raise
     log.info(
         "scorer ready on %s: checkpoint step %d, ladder %s, %d rung(s) "
         "warmed in %.3fs", dev, scorer.step, list(scorer.ladder), n_rungs,
@@ -516,6 +614,7 @@ def serve(cfg: FmConfig,
     batcher = ServeBatcher(
         scorer, max_batch_wait_ms=cfg.max_batch_wait_ms,
         queue_size=cfg.queue_size, telemetry=telemetry, slo=slo,
+        tracer=tracer, quality=skew,
     )
     # Live-traffic capture: FmConfig guarantees both knobs are set
     # together; unset = None = byte-identical serving.
@@ -533,9 +632,12 @@ def serve(cfg: FmConfig,
         # The SLO gauges refresh before the snapshot, so one scrape's
         # gauges and block keys agree.
         slo_block = slo.snapshot()
+        skew_block = (skew.block(force=(kind == "final"))
+                      if skew is not None else {})
         snap = telemetry.snapshot()
         serve_block = _serve_block(snap, scorer, batcher, wall)
         serve_block.update(slo_block)
+        serve_block.update(skew_block)
         rec = {
             "record": kind,
             "time": now,
@@ -548,11 +650,14 @@ def serve(cfg: FmConfig,
             rec["resource"] = basic_block(t0)
         if alert_engine is not None:
             rec["alerts"] = alert_engine.active_snapshot()
+        if tracer.enabled:
+            rec["trace_dropped_events"] = tracer.dropped_events
+            if cfg.trace_rotate_events:
+                rec["trace_windows"] = tracer.windows_written
         return rec
 
     writer = JsonlWriter(cfg.metrics_file) if cfg.metrics_file else None
-    if writer is not None:
-        writer.write({
+    run_header = {
             "record": "run_header",
             "mode": "serve",
             "time": t0,
@@ -574,16 +679,38 @@ def serve(cfg: FmConfig,
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else "cpu"),
             "serve_capture_sample": cfg.serve_capture_sample,
-        })
+            "quality": cfg.quality,
+            "blackbox": cfg.blackbox,
+    }
+    if writer is not None:
+        writer.write(run_header)
+    # The flight recorder: the pid suffix keeps replicas sharing one
+    # incident_dir apart.
+    blackbox = None
+    if cfg.blackbox:
+        blackbox = Blackbox(
+            cfg.incident_dir or os.path.join(cfg.model_file, "incidents"),
+            suffix=f"pid{os.getpid()}", run_header=run_header,
+            metrics_render=lambda: render_prometheus(build("status")),
+            trace_tail_fn=tracer.tail if tracer.enabled else None,
+            capture_tail_fn=(capture.tail_bytes if capture is not None
+                             else None),
+            writer=writer, telemetry=telemetry)
     # Alert watchdog on the serve heartbeat (FmConfig guarantees
     # heartbeat_secs > 0 when rules are set): breaches write `record:
-    # alert`; a halt rule arms alert_engine.halted, which serve_forever
-    # raises.
-    alert_engine = (AlertEngine(parse_rules(cfg.alert_rules), writer=writer)
-                    if cfg.alert_rules else None)
+    # alert` and reach the blackbox; a halt rule arms
+    # alert_engine.halted, which serve_forever raises.
+    alert_engine = (AlertEngine(
+        parse_rules(cfg.alert_rules), writer=writer,
+        on_alert=blackbox.on_alert if blackbox is not None else None)
+        if cfg.alert_rules else None)
 
     def heartbeat_build():
         rec = build("heartbeat")
+        # Ringed before the rules see it: an alert's bundle holds the
+        # record that tripped it.
+        if blackbox is not None:
+            blackbox.observe_record(rec)
         if alert_engine is not None:
             alert_engine.observe(rec)
         return rec
@@ -593,12 +720,18 @@ def serve(cfg: FmConfig,
     watcher = None
     try:
         if cfg.serve_poll_secs > 0:
-            watcher = CheckpointWatcher(cfg, scorer, cfg.serve_poll_secs,
-                                        seen=manifest_baseline)
+            watcher = CheckpointWatcher(
+                cfg, scorer, cfg.serve_poll_secs, seen=manifest_baseline,
+                on_swap=((lambda step: skew.reload_reference())
+                         if skew is not None else None))
         server = ServeServer(
             cfg.serve_port if port is None else port, batcher, cfg,
             build, telemetry, host=cfg.serve_host, scorer=scorer,
-            slo=slo, capture=capture,
+            slo=slo, capture=capture, tracer=tracer,
+            on_reload=skew.reload_reference if skew is not None else None,
+            on_rollback=(skew.restore_previous_reference
+                         if skew is not None else None),
+            incident=blackbox.incident if blackbox is not None else None,
         )
     except BaseException:
         # A taken port must not leak the watcher's, the batcher's or the
@@ -612,6 +745,7 @@ def serve(cfg: FmConfig,
             capture.close()
         if writer is not None:
             writer.close()
+        tracer.close()
         raise
     log.info(
         "scoring endpoint listening on %s:%d (POST /score, /score_bin, "
@@ -621,7 +755,8 @@ def serve(cfg: FmConfig,
     return ServeHandle(cfg, scorer, batcher, server, telemetry,
                        watcher=watcher, capture=capture, writer=writer,
                        heartbeat=heartbeat, build=build,
-                       alert_engine=alert_engine)
+                       alert_engine=alert_engine, tracer=tracer,
+                       blackbox=blackbox)
 
 
 def serve_forever(cfg: FmConfig,

@@ -161,7 +161,8 @@ def exists(model_file: str) -> bool:
 
 
 def save_params(model_file: str, model: FmModel, step: int = 0,
-                opt_state=None, data_state: Optional[dict] = None) -> str:
+                opt_state=None, data_state: Optional[dict] = None,
+                manifest_extra: Optional[dict] = None) -> str:
     """Write ``params.npz`` atomically (temp file + rename), with the
     optimizer state when given, removes a stale ``quant.npz``,
     ``tiered.npz`` and Orbax ``params/`` and ``opt/``, writes
@@ -187,7 +188,7 @@ def save_params(model_file: str, model: FmModel, step: int = 0,
     clear_tiered(model_file)
     clear_quant(model_file)
     _write_data_state(model_file, data_state)
-    publish_manifest(model_file, step, "dense")
+    publish_manifest(model_file, step, "dense", extra=manifest_extra)
     return path
 
 
@@ -226,7 +227,8 @@ def _clear_params(model_file: str) -> None:
 
 def save_sharded(model_file: str, model_l: FmModel, mesh: Mesh,
                  step: int = 0, opt_state_l=None,
-                 data_state: Optional[dict] = None) -> str:
+                 data_state: Optional[dict] = None,
+                 manifest_extra: Optional[dict] = None) -> str:
     """Every rank calls this: the ranks of data row 0 send their model
     shards (table and optimizer tables) over the ``model`` axis to rank
     0, which alone assembles the full tables and writes ``params.npz``
@@ -243,7 +245,8 @@ def save_sharded(model_file: str, model_l: FmModel, mesh: Mesh,
                if opt_state_l else opt_state_l)
         if mesh.rank == 0:
             save_params(model_file, FmModel(model_l.w0.detach(), table),
-                        step=step, opt_state=opt, data_state=data_state)
+                        step=step, opt_state=opt, data_state=data_state,
+                        manifest_extra=manifest_extra)
     barrier(mesh)
     return params_path(model_file)
 
@@ -458,7 +461,8 @@ def _tiered_payload(step: int, scalars: dict, stores: dict) -> dict:
 
 
 def save_tiered(model_file: str, step: int, scalars: dict,
-                stores: dict, data_state: Optional[dict] = None) -> str:
+                stores: dict, data_state: Optional[dict] = None,
+                manifest_extra: Optional[dict] = None) -> str:
     """Write ``tiered.npz``: ``scalars`` (``w0`` and the optimizer's w0
     slots) as ``scalar/<name>``, and for each store of ``stores`` (name
     -> ``{"ids", "rows", "descriptor"}``, a ``ColdStore.export()`` plus
@@ -475,14 +479,15 @@ def save_tiered(model_file: str, step: int, scalars: dict,
         os.remove(p)
     clear_quant(model_file)
     _write_data_state(model_file, data_state)
-    publish_manifest(model_file, step, "tiered")
+    publish_manifest(model_file, step, "tiered", extra=manifest_extra)
     return path
 
 
 def save_tiered_shards(model_file: str, step: int, scalars: dict,
                        overlays_by_shard: dict, num_shards: int,
                        data_state: Optional[dict] = None,
-                       primary: bool = True, barrier=None) -> str:
+                       primary: bool = True, barrier=None,
+                       manifest_extra: Optional[dict] = None) -> str:
     """The rank-sharded overlay checkpoint (the reference's
     ``save_tiered_shards``): one ``tiered.shard{s}of{S}.npz`` for each
     shard in ``overlays_by_shard`` (this rank's owned shards, ids
@@ -515,7 +520,7 @@ def save_tiered_shards(model_file: str, step: int, scalars: dict,
         _clear_params(model_file)
         clear_quant(model_file)
         _write_data_state(model_file, data_state)
-        publish_manifest(model_file, step, "tiered")
+        publish_manifest(model_file, step, "tiered", extra=manifest_extra)
     return os.path.abspath(model_file)
 
 

@@ -98,10 +98,39 @@ reports through the reference's planes: the ``telemetry`` registry
 ``metrics_file`` stream (a ``.rankN`` file a rank), ``heartbeat_secs``,
 the ``status_port`` endpoint and ``alert_rules``; the results carry the
 exact ``health`` summary.  ``Trainer.device_step`` and ``train_step``
-carry no health, as the reference's ``_train_step``.  The remaining
-observability planes (quality, trace, blackbox, profiler, the training
-fleet's scrape, the compile cache) and the interaction choices are
-accepted and logged as inert: none changes a parameter.
+carry no health, as the reference's ``_train_step``.
+
+The reference's other planes run too, each one only observing (a run
+with every plane on trains bitwise the run with them off):
+
+- **quality** (on by default): the parse threads or workers sketch each
+  parsed batch (``obs/quality.py::StreamSketch``); each step of a
+  ``train()`` dispatch copies its scores into a ``[K, B]`` device buffer
+  the trainer owns (inside the CUDA graph too), which is copied
+  non-blocking into one of two pinned host slots after the dispatch,
+  with an event, and fed to the ``QualityMonitor`` one dispatch late
+  with the labels and weights of the batch's host copy (never read from
+  the device); the ``quality`` block rides the records and results, and
+  every save publishes the sketches in ``serve_manifest.json``;
+- **trace** (``trace_file``): ``train.wait_input``, ``train.migrate``,
+  ``train.dispatch`` (a host span: the CUDA work it enqueues runs
+  asynchronously) and ``train.compile`` (a graph capture), joined by
+  super-batch id to the pipeline's and transfer stage's spans;
+- **blackbox** (on by default): the record and alert rings, and a bundle
+  on a crash (``nan_policy = halt`` included), on an alert and on ``POST
+  /incident``;
+- the **compile sentinel** (``resource_metrics``): each graph capture is
+  a ``record: compile`` (its K and wall seconds), and the ``resource``
+  block carries the sentinel's counts and the process's kernel and parser
+  builds;
+- the **profiler** (``profile_dir``, and ``/profile?secs=N``): a
+  ``torch.profiler`` window (``obs/profiler.py``);
+- the **training fleet** (``train_fleet_scrape``): rank 0 scrapes every
+  rank's ``/status`` into the ``fleet`` block, and each rank times one
+  small all-reduce after each dispatch as ``train.exchange``.
+
+``compile_cache_dir`` (the reference's XLA cache) and the interaction
+choices are accepted and logged as inert: none changes a parameter.
 """
 
 from __future__ import annotations
@@ -110,6 +139,7 @@ import dataclasses
 import hashlib
 import json
 import logging
+import os
 import time
 from typing import NamedTuple, Optional, Union
 
@@ -127,9 +157,16 @@ from fast_tffm_tpu_torch.obs.alerts import AlertEngine, halt_error, parse_rules
 from fast_tffm_tpu_torch.obs.heartbeat import (
     Heartbeat, JsonlWriter, rank_suffix_path,
 )
-from fast_tffm_tpu_torch.obs.resource import basic_block
-from fast_tffm_tpu_torch.obs.status import StatusServer
+from fast_tffm_tpu_torch.obs.blackbox import Blackbox
+from fast_tffm_tpu_torch.obs.fleet import TrainFleet
+from fast_tffm_tpu_torch.obs.profiler import ProfileWindow
+from fast_tffm_tpu_torch.obs.quality import QualityMonitor, StreamSketch
+from fast_tffm_tpu_torch.obs.resource import (
+    CompileSentinel, basic_block, build_block,
+)
+from fast_tffm_tpu_torch.obs.status import StatusServer, render_prometheus
 from fast_tffm_tpu_torch.obs.telemetry import Telemetry
+from fast_tffm_tpu_torch.obs.trace import Tracer
 from fast_tffm_tpu_torch.ops import sparse_apply
 from fast_tffm_tpu_torch.parallel.mesh import (
     DATA_AXIS, Mesh, barrier, data_partition, make_mesh, psum,
@@ -155,15 +192,10 @@ log = logging.getLogger(__name__)
 __all__ = ["HealthState", "MetricState", "NonFiniteGradError", "Trainer",
            "config_fingerprint", "predict"]
 
-# (setting, description) pairs of observability planes the port's
-# trainer accepts but does not run yet (ROADMAP.md port queue item 4c);
-# none of them changes a parameter.
+# (setting, description) pairs of the reference's planes the port's
+# trainer accepts but does not act on: the XLA compile cache has no
+# counterpart (the kernels build once into ops/_build/).
 _INERT_PLANES = (
-    ("quality", "quality plane"),
-    ("trace_file", "trace"),
-    ("blackbox", "blackbox"),
-    ("profile_dir", "profiler"),
-    ("train_fleet_scrape", "training-fleet scrape"),
     ("compile_cache_dir", "compile cache"),
 )
 # Interaction choices of the reference (its autotune, ROADMAP.md port
@@ -190,15 +222,11 @@ def _sparse(cfg: FmConfig) -> bool:
 
 def _log_inert(cfg: FmConfig) -> None:
     """Log the settings the port accepts but does not act on."""
-    # Health, quality and blackbox are on by default in the reference;
-    # the rest count when set.
     inert = [desc for key, desc in _INERT_PLANES if getattr(cfg, key)]
     if inert:
         log.info(
-            "the PyTorch port's trainer does not run these planes yet "
-            "(ROADMAP.md port queue item 4c; parameters are unaffected): "
-            "%s",
-            ", ".join(inert),
+            "the PyTorch port's trainer does not act on these settings "
+            "(parameters are unaffected): %s", ", ".join(inert),
         )
     defaults = FmConfig()
     knobs = [k for k in _INERT_INTERACTION
@@ -521,6 +549,52 @@ class _RunClock:
         self.steps = 0
 
 
+class _ExchangeProbe:
+    """``train.exchange``: one small all-reduce of the process group
+    enqueued after each dispatch (the reference's exchange probe).  With
+    the exchange overlap on it is waited on one dispatch later, so at
+    parity the wait is ~0 and a straggler shows as its lag; without, it
+    is waited on at once, and the wait holds the synchronous window the
+    overlap exists to remove.  Under NCCL the all-reduce runs on the
+    card and the host waits on an event recorded after it; under gloo
+    it runs on a CPU tensor and the host waits on the work itself."""
+
+    def __init__(self, mesh: Mesh, device: torch.device, timer,
+                 overlap: bool):
+        self._nccl = mesh.backend == "nccl"
+        self._device = device if self._nccl else torch.device("cpu")
+        self._timer = timer
+        self._overlap = overlap
+        self._pending = None
+
+    def _wait(self, done) -> None:
+        with self._timer.time():
+            if self._nccl:
+                done.synchronize()
+            else:
+                done.wait()
+
+    def __call__(self) -> None:
+        t = torch.ones(1, device=self._device)
+        work = torch.distributed.all_reduce(t, async_op=True)
+        done = work
+        if self._nccl:
+            work.wait()  # the current stream waits for the collective
+            done = torch.cuda.Event()
+            done.record()
+        if not self._overlap:
+            self._wait(done)
+            return
+        if self._pending is not None:
+            self._wait(self._pending)
+        self._pending = done
+
+    def close(self) -> None:
+        if self._pending is not None:
+            self._wait(self._pending)
+            self._pending = None
+
+
 class Trainer:
     """Drives sparse or dense training per an :class:`FmConfig`, on
     ``device`` (the GPU unless asked otherwise): on one device, or as
@@ -566,6 +640,38 @@ class Trainer:
                               for _ in range(2)]
         self._health_host: dict = {}
         self.telemetry = Telemetry(enabled=cfg.telemetry)
+        # The causal trace (obs/trace.py): rank 0 owns the configured
+        # path, ranks > 0 suffix theirs; off, every span is a no-op.
+        _, rank = _rank_grid()
+        self._trace_path = cfg.trace_file
+        if cfg.trace_file and rank > 0:
+            self._trace_path = f"{cfg.trace_file}.rank{rank}"
+        self.tracer = Tracer(
+            enabled=bool(cfg.trace_file),
+            process_name=f"trainer rank{rank}",
+            rotate_events=cfg.trace_rotate_events,
+            rotate_path=self._trace_path,
+        )
+        # The compile sentinel: the graph captures are the port's
+        # compiles (resource_metrics off: no sentinel, no block).
+        self._sentinel = (CompileSentinel(
+            telemetry=self.telemetry,
+            expected_k=max(1, cfg.steps_per_dispatch))
+            if cfg.resource_metrics else None)
+        # The quality plane, per run (train() makes them): the drift
+        # sketches and the windowed online eval.  The scores buffer
+        # [K, B] is the trainer's own (a captured graph writes it), read
+        # back through two pinned host slots.
+        self._quality: Optional[QualityMonitor] = None
+        self._quality_sketch: Optional[StreamSketch] = None
+        self._scores_dev: Optional[torch.Tensor] = None
+        self._score_slots: list = []
+        self._profile = ProfileWindow(self.device.type == "cuda")
+        self._profile_capture_dir = "."
+        self._metrics_writer = None
+        self._run = _RunClock()
+        self._sb_id = 0  # the super-batch train() dispatches (trace id)
+        self.status_port = 0  # the status endpoint's bound port
         # The input position a save records: the epoch, and the batches
         # of it that trained.
         self._epoch = self._batches_done = 0
@@ -910,12 +1016,16 @@ class Trainer:
 
     def device_step(self, dev_batch: Batch,
                     rows_all: Optional[torch.Tensor] = None,
-                    health: bool = False) -> torch.Tensor:
+                    health: bool = False,
+                    scores_out: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
         """One step on a device :class:`Batch` (this rank's data block on
         a mesh, and with the overlap its gathered id plane ``rows_all``);
         returns the batch's mean weighted data loss as a device scalar.
         With ``health`` the step's gradient-health pair is folded into
-        :attr:`health` (what ``train()``'s dispatches run)."""
+        :attr:`health` (what ``train()``'s dispatches run); ``scores_out``
+        (a ``[B]`` row of the quality plane's buffer) gets the step's
+        scores."""
         if self.sharded and self.sparse:
             out = sparse_step_shardmap(self.dcfg, self.model,
                                        self.opt_state, dev_batch,
@@ -932,6 +1042,9 @@ class Trainer:
             scores, pair = out
             with torch.no_grad():
                 self.health.update_(*pair, dev_batch)
+        if scores_out is not None:
+            with torch.no_grad():
+                scores_out.copy_(scores.detach())
         lsum, wsum = self.metrics.add_(scores, dev_batch, self.cfg.loss_type)
         return lsum / torch.clamp(wsum, min=1e-12)
 
@@ -942,9 +1055,16 @@ class Trainer:
         With the overlap, step ``i + 1``'s id plane is gathered while step
         ``i`` runs (the reference's ``make_scan_train_step`` prefetch; the
         first step's is gathered before it).  Each step advances the
-        health carry."""
+        health carry, and with the quality plane writes its scores into
+        row ``i`` of :meth:`_score_rows`."""
+        rows = self._score_rows(sb)
+
+        def out(i):
+            return None if rows is None else rows[i]
+
         if not self.overlap:
-            return torch.stack([self.device_step(sb.step(i), health=True)
+            return torch.stack([self.device_step(sb.step(i), health=True,
+                                                 scores_out=out(i))
                                 for i in range(sb.n)])
         pending = entries_prefetch(self.dcfg, sb.step(0).ids, self.mesh)
         losses = []
@@ -954,8 +1074,52 @@ class Trainer:
                 pending = entries_prefetch(self.dcfg, sb.step(i + 1).ids,
                                            self.mesh)
             losses.append(self.device_step(sb.step(i), rows_all,
-                                           health=True))
+                                           health=True, scores_out=out(i)))
         return torch.stack(losses)
+
+    def _score_rows(self, sb: SuperBatch) -> Optional[torch.Tensor]:
+        """The quality plane's ``[K, B]`` device scores buffer (None with
+        the plane off), made at the first dispatch and kept, so a
+        captured graph and its replays write the same rows."""
+        if self._quality is None:
+            return None
+        b = sb.batch.labels.shape[1]
+        k = max(1, self.cfg.steps_per_dispatch, sb.n)
+        buf = self._scores_dev
+        if buf is None or buf.shape[1] != b or buf.shape[0] < k:
+            buf = self._scores_dev = torch.zeros(
+                (k, b), dtype=torch.float32, device=self.device)
+            pin = self.device.type == "cuda"
+            self._score_slots = [torch.zeros((k, b), pin_memory=pin)
+                                 for _ in range(2)]
+        return buf
+
+    def _scores_readback(self, item, slot: int) -> Optional[tuple]:
+        """Start the non-blocking copy of the dispatch's scores into host
+        slot ``slot``, with an event after it on the card; returns the
+        pending feed (with the batch's host labels and weights) that
+        :meth:`_feed_quality` consumes one dispatch later."""
+        sb = item.batch if isinstance(
+            item, (tiered_lib.Shipment, tiered_fleet.FleetShipment)) else item
+        if self._scores_dev is None or sb.host is None:
+            return None
+        host = self._score_slots[slot][:sb.n]
+        with torch.no_grad():
+            host.copy_(self._scores_dev[:sb.n], non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return host, event, sb.host[0], sb.host[1]
+
+    def _feed_quality(self, pending) -> None:
+        """Feed one delayed scores readback to the quality monitor."""
+        if pending is None or self._quality is None:
+            return
+        host, event, labels, weights = pending
+        if event is not None:
+            event.synchronize()
+        self._quality.observe(host.numpy(), labels, weights)
 
     def dispatch(self, sb, pause=None) -> torch.Tensor:
         """Train one shipped super-batch: one replay of the CUDA graph of
@@ -969,7 +1133,9 @@ class Trainer:
         own, overwritten by the next one).  The loop's hook per
         dispatch."""
         if isinstance(sb, (tiered_lib.Shipment, tiered_fleet.FleetShipment)):
-            with self.telemetry.timer("train.migrate").time():
+            with self.telemetry.timer("train.migrate").time(), \
+                    self.tracer.span("train.migrate",
+                                     args={"sb": self._sb_id}):
                 sb = (self._apply_migration(sb)
                       if isinstance(sb, tiered_lib.Shipment)
                       else self._apply_migration_fleet(sb))
@@ -980,7 +1146,16 @@ class Trainer:
         losses = self._run_steps(sb)
         self.eager_dispatches += 1
         if graph is not None and not graph.captured and sb.n == graph.k:
-            graph.capture(sb, self._run_steps, pause)
+            t0 = time.perf_counter()
+            with self.tracer.span("train.compile", args={"k": graph.k}):
+                graph.capture(sb, self._run_steps, pause)
+            if self._sentinel is not None:
+                # A capture at the configured K is the one a graphed run
+                # expects; the step stamped is the run's so far.
+                self._sentinel.record(
+                    time.perf_counter() - t0, graph.k,
+                    graph.k == max(1, self.cfg.steps_per_dispatch),
+                    step=self._run.steps)
         return losses
 
     def train_step(self, batch: Batch) -> torch.Tensor:
@@ -1196,7 +1371,7 @@ class Trainer:
         }
 
     def _record(self, kind: str, rank: int, pipeline, alerts=None,
-                collective: bool = True) -> Optional[dict]:
+                collective: bool = True, fleet=None) -> Optional[dict]:
         """One self-report (``heartbeat``, ``status`` or ``final``; the
         reference's ``telemetry_record``), built from host-side values
         only, except the final record's exact health.  A heartbeat
@@ -1226,17 +1401,15 @@ class Trainer:
                                            collective=collective),
             "stages": self.telemetry.snapshot(),
         }
-        if self.cfg.resource_metrics:
-            rec["resource"] = basic_block(run.t0)
+        if self._sentinel is not None:
+            # The process block, the trace buffer, the sentinel's
+            # captures and the process's kernel and parser builds.
+            rec["resource"] = {
+                **basic_block(run.t0),
+                "trace_buffer_bytes": int(self.tracer.buffer_bytes),
+                **self._sentinel.snapshot(), **build_block()}
         if kind == "status":
-            rec["build_info"] = {
-                "torch_version": torch.__version__,
-                "backend": self.device.type,
-                "mesh": f"data{self.mesh.data}xmodel{self.mesh.model}",
-                "steps_per_dispatch": str(max(1, self.cfg.steps_per_dispatch)),
-                "rank": str(rank),
-                "config_fingerprint": config_fingerprint(self.cfg),
-            }
+            rec["build_info"] = self._build_info(rank)
             if run.steps == 0:
                 for key in ("wait_input_s", "dispatch_s", "other_s",
                             "ingest_wait_frac"):
@@ -1244,9 +1417,51 @@ class Trainer:
                 rec["warming_up"] = True
         if self.tiered is not None:
             rec["tiered"] = self.tiered.snapshot()
+        if self._quality is not None:
+            # Memoized in the monitor; the final record's is exact.
+            rec["quality"] = self._quality.block(force=(kind == "final"))
+        if self.tracer.enabled:
+            rec["trace_dropped_events"] = self.tracer.dropped_events
+            if self.cfg.trace_rotate_events:
+                rec["trace_windows"] = self.tracer.windows_written
+        if fleet is not None:
+            rec["fleet"] = fleet.block(now)
         if alerts is not None:
             rec["alerts"] = alerts.active_snapshot()
         return rec
+
+    def _build_info(self, rank: int) -> dict:
+        """The run's identity labels (``tffm_build_info``, the blackbox's
+        ``run_header.json``)."""
+        return {
+            "torch_version": torch.__version__,
+            "backend": self.device.type,
+            "mesh": f"data{self.mesh.data}xmodel{self.mesh.model}",
+            "steps_per_dispatch": str(max(1, self.cfg.steps_per_dispatch)),
+            "rank": str(rank),
+            "config_fingerprint": config_fingerprint(self.cfg),
+        }
+
+    def _ondemand_profile(self, secs: float) -> str:
+        """The ``/profile`` route: one profiler window of ``secs`` into
+        the run's capture directory; a clash with an open window (the
+        ``profile_dir`` one) raises, which the route answers 500."""
+        window = ProfileWindow(self.device.type == "cuda")
+        window.start()
+        path = os.path.join(self._profile_capture_dir,
+                            f"trace_{time.time_ns()}.json")
+        try:
+            time.sleep(secs)
+        finally:
+            window.stop(path)
+        log.info("on-demand profiler capture (%.1fs) written to %s", secs,
+                 path)
+        writer = self._metrics_writer
+        if writer is not None:
+            writer.write({"record": "profile", "time": time.time(),
+                          "secs": float(secs),
+                          "profile_dir": self._profile_capture_dir})
+        return self._profile_capture_dir
 
     def train(self) -> dict:
         """Train ``epoch_num`` epochs of ``train_files``, then save and
@@ -1286,7 +1501,25 @@ class Trainer:
         # Per-run accounting, reset in place: a second train() must not
         # report the first run's totals against its own wall clock.
         self.telemetry.reset()
+        self.tracer.reset()
         self._reset_health()
+        if self._sentinel is not None:
+            self._sentinel.reset()
+            self._sentinel.set_writer(metrics_out)
+        # /profile captures land beside the metrics stream (or in the
+        # model directory: never the working directory), and each is a
+        # `record: profile` entry.
+        self._profile_capture_dir = os.path.join(
+            os.path.dirname(cfg.metrics_file) or cfg.model_file,
+            "tffm_profile_ondemand")
+        self._metrics_writer = metrics_out
+        # The quality plane, per run: the drift sketches the parse side
+        # feeds and the windowed eval the loop feeds one dispatch late.
+        self._quality_sketch = (StreamSketch(cfg.quality_window)
+                                if cfg.quality else None)
+        self._quality = (QualityMonitor(
+            loss_type=cfg.loss_type, window=cfg.quality_window,
+            sketch=self._quality_sketch) if cfg.quality else None)
         t_wait = self.telemetry.timer("train.wait_input")
         t_disp = self.telemetry.timer("train.dispatch")
         pipe_cfg, shard = self._input_plan()
@@ -1306,25 +1539,57 @@ class Trainer:
             epoch_marks=True, cache_epochs=cfg.cache_epochs,
             cache_max_bytes=cfg.cache_max_bytes,
             prestack=(k, packer.pack) if cfg.cache_prestacked else None,
-            telemetry=self.telemetry,
+            telemetry=self.telemetry, tracer=self.tracer,
+            quality=self._quality_sketch,
         )
         prefetcher = DevicePrefetcher(
             pipeline, k, self.device, cfg.vocabulary_size,
             depth=cfg.prefetch_super_batches, packer=packer,
             plan_hook=self._plan_group if self.tiered is not None else None,
-            telemetry=self.telemetry,
+            telemetry=self.telemetry, tracer=self.tracer,
+            host_targets=self._quality is not None,
         )
         cache_logged = not cfg.cache_epochs
+        # The training fleet: rank 0 scrapes every rank's /status on the
+        # heartbeat cadence into the merged `fleet` block.
+        fleet = None
+        if cfg.train_fleet_scrape and rank == 0:
+            fleet = TrainFleet(cfg.train_fleet_scrape.split(","),
+                               interval_s=cfg.heartbeat_secs,
+                               telemetry=self.telemetry)
+
+        def record(kind, collective=True):
+            return self._record(kind, rank, pipeline, alerts,
+                                collective=collective, fleet=fleet)
+
+        # The flight recorder: rings of the recent records and alerts; a
+        # bundle on a crash, an alert or POST /incident.
+        blackbox = None
+        if cfg.blackbox:
+            blackbox = Blackbox(
+                cfg.incident_dir or os.path.join(cfg.model_file,
+                                                 "incidents"),
+                suffix=f"rank{rank}", run_header=self._build_info(rank),
+                metrics_render=lambda: render_prometheus(record("status")),
+                trace_tail_fn=(self.tracer.tail if self.tracer.enabled
+                               else None),
+                writer=metrics_out, telemetry=self.telemetry)
         # Alert watchdog: rules evaluated on the heartbeat thread; a halt
         # arms engine.halted, which the loop raises at the next boundary.
-        alerts = (AlertEngine(parse_rules(cfg.alert_rules),
-                              writer=metrics_out)
-                  if cfg.alert_rules else None)
+        alerts = (AlertEngine(
+            parse_rules(cfg.alert_rules), writer=metrics_out,
+            on_alert=blackbox.on_alert if blackbox is not None else None)
+            if cfg.alert_rules else None)
 
         def heartbeat_build():
-            rec = self._record("heartbeat", rank, pipeline, alerts)
-            if rec is not None and alerts is not None:
-                alerts.observe(rec)
+            rec = record("heartbeat")
+            if rec is not None:
+                # Ringed before the rules see it: an alert's bundle holds
+                # the record that tripped it.
+                if blackbox is not None:
+                    blackbox.observe_record(rec)
+                if alerts is not None:
+                    alerts.observe(rec)
             return rec
 
         heartbeat = (Heartbeat(cfg.heartbeat_secs, heartbeat_build,
@@ -1334,26 +1599,42 @@ class Trainer:
         if cfg.status_port:
             try:
                 status_server = StatusServer(
-                    cfg.status_port,
-                    lambda: self._record("status", rank, pipeline, alerts),
-                    telemetry=self.telemetry, host=cfg.status_host)
+                    cfg.status_port, lambda: record("status"),
+                    telemetry=self.telemetry, host=cfg.status_host,
+                    profile=self._ondemand_profile,
+                    incident=(blackbox.incident if blackbox is not None
+                              else None),
+                    metrics_extra=(fleet.metrics_lines if fleet is not None
+                                   else None))
+                self.status_port = status_server.port
                 log.info("status endpoint listening on %s:%d (/metrics, "
-                         "/status, /healthz, /debug/threadz)",
-                         cfg.status_host, status_server.port)
+                         "/status, /healthz, /debug/threadz, /profile, "
+                         "POST /incident)", cfg.status_host,
+                         status_server.port)
             except OSError as e:
                 # An observability convenience never kills the run.
                 log.warning("status endpoint failed to bind port %d: %s",
                             cfg.status_port, e)
+        probe = None
+        if cfg.train_fleet_scrape and self.mesh.size > 1:
+            probe = _ExchangeProbe(self.mesh, self.device,
+                                   self.telemetry.timer("train.exchange"),
+                                   self.overlap)
         pending = None  # the previous dispatch's health readback
+        pending_q = None  # and its scores, for the quality monitor
         warned: list = []
         run_exc: Optional[BaseException] = None
         final: dict = {}
+        profile_started, profile_stop_at = False, 0
+        tracer = self.tracer
         try:
             try:
+                tracer.name_thread("train-loop")
                 source = iter(prefetcher)
                 while True:
                     t_w = time.perf_counter()
-                    item = next(source, None)
+                    with tracer.span("train.wait_input"):
+                        item = next(source, None)
                     t_run = time.perf_counter()
                     t_wait.observe(t_run - t_w)
                     run.wait_s += t_run - t_w
@@ -1367,7 +1648,21 @@ class Trainer:
                             log.info("ingest cache after epoch %d: %s",
                                      item.epoch, pipeline.cache_result)
                         continue
-                    self.dispatch(item, prefetcher.paused())
+                    if (cfg.profile_dir and not profile_started
+                            and stepno >= cfg.profile_start_step):
+                        try:
+                            self._profile.start()
+                            profile_started = True
+                            profile_stop_at = stepno + cfg.profile_steps
+                        except RuntimeError:
+                            pass  # a /profile capture: at a later dispatch
+                    self._sb_id = dispatches
+                    with tracer.span(
+                            "train.dispatch",
+                            args={"sb": dispatches, "k": item.n,
+                                  "step0": stepno},
+                            flow=("f", f"sb{dispatches}")):
+                        self.dispatch(item, prefetcher.paused())
                     dt = time.perf_counter() - t_run
                     t_disp.observe(dt)
                     run.dispatch_s += dt
@@ -1379,10 +1674,21 @@ class Trainer:
                     # Health, one dispatch late: start this dispatch's
                     # copy, then consume the previous one's, long done.
                     started = self._health_readback(stepno, dispatches % 2)
+                    started_q = (self._scores_readback(item, dispatches % 2)
+                                 if self._quality is not None else None)
                     dispatches += 1
+                    if probe is not None:
+                        probe()
                     if pending is not None:
                         self._check_health(pending, warned)
                     pending = started
+                    # The scores, one dispatch late, as the health.
+                    self._feed_quality(pending_q)
+                    pending_q = started_q
+                    if self._profile.open and stepno >= profile_stop_at:
+                        path = self._profile.stop(os.path.join(
+                            cfg.profile_dir, f"trace_rank{rank}.json"))
+                        log.info("profiler trace written to %s", path)
                     if alerts is not None and alerts.halted is not None:
                         raise halt_error(alerts.halted)
                     if (cfg.log_steps
@@ -1434,15 +1740,22 @@ class Trainer:
                         pending = None
                         last_save_step = stepno
                         self.save(stepno)
-                # The last dispatch's health, before the end-of-run save.
+                # The last dispatch's health, before the end-of-run save,
+                # and its scores, so the final record covers every step.
                 if pending is not None:
                     self._check_health(pending, warned)
                     pending = None
+                self._feed_quality(pending_q)
+                pending_q = None
+                if probe is not None:
+                    probe.close()
             finally:
                 if heartbeat is not None:
                     heartbeat.close()
                 if status_server is not None:
                     status_server.close()
+                if fleet is not None:
+                    fleet.close()  # its last merged view stays readable
                 if self.tiered is not None:
                     # Wake a transfer thread blocked on a write-back fill
                     # that will never come, or close() would join it
@@ -1453,20 +1766,39 @@ class Trainer:
             run_exc = e
             raise
         finally:
+            if self._profile.open:  # a run that ended inside the window
+                self._profile.stop(os.path.join(
+                    cfg.profile_dir, f"trace_rank{rank}.json"))
             # Whatever ends the run, the stream closes with one final
             # record naming the exception (exact health, but no
             # collective after a crash: the other ranks may not come).
-            final = self._record("final", rank, pipeline, alerts,
-                                 collective=run_exc is None)
+            final = record("final", collective=run_exc is None)
             if run_exc is not None:
                 final["exception"] = type(run_exc).__name__
                 final["exception_msg"] = str(run_exc)[:300]
+            if blackbox is not None:
+                blackbox.observe_record(final)
+                if run_exc is not None and not isinstance(
+                        run_exc, KeyboardInterrupt):
+                    # Dumped before the writer closes, so the incident's
+                    # manifest reaches the metrics stream too.
+                    blackbox.incident("crash_" + type(run_exc).__name__)
             if metrics_out is not None:
                 try:
                     metrics_out.write(final)
                 except Exception as e:  # a full volume must not mask
                     log.warning("final record write failed: %s", e)
                 metrics_out.close()
+            self._metrics_writer = None
+            if self.tracer.enabled:
+                try:
+                    n_ev = self.tracer.dump(self._trace_path)
+                    log.info("wrote %d trace events to %s (%d window(s))",
+                             n_ev, self._trace_path,
+                             self.tracer.windows_written)
+                except OSError as e:
+                    log.warning("trace dump failed: %s", e)
+                self.tracer.close()
         truncated = pipeline.truncated_features
         self._epoch, self._batches_done = cfg.epoch_num, 0
         wall = max(time.time() - t0, 1e-9)
@@ -1485,6 +1817,9 @@ class Trainer:
         train_metrics["wait_input_s"] = final["wait_input_s"]
         train_metrics["dispatch_s"] = final["dispatch_s"]
         train_metrics["health"] = dict(final["health"])
+        for key in ("resource", "quality", "fleet"):
+            if key in final:
+                train_metrics[key] = dict(final[key])
         if self.tiered is not None:
             train_metrics["tiered"] = self.tiered.snapshot()
         self.save(stepno)
@@ -1575,10 +1910,12 @@ class Trainer:
                       "batches_done": self._batches_done,
                       "fingerprint": self._data_fingerprint()}
         step = self._restored_step + stepno
+        extra = self._manifest_quality()
         if self.tiered is None:
             return checkpoint.save_sharded(
                 self.cfg.model_file, self.model, self.mesh, step=step,
                 opt_state_l=self.opt_state, data_state=data_state,
+                manifest_extra=extra,
             )
         cfg, man = self.cfg, self.tiered
         host_tables = self._tier_host_tables()
@@ -1590,7 +1927,7 @@ class Trainer:
                                             tuple(merged[1:]))
             return checkpoint.save_params(
                 cfg.model_file, fm.FmModel(w0, merged[0]), step=step,
-                opt_state=opt, data_state=data_state)
+                opt_state=opt, data_state=data_state, manifest_extra=extra)
         scalars = {"w0": w0.numpy(),
                    **tiered_lib.get_opt_scalars(cfg.optimizer,
                                                 self.opt_state)}
@@ -1600,10 +1937,23 @@ class Trainer:
                 man.export_shard_overlays(host_tables),
                 num_shards=man.num_shards, data_state=data_state,
                 primary=self.mesh.rank == 0,
-                barrier=lambda: barrier(self.mesh))
+                barrier=lambda: barrier(self.mesh), manifest_extra=extra)
         return checkpoint.save_tiered(
             cfg.model_file, step, scalars, man.export_overlay(host_tables),
-            data_state=data_state)
+            data_state=data_state, manifest_extra=extra)
+
+    def _manifest_quality(self) -> Optional[dict]:
+        """The training-to-serving skew reference: the run's cumulative
+        feature and score sketches for ``serve_manifest.json`` (the
+        reference's ``_manifest_quality``).  None (no key at all) with
+        quality off or before the first sketched batch."""
+        sk = self._quality_sketch
+        if sk is None:
+            return None
+        payload = sk.export()
+        if payload is None:
+            return None
+        return {"quality": {"examples": sk.examples, "sketches": payload}}
 
 
 def predict(cfg: FmConfig,

@@ -8,10 +8,10 @@ server's ``CheckpointWatcher`` polls it.  The document carries the
 reference's keys ``step``, ``format`` (``dense``, ``quant`` or
 ``tiered``) and ``published`` (the wall time, which tells re-saves at
 one step apart), so either package's watcher reads either package's
-manifest.  The reference's trainer also merges a ``quality`` sketch
-payload into it (the training-to-serving skew reference); that belongs
-to the observability planes the port has not ported (ROADMAP.md, port
-queue item 4), so the port writes no ``quality`` key.
+manifest.  ``extra`` merges more top-level keys into the document: the
+trainer's ``quality`` payload (``{"examples", "sketches"}``, the
+training-to-serving skew reference a replica's ``ServeSkewMonitor``
+compares live traffic against), absent with ``quality = false``.
 """
 
 from __future__ import annotations
@@ -28,10 +28,14 @@ def manifest_path(model_file: str) -> str:
     return os.path.join(os.path.abspath(model_file), "serve_manifest.json")
 
 
-def publish_manifest(model_file: str, step: int, fmt: str) -> None:
+def publish_manifest(model_file: str, step: int, fmt: str,
+                     extra: Optional[dict] = None) -> None:
     """Publish the serving manifest; call it after the checkpoint's
-    files are in place."""
+    files are in place.  ``extra``'s keys are merged into the
+    document."""
     doc = {"step": int(step), "format": fmt, "published": time.time()}
+    if extra:
+        doc.update(extra)
     tmp = manifest_path(model_file) + ".tmp"
     with open(tmp, "w") as f:
         json.dump(doc, f)

@@ -24,7 +24,9 @@ data block of each), saves, and writes ``DIR/trainer<i>_<rank>.json``
 (a config's ``_exact_bytes_max`` key, when present, sets
 ``train.tiered.EXACT_BYTES_MAX`` for its run: 0 makes the cold stores
 virtual; its ``_evaluate`` key, a list of files, is evaluated after the
-run, and a RuntimeError's message kept as ``evaluate_error``).
+run, and a RuntimeError's message kept as ``evaluate_error``; its
+``_status_ports`` key gives each rank its ``status_port``, and its
+``_throttle_s`` key a pause before each dispatch).
 ``train_cuda``: the same with every rank on ``cuda:0`` (ranks sharing
 the card over gloo).  ``cli``: ``python -m fast_tffm_tpu_torch.cli`` with the arguments in
 ``DIR/cli.json`` plus the multi-rank flags (the CLI joins the group).
@@ -145,7 +147,19 @@ def _train(workdir, rank, device="cpu"):
     for i, kw in enumerate(runs):
         tiered.EXACT_BYTES_MAX = kw.pop("_exact_bytes_max", exact)
         evaluate = kw.pop("_evaluate", None)
+        ports = kw.pop("_status_ports", None)  # one per rank
+        if ports:
+            kw["status_port"] = ports[rank]
+        throttle = kw.pop("_throttle_s", 0.0)  # a pause before each dispatch
         trainer = Trainer(FmConfig(**kw), device=device)
+        if throttle:
+            real = trainer.dispatch
+
+            def slow(sb, pause=None, real=real):
+                time.sleep(throttle)
+                return real(sb, pause)
+
+            trainer.dispatch = slow
         result = trainer.train()
         if evaluate:
             try:

@@ -156,17 +156,16 @@ def test_trainer_logs_only_the_planes_it_does_not_run(caplog, tmp_path):
     with caplog.at_level(logging.INFO, logger="fast_tffm_tpu_torch"):
         loop.Trainer(cfg, device="cpu")
     line = [r.message for r in caplog.records
-            if "does not run these planes" in r.message]
+            if "does not act on these settings" in r.message]
     assert len(line) == 1
-    for plane in ("training-fleet scrape", "compile cache", "quality plane",
-                  "blackbox"):
-        assert plane in line[0]
+    # Only the XLA compile cache is inert since the 4c planes run.
+    assert "compile cache" in line[0]
     for live in ("health", "metrics stream", "heartbeat", "status endpoint",
-                 "alerts"):
+                 "alerts", "training-fleet scrape", "quality plane",
+                 "blackbox", "trace", "profiler"):
         assert live not in line[0]
-    assert {k for k, _ in loop._INERT_PLANES} == {
-        "quality", "trace_file", "blackbox", "profile_dir",
-        "train_fleet_scrape", "compile_cache_dir"}
+    assert {k for k, _ in loop._INERT_PLANES} == {"compile_cache_dir"}
     for knobs in (server._INERT_KNOBS, router._INERT_KNOBS):
         assert not {"metrics_file", "heartbeat_secs",
                     "alert_rules"} & set(knobs)
+        assert set(knobs) <= {"compile_cache_dir", "interaction_impl"}

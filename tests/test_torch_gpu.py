@@ -8,8 +8,11 @@ trainer against the dense mesh and the overlapped entries exchange
 against the inline one on ranks sharing the card, field-aware FM's op,
 graphed dispatch and kernel step at the FFM row width, the JAX
 package's Orbax checkpoints (``tests/data/orbax/``) served on the card,
-with a hot swap under traffic, and the training-health carry of a
-graphed dispatch (bitwise the eager one; a poisoned replay halts).
+with a hot swap under traffic, the training-health carry of a
+graphed dispatch (bitwise the eager one; a poisoned replay halts), and
+the observability planes: the quality plane's scores copy in a graphed
+dispatch (bitwise its eager twin, the same scores fed to the monitor)
+and every plane on against every plane off, graphed and eager.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``gpu``) and
 skips without one.  The file imports neither jax nor the JAX package,
@@ -1978,3 +1981,94 @@ def test_fleet_serve_on_the_gpu_is_bitwise_the_single_process_server(
     for pid in pids:
         with pytest.raises(ProcessLookupError):
             os.kill(pid, 0)
+
+
+# -- the observability planes (quality, trace, blackbox, profiler) ------
+
+
+class _Observed:
+    """Each quality feed a trainer's monitor took, in order."""
+
+    def __init__(self, trainer):
+        self.feeds = []
+        real = trainer._feed_quality
+
+        def feed(pending):
+            if pending is not None:
+                host, event, labels, weights = pending
+                if event is not None:
+                    event.synchronize()
+                self.feeds.append((host.numpy().copy(), labels.copy(),
+                                   weights.copy()))
+            real(pending)
+
+        trainer._feed_quality = feed
+
+
+@pytest.mark.gpu
+def test_graphed_scores_copy_is_bitwise_its_eager_twin(gpu, tmp_path):
+    """``Trainer.train()`` at K = 4 over 13 batches with the quality
+    plane on: the graphed run (its captured steps write the scores into
+    the trainer's buffer, copied to a pinned slot after each replay) is
+    bitwise the eager run, the scores fed to the monitor are the same
+    arrays, the monitor's block is the same and counts every example."""
+    path = _health_file(tmp_path, 13)
+    cfg = dataclasses.replace(
+        _dispatch_cfg(tmp_path, "adagrad", "float32", 4),
+        train_files=[path], epoch_num=1, log_steps=0, save_steps=0,
+        quality=True)
+    runs = []
+    for graphs in (True, False):
+        trainer = _trainer(dataclasses.replace(
+            cfg, model_file=str(tmp_path / f"m{graphs}")), gpu, graphs)
+        seen = _Observed(trainer)
+        runs.append((trainer, trainer.train()["train"], seen.feeds))
+    (graphed, g_tr, g_feeds), (eager, e_tr, e_feeds) = runs
+    assert g_tr["graph_dispatches"] == 2 and e_tr["graph_dispatches"] == 0
+    for a, b in zip(_trained_state(graphed), _trained_state(eager)):
+        assert torch.equal(a, b)
+    assert len(g_feeds) == len(e_feeds) == 4
+    for (gs, gl, gw), (es, el, ew) in zip(g_feeds, e_feeds):
+        np.testing.assert_array_equal(gs.view(np.uint32), es.view(np.uint32))
+        np.testing.assert_array_equal(gl, el)
+        np.testing.assert_array_equal(gw, ew)
+    assert g_tr["quality"] == e_tr["quality"]
+    assert g_tr["quality"]["examples"] == 13 * 512
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("graphs", [True, False])
+def test_every_plane_on_is_bitwise_every_plane_off(gpu, tmp_path, graphs):
+    """Quality, trace, blackbox, a ``profile_dir`` window, a status
+    endpoint and the compile sentinel on, against every plane off:
+    tables, accumulator, w0, metrics and the carry bitwise the same,
+    graphed and eager; the profile names the path's kernels."""
+    import socket
+
+    path = _health_file(tmp_path, 13)
+    base = dataclasses.replace(
+        _dispatch_cfg(tmp_path, "adagrad", "float32", 4),
+        train_files=[path], epoch_num=1, log_steps=0, save_steps=0)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    on = dataclasses.replace(
+        base, model_file=str(tmp_path / "on"), quality=True, blackbox=True,
+        trace_file=str(tmp_path / "trace.json"),
+        profile_dir=str(tmp_path / "prof"), profile_start_step=4,
+        profile_steps=4, status_port=port, heartbeat_secs=0.05,
+        metrics_file=str(tmp_path / "m.jsonl"))
+    off = dataclasses.replace(base, model_file=str(tmp_path / "off"),
+                              quality=False, blackbox=False,
+                              resource_metrics=False)
+    a = _trainer(on, gpu, graphs)
+    a_tr = a.train()["train"]
+    b = _trainer(off, gpu, graphs)
+    b.train()
+    for x, y in zip(_trained_state(a), _trained_state(b)):
+        assert torch.equal(x, y)
+    assert a_tr["resource"]["compiles"] == (1 if graphs else 0)
+    text = open(tmp_path / "prof" / "trace_rank0.json").read()
+    for sym in ("fm_scores_fwd_kernel", "fm_grad_bwd_kernel", "k1_kernel",
+                "k2_kernel"):
+        assert sym in text, sym

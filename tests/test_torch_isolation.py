@@ -1,7 +1,7 @@
 """Guards of the port's boundaries: it never imports jax, orbax,
 tensorstore, zstandard, ml_dtypes or the JAX package (the training,
-multi-rank, probe, table-format, Orbax-reader and serving-fleet
-slices' modules included), its parse workers' import chain imports no
+multi-rank, probe, table-format, Orbax-reader, serving-fleet and
+observability slices' modules included), its parse workers' import chain imports no
 torch, it runs on the GPU unless asked for the CPU, and its kernel
 wrappers raise instead of falling back."""
 
@@ -62,6 +62,13 @@ _FLEET_SLICE = (
     "fast_tffm_tpu_torch.obs.fleet", "fast_tffm_tpu_torch.obs.resource",
     "fast_tffm_tpu_torch.tools.report", "fast_tffm_tpu_torch.tools.replay",
 )
+# The observability planes' modules (quality, trace, blackbox, the
+# profiler window).
+_PLANES_SLICE = (
+    "fast_tffm_tpu_torch.obs.sketch", "fast_tffm_tpu_torch.obs.quality",
+    "fast_tffm_tpu_torch.obs.trace", "fast_tffm_tpu_torch.obs.blackbox",
+    "fast_tffm_tpu_torch.obs.profiler",
+)
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -75,15 +82,19 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out[1] == "", f"the port imported {out[1]}"
     loaded = set(out[2].split(","))
     want = set(_TRAIN_SLICE + _PROBE_SLICE + _TABLE_FORMATS_SLICE
-               + _FLEET_SLICE)
+               + _FLEET_SLICE + _PLANES_SLICE)
     assert want <= loaded, sorted(want - loaded)
 
 
 def test_the_parse_workers_import_chain_is_torch_free():
     """What a spawned parse worker imports (``data/procpool.py`` and, in
-    the worker, ``data/pipeline.py``) pulls in neither torch nor jax."""
+    the worker, ``data/pipeline.py``, and its tracer and sketches,
+    ``obs/trace.py`` and ``obs/sketch.py``) pulls in neither torch nor
+    jax."""
     code = ("import sys; import fast_tffm_tpu_torch.data.procpool; "
-            "import fast_tffm_tpu_torch.data.pipeline; print(sorted({"
+            "import fast_tffm_tpu_torch.data.pipeline; "
+            "import fast_tffm_tpu_torch.obs.trace; "
+            "import fast_tffm_tpu_torch.obs.sketch; print(sorted({"
             "m.split('.')[0] for m in sys.modules} & {'torch', 'jax'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,

@@ -287,14 +287,19 @@ def test_crashed_run_writes_one_final_record(train_file, tmp_path, capsys):
 def test_status_endpoint_serves_metrics_and_status_mid_run(train_file,
                                                            tmp_path):
     port = _free_port()
-    t = Trainer(_cfg(train_file, tmp_path, "live", status_port=port),
-                device="cpu")
-    _throttle(t, 0.05)
+    # Four epochs of slowed dispatches: long enough for a round of every
+    # route, the profiler window included.
+    t = Trainer(_cfg(train_file, tmp_path, "live", status_port=port,
+                     epoch_num=4), device="cpu")
+    _throttle(t, 0.3)
     got: dict = {}
 
     def poll():
         deadline = time.time() + 60
         while time.time() < deadline and "metrics" not in got:
+            # One round of every route, kept only when all answered
+            # before the run ended.
+            one: dict = {}
             try:
                 code, sbody = _get(port, "/status", timeout=1)
                 if code != 200:
@@ -302,15 +307,17 @@ def test_status_endpoint_serves_metrics_and_status_mid_run(train_file,
                 code, mbody = _get(port, "/metrics", timeout=1)
                 if code != 200:
                     continue
-                got["status"], got["metrics"] = sbody, mbody
-                got["healthz"] = _get(port, "/healthz", timeout=1)
-                got["threadz"] = _get(port, "/debug/threadz", timeout=1)
-                got["profile"] = _get(port, "/profile", timeout=1)
+                one["status"], one["metrics"] = sbody, mbody
+                one["healthz"] = _get(port, "/healthz", timeout=1)
+                one["threadz"] = _get(port, "/debug/threadz", timeout=1)
+                one["profile"] = _get(port, "/profile?secs=0.1",
+                                      timeout=30)
                 conn = http.client.HTTPConnection("127.0.0.1", port,
-                                                  timeout=1)
+                                                  timeout=30)
                 conn.request("POST", "/incident", body=b"")
-                got["incident"] = conn.getresponse().status
+                one["incident"] = conn.getresponse().status
                 conn.close()
+                got.update(one)
             except Exception:
                 time.sleep(0.02)
 
@@ -334,8 +341,11 @@ def test_status_endpoint_serves_metrics_and_status_mid_run(train_file,
     assert "tffm_counter_ingest_examples_total" in text
     assert got["healthz"][0] == 200
     assert got["threadz"][0] == 200 and b"tffm-status" in got["threadz"][1]
-    # The profiler and the flight recorder are not in the port.
-    assert got["profile"][0] == 404 and got["incident"] == 404
+    # One on-demand profiler window, and a blackbox bundle (the
+    # blackbox is on by default).
+    assert got["profile"][0] == 200
+    assert json.loads(got["profile"][1])["secs"] == pytest.approx(0.1)
+    assert got["incident"] == 200
     with pytest.raises((urllib.error.URLError, OSError)):
         urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
                                timeout=1)
@@ -613,9 +623,13 @@ def test_serve_forever_halts_on_a_halt_rule(trained_model, tmp_path):
         alert_rules="elapsed > 0 : halt", serve_poll_secs=0.0,
         serve_port=0, serve_batch_sizes="8")
     assert serve_forever(cfg, device="cpu") == 1
-    final = _records(mf)[-1]
-    assert final["record"] == "final"
+    recs = _records(mf)
+    final = [r for r in recs if r["record"] == "final"][-1]
     assert final["exception"] == "AlertHaltError"
+    # The crash's blackbox bundle comes after the final record, as the
+    # reference's does.
+    assert recs[-1]["record"] == "incident"
+    assert recs[-1]["reason"] == "crash_AlertHaltError"
 
 
 class _FakeReplica:
@@ -688,9 +702,12 @@ def test_router_writes_header_heartbeats_alert_and_final(tmp_path,
     assert kinds[0] == "run_header" and recs[0]["mode"] == "serve_router"
     assert recs[0]["replica_ports"] == [f.port for f in fakes]
     assert "heartbeat" in kinds and kinds.count("alert") == 1
-    assert kinds[-1] == "final"
-    assert recs[-1]["exception"] == "AlertHaltError"
-    assert recs[-1]["serve"]["replicas"] == 2
+    # The final record, then the crash's blackbox bundle (the halt
+    # alert's own bundle came earlier), as the reference's router.
+    assert kinds[-2:] == ["final", "incident"]
+    assert recs[-1]["reason"] == "crash_AlertHaltError"
+    assert recs[-2]["exception"] == "AlertHaltError"
+    assert recs[-2]["serve"]["replicas"] == 2
     capsys.readouterr()
     for tool in (repo_report, port_report):
         assert tool.main([mf]) == 0

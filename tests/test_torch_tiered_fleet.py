@@ -363,9 +363,16 @@ def test_fleet_against_the_reference_global_and_shards(tmp_path, rng,
                                                        monkeypatch):
     """Virtual cold stores on both sides (the same hash init): the
     port's 1 x 2 fleet and the reference's single-device global tiered
-    run and its own 1 x 2 shards run train the same logical table within
-    the sharded step's bounds; the port's shard set and the reference's
-    read bitwise in either package."""
+    run train the same logical table within the sharded step's bounds;
+    the reference's own 1 x 2 shards run trains as many steps; the
+    port's shard set and the reference's read bitwise in either package.
+
+    The reference's shards run is not a fixed point to hold the port
+    to: run after run on the same input it ends in one of two tables
+    (13 and 11 of 24 runs under the full suite's load), one within
+    1e-8 of the port's and of its own global run, the other up to
+    1.5e-3 away in a tenth of the table.  The port's fleet and the
+    reference's global run were bitwise the same in all 24."""
     monkeypatch.setattr(jax_tiered, "EXACT_BYTES_MAX", 0)
     _write_data(tmp_path / "train.libsvm", rng)
     res = _train_ranks(tmp_path, [dict(
@@ -379,15 +386,15 @@ def test_fleet_against_the_reference_global_and_shards(tmp_path, rng,
         ref[name] = JaxTrainer(JaxFmConfig(**kw)).train()
     assert os.path.exists(tmp_path / "ref_shards" / "tiered.shard1of2.npz")
     got = _logical(tmp_path / "fleet", "adagrad")
-    for name in ("global", "shards"):
-        want = _logical(tmp_path / f"ref_{name}", "adagrad")
-        assert got[0] == want[0]
-        np.testing.assert_allclose(res[0][0]["train"]["loss"],
-                                   ref[name]["train"]["loss"], **SCORE_TOL)
-        np.testing.assert_allclose(got[2]["table"], want[2]["table"],
-                                   **TABLE_TOL)
-        np.testing.assert_allclose(got[2]["acc"], want[2]["acc"], **ACC_TOL)
-        np.testing.assert_allclose(got[1]["w0"], want[1]["w0"], **SCORE_TOL)
+    want = _logical(tmp_path / "ref_global", "adagrad")
+    assert got[0] == want[0]
+    np.testing.assert_allclose(res[0][0]["train"]["loss"],
+                               ref["global"]["train"]["loss"], **SCORE_TOL)
+    np.testing.assert_allclose(got[2]["table"], want[2]["table"],
+                               **TABLE_TOL)
+    np.testing.assert_allclose(got[2]["acc"], want[2]["acc"], **ACC_TOL)
+    np.testing.assert_allclose(got[1]["w0"], want[1]["w0"], **SCORE_TOL)
+    assert got[0] == _logical(tmp_path / "ref_shards", "adagrad")[0]
     # Shard sets across packages, bit for bit.
     for model in ("fleet", "ref_shards"):
         a = checkpoint.restore_tiered(str(tmp_path / model))
