@@ -279,8 +279,9 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    batch eager and graphed (p50, device time by op, idle share), the
    whole-table update alone (``train.optimizers.apply_dense``, Adam and
    Adagrad) in CUDA graphs and by op against its byte bound, and the
-   gradient's K1 merge, K-place and full-L2 term at the step's shapes;
-   each run's peak device memory (and over what the process held
+   gradient's K1 merge, K-place (bitwise its plain version, and in turns
+   with it and its library yardstick) and full-L2 term at the step's
+   shapes; each run's peak device memory (and over what the process held
    before it) and graph/eager dispatches.
 15. Orbax-serve phase (path 10): (a) the JAX package's Orbax
    checkpoints committed in ``tests/data/orbax`` (FM with the sparse
@@ -347,7 +348,8 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    plain versions and timed in CUDA graphs beside their bounds: K1 at
    D = 33 on a model shard (the sentinel's segment dropped; its
    ``index_add_`` over the owned occurrences alone), K-place at W = 66
-   and W = 9 (bitwise), K1's merge mode at W = 66 and 9, K2 at D = 33 on
+   and W = 9 (bitwise; its library yardstick ``zero_()`` and one
+   ``index_copy_``), K1's merge mode at W = 66 and 9, K2 at D = 33 on
    the merged rows.
 
 Output: progress lines and JSON records, then a ``{"kernels": [...]}``
@@ -745,9 +747,27 @@ def k1_merge_bound_ms(n: int, u: int, p: int):
 
 def kplace_bound_ms(u: int, w: int, vocab_local: int):
     """K-place: the ``u`` entries inside the shard read once (the
-    others are never read: a block finds its own by binary search), the
-    dense delta written once; no arithmetic."""
+    others are never read: a block finds its own by a search of the
+    ascending rows), the dense delta written once; no arithmetic."""
     return bound(4 * (u * (w + 1) + vocab_local * w), 0)
+
+
+def kplace_library(torch, plain, urows, sums, row_lo: int, vocab_local: int):
+    """K-place's library yardstick, two PyTorch calls on a delta
+    allocated beforehand: ``zero_()``, then one ``index_copy_`` of the
+    entries inside the shard (their rows and sums cut beforehand).
+    Checked bitwise against ``plain`` (its plain version) here."""
+    inside = (urows >= row_lo) & (urows < row_lo + vocab_local)
+    idx = (urows[inside].long() - row_lo).contiguous()
+    vals = sums[inside].contiguous()
+    delta = torch.empty((vocab_local, sums.shape[1]), device=sums.device)
+
+    def call():
+        return delta.zero_().index_copy_(0, idx, vals)
+
+    check(torch.equal(call(), plain(urows, sums, row_lo, vocab_local)),
+          "K-place's library yardstick does not compute its function")
+    return call
 
 
 def k2_bound_ms(u: int, d: int, rows: int = 0):
@@ -1655,7 +1675,9 @@ def dense_phase(np, torch, card: str, rng, files, valid_file: str,
     batch, eager and graphed (p50, device time by op, idle share); the
     whole-table update alone (``optimizers.apply_dense``, Adam and
     Adagrad) timed in CUDA graphs and by op against its byte bound, and
-    the gradient's K1 merge and K-place at the step's shapes.  Returns
+    the gradient's K1 merge and K-place at the step's shapes (K-place
+    bitwise its plain version, timed with it and its library
+    yardstick).  Returns
     ``(record, launches)``: the launches of (1), (4) and (5)."""
     from fast_tffm_tpu_torch import cli
     from fast_tffm_tpu_torch.config import load_config
@@ -1980,12 +2002,13 @@ def dense_phase(np, torch, card: str, rng, files, valid_file: str,
     u = int((meta.seg_start[1:] > meta.seg_start[:-1]).sum())
     m_rows, m_sums = sparse_apply.k1_merge_cuda(g_rows, ids32, meta.perm,
                                                 meta.seg_start)
+    check(torch.equal(sparse_apply.kplace_cuda(m_rows, m_sums, 0, V),
+                      sparse_apply.kplace_plain(m_rows, m_sums, 0, V)),
+          "dense: K-place at [V, D] is not bitwise its plain version")
     grad_kernels = {
         "k1_merge": (lambda: sparse_apply.k1_merge_cuda(
             g_rows, ids32, meta.perm, meta.seg_start),
             k1_merge_bound_ms(n, u, D)),
-        "kplace": (lambda: sparse_apply.kplace_cuda(m_rows, m_sums, 0, V),
-                   kplace_bound_ms(u, D, V)),
         # The full L2's closed-form term: read the gradient and the
         # table, write the gradient; a product and a sum an element.
         "l2_full_grad": (lambda: g_table.addcmul_(model.table.detach(), lam),
@@ -1994,6 +2017,13 @@ def dense_phase(np, torch, card: str, rng, files, valid_file: str,
     for name, (fn, (b_ms, b_by)) in grad_kernels.items():
         ms = graph_ms(torch, fn, calls=20)
         update[name] = {"graph_ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+    # K-place in turns with its plain version and its library yardstick.
+    update.update(time_cases(torch, {"kplace": (
+        lambda: sparse_apply.kplace_cuda(m_rows, m_sums, 0, V),
+        lambda: sparse_apply.kplace_plain(m_rows, m_sums, 0, V),
+        kplace_library(torch, sparse_apply.kplace_plain, m_rows, m_sums, 0,
+                       V),
+        kplace_bound_ms(u, D, V))}, calls={"kplace": 20}))
     del model, dtable, g_rows, g_table, m_rows, m_sums, dev_batches, sb
     gc.collect()
     torch.cuda.empty_cache()
@@ -5355,7 +5385,8 @@ def mesh_modes_timing(np, torch, gen, rng, err: dict) -> dict:
               f"{name} vs plain: max err {err[name]} (a placement is exact)")
         del delta_k, delta_p
         cases[name] = (lambda a=kp: sa.kplace_cuda(*a),
-                       lambda a=kp: sa.kplace_plain(*a), None,
+                       lambda a=kp: sa.kplace_plain(*a),
+                       kplace_library(torch, sa.kplace_plain, *kp),
                        kplace_bound_ms(kp[0].numel(), kp[1].shape[1], vloc))
         if d == 33:
             table = torch.randn((vloc, d), generator=gen, device=dev) * 0.01
@@ -5964,7 +5995,8 @@ def main() -> int:
                                 KPLACE_VOCAB_LOCAL),
             lambda: kplace_plain(urows_kp, sums_kp, KPLACE_ROW_LO,
                                  KPLACE_VOCAB_LOCAL),
-            None,
+            kplace_library(torch, kplace_plain, urows_kp, sums_kp,
+                           KPLACE_ROW_LO, KPLACE_VOCAB_LOCAL),
             kplace_bound_ms(placed, 2 * D, KPLACE_VOCAB_LOCAL),
         ),
         "k1_merge": (

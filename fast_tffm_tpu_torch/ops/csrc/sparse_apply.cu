@@ -85,26 +85,48 @@
 // n - U empty slots: a seg_start load and a row id store each in K1, an
 // id load in K2.
 //
-// K-place (kplace): the deduped entry stream (urows [U] ascending, as K1
-// emits them, a trailing run of -1 absent; sums [U, W]) expanded into a
-// dense per-shard delta (or the dense step's table gradient)
-// [vocab_local, W]: row urows[u] - row_lo gets sums[u], every other row
-// 0, entries outside [row_lo, row_lo + vocab_local) dropped (the
-// sentinel id of off-shard occurrences among them).  One block per tile
-// of output rows: it finds the tile's entries by binary search in the
-// sorted urows (they are one contiguous run of sums), places them into a
-// zeroed tile in shared memory and writes the tile out once, densely and
-// coalesced.  Every output byte is written once, with no zero fill
-// before a scatter.  The TPU kernel's per-tile DMA window and one-hot
-// placement matmul are the same idea in the TPU's terms.
+// K-place (kplace): the deduped entry stream (urows [U] ascending, as K1 emits
+// them, a trailing run of -1 absent; sums [U, W]) expanded into a dense
+// per-shard delta (or the dense step's table gradient) [vocab_local, W]: row
+// urows[u] - row_lo gets sums[u], every other row 0, entries outside [row_lo,
+// row_lo + vocab_local) dropped (the sentinel id of off-shard occurrences
+// among them).  Nearly all of delta is zeros, so the kernel is a fill at the
+// card's write rate with a few rows placed over it.  A 256-thread block owns a
+// 16 KB tile of delta (1024 quads, any rows) and the grid is one block a tile,
+// in order, as a fill's: the card then writes one dense front of delta, zeros
+// alone at 0.89-0.98 of the byte bound, against 0.79-0.96 for a grid of as
+// many blocks as fit, each sweeping its own run.  A block first stores its
+// zeros, 16 bytes a store straight from registers, and only then looks for its
+// entries: warps 0 and 1 find the run whose rows overlap the tile by a
+// warp-wide search of urows (4 dependent loads at U = 2^17, against 17 for a
+// binary search).  After one barrier the block writes those entries' floats
+// that fall in its tile over its zeros, while they are still in L2: U * W * 4
+// bytes written twice (about 1.7 MB against 151 MB at [2^21, 18]).  Two things
+// the design turns on (PERF.md): stores first, since a block that reads urows
+// or sums before its stores, or waits on them (a search, a map of its rows,
+// its entries' rows in registers), holds its zeros back; and no DRAM reads
+// amid the write stream, which cost more than the search itself.  So the first
+// 1024 blocks, before their stores, ask L2 for all of urows and sums (U * (W +
+// 1) * 4 bytes, a 1024th each, no wait) with evict_last priority, and the
+// searches and the entries then read L2.  Nothing is staged in shared memory,
+// so W sets neither the occupancy nor a width limit.  The design it replaces
+// ran a block per tile of 256 rows held in shared memory: a 17-load binary
+// search by two threads and two barriers before the tile's first store, 4-byte
+// stores, 4 blocks an SM at W = 66, and 0.5-0.8 of its bound.  The TPU
+// kernel's per-tile DMA window of entries and its one-hot placement matmul
+// have no counterpart: a TPU grid step writes a fixed output block from VMEM,
+// so it must bring its tile's entries in and place them by a matmul; here a
+// store goes to any address of device memory, the zeros never pass through
+// on-chip memory, and an entry is written where it belongs.
 //
 // Bound: memory.  At B = 4096, F = 39, D = 9 (n = 159,744 occurrences)
 // K1 reads g_rows (5.75 MB), perm and the flat ids (0.64 MB each at most)
 // and seg_start, and writes U * (2D + 1) * 4 bytes; K2 reads the sums and
 // the row ids and reads and writes U * D * 4 bytes of each table it
-// updates.  K-place writes vocab_local * W * 4 bytes (151 MB at
-// vocab_local = 2^21, W = 18) and reads U * (W + 1) * 4.  All do a
-// handful of flops per byte.
+// updates.  All do a handful of flops per byte.  K-place does none: it
+// writes vocab_local * W * 4 bytes (151 MB at vocab_local = 2^21, W =
+// 18, 45 us at 3.35 TB/s) and must read U * (W + 1) * 4 of the entries
+// inside the shard (under 2 MB there); its prefetch reads all U.
 
 #include <cuda_runtime.h>
 
@@ -115,7 +137,6 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kThreads = 256;
 // K1: segments per block (one per thread), the longest segment a thread
 // sums alone (sparse_apply.K1_SHORT must agree), the occurrences whose
 // loads a thread issues together, and the floats of sums a block may
@@ -127,6 +148,12 @@ constexpr int kStageFloats = 48 * 1024 / 4;
 // K2: threads per block, and lanes per row (columns of a row per pass).
 constexpr int kK2Threads = 128;
 constexpr int kK2Lanes = 16;
+// K-place: threads per block, quads (16-byte stores) per tile, a block's
+// share of delta (16 KB, 4 stores a thread), and the blocks that
+// prefetch the entries into L2, about the card's first wave.
+constexpr int kPlaceThreads = 256;
+constexpr int kPlaceTileQuads = 1024;
+constexpr unsigned kPlacePrefetchBlocks = 1024;
 
 constexpr int kSgd = 0;
 constexpr int kAdagrad = 1;
@@ -332,58 +359,128 @@ __global__ void __launch_bounds__(kK2Threads)
 }
 
 // First index of sorted a[0..n) whose value is >= key (n when none is),
-// for a key >= 0.  A negative entry counts as past every key: K1's rows
+// for a key >= 0, found by the whole warp: each step probes 32 evenly
+// spaced entries at once and keeps the gap between the last one below
+// the key and the first one not, so U = 2^17 entries take 4 dependent
+// loads, not 17.  A negative entry counts as past every key: K1's rows
 // on the whole slot end in a run of -1, which thereby sorts last and
-// falls in no tile.
-__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
-                                           int64_t key) {
+// falls in no block's range.  Every lane of the warp calls it and gets
+// the index.
+__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a,
+                                                int n, int64_t key) {
+  const int lane = threadIdx.x % kWarp;
   int lo = 0;
   int hi = n;
   while (lo < hi) {
-    const int mid = lo + (hi - lo) / 2;
-    const int v = a[mid];
-    if (v >= 0 && static_cast<int64_t>(v) < key) {
-      lo = mid + 1;
+    const int step = (hi - lo - 1) / kWarp + 1;
+    const int64_t i = lo + static_cast<int64_t>(lane) * step;
+    bool below = false;
+    if (i < hi) {
+      const int v = a[i];
+      below = v >= 0 && static_cast<int64_t>(v) < key;
+    }
+    // On a sorted a the lanes below the key are a prefix: c of them.
+    const int c = __popc(__ballot_sync(0xffffffffu, below));
+    if (c == 0) {
+      hi = lo;
     } else {
-      hi = mid;
+      const int64_t top = lo + static_cast<int64_t>(c) * step;
+      lo += (c - 1) * step + 1;
+      hi = top < hi ? static_cast<int>(top) : hi;
     }
   }
   return lo;
 }
 
-// K-place: block b owns output rows [b * tile_rows, + tile_rows) of the
-// shard, i.e. global rows from row_lo + b * tile_rows.  Its entries are
-// the run urows[e0 .. e1) found by binary search, whose sums are
-// contiguous too.
-__global__ void kplace_kernel(const int* __restrict__ urows,
-                              const float* __restrict__ sums, int U,
-                              int64_t row_lo, int64_t vocab_local, int W,
-                              int tile_rows, float* __restrict__ delta) {
-  extern __shared__ float tile[];  // [tile_rows, W]
+// K-place: block b owns tile b, the floats [f0, f1) of delta ([vocab_local,
+// W], row-major): quads [b * kPlaceTileQuads, + kPlaceTileQuads), and the
+// last block also the n % 4 floats past the last quad.  The first
+// kPlacePrefetchBlocks blocks first ask L2 for a share of urows and sums
+// (no wait).  Every thread stores its quads' zeros; then warps 0 and 1
+// find the run of entries whose rows overlap the tile (its first and its
+// end); after a barrier, which orders the block's own stores to one
+// address, the block writes those entries' floats that fall inside
+// [f0, f1).  A row that
+// crosses into the next tile is written by each block in its own part,
+// so no two blocks write one address.
+__global__ void __launch_bounds__(kPlaceThreads)
+    kplace_kernel(const int* __restrict__ urows,
+                  const float* __restrict__ sums, int U, int64_t row_lo,
+                  int64_t vocab_local, int W, float* __restrict__ delta) {
   __shared__ int range[2];
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * tile_rows;
-  const int64_t left = vocab_local - r0;
-  const int rows = left < tile_rows ? static_cast<int>(left) : tile_rows;
-  const int n = rows * W;
-  if (threadIdx.x < 2) {
-    range[threadIdx.x] =
-        lower_bound(urows, U, row_lo + r0 + (threadIdx.x ? rows : 0));
+  const int t = threadIdx.x;
+  const int warp = t / kWarp;
+  const int64_t n = vocab_local * W;
+  const int64_t quads = n / 4;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kPlaceTileQuads;
+  const int64_t q1 =
+      q0 + kPlaceTileQuads < quads ? q0 + kPlaceTileQuads : quads;
+  const bool last = blockIdx.x == gridDim.x - 1;
+  const int64_t f0 = 4 * q0;
+  const int64_t f1 = last ? n : 4 * q1;
+  if (blockIdx.x < kPlacePrefetchBlocks) {
+    // A share of urows and sums into L2 ahead of the blocks that read
+    // them, kept there (evict_last) while delta streams through.
+    const int64_t blocks = gridDim.x < kPlacePrefetchBlocks
+                               ? gridDim.x : kPlacePrefetchBlocks;
+    const int64_t sum_lines = (static_cast<int64_t>(U) * W + 31) / 32;
+    const int64_t lines = sum_lines + (static_cast<int64_t>(U) + 31) / 32;
+    const int64_t l1 = lines * (blockIdx.x + 1) / blocks;
+    for (int64_t l = lines * blockIdx.x / blocks + t; l < l1;
+         l += kPlaceThreads) {
+      const char* p =
+          l < sum_lines
+              ? reinterpret_cast<const char*>(sums) + 128 * l
+              : reinterpret_cast<const char*>(urows) + 128 * (l - sum_lines);
+      asm volatile("prefetch.global.L2::evict_last [%0];" ::"l"(p));
+    }
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = 0.0f;
+  float4* const out = reinterpret_cast<float4*>(delta);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+  for (int64_t q = q0 + t; q < q1; q += kPlaceThreads) out[q] = zero;
+  if (last && 4 * quads + t < n) delta[4 * quads + t] = 0.0f;
+  // The stores go first: keep the compiler from hoisting the search's
+  // loads above them.
+  asm volatile("" ::: "memory");
+  if (warp < 2) {
+    // Rows [f0 / W, ceil(f1 / W)) overlap the tile.
+    const int64_t row = warp == 0 ? f0 / W : (f1 + W - 1) / W;
+    const int e = warp_lower_bound(urows, U, row_lo + row);
+    if (t % kWarp == 0) range[warp] = e;
+  }
   __syncthreads();
   const int e0 = range[0];
-  const int m = (range[1] - e0) * W;
-  const float* src = sums + static_cast<int64_t>(e0) * W;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int e = i / W;
-    const int64_t r = static_cast<int64_t>(urows[e0 + e]) - row_lo - r0;
+  const int e1 = range[1];
+  if (e0 >= e1) return;
+  // The entries' sums are one flat run of (e1 - e0) * W floats; the
+  // first entry's row may start before f0 and the last one's end past
+  // f1, so the walk starts and stops at the tile's edges.  Position i
+  // of the run is entry k = i / W, column c = i % W, kept by adding the
+  // stride's quotient and remainder (one division a thread).
+  const int64_t first = (static_cast<int64_t>(urows[e0]) - row_lo) * W;
+  const int64_t end = (static_cast<int64_t>(urows[e1 - 1]) - row_lo) * W;
+  const int64_t i0 = f0 > first ? f0 - first : 0;
+  const int64_t i1 = static_cast<int64_t>(e1 - 1 - e0) * W +
+                     (f1 - end < W ? f1 - end : W);
+  int64_t i = i0 + t;
+  int64_t k = i / W;
+  int64_t c = i - k * W;
+  const int step_k = kPlaceThreads / W;
+  const int step_c = kPlaceThreads % W;
+  for (; i < i1; i += kPlaceThreads) {
+    const int e = e0 + static_cast<int>(k);
+    const int64_t f = (static_cast<int64_t>(urows[e]) - row_lo) * W + c;
     // Always true for an ascending urows; keeps a caller that broke
-    // that contract inside the tile.
-    if (r >= 0 && r < rows) tile[r * W + (i - e * W)] = src[i];
+    // that contract inside the block's tile.
+    if (f >= f0 && f < f1) delta[f] = sums[static_cast<int64_t>(e) * W + c];
+    k += step_k;
+    c += step_c;
+    if (c >= W) {
+      c -= W;
+      ++k;
+    }
   }
-  __syncthreads();
-  float* dst = delta + r0 * W;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = tile[i];
 }
 
 // Launches K1 in either mode: one block per kSegs segments, the
@@ -458,24 +555,24 @@ extern "C" int k2_apply(int opt, const void* urows, const void* sums,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K-place.  Writes every element of delta [vocab_local, W]; urows [U]
-// ascending (U may be 0), sums [U, W].  A tile of rows fits the 48 KB
-// of shared memory a block may take without an opt-in, beside the
-// kernel's own 8 static bytes.
+// K-place.  Writes every element of delta [vocab_local, W] (16-byte
+// aligned); urows [U] ascending (U may be 0), sums [U, W].  One block a
+// tile of kPlaceTileQuads quads: the grid depends on vocab_local and W
+// alone.
 extern "C" int kplace(const void* urows, const void* sums, int U,
                       long long row_lo, long long vocab_local, int W,
                       void* delta, void* stream) {
-  constexpr int kSmemFloats = (48 * 1024 - 64) / 4;
-  if (U < 0 || W < 1 || W > kSmemFloats || vocab_local < 1 || row_lo < 0) {
+  if (U < 0 || W < 1 || vocab_local < 1 || row_lo < 0 ||
+      reinterpret_cast<uintptr_t>(delta) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int tile_rows = kSmemFloats / W < 256 ? kSmemFloats / W : 256;
-  const int64_t blocks = (vocab_local + tile_rows - 1) / tile_rows;
-  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  kplace_kernel<<<static_cast<unsigned>(blocks), kThreads,
-                  static_cast<size_t>(tile_rows) * W * sizeof(float),
+  const int64_t quads = vocab_local * W / 4;
+  const int64_t tiles =
+      quads > 0 ? (quads + kPlaceTileQuads - 1) / kPlaceTileQuads : 1;
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  kplace_kernel<<<static_cast<unsigned>(tiles), kPlaceThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(urows), static_cast<const float*>(sums), U,
-      row_lo, vocab_local, W, tile_rows, static_cast<float*>(delta));
+      row_lo, vocab_local, W, static_cast<float*>(delta));
   return static_cast<int>(cudaGetLastError());
 }

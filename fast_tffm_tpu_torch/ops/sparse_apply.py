@@ -94,9 +94,9 @@ TILE = 256
 # The longest segment K1 sums with one thread; a longer one takes a
 # warp (csrc/sparse_apply.cu::kShort, which must agree).
 K1_SHORT = 16
-# Widest row K-place takes: a tile of rows lives in 48 KB of shared
-# memory (csrc/sparse_apply.cu::kplace).
-_KPLACE_MAX_WIDTH = (48 * 1024 - 64) // 4
+# Widest row K-place takes: the kernel stages nothing in shared memory,
+# so only its C interface's int bounds W (csrc/sparse_apply.cu::kplace).
+_KPLACE_MAX_WIDTH = _INT32_MAX
 
 
 class Hyper(NamedTuple):
@@ -411,10 +411,11 @@ def _check_kplace(urows, sums, row_lo, vocab_local) -> None:
         )
     u = urows.numel()
     if (urows.dim() != 1 or sums.dim() != 2 or sums.shape[0] != u
+            or u > _INT32_MAX
             or not 1 <= sums.shape[1] <= _KPLACE_MAX_WIDTH):
         raise ValueError(
-            f"kplace takes urows [U] and sums [U, W] with 1 <= W <= "
-            f"{_KPLACE_MAX_WIDTH}, got {tuple(urows.shape)} and "
+            f"kplace takes urows [U] and sums [U, W] with U, W <= "
+            f"{_KPLACE_MAX_WIDTH} and 1 <= W, got {tuple(urows.shape)} and "
             f"{tuple(sums.shape)}"
         )
     if row_lo < 0 or vocab_local < 1 or row_lo + vocab_local > 2**31:
@@ -447,13 +448,19 @@ def kplace_plain(urows, sums, row_lo: int, vocab_local: int):
 
 
 def kplace_cuda(urows, sums, row_lo: int, vocab_local: int):
-    """K-place through the CUDA kernel (a block per tile of output rows,
-    entries found by binary search in the ascending ``urows``, each
-    output byte written once), on the current stream; CPU tensors take
-    :func:`kplace_plain`.  ``urows`` must be ascending and unique, as K1
-    emits them, but for a trailing run of rows -1 (K1's on the whole
-    slot, past the batch's unique ids), which are absent: their sums are
-    never read.  Returns ``delta [vocab_local, W]`` f32."""
+    """K-place through the CUDA kernel, on the current stream; CPU
+    tensors take :func:`kplace_plain`.  A block per 16 KB tile of
+    ``delta``, in order: it stores the tile's zeros with 16-byte stores,
+    then two of its warps find the tile's entries by a warp-wide search
+    of the ascending ``urows``, and after a barrier it writes those
+    entries over the zeros.  The first blocks prefetch ``urows`` and
+    ``sums`` into L2 before their stores, so no search or entry reads
+    device memory amid the write stream.  ``urows`` must be ascending
+    and unique, as K1 emits them, but for a trailing run of rows -1
+    (K1's on the whole slot, past the batch's unique ids), which are
+    absent: their sums (unwritten there) are never placed.  Shapes and
+    grid depend on ``vocab_local`` and W alone, so a CUDA graph can hold
+    the call.  Returns ``delta [vocab_local, W]`` f32."""
     _check_kplace(urows, sums, row_lo, vocab_local)
     if sums.device.type == "cpu":
         return kplace_plain(urows, sums, row_lo, vocab_local)

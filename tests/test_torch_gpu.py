@@ -543,6 +543,116 @@ def test_kplace_kernel_matches_plain(gpu, vocab, vocab_local, row_lo, n, d):
     assert torch.equal(got, want)
 
 
+def _kplace_stream(gpu, rows, w, absent, seed):
+    """``urows``: ``rows`` ascending and unique, then ``absent`` rows -1
+    (a whole slot's tail); ``sums [U, w]`` normal, from a seed."""
+    rng = np.random.default_rng(seed)
+    urows = np.concatenate([np.unique(np.asarray(rows, np.int64)),
+                            np.full(absent, -1)]).astype(np.int32)
+    sums = rng.normal(size=(urows.size, w)).astype(np.float32)
+    return torch.from_numpy(urows).to(gpu), torch.from_numpy(sums).to(gpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w, vocab_local, row_lo", [
+    (9, 300_001, 12_345), (33, 300_001, 12_345), (66, 300_001, 12_345),
+    (9, 1_003, 7), (66, 1_003, 7), (12_289, 1_003, 7), (3, 5, 0), (1, 3, 2),
+])
+def test_kplace_edges_are_bitwise_plain(gpu, w, vocab_local, row_lo):
+    """Odd widths over shards whose size is no multiple of 4 or of a
+    block's run and whose first row is odd: the 16-byte stores meet
+    ragged block edges (a row split between two blocks) and the ragged
+    last floats.  Rows below and above the shard, its first and last
+    rows, and a tail of rows -1; W = 12,289 is past the widest row the
+    kernel's shared-memory tile used to hold."""
+    rng = np.random.default_rng(w * vocab_local)
+    inside = rng.choice(vocab_local, min(vocab_local // 3, 20_000),
+                        replace=False)
+    rows = np.concatenate([
+        rng.choice(row_lo, min(row_lo, 50), replace=False),
+        row_lo + inside, [row_lo, row_lo + vocab_local - 1],
+        row_lo + vocab_local + rng.choice(1000, 20, replace=False)])
+    urows, sums = _kplace_stream(gpu, rows, w, 37, seed=w)
+    before = sparse_apply.kplace_cuda.launches
+    got = sparse_apply.kplace_cuda(urows, sums, row_lo, vocab_local)
+    want = sparse_apply.kplace_plain(urows, sums, row_lo, vocab_local)
+    torch.cuda.synchronize()
+    assert sparse_apply.kplace_cuda.launches == before + 1
+    assert got.shape == (vocab_local, w)
+    assert torch.equal(got, want)
+    assert torch.equal(got[0], sums[np.searchsorted(np.unique(rows), row_lo)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["no_entries", "only_rows_minus_1",
+                                  "all_off_the_shard"])
+def test_kplace_with_nothing_to_place_writes_zeros(gpu, case):
+    """U = 0, a stream of rows -1 alone, and entries all below or above
+    the shard: the delta is all zeros, as the plain version's."""
+    vocab_local, row_lo, w = 70_001, 5_003, 9
+    rows = {"no_entries": [], "only_rows_minus_1": [],
+            "all_off_the_shard": np.r_[0:row_lo:97,
+                                       row_lo + vocab_local:90_000:13]}[case]
+    absent = 4096 if case == "only_rows_minus_1" else 0
+    urows, sums = _kplace_stream(gpu, rows, w, absent, seed=3)
+    got = sparse_apply.kplace_cuda(urows, sums, row_lo, vocab_local)
+    want = sparse_apply.kplace_plain(urows, sums, row_lo, vocab_local)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not bool(got.any())
+
+
+@pytest.mark.gpu
+def test_kplace_at_the_widest_width(gpu):
+    """W = the widest the kernel takes (an int's largest, 8.6 GB a row):
+    one row placed over a one-row shard, split between all the grid's
+    blocks, is bitwise the plain version's."""
+    w = sparse_apply._KPLACE_MAX_WIDTH
+    urows = torch.tensor([3], dtype=torch.int32, device=gpu)
+    sums = torch.randn((1, w), generator=torch.Generator(
+        device=gpu).manual_seed(5), device=gpu)
+    got = sparse_apply.kplace_cuda(urows, sums, 3, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sparse_apply.kplace_plain(urows, sums, 3, 1))
+    del got, sums
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_kplace_replayed_from_a_cuda_graph(gpu):
+    """K-place captured once on a whole slot's buffers and replayed on
+    new entries (a different count each time, rows -1 after them) gives
+    the plain version's delta of those entries."""
+    n, w, vocab_local, row_lo = 5000, 18, 100_003, 501
+    urows = torch.full((n,), -1, dtype=torch.int32, device=gpu)
+    sums = torch.zeros((n, w), device=gpu)
+
+    def fill(seed):
+        rng = np.random.default_rng(seed)
+        rows = np.sort(rng.choice(row_lo + vocab_local + 100,
+                                  int(rng.integers(1, n)), replace=False))
+        urows.fill_(-1)
+        urows[:rows.size] = torch.from_numpy(rows.astype(np.int32)).to(gpu)
+        sums.copy_(torch.from_numpy(
+            rng.normal(size=(n, w)).astype(np.float32)))
+
+    fill(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sparse_apply.kplace_cuda(urows, sums, row_lo, vocab_local)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sparse_apply.kplace_cuda(urows, sums, row_lo, vocab_local)
+    for seed in (1, 2, 3):
+        fill(seed)
+        graph.replay()
+        want = sparse_apply.kplace_plain(urows, sums, row_lo, vocab_local)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n, p, hot", [(79872, 18, 0), (40000, 18, 4000),
                                        (3000, 82, 100), (1, 4, 0)])

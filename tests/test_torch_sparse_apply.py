@@ -276,6 +276,39 @@ def test_k2_wrapper_refuses_what_the_kernel_does_not_take(optimizer,
     assert sparse_apply.k2_apply_cuda.launches == before
 
 
+_KPLACE_ARGS = (torch.tensor([1, 5], dtype=torch.int32), torch.ones((2, 3)),
+                0, 8)
+
+
+@pytest.mark.parametrize("change, err", [
+    ({0: torch.tensor([1, 5])}, TypeError),  # int64 rows
+    ({1: torch.ones((2, 3), dtype=torch.float64)}, TypeError),
+    ({0: torch.tensor([[1, 5]], dtype=torch.int32)}, ValueError),  # not [U]
+    ({1: torch.ones(6)}, ValueError),  # sums not [U, W]
+    ({1: torch.ones((3, 3))}, ValueError),  # sums of another U
+    ({1: torch.ones((2, 0))}, ValueError),  # W = 0
+    ({0: torch.zeros(0, dtype=torch.int32),
+      1: torch.zeros((0, sparse_apply._KPLACE_MAX_WIDTH + 1))},
+     ValueError),  # past the widest row
+    ({2: -1}, ValueError),  # row_lo < 0
+    ({3: 0}, ValueError),  # no rows
+    ({2: 2**31 - 4}, ValueError),  # row_lo + vocab_local past 2^31
+    ({1: torch.ones((3, 2)).t()}, ValueError),  # not contiguous
+    ({0: torch.tensor([1, 3, 5], dtype=torch.int32)[::2]}, ValueError),
+    ({0: torch.tensor([1, 5], dtype=torch.int32, device="meta")},
+     ValueError),  # neither CUDA nor the CPU, nor the sums' device
+])
+def test_kplace_wrapper_refuses_what_the_kernel_does_not_take(change, err):
+    args = [change.get(i, a) for i, a in enumerate(_KPLACE_ARGS)]
+    before = sparse_apply.kplace_cuda.launches
+    with pytest.raises(err):
+        sparse_apply.kplace_cuda(*args)
+    assert sparse_apply.kplace_cuda.launches == before
+    # The same call with the good arguments places the rows.
+    delta = sparse_apply.kplace_cuda(*_KPLACE_ARGS)
+    assert torch.equal(delta[[1, 5]], _KPLACE_ARGS[1])
+
+
 def _k1_order_f32(x, short):
     """float32 sum of one segment's payload ``x [count, W]`` in the K1
     kernel's order: one thread adds the rows in turn when ``count <=
