@@ -324,6 +324,23 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    row back bitwise through ``gather_logical``) and trained 4 steps.
    Each rank's peak device memory counts from before its trainer is
    built (the exact store's draw inside it).
+16b. Autotune phase (path 14, ``ops/autotune.py`` at Criteo-Kaggle
+   width): ``resolve(auto)`` measures ``reference``, ``pallas`` and
+   ``packed`` in the train context at B = 4096 (a CUDA graph of one
+   forward and backward each; the eager times beside) and in the serve
+   context at the max rung for fp32, bf16 and int8 tables: every
+   candidate runs, passes the parity gate and is printed with its times
+   and error, and a second resolve hits the cache with no measurement;
+   a doubled ``packed`` is gated out on the card; five steps (one eager
+   and captured, four replayed) with each pin and with ``auto`` from one
+   seeded table on one set of batches: each bitwise its eager twin,
+   FmScorer and FmGrad once a step under ``pallas`` and never under the
+   other two, the tables within ``rtol=1e-5, atol=1e-6`` of each other,
+   ``auto`` (a cache hit) bitwise its winner; ``python -m
+   fast_tffm_tpu_torch.tools.autotune`` fills the cache beside the model
+   and ``--check`` exits 0; ``serve()`` of an ``auto`` config starts
+   from that file with no measurement (its ``record: autotune`` says
+   ``cache``), and its ``/score_bin`` agrees with ``predict``.
 17. Mesh-modes phase (path 12, the trainer's rank-mesh settings): four
    ranks of a 2 x 2 mesh sharing the card over gloo (one GPU each with
    ``--nccl``), one group of ranks training seven runs in turn on the
@@ -1602,7 +1619,8 @@ def dense_parity(torch, fm, optimizers, dense, cfg, dev_batches,
                 for a, b_ in zip(leaves(0), leaves(1)):
                     b_.copy_(a)
         s_k = dense.dense_step(cfg, models[0], opts[0], b)
-        s_p = dense.dense_step(cfg, models[1], opts[1], b, plain=True)
+        s_p = dense.dense_step(cfg, models[1], opts[1], b, plain=True,
+                               impl="jnp")
         (gw_k, g_k), (gw_p, g_p) = applied[-2:]
         torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
         torch.testing.assert_close(g_k, g_p, **TABLE_TOL)
@@ -2199,7 +2217,8 @@ def orbax_parity(np, torch, fm, sparse, make_batch, parse_lines,
     score_err = 0.0
     for batch in batches:
         s_k = sparse.sparse_step(wcfg, mk, ok, batch)
-        s_p = sparse.sparse_step(wcfg, mp, op, batch, plain=True)
+        s_p = sparse.sparse_step(wcfg, mp, op, batch, plain=True,
+                                 impl="jnp")
         torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
         score_err = max(score_err, float((s_k - s_p).abs().max()))
     torch.cuda.synchronize()
@@ -4304,7 +4323,8 @@ def ffm_phase(np, torch, card: str, gen, rng, kernels: dict, counters: dict,
         paths.append((m, sparse.init_sparse_opt_state(cfg, m), plain))
     score_err = 0.0
     for b in dev_batches:
-        s_k, s_p = (sparse.sparse_step(cfg, m, o, b, plain=pl)
+        s_k, s_p = (sparse.sparse_step(cfg, m, o, b, plain=pl,
+                                       impl="jnp" if pl else "pallas")
                     for m, o, pl in paths)
         torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
         score_err = max(score_err, float((s_k - s_p).abs().max()))
@@ -5537,6 +5557,256 @@ def probe_phase(torch, card: str, gen, table0, hot_ids, hyper, err: dict,
     return record, timing, launches
 
 
+# Autotune phase (path 14): the serve requests of (e), and the steps of
+# (d) (one eager and captured, AUTOTUNE_GRAPHED replayed).
+AUTOTUNE_SERVE_LINES = 1024
+AUTOTUNE_GRAPHED = 4
+
+
+def autotune_phase(np, torch, card: str, tcfg, tmp: str, model_dir: str,
+                   predict_file: str, host_batches, kernels: dict) -> tuple:
+    """Path 14, the interaction autotuner on the card at Criteo-Kaggle
+    width (``ops/autotune.py``).  (a) ``resolve(auto, context="train")``
+    measures ``reference``, ``pallas`` and ``packed`` at B = 4096: every
+    candidate runs and passes the parity gate; each one's eager and
+    graphed times, parity error and the winner printed; a second resolve
+    hits the cache with no new measurement.  (b) The same in the serve
+    context at the max rung for fp32, bf16 and int8 tables.  (c) A
+    ``packed`` candidate that doubles the scores is gated out on the card;
+    a ``pallas`` that doubles them, and one that raises, make the
+    measurement raise with its name (no hand-written kernel is dropped).
+    (d) ``1 + AUTOTUNE_GRAPHED`` steps (``Trainer.dispatch``, K = 1: the
+    first eager and captured, the rest replays) with each pin from one
+    seeded table on one set of batches, graphed and eager: each pin's
+    state bitwise its eager twin's; ``pallas`` launches FmScorer and
+    FmGrad once a step and the others neither; the three tables within
+    ``rtol=1e-5, atol=1e-6`` of each other; an ``auto`` trainer (a cache
+    hit of (a)) bitwise the run of its winner.  (e) ``python -m
+    fast_tffm_tpu_torch.tools.autotune <cfg>`` fills the cache beside the
+    model and ``--check`` exits 0; ``serve()`` with ``interaction_impl =
+    auto`` and an emptied in-process cache starts from that file with no
+    measurement (its record says ``cache``), and its ``/score_bin`` of the
+    predict file's lines agrees with ``predict`` (pinned to the served
+    impl) within ``SERVE_TOL`` and the file's six printed decimals.
+    Returns ``(record, launches of (d) and (e))``."""
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.ops import autotune
+    from fast_tffm_tpu_torch.serve import wire
+    from fast_tffm_tpu_torch.serve.server import serve
+    from fast_tffm_tpu_torch.train import sparse
+    from fast_tffm_tpu_torch.train.loop import Trainer, predict
+
+    rec = {"card": card}
+    dev = torch.device("cuda")
+    every = ("reference", "pallas", "packed")
+    # A fresh model directory: every trainer of (d) starts from the
+    # same seeded table, and none of them saves.
+    acfg = dataclasses.replace(
+        tcfg, interaction_impl="auto", validation_files=[],
+        model_file=os.path.join(tmp, "autotune_model"))
+    checks = os.path.join(tmp, "autotune_checks.json")
+
+    def measured(what: str, cfg, context: str, batch) -> dict:
+        """Resolve ``auto`` (it must measure every candidate and gate none
+        out), then again (a cache hit, no new measurement)."""
+        d = autotune.resolve(cfg, context=context, batch=batch,
+                             cache_path=checks, device=dev)
+        check(d.source == "measured" and tuple(d.candidates) == every,
+              f"{what}: {d.source} over {d.candidates}")
+        check(set(d.times_ms) == set(every),
+              f"{what}: a candidate was excluded: times {d.times_ms}, "
+              f"parity {d.parity_err}")
+        for name in every:
+            err = d.parity_err[name]
+            check(math.isfinite(err) and err <= autotune.PARITY_TOL,
+                  f"{what}: {name} parity error {err}")
+        out = {"winner": d.impl, "times_ms": d.times_ms,
+               "parity_err": d.parity_err, "measure_s": d.measure_s}
+        if d.eager_ms:
+            out["eager_ms"] = d.eager_ms
+        n = autotune.measurement_count()
+        again = autotune.resolve(cfg, context=context, batch=batch,
+                                 cache_path=checks, device=dev)
+        check(again.source == "cache" and again.impl == d.impl
+              and autotune.measurement_count() == n,
+              f"{what}: the second resolve was {again.source}")
+        print(f"autotune {what} ({card}): " + json.dumps(out), flush=True)
+        return out
+
+    # (a) train context, (b) serve context at the max rung.
+    t0 = time.perf_counter()
+    rec["train"] = measured("train", acfg, "train", None)
+    train_winner = rec["train"]["winner"]
+    rung = max(acfg.serve_ladder)
+    rec["serve"] = {
+        dtype: measured(f"serve {dtype} at {rung}",
+                        dataclasses.replace(acfg, serve_table_dtype=dtype),
+                        "serve", rung)
+        for dtype in ("fp32", "bf16", "int8")}
+    # (c) a wrong candidate on the card.
+    make, args = autotune._candidate_fns(acfg, "train", acfg.batch_size,
+                                         "fp32", dev)
+
+    def wrong(user_impl):
+        fn = make(user_impl)
+        if user_impl != "packed":
+            return fn
+        return lambda *a: tuple(2.0 * t for t in fn(*a))
+
+    # The measurement itself: (a)'s decision for this key is cached.
+    winner, times, parity, _ = autotune._measure(
+        acfg, "train", acfg.batch_size, "fp32", every, dev,
+        candidate_fns=(wrong, args))
+    check(winner in ("reference", "pallas")
+          and parity["packed"] > autotune.PARITY_TOL
+          and "packed" not in times,
+          f"the doubled packed candidate was not gated: {winner} "
+          f"{times} {parity}")
+    rec["wrong_candidate_parity_err"] = parity["packed"]
+
+    def broken_pallas(how):
+        def make_broken(user_impl):
+            fn = make(user_impl)
+            if user_impl != "pallas":
+                return fn
+            if how == "wrong":
+                return lambda *a: tuple(2.0 * t for t in fn(*a))
+
+            def f(*a):
+                raise RuntimeError("injected launch failure")
+            return f
+        return make_broken
+
+    for how in ("wrong", "raises"):
+        try:
+            autotune._measure(acfg, "train", acfg.batch_size, "fp32", every,
+                              dev, candidate_fns=(broken_pallas(how), args))
+        except RuntimeError as e:
+            check("candidate pallas" in str(e),
+                  f"a {how} pallas raised without its name: {e}")
+        else:
+            check(False, f"a {how} pallas candidate was dropped, not raised")
+    rec["kernel_candidate_failures_raise"] = True
+    rec["measure_wall_s"] = time.perf_counter() - t0
+
+    # (d) graphed steps with each pin, and auto.
+    zero_launches(kernels)
+    hb = host_batches[:1 + AUTOTUNE_GRAPHED]
+    runs, launches_by = {}, {}
+    for impl in every + ("auto",):
+        for graphs in (True, False):
+            cfg = dataclasses.replace(acfg, interaction_impl=impl)
+            before = read_launches(kernels)
+            trainer = Trainer(cfg)
+            if not graphs:
+                trainer.graph = None
+            for sb in DevicePrefetcher(hb, 1, dev, cfg.vocabulary_size):
+                trainer.dispatch(sb)
+            torch.cuda.synchronize()
+            after = read_launches(kernels)
+            n = {k: after[k] - before[k] for k in after}
+            check(trainer.graph_dispatches == (AUTOTUNE_GRAPHED if graphs
+                                               else 0),
+                  f"{impl}: {trainer.graph_dispatches} graph dispatches")
+            runs[(impl, graphs)] = [t.detach().clone() for t in
+                                    trained_state(sparse, trainer)]
+            launches_by[(impl, graphs)] = n
+            if impl == "auto":
+                check(trainer._autotune.source == "cache"
+                      and trainer.kernel_impl == train_winner,
+                      f"auto trainer: {trainer._autotune.source}, "
+                      f"{trainer.kernel_impl} (winner {train_winner})")
+            del trainer
+    steps = len(hb)
+    for impl in every + ("auto",):
+        check(all(torch.equal(a, b) for a, b in zip(runs[(impl, True)],
+                                                    runs[(impl, False)])),
+              f"{impl}: the graphed run is not bitwise its eager twin")
+        want = steps if (impl if impl != "auto" else train_winner) == (
+            "pallas") else 0
+        for graphs in (True, False):
+            n = launches_by[(impl, graphs)]
+            check(n["fm_scores"] == n["fm_grad"] == want
+                  and n["k1_dedup"] == n["k2_apply"] == steps,
+                  f"{impl} (graphed {graphs}): launches {n}")
+    for a in ("reference", "packed"):
+        for x, y in zip(runs[(a, True)][:3], runs[("pallas", True)][:3]):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+    check(all(torch.equal(a, b) for a, b in zip(
+        runs[("auto", True)], runs[(train_winner, True)])),
+        "the auto run is not bitwise the run of its winner")
+    rec["graphed_steps"] = {"steps": steps, "replays": AUTOTUNE_GRAPHED,
+                            "launches": {f"{i}_{'graph' if g else 'eager'}":
+                                         launches_by[(i, g)]
+                                         for i, g in launches_by}}
+    del runs
+
+    # (e) the tool, then a served auto config from its file.
+    cfg_path = write_fleet_cfg(tmp, "autotune.cfg", model_dir)
+    tool = [sys.executable, "-m", "fast_tffm_tpu_torch.tools.autotune"]
+    cache = os.path.join(os.path.dirname(model_dir), "autotune_cache.json")
+    for extra in ([], ["--check"]):
+        t0 = time.perf_counter()
+        r = subprocess.run(tool + [cfg_path] + extra, cwd=REPO, timeout=600,
+                           capture_output=True, text=True)
+        check(r.returncode == 0, f"tools.autotune {extra} exited "
+              f"{r.returncode}: {r.stdout[-1000:]} {r.stderr[-2000:]}")
+        rec["tool" + "_check" * bool(extra) + "_s"] = (
+            time.perf_counter() - t0)
+        rec["tool" + "_check" * bool(extra) + "_stdout"] = (
+            r.stdout.strip().splitlines())
+    entries = autotune.load_cache(cache)
+    check(sorted(k.split("|")[0] for k in entries) == ["serve", "train"],
+          f"the tool's cache holds {list(entries)}")
+    stream = os.path.join(tmp, "autotune_serve.jsonl")
+    scfg = load_config(cfg_path, {
+        "interaction_impl": "auto", "serve_port": 0,
+        "serve_poll_secs": 0.0, "metrics_file": stream})
+    autotune._MEM_CACHE.clear()
+    n = autotune.measurement_count()
+    handle = serve(scfg, port=0)
+    try:
+        check(autotune.measurement_count() == n,
+              "the served auto config measured")
+        served_impl = handle.scorer.kernel_impl
+        with open(predict_file) as f:
+            lines = [next(f) for _ in range(AUTOTUNE_SERVE_LINES)]
+        from fast_tffm_tpu_torch.data.libsvm import make_batch, parse_lines
+
+        b = make_batch(parse_lines(lines, scfg.vocabulary_size,
+                                   scfg.hash_feature_id),
+                       AUTOTUNE_SERVE_LINES, scfg.max_features)
+        conn = http.client.HTTPConnection("127.0.0.1", handle.port,
+                                          timeout=120)
+        got = wire.decode_bin_response(post(
+            conn, "/score_bin", wire.encode_bin_request(b.ids, b.vals)))
+        conn.close()
+    finally:
+        handle.close()
+    records = [r for r in jsonl(stream) if r.get("record") == "autotune"]
+    check(len(records) == 1 and records[0]["source"] == "cache"
+          and records[0]["context"] == "serve"
+          and records[0]["impl"] == served_impl,
+          f"the served auto config's autotune records: {records}")
+    pcfg = dataclasses.replace(
+        tcfg, interaction_impl=served_impl,
+        score_path=os.path.join(tmp, "autotune_scores.txt"))
+    predict(pcfg)
+    with open(pcfg.score_path) as f:
+        want = np.array([float(next(f)) for _ in range(AUTOTUNE_SERVE_LINES)])
+    diff = float(np.abs(got - want).max())
+    # SERVE_TOL, plus half a unit of the file's sixth decimal.
+    check(np.allclose(got, want, rtol=SERVE_TOL["rtol"],
+                      atol=SERVE_TOL["atol"] + 5e-7),
+          f"/score_bin differs from predict by {diff}")
+    rec["served"] = {"impl": served_impl, "source": records[0]["source"],
+                     "max_abs_diff_vs_predict": diff}
+    launches = read_launches(kernels)
+    rec["launches"] = launches
+    return rec, launches
+
+
 def nccl_main() -> int:
     """``--nccl``: the sharded phase (its three 2 x 2 runs), path 11 as
     a ``1 x 4`` fleet against the dense ``1 x 4`` mesh and path 12's
@@ -6330,7 +6600,8 @@ def main() -> int:
         score_err = 0.0
         for b in dev_batches:
             s_k = sparse.sparse_step(pcfg, mk, ok, b)
-            s_p = sparse.sparse_step(pcfg, mp, op, b, plain=True)
+            s_p = sparse.sparse_step(pcfg, mp, op, b, plain=True,
+                                     impl="jnp")
             torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
             score_err = max(score_err, float((s_k - s_p).abs().max()))
         torch.cuda.synchronize()
@@ -6674,7 +6945,22 @@ def main() -> int:
           "SERVE_TOL of the dense params.npz, warm-starts one device with "
           "every saved row bitwise and trains on", flush=True)
     phase_end("fleet")
-    tmp_ctx.cleanup()  # the main run's files, which paths 8-11 read
+
+    # -- autotune phase (path 14): the interaction choice on the card ---
+    autotune_rec, autotune_launches = autotune_phase(
+        np, torch, card, tcfg, tmp, model_dir, predict_file,
+        batches + batches[:2], kernels)
+    print(json.dumps({"autotune": autotune_rec}), flush=True)
+    print("autotune check: reference, pallas and packed each measured and "
+          "parity-gated in the train context and the serve context (fp32, "
+          "bf16, int8), a cache hit after each; a doubled candidate gated "
+          "out; graphed steps of each pin bitwise their eager twins, "
+          "FmScorer and FmGrad only under pallas, the tables within "
+          "1e-5 of each other, auto bitwise its winner; the tool fills the "
+          "cache, --check passes, a served auto config starts from the "
+          "file and agrees with predict", flush=True)
+    phase_end("autotune")
+    tmp_ctx.cleanup()  # the main run's files, which paths 8-11 and 14 read
 
     # -- mesh_modes phase (path 12): FFM, bf16, dense optax on a mesh ---
     mesh_rec, mesh_launches = mesh_modes_phase(np, torch, card, rng,
@@ -6744,6 +7030,10 @@ def main() -> int:
     # shapes on their own.
     for name, n in mesh_launches.items():
         launches[name] = launches.get(name, 0) + n
+    # Path 14: the pinned and auto graphed steps of the autotune phase,
+    # its served requests and predict.
+    for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
+        launches[name] += autotune_launches[name]
     sources = {
         "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
         "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),

@@ -237,8 +237,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument(
         "--interaction_impl", default=None,
         choices=["auto", "reference", "pallas", "packed"],
-        help="the reference's interaction path choice (accepted; the "
-             "port always runs its CUDA kernels)",
+        help="interaction path for the FM hot loop: 'auto' measures "
+             "the candidates at this run's shapes and promotes the "
+             "fastest that matches reference (decision cached in "
+             "autotune_cache.json); a named impl pins it with no "
+             "measurement ('pallas': the FmScorer/FmGrad kernels)",
     )
     p.add_argument(
         "--compile_cache_dir", default=None, metavar="DIR",

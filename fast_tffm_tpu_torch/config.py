@@ -4,9 +4,10 @@ The PyTorch port's own copy of ``fast_tffm_tpu/config.py``: the same
 ``FmConfig`` fields, defaults, validation and INI key map, so every
 ``.cfg`` file parses to the same values in both packages, and
 ``alert_rules`` is parsed at construction with the reference's refusals
-(``obs/alerts.py``, the port's own copy).  The ``compute_jnp_dtype`` and
-``interaction_resolved`` properties are absent (the port has one
-interaction path: the CUDA kernel on the GPU).
+(``obs/alerts.py``, the port's own copy).  ``interaction_resolved`` is
+the reference's property: the ``ops/interaction.py`` dispatch name the
+step and the scorer run, or ``"auto"`` for ``ops/autotune.py`` to
+resolve.  The ``compute_jnp_dtype`` property is absent (a JAX dtype).
 """
 
 from __future__ import annotations
@@ -914,6 +915,23 @@ class FmConfig:
         """Width of one table row: 1 linear weight + factor vector(s)."""
         k = self.factor_num
         return 1 + (k * self.field_num if self.field_num else k)
+
+    @property
+    def interaction_resolved(self) -> str:
+        """The ops.interaction dispatch name ("jnp" | "pallas" | "flat")
+        the step math should use — or "auto", which callers resolve
+        through ops.autotune.resolve() before building the step.
+        ``interaction_impl`` (the autotuner surface) supersedes the
+        legacy ``interaction``/``use_pallas`` derivation."""
+        if self.interaction_impl:  # validated in __post_init__
+            if self.interaction_impl == "auto":
+                return "auto"
+            return {
+                "reference": "jnp", "pallas": "pallas", "packed": "flat",
+            }[self.interaction_impl]
+        if self.interaction:  # validated in __post_init__
+            return self.interaction
+        return "pallas" if self.use_pallas else "jnp"
 
 
 # INI key -> (dataclass field, parser).  Keys match the reference cfg surface

@@ -104,32 +104,37 @@ def scores_from_rows(w0: torch.Tensor, rows: torch.Tensor,
                      vals: torch.Tensor,
                      fields: Optional[torch.Tensor] = None, *,
                      factor_num: int = 0,
-                     field_num: int = 0) -> torch.Tensor:
+                     field_num: int = 0, impl: str = "pallas") -> torch.Tensor:
     """Scores ``[B]`` f32 from gathered rows ``[B, F, D]``: the FM
-    interaction (the CUDA kernel on the GPU) plus ``w0``, or with
-    ``field_num > 0`` :func:`ffm_scores_from_rows` on ``fields``."""
+    interaction through the formulation ``impl`` names
+    (``ops.interaction.forward``: ``"pallas"``, the FmScorer kernel on the
+    GPU; ``"jnp"``, its plain version; ``"flat"``) plus ``w0``, or with
+    ``field_num > 0`` :func:`ffm_scores_from_rows` on ``fields``, which
+    ignores ``impl`` (the reference's)."""
     if field_num:
         if fields is None:
             raise ValueError("field-aware FM scores need fields")
         return ffm_scores_from_rows(w0, rows.float(), vals.float(), fields,
                                     factor_num, field_num)
     scores, _ = interaction.forward(rows.float().contiguous(),
-                                    vals.float().contiguous())
+                                    vals.float().contiguous(), impl)
     return w0.float() + scores
 
 
 def fm_scores(model: FmModel, ids: torch.Tensor, vals: torch.Tensor,
               fields: Optional[torch.Tensor] = None, *,
-              factor_num: int = 0, field_num: int = 0) -> torch.Tensor:
+              factor_num: int = 0, field_num: int = 0,
+              impl: str = "pallas") -> torch.Tensor:
     """Gather + score: ``ids [B, F]`` int, ``vals [B, F]`` (and
-    ``fields [B, F]`` with ``field_num > 0``) -> ``[B]``.  Ids must lie
-    in ``[0, vocab)`` (on the GPU an id outside it is a device-side
-    assert, not a clamp)."""
+    ``fields [B, F]`` with ``field_num > 0``) -> ``[B]``, the interaction
+    through ``impl`` (:func:`scores_from_rows`).  Ids must lie in ``[0,
+    vocab)`` (on the GPU an id outside it is a device-side assert, not a
+    clamp)."""
     d = model.table.shape[1]
     rows = model.table.index_select(0, ids.reshape(-1))
     return scores_from_rows(model.w0, rows.view(*ids.shape, d), vals,
                             fields, factor_num=factor_num,
-                            field_num=field_num)
+                            field_num=field_num, impl=impl)
 
 
 def fm_scores_dequant(w0: torch.Tensor, codes: torch.Tensor,
@@ -137,21 +142,22 @@ def fm_scores_dequant(w0: torch.Tensor, codes: torch.Tensor,
                       vals: torch.Tensor,
                       fields: Optional[torch.Tensor] = None, *,
                       factor_num: int = 0,
-                      field_num: int = 0) -> torch.Tensor:
+                      field_num: int = 0,
+                      impl: str = "pallas") -> torch.Tensor:
     """Scores over an int8-quantized table (``codes`` int8 ``[V, D]``,
     ``scales`` f32 ``[ceil(V / chunk)]``): gather the codes and each
     row's scale (``scales[ids // chunk]``, or ``scales[ids]`` for
     ``chunk <= 1``), widen them (``quant.dequant_gathered``), then
-    :func:`scores_from_rows` (the FmScorer kernel on the GPU, or FFM's
-    einsums).  The same math as :func:`fm_scores` on the dequantized
-    table."""
+    :func:`scores_from_rows` through ``impl`` (the FmScorer kernel on the
+    GPU by default, or FFM's einsums).  The same math as
+    :func:`fm_scores` on the dequantized table."""
     flat = ids.reshape(-1)
     code_rows = codes.index_select(0, flat)
     scale_rows = scales.index_select(0, flat // chunk if chunk > 1 else flat)
     rows = quant.dequant_gathered(code_rows, scale_rows)
     return scores_from_rows(w0, rows.view(*ids.shape, codes.shape[1]),
                             vals, fields, factor_num=factor_num,
-                            field_num=field_num)
+                            field_num=field_num, impl=impl)
 
 
 def example_losses(scores: torch.Tensor, labels: torch.Tensor,

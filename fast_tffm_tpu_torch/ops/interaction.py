@@ -1,14 +1,32 @@
 """FM and field-aware FM interaction ops with closed-form backwards (the
-counterpart of ``fast_tffm_tpu/ops/interaction.py``: ``_forward`` and
-the ``jax.custom_vjp`` of ``fm_interaction``; ``_ffm_parts`` and the
-``jax.custom_vjp`` of ``ffm_interaction``).
+counterpart of ``fast_tffm_tpu/ops/interaction.py``: ``_forward``, the
+three formulations it dispatches to and the ``jax.custom_vjp`` of
+``fm_interaction``; ``_ffm_parts`` and the ``jax.custom_vjp`` of
+``ffm_interaction``).
 
-The port has no implementation choice on the main path: a CUDA tensor
-always goes to the hand-written kernels (which raise on anything they do
-not take), a CPU tensor to the plain PyTorch versions, both through the
-kernels' wrappers.  ``plain=True`` runs the plain versions on any
-device; only the tests and ``chip_smoke.py`` ask for it, to hold the
-kernels against them on the card.
+The FM interaction has the reference's three dispatch names
+(:func:`impl_name`; ``ops/autotune.py`` chooses among them, and so do
+the ``interaction`` / ``use_pallas`` knobs):
+
+- ``"pallas"``: the hand-written FmScorer / FmGrad kernels through their
+  wrappers (``ops/fm_kernels.py``).  A CUDA tensor always launches the
+  kernel (which raises on anything it does not take), a CPU tensor takes
+  the kernel's plain version.
+- ``"jnp"``: the reference's ``_scores_jnp`` / ``_grads_jnp``, which are
+  the kernels' plain versions (``fm_kernels.fm_scores_plain`` /
+  ``fm_grad_plain``), on any device.  The tests and ``chip_smoke.py``
+  hold the kernels against it.
+- ``"flat"``: the reference's ``_scores_flat`` / ``_grads_flat``
+  (:func:`scores_flat`, :func:`grads_flat`): the rows as ``[B, F*D]``,
+  the feature sums two f32 products with a one-hot ``[F*D, D]`` matrix
+  (``torch.matmul``; the reference computes them with ``jax.lax.dot``
+  at ``Precision.HIGHEST`` outside any Pallas kernel).  They need TF32
+  off, PyTorch's default for a matrix product, which the port never
+  turns on.
+
+All three backwards are the closed forms, not autograd through the
+forward; bf16 rows are widened to f32 in all three, and ``drows`` comes
+back in the rows' type.
 
 Field-aware FM has no kernel of its own: the reference computes it with
 einsums outside any Pallas kernel, and so does the port, with
@@ -27,48 +45,111 @@ import torch
 from fast_tffm_tpu_torch.ops import fm_kernels
 
 __all__ = ["FfmInteraction", "FmInteraction", "ffm_forward",
-           "ffm_interaction", "fm_interaction", "forward"]
+           "ffm_interaction", "fm_interaction", "forward", "grads_flat",
+           "impl_name", "scores_flat"]
+
+def impl_name(impl) -> str:
+    """The dispatch name of ``impl``: ``True`` is ``"pallas"`` and
+    ``False`` ``"jnp"`` (the legacy ``use_pallas`` surface), a name is
+    itself; anything else raises (the reference's ``_impl_name``)."""
+    if impl is True:
+        return "pallas"
+    if impl is False:
+        return "jnp"
+    if impl in _FORWARD:
+        return impl
+    raise ValueError(f"unknown interaction impl {impl!r}")
 
 
-def forward(rows: torch.Tensor, vals: torch.Tensor):
+def _m_matrix(fd: int, d: int, device) -> torch.Tensor:
+    """``M[c, c % d] = 1``, f32 ``[fd, d]``: sums row slot ``j`` across
+    the features in one product."""
+    c = torch.arange(fd, device=device)
+    j = torch.arange(d, device=device)
+    return (c[:, None] % d == j[None, :]).float()
+
+
+def scores_flat(rows: torch.Tensor, vals: torch.Tensor):
+    """The flat formulation's ``(scores [B], s1 [B, D-1])``, f32: the
+    reference's ``_scores_flat`` (``xe`` repeats each value over its
+    row's ``D`` slots; ``s`` and ``s2`` are the feature sums of ``y`` and
+    ``y * y`` as products with :func:`_m_matrix`)."""
+    b, f, d = rows.shape
+    rows2 = rows.reshape(b, f * d).float()
+    xe = vals.float().repeat_interleave(d, dim=1)  # xe[b, f*d+j] = x_f
+    y = rows2 * xe
+    m = _m_matrix(f * d, d, rows.device)
+    s = torch.matmul(y, m)
+    s2 = torch.matmul(y * y, m)
+    s1 = s[:, 1:]
+    inter = 0.5 * (s1 * s1 - s2[:, 1:]).sum(dim=-1)
+    return s[:, 0] + inter, s1.contiguous()
+
+
+def grads_flat(rows: torch.Tensor, vals: torch.Tensor, s1: torch.Tensor,
+               dscores: torch.Tensor) -> torch.Tensor:
+    """The flat formulation's closed-form ``drows [B, F, D]`` in the
+    rows' type: the reference's ``_grads_flat``, ``g·xe·(s1e - y·maskv)``
+    with ``s1e`` the row ``[1, s1]`` tiled over the features and
+    ``maskv`` zero on the linear weight's slot."""
+    in_dtype = rows.dtype
+    b, f, d = rows.shape
+    rows2 = rows.reshape(b, f * d).float()
+    xe = vals.float().repeat_interleave(d, dim=1)
+    y = rows2 * xe
+    ones = torch.ones((b, 1), dtype=torch.float32, device=rows.device)
+    s1e = torch.cat([ones, s1], dim=1).repeat(1, f)
+    c = torch.arange(f * d, device=rows.device)
+    maskv = (c % d != 0).float()  # kills the w column in y
+    drows2 = (dscores[:, None] * xe) * (s1e - y * maskv)
+    return drows2.reshape(b, f, d).to(in_dtype)
+
+
+_FORWARD = {"pallas": fm_kernels.fm_scores_cuda,
+            "jnp": fm_kernels.fm_scores_plain, "flat": scores_flat}
+_BACKWARD = {"pallas": fm_kernels.fm_grad_cuda,
+             "jnp": fm_kernels.fm_grad_plain, "flat": grads_flat}
+
+
+def forward(rows: torch.Tensor, vals: torch.Tensor, impl="pallas"):
     """``(scores [B], s1 [B, D-1])`` f32 from gathered rows
-    ``[B, F, D]`` and values ``[B, F]`` (scores without w0)."""
-    return fm_kernels.fm_scores_cuda(rows, vals)
+    ``[B, F, D]`` and values ``[B, F]`` (scores without w0), through
+    the formulation ``impl`` names (:func:`impl_name`)."""
+    return _FORWARD[impl_name(impl)](rows, vals)
 
 
 class FmInteraction(torch.autograd.Function):
     """Scores ``[B]`` (without w0), differentiable with respect to
     ``rows`` only: feature values are data.  The forward saves
-    ``(rows, vals, s1)``; the backward is the closed-form FmGrad, whose
-    ``drows`` has the rows' type (bf16 in the bf16-input mode, as the
-    reference's cotangent matches its primal)."""
+    ``(rows, vals, s1)``; the backward is the closed form of the same
+    ``impl`` (FmGrad for ``"pallas"``), whose ``drows`` has the rows'
+    type (bf16 in the bf16-input mode, as the reference's cotangent
+    matches its primal)."""
 
     @staticmethod
-    def forward(ctx, rows, vals, plain=False):
-        if plain:
-            scores, s1 = fm_kernels.fm_scores_plain(rows, vals)
-        else:
-            scores, s1 = fm_kernels.fm_scores_cuda(rows, vals)
+    def forward(ctx, rows, vals, impl="pallas"):
+        impl = impl_name(impl)
+        scores, s1 = _FORWARD[impl](rows, vals)
         ctx.save_for_backward(rows, vals, s1)
-        ctx.plain = plain
+        ctx.impl = impl
         return scores
 
     @staticmethod
     def backward(ctx, dscores):
         rows, vals, s1 = ctx.saved_tensors
-        grad = fm_kernels.fm_grad_plain if ctx.plain else fm_kernels.fm_grad_cuda
-        return grad(rows, vals, s1, dscores.contiguous()), None, None
+        return (_BACKWARD[ctx.impl](rows, vals, s1, dscores.contiguous()),
+                None, None)
 
 
 def fm_interaction(rows: torch.Tensor, vals: torch.Tensor,
-                   plain: bool = False) -> torch.Tensor:
+                   impl="pallas") -> torch.Tensor:
     """Per-example f32 FM scores (without w0) from gathered rows
     ``[B, F, D]`` and values ``[B, F]``, through :class:`FmInteraction`.
     The values take the rows' type: float32 rows run the kernels' f32
     mode, bfloat16 rows (``compute_dtype = bfloat16``) their bf16-input
     mode."""
     return FmInteraction.apply(rows.contiguous(),
-                               vals.to(rows.dtype).contiguous(), plain)
+                               vals.to(rows.dtype).contiguous(), impl)
 
 
 # ---------------------------------------------------- field-aware FM (FFM)

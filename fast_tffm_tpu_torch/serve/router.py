@@ -111,6 +111,11 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 # pre-allocating ports, so there is no bind race.
 _PORT_RE = re.compile(r"serving on [^\s:]+:(\d+)")
 
+# Longest wait for a replica whose stdout ended without a port to be
+# reaped, so that its exit code can be reported (the health loop's
+# respawn check waits no longer than this either).
+_EXIT_WAIT_S = 5.0
+
 # Consecutive /healthz failures before the health loop evicts (proxy
 # failures evict immediately — they already cost a request a retry).
 _FAIL_EVICT = 2
@@ -120,7 +125,9 @@ _FAIL_EVICT = 2
 _SAMPLE_BODY_MAX = 256 << 10
 
 # Router settings whose non-default value the port does not act on:
-# the XLA compile cache has no counterpart (none changes a score).
+# the XLA compile cache has no counterpart (none changes a score); the
+# replicas, which get ``compile_cache_dir`` passed through, read and
+# write the interaction autotuner's ``autotune_cache.json`` there.
 _INERT_KNOBS = ("compile_cache_dir",)
 
 
@@ -312,6 +319,21 @@ def _replica_command(cfg: FmConfig, cfg_path: str, index: int,
     return cmd + _passthrough_flags(overrides)
 
 
+def _exit_code(proc, wait_s: float) -> Optional[int]:
+    """The exit code of a replica whose stdout ended without a port.  A
+    child's stdout closes before the kernel lets its parent reap it, so
+    ``poll()`` at that EOF can still say None: wait for the process, at
+    most ``min(wait_s, _EXIT_WAIT_S)`` seconds.  None when it is still
+    running after that."""
+    code = proc.poll()
+    if code is None:
+        try:
+            code = proc.wait(min(wait_s, _EXIT_WAIT_S))
+        except subprocess.TimeoutExpired:
+            pass
+    return code
+
+
 class ReplicaManager:
     """Spawn and own ``cfg.serve_replicas`` shared-nothing replica
     serve subprocesses.
@@ -351,10 +373,11 @@ class ReplicaManager:
             for rp in self._procs:
                 rp.ready.wait(max(0.0, deadline - time.time()))
                 if rp.port is None:
+                    left = max(0.0, deadline - time.time())
                     raise RuntimeError(
                         f"replica {rp.index} did not announce a "
                         f"serving port within {startup_timeout_s:.0f}s "
-                        f"(exit code {rp.proc.poll()})"
+                        f"(exit code {_exit_code(rp.proc, left)})"
                     )
                 self.replicas.append(
                     Replica(rp.index, "127.0.0.1", rp.port, proc=rp.proc)
@@ -907,7 +930,7 @@ class ServeRouter:
             log.warning(
                 "respawned replica %d died before announcing a port "
                 "(exit %s); next attempt in %.0fs",
-                rep.index, pending.proc.poll(),
+                rep.index, _exit_code(pending.proc, _EXIT_WAIT_S),
                 max(0.0, rep.next_respawn_t - time.monotonic()),
             )
             return
@@ -1440,7 +1463,8 @@ def start_fleet(cfg: FmConfig, cfg_path: str,
              if getattr(cfg, k) != getattr(defaults, k)]
     if inert:
         log.warning(
-            "the PyTorch port's router does not act on %s; scores are "
+            "the PyTorch port's router does not act on %s (its replicas "
+            "keep the autotuner's autotune_cache.json there); scores are "
             "unaffected", ", ".join(inert),
         )
     writer = JsonlWriter(cfg.metrics_file) if cfg.metrics_file else None

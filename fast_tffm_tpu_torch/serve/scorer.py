@@ -45,8 +45,14 @@ anchored to the last table that was not on trial, as the reference's.
 startup.  :func:`load_model` reads every checkpoint format, the JAX
 package's Orbax directories included.
 
-Not in the port yet: the reference's autotune hook (ROADMAP.md, port
-queue item 4).
+The interaction each rung runs is the reference's autotune hook: with
+``interaction_impl`` set, the scorer resolves it at the max rung and the
+table's dtype (``ops/autotune.py``, ``context="serve"``; ``auto``
+measures on the scorer's device or reads the shared cache) and routes
+the fixed-shape, quantized and overlay scores through the decision.
+With ``interaction_impl = ""`` the port keeps its FmScorer kernel
+(``kernel_impl = "pallas"``), where the reference's default is its
+``jnp`` math.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from fast_tffm_tpu_torch.models.fm import (
     FmModel, fm_scores_dequant, scores_from_rows,
 )
 from fast_tffm_tpu_torch.obs.telemetry import NULL
+from fast_tffm_tpu_torch.ops import autotune as autotune_lib
 from fast_tffm_tpu_torch.ops import quant
 from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.train import checkpoint
@@ -140,7 +147,8 @@ class _LadderScorer:
 
     def __init__(self, cfg: FmConfig,
                  device: Optional[Union[str, torch.device]] = None,
-                 telemetry=None, step: int = 0, extra_rungs=()):
+                 telemetry=None, step: int = 0, extra_rungs=(),
+                 writer=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.ladder = tuple(sorted(set(cfg.serve_ladder)
@@ -161,6 +169,18 @@ class _LadderScorer:
         # (model, step) a keep_prev swap replaced: the rollback window,
         # open until promote() or rollback().
         self._prev = None
+        # The interaction every rung runs (ops/autotune.py): with
+        # interaction_impl set, resolved at the max rung's shape and the
+        # table's dtype (a `record: autotune` to `writer`); unset, the
+        # FmScorer kernel.
+        self._impl = "pallas"
+        self.kernel_impl = "pallas"
+        if cfg.interaction_impl:
+            d = autotune_lib.resolve(cfg, context="serve",
+                                     batch=self.max_rung, writer=writer,
+                                     device=self.device)
+            self.kernel_impl = d.impl
+            self._impl = d.interaction
 
     # -- rung helpers --------------------------------------------------
 
@@ -280,7 +300,7 @@ class _LadderScorer:
         return scores_from_rows(
             w0, rows.view(rung.b, self._feat, -1), rung.vals_dev,
             rung.fields_dev, factor_num=self._factor_num,
-            field_num=self._field_num)
+            field_num=self._field_num, impl=self._impl)
 
     def _scores(self, model, rung: _Rung) -> torch.Tensor:
         raise NotImplementedError
@@ -338,9 +358,10 @@ class FixedShapeScorer(_LadderScorer):
 
     def __init__(self, cfg: FmConfig, model,
                  device: Optional[Union[str, torch.device]] = None,
-                 telemetry=None, step: int = 0, extra_rungs=()):
+                 telemetry=None, step: int = 0, extra_rungs=(),
+                 writer=None):
         super().__init__(cfg, device=device, telemetry=telemetry,
-                         step=step, extra_rungs=extra_rungs)
+                         step=step, extra_rungs=extra_rungs, writer=writer)
         self.table_dtype = quant.validate_dtype(
             cfg.serve_table_dtype, "serve_table_dtype")
         self._chunk = cfg.quant_chunk
@@ -473,7 +494,8 @@ class FixedShapeScorer(_LadderScorer):
             return fm_scores_dequant(
                 model.w0, model.codes, model.scales, self._chunk,
                 rung.ids_dev, rung.vals_dev, rung.fields_dev,
-                factor_num=self._factor_num, field_num=self._field_num)
+                factor_num=self._factor_num, field_num=self._field_num,
+                impl=self._impl)
         w0, table = model
         # A bf16 table is gathered compact and widened before the f32
         # FmScorer (a no-op for f32).
@@ -497,9 +519,10 @@ class OverlayScorer(_LadderScorer):
 
     def __init__(self, cfg: FmConfig, w0: float, store,
                  device: Optional[Union[str, torch.device]] = None,
-                 telemetry=None, step: int = 0, extra_rungs=()):
+                 telemetry=None, step: int = 0, extra_rungs=(),
+                 writer=None):
         super().__init__(cfg, device=device, telemetry=telemetry,
-                         step=step, extra_rungs=extra_rungs)
+                         step=step, extra_rungs=extra_rungs, writer=writer)
         self._dim = cfg.embedding_dim
         self._t_gather = self._tel.timer("serve.overlay_gather")
         self._staging: dict = {}  # (rung, bucket) -> (host, numpy, device)
@@ -652,17 +675,19 @@ def load_model(cfg: FmConfig):
 
 def make_scorer(cfg: FmConfig,
                 device: Optional[Union[str, torch.device]] = None,
-                telemetry=None, extra_rungs=()):
+                telemetry=None, extra_rungs=(), writer=None):
     """Build the scorer for whatever ``cfg.model_file`` holds: an
     :class:`OverlayScorer` for a tiered overlay, else a
     :class:`FixedShapeScorer`.  ``extra_rungs`` adds example counts to
-    the ladder (offline predict adds its ``batch_size``)."""
+    the ladder (offline predict adds its ``batch_size``); ``writer`` gets
+    the interaction decision's ``record: autotune``."""
     dev = resolve_device(device)
     fmt, step, model = load_model(cfg)
     if fmt == "tiered":
         w0, store = model
         return OverlayScorer(cfg, w0, store, device=dev,
                              telemetry=telemetry, step=step,
-                             extra_rungs=extra_rungs)
+                             extra_rungs=extra_rungs, writer=writer)
     return FixedShapeScorer(cfg, model, device=dev, telemetry=telemetry,
-                            step=step, extra_rungs=extra_rungs)
+                            step=step, extra_rungs=extra_rungs,
+                            writer=writer)

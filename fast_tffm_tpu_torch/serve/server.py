@@ -106,9 +106,9 @@ __all__ = ["CheckpointWatcher", "ServeHandle", "ServeServer",
 
 # Settings whose non-default value the port's server does not act on:
 # none of them changes a score.  The XLA compile cache has no
-# counterpart, and the interaction choice is the reference's autotune
-# (ROADMAP.md, port queue item 4d).
-_INERT_KNOBS = ("compile_cache_dir", "interaction_impl")
+# counterpart; ``compile_cache_dir`` only places the interaction
+# autotuner's ``autotune_cache.json`` (``ops/autotune.py``).
+_INERT_KNOBS = ("compile_cache_dir",)
 
 
 def _warn_inert(cfg: FmConfig) -> None:
@@ -121,8 +121,9 @@ def _warn_inert(cfg: FmConfig) -> None:
     ]
     if inert:
         log.warning(
-            "the PyTorch port's server does not act on %s; scores are "
-            "unaffected", ", ".join(inert),
+            "the PyTorch port's server does not act on %s beyond placing "
+            "the autotuner's autotune_cache.json; scores are unaffected",
+            ", ".join(inert),
         )
 
 
@@ -538,6 +539,9 @@ def _serve_block(snap: dict, scorer, batcher, wall: float) -> dict:
         ),
         "warmup_wall_s": round(scorer.warmup_wall_s, 4),
         "kernel_launches": int(fm_kernels.fm_scores_cuda.launches),
+        # Which interaction the rungs run (ops/autotune.py): a string,
+        # which /metrics skips and the JSONL block keeps.
+        "kernel_impl": getattr(scorer, "kernel_impl", "pallas"),
     }
     # Emitted only when the scorer owns the gauges (FixedShapeScorer):
     # the placed table's bytes and the probe's max |score_fp32 -
@@ -595,11 +599,16 @@ def serve(cfg: FmConfig,
     # published while the scorer loads and warms up must look new to the
     # first poll.
     manifest_baseline = read_manifest(cfg.model_file)
+    # Opened before the scorer, which writes its interaction decision
+    # (`record: autotune`) into it.
+    writer = JsonlWriter(cfg.metrics_file) if cfg.metrics_file else None
     try:
         scorer = scorer_lib.make_scorer(cfg, device=dev,
-                                        telemetry=telemetry)
+                                        telemetry=telemetry, writer=writer)
         n_rungs = scorer.warmup()
     except BaseException:
+        if writer is not None:
+            writer.close()
         tracer.close()
         raise
     log.info(
@@ -656,7 +665,6 @@ def serve(cfg: FmConfig,
                 rec["trace_windows"] = tracer.windows_written
         return rec
 
-    writer = JsonlWriter(cfg.metrics_file) if cfg.metrics_file else None
     run_header = {
             "record": "run_header",
             "mode": "serve",

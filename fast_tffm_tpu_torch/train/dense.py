@@ -25,8 +25,8 @@ Per step:
 
 The reference's dense step scores through ``jnp``
 (``fast_tffm_tpu/models/fm.py::loss_and_metrics``) and reaches no Pallas
-kernel; the port runs its kernels here as on every path, held to the
-same math.  Nothing in the step reads the device from the host, so with
+kernel; the port runs the trainer's interaction here as on every path
+(``interaction_impl``: its kernels by default), held to the same math.  Nothing in the step reads the device from the host, so with
 the host sort meta a CUDA graph captures it as it does the sparse step
 (``train/dispatch.py``).
 
@@ -95,17 +95,20 @@ def _add_full_l2(cfg: FmConfig, w0, table, dw0, dtable):
 
 
 def dense_step(cfg: FmConfig, model: FmModel, opt_state, batch: Batch,
-               plain: bool = False, health: bool = False):
+               plain: bool = False, health: bool = False,
+               impl: str = "pallas"):
     """One dense train step on a device :class:`Batch`: updates ``model``
     and ``opt_state`` in place and returns the step's raw scores
     ``[B]``, and with ``health`` also the ``train/sparse.py::
     grad_health`` pair of the whole gradient it applied (the reference's
     ``_tree_grad_health``: more passes over the ``[V, D]`` gradient).
     The batch's ``sort_meta`` is used when present, else the ids are
-    sorted on the device.  ``plain=True`` runs the kernels'
-    plain versions on any device."""
+    sorted on the device.  ``impl`` is the interaction's formulation
+    (``train/sparse.py::rows_loss``), its one selector; ``plain=True``
+    runs the dense gradient's plain versions (K1's merge mode and
+    K-place) on any device."""
     table = model.table
-    scores, dw0, drows = row_grads(cfg, model, batch, plain)
+    scores, dw0, drows = row_grads(cfg, model, batch, impl)
     with torch.no_grad():
         dtable = sparse_apply.dense_grad(batch.ids, drows, table.shape[0],
                                          meta=batch.sort_meta, plain=plain)

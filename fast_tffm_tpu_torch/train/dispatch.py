@@ -33,16 +33,19 @@ dense step with the host sort meta (``host_sort = true``, the default):
   capture runs inside the ``pause`` context it is given (the trainer
   gives ``DevicePrefetcher.paused()``; the stage's parsing goes on).  The
   capture is taken
-  with ``capture_error_mode="thread_local"``, so that the autograd
-  engine's device thread, which runs the backward into the capturing
-  stream, is not held to the capturing thread's rules; and with Python's
-  garbage collector off, so that no unreachable CUDA graph or event of
-  an earlier trainer is destroyed inside it.  ``GraphedSteps`` keeps no
+  by ``ops/launches.py::capture`` (thread-local capture errors, Python's
+  garbage collector off).  ``GraphedSteps`` keeps no
   reference to the trainer, whose graph is then freed with it.
 - **Launch counts.**  The kernels' wrappers count in Python, so the
   capture counts launches that did not run and a replay counts none.
-  The capture's counts are taken back and added again at each replay:
-  ``.launches`` still counts the launches that ran.
+  The capture's counts are taken back (``ops/launches.py``) and added
+  again at each replay: ``.launches`` still counts the launches that
+  ran.  A step of the
+  ``jnp`` or ``flat`` interaction (``interaction_impl = reference`` or
+  ``packed``) captures plain ops, and ``flat`` its two ``torch.matmul``
+  products, in place of FmScorer and FmGrad: such a graph counts no
+  FmScorer or FmGrad launch, and its K1 and K2 (or K1's merge mode and
+  K-place) as any other.
 - **Failures raise.**  A capture or replay that fails raises; nothing
   falls back to the eager steps.
 
@@ -53,38 +56,16 @@ sort (``host_sort = false``: it reads U on the host) and the CPU
 
 from __future__ import annotations
 
-import contextlib
-import gc
 import time
 from typing import Callable
 
 import torch
 
 from fast_tffm_tpu_torch.data.prefetch import SuperBatch, rebase
-from fast_tffm_tpu_torch.ops import fm_kernels, sparse_apply
+from fast_tffm_tpu_torch.ops import launches
+from fast_tffm_tpu_torch.ops.launches import COUNTERS
 
 __all__ = ["COUNTERS", "GraphedSteps"]
-
-# Every kernel wrapper a train step can launch, with its launch counter.
-COUNTERS = (
-    (fm_kernels.fm_scores_cuda, "launches"),
-    (fm_kernels.fm_scores_cuda, "launches_bf16"),
-    (fm_kernels.fm_grad_cuda, "launches"),
-    (fm_kernels.fm_grad_cuda, "launches_bf16"),
-    (sparse_apply.k1_dedup_cuda, "launches"),
-    (sparse_apply.k2_apply_cuda, "launches"),
-    (sparse_apply.k1_merge_cuda, "launches"),
-    (sparse_apply.kplace_cuda, "launches"),
-)
-
-
-def _counts() -> list:
-    return [getattr(fn, attr) for fn, attr in COUNTERS]
-
-
-def _add_counts(counts) -> None:
-    for (fn, attr), n in zip(COUNTERS, counts):
-        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 class GraphedSteps:
@@ -118,19 +99,8 @@ class GraphedSteps:
                 f"{None if sb.buffer is None else sb.buffer.device}")
         t0 = time.perf_counter()
         views = rebase(sb, torch.empty_like(sb.buffer))
-        before = _counts()
-        graph = torch.cuda.CUDAGraph()
-        collecting = gc.isenabled()
-        gc.disable()  # torch.cuda.graph collects once before it captures
-        try:
-            with pause or contextlib.nullcontext(), torch.cuda.graph(
-                    graph, capture_error_mode="thread_local"):
-                losses = steps(views)
-        finally:
-            if collecting:
-                gc.enable()
-        counted = [a - b for a, b in zip(_counts(), before)]
-        _add_counts([-n for n in counted])  # the capture ran nothing
+        graph, losses, counted = launches.capture(lambda: steps(views),
+                                                  pause)
         self._graph, self._input, self._losses = graph, views, losses
         self._launches = counted
         self.capture_s = time.perf_counter() - t0
@@ -141,7 +111,7 @@ class GraphedSteps:
         that the next replay overwrites."""
         self._input.buffer.copy_(sb.buffer)
         self._graph.replay()
-        _add_counts(self._launches)
+        launches.add_counts(self._launches)
         return self._losses
 
     def pool_bytes(self) -> int:

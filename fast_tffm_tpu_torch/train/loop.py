@@ -129,8 +129,21 @@ with every plane on trains bitwise the run with them off):
   rank's ``/status`` into the ``fleet`` block, and each rank times one
   small all-reduce after each dispatch as ``train.exchange``.
 
-``compile_cache_dir`` (the reference's XLA cache) and the interaction
-choices are accepted and logged as inert: none changes a parameter.
+The interaction choice is the reference's (``ops/autotune.py``):
+``interaction_impl`` pins ``reference``, ``pallas`` or ``packed``, or
+with ``auto`` is measured at the run's shapes on the trainer's device
+before any graph is captured (a ``record: autotune`` in the
+``metrics_file`` stream); ``""`` keeps the legacy ``interaction`` /
+``use_pallas`` derivation (the kernels by default).  Every one-device
+step, the graphed ones included, and the validation scores run the
+resolved impl (``kernel_impl`` in the run header).  On a rank mesh the
+sharded step is the closed form of the reference's
+``train/shardmap_step.py``, which reads no impl; the trainer still
+resolves and records the decision, as the reference does on every
+process.  ``compile_cache_dir`` (the reference's XLA cache) only places
+the autotuner's ``autotune_cache.json`` (``ops/autotune.py::
+default_cache_path``) and is otherwise logged as inert: it changes no
+parameter.
 """
 
 from __future__ import annotations
@@ -167,6 +180,7 @@ from fast_tffm_tpu_torch.obs.resource import (
 from fast_tffm_tpu_torch.obs.status import StatusServer, render_prometheus
 from fast_tffm_tpu_torch.obs.telemetry import Telemetry
 from fast_tffm_tpu_torch.obs.trace import Tracer
+from fast_tffm_tpu_torch.ops import autotune as autotune_lib
 from fast_tffm_tpu_torch.ops import sparse_apply
 from fast_tffm_tpu_torch.parallel.mesh import (
     DATA_AXIS, Mesh, barrier, data_partition, make_mesh, psum,
@@ -194,14 +208,12 @@ __all__ = ["HealthState", "MetricState", "NonFiniteGradError", "Trainer",
 
 # (setting, description) pairs of the reference's planes the port's
 # trainer accepts but does not act on: the XLA compile cache has no
-# counterpart (the kernels build once into ops/_build/).
+# counterpart (the kernels build once into ops/_build/); its directory
+# only places the interaction autotuner's cache file.
 _INERT_PLANES = (
-    ("compile_cache_dir", "compile cache"),
+    ("compile_cache_dir",
+     "compile cache (it only places the autotuner's autotune_cache.json)"),
 )
-# Interaction choices of the reference (its autotune, ROADMAP.md port
-# queue item 4d): the port always runs its kernels, so none changes a
-# parameter.
-_INERT_INTERACTION = ("interaction", "interaction_impl", "use_pallas")
 
 
 def _multi_rank(cfg: FmConfig) -> bool:
@@ -227,15 +239,6 @@ def _log_inert(cfg: FmConfig) -> None:
         log.info(
             "the PyTorch port's trainer does not act on these settings "
             "(parameters are unaffected): %s", ", ".join(inert),
-        )
-    defaults = FmConfig()
-    knobs = [k for k in _INERT_INTERACTION
-             if getattr(cfg, k) != getattr(defaults, k)]
-    if knobs:
-        log.info(
-            "the PyTorch port's trainer always runs its kernels and does "
-            "not act on %s (ROADMAP.md port queue item 4d; parameters are "
-            "unaffected)", ", ".join(knobs),
         )
 
 
@@ -623,6 +626,28 @@ class Trainer:
         self.mesh = make_mesh(cfg)
         self.overlap = _check_mesh(cfg, self.dcfg, self.mesh, self.sparse)
         self.sharded = self.mesh.size > 1
+        # The interaction (ops/autotune.py): interaction_impl=auto
+        # measures the candidates at this run's shapes on this device and
+        # promotes the fastest that passes the parity gate, before any
+        # graph is captured; pins and the legacy knobs resolve with no
+        # measurement.  `interaction` is the dispatch name every step and
+        # the validation scores run, `kernel_impl` its user-facing name.
+        self._autotune: Optional[autotune_lib.Decision] = None
+        self.interaction = self.dcfg.interaction_resolved
+        if self.interaction == "auto":
+            self._autotune = autotune_lib.resolve(
+                self.dcfg, context="train", device=self.device)
+            self.interaction = self._autotune.interaction
+        self.kernel_impl = autotune_lib.USER[self.interaction]
+        log.info(
+            "step build: sparse=%s interaction=%s (kernel_impl=%s) "
+            "device=%s mesh=%s%s", self.sparse, self.interaction,
+            self.kernel_impl, self.device,
+            {"data": self.mesh.data, "model": self.mesh.model},
+            ("; the sharded step runs its own closed form "
+             "(train/shardmap_step.py) and reads no impl"
+             if self.sharded else ""),
+        )
         self.model, self.opt_state, self._restored_step = (
             self._init_or_restore_tiered() if cfg.table_tiering == "on"
             else self._init_or_restore()
@@ -1036,7 +1061,7 @@ class Trainer:
         else:
             step = sparse_step if self.sparse else dense_step
             out = step(self.cfg, self.model, self.opt_state, dev_batch,
-                       health=health)
+                       health=health, impl=self.interaction)
         scores = out
         if health:
             scores, pair = out
@@ -1367,6 +1392,7 @@ class Trainer:
             "resume_epoch": resume[0],
             "resume_skip": resume[1],
             "interaction_impl": cfg.interaction_impl,
+            "kernel_impl": self.kernel_impl,
             "compile_cache_dir": cfg.compile_cache_dir,
         }
 
@@ -1490,6 +1516,8 @@ class Trainer:
         t0 = run.t0
         if metrics_out is not None:
             metrics_out.write(self._run_header(rank, resume))
+            if self._autotune is not None:
+                autotune_lib.write_record(metrics_out, self._autotune)
         last_log_t = t0
         last_log_ex = self.global_metrics(self.metrics)["examples"]
         stepno = last_log_step = last_val_step = last_save_step = 0
@@ -1874,7 +1902,8 @@ class Trainer:
                         scores = fm.fm_scores(
                             model, dev_batch.ids, dev_batch.vals,
                             dev_batch.fields, factor_num=self.cfg.factor_num,
-                            field_num=self.cfg.field_num)
+                            field_num=self.cfg.field_num,
+                            impl=self.interaction)
                 ms.add_(scores, dev_batch, self.cfg.loss_type)
         return self.global_metrics(ms)
 

@@ -130,7 +130,7 @@ def to_device(batch: Batch, device) -> Batch:
 
 
 def rows_loss(cfg: FmConfig, w0: torch.Tensor, rows: torch.Tensor,
-              batch: Batch, plain: bool = False):
+              batch: Batch, impl: str = "pallas"):
     """``(loss, scores)`` over gathered f32 rows: the weighted data loss
     plus the batch L2 (``fast_tffm_tpu/train/sparse.py::_rows_loss_fn``;
     ``l2_mode = full`` is the dense step's, ``train/dense.py``).
@@ -139,8 +139,11 @@ def rows_loss(cfg: FmConfig, w0: torch.Tensor, rows: torch.Tensor,
     row gradient comes back f32 through the cast's backward, and the
     batch L2 sees the f32 rows.  With ``field_num > 0`` the interaction
     is field-aware FM (``ops.interaction.ffm_interaction``, einsums and
-    a closed-form backward; ``plain`` does not apply to it).  Scores and
-    loss are f32 either way."""
+    a closed-form backward; ``impl`` does not apply to it), else FM
+    through the formulation ``impl`` names (``"pallas"``: FmScorer and
+    FmGrad; ``"jnp"``: their plain versions; ``"flat"``; the reference's
+    ``cfg.interaction_resolved``).  Scores and loss are f32 either
+    way."""
     cd = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     if cfg.field_num:
         # The rows enter uncast: the FFM op rounds its operands inside,
@@ -151,7 +154,7 @@ def rows_loss(cfg: FmConfig, w0: torch.Tensor, rows: torch.Tensor,
     else:
         # fm_interaction gives the values the rows' type.
         scores = w0 + interaction.fm_interaction(rows.to(cd), batch.vals,
-                                                 plain)
+                                                 impl)
     per_ex = fm.example_losses(scores, batch.labels, cfg.loss_type)
     wsum = torch.clamp(torch.sum(batch.weights), min=1e-12)
     loss = torch.sum(per_ex * batch.weights) / wsum
@@ -185,10 +188,11 @@ def apply_w0(cfg: FmConfig, model: FmModel, opt_state,
 
 
 def row_grads(cfg: FmConfig, model: FmModel, batch: Batch,
-              plain: bool = False) -> tuple:
+              impl: str = "pallas") -> tuple:
     """``(scores [B], dw0 [], drows [B*F, D])``: the batch's rows gathered
     once as a detached leaf and :func:`rows_loss` differentiated with
-    respect to ``w0`` and them (never the table), per occurrence."""
+    respect to ``w0`` and them (never the table), per occurrence, the
+    interaction through ``impl``."""
     table = model.table
     b, f = batch.ids.shape
     d = table.shape[1]
@@ -197,7 +201,7 @@ def row_grads(cfg: FmConfig, model: FmModel, batch: Batch,
     rows.requires_grad_()
     w0 = model.w0.detach().clone().requires_grad_()
     with torch.enable_grad():
-        loss, scores = rows_loss(cfg, w0, rows, batch, plain)
+        loss, scores = rows_loss(cfg, w0, rows, batch, impl)
         dw0, drows = torch.autograd.grad(loss, (w0, rows))
     return scores.detach(), dw0, drows.reshape(b * f, d)
 
@@ -222,15 +226,19 @@ def grad_health(g_rows: torch.Tensor, dw0: torch.Tensor) -> tuple:
 
 
 def sparse_step(cfg: FmConfig, model: FmModel, opt_state, batch: Batch,
-                plain: bool = False, health: bool = False):
+                plain: bool = False, health: bool = False,
+                impl: str = "pallas"):
     """One sparse train step on a device :class:`Batch` (see
     :func:`to_device`): updates ``model`` and ``opt_state`` in place and
     returns the step's raw scores ``[B]``, and with ``health`` also its
     :func:`grad_health` pair, from the row gradients the step already
     holds.  The batch's ``sort_meta`` is used when present, else the ids
-    are sorted on the device.  ``plain=True`` runs the kernels' plain
-    versions on any device."""
-    scores, dw0, drows = row_grads(cfg, model, batch, plain)
+    are sorted on the device.  ``impl`` is the interaction's formulation
+    (the trainer's resolved ``interaction_impl``), its one selector;
+    ``plain=True`` runs the sparse apply's plain versions on any device.
+    ``impl="jnp", plain=True`` is every kernel's plain version, what the
+    kernels are held to."""
+    scores, dw0, drows = row_grads(cfg, model, batch, impl)
     with torch.no_grad():
         pair = grad_health(drows, dw0) if health else None
         sparse_apply.apply(

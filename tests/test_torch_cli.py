@@ -158,14 +158,19 @@ def test_trainer_logs_only_the_planes_it_does_not_run(caplog, tmp_path):
     line = [r.message for r in caplog.records
             if "does not act on these settings" in r.message]
     assert len(line) == 1
-    # Only the XLA compile cache is inert since the 4c planes run.
+    # Only the XLA compile cache is inert since the 4c planes run; its
+    # directory places the autotuner's cache file, which the log says.
     assert "compile cache" in line[0]
+    assert "autotune_cache.json" in line[0]
     for live in ("health", "metrics stream", "heartbeat", "status endpoint",
                  "alerts", "training-fleet scrape", "quality plane",
                  "blackbox", "trace", "profiler"):
         assert live not in line[0]
     assert {k for k, _ in loop._INERT_PLANES} == {"compile_cache_dir"}
+    # The interaction knobs are live in the server too (ops/autotune.py):
+    # only the XLA compile cache is inert there and in the router, apart
+    # from placing the autotuner's cache file.
     for knobs in (server._INERT_KNOBS, router._INERT_KNOBS):
         assert not {"metrics_file", "heartbeat_secs",
                     "alert_rules"} & set(knobs)
-        assert set(knobs) <= {"compile_cache_dir", "interaction_impl"}
+        assert set(knobs) == {"compile_cache_dir"}

@@ -34,6 +34,7 @@ from fast_tffm_tpu.serve.scorer import make_scorer as jax_make_scorer
 from fast_tffm_tpu.train.loop import Trainer as JaxTrainer
 from fast_tffm_tpu_torch import weights
 from fast_tffm_tpu_torch.config import load_config
+from fast_tffm_tpu_torch.serve import router as router_lib
 from fast_tffm_tpu_torch.serve import wire
 from fast_tffm_tpu_torch.serve.router import start_fleet
 from fast_tffm_tpu_torch.serve.server import serve
@@ -346,6 +347,25 @@ def test_fleet_start_fails_with_the_replicas_exit_code(tmp_path):
     cfg = load_config(cfg_path)
     with pytest.raises(RuntimeError, match=r"exit code [1-9]"):
         start_fleet(cfg, cfg_path, port=0, device="cpu")
+
+
+def test_fleet_start_names_the_exit_code_of_a_replica_that_dies_at_once(
+        tmp_path, monkeypatch):
+    # A replica's stdout closes before the replica can be reaped (the
+    # child here holds that gap open for 0.2 s): the manager must wait
+    # for it to name its exit code, not report the None of a poll()
+    # taken at that EOF.
+    cfg_path = str(tmp_path / "f.cfg")
+    with open(cfg_path, "w") as f:
+        f.write(_cfg_text(str(tmp_path / "empty"), "", serve_replicas=2))
+    cfg = load_config(cfg_path)
+    monkeypatch.setattr(
+        router_lib, "_replica_command",
+        lambda *a, **k: [sys.executable, "-c", "import os, sys, time; "
+                         "os.close(1); time.sleep(0.2); sys.exit(3)"])
+    for _ in range(20):
+        with pytest.raises(RuntimeError, match=r"\(exit code 3\)"):
+            router_lib.ReplicaManager(cfg, cfg_path, device="cpu")
 
 
 def test_cli_fleet_routes_and_sigterm_leaves_no_replica(tmp_path):

@@ -144,7 +144,7 @@ def _port_fwd_bwd(rows, vals, g):
     float32 numpy (drows' values are bf16)."""
     r = torch.from_numpy(rows).to(torch.bfloat16).requires_grad_()
     v = torch.from_numpy(vals).to(torch.bfloat16)
-    scores = interaction.fm_interaction(r, v, plain=True)
+    scores = interaction.fm_interaction(r, v, impl="jnp")
     (drows,) = torch.autograd.grad(scores, r, torch.from_numpy(g))
     assert scores.dtype == torch.float32 and drows.dtype == torch.bfloat16
     return scores.detach().numpy(), drows.float().numpy()

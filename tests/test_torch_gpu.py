@@ -12,7 +12,9 @@ with a hot swap under traffic, the training-health carry of a
 graphed dispatch (bitwise the eager one; a poisoned replay halts), and
 the observability planes: the quality plane's scores copy in a graphed
 dispatch (bitwise its eager twin, the same scores fed to the monitor)
-and every plane on against every plane off, graphed and eager.
+and every plane on against every plane off, graphed and eager; and the
+interaction autotuner (every candidate measured and parity-gated, a
+graphed step of each pinned interaction bitwise its eager step).
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (marker ``gpu``) and
 skips without one.  The file imports neither jax nor the JAX package,
@@ -287,7 +289,8 @@ def test_bf16_sparse_step_matches_the_plain_step(gpu):
     for plain in (False, True):
         model = weights.from_jax(0.0, table, device=gpu)
         opt = sparse.init_sparse_opt_state(cfg, model)
-        scores = sparse.sparse_step(cfg, model, opt, batch, plain=plain)
+        scores = sparse.sparse_step(cfg, model, opt, batch, plain=plain,
+                                    impl="jnp" if plain else "pallas")
         out[plain] = (scores, model, opt)
     torch.cuda.synchronize()
     assert (fm_kernels.fm_scores_cuda.launches_bf16,
@@ -1211,6 +1214,102 @@ def test_graphed_dispatch_is_bitwise_the_eager_one(gpu, tmp_path, k,
 
 
 @pytest.mark.gpu
+def test_autotune_measures_three_candidates_on_the_gpu(gpu, monkeypatch):
+    """``interaction_impl = auto`` on the card: reference, pallas and
+    packed all run and pass the parity gate in the train context (graph
+    replays timed, eager times beside) and in the serve context at every
+    table dtype; a second resolve is a cache hit."""
+    from fast_tffm_tpu_torch.ops import autotune
+
+    monkeypatch.setattr(autotune, "_MEM_CACHE", {})
+    every = ("reference", "pallas", "packed")
+    for context, dtype in (("train", "fp32"), ("serve", "fp32"),
+                           ("serve", "bf16"), ("serve", "int8")):
+        cfg = FmConfig(vocabulary_size=1 << 16, factor_num=8,
+                       max_features=39, batch_size=1024,
+                       interaction_impl="auto", serve_table_dtype=dtype)
+        d = autotune.resolve(cfg, context=context, cache_path="",
+                             device=gpu)
+        assert d.source == "measured" and tuple(d.candidates) == every
+        assert set(d.times_ms) == set(every)
+        assert set(d.eager_ms) == (set(every) if context == "train"
+                                   else set())
+        for name in every:
+            assert np.isfinite(d.parity_err[name])
+            assert d.parity_err[name] <= autotune.PARITY_TOL
+        n = autotune.measurement_count()
+        again = autotune.resolve(cfg, context=context, cache_path="",
+                                 device=gpu)
+        assert again.source == "cache" and again.impl == d.impl
+        assert autotune.measurement_count() == n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["raises", "wrong"])
+def test_autotune_raises_on_a_failed_kernel_candidate(gpu, monkeypatch,
+                                                      how):
+    """On the card a ``pallas`` candidate that raises, or that fails the
+    parity gate, makes ``resolve`` raise with its name: ``auto`` never
+    falls back to the plain version, and caches nothing."""
+    from fast_tffm_tpu_torch.ops import autotune
+
+    monkeypatch.setattr(autotune, "_MEM_CACHE", {})
+    cfg = FmConfig(vocabulary_size=1 << 16, factor_num=8, max_features=39,
+                   batch_size=1024, interaction_impl="auto")
+    make, args = autotune._candidate_fns(cfg, "train", 1024, "fp32", gpu)
+
+    def broken(user_impl):
+        fn = make(user_impl)
+        if user_impl != "pallas":
+            return fn
+        if how == "wrong":
+            return lambda *a: tuple(2.0 * t for t in fn(*a))
+
+        def f(*a):
+            raise RuntimeError("injected launch failure")
+        return f
+
+    with pytest.raises(RuntimeError, match="candidate pallas"):
+        autotune.resolve(cfg, cache_path="", device=gpu,
+                         candidate_fns=(broken, args))
+    assert autotune._MEM_CACHE == {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["reference", "pallas", "packed"])
+def test_graphed_step_of_each_interaction_is_bitwise_eager(gpu, tmp_path,
+                                                           impl):
+    """A pinned interaction through ``Trainer.dispatch``: the replays of
+    the CUDA graph (the packed steps' products among them) bitwise the
+    eager steps, FmScorer and FmGrad launched only under ``pallas``."""
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.train.dispatch import COUNTERS
+
+    cfg = dataclasses.replace(_dispatch_cfg(tmp_path, "adagrad", "float32",
+                                            1), interaction_impl=impl)
+    host = _host_batches(5, vocab=cfg.vocabulary_size)
+    runs = []
+    for graphs in (True, False):
+        trainer = _trainer(cfg, gpu, graphs)
+        assert trainer.kernel_impl == impl
+        counts = [getattr(fn, attr) for fn, attr in COUNTERS]
+        losses = [trainer.dispatch(sb).clone() for sb in DevicePrefetcher(
+            host, 1, gpu, cfg.vocabulary_size)]
+        torch.cuda.synchronize()
+        launched = [getattr(fn, attr) - c
+                    for (fn, attr), c in zip(COUNTERS, counts)]
+        runs.append((trainer, torch.cat(losses), launched))
+    (graphed, g_loss, g_launched), (eager, e_loss, e_launched) = runs
+    assert graphed.graph_dispatches == 4
+    assert g_launched == e_launched
+    fm_launches = g_launched[0] + g_launched[2]  # FmScorer, FmGrad (f32)
+    assert fm_launches == (10 if impl == "pallas" else 0)
+    assert torch.equal(g_loss, e_loss)
+    for a, b in zip(_trained_state(graphed), _trained_state(eager)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_capture_while_the_transfer_thread_ships(gpu, tmp_path):
     """``Trainer.train()`` captures its graph while the transfer thread
     keeps shipping (two parse threads, two super-batches in flight), over
@@ -1465,7 +1564,8 @@ def test_ffm_graphed_dispatch_matches_eager_and_plain(gpu, tmp_path, k,
     for b in host[:3]:
         dev_b = sparse.to_device(b, gpu)
         s_k = sparse.sparse_step(cfg, models[0], opts[0], dev_b)
-        s_p = sparse.sparse_step(cfg, models[1], opts[1], dev_b, plain=True)
+        s_p = sparse.sparse_step(cfg, models[1], opts[1], dev_b, plain=True,
+                                 impl="jnp")
         torch.testing.assert_close(s_k, s_p, **TOL)
     torch.testing.assert_close(models[0].table, models[1].table, **TABLE_TOL)
     torch.testing.assert_close(opts[0].acc_table, opts[1].acc_table,
@@ -1761,7 +1861,8 @@ def test_dense_step_on_the_gpu_matches_the_plain_step(gpu, tmp_path,
                     c.copy_(a)
         dev_b = sparse.to_device(b, gpu)
         s_k = dense.dense_step(cfg, models[0], opts[0], dev_b)
-        s_p = dense.dense_step(cfg, models[1], opts[1], dev_b, plain=True)
+        s_p = dense.dense_step(cfg, models[1], opts[1], dev_b, plain=True,
+                               impl="jnp")
         (gw_k, g_k), (gw_p, g_p) = applied[-2:]
         torch.testing.assert_close(s_k, s_p, **TOL)
         torch.testing.assert_close(g_k, g_p, **TABLE_TOL)

@@ -31,6 +31,7 @@ from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.data import libsvm
 from fast_tffm_tpu_torch.data.pipeline import BatchPipeline
 from fast_tffm_tpu_torch.models import fm
+from fast_tffm_tpu_torch.ops import interaction
 from fast_tffm_tpu_torch.serve.scorer import make_scorer
 from fast_tffm_tpu_torch.train import checkpoint, metrics, sparse
 from fast_tffm_tpu_torch.train.loop import Trainer
@@ -244,13 +245,45 @@ def test_trainer_refuses_unported_settings(kw, err, match):
         Trainer(cfg, device="cpu")
 
 
-def test_trainer_logs_the_interaction_knobs_as_inert(caplog):
-    """``interaction`` and ``use_pallas`` choose among the reference's
-    implementations; the port always runs its kernels and says so."""
+@pytest.mark.parametrize("kw, internal, user", [
+    (dict(interaction="jnp", use_pallas=False), "jnp", "reference"),
+    (dict(use_pallas=False), "jnp", "reference"),
+    (dict(interaction="flat"), "flat", "packed"),
+    (dict(interaction_impl="packed"), "flat", "packed"),
+    (dict(), "pallas", "pallas"),
+])
+def test_trainer_logs_the_interaction_knobs_as_inert(caplog, tmp_path,
+                                                     kw, internal, user):
+    """The name is kept from when the port logged ``interaction``,
+    ``interaction_impl`` and ``use_pallas`` as inert: they are live now.
+    The step-build log and the run header name the resolved impl, no
+    line calls them inert, and the trainer's impl scores and trains."""
     with caplog.at_level(logging.INFO):
-        Trainer(FmConfig(vocabulary_size=V, interaction="jnp",
-                         use_pallas=False), device="cpu")
-    assert "does not act on interaction, use_pallas" in caplog.text
+        t = Trainer(FmConfig(vocabulary_size=V, factor_num=4,
+                             max_features=8, batch_size=16,
+                             model_file=str(tmp_path / "m"), **kw),
+                    device="cpu")
+    assert "does not act on interaction" not in caplog.text
+    assert "inert" not in caplog.text
+    assert (f"interaction={internal} (kernel_impl={user})"
+            in caplog.text)
+    assert t.interaction == internal and t.kernel_impl == user
+    assert t._run_header(0, (0, 0))["kernel_impl"] == user
+    rng = np.random.default_rng(0)
+    batch = libsvm.Batch(
+        labels=rng.integers(0, 2, 16).astype(np.float32),
+        ids=rng.integers(0, V, (16, 8)).astype(np.int32),
+        vals=rng.uniform(0.1, 1.0, (16, 8)).astype(np.float32),
+        fields=np.zeros((16, 8), np.int32),
+        weights=np.ones(16, np.float32))
+    dev = t._put(batch)
+    rows = t.model.table.detach()[dev.ids.long()]
+    got = interaction.forward(rows, dev.vals, t.interaction)[0]
+    want = interaction.forward(rows, dev.vals, "jnp")[0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    loss = float(t.train_step(batch))
+    assert np.isfinite(loss)
 
 
 def test_sharded_step_refuses_ffm_naming_item_3():
