@@ -368,6 +368,23 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    and W = 9 (bitwise; its library yardstick ``zero_()`` and one
    ``index_copy_``), K1's merge mode at W = 66 and 9, K2 at D = 33 on
    the merged rows.
+18. Grid phase (path 15, after the autotune phase): the trained
+   checkpoint scored over ``data x model`` grids of one process's
+   devices (``serve/scorer.py``'s ``DeviceGrid``): 1 x 1, 2 x 1, 1 x 2
+   and 2 x 2 over ``cuda:0`` repeated (``--nccl``: 1 x 1, 2 x 2, 1 x 4
+   and 4 x 1 over ``cuda:0-3``) at fp32, bf16 and int8, each grid's
+   scores of SERVE_SIZES bitwise the 1 x 1 scorer's (else within
+   ``SERVE_TOL``, the reason printed), FmScorer launched once per data
+   block per dispatch, each rung's dispatch p50, the bytes each card
+   holds and whether the cards reach each other as peers; FmScorer at
+   each block shape against its plain version and timed beside its
+   bound; path 7's V = 2^26 overlay on 2 x 1 at the 1024 rung, bitwise
+   its 1 x 1; ``serve()`` on 2 x 2: ``/score`` and ``/score_bin`` of the
+   predict file equal to ``predict()`` on 2 x 2, a ``keep_prev`` reload
+   changes the scores and ``/rollback`` restores them bitwise.  With
+   ``--nccl`` also the CLI's ``predict`` and ``serve`` with ``mesh_data
+   = 2``, ``mesh_model = 2`` (subprocesses over every card): the served
+   file equals predict's.
 
 Output: progress lines and JSON records, then a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -517,6 +534,14 @@ SERVE_BIN_ROWS = 64
 # The profiler trace of (f) must name the main path's four kernels.
 PATH_KERNEL_SYMBOLS = ("fm_scores_fwd_kernel", "fm_grad_bwd_kernel",
                        "k1_kernel", "k2_kernel")
+# Path 15, the scorer grid: the grids on one card (cuda:0 repeated) and
+# on four (cuda:0-3, --nccl), the timed dispatches of each rung, the
+# overlay's rung, and the grid that serve() and predict() run on.
+GRIDS_ONE_CARD = ((1, 1), (2, 1), (1, 2), (2, 2))
+GRIDS_FOUR_CARDS = ((1, 1), (2, 2), (1, 4), (4, 1))
+GRID_TIMED = 20
+GRID_OVERLAY_RUNG = 1024
+GRID_SERVE = (2, 2)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -930,7 +955,8 @@ def plain_served(torch, w0: float, rows, vals, fields=None,
         return torch.sigmoid(s).cpu().numpy()
 
 
-def serve_table(np, torch, cfg, requests, plain_rows, label: str) -> dict:
+def serve_table(np, torch, cfg, requests, plain_rows, label: str,
+                device=None) -> dict:
     """Serve ``cfg`` through ``serve()`` and post each request (``(text
     body, ids, vals, fields)``) over ``/score`` and ``/score_bin``: the
     transports must agree bitwise and the scores lie within KERNEL_TOL of
@@ -941,7 +967,8 @@ def serve_table(np, torch, cfg, requests, plain_rows, label: str) -> dict:
     requests alone, ``/status``'s serve block, the device memory the
     stack added (placement and warmup) and its peak during the requests
     (:func:`requested_bytes`), the scorer's staging bytes and placement
-    seconds."""
+    seconds.  ``device`` goes to ``serve()`` (None: every visible GPU;
+    ``cuda:0`` keeps a four-card run's one-card figures comparable)."""
     from fast_tffm_tpu_torch.ops.fm_kernels import fm_scores_cuda
     from fast_tffm_tpu_torch.serve import wire
     from fast_tffm_tpu_torch.serve.scorer import OverlayScorer
@@ -962,7 +989,7 @@ def serve_table(np, torch, cfg, requests, plain_rows, label: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = requested_bytes(torch)
     t0 = time.perf_counter()
-    handle = serve(cfg, port=0)
+    handle = serve(cfg, device=device, port=0)
     up_s = time.perf_counter() - t0
     added = requested_bytes(torch) - base
     try:
@@ -4827,7 +4854,7 @@ def fleet_phase(np, torch, tmp: str, card: str, rng, train_files,
     from fast_tffm_tpu_torch.serve import scorer as serve_scorer
     from fast_tffm_tpu_torch.train import checkpoint
     from fast_tffm_tpu_torch.train import tiered as tiered_lib
-    from fast_tffm_tpu_torch.train.loop import Trainer
+    from fast_tffm_tpu_torch.train.loop import Trainer, predict
 
     base = {"train_files": train_files, "validation_files": [],
             "seed": SEED, "log_steps": 4, "serve_poll_secs": 0.0,
@@ -4895,7 +4922,8 @@ def fleet_phase(np, torch, tmp: str, card: str, rng, train_files,
     for name, model_dir in (("fleet", fleet_dir), ("dense", dense_dir)):
         rec = serve_table(np, torch, dataclasses.replace(
             scfg, model_file=model_dir), requests,
-            Rows(w0, lambda ids: table[ids]), f"fleet {name} served")
+            Rows(w0, lambda ids: table[ids]), f"fleet {name} served",
+            device=None if one_card else "cuda:0")
         served[name] = rec
     launches["fm_scores"] += served["fleet"]["launches"]
     for a, b in zip(served["fleet"]["scores"], served["dense"]["scores"]):
@@ -4915,7 +4943,10 @@ def fleet_phase(np, torch, tmp: str, card: str, rng, train_files,
         path = os.path.join(tmp, f"fleet_{name}_predict.cfg")
         with open(path, "w") as f:
             f.write(body)
-        check(cli.main(["predict", path]) == 0, f"fleet {name} predict")
+        if one_card:
+            check(cli.main(["predict", path]) == 0, f"fleet {name} predict")
+        else:  # one card of the four, as the one-card run
+            predict(load_config(path), device="cuda:0")
         predicted[name] = np.loadtxt(scores)
         if name == "fleet":
             launches["fm_scores"] += read_launches(kernels)["fm_scores"]
@@ -5215,7 +5246,8 @@ def mesh_modes_phase(np, torch, card: str, rng, world: int,
     served = serve_table(np, torch, scfg,
                          serve_requests(np, rng, scfg, FFM_FIELDS),
                          Rows(w0, lambda ids: table[ids]),
-                         "mesh FFM served")
+                         "mesh FFM served",
+                         device=None if one_card else "cuda:0")
     check(served["launches"] == 0, "the FFM server launched FmScorer")
     del table
     # The launches by the kernel shape they ran at (the kernels line's
@@ -5807,11 +5839,332 @@ def autotune_phase(np, torch, card: str, tcfg, tmp: str, model_dir: str,
     return rec, launches
 
 
+# -- scorer grid phase (path 15) ----------------------------------------
+
+
+def grid_devices(grid, cards) -> list:
+    """The devices of a ``grid``: ``cards`` in turn, repeated when the
+    grid has more places than cards (``cuda:0`` four times for a 2 x 2
+    grid on one card)."""
+    return [cards[i % len(cards)] for i in range(grid[0] * grid[1])]
+
+
+def allocated(torch, cards) -> dict:
+    """``torch.cuda.memory_allocated`` of each distinct card."""
+    torch.cuda.synchronize()
+    return {c: torch.cuda.memory_allocated(c) for c in sorted(set(cards))}
+
+
+def peer_access(torch, cards) -> dict:
+    """``torch.cuda.can_device_access_peer`` of every ordered pair of
+    distinct cards (empty on one card)."""
+    idx = sorted({torch.device(c).index for c in cards})
+    return {f"{a}->{b}": bool(torch.cuda.can_device_access_peer(a, b))
+            for a in idx for b in idx if a != b}
+
+
+def grid_phase(np, torch, card: str, rng, model_dir: str, tmp: str,
+               predict_file: str, cards, grids, err: dict,
+               cli_mesh: bool = False) -> tuple:
+    """Path 15, the scorer grid: the trained Criteo-Kaggle checkpoint
+    (V = 2^22, D = 9, F = 39, rungs 64/256/1024) scored over each of
+    ``grids`` of ``cards`` (repeated on one card) at fp32, bf16 and int8
+    (chunk QUANT_CHUNK, quantized once on the host): every grid's scores
+    against the 1 x 1 scorer's (bitwise, else within SERVE_TOL with the
+    reason printed), FmScorer launched once per data block per dispatch,
+    each rung's dispatch p50 and the bytes each card holds; FmScorer at
+    every block shape against its plain version, and timed; path 7's
+    V = 2^26 overlay on a 2 x 1 grid at one rung, bitwise its 1 x 1;
+    then ``serve()`` on the GRID_SERVE grid: ``/score`` and
+    ``/score_bin`` of the predict file equal to ``predict()`` on the
+    same grid, one ``keep_prev`` reload and ``/rollback``.  With
+    ``cli_mesh`` (four cards) the CLI's ``predict`` and ``serve`` with
+    ``mesh_data = 2``, ``mesh_model = 2`` in the config too.  Returns
+    ``(record, FmScorer f32 launches of the scoring, serving and
+    predicting)``."""
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.ops import quant
+    from fast_tffm_tpu_torch.ops.fm_kernels import (
+        fm_scores_cuda, fm_scores_plain,
+    )
+    from fast_tffm_tpu_torch.serve import wire
+    from fast_tffm_tpu_torch.serve.scorer import (
+        FixedShapeScorer, OverlayScorer,
+    )
+    from fast_tffm_tpu_torch.serve.server import serve
+    from fast_tffm_tpu_torch.serve.textparse import parse_request
+    from fast_tffm_tpu_torch.train import checkpoint, tiered
+    from fast_tffm_tpu_torch.train.loop import predict
+
+    t_phase = time.perf_counter()
+    base = load_config(CFG_PATH, {"serve_poll_secs": 0.0, "serve_port": 0,
+                                  "model_file": model_dir})
+    V, F, D = base.vocabulary_size, base.max_features, base.embedding_dim
+    step, model = checkpoint.restore_params(model_dir, device="cpu")
+    w0 = float(model.w0.detach())
+    table = model.table.detach().numpy()
+    requests = serve_requests(np, rng, base)
+    tables = {"fp32": model}
+    for dtype in ("bf16", "int8"):
+        tables[dtype] = (np.float32(w0),
+                         quant.quantize_table(table, dtype, QUANT_CHUNK))
+    record = {"card": card, "cards": list(cards),
+              "peer_access": peer_access(torch, cards), "grids": {}}
+    launches = 0
+    for dtype, placed_model in tables.items():
+        cfg = dataclasses.replace(base, serve_table_dtype=dtype,
+                                  quant_chunk=QUANT_CHUNK)
+        want = None
+        for grid in grids:
+            devs = grid_devices(grid, cards)
+            gcfg = dataclasses.replace(cfg, mesh_data=grid[0],
+                                       mesh_model=grid[1])
+            gc.collect()
+            torch.cuda.empty_cache()
+            before = allocated(torch, cards)
+            t0 = time.perf_counter()
+            sc = FixedShapeScorer(gcfg, placed_model, devices=devs)
+            sc.warmup()
+            up_s = time.perf_counter() - t0
+            held = {c: n - before[c]
+                    for c, n in allocated(torch, cards).items()}
+            check((sc.grid.data, sc.grid.model) == grid,
+                  f"grid {grid}: got {sc.grid.data}x{sc.grid.model}")
+            fm_scores_cuda.launches = 0
+            got = [sc.score(ids, vals) for _, ids, vals, _ in requests]
+            n_launch = fm_scores_cuda.launches
+            dispatches = sum(-(-len(ids) // sc.max_rung)
+                             for _, ids, _, _ in requests)
+            check(n_launch == grid[0] * dispatches,
+                  f"grid {grid} {dtype}: FmScorer launched {n_launch} "
+                  f"times for {grid[0]} blocks x {dispatches} dispatches")
+            launches += n_launch
+            name = f"{grid[0]}x{grid[1]}"
+            rec = {"ladder": list(sc.ladder), "fm_scores_launches": n_launch,
+                   "dispatches": dispatches, "up_s": up_s,
+                   "bytes_held": held}
+            if want is None:
+                want = got
+                rec["bitwise_1x1"] = True
+            else:
+                same = all(np.array_equal(a.view(np.uint32),
+                                          b.view(np.uint32))
+                           for a, b in zip(got, want))
+                rec["bitwise_1x1"] = same
+                if not same:
+                    diff = max(float(np.abs(a - b).max())
+                               for a, b in zip(got, want))
+                    for a, b in zip(got, want):
+                        np.testing.assert_allclose(a, b, **SERVE_TOL)
+                    rec["max_abs_diff_1x1"] = diff
+                    print(f"grid {name} {dtype}: not bitwise the 1 x 1 "
+                          f"scorer (max |diff| {diff}) but within "
+                          f"SERVE_TOL: the blocks' scores went through "
+                          f"another instruction path", flush=True)
+            dispatch = {}
+            ids_all, vals_all = requests[-1][1], requests[-1][2]
+            for b in sc.ladder:
+                times = []
+                for _ in range(GRID_TIMED):
+                    t0 = time.perf_counter()
+                    sc.score_rung(ids_all[:b], vals_all[:b], None, b)
+                    times.append(time.perf_counter() - t0)
+                dispatch[b] = p50(times) * 1e3
+            rec["dispatch_p50_ms"] = dispatch
+            record["grids"].setdefault(dtype, {})[name] = rec
+            del sc
+    check(all(r["bitwise_1x1"] or "max_abs_diff_1x1" in r
+              for by in record["grids"].values() for r in by.values()),
+          "a grid's scores were not checked")
+    # FmScorer at every data block's shape against its plain version (the
+    # one-row grids' shapes are the kernel phase's rungs).
+    dev0 = torch.device(cards[0])
+    blocks = sorted({b // d for d in {g[0] for g in grids} if d > 1
+                     for b in base.serve_ladder})
+    ids_all, vals_all = requests[-1][1], requests[-1][2]
+    table_d = torch.from_numpy(table).to(dev0)
+    cases, block_err = {}, 0.0
+    for b in blocks:
+        rows = table_d[torch.from_numpy(ids_all[:b]).to(dev0).long()]
+        vals = torch.from_numpy(vals_all[:b]).to(dev0)
+        s_k, s1_k = fm_scores_cuda(rows, vals)
+        s_p, s1_p = fm_scores_plain(rows, vals)
+        torch.testing.assert_close(s_k, s_p, **KERNEL_TOL)
+        torch.testing.assert_close(s1_k, s1_p, **KERNEL_TOL)
+        block_err = max(block_err, float((s_k - s_p).abs().max()),
+                        float((s1_k - s1_p).abs().max()))
+        cases[b] = (lambda r=rows, v=vals: fm_scores_cuda(r, v),
+                    lambda r=rows, v=vals: fm_scores_plain(r, v), None,
+                    fm_bound_ms(b, F, D))
+    err["fm_scores"] = max(err.get("fm_scores", 0.0), block_err)
+    record["block_kernel"] = {"max_abs_err": block_err,
+                              **time_cases(torch, cases)}
+    del table_d, cases
+    # Path 7's overlay (V = 2^26, OVERLAY_ROWS written rows) on a 2 x 1
+    # grid at one rung, against its 1 x 1 scorer.
+    ocfg = load_config(DIST_CFG_PATH, {
+        "mesh_data": 2, "mesh_model": 1, "lookup": "auto",
+        "batch_size": 4096, "serve_poll_secs": 0.0, "table_tiering": "on",
+        "cold_dtype": "fp32"})
+    gen = np.random.default_rng(SEED)
+    written = gen.choice(ocfg.vocabulary_size, OVERLAY_ROWS, replace=False)
+    store = tiered._virtual_store(ocfg, "table")
+    store.scatter(written, gen.uniform(-0.05, 0.05, (OVERLAY_ROWS, D))
+                  .astype(np.float32))
+    n_req = GRID_OVERLAY_RUNG - 24
+    o_ids = np.where(rng.random((n_req, F)) < 0.5,
+                     written[rng.integers(0, OVERLAY_ROWS, (n_req, F))],
+                     rng.integers(0, ocfg.vocabulary_size, (n_req, F))
+                     ).astype(np.int32)
+    o_vals = rng.uniform(0.1, 1.5, (n_req, F)).astype(np.float32)
+    one = OverlayScorer(dataclasses.replace(ocfg, mesh_data=1), -0.05,
+                        store, devices=cards[:1])
+    two = OverlayScorer(ocfg, -0.05, store,
+                        devices=grid_devices((2, 1), cards))
+    check(two.rung_for(n_req) == GRID_OVERLAY_RUNG, "overlay rung")
+    want_o = one.score(o_ids, o_vals)
+    fm_scores_cuda.launches = 0
+    got_o = two.score(o_ids, o_vals)
+    check(fm_scores_cuda.launches == 2,
+          f"overlay 2x1: FmScorer launched {fm_scores_cuda.launches} times "
+          f"for one dispatch of two blocks")
+    launches += fm_scores_cuda.launches
+    check(np.array_equal(got_o.view(np.uint32), want_o.view(np.uint32)),
+          "overlay 2x1: not bitwise its 1 x 1 scorer")
+    p50_ms = {}
+    for name, sc in (("1x1", one), ("2x1", two), ("1x1_again", one),
+                     ("2x1_again", two)):
+        times = []
+        for _ in range(GRID_TIMED):
+            t0 = time.perf_counter()
+            sc.score(o_ids, o_vals)
+            times.append(time.perf_counter() - t0)
+        p50_ms[name] = p50(times) * 1e3
+    record["overlay_2x1"] = {"rung": GRID_OVERLAY_RUNG, "bitwise_1x1": True,
+                             "dispatch_p50_ms": p50_ms,
+                             "staging_bytes": two.staging_bytes()}
+    del one, two, store, written
+    # serve() and predict() on the GRID_SERVE grid, from a copy of the
+    # checkpoint (the hot swap writes into it).
+    serve_dir = os.path.join(tmp, "grid_model")
+    checkpoint.save_params(serve_dir, model, step=step)
+    devs = grid_devices(GRID_SERVE, cards)
+    scfg = dataclasses.replace(base, model_file=serve_dir,
+                               mesh_data=GRID_SERVE[0],
+                               mesh_model=GRID_SERVE[1])
+    with open(predict_file) as f:
+        text = f.read()
+    ids_p, vals_p, _, n_p, _ = parse_request(text, scfg)
+    fm_scores_cuda.launches = 0
+    pcfg = dataclasses.replace(scfg, predict_files=[predict_file],
+                               score_path=os.path.join(tmp, "grid.txt"))
+    check(predict(pcfg, devices=devs) == n_p, "grid predict lines")
+    with open(pcfg.score_path) as f:
+        predicted = f.read()
+    handle = serve(scfg, devices=devs, port=0)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", handle.port,
+                                          timeout=120)
+        served_text = post(conn, "/score", text.encode()).decode()
+        frame = wire.encode_bin_request(ids_p, vals_p)
+        bin_scores = wire.decode_bin_response(post(conn, "/score_bin",
+                                                   frame))
+        check(served_text == predicted,
+              "grid serve: /score is not predict's file")
+        check("".join(f"{x:.6f}\n" for x in bin_scores) == predicted,
+              "grid serve: /score_bin is not predict's file")
+        status = get_json(conn, "/status")["serve"]
+        check(status["device"].startswith(
+            f"{GRID_SERVE[0]}x{GRID_SERVE[1]}: "), status["device"])
+        check(status["table_mb"] == round(V * D * 4 / (1 << 20), 3),
+              f"grid serve: table_mb {status['table_mb']}")
+        launches += fm_scores_cuda.launches
+        # One keep_prev hot swap to a scaled table, then the rollback.
+        checkpoint.save_params(serve_dir, type(model)(
+            model.w0.detach(), model.table.detach() * 0.5), step=step + 1)
+        swapped = json.loads(post(conn, "/reload?keep_prev=1", b""))
+        check(swapped.get("step") == step + 1, f"grid reload: {swapped}")
+        new = wire.decode_bin_response(post(conn, "/score_bin", frame))
+        check(not np.array_equal(new, bin_scores),
+              "grid reload: the scores did not change")
+        back = json.loads(post(conn, "/rollback", b""))
+        check(back.get("step") == step, f"grid rollback: {back}")
+        rolled = wire.decode_bin_response(post(conn, "/score_bin", frame))
+        check(np.array_equal(rolled.view(np.uint32),
+                             bin_scores.view(np.uint32)),
+              "grid rollback: not the old scores bit for bit")
+        conn.close()
+        record["serve"] = {"grid": list(GRID_SERVE), "lines": n_p,
+                           "device": status["device"],
+                           "dispatch_p50_ms": status.get("dispatch_p50_ms"),
+                           "score_equals_predict": True,
+                           "rollback_bitwise": True}
+    finally:
+        handle.close()
+    if cli_mesh:
+        record["cli"] = grid_cli(np, tmp, serve_dir, predict_file, text)
+    del model, table, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["fm_scores_launches"] = launches
+    record["wall_s"] = time.perf_counter() - t_phase
+    return record, launches
+
+
+def grid_cli(np, tmp: str, model_dir: str, predict_file: str,
+             text: str) -> dict:
+    """The CLI's ``predict`` and ``serve`` (subprocesses, every visible
+    GPU) with ``mesh_data = 2``, ``mesh_model = 2`` in the config: the
+    served ``/score`` of the predict file equals predict's file."""
+    with open(CFG_PATH) as f:
+        body = f.read()
+    scores = os.path.join(tmp, "grid_cli_scores.txt")
+    for key, value in (("model_file", model_dir),
+                       ("predict_files", predict_file),
+                       ("score_path", scores)):
+        body = re.sub(rf"(?m)^{key} = .*$", f"{key} = {value}", body)
+    check(body.rstrip().rsplit("[", 1)[1].startswith("Tpu]"),
+          "the config's last section is not [Tpu]")
+    body = body.rstrip("\n") + "\nmesh_data = 2\nmesh_model = 2\n"
+    path = os.path.join(tmp, "grid_cli.cfg")
+    with open(path, "w") as f:
+        f.write(body)
+    cli = [sys.executable, "-m", "fast_tffm_tpu_torch.cli"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    out = subprocess.run(cli + ["predict", path], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"grid CLI predict: {out.stderr[-2000:]}")
+    predict_s = time.perf_counter() - t0
+    with open(scores) as f:
+        predicted = f.read()
+    proc = subprocess.Popen(cli + ["serve", path, "--serve_port", "0"],
+                            env=env, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL)
+    try:
+        line = read_line(proc, 300)
+        check(line.startswith("serving on "), f"grid CLI serve: {line!r}")
+        port = int(line.rsplit(":", 1)[1])
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        served = post(conn, "/score", text.encode()).decode()
+        status = get_json(conn, "/status")["serve"]
+        conn.close()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    check(served == predicted, "grid CLI: /score is not predict's file")
+    check(status["device"].startswith("2x2: "), status["device"])
+    return {"predict_s": predict_s, "device": status["device"],
+            "score_equals_predict": True}
+
+
 def nccl_main() -> int:
     """``--nccl``: the sharded phase (its three 2 x 2 runs), path 11 as
     a ``1 x 4`` fleet against the dense ``1 x 4`` mesh and path 12's
     2 x 2 runs, one rank per GPU (needs at least four), so the backend
-    rule picks NCCL."""
+    rule picks NCCL; their one-device serving and predict on ``cuda:0``.
+    Then path 15 over ``cuda:0-3`` (2 x 2, 1 x 4 and 4 x 1 against 1 x
+    1) with the CLI's ``predict`` and ``serve`` on a 2 x 2 grid."""
     import numpy as np
     import torch
 
@@ -5852,6 +6205,26 @@ def nccl_main() -> int:
         mesh_rec, _ = mesh_modes_phase(np, torch, card, rng, world=world,
                                        one_card=False)
         print(json.dumps({"mesh_modes": mesh_rec}), flush=True)
+        # Path 15 over the four cards, from a seeded random checkpoint
+        # at Criteo-Kaggle's width, and the CLI on a 2 x 2 grid.
+        from fast_tffm_tpu_torch import weights
+        from fast_tffm_tpu_torch.config import load_config
+        from fast_tffm_tpu_torch.train import checkpoint
+
+        gcfg = load_config(CFG_PATH)
+        table = rng.uniform(-0.05, 0.05, (gcfg.vocabulary_size,
+                                          gcfg.embedding_dim)
+                            ).astype(np.float32)
+        grid_dir = os.path.join(tmp, "grid_src")
+        checkpoint.save_params(grid_dir, weights.from_jax(-0.1, table,
+                                                          device="cpu"),
+                               step=1)
+        del table
+        cards = [f"cuda:{i}" for i in range(world)]
+        grid_rec, _ = grid_phase(np, torch, card, rng, grid_dir, tmp,
+                                 predict_file, cards, GRIDS_FOUR_CARDS, {},
+                                 cli_mesh=True)
+        print(json.dumps({"grid": grid_rec}), flush=True)
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6960,7 +7333,27 @@ def main() -> int:
           "cache, --check passes, a served auto config starts from the "
           "file and agrees with predict", flush=True)
     phase_end("autotune")
-    tmp_ctx.cleanup()  # the main run's files, which paths 8-11 and 14 read
+
+    # -- grid phase (path 15): the scorer over data x model grids -------
+    grid_rec, grid_launches = grid_phase(
+        np, torch, card, rng, model_dir, tmp, predict_file, ["cuda:0"],
+        GRIDS_ONE_CARD, err)
+    print(json.dumps({"grid": grid_rec}), flush=True)
+    print("grid (" + card + "): " + json.dumps({
+        dtype: {name: r["dispatch_p50_ms"] for name, r in by.items()}
+        for dtype, by in grid_rec["grids"].items()}), flush=True)
+    print("grid check: 1x1, 2x1, 1x2 and 2x2 grids over cuda:0 at fp32, "
+          "bf16 and int8 score as the 1x1 scorer ("
+          + json.dumps({dtype: {name: r["bitwise_1x1"]
+                                for name, r in by.items()}
+                        for dtype, by in grid_rec["grids"].items()})
+          + " bitwise); FmScorer once per data block per dispatch and "
+          "within KERNEL_TOL of its plain version at every block shape; "
+          "the V = 2^26 overlay on 2x1 bitwise its 1x1; serve() on 2x2 "
+          "answers /score and /score_bin as predict() on 2x2 writes, and "
+          "a keep_prev reload rolls back bitwise", flush=True)
+    phase_end("grid")
+    tmp_ctx.cleanup()  # the main run's files, which paths 8-11, 14, 15 read
 
     # -- mesh_modes phase (path 12): FFM, bf16, dense optax on a mesh ---
     mesh_rec, mesh_launches = mesh_modes_phase(np, torch, card, rng,
@@ -7034,6 +7427,9 @@ def main() -> int:
     # its served requests and predict.
     for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
         launches[name] += autotune_launches[name]
+    # Path 15: the grids' requests (once per data block per dispatch),
+    # the overlay's 2 x 1 rung, and serve() and predict() on 2 x 2.
+    launches["fm_scores"] += grid_launches
     sources = {
         "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
         "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),

@@ -45,7 +45,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument(
         "--device", default=None, choices=["cuda", "cpu"],
         help="device to run on (default cuda; a host without a GPU "
-             "needs --device cpu)",
+             "needs --device cpu); predict and serve score over a "
+             "mesh_data x mesh_model grid of every visible GPU",
     )
     p.add_argument(
         "--serve_port", type=int, default=None,
@@ -434,10 +435,13 @@ def main(argv=None) -> int:
             "flags: a multi-rank checkpoint is one params.npz"
         )
     if dist is not None and args.mode == "serve":
+        # One server answers its own requests, so a grid spanning
+        # processes would need every rank in every dispatch.
         raise NotImplementedError(
-            "serving across ranks (a scorer over several devices) is "
-            "ROADMAP.md port queue item 3; serve the multi-rank "
-            "checkpoint (one params.npz) from a single process"
+            "serve runs in one process: it scores over that process's "
+            "devices as a grid (mesh_data x mesh_model in the config); "
+            "run it without the multi-rank flags — a multi-rank "
+            "checkpoint is one params.npz"
         )
     if args.mode == "train":
         from fast_tffm_tpu_torch.train.loop import Trainer

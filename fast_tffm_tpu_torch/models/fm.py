@@ -27,7 +27,7 @@ from fast_tffm_tpu_torch.platform import resolve_device
 
 __all__ = [
     "FmModel", "example_losses", "ffm_scores_from_rows", "fm_scores",
-    "fm_scores_dequant", "init_params",
+    "fm_scores_dequant", "gather_dequant", "init_params",
     "interaction_terms", "l2_penalty_batch", "l2_penalty_full",
     "scores_from_rows",
     "scores_from_terms",
@@ -137,6 +137,21 @@ def fm_scores(model: FmModel, ids: torch.Tensor, vals: torch.Tensor,
                             field_num=field_num, impl=impl)
 
 
+def gather_dequant(codes: torch.Tensor, scales: torch.Tensor, chunk: int,
+                   ids: torch.Tensor,
+                   global_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """f32 rows ``[N, D]`` of an int8 table at the flat ``ids``: the codes
+    ``codes[ids]`` widened by their scales ``scales[global_ids // chunk]``
+    (``scales[global_ids]`` for ``chunk <= 1``).  ``global_ids`` (default
+    ``ids``) are the rows' ids in the whole table where ``codes`` holds
+    one model shard of it: the scales are indexed by the global row,
+    never the shard's local one."""
+    g = ids if global_ids is None else global_ids
+    code_rows = codes.index_select(0, ids)
+    scale_rows = scales.index_select(0, g // chunk if chunk > 1 else g)
+    return quant.dequant_gathered(code_rows, scale_rows)
+
+
 def fm_scores_dequant(w0: torch.Tensor, codes: torch.Tensor,
                       scales: torch.Tensor, chunk: int, ids: torch.Tensor,
                       vals: torch.Tensor,
@@ -151,10 +166,7 @@ def fm_scores_dequant(w0: torch.Tensor, codes: torch.Tensor,
     :func:`scores_from_rows` through ``impl`` (the FmScorer kernel on the
     GPU by default, or FFM's einsums).  The same math as
     :func:`fm_scores` on the dequantized table."""
-    flat = ids.reshape(-1)
-    code_rows = codes.index_select(0, flat)
-    scale_rows = scales.index_select(0, flat // chunk if chunk > 1 else flat)
-    rows = quant.dequant_gathered(code_rows, scale_rows)
+    rows = gather_dequant(codes, scales, chunk, ids.reshape(-1))
     return scores_from_rows(w0, rows.view(*ids.shape, codes.shape[1]),
                             vals, fields, factor_num=factor_num,
                             field_num=field_num, impl=impl)

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 __all__ = [
-    "DTYPES", "QuantParams", "QuantTable", "RowCodec", "bf16_bits_to_f32",
+    "DTYPES", "QuantTable", "RowCodec", "bf16_bits_to_f32",
     "bf16_bits_to_torch", "cold_codec", "dequant_gathered",
     "dequantize_int8", "dequantize_rows", "dequantize_table",
     "f32_to_bf16_bits", "quantize_int8", "quantize_table",
@@ -136,15 +136,6 @@ def dequant_gathered(codes_rows: torch.Tensor,
 # ----------------------------------------------------------------------
 # Dense quantized tables (serving ladder + quant.npz checkpoint)
 # ----------------------------------------------------------------------
-
-
-class QuantParams(NamedTuple):
-    """Device-resident int8 serving params: ``w0`` f32 [], ``codes``
-    int8 [V, dim], ``scales`` f32 [ceil(V/chunk)]."""
-
-    w0: torch.Tensor
-    codes: torch.Tensor
-    scales: torch.Tensor
 
 
 class QuantTable(NamedTuple):

@@ -16,18 +16,26 @@ the tensors to the axis's first rank only (a checkpoint's save).
 :func:`all_gather_async` starts an all-gather and returns at once; its
 ``wait()`` gives the result (the overlapped entries exchange's id
 plane).
+
+:class:`DeviceGrid` is the other half of the reference's module for ONE
+process: its ``make_mesh`` over the devices the process sees, and
+``param_sharding``'s table rows split over ``model``.  The scorer
+(``serve/scorer.py``) serves and predicts over it; the trainer's rank
+:class:`Mesh` above is untouched by it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "PendingGather", "all_gather",
-           "all_gather_async", "barrier", "data_partition", "gather",
-           "make_mesh", "mesh_shape", "psum"]
+from fast_tffm_tpu_torch.platform import resolve_devices
+
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "DeviceGrid", "Mesh", "PendingGather",
+           "all_gather", "all_gather_async", "barrier", "data_partition",
+           "gather", "make_mesh", "mesh_shape", "psum"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -80,6 +88,76 @@ class Mesh:
 
     def _staged(self, t: torch.Tensor) -> bool:
         return t.device.type == "cuda" and self.backend == "gloo"
+
+
+class DeviceGrid:
+    """One process's ``data x model`` grid of devices, the reference's
+    ``make_mesh(cfg, devices)``: ``mesh_data x mesh_model`` from the
+    config, or every device on ``data`` when the config asks for 1 x 1
+    and several devices are given; a grid larger than the devices
+    raises with the reference's words, and surplus devices are left
+    out, as there.  ``devices`` goes through
+    :func:`~fast_tffm_tpu_torch.platform.resolve_devices` (None: every
+    visible GPU) and may repeat a device (``["cpu"] * 4``, ``["cuda:0"]
+    * 4``), the counterpart of the reference's virtual CPU devices.
+
+    ``devices[i][j]`` is the device at data row ``i``, model column
+    ``j`` (row-major, as the reference's grid).  Data row ``i`` scores
+    the ``i``-th block of every batch on its first device; device ``(i,
+    j)`` holds model shard ``j``'s rows (:meth:`row_ranges`)."""
+
+    def __init__(self, cfg, devices=None):
+        devs = resolve_devices(devices)
+        n = len(devs)
+        d, m = cfg.mesh_data, cfg.mesh_model
+        if d * m == 1 and n > 1:
+            d, m = n, 1
+        if d * m > n:
+            raise ValueError(f"mesh {d}x{m} needs {d * m} devices, have {n}")
+        if len({dev.type for dev in devs}) > 1:
+            raise ValueError(
+                f"a grid's devices are all GPUs or all the CPU, got {devs}")
+        self.data, self.model = d, m
+        self.devices: Tuple[Tuple[torch.device, ...], ...] = tuple(
+            tuple(devs[i * m:(i + 1) * m]) for i in range(d))
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    @property
+    def first(self) -> torch.device:
+        """The device at ``(0, 0)``."""
+        return self.devices[0][0]
+
+    def flat(self) -> List[torch.device]:
+        """Every device of the grid, row-major."""
+        return [dev for row in self.devices for dev in row]
+
+    def row_ranges(self, vocab: int) -> List[Tuple[int, int]]:
+        """``[lo_j, hi_j)`` of model shard ``j``: ``vocab / model`` rows
+        each, in order.  A vocabulary that ``model`` does not divide
+        raises ValueError, as the reference's row sharding does."""
+        if vocab % self.model:
+            raise ValueError(
+                f"the table's {vocab} rows do not split over a model axis "
+                f"of {self.model}: its dimension 0 should be divisible by "
+                f"{self.model}, but it is equal to {vocab}")
+        local = vocab // self.model
+        return [(j * local, (j + 1) * local) for j in range(self.model)]
+
+    def describe(self) -> str:
+        """The grid's devices by name: a single device as
+        ``torch.cuda.get_device_name`` gives it (or ``cpu``), a larger
+        grid as ``"DxM: cuda:0 (name), ..."``, every device named."""
+        def name(dev):
+            return (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                    else "cpu")
+
+        if self.size == 1:
+            return name(self.first)
+        return f"{self.data}x{self.model}: " + ", ".join(
+            f"{dev} ({name(dev)})" for dev in self.flat())
 
 
 def mesh_shape(mesh_data: int, mesh_model: int, world: int) -> Tuple[int, int]:

@@ -2,16 +2,16 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "resolve_devices"]
+
+DeviceLike = Union[str, torch.device]
 
 
-def resolve_device(
-    device: Optional[Union[str, torch.device]] = None,
-) -> torch.device:
+def resolve_device(device: Optional[DeviceLike] = None) -> torch.device:
     """The device an entry point runs on.
 
     ``None`` means the GPU (``cuda``); a host without one raises rather
@@ -31,3 +31,33 @@ def resolve_device(
             "on the CPU"
         )
     return dev
+
+
+def resolve_devices(
+    devices: Optional[Union[DeviceLike, Sequence[DeviceLike]]] = None,
+) -> List[torch.device]:
+    """The devices an entry point of several devices (the scorer's grid)
+    runs on, under :func:`resolve_device`'s rules: ``None`` or ``"cuda"``
+    means every visible GPU (and raises on a host without one), ``"cpu"``
+    is the CPU, one indexed device (``"cuda:1"``) is that device alone,
+    and a list is taken as it is, repeats included (``["cpu"] * 4`` is a
+    grid of four on the CPU).  A CUDA device without an index in a list
+    is the current one.  Nothing falls back to another device."""
+    if devices is None or isinstance(devices, (str, torch.device)):
+        dev = resolve_device(devices)
+        if dev.type == "cuda" and dev.index is None:
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        out = [dev]
+    else:
+        out = [resolve_device(d) for d in devices]
+        if not out:
+            raise ValueError("an empty device list")
+        out = [torch.device("cuda", torch.cuda.current_device())
+               if d.type == "cuda" and d.index is None else d for d in out]
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for d in out:
+        if d.type == "cuda" and d.index >= count:
+            raise RuntimeError(
+                f"{d} is not visible to PyTorch ({count} GPU(s) visible)")
+    return out

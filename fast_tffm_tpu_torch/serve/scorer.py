@@ -21,8 +21,8 @@ Two variants share the plumbing:
   ``serve_table_dtype`` says: ``fp32``; ``bf16`` (half the bytes,
   gathered as bf16 and widened to f32 before the f32 FmScorer, whose
   ``vals`` stay f32 as the reference's do); or ``int8`` codes with one
-  f32 scale per ``quant_chunk`` rows (``models.fm.fm_scores_dequant``:
-  gather codes and scales, widen, score).  An fp32 model is quantized
+  f32 scale per ``quant_chunk`` rows (``models.fm.gather_dequant``:
+  gather codes and scales, widen, then score as f32 rows).  An fp32 model is quantized
   on the host at placement; a ``quant.npz`` table is placed as it is.
 - :class:`OverlayScorer` scores a ``tiered.npz`` sparse overlay (or a
   rank-sharded set of ``tiered.shard{s}of{S}.npz``) straight
@@ -45,6 +45,22 @@ anchored to the last table that was not on trial, as the reference's.
 startup.  :func:`load_model` reads every checkpoint format, the JAX
 package's Orbax directories included.
 
+Both score over a ``data x model`` grid of the process's devices
+(``parallel/mesh.py::DeviceGrid``, the reference's ``make_mesh``): the
+config's ``mesh_data x mesh_model``, or every device on ``data`` when it
+asks for 1 x 1 (so one visible GPU is a 1 x 1 grid, and serving there is
+one device's path).  Every rung is rounded up to a multiple of ``data``
+and split into that many equal blocks of examples; data row ``i``
+scores block ``i`` on its first device, each block with its own device
+twins and event.  A dispatch issues every block's copies and scores
+before it waits on any, and writes the scores back in example order.
+The dense table's rows are split over ``model`` and copied over
+``data``: device ``(i, j)`` holds shard ``j`` (f32, bf16 or int8 codes;
+the int8 scales whole on every device), each shard gathers the ids in
+its range, and the rows meet on the block's device, where each id keeps
+its own shard's row.  The overlay's compact table is copied to every
+block's device.  The FmScorer kernel runs once per block.
+
 The interaction each rung runs is the reference's autotune hook: with
 ``interaction_impl`` set, the scorer resolves it at the max rung and the
 table's dtype (``ops/autotune.py``, ``context="serve"``; ``auto``
@@ -57,22 +73,23 @@ With ``interaction_impl = ""`` the port keeps its FmScorer kernel
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from fast_tffm_tpu_torch.config import FmConfig
 from fast_tffm_tpu_torch.models.fm import (
-    FmModel, fm_scores_dequant, scores_from_rows,
+    FmModel, gather_dequant, scores_from_rows,
 )
 from fast_tffm_tpu_torch.obs.telemetry import NULL
 from fast_tffm_tpu_torch.ops import autotune as autotune_lib
 from fast_tffm_tpu_torch.ops import quant
-from fast_tffm_tpu_torch.platform import resolve_device
+from fast_tffm_tpu_torch.parallel.mesh import DeviceGrid
 from fast_tffm_tpu_torch.train import checkpoint
 from fast_tffm_tpu_torch.train import tiered as tiered_lib
 
@@ -83,14 +100,88 @@ __all__ = ["FixedShapeScorer", "OverlayScorer", "load_model",
 
 CONVERT_TOOL = "python -m fast_tffm_tpu_torch.tools.convert_checkpoint"
 
+Devices = Optional[Union[str, torch.device,
+                         Sequence[Union[str, torch.device]]]]
+
+
+def _grid_devices(device: Devices, devices: Devices) -> Devices:
+    """The one of ``device`` / ``devices`` that was given (None: every
+    visible GPU)."""
+    if device is not None and devices is not None:
+        raise ValueError("give device or devices, not both")
+    return devices if devices is not None else device
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sigmoid``, on the CPU one element at a time: there its
+    vectorized body and its scalar tail round ``exp`` differently in the
+    last place, so a score would depend on where its rung or block puts
+    it; a strided output keeps every element on the scalar path.  On the
+    GPU every element runs the same code already."""
+    if x.device.type != "cpu":
+        return torch.sigmoid(x)
+    return torch.sigmoid(x, out=torch.empty((x.numel(), 2),
+                                            dtype=x.dtype)[:, 0])
+
+
+def _on(dev: torch.device):
+    """``dev`` as the current CUDA device (nothing on the CPU)."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+class _Block:
+    """One data block of a rung: its examples ``[lo, hi)``, scored on
+    ``dev``, the first device of its data row.  The host tensors are
+    slices of the rung's pinned staging; ``ids_dev[j]`` is the ids' twin
+    on the row's device ``j`` (model shard ``j`` gathers there), the
+    values (and fields) have one twin on ``dev``, and ``done`` is an
+    event of ``dev``.  On the CPU the twins are the host slices and
+    ``done`` is None."""
+
+    def __init__(self, rung: "_Rung", lo: int, hi: int, row, pin: bool):
+        self.lo, self.hi, self.b = lo, hi, hi - lo
+        self.dev = row[0]
+
+        def part(t):
+            return None if t is None else t[lo:hi]
+
+        self.ids_host = part(rung.ids_host)
+        self.vals_host = part(rung.vals_host)
+        self.fields_host = part(rung.fields_host)
+        self.out_host = part(rung.out_host)
+        if pin:
+            def twin(t, dev):
+                return None if t is None else torch.zeros_like(t, device=dev)
+
+            self.ids_dev = [twin(self.ids_host, dev) for dev in row]
+            self.vals_dev = twin(self.vals_host, self.dev)
+            self.fields_dev = twin(self.fields_host, self.dev)
+            # An event belongs to the device current when it is made.
+            with torch.cuda.device(self.dev):
+                self.done = torch.cuda.Event()
+        else:
+            self.ids_dev = [self.ids_host] * len(row)
+            self.vals_dev, self.fields_dev, self.done = (
+                self.vals_host, self.fields_host, None)
+
+    def device_tensors(self) -> list:
+        """The block's device twins (none on the CPU)."""
+        if self.done is None:
+            return []
+        return [t for t in (*self.ids_dev, self.vals_dev, self.fields_dev)
+                if t is not None]
+
 
 class _Rung:
-    """One rung's staging buffers (``b`` examples x ``F`` features);
-    ``fields`` only ``with_fields`` (field-aware FM), else None."""
+    """One rung's staging buffers (``b`` examples x ``F`` features):
+    pinned host ``ids``/``vals`` (``fields`` only ``with_fields``,
+    field-aware FM, else None) and output, split into one
+    :class:`_Block` per data row of ``grid``."""
 
-    def __init__(self, b: int, feat: int, device: torch.device,
+    def __init__(self, b: int, feat: int, grid: DeviceGrid,
                  with_fields: bool = False):
-        pin = device.type == "cuda"
+        pin = grid.first.type == "cuda"
         self.b = b
 
         def host(dtype, shape):
@@ -107,19 +198,9 @@ class _Rung:
         self.fields = None if self.fields_host is None else (
             self.fields_host.numpy())
         self.out = self.out_host.numpy()
-        if pin:
-            def twin(t):
-                return None if t is None else torch.zeros_like(
-                    t, device=device)
-
-            self.ids_dev = twin(self.ids_host)
-            self.vals_dev = twin(self.vals_host)
-            self.fields_dev = twin(self.fields_host)
-            self.done = torch.cuda.Event()
-        else:
-            self.ids_dev, self.vals_dev, self.fields_dev, self.done = (
-                self.ids_host, self.vals_host, self.fields_host, None
-            )
+        step = b // grid.data
+        self.blocks = [_Block(self, i * step, (i + 1) * step, row, pin)
+                       for i, row in enumerate(grid.devices)]
 
     def stage(self, c: int, ids, vals, fields) -> None:
         """Copy ``c`` examples into the rung's first rows and zero the
@@ -143,16 +224,25 @@ class _LadderScorer:
     lock (the batcher dispatches from a single thread anyway; the lock
     makes direct callers safe too).  ``swap`` may run on any thread.
     Subclasses set ``self._model`` and implement :meth:`_scores`.
+
+    ``device`` or ``devices`` (a device, ``"cuda"`` / ``"cpu"``, or a
+    list, repeats allowed; None: every visible GPU) make the scorer's
+    :class:`DeviceGrid`; ``self.device`` is its first device.  The
+    ladder is the config's rungs and ``extra_rungs``, each rounded up
+    to a multiple of the grid's ``data`` size, as the reference's.
     """
 
-    def __init__(self, cfg: FmConfig,
-                 device: Optional[Union[str, torch.device]] = None,
+    def __init__(self, cfg: FmConfig, device: Devices = None,
                  telemetry=None, step: int = 0, extra_rungs=(),
-                 writer=None):
+                 writer=None, devices: Devices = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.ladder = tuple(sorted(set(cfg.serve_ladder)
-                                   | {int(b) for b in extra_rungs}))
+        self.grid = DeviceGrid(cfg, _grid_devices(device, devices))
+        self.device = self.grid.first
+        data = self.grid.data
+        self.ladder = tuple(sorted({
+            -(-int(b) // data) * data
+            for b in tuple(cfg.serve_ladder) + tuple(extra_rungs)
+            if int(b) > 0}))
         self.max_rung = self.ladder[-1]
         self._feat = cfg.max_features
         self._field_num = cfg.field_num
@@ -206,18 +296,18 @@ class _LadderScorer:
     def _rung(self, b: int) -> _Rung:
         rung = self._rungs.get(b)
         if rung is None:
-            rung = _Rung(b, self._feat, self.device,
+            rung = _Rung(b, self._feat, self.grid,
                          with_fields=self._field_num > 0)
             self._rungs[b] = rung
         return rung
 
     def staging_bytes(self) -> int:
         """Bytes of the device staging this scorer holds: the rungs'
-        input twins (none on the CPU, where the host buffers serve)."""
-        return sum(
-            t.numel() * t.element_size() for r in self._rungs.values()
-            if r.done is not None
-            for t in (r.ids_dev, r.vals_dev, r.fields_dev) if t is not None)
+        input twins on every device of the grid (none on the CPU, where
+        the host buffers serve)."""
+        return sum(t.numel() * t.element_size()
+                   for r in self._rungs.values() for blk in r.blocks
+                   for t in blk.device_tensors())
 
     # -- scoring -------------------------------------------------------
 
@@ -275,34 +365,48 @@ class _LadderScorer:
             with self._swap_lock:
                 model = self._model
             with torch.inference_mode():
-                scores = self._scores(model, rung)
-                if self._logistic:
-                    scores = torch.sigmoid(scores)
-                rung.out_host.copy_(scores, non_blocking=True)
-                if rung.done is not None:
-                    rung.done.record()
-                    rung.done.synchronize()
+                prep = self._prepare(model, rung)
+                # Every block is issued before any is waited on.
+                for i, blk in enumerate(rung.blocks):
+                    with _on(blk.dev):
+                        scores = self._scores(model, i, blk, prep)
+                        if self._logistic:
+                            scores = _sigmoid(scores)
+                        blk.out_host.copy_(scores, non_blocking=True)
+                        if blk.done is not None:
+                            blk.done.record()
+                for blk in rung.blocks:
+                    if blk.done is not None:
+                        blk.done.synchronize()
             return rung.out.copy()
 
-    def _copy_inputs(self, rung: _Rung) -> None:
-        """Non-blocking copies of the rung's staged inputs to the
-        device (nothing to copy on the CPU)."""
-        if rung.done is not None:
-            rung.ids_dev.copy_(rung.ids_host, non_blocking=True)
-            rung.vals_dev.copy_(rung.vals_host, non_blocking=True)
-            if rung.fields_dev is not None:
-                rung.fields_dev.copy_(rung.fields_host, non_blocking=True)
+    def _prepare(self, model, rung: _Rung):
+        """Per-rung work before the blocks (the overlay's host gather);
+        its result reaches every block's :meth:`_scores`."""
+        return None
+
+    def _copy_inputs(self, blk: _Block) -> None:
+        """Non-blocking copies of the block's staged inputs to its
+        devices (nothing to copy on the CPU)."""
+        if blk.done is not None:
+            for t in blk.ids_dev:
+                t.copy_(blk.ids_host, non_blocking=True)
+            blk.vals_dev.copy_(blk.vals_host, non_blocking=True)
+            if blk.fields_dev is not None:
+                blk.fields_dev.copy_(blk.fields_host, non_blocking=True)
 
     def _score_rows(self, w0: torch.Tensor, rows: torch.Tensor,
-                    rung: _Rung) -> torch.Tensor:
-        """Scores without the sigmoid from the rung's gathered f32 rows
+                    blk: _Block) -> torch.Tensor:
+        """Scores without the sigmoid from the block's gathered f32 rows
         ``[b * F, D]``."""
         return scores_from_rows(
-            w0, rows.view(rung.b, self._feat, -1), rung.vals_dev,
-            rung.fields_dev, factor_num=self._factor_num,
+            w0, rows.view(blk.b, self._feat, -1), blk.vals_dev,
+            blk.fields_dev, factor_num=self._factor_num,
             field_num=self._field_num, impl=self._impl)
 
-    def _scores(self, model, rung: _Rung) -> torch.Tensor:
+    def _scores(self, model, i: int, blk: _Block, prep) -> torch.Tensor:
+        """Scores without the sigmoid of data block ``i``, on its device
+        (the current one)."""
         raise NotImplementedError
 
     # -- hot swap ------------------------------------------------------
@@ -343,6 +447,17 @@ class _LadderScorer:
         return True
 
 
+class _Placed(NamedTuple):
+    """A dense table placed on a grid: ``w0[i]`` f32 on data row ``i``'s
+    first device; ``shards[i][j]`` model shard ``j``'s rows on device
+    ``(i, j)`` (f32 or bf16 rows, or int8 codes); ``scales[i][j]`` the
+    whole int8 scale vector on every device (None for f32 and bf16)."""
+
+    w0: tuple
+    shards: tuple
+    scales: Optional[tuple]
+
+
 class FixedShapeScorer(_LadderScorer):
     """Dense-table scorer: the table device-resident in
     ``cfg.serve_table_dtype``, hot-swappable.
@@ -353,15 +468,19 @@ class FixedShapeScorer(_LadderScorer):
     the config's.  Gauges: ``serve.table_bytes`` (the placed table's
     bytes) and ``serve.quant_error_max`` (0 for fp32, -1 for a
     pre-quantized table, else the max |score_fp32 - score_quant| of
-    :meth:`_probe_quant_error` at placement).
+    :meth:`_probe_quant_error` at placement).  On a grid the table's
+    rows split over ``model`` (:meth:`DeviceGrid.row_ranges`: a
+    vocabulary ``model`` does not divide raises) and the gauge is still
+    the whole table's bytes, as the reference's.
     """
 
-    def __init__(self, cfg: FmConfig, model,
-                 device: Optional[Union[str, torch.device]] = None,
+    def __init__(self, cfg: FmConfig, model, device: Devices = None,
                  telemetry=None, step: int = 0, extra_rungs=(),
-                 writer=None):
+                 writer=None, devices: Devices = None):
         super().__init__(cfg, device=device, telemetry=telemetry,
-                         step=step, extra_rungs=extra_rungs, writer=writer)
+                         step=step, extra_rungs=extra_rungs, writer=writer,
+                         devices=devices)
+        self._ranges = self.grid.row_ranges(cfg.vocabulary_size)
         self.table_dtype = quant.validate_dtype(
             cfg.serve_table_dtype, "serve_table_dtype")
         self._chunk = cfg.quant_chunk
@@ -401,9 +520,11 @@ class FixedShapeScorer(_LadderScorer):
         return float((score(table_f32[ids])
                       - score(quant.dequantize_rows(qt, ids))).abs().max())
 
-    def _place(self, model):
-        """The model on the device in ``serve_table_dtype``: ``(w0,
-        table)`` (f32 or bf16 table) or a ``quant.QuantParams``."""
+    def _place(self, model) -> "_Placed":
+        """The model on the grid in ``serve_table_dtype``
+        (:class:`_Placed`): model shard ``j``'s rows on every device of
+        column ``j``, ``w0`` on every data row's first device, and the
+        int8 scales whole on every device."""
         t0 = time.perf_counter()
         dtype = self.table_dtype
         if isinstance(model, FmModel):
@@ -422,7 +543,8 @@ class FixedShapeScorer(_LadderScorer):
         if shape != want:
             raise ValueError(
                 f"model table is {shape} but the config wants {want}")
-        dev = self.device
+        grid = self.grid
+        scales = None
         if dtype == "fp32":
             if qt is not None:
                 raise ValueError(
@@ -432,10 +554,14 @@ class FixedShapeScorer(_LadderScorer):
                     f"it back ({CONVERT_TOOL} <dir> --to fp32)"
                 )
             with torch.no_grad():
-                placed = (
-                    model.w0.detach().to(dev, torch.float32),
-                    model.table.detach().to(dev, torch.float32).contiguous(),
-                )
+                w0_src = model.w0.detach()
+                table = model.table.detach()
+                w0 = tuple(w0_src.to(row[0], torch.float32)
+                           for row in grid.devices)
+                shards = tuple(
+                    tuple(table[lo:hi].to(dev, torch.float32).contiguous()
+                          for dev, (lo, hi) in zip(row, self._ranges))
+                    for row in grid.devices)
             table_bytes = want[0] * want[1] * 4
             err = 0.0  # fp32 serving is the reference
         else:
@@ -465,19 +591,28 @@ class FixedShapeScorer(_LadderScorer):
                     )
                 # No fp32 table in hand: -1 marks the error unknown.
                 err = -1.0
-            w0_d = torch.tensor(float(w0_in), dtype=torch.float32,
-                                device=dev)
+            w0 = tuple(torch.tensor(float(w0_in), dtype=torch.float32,
+                                    device=row[0]) for row in grid.devices)
             if dtype == "bf16":
-                placed = (w0_d, quant.bf16_bits_to_torch(qt.codes).to(dev))
+                bits = quant.bf16_bits_to_torch(qt.codes)
+                shards = tuple(
+                    tuple(bits[lo:hi].to(dev)
+                          for dev, (lo, hi) in zip(row, self._ranges))
+                    for row in grid.devices)
             else:
-                placed = quant.QuantParams(
-                    w0_d, _to_device(qt.codes, dev),
-                    _to_device(np.asarray(qt.scales, np.float32), dev))
+                shards = tuple(
+                    tuple(_to_device(qt.codes[lo:hi], dev)
+                          for dev, (lo, hi) in zip(row, self._ranges))
+                    for row in grid.devices)
+                host_scales = np.asarray(qt.scales, np.float32)
+                scales = tuple(tuple(_to_device(host_scales, dev)
+                                     for dev in row)
+                               for row in grid.devices)
             table_bytes = qt.nbytes
         self._g_table_bytes.set(int(table_bytes))
         self._g_quant_err.set(float(err))
         self.place_wall_s = time.perf_counter() - t0
-        return placed
+        return _Placed(w0, shards, scales)
 
     def swap(self, model, step: int = 0, keep_prev: bool = False) -> None:
         """Warm hot-swap: place the new params (off the dispatch lock —
@@ -487,50 +622,77 @@ class FixedShapeScorer(_LadderScorer):
         table on the device for :meth:`rollback` until :meth:`promote`."""
         self._install(self._place(model), step, keep_prev)
 
-    def _scores(self, model, rung: _Rung) -> torch.Tensor:
-        self._copy_inputs(rung)
-        ids = rung.ids_dev.view(-1)
-        if isinstance(model, quant.QuantParams):
-            return fm_scores_dequant(
-                model.w0, model.codes, model.scales, self._chunk,
-                rung.ids_dev, rung.vals_dev, rung.fields_dev,
-                factor_num=self._factor_num, field_num=self._field_num,
-                impl=self._impl)
-        w0, table = model
+    def _gather(self, blk: _Block, gather) -> torch.Tensor:
+        """The block's rows ``[b * F, D]`` on its device, read from the
+        model shards of its data row: ``gather(j, local_ids,
+        global_ids)`` reads shard ``j``'s rows on device ``(i, j)``.
+        One shard reads every id.  Several read the ids clamped into
+        their own range (a masked gather: an id outside it reads a row
+        that is dropped), their rows move to the block's device, and each
+        id keeps the row of the one shard that holds it, so the rows are
+        the 1 x 1 gather's bit for bit."""
+        ids = blk.ids_dev[0].view(-1)
+        if len(self._ranges) == 1:
+            return gather(0, ids, ids)
+        rows = None
+        for j, (lo, hi) in enumerate(self._ranges):
+            local = (blk.ids_dev[j].view(-1) - lo).clamp_(0, hi - lo - 1)
+            part = gather(j, local, local + lo).to(blk.dev,
+                                                   non_blocking=True)
+            if rows is None:
+                rows = part
+            else:
+                inside = ((ids >= lo) & (ids < hi)).unsqueeze(1)
+                rows = torch.where(inside, part, rows)
+        return rows
+
+    def _scores(self, model, i: int, blk: _Block, prep) -> torch.Tensor:
+        self._copy_inputs(blk)
+        shards = model.shards[i]
+        if model.scales is not None:
+            scales = model.scales[i]
+            rows = self._gather(blk, lambda j, local, glob: gather_dequant(
+                shards[j], scales[j], self._chunk, local, glob))
+            return self._score_rows(model.w0[i], rows, blk)
         # A bf16 table is gathered compact and widened before the f32
         # FmScorer (a no-op for f32).
-        return self._score_rows(w0, table.index_select(0, ids).float(),
-                                rung)
+        rows = self._gather(
+            blk, lambda j, local, _: shards[j].index_select(0, local))
+        return self._score_rows(model.w0[i], rows.float(), blk)
 
 
 class OverlayScorer(_LadderScorer):
     """Huge-V scorer over a ``tiered.npz`` sparse overlay.
 
-    Per dispatch, on the host: the rung's unique ids (``np.unique``), their
-    current rows from the cold ``store`` (written value, else the hash
-    init; ``serve.overlay_gather`` times it), a compact table padded with
-    zero rows to ``tiered._bucket`` rows, and the ids remapped to its
-    rows.  Then one pinned host-to-device copy of the compact table
-    beside the inputs', and the scores as the dense scorer's.  Staging
-    buffers are kept per (rung, bucket), so steady traffic allocates no
-    new ones.  Registers neither table gauge, as the reference's does
-    not: its error against an fp32 table was never measured.
+    Per dispatch, once for the whole rung, on the host: the rung's
+    unique ids (``np.unique``), their current rows from the cold
+    ``store`` (written value, else the hash init; ``serve.overlay_gather``
+    times it), a compact table padded with zero rows to
+    ``tiered._bucket`` rows, and the ids remapped to its rows.  Then the
+    compact table goes to every data block's device in one pinned copy
+    each (the reference's replicated table), and each block scores its
+    slice of the remapped ids as the dense scorer does.  Staging buffers
+    are kept per (rung, bucket), so steady traffic allocates no new
+    ones.  Registers neither table gauge, as the reference's does not:
+    its error against an fp32 table was never measured.
     """
 
     def __init__(self, cfg: FmConfig, w0: float, store,
-                 device: Optional[Union[str, torch.device]] = None,
-                 telemetry=None, step: int = 0, extra_rungs=(),
-                 writer=None):
+                 device: Devices = None, telemetry=None, step: int = 0,
+                 extra_rungs=(), writer=None, devices: Devices = None):
         super().__init__(cfg, device=device, telemetry=telemetry,
-                         step=step, extra_rungs=extra_rungs, writer=writer)
+                         step=step, extra_rungs=extra_rungs, writer=writer,
+                         devices=devices)
         self._dim = cfg.embedding_dim
         self._t_gather = self._tel.timer("serve.overlay_gather")
-        self._staging: dict = {}  # (rung, bucket) -> (host, numpy, device)
+        # (rung, bucket) -> (host, numpy view, one twin per data block)
+        self._staging: dict = {}
         self._model = self._overlay(w0, store)
 
     def _overlay(self, w0: float, store) -> tuple:
-        return (torch.tensor(float(w0), dtype=torch.float32,
-                             device=self.device), store)
+        return (tuple(torch.tensor(float(w0), dtype=torch.float32,
+                                   device=row[0])
+                      for row in self.grid.devices), store)
 
     def swap(self, w0: float, store, step: int = 0,
              keep_prev: bool = False) -> None:
@@ -543,8 +705,9 @@ class OverlayScorer(_LadderScorer):
     def staging_bytes(self) -> int:
         """The rungs' input twins and the compact tables' device
         staging (the host buffers themselves on the CPU)."""
-        return super().staging_bytes() + sum(
-            dev.numel() * 4 for _, _, dev in self._staging.values())
+        held = {t.data_ptr(): t.numel() * 4
+                for _, _, devs in self._staging.values() for t in devs}
+        return super().staging_bytes() + sum(held.values())
 
     def _table_staging(self, b: int, rows: int) -> tuple:
         st = self._staging.get((b, rows))
@@ -552,26 +715,31 @@ class OverlayScorer(_LadderScorer):
             pin = self.device.type == "cuda"
             host = torch.zeros((rows, self._dim), dtype=torch.float32,
                                pin_memory=pin)
-            dev = (torch.zeros_like(host, device=self.device) if pin
-                   else host)
-            st = (host, host.numpy(), dev)
+            devs = [torch.zeros_like(host, device=row[0]) if pin else host
+                    for row in self.grid.devices]
+            st = (host, host.numpy(), devs)
             self._staging[(b, rows)] = st
         return st
 
-    def _scores(self, model, rung: _Rung) -> torch.Tensor:
-        w0, store = model
+    def _prepare(self, model, rung: _Rung):
+        _, store = model
         with self._t_gather.time():
             u, inv = np.unique(rung.ids.reshape(-1), return_inverse=True)
-            host, mini, dev = self._table_staging(
+            host, mini, devs = self._table_staging(
                 rung.b, tiered_lib._bucket(max(1, len(u))))
             mini[:len(u)] = store.gather(u)
             mini[len(u):] = 0.0
             rung.ids[...] = inv.reshape(rung.ids.shape)
-        self._copy_inputs(rung)
-        if rung.done is not None:
-            dev.copy_(host, non_blocking=True)
+        return host, devs
+
+    def _scores(self, model, i: int, blk: _Block, prep) -> torch.Tensor:
+        host, devs = prep
+        self._copy_inputs(blk)
+        if blk.done is not None:
+            devs[i].copy_(host, non_blocking=True)
         return self._score_rows(
-            w0, dev.index_select(0, rung.ids_dev.view(-1)), rung)
+            model[0][i], devs[i].index_select(0, blk.ids_dev[0].view(-1)),
+            blk)
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -673,21 +841,24 @@ def load_model(cfg: FmConfig):
     )
 
 
-def make_scorer(cfg: FmConfig,
-                device: Optional[Union[str, torch.device]] = None,
-                telemetry=None, extra_rungs=(), writer=None):
+def make_scorer(cfg: FmConfig, device: Devices = None, telemetry=None,
+                extra_rungs=(), writer=None, devices: Devices = None):
     """Build the scorer for whatever ``cfg.model_file`` holds: an
     :class:`OverlayScorer` for a tiered overlay, else a
-    :class:`FixedShapeScorer`.  ``extra_rungs`` adds example counts to
-    the ladder (offline predict adds its ``batch_size``); ``writer`` gets
-    the interaction decision's ``record: autotune``."""
-    dev = resolve_device(device)
+    :class:`FixedShapeScorer`, on the grid of ``device`` / ``devices``
+    (None: every visible GPU) that ``mesh_data x mesh_model`` asks for.
+    A checkpoint is read on the host, so one saved from any mesh, or by
+    the other package, serves on any grid its shape allows.
+    ``extra_rungs`` adds example counts to the ladder (offline predict
+    adds its ``batch_size``); ``writer`` gets the interaction decision's
+    ``record: autotune``."""
+    grid_devices = _grid_devices(device, devices)
     fmt, step, model = load_model(cfg)
     if fmt == "tiered":
         w0, store = model
-        return OverlayScorer(cfg, w0, store, device=dev,
+        return OverlayScorer(cfg, w0, store, devices=grid_devices,
                              telemetry=telemetry, step=step,
                              extra_rungs=extra_rungs, writer=writer)
-    return FixedShapeScorer(cfg, model, device=dev, telemetry=telemetry,
-                            step=step, extra_rungs=extra_rungs,
-                            writer=writer)
+    return FixedShapeScorer(cfg, model, devices=grid_devices,
+                            telemetry=telemetry, step=step,
+                            extra_rungs=extra_rungs, writer=writer)

@@ -89,7 +89,6 @@ from fast_tffm_tpu_torch.obs.status import (
 from fast_tffm_tpu_torch.obs.telemetry import Telemetry
 from fast_tffm_tpu_torch.obs.trace import NULL_TRACER, Tracer
 from fast_tffm_tpu_torch.ops import fm_kernels
-from fast_tffm_tpu_torch.platform import resolve_device
 from fast_tffm_tpu_torch.serve import scorer as scorer_lib
 from fast_tffm_tpu_torch.serve import wire
 from fast_tffm_tpu_torch.serve.batcher import ServeBatcher
@@ -542,6 +541,8 @@ def _serve_block(snap: dict, scorer, batcher, wall: float) -> dict:
         # Which interaction the rungs run (ops/autotune.py): a string,
         # which /metrics skips and the JSONL block keeps.
         "kernel_impl": getattr(scorer, "kernel_impl", "pallas"),
+        # Every device of the scorer's grid, by name (a string too).
+        "device": scorer.grid.describe(),
     }
     # Emitted only when the scorer owns the gauges (FixedShapeScorer):
     # the placed table's bytes and the probe's max |score_fp32 -
@@ -567,13 +568,13 @@ def _serve_block(snap: dict, scorer, batcher, wall: float) -> dict:
 
 def serve(cfg: FmConfig,
           device: Optional[Union[str, torch.device]] = None,
-          port: Optional[int] = None) -> ServeHandle:
-    """Build and start the serving stack from a config, on ``device``
-    (the GPU unless asked otherwise).  ``port`` overrides
-    ``cfg.serve_port`` (0 = OS-assigned; the bound port is
+          port: Optional[int] = None, devices=None) -> ServeHandle:
+    """Build and start the serving stack from a config, on the
+    ``mesh_data x mesh_model`` grid of ``device`` / ``devices`` (every
+    visible GPU unless asked otherwise; ``serve/scorer.py``).  ``port``
+    overrides ``cfg.serve_port`` (0 = OS-assigned; the bound port is
     ``handle.port``)."""
     _warn_inert(cfg)
-    dev = resolve_device(device)
     telemetry = Telemetry(enabled=cfg.telemetry)
     # Per-request tracing (serve_trace_sample); trace_file unset: the
     # shared no-op tracer.
@@ -603,7 +604,7 @@ def serve(cfg: FmConfig,
     # (`record: autotune`) into it.
     writer = JsonlWriter(cfg.metrics_file) if cfg.metrics_file else None
     try:
-        scorer = scorer_lib.make_scorer(cfg, device=dev,
+        scorer = scorer_lib.make_scorer(cfg, device=device, devices=devices,
                                         telemetry=telemetry, writer=writer)
         n_rungs = scorer.warmup()
     except BaseException:
@@ -613,7 +614,8 @@ def serve(cfg: FmConfig,
         raise
     log.info(
         "scorer ready on %s: checkpoint step %d, ladder %s, %d rung(s) "
-        "warmed in %.3fs", dev, scorer.step, list(scorer.ladder), n_rungs,
+        "warmed in %.3fs", scorer.grid.describe(), scorer.step,
+        list(scorer.ladder), n_rungs,
         scorer.warmup_wall_s,
     )
     slo = SloTracker(
@@ -684,8 +686,7 @@ def serve(cfg: FmConfig,
             "heartbeat_secs": cfg.heartbeat_secs,
             "alert_rules": cfg.alert_rules,
             "torch_version": torch.__version__,
-            "device": (torch.cuda.get_device_name(dev)
-                       if dev.type == "cuda" else "cpu"),
+            "device": scorer.grid.describe(),
             "serve_capture_sample": cfg.serve_capture_sample,
             "quality": cfg.quality,
             "blackbox": cfg.blackbox,
@@ -769,7 +770,8 @@ def serve(cfg: FmConfig,
 
 def serve_forever(cfg: FmConfig,
                   device: Optional[Union[str, torch.device]] = None) -> int:
-    """CLI entry: serve until interrupted.  SIGTERM and SIGINT both
+    """CLI entry: serve until interrupted, on the grid of ``device``
+    (:func:`serve`).  SIGTERM and SIGINT both
     close cleanly (the final record is written); an armed ``action:
     halt`` alert rule stops the server with a final record naming
     :class:`AlertHaltError` and exit code 1."""

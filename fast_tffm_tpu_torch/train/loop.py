@@ -1986,19 +1986,22 @@ class Trainer:
 
 
 def predict(cfg: FmConfig,
-            device: Optional[Union[str, torch.device]] = None) -> int:
+            device: Optional[Union[str, torch.device]] = None,
+            devices=None) -> int:
     """Score ``predict_files`` into ``score_path``, one score per line in
     input order: sigmoid probabilities for logistic loss, raw scores for
     mse.  Scores through ``serve.scorer.make_scorer``, so every format
     the server takes is predicted the same way: ``params.npz`` or the
     reference's Orbax directories (at any ``serve_table_dtype``),
-    ``quant.npz`` and ``tiered.npz``.  Returns
+    ``quant.npz`` and ``tiered.npz``, on the same ``mesh_data x
+    mesh_model`` grid of ``device`` / ``devices`` (None: every visible
+    GPU), with ``batch_size`` a rung rounded as the ladder's.  Returns
     the number of scores written."""
     if not cfg.predict_files:
         raise ValueError("no predict_files configured")
     from fast_tffm_tpu_torch.serve import scorer as serve_scorer
 
-    scorer = serve_scorer.make_scorer(cfg, device=device,
+    scorer = serve_scorer.make_scorer(cfg, device=device, devices=devices,
                                       extra_rungs=(cfg.batch_size,))
     n = 0
     with BatchPipeline(cfg.predict_files, cfg, epochs=1,

@@ -1606,7 +1606,9 @@ def test_quantized_gpu_scorer_matches_cpu_scorer(gpu, dtype, field_num):
     np.testing.assert_allclose(got, on_cpu.score(ids, vals, fields),
                                rtol=1e-5, atol=1e-6)
     placed = on_gpu._model
-    held = sum(t.numel() * t.element_size() for t in placed[1:])
+    held = sum(t.numel() * t.element_size()
+               for part in (placed.shards, placed.scales or ())
+               for row in part for t in row)
     assert held == tel.snapshot()["gauges"]["serve.table_bytes"]
 
 
@@ -1641,6 +1643,89 @@ def test_overlay_gpu_scorer_matches_cpu_scorer(gpu, cold_dtype):
     # No [V, D] table: the card holds the staging and the rungs only.
     added = torch.cuda.memory_allocated(gpu) - held
     assert 0 < on_gpu.staging_bytes() <= added < (1 << 20)
+
+
+def _grid_problem(dtype, grids, devices):
+    """Scorers of one table on each of ``grids`` over ``devices`` (a
+    list per grid) and on one device, and requests of every rung."""
+    cfg_kw = dict(vocabulary_size=1024, factor_num=8, max_features=39,
+                  serve_batch_sizes="64,256,1024", serve_table_dtype=dtype,
+                  quant_chunk=96)
+    rng = np.random.default_rng(21)
+    table = rng.uniform(-0.3, 0.3, (1024, 9)).astype(np.float32)
+    model = weights.from_jax(0.1, table, device="cpu")
+    one = FixedShapeScorer(FmConfig(**cfg_kw), model, device="cuda:0")
+    on_grid = {grid: FixedShapeScorer(
+        FmConfig(**cfg_kw, mesh_data=grid[0], mesh_model=grid[1]), model,
+        devices=devs) for grid, devs in zip(grids, devices)}
+    requests = [(rng.integers(0, 1024, (n, 39)).astype(np.int32),
+                 rng.uniform(0.0, 1.0, (n, 39)).astype(np.float32))
+                for n in (1, 200, 1000, 1500)]
+    return one, on_grid, requests
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_grid_on_one_card_is_bitwise_one_device(gpu, dtype):
+    """2 x 2, 1 x 2 and 2 x 1 grids over ``cuda:0`` repeated score bitwise
+    the one-device scorer, with FmScorer launched once per data block
+    per dispatch."""
+    grids = [(2, 2), (1, 2), (2, 1)]
+    one, on_grid, requests = _grid_problem(
+        dtype, grids, [["cuda:0"] * (d * m) for d, m in grids])
+    for grid, scorer in on_grid.items():
+        for ids, vals in requests:
+            before = fm_kernels.fm_scores_cuda.launches
+            got = scorer.score(ids, vals)
+            dispatches = -(-len(ids) // scorer.max_rung)
+            assert fm_kernels.fm_scores_cuda.launches - before == \
+                grid[0] * dispatches
+            want = one.score(ids, vals)
+            assert np.array_equal(got.view(np.uint32),
+                                  want.view(np.uint32)), (grid, len(ids))
+
+
+@pytest.mark.gpu
+def test_grid_refuses_a_mix_of_cpu_and_gpu(gpu):
+    from fast_tffm_tpu_torch.parallel.mesh import DeviceGrid
+
+    with pytest.raises(ValueError, match="all GPUs or all the CPU"):
+        DeviceGrid(FmConfig(mesh_data=2), ["cpu", "cuda:0"])
+
+
+@pytest.mark.gpu
+def test_grid_blocks_fm_scorer_matches_plain(gpu):
+    """FmScorer at each data block's shape of a 2-row grid (the 64, 256
+    and 1024 rungs halved) against its plain version."""
+    for b in (32, 128, 512):
+        rows, vals = _problem(b, 39, 8, seed=7)
+        rows_d = torch.from_numpy(rows).to(gpu)
+        vals_d = torch.from_numpy(vals).to(gpu)
+        got_s, got_s1 = fm_kernels.fm_scores_cuda(rows_d, vals_d)
+        want_s, want_s1 = fm_kernels.fm_scores_plain(rows_d, vals_d)
+        torch.testing.assert_close(got_s, want_s, **TOL)
+        torch.testing.assert_close(got_s1, want_s1, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["fp32", "int8"])
+def test_grid_over_distinct_gpus_is_bitwise_one_device(gpu, dtype):
+    """With two or more visible GPUs: grids over distinct cards (data
+    blocks and model shards each on their own) score bitwise the one-
+    device scorer."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more GPUs")
+    cards = [f"cuda:{i}" for i in range(n)]
+    grids = [(2, 1), (1, 2)] + ([(2, 2), (1, 4), (4, 1)] if n >= 4 else [])
+    one, on_grid, requests = _grid_problem(
+        dtype, grids, [cards[:d * m] for d, m in grids])
+    for grid, scorer in on_grid.items():
+        assert len({str(d) for d in scorer.grid.flat()}) == grid[0] * grid[1]
+        for ids, vals in requests:
+            got = scorer.score(ids, vals)
+            assert np.array_equal(got.view(np.uint32),
+                                  one.score(ids, vals).view(np.uint32)), grid
 
 
 @pytest.mark.gpu

@@ -574,9 +574,11 @@ def test_cli_dist_flags_exit_as_the_reference(argv):
 
 @pytest.mark.parametrize("mode", ["predict", "serve"])
 def test_cli_refuses_multi_rank_predict_and_serve(mode, tmp_path):
+    # Serve's message names the grid of one process's devices.
     cfg = tmp_path / "run.cfg"
     cfg.write_text("[General]\nvocabulary_size = 64\n")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match="grid" if mode == "serve" else "single-process"):
         cli.main([mode, str(cfg), "--device", "cpu", "--coordinator",
                   "h0:1", "--num_processes", "2", "--process_id", "0"])
 
