@@ -3,8 +3,9 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py           # one GPU: every phase below
-    python3 chip_smoke.py --nccl    # >= 4 GPUs: phases 1-3, 9, 16 and
-                                    # 17 only, one rank per GPU over NCCL
+    python3 chip_smoke.py --nccl    # >= 4 GPUs: phases 1-3, 9, 16, 17
+                                    # and 18 only, one rank per GPU over
+                                    # NCCL
 
 Phases, in order; any failed check ends the run with a non-zero exit:
 
@@ -89,6 +90,18 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    and the host time in ``cudaLaunchKernel`` and ``cudaGraphLaunch`` from
    ``torch.profiler``, the capture's time and the graph pool's bytes.
    Every run's health carry is compared bitwise too.
+6d. Device-sort phase (path 16, ``host_sort = false`` graphed): the
+   static device sort meta (``ops/sparse_apply.py::sort_meta``, no host
+   read) lets the K steps be captured.  The sparse step (Adagrad, batch
+   L2) and the dense optax path (Adam, full L2) at K = 4 and 1, each
+   ``Trainer.train()`` over the 17 batches graphed on the device sort,
+   all eager (its twin) and graphed on the host sort meta: the three
+   bitwise alike (tables, optimizer state, w0, metrics, health carry),
+   no eager reason, the replays K and the steps give, each step's
+   kernels once a step (FmScorer, FmGrad and K1 / K2, or K1's merge
+   mode and K-place).  Then a device super-batch dispatched again and
+   again, graphed and eager: step p50, capture seconds, graph pool
+   bytes.
 6c. Obs phase (main path 1 with the health carry and the observability
    planes, K = 4 graphed): (a) the 16 steps with ``metrics_file``,
    ``heartbeat_secs = 0.05``, a free ``status_port``, ``alert_rules =
@@ -193,6 +206,8 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    rank's step p50 and the share of it spent in the step's collectives
    (host clock, synchronised around each collective, staging copies
    included; the overlap's id-plane gather at its start and its wait).
+   Every dispatch eager, for the backend's reason (path 16's boundary:
+   ``Trainer._eager_reason``).
 10. Probe phase (path 4, the table-layout probe): K2T (transposed
    ``[9, V]`` table) and K2P (packed ``[V/8, 128]``) against their plain
    versions on the card (``TABLE_TOL``, ``OPT_TOL``, ``delta_check``),
@@ -248,9 +263,9 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    slot against phase 5's dense run (bitwise expected and reported;
    ``TABLE_TOL`` / ``OPT_TOL`` required), evictions and ``0 <
    hot_hit_frac < 1``, FmScorer, FmGrad, K1 and K2 each exactly once a
-   step with K1 and K2 on the cut ``[U + 1]`` slot (every dispatch
-   eager), validation within 1e-6 of phase 5's, and ``python -m
-   fast_tffm_tpu_torch.cli predict`` of the saved ``params.npz`` within
+   step with K1 and K2 on the whole ``[n + 1]`` slot of the static
+   device sort (every dispatch eager), validation within 1e-6 of phase
+   5's, and ``python -m fast_tffm_tpu_torch.cli predict`` of the saved ``params.npz`` within
    one printed digit of phase 5's predict file; (b) the reference
    bench's tiered section (``bench.py::_bench_tiered``: V = 2^28,
    ``hot_rows`` = 2^20, D = 9, F = 39, B = 4096, K = 8, 12 batches of
@@ -367,7 +382,7 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    ``index_add_`` over the owned occurrences alone), K-place at W = 66
    and W = 9 (bitwise; its library yardstick ``zero_()`` and one
    ``index_copy_``), K1's merge mode at W = 66 and 9, K2 at D = 33 on
-   the merged rows.
+   the merged rows.  Every dispatch eager, for the backend's reason.
 18. Grid phase (path 15, after the autotune phase): the trained
    checkpoint scored over ``data x model`` grids of one process's
    devices (``serve/scorer.py``'s ``DeviceGrid``): 1 x 1, 2 x 1, 1 x 2
@@ -725,16 +740,6 @@ def k1_bound_ms(n: int, u: int, d: int, slot: int = 0):
     slot = slot or u
     return bound(4 * (n * d + n + u + (slot + 1) + slot + 2 * d * u),
                  3 * n * d)
-
-
-def full_slot(torch, seg_start, n: int):
-    """``seg_start [U + 1]`` padded with ``n`` to the whole ``[n + 1]``
-    slot the transfer stage ships (the graphed step's K1 reads it
-    whole)."""
-    slot = torch.full((n + 1,), n, dtype=torch.int32,
-                      device=seg_start.device)
-    slot[:seg_start.numel()] = seg_start
-    return slot
 
 
 def k1_library(torch, g, meta):
@@ -1411,9 +1416,10 @@ def tiered_parity(np, torch, card: str, tcfg, main: dict, tmp: str,
         check(launches[name] == steps,
               f"tiered: {name} launched {launches[name]} times in {steps} "
               f"steps")
-    check(notes["k1_cut"] == notes["k2_cut"] == steps
-          and notes["k1_whole"] == notes["k2_whole"] == 0,
-          f"tiered: K1/K2 not on the cut slot every step: {notes}")
+    # The device sort is static (path 16): the whole slot every step.
+    check(notes["k1_whole"] == notes["k2_whole"] == steps
+          and notes["k1_cut"] == notes["k2_cut"] == 0,
+          f"tiered: K1/K2 not on the whole slot every step: {notes}")
     check(tr["graph_dispatches"] == 0 and tr["eager_dispatches"] == steps,
           f"tiered dispatches: {tr['graph_dispatches']} graphed")
     check(snap["rows_evicted"] > 0 and 0.0 < snap["hot_hit_frac"] < 1.0,
@@ -2883,7 +2889,12 @@ def rank_main(argv) -> int:
     their records to OUT (a list)."""
     rank, world, url, spec_path, out_path = (int(argv[0]), int(argv[1]),
                                              argv[2], argv[3], argv[4])
+    import faulthandler
+
     import torch
+
+    faulthandler.dump_traceback_later(
+        float(os.environ.get("CHIP_SMOKE_STACKS_AFTER_S", RANK_TIMEOUT_S)))
 
     sys.path.insert(0, REPO)
     from fast_tffm_tpu_torch.config import load_config
@@ -2994,6 +3005,7 @@ def rank_main(argv) -> int:
                     cfg.batch_size // mesh.data * cfg.max_features)
                     if trainer.sparse else "dense_optax"),
                 "overlap": trainer.overlap,
+                "eager_reason": trainer.eager_reason,
                 "launches": launches, "train": result["train"],
                 "validation": result.get("validation"),
                 "step_p50_ms": p50(steps) * 1e3,
@@ -3249,6 +3261,137 @@ def graph_phase(torch, tcfg, card: str, files, steps: int,
         del sb
     return {"card": card, "batch_size": tcfg.batch_size, "parity": parity,
             "device_batch_step": step}
+
+
+def device_sort_phase(torch, tcfg, card: str, files, steps: int,
+                      host_batches, kernels: dict) -> tuple:
+    """Path 16: ``host_sort = false`` on one card, graphed (item 7a): the
+    static device sort meta (``ops/sparse_apply.py::sort_meta``) lets the
+    K steps of a super-batch be captured.  At Criteo-Kaggle width, for
+    the sparse step (Adagrad, batch L2) and the dense optax path (Adam,
+    full L2), at K = 4 and 1: ``Trainer.train()`` over ``files``
+    (``steps`` batches) graphed on the device sort, the same run all
+    eager (its twin) and graphed on the host sort meta, each from the
+    seeded table: the three bitwise alike (tables, optimizer state, w0,
+    metrics, health carry), no eager reason, the graph dispatches that K
+    and the steps give, and each step's kernels launched once a step.
+    Then one super-batch already on the card (the first K of
+    ``host_batches``, no sort meta) dispatched again and again, graphed
+    and eager: each step's p50 (a synchronised dispatch over K), the
+    capture's seconds and the graph pool's bytes.  Returns ``(record,
+    the launches of the graphed device-sort runs)``."""
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    class NoSaveTrainer(Trainer):
+        def save(self, stepno):
+            return None
+
+    def leaves(trainer):
+        m = trainer.metrics
+        return ([trainer.model.table, trainer.model.w0, *trainer.opt_state,
+                 m.loss_sum, m.weight_sum, m.count, m.auc.pos, m.auc.neg]
+                + list(trainer.health))
+
+    modes = {
+        "sparse": ({}, ("fm_scores", "fm_grad", "k1_dedup", "k2_apply")),
+        "dense_adam": ({"sparse_update": False, "optimizer": "adam",
+                        "learning_rate": DENSE_ADAM_LR, "l2_mode": "full",
+                        "factor_lambda": DENSE_LAMBDA,
+                        "bias_lambda": DENSE_LAMBDA},
+                       ("fm_scores", "fm_grad", "k1_merge", "kplace")),
+    }
+    bare = [b._replace(sort_meta=None) for b in host_batches]
+    launches = {name: 0 for name in kernels}
+    record = {}
+    t_phase = time.perf_counter()
+    for mode, (kw, path_kernels) in modes.items():
+        for k in (4, 1):
+            # A model directory of its own (never written): every run
+            # starts from the seeded table.
+            cfg = dataclasses.replace(
+                tcfg, train_files=list(files), validation_files=[],
+                model_file=tcfg.model_file + "_device_sort",
+                steps_per_dispatch=k, log_steps=0, save_steps=0, **kw)
+            what = f"{mode} K = {k}"
+            runs = {}
+            for name, host_sort, graphs in (("graphed", False, True),
+                                            ("eager", False, False),
+                                            ("host_sort", True, True)):
+                trainer = NoSaveTrainer(dataclasses.replace(
+                    cfg, host_sort=host_sort))
+                if not graphs:
+                    trainer.graph = None
+                zero_launches(kernels)
+                tr = trainer.train()["train"]
+                torch.cuda.synchronize()
+                runs[name] = (trainer, tr, read_launches(kernels))
+            graphed, g_tr, got = runs["graphed"]
+            tails = int(steps % k > 0)
+            check(graphed.eager_reason is None
+                  and g_tr["steps"] == steps
+                  and g_tr["eager_dispatches"] == 1 + tails
+                  and g_tr["graph_dispatches"]
+                  == g_tr["dispatches"] - 1 - tails > 0
+                  and runs["eager"][1]["graph_dispatches"] == 0,
+                  f"{what}: reason {graphed.eager_reason}, graphed "
+                  f"{g_tr['graph_dispatches']} of {g_tr['dispatches']} "
+                  f"dispatches, eager twin {runs['eager'][1]}")
+            check(all(got[n] == steps for n in path_kernels),
+                  f"{what}: launches {got} in {steps} steps")
+            for other in ("eager", "host_sort"):
+                check(all(a.equal(b) for a, b in
+                          zip(leaves(graphed), leaves(runs[other][0]))),
+                      f"{what}: the graphed device-sort run is not "
+                      f"bitwise the {other} run")
+            for n, c in got.items():
+                launches[n] += c
+            rec = {"steps": steps, "dispatches": g_tr["dispatches"],
+                   "graph_dispatches": g_tr["graph_dispatches"],
+                   "eager_reason": graphed.eager_reason,
+                   "bitwise_eager_and_host_sort": True,
+                   "capture_s": graphed.graph.capture_s,
+                   "train_logloss": g_tr["logloss"],
+                   "wall_s": {n: r[1]["wall_s"] for n, r in runs.items()},
+                   "launches": {n: got[n] for n in path_kernels}}
+            del runs, graphed
+            # One device super-batch, dispatched again and again.
+            sb = next(iter(DevicePrefetcher(bare[:k], k, "cuda",
+                                            cfg.vocabulary_size)))
+            for graphs in (False, True):
+                trainer = NoSaveTrainer(dataclasses.replace(
+                    cfg, host_sort=False))
+                if not graphs:
+                    trainer.graph = None
+                trainer.dispatch(sb)
+                torch.cuda.synchronize()
+                times = []
+                for _ in range(40):
+                    t0 = time.perf_counter()
+                    trainer.dispatch(sb)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) / k)
+                key = "graphed" if graphs else "eager"
+                rec[f"step_p50_ms_{key}"] = p50(times[2:]) * 1e3
+                if graphs:
+                    check(trainer.graph_dispatches == 40,
+                          f"{what}: {trainer.graph_dispatches} replays")
+                    rec["graph_pool_bytes"] = trainer.graph.pool_bytes()
+                    rec["capture_s_device_batch"] = trainer.graph.capture_s
+                del trainer
+            del sb
+            record[what] = rec
+    print("device_sort (" + card + "): " + json.dumps({
+        what: {key: r[key] for key in ("step_p50_ms_graphed",
+                                       "step_p50_ms_eager", "capture_s",
+                                       "graph_pool_bytes")}
+        for what, r in record.items()}), flush=True)
+    print("device_sort check: host_sort = false graphed at K = 4 and 1, "
+          "sparse and dense Adam, bitwise its eager twin and the graphed "
+          "host-sort run; no eager reason; each step's kernels once a "
+          "step", flush=True)
+    return {"card": card, "batch_size": tcfg.batch_size, "runs": record,
+            "wall_s": time.perf_counter() - t_phase}, launches
 
 
 # Prometheus text exposition: one sample a line (tools/obs_smoke.py's
@@ -4011,11 +4154,11 @@ def ffm_kernels(np, torch, gen, batch, cfg, err: dict) -> dict:
     g_rows = torch.randn((n, D), generator=gen, device=dev) * 0.1
     outs = {}
     for name, ids in (("batch", ids0), ("hot", hot)):
-        meta = sparse_apply.sort_meta(ids)
+        meta = sparse_apply.cut_slot(sparse_apply.sort_meta(ids))
         u = meta.seg_start.numel() - 1
-        for slot_name, slot in (("cut", meta.seg_start),
-                                ("whole", full_slot(torch, meta.seg_start,
-                                                    n))):
+        for slot_name, slot in (
+                ("cut", meta.seg_start),
+                ("whole", sparse_apply.sort_meta(ids).seg_start)):
             args = (g_rows, ids, meta.perm, slot)
             urows, sums = k1_dedup_cuda(*args)
             urows_p, sums_p = k1_dedup_plain(g_rows.double(), *args[1:])
@@ -4074,7 +4217,7 @@ def ffm_kernels(np, torch, gen, batch, cfg, err: dict) -> dict:
     c_rows, c_sums, meta0 = outs["batch", "cut"]
     w_rows, w_sums, _ = outs["batch", "whole"]
     u = c_rows.numel()
-    slot0 = full_slot(torch, meta0.seg_start, n)
+    slot0 = sparse_apply.sort_meta(ids0).seg_start
     table_k = table0.clone()
     acc_k = torch.full((V, D), 0.1, device=dev)
     cases = {
@@ -4632,6 +4775,9 @@ def spawn_runs(tmp: str, tag: str, runs: list, world: int, one_card: bool,
     outs = [os.path.join(tmp, f"{tag}.rank{r}.json") for r in range(world)]
     logs = [open(os.path.join(tmp, f"{tag}.rank{r}.log"), "w+")
             for r in range(world)]
+    # A rank still running near the deadline writes every thread's
+    # stack into its log (rank_main), which a failure prints.
+    env["CHIP_SMOKE_STACKS_AFTER_S"] = str(max(timeout_s - 20, 1))
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--sharded-rank",
          str(r), str(world), url, spec, outs[r]],
@@ -4674,6 +4820,20 @@ def spawn_runs(tmp: str, tag: str, runs: list, world: int, one_card: bool,
         with open(path) as f:
             records.append(json.load(f))
     return records
+
+
+def mesh_eager(what: str, recs: list) -> str:
+    """A rank-mesh run dispatches eagerly on every rank, for its
+    backend's reason (path 16's boundary, item 7a's remainder: gloo
+    stages every collective through host memory; under NCCL the process
+    group's teardown hangs after a graphed run).  Returns the reason."""
+    for rec in recs:
+        check(rec["train"]["graph_dispatches"] == 0 and rec["eager_reason"]
+              and rec["backend"] in rec["eager_reason"].lower(),
+              f"{what}: rank {rec['rank']} ({rec['backend']}) replayed "
+              f"{rec['train']['graph_dispatches']} graphs, reason "
+              f"{rec['eager_reason']}")
+    return recs[0]["eager_reason"]
 
 
 def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
@@ -4736,6 +4896,7 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
             base, model_file=model_dir, **mesh, **extra)], world, one_card)]
         wall = time.perf_counter() - t0
         r0 = recs[0]
+        eager_reason = mesh_eager(f"sharded {exchange}", recs)
         for rec in recs:
             check(rec["train"]["steps"] == steps,
                   f"{exchange}: rank {rec['rank']} ran "
@@ -4809,6 +4970,7 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
             "validation_logloss": r0["validation"]["logloss"],
             "validation_auc": r0["validation"]["auc"],
             "fleet_block": r0["train"].get("fleet"),
+            "eager_reason": eager_reason,
             "ranks": [{k: rec[k] for k in (
                 "rank", "coords", "device", "launches", "step_p50_ms",
                 "collective_share", "train_wall_s", "peak_device_mb")}
@@ -5195,6 +5357,7 @@ def mesh_modes_phase(np, torch, card: str, rng, world: int,
                   f"{name}: {key} off the one-device run's by "
                   f"{errs[key]:.3e} (bound {t})")
         out[name] = {
+            "eager_reason": mesh_eager(f"mesh {name}", recs),
             "steps": steps, "resolved": r0["exchange"],
             "overlap": r0["overlap"], "backend": r0["backend"],
             "train_logloss": r0["train"]["logloss"],
@@ -5336,7 +5499,7 @@ def mesh_modes_timing(np, torch, gen, rng, err: dict) -> dict:
     for d in (33, 9):
         lids, own = local_ids(0)
         g = torch.randn((n, d), generator=gen, device=dev) * 0.1 * own[:, None]
-        meta = sa.sort_meta(lids, drop_from=vloc)
+        meta = sa.cut_slot(sa.sort_meta(lids, drop_from=vloc))
         u = meta.seg_start.numel() - 1
         args = (g, lids, meta.perm, meta.seg_start)
         if d == 33:
@@ -5395,7 +5558,7 @@ def mesh_modes_timing(np, torch, gen, rng, err: dict) -> dict:
         else:
             rows_m, pay_m = lids, g
             w_merge = d
-        meta_m = sa.sort_meta(rows_m, drop_from=vloc)
+        meta_m = sa.cut_slot(sa.sort_meta(rows_m, drop_from=vloc))
         margs = (pay_m, rows_m, meta_m.perm, meta_m.seg_start)
         urows_m, sums_m = sa.k1_merge_cuda(*margs)
         mname = f"k1_merge_w{w_merge}"
@@ -5474,7 +5637,7 @@ def probe_phase(torch, card: str, gen, table0, hot_ids, hyper, err: dict,
     phase's record, K2T's and K2P's kernel timing at the probe's stream
     and the launches of every kernel in ``main``."""
     from fast_tffm_tpu_torch.ops.sparse_apply import (
-        k1_dedup_cuda, k2_apply_cuda, sort_meta,
+        cut_slot, k1_dedup_cuda, k2_apply_cuda, sort_meta,
     )
     from fast_tffm_tpu_torch.tools import micro_probe
 
@@ -5494,7 +5657,7 @@ def probe_phase(torch, card: str, gen, table0, hot_ids, hyper, err: dict,
     for shape, ids in (("batch", hot_ids), ("probe", probe_ids)):
         ids = ids.to(torch.int32).contiguous()
         g = torch.randn((ids.numel(), d), generator=gen, device=dev) * 0.1
-        meta = sort_meta(ids)
+        meta = cut_slot(sort_meta(ids))
         urows, sums = k1_dedup_cuda(g, ids, meta.perm, meta.seg_start)
         streams[shape] = (urows, sums)
         row_major = (table0.clone(), acc0.clone())
@@ -6414,7 +6577,7 @@ def main() -> int:
     hot = ids0.clone()
     hot[:HOT_OCCURRENCES] = 12345
     g_rows = torch.randn((n, D), generator=gen, device=dev) * 0.1
-    meta0 = sparse_apply.sort_meta(ids0)
+    meta0 = sparse_apply.cut_slot(sparse_apply.sort_meta(ids0))
     # K1's three streams: a parsed batch, the same with one hot id, and
     # the probe's (uniform ids over the table, one hot id).
     probe_ids = torch.randint(0, V, (PROBE_N,), generator=gen, device=dev,
@@ -6422,9 +6585,11 @@ def main() -> int:
     probe_ids[:HOT_OCCURRENCES] = 54321
     k1_streams = {
         "batch": (g_rows, ids0.to(torch.int32), meta0),
-        "hot": (g_rows, hot.to(torch.int32), sparse_apply.sort_meta(hot)),
+        "hot": (g_rows, hot.to(torch.int32),
+                sparse_apply.cut_slot(sparse_apply.sort_meta(hot))),
         "probe": (torch.randn((PROBE_N, D), generator=gen, device=dev) * 0.1,
-                  probe_ids, sparse_apply.sort_meta(probe_ids)),
+                  probe_ids,
+                  sparse_apply.cut_slot(sparse_apply.sort_meta(probe_ids))),
     }
     k2_shapes = {}
     for name, (g, ids, meta) in k1_streams.items():
@@ -6461,14 +6626,15 @@ def main() -> int:
             ))
             del kern, plain, state
     # -- K1 and K2 on the whole slot (the graphed step's) --------------
-    # The whole [n + 1] seg_start slot, its tail padded with n as the
-    # transfer stage ships it: bitwise the cut slot's kernels above on
-    # the first U rows (row -1 after, no other table row written), and
-    # held to the plain versions as they are.
+    # The whole [n + 1] seg_start slot of the static device sort (the
+    # transfer stage ships the host's alike, its tail padded with n):
+    # bitwise the cut slot's kernels above on the first U rows (row -1
+    # after, no other table row written), and held to the plain versions
+    # as they are.
     whole_shapes = {}
     for name in ("batch", "hot"):
         g, ids, meta = k1_streams[name]
-        slot = full_slot(torch, meta.seg_start, n)
+        slot = sparse_apply.sort_meta(ids).seg_start
         args = (g, ids, meta.perm, slot)
         w_rows, w_sums = k1_dedup_cuda(*args)
         p_rows, p_sums = k1_dedup_plain(g.double(), *args[1:])
@@ -6522,7 +6688,7 @@ def main() -> int:
     ids_kp = ids_loc.clone()
     ids_kp[torch.randperm(n_loc, generator=gen, device=dev)[:n_loc // 10]] = V
     g_kp = torch.randn((n_loc, D), generator=gen, device=dev) * 0.1
-    meta_kp = sparse_apply.sort_meta(ids_kp)
+    meta_kp = sparse_apply.cut_slot(sparse_apply.sort_meta(ids_kp))
     urows_kp, sums_kp = k1_dedup_cuda(g_kp, ids_kp, meta_kp.perm,
                                       meta_kp.seg_start)
     check(int(urows_kp[-1]) == V, "no sentinel among the K-place entries")
@@ -6555,7 +6721,8 @@ def main() -> int:
             lids, g_b * own[:, None], vocab=KPLACE_VOCAB_LOCAL, cap=cap))
     rows_m = torch.cat([r for r, _, _ in streams])
     pay_m = torch.cat([p for _, p, _ in streams])
-    meta_m = sparse_apply.sort_meta(rows_m, drop_from=KPLACE_VOCAB_LOCAL)
+    meta_m = sparse_apply.cut_slot(
+        sparse_apply.sort_meta(rows_m, drop_from=KPLACE_VOCAB_LOCAL))
     merge_args = (pay_m, rows_m, meta_m.perm, meta_m.seg_start)
     urows_m, sums_m = k1_merge_cuda(*merge_args)
     urows_mp, sums_mp = k1_merge_plain(*merge_args)
@@ -6588,7 +6755,7 @@ def main() -> int:
     urows, sums = k2_shapes["batch"]
     u = urows.numel()
     w_rows, w_sums = whole_shapes["batch"]
-    slot0 = full_slot(torch, meta0.seg_start, n)
+    slot0 = sparse_apply.sort_meta(ids0).seg_start
     acc0 = torch.full((V, D), 0.1, device=dev)
     table_k, acc_k = table0.clone(), acc0.clone()
     ids32 = ids0.to(torch.int32)
@@ -6618,8 +6785,8 @@ def main() -> int:
             lambda: fm_grad_cuda(rows_t16, vals_t16, s1_t16, dsc),
             lambda: fm_grad_plain(rows_t16, vals_t16, s1_t16, dsc), None,
             fm_grad_bound_ms(B, F, D, elt=2)),
-        # K1 and K2 on the whole slot, as the graphed train step runs
-        # them; on the cut slot (the device sort's) after the loop.
+        # K1 and K2 on the whole slot, as every train step runs them;
+        # on the cut slot (``cut_slot``'s [U + 1]) after the loop.
         "k1_dedup": (
             lambda: k1_dedup_cuda(g_rows, ids32, meta0.perm, slot0),
             lambda: k1_dedup_plain(g_rows, ids32, meta0.perm, slot0),
@@ -6675,7 +6842,7 @@ def main() -> int:
         t.update(ms=min(ka, kb), plain_ms=min(pa, pb), graph_ms=[ka, kb],
                  plain_graph_ms=[pa, pb], input_copies=FM_GRAD_COPIES)
         del copies
-    # K1 and K2 on the batch's cut slot [U + 1] (the device sort's).
+    # K1 and K2 on the batch's cut slot [U + 1] (``cut_slot``).
     for name, kern, plain, (b_ms, b_by) in (
             ("k1_dedup",
              lambda: k1_dedup_cuda(g_rows, ids32, meta0.perm,
@@ -6936,6 +7103,13 @@ def main() -> int:
         TRAIN_FILES * BATCHES_PER_FILE + 1, batches + batches[:1])}),
         flush=True)
     phase_end("graph")
+
+    # -- device_sort phase (path 16): host_sort = false, graphed ---------
+    dsort_rec, dsort_launches = device_sort_phase(
+        torch, tcfg, card, train_files + [valid_file],
+        TRAIN_FILES * BATCHES_PER_FILE + 1, batches + batches[:1], kernels)
+    print(json.dumps({"device_sort": dsort_rec}), flush=True)
+    phase_end("device_sort")
 
     # -- obs phase (main path 1 with the health carry and the planes) ---
     obs_rec, obs_launches = obs_phase(
@@ -7235,7 +7409,7 @@ def main() -> int:
         tiered_launches[name] += tiered_b_launches[name]
     print("tiered check: merged tables against the dense run "
           f"(bitwise: {tiered_a['vs_dense']['table']['bitwise']}), "
-          "evictions, K1/K2 on the cut slot once a step, validation and "
+          "evictions, K1/K2 on the whole slot once a step, validation and "
           "CLI predict; V = 2^28 trained, saved as tiered.npz and served "
           "with no [V, D] allocation, in fp32, bf16 and int8 cold rows",
           flush=True)
@@ -7430,6 +7604,10 @@ def main() -> int:
     # Path 15: the grids' requests (once per data block per dispatch),
     # the overlay's 2 x 1 rung, and serve() and predict() on 2 x 2.
     launches["fm_scores"] += grid_launches
+    # Path 16: the graphed host_sort = false runs, sparse and dense.
+    for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply", "k1_merge",
+                 "kplace"):
+        launches[name] += dsort_launches[name]
     sources = {
         "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
         "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),

@@ -4,12 +4,13 @@ of ``fast_tffm_tpu/ops/sparse_apply.py``.
 Three steps per train step on one device:
 
 1. **Prep** (:func:`sort_meta`, or the pipeline's host twin
-   ``data.libsvm.host_sort_meta``): a stable sort of the flat ids gives
-   ``perm`` (occurrence index per sorted position) and ``seg_start``
-   (first sorted position of each unique id, then ``n``).  Both give the
-   same arrays, so host and device prep give bitwise-equal updates.  The
-   reference's ``tile_start``, ``lrow`` and CHUNK padding exist for its
-   TPU kernels and have no counterpart here.
+   ``data.libsvm.host_sort_meta`` in the transfer stage's slot): a
+   stable sort of the flat ids gives ``perm`` (occurrence index per
+   sorted position) and ``seg_start`` (first sorted position of each
+   unique id, then ``n``).  Both give the same arrays, so host and
+   device prep give bitwise-equal updates.  The reference's
+   ``tile_start``, ``lrow`` and CHUNK padding exist for its TPU kernels
+   and have no counterpart here.
 2. **K1** (:func:`k1_dedup_cuda`, replacing ``_k1_kernel``): per unique
    id, the sums of its occurrences' gradients and of their squares,
    ``sums [U, 2D]``, and the id itself, ``urows [U]`` (ascending).
@@ -17,15 +18,16 @@ Three steps per train step on one device:
    ``_k2_group_kernel_compact``): the optimizer formula applied in place
    to the table and its optimizer tables at those rows only.
 
-K1 and K2 take ``seg_start`` cut to ``[U + 1]`` (the device sort's) or
-the whole slot of ``n + 1`` entries the transfer stage ships, its tail
-past the batch's U unique ids padded with ``n`` — the counterpart of the
-reference's static ``_k1_dedup(..., n_out)``.  On the whole slot K1
-writes ``n`` rows: the first U as on the cut slot, then row id ``-1``
-(their sums left unwritten by the kernel, zero in the plain version),
-and K2 skips a row ``-1``.  Every shape and grid then depends on ``n``
-alone and no host value of U is read, which a CUDA graph of the train
-step needs (``train/dispatch.py``).
+K1 and K2 take the whole slot of ``n + 1`` entries, which the transfer
+stage ships and :func:`sort_meta` builds on the device, its tail past
+the batch's U unique ids padded with ``n`` — the counterpart of the
+reference's static ``_k1_dedup(..., n_out)`` — or ``seg_start`` cut to
+``[U + 1]`` (:func:`cut_slot`; the kernel checks).  On the whole slot
+K1 writes ``n`` rows: the first U as on the cut slot, then row id
+``-1`` (their sums left unwritten by the kernel, zero in the plain
+version), and K2 skips a row ``-1``.  Every shape and grid then depends
+on ``n`` alone and no host value of U is read, on either prep, which a
+CUDA graph of the train step needs (``train/dispatch.py``).
 
 The dense step (``train/dense.py``) builds its ``[V, D]`` table gradient
 with :func:`dense_grad`: K1's merge mode over the batch's sort meta (the
@@ -73,8 +75,8 @@ from fast_tffm_tpu_torch.ops import _build
 
 __all__ = [
     "CHUNK", "K1_SHORT", "OPTIMIZERS", "TILE", "Hyper", "adagrad_update",
-    "apply", "dedup_entries", "dense_delta", "dense_grad", "entries_cap",
-    "entries_rows", "ftrl_solve",
+    "apply", "cut_slot", "dedup_entries", "dense_delta", "dense_grad",
+    "entries_cap", "entries_rows", "ftrl_solve",
     "ftrl_update", "k1_dedup_cuda", "k1_dedup_plain", "k1_error_bound",
     "k1_merge_cuda", "k1_merge_plain", "k2_apply_cuda", "k2_apply_plain",
     "kplace_cuda", "kplace_plain", "merge_entries", "resolve_exchange",
@@ -111,24 +113,52 @@ class Hyper(NamedTuple):
 
 
 def sort_meta(ids: torch.Tensor, drop_from: Optional[int] = None) -> SortMeta:
-    """Device prep: ``SortMeta(perm [n] i32, seg_start [U+1] i32)`` from
-    a stable sort of the flat ids, on their device.  Reading the unique
-    count synchronises with the device.
+    """Device prep: ``SortMeta(perm [n] i32, seg_start [n + 1] i32)`` from
+    a stable sort of the flat ids, on their device, with no host read
+    (the reference's static ``_prep`` / ``_sorted_stream_meta``): flags
+    at each segment's first sorted position, their cumulative sum as
+    each position's segment index, and a scatter of the first positions
+    into the whole slot.  ``seg_start`` is the slot the transfer stage
+    ships for the host meta: the first ``U + 1`` entries the batch's,
+    the tail padded with ``n``.  No shape depends on U, so a CUDA graph
+    can hold it.
 
     ``drop_from``: the segment of the largest id is left out when that
-    id is ``>= drop_from`` — the sharded step's sentinel row, whose
-    occurrences (every off-shard one) no exchange applies.  K1 then
-    never walks them: one warp would sum that segment alone."""
+    id is ``>= drop_from`` (the sharded step's sentinel row, whose
+    occurrences, every off-shard one, no exchange applies): the slot
+    from that segment on holds its first sorted position, so every
+    segment past the last real one is empty (row -1 from K1) and
+    nothing sums the sentinel's occurrences.  :func:`cut_slot` gives the
+    ``[U + 1]`` prefix."""
     flat = ids.reshape(-1)
     n = flat.numel()
     sidx, perm = torch.sort(flat, stable=True)
-    cuts = torch.nonzero(sidx[1:] != sidx[:-1]).reshape(-1) + 1
-    ends = torch.tensor([0, n] if n else [0], dtype=cuts.dtype,
-                        device=flat.device)
-    seg_start = torch.cat([ends[:1], cuts, ends[1:]])
-    if drop_from is not None and n and int(sidx[-1]) >= drop_from:
-        seg_start = seg_start[:-1]
+    dev = flat.device
+    pos = torch.arange(n, device=dev)
+    first = torch.ones((n,), dtype=torch.bool, device=dev)
+    first[1:] = sidx[1:] != sidx[:-1]
+    seg = torch.cumsum(first, 0) - 1  # each sorted position's segment
+    # A segment's first position goes to its slot; every other position
+    # writes n to slot n, which holds n (U <= n), in any order.
+    seg_start = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
+    seg_start.scatter_(0, torch.where(first, seg, n),
+                       torch.where(first, pos, n))
+    if drop_from is not None and n:
+        last = seg[-1:]  # the largest id's segment, U - 1
+        drop = (sidx[-1:] >= drop_from) & (
+            torch.arange(n + 1, device=dev) >= last)
+        seg_start = torch.where(drop, seg_start.index_select(0, last),
+                                seg_start)
     return SortMeta(perm.to(torch.int32), seg_start.to(torch.int32))
+
+
+def cut_slot(meta: SortMeta) -> SortMeta:
+    """``meta`` with ``seg_start`` cut to its non-empty segments' ``[U +
+    1]`` entries.  Reads U on the host: for the kernel checks, which
+    compare only the rows K1 writes, never for a train step."""
+    ss = meta.seg_start
+    u = int((ss[1:] > ss[:-1]).sum()) if ss.numel() > 1 else 0
+    return SortMeta(meta.perm, ss[:u + 1].contiguous())
 
 
 def ftrl_solve(z, n, lr, l1, l2, beta):
@@ -343,11 +373,15 @@ def k2_apply_plain(optimizer: str, urows, sums, tables, hyper: Hyper) -> None:
     table first, then Adagrad's accumulator or FTRL's ``z`` and ``n``).
     A row ``-1`` (the whole slot's, past the unique ids) stands in for a
     copy of the stream's first entry, so ``index_copy_`` writes that
-    row's one new value again and no other row, with no host sync."""
+    row's one new value again and no other row, with no host sync.  A
+    stream of rows -1 alone (a shard's whole slot with no row touched)
+    writes table row 0's own values back to it."""
     src = torch.where(urows >= 0,
                       torch.arange(urows.numel(), device=urows.device), 0)
     idx = urows.long().index_select(0, src)
-    sums = sums.index_select(0, src)
+    none = (idx < 0)[:, None]  # every entry -1: nothing to apply
+    idx = idx.clamp(min=0)
+    sums = torch.where(none, 0.0, sums.index_select(0, src))
     d = tables[0].shape[1]
     g1, g2 = sums[:, :d], sums[:, d:]
     w = tables[0].index_select(0, idx)
@@ -366,7 +400,8 @@ def k2_apply_plain(optimizer: str, urows, sums, tables, hyper: Hyper) -> None:
         new = (ftrl_solve(z_new, n_new, lr, hyper.l1, hyper.l2, hyper.beta),
                z_new, n_new)
     for table, rows in zip(tables, new):
-        table.index_copy_(0, idx, rows)
+        table.index_copy_(0, idx, torch.where(
+            none, table.index_select(0, idx), rows))
 
 
 def k2_apply_cuda(optimizer: str, urows, sums, tables, hyper: Hyper) -> None:
@@ -538,9 +573,11 @@ def entries_cap(n_occurrences: int, vocab: int) -> int:
 
 
 def dedup_entries(ids, g_rows, *, vocab: int):
-    """``(urows [U] i32, sums [U, 2D])``: K1 over local ids ``[n]`` and
-    their row gradients ``[n, D]``, the sentinel ``vocab`` (every
-    off-shard occurrence) left out."""
+    """``(urows [n] i32, sums [n, 2D])``: K1 over local ids ``[n]`` and
+    their row gradients ``[n, D]`` on the whole slot, the sentinel
+    ``vocab`` (every off-shard occurrence) left out: the first U rows
+    the touched ones, ascending, then row -1 (sums unwritten by the
+    kernel), which K2 skips."""
     ids = ids.reshape(-1).to(torch.int32).contiguous()
     meta = sort_meta(ids, drop_from=vocab)
     return k1_dedup_cuda(g_rows.contiguous(), ids, meta.perm, meta.seg_start)
@@ -551,18 +588,23 @@ def unique_entries(ids, g_rows, *, vocab: int, cap: int):
     occurrences carry the sentinel ``vocab``) and their row gradients
     ``[n, D]``: ``(rows [cap] i32, pay [cap, 2D] f32, count)``, rows
     ascending, padded with ``row = vocab`` and a zero payload, ``count``
-    the real rows (a device scalar)."""
+    the real rows (a device scalar, counted on the device).  The touched
+    rows number at most ``cap`` (:func:`entries_cap`), so the first
+    ``cap`` rows of K1's whole slot hold them all; its rows -1 become
+    the padding."""
     n, d = g_rows.shape
     n_pad = -(-n // CHUNK) * CHUNK
     if cap > n_pad:
         raise ValueError(f"cap={cap} exceeds padded occurrences {n_pad}")
     urows, sums = dedup_entries(ids, g_rows, vocab=vocab)
-    u = urows.numel()  # at most cap (entries_cap): the sentinel is out
+    m = min(n, cap)
+    real = urows[:m] >= 0
     rows = torch.full((cap,), vocab, dtype=torch.int32, device=ids.device)
-    rows[:u] = urows
+    rows[:m] = torch.where(real, urows[:m], vocab)
     pay = torch.zeros((cap, 2 * d), dtype=torch.float32, device=ids.device)
-    pay[:u] = sums
-    return rows, pay, torch.tensor(u, device=ids.device)
+    # A select, not a product: the kernel leaves a row -1's sums unset.
+    pay[:m] = torch.where(real[:, None], sums[:m], 0.0)
+    return rows, pay, (rows != vocab).sum()
 
 
 def entries_rows(ids, *, vocab: int, cap: int):
@@ -570,27 +612,33 @@ def entries_rows(ids, *, vocab: int, cap: int):
     (the unique local ids ascending, the sentinel ``vocab`` left out,
     padded with ``vocab``), taken from the sort meta with no payload and
     no K1 launch: each unique id is the id at its segment's first sorted
-    position, the row K1 writes (the reference's
-    ``make_entries_prefetch`` runs ``unique_entries`` on zero payloads
-    for the same rows)."""
+    position, the row K1 writes, and an empty segment of the slot gives
+    the padding (the reference's ``make_entries_prefetch`` runs
+    ``unique_entries`` on zero payloads for the same rows)."""
     ids = ids.reshape(-1).to(torch.int32).contiguous()
-    n_pad = -(-ids.numel() // CHUNK) * CHUNK
+    n = ids.numel()
+    n_pad = -(-n // CHUNK) * CHUNK
     if cap > n_pad:
         raise ValueError(f"cap={cap} exceeds padded occurrences {n_pad}")
-    meta = sort_meta(ids, drop_from=vocab)
-    u = meta.seg_start.numel() - 1
-    first = meta.perm.long().index_select(0, meta.seg_start[:u].long())
     rows = torch.full((cap,), vocab, dtype=torch.int32, device=ids.device)
-    rows[:u] = ids.index_select(0, first)
+    m = min(n, cap)
+    if m:
+        meta = sort_meta(ids, drop_from=vocab)
+        start = meta.seg_start[:m].long()
+        real = meta.seg_start[1:m + 1].long() > start
+        first = meta.perm.long().index_select(0, start.clamp(max=n - 1))
+        rows[:m] = torch.where(real, ids.index_select(0, first), vocab)
     return rows
 
 
 def merge_entries(rows, pay, *, vocab: int):
     """Merge gathered entry streams (each deduped, so a row appears at
-    most once per rank) into one K2-ready stream ``(urows [U] i32, sums
-    [U, 2D])``: a stable sort of the rows, the sentinel row's padding
-    left out, K1's merge mode over the payloads (already ``[sum g |
-    sum g²]``).  The totals are the dense exchange's."""
+    most once per rank) into one K2-ready stream ``(urows [N] i32, sums
+    [N, 2D])`` over the ``N`` gathered entries: a stable sort of the
+    rows, the sentinel row's padding left out, K1's merge mode over the
+    payloads (already ``[sum g | sum g²]``) on the whole slot (rows -1
+    past the merged unique rows, which K2 skips).  The totals are the
+    dense exchange's."""
     rows = rows.reshape(-1).to(torch.int32).contiguous()
     meta = sort_meta(rows, drop_from=vocab)
     return k1_merge_cuda(pay.contiguous(), rows, meta.perm, meta.seg_start)
@@ -598,7 +646,8 @@ def merge_entries(rows, pay, *, vocab: int):
 
 def dense_delta(ids, g_rows, *, vocab_local: int, row_lo: int):
     """Per-shard dense ``(sum g, sum g²)`` delta ``[vocab_local, 2D]``
-    of ids ``[n]`` and their row gradients ``[n, D]``: K1, then K-place.
+    of ids ``[n]`` and their row gradients ``[n, D]``: K1 on the whole
+    slot, then K-place (which takes the trailing rows -1 as absent).
     Only ids in ``[row_lo, row_lo + vocab_local)`` contribute."""
     ids = ids.reshape(-1).to(torch.int32).contiguous()
     meta = sort_meta(ids, drop_from=row_lo + vocab_local)

@@ -268,7 +268,8 @@ def k2p_entries(urows, sums, table_p, acc_p, *, lr: float, eps: float,
 def _apply(layout: str, table, acc, ids, g_rows, lr: float, eps: float,
            plain: bool):
     _check_apply(f"{layout}_apply", table, acc, ids, g_rows)
-    meta = sparse_apply.sort_meta(ids)
+    # K2T and K2P take the U touched rows alone (no row -1): the cut slot.
+    meta = sparse_apply.cut_slot(sparse_apply.sort_meta(ids))
     k1 = sparse_apply.k1_dedup_plain if plain else sparse_apply.k1_dedup_cuda
     urows, sums = k1(g_rows, ids, meta.perm, meta.seg_start)
     _entries(layout, urows, sums, table, acc, lr, eps, plain)

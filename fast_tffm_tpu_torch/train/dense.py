@@ -26,9 +26,9 @@ Per step:
 The reference's dense step scores through ``jnp``
 (``fast_tffm_tpu/models/fm.py::loss_and_metrics``) and reaches no Pallas
 kernel; the port runs the trainer's interaction here as on every path
-(``interaction_impl``: its kernels by default), held to the same math.  Nothing in the step reads the device from the host, so with
-the host sort meta a CUDA graph captures it as it does the sparse step
-(``train/dispatch.py``).
+(``interaction_impl``: its kernels by default), held to the same math.  Nothing in the step reads the device from the host, with
+the host sort meta or the device's, so a CUDA graph captures it as it
+does the sparse step (``train/dispatch.py``).
 
 On a rank mesh, :func:`dense_step_sharded` is the counterpart of the
 reference's GSPMD partition of the same step (``fast_tffm_tpu/parallel/
@@ -43,7 +43,9 @@ sums that over ``data``, adds ``l2_mode = full``'s term on its shard
 and applies the optimizer to it.  ``w0``'s gradient is summed over
 ``data`` and applied on every rank, and so is Adam's step count: each
 rank advances it once a step, so the bias corrections stay replicated.
-It runs eagerly, as the sharded sparse step does.
+Its sort is the static device prep and its collectives fixed-size, so
+nothing in it reads the device from the host; a mesh still dispatches
+eagerly (``train/loop.py::Trainer._eager_reason``).
 
 With ``compute_dtype = bfloat16`` the mesh's dense step rounds as the
 sharded step does, which is how the reference's dense ``jnp`` forward

@@ -4,7 +4,9 @@ which compiles the K steps of a super-batch into one device program under
 ``lax.scan``, with no host round trip between them.
 
 :class:`GraphedSteps` holds that program for the single-device sparse or
-dense step with the host sort meta (``host_sort = true``, the default):
+dense step, with the host sort meta (``host_sort = true``, the default)
+or the device's (``host_sort = false``: ``ops/sparse_apply.py::
+sort_meta`` is static):
 
 - **The step it captures** is the trainer's own: ``steps(sb)`` runs the K
   steps of a super-batch on its views (``SuperBatch.step``: the whole
@@ -49,9 +51,11 @@ dense step with the host sort meta (``host_sort = true``, the default):
 - **Failures raise.**  A capture or replay that fails raises; nothing
   falls back to the eager steps.
 
-An epoch tail (K' < K) runs eagerly, as do the sharded step, the device
-sort (``host_sort = false``: it reads U on the host) and the CPU
-(``train/loop.py`` decides).
+An epoch tail (K' < K) runs eagerly, as do the tiered trainer (its
+migration's plan buffers change with each super-batch), a rank mesh
+(gloo stages every collective through pinned host memory; under NCCL
+the process group's teardown hung after a graphed run) and the CPU
+(``train/loop.py::Trainer._eager_reason`` decides).
 """
 
 from __future__ import annotations

@@ -706,21 +706,24 @@ class Trainer:
         self.graph_dispatches = self.eager_dispatches = 0
 
     def _eager_reason(self) -> Optional[str]:
-        """Why this trainer's dispatches run eagerly (None: graphed)."""
+        """Why this trainer's dispatches run eagerly (None: graphed).  The
+        device sort is static (``ops/sparse_apply.py::sort_meta``), so
+        ``host_sort = false`` on one card is graphed."""
         if self.device.type != "cuda":
             return f"the {self.device.type} device has no CUDA graphs"
-        if self.sharded:
-            return ("the sharded step's collectives and device sort are "
-                    "not captured (ROADMAP.md port queue item 7a)")
         if self.tiered is not None:
-            return ("table_tiering=on migrates rows between dispatches and "
-                    "sorts the remapped ids on the device, which reads the "
-                    "unique count on the host (ROADMAP.md port queue item "
-                    "7a)")
-        if not self.cfg.host_sort:
-            return ("host_sort = false sorts on the device, which reads "
-                    "the unique count on the host (ROADMAP.md port queue "
-                    "item 7a)")
+            return ("table_tiering=on migrates rows between dispatches "
+                    "through plan buffers sized by each super-batch, which "
+                    "a graph cannot hold at fixed addresses (ROADMAP.md "
+                    "port queue item 7a)")
+        if self.sharded and self.mesh.backend != "nccl":
+            return (f"the {self.mesh.backend} mesh stages every collective "
+                    "through pinned host memory, which a CUDA graph cannot "
+                    "capture (ROADMAP.md port queue item 7a)")
+        if self.sharded:
+            return ("the sharded step's NCCL collectives are not graphed: "
+                    "after a graphed run the process group's teardown "
+                    "hangs (ROADMAP.md port queue item 7a)")
         return None
 
     def _init_or_restore(self):

@@ -63,7 +63,10 @@ gathered, so the parameters are bitwise the same.
 
 ``g``, ``dw0`` and the scores are the same on every rank of a model
 row, so only the ``data`` axis sums them.  The model and optimizer
-tensors are updated in place.
+tensors are updated in place.  No step reads a device value on the
+host (the static device sort, the entries stream's device count,
+fixed-size collectives); a mesh still dispatches eagerly
+(``train/loop.py::Trainer._eager_reason``).
 """
 
 from __future__ import annotations

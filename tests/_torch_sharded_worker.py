@@ -35,6 +35,7 @@ the card over gloo).  ``cli``: ``python -m fast_tffm_tpu_torch.cli`` with the ar
 to the sums and concatenations computed locally.
 """
 
+import faulthandler
 import json
 import os
 import subprocess
@@ -242,6 +243,9 @@ def run_ranks(mode, world, workdir):
 
 def main():
     mode, url, world, rank, workdir = sys.argv[1:6]
+    # A rank still running near the deadline writes every thread's stack
+    # into its log, which run_ranks prints.
+    faulthandler.dump_traceback_later(RANK_TIMEOUT_S - 15)
     torch.set_num_threads(1)
     if mode == "cli":
         from fast_tffm_tpu_torch import cli

@@ -155,10 +155,16 @@ def fleet(tmp_path_factory):
     cfg_path = str(tmp / "fleet.cfg")
     cap = str(tmp / "cap.tfc")
     with open(cfg_path, "w") as f:
+        # No deadline admission (serve_shed_deadline_ms = 0): on a loaded
+        # host the one replica left in a kill window completes too few
+        # requests a second for the default 50 ms budget, and the router
+        # sheds with 429 by design (tests/test_torch_router.py holds the
+        # shedding against the reference's); these tests are the fleet's
+        # routing, retry and respawn.
         f.write(_cfg_text(
             model, train, serve_replicas=2, serve_canary="true",
             serve_poll_secs=0.2, serve_capture_sample=1,
-            serve_capture_file=cap))
+            serve_capture_file=cap, serve_shed_deadline_ms=0))
     cfg = load_config(cfg_path)
     requests = _requests(cfg, rows)
     # The single-process server and the reference scorer, before any
@@ -279,7 +285,10 @@ def test_fleet_respawns_a_killed_replica(fleet):
     for t in threads:
         t.join()
     # Every request was answered, and answered right.
-    assert results and all(s == 200 for s, _ in results)
+    bad = [(s, b[:200]) for s, b in results if s != 200]
+    assert results and not bad, (
+        f"{len(bad)} of {len(results)} kill-window requests were not "
+        f"answered 200: {bad}")
     want = fleet["want"][1][1].tobytes()
     assert all(wire.decode_bin_response(b).tobytes() == want
                for _, b in results)

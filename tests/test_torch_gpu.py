@@ -700,7 +700,8 @@ def test_k1_kernel_leaves_the_sentinel_segment_out(gpu, mode):
     off = torch.from_numpy(rng.permutation(60000)[:30000]).to(gpu)
     ids[off] = vocab
     g[off] = float("nan")
-    meta = sparse_apply.sort_meta(ids, drop_from=vocab)
+    meta = sparse_apply.cut_slot(
+        sparse_apply.sort_meta(ids, drop_from=vocab))
     urows, sums, _, sums2, want_rows, want64, bound = _k1_run(mode, g, ids,
                                                               meta)
     assert torch.equal(urows, want_rows) and int(urows.max()) < vocab
@@ -969,7 +970,7 @@ def test_k1_thread_and_warp_segments(gpu, mode, width):
     ids, rng = _segments(_split_counts(), seed=width)
     pay = rng.normal(size=(ids.size, width)).astype(np.float32)
     put = lambda a: torch.from_numpy(a).to(gpu)  # noqa: E731
-    meta = sparse_apply.sort_meta(put(ids))
+    meta = sparse_apply.cut_slot(sparse_apply.sort_meta(put(ids)))
     urows, sums, urows2, sums2, want_rows, want64, bound = _k1_run(
         mode, put(pay), put(ids), meta)
     assert torch.equal(urows, want_rows) and urows.numel() == 300
@@ -994,7 +995,8 @@ def test_k1_merge_of_a_four_block_mesh(gpu):
                for b in range(4)]
     rows = torch.cat([r for r, _, _ in streams])
     pay = torch.cat([p for _, p, _ in streams])
-    meta = sparse_apply.sort_meta(rows, drop_from=vocab)
+    meta = sparse_apply.cut_slot(
+        sparse_apply.sort_meta(rows, drop_from=vocab))
     counts = meta.seg_start[1:] - meta.seg_start[:-1]
     assert int(counts.max()) == 4
     urows, sums, urows2, sums2, want_rows, want64, bound = _k1_run(
@@ -1004,7 +1006,8 @@ def test_k1_merge_of_a_four_block_mesh(gpu):
     assert bool(torch.all((sums.double() - want64).abs() <= bound))
     # The merged stream is the dense one: K1 over every occurrence.
     dense_rows, dense = sparse_apply.k1_dedup_plain(
-        put(g).double(), put(ids), *sparse_apply.sort_meta(put(ids)))
+        put(g).double(), put(ids),
+        *sparse_apply.cut_slot(sparse_apply.sort_meta(put(ids))))
     assert torch.equal(urows, dense_rows)
     torch.testing.assert_close(sums.double(), dense, rtol=1e-5, atol=1e-5)
 
@@ -1847,6 +1850,96 @@ def _dense_cfg(tmp_path, optimizer, dtype, k, l2_mode="full"):
     return dataclasses.replace(
         _dispatch_cfg(tmp_path, optimizer, dtype, k), sparse_update=False,
         l2_mode=l2_mode)
+
+
+def _every_leaf(trainer):
+    """Every tensor a run trains or counts: tables, w0, every optimizer
+    leaf, the metrics and the health carry."""
+    m = trainer.metrics
+    return ([trainer.model.table, trainer.model.w0, *trainer.opt_state,
+             m.loss_sum, m.weight_sum, m.count, m.auc.pos, m.auc.neg]
+            + list(trainer.health))
+
+
+def _device_sort_case(tmp_path, mode, k):
+    """``(cfg with host_sort = true, host batches with their sort meta,
+    with_fields)`` of a device-sort case: the sparse step, the dense
+    optax path (Adam, full L2) or field-aware FM."""
+    if mode == "dense":
+        cfg = _dense_cfg(tmp_path, "adam", "float32", k)
+    else:
+        cfg = _dispatch_cfg(tmp_path, "adagrad", "float32", k)
+    host = _host_batches(9, vocab=cfg.vocabulary_size)
+    if mode == "ffm":
+        cfg = dataclasses.replace(cfg, field_num=4)
+        host = [b._replace(fields=np.tile((np.arange(39) + i) % 4, (512, 1))
+                           .astype(np.int32)) for i, b in enumerate(host)]
+    return cfg, host, mode == "ffm"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sparse", "dense", "ffm"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_device_sort_graphed_dispatch_is_bitwise_eager_and_host_sort(
+        gpu, tmp_path, mode, k):
+    """``host_sort = false`` on one card: the static device sort meta
+    lets the K steps be captured.  Nine batches through
+    ``Trainer.dispatch``, graphed (the first full super-batch eager, the
+    later full ones replays), all eager, and graphed on the host sort
+    meta: every table, optimizer leaf, w0, loss, metric and health leaf
+    bitwise alike in the three runs, and the launches of the graphed
+    and eager device-sort runs equal."""
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.train.dispatch import COUNTERS
+
+    cfg, host, fields = _device_sort_case(tmp_path, mode, k)
+    dev_cfg = dataclasses.replace(cfg, host_sort=False)
+    bare = [b._replace(sort_meta=None) for b in host]
+    runs = {}
+    for name, c, batches, graphs in (("graphed", dev_cfg, bare, True),
+                                     ("eager", dev_cfg, bare, False),
+                                     ("host", cfg, host, True)):
+        trainer = _trainer(c, gpu, graphs)
+        counts = [getattr(fn, attr) for fn, attr in COUNTERS]
+        losses = [trainer.dispatch(sb).clone() for sb in DevicePrefetcher(
+            batches, k, gpu, c.vocabulary_size, with_fields=fields)]
+        torch.cuda.synchronize()
+        launched = [getattr(fn, attr) - n
+                    for (fn, attr), n in zip(COUNTERS, counts)]
+        runs[name] = (trainer, torch.cat(losses), launched)
+    graphed, g_loss, g_launched = runs["graphed"]
+    assert graphed.eager_reason is None
+    assert graphed.graph_dispatches == 9 // k - 1 > 0
+    assert graphed.eager_dispatches == 1 + (9 % k > 0)
+    assert g_launched == runs["eager"][2] and sum(g_launched) >= 2 * 9
+    for other in ("eager", "host"):
+        trainer, loss, _ = runs[other]
+        assert torch.equal(g_loss, loss), other
+        for a, b in zip(_every_leaf(graphed), _every_leaf(trainer)):
+            assert torch.equal(a, b), other
+    assert graphed.graph.pool_bytes() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sparse", "dense"])
+def test_device_sort_step_reads_nothing_back(gpu, tmp_path, mode):
+    """An eager ``host_sort = false`` step on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: the device sort, K1, K2
+    (or K1's merge mode and K-place) and the optimizer make no call
+    that synchronises with the host."""
+    cfg, host, _ = _device_sort_case(tmp_path, mode, 1)
+    cfg = dataclasses.replace(cfg, host_sort=False)
+    trainer = _trainer(cfg, gpu, graphs=False)
+    batches = [sparse.to_device(b._replace(sort_meta=None), gpu)
+               for b in host[:2]]
+    trainer.device_step(batches[0], health=True)  # first launches, builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = trainer.device_step(batches[1], health=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(loss))
 
 
 @pytest.mark.gpu

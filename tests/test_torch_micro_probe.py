@@ -222,8 +222,8 @@ def test_k2p_refuses_a_view_off_its_16_byte_grid(which):
     ``k2p_entries`` (and, for the tables, ``k2p_apply``) on every
     device, before any launch."""
     tp, ap, ids, g = _args("k2p")
-    urows, sums = sparse_apply.k1_dedup_plain(g, ids,
-                                              *sparse_apply.sort_meta(ids))
+    urows, sums = sparse_apply.k1_dedup_plain(
+        g, ids, *sparse_apply.cut_slot(sparse_apply.sort_meta(ids)))
     tabs = {"table": tp, "acc": ap, "sums": sums}
     tabs[which] = _misaligned(tabs[which])
     before = micro_probe.k2p_apply.launches

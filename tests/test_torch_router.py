@@ -984,14 +984,16 @@ def _clock():
 def test_capture_files_are_byte_equal_to_the_reference(tmp_path, sample,
                                                        rotate):
     frames = _capture_frames(24)
-    writers = {}
+    writers, written = {}, {}
     for impl, mod in (("jax", jax_wire), ("torch", wire)):
         w = mod.CaptureWriter(str(tmp_path / impl / "cap.tfc"),
                               sample=sample, rotate_bytes=rotate,
                               tail=5, clock=_clock())
+        written[impl] = []
         for req, resp in frames:
             if w.sample():
                 w.write(req, resp)
+                written[impl].append((req, resp))
         writers[impl] = w
     assert writers["torch"].count == writers["jax"].count > 0
     assert writers["torch"].tail_bytes() == writers["jax"].tail_bytes()
@@ -1006,8 +1008,22 @@ def test_capture_files_are_byte_equal_to_the_reference(tmp_path, sample,
         if os.path.exists(paths[0]):
             with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
                 assert a.read() == b.read()
-    assert os.path.exists(str(tmp_path / "torch" / "cap.tfc.1")) == \
-        (rotate < 1000)
+    # The writers sample with a seed of the process id, so which frames
+    # were written (and at sample 0.5 whether the file ever passed
+    # `rotate`) depends on the pid: the rotation asserted is the one the
+    # written bytes imply by the writer's own rule (a rotation once the
+    # file, header included, reaches `rotate` bytes, then a fresh
+    # header).  Every frame is written at sample 1.0, where `rotate <
+    # 1000` must rotate.
+    assert written["torch"] == written["jax"]
+    size, rotated = wire._CAP_HDR.size, False
+    for req, resp in written["torch"]:
+        size += wire._CAP_REC.size + len(req) + len(resp)
+        if size >= rotate:
+            size, rotated = wire._CAP_HDR.size, True
+    if sample >= 1.0:
+        assert rotated == (rotate < 1000)
+    assert os.path.exists(str(tmp_path / "torch" / "cap.tfc.1")) == rotated
     # Each package reads the other's file.
     path = str(tmp_path / "torch" / "cap.tfc")
     assert list(jax_wire.read_capture(path)) == list(wire.read_capture(

@@ -142,6 +142,12 @@ def test_k1_merge_plain_sums_without_squaring():
     meta = sparse_apply.sort_meta(ids)
     urows, sums = sparse_apply.k1_merge_cuda(pay, ids, meta.perm,
                                              meta.seg_start)
+    # The whole slot: one row -1 (zero sums) past the two unique ids.
+    assert urows.tolist() == [4, 9, -1]
+    assert sums.tolist() == [[3.0, 4.0], [6.0, 8.0], [0.0, 0.0]]
+    cut = sparse_apply.cut_slot(meta)
+    urows, sums = sparse_apply.k1_merge_cuda(pay, ids, cut.perm,
+                                             cut.seg_start)
     assert urows.tolist() == [4, 9]
     assert sums.tolist() == [[3.0, 4.0], [6.0, 8.0]]
 
@@ -653,15 +659,26 @@ def test_argparse_namespace_is_what_the_reference_reads():
 
 
 def test_sort_meta_leaves_out_only_a_last_segment_at_or_past_drop_from():
+    # The whole slot [n + 1]: the tail past the last real segment holds
+    # n, or the left-out segment's first sorted position (every segment
+    # from there on empty); cut to its non-empty segments it is the
+    # [U + 1] prefix.
     ids = torch.tensor([7, 2, 9, 2, 9, 5], dtype=torch.int32)
     full = sparse_apply.sort_meta(ids)
-    assert full.seg_start.tolist() == [0, 2, 3, 4, 6]
-    assert sparse_apply.sort_meta(ids, drop_from=9).seg_start.tolist() \
-        == [0, 2, 3, 4]
+    assert full.seg_start.tolist() == [0, 2, 3, 4, 6, 6, 6]
+    assert sparse_apply.cut_slot(full).seg_start.tolist() == [0, 2, 3, 4, 6]
+    drop = sparse_apply.sort_meta(ids, drop_from=9)
+    assert drop.seg_start.tolist() == [0, 2, 3, 4, 4, 4, 4]
+    assert sparse_apply.cut_slot(drop).seg_start.tolist() == [0, 2, 3, 4]
     assert sparse_apply.sort_meta(ids, drop_from=10).seg_start.tolist() \
-        == [0, 2, 3, 4, 6]
+        == [0, 2, 3, 4, 6, 6, 6]
     only = torch.full((4,), 9, dtype=torch.int32)
     meta = sparse_apply.sort_meta(only, drop_from=9)
+    assert meta.seg_start.tolist() == [0] * 5
     urows, sums = sparse_apply.k1_dedup_cuda(torch.ones((4, 3)), only,
                                              meta.perm, meta.seg_start)
+    assert urows.tolist() == [-1] * 4 and not sums.any()
+    cut = sparse_apply.cut_slot(meta)
+    urows, sums = sparse_apply.k1_dedup_cuda(torch.ones((4, 3)), only,
+                                             cut.perm, cut.seg_start)
     assert urows.numel() == 0 and sums.shape == (0, 6)

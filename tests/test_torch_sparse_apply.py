@@ -208,7 +208,12 @@ def test_host_meta_equals_device_meta_bitwise(hot):
     host = host_sort_meta(ids)
     dev = sparse_apply.sort_meta(torch.from_numpy(ids))
     np.testing.assert_array_equal(host.perm, dev.perm.numpy())
-    np.testing.assert_array_equal(host.seg_start, dev.seg_start.numpy())
+    # The device slot is the transfer stage's: the host's U + 1 entries,
+    # then n.
+    u1 = host.seg_start.size
+    np.testing.assert_array_equal(host.seg_start, dev.seg_start[:u1].numpy())
+    assert dev.seg_start.numel() == ids.size + 1
+    assert bool((dev.seg_start[u1:] == ids.size).all())
     tables = (_table(7), np.full((V, D), 0.1, np.float32))
     hyper = sparse_apply.Hyper(lr=LR, eps=EPS)
     with_host = _port_apply("adagrad", tables, ids, g, hyper, meta=host)
