@@ -3,9 +3,9 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py           # one GPU: every phase below
-    python3 chip_smoke.py --nccl    # >= 4 GPUs: phases 1-3, 9, 16, 17
-                                    # and 18 only, one rank per GPU over
-                                    # NCCL
+    python3 chip_smoke.py --nccl    # >= 4 GPUs: phases 1-3, 9, 16, 17,
+                                    # 18 and 21 only, one rank per GPU
+                                    # over NCCL
 
 Phases, in order; any failed check ends the run with a non-zero exit:
 
@@ -50,11 +50,12 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    (their counters); the logloss of the last steps below the first
    step's; one finite probability per predict line.
 5b. Ingest phase (main path 1 again): ``BatchPipeline`` drained alone
-   over the train files (lines/s) with the Python parser on one thread,
-   the native parser on 1 and 8 threads and on 2, 4 and 8 spawned
-   worker processes (the shared-memory ring on), the streams checked
+   (lines/s) with the Python parser on one thread over the first train
+   file (bitwise the native parser's stream of it), then over the train
+   files with the native parser on 1 and 8 threads and on 2, 4 and 8
+   spawned worker processes (the shared-memory ring on), the streams checked
    bitwise equal; the free bytes of ``/dev/shm`` beside the ring's
-   size; then ``Trainer.train()`` for 4 epochs of the same files (64
+   size; then ``Trainer.train()`` for 2 epochs of the same files (32
    steps) in six modes: 8 threads with the epoch cache off, on
    (``cache_epochs``) and prestacked (``cache_prestacked``), and 2, 4
    and 8 workers with the cache off; each from fresh models as it runs
@@ -80,7 +81,7 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    ``tests/test_bf16.py::TestTrainingParity`` check); an f32
    ``params.npz``.
 6b. Graph phase (main path 1's dispatch): ``Trainer.train()`` over the
-   train files and the validation file (17 steps, so K = 4 ends on an
+   first train file and the validation file (9 steps, so K = 4 ends on an
    eager tail) for f32 and bf16 compute x Adagrad, FTRL, SGD x K = 1, 4,
    each graphed and eager (the trainer's ``graph`` set to None) from the
    same seeded table: tables, optimizer state, w0 and the metrics
@@ -136,7 +137,7 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    a Chrome trace naming FmScorer, FmGrad, K1 and K2; one expected
    capture in the compile sentinel; a bundle ``report --incident``
    reads.  (g) The default-on quality plane's cost, printed: examples/s
-   over 4 epochs (``tools/ingest_bench.py``, 8 threads, cache off) with
+   over 2 epochs (``tools/ingest_bench.py``, 8 threads, cache off) with
    quality on and off in turns, and the graphed step with the scores
    copy and without at K = 1 and 4.
 7. Parity phase, f32 and bf16 compute: 3 steps through the kernels vs
@@ -188,10 +189,11 @@ Phases, in order; any failed check ends the run with a non-zero exit:
 9. Sharded phase (main path 3): four ranks of a 2 x 2 (data x model)
    mesh, ``lookup = shardmap``, each a process of this script
    (``--sharded-rank``) sharing the card over gloo (or one GPU each over
-   NCCL with ``--nccl``), train 8 global batches of the line stream
+   NCCL with ``--nccl``), train 4 global batches of the line stream
    (``fast_ingest = false``, whose order does not depend on the local
    batch size) through
-   ``Trainer.train()`` twice: ``sparse_exchange = dense`` (K-place
+   ``Trainer.train()`` (one group of ranks training its three runs in
+   turn): ``sparse_exchange = dense`` (K-place
    every step on every rank) and ``auto`` (must resolve to ``entries``:
    K1's merge mode every step, no K-place; this run also scrapes the
    training fleet, ``train_fleet_scrape`` over the four ranks' status
@@ -270,7 +272,7 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    bench's tiered section (``bench.py::_bench_tiered``: V = 2^28,
    ``hot_rows`` = 2^20, D = 9, F = 39, B = 4096, K = 8, 12 batches of
    Zipf(1.1) lines an epoch, the prestacked cache, a virtual cold
-   store): 8 epochs in fp32 cold rows, saved as ``tiered.npz`` and
+   store): 4 epochs in fp32 cold rows, saved as ``tiered.npz`` and
    served through ``serve()`` (scores against the plain path on the cold
    store's rows), and 2 epochs each in bf16 and int8 cold rows; the
    peak device memory under a 16th of one dense table.  Each run's
@@ -326,7 +328,8 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    ``mesh_data = 1``, ``mesh_model = 2``, ``lookup = auto`` and no
    validation files, two ranks of this script sharing the card over
    gloo (four, one per GPU over NCCL, with ``--nccl``), against the dense
-   ``1 x 2`` mesh over the same lines and seed: each rank's loss and AUC,
+   ``1 x 2`` mesh over the same lines and seed (one group of ranks
+   training both in turn): each rank's loss and AUC,
    w0 and its slot, and the table and accumulator merged from the two
    ``tiered.shard{s}of2.npz`` against the dense ``params.npz``, all
    bitwise; evictions; FmGrad, K1 and K2 every step on every rank.  Each
@@ -366,7 +369,7 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    entries run) and ``dense`` (2 steps: a 554 MB delta a rank summed
    through host memory), within the tile-vs-scatter bounds, and the
    entries run's ``params.npz`` served by one process (no FmScorer);
-   (b) FM in ``compute_dtype = bfloat16`` and in f32 (8 steps each):
+   (b) FM in ``compute_dtype = bfloat16`` and in f32 (4 steps each):
    the bf16 logloss within 1e-2 of the f32 mesh's, its parameters within
    ``rtol=0.05, atol=0.02`` of the one-device bf16 run and its table's
    change within 0.05 of that run's change (in norm), the f32 FmGrad,
@@ -400,6 +403,43 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    ``--nccl`` also the CLI's ``predict`` and ``serve`` with ``mesh_data
    = 2``, ``mesh_model = 2`` (subprocesses over every card): the served
    file equals predict's.
+
+19. Avazu phase (path 17, BASELINE config 2, after the mesh-modes
+   phase): ``examples/avazu.cfg`` at its own widths (V = 2^24 hashed
+   buckets, F = 24 slots for 22 fields, D = 9, B = 8192, Adagrad at lr
+   0.1, batch L2 1e-5), only the files, ``model_file``, ``score_path``
+   and the serve port overridden, on seeded Avazu-shaped lines (22
+   ``<field>_<hex>:1`` tokens, Zipf-skewed values, labels planted on
+   three fields): 12 batches through ``Trainer.train()`` (graphed after
+   the first), validation (AUC above 0.5), ``predict``, and ``serve()``
+   answering ``/score`` with the validation lines' text equal to the
+   predict file; FmScorer, FmGrad (bitwise), K1 and K2 Adagrad on a
+   parsed batch's whole slot (the padding id's 16,384 occurrences)
+   against their plain versions and timed; the step on a device batch
+   graphed and eager, end-to-end examples/s, peak device memory,
+   ``/score`` p50.
+20. Config-4 phase (path 18, BASELINE config 4's step on one card):
+   ``examples/criteo_1tb_dist.cfg`` with a 1 x 1 mesh (V = 2^26, B =
+   262,144, F = 39, Adagrad at lr 0.05, L2 1e-6, ``host_sort``, 16
+   parse threads), one file of 262,144 Criteo-shaped lines trained 4
+   epochs (3 graph replays, no checkpoint written); the ingest alone
+   (parse and C++ sort meta), the sort meta alone, the step on a device
+   batch graphed and eager, capture seconds, pool bytes, peak memory,
+   and FmScorer, FmGrad, K1 and K2 at its 10,223,616 occurrences
+   against their plain versions and timed.  Then path 19 (BASELINE
+   config 3): ``examples/gen_sample_data.py``'s data and ``python -m
+   fast_tffm_tpu_torch.tools.sweep_optimizers`` on a copy of
+   ``examples/sample.cfg`` (3 of its 10 epochs) as a subprocess: six
+   rows and ``best:``, every logloss and AUC finite.
+21. ``--nccl`` only: BASELINE config 4 through ``python
+   chip_smoke.py --cli-rank`` (``fast_tffm_tpu_torch.cli.main`` with a
+   user's ``train CFG --coordinator ... --num_processes 4 --process_id
+   R``, its dispatches and collectives timed), one process per GPU over
+   NCCL, on copies of the config at 2 x 2 and 4 x 1, path 18's data and
+   epochs, eager: each mesh's checkpoint against a one-card run on
+   ``cuda:0`` (the sharded phase's bounds); each rank's exchange,
+   ``entries_cap``, step p50, collective share, ``ingest_wait_frac``,
+   peak memory, examples/s and its ``destroy_process_group()`` seconds.
 
 Output: progress lines and JSON records, then a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -457,14 +497,18 @@ TRAIN_FILES, BATCHES_PER_FILE, LINES = 2, 8, 4096
 # Ingest phase: the process pool's sizes (each beside eight threads).
 INGEST_PROCS = (2, 4, 8)
 INT_BUCKETS = 50
-# Sharded phase: the mesh, its ranks' deadline, and the K-place check's
+# Sharded phase: the mesh, the global batches its runs train (the head
+# of the first train file), its ranks' deadline, and the K-place check's
 # shard (the upper half of the Criteo-Kaggle table).
 SHARDED_MESH = (2, 2)
+SHARDED_STEPS = 4
 RANK_TIMEOUT_S = 300
 KPLACE_ROW_LO = KPLACE_VOCAB_LOCAL = 1 << 21
 # Kernel timing: the copies of FmGrad's inputs taken in turn, so that its
-# time is not the L2's (32 x 6.5 MB f32, 32 x 3.3 MB bf16).
+# time is not the L2's (32 x 6.5 MB f32, 32 x 3.3 MB bf16).  Paths 17-18
+# take as many copies as pass twice the H100's 50 MB L2 (``l2_copies``).
 FM_GRAD_COPIES = 32
+L2_BYTES = 50 * 2**20
 # Probe phase: the micro-probe's id count (16384 x 39 uniform ids), and
 # the occurrences of the one hot id added to each K2T/K2P check's ids.
 PROBE_N = 16384 * 39
@@ -476,6 +520,9 @@ HOT_OCCURRENCES = 5000
 FFM_FIELDS = 4
 FFM_OP_TOL = dict(rtol=1e-5, atol=1e-6)
 FFM_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# The epochs of the FFM CLI round trip (examples/ffm_sample.cfg has 10;
+# 3 reach a validation logloss near 0.56, under the check's 0.693).
+FFM_CLI_EPOCHS = 3
 # Quantized serving (path 6): the int8 scale chunk, and the reference's
 # pinned bounds of served quantized scores against fp32 ones
 # (tests/test_quant.py:43-44); the request sizes every served table
@@ -490,10 +537,10 @@ OVERLAY_ROWS = 1 << 20
 # Tiered training (path 8): (a) the main config's hot table (one step's
 # 159,744 occurrences fit, 16 steps evict); (b) the reference bench's
 # tiered section (bench.py::_bench_tiered): 12 batches of 4096 Zipf
-# lines an epoch, 8 epochs in fp32 cold rows and fewer in bf16 and int8.
+# lines an epoch, 4 epochs in fp32 cold rows and fewer in bf16 and int8.
 TIERED_HOT = 1 << 18
 TIERED_BATCHES = 12
-TIERED_EPOCHS = 8
+TIERED_EPOCHS = 4
 TIERED_SHORT_EPOCHS = 2
 # Rank-sharded tiering (path 11): the fleet's global hot table (2^17
 # rows a rank on two ranks) and the steps of its one-device warm start.
@@ -504,7 +551,7 @@ FLEET_WARM_STEPS = 4
 # bf16 bounds of tests/test_bf16.py and the group's deadline (seven
 # runs in one group of ranks).
 MESH_FFM_STEPS, MESH_FFM_DENSE_STEPS = 4, 2
-MESH_BF16_STEPS, MESH_DENSE_STEPS = 8, 4
+MESH_BF16_STEPS, MESH_DENSE_STEPS = 4, 4
 BF16_PARAM_TOL = dict(rtol=0.05, atol=0.02)
 MESH_MODES_TIMEOUT_S = 600
 # The dense optax path (path 9): both L2 lambdas of the full-table L2,
@@ -521,7 +568,7 @@ DENSE_ADAM_LR = 1e-3
 DENSE_GRAD_RTOL = 1e-4
 DENSE_SHORT_STEPS = 4
 DENSE_SERVE_LINES = 300
-DENSE_TIMED_STEPS = 40
+DENSE_TIMED_STEPS = 20
 # Profiler windows: the host's pause after tracing starts and before it
 # stops.  The trace drops a kernel whose traced time falls outside the
 # window, and the window can open ms after `prof.step()` returns, losing
@@ -532,8 +579,8 @@ PROFILE_MARGIN_S = 0.1
 # their seconds, the timed requests per rung, and the shedding burst's
 # admission budget.
 FLEET_CLIENTS = 8
-FLEET_LOAD_S = 3.0
-FLEET_TIMED = 30
+FLEET_LOAD_S = 1.0
+FLEET_TIMED = 15
 FLEET_SHED_MS = 1.0
 # The obs phase (main path 1 with the observability planes): its
 # dispatch's steps, the hold before each dispatch of its throttled runs
@@ -541,7 +588,7 @@ FLEET_SHED_MS = 1.0
 # and the timed dispatches of each step with and without the carry.
 OBS_K = 4
 OBS_THROTTLE_S = 0.1
-OBS_TIMED = 40
+OBS_TIMED = 20
 # The obs phase's server (d): /score_bin requests of the training lines,
 # and each one's rows.
 SERVE_BIN_REQUESTS = 64
@@ -554,9 +601,44 @@ PATH_KERNEL_SYMBOLS = ("fm_scores_fwd_kernel", "fm_grad_bwd_kernel",
 # overlay's rung, and the grid that serve() and predict() run on.
 GRIDS_ONE_CARD = ((1, 1), (2, 1), (1, 2), (2, 2))
 GRIDS_FOUR_CARDS = ((1, 1), (2, 2), (1, 4), (4, 1))
-GRID_TIMED = 20
+GRID_TIMED = 10
 GRID_OVERLAY_RUNG = 1024
 GRID_SERVE = (2, 2)
+# Path 17, BASELINE config 2 (examples/avazu.cfg): the public Avazu
+# dataset's 22 feature columns with each one's distinct values here
+# (device_id and device_ip from millions, as in the data; the rest from
+# thousands or fewer), the fields the label is planted on and their
+# weights, and the batches trained.
+AVAZU_CFG_PATH = os.path.join(REPO, "examples", "avazu.cfg")
+AVAZU_FIELDS = (
+    ("hour", 240), ("C1", 7), ("banner_pos", 7), ("site_id", 4737),
+    ("site_domain", 7745), ("site_category", 26), ("app_id", 8552),
+    ("app_domain", 559), ("app_category", 36), ("device_id", 2686408),
+    ("device_ip", 6729486), ("device_model", 8251), ("device_type", 5),
+    ("device_conn_type", 4), ("C14", 2626), ("C15", 8), ("C16", 9),
+    ("C17", 435), ("C18", 4), ("C19", 68), ("C20", 172), ("C21", 60),
+)
+AVAZU_PLANTED = {"banner_pos": 0.8, "device_type": -0.6, "C18": 0.5}
+AVAZU_BATCHES = 12
+# Paths 17-18: the dispatches timed a mode on a device batch (and the
+# /score requests timed); one unit of a printed six-decimal score.
+BASELINE_TIMED = 20
+PRINTED_UNIT = 1e-6
+# Path 18 and --nccl, BASELINE config 4 (examples/criteo_1tb_dist.cfg):
+# one global batch of lines, the epochs trained (one eager dispatch,
+# then replays), the calls a kernel-timing graph holds at its 10.2 M
+# occurrences, the meshes of four GPUs (its 4 x 4 needs 16) and the
+# ranks' deadline.
+DIST_LINES = 262144
+DIST_EPOCHS = 4
+BIG_STREAM_CALLS = 10
+DIST_MESHES = ((2, 2), (4, 1))
+DIST_TIMEOUT_S = 300
+# Path 19, BASELINE config 3: the epochs of the smoke's copy of
+# examples/sample.cfg (its own 10, cut for time) and the sweep
+# subprocess's deadline.
+SWEEP_EPOCHS = 3
+SWEEP_TIMEOUT_S = 300
 
 
 def check(cond: bool, msg: str) -> None:
@@ -579,7 +661,7 @@ def p50(xs) -> float:
     return xs[(len(xs) - 1) // 2]
 
 
-def graph_ms(torch, fn, calls: int = 100, reps: int = 7) -> float:
+def graph_ms(torch, fn, calls: int = 100, reps: int = 5) -> float:
     """Device time per call: ``calls`` calls captured in one CUDA graph,
     the graph replayed between CUDA events, the median of ``reps``
     replays over ``calls``.  The replay issues the launches itself, so
@@ -627,6 +709,21 @@ def time_cases(torch, cases: dict, calls: dict = None) -> dict:
             "bound_ms": b_ms, "bound_by": b_by,
         }
     return timing
+
+
+def l2_copies(bound_ms: float) -> int:
+    """The copies of a call's inputs to take in turn so that its timed
+    reads come from HBM, not the L2: enough that the bytes its bound
+    counts (``bound_ms`` at HBM bandwidth) pass twice the L2 before a
+    copy comes round again."""
+    return max(1, math.ceil(2 * L2_BYTES / (bound_ms * 1e-3
+                                             * PEAK_BYTES_PER_S)))
+
+
+def in_turn(fn, copies: list):
+    """A call of ``fn`` on the next of ``copies`` (argument tuples)."""
+    turn = itertools.cycle(copies)
+    return lambda: fn(*next(turn))
 
 
 def time_per_call_ms(torch, fn, iters: int = 200, warm: int = 20) -> float:
@@ -740,6 +837,17 @@ def k1_bound_ms(n: int, u: int, d: int, slot: int = 0):
     slot = slot or u
     return bound(4 * (n * d + n + u + (slot + 1) + slot + 2 * d * u),
                  3 * n * d)
+
+
+def fm_scores_f64(rows, vals):
+    """FmScorer's function in float64 (``fm_scores_plain``'s formula,
+    which accumulates in float32): the exact value a check at a large
+    batch holds the kernel to."""
+    rows, vals = rows.double(), vals.double()
+    xv = rows[..., 1:] * vals[..., None]
+    s1 = xv.sum(dim=1)
+    return ((rows[..., 0] * vals).sum(dim=-1)
+            + 0.5 * (s1 * s1 - (xv * xv).sum(dim=1)).sum(dim=-1)), s1
 
 
 def k1_library(torch, g, meta):
@@ -903,13 +1011,20 @@ def write_labelled(np, path: str, rng, n: int, w_true,
     cats = rng.integers(0, 1 << 32, (n, 26))
     score = w_true[np.arange(13), ints].sum(axis=1)
     labels = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-score))).astype(int)
+    # Column by column on Python ints and floats (numpy scalars format
+    # slowly), each categorical column's hex digits in one call: 262,144
+    # lines a few seconds.
+    cols = [[f"{tag[j]}I{j + 1}_{b}:{v:.4f}" for b, v in
+             zip(ints[:, j].tolist(), ivals[:, j].tolist())]
+            for j in range(13)]
+    for j in range(26):
+        digits = cats[:, j].astype(">u4").tobytes().hex()
+        pre = f"{tag[13 + j]}C{j + 1}_"
+        cols.append([pre + digits[k:k + 8] + ":1"
+                     for k in range(0, 8 * n, 8)])
     with open(path, "w") as f:
-        for i in range(n):
-            toks = [f"{tag[j]}I{j + 1}_{ints[i, j]}:{ivals[i, j]:.4f}"
-                    for j in range(13)]
-            toks += [f"{tag[13 + j]}C{j + 1}_{cats[i, j]:08x}:1"
-                     for j in range(26)]
-            f.write(f"{labels[i]} {' '.join(toks)}\n")
+        f.writelines(f"{y} {' '.join(toks)}\n"
+                     for y, toks in zip(labels.tolist(), zip(*cols)))
 
 
 def post(conn, path: str, body: bytes) -> bytes:
@@ -2881,6 +2996,76 @@ def serve_fleet_phase(np, torch, card: str, tmp: str, model_dir: str,
     return rec, launches
 
 
+def timed_trainer_class(torch):
+    """Times every collective of a train step on the host clock,
+    synchronised on both sides (the smoke's measurement only): the
+    sharded steps' ``psum`` and ``all_gather``, the dense mesh step's
+    ``psum`` and the overlap's id-plane gather (its start, the id plane's
+    sort and, under gloo, the copy to the host, and its wait).  Returns
+    a ``Trainer`` subclass that times each dispatch (synchronised) and
+    the collectives inside it, over its steps (``step_s``, ``coll_s``);
+    under fleet tiering also each plan's host seconds (on the transfer
+    thread) and each migration's device time (a CUDA event pair on the
+    dispatch stream)."""
+    from fast_tffm_tpu_torch.train import dense, loop, shardmap_step
+
+    coll_s = [0.0]
+
+    def timed(collective):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = collective(*args)
+            torch.cuda.synchronize()
+            coll_s[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    shardmap_step.psum = timed(shardmap_step.psum)
+    shardmap_step.all_gather = timed(shardmap_step.all_gather)
+    dense.psum = timed(dense.psum)
+    prefetch = loop.entries_prefetch
+
+    def timed_prefetch(*args):
+        pending = timed(prefetch)(*args)
+        pending.wait = timed(pending.wait)
+        return pending
+
+    loop.entries_prefetch = timed_prefetch
+
+    class TimedTrainer(loop.Trainer):
+        def __init__(self, *args, **kwargs):
+            self.step_s, self.coll_s = [], []
+            self.plan_s, self.migration_events = [], []
+            super().__init__(*args, **kwargs)
+
+        def _plan_group(self, group):
+            t0 = time.perf_counter()
+            out = super()._plan_group(group)
+            self.plan_s.append(time.perf_counter() - t0)
+            return out
+
+        def _apply_migration_fleet(self, shipment):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = super()._apply_migration_fleet(shipment)
+            b.record()
+            self.migration_events.append((a, b))
+            return out
+
+        def dispatch(self, sb, pause=None):
+            c0 = coll_s[0]
+            t0 = time.perf_counter()
+            losses = super().dispatch(sb, pause)
+            torch.cuda.synchronize()
+            self.step_s.append((time.perf_counter() - t0) / sb.n)
+            self.coll_s.append((coll_s[0] - c0) / sb.n)
+            return losses
+
+    return TimedTrainer
+
+
 def rank_main(argv) -> int:
     """One rank of a multi-rank phase:
     ``chip_smoke.py --sharded-rank RANK WORLD INIT_URL SPEC OUT``.
@@ -2900,8 +3085,7 @@ def rank_main(argv) -> int:
     from fast_tffm_tpu_torch.config import load_config
     from fast_tffm_tpu_torch.ops import fm_kernels, sparse_apply
     from fast_tffm_tpu_torch.tools import micro_probe
-    from fast_tffm_tpu_torch.train import dense, dist, loop, shardmap_step
-    from fast_tffm_tpu_torch.train.loop import Trainer
+    from fast_tffm_tpu_torch.train import dist, shardmap_step
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format=f"%(asctime)s rank{rank} %(name)s %(message)s")
@@ -2909,71 +3093,7 @@ def rank_main(argv) -> int:
         spec = json.load(f)
     dev = dist.initialize(url, world, rank)
     try:
-        coll_s = [0.0]
-
-        def timed(collective):
-            """``collective`` timed on the host clock, synchronised on
-            both sides (the smoke's measurement only)."""
-            def call(*args):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = collective(*args)
-                torch.cuda.synchronize()
-                coll_s[0] += time.perf_counter() - t0
-                return out
-            return call
-
-        # Every collective of a train step is the sharded steps', and
-        # the overlap's id-plane gather is the trainer's prefetch: its
-        # start (the id plane's sort and, under gloo, the copy to the
-        # host) and its wait are timed the same way.
-        shardmap_step.psum = timed(shardmap_step.psum)
-        shardmap_step.all_gather = timed(shardmap_step.all_gather)
-        dense.psum = timed(dense.psum)
-        prefetch = loop.entries_prefetch
-
-        def timed_prefetch(*args):
-            pending = timed(prefetch)(*args)
-            pending.wait = timed(pending.wait)
-            return pending
-
-        loop.entries_prefetch = timed_prefetch
-
-        class TimedTrainer(Trainer):
-            """Times each dispatch (synchronised) and its collectives,
-            over its steps; under fleet tiering also each plan's host
-            seconds (on the transfer thread) and each migration's device
-            time (a CUDA event pair on the dispatch stream)."""
-
-            def __init__(self, *args, **kwargs):
-                self.step_s, self.coll_s = [], []
-                self.plan_s, self.migration_events = [], []
-                super().__init__(*args, **kwargs)
-
-            def _plan_group(self, group):
-                t0 = time.perf_counter()
-                out = super()._plan_group(group)
-                self.plan_s.append(time.perf_counter() - t0)
-                return out
-
-            def _apply_migration_fleet(self, shipment):
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                out = super()._apply_migration_fleet(shipment)
-                b.record()
-                self.migration_events.append((a, b))
-                return out
-
-            def dispatch(self, sb, pause=None):
-                c0 = coll_s[0]
-                t0 = time.perf_counter()
-                losses = super().dispatch(sb, pause)
-                torch.cuda.synchronize()
-                self.step_s.append((time.perf_counter() - t0) / sb.n)
-                self.coll_s.append((coll_s[0] - c0) / sb.n)
-                return losses
-
+        TimedTrainer = timed_trainer_class(torch)
         kernels = kernel_fns(fm_kernels, sparse_apply, micro_probe)
         records = []
         for overrides in spec["runs"]:
@@ -3134,7 +3254,7 @@ def graph_phase(torch, tcfg, card: str, files, steps: int,
     """The CUDA graph of the K steps (``train/dispatch.py``) against the
     same steps run eagerly.  (1) For f32 and bf16 compute, Adagrad, FTRL
     and SGD, and K = 1 and 4: ``Trainer.train()`` over ``files``
-    (``steps`` batches: 17, so at K = 4 the epoch ends on a tail of one)
+    (``steps`` batches: 9, so at K = 4 the epoch ends on a tail of one)
     from the same seeded table, once eager (the trainer's ``graph`` set
     to None) and once graphed; the tables, optimizer state, w0 and
     metrics must be bitwise equal, with graph dispatches in the graphed
@@ -3663,7 +3783,7 @@ def step_with_and_without_scores(torch, cfg, sb, k: int) -> dict:
 
 def planes_cost(torch, base, host_batches) -> dict:
     """Phase 6c (g), printed and not gated: the default-on quality
-    plane's cost.  Examples/s end to end over 4 epochs of
+    plane's cost.  Examples/s end to end over 2 epochs of
     ``tools/ingest_bench.py``'s runs (8 parse threads, cache off) with
     ``quality`` on and off in turns (on, off, off, on), and the graphed
     step with the scores copy and without at K = 1 and 4."""
@@ -3676,13 +3796,13 @@ def planes_cost(torch, base, host_batches) -> dict:
     runs = {"on": [], "off": []}
     for mode in ("on", "off", "off", "on"):
         icfg = ingest_bench.with_mode(
-            dataclasses.replace(base, epoch_num=4, quality=mode == "on",
+            dataclasses.replace(base, epoch_num=2, quality=mode == "on",
                                 log_steps=0),
             "off", 8, 0, OBS_K)
         got = ingest_bench.train_runs(icfg, torch.device("cuda"),
                                       profiled=False)
         runs[mode].append({key: got.get(key) for key in keys})
-    out = {"ingest_bench_4_epochs_8_threads": runs}
+    out = {"ingest_bench_2_epochs_8_threads": runs}
     for kk in (1, 4):
         cfg = dataclasses.replace(base, steps_per_dispatch=kk, log_steps=0)
         sb = next(iter(DevicePrefetcher(host_batches[:kk], kk, "cuda",
@@ -4044,20 +4164,24 @@ def shm_segments() -> list:
 def ingest_phase(torch, tcfg, card: str, train_files, kernels: dict,
                  counters: dict) -> dict:
     """Phase 5b through ``tools/ingest_bench.py``: the parsers drained
-    alone, then ``Trainer.train()`` for 4 epochs three times in each mode
+    alone, then ``Trainer.train()`` for 2 epochs three times in each mode
     (each run checked as phase 5's, the counts exact for the mode).
     Returns the ``ingest`` record."""
     from fast_tffm_tpu_torch.data.pipeline import ring_slot_bytes
     from fast_tffm_tpu_torch.tools import ingest_bench
 
-    epochs = 4
-    drains = [ingest_bench.drain(train_files, tcfg, threads, use_native,
-                                 n_ep, procs)
-              for threads, use_native, n_ep, procs in (
-                  (1, False, 1, 0), (1, True, epochs, 0),
-                  (8, True, epochs, 0)) + tuple(
-                  (8, True, epochs, p) for p in INGEST_PROCS)]
-    check(len({d["digest"] for d in drains}) == 1,
+    epochs = 2
+    # The Python parser (some 5-7 k lines/s) drains the first file, and
+    # the native parser the same file beside it; the rest drain both.
+    python, head = (ingest_bench.drain(train_files[:1], tcfg, 1, use_native,
+                                       1) for use_native in (False, True))
+    check(python["digest"] == head["digest"],
+          f"the Python parser's stream differs: {python}, {head}")
+    drains = [python] + [
+        ingest_bench.drain(train_files, tcfg, threads, True, epochs, procs)
+        for threads, procs in ((1, 0), (8, 0)) + tuple(
+            (8, p) for p in INGEST_PROCS)]
+    check(len({d["digest"] for d in drains[1:]}) == 1,
           f"the parsers' streams differ: {drains}")
     check(not shm_segments(), f"segments left: {shm_segments()}")
     print(f"ingest drain lines/s ({card}, {os.cpu_count()} cores; threads "
@@ -4689,8 +4813,9 @@ def ffm_phase(np, torch, card: str, gen, rng, kernels: dict, counters: dict,
 
 def ffm_cli(np, tmp: str) -> dict:
     """``python -m fast_tffm_tpu_torch.cli train|predict|serve`` on
-    ``examples/ffm_sample.cfg`` (its widths and schedule; paths into
-    ``tmp``), on the data of ``examples/gen_sample_data.py --ffm``, each
+    ``examples/ffm_sample.cfg`` (its widths and schedule, but
+    ``FFM_CLI_EPOCHS`` of its 10 epochs; paths into ``tmp``), on the data
+    of ``examples/gen_sample_data.py --ffm``, each
     a subprocess on the card.  Checks: validation logloss below 0.693,
     one probability a predict line, and ``/score`` of validation lines
     answering what predict wrote for them."""
@@ -4705,7 +4830,8 @@ def ffm_cli(np, tmp: str) -> dict:
     text = (text.replace("examples/data", data)
             .replace("/tmp/fast_tffm_tpu_ffm_model",
                      os.path.join(tmp, "model"))
-            .replace("/tmp/fast_tffm_tpu_ffm_scores.txt", scores))
+            .replace("/tmp/fast_tffm_tpu_ffm_scores.txt", scores)
+            .replace("epoch_num = 10", f"epoch_num = {FFM_CLI_EPOCHS}"))
     cfg_path = os.path.join(tmp, "ffm_sample.cfg")
     with open(cfg_path, "w") as f:
         f.write(text)
@@ -4783,6 +4909,20 @@ def spawn_runs(tmp: str, tag: str, runs: list, world: int, one_card: bool,
          str(r), str(world), url, spec, outs[r]],
         cwd=REPO, env=env, stdout=logs[r], stderr=subprocess.STDOUT,
     ) for r in range(world)]
+    wait_ranks(procs, logs, timeout_s, f"sharded run {tag}")
+    records = []
+    for path in outs:
+        with open(path) as f:
+            records.append(json.load(f))
+    return records
+
+
+def wait_ranks(procs, logs, timeout_s: float, what: str) -> None:
+    """Waits for the rank processes ``procs`` (writing into the files
+    ``logs``): a rank that exits non-zero, or the deadline, ends the
+    smoke with that rank's log printed (a rank still running near its
+    deadline has written every thread's stack there); every rank is
+    stopped either way."""
     deadline = time.monotonic() + timeout_s
     failed = None
     try:
@@ -4811,15 +4951,11 @@ def spawn_runs(tmp: str, tag: str, runs: list, world: int, one_card: bool,
         which = (f"rank {failed} exited {procs[failed].returncode}"
                  if failed != "deadline"
                  else f"ranks still running after {timeout_s} s")
-        r = failed if failed != "deadline" else 0
-        print(f"chip_smoke: sharded {tag}: {which}; its log:\n{tails[r]}",
-              file=sys.stderr)
-        check(False, f"sharded run {tag}: {which}")
-    records = []
-    for path in outs:
-        with open(path) as f:
-            records.append(json.load(f))
-    return records
+        shown = [failed] if failed != "deadline" else range(len(procs))
+        for r in shown:
+            print(f"chip_smoke: {what}: {which}; rank {r}'s log:\n"
+                  f"{tails[r]}", file=sys.stderr)
+        check(False, f"{what}: {which}")
 
 
 def mesh_eager(what: str, recs: list) -> str:
@@ -4851,11 +4987,14 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
     from fast_tffm_tpu_torch.train.loop import Trainer
 
     dev = torch.device("cuda")
+    head = os.path.join(tmp, "sharded_train.libsvm")
+    with open(train_file) as f, open(head, "w") as out:
+        out.writelines(itertools.islice(f, SHARDED_STEPS * LINES))
     # The line stream (fast_ingest off): its order does not depend on
     # the batch size, so the data blocks' local batches make up the
     # single device's global ones.  The raw-window stream cuts its
     # windows at whole local batches, as the reference's does.
-    base = {"train_files": [train_file], "validation_files": [valid_file],
+    base = {"train_files": [head], "validation_files": [valid_file],
             "seed": SEED, "log_steps": 4, "serve_poll_secs": 0.0,
             "serve_port": 0, "fast_ingest": False}
     ref_dir = os.path.join(tmp, "sharded_ref")
@@ -4882,19 +5021,24 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
     scrape = dict(heartbeat_secs=0.05, _status_ports=ports,
                   train_fleet_scrape=",".join(f"127.0.0.1:{p}"
                                               for p in ports))
-    for exchange, extra in (
+    exchanges = (
         ("dense", dict(lookup="shardmap", sparse_exchange="dense")),
         ("auto", dict(lookup="shardmap", sparse_exchange="auto",
                       **scrape)),
         ("overlap", dict(lookup="auto", sparse_exchange="entries",
                          sparse_exchange_overlap="on",
                          steps_per_dispatch=2)),
-    ):
+    )
+    # One group of ranks trains the three runs in turn.
+    t0 = time.perf_counter()
+    per_rank = spawn_runs(tmp, "sharded", [
+        dict(base, model_file=os.path.join(tmp, f"sharded_{exchange}"),
+             **mesh, **extra) for exchange, extra in exchanges],
+        world, one_card)
+    group_s = time.perf_counter() - t0
+    for i, (exchange, extra) in enumerate(exchanges):
         model_dir = os.path.join(tmp, f"sharded_{exchange}")
-        t0 = time.perf_counter()
-        recs = [r[0] for r in spawn_runs(tmp, f"sharded_{exchange}", [dict(
-            base, model_file=model_dir, **mesh, **extra)], world, one_card)]
-        wall = time.perf_counter() - t0
+        recs = [r[i] for r in per_rank]
         r0 = recs[0]
         eager_reason = mesh_eager(f"sharded {exchange}", recs)
         for rec in recs:
@@ -4956,7 +5100,8 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
                 torch.full_like(init, rcfg.adagrad_initial_accumulator)),
         }
         runs[exchange] = {
-            "wall_s": wall, "resolved": r0["exchange"],
+            "train_wall_s": max(rec["train_wall_s"] for rec in recs),
+            "resolved": r0["exchange"],
             "overlap": r0["overlap"],
             "overrides": {key: v for key, v in extra.items()
                           if key != "_status_ports"},
@@ -4984,6 +5129,7 @@ def sharded_phase(np, torch, tmp: str, card: str, train_file: str,
     record = {"sharded": {
         "card": card, "mesh": list(SHARDED_MESH), "steps": steps,
         "global_batch": rcfg.batch_size, "transport": transport,
+        "group_wall_s": group_s,
         "single_device": {"wall_s": ref_s,
                           "train_logloss": ref["train"]["logloss"],
                           "validation_logloss": ref["validation"]["logloss"],
@@ -5021,17 +5167,20 @@ def fleet_phase(np, torch, tmp: str, card: str, rng, train_files,
     base = {"train_files": train_files, "validation_files": [],
             "seed": SEED, "log_steps": 4, "serve_poll_secs": 0.0,
             "serve_port": 0, "mesh_data": 1, "mesh_model": world}
+    settings = (("dense", {}),
+                ("fleet", {"table_tiering": "on", "hot_rows": FLEET_HOT}))
+    # One group of ranks trains both runs in turn.
+    t0 = time.perf_counter()
+    per_rank = spawn_runs(tmp, f"fleet_{world}", [
+        dict(base, model_file=os.path.join(tmp, f"fleet_{name}_{world}"),
+             **extra) for name, extra in settings], world, one_card)
+    group_s = time.perf_counter() - t0
     runs = {}
-    for name, extra in (("dense", {}),
-                        ("fleet", {"table_tiering": "on",
-                                   "hot_rows": FLEET_HOT})):
-        model_dir = os.path.join(tmp, f"fleet_{name}_{world}")
-        t0 = time.perf_counter()
-        recs = [r[0] for r in spawn_runs(
-            tmp, f"fleet_{name}_{world}",
-            [dict(base, model_file=model_dir, **extra)], world, one_card)]
-        runs[name] = {"recs": recs, "wall_s": time.perf_counter() - t0,
-                      "dir": model_dir}
+    for i, (name, _) in enumerate(settings):
+        recs = [r[i] for r in per_rank]
+        runs[name] = {"recs": recs, "dir": os.path.join(
+            tmp, f"fleet_{name}_{world}"), "train_wall_s": max(
+                rec["train_wall_s"] for rec in recs)}
     dense, fleet = runs["dense"]["recs"], runs["fleet"]["recs"]
     steps = dense[0]["train"]["steps"]
     check(steps == TRAIN_FILES * BATCHES_PER_FILE,
@@ -5169,7 +5318,8 @@ def fleet_phase(np, torch, tmp: str, card: str, rng, train_files,
         "train_loss": fleet[0]["train"]["loss"],
         "train_auc": fleet[0]["train"]["auc"],
         "vs_dense_mesh": vs_dense,
-        "wall_s": {k: v["wall_s"] for k, v in runs.items()},
+        "group_wall_s": group_s,
+        "train_wall_s": {k: v["train_wall_s"] for k, v in runs.items()},
         "ranks": [{**{k: f[k] for k in keys}, **f["fleet"],
                    **{k: f["train"]["tiered"][k] for k in tier_keys}}
                   for f in fleet],
@@ -6321,13 +6471,787 @@ def grid_cli(np, tmp: str, model_dir: str, predict_file: str,
             "score_equals_predict": True}
 
 
+# -- BASELINE configs 2, 3 and 4 (paths 17-19, --nccl's config 4) ------
+
+
+def write_avazu(np, path: str, rng, n: int) -> None:
+    """``n`` labelled Avazu-shaped lines: ``<field>_<hex>:1`` for the
+    public dataset's 22 feature columns (``AVAZU_FIELDS``), each value
+    Zipf(1.1)-skewed over its field's cardinality (rank r drawn from the
+    continuous 1 / r^1.1 law, spread over 32-bit hex by a fixed odd
+    multiplier).  The label is planted on ``AVAZU_PLANTED``'s fields:
+    ``P(y = 1) = sigmoid(sum_f w_f cos(rank_f + 1) - 1)``."""
+    names = [name for name, _ in AVAZU_FIELDS]
+    ranks = np.empty((n, len(names)), np.int64)
+    for j, (_, card) in enumerate(AVAZU_FIELDS):
+        u = rng.uniform(size=n)
+        r = (1.0 - u * (1.0 - (card + 1.0) ** -0.1)) ** -10.0
+        ranks[:, j] = np.minimum(r.astype(np.int64) - 1, card - 1)
+    score = sum(w * np.cos(ranks[:, names.index(f)] + 1.0)
+                for f, w in AVAZU_PLANTED.items()) - 1.0
+    labels = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-score))).astype(int)
+    hexes = (ranks * 2654435761 + np.arange(len(names)) * 40503) % (1 << 32)
+    cols = [[f"{name}_{h:08x}:1" for h in hexes[:, j].tolist()]
+            for j, name in enumerate(names)]
+    with open(path, "w") as f:
+        f.writelines(f"{y} {' '.join(toks)}\n"
+                     for y, toks in zip(labels.tolist(), zip(*cols)))
+
+
+def first_batch(files, cfg):
+    """The first batch ``BatchPipeline`` delivers over ``files`` (native
+    parser, the C++ host sort meta attached), as training reads it."""
+    from fast_tffm_tpu_torch.data.pipeline import BatchPipeline
+
+    with BatchPipeline(files, cfg, epochs=1, host_meta=True) as pipe:
+        return next(iter(pipe))
+
+
+def device_batch_steps(torch, cfg, batch, timed: int) -> dict:
+    """``batch`` shipped by the transfer stage as a super-batch of K = 1
+    and dispatched again and again, by a graphed trainer (its first
+    dispatch eager and captured, then ``timed`` replays) and by its eager
+    twin (its ``graph`` set to None): each one's step p50 (a synchronised
+    dispatch), the first dispatch's seconds, and the graphed trainer's
+    capture seconds and graph pool bytes.  ``cfg.model_file`` must hold
+    no checkpoint."""
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    cfg = dataclasses.replace(cfg, steps_per_dispatch=1, log_steps=0,
+                              save_steps=0)
+    sb = next(iter(DevicePrefetcher([batch], 1, "cuda",
+                                    cfg.vocabulary_size)))
+    out = {}
+    for graphs in (True, False):
+        trainer = Trainer(cfg)
+        if not graphs:
+            trainer.graph = None
+        t0 = time.perf_counter()
+        trainer.dispatch(sb)
+        torch.cuda.synchronize()
+        rec = {"first_dispatch_s": time.perf_counter() - t0}
+        times = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            trainer.dispatch(sb)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rec["step_p50_ms"] = p50(times) * 1e3
+        if graphs:
+            check(trainer.graph_dispatches == timed,
+                  f"{trainer.graph_dispatches} replays of {timed} dispatches")
+            rec.update(capture_s=trainer.graph.capture_s,
+                       graph_pool_bytes=trainer.graph.pool_bytes())
+        out["graphed" if graphs else "eager"] = rec
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    del sb
+    return out
+
+
+def baseline_kernels(torch, tag: str, batch, vocab: int, hyper, err: dict,
+                     calls: int) -> dict:
+    """The path's kernels against their plain versions at a parsed batch
+    of its config (``batch``: its ids and values, padding included):
+    FmScorer within ``KERNEL_TOL`` of its plain version's function in
+    float64 (``fm_scores_f64``) and FmGrad bitwise on random rows at the
+    batch's ``[B, F, 9]``; K1 on the batch's whole ``[n + 1]`` slot (rows
+    exact, the sums within ``k1_error_bound`` of the float64 plain
+    version) and K2 Adagrad on its rows (``TABLE_TOL`` / ``OPT_TOL``);
+    then each kernel, its plain version and K1's ``index_add_`` timed in
+    CUDA graphs of at least ``calls`` calls on ``l2_copies`` copies of
+    their inputs in turn, beside their bounds.  Returns the timing
+    entries ``<kernel>_<tag>``; ``err`` gets their errors."""
+    from fast_tffm_tpu_torch.ops import sparse_apply as sa
+    from fast_tffm_tpu_torch.ops.fm_kernels import (
+        fm_grad_cuda, fm_grad_plain, fm_scores_cuda, fm_scores_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, f = batch.ids.shape
+    d = 9
+    rows = torch.randn((b, f, d), generator=gen, device=dev) * 0.3
+    vals = torch.from_numpy(batch.vals).to(dev)
+    s_k, s1_k = fm_scores_cuda(rows, vals)
+    # Held to the plain version's function in float64, as K1 is: over
+    # 10^5 examples of terms summing to ~90, two float32 evaluations of a
+    # score near 0 can be 1.2e-5 apart, each within KERNEL_TOL of the
+    # exact value.
+    s_p, s1_p = fm_scores_f64(rows, vals)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s_k.double(), s_p, **KERNEL_TOL)
+    torch.testing.assert_close(s1_k.double(), s1_p, **KERNEL_TOL)
+    err[f"fm_scores_{tag}"] = max(float((s_k - s_p).abs().max()),
+                                  float((s1_k - s1_p).abs().max()))
+    s1_p = s1_p.float()
+    dsc = torch.randn((b,), generator=gen, device=dev) * 0.1
+    got = fm_grad_cuda(rows, vals, s1_p, dsc)
+    want = fm_grad_plain(rows, vals, s1_p, dsc)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"FmGrad differs from its plain version "
+          f"at {tag}'s B = {b}, F = {f}")
+    err[f"fm_grad_{tag}"] = float((got - want).abs().max())
+    del s_k, s1_k, s_p, got, want
+    ids = torch.from_numpy(batch.ids).to(dev).reshape(-1)
+    n = ids.numel()
+    g_rows = torch.randn((n, d), generator=gen, device=dev) * 0.1
+    meta = sa.sort_meta(ids)
+    cut = sa.cut_slot(meta)
+    slot = meta.seg_start
+    u = cut.seg_start.numel() - 1
+    longest = int((cut.seg_start[1:] - cut.seg_start[:-1]).max())
+    urows, sums = sa.k1_dedup_cuda(g_rows, ids, meta.perm, slot)
+    p_rows, p_sums = sa.k1_dedup_plain(g_rows.double(), ids, meta.perm, slot)
+    _, mass = sa.k1_dedup_plain(g_rows.abs().double(), ids, meta.perm, slot)
+    torch.cuda.synchronize()
+    check(torch.equal(urows, p_rows), f"K1 row ids at {tag}")
+    diff = (sums[:u].double() - p_sums[:u]).abs()
+    check(bool(torch.all(diff <= sa.k1_error_bound(cut.seg_start,
+                                                   mass[:u]))),
+          f"K1 sums vs plain at {tag}: max err {float(diff.max()):.3e}")
+    err[f"k1_dedup_{tag}"] = float(diff.max())
+    del p_rows, p_sums, mass, diff
+    table = torch.empty((vocab, d), device=dev).uniform_(-0.01, 0.01,
+                                                         generator=gen)
+    kern = (table, torch.full((vocab, d), 0.1, device=dev))
+    plain = tuple(t.clone() for t in kern)
+    sa.k2_apply_cuda("adagrad", urows, sums, kern, hyper)
+    sa.k2_apply_plain("adagrad", urows, sums, plain, hyper)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+    torch.testing.assert_close(kern[1], plain[1], **OPT_TOL)
+    err[f"k2_apply_{tag}"] = max(float((a - p).abs().max())
+                                 for a, p in zip(kern, plain))
+    del plain
+    # Each kernel, its plain version and K1's library call on copies of
+    # their inputs in turn (``l2_copies``): Avazu's 7 MB of rows would
+    # stay in the L2 across a graph's replays, under the HBM rate its
+    # bound takes.  Where more than one copy is taken, the times on the
+    # one set stay in the record as l2_graph_ms.
+    bounds = {"fm_scores": fm_bound_ms(b, f, d),
+              "fm_grad": fm_grad_bound_ms(b, f, d),
+              "k1_dedup": k1_bound_ms(n, u, d, slot=n),
+              "k2_apply": k2_bound_ms(u, d, rows=n)}
+    n_copies = {k: l2_copies(v[0]) for k, v in bounds.items()}
+
+    def clones(args, k):
+        return [args] + [tuple(t.clone() for t in args) for _ in range(k - 1)]
+
+    fm_in = clones((rows, vals), n_copies["fm_scores"])
+    grad_in = clones((rows, vals, s1_p, dsc), n_copies["fm_grad"])
+    k1_in = clones((g_rows, ids, meta.perm, slot), n_copies["k1_dedup"])
+    k1_libs = [(k1_library(torch, args[0], cut),) for args in k1_in]
+    # K2's copies hold whole tables (1.2 GB at Avazu's V): as many as
+    # half the free device memory takes, if fewer than l2_copies asks.
+    fit = torch.cuda.mem_get_info()[0] // 2 // sum(t.nbytes for t in kern)
+    k2_in = [(urows, sums, kern)] + [
+        (urows.clone(), sums.clone(), tuple(t.clone() for t in kern))
+        for _ in range(min(n_copies["k2_apply"], fit) - 1)]
+
+    def k2_cuda(ur, su, tables):
+        return sa.k2_apply_cuda("adagrad", ur, su, tables, hyper)
+
+    def k2_plain(ur, su, tables):
+        return sa.k2_apply_plain("adagrad", ur, su, tables, hyper)
+
+    def call(fn):
+        return fn()
+
+    fns = {"fm_scores": (fm_scores_cuda, fm_scores_plain, fm_in, None),
+           "fm_grad": (fm_grad_cuda, fm_grad_plain, grad_in, None),
+           "k1_dedup": (sa.k1_dedup_cuda, sa.k1_dedup_plain, k1_in, k1_libs),
+           "k2_apply": (k2_cuda, k2_plain, k2_in, None)}
+    timing = {}
+    for kernel, (kern_fn, plain_fn, copies, libs) in fns.items():
+        name = f"{kernel}_{tag}"
+        n_calls = max(calls, 3 * len(copies))
+        timing.update(time_cases(torch, {name: (
+            in_turn(kern_fn, copies), in_turn(plain_fn, copies),
+            None if libs is None else in_turn(call, libs),
+            bounds[kernel])}, calls={name: n_calls}))
+        timing[name].update(batch=b, features=f, occurrences=n,
+                            unique_rows=u, longest_segment=longest,
+                            input_copies=len(copies))
+        if len(copies) > 1:
+            one = time_cases(torch, {name: (
+                in_turn(kern_fn, copies[:1]), in_turn(plain_fn, copies[:1]),
+                None, bounds[kernel])}, calls={name: calls})[name]
+            timing[name].update(l2_graph_ms=one["graph_ms"],
+                                l2_plain_graph_ms=one["plain_graph_ms"])
+    del fns, fm_in, grad_in, k1_in, k1_libs, k2_in
+    del kern, table, rows, vals, g_rows, meta, cut, slot
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timing
+
+
+def k1_zipf_timing(np, torch, n: int, vocab: int) -> dict:
+    """K1 on a stream of ``n`` Zipf(1.1) ids over ``vocab`` rows (the
+    hottest some 10^6 occurrences: one warp sums a segment that long),
+    against its float64 plain version within ``k1_error_bound``, then the
+    kernel, its plain version and its ``index_add_`` timed in CUDA graphs
+    of ``BIG_STREAM_CALLS`` calls on the cut slot."""
+    from fast_tffm_tpu_torch.ops import sparse_apply as sa
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    ranks = np.minimum(rng.zipf(1.1, n), 1 << 31)
+    ids = torch.from_numpy(((ranks * 2654435761) % vocab).astype(np.int32)
+                           ).to(dev)
+    g = torch.randn((n, 9), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    meta = sa.cut_slot(sa.sort_meta(ids))
+    args = (g, ids, meta.perm, meta.seg_start)
+    urows, sums = sa.k1_dedup_cuda(*args)
+    p_rows, p_sums = sa.k1_dedup_plain(g.double(), *args[1:])
+    _, mass = sa.k1_dedup_plain(g.abs().double(), *args[1:])
+    torch.cuda.synchronize()
+    diff = (sums.double() - p_sums).abs()
+    check(torch.equal(urows, p_rows) and bool(torch.all(
+        diff <= sa.k1_error_bound(meta.seg_start, mass))),
+        f"K1 on the Zipf stream: max err {float(diff.max()):.3e}")
+    del p_rows, p_sums, mass, diff
+    u = meta.seg_start.numel() - 1
+    pa, ka, kb, pb = (graph_ms(torch, lambda f=f: f(*args),
+                               calls=BIG_STREAM_CALLS)
+                      for f in (sa.k1_dedup_plain, sa.k1_dedup_cuda,
+                                sa.k1_dedup_cuda, sa.k1_dedup_plain))
+    b_ms, b_by = k1_bound_ms(n, u, 9)
+    return {"occurrences": n, "unique_rows": u, "longest_segment": int(
+                (meta.seg_start[1:] - meta.seg_start[:-1]).max()),
+            "graph_ms": [ka, kb], "plain_graph_ms": [pa, pb],
+            "library_ms": graph_ms(torch, k1_library(torch, g, meta),
+                                   calls=BIG_STREAM_CALLS),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def avazu_phase(np, torch, card: str, rng, tmp: str, kernels: dict,
+                err: dict) -> tuple:
+    """Path 17, BASELINE config 2 (``examples/avazu.cfg``: FM on Avazu,
+    hashed string ids, V = 2^24, F = 24, D = 9, B = 8192, Adagrad at lr
+    0.1, batch L2 1e-5) at its own widths on one card, only the files,
+    ``model_file``, ``score_path`` and the serve port overridden:
+    ``AVAZU_BATCHES`` batches of ``write_avazu`` lines trained through
+    ``Trainer.train()`` (every count from 0), validated, predicted, then
+    served: ``/score`` of the validation lines as text (hashed by the
+    server's parser) equal to the predict file within the FmScorer
+    tolerance and one printed unit; FmScorer, FmGrad, K1 and K2 each at
+    least once a step, one eager dispatch and the rest graphed, the
+    validation AUC above 0.5 on the planted labels.  Then the kernels at
+    a parsed batch (``baseline_kernels``, the two padding slots' id 0
+    and value 0 in every line) and the step on a device batch graphed
+    and eager.  Returns ``(record, launches, timing)``: the path's
+    launches and timing entries under ``<kernel>_avazu``."""
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.serve.server import serve
+    from fast_tffm_tpu_torch.train import sparse
+    from fast_tffm_tpu_torch.train.loop import Trainer, predict
+
+    t0 = time.perf_counter()
+    probe = load_config(AVAZU_CFG_PATH)
+    B = probe.batch_size
+    train = os.path.join(tmp, "avazu_train.libsvm")
+    valid = os.path.join(tmp, "avazu_valid.libsvm")
+    write_avazu(np, train, rng, AVAZU_BATCHES * B)
+    write_avazu(np, valid, rng, B)
+    data_s = time.perf_counter() - t0
+    cfg = load_config(AVAZU_CFG_PATH, {
+        "train_files": [train], "validation_files": [valid],
+        "predict_files": [valid],
+        "model_file": os.path.join(tmp, "avazu_model"),
+        "score_path": os.path.join(tmp, "avazu_scores.txt"), "serve_port": 0,
+    })
+    V, F, D = cfg.vocabulary_size, cfg.max_features, cfg.embedding_dim
+    check((V, F, D, B, cfg.optimizer, cfg.learning_rate, cfg.hash_feature_id,
+           cfg.factor_lambda) == (1 << 24, 24, 9, 8192, "adagrad", 0.1, True,
+                                  1e-5),
+          f"unexpected Avazu config {V, F, D, B, cfg.optimizer}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    result = Trainer(cfg).train()
+    train_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_pred = predict(cfg)
+    predict_wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    tr, val = result["train"], result["validation"]
+    check(tr["steps"] == AVAZU_BATCHES and tr["eager_dispatches"] == 1
+          and tr["graph_dispatches"] == AVAZU_BATCHES - 1,
+          f"Avazu: {tr['steps']} steps, {tr['graph_dispatches']} graphed "
+          f"and {tr['eager_dispatches']} eager dispatches")
+    check(tr["truncated_features"] == 0, "Avazu lines were truncated")
+    check(np.isfinite(val["logloss"]) and 0.5 < val["auc"] <= 1.0,
+          f"Avazu validation {val}")
+    check(n_pred == B, f"Avazu predict wrote {n_pred} scores for {B} lines")
+    predicted = np.loadtxt(cfg.score_path)
+    with open(valid) as f:
+        lines = [ln.split(" ", 1)[1] for ln in f.read().splitlines()]
+    handle = serve(cfg, port=0)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", handle.port,
+                                          timeout=120)
+        served, pos = [], 0
+        for n_req in itertools.cycle(SERVE_SIZES):
+            if pos >= len(lines):
+                break
+            body = "\n".join(lines[pos:pos + n_req]) + "\n"
+            served += post(conn, "/score", body.encode()).decode().split()
+            pos += n_req
+        body = ("\n".join(lines[:max(cfg.serve_ladder)]) + "\n").encode()
+        times = []
+        for _ in range(BASELINE_TIMED):
+            t0 = time.perf_counter()
+            post(conn, "/score", body)
+            times.append(time.perf_counter() - t0)
+        conn.close()
+    finally:
+        handle.close()
+    served = np.array(served, np.float64)
+    check(served.shape == predicted.shape, f"{served.shape} served scores")
+    # Both sides print six decimals: the tolerance and one printed unit.
+    served_err = float(np.abs(served - predicted).max())
+    check(bool(np.all(np.abs(served - predicted) <= SERVE_TOL["atol"]
+                      + PRINTED_UNIT + SERVE_TOL["rtol"] * predicted)),
+          f"Avazu /score differs from predict by {served_err}")
+    launches = read_launches(kernels)
+    for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
+        check(launches[name] >= AVAZU_BATCHES,
+              f"Avazu: {name} launched {launches[name]} times in "
+              f"{AVAZU_BATCHES} steps")
+    batch = first_batch([train], cfg)
+    pad = int((batch.ids[:, len(AVAZU_FIELDS):] == 0).sum())
+    steps = device_batch_steps(torch, dataclasses.replace(
+        cfg, model_file=os.path.join(tmp, "avazu_steps")), batch,
+        BASELINE_TIMED)
+    timing = baseline_kernels(torch, "avazu", batch, V, sparse.hyper(cfg),
+                              err, calls=100)
+    record = {
+        "card": card, "config": "examples/avazu.cfg",
+        "shape": {"V": V, "F": F, "D": D, "B": B},
+        "data_s": data_s, "train_lines": AVAZU_BATCHES * B,
+        "steps": tr["steps"], "train_wall_s": train_wall,
+        "predict_wall_s": predict_wall,
+        "examples_per_sec_end_to_end": tr["examples_per_sec"],
+        "ingest_wait_frac": tr["ingest_wait_frac"],
+        "first_dispatch_s": tr["first_dispatch_s"],
+        "train_logloss": tr["logloss"], "validation_logloss": val["logloss"],
+        "validation_auc": val["auc"], "peak_device_mb": peak_mb,
+        "served_vs_predict_max_abs_diff": served_err,
+        "score_p50_ms": {max(cfg.serve_ladder): p50(times) * 1e3},
+        "device_batch_step": steps, "padding_occurrences": pad,
+        "launches": launches,
+    }
+    print("avazu (" + card + "): " + json.dumps({
+        "examples_per_sec_end_to_end": tr["examples_per_sec"],
+        "step_p50_ms": {k: v["step_p50_ms"] for k, v in steps.items()},
+        "peak_device_mb": peak_mb, "score_p50_ms": record["score_p50_ms"],
+        "validation_auc": val["auc"]}), flush=True)
+    return (record, {f"{name}_avazu": launches[name] for name in
+                     ("fm_scores", "fm_grad", "k1_dedup", "k2_apply")},
+            timing)
+
+
+def criteo_1tb_phase(np, torch, card: str, rng, tmp: str, kernels: dict,
+                     err: dict) -> tuple:
+    """Path 18, BASELINE config 4's training step at its own width on one
+    card: ``examples/criteo_1tb_dist.cfg`` with ``mesh_data = mesh_model
+    = 1`` (``lookup = shardmap`` has nothing to shard: ``Trainer.sharded``
+    false), V = 2^26, B = 262,144, F = 39, D = 9, Adagrad at lr 0.05, L2
+    1e-6, ``host_sort``, ``thread_num = 16``: ``DIST_LINES`` lines of
+    ``write_labelled`` (one batch) trained ``DIST_EPOCHS`` epochs through
+    ``Trainer.train()`` with no checkpoint write (every count from 0; one
+    eager dispatch, the rest replays of its graph).  Then the ingest
+    alone (``ingest_bench.drain``: parse and C++ sort meta on the parse
+    threads), the sort meta alone on a parsed batch, the step on a device
+    batch graphed and eager, and the kernels at that batch
+    (``baseline_kernels``: n = 10,223,616 occurrences), and K1 timed on
+    a Zipf stream of as many (``k1_zipf_timing``).  Returns
+    ``(record, launches, timing)`` under ``<kernel>_c1tb``."""
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data import native
+    from fast_tffm_tpu_torch.tools import ingest_bench
+    from fast_tffm_tpu_torch.train import sparse
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    class NoSaveTrainer(Trainer):
+        def save(self, stepno):
+            return None
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "criteo_day_0.libsvm")
+    write_labelled(np, path, rng, DIST_LINES,
+                   rng.normal(0.0, 0.6, (13, INT_BUCKETS)))
+    data_s = time.perf_counter() - t0
+    cfg = load_config(DIST_CFG_PATH, {
+        "mesh_data": 1, "mesh_model": 1, "train_files": [path],
+        "epoch_num": DIST_EPOCHS,
+        "model_file": os.path.join(tmp, "criteo_1tb_model")})
+    V, F, D, B = (cfg.vocabulary_size, cfg.max_features, cfg.embedding_dim,
+                  cfg.batch_size)
+    check((V, F, D, B, cfg.optimizer, cfg.learning_rate, cfg.factor_lambda,
+           cfg.host_sort, cfg.thread_num, cfg.lookup)
+          == (1 << 26, 39, 9, DIST_LINES, "adagrad", 0.05, 1e-6, True, 16,
+              "shardmap"),
+          f"unexpected criteo_1tb_dist config {V, F, D, B}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    trainer = NoSaveTrainer(cfg)
+    tr = trainer.train()["train"]
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    check(not trainer.sharded and trainer.eager_reason is None,
+          f"one card: sharded {trainer.sharded}, {trainer.eager_reason}")
+    check(tr["steps"] == DIST_EPOCHS and tr["eager_dispatches"] == 1
+          and tr["graph_dispatches"] == DIST_EPOCHS - 1 >= 2,
+          f"config 4: {tr['steps']} steps, {tr['graph_dispatches']} graphed "
+          f"and {tr['eager_dispatches']} eager dispatches")
+    check(np.isfinite(tr["logloss"]), f"config 4 logloss {tr['logloss']}")
+    for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply"):
+        check(launches[name] >= DIST_EPOCHS,
+              f"config 4: {name} launched {launches[name]} times in "
+              f"{DIST_EPOCHS} steps")
+    graph = {"capture_s": trainer.graph.capture_s,
+             "graph_pool_bytes": trainer.graph.pool_bytes()}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    drain = ingest_bench.drain([path], cfg, cfg.thread_num, True, 2)
+    batch = first_batch([path], cfg)
+    sort_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native.sort_meta(batch.ids, V)
+        sort_s.append(time.perf_counter() - t0)
+    steps = device_batch_steps(torch, dataclasses.replace(
+        cfg, model_file=os.path.join(tmp, "criteo_1tb_steps")), batch,
+        BASELINE_TIMED)
+    timing = baseline_kernels(torch, "c1tb", batch, V, sparse.hyper(cfg),
+                              err, calls=BIG_STREAM_CALLS)
+    zipf = k1_zipf_timing(np, torch, B * F, V)
+    # What bounds examples/s end to end: a batch's parse and sort (one
+    # parse thread takes a batch), the sort alone, or the device step.
+    stage_ms = {"parse_and_sort": 1e3 * B / drain["lines_per_s"],
+                "sort_meta": p50(sort_s) * 1e3,
+                "device_step_graphed": steps["graphed"]["step_p50_ms"]}
+    # write_labelled's categorical ids are uniform: the graphed step with
+    # K1's time swapped for its time on the Zipf stream estimates the
+    # step at skewed ids (not measured).
+    zipf_step_ms = (steps["graphed"]["step_p50_ms"]
+                    - timing["k1_dedup_c1tb"]["ms"] + min(zipf["graph_ms"]))
+    record = {
+        "card": card, "config": "examples/criteo_1tb_dist.cfg",
+        "overrides": {"mesh_data": 1, "mesh_model": 1,
+                      "epoch_num": DIST_EPOCHS, "checkpoint": "not written"},
+        "shape": {"V": V, "F": F, "D": D, "B": B, "occurrences": B * F},
+        "data_s": data_s, "steps": tr["steps"], "train_wall_s": train_wall,
+        "examples_per_sec_end_to_end": tr["examples_per_sec"],
+        "ingest_wait_frac": tr["ingest_wait_frac"],
+        "first_dispatch_s": tr["first_dispatch_s"],
+        "graph_dispatches": tr["graph_dispatches"],
+        "train_logloss": tr["logloss"], "peak_device_mb": peak_mb, **graph,
+        "drain": {k: v for k, v in drain.items() if k != "digest"},
+        "sort_meta_host_ms": [s * 1e3 for s in sort_s],
+        "device_batch_step": steps, "stage_ms_a_batch": stage_ms,
+        "bounded_by": max(stage_ms, key=stage_ms.get),
+        "categorical_ids": "uniform 32-bit (write_labelled)",
+        "device_step_at_zipf_ids_ms_estimate": zipf_step_ms,
+        "k1_zipf_stream": zipf,
+        "launches": launches,
+    }
+    print("criteo_1tb (" + card + "): " + json.dumps({
+        "examples_per_sec_end_to_end": tr["examples_per_sec"],
+        "ingest_wait_frac": tr["ingest_wait_frac"],
+        "step_p50_ms": {k: v["step_p50_ms"] for k, v in steps.items()},
+        "stage_ms_a_batch": stage_ms, "peak_device_mb": peak_mb,
+        "k1_zipf_ms": min(zipf["graph_ms"]),
+        "device_step_at_zipf_ids_ms_estimate": zipf_step_ms, **graph}),
+        flush=True)
+    return (record, {f"{name}_c1tb": launches[name] for name in
+                     ("fm_scores", "fm_grad", "k1_dedup", "k2_apply")},
+            timing)
+
+
+def sweep_phase(card: str, tmp: str) -> dict:
+    """Path 19, BASELINE config 3: ``examples/gen_sample_data.py``'s data
+    written into ``tmp``, then ``python -m
+    fast_tffm_tpu_torch.tools.sweep_optimizers`` on a copy of
+    ``examples/sample.cfg`` pointing at it (its widths; ``SWEEP_EPOCHS``
+    of its 10 epochs) as a subprocess on the card.  Checks: six rows,
+    each the grid's overrides with a finite logloss and an AUC in (0,
+    1], and a ``best:`` row, the lowest logloss."""
+    data = os.path.join(tmp, "sweep_data")
+    subprocess.run([sys.executable, os.path.join(REPO, "examples",
+                                                 "gen_sample_data.py"),
+                    "--out", data], check=True, timeout=300,
+                   capture_output=True)
+    cfg_path = os.path.join(tmp, "sweep.cfg")
+    write_cfg(os.path.join(REPO, "examples", "sample.cfg"), cfg_path, {
+        "train_files": os.path.join(data, "train.libsvm"),
+        "validation_files": os.path.join(data, "valid.libsvm"),
+        "predict_files": os.path.join(data, "valid.libsvm"),
+        "epoch_num": SWEEP_EPOCHS})
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "fast_tffm_tpu_torch.tools.sweep_optimizers",
+         cfg_path, "--model_root", tmp], cwd=REPO, timeout=SWEEP_TIMEOUT_S,
+        capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"the sweep exited {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    out = r.stdout.strip().splitlines()
+    check(len(out) == 7 and out[-1].startswith("best: "),
+          f"the sweep printed {out}")
+    rows = [json.loads(ln) for ln in out[:6]]
+    best = json.loads(out[-1][len("best: "):])
+    for row in rows:
+        check(math.isfinite(row["logloss"]) and 0.0 < row["auc"] <= 1.0,
+              f"sweep row {row}")
+    check(best == min(rows, key=lambda row: row["logloss"]),
+          f"sweep best {best}")
+    for ln in out:
+        print(f"sweep: {ln}", flush=True)
+    return {"card": card, "base": "examples/sample.cfg",
+            "epoch_num": SWEEP_EPOCHS,
+            "rows": rows, "best": best, "wall_s": wall}
+
+
+def cli_rank_main(argv) -> int:
+    """One rank of the ``--nccl`` config-4 runs: ``chip_smoke.py
+    --cli-rank OUT ARGS...`` runs ``fast_tffm_tpu_torch.cli.main(ARGS)``
+    (the CLI's entry point with a user's arguments: ``train CFG
+    --coordinator ... --num_processes N --process_id R``) with the
+    trainer's dispatches and collectives timed (``timed_trainer_class``)
+    and ``torch.distributed.destroy_process_group`` timed, then writes
+    the rank's record to OUT: its exchange and ``entries_cap``, step p50,
+    collective share, ``ingest_wait_frac``, examples/s, peak device
+    memory, launches and teardown seconds."""
+    out_path, cli_argv = argv[0], argv[1:]
+    import faulthandler
+
+    import torch
+
+    faulthandler.dump_traceback_later(
+        float(os.environ.get("CHIP_SMOKE_STACKS_AFTER_S", DIST_TIMEOUT_S)))
+    sys.path.insert(0, REPO)
+    from fast_tffm_tpu_torch import cli
+    from fast_tffm_tpu_torch.ops import fm_kernels, sparse_apply
+    from fast_tffm_tpu_torch.tools import micro_probe
+    from fast_tffm_tpu_torch.train import loop, shardmap_step
+
+    seen = {}
+    timed = timed_trainer_class(torch)
+
+    class RankTrainer(timed):
+        def train(self):
+            seen["trainer"] = self
+            seen["result"] = super().train()
+            return seen["result"]
+
+    loop.Trainer = RankTrainer
+    destroy = torch.distributed.destroy_process_group
+
+    def timed_destroy(*args, **kwargs):
+        t0 = time.perf_counter()
+        destroy(*args, **kwargs)
+        seen["teardown_s"] = time.perf_counter() - t0
+
+    torch.distributed.destroy_process_group = timed_destroy
+    kernels = kernel_fns(fm_kernels, sparse_apply, micro_probe)
+    zero_launches(kernels)
+    rc = cli.main(cli_argv)
+    trainer = seen["trainer"]
+    cfg, mesh = trainer.cfg, trainer.mesh
+    n_local = cfg.batch_size // mesh.data * cfg.max_features
+    _, vocab_local = mesh.row_range(cfg.vocabulary_size)
+    steps = trainer.step_s[1:]  # the first step warms up
+    record = {
+        "rc": rc, "rank": mesh.rank, "coords": list(mesh.coords),
+        "device": str(trainer.device), "backend": mesh.backend,
+        "exchange": shardmap_step.exchange_mode(trainer.dcfg, mesh, n_local),
+        "entries_cap": sparse_apply.entries_cap(n_local, vocab_local),
+        "vocab_local": vocab_local, "local_occurrences": n_local,
+        "overlap": trainer.overlap, "eager_reason": trainer.eager_reason,
+        "launches": read_launches(kernels),
+        "train": seen["result"]["train"],
+        "step_p50_ms": p50(steps) * 1e3,
+        "collective_share": sum(trainer.coll_s[1:]) / sum(steps),
+        "step_ms": [x * 1e3 for x in trainer.step_s],
+        "peak_device_mb": (torch.cuda.max_memory_allocated(trainer.device)
+                           / 2**20),
+        "teardown_s": seen.get("teardown_s"),
+    }
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+    return rc
+
+
+def write_cfg(src: str, dst: str, values: dict) -> None:
+    """A copy of the config ``src`` with each ``key = value`` line of
+    ``values`` replaced (every key must be in it)."""
+    with open(src) as f:
+        text = f.read()
+    for key, value in values.items():
+        text, n = re.subn(rf"^{key}\s*=.*$", f"{key} = {value}", text,
+                          flags=re.M)
+        check(n == 1, f"{key} is not in {src}")
+    with open(dst, "w") as f:
+        f.write(text)
+
+
+def dist_phase(np, torch, card: str, rng, tmp: str) -> dict:
+    """``--nccl``'s BASELINE config 4: ``examples/criteo_1tb_dist.cfg``
+    trained through the CLI by four processes, one per GPU (the backend
+    rule picks NCCL), on a copy of the config with the mesh set to 2 x 2
+    and then 4 x 1 (its 4 x 4 needs 16 GPUs), on path 18's data
+    (``DIST_LINES`` lines, one global batch) and epochs; every dispatch
+    eager, for NCCL's reason.  Each mesh's checkpoint held to a one-card
+    run of the same file and epochs on ``cuda:0`` within the sharded
+    phase's bounds
+    (``TABLE_TOL``, ``OPT_TOL``, w0 ``rtol=1e-5, atol=1e-7``,
+    ``delta_check``); every rank reports the same global metrics,
+    resolves ``sparse_exchange = auto`` to the entries exchange, launches
+    K1's merge mode and no K-place, and returns from
+    ``destroy_process_group()`` before ``DIST_TIMEOUT_S`` (else every
+    rank's log, with its stack dump, is printed and the run fails)."""
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.models import fm
+    from fast_tffm_tpu_torch.train.loop import Trainer
+
+    class NoSaveTrainer(Trainer):
+        def save(self, stepno):
+            return None
+
+    world = 4
+    dev = torch.device("cuda:0")
+    path = os.path.join(tmp, "criteo_day_0.libsvm")
+    write_labelled(np, path, rng, DIST_LINES,
+                   rng.normal(0.0, 0.6, (13, INT_BUCKETS)))
+    over = dict(train_files=path, epoch_num=DIST_EPOCHS)
+    cfg = load_config(DIST_CFG_PATH, dict(
+        over, train_files=[path], mesh_data=1, mesh_model=1,
+        model_file=os.path.join(tmp, "dist_one")))
+    t0 = time.perf_counter()
+    one = NoSaveTrainer(cfg, device=dev)
+    one_tr = one.train()["train"]
+    one_s = time.perf_counter() - t0
+    steps = DIST_LINES // cfg.batch_size * DIST_EPOCHS
+    check(one_tr["steps"] == steps, f"one card: {one_tr['steps']} steps")
+    want = {"params/table": one.model.table.detach(),
+            "opt/acc_table": one.opt_state.acc_table,
+            "scalar/w0": one.model.w0.detach()}
+    del one
+    init = fm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        cfg.seed), device=dev).table.detach()
+    runs = {}
+    for shape in DIST_MESHES:
+        tag = f"dist_{shape[0]}x{shape[1]}"
+        model_dir = os.path.join(tmp, tag)
+        cfg_path = os.path.join(tmp, f"{tag}.cfg")
+        write_cfg(DIST_CFG_PATH, cfg_path, dict(
+            over, model_file=model_dir, mesh_data=shape[0],
+            mesh_model=shape[1]))
+        port = free_port()
+        env = dict(os.environ, CHIP_SMOKE_STACKS_AFTER_S=str(
+            DIST_TIMEOUT_S - 20))
+        outs = [os.path.join(tmp, f"{tag}.rank{r}.json")
+                for r in range(world)]
+        logs = [open(os.path.join(tmp, f"{tag}.rank{r}.log"), "w+")
+                for r in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cli-rank", outs[r],
+             "train", cfg_path, "--coordinator", f"127.0.0.1:{port}",
+             "--num_processes", str(world), "--process_id", str(r)],
+            cwd=REPO, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(world)]
+        wait_ranks(procs, logs, DIST_TIMEOUT_S, f"config 4 on {tag}")
+        wall = time.perf_counter() - t0
+        recs = []
+        for out in outs:
+            with open(out) as f:
+                recs.append(json.load(f))
+        r0 = recs[0]
+        eager_reason = mesh_eager(tag, recs)
+        for rec in recs:
+            check(rec["rc"] == 0 and rec["teardown_s"] is not None,
+                  f"{tag}: rank {rec['rank']} {rec['rc']}, teardown "
+                  f"{rec['teardown_s']}")
+            check(rec["backend"] == "nccl",
+                  f"{tag}: rank {rec['rank']} on {rec['backend']}")
+            check(rec["train"]["steps"] == steps
+                  and all(rec["train"][m] == r0["train"][m]
+                          for m in ("loss", "auc", "examples")),
+                  f"{tag}: rank {rec['rank']} {rec['train']} vs rank 0's")
+            got = rec["launches"]
+            check(rec["exchange"] == "entries" and got["kplace"] == 0
+                  and min(got["fm_grad"], got["k1_dedup"], got["k1_merge"],
+                          got["k2_apply"]) >= steps,
+                  f"{tag}: rank {rec['rank']} exchange {rec['exchange']}, "
+                  f"launches {got}")
+        with np.load(os.path.join(model_dir, "params.npz")) as z:
+            have = {k: torch.from_numpy(z[k]).to(dev) for k in want}
+        torch.testing.assert_close(have["params/table"], want["params/table"],
+                                   **TABLE_TOL)
+        torch.testing.assert_close(have["opt/acc_table"],
+                                   want["opt/acc_table"], **OPT_TOL)
+        torch.testing.assert_close(have["scalar/w0"], want["scalar/w0"],
+                                   rtol=1e-5, atol=1e-7)
+        errs = {k: float((have[k] - want[k]).abs().max()) for k in want}
+        changes = {
+            "table": delta_check(torch, f"{tag} table", have["params/table"],
+                                 want["params/table"], init),
+            "acc_table": delta_check(
+                torch, f"{tag} acc_table", have["opt/acc_table"],
+                want["opt/acc_table"],
+                torch.full_like(init, cfg.adagrad_initial_accumulator)),
+        }
+        del have
+        shutil.rmtree(model_dir, ignore_errors=True)
+        runs[tag] = {
+            "mesh": list(shape), "wall_s": wall, "max_abs_err": errs,
+            "changes": changes, "eager_reason": eager_reason,
+            "train_logloss": r0["train"]["logloss"],
+            "examples_per_sec_across_cards":
+                r0["train"]["examples_per_sec"],
+            "ranks": [{k: rec[k] for k in (
+                "rank", "coords", "device", "exchange", "entries_cap",
+                "vocab_local", "local_occurrences", "step_p50_ms",
+                "collective_share", "peak_device_mb", "teardown_s")}
+                | {"ingest_wait_frac": rec["train"]["ingest_wait_frac"],
+                   "examples_per_sec": rec["train"]["examples_per_sec"]}
+                for rec in recs],
+        }
+        print(f"config 4 {tag} ({card}): " + json.dumps(
+            {k: runs[tag][k] for k in ("examples_per_sec_across_cards",
+                                       "max_abs_err", "ranks")}), flush=True)
+    return {"card": card, "config": "examples/criteo_1tb_dist.cfg",
+            "lines": DIST_LINES, "epochs": DIST_EPOCHS,
+            "cut": "4 x 4 needs 16 GPUs: 2 x 2 and 4 x 1 on four",
+            "one_card": {"device": "cuda:0", "wall_s": one_s,
+                         "train_logloss": one_tr["logloss"],
+                         "examples_per_sec": one_tr["examples_per_sec"]},
+            "runs": runs}
+
+
 def nccl_main() -> int:
     """``--nccl``: the sharded phase (its three 2 x 2 runs), path 11 as
     a ``1 x 4`` fleet against the dense ``1 x 4`` mesh and path 12's
     2 x 2 runs, one rank per GPU (needs at least four), so the backend
     rule picks NCCL; their one-device serving and predict on ``cuda:0``.
     Then path 15 over ``cuda:0-3`` (2 x 2, 1 x 4 and 4 x 1 against 1 x
-    1) with the CLI's ``predict`` and ``serve`` on a 2 x 2 grid."""
+    1) with the CLI's ``predict`` and ``serve`` on a 2 x 2 grid, and
+    BASELINE config 4 trained through the CLI on 2 x 2 and 4 x 1
+    (``dist_phase``)."""
     import numpy as np
     import torch
 
@@ -6388,6 +7312,9 @@ def nccl_main() -> int:
                                  predict_file, cards, GRIDS_FOUR_CARDS, {},
                                  cli_mesh=True)
         print(json.dumps({"grid": grid_rec}), flush=True)
+        # BASELINE config 4 through the CLI on 2 x 2 and 4 x 1.
+        print(json.dumps({"criteo_1tb_dist": dist_phase(
+            np, torch, card, rng, tmp)}), flush=True)
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6827,13 +7754,8 @@ def main() -> int:
                        ("fm_grad_bf16", (rows_t16, vals_t16, s1_t16, dsc))):
         copies = [tuple(t.clone() for t in args)
                   for _ in range(FM_GRAD_COPIES)]
-
-        def in_turn(fn, copies=copies):
-            turn = itertools.cycle(copies)
-            return lambda: fn(*next(turn))
-
         pa, ka, kb, pb = (
-            graph_ms(torch, in_turn(fn), calls=3 * FM_GRAD_COPIES)
+            graph_ms(torch, in_turn(fn, copies), calls=3 * FM_GRAD_COPIES)
             for fn in (fm_grad_plain, fm_grad_cuda, fm_grad_cuda,
                        fm_grad_plain))
         t = timing[name]
@@ -7097,10 +8019,10 @@ def main() -> int:
     phase_end("bf16_train")
 
     # -- graph phase: the K-step CUDA graph against the eager steps ----
-    # The train files and the validation file: 17 batches.
+    # The first train file and the validation file: 9 batches.
     print(json.dumps({"graph": graph_phase(
-        torch, tcfg, card, train_files + [valid_file],
-        TRAIN_FILES * BATCHES_PER_FILE + 1, batches + batches[:1])}),
+        torch, tcfg, card, train_files[:1] + [valid_file],
+        BATCHES_PER_FILE + 1, batches + batches[:1])}),
         flush=True)
     phase_end("graph")
 
@@ -7554,6 +8476,32 @@ def main() -> int:
           "version", flush=True)
     phase_end("mesh_modes")
 
+    # -- paths 17-19: BASELINE configs 2, 4 and 3 at their own widths ---
+    base_ctx = tempfile.TemporaryDirectory(prefix="chip_smoke_baseline_")
+    avazu_rec, avazu_launches, avazu_timing = avazu_phase(
+        np, torch, card, rng, base_ctx.name, kernels, err)
+    timing.update(avazu_timing)
+    print(json.dumps({"avazu": avazu_rec}), flush=True)
+    print("avazu check: examples/avazu.cfg at V = 2^24, F = 24, B = 8192 "
+          "trained (graphed), validated (AUC above 0.5), predicted and "
+          "served: /score of the hashed text equal to the predict file; "
+          "FmScorer, FmGrad, K1 and K2 at its batch (padding included) "
+          "against their plain versions", flush=True)
+    phase_end("avazu")
+    c1tb_rec, c1tb_launches, c1tb_timing = criteo_1tb_phase(
+        np, torch, card, rng, base_ctx.name, kernels, err)
+    timing.update(c1tb_timing)
+    print(json.dumps({"criteo_1tb": c1tb_rec}), flush=True)
+    print("criteo_1tb check: examples/criteo_1tb_dist.cfg on one card at "
+          "V = 2^26, B = 262,144 trained with graph replays; FmScorer, "
+          "FmGrad, K1 and K2 at its 10,223,616 occurrences against their "
+          "plain versions", flush=True)
+    phase_end("criteo_1tb")
+    print(json.dumps({"sweep": sweep_phase(card, base_ctx.name)}),
+          flush=True)
+    phase_end("sweep")
+    base_ctx.cleanup()
+
     # Launches on the main paths: train (path 1), serve (paths 2, 6 and
     # 7, with path 8 the only fm_scores count), the sharded runs' ranks
     # (path 3), the probe (path 4, the only K2T and K2P counts), the
@@ -7608,6 +8556,9 @@ def main() -> int:
     for name in ("fm_scores", "fm_grad", "k1_dedup", "k2_apply", "k1_merge",
                  "kplace"):
         launches[name] += dsort_launches[name]
+    # Paths 17 and 18: BASELINE configs 2 and 4 at their own shapes.
+    launches.update(avazu_launches)
+    launches.update(c1tb_launches)
     sources = {
         "fm_scores": ("fm_scorer.cu", "fast_tffm_tpu/ops/fm_pallas.py:110"),
         "fm_grad": ("fm_grad.cu", "fast_tffm_tpu/ops/fm_pallas.py:127"),
@@ -7640,6 +8591,16 @@ def main() -> int:
                        "fast_tffm_tpu/ops/sparse_apply.py:469"),
         "kplace_w9": ("sparse_apply.cu",
                       "fast_tffm_tpu/ops/sparse_apply.py:469"),
+        **{f"{name}_{tag}": (src, replaces) for tag in ("avazu", "c1tb")
+           for name, (src, replaces) in (
+               ("fm_scores", ("fm_scorer.cu",
+                              "fast_tffm_tpu/ops/fm_pallas.py:110")),
+               ("fm_grad", ("fm_grad.cu",
+                            "fast_tffm_tpu/ops/fm_pallas.py:127")),
+               ("k1_dedup", ("sparse_apply.cu",
+                             "fast_tffm_tpu/ops/sparse_apply.py:136")),
+               ("k2_apply", ("sparse_apply.cu",
+                             "fast_tffm_tpu/ops/sparse_apply.py:322")))},
     }
     print(json.dumps({"phase_wall_s": phase_wall}), flush=True)
     print(json.dumps({"smoke_wall_s": time.perf_counter() - t_start}))
@@ -7669,6 +8630,8 @@ if __name__ == "__main__":
         sys.exit(rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--fleet-client"]:
         sys.exit(fleet_client_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cli-rank"]:
+        sys.exit(cli_rank_main(sys.argv[2:]))
     if sys.argv[1:] == ["--nccl"]:
         sys.exit(nccl_main())
     if sys.argv[1:]:

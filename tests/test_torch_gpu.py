@@ -2461,3 +2461,157 @@ def test_every_plane_on_is_bitwise_every_plane_off(gpu, tmp_path, graphs):
     for sym in ("fm_scores_fwd_kernel", "fm_grad_bwd_kernel", "k1_kernel",
                 "k2_kernel"):
         assert sym in text, sym
+
+
+# --------------------------- BASELINE configs 2 and 4 at their widths
+#
+# Config 2 (examples/avazu.cfg): B = 8192 lines of 22 hashed tokens in
+# F = 24 slots, the two padding slots id 0 with value 0 (2 x 8192
+# occurrences of one id a batch), V = 2^24.  Config 4
+# (examples/criteo_1tb_dist.cfg) on one card: B = 262,144 lines of
+# F = 39, n = 10,223,616 occurrences of Zipf(1.1) ids over V = 2^26,
+# whose hottest id has some 10^6 occurrences.
+
+_BASELINE_SHAPES = {"avazu": (8192, 24, 1 << 24),
+                    "criteo_1tb": (262144, 39, 1 << 26)}
+
+
+def _baseline_ids(name, seed=0):
+    """A batch's ``[B, F]`` ids at ``name``'s shape (see above)."""
+    b, f, vocab = _BASELINE_SHAPES[name]
+    rng = np.random.default_rng(seed)
+    if name == "avazu":
+        ids = rng.integers(1, vocab, (b, f)).astype(np.int32)
+        ids[:, 22:] = 0
+        return ids
+    ranks = np.minimum(rng.zipf(1.1, (b, f)), 1 << 31)
+    return ((ranks * 2654435761) % vocab).astype(np.int32)
+
+
+def _fm_scores_f64(rows, vals):
+    """FmScorer's function in float64 (``fm_scores_plain``'s formula,
+    which accumulates in float32)."""
+    rows, vals = rows.double(), vals.double()
+    xv = rows[..., 1:] * vals[..., None]
+    s1 = xv.sum(dim=1)
+    return ((rows[..., 0] * vals).sum(dim=-1)
+            + 0.5 * (s1 * s1 - (xv * xv).sum(dim=1)).sum(dim=-1)), s1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(_BASELINE_SHAPES))
+def test_fm_kernels_match_plain_at_the_baseline_widths(gpu, name):
+    """FmScorer within ``TOL`` of its plain version's function in float64
+    and FmGrad bitwise (on the float32 ``s1``), at config 2's and config
+    4's batch (the padding slots' values 0)."""
+    b, f, _ = _BASELINE_SHAPES[name]
+    rng = np.random.default_rng(f)
+    rows = torch.from_numpy((rng.normal(size=(b, f, 9)) * 0.3)
+                            .astype(np.float32)).to(gpu)
+    vals = rng.uniform(0.1, 1.0, (b, f)).astype(np.float32)
+    if name == "avazu":
+        vals[:, 22:] = 0.0
+    vals = torch.from_numpy(vals).to(gpu)
+    s_k, s1_k = fm_kernels.fm_scores_cuda(rows, vals)
+    # The plain version's function in float64: over 10^5 examples two
+    # float32 evaluations of a score near 0 may differ by more than TOL
+    # while each is within it of the exact value.
+    s_p, s1_p = _fm_scores_f64(rows, vals)
+    torch.testing.assert_close(s_k.double(), s_p, **TOL)
+    torch.testing.assert_close(s1_k.double(), s1_p, **TOL)
+    s1_p = s1_p.float()
+    g = torch.from_numpy(rng.normal(size=b).astype(np.float32)).to(gpu)
+    got = fm_kernels.fm_grad_cuda(rows, vals, s1_p, g)
+    want = fm_kernels.fm_grad_plain(rows, vals, s1_p, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(_BASELINE_SHAPES))
+def test_k1_k2_adagrad_match_plain_at_the_baseline_widths(gpu, name):
+    """K1 and K2 (Adagrad) on a batch's whole ``[n + 1]`` slot at config
+    2's and config 4's shape: K1's rows exact and its sums within the
+    error its order allows (the padding id's 16,384 and the Zipf head's
+    ~10^6 occurrences are warp-summed segments), K2's tables within the
+    tile-vs-scatter bounds of the plain version on the same sums."""
+    b, f, vocab = _BASELINE_SHAPES[name]
+    ids = torch.from_numpy(_baseline_ids(name)).to(gpu).reshape(-1)
+    counts = torch.bincount(ids.long())
+    assert int(counts.max()) > (1e5 if name == "criteo_1tb" else 16000)
+    del counts
+    n = ids.numel()
+    g = torch.randn((n, 9), device=gpu,
+                    generator=torch.Generator(device=gpu).manual_seed(3))
+    meta = sparse_apply.sort_meta(ids)
+    slot = meta.seg_start
+    cut = sparse_apply.cut_slot(meta)
+    urows, sums = sparse_apply.k1_dedup_cuda(g, ids, meta.perm, slot)
+    want_rows, want64 = sparse_apply.k1_dedup_plain(g.double(), ids,
+                                                    meta.perm, slot)
+    _, mass = sparse_apply.k1_dedup_plain(g.abs().double(), ids, meta.perm,
+                                          slot)
+    torch.cuda.synchronize()
+    u = cut.seg_start.numel() - 1
+    assert torch.equal(urows, want_rows) and bool((urows[u:] == -1).all())
+    err = (sums[:u].double() - want64[:u]).abs()
+    bound = sparse_apply.k1_error_bound(cut.seg_start, mass[:u])
+    assert bool(torch.all(err <= bound)), float(err.max())
+    del want64, mass, err, bound
+    hyper = sparse_apply.Hyper(lr=0.05, eps=1e-7)
+    gen = torch.Generator(device=gpu).manual_seed(4)
+    kern = (torch.empty((vocab, 9), device=gpu).uniform_(-0.01, 0.01,
+                                                         generator=gen),
+            torch.full((vocab, 9), 0.1, device=gpu))
+    plain = tuple(t.clone() for t in kern)
+    sparse_apply.k2_apply_cuda("adagrad", urows, sums, kern, hyper)
+    sparse_apply.k2_apply_plain("adagrad", urows, sums, plain, hyper)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+    torch.testing.assert_close(kern[1], plain[1], **OPT_TOL)
+
+
+@pytest.mark.gpu
+def test_graphed_criteo_1tb_step_is_bitwise_eager(gpu, tmp_path):
+    """``criteo_1tb_dist.cfg`` on one card (a 1 x 1 mesh: nothing to
+    shard) at its own width, V = 2^26 and B = 262,144: three dispatches
+    of one step, the second and third replays of the CUDA graph, bitwise
+    the same three run eagerly (tables, accumulator, w0, losses,
+    metrics, health carry)."""
+    from fast_tffm_tpu_torch.config import load_config
+    from fast_tffm_tpu_torch.data import native
+    from fast_tffm_tpu_torch.data.prefetch import DevicePrefetcher
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, "examples", "criteo_1tb_dist.cfg"),
+                      {"mesh_data": 1, "mesh_model": 1, "log_steps": 0,
+                       "save_steps": 0,
+                       "model_file": str(tmp_path / "none")})
+    b, f, vocab = _BASELINE_SHAPES["criteo_1tb"]
+    assert (cfg.batch_size, cfg.max_features, cfg.vocabulary_size,
+            cfg.host_sort) == (b, f, vocab, True)
+    rng = np.random.default_rng(5)
+    host = []
+    for i in range(3):
+        ids = _baseline_ids("criteo_1tb", seed=10 + i)
+        host.append(Batch(
+            (rng.random(b) < 0.3).astype(np.float32), ids,
+            rng.uniform(0.1, 1.0, (b, f)).astype(np.float32),
+            np.zeros((b, f), np.int32), np.ones((b,), np.float32),
+            native.sort_meta(ids, vocab)))
+    runs = []
+    for graphs in (True, False):
+        trainer = _trainer(cfg, gpu, graphs)
+        assert not trainer.sharded
+        losses = [trainer.dispatch(sb).clone() for sb in DevicePrefetcher(
+            host, 1, gpu, vocab)]
+        torch.cuda.synchronize()
+        state = [t.clone() for t in _trained_state(trainer)]
+        runs.append((trainer.graph_dispatches, torch.cat(losses), state))
+        del trainer
+        torch.cuda.empty_cache()
+    (g_replays, g_loss, g_state), (e_replays, e_loss, e_state) = runs
+    assert (g_replays, e_replays) == (2, 0)
+    assert torch.equal(g_loss, e_loss) and bool(torch.isfinite(g_loss).all())
+    for x, y in zip(g_state, e_state):
+        assert torch.equal(x, y)

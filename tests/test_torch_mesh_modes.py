@@ -34,6 +34,7 @@ parameters ``rtol=0.05, atol=0.02``); FFM in bf16 against f32
 ``TOL`` (``rtol=1e-4, atol=1e-6``) and ``BF16_TOL``.
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -680,3 +681,72 @@ def test_mesh_checks_name_the_tile_limit_not_the_optimizer(vocab,
         assert loop._check_mesh(cfg, cfg, Mesh(2, 2), sparse_update) is False
     want = "hand-sharded step" if sparse_update else "GSPMD step"
     assert want in caplog.text
+
+
+# ------------------- dense Adam on a mesh: its gradient's rounding alone
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_dense_adam_mesh_deviation_is_the_gradient_rounding(seed, tmp_path):
+    """Path 12's dense Adam (``examples/criteo_kaggle.cfg``'s fields,
+    ``l2_mode = full`` at 1e-4, Adam at lr 1e-3, the smoke's
+    ``write_labelled`` lines) at V = 2^16 and B = 1024: one step on 2 x 2
+    gloo ranks against one device.  Adam's first step moves a weight by
+    ``lr g / (|g| + eps)``, whose slope ``lr eps / (|g| + eps)^2`` peaks
+    at ``lr / eps`` (10^5) where the gradient cancels to near 0, so the
+    float32 rounding of the mesh's differently ordered sums is passed on
+    there: every table element within that slope times the difference
+    of the two runs' gradients (read from ``mu = 0.1 g``) plus the
+    roundings of the step, and the gradients themselves within the
+    rounding of their sums."""
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    lines = str(tmp_path / "train.libsvm")
+    chip_smoke.write_labelled(np, lines, rng, 1024,
+                              rng.normal(0.0, 0.6, (13, 50)))
+    lr, lam = 1e-3, 1e-4
+    kw = dict(vocabulary_size=1 << 16, batch_size=1024, seed=seed,
+              train_files=[lines], validation_files=[], log_steps=0,
+              save_steps=0, fast_ingest=False, sparse_update=False,
+              l2_mode="full", factor_lambda=lam, bias_lambda=lam,
+              optimizer="adam", learning_rate=lr, thread_num=2)
+    cfg_path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "criteo_kaggle.cfg")
+    from fast_tffm_tpu_torch.config import load_config
+
+    one_dir, mesh_dir = str(tmp_path / "one"), str(tmp_path / "mesh")
+    Trainer(load_config(cfg_path, dict(kw, model_file=one_dir)),
+            device="cpu").train()
+    mesh_cfg = load_config(cfg_path, dict(kw, model_file=mesh_dir,
+                                          mesh_data=2, mesh_model=2))
+    (tmp_path / "train.json").write_text(json.dumps(
+        [dataclasses.asdict(mesh_cfg)]))
+    run_ranks("train", 4, tmp_path)
+    one, mesh = _npz(one_dir), _npz(mesh_dir)
+    assert int(mesh["opt/count"]) == int(one["opt/count"]) == 1
+    g1 = one["opt/mu_table"].astype(np.float64) / 0.1
+    g2 = mesh["opt/mu_table"].astype(np.float64) / 0.1
+    # The gradients: within 2^-14 of the largest (a row's sum has at most
+    # 1024 occurrences' terms, each sum rounded in float32).
+    scale = np.abs(g1).max()
+    assert scale > 0
+    np.testing.assert_allclose(g2, g1, rtol=0, atol=2.0**-14 * scale)
+    # The table: slope x gradient difference (the slope's largest value
+    # between the two gradients; lr / eps where their signs differ), each
+    # gradient read back from mu within 2^-22 of itself, plus the roundings
+    # of the update and of w - lr u (2^-22 of lr and of |w|).
+    dg = np.abs(g1 - g2) + 2.0**-22 * (np.abs(g1) + np.abs(g2))
+    low = np.where(np.sign(g1) == np.sign(g2),
+                   np.maximum(np.minimum(np.abs(g1), np.abs(g2)) - dg, 0.0),
+                   0.0)
+    eps = 1e-8
+    w1 = one["params/table"].astype(np.float64)
+    bound = (lr * eps / (low + eps) ** 2 * dg + 2.0**-22 * lr
+             + 2.0**-22 * np.abs(w1))
+    dev = np.abs(mesh["params/table"] - w1)
+    assert bool(np.all(dev <= bound)), (
+        f"{int((dev > bound).sum())} table elements past Adam's slope "
+        f"times the gradient difference; max {dev.max():.3e}")
+    np.testing.assert_allclose(mesh["scalar/w0"], one["scalar/w0"],
+                               **W0_TOL)
