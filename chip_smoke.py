@@ -467,12 +467,19 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+try:
+    # The peak rates, the bounds and the HBM copies the kernel
+    # benchmarks share (tools/bench_common.py).
+    from fast_tffm_tpu_torch.tools.bench_common import (
+        L2_BYTES, PEAK_BYTES_PER_S, bound, in_turn, k1_bound_ms, k1_library,
+        l2_copies,
+    )
+except ImportError as e:
+    raise SystemExit(f"chip_smoke: the package fast_tffm_tpu_torch is not "
+                     f"beside this script ({e})") from None
 CFG_PATH = os.path.join(REPO, "examples", "criteo_kaggle.cfg")
 SEED = 20261016
-# NVIDIA H100 SXM data sheet peaks (at the full 700 W power limit):
-# HBM3 bandwidth and the non-tensor-core float32 rate.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
 # Kernel vs plain: both accumulate in f32 and differ only in summation
 # order and FMA contraction; at these inputs (|rows| ~ 0.3, 39 features)
 # that is a few f32 ulps of |s1^2| and |s2| (~3), i.e. below 1e-5.
@@ -508,7 +515,6 @@ KPLACE_ROW_LO = KPLACE_VOCAB_LOCAL = 1 << 21
 # time is not the L2's (32 x 6.5 MB f32, 32 x 3.3 MB bf16).  Paths 17-18
 # take as many copies as pass twice the H100's 50 MB L2 (``l2_copies``).
 FM_GRAD_COPIES = 32
-L2_BYTES = 50 * 2**20
 # Probe phase: the micro-probe's id count (16384 x 39 uniform ids), and
 # the occurrences of the one hot id added to each K2T/K2P check's ids.
 PROBE_N = 16384 * 39
@@ -711,21 +717,6 @@ def time_cases(torch, cases: dict, calls: dict = None) -> dict:
     return timing
 
 
-def l2_copies(bound_ms: float) -> int:
-    """The copies of a call's inputs to take in turn so that its timed
-    reads come from HBM, not the L2: enough that the bytes its bound
-    counts (``bound_ms`` at HBM bandwidth) pass twice the L2 before a
-    copy comes round again."""
-    return max(1, math.ceil(2 * L2_BYTES / (bound_ms * 1e-3
-                                             * PEAK_BYTES_PER_S)))
-
-
-def in_turn(fn, copies: list):
-    """A call of ``fn`` on the next of ``copies`` (argument tuples)."""
-    turn = itertools.cycle(copies)
-    return lambda: fn(*next(turn))
-
-
 def time_per_call_ms(torch, fn, iters: int = 200, warm: int = 20) -> float:
     """CUDA-event time per call over a loop of eager calls (device
     timeline, so it includes whatever host issue time the loop cannot
@@ -797,14 +788,6 @@ def device_times_ms(torch, fn, iters: int = 50, top: int = 10,
     return out, wall * 1e3 / iters, dict(ranked[:top] if top else ranked)
 
 
-def bound(nbytes: float, ops: float):
-    """``(ms, "bytes" | "operations")``: the larger of the bytes over
-    HBM bandwidth and the f32 operations over the f32 rate."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def fm_bound_ms(b: int, f: int, d: int, elt: int = 4):
     """FmScorer forward: rows and vals read (``elt`` bytes an element:
     4 in f32, 2 in bf16), f32 scores and s1 written."""
@@ -827,18 +810,6 @@ def cast_bound_ms(n: int, elt_in: int, elt_out: int):
     return bound(n * (elt_in + elt_out), 0)
 
 
-def k1_bound_ms(n: int, u: int, d: int, slot: int = 0):
-    """K1: g_rows and perm read, ids once per unique id (at its
-    segment's first occurrence), ``seg_start`` read and a row id written
-    for each of the ``slot`` segments it covers (``u`` on the cut slot,
-    the default; ``n`` on the whole slot); the ``u`` rows of sums
-    written (nothing reads sums past U, and the kernel writes none).
-    Per occurrence and column: g, g*g, two adds."""
-    slot = slot or u
-    return bound(4 * (n * d + n + u + (slot + 1) + slot + 2 * d * u),
-                 3 * n * d)
-
-
 def fm_scores_f64(rows, vals):
     """FmScorer's function in float64 (``fm_scores_plain``'s formula,
     which accumulates in float32): the exact value a check at a large
@@ -848,22 +819,6 @@ def fm_scores_f64(rows, vals):
     s1 = xv.sum(dim=1)
     return ((rows[..., 0] * vals).sum(dim=-1)
             + 0.5 * (s1 * s1 - (xv * xv).sum(dim=1)).sum(dim=-1)), s1
-
-
-def k1_library(torch, g, meta):
-    """K1's library yardstick: one ``index_add_`` of the ``[g | g^2]``
-    payload over each occurrence's segment (unsorted order)."""
-    u_s = meta.seg_start.numel() - 1
-    seg_sorted = torch.repeat_interleave(
-        torch.arange(u_s, device=g.device),
-        (meta.seg_start[1:] - meta.seg_start[:-1]).long(),
-        output_size=g.shape[0],
-    )
-    seg_of_occ = torch.empty_like(seg_sorted)
-    seg_of_occ[meta.perm.long()] = seg_sorted
-    payload = torch.cat([g, g * g], dim=1)
-    out = torch.zeros((u_s, 2 * g.shape[1]), device=g.device)
-    return lambda: out.index_add_(0, seg_of_occ, payload)
 
 
 def delta_check(torch, name: str, kern, plain, start) -> dict:
@@ -890,14 +845,6 @@ def delta_check(torch, name: str, kern, plain, start) -> dict:
     return {"changed": int((dp != 0).sum()), "max_abs_change":
             float(dp.abs().max()), "change_max_abs_err": float(diff.max()),
             "change_rel_err": rel}
-
-
-def k1_merge_bound_ms(n: int, u: int, p: int):
-    """K1 merge mode over the ``n`` real entries (the sentinel's padding
-    is never read): their payload and perm read, ids once per unique
-    row, seg_start read; urows and sums written.  One add per entry and
-    column."""
-    return bound(4 * (n * p + n + u + (u + 1) + u + p * u), n * p)
 
 
 def kplace_bound_ms(u: int, w: int, vocab_local: int):
@@ -2174,7 +2121,7 @@ def dense_phase(np, torch, card: str, rng, files, valid_file: str,
     grad_kernels = {
         "k1_merge": (lambda: sparse_apply.k1_merge_cuda(
             g_rows, ids32, meta.perm, meta.seg_start),
-            k1_merge_bound_ms(n, u, D)),
+            k1_bound_ms(n, u, D, square=False)),
         # The full L2's closed-form term: read the gradient and the
         # table, write the gradient; a product and a sum an element.
         "l2_full_grad": (lambda: g_table.addcmul_(model.table.detach(), lam),
@@ -3081,7 +3028,6 @@ def rank_main(argv) -> int:
     faulthandler.dump_traceback_later(
         float(os.environ.get("CHIP_SMOKE_STACKS_AFTER_S", RANK_TIMEOUT_S)))
 
-    sys.path.insert(0, REPO)
     from fast_tffm_tpu_torch.config import load_config
     from fast_tffm_tpu_torch.ops import fm_kernels, sparse_apply
     from fast_tffm_tpu_torch.tools import micro_probe
@@ -4348,7 +4294,8 @@ def ffm_kernels(np, torch, gen, batch, cfg, err: dict) -> dict:
         "k1_dedup_d33": (
             lambda: k1_dedup_cuda(g_rows, ids0, meta0.perm, slot0),
             lambda: k1_dedup_plain(g_rows, ids0, meta0.perm, slot0),
-            k1_library(torch, g_rows, meta0), k1_bound_ms(n, u, D, slot=n),
+            k1_library(g_rows, meta0.perm, meta0.seg_start),
+            k1_bound_ms(n, u, D, slot=n),
             (lambda: k1_dedup_cuda(g_rows, ids0, meta0.perm,
                                    meta0.seg_start),
              k1_bound_ms(n, u, D))),
@@ -5742,7 +5689,7 @@ def mesh_modes_timing(np, torch, gen, rng, err: dict) -> dict:
             lambda a=margs: sa.k1_merge_cuda(*a),
             lambda a=margs: sa.k1_merge_plain(*a),
             lambda s=merge_seg, p=pay_real, o=lib_out: o.index_add_(0, s, p),
-            k1_merge_bound_ms(n_real, urows_m.numel(), w_merge))
+            k1_bound_ms(n_real, urows_m.numel(), w_merge, square=False))
         delta_k, delta_p = sa.kplace_cuda(*kp), sa.kplace_plain(*kp)
         torch.cuda.synchronize()
         err[name] = float((delta_k - delta_p).abs().max())
@@ -6643,7 +6590,8 @@ def baseline_kernels(torch, tag: str, batch, vocab: int, hyper, err: dict,
     fm_in = clones((rows, vals), n_copies["fm_scores"])
     grad_in = clones((rows, vals, s1_p, dsc), n_copies["fm_grad"])
     k1_in = clones((g_rows, ids, meta.perm, slot), n_copies["k1_dedup"])
-    k1_libs = [(k1_library(torch, args[0], cut),) for args in k1_in]
+    k1_libs = [(k1_library(args[0], args[2], cut.seg_start),)
+               for args in k1_in]
     # K2's copies hold whole tables (1.2 GB at Avazu's V): as many as
     # half the free device memory takes, if fewer than l2_copies asks.
     fit = torch.cuda.mem_get_info()[0] // 2 // sum(t.nbytes for t in kern)
@@ -6690,10 +6638,12 @@ def baseline_kernels(torch, tag: str, batch, vocab: int, hyper, err: dict,
 
 def k1_zipf_timing(np, torch, n: int, vocab: int) -> dict:
     """K1 on a stream of ``n`` Zipf(1.1) ids over ``vocab`` rows (the
-    hottest some 10^6 occurrences: one warp sums a segment that long),
-    against its float64 plain version within ``k1_error_bound``, then the
+    hottest some 10^6 occurrences at config 4's n: a segment of many
+    pieces, split over as many warps), against its float64 plain version
+    within ``k1_error_bound``, its join counters back at zero, then the
     kernel, its plain version and its ``index_add_`` timed in CUDA graphs
-    of ``BIG_STREAM_CALLS`` calls on the cut slot."""
+    of at least ``BIG_STREAM_CALLS`` calls on the cut slot, on
+    ``l2_copies`` copies of the inputs in turn (one at config 4's n)."""
     from fast_tffm_tpu_torch.ops import sparse_apply as sa
 
     dev = torch.device("cuda")
@@ -6713,18 +6663,27 @@ def k1_zipf_timing(np, torch, n: int, vocab: int) -> dict:
     check(torch.equal(urows, p_rows) and bool(torch.all(
         diff <= sa.k1_error_bound(meta.seg_start, mass))),
         f"K1 on the Zipf stream: max err {float(diff.max()):.3e}")
+    check(sa.k1_joins_pending() == 0,
+          "K1 on the Zipf stream left a join counter set")
+    max_err = float(diff.max())
     del p_rows, p_sums, mass, diff
     u = meta.seg_start.numel() - 1
-    pa, ka, kb, pb = (graph_ms(torch, lambda f=f: f(*args),
-                               calls=BIG_STREAM_CALLS)
+    b_ms, b_by = k1_bound_ms(n, u, 9)
+    copies = [args] + [tuple(t.clone() for t in args)
+                       for _ in range(l2_copies(b_ms) - 1)]
+    libs = [(k1_library(c[0], c[2], c[3]),) for c in copies]
+    calls = max(BIG_STREAM_CALLS, 3 * len(copies))
+    pa, ka, kb, pb = (graph_ms(torch, in_turn(f, copies), calls=calls)
                       for f in (sa.k1_dedup_plain, sa.k1_dedup_cuda,
                                 sa.k1_dedup_cuda, sa.k1_dedup_plain))
-    b_ms, b_by = k1_bound_ms(n, u, 9)
-    return {"occurrences": n, "unique_rows": u, "longest_segment": int(
-                (meta.seg_start[1:] - meta.seg_start[:-1]).max()),
+    counts = meta.seg_start[1:] - meta.seg_start[:-1]
+    return {"occurrences": n, "vocabulary": vocab, "unique_rows": u,
+            "longest_segment": int(counts.max()),
+            "segments_over_a_piece": int((counts > sa.K1_PIECE).sum()),
+            "input_copies": len(copies), "max_abs_err": max_err,
             "graph_ms": [ka, kb], "plain_graph_ms": [pa, pb],
-            "library_ms": graph_ms(torch, k1_library(torch, g, meta),
-                                   calls=BIG_STREAM_CALLS),
+            "library_ms": graph_ms(torch, in_turn(lambda f: f(), libs),
+                                   calls=calls),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -6871,8 +6830,9 @@ def criteo_1tb_phase(np, torch, card: str, rng, tmp: str, kernels: dict,
     threads), the sort meta alone on a parsed batch, the step on a device
     batch graphed and eager, and the kernels at that batch
     (``baseline_kernels``: n = 10,223,616 occurrences), and K1 timed on
-    a Zipf stream of as many (``k1_zipf_timing``).  Returns
-    ``(record, launches, timing)`` under ``<kernel>_c1tb``."""
+    a Zipf stream of as many and on one of Criteo-Kaggle's n
+    (``k1_zipf_timing``).  Returns ``(record, launches, timing)`` under
+    ``<kernel>_c1tb``."""
     from fast_tffm_tpu_torch.config import load_config
     from fast_tffm_tpu_torch.data import native
     from fast_tffm_tpu_torch.tools import ingest_bench
@@ -6938,6 +6898,9 @@ def criteo_1tb_phase(np, torch, card: str, rng, tmp: str, kernels: dict,
     timing = baseline_kernels(torch, "c1tb", batch, V, sparse.hyper(cfg),
                               err, calls=BIG_STREAM_CALLS)
     zipf = k1_zipf_timing(np, torch, B * F, V)
+    # The same law at Criteo-Kaggle's n (B = 4096, F = 39) over its 2^22
+    # rows, beside config 4's stream.
+    zipf_criteo = k1_zipf_timing(np, torch, LINES * 39, 1 << 22)
     # What bounds examples/s end to end: a batch's parse and sort (one
     # parse thread takes a batch), the sort alone, or the device step.
     stage_ms = {"parse_and_sort": 1e3 * B / drain["lines_per_s"],
@@ -6966,6 +6929,7 @@ def criteo_1tb_phase(np, torch, card: str, rng, tmp: str, kernels: dict,
         "categorical_ids": "uniform 32-bit (write_labelled)",
         "device_step_at_zipf_ids_ms_estimate": zipf_step_ms,
         "k1_zipf_stream": zipf,
+        "k1_zipf_stream_criteo_kaggle": zipf_criteo,
         "launches": launches,
     }
     print("criteo_1tb (" + card + "): " + json.dumps({
@@ -6974,6 +6938,7 @@ def criteo_1tb_phase(np, torch, card: str, rng, tmp: str, kernels: dict,
         "step_p50_ms": {k: v["step_p50_ms"] for k, v in steps.items()},
         "stage_ms_a_batch": stage_ms, "peak_device_mb": peak_mb,
         "k1_zipf_ms": min(zipf["graph_ms"]),
+        "k1_zipf_criteo_kaggle_ms": min(zipf_criteo["graph_ms"]),
         "device_step_at_zipf_ids_ms_estimate": zipf_step_ms, **graph}),
         flush=True)
     return (record, {f"{name}_c1tb": launches[name] for name in
@@ -7042,7 +7007,6 @@ def cli_rank_main(argv) -> int:
 
     faulthandler.dump_traceback_later(
         float(os.environ.get("CHIP_SMOKE_STACKS_AFTER_S", DIST_TIMEOUT_S)))
-    sys.path.insert(0, REPO)
     from fast_tffm_tpu_torch import cli
     from fast_tffm_tpu_torch.ops import fm_kernels, sparse_apply
     from fast_tffm_tpu_torch.tools import micro_probe
@@ -7261,7 +7225,6 @@ def nccl_main() -> int:
     world = SHARDED_MESH[0] * SHARDED_MESH[1]
     check(torch.cuda.device_count() >= world,
           f"--nccl needs {world} GPUs, have {torch.cuda.device_count()}")
-    sys.path.insert(0, REPO)
     from fast_tffm_tpu_torch.ops import _build, fm_kernels, sparse_apply
     from fast_tffm_tpu_torch.tools import micro_probe
 
@@ -7332,7 +7295,6 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU visible to PyTorch; this smoke "
               "runs only on the GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
     from fast_tffm_tpu_torch.config import load_config
     from fast_tffm_tpu_torch.data import native
     from fast_tffm_tpu_torch.data.libsvm import (
@@ -7658,6 +7620,10 @@ def main() -> int:
     err["k1_merge"] = float((sums_m - sums_mp).abs().max())
     check(err["k1_merge"] == 0.0, f"K1 merge vs plain: max err "
           f"{err['k1_merge']:.3e} (at most two terms per row)")
+    # K1's join counters (a segment split over many warps counts its
+    # pieces on one) are back at zero after every launch so far.
+    check(sparse_apply.k1_joins_pending() == 0,
+          "K1 left a join counter set")
     print("kernel check: fm_scores, fm_grad (f32 and bf16, bf16 FmGrad "
           "bitwise), k1_dedup, k2_apply (adagrad, ftrl, sgd; on the whole "
           "slot bitwise the cut slot's on the first U rows), kplace, "
@@ -7717,7 +7683,7 @@ def main() -> int:
         "k1_dedup": (
             lambda: k1_dedup_cuda(g_rows, ids32, meta0.perm, slot0),
             lambda: k1_dedup_plain(g_rows, ids32, meta0.perm, slot0),
-            k1_library(torch, g_rows, meta0),
+            k1_library(g_rows, meta0.perm, meta0.seg_start),
             k1_bound_ms(n, u, D, slot=n),
         ),
         "k2_apply": (
@@ -7740,7 +7706,7 @@ def main() -> int:
             lambda: k1_merge_cuda(*merge_args),
             lambda: k1_merge_plain(*merge_args),
             lambda: lib_merge.index_add_(0, merge_seg, pay_real),
-            k1_merge_bound_ms(n_real, urows_m.numel(), 2 * D),
+            k1_bound_ms(n_real, urows_m.numel(), 2 * D, square=False),
         ),
     }
     # K-place writes a 151 MB delta per call: fewer calls per graph.
@@ -7796,7 +7762,8 @@ def main() -> int:
         timing["k1_dedup"]["streams"][name] = {
             "occurrences": g.shape[0], "unique_rows": u_s,
             "graph_ms": [ka, kb], "plain_graph_ms": [pa, pb],
-            "library_ms": graph_ms(torch, k1_library(torch, g, meta)),
+            "library_ms": graph_ms(torch, k1_library(g, meta.perm,
+                                                      meta.seg_start)),
             "bound_ms": b_ms, "bound_by": b_by,
         }
     del k1_streams, probe_ids

@@ -146,8 +146,8 @@ def load() -> ctypes.CDLL:
             lib.fm_grad_bwd.restype = i32
             lib.fm_grad_bwd_bf16.argtypes = lib.fm_grad_bwd.argtypes
             lib.fm_grad_bwd_bf16.restype = i32
-            lib.k1_dedup.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
-                                     i32, i32, ptr]
+            lib.k1_dedup.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                     i32, i32, i32, ptr]
             lib.k1_dedup.restype = i32
             lib.k1_merge.argtypes = lib.k1_dedup.argtypes
             lib.k1_merge.restype = i32

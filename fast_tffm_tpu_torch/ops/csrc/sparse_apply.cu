@@ -21,31 +21,85 @@
 // Merge mode (k1_merge) sums a [n, P] payload as it is, sums[u] [U, P]:
 // the sharded entries exchange feeds it streams that already hold
 // [sum g | sum g^2] per row (the reference's merge_entries).
-// One thread per segment, a whole warp only for a long one.  A block
-// owns 128 consecutive segments, one per thread, so the loads of
-// seg_start are coalesced.  A segment of at most kShort = 16
-// occurrences (on hashed data nearly all have one or two) is summed by
-// its own thread in sorted order, so a warp walks 32 such segments at
-// once and their perm and row loads are independent; a thread issues
-// four occurrences' loads before their adds.  The warp finds its longer
-// segments by ballot and sums each in turn, lanes by stride and then a
-// shuffle tree, so a hot id of thousands of occurrences costs one warp
-// (count / 32) steps and only its block waits on it.  The block stages
-// its [128, W] sums in shared memory and writes them as one contiguous,
-// coalesced range of sums (directly when 128 * W floats do not fit
-// 48 KB).  What bounds it is not the bytes (~15 MB at a training
-// batch, 4.6 us at full HBM bandwidth, against some 14.6 us on an H100):
-// at D = 9 a warp's 4-byte load of its 32 lanes' rows touches 32 rows'
-// sectors, 9 L1 wavefronts per occurrence.  A warp gathering rows into
-// shared memory to cut that, and fewer registers for more resident
-// blocks, both measured slower (PERF.md).  No float
-// atomics: the order of every sum is fixed by (perm, seg_start) and
-// kShort, so two runs give bitwise-equal sums (sparse_apply.
-// k1_error_bound follows that order).  The TPU kernel's [C, C] one-hot
-// matmul and its VMEM carry across chunk boundaries exist because a TPU
-// grid runs in order and scatters serialize; here a segment of any
-// length belongs to one thread or one warp and nothing carries between
-// blocks.
+// One thread per segment, a warp for a longer one, and many warps for a
+// segment longer than a piece.  A block owns 128 consecutive segments,
+// one per thread, so the loads of seg_start are coalesced.  A segment of
+// at most kShort = 16 occurrences (on hashed data nearly all have one or
+// two) is summed by its own thread in sorted order, so a warp walks 32
+// such segments at once and their perm and row loads are independent; a
+// thread issues four occurrences' loads before their adds.  The warp
+// finds its longer segments by ballot and sums each in turn, lanes by
+// stride and then a shuffle tree.  A pass covers kCols columns: 16 in
+// dedup mode; in merge mode 16 up to P = 16 (64 registers, not 95) and
+// 32 past it.  The block stages its [128, W] sums in shared memory and
+// writes them as one contiguous, coalesced range of sums (directly when
+// 128 * W floats do not fit 48 KB).
+//
+// Long segments.  A hot id (Avazu's padding id 0, 16,384 occurrences a
+// batch; the head of a Zipf(1.1) stream, 10^6 of config 4's 10.2 M ids)
+// on one warp made the warp wait on every scattered row while the card
+// sat idle: 363.9 us on Avazu's batch from HBM and 39,240 us on the Zipf
+// stream, 2.1x and 3.8x the plain version, 5x and 7x index_add_ (NVIDIA
+// H100 80GB HBM3, 700.00 W; PERF.md).  So a segment of more than kPiece
+// = 512 occurrences is cut into pieces of kPiece sorted positions counted
+// from its first: piece j is [s0 + j kPiece, s0 + (j + 1) kPiece) cut at
+// s1, a rule of seg_start alone.  Piece 0 is summed by the owner's warp
+// as above.  Piece j >= 1 starts in chunk floor(s0 / kPiece) + j of the
+// sorted positions (chunks of kPiece, aligned), and no chunk holds the
+// start of two such pieces (they are more than kPiece apart), so that
+// chunk's warp sums it, in the warp's order, into the chunk's row of a
+// workspace of ceil(n / kPiece) rows.  The chunk warps are the grid's
+// first blocks, four a block; a chunk warp past seg_start[U] stops after
+// one load, and the others find the segment holding their first position
+// by a warp-wide search of seg_start (4-5 dependent loads).  The join is
+// the last piece's: every piece, once its sums are stored, counts itself
+// on the segment's counter with a fence before an atomicInc (an integer
+// atomic: no float atomic anywhere), and the warp that counts last adds
+// the pieces in position order, piece 0 (the segment's own row of sums)
+// first, then pieces 1, 2, ... of the workspace, and writes the row.
+// Which warp joins depends on timing; the order of the adds does not, so
+// two runs give bitwise-equal sums.  Piece 0 counts once it is in sums:
+// at once where the warp wrote it there, after the block's copy where it
+// was staged (the warps' flags ride the copy's barrier, so a block with
+// no split segment pays no second barrier).  The counters are the
+// caller's: ceil(n / kPiece) + 1 u32, zeroed once, one a split segment
+// (at floor(s0 / kPiece) + 1), and atomicInc wraps each back to 0 at its
+// last piece, so every launch leaves them as it found them: no memset,
+// no host read, nothing sized by U or by the longest segment (the
+// workspace, the counters and the grid follow n), so a CUDA graph holds
+// it.  Two launches that may run at once need counters of their own
+// (sparse_apply keeps a set for each stream).  The chunk warps and the
+// counting are out of line, so the segment blocks' hot path compiles as
+// before: inlined, they cost the short-segment shapes up to 30 %
+// (PERF.md).
+//
+// Which sums keep which order.  A segment of at most kShort occurrences:
+// one thread in sorted order; of at most kPiece: the warp order above;
+// both bitwise the sums of the one-warp design.  A longer one: each
+// piece in the warp order, then the sequential join, so its sums differ
+// from the one-warp order by rounding only, within
+// sparse_apply.k1_error_bound (a piece's roundings plus the join's
+// pieces - 1).
+//
+// What bounds it on short segments is not the bytes (~15 MB at a
+// training batch, 4.6 us at full HBM bandwidth, against some 14.4 us on
+// an H100): at D = 9 a warp's 4-byte load of its 32 lanes' rows touches
+// 32 rows' sectors, 9 L1 wavefronts per occurrence.  A warp gathering
+// rows into shared memory to cut that, and fewer registers for more
+// resident blocks, both measured slower (PERF.md).  On long segments the
+// pieces spread the rows over the card; what is left is latency: a
+// warp's medium segments (up to kPiece each) one after another, and the
+// hottest segment's join, pieces - 1 rows read in a chain of 8-deep
+// loads.  Measured (tools/k1_bench.py --parent, from HBM, NVIDIA H100
+// 80GB HBM3, 700.00 W), this design against the one-warp design,
+// index_add_ and the byte bound: Avazu's batch 49.8 us (392.8, 69.6,
+// 3.2); config 4's Zipf stream 686.3 us (39,249.7, 5,315.2, 166.4);
+// config 4 at uniform ids 888.8 us (1,100.9, 1,541.9, 293.5); a Zipf
+// stream at Criteo-Kaggle's n 28.9 us (423.9, 82.4, 3.1); the
+// short-segment shapes from 16 % faster to 1.0 % slower, bitwise.
+// The TPU kernel's [C, C] one-hot matmul and its VMEM carry across chunk
+// boundaries exist because a TPU grid runs in order and scatters
+// serialize; here the carry becomes the workspace and the counted join.
 //
 // K2 (k2_apply): a group of kK2Lanes = 16 lanes per unique row updates
 // the table and its optimizer tables in place at that row only (Adagrad
@@ -140,11 +194,19 @@ constexpr int kWarp = 32;
 // K1: segments per block (one per thread), the longest segment a thread
 // sums alone (sparse_apply.K1_SHORT must agree), the occurrences whose
 // loads a thread issues together, and the floats of sums a block may
-// stage in shared memory without an opt-in.
+// stage in shared memory without an opt-in (48 KB less the block's
+// split-segment masks).
 constexpr int kSegs = 128;
 constexpr int kShort = 16;
 constexpr int kUnroll = 4;
-constexpr int kStageFloats = 48 * 1024 / 4;
+constexpr int kStageFloats = 48 * 1024 / 4 - kSegs / kWarp;
+// K1's pieces: the longest segment a warp sums alone, and the sorted
+// positions of a piece and of a chunk (sparse_apply.K1_PIECE must
+// agree); the chunks a block of chunk warps takes; and the partial sums
+// a join loads before their adds.
+constexpr int kPiece = 512;
+constexpr int kChunkWarps = kSegs / kWarp;
+constexpr int kJoinUnroll = 8;
 // K2: threads per block, and lanes per row (columns of a row per pass).
 constexpr int kK2Threads = 128;
 constexpr int kK2Lanes = 16;
@@ -164,6 +226,41 @@ __device__ __forceinline__ float warp_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, offset);
   }
   return v;
+}
+
+// First index of sorted a[0..n) whose value is >= key (n when none is),
+// for a key >= 0, found by the whole warp: each step probes 32 evenly
+// spaced entries at once and keeps the gap between the last one below
+// the key and the first one not, so U = 2^17 entries take 4 dependent
+// loads, not 17.  A negative entry counts as past every key: K1's rows
+// on the whole slot end in a run of -1, which thereby sorts last and
+// falls in no block's range (K-place).  K1's chunk warps search
+// seg_start with it.  Every lane of the warp calls it and gets the
+// index.
+__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a,
+                                                int n, int64_t key) {
+  const int lane = threadIdx.x % kWarp;
+  int lo = 0;
+  int hi = n;
+  while (lo < hi) {
+    const int step = (hi - lo - 1) / kWarp + 1;
+    const int64_t i = lo + static_cast<int64_t>(lane) * step;
+    bool below = false;
+    if (i < hi) {
+      const int v = a[i];
+      below = v >= 0 && static_cast<int64_t>(v) < key;
+    }
+    // On a sorted a the lanes below the key are a prefix: c of them.
+    const int c = __popc(__ballot_sync(0xffffffffu, below));
+    if (c == 0) {
+      hi = lo;
+    } else {
+      const int64_t top = lo + static_cast<int64_t>(c) * step;
+      lo += (c - 1) * step + 1;
+      hi = top < hi ? static_cast<int>(top) : hi;
+    }
+  }
+  return lo;
 }
 
 // Adds row g[0 .. kCols) (columns c0 + c < D only) of one occurrence
@@ -207,29 +304,178 @@ __device__ __forceinline__ void add_rows(const float* __restrict__ g_rows,
   }
 }
 
+// One warp's sum of sorted positions [b, e), columns in passes of kCols:
+// lane l adds positions b + l, b + l + 32, ... in turn, a shuffle tree
+// joins the lanes, and lane 0 stores the row at dst ([W] floats).
+template <bool kSquare, int kCols>
+__device__ __forceinline__ void warp_piece(const float* __restrict__ g_rows,
+                                           const int* __restrict__ perm,
+                                           int b, int e, int D,
+                                           float* __restrict__ dst) {
+  const int lane = threadIdx.x % kWarp;
+  for (int c0 = 0; c0 < D; c0 += kCols) {
+    float a1[kCols];
+    float a2[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      a1[c] = 0.0f;
+      a2[c] = 0.0f;
+    }
+    add_rows<kSquare>(g_rows, perm, b + lane, e, kWarp, c0, D, a1, a2);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (c0 + c < D) {  // warp-uniform: every lane takes the same branch
+        const float t1 = warp_sum(a1[c]);
+        const float t2 = kSquare ? warp_sum(a2[c]) : 0.0f;
+        if (lane == 0) {
+          dst[c0 + c] = t1;
+          if (kSquare) dst[D + c0 + c] = t2;
+        }
+      }
+    }
+  }
+}
+
+// Counts one stored piece of the split segment [s0, s1) on its counter
+// in `joins`; true for the piece that counts last.  The fence orders the
+// piece's stores (and those the calling thread has seen through a
+// barrier) before the count.
+__device__ __forceinline__ bool count_piece(unsigned* __restrict__ joins,
+                                            int s0, int s1) {
+  const unsigned last = static_cast<unsigned>(s1 - s0 - 1) / kPiece;
+  __threadfence();
+  return atomicInc(&joins[s0 / kPiece + 1], last) == last;
+}
+
+// The join of a split segment, by one warp, lanes over the W columns:
+// its row (piece 0's sums) plus the `more` workspace rows from `first`
+// on (pieces 1, 2, ...), added in that order, the row stored back.  The
+// loads go to L2 (the pieces were stored by other SMs).
+__device__ __forceinline__ void join_pieces(float* __restrict__ row,
+                                            const float* __restrict__ ws,
+                                            int64_t first, int more,
+                                            int W) {
+  __threadfence();
+  for (int c = threadIdx.x % kWarp; c < W; c += kWarp) {
+    float acc = __ldcg(row + c);
+    const float* col = ws + first * W + c;
+    for (int j = 0; j < more; j += kJoinUnroll) {
+      float x[kJoinUnroll];
+#pragma unroll
+      for (int q = 0; q < kJoinUnroll; ++q) {
+        x[q] = j + q < more ? __ldcg(col + static_cast<int64_t>(j + q) * W)
+                            : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < kJoinUnroll; ++q) {
+        if (j + q < more) acc = __fadd_rn(acc, x[q]);
+      }
+    }
+    row[c] = acc;
+  }
+}
+
+// The warp's split segments of the block at u0, once their piece 0 is
+// stored in sums (by this warp, or by the block's copy before a
+// barrier): each counts on its counter, and the warp joins each segment
+// whose count it closed.  It reloads the segments' bounds, and stays out
+// of line, so that the segment blocks' hot path carries nothing for it.
+__device__ __noinline__ void count_splits(float* __restrict__ sums,
+                                          const float* __restrict__ ws,
+                                          unsigned* __restrict__ joins,
+                                          const int* __restrict__ seg_start,
+                                          int U, int W, int64_t u0) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t u = u0 + threadIdx.x;
+  const int s0 = u < U ? seg_start[u] : 0;
+  const int s1 = u < U ? seg_start[u + 1] : 0;
+  __threadfence();
+  __syncwarp();
+  unsigned mine = __ballot_sync(
+      0xffffffffu, s1 - s0 > kPiece && count_piece(joins, s0, s1));
+  while (mine) {
+    const int owner = __ffs(mine) - 1;
+    mine &= mine - 1;
+    const int b = __shfl_sync(0xffffffffu, s0, owner);
+    const int e = __shfl_sync(0xffffffffu, s1, owner);
+    join_pieces(sums + (u - lane + owner) * W, ws, b / kPiece + 1,
+                (e - b - 1) / kPiece, W);
+  }
+}
+
+// A chunk warp: chunk k >= 1 of the sorted positions (chunk 0 holds no
+// piece j >= 1).  A chunk at or past seg_start[U] (the whole slot's
+// padding, the cut slot's sentinel occurrences, or past n) has none;
+// otherwise the segment holding position p0 = k kPiece is the last v
+// with seg_start[v] <= p0.  If v started before
+// the chunk and has a piece that starts in it, the warp sums that piece
+// into ws row k, counts it, and joins the segment if it counted last.
+// Every condition is the warp's.  Kept out of line, as the join is, so
+// that the segment blocks' registers are their own.
+template <bool kSquare, int kCols>
+__device__ __noinline__ void chunk_warp(const float* __restrict__ g_rows,
+                                        const int* __restrict__ perm,
+                                        const int* __restrict__ seg_start,
+                                        float* __restrict__ sums,
+                                        float* __restrict__ ws,
+                                        unsigned* __restrict__ joins, int U,
+                                        int D, int64_t k) {
+  const int64_t p0 = k * kPiece;
+  // Past the last real position (the cut slot's sentinel tail) without
+  // a search.
+  if (p0 >= seg_start[U]) return;
+  const int v = warp_lower_bound(seg_start, U + 1, p0 + 1) - 1;
+  const int s0 = seg_start[v];
+  const int s1 = seg_start[v + 1];
+  const int64_t p = s0 + (p0 - s0 + kPiece - 1) / kPiece * kPiece;
+  if (s0 >= p0 || p >= s1) return;
+  const int W = (kSquare ? 2 : 1) * D;
+  const int e = p + kPiece < s1 ? static_cast<int>(p + kPiece) : s1;
+  warp_piece<kSquare, kCols>(g_rows, perm, static_cast<int>(p), e, D,
+                             ws + k * W);
+  const bool last = threadIdx.x % kWarp == 0 && count_piece(joins, s0, s1);
+  if (__shfl_sync(0xffffffffu, last, 0)) {
+    join_pieces(sums + static_cast<int64_t>(v) * W, ws, s0 / kPiece + 1,
+                (s1 - s0 - 1) / kPiece, W);
+  }
+}
+
 // kSquare: [sum g | sum g^2] of a [n, D] payload (sums [U, 2D]);
 // otherwise the sum of a [n, D] payload as it is (sums [U, D]).  kCols
-// columns per pass over a segment: 16 in dedup mode (D <= 16 in one
-// pass), 32 in merge mode (P = 2D <= 32), 32 accumulators either way.
+// columns per pass over a segment (k1_launch picks it).
 // `stage`: the block's sums go through shared memory ([kSegs, W]).
+// Blocks [0, chunk_blocks) are chunk warps (pieces j >= 1 of the split
+// segments, into ws [ceil(n / kPiece), W], counted on joins
+// [ceil(n / kPiece) + 1]); the others own kSegs segments each.
 template <bool kSquare, int kCols>
 __global__ void __launch_bounds__(kSegs)
     k1_kernel(const float* __restrict__ g_rows, const int* __restrict__ ids,
               const int* __restrict__ perm,
               const int* __restrict__ seg_start, int* __restrict__ urows,
-              float* __restrict__ sums, int U, int D, bool stage) {
+              float* __restrict__ sums, float* __restrict__ ws,
+              unsigned* __restrict__ joins, int U, int D, int chunk_blocks,
+              bool stage) {
   extern __shared__ float staged[];
+  __shared__ unsigned split_mask[kSegs / kWarp];
   constexpr int kWidth = kSquare ? 2 : 1;
   const int W = kWidth * D;
   const int t = threadIdx.x;
   const int lane = t % kWarp;
-  const int64_t u0 = static_cast<int64_t>(blockIdx.x) * kSegs;
+  if (static_cast<int>(blockIdx.x) < chunk_blocks) {
+    chunk_warp<kSquare, kCols>(
+        g_rows, perm, seg_start, sums, ws, joins, U, D,
+        1 + static_cast<int64_t>(blockIdx.x) * kChunkWarps + t / kWarp);
+    return;
+  }
+  const int64_t u0 =
+      static_cast<int64_t>(static_cast<int>(blockIdx.x) - chunk_blocks) *
+      kSegs;
   const int64_t u = u0 + t;
-  // Every thread stays to the end: the warp's ballot and shuffles and
-  // the block's barrier take them all.  A thread past U has an empty
-  // segment and writes nothing.  An empty segment below U (the whole
-  // slot's past the batch's unique ids) gets row -1, which K2 skips, and
-  // no sums.
+  // Every thread of a segment block stays to the end: the warp's ballot
+  // and shuffles and the block's barrier take them all.  A thread past U
+  // has an empty segment and writes nothing.  An empty segment below U
+  // (the whole slot's past the batch's unique ids) gets row -1, which K2
+  // skips, and no sums.
   int s0 = 0;
   int s1 = 0;
   if (u < U) {
@@ -257,13 +503,17 @@ __global__ void __launch_bounds__(kSegs)
       }
     }
   }
-  // The warp's long segments, one after another.
+  // The warp's long segments, one after another: the whole segment, or
+  // piece 0 of a split one.  warp_piece's sum, written out: through the
+  // helper the merge shapes with such segments measured up to 37 %
+  // slower (PERF.md).
   unsigned todo = __ballot_sync(0xffffffffu, s1 - s0 > kShort);
   while (todo) {
     const int owner = __ffs(todo) - 1;
     todo &= todo - 1;
     const int b = __shfl_sync(0xffffffffu, s0, owner);
     const int e = __shfl_sync(0xffffffffu, s1, owner);
+    const int e0 = e - b > kPiece ? b + kPiece : e;
     float* const dst = out + (owner - lane) * W;
     for (int c0 = 0; c0 < D; c0 += kCols) {
       float a1[kCols];
@@ -273,7 +523,7 @@ __global__ void __launch_bounds__(kSegs)
         a1[c] = 0.0f;
         a2[c] = 0.0f;
       }
-      add_rows<kSquare>(g_rows, perm, b + lane, e, kWarp, c0, D, a1, a2);
+      add_rows<kSquare>(g_rows, perm, b + lane, e0, kWarp, c0, D, a1, a2);
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         if (c0 + c < D) {  // warp-uniform: every lane takes the same branch
@@ -287,13 +537,29 @@ __global__ void __launch_bounds__(kSegs)
       }
     }
   }
+  // The split segments count once piece 0 is in sums: at once where the
+  // warp wrote it there, after the block's copy where it was staged (the
+  // warps' flags ride the copy's barrier; a second barrier only in a
+  // block that has one).
+  const unsigned splits = __ballot_sync(0xffffffffu, s1 - s0 > kPiece);
+  bool count = splits != 0;
   if (stage) {
+    if (lane == 0) split_mask[t / kWarp] = splits;
     // The block's non-empty segments are its first ones: a barrier that
     // counts them.
     const int m = __syncthreads_count(s1 > s0) * W;
+    unsigned any = 0;
+#pragma unroll
+    for (int w = 0; w < kSegs / kWarp; ++w) any |= split_mask[w];
     float* const block_sums = sums + u0 * W;
     for (int i = t; i < m; i += kSegs) block_sums[i] = staged[i];
+    if (any) {
+      __threadfence();
+      __syncthreads();
+    }
+    count = split_mask[t / kWarp] != 0;
   }
+  if (count) count_splits(sums, ws, joins, seg_start, U, W, u0);
 }
 
 // The optimizer's formula at one element, on values in registers: the
@@ -356,40 +622,6 @@ __global__ void __launch_bounds__(kK2Threads)
     if (kOpt != kSgd) state1[pos0 + c] = a;
     if (kOpt == kFtrl) state2[pos0 + c] = b;
   }
-}
-
-// First index of sorted a[0..n) whose value is >= key (n when none is),
-// for a key >= 0, found by the whole warp: each step probes 32 evenly
-// spaced entries at once and keeps the gap between the last one below
-// the key and the first one not, so U = 2^17 entries take 4 dependent
-// loads, not 17.  A negative entry counts as past every key: K1's rows
-// on the whole slot end in a run of -1, which thereby sorts last and
-// falls in no block's range.  Every lane of the warp calls it and gets
-// the index.
-__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a,
-                                                int n, int64_t key) {
-  const int lane = threadIdx.x % kWarp;
-  int lo = 0;
-  int hi = n;
-  while (lo < hi) {
-    const int step = (hi - lo - 1) / kWarp + 1;
-    const int64_t i = lo + static_cast<int64_t>(lane) * step;
-    bool below = false;
-    if (i < hi) {
-      const int v = a[i];
-      below = v >= 0 && static_cast<int64_t>(v) < key;
-    }
-    // On a sorted a the lanes below the key are a prefix: c of them.
-    const int c = __popc(__ballot_sync(0xffffffffu, below));
-    if (c == 0) {
-      hi = lo;
-    } else {
-      const int64_t top = lo + static_cast<int64_t>(c) * step;
-      lo += (c - 1) * step + 1;
-      hi = top < hi ? static_cast<int>(top) : hi;
-    }
-  }
-  return lo;
 }
 
 // K-place: block b owns tile b, the floats [f0, f1) of delta ([vocab_local,
@@ -483,23 +715,32 @@ __global__ void __launch_bounds__(kPlaceThreads)
   }
 }
 
-// Launches K1 in either mode: one block per kSegs segments, the
-// block's sums staged in shared memory when they fit.
-template <bool kSquare>
+// Launches K1 in either mode: the chunk warps' blocks (four chunks a
+// block, from chunk 1 on), then one block per kSegs segments, the
+// block's sums staged in shared memory when they fit.  kCols columns a
+// pass over a segment's positions.
+template <bool kSquare, int kCols>
 int k1_launch(const void* payload, const void* ids, const void* perm,
-              const void* seg_start, void* urows, void* sums, int U, int D,
-              void* stream) {
-  if (U <= 0 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kCols = kSquare ? 16 : 32;
+              const void* seg_start, void* urows, void* sums, void* ws,
+              void* joins, int U, int n, int D, void* stream) {
+  if (U <= 0 || n < U || D < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int64_t w = (kSquare ? 2 : 1) * static_cast<int64_t>(D);
   const bool stage = w * kSegs <= kStageFloats;
-  const int64_t blocks = (static_cast<int64_t>(U) + kSegs - 1) / kSegs;
+  const int64_t chunks = (static_cast<int64_t>(n) + kPiece - 1) / kPiece;
+  const int64_t chunk_blocks =
+      chunks > 1 ? (chunks - 1 + kChunkWarps - 1) / kChunkWarps : 0;
+  const int64_t blocks =
+      chunk_blocks + (static_cast<int64_t>(U) + kSegs - 1) / kSegs;
   k1_kernel<kSquare, kCols><<<static_cast<unsigned>(blocks), kSegs,
                               stage ? w * kSegs * sizeof(float) : 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(payload), static_cast<const int*>(ids),
       static_cast<const int*>(perm), static_cast<const int*>(seg_start),
-      static_cast<int*>(urows), static_cast<float*>(sums), U, D, stage);
+      static_cast<int*>(urows), static_cast<float*>(sums),
+      static_cast<float*>(ws), static_cast<unsigned*>(joins), U, D,
+      static_cast<int>(chunk_blocks), stage);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -507,20 +748,30 @@ int k1_launch(const void* payload, const void* ids, const void* perm,
 
 // K1.  Launches on `stream` and returns cudaGetLastError() (0 =
 // launched).  The caller checks shapes, types and contiguity and
-// allocates urows [U] and sums [U, 2D].
+// allocates urows [U], sums [U, 2D] and the workspace ws
+// [ceil(n / K1_PIECE), 2D], and owns the join counters joins
+// [ceil(n / K1_PIECE) + 1] u32, zero before the first launch and left
+// zero by each; n is the payload's rows.
 extern "C" int k1_dedup(const void* g_rows, const void* ids,
                         const void* perm, const void* seg_start, void* urows,
-                        void* sums, int U, int D, void* stream) {
-  return k1_launch<true>(g_rows, ids, perm, seg_start, urows, sums, U, D,
-                         stream);
+                        void* sums, void* ws, void* joins, int U, int n,
+                        int D, void* stream) {
+  return k1_launch<true, 16>(g_rows, ids, perm, seg_start, urows, sums, ws,
+                             joins, U, n, D, stream);
 }
 
-// K1 merge mode: sums [U, P] of a [n, P] payload taken as it is.
+// K1 merge mode: sums [U, P] of a [n, P] payload taken as it is (ws
+// [ceil(n / K1_PIECE), P]).  16 columns a pass up to P = 16, else 32; a
+// column's sum is the same at any width.  Dedup mode takes 16 (32
+// accumulators with the squares): D = 33 in two passes of 17 measured
+// 25 % slower than three of 16 (PERF.md).
 extern "C" int k1_merge(const void* payload, const void* ids,
                         const void* perm, const void* seg_start, void* urows,
-                        void* sums, int U, int P, void* stream) {
-  return k1_launch<false>(payload, ids, perm, seg_start, urows, sums, U, P,
-                          stream);
+                        void* sums, void* ws, void* joins, int U, int n,
+                        int P, void* stream) {
+  const auto launch = P <= 16 ? k1_launch<false, 16> : k1_launch<false, 32>;
+  return launch(payload, ids, perm, seg_start, urows, sums, ws, joins, U, n,
+                P, stream);
 }
 
 // K2.  `opt`: 0 = SGD (table only), 1 = Adagrad (state1 = accumulator,

@@ -74,13 +74,13 @@ from fast_tffm_tpu_torch.data.libsvm import SortMeta
 from fast_tffm_tpu_torch.ops import _build
 
 __all__ = [
-    "CHUNK", "K1_SHORT", "OPTIMIZERS", "TILE", "Hyper", "adagrad_update",
-    "apply", "cut_slot", "dedup_entries", "dense_delta", "dense_grad",
-    "entries_cap", "entries_rows", "ftrl_solve",
+    "CHUNK", "K1_PIECE", "K1_SHORT", "OPTIMIZERS", "TILE", "Hyper",
+    "adagrad_update", "apply", "cut_slot", "dedup_entries", "dense_delta",
+    "dense_grad", "entries_cap", "entries_rows", "ftrl_solve",
     "ftrl_update", "k1_dedup_cuda", "k1_dedup_plain", "k1_error_bound",
-    "k1_merge_cuda", "k1_merge_plain", "k2_apply_cuda", "k2_apply_plain",
-    "kplace_cuda", "kplace_plain", "merge_entries", "resolve_exchange",
-    "sgd_update", "sort_meta", "unique_entries",
+    "k1_joins_pending", "k1_merge_cuda", "k1_merge_plain", "k2_apply_cuda",
+    "k2_apply_plain", "kplace_cuda", "kplace_plain", "merge_entries",
+    "resolve_exchange", "sgd_update", "sort_meta", "unique_entries",
 ]
 
 # optimizer -> (code in csrc/sparse_apply.cu, number of tables updated)
@@ -96,6 +96,11 @@ TILE = 256
 # The longest segment K1 sums with one thread; a longer one takes a
 # warp (csrc/sparse_apply.cu::kShort, which must agree).
 K1_SHORT = 16
+# The longest segment K1 sums with one warp: a longer one is cut into
+# pieces of K1_PIECE sorted positions from its first, summed by as many
+# warps and joined in position order (csrc/sparse_apply.cu::kPiece,
+# which must agree).  K1's workspace has ceil(n / K1_PIECE) rows.
+K1_PIECE = 512
 # Widest row K-place takes: the kernel stages nothing in shared memory,
 # so only its C interface's int bounds W (csrc/sparse_apply.cu::kplace).
 _KPLACE_MAX_WIDTH = _INT32_MAX
@@ -257,42 +262,81 @@ def k1_merge_plain(payload, ids, perm, seg_start):
                          seg_start)
 
 
-def k1_error_bound(seg_start, mass):
+def k1_error_bound(seg_start, mass, piece: int = K1_PIECE):
     """Largest ``|K1 - exact|`` the kernel's order of summation allows
     for each segment, each rounding off by at most ``2^-24`` of the
     segment's mass (the sum of the absolute terms, ``[U, 2D]``, e.g.
     :func:`k1_dedup_plain` of ``|g|`` in float64); 1.01 covers the
     second-order terms.  A segment of at most :data:`K1_SHORT`
     occurrences is summed by one thread in sorted order: ``count - 1``
-    roundings of the sum and one of ``g*g``.  A longer one is summed by
-    a warp: a lane adds its ``ceil(count / 32)`` terms in turn, five
-    shuffle levels join the lanes and ``g*g`` is rounded once."""
+    roundings of the sum and one of ``g*g``.  A longer one is cut into
+    ``ceil(count / piece)`` pieces of at most ``piece`` occurrences
+    (:data:`K1_PIECE`; one piece up to ``piece``), each summed by a
+    warp: a lane adds its ``ceil(min(count, piece) / 32)`` terms in
+    turn, five shuffle levels join the lanes and ``g*g`` is rounded
+    once; then the pieces are added in position order, ``pieces - 1``
+    roundings more for the first piece's terms."""
     counts = (seg_start[1:] - seg_start[:-1]).double()[:, None]
-    roundings = torch.where(counts <= K1_SHORT, counts,
-                            torch.ceil(counts / 32) + 6)
+    pieces = torch.ceil(counts / piece)
+    warp = torch.ceil(torch.clamp(counts, max=piece) / 32) + 6 + pieces - 1
+    roundings = torch.where(counts <= K1_SHORT, counts, warp)
     return roundings * 2.0**-24 * 1.01 * mass
 
 
 def _k1_launch(entry: str, width: int, payload, ids, perm, seg_start):
     u = seg_start.numel() - 1  # n on the whole slot
-    p = payload.shape[1]
-    urows = torch.empty((u,), dtype=torch.int32, device=payload.device)
-    sums = torch.empty((u, width * p), dtype=torch.float32,
-                       device=payload.device)
+    n, p = payload.shape
+    dev = payload.device
+    urows = torch.empty((u,), dtype=torch.int32, device=dev)
+    sums = torch.empty((u, width * p), dtype=torch.float32, device=dev)
     if u == 0:
         return urows, sums, False
+    # The pieces' partial sums, a row for each chunk of K1_PIECE sorted
+    # positions: sized by n, never by U or the longest segment.
+    chunks = -(-n // K1_PIECE)
+    ws = torch.empty((chunks, width * p), dtype=torch.float32, device=dev)
     lib = _build.load()
-    with torch.cuda.device(payload.device):
-        stream = torch.cuda.current_stream(payload.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        joins = _k1_joins(dev, stream, chunks + 1)
         _launch(entry, getattr(lib, entry), payload.data_ptr(),
                 ids.data_ptr(), perm.data_ptr(), seg_start.data_ptr(),
-                urows.data_ptr(), sums.data_ptr(), u, p, stream)
+                urows.data_ptr(), sums.data_ptr(), ws.data_ptr(),
+                joins.data_ptr(), u, n, p, stream)
     return urows, sums, True
+
+
+# K1's join counters by (device, stream, slots): a launch counts its
+# split segments' pieces there and leaves every counter at zero, so one
+# zeroed set serves every launch on its stream, and launches on two
+# streams never share one.  A set is kept for good: a CUDA graph
+# captured on the stream holds its address.
+_K1_JOINS: dict = {}
+
+
+def _k1_joins(dev, stream: int, slots: int):
+    """The join counters for K1 launches on ``stream`` that need
+    ``slots`` of them, rounded up to a power of two so that a stream
+    keeps a few sets at most."""
+    slots = 1 << (slots - 1).bit_length()
+    key = (dev.index, stream, slots)
+    joins = _K1_JOINS.get(key)
+    if joins is None:
+        joins = _K1_JOINS.setdefault(
+            key, torch.zeros((slots,), dtype=torch.int32, device=dev))
+    return joins
+
+
+def k1_joins_pending() -> int:
+    """K1's join counters left nonzero, over every set (each launch
+    leaves them at zero).  Synchronizes; for tests."""
+    return sum(int(torch.count_nonzero(j)) for j in _K1_JOINS.values())
 
 
 def k1_dedup_cuda(g_rows, ids, perm, seg_start):
     """K1 through the CUDA kernel (a thread per short segment, a warp
-    per long one, no float atomics), on the current stream; CPU tensors
+    per long one, many warps per segment longer than :data:`K1_PIECE`,
+    no float atomics), on the current stream; CPU tensors
     take :func:`k1_dedup_plain`.  Returns ``(urows [U] i32, sums [U,
     2D])``, U being ``seg_start.numel() - 1`` (``n`` on the whole slot:
     rows past the batch's unique ids are -1, their sums unwritten)."""

@@ -44,7 +44,8 @@ import sys
 import numpy as np
 import torch
 
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+from fast_tffm_tpu_torch.tools.bench_common import PEAK_BYTES_PER_S, build_lib
+
 # name: (vocab_local, W, row_lo, placed, below, absent); the smoke's
 # record each one stands for.
 SHAPES = {
@@ -446,24 +447,6 @@ extern "C" int probe_run(int kind, const void* urows, const void* sums,
 """
 
 
-def build_lib(out_dir: str, name: str, src: str, include: str = ""):
-    """``nvcc`` one source into ``out_dir/lib<name>.so`` and load it."""
-    from fast_tffm_tpu_torch.ops import _build
-
-    os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, f"lib{name}.so")
-    cmd = [_build._nvcc(), _build._ARCH, "-std=c++17", "-O3", "-Xcompiler",
-           "-fPIC", "-Xptxas", "-v", "-shared", "-o", lib, src]
-    if include:
-        cmd[1:1] = ["-I", include]
-    done = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if done.returncode != 0:
-        raise RuntimeError(f"{' '.join(cmd)} failed:\n{done.stdout}"
-                           f"{done.stderr}")
-    print(done.stdout + done.stderr, file=sys.stderr, flush=True)
-    return ctypes.CDLL(lib)
-
-
 def entries(shape: str, dev):
     """``(urows [U] i32, sums [U, W] f32)`` of one shape, from a seed."""
     vocab_local, w, row_lo, placed, below, absent = SHAPES[shape]
@@ -593,8 +576,9 @@ def main(argv=None) -> int:
     if args.parent:
         csrc = os.path.join(os.path.abspath(args.parent),
                             "fast_tffm_tpu_torch", "ops", "csrc")
-        parent = build_lib(out_dir, "parent",
-                           os.path.join(csrc, "sparse_apply.cu"), csrc)
+        parent, log = build_lib(out_dir, "parent",
+                                os.path.join(csrc, "sparse_apply.cu"), csrc)
+        print(log, file=sys.stderr, flush=True)
         parent.kplace.argtypes = [ptr, ptr, i32, i64, i64, i32, ptr, ptr]
         parent.kplace.restype = i32
     if args.probes:
@@ -602,7 +586,8 @@ def main(argv=None) -> int:
         src = os.path.join(out_dir, "kplace_probes.cu")
         with open(src, "w") as f:
             f.write(PROBE_SRC)
-        probes = build_lib(out_dir, "probes", src)
+        probes, log = build_lib(out_dir, "probes", src)
+        print(log, file=sys.stderr, flush=True)
         probes.probe_tile_starts.argtypes = [ptr, ptr, ptr, i64, i64, i32,
                                              ptr, ptr]
         probes.probe_run.argtypes = [i32, ptr, ptr, ptr, i32, i64, i64, i32,

@@ -109,7 +109,10 @@ def test_recorder_bundles_as_the_reference(tmp_path):
                           trace_tail_fn=lambda n=256: [
                               {"name": "train.dispatch", "ph": "X",
                                "ts": 1, "dur": 2, "pid": 1, "tid": 1,
-                               "args": {"sb": 0}}])
+                               "args": {"sb": 0}}],
+                          # One fixed second: the two dumps below fall in
+                          # it however slow the host.
+                          clock=lambda: 1_792_000_000.5)
         for r in recs:
             bb.observe_record(r)
         bb.observe_alert(alert)

@@ -978,6 +978,82 @@ def test_k1_thread_and_warp_segments(gpu, mode, width):
     assert torch.equal(urows, urows2) and torch.equal(sums, sums2)
 
 
+def _piece_counts():
+    """300 segments around K1's piece length: a hot segment first and
+    last, one of exactly a piece, one past it, one short of it, and two
+    of several pieces, among short ones (so their starts fall mid-chunk
+    and their pieces straddle the chunks' boundaries)."""
+    c, t = sparse_apply.K1_PIECE, sparse_apply.K1_SHORT
+    counts = np.resize([1, 2, t + 1, 3, 40, 1, t], 300)
+    counts[[0, 50, 51, 120, 121, 200, 299]] = (
+        4 * c + 37, c, c + 1, 2 * c + 3, c - 1, 5 * c + 11, 3 * c + 1)
+    return counts
+
+
+def _graphed(fn):
+    """``fn()``'s outputs from one replay of a CUDA graph that captured
+    it (after a warm-up call on a side stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slot", ["whole", "sentinel"])
+@pytest.mark.parametrize("mode, width", [
+    ("dedup", 1), ("dedup", 9), ("dedup", 16), ("dedup", 17),
+    ("dedup", 50), ("merge", 7), ("merge", 18), ("merge", 33), ("merge", 97),
+])
+def test_k1_pieces_of_long_segments(gpu, mode, width, slot):
+    """Segments longer than a piece, split over many warps and joined in
+    position order, on the whole [n + 1] slot and on a cut slot whose
+    sentinel tail (NaN payloads) is left out, at every width the thread
+    / warp test takes: rows exact, sums within the bound of the new
+    order, bitwise equal over two calls and between a CUDA-graph replay
+    and an eager call, and every join counter back at zero."""
+    counts = _piece_counts()
+    ids, rng = _segments(counts, seed=width)
+    pay = rng.normal(size=(ids.size, width)).astype(np.float32)
+    sentinel = 3 * counts.size + 10
+    if slot == "sentinel":
+        tail = 3 * sparse_apply.K1_PIECE + 5
+        ids = np.concatenate([ids, np.full(tail, sentinel, np.int32)])
+        pay = np.concatenate([pay, np.full((tail, width), np.nan,
+                                           np.float32)])
+        order = rng.permutation(ids.size)
+        ids, pay = ids[order], pay[order]
+    put = lambda a: torch.from_numpy(a).to(gpu)  # noqa: E731
+    ids_d, pay_d = put(ids), put(pay)
+    meta = sparse_apply.sort_meta(ids_d, drop_from=sentinel)
+    cut = sparse_apply.cut_slot(meta)
+    if slot == "sentinel":
+        meta = cut
+    u = cut.seg_start.numel() - 1
+    assert u == counts.size
+    urows, sums, urows2, sums2, want_rows, want64, _ = _k1_run(
+        mode, pay_d, ids_d, meta)
+    assert torch.equal(urows, want_rows) and torch.equal(urows, urows2)
+    assert torch.equal(sums[:u], sums2[:u])
+    assert bool(torch.isfinite(sums[:u]).all())
+    _, mass = getattr(sparse_apply, f"k1_{mode}_plain")(
+        pay_d.abs().double().nan_to_num(), ids_d, meta.perm, meta.seg_start)
+    bound = sparse_apply.k1_error_bound(cut.seg_start, mass[:u])
+    assert bool(torch.all((sums[:u].double() - want64[:u]).abs() <= bound))
+    kern = getattr(sparse_apply, f"k1_{mode}_cuda")
+    g_rows, g_sums = _graphed(
+        lambda: kern(pay_d, ids_d, meta.perm, meta.seg_start))
+    assert torch.equal(g_rows, urows) and torch.equal(g_sums[:u], sums[:u])
+    assert sparse_apply.k1_joins_pending() == 0
+
+
 @pytest.mark.gpu
 def test_k1_merge_of_a_four_block_mesh(gpu):
     """K1's merge mode on the entries exchange of a 4 x 1 mesh: four
@@ -2533,7 +2609,7 @@ def test_k1_k2_adagrad_match_plain_at_the_baseline_widths(gpu, name):
     """K1 and K2 (Adagrad) on a batch's whole ``[n + 1]`` slot at config
     2's and config 4's shape: K1's rows exact and its sums within the
     error its order allows (the padding id's 16,384 and the Zipf head's
-    ~10^6 occurrences are warp-summed segments), K2's tables within the
+    ~10^6 occurrences are segments of many pieces), K2's tables within the
     tile-vs-scatter bounds of the plain version on the same sums."""
     b, f, vocab = _BASELINE_SHAPES[name]
     ids = torch.from_numpy(_baseline_ids(name)).to(gpu).reshape(-1)

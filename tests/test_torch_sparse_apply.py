@@ -314,18 +314,10 @@ def test_kplace_wrapper_refuses_what_the_kernel_does_not_take(change, err):
     assert torch.equal(delta[[1, 5]], _KPLACE_ARGS[1])
 
 
-def _k1_order_f32(x, short):
-    """float32 sum of one segment's payload ``x [count, W]`` in the K1
-    kernel's order: one thread adds the rows in turn when ``count <=
-    short``; otherwise lane ``l`` of a warp adds rows ``l, l + 32, ...``
-    in turn and an xor-shuffle tree (offsets 16, 8, 4, 2, 1) joins the
-    32 lanes."""
-    x = x.astype(np.float32)
-    if len(x) <= short:
-        acc = np.zeros(x.shape[1], np.float32)
-        for row in x:
-            acc = acc + row
-        return acc
+def _k1_warp_f32(x):
+    """float32 sum of rows ``x [m, W]`` in a K1 warp's order: lane ``l``
+    adds rows ``l, l + 32, ...`` in turn and an xor-shuffle tree
+    (offsets 16, 8, 4, 2, 1) joins the 32 lanes."""
     lanes = np.zeros((32, x.shape[1]), np.float32)
     for k in range(0, len(x), 32):
         step = x[k:k + 32]
@@ -335,25 +327,58 @@ def _k1_order_f32(x, short):
     return lanes[0]
 
 
+def _k1_order_f32(x, short, piece=sparse_apply.K1_PIECE):
+    """float32 sum of one segment's payload ``x [count, W]`` in the K1
+    kernel's order: one thread adds the rows in turn when ``count <=
+    short``; otherwise the rows are cut into pieces of ``piece`` from
+    the first, each summed in a warp's order (:func:`_k1_warp_f32`), and
+    the pieces added in turn, the first one first."""
+    x = x.astype(np.float32)
+    if len(x) <= short:
+        acc = np.zeros(x.shape[1], np.float32)
+        for row in x:
+            acc = acc + row
+        return acc
+    acc = _k1_warp_f32(x[:piece])
+    for j in range(piece, len(x), piece):
+        acc = acc + _k1_warp_f32(x[j:j + piece])
+    return acc
+
+
+def _cancelling_payload(count, seed):
+    """``[g | g*g]`` of ``count`` float32 rows built to cancel (each
+    term's negative appears too, perturbed, at magnitudes spread over
+    2^+-12), ``g*g`` rounded once, with its exact sums and its mass."""
+    rng = np.random.default_rng(seed)
+    half = (count + 1) // 2
+    big = rng.normal(size=(half, D)) * 2.0 ** rng.uniform(-12, 12, (half, 1))
+    g = np.concatenate([big, -big * (1 + 1e-3 * rng.normal(size=big.shape))])
+    g = g[rng.permutation(2 * half)[:count]].astype(np.float32)
+    payload = np.concatenate([g, g * g], axis=1)
+    exact = np.concatenate([g.astype(np.float64),
+                            g.astype(np.float64) ** 2], axis=1).sum(0)
+    mass = np.abs(payload.astype(np.float64)).sum(0)
+    return payload, exact, mass
+
+
+_PIECE = sparse_apply.K1_PIECE
+
+
 @pytest.mark.parametrize("count", [
     sparse_apply.K1_SHORT - 1, sparse_apply.K1_SHORT,
     sparse_apply.K1_SHORT + 1, 82, 5000,
+    _PIECE - 1, _PIECE, _PIECE + 1, 2 * _PIECE, 3 * _PIECE + 17,
+    7 * _PIECE + 1,
 ])
 def test_k1_error_bound_covers_the_kernels_order_of_summation(count):
     """The kernel's order of summation, emulated in float32, stays
     within k1_error_bound of the exact sums, on payloads built to cancel
     (each term's negative appears too, perturbed, at magnitudes spread
-    over 2^+-12): the bound's derivation, held where there is no card."""
-    rng = np.random.default_rng(count)
-    half = (count + 1) // 2
-    big = rng.normal(size=(half, D)) * 2.0 ** rng.uniform(-12, 12, (half, 1))
-    g = np.concatenate([big, -big * (1 + 1e-3 * rng.normal(size=big.shape))])
-    g = g[rng.permutation(2 * half)[:count]].astype(np.float32)
-    payload = np.concatenate([g, g * g], axis=1)  # g*g rounded once
+    over 2^+-12): the bound's derivation, held where there is no card.
+    Counts on both sides of the thread / warp split and of one, two and
+    several pieces."""
+    payload, exact, mass = _cancelling_payload(count, count)
     got = _k1_order_f32(payload, sparse_apply.K1_SHORT)
-    exact = np.concatenate([g.astype(np.float64),
-                            g.astype(np.float64) ** 2], axis=1).sum(0)
-    mass = np.abs(np.concatenate([g, g * g], axis=1).astype(np.float64)).sum(0)
     bound = sparse_apply.k1_error_bound(
         torch.tensor([0, count], dtype=torch.int32),
         torch.from_numpy(mass[None, :]),
@@ -361,6 +386,102 @@ def test_k1_error_bound_covers_the_kernels_order_of_summation(count):
     err = np.abs(got.astype(np.float64) - exact)
     assert err.max() > 0  # the float32 order did round
     assert np.all(err <= bound), (err / bound).max()
+
+
+@pytest.mark.parametrize("piece, count, start", [
+    (64, 64 * 5 + 3, 37), (64, 65, 63), (256, 256 * 9 - 1, 255),
+    (_PIECE, 2 * _PIECE + 5, 1), (_PIECE, 4 * _PIECE, _PIECE - 1),
+])
+def test_k1_error_bound_counts_pieces_from_the_segment_start(piece, count,
+                                                            start):
+    """A segment that starts mid-chunk, beside short ones: its pieces
+    are counted from its own first position, so the order and the bound
+    depend on its count alone; every segment of the slot stays within
+    k1_error_bound at the given piece length, and more pieces allow
+    more error (the join's roundings)."""
+    rng = np.random.default_rng(piece + count)
+    counts = np.diff(np.unique(np.concatenate(
+        [[0, start], rng.integers(1, start + 1, 5)])))
+    counts = np.append(counts, [count, 3, sparse_apply.K1_SHORT + 2])
+    seg_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    assert seg_start[-4] == start
+    masses, errs = [], []
+    for i, c in enumerate(counts):
+        payload, exact, mass = _cancelling_payload(int(c), 7 * i + c)
+        got = _k1_order_f32(payload, sparse_apply.K1_SHORT, piece)
+        masses.append(mass)
+        errs.append(np.abs(got.astype(np.float64) - exact))
+    bound = sparse_apply.k1_error_bound(
+        torch.from_numpy(seg_start), torch.from_numpy(np.stack(masses)),
+        piece=piece).numpy()
+    assert np.all(np.stack(errs) <= bound), (np.stack(errs) / bound).max()
+    ones = torch.ones((1, 2 * D), dtype=torch.float64)
+    per_mass = [float(sparse_apply.k1_error_bound(
+        torch.tensor([0, c], dtype=torch.int32), ones, piece=piece)[0, 0])
+        for c in (piece, piece + 1, 3 * piece, 3 * piece + 1)]
+    assert per_mass == sorted(per_mass) and per_mass[0] < per_mass[1]
+
+
+def _k1_chunk_pieces(seg_start, n, piece):
+    """The pieces the kernel's chunk warps take, as ``{chunk: (segment,
+    first position)}``, by the kernel's rule: chunk ``k >= 1`` with
+    ``p0 = k * piece`` below ``seg_start[U]`` finds the last segment
+    ``v`` with ``seg_start[v] <= p0`` and takes the piece of ``v`` that
+    starts in the chunk, if ``v`` started before it and has one there."""
+    u = len(seg_start) - 1
+    taken = {}
+    for k in range(1, -(-n // piece)):
+        p0 = k * piece
+        if p0 >= seg_start[u]:
+            continue
+        v = int(np.searchsorted(seg_start, p0, side="right")) - 1
+        assert v < u
+        s0, s1 = int(seg_start[v]), int(seg_start[v + 1])
+        p = s0 + -(-(p0 - s0) // piece) * piece
+        if s0 < p0 and p < s1:
+            assert p0 <= p < p0 + piece
+            taken[k] = (v, p)
+    return taken
+
+
+@pytest.mark.parametrize("slot", ["cut", "whole", "sentinel"])
+@pytest.mark.parametrize("piece", [64, _PIECE])
+def test_k1_chunk_warps_take_every_piece_once(slot, piece):
+    """The partition the kernel relies on, on the slots it is given (the
+    cut slot, the whole slot padded with n, and a cut slot whose
+    sentinel tail is left out): every piece j >= 1 of every segment
+    longer than a piece is taken by exactly one chunk warp, the one its
+    workspace row and its join read (chunk floor(s0 / piece) + j, so a
+    segment's rows are consecutive from its counter's slot
+    floor(s0 / piece) + 1), and no chunk takes anything else."""
+    rng = np.random.default_rng(piece)
+    ids = np.concatenate([
+        np.full(3 * piece + 7, 5), rng.integers(10, 4000, 6000),
+        np.full(piece + 1, 4001), np.full(piece, 4002),
+        np.full(5 * piece - 3, 4003), rng.integers(4004, 9000, 3000),
+        np.full(2 * piece + 1, 9001)]).astype(np.int32)
+    if slot == "sentinel":
+        ids = np.concatenate([ids, np.full(4 * piece + 9, 9999, np.int32)])
+    ids = ids[rng.permutation(ids.size)]
+    meta = sparse_apply.sort_meta(
+        torch.from_numpy(ids), drop_from=9999 if slot == "sentinel" else None)
+    if slot != "whole":
+        meta = sparse_apply.cut_slot(meta)
+    seg_start = meta.seg_start.numpy()
+    n = ids.size
+    want = {}
+    for v in range(len(seg_start) - 1):
+        s0, s1 = int(seg_start[v]), int(seg_start[v + 1])
+        for j in range(1, -(-(s1 - s0) // piece)):
+            want[s0 // piece + j] = (v, s0 + j * piece)
+    assert len(want) >= 8
+    assert _k1_chunk_pieces(seg_start, n, piece) == want
+    # A split segment's counter slot lies inside the workspace, and the
+    # counters of two segments differ.
+    slots = [int(seg_start[v]) // piece + 1
+             for v in range(len(seg_start) - 1)
+             if seg_start[v + 1] - seg_start[v] > piece]
+    assert len(set(slots)) == len(slots) and max(slots) < -(-n // piece)
 
 
 def test_k1_thread_segment_limit_is_the_kernels():
@@ -374,3 +495,43 @@ def test_k1_thread_segment_limit_is_the_kernels():
     with open(src) as f:
         found = re.findall(r"constexpr int kShort = (\d+);", f.read())
     assert found == [str(sparse_apply.K1_SHORT)]
+
+
+def test_k1_piece_is_the_kernels():
+    """The error bound's piece length and the wrapper's workspace rows
+    are the kernel's own (csrc/sparse_apply.cu::kPiece)."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(sparse_apply.__file__), "csrc",
+                       "sparse_apply.cu")
+    with open(src) as f:
+        found = re.findall(r"constexpr int kPiece = (\d+);", f.read())
+    assert found == [str(sparse_apply.K1_PIECE)]
+
+
+def test_k1_join_counters_are_one_zeroed_set_per_stream():
+    """The wrapper's join counters: zeroed, rounded up to a power of two
+    slots, the same set for every launch on one stream and size class,
+    another for another stream (so launches that may run at once never
+    share a counter)."""
+    dev = torch.device("cpu")
+    made = []
+    try:
+        a = sparse_apply._k1_joins(dev, 11, 5)
+        made.append((dev.index, 11, 8))
+        assert a.shape == (8,) and a.dtype == torch.int32
+        assert not bool(a.any())
+        assert sparse_apply._k1_joins(dev, 11, 8) is a
+        b = sparse_apply._k1_joins(dev, 12, 5)
+        made.append((dev.index, 12, 8))
+        assert b is not a
+        c = sparse_apply._k1_joins(dev, 11, 9)
+        made.append((dev.index, 11, 16))
+        assert c.shape == (16,) and sparse_apply._k1_joins(dev, 11, 7) is a
+        assert sparse_apply.k1_joins_pending() == 0
+        a[3] = 1
+        assert sparse_apply.k1_joins_pending() == 1
+    finally:
+        for key in made:
+            sparse_apply._K1_JOINS.pop(key, None)
